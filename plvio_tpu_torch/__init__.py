@@ -10,7 +10,8 @@ nvcc for sm_90a at first use, see `cuda.py`).  Each kernel's wrapper runs
 its plain PyTorch version for CPU tensors and launches the kernel for CUDA
 tensors; there is no silent fallback between the two.
 
-Slice ported so far: the point+line tracked frame (`entry.py`).
+Slices ported so far (`entry.py`): the point+line tracked frame and the
+production mono-inertial point+line frame.
 """
 import torch
 

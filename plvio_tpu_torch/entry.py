@@ -6,12 +6,17 @@ tracking_step_pl(...) -> (step, example_args): the flagship point+line
                          2-level line front end, the point and line
                          projection matches and the fused point+line pose
                          IRLS
+tracking_step_vi(...) -> (step, init_carry): the production
+                         mono-inertial point+line frame (port of
+                         __graft_entry__._tracking_step_vi_fn :128)
 entry(device)         -> tracking_step_pl at EuRoC geometry on `device`
 
 `step` is an nn.Module; `step(*example_args)` returns (pose [3,4],
-n_inliers).  Descriptors are packed [*,8] int32 (the uint32 bits of the
-reference, see state.from_numpy).  `plain=True` runs the plain PyTorch
-versions of the four kernels on any device, for comparing the two paths.
+n_inliers); the VI step is `step(carry, (img, gyro, acc, dts), *map_args)
+-> (carry, (n_inl, n_line_matched))`.  Descriptors are packed [*,8] int32
+(the uint32 bits of the reference, see state.from_numpy).  `plain=True`
+runs the plain PyTorch versions of the kernels on any device, for
+comparing the two paths.
 """
 from __future__ import annotations
 
@@ -19,8 +24,11 @@ import numpy as np
 import torch
 from torch import nn
 
+from plvio_tpu.config import ImuConfig
+
 from .models.kernels import (fast_pose_opt, fast_pose_opt_pl,
-                             line_proj_match_core)
+                             line_proj_match_core, make_vi_pose_optimizer)
+from .ops import imu as IMU
 from .ops import matching as M
 from .ops.frontend import OrbExtractor, make_level_specs
 from .ops.lines import LineExtractor
@@ -100,7 +108,7 @@ class TrackingStepPL(nn.Module):
         self.height, self.width, self.K, self.plain = height, width, K, plain
         self.orb = OrbExtractor(make_level_specs(height, width, n_features),
                                 plain=plain)
-        self.lines = LineExtractor(n_line_feat, levels=2)
+        self.lines = LineExtractor(n_line_feat, levels=2, plain=plain)
 
     def forward(self, img, pose_pred, pt_xyz, pt_desc, pt_valid, ln_ep6,
                 ln_desc, ln_valid):
@@ -120,6 +128,76 @@ class TrackingStepPL(nn.Module):
             ln_ep6[:, :3].contiguous(), ln_ep6[:, 3:].contiguous(),
             ln_matched, is2_l, plain=self.plain)
         return pose, n_inl
+
+
+class TrackingStepVI(nn.Module):
+    """The production mono-inertial point+line frame
+    (__graft_entry__._tracking_step_vi_fn): ORB and 2-level line
+    extraction, preintegration of the frame's IMU window at the carried
+    biases and the state prediction, the point projection match at the
+    predicted pose, the 15-DoF VI pose optimization with the carried
+    marginalization prior (Tbc = identity), and the line projection match
+    at the optimized pose.
+
+    forward(carry, (img [H,W], gyro [n_imu,3], acc [n_imu,3], dts
+    [n_imu]), pt_xyz, pt_desc, pt_valid, ln_ep6, ln_desc, ln_valid) ->
+    (carry, (n_inl, n_line_matched)); carry = (pose_wb [3,4], vel [3], bg
+    [3], ba [3], H15 [15,15])."""
+
+    def __init__(self, height: int, width: int, n_features: int,
+                 cap_pts: int, n_line_feat: int, n_imu: int = 10,
+                 gravity: float = 9.81, plain: bool = False,
+                 K: PinholeK = K_EUROC):
+        super().__init__()
+        self.height, self.width, self.K, self.plain = height, width, K, plain
+        self.orb = OrbExtractor(make_level_specs(height, width, n_features),
+                                plain=plain)
+        self.lines = LineExtractor(n_line_feat, levels=2, plain=plain)
+        cfg = ImuConfig(gravity=gravity)     # prediction and residual agree
+        self.calib = IMU.make_calib(cfg)
+        self.vi_opt = make_vi_pose_optimizer(
+            K, cap_pts, np.eye(3, dtype=np.float32),
+            np.zeros(3, np.float32), gravity, plain=plain)
+        self.register_buffer("rw_info", torch.from_numpy(np.concatenate([
+            np.full(3, 1.0 / (cfg.gyro_walk ** 2 * n_imu)),
+            np.full(3, 1.0 / (cfg.acc_walk ** 2 * n_imu))]).astype(
+                np.float32)))
+        self.register_buffer("imu_mask", torch.ones(n_imu, dtype=torch.bool))
+
+    def forward(self, carry, frame_xs, pt_xyz, pt_desc, pt_valid, ln_ep6,
+                ln_desc, ln_valid):
+        pose_wb, vel, bg, ba, H15 = carry
+        img, gyro, acc, dts = frame_xs
+        pose_wb = pose_wb.contiguous()
+        feats = self.orb(img)
+        lf = self.lines(img)
+        preint = IMU.imu_preint_plain if self.plain else IMU.imu_preint
+        imu = preint(gyro, acc, dts, self.imu_mask, self.calib, bg, ba,
+                     pose_wb, vel)
+        pre = imu.pre
+        pred_wb = torch.cat([imu.R2, imu.p2[:, None]], 1)
+        pose_cw = torch.cat([imu.R2.T, (-imu.R2.T @ imu.p2)[:, None]], 1)
+        uv_m, ok, is2 = point_projection_match(
+            self.K, feats, pose_cw, pt_xyz, pt_desc, pt_valid, self.height,
+            self.width, self.plain)
+        uvr = torch.cat([uv_m, -torch.ones_like(uv_m[:, :1])], 1)
+        pre_const = {"dT": pre.dT, "dR": pre.dR, "dV": pre.dV, "dP": pre.dP,
+                     "JRg": pre.JRg, "JVg": pre.JVg, "JVa": pre.JVa,
+                     "JPg": pre.JPg, "JPa": pre.JPa, "bg0": pre.bias_gyro,
+                     "ba0": pre.bias_acc}
+        prior_const = {"R0": pose_wb[:, :3], "p0": pose_wb[:, 3], "v0": vel,
+                       "bg0": bg, "ba0": ba}
+        pose_out, v_out, bg_out, ba_out, _, n_inl, H15n = self.vi_opt(
+            pred_wb, imu.v2, bg, ba, uvr, pt_xyz, ok, is2, pose_wb, vel,
+            pre_const, imu.imu_info, self.rw_info, prior_const, H15, True)
+        R_cw2 = pose_out[:, :3].T
+        pose_cw2 = torch.cat([R_cw2, (-R_cw2 @ pose_out[:, 3])[:, None]], 1)
+        _, ln_matched, _ = line_proj_match_core(
+            self.K, pose_cw2.contiguous(), ln_ep6, ln_desc, ln_valid, lf.ep,
+            lf.desc, lf.angle, lf.valid, lf.lineq, plain=self.plain)
+        H15n = H15n + torch.eye(15, device=H15n.device) * 1e-4
+        return ((pose_out, v_out, bg_out, ba_out, H15n),
+                (n_inl, ln_matched.sum()))
 
 
 def _example_points(rng, cap_pts, dev):
@@ -166,6 +244,22 @@ def tracking_step_pl(height: int = 480, width: int = 752,
                           plain).to(dev)
     return step, (img, pose, xyz, desc, valid, ln_ep6, ln_desc.to(dev),
                   ln_valid)
+
+
+def tracking_step_vi(height: int = 480, width: int = 752,
+                     n_features: int = 1000, cap_pts: int = 2048,
+                     n_line_feat: int = 256, n_imu: int = 10,
+                     gravity: float = 9.81, device="cpu",
+                     plain: bool = False):
+    """VI step and an initial carry (identity pose at rest, zero biases,
+    H15 = I).  The step takes a local map of any line capacity."""
+    dev = resolve_device(device)
+    step = TrackingStepVI(height, width, n_features, cap_pts, n_line_feat,
+                          n_imu, gravity, plain).to(dev)
+    z3 = torch.zeros(3, device=dev)
+    carry = (torch.eye(3, 4, device=dev), z3, z3.clone(), z3.clone(),
+             torch.eye(15, device=dev))
+    return step, carry
 
 
 def entry(device="cpu"):

@@ -1,4 +1,5 @@
-"""Synthetic tracking inputs (port of bench.build_inputs, bench.py:33-119).
+"""Synthetic tracking inputs (port of bench.build_inputs, bench.py:33-119,
+and of the VI frame's IMU windows, bench.py:407-433).
 
 The same synthetic room, orbit and frames (seed 0) as the reference; the
 local map's descriptors come from the port's own extractors, so nothing
@@ -14,6 +15,7 @@ from plvio_tpu.io import synthetic as syn
 from .entry import K_EUROC, resolve_device
 from .ops.frontend import make_extractor
 from .ops.lines import LineExtractor
+from .utils import lie
 
 
 def build_inputs(n_frames: int = 16, cap_pts: int = 2048, cap_lns: int = 128,
@@ -105,3 +107,66 @@ def build_inputs(n_frames: int = 16, cap_pts: int = 2048, cap_lns: int = 128,
             np.concatenate([R_cw, t_cw[:, None]], 1), dtype=np.float32))
     return (frames, poses, pt_xyz, pt_desc, pt_valid,
             ln_ep6, ln_desc, ln_valid, traj)
+
+
+def synthesize_imu(rng: np.random.Generator, duration: float,
+                   imu_rate: float = 200.0, radius: float = 1.5,
+                   height_amp: float = 0.3, omega: float = 0.45,
+                   noise_gyro: float = 1.7e-4, noise_acc: float = 2.0e-3,
+                   bias_gyro_mag: float = 0.002, bias_acc_mag: float = 0.02):
+    """IMU measurements along the orbit trajectory (port of
+    plvio_tpu.io.synthetic.synthesize_imu, whose float32 rotation log is
+    JAX's; here it is the port's, which agrees to float32 rounding).  The
+    same draws from `rng` in the same order."""
+    dt = 1.0 / imu_rate
+    t = np.arange(dt, duration - dt, dt)
+    fine = syn._eval_orbit(np.concatenate([t - dt, t, t + dt]), radius,
+                           height_amp, omega)
+    n = len(t)
+    Rm, R0, Rp = fine.R_wb[:n], fine.R_wb[n:2 * n], fine.R_wb[2 * n:]
+    vm, vp = fine.v_wb[:n], fine.v_wb[2 * n:]
+    dR = np.einsum("nij,nik->njk", Rm, Rp)
+    w_body = lie.so3_log(torch.from_numpy(dR.astype(np.float32))).numpy(
+        ).astype(np.float64) / (2 * dt)
+    a_world = (vp - vm) / (2 * dt)
+    g_w = np.array([0.0, 0.0, -syn.GRAVITY])
+    a_body = np.einsum("nij,ni->nj", R0, a_world - g_w)
+    bg = rng.normal(0, bias_gyro_mag, 3)
+    ba = rng.normal(0, bias_acc_mag, 3)
+    sqrt_rate = np.sqrt(imu_rate)
+    gyro = w_body + bg + rng.normal(0, noise_gyro * sqrt_rate, (n, 3))
+    acc = a_body + ba + rng.normal(0, noise_acc * sqrt_rate, (n, 3))
+    return syn.SyntheticImu(timestamps=t, gyro=gyro, acc=acc, bias_gyro=bg,
+                            bias_acc=ba)
+
+
+def build_imu_windows(traj, n_frames: int, seed: int = 3, n_imu: int = 10):
+    """The VI frame's IMU windows (port of bench.py:407-433): a 200 Hz
+    IMU synthesized along the radius-0.6 m orbit (`synthesize_imu`, seed
+    `seed`, no bias),
+    and for each frame i = 1..n_frames-1 the first `n_imu` samples of
+    (t_{i-1}, t_i] (zero-padded), each dt 1/200 s.
+
+    Returns (gyro [n-1,n_imu,3], acc [n-1,n_imu,3], dts [n-1,n_imu],
+    carry0) as float32 numpy arrays; carry0 = (pose_wb [3,4], vel [3],
+    bg [3], ba [3], H15 [15,15]) is the ground-truth frame-0 state with
+    zero biases and H15 = I."""
+    rng = np.random.default_rng(seed)
+    imu = synthesize_imu(rng, n_frames / 20.0 + 0.4, radius=0.6,
+                         bias_gyro_mag=0.0, bias_acc_mag=0.0)
+    nv = n_frames - 1
+    gyro = np.zeros((nv, n_imu, 3), np.float32)
+    acc = np.zeros((nv, n_imu, 3), np.float32)
+    dts = np.full((nv, n_imu), 1.0 / 200.0, np.float32)
+    for j in range(nv):
+        m = (imu.timestamps > traj.timestamps[j]) \
+            & (imu.timestamps <= traj.timestamps[j + 1])
+        gg, aa = imu.gyro[m][:n_imu], imu.acc[m][:n_imu]
+        gyro[j, :len(gg)] = gg
+        acc[j, :len(aa)] = aa
+    pose_wb0 = np.ascontiguousarray(np.concatenate(
+        [traj.R_wb[0], traj.p_wb[0][:, None]], 1), dtype=np.float32)
+    carry0 = (pose_wb0, np.asarray(traj.v_wb[0], np.float32),
+              np.zeros(3, np.float32), np.zeros(3, np.float32),
+              np.eye(15, dtype=np.float32))
+    return gyro, acc, dts, carry0

@@ -1,21 +1,28 @@
 """Per-frame tracking kernels (port of plvio_tpu/models/kernels.py:
 `fast_pose_opt` :111, `fast_pose_opt_pl` :179, `line_proj_match_core`
-:355).
+:355, `make_vi_pose_optimizer` :932).
 
 `pose_irls` is the hand-written CUDA kernel (csrc/pose_irls.cu) for the
 fused point+line pose IRLS; `pose_irls_plain` beside it is the same
 algorithm in plain PyTorch with an exact Cholesky solve where the
 reference runs 6 CG steps (equivalent for this damped 6x6 system).
+
+`vi_pose_lm` is the hand-written CUDA kernel (csrc/vi_pose_lm.cu) of the
+VI frame's 30-DoF pose optimization; `vi_pose_opt_plain` beside it runs
+the same problem on the dense LM engine (solver/engine.py).
 """
 from __future__ import annotations
 
 import ctypes
 import math
 
+import numpy as np
 import torch
 
 from .. import cuda
 from ..ops import matching as M
+from ..solver import engine as E
+from ..solver import residuals as RES
 from ..solver.residuals import PinholeK
 from ..utils import lie
 
@@ -204,3 +211,199 @@ def line_proj_match_core(K: PinholeK, pose, ln_ep, ln_desc, ln_valid,
                     a_ang=ang_pred.contiguous(),
                     b_ang=obs_angle.contiguous(), angle_tol=angle_tol)
     return idx, ok, obs_lineq[idx.to(torch.int64)]
+
+
+# --------------------------------------------------------------------------
+# Visual-inertial pose optimization of the tracked frame
+# --------------------------------------------------------------------------
+
+# dense layout of the VI problem (declaration order pose, vel, bg, ba, two
+# states each): pose [0:12), vel [12:18), bg [18:24), ba [24:30); the
+# per-state 15-vector is (pose6, vel3, bg3, ba3), as make_prior15 orders it
+IDX_PREV = torch.tensor(list(range(0, 6)) + list(range(12, 15))
+                        + list(range(18, 21)) + list(range(24, 27)))
+IDX_CUR = torch.tensor(list(range(6, 12)) + list(range(15, 18))
+                       + list(range(21, 24)) + list(range(27, 30)))
+PRE_KEYS = ("dT", "dR", "dV", "dP", "JRg", "JVg", "JVa", "JPg", "JPa",
+            "bg0", "ba0")
+PRIOR_KEYS = ("R0", "p0", "v0", "bg0", "ba0")
+
+
+def _vi_problem(K, Rcb, tcb, gravity, cap, mask, consts):
+    (uv, X, is2, pre_const, imu_info, bias_rw_info, prior_const,
+     prior_info_safe, have_prior) = consts
+    dev = uv.device
+    z1 = torch.zeros(1, dtype=torch.int64, device=dev)
+    o1 = torch.ones(1, dtype=torch.int64, device=dev)
+    one = torch.ones(1, dtype=torch.bool, device=dev)
+    prob = E.Problem()
+    prob.add_dense("pose", 2, 6, RES.retract_pose_wb)
+    prob.add_dense("vel", 2, 3, RES.retract_additive)
+    prob.add_dense("bg", 2, 3, RES.retract_additive)
+    prob.add_dense("ba", 2, 3, RES.retract_additive)
+    prob.add_term(E.Term(
+        name="reproj", res_fn=RES.make_point_reproj_body(K, Rcb, tcb),
+        rdim=2, dense_refs=[("pose", torch.ones(cap, dtype=torch.int64,
+                                                device=dev))],
+        const={"uv": uv, "X": X}, mask=mask, info=is2,
+        robust_delta=float(math.sqrt(CHI2_MONO))))
+    prob.add_term(E.Term(
+        name="inertial", res_fn=RES.make_inertial(gravity), rdim=9,
+        dense_refs=[("pose", z1), ("vel", z1), ("bg", o1), ("ba", o1),
+                    ("pose", o1), ("vel", o1)],
+        const={k: v[None] for k, v in pre_const.items()}, mask=one,
+        info=imu_info[None]))
+    prob.add_term(E.Term(
+        name="bg_rw", res_fn=RES.bias_rw, rdim=3,
+        dense_refs=[("bg", z1), ("bg", o1)], mask=one,
+        info=bias_rw_info[None, :3]))
+    prob.add_term(E.Term(
+        name="ba_rw", res_fn=RES.bias_rw, rdim=3,
+        dense_refs=[("ba", z1), ("ba", o1)], mask=one,
+        info=bias_rw_info[None, 3:]))
+    prob.add_term(E.Term(
+        name="prior", res_fn=RES.make_prior15(), rdim=15,
+        dense_refs=[("pose", z1), ("vel", z1), ("bg", z1), ("ba", z1)],
+        const={k: v[None] for k, v in prior_const.items()},
+        mask=have_prior[None], info=prior_info_safe[None]))
+    return prob
+
+
+def vi_pose_opt_plain(K: PinholeK, Rcb, tcb, gravity: float, pose_wb0, v0,
+                      bg0, ba0, uv, X, valid, is2, prev_pose_wb, prev_v,
+                      pre_const, imu_info, bias_rw_info, prior_const,
+                      prior_info, have_prior: bool, rounds: int = 3,
+                      iters: int = 6):
+    """Plain version of `vi_pose_lm` on the dense engine (mono): the
+    current (pose_wb, v, bg, ba) against the previous state through the
+    body-frame reprojection edges, one 9-dim inertial edge, the bias
+    random walks and (have_prior) the 15-DoF prior on the previous state,
+    `rounds` x <= `iters` LM with early exit and chi2 re-gating, then the
+    next prior: the previous state marginalized out of the 30x30 H
+    (eigh pseudo-inverse), or the current block when have_prior is False.
+    Returns (pose_wb [3,4], v, bg, ba, inlier [cap], n_inliers int32,
+    H15 [15,15])."""
+    dev = pose_wb0.device
+    cap = X.shape[0]
+    hp = torch.as_tensor(have_prior, dtype=torch.bool, device=dev)
+    eye15 = torch.eye(15, dtype=torch.float32, device=dev)
+    prior_info_safe = torch.where(hp, prior_info, eye15)
+    mask = valid
+    states = {"pose": torch.stack([prev_pose_wb, pose_wb0]),
+              "vel": torch.stack([prev_v, v0]),
+              "bg": torch.stack([bg0, bg0]), "ba": torch.stack([ba0, ba0])}
+    t = torch.ones((), dtype=torch.bool, device=dev)
+    free = {k: torch.stack([hp, t]) for k in states}
+    consts = (uv, X, is2, pre_const, imu_info, bias_rw_info, prior_const,
+              prior_info_safe, hp)
+    for _ in range(rounds):
+        prob = _vi_problem(K, Rcb, tcb, gravity, cap, mask, consts)
+        states, _, chi2s = E.optimize(prob, states, iters=iters,
+                                      dense_free_mask=free, early_tol=1e-2)
+        mask = valid & (chi2s["reproj"] < CHI2_MONO)
+    prob = _vi_problem(K, Rcb, tcb, gravity, cap, mask, consts)
+    _, H, _, _, _, _ = prob.build_normal_equations(states)
+    ip, ic = IDX_PREV.to(dev), IDX_CUR.to(dev)
+    Hpp = H[ip][:, ip]
+    Hpc = H[ip][:, ic]
+    Hcc = H[ic][:, ic]
+    # a NaN prior (the carried H15 can lose definiteness in float32, and
+    # its Cholesky is then NaN, as in the reference) gives NaN, not an
+    # exception: eigh of a NaN matrix raises in torch
+    Hs = 0.5 * (Hpp + Hpp.T)
+    fin = torch.isfinite(Hs).all()
+    w, V = torch.linalg.eigh(torch.where(fin, Hs, eye15))
+    thr = 1e-6 * torch.clamp_min(w.abs().max(), 1e-12)
+    w_inv = torch.where(w > thr, 1.0 / w, torch.zeros_like(w))
+    marg = Hcc - Hpc.T @ ((V * w_inv[None, :]) @ V.T) @ Hpc
+    marg = torch.where(fin, marg, torch.full_like(marg, float("nan")))
+    H15 = torch.where(hp, marg, Hcc)
+    H15 = 0.5 * (H15 + H15.T)
+    return (states["pose"][1], states["vel"][1], states["bg"][1],
+            states["ba"][1], mask, mask.sum().to(torch.int32), H15)
+
+
+VI_POSE_LM = cuda.Kernel(
+    "vi_pose_lm", "vi_pose_lm",
+    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F,
+     _P, _P, _P, _P])
+
+
+def _pack(d, keys):
+    return torch.cat([d[k].reshape(-1) for k in keys]).contiguous()
+
+
+def vi_pose_lm(K: PinholeK, Rcb, tcb, gravity: float, pose_wb0, v0, bg0,
+               ba0, uv, X, valid, is2, prev_pose_wb, prev_v, pre_const,
+               imu_info, bias_rw_info, prior_const, prior_info,
+               have_prior: bool, rounds: int = 3, iters: int = 6):
+    """VI pose optimization of the tracked frame (mono), see
+    `vi_pose_opt_plain`.  CPU tensors take the plain version; CUDA tensors
+    launch csrc/vi_pose_lm.cu, which runs every round, LM iteration, early
+    exit and the marginalization on the device (no host sync)."""
+    if pose_wb0.device.type == "cpu":
+        return vi_pose_opt_plain(K, Rcb, tcb, gravity, pose_wb0, v0, bg0,
+                                 ba0, uv, X, valid, is2, prev_pose_wb,
+                                 prev_v, pre_const, imu_info, bias_rw_info,
+                                 prior_const, prior_info, have_prior,
+                                 rounds, iters)
+    if not isinstance(have_prior, bool):
+        raise ValueError("vi_pose_lm: have_prior must be a Python bool")
+    cap = X.shape[0]
+    dev = pose_wb0.device
+    f32 = torch.float32
+    # [0:12) pose_wb0, [12:15) v0, [15:18) bg0, [18:21) ba0, [21:33)
+    # prev pose, [33:36) prev v, [36:103) pre_const, [103:184) imu_info,
+    # [184:190) rw info, [190:211) prior const, [211:436) prior info,
+    # [436:448) Rcb | tcb
+    state = torch.cat([
+        pose_wb0.reshape(-1), v0, bg0, ba0, prev_pose_wb.reshape(-1), prev_v,
+        _pack(pre_const, PRE_KEYS), imu_info.reshape(-1), bias_rw_info,
+        _pack(prior_const, PRIOR_KEYS), prior_info.reshape(-1),
+        torch.as_tensor(Rcb, dtype=f32, device=dev).reshape(-1),
+        torch.as_tensor(tcb, dtype=f32, device=dev).reshape(-1)])
+    cuda.check_cuda("vi_pose_lm", state, uv, X, valid, is2)
+    if state.dtype != f32 or state.numel() != 448 or uv.shape != (cap, 2) \
+            or X.shape != (cap, 3) or valid.shape != (cap,) \
+            or is2.shape != (cap,) or valid.dtype != torch.bool \
+            or uv.dtype != f32 or X.dtype != f32 or is2.dtype != f32:
+        raise ValueError("vi_pose_lm: shape or dtype mismatch")
+    if cap > 32768:
+        raise ValueError("vi_pose_lm: the edge gates of cap rows must fit "
+                         "in shared memory (cap <= 32768)")
+    out = torch.empty(21 + 225, dtype=f32, device=dev)
+    inlier = torch.empty(cap, dtype=torch.bool, device=dev)
+    n_inl = torch.empty((), dtype=torch.int32, device=dev)
+    VI_POSE_LM.launch(
+        cuda.ptr(state), cuda.ptr(uv), cuda.ptr(X), cuda.ptr(valid),
+        cuda.ptr(is2), cap, int(have_prior), rounds, iters, K.fx, K.fy,
+        K.cx, K.cy, float(gravity), float(math.sqrt(CHI2_MONO)),
+        cuda.ptr(out), cuda.ptr(inlier), cuda.ptr(n_inl), cuda.stream())
+    pose = out[:12].view(3, 4)
+    return (pose, out[12:15], out[15:18], out[18:21], inlier, n_inl,
+            out[21:].view(15, 15))
+
+
+def make_vi_pose_optimizer(K: PinholeK, cap: int, Rcb, tcb, gravity: float,
+                           rounds: int = 3, iters: int = 6,
+                           plain: bool = False):
+    """run(pose_wb0 [3,4], v0, bg0, ba0, uvr [cap,3], X [cap,3], valid,
+    is2, prev_pose_wb, prev_v, pre_const dict, imu_info [9,9],
+    bias_rw_info [6], prior_const {R0,p0,v0,bg0,ba0}, prior_info [15,15],
+    have_prior bool) -> (pose_wb, v, bg, ba, inlier, n_inliers, H15): the
+    mono flavour (bf = 0) of the reference's make_vi_pose_optimizer; uvr's
+    third column is ignored.  `plain` runs the plain version on any
+    device."""
+    fn = vi_pose_opt_plain if plain else vi_pose_lm
+    Rcb = torch.as_tensor(np.asarray(Rcb, np.float32))
+    tcb = torch.as_tensor(np.asarray(tcb, np.float32))
+
+    def run(pose_wb0, v0, bg0, ba0, uvr, X, valid, is2, prev_pose_wb,
+            prev_v, pre_const, imu_info, bias_rw_info, prior_const,
+            prior_info, have_prior):
+        dev = pose_wb0.device
+        return fn(K, Rcb.to(dev), tcb.to(dev), gravity, pose_wb0, v0, bg0,
+                  ba0, uvr[:, :2].contiguous(), X, valid, is2, prev_pose_wb,
+                  prev_v, pre_const, imu_info, bias_rw_info, prior_const,
+                  prior_info, have_prior, rounds, iters)
+    return run

@@ -2,13 +2,19 @@
 detector-0 path: cell structure tensors, pointer-jumping connected
 components, collinear merge, sub-pixel refit, banded LBD, 2-level pyramid).
 
-Plain PyTorch on every device for now; the reference's dtype flow is kept:
-Scharr gradients, their magnitude and the edge weights are bfloat16, the
-cell statistics upcast to float32 where the reference upcasts
-(plvio_tpu/ops/lines.py:93).  Descriptors are packed [L,8] int32.
+Two hand-written CUDA kernels carry a level on the card: `line_detect`
+(csrc/line_detect.cu: gradients, cells, links, components, top-K) and
+`line_refine_lbd` (csrc/line_refine_lbd.cu: merge, refit, angle, LBD, line
+equation, level-1 dedupe).  The plain functions below (`detect_lines`,
+`refine_lbd_plain` and what they call) are their plain versions and the
+CPU path.  The reference's dtype flow is kept: Scharr gradients, their
+magnitude and the edge weights are bfloat16, the cell statistics upcast to
+float32 where the reference upcasts (plvio_tpu/ops/lines.py:93).
+Descriptors are packed [L,8] int32.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
 from typing import NamedTuple
@@ -18,6 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import cuda
 from .matching import pack_bits_u32
 
 CELL_PX = 4
@@ -422,30 +429,9 @@ def refine_segments(gx: torch.Tensor, gy: torch.Tensor, ep: torch.Tensor,
     return torch.where(ok[:, None], ep_ref, ep)
 
 
-def extract_lines(img: torch.Tensor, max_lines: int, pairs: torch.Tensor,
-                  **kw) -> LineFeatures:
-    """Detect + merge collinear fragments + refit + LBD + line equations."""
-    ep, ang, length, valid, (gx, gy) = detect_lines(img, max_lines, **kw)
-    ep, length, valid = merge_collinear(ep, valid)
-    ep = refine_segments(gx, gy, ep, valid)
-    ang = _mod_pi(torch.atan2(ep[:, 3] - ep[:, 1], ep[:, 2] - ep[:, 0]))
-    desc = lbd_descriptors(gx, gy, ep, valid, pairs)
-    return LineFeatures(ep=ep, angle=ang, length=length,
-                        lineq=line_equation(ep), desc=desc, valid=valid)
-
-
-def extract_lines_pyramid(img: torch.Tensor, max_lines: int,
-                          pairs: torch.Tensor, **kw) -> LineFeatures:
-    """2-level line pyramid: level 1 detects on a 2x box-downsampled image;
-    its segments map back to level-0 pixel centres and are dropped where a
+def _level1_dedupe(f1: "LineFeatures", f0: "LineFeatures") -> "LineFeatures":
+    """Level-1 segments mapped to level-0 pixel centres, dropped where a
     valid level-0 segment already covers them."""
-    n1 = max_lines // 4
-    n0 = max_lines - n1
-    f0 = extract_lines(img, n0, pairs, **kw)
-    h2 = (img.shape[0] // 2) * 2
-    w2 = (img.shape[1] // 2) * 2
-    img1 = img[:h2, :w2].reshape(h2 // 2, 2, w2 // 2, 2).mean((1, 3))
-    f1 = extract_lines(img1, n1, pairs, **kw)
     ep1 = f1.ep * 2.0 + 0.5
     a1 = _mod_pi(torch.atan2(ep1[:, 3] - ep1[:, 1], ep1[:, 2] - ep1[:, 0]))
     dang = _mod_pi(torch.abs(a1[:, None] - f0.angle[None, :]))
@@ -456,28 +442,165 @@ def extract_lines_pyramid(img: torch.Tensor, max_lines: int,
     d_e = torch.abs(ep1[:, None, 2] * l0[None, :, 0]
                     + ep1[:, None, 3] * l0[None, :, 1] + l0[None, :, 2])
     dup = (dang < 0.1) & (d_s < 4.0) & (d_e < 4.0) & f0.valid[None, :]
-    keep1 = f1.valid & ~dup.any(1)
-    ep = torch.cat([f0.ep, ep1])
-    return LineFeatures(
-        ep=ep, angle=torch.cat([f0.angle, a1]),
-        length=torch.cat([f0.length, f1.length * 2.0]),
-        lineq=line_equation(ep), desc=torch.cat([f0.desc, f1.desc]),
-        valid=torch.cat([f0.valid, keep1]))
+    return LineFeatures(ep=ep1, angle=a1, length=f1.length * 2.0,
+                        lineq=line_equation(ep1), desc=f1.desc,
+                        valid=f1.valid & ~dup.any(1))
+
+
+def refine_lbd_plain(gx, gy, ep, valid, pairs, level0=None) -> LineFeatures:
+    """Plain version of `line_refine_lbd`: merge + refit + angle + LBD +
+    line equation of one level's detections; with `level0` (level 1 of
+    the pyramid) the segments are mapped to level-0 pixels and deduped."""
+    ep, length, valid = merge_collinear(ep, valid)
+    ep = refine_segments(gx, gy, ep, valid)
+    ang = _mod_pi(torch.atan2(ep[:, 3] - ep[:, 1], ep[:, 2] - ep[:, 0]))
+    f = LineFeatures(ep=ep, angle=ang, length=length, lineq=line_equation(ep),
+                     desc=lbd_descriptors(gx, gy, ep, valid, pairs),
+                     valid=valid)
+    return f if level0 is None else _level1_dedupe(f, level0)
+
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+LINE_DETECT = cuda.Kernel("line_detect", "line_detect",
+                          [_P, _I, _I, _F, _I, _F, _F, _F, _F, _I]
+                          + [_P] * 8 + [_P])
+LINE_DETECT_GATHER = cuda.Kernel("line_detect", "line_detect_gather",
+                                 [_P, _I, _P, _P, _P, _P, _P, _P, _P])
+LINE_REFINE_LBD = cuda.Kernel("line_refine_lbd", "line_refine_lbd",
+                              [_P, _P, _I, _I, _P, _P, _I, _P, _P, _P, _P,
+                               _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I,
+                               _P])
+_SMEM_MAX = 232448          # bytes of shared memory a block may use
+
+
+def line_detect(img: torch.Tensor, max_lines: int = 256,
+                grad_th: float = 12.0, min_cells: int = 3,
+                aniso_th: float = 4.0, angle_tol: float = 0.12,
+                dist_tol: float = 1.5, min_length: float = 12.0,
+                jump_iters: int = 7):
+    """`detect_lines` through csrc/line_detect.cu (CPU tensors take the
+    plain version).  Returns (ep [L,4], angle [L], length [L], valid [L],
+    (gx, gy) bf16)."""
+    if img.device.type == "cpu":
+        return detect_lines(img, max_lines, grad_th, min_cells, aniso_th,
+                            angle_tol, dist_tol, min_length, jump_iters)
+    cuda.check_cuda("line_detect", img)
+    if img.dtype != torch.float32 or img.dim() != 2:
+        raise ValueError("line_detect: a float32 [H,W] image")
+    H, W = img.shape
+    C = (H // CELL_PX) * (W // CELL_PX)
+    if C == 0 or 2 * 4 * C > _SMEM_MAX:
+        raise ValueError(f"line_detect: {C} cells; the label grid must fit "
+                         "in shared memory (1 <= cells <= 29056)")
+    dev = img.device
+    gx = torch.empty(H, W, dtype=torch.bfloat16, device=dev)
+    gy = torch.empty_like(gx)
+    cell = torch.empty(C, 3, device=dev)
+    atom = torch.empty(C, dtype=torch.uint8, device=dev)
+    links = torch.empty(C, dtype=torch.uint8, device=dev)
+    agg = torch.empty(C + 1, 8, dtype=torch.int64, device=dev)
+    comp = torch.empty(C + 1, 6, device=dev)
+    score = torch.empty(C, device=dev)
+    LINE_DETECT.launch(
+        cuda.ptr(img), H, W, grad_th, min_cells, aniso_th, angle_tol,
+        dist_tol, min_length, jump_iters, cuda.ptr(gx), cuda.ptr(gy),
+        cuda.ptr(cell), cuda.ptr(atom), cuda.ptr(links), cuda.ptr(agg),
+        cuda.ptr(comp), cuda.ptr(score), cuda.stream())
+    # top-K: stable descending sort, lower index first on ties (lax.top_k)
+    order = torch.sort(score, descending=True, stable=True).indices[
+        :max_lines].contiguous()
+    n = order.shape[0]
+    ep = torch.empty(n, 4, device=dev)
+    ang = torch.empty(n, device=dev)
+    length = torch.empty(n, device=dev)
+    valid = torch.empty(n, dtype=torch.bool, device=dev)
+    LINE_DETECT_GATHER.launch(
+        cuda.ptr(order), n, cuda.ptr(comp), cuda.ptr(score), cuda.ptr(ep),
+        cuda.ptr(ang), cuda.ptr(length), cuda.ptr(valid), cuda.stream())
+    return ep, ang, length, valid, (gx, gy)
+
+
+def line_refine_lbd(gx, gy, ep, valid, pairs, level0=None) -> LineFeatures:
+    """`refine_lbd_plain` through csrc/line_refine_lbd.cu (CPU tensors take
+    the plain version)."""
+    if gx.device.type == "cpu":
+        return refine_lbd_plain(gx, gy, ep, valid, pairs, level0)
+    L = ep.shape[0]
+    dev = ep.device
+    pairs = pairs.to(torch.int32).contiguous()
+    cuda.check_cuda("line_refine_lbd", gx, gy, ep, valid, pairs)
+    if gx.dtype != torch.bfloat16 or gy.shape != gx.shape \
+            or ep.shape != (L, 4) or valid.shape != (L,) \
+            or valid.dtype != torch.bool or ep.dtype != torch.float32 \
+            or pairs.shape != (256, 2, 2):
+        raise ValueError("line_refine_lbd: shape or dtype mismatch")
+    if L > 256:
+        raise ValueError("line_refine_lbd: at most 256 segments a level")
+    out = LineFeatures(
+        ep=torch.empty(L, 4, device=dev), angle=torch.empty(L, device=dev),
+        length=torch.empty(L, device=dev), lineq=torch.empty(L, 3, device=dev),
+        desc=torch.empty(L, 8, dtype=torch.int32, device=dev),
+        valid=torch.empty(L, dtype=torch.bool, device=dev))
+    ep_m = torch.empty(L, 4, device=dev)
+    len_m = torch.empty(L, device=dev)
+    valid_m = torch.empty(L, dtype=torch.bool, device=dev)
+    l0 = level0
+    if l0 is not None:
+        cuda.check_cuda("line_refine_lbd", l0.lineq, l0.angle, l0.valid)
+    H, W = gx.shape
+    LINE_REFINE_LBD.launch(
+        cuda.ptr(gx), cuda.ptr(gy), H, W, cuda.ptr(ep), cuda.ptr(valid), L,
+        cuda.ptr(pairs), cuda.ptr(ep_m), cuda.ptr(len_m), cuda.ptr(valid_m),
+        *(cuda.ptr(t) for t in out), int(l0 is not None),
+        *((cuda.ptr(l0.lineq), cuda.ptr(l0.angle), cuda.ptr(l0.valid),
+           l0.ep.shape[0]) if l0 is not None else (None, None, None, 0)),
+        cuda.stream())
+    return out
+
+
+def extract_lines(img: torch.Tensor, max_lines: int, pairs: torch.Tensor,
+                  plain: bool = False, level0=None, **kw) -> LineFeatures:
+    """Detect + merge collinear fragments + refit + LBD + line equations.
+    Kernels for CUDA tensors unless `plain`."""
+    if plain:
+        ep, _, _, valid, (gx, gy) = detect_lines(img, max_lines, **kw)
+        return refine_lbd_plain(gx, gy, ep, valid, pairs, level0)
+    ep, _, _, valid, (gx, gy) = line_detect(img, max_lines, **kw)
+    return line_refine_lbd(gx, gy, ep, valid, pairs, level0)
+
+
+def extract_lines_pyramid(img: torch.Tensor, max_lines: int,
+                          pairs: torch.Tensor, plain: bool = False,
+                          **kw) -> LineFeatures:
+    """2-level line pyramid: level 1 detects on a 2x box-downsampled image;
+    its segments map back to level-0 pixel centres and are dropped where a
+    valid level-0 segment already covers them."""
+    n1 = max_lines // 4
+    n0 = max_lines - n1
+    h2 = (img.shape[0] // 2) * 2
+    w2 = (img.shape[1] // 2) * 2
+    img1 = img[:h2, :w2].reshape(h2 // 2, 2, w2 // 2, 2).mean((1, 3))
+    f0 = extract_lines(img, n0, pairs, plain, **kw)
+    f1 = extract_lines(img1, n1, pairs, plain, level0=f0, **kw)
+    return LineFeatures(*(torch.cat([a, b]) for a, b in zip(f0, f1)))
 
 
 class LineExtractor(nn.Module):
     """Line front end for one grayscale image; holds the LBD band-pair
-    pattern as a buffer.  levels=2 is the production 2-level pyramid."""
+    pattern as a buffer.  levels=2 is the production 2-level pyramid.
+    CUDA images go through the two kernels unless `plain`."""
 
-    def __init__(self, max_lines: int = 256, levels: int = 2):
+    def __init__(self, max_lines: int = 256, levels: int = 2,
+                 plain: bool = False):
         super().__init__()
-        self.max_lines, self.levels = max_lines, levels
+        self.max_lines, self.levels, self.plain = max_lines, levels, plain
         self.register_buffer("pairs", torch.from_numpy(_band_pair_pattern()))
 
     def forward(self, img: torch.Tensor) -> LineFeatures:
         if self.levels >= 2:
-            return extract_lines_pyramid(img, self.max_lines, self.pairs)
-        return extract_lines(img, self.max_lines, self.pairs)
+            return extract_lines_pyramid(img, self.max_lines, self.pairs,
+                                         self.plain)
+        return extract_lines(img, self.max_lines, self.pairs, self.plain)
 
 
 def make_line_extractor(max_lines: int = 256, levels: int = 2,

@@ -1,0 +1,199 @@
+"""Where the time of the two tracked frames goes, on one CUDA card.
+
+    python3 -m plvio_tpu_torch.profile_frames
+
+Builds the synthetic inputs of `chip_smoke.py` (EuRoC geometry: 480x752,
+1000 ORB features, 256 line features, 2048 map points, 128 map lines; 16
+frames, and frames 1..15 with their IMU windows for the VI frame), and for
+the point+line frame (`tracking_step_pl`) and the VI frame
+(`tracking_step_vi`) on the kernel path, after one warm-up pass:
+
+- wall ms/frame: CUDA events around one pass of all frames;
+- device busy ms/frame and device kernels/frame: the device events of one
+  more pass under `torch.profiler` (one stream, so they do not overlap);
+  idle share = 1 - busy / wall;
+- the device kernels with the most time, and the torch ops issued most
+  often, per frame;
+- per stage (ORB, lines, IMU, point match, line match, pose optimizer):
+  device ms/frame between CUDA events recorded around the stage, and the
+  host's enqueue ms/frame, from a third pass.
+
+Prints the card's `nvidia-smi` name and power limit first.  Needs one
+card; JAX is never imported.
+"""
+from __future__ import annotations
+
+import subprocess
+import sys
+import time
+from collections import defaultdict
+
+import numpy as np
+import torch
+
+from . import entry as E
+from .inputs import build_imu_windows, build_inputs
+from .ops import imu as IMU
+from .state import from_numpy
+
+H, W, N_FEAT, CAP_PTS, CAP_LNS, N_LINE, N_FRAMES = 480, 752, 1000, 2048, 128, \
+    256, 16
+
+
+def _device_time_us(evt) -> float:
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        v = getattr(evt, attr, None)
+        if v is not None:
+            return float(v)
+    return 0.0
+
+
+def device_summary(prof, n_frames: int, top: int = 12):
+    """(busy ms/frame, device events/frame, [(name, n/frame, ms/frame)],
+    [(torch op, n/frame)]) of a profiled pass."""
+    dev_rows, cpu_rows = [], []
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            dev_rows.append((e.key, e.count, _device_time_us(e) / 1e3))
+        elif e.key.startswith("aten::"):
+            cpu_rows.append((e.key, e.count))
+    busy = sum(ms for _, _, ms in dev_rows) / n_frames
+    n_dev = sum(n for _, n, _ in dev_rows) / n_frames
+    dev_rows.sort(key=lambda r: -r[2])
+    cpu_rows.sort(key=lambda r: -r[1])
+    return (busy, n_dev,
+            [(k, n / n_frames, ms / n_frames) for k, n, ms in dev_rows[:top]],
+            [(k, n / n_frames) for k, n in cpu_rows[:10]])
+
+
+class Spans:
+    """CUDA events and host time around named stages."""
+
+    def __init__(self):
+        self.pending = []
+        self.host = defaultdict(float)
+
+    def wrap(self, name, fn):
+        def timed(*args, **kw):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            t = time.perf_counter()
+            e0.record()
+            out = fn(*args, **kw)
+            e1.record()
+            self.host[name] += (time.perf_counter() - t) * 1e3
+            self.pending.append((name, e0, e1))
+            return out
+        return timed
+
+    def read(self, n_frames: int):
+        torch.cuda.synchronize()
+        dev = defaultdict(float)
+        for name, e0, e1 in self.pending:
+            dev[name] += e0.elapsed_time(e1)
+        return ({k: round(v / n_frames, 3) for k, v in dev.items()},
+                {k: round(v / n_frames, 3) for k, v in self.host.items()})
+
+
+def stage_spans(step, run, n_frames: int):
+    """Device and host ms/frame of each stage of `step`, from one pass of
+    `run`; the stage functions are wrapped for that pass only."""
+    sp = Spans()
+    step.orb.forward = sp.wrap("orb", step.orb.forward)
+    step.lines.forward = sp.wrap("lines", step.lines.forward)
+    patches = [(E, "point_projection_match", "point match"),
+               (E, "line_proj_match_core", "line match"),
+               (E, "fast_pose_opt_pl", "pose opt"),
+               (IMU, "imu_preint", "imu")]
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in patches]
+    for mod, attr, name in patches:
+        setattr(mod, attr, sp.wrap(name, getattr(mod, attr)))
+    had_vi = hasattr(step, "vi_opt")
+    if had_vi:
+        vi_opt = step.vi_opt
+        step.vi_opt = sp.wrap("pose opt", vi_opt)
+    try:
+        run()
+        return sp.read(n_frames)
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+        del step.orb.forward, step.lines.forward    # the class's again
+        if had_vi:
+            step.vi_opt = vi_opt
+
+
+def profile(name, step, run, n_frames: int):
+    run()                                        # warm-up
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    run()
+    e1.record()
+    torch.cuda.synchronize()
+    wall = e0.elapsed_time(e1) / n_frames
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        run()
+        torch.cuda.synchronize()
+    busy, n_dev, kernels, ops = device_summary(prof, n_frames)
+    idle = 1.0 - busy / wall if wall > 0 else float("nan")
+    print(f"== {name}: wall {wall:.3f} ms/frame; device busy {busy:.3f} "
+          f"ms/frame; idle share {idle:.1%}; device kernels {n_dev:.1f}/frame")
+    for k, n, ms in kernels:
+        print(f"   {k[:70]:70s} n/frame {n:6.1f} dev ms/frame {ms:.4f}")
+    print(f"   torch ops by count/frame: "
+          f"{[(k, round(n, 1)) for k, n in ops]}")
+    dev, host = stage_spans(step, run, n_frames)
+    print(f"   stage device ms/frame: {dev}")
+    print(f"   stage host enqueue ms/frame: {host}")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("profile_frames: no CUDA device", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip().splitlines()[0])
+    (frames, poses, pt_xyz, pt_desc, pt_valid, ln_ep6, ln_desc, ln_valid,
+     traj) = build_inputs(N_FRAMES, CAP_PTS, CAP_LNS, H, W,
+                          n_features=N_FEAT, device=dev)
+    st = from_numpy(dict(pt_xyz=pt_xyz, pt_desc=pt_desc, pt_valid=pt_valid,
+                         ln_ep6=ln_ep6, ln_desc=ln_desc, ln_valid=ln_valid),
+                    dev)
+    map_args = tuple(st[k] for k in ("pt_xyz", "pt_desc", "pt_valid",
+                                     "ln_ep6", "ln_desc", "ln_valid"))
+    imgs = [torch.from_numpy(f).to(dev) for f in frames]
+    gyro, acc, dts, carry0 = build_imu_windows(traj, N_FRAMES)
+    carry0 = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                   for a in carry0)
+    windows = [tuple(torch.from_numpy(a[j]).to(dev) for a in (gyro, acc, dts))
+               for j in range(N_FRAMES - 1)]
+    pl, _ = E.tracking_step_pl(H, W, N_FEAT, CAP_PTS, CAP_LNS, N_LINE,
+                               device=dev)
+    vi, _ = E.tracking_step_vi(H, W, N_FEAT, CAP_PTS, N_LINE, device=dev)
+    pose0 = torch.from_numpy(poses[0]).to(dev)
+
+    @torch.no_grad()
+    def run_pl():
+        p = pose0
+        for img in imgs:
+            p, _ = pl(img, p, *map_args)
+
+    @torch.no_grad()
+    def run_vi():
+        c = carry0
+        for i in range(1, N_FRAMES):
+            c, _ = vi(c, (imgs[i], *windows[i - 1]), *map_args)
+
+    profile(f"point+line frame ({N_FRAMES} frames)", pl, run_pl, N_FRAMES)
+    profile(f"VI frame ({N_FRAMES - 1} frames)", vi, run_vi, N_FRAMES - 1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,8 +1,11 @@
-"""SO(3)/SE(3) helpers needed by the pose IRLS (port of
-plvio_tpu/utils/lie.py: `hat`, `so3_exp`, `_so3_left_V`, `se3_exp`,
-`so3_normalize`).  Same conventions: tangent order (rho, phi), arbitrary
-leading batch dimensions, Taylor guards below `_EPS`."""
+"""SO(3)/SE(3) helpers of the pose IRLS and the VI pose optimizer (port
+of plvio_tpu/utils/lie.py: `hat`, `vee`, `so3_exp`, `so3_log`,
+`so3_right_jacobian(_inv)`, `_so3_left_V`, `se3_exp`, `so3_normalize`).
+Same conventions: tangent order (rho, phi), arbitrary leading batch
+dimensions, Taylor guards below `_EPS`."""
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -21,10 +24,17 @@ def hat(w: torch.Tensor) -> torch.Tensor:
 
 
 def _theta_terms(w: torch.Tensor):
+    """(theta2, t2, t, W, W^2, small).  t2 and t are theta^2 and theta for
+    the large-angle branch, replaced by 1 where `small` so that the
+    unselected branch stays finite: the values are unchanged, and
+    reverse-mode derivatives at w = 0 do not turn 0 * (0/0) into NaN."""
     theta2 = (w * w).sum(-1)
-    theta = torch.sqrt(torch.clamp_min(theta2, 1e-24))
+    small = theta2 < _EPS
+    one = torch.ones_like(theta2)
+    theta = torch.where(small, one, torch.sqrt(torch.clamp_min(theta2,
+                                                               1e-24)))
     W = hat(w)
-    return theta2, theta, W, W @ W, theta2 < _EPS
+    return theta2, torch.where(small, one, theta2), theta, W, W @ W, small
 
 
 def _eye_like(W: torch.Tensor) -> torch.Tensor:
@@ -33,19 +43,19 @@ def _eye_like(W: torch.Tensor) -> torch.Tensor:
 
 def so3_exp(w: torch.Tensor) -> torch.Tensor:
     """Rodrigues formula, [...,3] -> [...,3,3]."""
-    theta2, theta, W, W2, small = _theta_terms(w)
+    theta2, t2, theta, W, W2, small = _theta_terms(w)
     A = torch.where(small, 1.0 - theta2 / 6.0, torch.sin(theta) / theta)
     B = torch.where(small, 0.5 - theta2 / 24.0,
-                    (1.0 - torch.cos(theta)) / theta2)
+                    (1.0 - torch.cos(theta)) / t2)
     return _eye_like(W) + A[..., None, None] * W + B[..., None, None] * W2
 
 
 def _so3_left_V(phi: torch.Tensor) -> torch.Tensor:
-    theta2, theta, W, W2, small = _theta_terms(phi)
+    theta2, t2, theta, W, W2, small = _theta_terms(phi)
     B = torch.where(small, 0.5 - theta2 / 24.0,
-                    (1.0 - torch.cos(theta)) / theta2)
+                    (1.0 - torch.cos(theta)) / t2)
     C = torch.where(small, 1.0 / 6.0 - theta2 / 120.0,
-                    (theta - torch.sin(theta)) / (theta2 * theta))
+                    (theta - torch.sin(theta)) / (t2 * theta))
     return _eye_like(W) + B[..., None, None] * W + C[..., None, None] * W2
 
 
@@ -65,3 +75,56 @@ def so3_normalize(R: torch.Tensor) -> torch.Tensor:
                                                        keepdim=True), 1e-12)
     r2 = torch.linalg.cross(r0, r1, dim=-1)
     return torch.stack([r0, r1, r2], -2)
+
+
+def vee(W: torch.Tensor) -> torch.Tensor:
+    """[...,3,3] skew -> [...,3]."""
+    return torch.stack([W[..., 2, 1], W[..., 0, 2], W[..., 1, 0]], -1)
+
+
+def so3_log(R: torch.Tensor) -> torch.Tensor:
+    """[...,3,3] -> [...,3], differentiable at the identity: atan2 of
+    (|w|, cos) with guarded square roots, a small-angle surrogate
+    theta/sin ~= 1 + (1 - cos)/3, and the axis from the largest diagonal
+    entry of R + I within 1e-3 of pi."""
+    tr = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
+    cos_t = torch.clamp((tr - 1.0) * 0.5, -1.0, 1.0)
+    w = vee(R - R.transpose(-1, -2)) * 0.5
+    w2 = (w * w).sum(-1)
+    small = w2 < 1e-12
+    sin_t = torch.sqrt(torch.where(small, torch.ones_like(w2), w2))
+    theta = torch.atan2(sin_t, cos_t)
+    scale = torch.where(small, 1.0 + (1.0 - cos_t) / 3.0, theta / sin_t)
+    generic = w * scale[..., None]
+    near_pi = theta > (math.pi - 1e-3)
+    Rp = R + torch.eye(3, dtype=R.dtype, device=R.device)
+    diag = torch.stack([Rp[..., 0, 0], Rp[..., 1, 1], Rp[..., 2, 2]], -1)
+    k = torch.argmax(diag, -1)
+    col = torch.take_along_dim(
+        Rp, k[..., None, None].expand(*k.shape, 3, 1), -1)[..., 0]
+    axis = col / torch.clamp_min(torch.linalg.vector_norm(col, dim=-1,
+                                                          keepdim=True),
+                                 1e-12)
+    sgn = torch.where((axis * w).sum(-1, keepdim=True) < 0, -1.0, 1.0)
+    return torch.where(near_pi[..., None], axis * sgn * theta[..., None],
+                       generic)
+
+
+def so3_right_jacobian(w: torch.Tensor) -> torch.Tensor:
+    """Jr(w): [...,3] -> [...,3,3]."""
+    theta2, t2, theta, W, W2, small = _theta_terms(w)
+    B = torch.where(small, 0.5 - theta2 / 24.0,
+                    (1.0 - torch.cos(theta)) / t2)
+    C = torch.where(small, 1.0 / 6.0 - theta2 / 120.0,
+                    (theta - torch.sin(theta)) / (t2 * theta))
+    return _eye_like(W) - B[..., None, None] * W + C[..., None, None] * W2
+
+
+def so3_right_jacobian_inv(w: torch.Tensor) -> torch.Tensor:
+    """Jr^{-1}(w): [...,3] -> [...,3,3]."""
+    theta2, t2, theta, W, W2, small = _theta_terms(w)
+    cot = torch.where(
+        small, 1.0 / 12.0 + theta2 / 720.0,
+        1.0 / t2 - (1.0 + torch.cos(theta))
+        / (2.0 * theta * torch.clamp_min(torch.sin(theta), 1e-12)))
+    return _eye_like(W) + 0.5 * W + cot[..., None, None] * W2

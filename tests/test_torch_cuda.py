@@ -1,4 +1,4 @@
-"""The four CUDA kernels against their plain PyTorch versions on the card.
+"""The eight CUDA kernels against their plain PyTorch versions on the card.
 
 Marked `cuda`; each test skips without a CUDA device.  This file imports
 no JAX, so it also runs on a GPU machine without JAX, where the suite's
@@ -7,7 +7,12 @@ conftest (which imports JAX) is left out:
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 
 Tolerances as in chip_smoke.py: FAST cells and matches identical; angles
-within 0.01 deg and >= 99.5% descriptor bits; pose within 1e-5 rad / m.
+within 0.01 deg and >= 99.5% descriptor bits; pose within 1e-5 rad / m;
+line segments within 0.01 px but for max(1, 2%) of each side's valid
+segments (sums in another order can move a segment across a threshold),
+the kernel path the same on every run, bf16 gradients identical; IMU deltas within 1e-5 relative and imu_info within
+1e-4 relative Frobenius (Cholesky against LU); VI pose within 1e-4 rad /
+m, inliers within 1%, H15 within 1e-3 relative Frobenius.
 """
 import math
 
@@ -140,3 +145,199 @@ def test_tracking_step_kernel_path_matches_plain_path(dev):
     assert bool(torch.isfinite(pk).all())
     assert float((pk - pp).abs().max()) <= 1e-4
     assert int(nk) == int(np_)
+
+
+# ---------------------------------------------------------------------------
+# the kernels of slice 2: line front end, IMU preintegration, VI pose LM
+# ---------------------------------------------------------------------------
+
+def _unmatched(ea, va, eb, vb, tol=0.01):
+    """Valid segments of a without a valid segment of b whose endpoints are
+    both within tol (either orientation), and how many may be: max(1,
+    2%)."""
+    ea, eb = ea.double().cpu().numpy(), eb.double().cpu().numpy()
+    va, vb = va.cpu().numpy(), vb.cpu().numpy()
+    n = 0
+    for i in np.nonzero(va)[0]:
+        same = np.maximum(np.linalg.norm(eb[:, :2] - ea[i, :2], axis=1),
+                          np.linalg.norm(eb[:, 2:] - ea[i, 2:], axis=1))
+        flip = np.maximum(np.linalg.norm(eb[:, :2] - ea[i, 2:], axis=1),
+                          np.linalg.norm(eb[:, 2:] - ea[i, :2], axis=1))
+        n += int(np.where(vb, np.minimum(same, flip), np.inf).min() > tol)
+    return n, max(1, int(0.02 * va.sum()))
+
+
+def _sets_agree(ea, va, eb, vb):
+    return all(n <= allowed for n, allowed in (_unmatched(ea, va, eb, vb),
+                                               _unmatched(eb, vb, ea, va)))
+
+
+def _segments(dev, h=240, w=376, n=30, seed=0):
+    """Dense random bright segments over a smooth background."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    img = 100.0 + 20.0 * np.sin(xx / 40.0) + 10.0 * np.cos(yy / 30.0)
+    for _ in range(n):
+        p0 = rng.uniform([10, 10], [w - 10, h - 10])
+        ang = rng.uniform(0, np.pi)
+        d = np.array([np.cos(ang), np.sin(ang)])
+        L = rng.uniform(25, 100)
+        t = (xx - p0[0]) * d[0] + (yy - p0[1]) * d[1]
+        perp = np.abs(-(xx - p0[0]) * d[1] + (yy - p0[1]) * d[0])
+        img += 80.0 * ((perp < 1.5) & (t > 0) & (t < L))
+    img += rng.normal(0, 1.0, img.shape)
+    return torch.from_numpy(np.clip(img, 0, 255).astype(np.float32)).to(dev)
+
+
+@pytest.mark.parametrize("image", ["segments", "flat"])
+def test_line_kernels_match_plain(dev, image):
+    """line_detect and line_refine_lbd against their plain versions; the
+    flat image has no atoms, so both give an empty line set."""
+    from plvio_tpu_torch.ops import lines as LN
+    img = _segments(dev) if image == "segments" \
+        else torch.full((240, 376), 77.0, device=dev)
+    pairs = torch.from_numpy(LN._band_pair_pattern()).to(dev)
+    dk = LN.line_detect(img, 96)
+    dp = LN.detect_lines(img, 96)
+    torch.cuda.synchronize()
+    assert torch.equal(dk[4][0], dp[4][0]) and torch.equal(dk[4][1], dp[4][1])
+    assert _sets_agree(dk[0], dk[3], dp[0], dp[3])
+    fk = LN.line_refine_lbd(dp[4][0], dp[4][1], dp[0], dp[3], pairs)
+    fp = LN.refine_lbd_plain(dp[4][0], dp[4][1], dp[0], dp[3], pairs)
+    torch.cuda.synchronize()
+    assert _sets_agree(fk.ep, fk.valid, fp.ep, fp.valid)
+    both = fk.valid & fp.valid & ((fk.ep - fp.ep).abs().amax(1) <= 0.01)
+    if image == "flat":
+        assert not bool(dk[3].any()) and not bool(fk.valid.any())
+    else:
+        assert int(both.sum()) >= 5
+        agree = (M.unpack_u32_to_pm1(fk.desc[both])
+                 == M.unpack_u32_to_pm1(fp.desc[both])).float().mean()
+        assert float(agree) >= 0.995
+    # the whole pyramid, kernel path against plain path
+    pk = LN.LineExtractor(128, 2).to(dev)(img)
+    pp = LN.LineExtractor(128, 2, plain=True).to(dev)(img)
+    torch.cuda.synchronize()
+    assert _sets_agree(pk.ep, pk.valid, pp.ep, pp.valid)
+    again = LN.LineExtractor(128, 2).to(dev)(img)
+    assert all(torch.equal(a, b) for a, b in zip(pk, again))
+    assert LN.LINE_DETECT.launches > 0 and LN.LINE_REFINE_LBD.launches > 0
+
+
+@pytest.mark.parametrize("k,n_valid", [(10, 10), (10, 4), (16, 16)])
+def test_imu_preint_matches_plain(dev, k, n_valid):
+    from plvio_tpu.config import ImuConfig
+    from plvio_tpu_torch.ops import imu as IMU
+    rng = np.random.default_rng(k + n_valid)
+
+    def t(a, dt=torch.float32):
+        return torch.from_numpy(np.asarray(a)).to(dt).to(dev)
+
+    args = (t(rng.normal(0, 0.5, (k, 3))),
+            t(rng.normal(0, 1.0, (k, 3)) + [0, 0, 9.81]),
+            t(rng.uniform(0.004, 0.006, k)), t(np.arange(k) < n_valid,
+                                               torch.bool),
+            IMU.make_calib(ImuConfig()), t(rng.normal(0, 0.02, 3)),
+            t(rng.normal(0, 0.1, 3)),
+            t(np.c_[np.eye(3), [1.0, -2.0, 0.5]]), t([0.3, -0.1, 0.2]))
+    fk = IMU.imu_preint(*args)
+    fp = IMU.imu_preint_plain(*args)
+    torch.cuda.synchronize()
+    for a, b in [(getattr(fk.pre, f), getattr(fp.pre, f))
+                 for f in fk.pre._fields] + [(fk.R2, fp.R2), (fk.v2, fp.v2),
+                                             (fk.p2, fp.p2)]:
+        scale = float(b.abs().max())
+        assert float((a - b).abs().max()) <= 1e-5 * max(scale, 1e-30)
+    rel = (fk.imu_info - fp.imu_info).norm() / fp.imu_info.norm()
+    assert float(rel) <= 1e-4
+
+
+@pytest.mark.parametrize("have_prior", [True, False])
+def test_vi_pose_lm_matches_plain(dev, have_prior):
+    from plvio_tpu.config import ImuConfig
+    from plvio_tpu_torch.ops import imu as IMU
+    from plvio_tpu_torch.utils import lie
+    rng = np.random.default_rng(7)
+    cap = 1024
+    R0 = lie.so3_exp(torch.tensor(rng.normal(0, 0.3, 3),
+                                  dtype=torch.float32))
+    p0 = torch.tensor(rng.normal(0, 1, 3), dtype=torch.float32)
+    v0 = torch.tensor(rng.normal(0, 0.5, 3), dtype=torch.float32)
+    prev = torch.cat([R0, p0[:, None]], 1)
+    g = torch.tensor(rng.normal(0, 0.3, (10, 3)), dtype=torch.float32)
+    a = torch.tensor(rng.normal(0, 0.5, (10, 3)), dtype=torch.float32) \
+        + R0.T @ torch.tensor([0.0, 0.0, 9.81])
+    f = IMU.imu_preint_plain(g, a, torch.full((10,), 0.005),
+                             torch.ones(10, dtype=torch.bool),
+                             IMU.make_calib(ImuConfig()), torch.zeros(3),
+                             torch.zeros(3), prev, v0)
+    R2, p2 = f.R2.double().numpy(), f.p2.double().numpy()
+    Xc = rng.uniform([-2, -1.5, 2], [2, 1.5, 6], (cap, 3))
+    X = torch.tensor(Xc @ R2.T + p2, dtype=torch.float32)
+    uv = np.stack([K.fx * Xc[:, 0] / Xc[:, 2] + K.cx,
+                   K.fy * Xc[:, 1] / Xc[:, 2] + K.cy], -1) \
+        + rng.normal(0, 0.7, (cap, 2))
+    uv[:150] += rng.uniform(-25, 25, (150, 2))
+    Rp = R2 @ lie.so3_exp(torch.tensor(rng.normal(0, 0.01, 3))).numpy()
+    pose0 = torch.tensor(np.c_[Rp, p2 + rng.normal(0, 0.02, 3)],
+                         dtype=torch.float32)
+    pre = f.pre
+    pre_const = {k: getattr(pre, k) for k in ("dT", "dR", "dV", "dP", "JRg",
+                                              "JVg", "JVa", "JPg", "JPa")}
+    pre_const.update(bg0=pre.bias_gyro, ba0=pre.bias_acc)
+    prior_const = dict(R0=R0, p0=p0, v0=v0, bg0=torch.zeros(3),
+                       ba0=torch.zeros(3))
+    rw = torch.tensor([1 / (1.9393e-5 ** 2 * 10)] * 3
+                      + [1 / (3e-3 ** 2 * 10)] * 3)
+
+    def d(x):
+        if isinstance(x, dict):
+            return {k: v.to(dev).contiguous() for k, v in x.items()}
+        return x.to(dev).contiguous()
+
+    case = [K, d(torch.eye(3)), d(torch.zeros(3)), 9.81, d(pose0), d(f.v2),
+            d(torch.full((3,), 1e-3)), d(torch.full((3,), 1e-2)),
+            d(torch.tensor(uv, dtype=torch.float32)), d(X),
+            d(torch.tensor(rng.random(cap) < 0.9)),
+            d(torch.tensor(1 / 1.2 ** (2 * rng.integers(0, 3, cap)),
+                           dtype=torch.float32)),
+            d(prev), d(v0), d(pre_const), d(f.imu_info), d(rw),
+            d(prior_const), d(torch.eye(15) * 100.0)]
+    ok = KN.vi_pose_lm(*case, have_prior)
+    op = KN.vi_pose_opt_plain(*case, have_prior)
+    torch.cuda.synchronize()
+    dR = ok[0][:, :3].double().T @ op[0][:, :3].double()
+    skew = torch.stack([dR[2, 1] - dR[1, 2], dR[0, 2] - dR[2, 0],
+                        dR[1, 0] - dR[0, 1]]) / 2
+    assert float(skew.norm()) <= 1e-4
+    assert float((ok[0][:, 3] - op[0][:, 3]).abs().max()) <= 1e-4
+    assert abs(int(ok[5]) - int(op[5])) <= 0.01 * int(op[5])
+    assert float((ok[6] - op[6]).norm() / op[6].norm()) <= 1e-3
+    assert KN.VI_POSE_LM.launches > 0
+
+
+def test_tracking_step_vi_kernel_path_matches_plain_path(dev):
+    from plvio_tpu_torch.entry import tracking_step_vi
+    from plvio_tpu_torch.inputs import build_imu_windows, build_inputs
+    from plvio_tpu_torch.state import from_numpy
+    fr = build_inputs(3, 256, 32, 240, 376, n_features=300, device=dev)
+    g, a, dts, c0 = build_imu_windows(fr[-1], 3)
+    st = from_numpy(dict(pt_xyz=fr[2], pt_desc=fr[3], pt_valid=fr[4],
+                         ln_ep6=fr[5], ln_desc=fr[6], ln_valid=fr[7]), dev)
+    m = [st[k] for k in ("pt_xyz", "pt_desc", "pt_valid", "ln_ep6",
+                         "ln_desc", "ln_valid")]
+    out = []
+    for plain in (False, True):
+        step, _ = tracking_step_vi(240, 376, 300, 256, 64, device=dev,
+                                   plain=plain)
+        c = tuple(torch.from_numpy(x.copy()).to(dev) for x in c0)
+        xs = (torch.from_numpy(fr[0][1]).to(dev),
+              *(torch.from_numpy(x[0]).to(dev) for x in (g, a, dts)))
+        with torch.no_grad():
+            c, (n, _) = step(c, xs, *m)
+        out.append((c, int(n)))
+    torch.cuda.synchronize()
+    (ck, nk), (cp, np_) = out
+    assert bool(torch.isfinite(ck[0]).all())
+    assert float((ck[0] - cp[0]).abs().max()) <= 1e-4
+    assert abs(nk - np_) <= max(1, 0.03 * np_)

@@ -103,13 +103,25 @@ def test_cuda_request_without_card_raises():
 def test_port_never_loads_jax():
     code = (
         "import sys\n"
+        "import torch\n"
         "import chip_smoke\n"
+        "import plvio_tpu_torch.profile_frames\n"
         "from plvio_tpu_torch.entry import tracking_step_pl\n"
         "from plvio_tpu_torch.inputs import build_inputs\n"
         "step, args = tracking_step_pl(96, 160, 60, 32, 8, 16)\n"
         "pose, n = step(*args)\n"
-        "fr = build_inputs(1, 16, 4, 96, 160, n_features=60)\n"
+        "fr = build_inputs(3, 16, 4, 96, 160, n_features=60)\n"
         "assert pose.shape == (3, 4)\n"
+        "from plvio_tpu_torch.entry import tracking_step_vi\n"
+        "from plvio_tpu_torch.inputs import build_imu_windows\n"
+        "g, a, d, c0 = build_imu_windows(fr[-1], 3)\n"
+        "vi, _ = tracking_step_vi(96, 160, 60, 16, 16)\n"
+        "m = [torch.from_numpy(x) for x in fr[2:8]]\n"
+        "m[1], m[4] = m[1].view(torch.int32), m[4].view(torch.int32)\n"
+        "xs = tuple(torch.from_numpy(x) for x in (fr[0][1], g[0], a[0], "
+        "d[0]))\n"
+        "c, _ = vi(tuple(torch.from_numpy(x) for x in c0), xs, *m)\n"
+        "assert c[0].shape == (3, 4) and c[4].shape == (15, 15)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] == 'jax')\n"
         "assert 'jax' not in sys.modules, bad\n"
         "print('no jax')\n")
