@@ -4,15 +4,20 @@
     python3 chip_smoke.py
 
 Drives the port's two tracked frames at EuRoC geometry (480x752, 1000 ORB
-features, 256 line features, 2048 map points, 128 map lines) through their
-user entry points, and fails (nonzero exit, no result line) unless every
-phase passes:
+features, 256 line features, 2048 map points, 128 map lines) and its
+keyframe mapping step at both window sizes of the reference's benchmark
+(16 KF x 4096 points x 8192 observations + 512 lines x 1024 observations,
+and 2048 / 4096 / 256 / 512) through their user entry points, and fails
+(nonzero exit, no result line) unless every phase passes:
 
 1. the card is there (prints `nvidia-smi` name and power limit);
-2. the eight CUDA kernels build from `plvio_tpu_torch/csrc` (nvcc, sm_90a,
-   one nvcc per source, all started together);
+2. the twelve CUDA kernels build from `plvio_tpu_torch/csrc` (nvcc,
+   sm_90a, one nvcc per source, all started together);
 3. each kernel agrees with its plain PyTorch version on the card at the
-   paths' shapes;
+   paths' shapes (the mapping kernels also on a perturbed window at the
+   same shape in which every gate of the epipolar match and of the
+   triangulation decides some rows, and the Schur step's landmarks against
+   the plain step and a float64 back-substitution);
 4. slice 1, `tracking_step_pl`: 16 synthetic frames with the pose carried,
    >= 80 inliers, camera centre <= 10 mm and rotation <= 0.3 deg from
    ground truth on every frame, every kernel of the path launched; the
@@ -27,7 +32,23 @@ phase passes:
    relative of it;
 6. CUDA-event times per frame of both frames (kernel and plain paths) and
    per kernel beside its plain version, with the card's name and power
-   limit.
+   limit;
+7. slice 3, `mapping_step`, at both sizes: from the true start the
+   triangulated and inlier counts within 1% of the JAX reference run on
+   the CPU (REF_MAP below), from the perturbed start
+   (`inputs.perturb_window`) the largest camera-centre error within
+   max(2x the reference's, 10 mm), the kernel and plain paths' KF poses
+   within 1e-4 and their landmarks' reprojection residuals within 0.1 px,
+   every kernel of the path launched; CUDA-event times per mapping step on
+   both paths, of `schur_solve` beside torch.mm of its Gram fill-in,
+   and the sustained figure of bench.py's `bench_sustained` (3 point+line
+   frames + 1 typical mapping step, ms per frame).
+
+Each kernel's least time on the card (`bound_ms`) is the larger of its
+bytes (inputs read once, outputs written once) over 3.35 TB/s and its
+operations over 67 TFLOP/s (the float32 rate outside the tensor cores,
+also used for the integer and float64 work), counted from this run's
+shapes and data (`work`, beside each kernel's check).
 
 Prints a JSON line of the kernels, then, as its last line,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -43,15 +64,19 @@ import numpy as np
 import torch
 
 from plvio_tpu_torch import cuda
-from plvio_tpu_torch.entry import (K_EUROC, point_projection_match,
+from plvio_tpu_torch.entry import (K_EUROC, MAPPING_TYPICAL, MAPPING_WORST,
+                                   mapping_step, point_projection_match,
                                    project_points, tracking_step_pl,
                                    tracking_step_vi)
-from plvio_tpu_torch.inputs import build_imu_windows, build_inputs
+from plvio_tpu_torch.inputs import (build_imu_windows, build_inputs,
+                                    perturb_window)
 from plvio_tpu_torch.models import kernels as KN
 from plvio_tpu_torch.ops import frontend as FE
 from plvio_tpu_torch.ops import imu as IMU
 from plvio_tpu_torch.ops import lines as LN
 from plvio_tpu_torch.ops import matching as M
+from plvio_tpu_torch.solver import engine as E
+from plvio_tpu_torch.solver import residuals as RES
 from plvio_tpu_torch.state import from_numpy
 
 H, W, N_FEAT, CAP_PTS, CAP_LNS, N_LINE, N_FRAMES = 480, 752, 1000, 2048, 128, \
@@ -65,11 +90,35 @@ KERNELS = {
     "line_refine_lbd": (LN.LINE_REFINE_LBD, "plvio_tpu/ops/lines.py:514"),
     "imu_preint": (IMU.IMU_PREINT, "plvio_tpu/ops/imu.py:87"),
     "vi_pose_lm": (KN.VI_POSE_LM, "plvio_tpu/models/kernels.py:932"),
+    "rot_hist": (M.ROT_HIST, "plvio_tpu/ops/matching.py:115"),
+    "triangulate": (KN.TRIANGULATE, "plvio_tpu/models/kernels.py:878"),
+    "ba_linearize": (KN.BA_LINEARIZE, "plvio_tpu/solver/engine.py:355"),
+    "schur_solve": (KN.SCHUR_SOLVE, "plvio_tpu/solver/engine.py:452"),
 }
 PATH_PL = ("orb_fast_grid", "orb_describe", "hamming_match", "pose_irls",
            "line_detect", "line_refine_lbd")
 PATH_VI = ("orb_fast_grid", "orb_describe", "hamming_match", "line_detect",
            "line_refine_lbd", "imu_preint", "vi_pose_lm")
+PATH_MAP = ("hamming_match", "rot_hist", "triangulate", "ba_linearize",
+            "schur_solve")
+# bench.build_mapping_step's step (with the line inliers) on the CPU in
+# float32, at both sizes, from the true start and from
+# inputs.perturb_window's start: triangulated pairs, inlier observations,
+# the largest camera-centre errors (m) against the true KF poses; printed
+# by `JAX_PLATFORMS=cpu PYTHONPATH=. python3 tests/test_torch_mapping_step.py`
+REF_MAP = {
+    "worst": {"n_good": 1024, "n_inliers": 8192, "n_inliers_l": 1024,
+              "true_max_centre_m": 0.00398586260877945,
+              "perturbed_start_m": 0.04400639133499479,
+              "perturbed_max_centre_m": 0.011309127880816847},
+    "typical": {"n_good": 1024, "n_inliers": 4096, "n_inliers_l": 512,
+                "true_max_centre_m": 0.0038392607427625773,
+                "perturbed_start_m": 0.04400644060011908,
+                "perturbed_max_centre_m": 0.010204830494980062}}
+MAP_POSE_TOL = 1e-4       # kernel against plain path, a KF pose entry
+MAP_RES_TOL_PX = 0.1      # ... a reprojection residual: ~2x MAP_POSE_TOL x fx
+HBM_BPS = 3.35e12         # H100 SXM device memory, bytes/s
+F32_OPS = 67e12           # H100 SXM float32 outside the tensor cores
 # __graft_entry__._tracking_step_vi_fn on the CPU (float32), fed
 # build_inputs(16) + build_imu_windows: frames 1..15, fewest inliers, the
 # largest body-position and rotation errors against ground truth; printed by
@@ -108,6 +157,24 @@ def cuda_ms(fn, reps=20, warmup=3):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def nbytes(*objs):
+    """Bytes of the tensors in objs (tuples and named tuples walked)."""
+    n = 0
+    for o in objs:
+        if torch.is_tensor(o):
+            n += o.numel() * o.element_size()
+        elif isinstance(o, (tuple, list)):
+            n += nbytes(*o)
+    return n
+
+
+def work(nb, ops):
+    """The bound of a kernel call from its bytes and operations."""
+    t_b, t_o = nb / HBM_BPS * 1e3, ops / F32_OPS * 1e3
+    return dict(bytes=int(nb), ops=int(ops), bound_ms=max(t_b, t_o),
+                bound_by="bytes" if t_b >= t_o else "operations")
 
 
 def pose_err(P, G):
@@ -183,10 +250,11 @@ def check_pl_kernels(imgs, poses, st, step, report):
     orb = step.orb
     # -- orb_fast_grid: every level of frame 1
     pyr = FE.build_pyramid(imgs[1], orb.specs)
-    same, total, err = [], [], 0.0
+    same, total, err, out_b = [], [], 0.0, 0
     for im in pyr:
         bk, ak = FE.orb_fast_grid(im, 20.0, 7.0)
         bp, ap = FE.orb_fast_grid_plain(im, 20.0, 7.0)
+        out_b += nbytes(bk, ak)
         eq = (ak == ap) & (bk == bp)
         same.append(int(eq.sum()))
         total.append(eq.numel())
@@ -196,7 +264,10 @@ def check_pl_kernels(imgs, poses, st, step, report):
     frac = sum(same[1:]) / sum(total[1:])
     check(frac >= 0.995, f"orb_fast_grid levels 1-7 winners {frac:.4%} "
           "identical (>= 99.5%)")
+    # FAST at two thresholds on the 16-pixel ring, 3x3 NMS, cell argmax:
+    # ~60 operations a pixel
     report["orb_fast_grid"] = dict(
+        **work(nbytes(*pyr) + out_b, 60 * sum(im.numel() for im in pyr)),
         max_abs_err=err,
         ms=cuda_ms(lambda: [FE.orb_fast_grid(im, 20.0, 7.0) for im in pyr]),
         plain_ms=cuda_ms(lambda: [FE.orb_fast_grid_plain(im, 20.0, 7.0)
@@ -222,7 +293,13 @@ def check_pl_kernels(imgs, poses, st, step, report):
           f"orb_describe bits {agree:.4%} agree (>= 99.5%)")
     check(dang <= 0.01, f"orb_describe angles within {dang:.2e} deg "
           "(<= 0.01)")
+    # per keypoint: its 39x39 patch read once, a 7x7 blur of it, the
+    # intensity centroid on the r=15 disc and 256 steered comparisons
+    n_kp = xy.shape[0]
     report["orb_describe"] = dict(
+        **work(min(n_kp * 39 * 39 * 4, nbytes(*pyr)) + nbytes(xy, oc)
+               + nbytes(ang_k, desc_k),
+               n_kp * (39 * 39 * 49 * 2 + 31 * 31 * 4 + 256 * 4)),
         max_abs_err=dang, ms=cuda_ms(lambda: FE.orb_describe(*dargs)),
         plain_ms=cuda_ms(lambda: FE.orb_describe_plain(*dargs)))
 
@@ -262,7 +339,13 @@ def check_pl_kernels(imgs, poses, st, step, report):
         errs.append(float((ik != ip).sum() + (ok_k != ok_p).sum()))
         check(errs[-1] == 0, f"hamming_match {name}: idx and ok identical "
               f"({int(ok_k.sum())} matched)")
+    # the window gate on every pair (~6 operations), then XOR + popc of 8
+    # words on the pairs it admits (~17)
+    gated = int((M.window_gate(uvp, feats.uv, 20.0) & row_ok[:, None]
+                 & feats.valid[None, :]).sum())
+    n_r, n_c = uvp.shape[0], feats.uv.shape[0]
     report["hamming_match"] = dict(
+        **work(nbytes(*pt_case) + n_r * 5, 6 * n_r * n_c + 17 * gated),
         max_abs_err=max(errs),
         ms=cuda_ms(lambda: M.hamming_match(*pt_case, **pt_kw)),
         plain_ms=cuda_ms(lambda: M.hamming_match_plain(*pt_case, **pt_kw)))
@@ -290,7 +373,11 @@ def check_pl_kernels(imgs, poses, st, step, report):
     check(bool((~diff | near).all()) and bool((ilk == ilp).all()),
           f"pose_irls inlier masks equal but for {int(diff.sum())} rows "
           "within 1% of the gate")
+    # 4 rounds x 3 Gauss-Newton steps over every point (~150 operations)
+    # and both endpoints of every line (~300)
     report["pose_irls"] = dict(
+        **work(nbytes(*pargs[1:]) + nbytes(Pk, ipk, ilk) + 4,
+               12 * (150 * CAP_PTS + 300 * CAP_LNS)),
         max_abs_err=float((Pk - Pp).abs().max()),
         ms=cuda_ms(lambda: KN.pose_irls(*pargs)),
         plain_ms=cuda_ms(lambda: KN.pose_irls_plain(*pargs)))
@@ -302,10 +389,11 @@ def check_line_kernels(img, report):
     img1 = img.reshape(H // 2, 2, W // 2, 2).mean((1, 3)).contiguous()
     levels = ((img, N_LINE - N_LINE // 4), (img1, N_LINE // 4))
     err, det_err = 0.0, 0.0
-    dets = []
+    dets, det_out, ref_in, ref_out, n_seg = [], 0, 0, 0, 0
     for lv, (im, n) in enumerate(levels):
         dk = LN.line_detect(im, n)
         dp = LN.detect_lines(im, n)
+        det_out += nbytes(dk)
         differ = int((dk[4][0] != dp[4][0]).sum()
                      + (dk[4][1] != dp[4][1]).sum())
         check(differ == 0, f"line_detect level {lv}: bf16 Scharr gradients "
@@ -322,6 +410,9 @@ def check_line_kernels(img, report):
                                      dets[0][0], dets[0][3], pairs)
         fk = LN.line_refine_lbd(dp[4][0], dp[4][1], dp[0], dp[3], pairs, f0)
         fp = LN.refine_lbd_plain(dp[4][0], dp[4][1], dp[0], dp[3], pairs, f0)
+        ref_in += nbytes(dp[4], dp[0], dp[3])
+        ref_out += nbytes(fk)
+        n_seg += int(dp[3].sum())
         check_segments(f"line_refine_lbd level {lv}", fk.ep, fk.valid,
                        fp.ep, fp.valid)
         # descriptors of the segments that agree (same row: the refit keeps
@@ -338,7 +429,10 @@ def check_line_kernels(img, report):
         LN.LineExtractor(N_LINE).to(img.device)(img)
     check(all(torch.equal(x, y) for x, y in zip(lk1, lk2)),
           "line kernels: two runs of the pyramid give identical outputs")
+    # bf16 Scharr (2 x 9 products), the cell structure tensors, links and
+    # components: ~60 operations a pixel
     report["line_detect"] = dict(
+        **work(nbytes(img, img1) + det_out, 60 * (img.numel() + img1.numel())),
         max_abs_err=det_err,
         ms=cuda_ms(lambda: [LN.line_detect(im, n) for im, n in levels]),
         plain_ms=cuda_ms(lambda: [LN.detect_lines(im, n)
@@ -349,7 +443,10 @@ def check_line_kernels(img, report):
     def refine(fn):
         fn(dp0[4][0], dp0[4][1], dp0[0], dp0[3], pairs)
         fn(dp1[4][0], dp1[4][1], dp1[0], dp1[3], pairs, f0)
+    # per segment: the refit's gradient snaps and the banded LBD, ~15k
+    # operations
     report["line_refine_lbd"] = dict(
+        **work(ref_in + ref_out, 15000 * n_seg),
         max_abs_err=err, ms=cuda_ms(lambda: refine(LN.line_refine_lbd)),
         plain_ms=cuda_ms(lambda: refine(LN.refine_lbd_plain), reps=5))
 
@@ -402,15 +499,21 @@ def check_vi_kernels(step, img, carry, xs, st, report):
     fro = float((fk.imu_info - fp.imu_info).norm() / fp.imu_info.norm())
     check(fro <= 1e-4, f"imu_preint imu_info within {fro:.2e} relative "
           "Frobenius of the LU inverse (<= 1e-4)")
+    # per sample the 15x15 covariance propagation A C A^T (~13.5k
+    # operations), then the 9x9 inverse
     report["imu_preint"] = dict(
+        **work(nbytes(gyro, acc, dts) + nbytes(fk), 13500 * gyro.shape[0]
+               + 2000),
         max_abs_err=errs[worst], ms=cuda_ms(lambda: IMU.imu_preint(*args)),
         plain_ms=cuda_ms(lambda: IMU.imu_preint_plain(*args)))
 
     case = vi_frame1_case(step, img, carry, xs, st)
     worst_err = 0.0
+    lm_iters = []
     for hp in (True, False):
         ok_ = KN.vi_pose_lm(*case, hp)
-        op_ = KN.vi_pose_opt_plain(*case, hp)
+        op_ = KN.vi_pose_opt_plain(*case, hp,
+                                   stats=lm_iters if hp else None)
         drot = rot_diff_rad(ok_[0], op_[0])
         dt = float((ok_[0][:, 3] - op_[0][:, 3]).abs().max())
         nk, np_ = int(ok_[5]), int(op_[5])
@@ -428,10 +531,439 @@ def check_vi_kernels(step, img, carry, xs, st, report):
         check(hrel <= 1e-3, f"vi_pose_lm have_prior={hp}: H15 within 1e-3 "
               "relative Frobenius")
         worst_err = max(worst_err, float((ok_[0] - op_[0]).abs().max()))
+    # per LM iteration (the plain version's count on the same data): the
+    # linearization and the cost of every edge (~250 operations each),
+    # then the 30x30 factorization
+    cap = case[9].shape[0]
     report["vi_pose_lm"] = dict(
+        **work(nbytes(*case[8:12]) + 448 * 4 + 246 * 4 + cap + 4,
+               sum(lm_iters) * (250 * cap + 2 * 30 ** 3)),
         max_abs_err=worst_err, ms=cuda_ms(lambda: KN.vi_pose_lm(*case, True)),
         plain_ms=cuda_ms(lambda: KN.vi_pose_opt_plain(*case, True), reps=3,
                          warmup=1))
+
+
+def perturbed_window(A):
+    """A copy of a mapping window with inputs.perturb_window's start."""
+    B = dict(A)
+    P, X = perturb_window(A["kf_poses"].cpu().numpy(),
+                          A["pt_xyz"].cpu().numpy())
+    B["kf_poses"] = torch.from_numpy(P).to(A["kf_poses"].device)
+    B["pt_xyz"] = torch.from_numpy(X).to(A["pt_xyz"].device)
+    return B
+
+
+def centre_err(P, G):
+    """Largest camera-centre distance (m) between two KF pose stacks."""
+    P, G = P.double().cpu(), G.double().cpu()
+    c = -torch.einsum("kji,kj->ki", P[..., :3], P[..., 3])
+    cg = -torch.einsum("kji,kj->ki", G[..., :3], G[..., 3])
+    return float((c - cg).norm(dim=1).max())
+
+
+def unpack_sym(packed, d):
+    """[..., d(d+1)/2] upper triangles (row by row) -> [..., d, d]."""
+    iu = torch.triu_indices(d, d)
+    out = torch.zeros(*packed.shape[:-1], d, d, dtype=packed.dtype,
+                      device=packed.device)
+    out[..., iu[0], iu[1]] = packed
+    out[..., iu[1], iu[0]] = packed
+    return out
+
+
+def rel_err(a, b):
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def changed(ref, idx, ok):
+    """Rows whose match differs from (ref_idx, ref_ok)."""
+    ri, rok = ref
+    return int(((ok != rok) | (ok & rok & (idx != ri))).sum())
+
+
+def epipolar_gate_case(A, dev):
+    """The path's window at n_feat, reshaped so that every gate of the
+    epipolar match decides some rows: 1 px noise on uv_a and mixed
+    octaves (the epipolar gate), a few flipped bits everywhere, 72 flipped
+    bits on 32 rows (max_dist 60), 32 columns duplicated next to their
+    twin (the ratio test) and 32 rows duplicated next to their twin (the
+    mutual check).  Returns the kernel's arguments and keywords."""
+    g = torch.Generator().manual_seed(12)
+    n = A["desc"].shape[0]
+    d1 = A["desc"].cpu().clone()
+    d2 = d1 ^ (torch.randint(0, 2, (n, 8), generator=g) << 7).to(torch.int32)
+    uv1 = A["uv_a"].cpu() + torch.randn(n, 2, generator=g)
+    uv2 = A["uv_b"].cpu().clone()
+    d2[400:432] = d1[400:432] ^ 0x1FF
+    d2[756:788], uv2[756:788] = d2[500:532], uv2[500:532] + 0.25
+    d1[900:932], uv1[900:932] = d1[600:632], uv1[600:632] + 0.25
+    th = 2.0 * torch.pow(1.2, torch.randint(0, 4, (n,), generator=g).float())
+    F = KN.fundamental(K_EUROC, A["pose_a"], A["pose_b"])
+    args = (d1.to(dev), d2.to(dev), A["ok"], A["ok"],
+            uv1.contiguous().to(dev), uv2.to(dev))
+    return args, dict(radius=0.0, max_dist=60.0, ratio=0.8, epi_F=F,
+                      epi_th=th.to(dev))
+
+
+def epipolar_gate_effects(args, kw, ref):
+    """Rows whose match changes when one gate of the plain version is left
+    out: each must be > 0 for the kernel's equality to test that gate."""
+    d1, d2, ok1, ok2, uv1, uv2 = args
+    dist = M.hamming_matrix(M.unpack_u32_to_pm1(d1), M.unpack_u32_to_pm1(d2))
+    gate = M.epipolar_gate(kw["epi_F"], uv1, uv2, kw["epi_th"])
+    nn = M.match_nn_ratio
+    return {
+        "epipolar": changed(ref, *nn(dist, ok1, ok2, None, 60.0, 0.8)),
+        "ratio": changed(ref, *nn(dist, ok1, ok2, gate, 60.0, 1e30)),
+        "mutual": changed(ref, *nn(dist, ok1, ok2, gate, 60.0, 0.8,
+                                   mutual=False)),
+        "max_dist": changed(ref, *nn(dist, ok1, ok2, gate, 1e30, 0.8))}
+
+
+def triangulate_gate_case(A, dev):
+    """Pairs of the path's window at n_feat (float64 construction): 0.7 px
+    noise on uv_b, 3 px on 32 rows (the reprojection gate), the first 10
+    rows swapped, 32 rows at 1 cm from one camera (the depth gate), 32
+    rows at 300 baselines (the parallax gate) and 10% invalid.  Returns
+    the kernel's arguments."""
+    g = torch.Generator().manual_seed(11)
+    P1, P2 = A["pose_a"].double().cpu(), A["pose_b"].double().cpu()
+    R21 = P2[:, :3] @ P1[:, :3].T
+    t21 = P2[:, 3] - R21 @ P1[:, 3]
+    uv1 = A["uv_a"].double().cpu()
+    n = uv1.shape[0]
+    uv2 = A["uv_b"].double().cpu() + 0.7 * torch.randn(n, 2, generator=g,
+                                                        dtype=torch.float64)
+    uv2[:10] = uv2[:10].flip(0)
+    uv2[300:332] += 3.0 * torch.randn(32, 2, generator=g,
+                                      dtype=torch.float64)
+    ray = torch.stack([(uv1[:, 0] - K_EUROC.cx) / K_EUROC.fx,
+                       (uv1[:, 1] - K_EUROC.cy) / K_EUROC.fy,
+                       torch.ones(n, dtype=torch.float64)], -1)
+    a = (ray @ R21.T)[:, 2]
+    base = float((R21.T @ t21).norm())
+    # depth 1 cm in view 1, or 1 cm in view 2 where view 1's would put
+    # the point behind view 2
+    s_near = torch.maximum(torch.full_like(a, 0.01), (0.01 - t21[2]) / a)
+    for rows, s in ((slice(100, 132), s_near[100:132]),
+                    (slice(200, 232), torch.full((32,), 300.0 * base,
+                                                 dtype=torch.float64))):
+        X2 = (s[:, None] * ray[rows]) @ R21.T + t21
+        uv2[rows] = torch.stack([K_EUROC.fx * X2[:, 0] / X2[:, 2] + K_EUROC.cx,
+                                 K_EUROC.fy * X2[:, 1] / X2[:, 2]
+                                 + K_EUROC.cy], -1)
+    valid = torch.rand(n, generator=g) < 0.9
+    th = torch.full((n,), 5.991, device=dev)
+    return (K_EUROC, A["pose_a"], A["pose_b"], A["uv_a"],
+            uv2.float().to(dev), valid.to(dev), th, th)
+
+
+def triangulate_gate_effects(targs, Xw):
+    """Valid rows that fail exactly one gate of the plain version (depth,
+    parallax, reprojection), recomputed from its world points: a kernel
+    that skipped that gate would call them good."""
+    K, P1, P2, uv1, uv2, valid, th1, th2 = [
+        x.double().cpu() if torch.is_tensor(x) and x.is_floating_point()
+        else x.cpu() if torch.is_tensor(x) else x for x in targs]
+    Xw = Xw.double().cpu()
+    X1 = Xw @ P1[:, :3].T + P1[:, 3]
+    X2 = Xw @ P2[:, :3].T + P2[:, 3]
+    C1, C2 = -P1[:, :3].T @ P1[:, 3], -P2[:, :3].T @ P2[:, 3]
+    r1, r2 = Xw - C1, Xw - C2
+    cosp = (r1 * r2).sum(-1) / (r1.norm(dim=-1) * r2.norm(dim=-1))
+
+    def err(X, uv):
+        z = X[:, 2].clamp_min(1e-9)
+        e = torch.stack([K.fx * X[:, 0] / z + K.cx,
+                         K.fy * X[:, 1] / z + K.cy], -1) - uv
+        return (e * e).sum(-1)
+    fail = {"depth": (X1[:, 2] <= 0.02) | (X2[:, 2] <= 0.02),
+            "parallax": cosp >= 0.99995,
+            "reprojection": (err(X1, uv1) >= th1) | (err(X2, uv2) >= th2)}
+    out = {}
+    for k, f in fail.items():
+        others = torch.zeros_like(f)
+        for k2, f2 in fail.items():
+            if k2 != k:
+                others |= f2
+        out[k] = int((valid & f & ~others).sum())
+    return out
+
+
+def well_gap(cand, ref, Hpp):
+    """Per landmark, |cand - ref| along the eigen-directions of Hpp whose
+    eigenvalue is >= 1e-3 of the block's largest, relative to |ref|: the
+    directions the observations determine (a line endpoint's slide along
+    its line and a low-parallax point's depth are left out, where the
+    damping floor decides).  Returns (gap [P], directions kept [P])."""
+    ev, V = torch.linalg.eigh(Hpp.double())
+    occ = torch.diagonal(Hpp, dim1=-2, dim2=-1).sum(-1) > 1e-9
+    keep = (ev >= 1e-3 * ev[:, -1:].clamp_min(1e-30)) & occ[:, None]
+    d = torch.einsum("pdk,pd->pk", V, cand.double() - ref.double()) * keep
+    return d.norm(dim=1) / ref.double().norm(dim=1), keep.sum(1)
+
+
+def backsub_reference(hp, W, lm_idx, kf_idx, free, dx, X, lam,
+                      dt=torch.float64):
+    """The landmark back-substitution of the engine's Schur step
+    (damping floor, occupied gate, chol_invT_blocks, blk_ok, the explicit
+    Dinv = F F^T) in dtype dt from the kernel's own system: hp [P, D(D+1)/2
+    + D] packed Hpp and gp, W [O, 6 D] per-observation couplings, the
+    kernel's pose step dx.  Returns (candidate landmarks, occupied,
+    condition number of each damped block)."""
+    D = X.shape[1]
+    NU = D * (D + 1) // 2
+    lf = free.to(dt)
+    Hpp = unpack_sym(hp[:, :NU], D).to(dt) * lf[:, None, None]
+    g = hp[:, NU:].to(dt) * lf[:, None]
+    dpp = torch.diagonal(Hpp, dim1=-2, dim2=-1)
+    Hd = Hpp + torch.diag_embed(dpp * lam + 1e-4 * dpp.mean(-1, keepdim=True)
+                                + 1e-6)
+    occ = (dpp.sum(-1) > 1e-9) & free
+    Hd = torch.where(occ[:, None, None], Hd,
+                     torch.eye(D, dtype=Hd.dtype, device=Hd.device))
+    Fc = E.chol_invT_blocks(Hd)
+    occ = occ & torch.isfinite(Fc).all(-1).all(-1) \
+        & (Fc.abs().amax((-2, -1)) < 1e3)
+    Wo = W.to(dt).view(-1, 6, D) * lf[lm_idx, None, None]
+    d = dx.to(dt).view(-1, 6)[kf_idx]
+    rhs = g.index_add(0, lm_idx, -torch.einsum("oij,oi->oj", Wo, d))
+    Dinv = torch.einsum("pij,pkj->pik", Fc, Fc)
+    dxp = torch.einsum("pij,pj->pi", Dinv, rhs) * occ[:, None]
+    return X.to(dt) + dxp, occ, torch.linalg.cond(Hd.double())
+
+
+def window_residuals(poses, pts, lns, A):
+    """Reprojection residuals (px) of every point and line observation of
+    a mapping window: the landmarks as the observing keyframes see them,
+    so null directions (depth of a point seen once, an endpoint sliding
+    along its line) do not count."""
+    rp = RES.point_reproj_jac(K_EUROC, poses[A["obs_kf"].long()],
+                              pts[A["obs_pt"].long()], A["obs_uv"])[0]
+    rl = RES.line_reproj_jac(K_EUROC, poses[A["lobs_kf"].long()],
+                             lns[A["lobs_ln"].long()], A["lobs_eq"])[0]
+    return rp, rl
+
+
+def check_map_kernels(report):
+    """The four kernels of slice 3 (and hamming_match's epipolar mode) on
+    the worst-case mapping window."""
+    dev = torch.device("cuda")
+    sz = MAPPING_WORST
+    _, A = mapping_step(**sz, device=dev)
+    n = sz["n_feat"]
+    # -- hamming_match, epipolar mode: the step's match
+    F = KN.fundamental(K_EUROC, A["pose_a"], A["pose_b"])
+    th = torch.full((n,), 2.0, device=dev)
+    ecase = (A["desc"], A["desc"], A["ok"], A["ok"], A["uv_a"], A["uv_b"])
+    ekw = dict(radius=0.0, max_dist=60.0, ratio=0.8, epi_F=F, epi_th=th)
+    ik, okk = M.hamming_match(*ecase, **ekw)
+    ip, okp = M.hamming_match_plain(*ecase, **ekw)
+    check(torch.equal(ik, ip) and torch.equal(okk, okp),
+          f"hamming_match epipolar mode: idx and ok identical "
+          f"({int(okk.sum())} of {n} matched)")
+    ecase2, ekw2 = epipolar_gate_case(A, dev)
+    ik2, okk2 = M.hamming_match(*ecase2, **ekw2)
+    ip2, okp2 = M.hamming_match_plain(*ecase2, **ekw2)
+    eff = epipolar_gate_effects(ecase2, ekw2, (ip2, okp2))
+    check(torch.equal(ik2, ip2) and torch.equal(okk2, okp2),
+          f"hamming_match epipolar mode, perturbed case: idx and ok "
+          f"identical ({int(okk2.sum())} of {n} matched)")
+    check(min(eff.values()) > 0, "hamming_match epipolar mode, perturbed "
+          f"case: every gate decides some rows (rows that change without "
+          f"it: {eff})")
+    report["hamming_match"]["epipolar_ms"] = cuda_ms(
+        lambda: M.hamming_match(*ecase, **ekw))
+    report["hamming_match"]["epipolar_plain_ms"] = cuda_ms(
+        lambda: M.hamming_match_plain(*ecase, **ekw))
+    # -- rot_hist: the step's case (radians) and a tie-heavy one
+    g = torch.Generator().manual_seed(1)
+    rot = torch.cat([torch.tensor([18.0, 78.0, 138.0, 270.0])
+                     .repeat_interleave(200), torch.rand(n - 800, generator=g)
+                     * 360])
+    a2 = torch.rand(n, generator=g) * 360
+    hcases = [(A["ang"], A["ang"], ik, okk),
+              (((a2 + rot) % 360).to(dev), a2.to(dev),
+               torch.arange(n, dtype=torch.int32, device=dev),
+               (torch.rand(n, generator=g) < 0.95).to(dev))]
+    for i, hc in enumerate(hcases):
+        hk, hp = M.rot_hist(*hc), M.rotation_histogram_filter(*hc)
+        check(torch.equal(hk, hp), f"rot_hist case {i}: masks identical "
+              f"({int(hk.sum())} of {int(hc[3].sum())} kept)")
+    report["rot_hist"] = dict(
+        **work(n * (4 + 4 + 4 + 1) + n, 8 * n), max_abs_err=0.0,
+        ms=cuda_ms(lambda: M.rot_hist(*hcases[0])),
+        plain_ms=cuda_ms(lambda: M.rotation_histogram_filter(*hcases[0])))
+    # -- triangulate: the step's matched pairs
+    targs = (K_EUROC, A["pose_a"], A["pose_b"], A["uv_a"],
+             A["uv_b"][ik.long()].contiguous(), okk,
+             torch.full((n,), 5.991, device=dev),
+             torch.full((n,), 5.991, device=dev))
+    Xk, gk = KN.triangulate(*targs)
+    Xp, gp = KN.triangulate_plain(*targs)
+    trel = float(((Xk - Xp).norm(dim=1) / Xp.norm(dim=1))[gk & gp].max())
+    check(torch.equal(gk, gp) and trel <= 1e-4,
+          f"triangulate: good masks identical ({int(gk.sum())} good), "
+          f"points within {trel:.2e} relative (<= 1e-4)")
+    targs2 = triangulate_gate_case(A, dev)
+    Xk2, gk2 = KN.triangulate(*targs2)
+    Xp2, gp2 = KN.triangulate_plain(*targs2)
+    trel2 = float(((Xk2 - Xp2).norm(dim=1) / Xp2.norm(dim=1))[gk2 & gp2]
+                  .max())
+    eff = triangulate_gate_effects(targs2, Xp2)
+    eff["invalid"] = int((~targs2[5]).sum())
+    check(torch.equal(gk2, gp2) and trel2 <= 1e-4,
+          f"triangulate, perturbed case: good masks identical "
+          f"({int(gk2.sum())} of {n} good), points within {trel2:.2e} "
+          "relative (<= 1e-4)")
+    check(min(eff.values()) > 0, "triangulate, perturbed case: every gate "
+          f"alone rejects some rows ({eff})")
+    # per pair: A^T A, ~6 Jacobi sweeps of 6 rotations on 4x4, the gates
+    report["triangulate"] = dict(
+        **work(nbytes(*targs[1:]) + nbytes(Xk, gk), 3000 * n),
+        max_abs_err=float((Xk - Xp)[gk].abs().max()),
+        ms=cuda_ms(lambda: KN.triangulate(*targs)),
+        plain_ms=cuda_ms(lambda: KN.triangulate_plain(*targs)))
+    # -- ba_linearize and schur_solve: one LM step of the perturbed window
+    B = perturbed_window(A)
+    keys = ("kf_poses", "kf_free", "pt_xyz", "pt_free", "obs_kf", "obs_pt",
+            "obs_uv", "obs_valid", "obs_is2", "ln_ep6", "ln_free",
+            "lobs_kf", "lobs_ln", "lobs_eq", "lobs_valid", "lobs_is2")
+    S = 6 * sz["n_kf"]
+    w = KN._BAWork(K_EUROC, *[B[k] for k in keys], lam0=1e-4,
+                   early_tol=1e-2, cg_iters=min(max(S // 2, 16), 128))
+    w.linearize(KN.BA_MODE_INIT)
+    w.linearize(KN.BA_MODE_LINEARIZE)
+    prob = KN._ba_problem(
+        K_EUROC, sz["n_kf"], sz["n_pt"], sz["n_ln"], B["obs_kf"].long(),
+        B["obs_pt"].long(), B["obs_uv"], B["obs_valid"], B["obs_is2"],
+        B["lobs_kf"].long(), B["lobs_ln"].long(), B["lobs_eq"],
+        B["lobs_valid"], B["lobs_is2"])
+    st = {"pose": B["kf_poses"], "pt": B["pt_xyz"], "ln": B["ln_ep6"]}
+    layout, H, gv, lm_sys, cost, _ = prob.build_normal_equations(st)
+    t = w.t
+    Hk = torch.block_diag(*unpack_sym(t["hcc"][:, :21], 6).unbind(0))
+    errs = {"H": rel_err(Hk, H), "g": rel_err(t["hcc"][:, 21:].reshape(-1),
+                                              gv),
+            "Hpp points": rel_err(unpack_sym(t["hpt"][:, :6], 3),
+                                  lm_sys["pt"][0]),
+            "gp points": rel_err(t["hpt"][:, 6:], lm_sys["pt"][1]),
+            "Hpp lines": rel_err(unpack_sym(t["hln"][:, :21], 6),
+                                 lm_sys["ln"][0]),
+            "gp lines": rel_err(t["hln"][:, 21:], lm_sys["ln"][1]),
+            "cost": abs(float(t["ctrl"][1]) - float(cost)) / float(cost)}
+    # the couplings: the per-observation blocks summed per (KF, landmark)
+    for fam, Wo, okf, olm in (("points", t["p_w"], B["obs_kf"], B["obs_pt"]),
+                              ("lines", t["l_w"], B["lobs_kf"],
+                               B["lobs_ln"])):
+        Bp = lm_sys["pt" if fam == "points" else "ln"][2]
+        D = Wo.shape[1] // 6
+        P = Bp.shape[1] // D
+        Bk = torch.zeros(sz["n_kf"], P, 6, D, dtype=torch.float64, device=dev)
+        Bk.index_put_((okf.long(), olm.long()), Wo.double().view(-1, 6, D),
+                      accumulate=True)
+        errs[f"B {fam}"] = rel_err(Bk.permute(0, 2, 1, 3).reshape(Bp.shape),
+                                   Bp.double())
+    worst = max(errs, key=errs.get)
+    print(f"  ba_linearize relative errors: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+    check(errs[worst] <= 1e-4, "ba_linearize: H blocks, g, Hpp, gp, the "
+          "couplings B and the "
+          f"cost within 1e-4 relative of the plain engine (worst {worst} "
+          f"{errs[worst]:.2e})")
+    n_obs, n_lobs = sz["n_obs"], sz["n_lobs"]
+    n_pt, n_ln, n_kf = sz["n_pt"], sz["n_ln"], sz["n_kf"]
+    lin_in = nbytes(*[B[k] for k in keys])
+    lin_out = nbytes(t["hcc"], t["hpt"], t["hln"], t["p_w"], t["l_w"])
+    report["ba_linearize"] = dict(
+        **work(lin_in + lin_out, 400 * n_obs + 1100 * n_lobs),
+        max_abs_err=errs[worst],
+        ms=cuda_ms(lambda: w.linearize(KN.BA_MODE_LINEARIZE)),
+        plain_ms=cuda_ms(lambda: prob.build_normal_equations(st), reps=5))
+    KN.SCHUR_SOLVE.launch(*w.args, cuda.stream())
+    ff_ref = torch.mm(t["gm"], t["gm"].T)
+    gram_err = rel_err(t["ff"], ff_ref)
+    check(gram_err <= 1e-5, f"schur_solve: Gram fill-in within {gram_err:.2e}"
+          " relative of torch.mm on its operand (<= 1e-5)")
+    lam = torch.tensor(1e-4, device=dev)
+    free = ({"pose": B["kf_free"]}, {"pt": B["pt_free"], "ln": B["ln_free"]})
+    new = prob.step_from_system(layout, H, gv, lm_sys, st, lam, *free)
+    dpose = float((t["cposes"].view(n_kf, 3, 4) - new["pose"]).abs().max())
+    check(dpose <= 1e-4, f"schur_solve: candidate KF poses within 1e-4 of "
+          f"the plain engine's step (max {dpose:.2e})")
+    # the landmarks: against a float64 back-substitution from the kernel's
+    # own system (held to the plain one above) and pose step on every
+    # occupied landmark, in float32 ulps times the block's condition
+    # number: at most the larger of 32 and 4x what the plain float32
+    # formulas reach on the same inputs; and against the plain step along
+    # Hpp's well-conditioned directions, to 1e-3 relative: the two pose
+    # steps differ by up to ~7e-5 (the fixed-step CG in float32, summed in
+    # another order), which moves the landmarks by ~4e-4 relative
+    eps = 2.0 ** -24
+    for fam, cand, ref, X, hp, W, obs_lm, obs_kf, lfree in (
+            ("points", t["cpts"], new["pt"], B["pt_xyz"], t["hpt"], t["p_w"],
+             B["obs_pt"], B["obs_kf"], B["pt_free"]),
+            ("lines", t["clns"], new["ln"], B["ln_ep6"], t["hln"], t["l_w"],
+             B["lobs_ln"], B["lobs_kf"], B["ln_free"])):
+        rel, kept = well_gap(cand, ref,
+                             lm_sys["pt" if fam == "points" else "ln"][0])
+        bargs = (hp, W, obs_lm.long(), obs_kf.long(), lfree, t["dx"], X, 1e-4)
+        r64, occ, cond = backsub_reference(*bargs)
+        r32 = backsub_reference(*bargs, dt=torch.float32)[0]
+        scale = eps * cond * (r64 - X.double()).norm(dim=1) + 1e-7
+
+        def ulps(c):
+            return float(((c.double() - r64).norm(dim=1) / scale)[occ].max())
+        u_k, u_32 = ulps(cand), ulps(r32)
+        lim = max(32.0, 4 * u_32)
+        print(f"  schur_solve {fam}: {int((kept > 0).sum())} of {rel.numel()}"
+              f" with well-conditioned directions ({int(kept.sum())} in all),"
+              f" within {float(rel.max()):.2e} relative of the plain step "
+              f"along them; {int(occ.sum())} occupied (largest condition "
+              f"number {float(cond[occ].max()):.3g}), within {u_k:.2f} ulps "
+              f"x condition number of the float64 back-substitution (the "
+              f"plain float32 formulas: {u_32:.2f})")
+        check(int(kept.sum()) > 0 and float(rel.max()) <= 1e-3,
+              f"schur_solve: candidate {fam} within 1e-3 relative of the "
+              "plain step along Hpp's well-conditioned directions")
+        check(int(occ.sum()) > 0 and u_k <= lim,
+              f"schur_solve: candidate {fam} within {lim:.1f} ulps x "
+              "condition number of a float64 back-substitution from the "
+              "kernel's own system, every occupied landmark")
+        occ_k = (t["occ_pt"] if fam == "points" else t["occ_ln"]).bool()
+        check(torch.equal(occ_k, occ) and bool((cand[~occ] == X[~occ]).all()),
+              f"schur_solve {fam}: occupied gate as the float64 one's, and "
+              "the landmarks outside it unchanged")
+
+    def schur():
+        KN.SCHUR_SOLVE.launch(*w.args, cuda.stream())
+    C = 3 * n_pt + 6 * n_ln
+
+    def gram_ops(obs_kf, obs_lm, n_lm, D):
+        # the fill-in's least work: per landmark seen from m keyframes, the
+        # upper triangle of its (6m x 6m) block, D multiply-adds an entry
+        key = torch.unique(obs_kf.long() * n_lm + obs_lm.long())
+        m = torch.bincount(key % n_lm, minlength=n_lm).double()
+        return float((6 * m * (6 * m + 1) / 2 * D * 2).sum())
+    # the landmark factors and the per-observation G = W F, the fill-in,
+    # the CG (2 S^2 per iteration) and the back-substitution
+    report["schur_solve"] = dict(
+        **work(nbytes(t["hcc"], t["hpt"], t["hln"], t["p_w"], t["l_w"],
+                      t["poses"], t["pts"], t["lns"])
+               + nbytes(t["cposes"], t["cpts"], t["clns"], t["dx"]),
+               300 * n_pt + 1500 * n_ln + 250 * n_obs + 1000 * n_lobs
+               + gram_ops(B["obs_kf"], B["obs_pt"], n_pt, 3)
+               + gram_ops(B["lobs_kf"], B["lobs_ln"], n_ln, 6)
+               + w_cg(S) * 2 * S * S),
+        max_abs_err=dpose, ms=cuda_ms(schur),
+        plain_ms=cuda_ms(lambda: prob.step_from_system(
+            layout, H, gv, lm_sys, st, lam, *free), reps=5),
+        gram_ms=cuda_ms(lambda: torch.mm(t["gm"], t["gm"].T, out=ff_ref)),
+        gram_work=work(nbytes(t["gm"], t["ff"]), 2 * S * S * C))
+
+
+def w_cg(S):
+    return min(max(S // 2, 16), 128)
 
 
 def reset_counts():
@@ -441,6 +973,97 @@ def reset_counts():
 
 def read_counts():
     return {name: k.launches for name, (k, _) in KERNELS.items()}
+
+
+def run_slice3(dev, pl_step, imgs, pose0, map_args, smi):
+    """Phase 7: the mapping step at both sizes.  Returns its launches."""
+    print("[7] slice 3: mapping_step at both window sizes, true and "
+          "perturbed start")
+    sizes = (("worst", MAPPING_WORST), ("typical", MAPPING_TYPICAL))
+    runs = {}
+    for name, sz in sizes:
+        step, A = mapping_step(**sz, device=dev)
+        plain, _ = mapping_step(**sz, device=dev, plain=True)
+        runs[name] = (step, plain, A, perturbed_window(A))
+    reset_counts()
+    outs = {}
+    with torch.no_grad():
+        for name, (step, _, A, B) in runs.items():
+            sk_t, sk_p = [], []
+            outs[name] = (step(A, stats=sk_t), step(B, stats=sk_p), sk_t,
+                          sk_p)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    print(f"  launches: {launches}")
+    check(all(launches[k] > 0 for k in PATH_MAP),
+          f"every kernel of slice 3 launched ({', '.join(PATH_MAP)})")
+    for name, (step, plain, A, B) in runs.items():
+        ref = REF_MAP[name]
+        o_t, o_p, it_t, it_p = outs[name]
+        with torch.no_grad():
+            sp_t, sp_p = [], []
+            q_t, q_p = plain(A, stats=sp_t), plain(B, stats=sp_p)
+        counts = (int(o_t.n_good), int(o_t.n_inliers), int(o_t.n_inliers_l))
+        e_t = centre_err(o_t.kf_poses, A["kf_poses"])
+        e0 = centre_err(B["kf_poses"], A["kf_poses"])
+        e_p = centre_err(o_p.kf_poses, A["kf_poses"])
+        d_t = float((o_t.kf_poses - q_t.kf_poses).abs().max())
+        d_p = float((o_p.kf_poses - q_p.kf_poses).abs().max())
+        print(f"  {name}: n_good / inliers / line inliers {counts} (reference "
+              f"{ref['n_good']}, {ref['n_inliers']}, {ref['n_inliers_l']}); "
+              f"largest camera-centre error: true start {e_t * 1e3:.3f} mm "
+              f"(reference {ref['true_max_centre_m'] * 1e3:.3f}), perturbed "
+              f"{e0 * 1e3:.3f} -> {e_p * 1e3:.3f} mm (reference "
+              f"{ref['perturbed_max_centre_m'] * 1e3:.3f}); LM iterations "
+              f"per round kernel {[int(x) for x in it_t]} / "
+              f"{[int(x) for x in it_p]}, plain {sp_t} / {sp_p}; plain path "
+              f"inliers {int(q_t.n_inliers)} / {int(q_p.n_inliers)}")
+        check(all(bool(torch.isfinite(x).all()) for x in
+                  (o_t.kf_poses, o_t.pt_xyz, o_t.ln_ep6, o_p.kf_poses,
+                   o_p.pt_xyz, o_p.ln_ep6))
+              and o_t.kf_poses.shape == (MAPPING_WORST["n_kf"], 3, 4),
+              f"{name}: poses, points and lines finite, poses [16,3,4]")
+        want = (ref["n_good"], ref["n_inliers"], ref["n_inliers_l"])
+        check(all(abs(c - r) <= 0.01 * r for c, r in zip(counts, want)),
+              f"{name}: triangulated and inlier counts within 1% of REF_MAP")
+        lim = max(2 * ref["perturbed_max_centre_m"], 0.010)
+        check(e_p <= lim, f"{name}: perturbed start's largest camera-centre "
+              f"error {e_p * 1e3:.3f} mm <= {lim * 1e3:.3f} mm")
+        check(max(d_t, d_p) <= MAP_POSE_TOL,
+              f"{name}: kernel and plain paths' KF poses within "
+              f"{MAP_POSE_TOL:g} (true {d_t:.2e}, perturbed {d_p:.2e})")
+        gaps = []
+        for o, q, W in ((o_t, q_t, A), (o_p, q_p, B)):
+            rk = window_residuals(o.kf_poses, o.pt_xyz, o.ln_ep6, W)
+            rq = window_residuals(q.kf_poses, q.pt_xyz, q.ln_ep6, W)
+            gaps += [float((a - b).abs().max()) for a, b in zip(rk, rq)]
+        check(max(gaps) <= MAP_RES_TOL_PX,
+              f"{name}: kernel and plain paths' points and lines reproject "
+              f"within {MAP_RES_TOL_PX:g} px of each other in every "
+              f"observation (true start {gaps[0]:.2e} / {gaps[1]:.2e}, "
+              f"perturbed {gaps[2]:.2e} / {gaps[3]:.2e} px)")
+    for name, (step, plain, A, B) in runs.items():
+        def go(stp, W):
+            def f():
+                with torch.no_grad():
+                    stp(W)
+            return f
+        mk = cuda_ms(go(step, B), reps=10, warmup=2)
+        mp = cuda_ms(go(plain, B), reps=3, warmup=1)
+        print(f"  mapping_step {name} (perturbed start): kernel path "
+              f"{mk:.3f} ms/step, plain path {mp:.3f} ms/step, on {smi}")
+    step_t, _, A_t, _ = runs["typical"]
+
+    def burst():
+        p = pose0
+        with torch.no_grad():
+            for img in imgs[:3]:
+                p, _ = pl_step(img, p, *map_args)
+            step_t(A_t)
+    sus = cuda_ms(burst, reps=5, warmup=1) / 3
+    print(f"  sustained (bench_sustained: 3 point+line frames + 1 typical "
+          f"mapping step): {sus:.3f} ms/frame, on {smi}")
+    return launches
 
 
 def main():
@@ -491,6 +1114,7 @@ def main():
     check_pl_kernels(imgs, poses, st, step, report)
     check_line_kernels(imgs[1], report)
     check_vi_kernels(vi, imgs[1], carry0, (imgs[1], *windows[0]), st, report)
+    check_map_kernels(report)
 
     print(f"[4] slice 1: {N_FRAMES} frames through tracking_step_pl, pose "
           "carried")
@@ -610,16 +1234,30 @@ def main():
     vp = cuda_ms(lambda: run_vi(vi_plain), reps=1, warmup=1) / (N_FRAMES - 1)
     print(f"  tracking_step_vi: kernel path {vk:.3f} ms/frame, plain path "
           f"{vp:.3f} ms/frame, on {smi}")
+
+    launches_map = run_slice3(dev, step, imgs, pose0, map_args, smi)
+
     rows = []
     for name, (k, replaces) in KERNELS.items():
         rep = report[name]
         print(f"  {name}: {rep['ms']:.4f} ms, plain {rep['plain_ms']:.4f} ms,"
-              f" on {smi}")
+              f" bound {rep['bound_ms']:.6f} ms ({rep['bound_by']}: "
+              f"{rep['bytes']} B, {rep['ops']} ops), on {smi}")
         rows.append(dict(name=name, route="cuda", source=k.source,
                          replaces=replaces,
-                         launches=launches_pl[name] + launches_vi[name],
+                         launches=launches_pl[name] + launches_vi[name]
+                         + launches_map[name],
                          max_abs_err=rep["max_abs_err"], ms=rep["ms"],
-                         plain_ms=rep["plain_ms"]))
+                         plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"],
+                         bound_by=rep["bound_by"], library_ms=None))
+    hm, ss = report["hamming_match"], report["schur_solve"]
+    print(f"  hamming_match epipolar mode (1024 x 1024): {hm['epipolar_ms']:.4f}"
+          f" ms, plain {hm['epipolar_plain_ms']:.4f} ms, on {smi}")
+    gw = ss["gram_work"]
+    print(f"  schur_solve {ss['ms']:.4f} ms (its Gram fill-in included) "
+          f"beside torch.mm of the fill-in alone {ss['gram_ms']:.4f} ms "
+          f"(dense bound {gw['bound_ms']:.6f} ms, {gw['bound_by']}), on "
+          f"{smi}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

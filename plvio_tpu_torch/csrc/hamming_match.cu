@@ -25,6 +25,18 @@
 // which gives the first row among equal distances, as argmin(axis=0) does
 // (:90); a second small kernel applies it once every row is done.  A row
 // with no admissible column returns idx 0 and ok false, as the JAX does.
+//
+// A third gate mode (mode 2) is the epipolar gate of the keyframe mapping
+// step, `make_epipolar_matcher` (plvio_tpu/models/kernels.py:845-870): the
+// fundamental matrix F (9 floats, read from device memory, so no host
+// sync) gives each row's epipolar line l = F (u, v, 1) in registers; a
+// column passes when |l . (u', v', 1)| / max(|l_xy|, 1e-9) is below its
+// own threshold (th_epi * 1.2^octave, passed in b_ang).  The gate runs
+// before any popc, in the same operation order as
+// `ops/matching.epipolar_gate`, so both agree bit for bit (--fmad=false).
+// At 1024 x 1024 features the gate leaves a band of a few percent of the
+// columns per row: the kernel is bound by the 1M gate evaluations (~10
+// flops each) and launch latency, not by memory (~100 KB in).
 #include "common.cuh"
 
 namespace {
@@ -40,8 +52,9 @@ struct Params {
   const float2* a_xy;         // [n] predicted positions
   const float2* b_xy;         // [m] observed positions
   const float* a_ang;         // [n] line mode only
-  const float* b_ang;         // [m] line mode only
-  int n, m, line_mode;
+  const float* b_ang;         // [m] line mode; epipolar mode: thresholds
+  const float* F;             // [9] epipolar mode only, row-major
+  int n, m, line_mode;        // 0 window, 1 line, 2 epipolar
   float r2, ang_tol, max_dist, ratio;
   int* idx;                   // [n]
   uint8_t* ok;                // [n]
@@ -70,14 +83,24 @@ __global__ void match_rows(Params p) {
 #pragma unroll
     for (int w = 0; w < 8; ++w) a[w] = p.map_desc[row * 8 + w];
     const float2 axy = p.a_xy[row];
-    const float aang = p.line_mode ? p.a_ang[row] : 0.f;
+    const float aang = p.line_mode == 1 ? p.a_ang[row] : 0.f;
+    float l0 = 0.f, l1 = 0.f, l2 = 0.f, den = 1.f;
+    if (p.line_mode == 2) {
+      l0 = (p.F[0] * axy.x + p.F[1] * axy.y) + p.F[2];
+      l1 = (p.F[3] * axy.x + p.F[4] * axy.y) + p.F[5];
+      l2 = (p.F[6] * axy.x + p.F[7] * axy.y) + p.F[8];
+      den = fmaxf(sqrtf(l0 * l0 + l1 * l1), 1e-9f);
+    }
     for (int j = lane; j < p.m; j += 32) {
       if (!s_ok[j]) continue;
       const float dx = axy.x - s_xy[j].x;
       const float dy = axy.y - s_xy[j].y;
       const float d2 = dx * dx + dy * dy;
       bool gate;
-      if (p.line_mode) {
+      if (p.line_mode == 2) {
+        const float num = fabsf((l0 * s_xy[j].x + l1 * s_xy[j].y) + l2);
+        gate = num / den < s_ang[j];
+      } else if (p.line_mode) {
         // |a - b| % pi for a non-negative operand is fmod (jnp.remainder)
         float da = fmodf(fabsf(aang - s_ang[j]), PLVIO_PI_F);
         da = fminf(da, PLVIO_PI_F - da);
@@ -127,7 +150,8 @@ PLVIO_API int hamming_match(const void* map_desc, const void* obs_desc,
                             const void* row_ok, const void* col_ok,
                             const void* a_xy, const void* b_xy,
                             const void* a_ang, const void* b_ang,
-                            int n, int m, int line_mode, float r2,
+                            const void* F, int n, int m, int line_mode,
+                            float r2,
                             float ang_tol, float max_dist, float ratio,
                             void* idx, void* ok, void* col_best,
                             void* stream) {
@@ -138,7 +162,7 @@ PLVIO_API int hamming_match(const void* map_desc, const void* obs_desc,
            static_cast<const uint8_t*>(col_ok),
            static_cast<const float2*>(a_xy), static_cast<const float2*>(b_xy),
            static_cast<const float*>(a_ang), static_cast<const float*>(b_ang),
-           n, m, line_mode, r2, ang_tol, max_dist, ratio,
+           static_cast<const float*>(F), n, m, line_mode, r2, ang_tol, max_dist, ratio,
            static_cast<int*>(idx), static_cast<uint8_t*>(ok),
            static_cast<uint32_t*>(col_best)};
   cudaMemsetAsync(col_best, 0xff, size_t(m > 0 ? m : 1) * 4, s);

@@ -133,6 +133,18 @@ class Kernel:
         self.launches += 1
 
 
+def resolve_device(device="cuda") -> torch.device:
+    """torch.device for `device`; raises if CUDA is asked for and absent
+    (the port never runs a CUDA request on the CPU).  Entry points and
+    factories default to the card and take `device="cpu"` only when the
+    caller asks for it."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device!r} requested but no CUDA device "
+                           "is available")
+    return dev
+
+
 def check_cuda(name: str, *tensors: torch.Tensor) -> None:
     """Raise unless every tensor is a contiguous tensor on one CUDA device."""
     dev = tensors[0].device

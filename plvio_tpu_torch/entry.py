@@ -9,7 +9,15 @@ tracking_step_pl(...) -> (step, example_args): the flagship point+line
 tracking_step_vi(...) -> (step, init_carry): the production
                          mono-inertial point+line frame (port of
                          __graft_entry__._tracking_step_vi_fn :128)
+mapping_step(...)     -> (step, inputs): the keyframe mapping step (port
+                         of bench.build_mapping_step :201-309) —
+                         epipolar matching of the new KF against its
+                         neighbour, DLT triangulation and the point+line
+                         windowed local BA
 entry(device)         -> tracking_step_pl at EuRoC geometry on `device`
+
+Every entry point runs on the card unless the caller passes
+device="cpu" (the CPU runs the plain PyTorch versions of the kernels).
 
 `step` is an nn.Module; `step(*example_args)` returns (pose [3,4],
 n_inliers); the VI step is `step(carry, (img, gyro, acc, dts), *map_args)
@@ -20,14 +28,18 @@ comparing the two paths.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 from torch import nn
 
-from plvio_tpu.config import ImuConfig
-
+from .config import ImuConfig
+from .cuda import resolve_device
 from .models.kernels import (fast_pose_opt, fast_pose_opt_pl,
-                             line_proj_match_core, make_vi_pose_optimizer)
+                             line_proj_match_core, make_epipolar_matcher,
+                             make_local_ba_pl, make_triangulator,
+                             make_vi_pose_optimizer)
 from .ops import imu as IMU
 from .ops import matching as M
 from .ops.frontend import OrbExtractor, make_level_specs
@@ -35,16 +47,6 @@ from .ops.lines import LineExtractor
 from .solver.residuals import PinholeK
 
 K_EUROC = PinholeK(fx=458.654, fy=457.296, cx=367.215, cy=248.375)
-
-
-def resolve_device(device) -> torch.device:
-    """torch.device for `device`; raises if CUDA is asked for and absent
-    (the port never runs a CUDA request on the CPU)."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device!r} requested but no CUDA device "
-                           "is available")
-    return dev
 
 
 def project_points(K: PinholeK, pose, pt_xyz, pt_valid, height: int,
@@ -211,7 +213,7 @@ def _example_points(rng, cap_pts, dev):
 
 def tracking_step(height: int = 480, width: int = 752,
                   n_features: int = 512, cap_pts: int = 1024,
-                  device="cpu", plain: bool = False):
+                  device="cuda", plain: bool = False):
     """Point-only step and example args (random image and map, seed 0)."""
     dev = resolve_device(device)
     rng = np.random.default_rng(0)
@@ -225,7 +227,7 @@ def tracking_step(height: int = 480, width: int = 752,
 def tracking_step_pl(height: int = 480, width: int = 752,
                      n_features: int = 1000, cap_pts: int = 2048,
                      cap_lns: int = 128, n_line_feat: int = 256,
-                     device="cpu", plain: bool = False):
+                     device="cuda", plain: bool = False):
     """Point+line step and example args (random image and map, seed 0)."""
     dev = resolve_device(device)
     rng = np.random.default_rng(0)
@@ -249,7 +251,7 @@ def tracking_step_pl(height: int = 480, width: int = 752,
 def tracking_step_vi(height: int = 480, width: int = 752,
                      n_features: int = 1000, cap_pts: int = 2048,
                      n_line_feat: int = 256, n_imu: int = 10,
-                     gravity: float = 9.81, device="cpu",
+                     gravity: float = 9.81, device="cuda",
                      plain: bool = False):
     """VI step and an initial carry (identity pose at rest, zero biases,
     H15 = I).  The step takes a local map of any line capacity."""
@@ -262,7 +264,78 @@ def tracking_step_vi(height: int = 480, width: int = 752,
     return step, carry
 
 
-def entry(device="cpu"):
+class MappingOut(NamedTuple):
+    kf_poses: torch.Tensor     # [n_kf,3,4] T_cw after the BA
+    pt_xyz: torch.Tensor       # [n_pt,3]
+    ln_ep6: torch.Tensor       # [n_ln,6]
+    n_good: torch.Tensor       # triangulated pairs that pass every gate
+    n_inliers: torch.Tensor    # point observations within chi2 5.991
+    n_inliers_l: torch.Tensor  # line observations within chi2 5.991
+    inlier: torch.Tensor       # [n_obs] bool
+    inlier_l: torch.Tensor     # [n_lobs] bool
+    X_new: torch.Tensor        # [n_feat,3] triangulated points (world)
+    good: torch.Tensor         # [n_feat] bool
+    idx2: torch.Tensor         # [n_feat] epipolar match into the neighbour
+    matched: torch.Tensor      # [n_feat] bool
+
+
+class MappingStep(nn.Module):
+    """The keyframe mapping step (bench.build_mapping_step's `step`,
+    bench.py:294-307): the new KF's features matched to its neighbour's
+    along epipolar lines (ratio 0.8, max 60, mutual, rotation histogram),
+    the matches DLT-triangulated with the depth, parallax and
+    reprojection gates, then 2 rounds x <= 8 LM iterations of the
+    point+line windowed BA (CG reduced solve, early exit at 1e-2, chi2
+    re-gating at 5.991 between rounds).
+
+    forward(A, stats=None) -> MappingOut; A is the dict of
+    `inputs.build_mapping_inputs`; `stats` (a list) gets each BA round's
+    LM iteration count."""
+
+    def __init__(self, plain: bool = False, K: PinholeK = K_EUROC):
+        super().__init__()
+        self.epi = make_epipolar_matcher(K, plain=plain)
+        self.tri = make_triangulator(K, plain=plain)
+        self.lba = make_local_ba_pl(K, plain=plain)
+
+    def forward(self, A, stats=None):
+        idx2, ok2 = self.epi(A["pose_a"], A["pose_b"], A["uv_a"], A["desc"],
+                             A["ok"], A["uv_b"], A["desc"], A["ok"],
+                             A["ang"], A["ang"])
+        Xw, good = self.tri(A["pose_a"], A["pose_b"], A["uv_a"],
+                            A["uv_b"][idx2.long()], ok2)
+        poses, pts, lns, inl, inl_l = self.lba(
+            A["kf_poses"], A["kf_free"], A["pt_xyz"], A["pt_free"],
+            A["obs_kf"], A["obs_pt"], A["obs_uv"], A["obs_valid"],
+            A["obs_is2"],
+            A["ln_ep6"], A["ln_free"], A["lobs_kf"], A["lobs_ln"],
+            A["lobs_eq"], A["lobs_valid"], A["lobs_is2"], stats=stats)
+        return MappingOut(poses, pts, lns, good.sum(), inl.sum(),
+                          inl_l.sum(), inl, inl_l, Xw, good, idx2, ok2)
+
+
+# the two window sizes of the reference's mapping benchmark (bench.py:457-459)
+MAPPING_WORST = dict(n_kf=16, n_pt=4096, n_obs=8192, n_feat=1024, n_ln=512,
+                     n_lobs=1024)
+MAPPING_TYPICAL = dict(n_kf=16, n_pt=2048, n_obs=4096, n_feat=1024, n_ln=256,
+                       n_lobs=512)
+
+
+def mapping_step(n_kf: int = 16, n_pt: int = 4096, n_obs: int = 8192,
+                 n_feat: int = 1024, n_ln: int = 512, n_lobs: int = 1024,
+                 device="cuda", plain: bool = False):
+    """The keyframe mapping step at the given window size (default: the
+    worst case, 16 KF x 4096 points x 8192 observations, 512 lines x 1024
+    observations, 1024 features) and its inputs from
+    `inputs.build_mapping_inputs` (bench.py's numpy draws, seed 1)."""
+    from .inputs import build_mapping_inputs
+    dev = resolve_device(device)
+    A = build_mapping_inputs(n_kf, n_pt, n_obs, n_feat, n_ln, n_lobs,
+                             device=dev)
+    return MappingStep(plain=plain).to(dev), A
+
+
+def entry(device="cuda"):
     """The flagship point+line tracked frame at EuRoC geometry
     (480x752, 1000 features, 2048 map points, 128 map lines, 256 line
     features) on `device`."""

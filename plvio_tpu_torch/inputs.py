@@ -10,9 +10,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from plvio_tpu.io import synthetic as syn
-
-from .entry import K_EUROC, resolve_device
+from .cuda import resolve_device
+from .entry import K_EUROC
+from .io import synthetic as syn
 from .ops.frontend import make_extractor
 from .ops.lines import LineExtractor
 from .utils import lie
@@ -20,7 +20,7 @@ from .utils import lie
 
 def build_inputs(n_frames: int = 16, cap_pts: int = 2048, cap_lns: int = 128,
                  height: int = 480, width: int = 752, seed: int = 0,
-                 n_features: int = 1000, device="cpu"):
+                 n_features: int = 1000, device="cuda"):
     """Synthetic-room frames + an oracle local map (points and lines) with
     descriptors extracted from the frames.
 
@@ -43,7 +43,8 @@ def build_inputs(n_frames: int = 16, cap_pts: int = 2048, cap_lns: int = 128,
     # local map: scene points visible anywhere in the window, descriptor
     # from the nearest detection (< 3 px) of the first frame (every 4th)
     # that sees them
-    orb, _ = make_extractor(height, width, n_features=n_features, device=dev)
+    orb, _ = make_extractor(height, width, n_features=n_features,
+                            device=dev)
     taken = np.zeros(len(scene.points), bool)
     X, D = [], []
     with torch.no_grad():
@@ -170,3 +171,105 @@ def build_imu_windows(traj, n_frames: int, seed: int = 3, n_imu: int = 10):
               np.zeros(3, np.float32), np.zeros(3, np.float32),
               np.eye(15, dtype=np.float32))
     return gyro, acc, dts, carry0
+
+
+def build_mapping_inputs(n_kf: int = 16, n_pt: int = 4096, n_obs: int = 8192,
+                         n_feat: int = 1024, n_ln: int = 512,
+                         n_lobs: int = 1024, device="cuda"):
+    """The keyframe mapping step's window (port of bench.py:214-292, the
+    arrays of `bench.build_mapping_step`): the same numpy default_rng(1)
+    draws in the same order, with the port's float32 so3_exp for the KF
+    rotations.  Returns a dict of tensors on `device`: the epipolar pair
+    (pose_a, pose_b, uv_a, uv_b, desc [n_feat,8] int32, ang, ok) and the
+    window (kf_poses [n_kf,3,4] T_cw, kf_free, pt_xyz, pt_free, obs_kf,
+    obs_pt, obs_uv, obs_valid, obs_is2, ln_ep6, ln_free, lobs_kf, lobs_ln,
+    lobs_eq, lobs_valid, lobs_is2)."""
+    dev = resolve_device(device)
+    K = K_EUROC
+    rng = np.random.default_rng(1)
+    X = rng.uniform([-6, -4, 3], [6, 4, 12], (n_pt, 3)).astype(np.float32)
+    kf_poses = []
+    for c in range(n_kf):
+        Rm = lie.so3_exp(torch.tensor(rng.normal(0, 0.02, 3),
+                                      dtype=torch.float32)).numpy()
+        t = np.array([0.25 * c, 0.02 * c, 0.0], np.float32)
+        kf_poses.append(np.concatenate([Rm, t[:, None]], 1))
+    kf_poses = np.stack(kf_poses).astype(np.float32)
+    obs_kf = rng.integers(0, n_kf, n_obs).astype(np.int32)
+    obs_pt = rng.integers(0, n_pt, n_obs).astype(np.int32)
+    pc = np.einsum("oij,oj->oi", kf_poses[obs_kf, :, :3], X[obs_pt]) \
+        + kf_poses[obs_kf, :, 3]
+    z = np.maximum(pc[:, 2], 1e-3)
+    obs_uv = np.stack([K.fx * pc[:, 0] / z + K.cx,
+                       K.fy * pc[:, 1] / z + K.cy], -1).astype(np.float32)
+    obs_uv += rng.normal(0, 0.5, obs_uv.shape).astype(np.float32)
+
+    fa = rng.integers(0, n_pt, n_feat)
+    pca = X[fa] @ kf_poses[0, :, :3].T + kf_poses[0, :, 3]
+    pcb = X[fa] @ kf_poses[1, :, :3].T + kf_poses[1, :, 3]
+    uv_a = np.stack([K.fx * pca[:, 0] / pca[:, 2] + K.cx,
+                     K.fy * pca[:, 1] / pca[:, 2] + K.cy], -1)
+    uv_b = np.stack([K.fx * pcb[:, 0] / pcb[:, 2] + K.cx,
+                     K.fy * pcb[:, 1] / pcb[:, 2] + K.cy], -1)
+    desc = rng.integers(0, 2 ** 32, (n_feat, 8), dtype=np.uint32)
+    ang = rng.uniform(0, 2 * np.pi, n_feat).astype(np.float32)
+
+    ln_ep6 = np.concatenate(
+        [X[:n_ln], X[:n_ln] + rng.normal(0, 0.5, (n_ln, 3))],
+        -1).astype(np.float32)
+    lobs_kf = rng.integers(0, n_kf, n_lobs).astype(np.int32)
+    lobs_ln = rng.integers(0, n_ln, n_lobs).astype(np.int32)
+    Rl = kf_poses[lobs_kf, :, :3]
+    tl = kf_poses[lobs_kf, :, 3]
+    pa = np.einsum("oij,oj->oi", Rl, ln_ep6[lobs_ln, :3]) + tl
+    pb = np.einsum("oij,oj->oi", Rl, ln_ep6[lobs_ln, 3:]) + tl
+    za = np.maximum(pa[:, 2], 1e-3)
+    zb = np.maximum(pb[:, 2], 1e-3)
+    uva = np.stack([K.fx * pa[:, 0] / za + K.cx,
+                    K.fy * pa[:, 1] / za + K.cy], -1)
+    uvb = np.stack([K.fx * pb[:, 0] / zb + K.cx,
+                    K.fy * pb[:, 1] / zb + K.cy], -1)
+    uva += rng.normal(0, 0.5, uva.shape)
+    uvb += rng.normal(0, 0.5, uvb.shape)
+    ha = np.concatenate([uva, np.ones((n_lobs, 1))], 1)
+    hb = np.concatenate([uvb, np.ones((n_lobs, 1))], 1)
+    leq = np.cross(ha, hb).astype(np.float32)
+    leq /= np.maximum(
+        np.linalg.norm(leq[:, :2], axis=1, keepdims=True), 1e-6)
+
+    def f32(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+
+    def i32(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+
+    def ones(n):
+        return torch.ones(n, dtype=torch.bool, device=dev)
+
+    return dict(
+        pose_a=f32(kf_poses[0]), pose_b=f32(kf_poses[1]), uv_a=f32(uv_a),
+        uv_b=f32(uv_b), desc=i32(desc.view(np.int32)), ang=f32(ang),
+        ok=ones(n_feat), kf_poses=f32(kf_poses),
+        kf_free=torch.from_numpy(np.arange(n_kf) > 0).to(dev),
+        pt_xyz=f32(X), pt_free=ones(n_pt), obs_kf=i32(obs_kf),
+        obs_pt=i32(obs_pt), obs_uv=f32(obs_uv), obs_valid=ones(n_obs),
+        obs_is2=torch.ones(n_obs, dtype=torch.float32, device=dev),
+        ln_ep6=f32(ln_ep6), ln_free=ones(n_ln), lobs_kf=i32(lobs_kf),
+        lobs_ln=i32(lobs_ln), lobs_eq=f32(leq), lobs_valid=ones(n_lobs),
+        lobs_is2=torch.ones(n_lobs, dtype=torch.float32, device=dev))
+
+
+def perturb_window(kf_poses: np.ndarray, pt_xyz: np.ndarray):
+    """A perturbed start for the windowed BA (numpy, float64 then float32,
+    `default_rng(7)`): for each KF c = 1..n-1 in order R <- Exp(N(0, 0.005,
+    3)) R, then t += N(0, 0.02, 3); then every point += N(0, 0.05).  KF 0
+    (held fixed by the BA) stays.  Returns (kf_poses, pt_xyz) float32."""
+    rng = np.random.default_rng(7)
+    P = np.array(kf_poses, np.float64)
+    for c in range(1, P.shape[0]):
+        dR = lie.so3_exp(torch.from_numpy(rng.normal(0, 0.005, 3))).numpy()
+        P[c, :, :3] = dR @ P[c, :, :3]
+        P[c, :, 3] += rng.normal(0, 0.02, 3)
+    X = np.asarray(pt_xyz, np.float64) + rng.normal(0, 0.05,
+                                                    np.shape(pt_xyz))
+    return P.astype(np.float32), X.astype(np.float32)

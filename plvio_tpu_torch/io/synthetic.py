@@ -1,0 +1,265 @@
+"""The synthetic room, orbit trajectory, projections and renderer of the
+port (numpy/cv2 copies of plvio_tpu/io/synthetic.py:22-305: `GRAVITY`,
+`Scene`, `SyntheticTrajectory`, `SyntheticImu`, `make_room_scene`,
+`make_orbit_trajectory`, `_eval_orbit`, `project_scene`, `render_frame`).
+
+Host-side test and benchmark utilities, not device ops.  The IMU
+synthesis along the orbit is `plvio_tpu_torch.inputs.synthesize_imu`.
+
+World frame: z-up, gravity (0,0,-g).  Pose convention: T_wc maps camera
+coords to world (R_wc, t_wc = camera center).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Optional, Tuple
+
+import numpy as np
+
+GRAVITY = 9.81
+
+
+@dataclass
+class Scene:
+    points: np.ndarray           # [P,3] world points
+    lines: np.ndarray            # [L,2,3] world segment endpoints
+    point_polarity: np.ndarray   # [P] signed blob intensity (render)
+    line_polarity: np.ndarray    # [L] signed line intensity (render)
+    # render-only texture dots: unique constellations around each point so
+    # descriptors are distinctive and viewpoint-consistent
+    texture_dots: np.ndarray = field(default_factory=lambda: np.zeros((0, 3)))
+    texture_intensity: np.ndarray = field(default_factory=lambda: np.zeros(0))
+
+
+@dataclass
+class SyntheticTrajectory:
+    timestamps: np.ndarray       # [N] seconds
+    R_wb: np.ndarray             # [N,3,3] world-from-body
+    p_wb: np.ndarray             # [N,3]
+    v_wb: np.ndarray             # [N,3]
+
+
+@dataclass
+class SyntheticImu:
+    timestamps: np.ndarray       # [M]
+    gyro: np.ndarray             # [M,3] body rates (measured)
+    acc: np.ndarray              # [M,3] specific force (measured)
+    bias_gyro: np.ndarray        # [3] true constant bias used
+    bias_acc: np.ndarray         # [3]
+
+
+def make_room_scene(rng: np.random.Generator, n_points: int = 2000,
+                    n_lines: int = 60, size: float = 6.0) -> Scene:
+    """Points and lines on the walls/floor/ceiling of a [size]^3 room
+    centred at origin (cameras orbit inside looking outward)."""
+    h = size / 2
+    # pick a wall (6 faces) per feature, uniform position on the face
+    def on_faces(n):
+        face = rng.integers(0, 6, n)
+        uv = rng.uniform(-h, h, (n, 2))
+        pts = np.zeros((n, 3))
+        axis = face // 2                 # 0:x, 1:y, 2:z fixed
+        sign = np.where(face % 2 == 0, 1.0, -1.0)
+        for i in range(n):
+            others = [k for k in range(3) if k != axis[i]]
+            pts[i, axis[i]] = sign[i] * h
+            pts[i, others[0]] = uv[i, 0]
+            pts[i, others[1]] = uv[i, 1]
+        return pts, axis, sign
+
+    pts, _, _ = on_faces(n_points)
+
+    # lines: segments lying inside a wall plane
+    lp, axis, sign = on_faces(n_lines)
+    lines = np.zeros((n_lines, 2, 3))
+    for i in range(n_lines):
+        others = [k for k in range(3) if k != axis[i]]
+        d = np.zeros(3)
+        # direction within the wall plane
+        ang = rng.uniform(0, np.pi)
+        d[others[0]] = np.cos(ang)
+        d[others[1]] = np.sin(ang)
+        length = rng.uniform(0.8, 2.5)
+        lines[i, 0] = lp[i] - d * length / 2
+        lines[i, 1] = lp[i] + d * length / 2
+        lines[i] = np.clip(lines[i], -h, h)
+        lines[i, :, axis[i]] = sign[i] * h
+    # unique satellite-dot constellations around each point: 4 dots at
+    # per-point random in-plane offsets — viewpoint-consistent local
+    # texture that makes BRIEF descriptors distinctive
+    pts2, axis2, _ = pts, None, None
+    n_sat = 4
+    face_axis = np.argmax(np.abs(np.abs(pts) - h) < 1e-9, axis=1)
+    dots = np.zeros((n_points * n_sat, 3))
+    for i in range(n_points):
+        others = [k for k in range(3) if k != face_axis[i]]
+        offs = rng.uniform(-0.12, 0.12, (n_sat, 2))
+        # keep satellites off the blob itself
+        offs += np.sign(offs) * 0.05
+        for s in range(n_sat):
+            d = pts[i].copy()
+            d[others[0]] += offs[s, 0]
+            d[others[1]] += offs[s, 1]
+            dots[i * n_sat + s] = d
+    return Scene(
+        points=pts,
+        lines=lines,
+        point_polarity=rng.uniform(0.4, 1.0, n_points) * rng.choice([-1.0, 1.0], n_points),
+        line_polarity=rng.uniform(0.5, 1.0, n_lines) * rng.choice([-1.0, 1.0], n_lines),
+        texture_dots=dots,
+        texture_intensity=rng.uniform(0.3, 0.9, n_points * n_sat)
+        * rng.choice([-1.0, 1.0], n_points * n_sat),
+    )
+
+
+def make_orbit_trajectory(duration: float = 10.0, fps: float = 20.0,
+                          radius: float = 1.5, height_amp: float = 0.3,
+                          omega: float = 0.45) -> SyntheticTrajectory:
+    """Camera orbits inside the room looking outward at the walls.
+
+    Closed-form smooth trajectory; velocity by analytic differentiation.
+    The body/camera z-axis (optical axis) points radially outward.
+    """
+    t = np.arange(0.0, duration, 1.0 / fps)
+    return _eval_orbit(t, radius, height_amp, omega)
+
+
+def _eval_orbit(t: np.ndarray, radius: float, height_amp: float,
+                omega: float) -> SyntheticTrajectory:
+    th = omega * t
+    p = np.stack([radius * np.cos(th), radius * np.sin(th),
+                  height_amp * np.sin(2.1 * omega * t)], axis=-1)
+    v = np.stack([-radius * omega * np.sin(th), radius * omega * np.cos(th),
+                  height_amp * 2.1 * omega * np.cos(2.1 * omega * t)], axis=-1)
+    # optical axis = radial outward (+ small pitch bob), camera x right, y down
+    look = np.stack([np.cos(th), np.sin(th), 0.12 * np.sin(1.3 * omega * t)], axis=-1)
+    look /= np.linalg.norm(look, axis=-1, keepdims=True)
+    world_down = np.array([0.0, 0.0, -1.0])
+    x = np.cross(world_down, look)      # camera x (right)
+    x /= np.linalg.norm(x, axis=-1, keepdims=True)
+    y = np.cross(look, x)               # camera y (down-ish)
+    R = np.stack([x, y, look], axis=-1)  # columns are camera axes in world
+    return SyntheticTrajectory(timestamps=t, R_wb=R, p_wb=p, v_wb=v)
+
+
+# --------------------------------------------------------------------------
+# Rendering (host-side, numpy/cv2 — test/bench utility, not a device op)
+# --------------------------------------------------------------------------
+
+def project_scene(scene: Scene, R_wc: np.ndarray, p_wc: np.ndarray,
+                  fx: float, fy: float, cx: float, cy: float,
+                  width: int, height: int, margin: float = 8.0):
+    """Oracle projections for one camera pose.
+
+    Returns (uv [P,2], depth [P], visible [P]) for points and
+    (uv_ep [L,2,2], visible_l [L]) for line endpoints.
+    """
+    R_cw = R_wc.T
+    pc = (R_cw @ (scene.points - p_wc).T).T
+    z = pc[:, 2]
+    uv = np.stack([fx * pc[:, 0] / np.maximum(z, 1e-6) + cx,
+                   fy * pc[:, 1] / np.maximum(z, 1e-6) + cy], axis=-1)
+    vis = (z > 0.2) & (uv[:, 0] >= margin) & (uv[:, 0] < width - margin) \
+        & (uv[:, 1] >= margin) & (uv[:, 1] < height - margin)
+
+    lc = np.einsum("ij,lkj->lki", R_cw, scene.lines - p_wc)
+    # near-plane clip in 3D first: a segment with ONE endpoint behind the
+    # camera is still partially visible (real detectors see it), so move
+    # that endpoint to the z=0.25 plane instead of culling the line
+    znear = 0.25
+    for i in range(len(lc)):
+        z0, z1 = lc[i, 0, 2], lc[i, 1, 2]
+        if (z0 > znear) != (z1 > znear):
+            t = (znear - z0) / (z1 - z0)
+            pcut = lc[i, 0] + t * (lc[i, 1] - lc[i, 0])
+            if z0 <= znear:
+                lc[i, 0] = pcut
+            else:
+                lc[i, 1] = pcut
+    zl = lc[..., 2]
+    uv_l = np.stack([fx * lc[..., 0] / np.maximum(zl, 1e-6) + cx,
+                     fy * lc[..., 1] / np.maximum(zl, 1e-6) + cy], axis=-1)
+    # clip each projected segment to the image rect (Liang-Barsky) so
+    # partially visible lines still count, as a real detector would see them
+    uv_clip = uv_l.copy()
+    vis_l = np.zeros(len(uv_l), bool)
+    lo = np.array([margin, margin])
+    hi = np.array([width - margin, height - margin])
+    min_len = 0.04 * min(width, height)
+    for i in range(len(uv_l)):
+        if zl[i, 0] <= 0.2 or zl[i, 1] <= 0.2:
+            continue
+        p0, d = uv_l[i, 0], uv_l[i, 1] - uv_l[i, 0]
+        t0, t1 = 0.0, 1.0
+        ok = True
+        for k in range(2):
+            for bound, sign in ((lo[k], 1.0), (hi[k], -1.0)):
+                denom = sign * d[k]
+                num = sign * (bound - p0[k])
+                if abs(denom) < 1e-12:
+                    if num > 0:
+                        ok = False
+                else:
+                    t = num / denom
+                    if denom > 0:
+                        t0 = max(t0, t)
+                    else:
+                        t1 = min(t1, t)
+        if ok and t0 < t1:
+            a, b = p0 + t0 * d, p0 + t1 * d
+            if np.linalg.norm(b - a) >= min_len:
+                uv_clip[i, 0], uv_clip[i, 1] = a, b
+                vis_l[i] = True
+    return uv, z, vis, uv_clip, vis_l
+
+
+def render_frame(scene: Scene, R_wc: np.ndarray, p_wc: np.ndarray,
+                 fx: float = 458.654, fy: float = 457.296,
+                 cx: float = 367.215, cy: float = 248.375,
+                 width: int = 752, height: int = 480,
+                 rng: Optional[np.random.Generator] = None,
+                 noise: float = 2.0, blob_r: int = 3) -> np.ndarray:
+    """Render a grayscale frame: textured blobs at point projections and
+    dark/bright segments for lines over a mid-gray background."""
+    import cv2
+
+    img = np.full((height, width), 128.0, np.float32)
+    uv, z, vis, uv_l, vis_l = project_scene(
+        scene, R_wc, p_wc, fx, fy, cx, cy, width, height)
+
+    for i in np.nonzero(vis_l)[0]:
+        col = 128.0 + 90.0 * scene.line_polarity[i]
+        # sub-pixel endpoints (shift=4 -> 1/16 px): integer rounding
+        # would tilt the drawn line by up to ~0.4 deg, which dominates
+        # the direction error budget of line triangulation
+        p0 = tuple(np.round(uv_l[i, 0] * 16).astype(int))
+        p1 = tuple(np.round(uv_l[i, 1] * 16).astype(int))
+        cv2.line(img, p0, p1, float(col), 2, cv2.LINE_AA, shift=4)
+
+    # texture dots first (underneath the main blobs)
+    if len(scene.texture_dots):
+        R_cw = R_wc.T
+        dc = (R_cw @ (scene.texture_dots - p_wc).T).T
+        zd = dc[:, 2]
+        uvd = np.stack([fx * dc[:, 0] / np.maximum(zd, 1e-6) + cx,
+                        fy * dc[:, 1] / np.maximum(zd, 1e-6) + cy], axis=-1)
+        ok = (zd > 0.2) & (uvd[:, 0] >= 0) & (uvd[:, 0] < width) \
+            & (uvd[:, 1] >= 0) & (uvd[:, 1] < height)
+        for i in np.nonzero(ok)[0]:
+            col = 128.0 + 90.0 * scene.texture_intensity[i]
+            c = tuple(np.round(uvd[i]).astype(int))
+            r = max(1, int(round(1.5 * 2.0 / max(zd[i], 0.5))))
+            cv2.circle(img, c, r, float(col), -1, cv2.LINE_AA)
+
+    for i in np.nonzero(vis)[0]:
+        col = 128.0 + 100.0 * scene.point_polarity[i]
+        # square blobs give strong FAST corner responses at all 4 corners;
+        # draw as a filled circle to get a single dominant corner-ish blob
+        c = tuple(np.round(uv[i]).astype(int))
+        r = max(2, int(round(blob_r * 2.0 / max(z[i], 0.5))))
+        cv2.circle(img, c, r, float(col), -1, cv2.LINE_AA)
+
+    img = cv2.GaussianBlur(img, (3, 3), 0.8)
+    if rng is not None and noise > 0:
+        img = img + rng.normal(0, noise, img.shape).astype(np.float32)
+    return np.clip(img, 0, 255)

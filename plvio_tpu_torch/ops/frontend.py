@@ -410,8 +410,10 @@ def extract_orb(img: torch.Tensor, specs: Tuple[LevelSpec, ...],
 def make_extractor(height: int, width: int, n_features: int = 1000,
                    n_levels: int = 8, scale: float = 1.2,
                    ini_th: float = 20.0, min_th: float = 7.0,
-                   device="cpu", plain: bool = False):
-    """Extractor module for a fixed image geometry, and its level specs."""
+                   device="cuda", plain: bool = False):
+    """Extractor module for a fixed image geometry, and its level specs
+    (on the card unless `device` says otherwise)."""
     specs = tuple(make_level_specs(height, width, n_features, n_levels,
                                    scale))
-    return OrbExtractor(specs, ini_th, min_th, plain=plain).to(device), specs
+    return OrbExtractor(specs, ini_th, min_th, plain=plain).to(
+        cuda.resolve_device(device)), specs

@@ -36,7 +36,7 @@ class ImuCalib(NamedTuple):
 
 
 def make_calib(cfg) -> ImuCalib:
-    """From a plvio_tpu.config.ImuConfig (values rounded to float32, as
+    """From a plvio_tpu_torch.config.ImuConfig (values rounded to float32, as
     the reference's jnp.float32 scalars)."""
     sf = float(np.sqrt(cfg.frequency))
     Tbc = cfg.Tbc_matrix()
@@ -70,7 +70,8 @@ class Preintegrated(NamedTuple):
 
 
 def identity_preintegrated(bias_gyro=None, bias_acc=None,
-                           device="cpu") -> Preintegrated:
+                           device="cuda") -> Preintegrated:
+    device = cuda.resolve_device(device)
     z3 = torch.zeros(3, device=device)
     z33 = torch.zeros(3, 3, device=device)
     return Preintegrated(

@@ -604,6 +604,7 @@ class LineExtractor(nn.Module):
 
 
 def make_line_extractor(max_lines: int = 256, levels: int = 2,
-                        device="cpu") -> LineExtractor:
-    """Line extractor module on `device` (any image geometry)."""
-    return LineExtractor(max_lines, levels).to(device)
+                        device="cuda") -> LineExtractor:
+    """Line extractor module on `device` (any image geometry; the card
+    unless the caller asks for the CPU)."""
+    return LineExtractor(max_lines, levels).to(cuda.resolve_device(device))

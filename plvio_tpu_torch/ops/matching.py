@@ -1,11 +1,16 @@
-"""Descriptor matching (port of plvio_tpu/ops/matching.py).
+"""Descriptor matching (port of plvio_tpu/ops/matching.py; the epipolar
+gate of plvio_tpu/models/kernels.py:845-867 and `rotation_histogram_filter`
+:115).
 
 The port keeps binary descriptors PACKED: [N,8] torch.int32 holding the
 same bits as the reference's uint32 rows (`pack_bits_u32`): bit j of word
 w is descriptor bit 32w+j.  The plain versions below unpack to +-1 and use
 the reference's matmul form; `hamming_match` is the hand-written CUDA
 kernel (csrc/hamming_match.cu) for the fused gate + popcount + ratio test +
-mutual check, which never forms the N x M matrix.
+mutual check, which never forms the N x M matrix; `rot_hist` is the
+hand-written CUDA kernel (csrc/epipolar_match.cu) of the rotation
+histogram filter, beside its plain version
+`rotation_histogram_filter`.
 """
 from __future__ import annotations
 
@@ -87,6 +92,44 @@ def line_gate(mid_a: torch.Tensor, ang_a: torch.Tensor, mid_b: torch.Tensor,
     return (d2 < radius ** 2) & (dang < angle_tol)
 
 
+def epipolar_gate(F: torch.Tensor, uv1: torch.Tensor, uv2: torch.Tensor,
+                  th: torch.Tensor) -> torch.Tensor:
+    """[N,2] x [M,2] -> bool [N,M]: the distance of each uv2 to the
+    epipolar line F (uv1, 1) below th [M] (the reference's `d_epi < th`,
+    models/kernels.py:852-867), in the operation order of the kernel's
+    epipolar mode."""
+    x, y = uv1[:, 0], uv1[:, 1]
+    l0 = (F[0, 0] * x + F[0, 1] * y) + F[0, 2]
+    l1 = (F[1, 0] * x + F[1, 1] * y) + F[1, 2]
+    l2 = (F[2, 0] * x + F[2, 1] * y) + F[2, 2]
+    den = torch.clamp_min(torch.sqrt(l0 * l0 + l1 * l1), 1e-9)
+    num = torch.abs((l0[:, None] * uv2[None, :, 0]
+                     + l1[:, None] * uv2[None, :, 1]) + l2[:, None])
+    return num / den[:, None] < th[None, :]
+
+
+def rotation_histogram_filter(angles_a: torch.Tensor, angles_b: torch.Tensor,
+                              idx_b: torch.Tensor, ok: torch.Tensor,
+                              n_bins: int = 30,
+                              keep_top: int = 3) -> torch.Tensor:
+    """Keep the matches whose orientation difference (angles in degrees)
+    falls in the `keep_top` fullest of `n_bins` bins, each at least 10% of
+    the fullest (ORBmatcher HISTO_LENGTH and ComputeThreeMaxima).  Ties
+    among equal counts go to the lower bin, as lax.top_k orders them.
+    The plain version of `rot_hist`; returns the updated ok [N]."""
+    rot = angles_a - angles_b[idx_b.long()]
+    rot = torch.where(rot < 0, rot + 360.0, rot)
+    bins = torch.clamp((rot / (360.0 / n_bins)).to(torch.int32), 0,
+                       n_bins - 1).long()
+    hist = torch.zeros(n_bins, dtype=torch.int64, device=ok.device)
+    hist.scatter_add_(0, bins, ok.long())
+    vals, order = torch.sort(hist, descending=True, stable=True)
+    thresh = 0.1 * vals[0].to(torch.float32)
+    keep = torch.zeros(n_bins, dtype=torch.bool, device=ok.device)
+    keep[order[:keep_top]] = vals[:keep_top].to(torch.float32) >= thresh
+    return ok & keep[bins]
+
+
 # --------------------------------------------------------------------------
 # Kernel 3: hamming_match
 # --------------------------------------------------------------------------
@@ -96,18 +139,20 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 HAMMING_MATCH = cuda.Kernel(
     "hamming_match", "hamming_match",
-    [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F,
+    [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F,
      _P, _P, _P, _P])
 
 
 def hamming_match_plain(map_desc, obs_desc, row_ok, col_ok, a_xy, b_xy,
                         radius, max_dist, ratio, a_ang=None, b_ang=None,
-                        angle_tol=None):
+                        angle_tol=None, epi_F=None, epi_th=None):
     """Plain PyTorch version of `hamming_match` (the reference's
     unpack + matmul + dense gate + match_nn_ratio)."""
     dist = hamming_matrix(unpack_u32_to_pm1(map_desc),
                           unpack_u32_to_pm1(obs_desc))
-    if a_ang is None:
+    if epi_F is not None:
+        gate = epipolar_gate(epi_F, a_xy, b_xy, epi_th)
+    elif a_ang is None:
         gate = window_gate(a_xy, b_xy, radius)
     else:
         gate = line_gate(a_xy, a_ang, b_xy, b_ang, radius, angle_tol)
@@ -117,25 +162,31 @@ def hamming_match_plain(map_desc, obs_desc, row_ok, col_ok, a_xy, b_xy,
 
 def hamming_match(map_desc, obs_desc, row_ok, col_ok, a_xy, b_xy,
                   radius: float, max_dist: float, ratio: float,
-                  a_ang=None, b_ang=None, angle_tol=None):
+                  a_ang=None, b_ang=None, angle_tol=None, epi_F=None,
+                  epi_th=None):
     """Gated Hamming nearest neighbour with ratio test and mutual check.
 
     map_desc [N,8] / obs_desc [M,8] int32 packed; row_ok [N] / col_ok [M]
     bool; a_xy [N,2] / b_xy [M,2] float32 predicted / observed positions.
     Point gate (a_ang None): squared distance <= radius^2.  Line gate
     (a_ang [N], b_ang [M], angle_tol): squared midpoint distance < radius^2
-    and wrapped angle difference < angle_tol.
+    and wrapped angle difference < angle_tol.  Epipolar gate (epi_F
+    [3,3] float32 fundamental matrix, epi_th [M] thresholds; radius
+    unused): the distance of b_xy to the epipolar line of a_xy < epi_th.
     Returns (idx [N] int32, ok [N] bool); idx 0 where no column admits.
     CPU tensors take the plain version; CUDA tensors launch the kernel."""
     if map_desc.device.type == "cpu":
         return hamming_match_plain(map_desc, obs_desc, row_ok, col_ok, a_xy,
                                    b_xy, radius, max_dist, ratio, a_ang,
-                                   b_ang, angle_tol)
-    line = a_ang is not None
+                                   b_ang, angle_tol, epi_F, epi_th)
+    epi = epi_F is not None
+    line = a_ang is not None and not epi
     n, m = map_desc.shape[0], obs_desc.shape[0]
     ts = [map_desc, obs_desc, row_ok, col_ok, a_xy, b_xy]
     if line:
         ts += [a_ang, b_ang]
+    if epi:
+        ts += [epi_F, epi_th]
     cuda.check_cuda("hamming_match", *ts)
     if map_desc.dtype != torch.int32 or obs_desc.dtype != torch.int32 \
             or map_desc.shape[1:] != (8,) or obs_desc.shape[1:] != (8,):
@@ -150,6 +201,10 @@ def hamming_match(map_desc, obs_desc, row_ok, col_ok, a_xy, b_xy,
                  or a_ang.dtype != torch.float32
                  or b_ang.dtype != torch.float32):
         raise ValueError("hamming_match: a_ang [N] / b_ang [M] float32")
+    if epi and (epi_F.shape != (3, 3) or epi_th.shape != (m,)
+                or epi_F.dtype != torch.float32
+                or epi_th.dtype != torch.float32):
+        raise ValueError("hamming_match: epi_F [3,3] / epi_th [M] float32")
     if n >= 1 << 16 or m > 3600:
         # row ids share a 32-bit word with the distance; the columns'
         # positions, angles and flags fit the 48 KB of static shared memory
@@ -164,8 +219,47 @@ def hamming_match(map_desc, obs_desc, row_ok, col_ok, a_xy, b_xy,
     HAMMING_MATCH.launch(
         cuda.ptr(map_desc), cuda.ptr(obs_desc), cuda.ptr(row_ok),
         cuda.ptr(col_ok), cuda.ptr(a_xy), cuda.ptr(b_xy),
-        cuda.ptr(a_ang) if line else None, cuda.ptr(b_ang) if line else None,
-        n, m, int(line), float(radius) ** 2,
+        cuda.ptr(a_ang) if line else None,
+        cuda.ptr(epi_th) if epi else (cuda.ptr(b_ang) if line else None),
+        cuda.ptr(epi_F) if epi else None,
+        n, m, 2 if epi else int(line), float(radius) ** 2,
         float(angle_tol) if line else 0.0, float(max_dist), float(ratio),
         cuda.ptr(idx), cuda.ptr(ok), cuda.ptr(col_best), cuda.stream())
     return idx, ok
+
+
+# --------------------------------------------------------------------------
+# Kernel 10: rot_hist
+# --------------------------------------------------------------------------
+
+ROT_HIST = cuda.Kernel("epipolar_match", "rot_hist",
+                       [_P, _P, _P, _P, _I, _I, _I, _F, _P, _P])
+
+
+def rot_hist(angles_a, angles_b, idx_b, ok, n_bins: int = 30,
+             keep_top: int = 3):
+    """`rotation_histogram_filter` (angles_a [N], angles_b [M] float32,
+    idx_b [N] int32, ok [N] bool -> ok [N]).  CPU tensors take the plain
+    version; CUDA tensors launch csrc/epipolar_match.cu (one block)."""
+    if ok.device.type == "cpu":
+        return rotation_histogram_filter(angles_a, angles_b, idx_b, ok,
+                                         n_bins, keep_top)
+    n, m = angles_a.shape[0], angles_b.shape[0]
+    cuda.check_cuda("rot_hist", angles_a, angles_b, idx_b, ok)
+    if angles_a.dtype != torch.float32 or angles_b.dtype != torch.float32 \
+            or idx_b.dtype != torch.int32 or ok.dtype != torch.bool \
+            or idx_b.shape != (n,) or ok.shape != (n,):
+        raise ValueError("rot_hist: float32 angles, int32 idx [N], bool ok "
+                         "[N]")
+    if not (1 <= keep_top <= min(n_bins, 8) and n_bins <= 256):
+        raise ValueError("rot_hist: needs 1 <= keep_top <= min(n_bins, 8) "
+                         "and n_bins <= 256")
+    out = torch.empty_like(ok)
+    bins = torch.empty(n, dtype=torch.int32, device=ok.device)
+    if n == 0:
+        return out
+    ROT_HIST.launch(cuda.ptr(angles_a), cuda.ptr(angles_b), cuda.ptr(idx_b),
+                    cuda.ptr(ok), n, n_bins, keep_top,
+                    float(360.0 / n_bins), cuda.ptr(out), cuda.ptr(bins),
+                    cuda.stream())
+    return out

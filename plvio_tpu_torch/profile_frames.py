@@ -1,4 +1,5 @@
-"""Where the time of the two tracked frames goes, on one CUDA card.
+"""Where the time of the two tracked frames and the mapping step goes, on
+one CUDA card.
 
     python3 -m plvio_tpu_torch.profile_frames
 
@@ -18,6 +19,10 @@ the point+line frame (`tracking_step_pl`) and the VI frame
   device ms/frame between CUDA events recorded around the stage, and the
   host's enqueue ms/frame, from a third pass.
 
+The keyframe mapping step (`mapping_step`, both window sizes, from
+`inputs.perturb_window`'s start, 8 steps a pass) gets the same figures
+per step, with the stages epipolar match, triangulate and local BA.
+
 Prints the card's `nvidia-smi` name and power limit first.  Needs one
 card; JAX is never imported.
 """
@@ -32,12 +37,13 @@ import numpy as np
 import torch
 
 from . import entry as E
-from .inputs import build_imu_windows, build_inputs
+from .inputs import build_imu_windows, build_inputs, perturb_window
 from .ops import imu as IMU
 from .state import from_numpy
 
 H, W, N_FEAT, CAP_PTS, CAP_LNS, N_LINE, N_FRAMES = 480, 752, 1000, 2048, 128, \
     256, 16
+N_MAP = 8
 
 
 def _device_time_us(evt) -> float:
@@ -123,7 +129,23 @@ def stage_spans(step, run, n_frames: int):
             step.vi_opt = vi_opt
 
 
-def profile(name, step, run, n_frames: int):
+def mapping_spans(step, run, n_steps: int):
+    """Device and host ms/step of the mapping step's three stages."""
+    sp = Spans()
+    saved = {a: getattr(step, a) for a in ("epi", "tri", "lba")}
+    for attr, name in (("epi", "epipolar match"), ("tri", "triangulate"),
+                       ("lba", "local BA")):
+        setattr(step, attr, sp.wrap(name, saved[attr]))
+    try:
+        run()
+        return sp.read(n_steps)
+    finally:
+        for attr, fn in saved.items():
+            setattr(step, attr, fn)
+
+
+def profile(name, step, run, n_frames: int, spans=stage_spans,
+            unit: str = "frame"):
     run()                                        # warm-up
     torch.cuda.synchronize()
     e0 = torch.cuda.Event(enable_timing=True)
@@ -140,15 +162,16 @@ def profile(name, step, run, n_frames: int):
         torch.cuda.synchronize()
     busy, n_dev, kernels, ops = device_summary(prof, n_frames)
     idle = 1.0 - busy / wall if wall > 0 else float("nan")
-    print(f"== {name}: wall {wall:.3f} ms/frame; device busy {busy:.3f} "
-          f"ms/frame; idle share {idle:.1%}; device kernels {n_dev:.1f}/frame")
+    print(f"== {name}: wall {wall:.3f} ms/{unit}; device busy {busy:.3f} "
+          f"ms/{unit}; idle share {idle:.1%}; device kernels "
+          f"{n_dev:.1f}/{unit}")
     for k, n, ms in kernels:
-        print(f"   {k[:70]:70s} n/frame {n:6.1f} dev ms/frame {ms:.4f}")
-    print(f"   torch ops by count/frame: "
+        print(f"   {k[:70]:70s} n/{unit} {n:6.1f} dev ms/{unit} {ms:.4f}")
+    print(f"   torch ops by count/{unit}: "
           f"{[(k, round(n, 1)) for k, n in ops]}")
-    dev, host = stage_spans(step, run, n_frames)
-    print(f"   stage device ms/frame: {dev}")
-    print(f"   stage host enqueue ms/frame: {host}")
+    dev, host = spans(step, run, n_frames)
+    print(f"   stage device ms/{unit}: {dev}")
+    print(f"   stage host enqueue ms/{unit}: {host}")
 
 
 def main() -> int:
@@ -192,6 +215,21 @@ def main() -> int:
 
     profile(f"point+line frame ({N_FRAMES} frames)", pl, run_pl, N_FRAMES)
     profile(f"VI frame ({N_FRAMES - 1} frames)", vi, run_vi, N_FRAMES - 1)
+    for name, sz in (("worst", E.MAPPING_WORST),
+                     ("typical", E.MAPPING_TYPICAL)):
+        ms, A = E.mapping_step(**sz, device=dev)
+        P, X = perturb_window(A["kf_poses"].cpu().numpy(),
+                              A["pt_xyz"].cpu().numpy())
+        A["kf_poses"], A["pt_xyz"] = (torch.from_numpy(P).to(dev),
+                                      torch.from_numpy(X).to(dev))
+
+        @torch.no_grad()
+        def run_map(ms=ms, A=A):
+            for _ in range(N_MAP):
+                ms(A)
+
+        profile(f"mapping step, {name} ({N_MAP} steps, perturbed start)",
+                ms, run_map, N_MAP, spans=mapping_spans, unit="step")
     return 0
 
 

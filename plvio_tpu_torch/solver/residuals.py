@@ -1,15 +1,19 @@
-"""Residuals ("edges") of the VI pose optimizer and their retractions
-(port of plvio_tpu/solver/residuals.py: `PinholeK` :90,
-`retract_pose_wb_single` :56, `retract_pose_wb` :61, `retract_additive`
-:68, `make_point_reproj_body` :248, `make_inertial` :318, `bias_rw` :466,
-`make_prior15` :474).
+"""Residuals ("edges") of the VI pose optimizer and of the windowed
+point+line BA, and their retractions (port of
+plvio_tpu/solver/residuals.py: `retract_pose_cw_single` :41,
+`retract_pose_cw` :47, `PinholeK` :90, `retract_pose_wb_single` :56,
+`retract_pose_wb` :61, `retract_additive` :68, `make_point_reproj` :107,
+`make_line_reproj` :155, `make_point_reproj_body` :248, `make_inertial`
+:318, `bias_rw` :466, `make_prior15` :474, `point_reproj_ba_for` :559).
 
 A residual is `res(blocks, deltas, const) -> r` that applies its own
 retraction to each block; the engine (solver/engine.py) differentiates it
-with `torch.func.jacfwd`, as the reference does with `jax.jacfwd`.  Beside
+with `torch.func.jacrev` (the reference: `jax.jacfwd`).  Beside
 each residual stands its analytic Jacobian at delta = 0 (`*_jac`): the
-formulas csrc/vi_pose_lm.cu evaluates.  Tangent order of pose_wb is
-[dp(3), dtheta(3)] with R <- R Exp(dtheta), p <- p + dp.
+formulas csrc/vi_pose_lm.cu and csrc/ba_linearize.cu evaluate.  Tangent
+order of pose_wb is [dp(3), dtheta(3)] with R <- R Exp(dtheta), p <- p +
+dp; pose_cw (world->camera, the BA's keyframes) takes the left se3
+perturbation T <- Exp(rho, phi) T of `lie.se3_exp`.
 """
 from __future__ import annotations
 
@@ -30,6 +34,21 @@ class PinholeK(NamedTuple):
 # --------------------------------------------------------------------------
 # Retractions
 # --------------------------------------------------------------------------
+
+def retract_pose_cw_single(P: torch.Tensor, d: torch.Tensor):
+    R, t = P[:, :3], P[:, 3]
+    dR, dt = lie.se3_exp(d)
+    return dR @ R, dR @ t + dt
+
+
+def retract_pose_cw(P: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """Batched engine retract: [N,3,4], [N,6] -> [N,3,4]."""
+    R, t = P[..., :3], P[..., 3]
+    dR, dt = lie.se3_exp(d)
+    Rn = dR @ R
+    tn = (dR @ t[..., None])[..., 0] + dt
+    return torch.cat([lie.so3_normalize(Rn), tn[..., None]], -1)
+
 
 def retract_pose_wb_single(P: torch.Tensor, d: torch.Tensor):
     R, p = P[:, :3], P[:, 3]
@@ -55,6 +74,40 @@ def _project(K: PinholeK, pc: torch.Tensor) -> torch.Tensor:
 # --------------------------------------------------------------------------
 # Residuals
 # --------------------------------------------------------------------------
+
+def make_point_reproj(K: PinholeK):
+    """Full BA edge (pose_cw, point) -> r [2]; const = {'uv': [2]}."""
+    def res(blocks, deltas, const):
+        P, X = blocks
+        dp, dX = deltas
+        R, t = retract_pose_cw_single(P, dp)
+        return _project(K, R @ (X + dX) + t) - const["uv"]
+    return res
+
+
+def point_reproj_ba_for(K: PinholeK):
+    """The full-BA point edge of a pinhole camera (the reference's
+    camera-model dispatch; the port has the pinhole model only)."""
+    return make_point_reproj(K)
+
+
+def make_line_reproj(K: PinholeK):
+    """(pose_cw, line6) -> r [2]: signed distance of each projected
+    endpoint to the observed normalized line l = (a, b, c), |(a, b)| = 1;
+    const = {'l': [3]}."""
+    def res(blocks, deltas, const):
+        P, L = blocks
+        dp, dL = deltas
+        R, t = retract_pose_cw_single(P, dp)
+        Ln = L + dL
+        l = const["l"]
+        r = []
+        for k in range(2):
+            uv = _project(K, R @ Ln[3 * k:3 * k + 3] + t)
+            r.append(l[0] * uv[0] + l[1] * uv[1] + l[2])
+        return torch.stack(r)
+    return res
+
 
 def make_point_reproj_body(K: PinholeK, Rcb: torch.Tensor, tcb: torch.Tensor):
     """Pose-only reprojection with the state on the body frame and a fixed
@@ -138,6 +191,52 @@ def point_reproj_body_jac(K: PinholeK, Rcb, tcb, P, X, uv):
     JR = Jpi @ Rcb                                    # d r / d Xb
     J = torch.cat([-(JR @ R.T), JR @ lie.hat(Xb)], -1)
     return r, J
+
+
+def _proj_jac_clamped(K: PinholeK, pc: torch.Tensor):
+    """(uv [N,2], d uv / d pc [N,2,3]) of the projection with the depth
+    clamped at 1e-4 (no depth derivative where it is clamped)."""
+    z = torch.clamp_min(pc[:, 2], 1e-4)
+    uv = torch.stack([K.fx * pc[:, 0] / z + K.cx,
+                      K.fy * pc[:, 1] / z + K.cy], -1)
+    iz = 1.0 / z
+    dz = (pc[:, 2] > 1e-4).to(pc.dtype)
+    zero = torch.zeros_like(z)
+    Jpi = torch.stack([
+        torch.stack([K.fx * iz, zero, -K.fx * pc[:, 0] * iz * iz * dz], -1),
+        torch.stack([zero, K.fy * iz, -K.fy * pc[:, 1] * iz * iz * dz], -1),
+    ], 1)
+    return uv, Jpi
+
+
+def point_reproj_jac(K: PinholeK, P, X, uv):
+    """Batched `make_point_reproj` at delta = 0: P [N,3,4] pose_cw, X
+    [N,3], uv [N,2] -> (r [N,2], J_pose [N,2,6], J_point [N,2,3]).  With
+    pc = R X + t, d pc / d rho = I, d pc / d phi = -hat(pc) (left
+    perturbation), d pc / d X = R."""
+    R, t = P[..., :3], P[..., 3]
+    pc = (R @ X[..., None])[..., 0] + t
+    proj, Jpi = _proj_jac_clamped(K, pc)
+    Jp = torch.cat([Jpi, -Jpi @ lie.hat(pc)], -1)
+    return proj - uv, Jp, Jpi @ R
+
+
+def line_reproj_jac(K: PinholeK, P, L, l):
+    """Batched `make_line_reproj` at delta = 0: P [N,3,4], L [N,6], l
+    [N,3] -> (r [N,2], J_pose [N,2,6], J_line [N,2,6]); row k depends on
+    endpoint k only."""
+    R, t = P[..., :3], P[..., 3]
+    rs, Jps, Jls = [], [], []
+    zero3 = torch.zeros_like(L[:, None, :3])
+    for k in range(2):
+        pc = (R @ L[:, 3 * k:3 * k + 3, None])[..., 0] + t
+        proj, Jpi = _proj_jac_clamped(K, pc)
+        rs.append(l[:, 0] * proj[:, 0] + l[:, 1] * proj[:, 1] + l[:, 2])
+        jrow = l[:, None, 0:1] * Jpi[:, 0:1] + l[:, None, 1:2] * Jpi[:, 1:2]
+        Jps.append(torch.cat([jrow, -jrow @ lie.hat(pc)], -1))
+        jl = jrow @ R
+        Jls.append(torch.cat([jl, zero3] if k == 0 else [zero3, jl], -1))
+    return (torch.stack(rs, -1), torch.cat(Jps, 1), torch.cat(Jls, 1))
 
 
 def inertial_jac(gravity: float, blocks, const):

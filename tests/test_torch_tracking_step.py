@@ -21,8 +21,12 @@ import pytest
 import torch
 
 import __graft_entry__ as G
+from plvio_tpu_torch import entry as E
+from plvio_tpu_torch import inputs as IN
 from plvio_tpu_torch.entry import entry, tracking_step, tracking_step_pl
 from plvio_tpu_torch.inputs import build_inputs
+from plvio_tpu_torch.ops import frontend as FE
+from plvio_tpu_torch.ops import lines as LN
 from plvio_tpu_torch.state import from_numpy
 
 H, W, NF, CP, CL, NL, NFR = 240, 376, 300, 256, 32, 64, 3
@@ -31,7 +35,7 @@ REPO = Path(__file__).resolve().parents[1]
 
 @pytest.fixture(scope="module")
 def inputs():
-    return build_inputs(NFR, CP, CL, H, W, n_features=NF)
+    return build_inputs(NFR, CP, CL, H, W, n_features=NF, device="cpu")
 
 
 def _centre_rot(P, Q):
@@ -48,11 +52,11 @@ def _run(inputs, pl):
     frames, poses, pxyz, pdesc, pvalid, lep, ldesc, lvalid, _ = inputs
     if pl:
         fj, _ = G._tracking_step_pl_fn(H, W, NF, CP, CL, NL)
-        step, _ = tracking_step_pl(H, W, NF, CP, CL, NL)
+        step, _ = tracking_step_pl(H, W, NF, CP, CL, NL, device="cpu")
         jmap = (pxyz, pdesc, pvalid, lep, ldesc, lvalid)
     else:
         fj, _ = G._tracking_step_fn(H, W, NF, CP)
-        step, _ = tracking_step(H, W, NF, CP)
+        step, _ = tracking_step(H, W, NF, CP, device="cpu")
         jmap = (pxyz, pdesc, pvalid)
     fj = jax.jit(fj)
     st = from_numpy(dict(pt_xyz=pxyz, pt_desc=pdesc, pt_valid=pvalid,
@@ -85,7 +89,7 @@ def test_entry_example_runs():
     assert len(args) == 8 and args[0].shape == (480, 752)
     assert step.orb.specs[0].n_keep + sum(s.n_keep for s in
                                           step.orb.specs[1:]) == 1000
-    small, sargs = tracking_step_pl(96, 160, 60, 32, 8, 16)
+    small, sargs = tracking_step_pl(96, 160, 60, 32, 8, 16, device="cpu")
     pose, n = small(*sargs)
     assert pose.shape == (3, 4) and bool(torch.isfinite(pose).all())
     assert n.dtype == torch.int32
@@ -100,7 +104,33 @@ def test_cuda_request_without_card_raises():
         build_inputs(1, 8, 4, 96, 160, device="cuda")
 
 
+DEFAULTS_TO_CARD = {
+    "tracking_step": lambda: tracking_step(96, 160, 60, 32),
+    "tracking_step_pl": lambda: tracking_step_pl(96, 160, 60, 32, 8, 16),
+    "tracking_step_vi": lambda: E.tracking_step_vi(96, 160, 60, 16, 16),
+    "entry": lambda: entry(),
+    "mapping_step": lambda: E.mapping_step(4, 256, 512, 128, 32, 64),
+    "build_inputs": lambda: build_inputs(1, 8, 4, 96, 160),
+    "build_mapping_inputs": lambda: IN.build_mapping_inputs(
+        4, 256, 512, 128, 32, 64),
+    "make_extractor": lambda: FE.make_extractor(96, 160, 60),
+    "make_line_extractor": lambda: LN.make_line_extractor(16),
+}
+
+
+@pytest.mark.parametrize("name", sorted(DEFAULTS_TO_CARD))
+def test_entry_points_default_to_the_card(name):
+    """Every entry point and factory runs on the card unless the caller
+    passes device="cpu": without a card, the default raises."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DEFAULTS_TO_CARD[name]()
+
+
 def test_port_never_loads_jax():
+    """The port, chip_smoke.py and the profile load neither JAX nor the
+    JAX package while driving all three entry points on the CPU."""
     code = (
         "import sys\n"
         "import torch\n"
@@ -108,22 +138,28 @@ def test_port_never_loads_jax():
         "import plvio_tpu_torch.profile_frames\n"
         "from plvio_tpu_torch.entry import tracking_step_pl\n"
         "from plvio_tpu_torch.inputs import build_inputs\n"
-        "step, args = tracking_step_pl(96, 160, 60, 32, 8, 16)\n"
+        "step, args = tracking_step_pl(96, 160, 60, 32, 8, 16, "
+        "device='cpu')\n"
         "pose, n = step(*args)\n"
-        "fr = build_inputs(3, 16, 4, 96, 160, n_features=60)\n"
+        "fr = build_inputs(3, 16, 4, 96, 160, n_features=60, "
+        "device='cpu')\n"
         "assert pose.shape == (3, 4)\n"
-        "from plvio_tpu_torch.entry import tracking_step_vi\n"
+        "from plvio_tpu_torch.entry import mapping_step, tracking_step_vi\n"
         "from plvio_tpu_torch.inputs import build_imu_windows\n"
+        "ms, A = mapping_step(4, 256, 512, 128, 32, 64, device='cpu')\n"
+        "out = ms(A)\n"
+        "assert out.kf_poses.shape == (4, 3, 4) and int(out.n_good) > 0\n"
         "g, a, d, c0 = build_imu_windows(fr[-1], 3)\n"
-        "vi, _ = tracking_step_vi(96, 160, 60, 16, 16)\n"
+        "vi, _ = tracking_step_vi(96, 160, 60, 16, 16, device='cpu')\n"
         "m = [torch.from_numpy(x) for x in fr[2:8]]\n"
         "m[1], m[4] = m[1].view(torch.int32), m[4].view(torch.int32)\n"
         "xs = tuple(torch.from_numpy(x) for x in (fr[0][1], g[0], a[0], "
         "d[0]))\n"
         "c, _ = vi(tuple(torch.from_numpy(x) for x in c0), xs, *m)\n"
         "assert c[0].shape == (3, 4) and c[4].shape == (15, 15)\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] == 'jax')\n"
-        "assert 'jax' not in sys.modules, bad\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'plvio_tpu'))\n"
+        "assert not bad, bad\n"
         "print('no jax')\n")
     env = {k: v for k, v in os.environ.items()
            if k not in ("PLVIO_MATMUL_PRECISION", "PYTHONSTARTUP")}

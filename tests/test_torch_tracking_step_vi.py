@@ -40,7 +40,7 @@ H, W, NF, CP, CL, NL, NFR = 240, 376, 300, 256, 32, 64, 4
 def _inputs(n_frames, height, width, cap_pts, cap_lns, n_features):
     (frames, _, pxyz, pdesc, pvalid, lep, ldesc, lvalid,
      traj) = build_inputs(n_frames, cap_pts, cap_lns, height, width,
-                          n_features=n_features)
+                          n_features=n_features, device="cpu")
     gyro, acc, dts, carry0 = build_imu_windows(traj, n_frames)
     jmap = [jnp.asarray(a) for a in (pxyz, pdesc, pvalid, lep, ldesc,
                                      lvalid)]
@@ -61,7 +61,8 @@ def _run(inputs, n_frames, gravity=9.81):
     frames, (gyro, acc, dts), carry0, jmap, tmap, _ = inputs
     fj = jax.jit(G._tracking_step_vi_fn(H, W, NF, CP, CL, NL,
                                         gravity=gravity))
-    step, _ = tracking_step_vi(H, W, NF, CP, NL, gravity=gravity)
+    step, _ = tracking_step_vi(H, W, NF, CP, NL, gravity=gravity,
+                               device="cpu")
     cj = tuple(jnp.asarray(a) for a in carry0)
     ct = tuple(torch.from_numpy(a.copy()) for a in carry0)
     out = []
