@@ -64,10 +64,11 @@ import numpy as np
 import torch
 
 from plvio_tpu_torch import cuda
-from plvio_tpu_torch.entry import (K_EUROC, MAPPING_TYPICAL, MAPPING_WORST,
-                                   mapping_step, point_projection_match,
-                                   project_points, tracking_step_pl,
-                                   tracking_step_vi)
+from plvio_tpu_torch.entry import (K_EUROC, LIBA_HALF, LIBA_WORST,
+                                   MAPPING_TYPICAL, MAPPING_WORST, imu_init,
+                                   inertial_ba_step, mapping_step,
+                                   point_projection_match, project_points,
+                                   tracking_step_pl, tracking_step_vi)
 from plvio_tpu_torch.inputs import (build_imu_windows, build_inputs,
                                     perturb_window)
 from plvio_tpu_torch.models import kernels as KN
@@ -94,6 +95,10 @@ KERNELS = {
     "triangulate": (KN.TRIANGULATE, "plvio_tpu/models/kernels.py:878"),
     "ba_linearize": (KN.BA_LINEARIZE, "plvio_tpu/solver/engine.py:355"),
     "schur_solve": (KN.SCHUR_SOLVE, "plvio_tpu/solver/engine.py:452"),
+    "inertial_chain": (KN.INERTIAL_CHAIN,
+                       "plvio_tpu/models/kernels.py:1279"),
+    "inertial_gs_lm": (KN.INERTIAL_GS_LM,
+                       "plvio_tpu/models/kernels.py:1137"),
 }
 PATH_PL = ("orb_fast_grid", "orb_describe", "hamming_match", "pose_irls",
            "line_detect", "line_refine_lbd")
@@ -101,6 +106,8 @@ PATH_VI = ("orb_fast_grid", "orb_describe", "hamming_match", "line_detect",
            "line_refine_lbd", "imu_preint", "vi_pose_lm")
 PATH_MAP = ("hamming_match", "rot_hist", "triangulate", "ba_linearize",
             "schur_solve")
+PATH_LIBA = ("ba_linearize", "inertial_chain", "schur_solve")
+PATH_INIT = ("inertial_gs_lm",)
 # bench.build_mapping_step's step (with the line inliers) on the CPU in
 # float32, at both sizes, from the true start and from
 # inputs.perturb_window's start: triangulated pairs, inlier observations,
@@ -117,6 +124,50 @@ REF_MAP = {
                 "perturbed_max_centre_m": 0.010204830494980062}}
 MAP_POSE_TOL = 1e-4       # kernel against plain path, a KF pose entry
 MAP_RES_TOL_PX = 0.1      # ... a reprojection residual: ~2x MAP_POSE_TOL x fx
+# make_local_inertial_ba (models/kernels.py:1206) on the CPU in float32 at
+# both buckets of `_liba_window` from the true and the perturbed start of
+# inputs.build_inertial_window: point and line inliers, the largest
+# body-position (m), velocity (m/s) and rotation (deg) errors and the
+# largest bias errors against the truth; printed by
+# `JAX_PLATFORMS=cpu PYTHONPATH=. python3 tests/test_torch_inertial_ba.py`
+REF_LIBA = {
+    "worst_true": {
+        "n_inliers": 8038, "n_inliers_l": 496,
+        "max_pos_m": 0.0026293746809380823,
+        "max_vel_mps": 0.0034532484439772815,
+        "max_rot_deg": 0.029816365572999267,
+        "max_bg": 5.568144842982292e-07, "max_ba": 0.0008910135366022587},
+    "worst_perturbed": {
+        "n_inliers": 8033, "n_inliers_l": 496,
+        "max_pos_m": 0.010273185909857693,
+        "max_vel_mps": 0.014899040434813316,
+        "max_rot_deg": 0.0477130791510268,
+        "max_bg": 8.939823601394892e-07, "max_ba": 0.005236792610958219},
+    "half_true": {
+        "n_inliers": 4009, "n_inliers_l": 506,
+        "max_pos_m": 0.0028285130220241307,
+        "max_vel_mps": 0.003691819746046111,
+        "max_rot_deg": 0.0339620684841832,
+        "max_bg": 7.136550266295671e-07, "max_ba": 0.0010594059713184834},
+    "half_perturbed": {
+        "n_inliers": 4008, "n_inliers_l": 505,
+        "max_pos_m": 0.009017411908361882,
+        "max_vel_mps": 0.013520111469521458,
+        "max_rot_deg": 0.051008917921994426,
+        "max_bg": 1.9972212612628937e-06, "max_ba": 0.005584200611338019}}
+# make_inertial_init and make_scale_refine (models/kernels.py:1137, 1092)
+# on the CPU in float32 on inputs.build_imu_init_inputs: scale, gravity
+# direction R_wg (0, 0, -1) and the initialization's gyro bias; printed by
+# `JAX_PLATFORMS=cpu PYTHONPATH=. python3 tests/test_torch_imu_init.py`
+REF_INIT = {"init_scale": 2.0023462772369385,
+            "init_gdir": [0.045517437160015106, 0.4215737581253052,
+                          -0.9056510329246521],
+            "init_bg": [0.0003484622575342655, -0.0003937759029213339,
+                        0.001889435457997024],
+            "refine_scale": 0.9717907905578613,
+            "refine_gdir": [-0.006310852710157633, 0.006210932042449713,
+                            -0.9999608397483826]}
+GRAVITY = 9.81
 HBM_BPS = 3.35e12         # H100 SXM device memory, bytes/s
 F32_OPS = 67e12           # H100 SXM float32 outside the tensor cores
 # __graft_entry__._tracking_step_vi_fn on the CPU (float32), fed
@@ -962,6 +1013,251 @@ def check_map_kernels(report):
         gram_work=work(nbytes(t["gm"], t["ff"]), 2 * S * S * C))
 
 
+def _cast(v, dt):
+    if isinstance(v, dict):
+        return {k: _cast(x, dt) for k, x in v.items()}
+    return v.to(dt) if torch.is_tensor(v) and v.is_floating_point() else v
+
+
+def liba_problem(A, args, terms=None):
+    """The plain engine's inertial window problem at the window's masks
+    (only the named terms, if given) and its states and free masks."""
+    dt = args[0].dtype
+    prob = KN._liba_problem(
+        K_EUROC, A["Rcb"].to(dt), A["tcb"].to(dt), GRAVITY,
+        A["kf_pose_wb"].shape[0], A["pt_xyz"].shape[0], A["ln_ep6"].shape[0],
+        (args[8].long(), args[9].long(), args[10], args[12]), args[11],
+        (args[20].long(), args[21].long(), args[22]), args[23],
+        (args[13], args[14], args[15], args[16], args[17]))
+    if terms is not None:
+        prob.terms = [t for t in prob.terms if t.name in terms]
+    st = {"pose": args[0], "vel": args[1], "bg": args[2], "ba": args[3],
+          "pt": args[6], "ln": args[18]}
+    free = ({"pose": args[4], "vel": args[4], "bg": args[5],
+             "ba": args[5]}, {"pt": args[7], "ln": args[19]})
+    return prob, st, free
+
+
+def check_inertial_kernels(report):
+    """The kernels of slice 4 against their plain versions: ba_linearize's
+    body-frame mode, inertial_chain and schur_solve's 15-DoF step on one
+    LM step of the perturbed worst-case inertial window, and
+    inertial_gs_lm (initialization and refinement) at the cap of 32 KF."""
+    dev = torch.device("cuda")
+    _, A = inertial_ba_step(**LIBA_WORST, perturbed=True, device=dev)
+    args = [A[k] for k in KN.LIBA_KEYS]
+    n_kf, n_pt, n_ln = 16, LIBA_WORST["n_pt"], LIBA_WORST["n_ln"]
+    n_obs, n_lobs = LIBA_WORST["n_obs"], LIBA_WORST["n_lobs"]
+    w = KN.inertial_work(K_EUROC, A["Rcb"], A["tcb"], GRAVITY, *args)
+    w.chain(KN.CHAIN_COST_STATE)
+    w.linearize(KN.BA_MODE_INIT)
+    w.linearize(KN.BA_MODE_LINEARIZE)
+    w.chain(KN.CHAIN_LINEARIZE)
+    t = w.t
+    # -- ba_linearize (body frame): the visual terms alone
+    vis, st, free = liba_problem(A, args, ("reproj", "line"))
+    _, Hv, gv, lm_sys, cost_v, _ = vis.build_normal_equations(st)
+    S6 = 6 * n_kf
+    Hk = torch.block_diag(*unpack_sym(t["hcc"][:, :21], 6).unbind(0))
+    errs = {"pose blocks": rel_err(Hk, Hv[:S6, :S6]),
+            "g": rel_err(t["hcc"][:, 21:].reshape(-1), gv[:S6]),
+            "Hpp points": rel_err(unpack_sym(t["hpt"][:, :6], 3),
+                                  lm_sys["pt"][0]),
+            "gp points": rel_err(t["hpt"][:, 6:], lm_sys["pt"][1]),
+            "Hpp lines": rel_err(unpack_sym(t["hln"][:, :21], 6),
+                                 lm_sys["ln"][0]),
+            "gp lines": rel_err(t["hln"][:, 21:], lm_sys["ln"][1])}
+    for fam, Wo, okf, olm in (("points", t["p_w"], A["obs_kf"], A["obs_pt"]),
+                              ("lines", t["l_w"], A["lobs_kf"],
+                               A["lobs_ln"])):
+        Bp = lm_sys["pt" if fam == "points" else "ln"][2][:S6]
+        D = Wo.shape[1] // 6
+        P = Bp.shape[1] // D
+        Bk = torch.zeros(n_kf, P, 6, D, dtype=torch.float64, device=dev)
+        Bk.index_put_((okf.long(), olm.long()), Wo.double().view(-1, 6, D),
+                      accumulate=True)
+        errs[f"B {fam}"] = rel_err(Bk.permute(0, 2, 1, 3).reshape(Bp.shape),
+                                   Bp.double())
+    print("  ba_linearize body frame, relative errors: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+    blocks = {k: v for k, v in errs.items() if not k.startswith("B ")}
+    worst = max(blocks, key=blocks.get)
+    check(blocks[worst] <= 1e-5, "ba_linearize body frame: pose blocks, g, "
+          f"Hpp and gp within 1e-5 relative of the plain engine (worst "
+          f"{worst} {blocks[worst]:.2e})")
+    # the couplings are per-observation products of two Jacobians formed
+    # in another order (1.2e-5 for lines in both frames), as phase 3
+    check(max(errs["B points"], errs["B lines"]) <= 1e-4,
+          "ba_linearize body frame: the couplings B within 1e-4 relative of "
+          "the plain engine")
+    worst = max(errs, key=errs.get)
+    # -- inertial_chain: the chain terms alone
+    chn, _, _ = liba_problem(A, args, ("inertial", "bg_rw", "ba_rw"))
+    _, Hc, gc, _, cost_c, _ = chn.build_normal_equations(st)
+    Hl, gl = KN.inertial_dense_system(t, n_kf)
+    Hl[:S6, :S6] -= Hk.double()
+    gl[:S6] -= t["hcc"][:, 21:].double().reshape(-1)
+    full, _, _ = liba_problem(A, args)
+    _, H, g, lm_full, cost, _ = full.build_normal_equations(st)
+    cerr = {"H": rel_err(Hl, Hc.double()), "g": rel_err(gl, gc.double()),
+            "chain cost": abs(float(t["ccost"][0]) - float(cost_c))
+            / float(cost_c),
+            "cost": abs(float(t["ctrl"][1]) - float(cost)) / float(cost)}
+    print("  inertial_chain relative errors: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in cerr.items()))
+    check(max(cerr.values()) <= 1e-5, "inertial_chain: H and g blocks of "
+          "the inertial and bias random-walk edges, the chain's cost and the "
+          "step's cost within 1e-5 relative of the plain engine's "
+          "build_normal_equations")
+    lin_in = nbytes(*[A[k] for k in KN.LIBA_KEYS if k != "pre_const"]) \
+        + nbytes(*A["pre_const"].values())
+    lin_out = nbytes(t["hcc"], t["hpt"], t["hln"], t["p_w"], t["l_w"])
+    report["ba_linearize"]["inertial"] = dict(
+        **work(lin_in + lin_out, 450 * n_obs + 1200 * n_lobs),
+        max_abs_err=errs[worst],
+        ms=cuda_ms(lambda: w.linearize(KN.BA_MODE_LINEARIZE)),
+        plain_ms=cuda_ms(lambda: vis.build_normal_equations(st), reps=3))
+    # per link: residual, Jacobian and the 9x9 Cholesky (~2k), the
+    # whitening of 25 columns (~2.3k), 495 block entries (~9k)
+    n_e = n_kf - 1
+    ch_in = nbytes(t["poses"], t["kfx"], t["pre"], t["imu_info"],
+                   t["edge_valid"], t["rw_g"], t["rw_a"])
+    report["inertial_chain"] = dict(
+        **work(ch_in + nbytes(t["link"], t["link_cost"], t["ccost"]),
+               13500 * n_e),
+        max_abs_err=max(cerr.values()),
+        ms=cuda_ms(lambda: w.chain(KN.CHAIN_LINEARIZE)),
+        plain_ms=cuda_ms(lambda: chn.build_normal_equations(st), reps=5))
+    # -- schur_solve, 15-DoF: one step against the plain step and float64
+    KN.SCHUR_SOLVE.launch(*w.args, cuda.stream())
+    lam = torch.tensor(1e-4, device=dev)
+    new = full.step_from_system(*full.build_normal_equations(st)[:4], st,
+                                lam, *free)
+    A64 = {k: A[k].cpu() for k in ("kf_pose_wb", "pt_xyz", "ln_ep6", "Rcb",
+                                   "tcb")}
+    args64 = [_cast(a.cpu() if torch.is_tensor(a) else
+                    {k: x.cpu() for k, x in a.items()}, torch.float64)
+              for a in args]
+    p64, st64, free64 = liba_problem(A64, args64)
+    ref, _, _ = p64.solve_step(st64, torch.tensor(1e-4, dtype=torch.float64),
+                               *free64)
+    args32 = [_cast(a, torch.float32) for a in args64]
+    p32, st32, free32 = liba_problem(A64, args32)
+    cpu32, _, _ = p32.solve_step(st32, torch.tensor(1e-4), *free32)
+    kfx = t["ckfx"]
+    cand = {"pose": t["cposes"].view(n_kf, 3, 4), "vel": kfx[:, :3],
+            "bg": kfx[:, 3:6], "ba": kfx[:, 6:]}
+    gaps = {}
+    for name in ("pose", "vel", "bg", "ba"):
+        gk = float((cand[name].double().cpu() - ref[name]).abs().max())
+        gp = float((new[name].double().cpu() - ref[name]).abs().max())
+        gc = float((cpu32[name].double() - ref[name]).abs().max())
+        kp = float((cand[name] - new[name]).abs().max())
+        gaps[name] = (gk, gp, gc, kp)
+    print("  schur_solve 15-DoF step, from float64 (kernel, plain on the "
+          "card, plain on the CPU) and kernel - plain: " + ", ".join(
+              f"{k} {a:.2e} / {b:.2e} / {c:.2e} / {d:.2e}"
+              for k, (a, b, c, d) in gaps.items()))
+    # the card's plain step sums by atomics, so its float32 CG lands
+    # 1.5e-6 to 2.5e-4 from the kernel's from run to run; the CPU's is
+    # fixed
+    check(all(gaps[k][0] <= 2 * max(gaps[k][1], gaps[k][2]) + 1e-6
+              for k in ("pose", "vel")),
+          "schur_solve 15-DoF: candidate poses and velocities within 2x the "
+          "farther plain float32 step's (card, CPU) distance to the engine "
+          "in float64")
+    eps = 2.0 ** -24
+    for fam, cnd, X, hp, W, obs_lm, obs_kf, lfree, key in (
+            ("points", t["cpts"], A["pt_xyz"], t["hpt"], t["p_w"],
+             A["obs_pt"], A["obs_kf"], A["pt_free"], "pt"),
+            ("lines", t["clns"], A["ln_ep6"], t["hln"], t["l_w"],
+             A["lobs_ln"], A["lobs_kf"], A["ln_free"], "ln")):
+        rel, kept = well_gap(cnd, new[key], lm_full[key][0])
+        rel = rel[kept > 0]              # padded slots have no direction
+        bargs = (hp, W, obs_lm.long(), obs_kf.long(), lfree,
+                 t["dx"][:S6], X, 1e-4)
+        r64, occ, cond = backsub_reference(*bargs)
+        r32 = backsub_reference(*bargs, dt=torch.float32)[0]
+        scale = eps * cond * (r64 - X.double()).norm(dim=1) + 1e-7
+
+        def ulps(c):
+            return float(((c.double() - r64).norm(dim=1) / scale)[occ].max())
+        u_k, u_32 = ulps(cnd), ulps(r32)
+        lim = max(32.0, 4 * u_32)
+        print(f"  schur_solve 15-DoF {fam}: {int((kept > 0).sum())} with "
+              f"well-conditioned directions, within {float(rel.max()):.2e} "
+              f"relative of the plain step along them; {int(occ.sum())} "
+              f"occupied, within {u_k:.2f} ulps x condition number of the "
+              f"float64 back-substitution (plain float32 formulas {u_32:.2f})")
+        check(int(occ.sum()) > 0 and u_k <= lim,
+              f"schur_solve 15-DoF: candidate {fam} within {lim:.1f} ulps x "
+              "condition number of a float64 back-substitution from the "
+              "kernel's own system, every occupied landmark")
+        # the plain step's pose step varies by up to 2.5e-4 (above), which
+        # moves the landmarks by up to 1.4e-3 relative along these
+        # directions; the ulps check above holds the back-substitution
+        check(int(kept.sum()) > 0 and float(rel.max()) <= 1e-2,
+              f"schur_solve 15-DoF: candidate {fam} within 1e-2 relative of "
+              "the plain step along Hpp's well-conditioned directions")
+    S = 15 * n_kf
+
+    def schur():
+        KN.SCHUR_SOLVE.launch(*w.args, cuda.stream())
+
+    def gram_ops(okf, olm, n_lm, D):
+        key = torch.unique(okf.long() * n_lm + olm.long())
+        m = torch.bincount(key % n_lm, minlength=n_lm).double()
+        return float((6 * m * (6 * m + 1) / 2 * D * 2).sum())
+    report["schur_solve"]["inertial"] = dict(
+        **work(nbytes(t["hcc"], t["hpt"], t["hln"], t["p_w"], t["l_w"],
+                      t["link"], t["poses"], t["kfx"], t["pts"], t["lns"])
+               + nbytes(t["cposes"], t["ckfx"], t["cpts"], t["clns"],
+                        t["dx"]),
+               300 * n_pt + 1500 * n_ln + 250 * n_obs + 1000 * n_lobs
+               + gram_ops(A["obs_kf"], A["obs_pt"], n_pt, 3)
+               + gram_ops(A["lobs_kf"], A["lobs_ln"], n_ln, 6)
+               + w_cg(S) * 2 * S * S),
+        max_abs_err=gaps["pose"][3], ms=cuda_ms(schur),
+        plain_ms=cuda_ms(lambda: full.step_from_system(
+            *full.build_normal_equations(st)[:4], st, lam, *free), reps=3))
+    # -- inertial_gs_lm: initialization and refinement at the cap
+    m, B = imu_init(device=dev)
+    mp, _ = imu_init(device=dev, plain=True)
+    mc, Bc = imu_init(device="cpu")
+    B64 = _cast(Bc, torch.float64)
+    worst_gap = 0.0
+    for name, run in (("init", lambda mm, bb: mm(bb)),
+                      ("refine", lambda mm, bb: mm.refine(bb))):
+        ok_, op_, ref = run(m, B), run(mp, B), run(mc, B64)
+        names = ("Rwg", "scale", "bg", "ba", "vel")[:len(ref)]
+        gk = {n: float((a.double().cpu() - r).abs().max())
+              for n, a, r in zip(names, ok_, ref)}
+        gp = {n: float((a.double().cpu() - r).abs().max())
+              for n, a, r in zip(names, op_, ref)}
+        kp = max(float((a - b).abs().max()) for a, b in zip(ok_, op_))
+        worst_gap = max(worst_gap, kp)
+        print(f"  inertial_gs_lm {name}: scale kernel {float(ok_[1]):.7f}, "
+              f"plain {float(op_[1]):.7f}, float64 {float(ref[1]):.7f}; "
+              f"from float64 kernel {gk}, plain {gp}")
+        floor = {"Rwg": 1e-5, "scale": 1e-4, "bg": 1e-6, "ba": 1e-7,
+                 "vel": 1e-5}
+        check(all(gk[n] <= 2 * gp[n] + floor[n] for n in names),
+              f"inertial_gs_lm {name}: within 2x the plain float32 run's "
+              f"distance to the engine in float64 (+ {floor})")
+    n = 32
+    it = 20
+    report["inertial_gs_lm"] = dict(
+        # per iteration: 31 links of residual, Jacobian, whitening and
+        # block (~7k), the 105x105 assembly, Cholesky (S^3 / 3) and two
+        # triangular solves, and the candidate's cost (~1.5k a link)
+        **work(nbytes(B["Rwg0"], B["vel0"], B["pose_R"], B["pose_p"],
+                      B["imu_info"], B["edge_valid"], *B["pre_const"].values())
+               + (16 + 3 * n) * 4,
+               it * (31 * 8500 + (9 + 3 * n) ** 3 / 3 + 3 * (9 + 3 * n) ** 2)),
+        max_abs_err=worst_gap, ms=cuda_ms(lambda: m(B)),
+        plain_ms=cuda_ms(lambda: mp(B), reps=3, warmup=1))
+
+
 def w_cg(S):
     return min(max(S // 2, 16), 128)
 
@@ -1066,6 +1362,139 @@ def run_slice3(dev, pl_step, imgs, pose0, map_args, smi):
     return launches
 
 
+def liba_errors(A, out):
+    """Largest body-position (m), velocity (m/s), rotation (deg) and bias
+    errors of a window solve against the truth."""
+    pose = out[0].double().cpu()
+    gt = A["gt_pose_wb"].double().cpu()
+    dR = gt[..., :3].transpose(-1, -2) @ pose[..., :3]
+    w = torch.stack([dR[:, 2, 1] - dR[:, 1, 2], dR[:, 0, 2] - dR[:, 2, 0],
+                     dR[:, 1, 0] - dR[:, 0, 1]], -1) / 2
+    return dict(
+        max_pos_m=float((pose[..., 3] - gt[..., 3]).norm(dim=1).max()),
+        max_vel_mps=float((out[1].double().cpu() - A["gt_vel"].double().cpu())
+                          .norm(dim=1).max()),
+        max_rot_deg=math.degrees(float(w.norm(dim=1).clamp_max(1.0)
+                                       .asin().max())),
+        max_bg=float((out[2].cpu() - A["gt_bg"].cpu()).abs().max()),
+        max_ba=float((out[3].cpu() - A["gt_ba"].cpu()).abs().max()))
+
+
+def gdir_deg(R, g):
+    a = (R.double().cpu() @ torch.tensor([0.0, 0.0, -1.0],
+                                         dtype=torch.float64))
+    b = torch.as_tensor(g, dtype=torch.float64)
+    return math.degrees(math.atan2(float(torch.linalg.cross(a, b).norm()),
+                                   float(a @ b)))
+
+
+def run_slice4(dev, smi):
+    """Phase 8: the inertial window solve at both buckets and both starts,
+    the IMU initialization and the scale refinement.  Returns the
+    launches."""
+    print("[8] slice 4: inertial_ba_step at both buckets, true and perturbed "
+          "start; imu_init and its refinement")
+    runs = {}
+    for name, sz in (("worst", LIBA_WORST), ("half", LIBA_HALF)):
+        for start in ("true", "perturbed"):
+            pert = start == "perturbed"
+            step, A = inertial_ba_step(**sz, perturbed=pert, device=dev)
+            plain, _ = inertial_ba_step(**sz, perturbed=pert, device=dev,
+                                        plain=True)
+            runs[f"{name}_{start}"] = (step, plain, A)
+    init, B = imu_init(device=dev)
+    init_p, _ = imu_init(device=dev, plain=True)
+    reset_counts()
+    outs = {}
+    with torch.no_grad():
+        for key, (step, _, A) in runs.items():
+            its = []
+            outs[key] = (step(A, stats=its), its)
+        o_init, o_ref = init(B), init.refine(B)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    print(f"  launches: {launches}")
+    check(all(launches[k] > 0 for k in PATH_LIBA + PATH_INIT),
+          f"every kernel of slice 4 launched "
+          f"({', '.join(PATH_LIBA + PATH_INIT)})")
+    for key, (step, plain, A) in runs.items():
+        ref = REF_LIBA[key]
+        ok_, it_k = outs[key]
+        with torch.no_grad():
+            it_p = []
+            op_ = plain(A, stats=it_p)
+        ek, ep = liba_errors(A, ok_), liba_errors(A, op_)
+        e0 = liba_errors(A, [A[k] for k in ("kf_pose_wb", "kf_vel", "kf_bg",
+                                             "kf_ba")])
+        n = (int(ok_.inlier.sum()), int(ok_.inlier_l.sum()))
+        gaps = [float((a - b).abs().max()) for a, b in zip(ok_[:4], op_[:4])]
+        print(f"  {key}: inliers points / lines kernel {n}, plain "
+              f"{(int(op_.inlier.sum()), int(op_.inlier_l.sum()))} "
+              f"(reference {ref['n_inliers']}, {ref['n_inliers_l']}); LM "
+              f"iterations per round kernel {[int(x) for x in it_k]}, plain "
+              f"{it_p}; start {e0['max_pos_m'] * 1e3:.3f} mm / "
+              f"{e0['max_vel_mps']:.4f} m/s; errors kernel {ek}; plain {ep}; "
+              f"reference {ref}; kernel - plain (pose, vel, bg, ba) {gaps}")
+        check(all(bool(torch.isfinite(x).all()) for x in ok_ + op_)
+              and ok_.pose_wb.shape == (16, 3, 4),
+              f"{key}: states and landmarks finite on both paths, poses "
+              "[16,3,4]")
+        check(abs(n[0] - ref["n_inliers"]) <= 0.01 * ref["n_inliers"]
+              and abs(n[1] - ref["n_inliers_l"]) <= 0.01 * ref["n_inliers_l"],
+              f"{key}: point and line inliers within 1% of REF_LIBA")
+        lim_p = max(2 * ref["max_pos_m"], 0.010)
+        lim_v = max(2 * ref["max_vel_mps"], 0.02)
+        check(ek["max_pos_m"] <= lim_p and ek["max_vel_mps"] <= lim_v,
+              f"{key}: largest position error {ek['max_pos_m'] * 1e3:.3f} mm"
+              f" <= {lim_p * 1e3:.3f} mm, velocity {ek['max_vel_mps']:.4f} <= "
+              f"{lim_v:.4f} m/s")
+        if key.endswith("perturbed"):
+            rej = [int((~o.inlier).sum()) + int((~o.inlier_l).sum())
+                   for o in (ok_, op_)]
+            check(min(rej) > 0 and torch.equal(ok_.inlier, op_.inlier)
+                  and torch.equal(ok_.inlier_l, op_.inlier_l),
+                  f"{key}: the chi2 re-gate rejects {rej[0]} / {rej[1]} "
+                  "observations on the kernel / plain path, point and line "
+                  "masks equal")
+    with torch.no_grad():
+        p_init, p_ref = init_p(B), init_p.refine(B)
+    for name, o, po, sc, gd in (
+            ("init", o_init, p_init, REF_INIT["init_scale"],
+             REF_INIT["init_gdir"]),
+            ("refine", o_ref, p_ref, REF_INIT["refine_scale"],
+             REF_INIT["refine_gdir"])):
+        dg = gdir_deg(o[0], gd)
+        print(f"  imu {name}: scale kernel {float(o[1]):.7f}, plain "
+              f"{float(po[1]):.7f}, reference {sc:.7f}; gravity direction "
+              f"{dg:.2e} deg from the reference's; truth: scale "
+              f"{B['gt_scale'] if name == 'init' else B['gt_ref_scale']:.7f}")
+        check(abs(float(o[1]) - sc) <= 0.01 * sc and dg <= 0.1,
+              f"imu {name}: scale within 1% and gravity direction within 0.1 "
+              "deg of REF_INIT")
+    bg_gap = float((o_init[2].cpu() - torch.tensor(REF_INIT["init_bg"]))
+                   .abs().max())
+    check(bg_gap <= 1e-4, f"imu init: gyro bias within {bg_gap:.2e} of "
+          "REF_INIT (<= 1e-4)")
+    for name in ("worst", "half"):
+        step, plain, A = runs[f"{name}_perturbed"]
+
+        def go(stp):
+            def f():
+                with torch.no_grad():
+                    stp(A)
+            return f
+        mk = cuda_ms(go(step), reps=10, warmup=2)
+        mp = cuda_ms(go(plain), reps=2, warmup=1)
+        print(f"  inertial_ba_step {name} (perturbed start): kernel path "
+              f"{mk:.3f} ms/step, plain path {mp:.3f} ms/step, on {smi}")
+    for name, fk, fp in (("init", lambda: init(B), lambda: init_p(B)),
+                         ("refine", lambda: init.refine(B),
+                          lambda: init_p.refine(B))):
+        print(f"  imu_init {name}: kernel path {cuda_ms(fk):.3f} ms, plain "
+              f"path {cuda_ms(fp, reps=3, warmup=1):.3f} ms, on {smi}")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1115,6 +1544,7 @@ def main():
     check_line_kernels(imgs[1], report)
     check_vi_kernels(vi, imgs[1], carry0, (imgs[1], *windows[0]), st, report)
     check_map_kernels(report)
+    check_inertial_kernels(report)
 
     print(f"[4] slice 1: {N_FRAMES} frames through tracking_step_pl, pose "
           "carried")
@@ -1236,6 +1666,7 @@ def main():
           f"{vp:.3f} ms/frame, on {smi}")
 
     launches_map = run_slice3(dev, step, imgs, pose0, map_args, smi)
+    launches_liba = run_slice4(dev, smi)
 
     rows = []
     for name, (k, replaces) in KERNELS.items():
@@ -1246,10 +1677,16 @@ def main():
         rows.append(dict(name=name, route="cuda", source=k.source,
                          replaces=replaces,
                          launches=launches_pl[name] + launches_vi[name]
-                         + launches_map[name],
+                         + launches_map[name] + launches_liba[name],
                          max_abs_err=rep["max_abs_err"], ms=rep["ms"],
                          plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"],
                          bound_by=rep["bound_by"], library_ms=None))
+    for name in ("ba_linearize", "schur_solve"):
+        rep = report[name]["inertial"]
+        print(f"  {name}, inertial window (15-DoF): {rep['ms']:.4f} ms, plain "
+              f"{rep['plain_ms']:.4f} ms, bound {rep['bound_ms']:.6f} ms "
+              f"({rep['bound_by']}: {rep['bytes']} B, {rep['ops']} ops), on "
+              f"{smi}")
     hm, ss = report["hamming_match"], report["schur_solve"]
     print(f"  hamming_match epipolar mode (1024 x 1024): {hm['epipolar_ms']:.4f}"
           f" ms, plain {hm['epipolar_plain_ms']:.4f} ms, on {smi}")

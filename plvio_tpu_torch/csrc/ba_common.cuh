@@ -1,13 +1,26 @@
-// The windowed point+line BA's device state, shared by csrc/ba_linearize.cu
-// and csrc/schur_solve.cu (each built on its own; both take the same
-// pointer table from plvio_tpu_torch/models/kernels.py:_BAWork).
+// The window BAs' device state, shared by csrc/ba_linearize.cu,
+// csrc/schur_solve.cu and csrc/inertial_chain.cu (each built on its own;
+// all take the same pointer table from
+// plvio_tpu_torch/models/kernels.py:_BAWork).
 //
-// Layout: keyframe poses T_cw [n_kf,12] (row-major [3,4]), points
-// [n_pt,3], lines [n_ln,6] (two endpoints); the dense system has S = 6
-// n_kf rows (left se3 perturbation (rho, phi) per keyframe).  Observation
-// o < n_obs is point observation o, o >= n_obs is line observation
-// o - n_obs ("combined" index).  Packed symmetric blocks store the upper
-// triangle row by row (`ut`).
+// Two configurations.  The point+line BA (body = 0): keyframe poses T_cw
+// [n_kf,12] (row-major [3,4]), the dense system S = 6 n_kf rows (left se3
+// perturbation (rho, phi) per keyframe).  The inertial window BA (body =
+// 1): body poses pose_wb = (R_wb | p_wb) [n_kf,12] and kfx = (vel, bg, ba)
+// [n_kf,9]; the dense system has S = 15 n_kf rows laid out by family as
+// the reference's add_dense order: pose [0, 6n) with (dp, dtheta) per KF
+// (R <- R Exp(dtheta), p <- p + dp), vel [6n, 9n), bg [9n, 12n), ba [12n,
+// 15n).  Landmarks couple to pose rows only, so the Schur fill-in has 6
+// n_kf rows in both (`Sp`).  Points [n_pt,3], lines [n_ln,6] (two
+// endpoints).  Observation o < n_obs is point observation o, o >= n_obs
+// is line observation o - n_obs ("combined" index).  Packed symmetric
+// blocks store the upper triangle row by row (`ut`).
+//
+// The inertial chain (body = 1): link i joins KF i and i+1; its local
+// 30-vector is the two 15-DoF states (pose 6, vel 3, bg 3, ba 3);
+// `link` [n_kf-1, 495] holds its packed 30x30 H (465) and g (30),
+// `link_cost` [n_kf-1, 3] its three costs (inertial, bg random walk, ba
+// random walk), and `ccost` [1] the chain's share of the LM cost.
 //
 // ctrl (float[8]) carries the LM loop on the device: [0] lambda, [1] cost
 // of the current state, [2] cost of the last candidate, [3] done (early
@@ -30,17 +43,22 @@ enum Ptr {
   kKfOrder, kKfStart, kPtOrder, kPtStart, kLnOrder, kLnStart,
   kObsC, kPL, kPW, kLL, kLW, kChi2, kWChi2,
   kHcc, kHpt, kHln, kFpt, kFln, kOccPt, kOccLn,
-  kGm, kGpart, kRr, kFf, kDx, kCtrl, kNumPtrs
+  kGm, kGpart, kRr, kFf, kDx, kCtrl,
+  kKfX, kCKfX, kKfFreeBias, kPre, kImuInfo, kEdgeValid, kRwG, kRwA, kLink,
+  kLinkCost, kCCost, kNumPtrs
 };
-enum Int { kNKf, kNPt, kNObs, kNLn, kNLobs, kCgIters, kGramSplit, kNumInts };
-enum Flt { kFx, kFy, kCx, kCy, kDelta, kChi2Th, kLam0, kEarlyTol,
-           kNumFlts };
+enum Int { kNKf, kNPt, kNObs, kNLn, kNLobs, kCgIters, kGramSplit, kBody,
+           kNumInts };
+enum Flt { kFx, kFy, kCx, kCy, kDelta, kChi2Th, kLam0, kEarlyTol, kGravity,
+           kRcb, kTcb = kRcb + 9, kNumFlts = kTcb + 3 };
+constexpr int kLinkFloats = 465 + 30;
 enum Ctrl { cLam, cCost, cNewCost, cDone, cIters, cAccept, cAccepted };
 
 struct BA {
   void* p[kNumPtrs];
-  int n_kf, n_pt, n_obs, n_ln, n_lobs, cg_iters, gram_split;
-  float fx, fy, cx, cy, delta, chi2_th, lam0, early_tol;
+  int n_kf, n_pt, n_obs, n_ln, n_lobs, cg_iters, gram_split, body;
+  float fx, fy, cx, cy, delta, chi2_th, lam0, early_tol, gravity;
+  float Rcb[9], tcb[3];
 
   template <typename T>
   __device__ __forceinline__ T* at(Ptr i) const {
@@ -49,7 +67,10 @@ struct BA {
   __device__ __forceinline__ bool done() const {
     return at<float>(kCtrl)[cDone] != 0.f;
   }
-  __host__ __device__ int S() const { return 6 * n_kf; }
+  // rows of the landmark coupling and the fill-in (keyframe poses)
+  __host__ __device__ int Sp() const { return 6 * n_kf; }
+  // rows of the dense system
+  __host__ __device__ int Sd() const { return (body ? 15 : 6) * n_kf; }
   __host__ __device__ int C() const { return 3 * n_pt + 6 * n_ln; }
 };
 
@@ -63,6 +84,7 @@ inline BA make_ba(void* const* ptrs, const int* ints, const float* flts) {
   b.n_lobs = ints[kNLobs];
   b.cg_iters = ints[kCgIters];
   b.gram_split = ints[kGramSplit];
+  b.body = ints[kBody];
   b.fx = flts[kFx];
   b.fy = flts[kFy];
   b.cx = flts[kCx];
@@ -71,6 +93,9 @@ inline BA make_ba(void* const* ptrs, const int* ints, const float* flts) {
   b.chi2_th = flts[kChi2Th];
   b.lam0 = flts[kLam0];
   b.early_tol = flts[kEarlyTol];
+  b.gravity = flts[kGravity];
+  for (int i = 0; i < 9; ++i) b.Rcb[i] = flts[kRcb + i];
+  for (int i = 0; i < 3; ++i) b.tcb[i] = flts[kTcb + i];
   return b;
 }
 

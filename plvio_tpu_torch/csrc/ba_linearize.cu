@@ -1,9 +1,14 @@
-// ba_linearize — linearization and cost of the windowed point+line BA.
+// ba_linearize — linearization and cost of the window BAs' visual terms.
 //
 // Replaces, for `make_local_ba_pl` (plvio_tpu/models/kernels.py:641) and
 // its two terms, plvio_tpu/solver/engine.py `Problem.build_normal_equations`
 // (:355-450) and `_residuals_only`/`cost` (:575-621), with the residuals
-// `make_point_reproj` and `make_line_reproj` (solver/residuals.py:107,155).
+// `make_point_reproj` and `make_line_reproj` (solver/residuals.py:107,155);
+// and in its body-frame mode (body = 1), for the inertial window BA
+// `make_local_inertial_ba` (models/kernels.py:1206), the same for its
+// visual terms `make_point_reproj_body_ba` and `make_line_reproj_body_ba`
+// (solver/residuals.py:290,226), projected through the extrinsic (Rcb,
+// tcb); the lines there have information 1 (the wrapper passes ones).
 // The JAX version linearizes every observation by vmapped jacfwd,
 // assembles the keyframe blocks by one-hot matmuls and scatters the
 // landmark blocks and the dense coupling B [S, P*dof].
@@ -18,7 +23,10 @@
 // Design: the Jacobians are analytic (left se3 perturbation of T_cw: d pc /
 // d rho = I, d pc / d phi = -hat(pc); d pc / d X = R; the projection's depth
 // derivative is 0 where the depth is clamped at 1e-4), checked against
-// autodiff in float64 (tests/test_torch_local_ba.py).  One thread per
+// autodiff in float64 (tests/test_torch_local_ba.py).  Body frame: with Xb
+// = R^T (X - p), pc = Rcb Xb + tcb and JR = (d r / d pc) Rcb, d r / d dp =
+// -JR R^T, d r / d dtheta = JR hat(Xb), d r / d X = JR R^T
+// (tests/test_torch_inertial_ba.py).  One thread per
 // observation whitens by sqrt(info), weighs by Huber w = min(1, delta /
 // sqrt(chi2)) times the mask, and writes its blocks: w Jc^T Jc, -w Jc^T r,
 // w Jl^T Jl, -w Jl^T r and the coupling w Jc^T Jl (kept per observation,
@@ -29,7 +37,10 @@
 // then lines, reduced in a fixed order in one block; that block also takes
 // the LM decision (accept if the cost fell, lambda halved or quadrupled
 // within [1e-8, 1e4], early exit once the attempted step moved the cost by
-// less than early_tol relative), so the loop needs no host sync.
+// less than early_tol relative), so the loop needs no host sync.  In the
+// body mode the cost adds the chain's share (`ccost`, written just before by
+// csrc/inertial_chain.cu at the same state) and an accepted step also
+// copies the keyframes' (vel, bg, ba).
 #include "ba_common.cuh"
 
 namespace {
@@ -65,6 +76,48 @@ __device__ __forceinline__ void project(const BA& b, const float* P,
     q.J[1][1] = b.fy * iz;
     q.J[1][2] = -b.fy * q.pc[1] * iz * iz * dz;
   }
+}
+
+// body frame: Xb = R^T (X - p), pc = Rcb Xb + tcb
+__device__ __forceinline__ void project_body(const BA& b, const float* P,
+                                             const float* X, bool jac,
+                                             Proj& q, float Xb[3]) {
+  const float d[3] = {X[0] - P[3], X[1] - P[7], X[2] - P[11]};
+  for (int c = 0; c < 3; ++c)
+    Xb[c] = (P[c] * d[0] + P[4 + c] * d[1]) + P[8 + c] * d[2];
+  for (int r = 0; r < 3; ++r)
+    q.pc[r] = ((b.Rcb[3 * r] * Xb[0] + b.Rcb[3 * r + 1] * Xb[1])
+               + b.Rcb[3 * r + 2] * Xb[2]) + b.tcb[r];
+  const float z = fmaxf(q.pc[2], 1e-4f);
+  q.u = b.fx * q.pc[0] / z + b.cx;
+  q.v = b.fy * q.pc[1] / z + b.cy;
+  if (jac) {
+    const float iz = 1.f / z;
+    const float dz = q.pc[2] > 1e-4f ? 1.f : 0.f;
+    q.J[0][0] = b.fx * iz;
+    q.J[0][1] = 0.f;
+    q.J[0][2] = -b.fx * q.pc[0] * iz * iz * dz;
+    q.J[1][0] = 0.f;
+    q.J[1][1] = b.fy * iz;
+    q.J[1][2] = -b.fy * q.pc[1] * iz * iz * dz;
+  }
+}
+
+// body frame: row j (d r / d pc) -> d r / d (dp, dtheta) = [-JR R^T,
+// JR hat(Xb)] and d r / d X = JR R^T, with JR = j Rcb
+__device__ __forceinline__ void body_rows(const BA& b, const float j[3],
+                                          const float* P, const float Xb[3],
+                                          float out[6], float jx[3]) {
+  float JR[3];
+  for (int c = 0; c < 3; ++c)
+    JR[c] = (j[0] * b.Rcb[c] + j[1] * b.Rcb[3 + c]) + j[2] * b.Rcb[6 + c];
+  for (int c = 0; c < 3; ++c) {
+    jx[c] = (JR[0] * P[4 * c] + JR[1] * P[4 * c + 1]) + JR[2] * P[4 * c + 2];
+    out[c] = -jx[c];
+  }
+  out[3] = JR[1] * Xb[2] - JR[2] * Xb[1];
+  out[4] = JR[2] * Xb[0] - JR[0] * Xb[2];
+  out[5] = JR[0] * Xb[1] - JR[1] * Xb[0];
 }
 
 // row j (d r / d pc) -> d r / d (rho, phi) = [j, -j hat(pc)]
@@ -130,7 +183,11 @@ __global__ void obs_kernel(BA b, int mode) {
     const float* P = poses + b.at<int>(kObsKf)[o] * 12;
     const float* X = pts + b.at<int>(kObsPt)[o] * 3;
     Proj q;
-    project(b, P, X, jac, q);
+    float Xb[3];
+    if (b.body)
+      project_body(b, P, X, jac, q, Xb);
+    else
+      project(b, P, X, jac, q);
     const float* uv = b.at<float>(kObsUv) + o * 2;
     s = sqrtf(b.at<float>(kObsIs2)[o]);
     r[0] = (q.u - uv[0]) * s;
@@ -140,8 +197,12 @@ __global__ void obs_kernel(BA b, int mode) {
     if (jac) {
       float Jl[2][3];
       for (int d = 0; d < 2; ++d) {
-        pose_row(q.J[d], q.pc, Jc[d]);
-        point_row(q.J[d], P, Jl[d]);
+        if (b.body) {
+          body_rows(b, q.J[d], P, Xb, Jc[d], Jl[d]);
+        } else {
+          pose_row(q.J[d], q.pc, Jc[d]);
+          point_row(q.J[d], P, Jl[d]);
+        }
         for (int i = 0; i < 6; ++i) Jc[d][i] *= s;
         for (int i = 0; i < 3; ++i) Jl[d][i] *= s;
       }
@@ -158,13 +219,21 @@ __global__ void obs_kernel(BA b, int mode) {
     float Jl[2][6];
     for (int e = 0; e < 2; ++e) {
       Proj q;
-      project(b, P, L + 3 * e, jac, q);
+      float Xb[3];
+      if (b.body)
+        project_body(b, P, L + 3 * e, jac, q, Xb);
+      else
+        project(b, P, L + 3 * e, jac, q);
       r[e] = ((l[0] * q.u + l[1] * q.v) + l[2]) * s;
       if (jac) {
         float jr[3], jp[3];
         for (int c = 0; c < 3; ++c) jr[c] = l[0] * q.J[0][c] + l[1] * q.J[1][c];
-        pose_row(jr, q.pc, Jc[e]);
-        point_row(jr, P, jp);
+        if (b.body) {
+          body_rows(b, jr, P, Xb, Jc[e], jp);
+        } else {
+          pose_row(jr, q.pc, Jc[e]);
+          point_row(jr, P, jp);
+        }
         for (int c = 0; c < 3; ++c) {
           Jl[e][3 * e + c] = jp[c] * s;
           Jl[e][3 * (1 - e) + c] = 0.f;
@@ -249,7 +318,7 @@ __global__ void cost_kernel(BA b, int mode) {
   const float sp = block_sum(wchi2, b.n_obs, sh);
   const float sl = block_sum(wchi2 + b.n_obs, b.n_lobs, sh);
   if (threadIdx.x != 0) return;
-  const float cost = sp + sl;
+  const float cost = b.body ? (sp + sl) + b.at<float>(kCCost)[0] : sp + sl;
   if (mode == kModeInit) {
     ctrl[cLam] = b.lam0;
     ctrl[cCost] = cost;
@@ -286,6 +355,8 @@ __global__ void accept_kernel(BA b) {
     b.at<float>(kPts)[t] = b.at<float>(kCPts)[t];
   } else if ((t -= c) < d) {
     b.at<float>(kLns)[t] = b.at<float>(kCLns)[t];
+  } else if (b.body && (t -= d) < b.n_kf * 9) {
+    b.at<float>(kKfX)[t] = b.at<float>(kCKfX)[t];
   }
 }
 
@@ -319,7 +390,7 @@ PLVIO_API int ba_linearize(void* const* ptrs, const int* ints,
   } else {
     cost_kernel<<<1, kRedThreads, 0, s>>>(b, mode);
     if (mode == kModeDecide) {
-      const int n = b.n_kf * 12 + b.n_pt * 3 + b.n_ln * 6;
+      const int n = b.n_kf * (b.body ? 21 : 12) + b.n_pt * 3 + b.n_ln * 6;
       accept_kernel<<<blocks(n, 256), 256, 0, s>>>(b);
     } else if (mode == kModeRegate && N > 0) {
       regate_kernel<<<blocks(N, 256), 256, 0, s>>>(b);

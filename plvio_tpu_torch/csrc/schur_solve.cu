@@ -1,22 +1,25 @@
-// schur_solve — one damped Schur-complement step of the windowed
-// point+line BA: landmark elimination, the reduced camera solve by
-// fixed-step CG, back-substitution and the retraction of every block.
+// schur_solve — one damped Schur-complement step of the window BAs:
+// landmark elimination, the reduced solve by fixed-step CG,
+// back-substitution and the retraction of every block.
 //
-// Replaces, for `make_local_ba_pl` (plvio_tpu/models/kernels.py:641),
-// plvio_tpu/solver/engine.py `Problem.solve_step` (:452-573) with
-// `chol_invT_blocks` (:221, `_chol3` :185, `_tri_inv3` :205) and `_cg_solve`
-// (:256), and the retractions `retract_pose_cw` / `retract_additive`
-// (solver/residuals.py:47,68).  The JAX version works on the dense coupling
-// B [S, P*dof] with batched einsums, one XLA dot for the Gram fill-in and a
-// scanned CG.
+// Replaces, for `make_local_ba_pl` (plvio_tpu/models/kernels.py:641) and
+// `make_local_inertial_ba` (:1206), plvio_tpu/solver/engine.py
+// `Problem.solve_step` (:452-573) with `chol_invT_blocks` (:221, `_chol3`
+// :185, `_tri_inv3` :205) and `_cg_solve` (:256), and the retractions
+// `retract_pose_cw` / `retract_pose_wb` / `retract_additive`
+// (solver/residuals.py:47,61,68).  The JAX version works on the dense
+// coupling B [S, P*dof] with batched einsums, one XLA dot for the Gram
+// fill-in and a scanned CG.
 //
-// What bounds it on the H100: latency.  At the worst-case window (S = 96,
-// 4096 3x3 point blocks, 512 6x6 line blocks, 9216 observations) the
-// factor stage moves ~2 MB and writes the 96 x 15360 Gram operand (5.9
+// What bounds it on the H100: latency.  At the worst-case point+line window
+// (S = 96, 4096 3x3 point blocks, 512 6x6 line blocks, 9216 observations)
+// the factor stage moves ~2 MB and writes the 96 x 15360 Gram operand (5.9
 // MB); the Gram product (0.28 Gflop dense) runs as 6 upper-triangle tiles
 // x 24 column chunks; the CG is 48 sequential iterations of a 96 x 96
 // matrix-vector product, each a few block-wide barriers (~2 us an
-// iteration in one block).
+// iteration in one block).  The inertial window (S = 15 x 16 = 240) runs
+// the same factor and Gram stages (landmarks couple to the 96 pose rows
+// only) and 120 CG iterations on the 240 x 240 system.
 //
 // Design:
 // - factor_kernel: one thread per landmark (points, then lines) zeroes its
@@ -33,15 +36,26 @@
 //   columns (shared-memory tiles, 2 x 2 outputs a thread) and writes its
 //   partial tile; the reduction sums the partials in chunk order, so the
 //   fill-in too is the same on every run.
-// - solve_kernel: one block holds the reduced system (S x S floats in
-//   shared memory): the keyframe blocks damped as H + diag(diag(H) lambda +
-//   1e-6), minus the fill-in, the fixed keyframes freed after the
-//   reduction (unit diagonal, zero rhs), then CG with the reference's
-//   iteration count and max(., 1e-20) guards, dot products reduced in a
-//   fixed order.
+// - solve_kernel: one block holds the reduced system in shared memory as
+//   its packed upper triangle (S (S + 1) / 2 floats: 115,680 B at S = 240,
+//   where the full 230,400 B would leave no room for the CG vectors in the
+//   227 KB a block may use; the one-block CG and its fixed-order dot
+//   products stay).  The dense system: the keyframes' visual pose blocks
+//   (csrc/ba_linearize.cu) and, for the inertial window, the chain's link
+//   blocks (csrc/inertial_chain.cu), each keyframe's 15 x 15 block summing
+//   links i-1 and i in link order and its off-diagonal block taken from
+//   link i; damped as H + diag(diag(H) lambda + 1e-6), minus the fill-in
+//   on the pose rows, the fixed states freed after the reduction (unit
+//   diagonal, zero rhs; pose and velocity rows by kf_free, bias rows by
+//   kf_free_bias), then CG with the reference's iteration count
+//   (min(max(S / 2, 16), 128)) and max(., 1e-20) guards, dot products
+//   reduced in a fixed order.  A 2-CTA cluster with distributed shared
+//   memory would hold the full matrix; the packed form keeps one block and
+//   the same matrix-vector order as the full one.
 // - backsub_kernel: back-substitutes each landmark (dx_p = F F^T (g_p -
-//   sum_o W_o^T dx_kf)) and retracts each keyframe (T <- Exp(dx) T, rows
-//   re-orthonormalized) into the candidate state.
+//   sum_o W_o^T dx_kf)) and retracts each keyframe into the candidate state
+//   (T <- Exp(dx) T for T_cw; R <- R Exp(dtheta), p <- p + dp for pose_wb,
+//   and velocity and biases additive; rows re-orthonormalized).
 // Every kernel reads the device-side early-exit flag first and returns at
 // once when it has fired, so an iteration after the exit costs five empty
 // launches and no memory traffic.
@@ -176,7 +190,7 @@ __device__ void factor_landmark(const BA& b, int p, const float* Hpk,
     t[j] = a;
   }
   const int C = b.C();
-  const int S = b.S();
+  const int S = b.Sp();
   float* gm = b.at<float>(kGm);
   float* rr = b.at<float>(kRr);
   for (int r = 0; r < S; ++r)
@@ -227,7 +241,7 @@ __global__ void gram_kernel(BA b) {
   if (b.done()) return;
   __shared__ float As[kTile][kTile + 1];
   __shared__ float Bs[kTile][kTile + 1];
-  const int S = b.S(), C = b.C();
+  const int S = b.Sp(), C = b.C();
   const int nT = (S + kTile - 1) / kTile;
   int pr = blockIdx.x, ti = 0;             // blockIdx.x -> (ti <= tj)
   while (pr >= nT - ti) {
@@ -267,7 +281,7 @@ __global__ void gram_kernel(BA b) {
 // read their transposed upper tile)
 __global__ void gram_reduce_kernel(BA b) {
   if (b.done()) return;
-  const int S = b.S();
+  const int S = b.Sp();
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= S * S) return;
   int i = e / S, j = e % S;
@@ -301,12 +315,57 @@ __device__ float block_dot(const float* a, const float* c, int n,
   return s;
 }
 
+// dense index -> (keyframe, index in its 15-DoF state: pose 0-5, vel 6-8,
+// bg 9-11, ba 12-14)
+__device__ __forceinline__ void dense_to_kf(int d, int n, int& k, int& l) {
+  if (d < 6 * n) {
+    k = d / 6;
+    l = d % 6;
+  } else {
+    d -= 6 * n;
+    const int fam = d / (3 * n);       // 0 vel, 1 bg, 2 ba
+    d -= fam * 3 * n;
+    k = d / 3;
+    l = 6 + 3 * fam + d % 3;
+  }
+}
+
+// the chain's H entry (i, j): links k-1 and k in link order on keyframe
+// k's block, link k on the (k, k+1) block
+__device__ float chain_h(const BA& b, int i, int j) {
+  const int n = b.n_kf;
+  int ki, li, kj, lj;
+  dense_to_kf(i, n, ki, li);
+  dense_to_kf(j, n, kj, lj);
+  const float* link = b.at<float>(kLink);
+  if (ki == kj) {
+    float v = 0.f;
+    if (ki > 0) v += link[(ki - 1) * kLinkFloats + ut(30, 15 + li, 15 + lj)];
+    if (ki < n - 1) v += link[ki * kLinkFloats + ut(30, li, lj)];
+    return v;
+  }
+  if (kj == ki + 1) return link[ki * kLinkFloats + ut(30, li, 15 + lj)];
+  if (ki == kj + 1) return link[kj * kLinkFloats + ut(30, 15 + li, lj)];
+  return 0.f;
+}
+
+__device__ float chain_g(const BA& b, int i) {
+  const int n = b.n_kf;
+  int k, l;
+  dense_to_kf(i, n, k, l);
+  const float* link = b.at<float>(kLink);
+  float v = 0.f;
+  if (k > 0) v += link[(k - 1) * kLinkFloats + 465 + 15 + l];
+  if (k < n - 1) v += link[k * kLinkFloats + 465 + l];
+  return v;
+}
+
 __global__ void solve_kernel(BA b) {
   if (b.done()) return;
   extern __shared__ float sh[];
-  const int S = b.S();
-  float* H = sh;                 // [S*S]
-  float* x = H + S * S;          // [S]
+  const int S = b.Sd(), Sp = b.Sp(), n = b.n_kf;
+  float* H = sh;                 // [S (S + 1) / 2] packed upper triangle
+  float* x = H + S * (S + 1) / 2;
   float* r = x + S;
   float* p = r + S;
   float* Hp = p + S;
@@ -316,24 +375,36 @@ __global__ void solve_kernel(BA b) {
   const float* hcc = b.at<float>(kHcc);
   const float* ff = b.at<float>(kFf);
   const uint8_t* kf_free = b.at<uint8_t>(kKfFree);
-  for (int i = threadIdx.x; i < S; i += blockDim.x)
-    fr[i] = kf_free[i / 6] ? 1.f : 0.f;
+  const uint8_t* bias_free = b.at<uint8_t>(kKfFreeBias);
+  for (int i = threadIdx.x; i < S; i += blockDim.x) {
+    int k, l;
+    dense_to_kf(i, n, k, l);
+    fr[i] = (l < 9 ? kf_free[k] : bias_free[k]) ? 1.f : 0.f;
+  }
   __syncthreads();
-  for (int e = threadIdx.x; e < S * S; e += blockDim.x) {
-    const int i = e / S, j = e % S;
-    float v = i / 6 == j / 6 ? hcc[(i / 6) * 27 + ut(6, i % 6, j % 6)] : 0.f;
-    if (i == j) v = v + (v * lam + 1e-6f);
-    v = v - ff[e];
-    H[e] = v * fr[i] * fr[j] + (i == j ? 1.f - fr[i] : 0.f);
+  for (int i = 0; i < S; ++i) {
+    const int row = i * S - i * (i - 1) / 2 - i;      // + j: ut(S, i, j)
+    for (int j = i + threadIdx.x; j < S; j += blockDim.x) {
+      float v = j < Sp && i / 6 == j / 6
+          ? hcc[(i / 6) * 27 + ut(6, i % 6, j % 6)] : 0.f;
+      if (b.body) v = v + chain_h(b, i, j);
+      if (i == j) v = v + (v * lam + 1e-6f);
+      if (j < Sp) v = v - ff[i * Sp + j];
+      H[row + j] = v * fr[i] * fr[j] + (i == j ? 1.f - fr[i] : 0.f);
+    }
   }
   const int* order = b.at<int>(kKfOrder);
   const int* start = b.at<int>(kKfStart);
   const float* rr = b.at<float>(kRr);
   for (int i = threadIdx.x; i < S; i += blockDim.x) {
-    const int k = i / 6, c = i % 6;
-    float a = 0.f;
-    for (int q = start[k]; q < start[k + 1]; ++q) a += rr[order[q] * 6 + c];
-    const float rhs = (hcc[k * 27 + 21 + c] - a) * fr[i];
+    float gv = 0.f, a = 0.f;
+    if (i < Sp) {
+      const int k = i / 6, c = i % 6;
+      for (int q = start[k]; q < start[k + 1]; ++q) a += rr[order[q] * 6 + c];
+      gv = hcc[k * 27 + 21 + c];
+    }
+    if (b.body) gv = gv + chain_g(b, i);
+    const float rhs = (gv - a) * fr[i];
     x[i] = 0.f;
     r[i] = rhs;
     p[i] = rhs;
@@ -342,8 +413,15 @@ __global__ void solve_kernel(BA b) {
   float rs = block_dot(r, r, S, wsh);
   for (int it = 0; it < b.cg_iters; ++it) {
     for (int i = threadIdx.x; i < S; i += blockDim.x) {
+      // row i of the symmetric matrix: column j < i from row j's packed
+      // entries, j >= i from row i's
       float a = 0.f;
-      for (int j = 0; j < S; ++j) a += H[i * S + j] * p[j];
+      int idx = i;
+      for (int j = 0; j < i; ++j) {
+        a += H[idx] * p[j];
+        idx += S - j - 1;
+      }
+      for (int j = i; j < S; ++j) a += H[idx + (j - i)] * p[j];
       Hp[i] = a;
     }
     __syncthreads();
@@ -388,17 +466,8 @@ __device__ void so3_exp_V(const float w[3], float R[3][3], float V[3][3]) {
     }
 }
 
-__device__ void retract_pose(const float* P, const float* d, float* out) {
-  float Rd[3][3], V[3][3];
-  so3_exp_V(d + 3, Rd, V);
-  float Rn[3][3], tn[3];
-  for (int i = 0; i < 3; ++i) {
-    for (int j = 0; j < 3; ++j)
-      Rn[i][j] = (Rd[i][0] * P[j] + Rd[i][1] * P[4 + j]) + Rd[i][2] * P[8 + j];
-    tn[i] = ((Rd[i][0] * P[3] + Rd[i][1] * P[7]) + Rd[i][2] * P[11])
-        + ((V[i][0] * d[0] + V[i][1] * d[1]) + V[i][2] * d[2]);
-  }
-  // so3_normalize: Gram-Schmidt on the rows
+// so3_normalize (Gram-Schmidt on the rows) of Rn into out's rotation
+__device__ void normalize_into(const float Rn[3][3], float* out) {
   float r0[3], r1[3];
   float n0 = fmaxf(sqrtf((Rn[0][0] * Rn[0][0] + Rn[0][1] * Rn[0][1])
                          + Rn[0][2] * Rn[0][2]), 1e-12f);
@@ -416,9 +485,36 @@ __device__ void retract_pose(const float* P, const float* d, float* out) {
     out[4 + j] = r1[j];
     out[8 + j] = r2[j];
   }
+}
+
+// T_cw <- Exp(d) T_cw
+__device__ void retract_pose(const float* P, const float* d, float* out) {
+  float Rd[3][3], V[3][3];
+  so3_exp_V(d + 3, Rd, V);
+  float Rn[3][3], tn[3];
+  for (int i = 0; i < 3; ++i) {
+    for (int j = 0; j < 3; ++j)
+      Rn[i][j] = (Rd[i][0] * P[j] + Rd[i][1] * P[4 + j]) + Rd[i][2] * P[8 + j];
+    tn[i] = ((Rd[i][0] * P[3] + Rd[i][1] * P[7]) + Rd[i][2] * P[11])
+        + ((V[i][0] * d[0] + V[i][1] * d[1]) + V[i][2] * d[2]);
+  }
+  normalize_into(Rn, out);
   out[3] = tn[0];
   out[7] = tn[1];
   out[11] = tn[2];
+}
+
+// pose_wb: R <- R Exp(dtheta), p <- p + dp (d = (dp, dtheta))
+__device__ void retract_pose_wb(const float* P, const float* d, float* out) {
+  float Rd[3][3], V[3][3];
+  so3_exp_V(d + 3, Rd, V);
+  float Rn[3][3];
+  for (int i = 0; i < 3; ++i)
+    for (int j = 0; j < 3; ++j)
+      Rn[i][j] = (P[4 * i] * Rd[0][j] + P[4 * i + 1] * Rd[1][j])
+          + P[4 * i + 2] * Rd[2][j];
+  normalize_into(Rn, out);
+  for (int i = 0; i < 3; ++i) out[4 * i + 3] = P[4 * i + 3] + d[i];
 }
 
 template <int D>
@@ -460,8 +556,20 @@ __global__ void backsub_kernel(BA b) {
   if (b.done()) return;
   int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t < b.n_kf) {
-    retract_pose(b.at<float>(kPoses) + t * 12, b.at<float>(kDx) + t * 6,
-                 b.at<float>(kCPoses) + t * 12);
+    const float* dx = b.at<float>(kDx);
+    if (b.body) {
+      retract_pose_wb(b.at<float>(kPoses) + t * 12, dx + t * 6,
+                      b.at<float>(kCPoses) + t * 12);
+      const int n = b.n_kf;
+      const float* x = b.at<float>(kKfX) + t * 9;
+      float* xc = b.at<float>(kCKfX) + t * 9;
+      for (int f = 0; f < 3; ++f)           // vel, bg, ba
+        for (int c = 0; c < 3; ++c)
+          xc[3 * f + c] = x[3 * f + c] + dx[(6 + 3 * f) * n + 3 * t + c];
+    } else {
+      retract_pose(b.at<float>(kPoses) + t * 12, dx + t * 6,
+                   b.at<float>(kCPoses) + t * 12);
+    }
   } else if ((t -= b.n_kf) < b.n_pt) {
     backsub_landmark<3>(b, t, b.at<float>(kHpt), b.at<uint8_t>(kPtFree),
                         b.at<float>(kPW), b.at<int>(kPtOrder),
@@ -480,7 +588,7 @@ __global__ void backsub_kernel(BA b) {
 inline int blocks(int n, int t) { return (n + t - 1) / t; }
 
 inline size_t solve_smem(int S) {
-  return (size_t(S) * S + 5 * size_t(S) + 32) * sizeof(float);
+  return (size_t(S) * (S + 1) / 2 + 5 * size_t(S) + 32) * sizeof(float);
 }
 
 }  // namespace
@@ -491,15 +599,15 @@ PLVIO_API int schur_solve(void* const* ptrs, const int* ints,
                           const float* flts, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const BA b = make_ba(ptrs, ints, flts);
-  const size_t smem = solve_smem(b.S());
+  const size_t smem = solve_smem(b.Sd());
   if (smem > 232448 || b.gram_split < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const int n = b.n_pt + b.n_ln;
   if (n > 0) factor_kernel<<<blocks(n, 128), 128, 0, s>>>(b);
-  const int nT = blocks(b.S(), kTile);
+  const int nT = blocks(b.Sp(), kTile);
   gram_kernel<<<dim3(nT * (nT + 1) / 2, b.gram_split), kGramThreads, 0, s>>>(
       b);
-  gram_reduce_kernel<<<blocks(b.S() * b.S(), 256), 256, 0, s>>>(b);
+  gram_reduce_kernel<<<blocks(b.Sp() * b.Sp(), 256), 256, 0, s>>>(b);
   cudaFuncSetAttribute(solve_kernel,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                        static_cast<int>(smem));

@@ -34,23 +34,19 @@
 // Cholesky does, so a non-definite carried prior poisons the cost the same
 // way.  The marginalization's pseudo-inverse comes from a cyclic Jacobi
 // eigendecomposition of the 15x15 block, run by one warp.
-#include "common.cuh"
+#include "inertial.cuh"
 
 namespace {
+
+using namespace plv;
 
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int kAcc = 28;          // 21 (H6 upper) + 6 (g6) + 1 (cost)
 constexpr float kChi2 = 5.991f;
-constexpr float kPi = 3.14159265358979323846f;
 
 struct St {
   float R[9], p[3], v[3], bg[3], ba[3];
-};
-
-struct Pre {
-  float dT, dR[9], dV[3], dP[3], JRg[9], JVg[9], JVa[9], JPg[9], JPa[9];
-  float bg0[3], ba0[3];
 };
 
 struct Prior {
@@ -82,140 +78,6 @@ struct Params {
   uint8_t* inlier;
   int* n_inl;
 };
-
-// ------------------------------------------------------------- 3x3 algebra
-__device__ __forceinline__ void mul3(const float* A, const float* B,
-                                     float* C) {
-  for (int i = 0; i < 3; ++i)
-    for (int j = 0; j < 3; ++j)
-      C[3 * i + j] = A[3 * i] * B[j] + A[3 * i + 1] * B[3 + j]
-                     + A[3 * i + 2] * B[6 + j];
-}
-__device__ __forceinline__ void mul3tn(const float* A, const float* B,
-                                       float* C) {   // A^T B
-  for (int i = 0; i < 3; ++i)
-    for (int j = 0; j < 3; ++j)
-      C[3 * i + j] = A[i] * B[j] + A[3 + i] * B[3 + j] + A[6 + i] * B[6 + j];
-}
-__device__ __forceinline__ void mv3(const float* A, const float* x,
-                                    float* y) {
-  for (int i = 0; i < 3; ++i)
-    y[i] = A[3 * i] * x[0] + A[3 * i + 1] * x[1] + A[3 * i + 2] * x[2];
-}
-__device__ __forceinline__ void mtv3(const float* A, const float* x,
-                                     float* y) {     // A^T x
-  for (int i = 0; i < 3; ++i)
-    y[i] = A[i] * x[0] + A[3 + i] * x[1] + A[6 + i] * x[2];
-}
-__device__ __forceinline__ void hat3(const float* w, float* W) {
-  W[0] = 0.f;   W[1] = -w[2]; W[2] = w[1];
-  W[3] = w[2];  W[4] = 0.f;   W[5] = -w[0];
-  W[6] = -w[1]; W[7] = w[0];  W[8] = 0.f;
-}
-
-struct Theta {
-  float theta2, theta, W[9], W2[9];
-  bool small;
-};
-__device__ void theta_terms(const float* w, Theta& t) {
-  t.theta2 = w[0] * w[0] + w[1] * w[1] + w[2] * w[2];
-  t.small = t.theta2 < 1e-6f;
-  t.theta = sqrtf(fmaxf(t.theta2, 1e-24f));
-  hat3(w, t.W);
-  mul3(t.W, t.W, t.W2);
-}
-__device__ void so3_exp(const float* w, float* R) {
-  Theta t;
-  theta_terms(w, t);
-  const float A = t.small ? 1.f - t.theta2 / 6.f : sinf(t.theta) / t.theta;
-  const float B = t.small ? 0.5f - t.theta2 / 24.f
-                          : (1.f - cosf(t.theta)) / t.theta2;
-  for (int i = 0; i < 9; ++i)
-    R[i] = ((i % 4 == 0) ? 1.f : 0.f) + A * t.W[i] + B * t.W2[i];
-}
-__device__ void so3_jr(const float* w, float* J) {
-  Theta t;
-  theta_terms(w, t);
-  const float B = t.small ? 0.5f - t.theta2 / 24.f
-                          : (1.f - cosf(t.theta)) / t.theta2;
-  const float C = t.small ? 1.f / 6.f - t.theta2 / 120.f
-                          : (t.theta - sinf(t.theta)) / (t.theta2 * t.theta);
-  for (int i = 0; i < 9; ++i)
-    J[i] = ((i % 4 == 0) ? 1.f : 0.f) - B * t.W[i] + C * t.W2[i];
-}
-__device__ void so3_jr_inv(const float* w, float* J) {
-  Theta t;
-  theta_terms(w, t);
-  const float cot = t.small
-      ? 1.f / 12.f + t.theta2 / 720.f
-      : 1.f / t.theta2 - (1.f + cosf(t.theta))
-            / (2.f * t.theta * fmaxf(sinf(t.theta), 1e-12f));
-  for (int i = 0; i < 9; ++i)
-    J[i] = ((i % 4 == 0) ? 1.f : 0.f) + 0.5f * t.W[i] + cot * t.W2[i];
-}
-// lie.so3_log: atan2 form, small-angle surrogate, near-pi axis branch
-__device__ void so3_log(const float* R, float* out) {
-  const float tr = R[0] + R[4] + R[8];
-  const float cos_t = fminf(fmaxf((tr - 1.f) * 0.5f, -1.f), 1.f);
-  const float w[3] = {(R[7] - R[5]) * 0.5f, (R[2] - R[6]) * 0.5f,
-                      (R[3] - R[1]) * 0.5f};
-  const float w2 = w[0] * w[0] + w[1] * w[1] + w[2] * w[2];
-  const bool small = w2 < 1e-12f;
-  const float sin_t = sqrtf(small ? 1.f : w2);
-  const float theta = atan2f(sin_t, cos_t);
-  const float scale = small ? 1.f + (1.f - cos_t) / 3.f : theta / sin_t;
-  if (theta > kPi - 1e-3f) {
-    const float d[3] = {R[0] + 1.f, R[4] + 1.f, R[8] + 1.f};
-    int k = 0;
-    if (d[1] > d[k]) k = 1;
-    if (d[2] > d[k]) k = 2;
-    const float col[3] = {R[k] + (k == 0), R[3 + k] + (k == 1),
-                          R[6 + k] + (k == 2)};
-    const float n = fmaxf(sqrtf(col[0] * col[0] + col[1] * col[1]
-                                + col[2] * col[2]), 1e-12f);
-    const float ax[3] = {col[0] / n, col[1] / n, col[2] / n};
-    const float sg = (ax[0] * w[0] + ax[1] * w[1] + ax[2] * w[2]) < 0.f
-                         ? -1.f : 1.f;
-    for (int i = 0; i < 3; ++i) out[i] = ax[i] * sg * theta;
-  } else {
-    for (int i = 0; i < 3; ++i) out[i] = w[i] * scale;
-  }
-}
-__device__ void so3_normalize(const float* R, float* out) {
-  float r0[3] = {R[0], R[1], R[2]};
-  const float n0 = fmaxf(sqrtf(r0[0] * r0[0] + r0[1] * r0[1]
-                               + r0[2] * r0[2]), 1e-12f);
-  for (int k = 0; k < 3; ++k) r0[k] = r0[k] / n0;
-  const float d = R[3] * r0[0] + R[4] * r0[1] + R[5] * r0[2];
-  float r1[3] = {R[3] - d * r0[0], R[4] - d * r0[1], R[5] - d * r0[2]};
-  const float n1 = fmaxf(sqrtf(r1[0] * r1[0] + r1[1] * r1[1]
-                               + r1[2] * r1[2]), 1e-12f);
-  for (int k = 0; k < 3; ++k) r1[k] = r1[k] / n1;
-  out[0] = r0[0]; out[1] = r0[1]; out[2] = r0[2];
-  out[3] = r1[0]; out[4] = r1[1]; out[5] = r1[2];
-  out[6] = r0[1] * r1[2] - r0[2] * r1[1];
-  out[7] = r0[2] * r1[0] - r0[0] * r1[2];
-  out[8] = r0[0] * r1[1] - r0[1] * r1[0];
-}
-
-// lower Cholesky of an n x n SPD matrix; NaN where it is not definite
-__device__ void cholesky(const float* A, float* L, int n) {
-  bool ok = true;
-  for (int i = 0; i < n * n; ++i) L[i] = 0.f;
-  for (int j = 0; j < n; ++j) {
-    float d = A[j * n + j];
-    for (int q = 0; q < j; ++q) d -= L[j * n + q] * L[j * n + q];
-    ok = ok && (d > 0.f);
-    L[j * n + j] = sqrtf(d);
-    for (int i = j + 1; i < n; ++i) {
-      float x = A[i * n + j];
-      for (int q = 0; q < j; ++q) x -= L[i * n + q] * L[j * n + q];
-      L[i * n + j] = x / L[j * n + j];
-    }
-  }
-  if (!ok)
-    for (int i = 0; i < n * n; ++i) L[i] = __int_as_float(0x7fc00000);
-}
 
 // ------------------------------------------------------------ point edges
 struct PtEval {
@@ -326,21 +188,6 @@ __device__ void add_term(Shared& sh, int rd, int nc, const int* col,
   }
 }
 
-// whiten by L^T (L lower, n x n): y = L^T x, columns of J likewise
-__device__ void whiten(const float* L, int n, int nc, float* r, float* J) {
-  for (int i = 0; i < n; ++i) {
-    float x = 0.f;
-    for (int j = i; j < n; ++j) x += L[j * n + i] * r[j];
-    r[i] = x;                      // rows below i are read later: ok, j>=i
-    if (J)
-      for (int c = 0; c < nc; ++c) {
-        float y = 0.f;
-        for (int j = i; j < n; ++j) y += L[j * n + i] * J[j * nc + c];
-        J[i * nc + c] = y;
-      }
-  }
-}
-
 __device__ void dense_terms(const Params& p, Shared& sh, const St* S,
                             bool jac) {
   sh.dense_cost = 0.f;
@@ -349,73 +196,10 @@ __device__ void dense_terms(const Params& p, Shared& sh, const St* S,
   {
     const St& A = S[0];
     const St& B = S[1];
-    const float g[3] = {0.f, 0.f, -p.gravity};
-    float dbg[3], dba[3];
-    for (int i = 0; i < 3; ++i) {
-      dbg[i] = B.bg[i] - q.bg0[i];
-      dba[i] = B.ba[i] - q.ba0[i];
-    }
-    float phi[3], Ephi[9], dRc[9], R1dRc[9], E[9], er[3];
-    mv3(q.JRg, dbg, phi);
-    so3_exp(phi, Ephi);
-    mul3(q.dR, Ephi, dRc);                  // dR_corr
-    mul3(A.R, dRc, R1dRc);
-    mul3tn(R1dRc, B.R, E);                  // dR_corr^T R1^T R2
-    so3_log(E, er);
-    const float dT = q.dT;
-    float av[3], ap[3], ev[3], ep[3], t3[3], u3[3];
-    for (int i = 0; i < 3; ++i) {
-      av[i] = B.v[i] - A.v[i] - g[i] * dT;
-      ap[i] = B.p[i] - A.p[i] - A.v[i] * dT - 0.5f * g[i] * dT * dT;
-    }
-    mtv3(A.R, av, t3);
-    mv3(q.JVg, dbg, u3);
-    float u4[3];
-    mv3(q.JVa, dba, u4);
-    for (int i = 0; i < 3; ++i) ev[i] = t3[i] - (q.dV[i] + u3[i] + u4[i]);
-    float Rap[3];
-    mtv3(A.R, ap, Rap);
-    mv3(q.JPg, dbg, u3);
-    mv3(q.JPa, dba, u4);
-    for (int i = 0; i < 3; ++i) ep[i] = Rap[i] - (q.dP[i] + u3[i] + u4[i]);
-    float r[9] = {er[0], er[1], er[2], ev[0], ev[1], ev[2],
-                  ep[0], ep[1], ep[2]};
+    float r[9];
     float* J = sh.J;
-    if (jac) {
-      for (int i = 0; i < 9 * 24; ++i) J[i] = 0.f;
-      float Jri[9], Jr[9], M[9], N[9], R2tR1[9];
-      so3_jr_inv(er, Jri);
-      so3_jr(phi, Jr);
-      mul3tn(B.R, A.R, R2tR1);              // R2^T R1
-      mul3(Jri, R2tR1, M);                  // d er / d theta1 = -M
-      float EtJr[9], EtJrJ[9];
-      mul3tn(E, Jr, EtJr);                  // E^T Jr
-      mul3(EtJr, q.JRg, EtJrJ);
-      mul3(Jri, EtJrJ, N);                  // d er / d bg = -N
-      float Hv[9], Hp[9];
-      hat3(t3, Hv);                         // hat(R1^T av)
-      hat3(Rap, Hp);
-      for (int i = 0; i < 3; ++i)
-        for (int j = 0; j < 3; ++j) {
-          const float R1t = A.R[3 * j + i];
-          // columns: dp1 0, dth1 3, v1 6, bg 9, ba 12, dp2 15, dth2 18,
-          // v2 21
-          J[i * 24 + 3 + j] = -M[3 * i + j];
-          J[i * 24 + 9 + j] = -N[3 * i + j];
-          J[i * 24 + 18 + j] = Jri[3 * i + j];
-          J[(3 + i) * 24 + 3 + j] = Hv[3 * i + j];
-          J[(3 + i) * 24 + 6 + j] = -R1t;
-          J[(3 + i) * 24 + 9 + j] = -q.JVg[3 * i + j];
-          J[(3 + i) * 24 + 12 + j] = -q.JVa[3 * i + j];
-          J[(3 + i) * 24 + 21 + j] = R1t;
-          J[(6 + i) * 24 + 0 + j] = -R1t;
-          J[(6 + i) * 24 + 3 + j] = Hp[3 * i + j];
-          J[(6 + i) * 24 + 6 + j] = -R1t * dT;
-          J[(6 + i) * 24 + 9 + j] = -q.JPg[3 * i + j];
-          J[(6 + i) * 24 + 12 + j] = -q.JPa[3 * i + j];
-          J[(6 + i) * 24 + 15 + j] = R1t;
-        }
-    }
+    inertial_edge(A.R, A.p, A.v, B.bg, B.ba, B.R, B.p, B.v, q, p.gravity,
+                  jac, r, J);
     whiten(sh.L_imu, 9, 24, r, jac ? J : nullptr);
     const int col[24] = {0, 1, 2, 3, 4, 5, 12, 13, 14, 21, 22, 23,
                          27, 28, 29, 6, 7, 8, 9, 10, 11, 15, 16, 17};
@@ -614,23 +398,7 @@ __global__ void __launch_bounds__(kThreads) vi_pose_lm_kernel(Params p) {
         sh.S[s].ba[i] = st[18 + i];
       }
     }
-    const float* c = st + 36;
-    Pre& q = sh.pre;
-    q.dT = c[0];
-    for (int i = 0; i < 9; ++i) {
-      q.dR[i] = c[1 + i];
-      q.JRg[i] = c[16 + i];
-      q.JVg[i] = c[25 + i];
-      q.JVa[i] = c[34 + i];
-      q.JPg[i] = c[43 + i];
-      q.JPa[i] = c[52 + i];
-    }
-    for (int i = 0; i < 3; ++i) {
-      q.dV[i] = c[10 + i];
-      q.dP[i] = c[13 + i];
-      q.bg0[i] = c[61 + i];
-      q.ba0[i] = c[64 + i];
-    }
+    load_pre(st + 36, sh.pre);
     cholesky(st + 103, sh.L_imu, 9);
     for (int i = 0; i < 6; ++i) sh.rw_s[i] = st[184 + i];
     const float* pc = st + 190;

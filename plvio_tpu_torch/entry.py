@@ -14,6 +14,14 @@ mapping_step(...)     -> (step, inputs): the keyframe mapping step (port
                          epipolar matching of the new KF against its
                          neighbour, DLT triangulation and the point+line
                          windowed local BA
+inertial_ba_step(...) -> (step, inputs): the inertial back end's window
+                         solve (`LocalMapper._liba_window`,
+                         models/local_mapping.py:1349) — the sliding-window
+                         visual-inertial BA with points and lines
+imu_init(...)         -> (module, inputs): IMU initialization
+                         (`maybe_initialize_imu`, :1012) and, as
+                         `module.refine`, the scale / gravity refinement
+                         (`refine_scale`, :948)
 entry(device)         -> tracking_step_pl at EuRoC geometry on `device`
 
 Every entry point runs on the card unless the caller passes
@@ -36,10 +44,11 @@ from torch import nn
 
 from .config import ImuConfig
 from .cuda import resolve_device
-from .models.kernels import (fast_pose_opt, fast_pose_opt_pl,
+from .models.kernels import (LIBA_KEYS, fast_pose_opt, fast_pose_opt_pl,
                              line_proj_match_core, make_epipolar_matcher,
-                             make_local_ba_pl, make_triangulator,
-                             make_vi_pose_optimizer)
+                             make_inertial_init, make_local_ba_pl,
+                             make_local_inertial_ba, make_scale_refine,
+                             make_triangulator, make_vi_pose_optimizer)
 from .ops import imu as IMU
 from .ops import matching as M
 from .ops.frontend import OrbExtractor, make_level_specs
@@ -333,6 +342,103 @@ def mapping_step(n_kf: int = 16, n_pt: int = 4096, n_obs: int = 8192,
     A = build_mapping_inputs(n_kf, n_pt, n_obs, n_feat, n_ln, n_lobs,
                              device=dev)
     return MappingStep(plain=plain).to(dev), A
+
+
+class InertialBAOut(NamedTuple):
+    pose_wb: torch.Tensor      # [n_kf,3,4] body poses after the BA
+    vel: torch.Tensor          # [n_kf,3]
+    bg: torch.Tensor           # [n_kf,3]
+    ba: torch.Tensor           # [n_kf,3]
+    pt_xyz: torch.Tensor       # [n_pt,3]
+    inlier: torch.Tensor       # [n_obs] bool, point observations
+    ln_ep6: torch.Tensor       # [n_ln,6]
+    inlier_l: torch.Tensor     # [n_lobs] bool, line observations
+
+
+class InertialBAStep(nn.Module):
+    """One solve of the sliding-window visual-inertial BA
+    (`LocalMapper._liba_window` on `make_local_inertial_ba`,
+    models/kernels.py:1206): per-KF 15-DoF states (pose_wb, vel, bg, ba),
+    the inertial and bias random-walk edges along the chain, body-frame
+    point and line edges to Schur-eliminated landmarks (lines with
+    information 1), 2 rounds x <= 8 LM iterations, CG reduced solve,
+    early exit at 1e-2, the chi2 re-gate at 5.991 on the point and line
+    edges between rounds.
+
+    forward(A, stats=None) -> InertialBAOut; A is the dict of
+    `inputs.build_inertial_window`; `stats` (a list) gets each round's LM
+    iteration count."""
+
+    def __init__(self, n_kf: int, n_pt: int, n_obs: int, n_ln: int,
+                 n_lobs: int, Rcb, tcb, gravity: float = 9.81,
+                 plain: bool = False, K: PinholeK = K_EUROC):
+        super().__init__()
+        self.liba = make_local_inertial_ba(K, n_kf, n_pt, n_obs, Rcb, tcb,
+                                           gravity, n_ln=n_ln, n_lobs=n_lobs,
+                                           plain=plain)
+
+    def forward(self, A, stats=None):
+        return InertialBAOut(*self.liba(*[A[k] for k in LIBA_KEYS],
+                                        stats=stats))
+
+
+# the two buckets of `_liba_window` (models/local_mapping.py:1495-1503)
+LIBA_WORST = dict(n_pt=4096, n_obs=8192, n_ln=256, n_lobs=512)
+LIBA_HALF = dict(n_pt=2048, n_obs=4096, n_ln=256, n_lobs=512)
+
+
+def inertial_ba_step(n_pt: int = 4096, n_obs: int = 8192, n_ln: int = 256,
+                     n_lobs: int = 512, perturbed: bool = True,
+                     device="cuda", plain: bool = False, n_kf: int = 16,
+                     n_observers: int = 5):
+    """The inertial window solve at the given bucket (default: the worst
+    case, 16 KF x 4096 points x 8192 observations + 256 lines x 512
+    observations) and its window from `inputs.build_inertial_window`
+    (seed 0; the perturbed start unless perturbed=False)."""
+    from .inputs import build_inertial_window
+    dev = resolve_device(device)
+    A = build_inertial_window(n_pt, n_obs, n_ln, n_lobs, device=dev,
+                              perturbed=perturbed, n_kf=n_kf,
+                              n_observers=n_observers)
+    step = InertialBAStep(n_kf, n_pt, n_obs, n_ln, n_lobs,
+                          A["Rcb"].cpu().numpy(), A["tcb"].cpu().numpy(),
+                          plain=plain)
+    return step.to(dev), A
+
+
+class ImuInit(nn.Module):
+    """IMU initialization (`make_inertial_init`, models/kernels.py:1137:
+    gravity direction, scale, shared biases and velocities with the poses
+    fixed, 20 LM iterations, bias priors 1e2 / 1e10) as forward(A) ->
+    (Rwg, scale, bg, ba, vel), and the periodic scale / gravity refinement
+    (`make_scale_refine`, :1092: only the gravity direction and the scale
+    free, 12 iterations) as refine(A) -> (Rwg, scale); A is the dict of
+    `inputs.build_imu_init_inputs`."""
+
+    def __init__(self, n_kf: int = 32, gravity: float = 9.81,
+                 plain: bool = False):
+        super().__init__()
+        self.init = make_inertial_init(gravity, n_kf, plain=plain)
+        self.scale_refine = make_scale_refine(gravity, n_kf, plain=plain)
+
+    def forward(self, A):
+        return self.init(A["Rwg0"], A["vel0"], A["pre_const"], A["pose_R"],
+                         A["pose_p"], A["imu_info"], A["edge_valid"])
+
+    def refine(self, A):
+        return self.scale_refine(A["ref_Rwg0"], A["ref_vel"], A["ref_bg"],
+                                 A["ref_ba"], A["pre_const"], A["ref_pose_R"],
+                                 A["ref_pose_p"], A["imu_info"],
+                                 A["edge_valid"])
+
+
+def imu_init(n_kf: int = 32, device="cuda", plain: bool = False):
+    """IMU initialization and refinement at the cap `imu_init_cap` (32 KF)
+    and their chain from `inputs.build_imu_init_inputs` (seed 0)."""
+    from .inputs import build_imu_init_inputs
+    dev = resolve_device(device)
+    A = build_imu_init_inputs(n_kf, device=dev)
+    return ImuInit(n_kf, plain=plain).to(dev), A
 
 
 def entry(device="cuda"):

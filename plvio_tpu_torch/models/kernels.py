@@ -616,13 +616,22 @@ _BA_PTRS = (
     "kf_order", "kf_start", "pt_order", "pt_start", "ln_order", "ln_start",
     "obs_c", "p_l", "p_w", "l_l", "l_w", "chi2", "wchi2",
     "hcc", "hpt", "hln", "fpt", "fln", "occ_pt", "occ_ln",
-    "gm", "gpart", "rr", "ff", "dx", "ctrl")
+    "gm", "gpart", "rr", "ff", "dx", "ctrl",
+    "kfx", "ckfx", "kf_free_bias", "pre", "imu_info", "edge_valid", "rw_g",
+    "rw_a", "link", "link_cost", "ccost")
 # column chunks of schur_solve's Gram fill-in (partial tiles summed in order)
 GRAM_SPLIT = 24
 BA_LINEARIZE = cuda.Kernel("ba_linearize", "ba_linearize",
                            [_P, _P, _P, _I, _P])
 SCHUR_SOLVE = cuda.Kernel("schur_solve", "schur_solve", [_P, _P, _P, _P])
 BA_MODE_LINEARIZE, BA_MODE_DECIDE, BA_MODE_INIT, BA_MODE_REGATE = range(4)
+
+
+def solve_fits(S: int) -> bool:
+    """Whether schur_solve's one-block solve holds the S x S reduced system
+    (packed upper triangle) and its CG vectors in shared memory
+    (csrc/schur_solve.cu `solve_smem`, at most 232448 bytes)."""
+    return (S * (S + 1) // 2 + 5 * S + 32) * 4 <= 232448
 
 
 def _segments(keys: torch.Tensor, n: int):
@@ -635,18 +644,23 @@ def _segments(keys: torch.Tensor, n: int):
 
 
 class _BAWork:
-    """Device buffers and the pointer table of one kernel-path BA call."""
+    """Device buffers and the pointer table of one kernel-path BA call:
+    the point+line window BA (keyframe poses T_cw), or with `inertial`
+    (a dict of kfx [n_kf,9] = (vel, bg, ba), kf_free_bias, pre, imu_info
+    [n_kf-1,81], edge_valid, rw_g, rw_a, Rcb, tcb, gravity) the inertial
+    window BA (body poses pose_wb, 15-DoF keyframe states)."""
 
     def __init__(self, K, kf_poses, kf_free, pt_xyz, pt_free, obs_kf, obs_pt,
                  obs_uv, obs_valid, obs_is2, ln_ep, ln_free, lobs_kf,
                  lobs_ln, lobs_eq, lobs_valid, lobs_is2, lam0, early_tol,
-                 cg_iters):
+                 cg_iters, inertial=None):
         dev = kf_poses.device
         f32 = torch.float32
         n_kf, n_pt, n_ln = kf_poses.shape[0], pt_xyz.shape[0], ln_ep.shape[0]
         n_obs, n_lobs = obs_kf.shape[0], lobs_kf.shape[0]
         N = n_obs + n_lobs
         S, C = 6 * n_kf, 3 * n_pt + 6 * n_ln
+        n_e = n_kf - 1
 
         def buf(*shape, dtype=f32):
             return torch.zeros(*[max(s, 1) for s in shape], dtype=dtype,
@@ -674,30 +688,54 @@ class _BAWork:
                  hln=buf(n_ln, 27), fpt=buf(n_pt, 9), fln=buf(n_ln, 36),
                  occ_pt=buf(n_pt, dtype=torch.uint8),
                  occ_ln=buf(n_ln, dtype=torch.uint8), gm=buf(S, C),
-                 gpart=buf(GRAM_SPLIT, S, S), rr=buf(N, 6), ff=buf(S, S),
-                 dx=buf(S), ctrl=buf(8))
+                 gpart=buf(GRAM_SPLIT, S, S), rr=buf(N, 6),
+                 dx=buf(S if inertial is None else 15 * n_kf), ctrl=buf(8))
+        t["ff"] = buf(S, S)
+        if inertial is None:
+            for name in _LIBA_PTRS:
+                t[name] = buf(1)
+            rcb, tcb, grav = [0.0] * 9, [0.0] * 3, 0.0
+        else:
+            t.update({k: inertial[k] for k in (
+                "kfx", "kf_free_bias", "pre", "imu_info", "edge_valid",
+                "rw_g", "rw_a")})
+            t["kfx"] = t["kfx"].clone()
+            t["ckfx"] = torch.empty_like(t["kfx"])
+            t.update(link=buf(n_e, LINK_FLOATS), link_cost=buf(n_e, 3),
+                     ccost=buf(1))
+            rcb = inertial["Rcb"].reshape(-1).tolist()
+            tcb = inertial["tcb"].reshape(-1).tolist()
+            grav = float(inertial["gravity"])
         for name in _BA_PTRS:
             if t[name].numel() and not t[name].is_contiguous():
                 raise ValueError(f"local BA: {name} is not contiguous")
         self.t = t
         self.n_obs = n_obs
+        self.body = inertial is not None
         self._keep = (
             (ctypes.c_void_p * len(_BA_PTRS))(
                 *[t[name].data_ptr() for name in _BA_PTRS]),
-            (ctypes.c_int * 7)(n_kf, n_pt, n_obs, n_ln, n_lobs, cg_iters,
-                               GRAM_SPLIT),
-            (ctypes.c_float * 8)(K.fx, K.fy, K.cx, K.cy,
-                                 float(math.sqrt(CHI2_MONO)), CHI2_MONO,
-                                 lam0, early_tol))
+            (ctypes.c_int * 8)(n_kf, n_pt, n_obs, n_ln, n_lobs, cg_iters,
+                               GRAM_SPLIT, int(self.body)),
+            (ctypes.c_float * 21)(K.fx, K.fy, K.cx, K.cy,
+                                  float(math.sqrt(CHI2_MONO)), CHI2_MONO,
+                                  lam0, early_tol, grav, *rcb, *tcb))
         self.args = [ctypes.cast(a, ctypes.c_void_p) for a in self._keep]
 
     def linearize(self, mode: int):
         BA_LINEARIZE.launch(*self.args, mode, cuda.stream())
 
+    def chain(self, mode: int):
+        INERTIAL_CHAIN.launch(*self.args, mode, cuda.stream())
+
     def step(self):
         """One LM iteration, decided on the device."""
         self.linearize(BA_MODE_LINEARIZE)
+        if self.body:
+            self.chain(CHAIN_LINEARIZE)
         SCHUR_SOLVE.launch(*self.args, cuda.stream())
+        if self.body:
+            self.chain(CHAIN_COST_CAND)
         self.linearize(BA_MODE_DECIDE)
 
 
@@ -733,10 +771,10 @@ def local_ba_pl(K: PinholeK, kf_poses, kf_free, pt_xyz, pt_free, obs_kf,
         if x.dtype != dt or tuple(x.shape) != shape:
             raise ValueError(f"local_ba_pl: argument {i} must be {dt} "
                              f"{shape}, got {x.dtype} {tuple(x.shape)}")
-    if 6 * n_kf > 200:
-        raise ValueError("local_ba_pl: the reduced system must fit in "
-                         "shared memory (n_kf <= 33)")
     S = 6 * n_kf
+    if not solve_fits(S):
+        raise ValueError("local_ba_pl: the packed reduced system must fit in "
+                         "shared memory (n_kf <= 55)")
     w = _BAWork(K, *args, lam0=1e-4, early_tol=early_tol,
                 cg_iters=min(max(S // 2, 16), 128))
     for _ in range(rounds):
@@ -767,3 +805,471 @@ def make_local_ba_pl(K: PinholeK, rounds: int = 2, iters: int = 8,
         return fn(K, *args, rounds=rounds, iters=iters, early_tol=early_tol,
                   stats=stats)
     return run
+
+
+# --------------------------------------------------------------------------
+# The inertial back end of the keyframe step: the sliding-window VI BA,
+# IMU initialization and scale refinement
+# --------------------------------------------------------------------------
+
+def _liba_problem(K, Rcb, tcb, gravity, n_kf, n_pt, n_ln, obs, mask, lobs,
+                  mask_l, chain):
+    """The inertial window BA's problem (models/kernels.py:1260-1291):
+    per-KF (pose_wb, vel, bg, ba), body-frame point and line edges to
+    Schur-eliminated landmarks, the inertial edge and the two bias random
+    walks along the chain."""
+    obs_kf, obs_pt, obs_uv, obs_is2 = obs
+    pre_const, imu_info, edge_valid, rw_g, rw_a = chain
+    dev = obs_kf.device
+    delta = float(math.sqrt(CHI2_MONO))
+    prob = E.Problem(linear_solver="cg")
+    prob.add_dense("pose", n_kf, 6, RES.retract_pose_wb)
+    prob.add_dense("vel", n_kf, 3, RES.retract_additive)
+    prob.add_dense("bg", n_kf, 3, RES.retract_additive)
+    prob.add_dense("ba", n_kf, 3, RES.retract_additive)
+    prob.add_landmarks("pt", n_pt, 3, RES.retract_additive)
+    prob.add_term(E.Term(
+        name="reproj", res_fn=RES.point_reproj_body_ba_for(K, Rcb, tcb),
+        rdim=2, dense_refs=[("pose", obs_kf)], lm_ref=("pt", obs_pt),
+        const={"uv": obs_uv}, mask=mask, info=obs_is2, robust_delta=delta))
+    if lobs is not None:
+        lobs_kf, lobs_ln, lobs_eq = lobs
+        prob.add_landmarks("ln", n_ln, 6, RES.retract_additive)
+        prob.add_term(E.Term(
+            name="line", res_fn=RES.make_line_reproj_body_ba(K, Rcb, tcb),
+            rdim=2, dense_refs=[("pose", lobs_kf)], lm_ref=("ln", lobs_ln),
+            const={"l": lobs_eq}, mask=mask_l,
+            info=torch.ones(lobs_kf.shape[0], dtype=obs_uv.dtype,
+                            device=dev),
+            robust_delta=delta))
+    i1 = torch.arange(n_kf - 1, device=dev)
+    i2 = i1 + 1
+    prob.add_term(E.Term(
+        name="inertial", res_fn=RES.make_inertial(gravity), rdim=9,
+        dense_refs=[("pose", i1), ("vel", i1), ("bg", i1), ("ba", i1),
+                    ("pose", i2), ("vel", i2)],
+        const=pre_const, mask=edge_valid, info=imu_info))
+    prob.add_term(E.Term(name="bg_rw", res_fn=RES.bias_rw, rdim=3,
+                         dense_refs=[("bg", i1), ("bg", i2)],
+                         mask=edge_valid, info=rw_g))
+    prob.add_term(E.Term(name="ba_rw", res_fn=RES.bias_rw, rdim=3,
+                         dense_refs=[("ba", i1), ("ba", i2)],
+                         mask=edge_valid, info=rw_a))
+    return prob
+
+
+def local_inertial_ba_plain(K: PinholeK, Rcb, tcb, gravity: float,
+                            kf_pose_wb, kf_vel, kf_bg, kf_ba, kf_free,
+                            kf_free_bias, pt_xyz, pt_free, obs_kf, obs_pt,
+                            obs_uv, obs_valid, obs_is2, pre_const, imu_info,
+                            edge_valid, rw_info_g, rw_info_a, ln_ep=None,
+                            ln_free=None, lobs_kf=None, lobs_ln=None,
+                            lobs_eq=None, lobs_valid=None, rounds: int = 2,
+                            iters: int = 8, early_tol: float = 1e-2,
+                            stats=None):
+    """Plain version of the sliding-window VI BA on the engine: `rounds`
+    x <= `iters` LM iterations (CG reduced solve, early exit at
+    early_tol), the chi2 gate re-applied to the point and line edges
+    between rounds.  Returns (pose_wb, vel, bg, ba, pt_xyz, inlier,
+    ln_ep, inlier_l), the last two None without lines; `stats` (a list)
+    gets each round's iteration count."""
+    n_kf, n_pt = kf_pose_wb.shape[0], pt_xyz.shape[0]
+    Rcb = torch.as_tensor(Rcb).to(kf_pose_wb.device, kf_pose_wb.dtype)
+    tcb = torch.as_tensor(tcb).to(kf_pose_wb.device, kf_pose_wb.dtype)
+    with_lines = ln_ep is not None and ln_ep.shape[0] > 0 \
+        and lobs_kf.shape[0] > 0
+    n_ln = ln_ep.shape[0] if with_lines else 0
+    obs = (obs_kf.long(), obs_pt.long(), obs_uv, obs_is2)
+    lobs = (lobs_kf.long(), lobs_ln.long(), lobs_eq) if with_lines else None
+    chain = (pre_const, imu_info, edge_valid, rw_info_g, rw_info_a)
+    states = {"pose": kf_pose_wb, "vel": kf_vel, "bg": kf_bg, "ba": kf_ba,
+              "pt": pt_xyz}
+    lm_free = {"pt": pt_free}
+    if with_lines:
+        states["ln"] = ln_ep
+        lm_free["ln"] = ln_free
+    free = {"pose": kf_free, "vel": kf_free, "bg": kf_free_bias,
+            "ba": kf_free_bias}
+    mask, mask_l = obs_valid, lobs_valid
+    for _ in range(rounds):
+        prob = _liba_problem(K, Rcb, tcb, gravity, n_kf, n_pt, n_ln, obs,
+                             mask, lobs, mask_l, chain)
+        states, _, chi2s = E.optimize(prob, states, iters=iters,
+                                      early_tol=early_tol,
+                                      dense_free_mask=free,
+                                      lm_free_mask=lm_free, stats=stats)
+        mask = obs_valid & (chi2s["reproj"] < CHI2_MONO)
+        if with_lines:
+            mask_l = lobs_valid & (chi2s["line"] < CHI2_MONO)
+    return (states["pose"], states["vel"], states["bg"], states["ba"],
+            states["pt"], mask, states["ln"] if with_lines else None,
+            mask_l if with_lines else None)
+
+
+def _stack_pre(pre_const, n_e: int) -> torch.Tensor:
+    """The stacked preintegration constants -> [n_e, 67] (PRE_KEYS order,
+    each row-major), the layout of csrc/inertial.cuh `Pre`."""
+    return torch.cat([pre_const[k].reshape(n_e, -1) for k in PRE_KEYS],
+                     1).contiguous()
+
+
+# pointer-table entries of the inertial window (csrc/ba_common.cuh, after
+# the point+line BA's)
+_LIBA_PTRS = ("kfx", "ckfx", "kf_free_bias", "pre", "imu_info",
+              "edge_valid", "rw_g", "rw_a", "link", "link_cost", "ccost")
+INERTIAL_CHAIN = cuda.Kernel("inertial_chain", "inertial_chain",
+                             [_P, _P, _P, _I, _P])
+CHAIN_LINEARIZE, CHAIN_COST_CAND, CHAIN_COST_STATE = range(3)
+LINK_FLOATS = 465 + 30     # a link's packed 30x30 upper triangle and g
+
+
+def inertial_work(K: PinholeK, Rcb, tcb, gravity: float, kf_pose_wb,
+                  kf_vel, kf_bg, kf_ba, kf_free, kf_free_bias, pt_xyz,
+                  pt_free, obs_kf, obs_pt, obs_uv, obs_valid, obs_is2,
+                  pre_const, imu_info, edge_valid, rw_info_g, rw_info_a,
+                  ln_ep=None, ln_free=None, lobs_kf=None, lobs_ln=None,
+                  lobs_eq=None, lobs_valid=None, early_tol: float = 1e-2):
+    """The kernel path's buffers of one inertial window BA call
+    (`_BAWork` in its inertial configuration), after checking every
+    argument's device, dtype, shape and contiguity."""
+    dev = kf_pose_wb.device
+    f32, i32, b8 = torch.float32, torch.int32, torch.bool
+    n_kf, n_pt, n_obs = kf_pose_wb.shape[0], pt_xyz.shape[0], obs_kf.shape[0]
+    if ln_ep is None:
+        ln_ep = torch.zeros(0, 6, dtype=f32, device=dev)
+        ln_free = lobs_valid = torch.zeros(0, dtype=b8, device=dev)
+        lobs_kf = lobs_ln = torch.zeros(0, dtype=i32, device=dev)
+        lobs_eq = torch.zeros(0, 3, dtype=f32, device=dev)
+    n_ln, n_lobs = ln_ep.shape[0], lobs_kf.shape[0]
+    if n_kf < 2:
+        raise ValueError("local_inertial_ba: at least 2 keyframes")
+    n_e = n_kf - 1
+    pre = _stack_pre(pre_const, n_e)
+    want = [(kf_pose_wb, f32, (n_kf, 3, 4)), (kf_vel, f32, (n_kf, 3)),
+            (kf_bg, f32, (n_kf, 3)), (kf_ba, f32, (n_kf, 3)),
+            (kf_free, b8, (n_kf,)), (kf_free_bias, b8, (n_kf,)),
+            (pt_xyz, f32, (n_pt, 3)), (pt_free, b8, (n_pt,)),
+            (obs_kf, i32, (n_obs,)), (obs_pt, i32, (n_obs,)),
+            (obs_uv, f32, (n_obs, 2)), (obs_valid, b8, (n_obs,)),
+            (obs_is2, f32, (n_obs,)), (pre, f32, (n_e, 67)),
+            (imu_info, f32, (n_e, 9, 9)), (edge_valid, b8, (n_e,)),
+            (rw_info_g, f32, (n_e,)), (rw_info_a, f32, (n_e,)),
+            (ln_ep, f32, (n_ln, 6)), (ln_free, b8, (n_ln,)),
+            (lobs_kf, i32, (n_lobs,)), (lobs_ln, i32, (n_lobs,)),
+            (lobs_eq, f32, (n_lobs, 3)), (lobs_valid, b8, (n_lobs,))]
+    for i, (x, dt, shape) in enumerate(want):
+        if x.dtype != dt or tuple(x.shape) != shape:
+            raise ValueError(f"local_inertial_ba: argument {i} must be {dt} "
+                             f"{shape}, got {x.dtype} {tuple(x.shape)}")
+    cuda.check_cuda("local_inertial_ba", *[x for x, _, _ in want])
+    S = 15 * n_kf
+    if not solve_fits(S):
+        raise ValueError("local_inertial_ba: the packed reduced system must "
+                         "fit in shared memory (n_kf <= 22)")
+    extra = dict(
+        kfx=torch.cat([kf_vel, kf_bg, kf_ba], 1).contiguous(),
+        kf_free_bias=kf_free_bias, pre=pre,
+        imu_info=imu_info.reshape(n_e, 81).contiguous(),
+        edge_valid=edge_valid, rw_g=rw_info_g, rw_a=rw_info_a,
+        Rcb=Rcb, tcb=tcb, gravity=gravity)
+    lobs_is2 = torch.ones(n_lobs, dtype=f32, device=dev)
+    w = _BAWork(K, kf_pose_wb, kf_free, pt_xyz, pt_free, obs_kf, obs_pt,
+                obs_uv, obs_valid, obs_is2, ln_ep, ln_free, lobs_kf, lobs_ln,
+                lobs_eq, lobs_valid, lobs_is2, lam0=1e-4,
+                early_tol=early_tol, cg_iters=min(max(S // 2, 16), 128),
+                inertial=extra)
+    return w
+
+
+def local_inertial_ba(K: PinholeK, Rcb, tcb, gravity: float, kf_pose_wb,
+                      kf_vel, kf_bg, kf_ba, kf_free, kf_free_bias, pt_xyz,
+                      pt_free, obs_kf, obs_pt, obs_uv, obs_valid, obs_is2,
+                      pre_const, imu_info, edge_valid, rw_info_g, rw_info_a,
+                      ln_ep=None, ln_free=None, lobs_kf=None, lobs_ln=None,
+                      lobs_eq=None, lobs_valid=None, rounds: int = 2,
+                      iters: int = 8, early_tol: float = 1e-2, stats=None):
+    """The sliding-window VI BA (see `local_inertial_ba_plain`).  CPU
+    tensors take the plain version; CUDA tensors run every LM iteration on
+    csrc/ba_linearize.cu (body-frame point and line edges),
+    csrc/inertial_chain.cu (inertial and bias random-walk edges) and
+    csrc/schur_solve.cu (the 15-DoF Schur step), with accept/reject, the
+    damping, the early exit and the chi2 re-gating on the device.  `stats`
+    (a list) gets, per round, a device tensor holding the iterations
+    run."""
+    args = (kf_pose_wb, kf_vel, kf_bg, kf_ba, kf_free, kf_free_bias, pt_xyz,
+            pt_free, obs_kf, obs_pt, obs_uv, obs_valid, obs_is2, pre_const,
+            imu_info, edge_valid, rw_info_g, rw_info_a, ln_ep, ln_free,
+            lobs_kf, lobs_ln, lobs_eq, lobs_valid)
+    if kf_pose_wb.device.type == "cpu":
+        return local_inertial_ba_plain(K, Rcb, tcb, gravity, *args,
+                                       rounds=rounds, iters=iters,
+                                       early_tol=early_tol, stats=stats)
+    w = inertial_work(K, Rcb, tcb, gravity, *args, early_tol=early_tol)
+    n_kf = kf_pose_wb.shape[0]
+    with_lines = ln_ep is not None and ln_ep.shape[0] > 0 \
+        and lobs_kf.shape[0] > 0
+    for _ in range(rounds):
+        w.chain(CHAIN_COST_STATE)
+        w.linearize(BA_MODE_INIT)
+        for _ in range(iters):
+            w.step()
+        w.chain(CHAIN_COST_STATE)
+        w.linearize(BA_MODE_REGATE)
+        if stats is not None:
+            stats.append(w.t["ctrl"][4].clone())
+    t = w.t
+    kfx = t["kfx"]
+    return (t["poses"].view(n_kf, 3, 4), kfx[:, 0:3].contiguous(),
+            kfx[:, 3:6].contiguous(), kfx[:, 6:9].contiguous(), t["pts"],
+            t["mask"], t["lns"] if with_lines else None,
+            t["mask_l"] if with_lines else None)
+
+
+# the argument order of make_local_inertial_ba's run, by the names of
+# inputs.build_inertial_window's dict
+LIBA_KEYS = ("kf_pose_wb", "kf_vel", "kf_bg", "kf_ba", "kf_free",
+             "kf_free_bias", "pt_xyz", "pt_free", "obs_kf", "obs_pt",
+             "obs_uv", "obs_valid", "obs_is2", "pre_const", "imu_info",
+             "edge_valid", "rw_info_g", "rw_info_a", "ln_ep6", "ln_free",
+             "lobs_kf", "lobs_ln", "lobs_eq", "lobs_valid")
+
+
+def make_local_inertial_ba(K: PinholeK, n_kf: int, n_pt: int, n_obs: int,
+                           Rcb, tcb, gravity: float, rounds: int = 2,
+                           iters: int = 8, n_ln: int = 0, n_lobs: int = 0,
+                           early_tol: float = 1e-2, plain: bool = False):
+    """run(kf_pose_wb [n_kf,3,4], kf_vel, kf_bg, kf_ba, kf_free,
+    kf_free_bias, pt_xyz [n_pt,3], pt_free, obs_kf, obs_pt [n_obs] int32,
+    obs_uv, obs_valid, obs_is2, pre_const (stacked [n_kf-1, ...]),
+    imu_info [n_kf-1,9,9], edge_valid, rw_info_g, rw_info_a [, ln_ep
+    [n_ln,6], ln_free, lobs_kf, lobs_ln [n_lobs] int32, lobs_eq, lobs_valid],
+    stats=None) -> (pose_wb, vel, bg, ba, pt_xyz, inlier, ln_ep, inlier_l)
+    (the last two None without lines):
+    the sliding-window visual-inertial BA (reference LocalInertialBA /
+    FullInertialBAwithLine), 2 rounds x <= 8 LM iterations, CG reduced
+    solve, early exit at 1e-2, the chi2 re-gate on the point and line
+    edges between rounds; the line edges have information 1.  The sizes
+    are checked against the arguments' shapes.  `plain` runs the plain
+    version on any device."""
+    fn = local_inertial_ba_plain if plain else local_inertial_ba
+    Rcb = torch.as_tensor(np.asarray(Rcb, np.float32))
+    tcb = torch.as_tensor(np.asarray(tcb, np.float32))
+    sizes = {"n_kf": n_kf, "n_pt": n_pt, "n_obs": n_obs, "n_ln": n_ln,
+             "n_lobs": n_lobs}
+
+    def run(*args, stats=None):
+        got = {"n_kf": args[0].shape[0], "n_pt": args[6].shape[0],
+               "n_obs": args[8].shape[0],
+               "n_ln": args[18].shape[0] if len(args) > 18 else 0,
+               "n_lobs": args[20].shape[0] if len(args) > 18 else 0}
+        if got != sizes:
+            raise ValueError(f"local inertial BA built for {sizes}, called "
+                             f"with {got}")
+        # the extrinsic stays on the host: the kernel path reads it as
+        # launch parameters, the plain path moves it to the states' device
+        dt = args[0].dtype
+        return fn(K, Rcb.to(dtype=dt), tcb.to(dtype=dt), gravity, *args,
+                  rounds=rounds, iters=iters, early_tol=early_tol,
+                  stats=stats)
+    return run
+
+
+def _gs_problem(gravity, n_kf, pre_const, pose_R, pose_p, imu_info,
+                edge_valid, prior_g=None, prior_a=None):
+    """The IMU-initialization problem (models/kernels.py:1162-1195):
+    gravity direction, scale, shared biases and per-KF velocities with the
+    poses fixed; the bias priors when prior_g / prior_a are given."""
+    dev = pose_p.device
+    n_e = n_kf - 1
+    i1 = torch.arange(n_e, device=dev)
+    z = torch.zeros(n_e, dtype=torch.int64, device=dev)
+    const = dict(pre_const)
+    const.update(R1=pose_R[:-1], p1=pose_p[:-1], R2=pose_R[1:],
+                 p2=pose_p[1:])
+    prob = E.Problem()
+    prob.add_dense("gdir", 1, 2, RES.retract_gdir)
+    prob.add_dense("scale", 1, 1, RES.retract_scale)
+    prob.add_dense("bg", 1, 3, RES.retract_additive)
+    prob.add_dense("ba", 1, 3, RES.retract_additive)
+    prob.add_dense("vel", n_kf, 3, RES.retract_additive)
+    prob.add_term(E.Term(
+        name="gs", res_fn=RES.make_inertial_gs(gravity), rdim=9,
+        dense_refs=[("gdir", z), ("scale", z), ("bg", z), ("ba", z),
+                    ("vel", i1), ("vel", i1 + 1)],
+        const=const, mask=edge_valid, info=imu_info))
+    if prior_g is not None:
+        z1 = torch.zeros(1, dtype=torch.int64, device=dev)
+        one = torch.ones(1, dtype=torch.bool, device=dev)
+        x0 = torch.zeros(1, 3, dtype=pose_p.dtype, device=dev)
+        for name, info in (("bg", prior_g), ("ba", prior_a)):
+            prob.add_term(E.Term(
+                name=f"prior_{name}", res_fn=RES.state_prior, rdim=3,
+                dense_refs=[(name, z1)], const={"x0": x0}, mask=one,
+                info=torch.full((1,), info, dtype=pose_p.dtype, device=dev)))
+    return prob
+
+
+def inertial_init_plain(gravity: float, Rwg0, vel0, pre_const, pose_R,
+                        pose_p, imu_info, edge_valid, iters: int = 20,
+                        prior_g: float = 1e2, prior_a: float = 1e10):
+    """Plain version of the IMU initialization on the dense engine: every
+    state free from scale 1 and zero biases, `iters` LM iterations (no
+    early exit), Cholesky solve.  Returns (Rwg, scale, bg, ba, vel)."""
+    n_kf = vel0.shape[0]
+    dt_ = vel0.dtype
+    prob = _gs_problem(gravity, n_kf, pre_const, pose_R, pose_p, imu_info,
+                       edge_valid, prior_g, prior_a)
+    z = torch.zeros(1, 3, dtype=dt_, device=vel0.device)
+    states = {"gdir": Rwg0[None], "scale": torch.ones(1, 1, dtype=dt_,
+                                                      device=vel0.device),
+              "bg": z, "ba": z.clone(), "vel": vel0}
+    states, _, _ = E.optimize(prob, states, iters=iters)
+    return (states["gdir"][0], states["scale"][0, 0], states["bg"][0],
+            states["ba"][0], states["vel"])
+
+
+def scale_refine_plain(gravity: float, Rwg0, vel, bg, ba, pre_const, pose_R,
+                       pose_p, imu_info, edge_valid, iters: int = 12):
+    """Plain version of the scale/gravity refinement: the same edges with
+    only the gravity direction and the scale free.  Returns (Rwg,
+    scale)."""
+    n_kf = vel.shape[0]
+    dev = vel.device
+    prob = _gs_problem(gravity, n_kf, pre_const, pose_R, pose_p, imu_info,
+                       edge_valid)
+    states = {"gdir": Rwg0[None], "scale": torch.ones(1, 1, dtype=vel.dtype,
+                                                      device=dev),
+              "bg": bg[None], "ba": ba[None], "vel": vel}
+    t = torch.ones(1, dtype=torch.bool, device=dev)
+    free = {"gdir": t, "scale": t, "bg": ~t, "ba": ~t,
+            "vel": torch.zeros(n_kf, dtype=torch.bool, device=dev)}
+    states, _, _ = E.optimize(prob, states, iters=iters,
+                              dense_free_mask=free)
+    return states["gdir"][0], states["scale"][0, 0]
+
+
+INERTIAL_GS_LM = cuda.Kernel(
+    "inertial_gs_lm", "inertial_gs_lm",
+    [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _P, _P])
+
+
+def inertial_gs_lm(gravity: float, Rwg0, vel0, bg0, ba0, pre_const, pose_R,
+                   pose_p, imu_info, edge_valid, iters: int, refine: bool,
+                   prior_g: float = 0.0, prior_a: float = 0.0):
+    """The dense LM of the IMU initialization (refine False: every state
+    free, the bias priors prior_g / prior_a) or of the scale refinement
+    (refine True: only the gravity direction and the scale free) in one
+    launch of csrc/inertial_gs_lm.cu.  Returns (Rwg [3,3], scale, bg, ba,
+    vel [n_kf,3])."""
+    n = vel0.shape[0]
+    dev = vel0.device
+    f32 = torch.float32
+    if n < 2:
+        raise ValueError("inertial_gs_lm: at least 2 keyframes")
+    state = torch.cat([Rwg0.reshape(-1), torch.ones(1, dtype=f32,
+                                                    device=dev),
+                       bg0, ba0, vel0.reshape(-1)]).contiguous()
+    pre = _stack_pre(pre_const, n - 1)
+    poses = torch.cat([pose_R.reshape(n, 9), pose_p], 1).contiguous()
+    info = imu_info.reshape(n - 1, 81).contiguous()
+    cuda.check_cuda("inertial_gs_lm", state, pre, poses, info, edge_valid)
+    if any(x.dtype != f32 for x in (state, pre, poses, info)) \
+            or edge_valid.dtype != torch.bool \
+            or state.numel() != 16 + 3 * n or pre.shape != (n - 1, 67) \
+            or pose_p.shape != (n, 3) or pose_R.shape != (n, 3, 3) \
+            or info.shape != (n - 1, 81) or edge_valid.shape != (n - 1,):
+        raise ValueError("inertial_gs_lm: shape or dtype mismatch")
+    if 9 + 3 * n > 160:
+        raise ValueError("inertial_gs_lm: the dense system must fit in "
+                         "shared memory (n_kf <= 50)")
+    out = torch.empty(16 + 3 * n, dtype=f32, device=dev)
+    INERTIAL_GS_LM.launch(
+        cuda.ptr(state), cuda.ptr(pre), cuda.ptr(poses), cuda.ptr(info),
+        cuda.ptr(edge_valid), n, iters, int(refine), float(gravity),
+        float(prior_g), float(prior_a), cuda.ptr(out), cuda.stream())
+    return (out[:9].view(3, 3), out[9], out[10:13], out[13:16],
+            out[16:].view(n, 3))
+
+
+def make_inertial_init(gravity: float, n_kf: int, iters: int = 20,
+                       prior_g: float = 1e2, prior_a: float = 1e10,
+                       plain: bool = False):
+    """run(Rwg0 [3,3], vel0 [n_kf,3], pre_const (stacked [n_kf-1, ...]),
+    pose_R [n_kf,3,3], pose_p [n_kf,3], imu_info [n_kf-1,9,9], edge_valid
+    [n_kf-1]) -> (Rwg, scale, bg, ba, vel): the IMU initialization
+    (reference InertialOptimization): gravity direction, scale, shared
+    biases and velocities with the poses fixed, bias priors prior_g /
+    prior_a, `iters` LM iterations.  CUDA tensors launch
+    csrc/inertial_gs_lm.cu; CPU tensors or `plain` run the plain
+    version."""
+    def run(Rwg0, vel0, pre_const, pose_R, pose_p, imu_info, edge_valid):
+        if vel0.shape[0] != n_kf:
+            raise ValueError(f"inertial init built for {n_kf} keyframes, "
+                             f"called with {vel0.shape[0]}")
+        if plain or vel0.device.type == "cpu":
+            return inertial_init_plain(gravity, Rwg0, vel0, pre_const,
+                                       pose_R, pose_p, imu_info, edge_valid,
+                                       iters, prior_g, prior_a)
+        z = torch.zeros(3, dtype=torch.float32, device=vel0.device)
+        return inertial_gs_lm(gravity, Rwg0, vel0, z, z, pre_const, pose_R,
+                              pose_p, imu_info, edge_valid, iters, False,
+                              prior_g, prior_a)
+    return run
+
+
+def make_scale_refine(gravity: float, n_kf: int, iters: int = 12,
+                      plain: bool = False):
+    """run(Rwg0, vel [n_kf,3], bg [3], ba [3], pre_const, pose_R, pose_p,
+    imu_info, edge_valid) -> (Rwg, scale): the periodic scale / gravity
+    refinement (reference ScaleRefinement), the initialization's edges
+    with only the gravity direction and the scale free, `iters` LM
+    iterations.  CUDA tensors launch csrc/inertial_gs_lm.cu; CPU tensors
+    or `plain` run the plain version."""
+    def run(Rwg0, vel, bg, ba, pre_const, pose_R, pose_p, imu_info,
+            edge_valid):
+        if vel.shape[0] != n_kf:
+            raise ValueError(f"scale refinement built for {n_kf} keyframes, "
+                             f"called with {vel.shape[0]}")
+        if plain or vel.device.type == "cpu":
+            return scale_refine_plain(gravity, Rwg0, vel, bg, ba, pre_const,
+                                      pose_R, pose_p, imu_info, edge_valid,
+                                      iters)
+        out = inertial_gs_lm(gravity, Rwg0, vel, bg, ba, pre_const, pose_R,
+                             pose_p, imu_info, edge_valid, iters, True)
+        return out[0], out[1]
+    return run
+
+
+def inertial_dense_system(t, n_kf: int):
+    """(H [15n,15n], g [15n]) float64 of the inertial window as
+    csrc/schur_solve.cu assembles them (undamped, before the fill-in) from
+    the kernel path's buffers `t` (`_BAWork.t` after `ba_linearize`'s and
+    `inertial_chain`'s linearization): the keyframes' visual pose blocks
+    and each link's 30x30 block.  For holding the kernels to the plain
+    engine's `build_normal_equations`."""
+    n = n_kf
+    S = 15 * n
+    dev = t["hcc"].device
+    iu = torch.triu_indices(6, 6, device=dev)
+    Hk = torch.zeros(n, 6, 6, dtype=torch.float64, device=dev)
+    Hk[:, iu[0], iu[1]] = t["hcc"][:, :21].double()
+    Hk[:, iu[1], iu[0]] = t["hcc"][:, :21].double()
+    H = torch.zeros(S, S, dtype=torch.float64, device=dev)
+    H[:6 * n, :6 * n] = torch.block_diag(*Hk.unbind(0))
+    g = torch.zeros(S, dtype=torch.float64, device=dev)
+    g[:6 * n] = t["hcc"][:, 21:].double().reshape(-1)
+    iu = torch.triu_indices(30, 30, device=dev)
+    lk = t["link"][:, :465].double()
+    Hl = torch.zeros(n - 1, 30, 30, dtype=torch.float64, device=dev)
+    Hl[:, iu[0], iu[1]] = lk
+    Hl[:, iu[1], iu[0]] = lk
+    ar3 = torch.arange(3, device=dev)
+    for i in range(n - 1):
+        idx = []
+        for k in (i, i + 1):
+            idx += [6 * k + torch.arange(6, device=dev)]
+            idx += [(6 + 3 * f) * n + 3 * k + ar3 for f in range(3)]
+        idx = torch.cat(idx)
+        H.index_put_((idx[:, None], idx[None, :]), Hl[i], accumulate=True)
+        g.index_put_((idx,), t["link"][i, 465:].double(), accumulate=True)
+    return H, g

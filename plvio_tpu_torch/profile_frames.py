@@ -1,5 +1,5 @@
-"""Where the time of the two tracked frames and the mapping step goes, on
-one CUDA card.
+"""Where the time of the two tracked frames, the mapping step and the
+inertial back end goes, on one CUDA card.
 
     python3 -m plvio_tpu_torch.profile_frames
 
@@ -21,7 +21,11 @@ the point+line frame (`tracking_step_pl`) and the VI frame
 
 The keyframe mapping step (`mapping_step`, both window sizes, from
 `inputs.perturb_window`'s start, 8 steps a pass) gets the same figures
-per step, with the stages epipolar match, triangulate and local BA.
+per step, with the stages epipolar match, triangulate and local BA.  The
+inertial window solve (`inertial_ba_step`, both buckets, perturbed start,
+4 solves a pass) and the IMU initialization with its refinement
+(`imu_init`, 4 of each a pass) get them per call, with each kernel's
+device time as the stages.
 
 Prints the card's `nvidia-smi` name and power limit first.  Needs one
 card; JAX is never imported.
@@ -44,6 +48,7 @@ from .state import from_numpy
 H, W, N_FEAT, CAP_PTS, CAP_LNS, N_LINE, N_FRAMES = 480, 752, 1000, 2048, 128, \
     256, 16
 N_MAP = 8
+N_LIBA = 4
 
 
 def _device_time_us(evt) -> float:
@@ -144,6 +149,12 @@ def mapping_spans(step, run, n_steps: int):
             setattr(step, attr, fn)
 
 
+def no_spans(step, run, n: int):
+    """Paths whose stages are single kernels: the profile's kernel table
+    says where their time goes."""
+    return {}, {}
+
+
 def profile(name, step, run, n_frames: int, spans=stage_spans,
             unit: str = "frame"):
     run()                                        # warm-up
@@ -230,6 +241,26 @@ def main() -> int:
 
         profile(f"mapping step, {name} ({N_MAP} steps, perturbed start)",
                 ms, run_map, N_MAP, spans=mapping_spans, unit="step")
+    for name, sz in (("worst", E.LIBA_WORST), ("half", E.LIBA_HALF)):
+        lb, win = E.inertial_ba_step(**sz, perturbed=True, device=dev)
+
+        @torch.no_grad()
+        def run_liba(lb=lb, win=win):
+            for _ in range(N_LIBA):
+                lb(win)
+
+        profile(f"inertial window solve, {name} ({N_LIBA} solves, perturbed "
+                "start)", lb, run_liba, N_LIBA, spans=no_spans, unit="solve")
+    ii, B = E.imu_init(device=dev)
+
+    @torch.no_grad()
+    def run_init():
+        for _ in range(N_LIBA):
+            ii(B)
+            ii.refine(B)
+
+    profile(f"IMU initialization + refinement ({N_LIBA} of each)", ii,
+            run_init, N_LIBA, spans=no_spans, unit="pair")
     return 0
 
 

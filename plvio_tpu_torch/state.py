@@ -1,4 +1,5 @@
-"""Carry what the JAX package holds over to the port's tensors."""
+"""Carry what the JAX package holds (the map, a pose, the inertial
+window's state) over to the port's tensors."""
 from __future__ import annotations
 
 from typing import Dict
@@ -6,6 +7,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from .models.kernels import PRE_KEYS
 from .ops.frontend import brief_pattern
 from .ops.lines import _band_pair_pattern
 
@@ -42,4 +44,43 @@ def from_numpy(arrays: Dict[str, np.ndarray],
         out[k] = t.to(device)
     out["brief_pattern"] = torch.from_numpy(brief_pattern()).to(device)
     out["lbd_pairs"] = torch.from_numpy(_band_pair_pattern()).to(device)
+    return out
+
+
+_INERTIAL_FLOAT = ("pose_wb", "vel", "bias_g", "bias_a", "imu_info",
+                   "rw_info_g", "rw_info_a")
+
+
+def inertial_from_numpy(arrays: Dict[str, np.ndarray],
+                        device) -> Dict[str, torch.Tensor]:
+    """The JAX package's inertial window state -> the port's tensors.
+
+    Takes any of the keyframes' pose_wb [W,3,4], vel, bias_g, bias_a
+    [W,3], the stacked preintegration constants of
+    `LocalMapper._pre_const` (models/local_mapping.py:892-896: dT, dR, dV,
+    dP, JRg, JVg, JVa, JPg, JPa, bg0, ba0, each [W-1, ...]; top-level keys
+    or a 'pre_const' dict), imu_info [W-1,9,9], edge_valid [W-1] and
+    rw_info_g / rw_info_a [W-1].  Float arrays become float32, edge_valid
+    bool; the constants are returned as out['pre_const']."""
+    out: Dict[str, torch.Tensor] = {}
+    pre = dict(arrays.get("pre_const", {}))
+    for k, v in arrays.items():
+        if k == "pre_const":
+            continue
+        if k in PRE_KEYS:
+            pre[k] = v
+        elif k in _INERTIAL_FLOAT:
+            out[k] = torch.from_numpy(np.ascontiguousarray(
+                v, dtype=np.float32)).to(device)
+        elif k == "edge_valid":
+            out[k] = torch.from_numpy(np.ascontiguousarray(
+                v, dtype=bool)).to(device)
+        else:
+            raise KeyError(f"inertial_from_numpy: unknown array {k!r}")
+    if pre:
+        missing = [k for k in PRE_KEYS if k not in pre]
+        if missing:
+            raise KeyError(f"inertial_from_numpy: pre_const lacks {missing}")
+        out["pre_const"] = {k: torch.from_numpy(np.ascontiguousarray(
+            pre[k], dtype=np.float32)).to(device) for k in PRE_KEYS}
     return out

@@ -115,6 +115,12 @@ DEFAULTS_TO_CARD = {
         4, 256, 512, 128, 32, 64),
     "make_extractor": lambda: FE.make_extractor(96, 160, 60),
     "make_line_extractor": lambda: LN.make_line_extractor(16),
+    "inertial_ba_step": lambda: E.inertial_ba_step(256, 512, 32, 64,
+                                                   n_kf=8, n_observers=3),
+    "imu_init": lambda: E.imu_init(),
+    "build_inertial_window": lambda: IN.build_inertial_window(
+        256, 512, 32, 64, n_kf=8, n_observers=3),
+    "build_imu_init_inputs": lambda: IN.build_imu_init_inputs(),
 }
 
 
@@ -129,13 +135,15 @@ def test_entry_points_default_to_the_card(name):
 
 
 def test_port_never_loads_jax():
-    """The port, chip_smoke.py and the profile load neither JAX nor the
-    JAX package while driving all three entry points on the CPU."""
+    """The port, chip_smoke.py, the profile and the kernel digest load
+    neither JAX nor the JAX package while driving every entry point on the
+    CPU."""
     code = (
         "import sys\n"
         "import torch\n"
         "import chip_smoke\n"
         "import plvio_tpu_torch.profile_frames\n"
+        "import plvio_tpu_torch.kernel_digest\n"
         "from plvio_tpu_torch.entry import tracking_step_pl\n"
         "from plvio_tpu_torch.inputs import build_inputs\n"
         "step, args = tracking_step_pl(96, 160, 60, 32, 8, 16, "
@@ -157,6 +165,16 @@ def test_port_never_loads_jax():
         "d[0]))\n"
         "c, _ = vi(tuple(torch.from_numpy(x) for x in c0), xs, *m)\n"
         "assert c[0].shape == (3, 4) and c[4].shape == (15, 15)\n"
+        "from plvio_tpu_torch.entry import imu_init, inertial_ba_step\n"
+        "lb, W = inertial_ba_step(256, 512, 32, 64, n_kf=8, n_observers=3, "
+        "device='cpu')\n"
+        "o = lb(W)\n"
+        "assert o.pose_wb.shape == (8, 3, 4) and int(o.inlier.sum()) > 0\n"
+        "ii, B = imu_init(device='cpu')\n"
+        "Rwg, s, bg, ba, v = ii(B)\n"
+        "Rwg2, s2 = ii.refine(B)\n"
+        "assert abs(float(s) - 2.0) < 0.1 and abs(float(s2) - 1 / 1.03) < "
+        "0.01\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'plvio_tpu'))\n"
         "assert not bad, bad\n"
