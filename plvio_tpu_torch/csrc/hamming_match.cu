@@ -37,6 +37,16 @@
 // At 1024 x 1024 features the gate leaves a band of a few percent of the
 // columns per row: the kernel is bound by the 1M gate evaluations (~10
 // flops each) and launch latency, not by memory (~100 KB in).
+//
+// A fourth gate mode (mode 3) is the keyframe line pair matcher,
+// `make_line_pair_matcher` (plvio_tpu/models/kernels.py:605-636): a_xy /
+// b_xy then hold the segments' endpoints (xs, ys, xe, ye) and the kernel
+// forms each segment's midpoint and length itself, in the reference's
+// order (the columns' once, into shared memory beside their angles); a
+// pair passes when the squared midpoint distance < r2, the wrapped angle
+// difference < ang_tol, len_a / max(len_b, 1e-6) lies in (0.5, 2) and both
+// lengths exceed 40 px.  At 256 x 256 segments it is launch-bound like the
+// other modes.
 #include "common.cuh"
 
 namespace {
@@ -49,25 +59,40 @@ struct Params {
   const uint32_t* obs_desc;   // [m,8]
   const uint8_t* row_ok;      // [n]
   const uint8_t* col_ok;      // [m]
-  const float2* a_xy;         // [n] predicted positions
-  const float2* b_xy;         // [m] observed positions
+  const float2* a_xy;         // [n] predicted positions (mode 3: [n,4])
+  const float2* b_xy;         // [m] observed positions (mode 3: [m,4])
   const float* a_ang;         // [n] line mode only
   const float* b_ang;         // [m] line mode; epipolar mode: thresholds
   const float* F;             // [9] epipolar mode only, row-major
-  int n, m, line_mode;        // 0 window, 1 line, 2 epipolar
+  int n, m, line_mode;        // 0 window, 1 line, 2 epipolar, 3 pair
   float r2, ang_tol, max_dist, ratio;
   int* idx;                   // [n]
   uint8_t* ok;                // [n]
   uint32_t* col_best;         // [m] (dist<<16)|row, 0xffffffff = none
 };
 
+// Midpoint and length of segment i of ep [*,4] (reference order:
+// (ep[:2] + ep[2:]) / 2 and sqrt(dx^2 + dy^2)).
+__device__ __forceinline__ float2 seg_mid_len(const float2* ep, int i,
+                                              float* len) {
+  const float* e = reinterpret_cast<const float*>(ep) + 4 * i;
+  const float dx = e[2] - e[0], dy = e[3] - e[1];
+  *len = sqrtf(dx * dx + dy * dy);
+  return make_float2((e[0] + e[2]) / 2.f, (e[1] + e[3]) / 2.f);
+}
+
 __global__ void match_rows(Params p) {
   extern __shared__ float4 smem_f4[];
+  const bool pair = p.line_mode == 3;
   float2* s_xy = reinterpret_cast<float2*>(smem_f4);
   float* s_ang = reinterpret_cast<float*>(s_xy + p.m);
-  uint8_t* s_ok = reinterpret_cast<uint8_t*>(s_ang + p.m);
+  float* s_len = s_ang + p.m;                      // mode 3 only
+  uint8_t* s_ok = reinterpret_cast<uint8_t*>(s_len + (pair ? p.m : 0));
   for (int j = threadIdx.x; j < p.m; j += blockDim.x) {
-    s_xy[j] = p.b_xy[j];
+    if (pair)
+      s_xy[j] = seg_mid_len(p.b_xy, j, s_len + j);
+    else
+      s_xy[j] = p.b_xy[j];
     s_ang[j] = p.line_mode ? p.b_ang[j] : 0.f;
     s_ok[j] = p.col_ok[j];
   }
@@ -82,8 +107,9 @@ __global__ void match_rows(Params p) {
     uint32_t a[8];
 #pragma unroll
     for (int w = 0; w < 8; ++w) a[w] = p.map_desc[row * 8 + w];
-    const float2 axy = p.a_xy[row];
-    const float aang = p.line_mode == 1 ? p.a_ang[row] : 0.f;
+    float alen = 0.f;
+    const float2 axy = pair ? seg_mid_len(p.a_xy, row, &alen) : p.a_xy[row];
+    const float aang = (p.line_mode == 1 || pair) ? p.a_ang[row] : 0.f;
     float l0 = 0.f, l1 = 0.f, l2 = 0.f, den = 1.f;
     if (p.line_mode == 2) {
       l0 = (p.F[0] * axy.x + p.F[1] * axy.y) + p.F[2];
@@ -100,6 +126,12 @@ __global__ void match_rows(Params p) {
       if (p.line_mode == 2) {
         const float num = fabsf((l0 * s_xy[j].x + l1 * s_xy[j].y) + l2);
         gate = num / den < s_ang[j];
+      } else if (pair) {
+        float da = fmodf(fabsf(aang - s_ang[j]), PLVIO_PI_F);
+        da = fminf(da, PLVIO_PI_F - da);
+        const float lr = alen / fmaxf(s_len[j], 1e-6f);
+        gate = (d2 < p.r2) && (da < p.ang_tol) && (lr > 0.5f) && (lr < 2.0f)
+            && (alen > 40.f) && (s_len[j] > 40.f);
       } else if (p.line_mode) {
         // |a - b| % pi for a non-negative operand is fmod (jnp.remainder)
         float da = fmodf(fabsf(aang - s_ang[j]), PLVIO_PI_F);
@@ -166,7 +198,9 @@ PLVIO_API int hamming_match(const void* map_desc, const void* obs_desc,
            static_cast<int*>(idx), static_cast<uint8_t*>(ok),
            static_cast<uint32_t*>(col_best)};
   cudaMemsetAsync(col_best, 0xff, size_t(m > 0 ? m : 1) * 4, s);
-  const size_t smem = size_t(m) * (sizeof(float2) + sizeof(float) + 1) + 16;
+  const size_t smem = size_t(m) * (sizeof(float2) + sizeof(float) + 1
+                                    + (line_mode == 3 ? sizeof(float) : 0))
+      + 16;
   match_rows<<<(n + kWarps - 1) / kWarps, kWarps * 32, smem, s>>>(p);
   mutual_check<<<(n + 255) / 256, 256, 0, s>>>(p);
   return static_cast<int>(cudaGetLastError());

@@ -22,6 +22,11 @@ imu_init(...)         -> (module, inputs): IMU initialization
                          (`maybe_initialize_imu`, :1012) and, as
                          `module.refine`, the scale / gravity refinement
                          (`refine_scale`, :948)
+neighborhood_step(...) -> (step, map store): the keyframe step's
+                         neighbourhood work on the port's LocalMapper
+                         (`create_new_lines` :541, `search_in_neighbors`
+                         :329, `local_ba` :697) on a 14-keyframe map
+                         from `inputs.build_keyframe_map`
 entry(device)         -> tracking_step_pl at EuRoC geometry on `device`
 
 Every entry point runs on the card unless the caller passes
@@ -439,6 +444,70 @@ def imu_init(n_kf: int = 32, device="cuda", plain: bool = False):
     dev = resolve_device(device)
     A = build_imu_init_inputs(n_kf, device=dev)
     return ImuInit(n_kf, plain=plain).to(dev), A
+
+
+class NeighborhoodOut(NamedTuple):
+    new_lines: int             # map lines created by create_new_lines
+    n_bound: int               # features bound by the fuse
+    n_merged: int              # landmarks merged by the fuse
+    n_refused: int             # merges the fuse's 3D check refused
+    ba_path: str               # "pt" (make_local_ba), "pl" (make_local_ba_pl)
+    lm_iters: list             # LM iterations per BA round
+    host_syncs: int            # device-to-host reads of the mapper
+
+
+class NeighborhoodStep(nn.Module):
+    """The keyframe step's neighbourhood work on the port's `LocalMapper`
+    (models/local_mapping.py:187-234 of the reference, in its order):
+    `create_new_lines` (line pair matcher + line triangulator against up
+    to 10 covisible neighbours), `search_in_neighbors` (the projection
+    matcher's fuse, forward into the new keyframe and back into up to 10
+    neighbours) and `local_ba` (point-only, or point+line with >= 8
+    multi-view lines in the window), at production's caps: 1000 features,
+    fuse cap 2048, BA window 16 KF x 4096 points x 8192 observations, 512
+    lines x 1024 line observations.
+
+    forward(m, kf=None) -> NeighborhoodOut mutates the port `MapStore` m
+    as the reference mutates its store; kf defaults to the newest valid
+    keyframe."""
+
+    def __init__(self, plain: bool = False, device="cuda",
+                 ba_kf_cap: int = 16, ba_pt_cap: int = 4096,
+                 ba_obs_cap: int = 8192, K: PinholeK = K_EUROC):
+        super().__init__()
+        from .models.local_mapping import LocalMapper
+        self.mapper = LocalMapper(K, ba_kf_cap, ba_pt_cap, ba_obs_cap,
+                                  device=device, plain=plain)
+
+    def forward(self, m, kf=None):
+        mp = self.mapper
+        if kf is None:
+            valid = m.valid_kf_indices()
+            kf = int(valid[np.argmax(m.kf_timestamp[valid])])
+        mp.map = m
+        mp.host_syncs = mp.n_bound = mp.n_merged = mp.n_refused = 0
+        n_ln = m.n_ln
+        mp.create_new_lines(kf)
+        new_lines = m.n_ln - n_ln
+        mp.search_in_neighbors(kf)
+        mp.local_ba(kf)
+        return NeighborhoodOut(new_lines, mp.n_bound, mp.n_merged,
+                               mp.n_refused, mp.ba_path,
+                               [int(x) for x in mp.ba_stats], mp.host_syncs)
+
+
+def neighborhood_step(confirmed_lines: bool = False, seed: int = 0,
+                      device="cuda", plain: bool = False, **caps):
+    """The keyframe step's neighbourhood work (`NeighborhoodStep`, at
+    production's caps unless `caps` names others) and a fresh port
+    `MapStore` of `inputs.build_keyframe_map(confirmed_lines, seed)`:
+    14 keyframes, the new one last."""
+    from .inputs import build_keyframe_map
+    from .state import mapstore_from_numpy
+    dev = resolve_device(device)
+    arrays, _ = build_keyframe_map(confirmed_lines, seed)
+    return (NeighborhoodStep(plain=plain, device=dev, **caps),
+            mapstore_from_numpy(arrays))
 
 
 def entry(device="cuda"):

@@ -578,6 +578,442 @@ def build_inertial_window(n_pt: int = 4096, n_obs: int = 8192,
         imu_acc=f32(acc), imu_dt=f32(dts), imu_mask=b8(mask))
 
 
+# --------------------------------------------------------------------------
+# The keyframe step's neighbourhood: a map of 14 keyframes, the new one last
+# --------------------------------------------------------------------------
+
+KEYFRAME_MAP_KF = 14
+
+
+def _flip_bits(rng, desc, k):
+    """desc [N,8] uint32 with k[i] random bits of row i flipped."""
+    out = desc.copy()
+    for i in np.nonzero(k)[0]:
+        bits = rng.choice(256, int(k[i]), replace=False)
+        for b in bits:
+            out[i, b // 32] ^= np.uint32(1 << (b % 32))
+    return out
+
+
+def _octaves(rng, n):
+    """ORB-like octaves 0..7, each level ~1/1.44 as populated as the one
+    below."""
+    w = 1.2 ** (-2.0 * np.arange(8))
+    return rng.choice(8, n, p=w / w.sum()).astype(np.int32)
+
+
+def _map_segments(rng, kind, n, R_wc, p_wc, K, width, height):
+    """n 3D segments [n,2,3] of one kind, each drawn in the frustum of a
+    random slot: 'normal' (endpoint at 2-8 m, 0.4-2 m long), 'far'
+    (45-60 m, 6-12 m, across the view), 'long' (30-36 m, 21-25 m),
+    'baseline' (2-8 m, 0.6-1.5 m, within 0.2 deg of the direction from the
+    slot's camera centre to the next slot's, so both views' interpretation
+    planes nearly coincide) and 'twin' (pairs crossing at a common
+    midpoint, 0.4-1.0 rad apart in the slot's image; n pairs)."""
+    S = R_wc.shape[0]
+    ref = rng.integers(0, S, n)
+    u = rng.uniform(120.0, width - 120.0, n)
+    v = rng.uniform(100.0, height - 100.0, n)
+    if kind == "far":
+        z, length = rng.uniform(45.0, 60.0, n), rng.uniform(6.0, 12.0, n)
+    elif kind == "long":
+        z, length = rng.uniform(3.0, 6.0, n), rng.uniform(21.0, 25.0, n)
+    else:
+        z = rng.uniform(2.0, 8.0, n)
+        length = rng.uniform(0.4, 2.0, n) if kind != "baseline" \
+            else rng.uniform(0.6, 1.5, n)
+    xc = np.stack([(u - K.cx) / K.fx * z, (v - K.cy) / K.fy * z, z], -1)
+    mid = np.einsum("nij,nj->ni", R_wc[ref], xc) + p_wc[ref]
+    if kind == "far":
+        # across the view: in the slot's image plane
+        a = rng.uniform(0, np.pi, n)
+        dc = np.stack([np.cos(a), np.sin(a), np.zeros(n)], -1)
+        d = np.einsum("nij,nj->ni", R_wc[ref], dc)
+    elif kind == "long":
+        # receding from the near end, within ~6 deg of the optical axis
+        dc = np.concatenate([rng.uniform(-0.1, 0.1, (n, 2)), np.ones((n, 1))],
+                            1)
+        d = np.einsum("nij,nj->ni", R_wc[ref], dc)
+        mid = mid + d / np.linalg.norm(d, axis=1, keepdims=True) \
+            * length[:, None] / 2
+    elif kind == "baseline":
+        # the first half exactly along the last baseline (slot 12 -> 13):
+        # both interpretation planes coincide to rounding
+        ref[:n // 2] = S - 2
+        mid[:n // 2] = np.einsum("nij,nj->ni", R_wc[ref[:n // 2]],
+                                 xc[:n // 2]) + p_wc[ref[:n // 2]]
+        nxt = np.minimum(ref + 1, S - 1)
+        nxt = np.where(nxt == ref, ref - 1, nxt)
+        d = p_wc[nxt] - p_wc[ref]
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        jit = rng.normal(0, 1, (n, 3))
+        jit -= (jit * d).sum(1, keepdims=True) * d
+        jit /= np.linalg.norm(jit, axis=1, keepdims=True)
+        tilt = np.radians(rng.uniform(0.0, 0.2, n))
+        tilt[:n // 2] = 0.0
+        d = d + jit * np.tan(tilt)[:, None]
+    else:
+        d = rng.normal(0, 1, (n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    seg = np.stack([mid - d * length[:, None] / 2,
+                    mid + d * length[:, None] / 2], 1)
+    if kind != "twin":
+        return seg
+    # the twin: the same midpoint, rotated about the slot's viewing ray
+    ray = mid - p_wc[ref]
+    ray /= np.linalg.norm(ray, axis=1, keepdims=True)
+    ang = rng.uniform(0.4, 1.0, n) * rng.choice([-1.0, 1.0], n)
+    rot = lie.so3_exp(torch.from_numpy(ray * ang[:, None])).numpy()
+    d2 = np.einsum("nij,nj->ni", rot, d)
+    twin = np.stack([mid - d2 * length[:, None] / 2,
+                     mid + d2 * length[:, None] / 2], 1)
+    return np.concatenate([seg, twin])
+
+
+def build_keyframe_map(confirmed_lines: bool = False, seed: int = 0):
+    """The map store of the keyframe step's neighbourhood work (numpy,
+    default_rng(seed)): 14 keyframes on the port's orbit (radius 1.5 m,
+    one every 0.15 s, 0.1 m apart), the new one (slot 13) last, at
+    production's capacities (512 KF, 16384 points, 2048 lines, 1000
+    features and 256 line features a keyframe), shaped so that every
+    branch of `create_new_lines`, `search_in_neighbors` and `local_ba`
+    decides something.  What seed 0 reaches (`LocalMapper` at production
+    caps, the same on the port and the JAX mapper,
+    `tests/test_torch_neighborhood.py`):
+
+    - points: 4641 map points at 2-8 m, each bound in 2-3 keyframes that
+      see it (at most 820 a keyframe, 500 in the new one), and 40
+      duplicates; every keyframe also holds features at map points it sees
+      but does not bind and >= 150 unmatched features, 1000 in all; the new
+      keyframe binds 540 and leaves 460 unbound.  Observations: the true
+      projections + 0.4 px x 1.2^octave noise, 2% of them 15 px outliers;
+      stored poses and points perturbed (keyframes 4-13 0.5 mrad / 2 mm,
+      points 3 mm).  The new keyframe has 10 covisible neighbours (13
+      keyframes in the fuse's two hops), whose 4657 points exceed the
+      forward fuse's cap of 2048.
+    - duplicates: 26 landmarks the new keyframe sees but does not bind,
+      duplicated 2 mm away with the same descriptor and bound in the new
+      keyframe (half of them in one more keyframe), and 14 on the new
+      keyframe's ray at +10% depth; the fuse binds 182 features, merges
+      25 landmark pairs and its 3D check refuses 16 merges.
+    - lines: 382 segments (300 of 0.4-2 m at 2-8 m, 16 at 45-60 m, 10
+      receding ones 21-25 m long, 24 within 0.2 deg of a baseline, the
+      first 12 exactly along the last one and seen without noise, 16 twin
+      pairs crossing at 0.4-1.0 rad with 3 bits between their LBDs), seen
+      as 203-256 LBD-described segments a keyframe (3444 in all; 0.3 px
+      noise, 12% of them fragments, half of those only a third), none
+      bound in the new keyframe.  Over the 10 neighbour pairs the pair
+      matcher's gates each decide rows (the match changes without the
+      gate: midpoint 419, angle 91, length ratio 18, 40 px 47), and 18,
+      50 and 4 matched pairs fail only the triangulator's depth,
+      plane-angle and length gates; its agreement and perpendicular-
+      distance gates fail no pair (both reconstructions lie on the two
+      planes' intersection, so no real pair can fail them).
+      `create_new_lines` makes 109 lines (107 with `confirmed_lines`).
+    - BA: the window holds 11 keyframes + 3 fixed observers (14 of 16
+      slots), 4429 points and 10064 observations, which the caps of 4096
+      and 8192 cut; its chi2 gate unbinds 128 observations and 10 points
+      lose their last one.  With `confirmed_lines`, 24 map lines bound in
+      3 (12 of them) or 4 of the keyframes 4-12 make `local_ba` take the
+      point+line path.
+
+    Returns (arrays, truth): `arrays` in the layout of
+    `state.mapstore_to_numpy` (the JAX package's `MapStore` attribute
+    names), truth = dict(kf_pose_cw [14,3,4], pt_xyz [16384,3] (the map
+    points' true positions), new_kf)."""
+    from .models.mapstore import MapStore
+    from .state import mapstore_to_numpy
+    rng = np.random.default_rng(seed)
+    K = K_EUROC
+    width, height = 752, 480
+    n_kf = KEYFRAME_MAP_KF
+    new_kf = n_kf - 1
+    t_kf = (1 + 3 * np.arange(n_kf)) / 20.0
+    traj = syn._eval_orbit(t_kf, 1.5, 0.3, 0.45)
+    R_wc, p_wc = traj.R_wb, traj.p_wb
+    R_cw = np.transpose(R_wc, (0, 2, 1))
+    t_cw = -np.einsum("kij,kj->ki", R_cw, p_wc)
+    m = MapStore(n_feat=1000, n_line_feat=256)
+    F, LF = m.n_feat, m.n_line_feat
+
+    def project(X, k):
+        pc = X @ R_cw[k].T + t_cw[k]
+        return np.stack([K.fx * pc[:, 0] / pc[:, 2] + K.cx,
+                         K.fy * pc[:, 1] / pc[:, 2] + K.cy], -1), pc[:, 2]
+
+    # ---- points and their bindings -------------------------------------
+    n_cand = 9000
+    Xc, _, vis = _frustum_points(rng, n_cand, 3, R_wc, p_wc, K, width,
+                                 height)
+    cap_bound = np.full(n_kf, 820)
+    cap_bound[new_kf] = 500
+    n_bound = np.zeros(n_kf, int)
+    runs = []
+    for i in rng.permutation(n_cand):
+        V = np.nonzero(vis[:, i])[0]
+        V = V[n_bound[V] < cap_bound[V]]
+        run = np.sort(rng.permutation(V)[:int(rng.choice([2, 2, 2, 3, 3]))])
+        if len(run) < 2:
+            continue
+        n_bound[run] += 1
+        runs.append((i, run))
+    n_pt = len(runs)
+    X = np.array([Xc[i] for i, _ in runs])
+    pdesc = rng.integers(0, 2 ** 32, (n_pt, 8), dtype=np.uint32)
+    # per keyframe: (uv, desc, octave, point or -1) of its features
+    feats = [[] for _ in range(n_kf)]
+    bound_in = np.zeros((n_kf, n_pt), bool)
+    for j, (_, run) in enumerate(runs):
+        bound_in[run, j] = True
+    # duplicates of points the new keyframe sees but does not bind
+    vis_new = vis[new_kf, [i for i, _ in runs]]
+    pool = np.nonzero(vis_new & ~bound_in[new_kf])[0]
+    dup_of = rng.choice(pool, 40, replace=False)
+    dX, dpos = [], []
+    for q, j in enumerate(dup_of):
+        if q < 26:                      # 2 mm away: merged
+            off = rng.normal(0, 1, 3)
+            dX.append(X[j] + 0.002 * off / np.linalg.norm(off))
+        else:                           # +10% depth on the new KF's ray
+            dX.append(p_wc[new_kf] + 1.1 * (X[j] - p_wc[new_kf]))
+        dpos.append(j)
+    X = np.concatenate([X, np.array(dX)])
+    pdesc = np.concatenate([pdesc, pdesc[dup_of]])
+    n_all = len(X)
+    bound_in = np.concatenate([bound_in, np.zeros((n_kf, 40), bool)], 1)
+    vis_all = np.concatenate(
+        [vis[:, [i for i, _ in runs]],
+         _visible(np.array(dX), R_wc, p_wc, K, width, height)[0]], 1)
+    for q in range(40):
+        j = n_pt + q
+        bound_in[new_kf, j] = True
+        # some duplicates also in one more keyframe that sees them and
+        # does not bind the original
+        if rng.random() < 0.5:
+            others = np.nonzero(vis_all[:, j] & ~bound_in[:, dup_of[q]])[0]
+            others = others[others != new_kf]
+            if len(others):
+                bound_in[int(rng.choice(others)), j] = True
+    for k in range(n_kf):
+        b = np.nonzero(bound_in[k])[0]
+        for j in b:
+            feats[k].append(j)
+        # map points seen but not bound (originals of the duplicates
+        # excluded in the new keyframe: the duplicate sits there)
+        seen = np.nonzero(vis_all[k] & ~bound_in[k])[0]
+        if k == new_kf:
+            seen = np.setdiff1d(seen, dup_of)
+        n_free = max(0, F - 150 - len(b))
+        feats[k] += list(rng.permutation(seen)[:n_free])
+    # the stored map: perturbed poses (free keyframes) and points
+    pose_true = np.concatenate([R_cw, t_cw[..., None]], -1)
+    pose_map = pose_true.copy()
+    for k in range(4, n_kf):
+        dR = lie.so3_exp(torch.from_numpy(rng.normal(0, 5e-4, 3))).numpy()
+        pose_map[k, :, :3] = dR @ pose_map[k, :, :3]
+        pose_map[k, :, 3] += rng.normal(0, 0.002, 3)
+    X_map = X + rng.normal(0, 0.003, X.shape)
+
+    ids = m.alloc_points(n_all)
+    perm = rng.permutation(n_all)          # point ids in random order
+    pid = ids[perm]
+    m.pt_xyz[pid] = X_map
+    m.pt_desc[pid] = pdesc
+    m.pt_n_obs[pid] = bound_in.sum(0)
+    m.pt_found[pid] = m.pt_n_obs[pid]
+    m.pt_visible[pid] = m.pt_n_obs[pid]
+    m.pt_first_kf[pid] = np.argmax(bound_in, 0)
+    for k in range(n_kf):
+        kf = m.alloc_kf()
+        m.kf_timestamp[kf] = t_kf[k]
+        m.kf_pose_cw[kf] = pose_map[k]
+        if k > 0:
+            m.kf_prev[kf] = kf - 1
+            m.kf_next[kf - 1] = kf
+        js = np.array(feats[k], int)
+        nf = len(js)
+        uv, _ = project(X[js], k)
+        octv = _octaves(rng, F)
+        sig = 0.4 * 1.2 ** octv[:nf]
+        uv = uv + rng.normal(0, 1, uv.shape) * sig[:, None]
+        is_bound = bound_in[k, js]
+        out = is_bound & (rng.random(nf) < 0.02)
+        a = rng.uniform(0, 2 * np.pi, nf)
+        uv[out] += 15.0 * np.stack([np.cos(a), np.sin(a)], -1)[out]
+        desc = _flip_bits(rng, pdesc[js], rng.integers(0, 11, nf))
+        n_noise = F - nf
+        nuv = np.stack([rng.uniform(0, width, n_noise),
+                        rng.uniform(0, height, n_noise)], -1)
+        ndesc = rng.integers(0, 2 ** 32, (n_noise, 8), dtype=np.uint32)
+        order = rng.permutation(F)
+        all_uv = np.concatenate([uv, nuv])[order]
+        all_desc = np.concatenate([desc, ndesc])[order]
+        match = np.concatenate([np.where(is_bound, pid[js], -1),
+                                np.full(n_noise, -1)])[order]
+        m.kf_feat_uv[kf] = all_uv
+        m.kf_feat_uv_raw[kf] = all_uv
+        m.kf_feat_desc[kf] = all_desc
+        m.kf_feat_octave[kf] = octv[order]
+        m.kf_feat_angle[kf] = rng.uniform(0, 360, F)
+        m.kf_feat_valid[kf] = True
+        m.kf_match_pt[kf] = match
+
+    # ---- lines ----------------------------------------------------------
+    kinds = (("normal", 300), ("far", 16), ("long", 10), ("baseline", 24),
+             ("twin", 16))
+    segs, sdesc = [], []
+    for kind, n in kinds:
+        s = _map_segments(rng, kind, n, R_wc, p_wc, K, width, height)
+        d = rng.integers(0, 2 ** 32, (len(s), 8), dtype=np.uint32)
+        if kind == "twin":
+            d[n:] = _flip_bits(rng, d[:n], np.full(n, 3))
+        segs.append(s)
+        sdesc.append(d)
+    segs = np.concatenate(segs)
+    sdesc = np.concatenate(sdesc)
+    b0 = 300 + 16 + 10
+    crisp = set(range(b0, b0 + 12))     # the exact baseline lines
+    n_seg = len(segs)
+    seg_obs = [[] for _ in range(n_kf)]
+    for k in range(n_kf):
+        us, zs = project(segs[:, 0], k)
+        ue, ze = project(segs[:, 1], k)
+        inside = [(w[:, 0] >= 4) & (w[:, 0] < width - 4) & (w[:, 1] >= 4)
+                  & (w[:, 1] < height - 4) for w in (us, ue)]
+        ok = (zs > 0.1) & (ze > 0.1) & inside[0] & inside[1]
+        ii = rng.permutation(np.nonzero(ok)[0])[:LF]
+        for i in ii:
+            a, b = us[i].copy(), ue[i].copy()
+            r = rng.random()
+            if r < 0.06:                # only a third of it
+                t0 = 0.0 if rng.random() < 0.5 else 0.65
+                a, b = a + t0 * (b - a), a + (t0 + 0.35) * (b - a)
+            elif r < 0.12:              # a fragment
+                t0, t1 = rng.uniform(0, 0.45), rng.uniform(0.55, 1.0)
+                a, b = a + t0 * (b - a), a + t1 * (b - a)
+            if rng.random() < 0.5:
+                a, b = b, a
+            ep = np.concatenate([a, b]) + rng.normal(0, 0.3, 4) \
+                * (i not in crisp)
+            seg_obs[k].append((i, ep))
+    line_of = np.full((n_kf, LF), -1)
+    for k in range(n_kf):
+        n = len(seg_obs[k])
+        m.kf_line_ep[k, :n] = np.array([e for _, e in seg_obs[k]])
+        si = np.array([i for i, _ in seg_obs[k]], int)
+        m.kf_line_desc[k, :n] = _flip_bits(rng, sdesc[si],
+                                           rng.integers(0, 13, n))
+        m.kf_line_valid[k, :n] = True
+        line_of[k, :n] = si
+    if confirmed_lines:
+        normal = np.arange(300)
+        seen = np.array([[(line_of[k] == i).any() for i in normal]
+                         for k in range(4, new_kf)])
+        cand = normal[seen.sum(0) >= 4]
+        pick = rng.choice(cand, 24, replace=False)
+        lns = m.alloc_lines(24)
+        for ln, i in zip(lns, pick):
+            ks = np.nonzero(seen[:, i])[0] + 4
+            ks = rng.permutation(ks)[:int(rng.integers(3, 5))]
+            for k in ks:
+                m.kf_match_ln[k, np.nonzero(line_of[k] == i)[0][0]] = ln
+            m.ln_ep[ln] = segs[i].reshape(6) + rng.normal(0, 0.01, 6)
+            m.ln_desc[ln] = sdesc[i]
+            m.ln_first_kf[ln] = int(ks.min())
+            m.ln_n_obs[ln] = len(ks)
+            m.ln_found[ln] = len(ks)
+            m.ln_visible[ln] = len(ks)
+    for k in range(n_kf):
+        m.update_covisibility(k)
+    pt_true = np.zeros_like(m.pt_xyz)
+    pt_true[pid] = X
+    truth = dict(kf_pose_cw=pose_true.astype(np.float32),
+                 pt_xyz=pt_true.astype(np.float32), new_kf=new_kf)
+    return mapstore_to_numpy(m), truth
+
+
+def build_projection_case(seed: int = 0):
+    """A case of the projection matcher at its path's shapes in which every
+    gate decides some rows (numpy, default_rng(seed)): a random pose;
+    2048 points (4% behind the camera, 1% nearer than 5 cm, 5% outside
+    the image, 1% of them in the strip between u = 2 cx and the image's
+    752 px edge, 5% invalid) and 1000 features: 650 at points' projections
+    (the near, the strip's and some invalid ones among them) with noise up
+    to ~1.5 windows and 0-70 flipped bits, 60 second features next to a
+    point's (the ratio test), 40 points duplicated next to another
+    (mutual), the rest unmatched; octaves 0-7; per point a distance range
+    (10% of them excluding the point, 10% off) and a viewing normal (10%
+    beyond 60 deg, 10% zero).  Returns a dict of the matcher's arguments
+    (pose, pt_xyz, pt_desc [P,8] uint32, pt_valid, feat_uv, feat_desc,
+    feat_octave, feat_valid) and the frustum statistics (pt_normal,
+    pt_min_dist, pt_max_dist)."""
+    K = K_EUROC
+    P, F = 2048, 1000
+    rng = np.random.default_rng(seed)
+    R = lie.so3_exp(torch.tensor(rng.normal(0, 0.3, 3))).numpy()
+    t = rng.normal(0, 0.5, 3)
+    pose = np.concatenate([R, t[:, None]], 1).astype(np.float32)
+    u = rng.uniform(0, 2 * K.cx, P)
+    v = rng.uniform(0, 2 * K.cy, P)
+    z = rng.uniform(2, 8, P)
+    z[:80] = rng.uniform(-3, 0.04, 80)                    # behind
+    z[80:100] = rng.uniform(0.01, 0.045, 20)              # too near
+    u[100:180] += rng.choice([-1, 1], 80) * rng.uniform(2 * K.cx, 900, 80)
+    u[180:200] = 2 * K.cx + rng.uniform(0.1, 15.0, 20)    # past 2 cx
+    xc = np.stack([(u - K.cx) / K.fx * z, (v - K.cy) / K.fy * z, z], -1)
+    X = (xc - t) @ R                                       # R^T (xc - t)
+    X[1960:2000] = X[1000:1040] + 0.001                   # duplicates
+    valid = np.ones(P, bool)
+    valid[200:300] = False
+    desc = rng.integers(0, 2 ** 32, (P, 8), dtype=np.uint32)
+    desc[1960:2000] = desc[1000:1040]
+    # features
+    src = np.concatenate([np.arange(80, 100), np.arange(180, 200),
+                          rng.choice(np.arange(200, 300), 20, replace=False),
+                          rng.choice(np.arange(300, 1960), 590,
+                                     replace=False)])
+    octave = rng.integers(0, 8, F).astype(np.int32)
+    win = np.float32(1.2) ** octave[:650]
+    uv_src = np.stack([u[src], v[src]], -1)
+    off = rng.normal(0, 1, (650, 2))
+    off /= np.linalg.norm(off, axis=1, keepdims=True)
+    fuv = uv_src + off * (rng.uniform(0, 1.5, 650) * 2.0 * win)[:, None]
+    fdesc = _flip_bits(rng, desc[src], rng.integers(0, 70, 650))
+    # 60 second features at 0.5 px from a matched one, similar descriptors
+    twin = rng.choice(650, 60, replace=False)
+    tuv = fuv[twin] + 0.5
+    tdesc = _flip_bits(rng, fdesc[twin], rng.integers(0, 6, 60))
+    n_rest = F - 650 - 60
+    ruv = np.stack([rng.uniform(0, 2 * K.cx, n_rest),
+                    rng.uniform(0, 2 * K.cy, n_rest)], -1)
+    rdesc = rng.integers(0, 2 ** 32, (n_rest, 8), dtype=np.uint32)
+    perm = rng.permutation(F)
+    feat_uv = np.concatenate([fuv, tuv, ruv])[perm].astype(np.float32)
+    feat_desc = np.concatenate([fdesc, tdesc, rdesc])[perm]
+    feat_octave = octave[perm]
+    feat_valid = rng.random(F) < 0.97
+    # frustum: range and normal
+    C = -R.T @ t
+    d_cam = np.linalg.norm(X - C, axis=1)
+    mn, mx = d_cam / 1.5, d_cam * 1.4
+    bad = rng.random(P) < 0.1
+    mn[bad] = d_cam[bad] * rng.uniform(1.3, 2.0, bad.sum())
+    off_r = rng.random(P) < 0.1
+    mx[off_r] = 0.0
+    view = (X - C) / d_cam[:, None]
+    normal = view + rng.normal(0, 0.2, (P, 3))
+    away = rng.random(P) < 0.1
+    normal[away] = -view[away] + rng.normal(0, 0.3, (away.sum(), 3))
+    normal /= np.linalg.norm(normal, axis=1, keepdims=True)
+    normal[rng.random(P) < 0.1] = 0.0
+    f32 = np.float32
+    return dict(pose=pose, pt_xyz=X.astype(f32), pt_desc=desc,
+                pt_valid=valid, feat_uv=feat_uv, feat_desc=feat_desc,
+                feat_octave=feat_octave, feat_valid=feat_valid,
+                pt_normal=normal.astype(f32), pt_min_dist=mn.astype(f32),
+                pt_max_dist=mx.astype(f32))
+
+
 def build_imu_init_inputs(n_kf: int = 32, seed: int = 0, device="cuda"):
     """The chain of the IMU initialization and of the scale refinement
     (after tests/test_imu_init.py:20-68), numpy default_rng(seed).

@@ -12,7 +12,10 @@ points both trees have) and compare the printed lines:
   and the next prior H15;
 - `mapping_step`: the keyframe mapping step at the typical bucket from
   `inputs.perturb_window`'s start: KF poses, points, lines and both
-  inlier masks.
+  inlier masks;
+- `hamming_match`: its window, line and epipolar gate modes (0-2) through
+  `ops.matching.hamming_match` on fixed inputs (700 x 500, seed 4): idx
+  and ok.
 
 Needs one card; JAX is never imported.
 """
@@ -84,6 +87,29 @@ def vi_case(dev):
             d(prior_const), d(torch.eye(15) * 100.0)]
 
 
+def hamming_cases(dev):
+    """(name, args, keywords) of hamming_match's modes 0-2 on fixed
+    inputs: random two-bit descriptors (many ties), positions in a 120 px
+    square, angles, and a fundamental matrix with per-column thresholds."""
+    g = torch.Generator().manual_seed(4)
+    n, m = 700, 500
+    args = [(torch.randint(0, 4, (n, 8), generator=g) << 30).to(torch.int32),
+            (torch.randint(0, 4, (m, 8), generator=g) << 30).to(torch.int32),
+            torch.rand(n, generator=g) < 0.9, torch.rand(m, generator=g) < 0.9,
+            torch.rand(n, 2, generator=g) * 120,
+            torch.rand(m, 2, generator=g) * 120]
+    args = [t.to(dev) for t in args]
+    ang = [(torch.rand(k, generator=g) * 3.1415).to(dev) for k in (n, m)]
+    F = torch.tensor([[0.0, -1e-3, 0.05], [1e-3, 0.0, -0.08],
+                      [-0.05, 0.08, 1.0]], device=dev)
+    th = (2.0 + torch.rand(m, generator=g) * 4).to(dev)
+    return [("window", args, dict(radius=20.0, max_dist=80.0, ratio=0.9)),
+            ("line", args, dict(radius=40.0, max_dist=110.0, ratio=0.95,
+                                a_ang=ang[0], b_ang=ang[1], angle_tol=0.25)),
+            ("epipolar", args, dict(radius=0.0, max_dist=60.0, ratio=0.8,
+                                    epi_F=F, epi_th=th))]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_digest: no CUDA device", file=sys.stderr)
@@ -105,6 +131,9 @@ def main() -> int:
         o = step(A)
     print(f"mapping_step typical perturbed "
           f"{digest((o.kf_poses, o.pt_xyz, o.ln_ep6, o.inlier, o.inlier_l))}")
+    from plvio_tpu_torch.ops import matching as M
+    for name, args, kw in hamming_cases(dev):
+        print(f"hamming_match {name} {digest(M.hamming_match(*args, **kw))}")
     return 0
 
 

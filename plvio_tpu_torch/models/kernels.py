@@ -1,7 +1,9 @@
 """Tracking and mapping kernels (port of plvio_tpu/models/kernels.py:
 `fast_pose_opt` :111, `fast_pose_opt_pl` :179, `line_proj_match_core`
-:355, `make_local_ba_pl` :641, `make_epipolar_matcher` :828,
-`make_triangulator` :878, `make_vi_pose_optimizer` :932).
+:355, `make_line_triangulator` :389, `make_line_pair_matcher` :605,
+`make_local_ba_pl` :641, `make_projection_matcher` :767,
+`make_epipolar_matcher` :828, `make_triangulator` :878,
+`make_vi_pose_optimizer` :932, `make_local_ba` :1307).
 
 `pose_irls` is the hand-written CUDA kernel (csrc/pose_irls.cu) for the
 fused point+line pose IRLS; `pose_irls_plain` beside it is the same
@@ -18,6 +20,13 @@ kernel in its epipolar gate mode, then `rot_hist`), `make_triangulator`
 whose kernel path runs every LM iteration on csrc/ba_linearize.cu and
 csrc/schur_solve.cu with the accept/reject and early exit on the device;
 its plain version `local_ba_pl_plain` runs the engine's Schur path.
+
+The keyframe step's neighbourhood work: `make_line_pair_matcher` (the
+`hamming_match` kernel's line pair mode), `make_line_triangulator`
+(csrc/line_triangulate.cu beside `line_triangulate_plain`),
+`make_projection_matcher` (csrc/proj_match.cu beside `proj_match_plain`;
+the fuse's and the tracker's matcher) and `make_local_ba`, the point-only
+window BA (`local_ba_pl`'s kernel path with an empty line family).
 """
 from __future__ import annotations
 
@@ -562,16 +571,21 @@ def make_triangulator(K: PinholeK, plain: bool = False):
 
 
 def _ba_problem(K, n_kf, n_pt, n_ln, obs_kf, obs_pt, obs_uv, mask, obs_is2,
-                lobs_kf, lobs_ln, lobs_eq, mask_l, lobs_is2):
+                lobs_kf=None, lobs_ln=None, lobs_eq=None, mask_l=None,
+                lobs_is2=None):
+    """The windowed BA's problem: keyframe poses, Schur-eliminated points
+    and (lobs_kf given) line endpoints."""
     prob = E.Problem(linear_solver="cg")
     prob.add_dense("pose", n_kf, 6, RES.retract_pose_cw)
     prob.add_landmarks("pt", n_pt, 3, RES.retract_additive)
-    prob.add_landmarks("ln", n_ln, 6, RES.retract_additive)
     delta = float(math.sqrt(CHI2_MONO))
     prob.add_term(E.Term(
         name="reproj", res_fn=RES.point_reproj_ba_for(K), rdim=2,
         dense_refs=[("pose", obs_kf)], lm_ref=("pt", obs_pt),
         const={"uv": obs_uv}, mask=mask, info=obs_is2, robust_delta=delta))
+    if lobs_kf is None:
+        return prob
+    prob.add_landmarks("ln", n_ln, 6, RES.retract_additive)
     prob.add_term(E.Term(
         name="line", res_fn=RES.make_line_reproj(K), rdim=2,
         dense_refs=[("pose", lobs_kf)], lm_ref=("ln", lobs_ln),
@@ -804,6 +818,411 @@ def make_local_ba_pl(K: PinholeK, rounds: int = 2, iters: int = 8,
     def run(*args, stats=None):
         return fn(K, *args, rounds=rounds, iters=iters, early_tol=early_tol,
                   stats=stats)
+    return run
+
+
+def local_ba_plain(K: PinholeK, kf_poses, kf_free, pt_xyz, pt_free, obs_kf,
+                   obs_pt, obs_uv, obs_valid, obs_is2, rounds: int = 2,
+                   iters: int = 8, early_tol: float = 1e-2, stats=None):
+    """Plain version of the point-only windowed BA (models/kernels.py:1307)
+    on the engine, as `local_ba_pl_plain` without the line family.
+    Returns (kf_poses, pt_xyz, inlier [n_obs])."""
+    n_kf, n_pt = kf_poses.shape[0], pt_xyz.shape[0]
+    okf, opt = obs_kf.long(), obs_pt.long()
+    states = {"pose": kf_poses, "pt": pt_xyz}
+    mask = obs_valid
+    for _ in range(rounds):
+        prob = _ba_problem(K, n_kf, n_pt, 0, okf, opt, obs_uv, mask, obs_is2)
+        states, _, chi2s = E.optimize(
+            prob, states, iters=iters, early_tol=early_tol,
+            dense_free_mask={"pose": kf_free}, lm_free_mask={"pt": pt_free},
+            stats=stats)
+        mask = obs_valid & (chi2s["reproj"] < CHI2_MONO)
+    return states["pose"], states["pt"], mask
+
+
+def local_ba(K: PinholeK, kf_poses, kf_free, pt_xyz, pt_free, obs_kf, obs_pt,
+             obs_uv, obs_valid, obs_is2, rounds: int = 2, iters: int = 8,
+             early_tol: float = 1e-2, stats=None):
+    """The point-only windowed BA (see `local_ba_plain`).  CPU tensors take
+    the plain version; CUDA tensors run `local_ba_pl`'s kernel path with
+    an empty line family (csrc/ba_linearize.cu and csrc/schur_solve.cu
+    skip their line loops at n_ln = n_lobs = 0)."""
+    if kf_poses.device.type == "cpu":
+        return local_ba_plain(K, kf_poses, kf_free, pt_xyz, pt_free, obs_kf,
+                              obs_pt, obs_uv, obs_valid, obs_is2, rounds,
+                              iters, early_tol, stats)
+    out = local_ba_pl(K, kf_poses, kf_free, pt_xyz, pt_free, obs_kf, obs_pt,
+                      obs_uv, obs_valid, obs_is2, *no_lines(kf_poses.device),
+                      rounds=rounds, iters=iters, early_tol=early_tol,
+                      stats=stats)
+    return out[0], out[1], out[3]
+
+
+def no_lines(dev):
+    """An empty line family for the point+line BA's arguments: (ln_ep
+    [0,6], ln_free, lobs_kf, lobs_ln, lobs_eq [0,3], lobs_valid,
+    lobs_is2)."""
+    f32, i32, b8 = torch.float32, torch.int32, torch.bool
+    return (torch.zeros(0, 6, dtype=f32, device=dev),
+            torch.zeros(0, dtype=b8, device=dev),
+            torch.zeros(0, dtype=i32, device=dev),
+            torch.zeros(0, dtype=i32, device=dev),
+            torch.zeros(0, 3, dtype=f32, device=dev),
+            torch.zeros(0, dtype=b8, device=dev),
+            torch.zeros(0, dtype=f32, device=dev))
+
+
+def make_local_ba(K: PinholeK, rounds: int = 2, iters: int = 8,
+                  early_tol: float = 1e-2, plain: bool = False):
+    """run(kf_poses [n_kf,3,4] T_cw, kf_free, pt_xyz [n_pt,3], pt_free,
+    obs_kf, obs_pt [n_obs] int32, obs_uv, obs_valid, obs_is2, stats=None)
+    -> (kf_poses, pt_xyz, inlier): the point-only windowed BA (reference
+    LocalBundleAdjustment), 2 rounds x <= 8 LM iterations, CG reduced
+    solve with min(max(6 n_kf // 2, 16), 128) steps, early exit at 1e-2,
+    the chi2 gate re-applied between rounds.  `plain` runs the plain
+    version on any device."""
+    fn = local_ba_plain if plain else local_ba
+
+    def run(*args, stats=None):
+        return fn(K, *args, rounds=rounds, iters=iters, early_tol=early_tol,
+                  stats=stats)
+    return run
+
+
+# --------------------------------------------------------------------------
+# The keyframe step's neighbourhood work: the line pair matcher, the line
+# triangulator and the fuse / tracker projection matcher
+# --------------------------------------------------------------------------
+
+def make_line_pair_matcher(plain: bool = False):
+    """run(ep1 [F,4], d1 [F,8] int32, ang1 [F], ok1, ep2 [F,4], d2, ang2,
+    ok2, radius=80.0, angle_tol=0.25) -> (idx2 [F] int32, ok [F]): line
+    observations of two keyframes matched by LBD NN (ratio 0.95, max 110,
+    mutual) under the midpoint, angle, length-ratio and 40 px gates
+    (`ops.matching.line_pair_gate`).  CUDA tensors run the
+    `hamming_match` kernel in its line pair mode; `plain` runs its plain
+    version."""
+    match = M.hamming_match_plain if plain else M.hamming_match
+
+    def run(ep1, d1, ang1, ok1, ep2, d2, ang2, ok2, radius: float = 80.0,
+            angle_tol: float = 0.25):
+        return match(d1, d2, ok1, ok2, ep1.contiguous(), ep2.contiguous(),
+                     radius=radius, max_dist=110.0, ratio=0.95,
+                     a_ang=ang1.contiguous(), b_ang=ang2.contiguous(),
+                     angle_tol=angle_tol, pair=True)
+    return run
+
+
+def _v3(a):
+    """[N,3] -> its three columns."""
+    return [a[:, 0], a[:, 1], a[:, 2]]
+
+
+def _dot3(a, b):
+    return (a[0] * b[0] + a[1] * b[1]) + a[2] * b[2]
+
+
+def _norm3(a):
+    return torch.sqrt((a[0] * a[0] + a[1] * a[1]) + a[2] * a[2])
+
+
+def _centre(R, t):
+    """-R^T t, each entry summed in row order."""
+    return [-((R[0, c] * t[0] + R[1, c] * t[1]) + R[2, c] * t[2])
+            for c in range(3)]
+
+
+def line_triangulate_plain(K: PinholeK, pose1, pose2, ep1, ep2, valid,
+                           max_depth: float = 40.0):
+    """Plain version of `line_triangulate` (models/kernels.py:400-483),
+    column by column in the reference's operation order (each 3-vector
+    product summed as (x0 y0 + x1 y1) + x2 y2).  Returns (Xs_w [N,3], Xe_w
+    [N,3], good [N])."""
+    R1, t1 = pose1[:, :3], pose1[:, 3]
+    R2, t2 = pose2[:, :3], pose2[:, 3]
+    C1, C2 = _centre(R1, t1), _centre(R2, t2)
+    one = torch.ones_like(ep1[:, 0])
+
+    def times_R(x, R):              # row vector x times R
+        return [(x[0] * R[0, c] + x[1] * R[1, c]) + x[2] * R[2, c]
+                for c in range(3)]
+
+    def ray(R, ep, k):
+        return times_R([(ep[:, k] - K.cx) / K.fx,
+                        (ep[:, k + 1] - K.cy) / K.fy, one], R)
+
+    def plane_n(R, ep):
+        rs = [(ep[:, 0] - K.cx) / K.fx, (ep[:, 1] - K.cy) / K.fy, one]
+        re = [(ep[:, 2] - K.cx) / K.fx, (ep[:, 3] - K.cy) / K.fy, one]
+        return times_R([rs[1] * re[2] - rs[2] * re[1],
+                        rs[2] * re[0] - rs[0] * re[2],
+                        rs[0] * re[1] - rs[1] * re[0]], R)
+
+    def intersect(Cf, d, n, Con):
+        denom = _dot3(n, d)
+        tt = _dot3(n, [Con[i] - Cf[i] for i in range(3)]) / torch.where(
+            torch.abs(denom) < 1e-9, torch.full_like(denom, 1e-9), denom)
+        return [Cf[i] + tt * d[i] for i in range(3)]
+
+    n2 = plane_n(R2, ep2)
+    XsA = intersect(C1, ray(R1, ep1, 0), n2, C2)
+    XeA = intersect(C1, ray(R1, ep1, 2), n2, C2)
+    n1 = plane_n(R1, ep1)
+    XsB = intersect(C2, ray(R2, ep2, 0), n1, C1)
+    XeB = intersect(C2, ray(R2, ep2, 2), n1, C1)
+
+    def depth(R, t, X):
+        return ((X[0] * R[2, 0] + X[1] * R[2, 1]) + X[2] * R[2, 2]) + t[2]
+
+    good = valid
+    for X in (XsA, XeA, XsB, XeB):
+        za, zb = depth(R1, t1, X), depth(R2, t2, X)
+        good = good & (za > 0.05) & (zb > 0.05) & (za < max_depth) \
+            & (zb < max_depth)
+    for X in (XsA, XeA, XsB, XeB):
+        good = good & torch.isfinite(X[0]) & torch.isfinite(X[1]) \
+            & torch.isfinite(X[2])
+
+    def unit(a):
+        nrm = torch.clamp_min(_norm3(a), 1e-9)
+        return [a[i] / nrm for i in range(3)]
+
+    good = good & (torch.abs(_dot3(unit(n1), unit(n2))) < 0.99995)
+    uA = unit([XeA[i] - XsA[i] for i in range(3)])
+    uB = unit([XeB[i] - XsB[i] for i in range(3)])
+    good = good & (torch.abs(_dot3(uA, uB)) > 0.996)
+
+    def perp(X):
+        v = [X[i] - XsA[i] for i in range(3)]
+        s = _dot3(v, uA)
+        return _norm3([v[i] - s * uA[i] for i in range(3)])
+
+    scale = torch.clamp_min(
+        depth(R1, t1, [(XsA[i] + XeA[i]) / 2 for i in range(3)]), 0.1)
+    tol = 0.02 * scale
+    good = good & (perp(XsB) < tol) & (perp(XeB) < tol)
+    seg = _norm3([XeA[i] - XsA[i] for i in range(3)])
+    good = good & (seg > 0.05) & (seg < 20.0)
+    return torch.stack(XsA, -1), torch.stack(XeA, -1), good
+
+
+LINE_TRIANGULATE = cuda.Kernel(
+    "line_triangulate", "line_triangulate",
+    [_P, _P, _P, _P, _P, _I, _F, _F, _F, _F, _F, _P, _P, _P, _P])
+
+
+def line_triangulate(K: PinholeK, pose1, pose2, ep1, ep2, valid,
+                     max_depth: float = 40.0):
+    """Line triangulation by interpretation-plane intersection (pose1 /
+    pose2 [3,4] T_cw, ep1 / ep2 [N,4] matched segments, valid [N] bool):
+    view 1's endpoint rays on view 2's plane, and the reverse, with the
+    depth, finiteness, plane-angle, agreement, perpendicular-distance and
+    length gates.  Returns (Xs_w [N,3], Xe_w [N,3], good [N]).  CPU tensors
+    take the plain version; CUDA tensors launch csrc/line_triangulate.cu."""
+    if valid.device.type == "cpu":
+        return line_triangulate_plain(K, pose1, pose2, ep1, ep2, valid,
+                                      max_depth)
+    n = ep1.shape[0]
+    cuda.check_cuda("line_triangulate", pose1, pose2, ep1, ep2, valid)
+    f32 = torch.float32
+    if any(t.dtype != f32 for t in (pose1, pose2, ep1, ep2)) \
+            or valid.dtype != torch.bool or pose1.shape != (3, 4) \
+            or pose2.shape != (3, 4) or ep1.shape != (n, 4) \
+            or ep2.shape != (n, 4) or valid.shape != (n,):
+        raise ValueError("line_triangulate: float32 poses [3,4], segments "
+                         "[N,4] and a bool valid [N]")
+    dev = ep1.device
+    Xs = torch.empty(n, 3, dtype=f32, device=dev)
+    Xe = torch.empty(n, 3, dtype=f32, device=dev)
+    good = torch.empty(n, dtype=torch.bool, device=dev)
+    LINE_TRIANGULATE.launch(
+        cuda.ptr(pose1), cuda.ptr(pose2), cuda.ptr(ep1), cuda.ptr(ep2),
+        cuda.ptr(valid), n, K.fx, K.fy, K.cx, K.cy, float(max_depth),
+        cuda.ptr(Xs), cuda.ptr(Xe), cuda.ptr(good), cuda.stream())
+    return Xs, Xe, good
+
+
+def make_line_triangulator(K: PinholeK, plain: bool = False):
+    """run(pose1, pose2, ep1 [N,4], ep2 [N,4], valid, max_depth=40.0) ->
+    (Xs_w [N,3], Xe_w [N,3], good [N]) (see `line_triangulate`); `plain`
+    runs the plain version on any device."""
+    fn = line_triangulate_plain if plain else line_triangulate
+
+    def run(pose1, pose2, ep1, ep2, valid, max_depth: float = 40.0):
+        return fn(K, pose1.contiguous(), pose2.contiguous(),
+                  ep1.contiguous(), ep2.contiguous(), valid, max_depth)
+    return run
+
+
+# 1.2 ** octave for octaves 0..7 as the reference's float32 power gives it
+# (float32(1.2) raised in float64, rounded to float32; a CPU test holds it
+# to JAX's `1.2 ** feat_octave.astype(float32)`)
+OCTAVE_SCALE = np.float32(np.float64(np.float32(1.2)) ** np.arange(8))
+
+
+def project_gates(K: PinholeK, pose, pt_xyz, pt_valid, pt_normal=None,
+                  pt_min_dist=None, pt_max_dist=None):
+    """Map points into the frame (models/kernels.py:780-805): (uv_proj
+    [P,2], proj_ok [P]) with the depth guard z > 0.05, the image gate u in
+    [0, 2 cx), v in [0, 2 cy), and with pt_min_dist / pt_max_dist the
+    distance-range gate (0.8 min, 1.2 max; off where max <= 1e-6), with
+    pt_normal too the viewing-angle gate cos > 0.5 (off where the normal is
+    zero).  Every 3-vector product summed as (x0 y0 + x1 y1) + x2 y2."""
+    R, t = pose[:, :3], pose[:, 3]
+    X = _v3(pt_xyz)
+    pc = [_dot3([R[i, 0], R[i, 1], R[i, 2]], X) + t[i] for i in range(3)]
+    z = pc[2]
+    zc = torch.clamp_min(z, 1e-6)
+    u = K.fx * pc[0] / zc + K.cx
+    v = K.fy * pc[1] / zc + K.cy
+    ok = pt_valid & (z > 0.05) & (u >= 0) & (u < 2 * K.cx) & (v >= 0) \
+        & (v < 2 * K.cy)
+    if pt_min_dist is not None:
+        C = _centre(R, t)
+        view = [X[i] - C[i] for i in range(3)]
+        d_cam = _norm3(view)
+        has_range = pt_max_dist > 1e-6
+        ok = ok & (~has_range | ((d_cam > 0.8 * pt_min_dist)
+                                 & (d_cam < 1.2 * pt_max_dist)))
+        if pt_normal is not None:
+            nrm = _v3(pt_normal)
+            nn = _norm3(nrm)
+            cos_v = _dot3(view, nrm) / torch.clamp_min(d_cam * nn, 1e-9)
+            ok = ok & (~(nn > 1e-6) | (cos_v > 0.5))
+    return torch.stack([u, v], -1), ok
+
+
+def feat_back_map(idx, ok, n_feat: int):
+    """feat_pt [n_feat] int32 of the reference's scatter
+    `full(-1).at[where(ok, idx, 0)].set(where(ok, arange(P), -1))`
+    (models/kernels.py:819-822) under its last-write-wins rule on
+    duplicate indices: feature f takes the value of the highest row that
+    writes it, so feat_pt[0] is -1 unless the last row writing 0 matched
+    feature 0."""
+    dev = idx.device
+    rows = torch.arange(idx.shape[0], device=dev)
+    safe = torch.where(ok, idx.long(), torch.zeros_like(rows))
+    last = torch.full((n_feat,), -1, dtype=torch.int64, device=dev)
+    last.scatter_reduce_(0, safe, rows, "amax")
+    wrote_ok = (last >= 0) & ok[last.clamp_min(0)]
+    return torch.where(wrote_ok, last, torch.full_like(last, -1)).to(
+        torch.int32)
+
+
+def proj_match_plain(K: PinholeK, pose, pt_xyz, pt_desc, pt_valid, feat_uv,
+                     feat_desc, feat_octave, feat_valid, radius: float,
+                     max_dist: float = 80.0, pt_normal=None,
+                     pt_min_dist=None, pt_max_dist=None):
+    """Plain version of `proj_match` (models/kernels.py:776-823): the
+    projection and its gates (`project_gates`), the octave-scaled window
+    d2 <= (radius 1.2^octave)^2, the Hamming NN (ratio 0.9, mutual,
+    max_dist) and the feature back map.  Returns (uv_m [P,2], pt_feat [P]
+    int32, matched [P], feat_pt [F] int32)."""
+    uv, proj_ok = project_gates(K, pose, pt_xyz, pt_valid, pt_normal,
+                                pt_min_dist, pt_max_dist)
+    dist = M.hamming_matrix(M.unpack_u32_to_pm1(pt_desc),
+                            M.unpack_u32_to_pm1(feat_desc))
+    scale = torch.from_numpy(OCTAVE_SCALE).to(feat_uv.device)[
+        feat_octave.long().clamp(0, 7)]
+    d2 = ((uv[:, None, :] - feat_uv[None, :, :]) ** 2).sum(-1)
+    r = radius * scale
+    idx, ok = M.match_nn_ratio(dist, proj_ok, feat_valid, d2 <= r * r,
+                               max_dist=max_dist, ratio=0.9, mutual=True)
+    return (feat_uv[idx.long()], idx, ok,
+            feat_back_map(idx, ok, feat_uv.shape[0]))
+
+
+PROJ_MATCH = cuda.Kernel(
+    "proj_match", "proj_match",
+    [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+     _F, _F, _F, _F, _F, _F, _F, _F, _F] + [_F] * 8 + [_P, _P, _P, _P, _P,
+                                                       _P])
+
+
+def proj_match(K: PinholeK, pose, pt_xyz, pt_desc, pt_valid, feat_uv,
+               feat_desc, feat_octave, feat_valid, radius: float,
+               max_dist: float = 80.0, pt_normal=None, pt_min_dist=None,
+               pt_max_dist=None):
+    """Map points matched to a frame's features by projection (pose [3,4]
+    T_cw, pt_xyz [P,3], pt_desc [P,8] int32, pt_valid [P]; feat_uv [F,2],
+    feat_desc [F,8] int32, feat_octave [F] int32 in 0..7, feat_valid [F];
+    the tracker's frustum gates when pt_min_dist / pt_max_dist [P] (and
+    pt_normal [P,3]) are given).  Returns (uv_m [P,2], pt_feat [P] int32,
+    matched [P], feat_pt [F] int32).  CPU tensors take the plain version;
+    CUDA tensors launch csrc/proj_match.cu."""
+    if pose.device.type == "cpu":
+        return proj_match_plain(K, pose, pt_xyz, pt_desc, pt_valid, feat_uv,
+                                feat_desc, feat_octave, feat_valid, radius,
+                                max_dist, pt_normal, pt_min_dist, pt_max_dist)
+    P, F = pt_xyz.shape[0], feat_uv.shape[0]
+    frustum = 0 if pt_min_dist is None else (1 if pt_normal is None else 2)
+    ts = [pose, pt_xyz, pt_desc, pt_valid, feat_uv, feat_desc, feat_octave,
+          feat_valid]
+    want = [(pose, torch.float32, (3, 4)), (pt_xyz, torch.float32, (P, 3)),
+            (pt_desc, torch.int32, (P, 8)), (pt_valid, torch.bool, (P,)),
+            (feat_uv, torch.float32, (F, 2)),
+            (feat_desc, torch.int32, (F, 8)),
+            (feat_octave, torch.int32, (F,)), (feat_valid, torch.bool, (F,))]
+    if frustum:
+        ts += [pt_min_dist, pt_max_dist]
+        want += [(pt_min_dist, torch.float32, (P,)),
+                 (pt_max_dist, torch.float32, (P,))]
+    if frustum == 2:
+        ts.append(pt_normal)
+        want.append((pt_normal, torch.float32, (P, 3)))
+    cuda.check_cuda("proj_match", *ts)
+    for i, (x, dt, shape) in enumerate(want):
+        if x.dtype != dt or tuple(x.shape) != shape:
+            raise ValueError(f"proj_match: argument {i} must be {dt} {shape},"
+                             f" got {x.dtype} {tuple(x.shape)}")
+    if P >= 1 << 16 or F > 3600:
+        # row ids share a 32-bit word with the distance; the columns'
+        # positions, windows and flags fit 48 KB of shared memory
+        raise ValueError("proj_match: needs P < 65536 points and F <= 3600 "
+                         "features")
+    dev = pose.device
+    uv_m = torch.empty(P, 2, dtype=torch.float32, device=dev)
+    pt_feat = torch.empty(P, dtype=torch.int32, device=dev)
+    matched = torch.empty(P, dtype=torch.bool, device=dev)
+    feat_pt = torch.empty(F, dtype=torch.int32, device=dev)
+    col_best = torch.empty(max(F, 1), dtype=torch.int32, device=dev)
+    if P == 0 or F == 0:
+        feat_pt.fill_(-1)
+        pt_feat.zero_()
+        matched.zero_()
+        uv_m.zero_()
+        return uv_m, pt_feat, matched, feat_pt
+    opt = [cuda.ptr(x) if x is not None else None
+           for x in (pt_normal, pt_min_dist, pt_max_dist)]
+    PROJ_MATCH.launch(
+        cuda.ptr(pose), cuda.ptr(pt_xyz), cuda.ptr(pt_desc),
+        cuda.ptr(pt_valid), *opt, cuda.ptr(feat_uv), cuda.ptr(feat_desc),
+        cuda.ptr(feat_octave), cuda.ptr(feat_valid), P, F, frustum, K.fx,
+        K.fy, K.cx, K.cy, float(2 * K.cx), float(2 * K.cy), float(radius),
+        float(max_dist), 0.9, *[float(s) for s in OCTAVE_SCALE],
+        cuda.ptr(uv_m), cuda.ptr(pt_feat), cuda.ptr(matched),
+        cuda.ptr(feat_pt), cuda.ptr(col_best), cuda.stream())
+    return uv_m, pt_feat, matched, feat_pt
+
+
+def make_projection_matcher(K: PinholeK, plain: bool = False):
+    """run(pose [3,4], pt_xyz [P,3], pt_desc [P,8] int32, pt_valid,
+    feat_uv [F,2], feat_desc [F,8] int32, feat_octave [F] int32,
+    feat_valid, radius, max_dist=80.0, pt_normal=None, pt_min_dist=None,
+    pt_max_dist=None) -> (uv_m [P,2], pt_feat [P], matched [P], feat_pt
+    [F]): the projection matcher of the fuse (radius 2, max_dist 50) and
+    of the tracker (frustum gates, radius 6, max_dist 80), see
+    `proj_match`.  `plain` runs the plain version on any device."""
+    fn = proj_match_plain if plain else proj_match
+
+    def run(pose, pt_xyz, pt_desc, pt_valid, feat_uv, feat_desc, feat_octave,
+            feat_valid, radius, max_dist: float = 80.0, pt_normal=None,
+            pt_min_dist=None, pt_max_dist=None):
+        return fn(K, pose.contiguous(), pt_xyz.contiguous(), pt_desc,
+                  pt_valid, feat_uv.contiguous(), feat_desc, feat_octave,
+                  feat_valid, float(radius), float(max_dist), pt_normal,
+                  pt_min_dist, pt_max_dist)
     return run
 
 

@@ -1,0 +1,171 @@
+"""The struct-of-arrays map store, as far as the keyframe step's
+neighbourhood work touches it (port of plvio_tpu/models/mapstore.py:
+the arrays of `MapStore.__init__` :27-105, `alloc_kf` :108, `alloc_points`
+:117, `alloc_lines` :123, `update_covisibility` :140 (its numpy path
+:155-175), `covisible_kfs` :177, `remove_point` :206 and
+`valid_kf_indices` :245).
+
+Host-side numpy, as in the reference: fixed-capacity arrays with validity
+masks, mutated only by the host bookkeeping of the local mapper; device
+kernels receive copies of slices.  `state.mapstore_from_numpy` /
+`mapstore_to_numpy` carry a store's arrays across.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+INVALID = -1
+
+# every array of a store, by name (the layout of mapstore_to_numpy)
+ARRAYS = (
+    "kf_valid", "kf_timestamp", "kf_pose_cw", "kf_pose_wb", "kf_vel",
+    "kf_bias_g", "kf_bias_a", "kf_feat_uv", "kf_feat_uv_raw",
+    "kf_feat_octave", "kf_feat_angle", "kf_feat_desc", "kf_feat_valid",
+    "kf_match_pt", "kf_line_ep", "kf_line_desc", "kf_line_valid",
+    "kf_match_ln", "kf_prev", "kf_next", "pt_valid", "pt_xyz", "pt_desc",
+    "pt_normal", "pt_min_dist", "pt_max_dist", "pt_first_kf", "pt_n_obs",
+    "pt_found", "pt_visible", "ln_valid", "ln_ep", "ln_desc", "ln_first_kf",
+    "ln_n_obs", "ln_found", "ln_visible", "covis")
+# the scalars beside them
+SCALARS = ("map_id", "max_kf", "max_pts", "max_lines", "n_feat",
+           "n_line_feat", "n_kf", "n_pt", "n_ln", "change_index")
+
+
+class MapStore:
+    def __init__(self, max_kf: int = 512, max_pts: int = 16384,
+                 max_lines: int = 2048, n_feat: int = 1024,
+                 n_line_feat: int = 256, map_id: int = 0):
+        self.map_id = map_id
+        self.max_kf = max_kf
+        self.max_pts = max_pts
+        self.max_lines = max_lines
+        self.n_feat = n_feat
+        self.n_line_feat = n_line_feat
+
+        # ---- keyframes -------------------------------------------------
+        self.kf_valid = np.zeros(max_kf, bool)
+        self.kf_timestamp = np.zeros(max_kf, np.float64)
+        self.kf_pose_cw = np.tile(np.eye(3, 4, dtype=np.float32),
+                                  (max_kf, 1, 1))
+        self.kf_pose_wb = np.tile(np.eye(3, 4, dtype=np.float32),
+                                  (max_kf, 1, 1))
+        self.kf_vel = np.zeros((max_kf, 3), np.float32)
+        self.kf_bias_g = np.zeros((max_kf, 3), np.float32)
+        self.kf_bias_a = np.zeros((max_kf, 3), np.float32)
+        self.kf_feat_uv = np.zeros((max_kf, n_feat, 2), np.float32)
+        self.kf_feat_uv_raw = np.zeros((max_kf, n_feat, 2), np.float32)
+        self.kf_feat_octave = np.zeros((max_kf, n_feat), np.int32)
+        self.kf_feat_angle = np.zeros((max_kf, n_feat), np.float32)
+        self.kf_feat_desc = np.zeros((max_kf, n_feat, 8), np.uint32)
+        self.kf_feat_valid = np.zeros((max_kf, n_feat), bool)
+        self.kf_match_pt = np.full((max_kf, n_feat), INVALID, np.int32)
+        self.kf_line_ep = np.zeros((max_kf, n_line_feat, 4), np.float32)
+        self.kf_line_desc = np.zeros((max_kf, n_line_feat, 8), np.uint32)
+        self.kf_line_valid = np.zeros((max_kf, n_line_feat), bool)
+        self.kf_match_ln = np.full((max_kf, n_line_feat), INVALID, np.int32)
+        self.kf_prev = np.full(max_kf, INVALID, np.int32)
+        self.kf_next = np.full(max_kf, INVALID, np.int32)
+        self.n_kf = 0
+
+        # ---- map points ------------------------------------------------
+        self.pt_valid = np.zeros(max_pts, bool)
+        self.pt_xyz = np.zeros((max_pts, 3), np.float32)
+        self.pt_desc = np.zeros((max_pts, 8), np.uint32)
+        self.pt_normal = np.zeros((max_pts, 3), np.float32)
+        self.pt_min_dist = np.zeros(max_pts, np.float32)
+        self.pt_max_dist = np.zeros(max_pts, np.float32)
+        self.pt_first_kf = np.full(max_pts, INVALID, np.int32)
+        self.pt_n_obs = np.zeros(max_pts, np.int32)
+        self.pt_found = np.zeros(max_pts, np.int32)
+        self.pt_visible = np.zeros(max_pts, np.int32)
+        self.n_pt = 0
+
+        # ---- map lines (3D endpoints) ----------------------------------
+        self.ln_valid = np.zeros(max_lines, bool)
+        self.ln_ep = np.zeros((max_lines, 6), np.float32)
+        self.ln_desc = np.zeros((max_lines, 8), np.uint32)
+        self.ln_first_kf = np.full(max_lines, INVALID, np.int32)
+        self.ln_n_obs = np.zeros(max_lines, np.int32)
+        self.ln_found = np.zeros(max_lines, np.int32)
+        self.ln_visible = np.zeros(max_lines, np.int32)
+        self.n_ln = 0
+
+        # ---- covisibility (shared point and line observations) --------
+        self.covis = np.zeros((max_kf, max_kf), np.int32)
+        self.change_index = 0
+
+    # ------------------------------------------------------------------
+    def alloc_kf(self) -> int:
+        free = np.nonzero(~self.kf_valid)[0]
+        if len(free) == 0:
+            raise RuntimeError("keyframe capacity exhausted")
+        i = int(free[0])
+        self.kf_valid[i] = True
+        self.n_kf += 1
+        return i
+
+    def alloc_points(self, n: int) -> np.ndarray:
+        free = np.nonzero(~self.pt_valid)[0][:n]
+        self.pt_valid[free] = True
+        self.n_pt += len(free)
+        return free
+
+    def alloc_lines(self, n: int) -> np.ndarray:
+        free = np.nonzero(~self.ln_valid)[0][:n]
+        self.ln_valid[free] = True
+        self.n_ln += len(free)
+        return free
+
+    # ------------------------------------------------------------------
+    def update_covisibility(self, kf: int) -> None:
+        """Recompute the covisibility row and column of `kf` from shared
+        point and line observations (the reference's numpy path; its
+        native library, which the port does not load, counts the same)."""
+        counts = np.zeros(self.max_kf, np.int32)
+        pts = self.kf_match_pt[kf]
+        pts = pts[pts >= 0]
+        if len(pts):
+            member = np.zeros(self.max_pts, bool)
+            member[pts] = True
+            all_m = self.kf_match_pt
+            hit = (all_m >= 0) & member[np.clip(all_m, 0, self.max_pts - 1)]
+            counts += hit.sum(axis=1, dtype=np.int32)
+        lns = self.kf_match_ln[kf]
+        lns = lns[lns >= 0]
+        if len(lns):
+            member = np.zeros(self.max_lines, bool)
+            member[lns] = True
+            all_l = self.kf_match_ln
+            hit = (all_l >= 0) & member[np.clip(all_l, 0,
+                                                self.max_lines - 1)]
+            counts += hit.sum(axis=1, dtype=np.int32)
+        counts[~self.kf_valid] = 0
+        counts[kf] = 0
+        self.covis[kf] = counts
+        self.covis[:, kf] = counts
+
+    def covisible_kfs(self, kf: int, n: int = 10,
+                      min_weight: int = 15) -> np.ndarray:
+        """Best covisible keyframes, by numpy's default (unstable) argsort
+        of the negated weights, as the reference orders them."""
+        w = self.covis[kf].copy()
+        w[~self.kf_valid] = 0
+        w[kf] = 0
+        order = np.argsort(-w)
+        out = order[w[order] >= min_weight][:n]
+        if len(out) == 0:  # fall back to any connection
+            out = order[w[order] > 0][:n]
+        return out
+
+    # ------------------------------------------------------------------
+    def remove_point(self, ids: np.ndarray) -> None:
+        """Clear validity and every back-pointer of the points `ids`."""
+        ids = np.atleast_1d(ids)
+        self.pt_valid[ids] = False
+        mask = np.isin(self.kf_match_pt, ids)
+        self.kf_match_pt[mask] = INVALID
+        self.n_pt -= len(ids)
+        self.change_index += 1
+
+    def valid_kf_indices(self) -> np.ndarray:
+        return np.nonzero(self.kf_valid)[0]

@@ -1,6 +1,6 @@
 """Descriptor matching (port of plvio_tpu/ops/matching.py; the epipolar
-gate of plvio_tpu/models/kernels.py:845-867 and `rotation_histogram_filter`
-:115).
+gate of plvio_tpu/models/kernels.py:845-867, the line pair gate of
+`make_line_pair_matcher` :618-631 and `rotation_histogram_filter` :115).
 
 The port keeps binary descriptors PACKED: [N,8] torch.int32 holding the
 same bits as the reference's uint32 rows (`pack_bits_u32`): bit j of word
@@ -92,6 +92,32 @@ def line_gate(mid_a: torch.Tensor, ang_a: torch.Tensor, mid_b: torch.Tensor,
     return (d2 < radius ** 2) & (dang < angle_tol)
 
 
+def _seg_mid_len(ep: torch.Tensor):
+    """Midpoints [N,2] and lengths [N] of segments ep [N,4] = (xs, ys, xe,
+    ye), in the reference's operation order."""
+    mid = (ep[:, :2] + ep[:, 2:]) / 2
+    d = ep[:, 2:] - ep[:, :2]
+    return mid, torch.sqrt(d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1])
+
+
+def line_pair_gate(ep_a: torch.Tensor, ang_a: torch.Tensor,
+                   ep_b: torch.Tensor, ang_b: torch.Tensor, radius: float,
+                   angle_tol: float) -> torch.Tensor:
+    """[N,4] x [M,4] segments -> bool [N,M]: the gates of the keyframe line
+    pair matcher (plvio_tpu/models/kernels.py:618-631): squared midpoint
+    distance < radius^2, wrapped angle difference < angle_tol, length ratio
+    len_a / max(len_b, 1e-6) in (0.5, 2) and both lengths > 40 px."""
+    mid_a, len_a = _seg_mid_len(ep_a)
+    mid_b, len_b = _seg_mid_len(ep_b)
+    d2 = ((mid_a[:, None] - mid_b[None, :]) ** 2).sum(-1)
+    dang = torch.remainder(torch.abs(ang_a[:, None] - ang_b[None, :]),
+                           torch.pi)
+    dang = torch.minimum(dang, torch.pi - dang)
+    lr = len_a[:, None] / torch.clamp_min(len_b[None, :], 1e-6)
+    return (d2 < radius ** 2) & (dang < angle_tol) & (lr > 0.5) \
+        & (lr < 2.0) & (len_a[:, None] > 40.0) & (len_b[None, :] > 40.0)
+
+
 def epipolar_gate(F: torch.Tensor, uv1: torch.Tensor, uv2: torch.Tensor,
                   th: torch.Tensor) -> torch.Tensor:
     """[N,2] x [M,2] -> bool [N,M]: the distance of each uv2 to the
@@ -145,13 +171,16 @@ HAMMING_MATCH = cuda.Kernel(
 
 def hamming_match_plain(map_desc, obs_desc, row_ok, col_ok, a_xy, b_xy,
                         radius, max_dist, ratio, a_ang=None, b_ang=None,
-                        angle_tol=None, epi_F=None, epi_th=None):
+                        angle_tol=None, epi_F=None, epi_th=None,
+                        pair: bool = False):
     """Plain PyTorch version of `hamming_match` (the reference's
     unpack + matmul + dense gate + match_nn_ratio)."""
     dist = hamming_matrix(unpack_u32_to_pm1(map_desc),
                           unpack_u32_to_pm1(obs_desc))
     if epi_F is not None:
         gate = epipolar_gate(epi_F, a_xy, b_xy, epi_th)
+    elif pair:
+        gate = line_pair_gate(a_xy, a_ang, b_xy, b_ang, radius, angle_tol)
     elif a_ang is None:
         gate = window_gate(a_xy, b_xy, radius)
     else:
@@ -163,7 +192,7 @@ def hamming_match_plain(map_desc, obs_desc, row_ok, col_ok, a_xy, b_xy,
 def hamming_match(map_desc, obs_desc, row_ok, col_ok, a_xy, b_xy,
                   radius: float, max_dist: float, ratio: float,
                   a_ang=None, b_ang=None, angle_tol=None, epi_F=None,
-                  epi_th=None):
+                  epi_th=None, pair: bool = False):
     """Gated Hamming nearest neighbour with ratio test and mutual check.
 
     map_desc [N,8] / obs_desc [M,8] int32 packed; row_ok [N] / col_ok [M]
@@ -173,14 +202,17 @@ def hamming_match(map_desc, obs_desc, row_ok, col_ok, a_xy, b_xy,
     and wrapped angle difference < angle_tol.  Epipolar gate (epi_F
     [3,3] float32 fundamental matrix, epi_th [M] thresholds; radius
     unused): the distance of b_xy to the epipolar line of a_xy < epi_th.
+    Line pair gate (pair True; a_xy [N,4] / b_xy [M,4] are segment
+    endpoints, a_ang / b_ang their angles): `line_pair_gate`.
     Returns (idx [N] int32, ok [N] bool); idx 0 where no column admits.
     CPU tensors take the plain version; CUDA tensors launch the kernel."""
     if map_desc.device.type == "cpu":
         return hamming_match_plain(map_desc, obs_desc, row_ok, col_ok, a_xy,
                                    b_xy, radius, max_dist, ratio, a_ang,
-                                   b_ang, angle_tol, epi_F, epi_th)
+                                   b_ang, angle_tol, epi_F, epi_th, pair)
     epi = epi_F is not None
     line = a_ang is not None and not epi
+    mode = 2 if epi else 3 if pair else int(line)
     n, m = map_desc.shape[0], obs_desc.shape[0]
     ts = [map_desc, obs_desc, row_ok, col_ok, a_xy, b_xy]
     if line:
@@ -194,9 +226,13 @@ def hamming_match(map_desc, obs_desc, row_ok, col_ok, a_xy, b_xy,
     if row_ok.dtype != torch.bool or col_ok.dtype != torch.bool \
             or row_ok.shape != (n,) or col_ok.shape != (m,):
         raise ValueError("hamming_match: row_ok [N] / col_ok [M] bool")
+    w = 4 if pair else 2
     if a_xy.dtype != torch.float32 or b_xy.dtype != torch.float32 \
-            or a_xy.shape != (n, 2) or b_xy.shape != (m, 2):
-        raise ValueError("hamming_match: a_xy [N,2] / b_xy [M,2] float32")
+            or a_xy.shape != (n, w) or b_xy.shape != (m, w):
+        raise ValueError(f"hamming_match: a_xy [N,{w}] / b_xy [M,{w}] "
+                         "float32")
+    if pair and not line:
+        raise ValueError("hamming_match: the line pair gate needs angles")
     if line and (a_ang.shape != (n,) or b_ang.shape != (m,)
                  or a_ang.dtype != torch.float32
                  or b_ang.dtype != torch.float32):
@@ -205,11 +241,12 @@ def hamming_match(map_desc, obs_desc, row_ok, col_ok, a_xy, b_xy,
                 or epi_F.dtype != torch.float32
                 or epi_th.dtype != torch.float32):
         raise ValueError("hamming_match: epi_F [3,3] / epi_th [M] float32")
-    if n >= 1 << 16 or m > 3600:
+    if n >= 1 << 16 or m > (2800 if pair else 3600):
         # row ids share a 32-bit word with the distance; the columns'
-        # positions, angles and flags fit the 48 KB of static shared memory
+        # positions, angles, flags (and lengths) fit the 48 KB of dynamic
+        # shared memory a block gets without opting in
         raise ValueError("hamming_match: needs N < 65536 rows and "
-                         "M <= 3600 columns")
+                         "M <= 3600 columns (2800 for line pairs)")
     idx = torch.empty(n, dtype=torch.int32, device=map_desc.device)
     ok = torch.empty(n, dtype=torch.bool, device=map_desc.device)
     if n == 0:
@@ -222,7 +259,7 @@ def hamming_match(map_desc, obs_desc, row_ok, col_ok, a_xy, b_xy,
         cuda.ptr(a_ang) if line else None,
         cuda.ptr(epi_th) if epi else (cuda.ptr(b_ang) if line else None),
         cuda.ptr(epi_F) if epi else None,
-        n, m, 2 if epi else int(line), float(radius) ** 2,
+        n, m, mode, float(radius) ** 2,
         float(angle_tol) if line else 0.0, float(max_dist), float(ratio),
         cuda.ptr(idx), cuda.ptr(ok), cuda.ptr(col_best), cuda.stream())
     return idx, ok

@@ -1,5 +1,6 @@
-"""Where the time of the two tracked frames, the mapping step and the
-inertial back end goes, on one CUDA card.
+"""Where the time of the two tracked frames, the mapping step, the
+inertial back end and the keyframe step's neighbourhood work goes, on one
+CUDA card.
 
     python3 -m plvio_tpu_torch.profile_frames
 
@@ -25,7 +26,11 @@ per step, with the stages epipolar match, triangulate and local BA.  The
 inertial window solve (`inertial_ba_step`, both buckets, perturbed start,
 4 solves a pass) and the IMU initialization with its refinement
 (`imu_init`, 4 of each a pass) get them per call, with each kernel's
-device time as the stages.
+device time as the stages.  The keyframe step's neighbourhood work
+(`neighborhood_step`, both maps of `inputs.build_keyframe_map`, 2 steps a
+pass, each on a fresh copy of the map made before the pass) gets them per
+step, with the stages create_new_lines, search_in_neighbors and local_ba
+and the step's host syncs (device-to-host reads).
 
 Prints the card's `nvidia-smi` name and power limit first.  Needs one
 card; JAX is never imported.
@@ -49,6 +54,7 @@ H, W, N_FEAT, CAP_PTS, CAP_LNS, N_LINE, N_FRAMES = 480, 752, 1000, 2048, 128, \
     256, 16
 N_MAP = 8
 N_LIBA = 4
+N_NBH = 2
 
 
 def _device_time_us(evt) -> float:
@@ -147,6 +153,21 @@ def mapping_spans(step, run, n_steps: int):
     finally:
         for attr, fn in saved.items():
             setattr(step, attr, fn)
+
+
+def neighborhood_spans(step, run, n_steps: int):
+    """Device and host ms/step of the neighbourhood step's three calls."""
+    sp = Spans()
+    mp = step.mapper
+    names = ("create_new_lines", "search_in_neighbors", "local_ba")
+    for attr in names:
+        setattr(mp, attr, sp.wrap(attr, getattr(mp, attr)))
+    try:
+        run()
+        return sp.read(n_steps)
+    finally:
+        for attr in names:
+            delattr(mp, attr)                   # the class's again
 
 
 def no_spans(step, run, n: int):
@@ -261,6 +282,22 @@ def main() -> int:
 
     profile(f"IMU initialization + refinement ({N_LIBA} of each)", ii,
             run_init, N_LIBA, spans=no_spans, unit="pair")
+    from .inputs import build_keyframe_map
+    from .state import mapstore_from_numpy
+    for name, conf in (("points", False), ("confirmed lines", True)):
+        arrays, _ = build_keyframe_map(conf)
+        ns, _ = E.neighborhood_step(conf, device=dev)
+        maps = [mapstore_from_numpy(arrays) for _ in range(4 * N_NBH)]
+        syncs = []
+
+        @torch.no_grad()
+        def run_nbh(ns=ns, maps=maps, syncs=syncs):
+            for _ in range(N_NBH):
+                syncs.append(ns(maps.pop()).host_syncs)
+
+        profile(f"neighbourhood step, {name} map ({N_NBH} steps)", ns,
+                run_nbh, N_NBH, spans=neighborhood_spans, unit="step")
+        print(f"   host syncs per step: {syncs}")
     return 0
 
 

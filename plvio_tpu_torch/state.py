@@ -1,5 +1,5 @@
 """Carry what the JAX package holds (the map, a pose, the inertial
-window's state) over to the port's tensors."""
+window's state, a keyframe map store) over to the port."""
 from __future__ import annotations
 
 from typing import Dict
@@ -7,6 +7,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from .models import mapstore as MS
 from .models.kernels import PRE_KEYS
 from .ops.frontend import brief_pattern
 from .ops.lines import _band_pair_pattern
@@ -45,6 +46,42 @@ def from_numpy(arrays: Dict[str, np.ndarray],
     out["brief_pattern"] = torch.from_numpy(brief_pattern()).to(device)
     out["lbd_pairs"] = torch.from_numpy(_band_pair_pattern()).to(device)
     return out
+
+
+def mapstore_to_numpy(m: MS.MapStore) -> Dict[str, np.ndarray]:
+    """A map store's arrays (`models.mapstore.ARRAYS`, copies) and its
+    scalars (`SCALARS`, as Python ints): the layout of the JAX package's
+    `MapStore` attributes of the same names."""
+    out = {k: np.array(getattr(m, k)) for k in MS.ARRAYS}
+    out.update({k: int(getattr(m, k)) for k in MS.SCALARS})
+    return out
+
+
+def mapstore_from_numpy(arrays: Dict[str, np.ndarray]) -> MS.MapStore:
+    """The port's map store holding `arrays`: every name of
+    `models.mapstore.ARRAYS` and `SCALARS`, as `mapstore_to_numpy` gives
+    them or as a JAX package `MapStore`'s attributes hold them.  The
+    arrays are copied in their store dtypes (descriptors stay uint32 on
+    the host; the mapper hands them to the device as int32 views)."""
+    missing = [k for k in MS.ARRAYS + MS.SCALARS if k not in arrays]
+    if missing:
+        raise KeyError(f"mapstore_from_numpy: missing {missing}")
+    m = MS.MapStore(max_kf=int(arrays["max_kf"]),
+                    max_pts=int(arrays["max_pts"]),
+                    max_lines=int(arrays["max_lines"]),
+                    n_feat=int(arrays["n_feat"]),
+                    n_line_feat=int(arrays["n_line_feat"]),
+                    map_id=int(arrays["map_id"]))
+    for k in MS.ARRAYS:
+        ref = getattr(m, k)
+        a = np.asarray(arrays[k])
+        if a.shape != ref.shape:
+            raise ValueError(f"mapstore_from_numpy: {k} has shape {a.shape}, "
+                             f"the store {ref.shape}")
+        setattr(m, k, np.array(a, dtype=ref.dtype))
+    for k in ("n_kf", "n_pt", "n_ln", "change_index"):
+        setattr(m, k, int(arrays[k]))
+    return m
 
 
 _INERTIAL_FLOAT = ("pose_wb", "vel", "bias_g", "bias_a", "imu_info",

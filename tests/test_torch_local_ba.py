@@ -291,3 +291,39 @@ def test_local_ba_pl_float32_within_float64_band(window, perturbed):
                  - out[torch.float64][0]).abs().max())
     assert gap <= 3e-3, gap
     assert torch.equal(out[torch.float32][3], out[torch.float64][3])
+
+
+# -- the point-only BA (make_local_ba) ----------------------------------------
+
+PT_KEYS = KEYS[:9]
+
+
+@pytest.fixture(scope="module")
+def jax_lba_pt():
+    return JK.make_local_ba(JPK, SMALL["n_kf"], SMALL["n_pt"], SMALL["n_obs"])
+
+
+@pytest.mark.parametrize("perturbed", [False, True])
+def test_local_ba_matches_reference(window, jax_lba_pt, perturbed):
+    """`make_local_ba` (models/kernels.py:1307), the windowed BA without the
+    line family, on the same window's points: KF poses within 1e-3 (a pose
+    entry, as the point+line BA above), inlier masks equal, the largest
+    camera-centre error within 10% of the reference's, and the LM
+    iterations per round those of a step-by-step replay of the JAX loop on
+    the point-only problem (CG steps min(max(6 n_kf // 2, 16), 128) on both
+    sides)."""
+    B = _start(window, perturbed)
+    oj = [np.asarray(a) for a in jax_lba_pt(*[jnp.asarray(B[k])
+                                              for k in PT_KEYS])]
+    stats = []
+    ot = [a.numpy() for a in TK.make_local_ba(K_EUROC)(
+        *[_t(B[k]) for k in PT_KEYS], stats=stats)]
+    assert len(ot) == 3 and ot[1].shape == (SMALL["n_pt"], 3)
+    assert np.abs(ot[0] - oj[0]).max() <= 1e-3
+    assert (ot[2] == oj[2]).all()
+    # the replay's line term masked out leaves the point-only problem
+    assert stats == _jax_lm_iters(
+        dict(B, lobs_valid=np.zeros_like(B["lobs_valid"])))
+    ej = _centre_err(oj[0], window["kf_poses"])
+    et = _centre_err(ot[0], window["kf_poses"])
+    assert abs(et - ej) <= 0.1 * ej, (et, ej)

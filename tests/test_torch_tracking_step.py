@@ -121,6 +121,7 @@ DEFAULTS_TO_CARD = {
     "build_inertial_window": lambda: IN.build_inertial_window(
         256, 512, 32, 64, n_kf=8, n_observers=3),
     "build_imu_init_inputs": lambda: IN.build_imu_init_inputs(),
+    "neighborhood_step": lambda: E.neighborhood_step(),
 }
 
 
@@ -175,6 +176,11 @@ def test_port_never_loads_jax():
         "Rwg2, s2 = ii.refine(B)\n"
         "assert abs(float(s) - 2.0) < 0.1 and abs(float(s2) - 1 / 1.03) < "
         "0.01\n"
+        "from plvio_tpu_torch.entry import neighborhood_step\n"
+        "ns, mst = neighborhood_step(device='cpu', ba_kf_cap=8, "
+        "ba_pt_cap=1024, ba_obs_cap=2048)\n"
+        "o = ns(mst)\n"
+        "assert o.new_lines > 0 and o.n_merged > 0 and o.ba_path == 'pt'\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'plvio_tpu'))\n"
         "assert not bad, bad\n"
