@@ -7,20 +7,26 @@ Drives the port's two tracked frames at EuRoC geometry (480x752, 1000 ORB
 features, 256 line features, 2048 map points, 128 map lines), its
 keyframe mapping step at both window sizes of the reference's benchmark
 (16 KF x 4096 points x 8192 observations + 512 lines x 1024 observations,
-and 2048 / 4096 / 256 / 512), the inertial back end and the keyframe
-step's neighbourhood work through their user entry points, and fails
-(nonzero exit, no result line) unless every phase passes:
+and 2048 / 4096 / 256 / 512), the inertial back end, the keyframe step's
+neighbourhood work and the monocular bootstrap through their user entry
+points, and fails (nonzero exit, no result line) unless every phase
+passes:
 
 1. the card is there (prints `nvidia-smi` name and power limit);
-2. the sixteen CUDA kernels build from `plvio_tpu_torch/csrc` (nvcc,
-   sm_90a, one nvcc per source, all started together);
+2. the nineteen CUDA kernels build from `plvio_tpu_torch/csrc` (18
+   sources: nvcc, sm_90a, one nvcc per source, all started together);
 3. each kernel agrees with its plain PyTorch version on the card at the
    paths' shapes (the mapping kernels also on a perturbed window at the
    same shape in which every gate of the epipolar match and of the
    triangulation decides some rows, and the Schur step's landmarks against
    the plain step and a float64 back-substitution; slice 5's kernels on
    every call of a plain run of its path, the projection matcher also in
-   the tracker's frustum mode, and `make_local_ba` against float64);
+   the tracker's frustum mode, and `make_local_ba` against float64;
+   slice 6's `undistort` at EuRoC's coefficients on the 16 frames'
+   keypoints and line endpoints, the two-view kernels on the five cases
+   of `inputs.build_twoview_cases` at 200 matches and the general one at
+   1000, held to the plain version in float64 on the same samples, and
+   `imu_preint` on a 128-sample keyframe window);
 4. slice 1, `tracking_step_pl`: 16 synthetic frames with the pose carried,
    >= 80 inliers, camera centre <= 10 mm and rotation <= 0.3 deg from
    ground truth on every frame, every kernel of the path launched; the
@@ -56,13 +62,24 @@ step's neighbourhood work through their user entry points, and fails
    the CPU (REF_NBH below), the
    largest camera-centre error within max(2x the reference's, 10 mm),
    every kernel of the path launched; CUDA-event ms per step on both
-   paths and the host syncs per step.
+   paths and the host syncs per step;
+10. slice 6, `bootstrap_step`: the rendered frames through the frame
+   prelude and the port's tracker to the initial map, held to the JAX
+   tracker's run on the CPU (REF_BOOT below: the initializing frame, the
+   attempts and the model equal, the counts within their tolerances, the
+   second keyframe's rotation and t-direction errors against the truth
+   within 2x the reference's largest over five RANSAC keys), every kernel
+   of the path launched (PATH_BOOT; `undistort` not, as the renders have
+   no distortion); then, as a path of its own, the EuRoC-raw case (raw
+   cam0 pixels) through `undistort_pixels` and `reconstruct_two_views`,
+   every kernel of it launched (PATH_RAW); ms per attempt on both paths.
 
 Each kernel's least time on the card (`bound_ms`) is the larger of its
 bytes (inputs read once, outputs written once) over 3.35 TB/s and its
 operations over 67 TFLOP/s (the float32 rate outside the tensor cores,
-also used for the integer and float64 work), counted from this run's
-shapes and data (`work`, beside each kernel's check).
+also used for the integer work; the two-view kernels solve in float64 by
+choice, but the float32 function they replace sets their bound), counted
+from this run's shapes and data (`work`, beside each kernel's check).
 
 Prints a JSON line of the kernels, then, as its last line,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -78,19 +95,24 @@ import numpy as np
 import torch
 
 from plvio_tpu_torch import cuda
+from plvio_tpu_torch.config import CameraConfig, ImuConfig
 from plvio_tpu_torch.entry import (K_EUROC, LIBA_HALF, LIBA_WORST,
-                                   MAPPING_TYPICAL, MAPPING_WORST, imu_init,
+                                   MAPPING_TYPICAL, MAPPING_WORST,
+                                   bootstrap_step, imu_init,
                                    inertial_ba_step, mapping_step,
                                    neighborhood_step, point_projection_match,
                                    project_points, tracking_step_pl,
                                    tracking_step_vi)
-from plvio_tpu_torch.inputs import (build_imu_windows, build_inputs,
-                                    build_keyframe_map, perturb_window)
+from plvio_tpu_torch.inputs import (TWOVIEW_CASES, build_imu_windows,
+                                    build_inputs, build_keyframe_map,
+                                    build_twoview_cases, perturb_window)
 from plvio_tpu_torch.models import kernels as KN
+from plvio_tpu_torch.ops import cameras as CAM
 from plvio_tpu_torch.ops import frontend as FE
 from plvio_tpu_torch.ops import imu as IMU
 from plvio_tpu_torch.ops import lines as LN
 from plvio_tpu_torch.ops import matching as M
+from plvio_tpu_torch.ops import twoview as TV
 from plvio_tpu_torch.solver import engine as E
 from plvio_tpu_torch.solver import residuals as RES
 from plvio_tpu_torch.state import from_numpy, mapstore_from_numpy
@@ -117,6 +139,10 @@ KERNELS = {
     "proj_match": (KN.PROJ_MATCH, "plvio_tpu/models/kernels.py:767"),
     "line_triangulate": (KN.LINE_TRIANGULATE,
                          "plvio_tpu/models/kernels.py:389"),
+    "undistort": (CAM.UNDISTORT, "plvio_tpu/ops/cameras.py:86"),
+    "twoview_hypotheses": (TV.TWOVIEW_HYPOTHESES,
+                           "plvio_tpu/ops/twoview.py:290"),
+    "twoview_recover": (TV.TWOVIEW_RECOVER, "plvio_tpu/ops/twoview.py:296"),
 }
 PATH_PL = ("orb_fast_grid", "orb_describe", "hamming_match", "pose_irls",
            "line_detect", "line_refine_lbd")
@@ -128,6 +154,20 @@ PATH_LIBA = ("ba_linearize", "inertial_chain", "schur_solve")
 PATH_INIT = ("inertial_gs_lm",)
 PATH_NBH = ("proj_match", "hamming_match", "line_triangulate", "ba_linearize",
             "schur_solve")
+PATH_BOOT = ("orb_fast_grid", "orb_describe", "hamming_match", "rot_hist",
+             "line_detect", "line_refine_lbd", "twoview_hypotheses",
+             "twoview_recover", "line_triangulate", "imu_preint")
+PATH_RAW = ("undistort", "twoview_hypotheses", "twoview_recover")
+# tests/test_torch_bootstrap.py's JAX tracker on build_bootstrap_inputs(0)
+# (the port's CPU front end's features): the initializing frame, attempts,
+# model, init matches, triangulated matches, points and lines with the
+# RANSAC key of seed 0, and the second keyframe's largest rotation (deg)
+# and t-direction errors against the truth over the keys 0..4; printed by
+# `JAX_PLATFORMS=cpu PYTHONPATH=. python3 tests/test_torch_bootstrap.py`
+REF_BOOT = {"init_frame": 2, "attempts": 2, "used_homography": True,
+            "init_matches": 296, "n_triangulated": 274, "points": 274,
+            "lines": 7, "rot_err_deg": 0.23840322026429564,
+            "tdir_err": 0.10796273895736609}
 # bench.build_mapping_step's step (with the line inliers) on the CPU in
 # float32, at both sizes, from the true start and from
 # inputs.perturb_window's start: triangulated pairs, inlier observations,
@@ -258,9 +298,10 @@ def nbytes(*objs):
     return n
 
 
-def work(nb, ops):
-    """The bound of a kernel call from its bytes and operations."""
-    t_b, t_o = nb / HBM_BPS * 1e3, ops / F32_OPS * 1e3
+def work(nb, ops, rate=F32_OPS):
+    """The bound of a kernel call from its bytes and operations (at
+    `rate` operations a second)."""
+    t_b, t_o = nb / HBM_BPS * 1e3, ops / rate * 1e3
     return dict(bytes=int(nb), ops=int(ops), bound_ms=max(t_b, t_o),
                 bound_by="bytes" if t_b >= t_o else "operations")
 
@@ -1539,6 +1580,149 @@ def check_nbh_kernels(report):
             layout, H, gv, lm_sys, st, lam, *free), reps=5))
 
 
+def twoview_inputs(name, n, dev, cases=None):
+    """A case of `inputs.build_twoview_cases` on the card (raw EuRoC
+    pixels undistorted by the `undistort` kernel), with 200 H and 200 F
+    minimal sets drawn from a generator seeded n."""
+    c = (cases or build_twoview_cases(0, n))[name]
+    uv1, uv2 = (torch.from_numpy(c[k]).to(dev) for k in ("uv1", "uv2"))
+    if c["raw"]:
+        cam = CAM.make_camera(CameraConfig())
+        uv1, uv2 = (CAM.undistort(cam, u, None)[0] for u in (uv1, uv2))
+    valid = torch.from_numpy(c["valid"]).to(dev)
+    g = torch.Generator().manual_seed(n)
+    idx_h = TV.sample_indices(valid.cpu(), 200, 4, g)
+    idx_f = TV.sample_indices(valid.cpu(), 200, 8, g)
+    return c, uv1, uv2, valid, idx_h, idx_f
+
+
+def twoview_against_f64(name, n, uv1, uv2, valid, idx_h, idx_f):
+    """Both two-view kernels against the plain version in float64 on the
+    card, on the same samples (`ops.twoview.kernels_against_float64`).
+    Returns (kernel output, info, the largest R / t / point gaps)."""
+    g = TV.kernels_against_float64(K_EUROC, uv1, uv2, valid, idx_h, idx_f)
+    torch.cuda.synchronize()
+    r, rp = g.out.result, g.ref.result
+    ok = bool(r.success) == bool(rp.success) == (name != "rotation") \
+        and bool(r.used_homography) == bool(rp.used_homography) \
+        and g.best_equal and g.score_gap <= 1e-6 \
+        and max(g.gaps) <= 1e-5 and g.flips <= 0.01 * n
+    check(ok, f"two-view kernels, {name} at N = {n}: success "
+          f"{bool(r.success)}, homography {bool(r.used_homography)}, best "
+          f"minimal models {int(g.out.b_h)} / {int(g.out.b_f)} as the "
+          f"float64 plain version's (ties excepted), scores within "
+          f"{g.score_gap:.1e} (<= 1e-6), R / t / points within "
+          f"{g.gaps[0]:.1e} / {g.gaps[1]:.1e} / {g.gaps[2]:.1e} (<= 1e-5), "
+          f"{g.flips} triangulation flips (<= 1%)")
+    return g.out, g.info, g.gaps
+
+
+def check_boot_kernels(imgs, orb, lines, report):
+    """The kernels of slice 6 against their plain versions: `undistort` at
+    EuRoC's coefficients on the 16 frames' keypoints and segment endpoints
+    (from the kernel front end), the two-view kernels on the five cases at
+    200 matches and the general one at 1000 against the plain version in
+    float64 on the same samples, `imu_preint` on a keyframe's window of
+    128 samples (100 live)."""
+    dev = imgs[0].device
+    cam = CAM.make_camera(CameraConfig())
+    errs, frames = [0.0, 0.0], []
+    with torch.no_grad():
+        for img in imgs:
+            f, lf = orb(img), lines(img)
+            kp, ep = f.uv.contiguous(), lf.ep.contiguous()
+            uk, ek, qk = CAM.undistort(cam, kp, ep)
+            up, epp, _ = CAM.undistort_frame_plain(cam, kp, ep)
+            own = LN.line_equation(ek)
+            errs[0] = max(errs[0], float((uk - up).abs().max()),
+                          float((ek - epp).abs().max()))
+            # c = (x0 y1 - y0 x1) / n cancels products of ~1e5: its
+            # rounding scales with them over the length, a and b with 1
+            scale = torch.stack([torch.ones_like(ek[:, 0])] * 2 + [
+                ((ek[:, 0] * ek[:, 3]).abs() + (ek[:, 1] * ek[:, 2]).abs())
+                / torch.linalg.vector_norm(ek[:, 2:] - ek[:, :2], dim=1)],
+                1)
+            errs[1] = max(errs[1], float(((qk - own).abs() / scale).max()))
+            frames.append((kp, ep))
+    check(errs[0] == 0 and errs[1] <= 1e-6,
+          f"undistort at EuRoC's coefficients, {len(imgs)} frames' "
+          f"keypoints and endpoints: within {errs[0]:.2e} px of the plain "
+          f"version (== 0: the same float32 operations in the same order), "
+          f"line equations those of its own endpoints "
+          f"within {errs[1]:.2e} of their scale (<= 1e-6; c's scale is the "
+          "products it cancels over the length)")
+    kp, ep = frames[1]
+    n_pts, n_seg = kp.shape[0], ep.shape[0]
+    # per point 8 Newton steps of ~70 operations and the pixel maps (~8),
+    # per segment its line equation (~15)
+    report["undistort"] = dict(
+        **work(nbytes(kp, ep) + nbytes(*CAM.undistort(cam, kp, ep)),
+               (8 * 70 + 8) * (n_pts + 2 * n_seg) + 15 * n_seg),
+        max_abs_err=errs[0], ms=cuda_ms(lambda: CAM.undistort(cam, kp, ep)),
+        plain_ms=cuda_ms(lambda: CAM.undistort_frame_plain(cam, kp, ep)))
+    # -- the two-view kernels
+    cases = build_twoview_cases(0, 200)
+    gaps = []
+    for name in TWOVIEW_CASES:
+        _, *a = twoview_inputs(name, 200, dev, cases)
+        gaps.append(twoview_against_f64(name, 200, *a)[2])
+    _, uv1, uv2, valid, idx_h, idx_f = twoview_inputs("general", 1000, dev)
+    out, info, g1000 = twoview_against_f64("general", 1000, uv1, uv2, valid,
+                                           idx_h, idx_f)
+    gaps.append(g1000)
+    n = uv1.shape[0]
+    ih, if_ = idx_h.to(dev, torch.int32), idx_f.to(dev, torch.int32)
+    models, scores = TV.twoview_hypotheses(uv1, uv2, valid, ih, if_)
+    # what the function needs, at the float32 rate of the reference (the
+    # kernel itself solves in float64): per model its 8x9 system (~100
+    # operations) and null vector (~9^3), per F model the rank-2 cut of a
+    # 3x3 (~3^3) and the denormalization (~90); per model and match the
+    # symmetric transfer or epipolar terms (~45)
+    report["twoview_hypotheses"] = dict(
+        **work(nbytes(uv1, uv2, valid, ih, if_, models, scores),
+               400 * (100 + 9 ** 3) + 200 * (3 ** 3 + 90) + 400 * n * 45),
+        max_abs_err=max(g[0] for g in gaps),
+        ms=cuda_ms(lambda: TV.twoview_hypotheses(uv1, uv2, valid, ih, if_)),
+        plain_ms=cuda_ms(lambda: TV.twoview_hypotheses_plain(
+            uv1, uv2, valid, idx_h.to(dev), idx_f.to(dev)), reps=5))
+    hyp = TV.twoview_hypotheses_plain(uv1, uv2, valid, idx_h.to(dev),
+                                      idx_f.to(dev))
+    n_cand = int((info[8:] >= 0).sum())
+    # what the function needs, at the float32 rate: per match the inlier
+    # tests of the two best models (~90), both refits' A^T A rows (3 rows
+    # x 45 entries x 2), their re-scores (~90), and per motion hypothesis
+    # of the chosen model one 4x4 triangulation (~24 to build, ~4^3 for
+    # its null vector) with the gates (~60); the refits' 9x9 null vectors
+    # and the decomposition (~2 x 9^3 + 500)
+    report["twoview_recover"] = dict(
+        **work(nbytes(uv1, uv2, valid, models, scores)
+               + nbytes(*out.result[1:5]),
+               n * (90 + 270 + 90) + n_cand * n * (24 + 4 ** 3 + 60)
+               + 2 * 9 ** 3 + 500),
+        max_abs_err=max(max(g[1], g[2]) for g in gaps),
+        ms=cuda_ms(lambda: TV.twoview_recover(K_EUROC, uv1, uv2, valid,
+                                              models, scores)),
+        plain_ms=cuda_ms(lambda: TV.twoview_recover_plain(
+            K_EUROC, uv1, uv2, valid, *hyp), reps=5))
+    # -- imu_preint on a keyframe window longer than 64 samples
+    rng = np.random.default_rng(128)
+
+    def t(a, dt=torch.float32):
+        return torch.from_numpy(np.asarray(a)).to(dt).to(dev)
+    args = (t(rng.normal(0, 0.5, (128, 3))),
+            t(rng.normal(0, 1.0, (128, 3)) + [0, 0, 9.81]),
+            t(np.full(128, 0.005)), t(np.arange(128) < 100, torch.bool),
+            IMU.make_calib(ImuConfig()), t(np.zeros(3)), t(np.zeros(3)),
+            t(np.eye(3, 4)), t(np.zeros(3)))
+    fk, fp = IMU.imu_preint(*args), IMU.imu_preint_plain(*args)
+    rel = max(float((getattr(fk.pre, f) - getattr(fp.pre, f)).abs().max())
+              / max(float(getattr(fp.pre, f).abs().max()), 1e-30)
+              for f in fk.pre._fields)
+    check(rel <= 5e-5, f"imu_preint on a 128-sample keyframe window (100 "
+          f"live): every preintegrated field within {rel:.2e} relative of "
+          "the plain version (<= 5e-5)")
+
+
 def reset_counts():
     for k, _ in KERNELS.values():
         k.launches = 0
@@ -1874,6 +2058,133 @@ def run_slice5(dev, smi, report):
     return launches
 
 
+def boot_errors(out, B):
+    """Rotation (deg) and t-direction errors of the second keyframe
+    against the true relative motion of the two init frames."""
+    m, kfs = out.map, out.tracker.new_kf_queue
+    i0 = int(np.argmin(np.abs(B["timestamps"] - m.kf_timestamp[kfs[0]])))
+    T0, T1 = np.eye(4), np.eye(4)
+    T0[:3], T1[:3] = B["pose_cw"][i0], B["pose_cw"][out.init_frame]
+    T10 = T1 @ np.linalg.inv(T0)
+    P = m.kf_pose_cw[kfs[1]].astype(np.float64)
+    tt = T10[:3, 3] / np.linalg.norm(T10[:3, 3])
+    t = P[:, 3] / np.linalg.norm(P[:, 3])
+    return rot_deg(P[:, :3], T10[:3, :3]), float(np.linalg.norm(t - tt))
+
+
+def run_slice6(dev, smi, report):
+    """Phase 10: the monocular bootstrap on the rendered frames, and the
+    EuRoC-raw case through `undistort` and the two-view kernels, each a
+    path with its own launch window.  Returns the launches of both."""
+    print("[10] slice 6: bootstrap_step on the rendered frames; the "
+          "EuRoC-raw case")
+    step, B = bootstrap_step(device=dev)
+    plain, Bp = bootstrap_step(device=dev, plain=True)
+    reset_counts()
+    with torch.no_grad():
+        out = step(B)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    print(f"  launches (bootstrap_step): {launches}")
+    check(all(launches[k] > 0 for k in PATH_BOOT)
+          and launches["undistort"] == 0,
+          f"every kernel of bootstrap_step launched ({', '.join(PATH_BOOT)})"
+          ", and not undistort (the renders have no distortion)")
+    with torch.no_grad():
+        op = plain(Bp)
+    rot, tdir = boot_errors(out, B)
+    prot, ptdir = boot_errors(op, Bp)
+    got = {k: getattr(out, k) for k in ("init_frame", "attempts",
+                                        "used_homography", "init_matches",
+                                        "n_triangulated", "points", "lines")}
+    print(f"  kernel path: {got}, rotation error {rot:.4f} deg, t-direction "
+          f"error {tdir:.4f}, host syncs per attempt {out.host_syncs}; plain "
+          f"path: frame {op.init_frame}, attempts {op.attempts}, homography "
+          f"{op.used_homography}, matches {op.init_matches}, triangulated "
+          f"{op.n_triangulated}, points {op.points}, lines {op.lines}, "
+          f"rotation error {prot:.4f} deg, t-direction error {ptdir:.4f}; "
+          f"reference {REF_BOOT}")
+    ref = REF_BOOT
+    check(all(np.isfinite(a).all() for a in (out.kf_pose_cw, out.kf_pose_wb,
+                                              out.map.pt_xyz, out.map.ln_ep)),
+          "the initial map's poses, points and lines finite")
+    check(got["init_frame"] == ref["init_frame"]
+          and got["attempts"] == ref["attempts"]
+          and got["used_homography"] == ref["used_homography"],
+          f"initialized on frame {got['init_frame']} after "
+          f"{got['attempts']} attempts with the "
+          f"{'homography' if got['used_homography'] else 'fundamental'}, as "
+          "REF_BOOT")
+    check(abs(got["init_matches"] - ref["init_matches"])
+          <= 0.02 * ref["init_matches"]
+          and all(abs(got[k] - ref[k]) <= 0.05 * ref[k]
+                  for k in ("n_triangulated", "points"))
+          and got["lines"] >= 1
+          and abs(got["lines"] - ref["lines"]) <= max(3, ref["lines"] // 2),
+          f"init matches {got['init_matches']} within 2%, triangulated "
+          f"{got['n_triangulated']} and points {got['points']} within 5%, "
+          f"lines {got['lines']} within max(3, half) of REF_BOOT (the card's "
+          "own RANSAC draws)")
+    check(rot <= 2 * ref["rot_err_deg"] and tdir <= 2 * ref["tdir_err"],
+          f"second keyframe: rotation error {rot:.4f} deg <= "
+          f"{2 * ref['rot_err_deg']:.4f}, t-direction error {tdir:.4f} <= "
+          f"{2 * ref['tdir_err']:.4f} (2x the reference's largest)")
+    c, *_ = twoview_inputs("euroc_raw", 1000, dev)
+    cam = CAM.make_camera(CameraConfig())
+    raw = [torch.from_numpy(c[k]).to(dev) for k in ("uv1", "uv2")]
+    valid = torch.from_numpy(c["valid"]).to(dev)
+    reset_counts()
+    with torch.no_grad():
+        u1, u2 = (CAM.undistort_pixels(cam, u) for u in raw)
+        res = TV.reconstruct_two_views(
+            K_EUROC, u1, u2, valid, generator=torch.Generator().manual_seed(0))
+        success = bool(res.success)
+    torch.cuda.synchronize()
+    launches_raw = read_counts()
+    print(f"  launches (EuRoC-raw case): {launches_raw}")
+    check(all(launches_raw[k] > 0 for k in PATH_RAW),
+          f"every kernel of the EuRoC-raw case launched "
+          f"({', '.join(PATH_RAW)})")
+    dR = res.R.double().cpu().numpy().T @ c["R"]
+    ang = math.acos(max(-1.0, min(1.0, (np.trace(dR) - 1) / 2)))
+    t_dir = c["t"] / np.linalg.norm(c["t"])
+    t = res.t.double().cpu().numpy()
+    et = float(np.linalg.norm(t / np.linalg.norm(t) - t_dir))
+    check(success and not bool(res.used_homography) and ang < 0.01
+          and et < 0.06,
+          f"EuRoC-raw case (1000 raw cam0 matches, undistorted on the card): "
+          f"success with F, rotation error {ang:.2e} rad < 0.01, "
+          f"t-direction error {et:.2e} < 0.06 (tests/test_twoview.py's "
+          "bounds)")
+
+    def go(stp, BB):
+        def f():
+            with torch.no_grad():
+                return stp(BB)
+        return f
+    t0 = time.perf_counter()
+    go(step, B)()
+    torch.cuda.synchronize()
+    wk = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    go(plain, Bp)()
+    torch.cuda.synchronize()
+    wp = (time.perf_counter() - t0) * 1e3
+    mk = cuda_ms(go(step, B), reps=3, warmup=1)
+    print(f"  bootstrap_step: kernel path {mk / out.attempts:.3f} ms per "
+          f"attempt ({mk:.3f} ms for {len(B['frames'][:out.init_frame + 1])} "
+          f"frames, CUDA events; wall {wk:.1f} ms), plain path "
+          f"{wp / max(op.attempts, 1):.3f} ms per attempt (wall {wp:.1f} "
+          f"ms), on {smi}")
+    for k in ("undistort", "twoview_hypotheses", "twoview_recover"):
+        r = report[k]
+        print(f"  {k}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.6f} ms, {launches[k]} launches on "
+              f"bootstrap_step, {launches_raw[k]} on the EuRoC-raw case, on "
+              f"{smi}")
+    return {k: launches[k] + launches_raw[k] for k in launches}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1925,6 +2236,7 @@ def main():
     check_map_kernels(report)
     check_inertial_kernels(report)
     check_nbh_kernels(report)
+    check_boot_kernels(imgs, step.orb, step.lines, report)
 
     print(f"[4] slice 1: {N_FRAMES} frames through tracking_step_pl, pose "
           "carried")
@@ -2048,6 +2360,7 @@ def main():
     launches_map = run_slice3(dev, step, imgs, pose0, map_args, smi)
     launches_liba = run_slice4(dev, smi)
     launches_nbh = run_slice5(dev, smi, report)
+    launches_boot = run_slice6(dev, smi, report)
 
     rows = []
     for name, (k, replaces) in KERNELS.items():
@@ -2059,7 +2372,7 @@ def main():
                          replaces=replaces,
                          launches=launches_pl[name] + launches_vi[name]
                          + launches_map[name] + launches_liba[name]
-                         + launches_nbh[name],
+                         + launches_nbh[name] + launches_boot[name],
                          max_abs_err=rep["max_abs_err"], ms=rep["ms"],
                          plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"],
                          bound_by=rep["bound_by"], library_ms=None))

@@ -1,9 +1,12 @@
 """The port's own configuration (copy of the fields of
-plvio_tpu/config.py:ImuConfig that `ops/imu.make_calib` reads, with the
-same defaults; reference src/Tracking.cc:1057, EuRoC.yaml:38-44)."""
+plvio_tpu/config.py that the port reads, with the same defaults:
+`ImuConfig`, reference src/Tracking.cc:1057, EuRoC.yaml:38-44; the
+camera, `CameraConfig`; and the few `SystemConfig` fields of the
+monocular bootstrap)."""
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
+from enum import IntEnum
 from typing import Tuple
 
 import numpy as np
@@ -27,3 +30,39 @@ class ImuConfig:
 
     def Tbc_matrix(self) -> np.ndarray:
         return np.asarray(self.Tbc, dtype=np.float64).reshape(4, 4)
+
+
+class Sensor(IntEnum):
+    """Sensor modes (plvio_tpu/config.py:22-28)."""
+    MONOCULAR = 0
+    STEREO = 1
+    RGBD = 2
+    IMU_MONOCULAR = 3
+    IMU_STEREO = 4
+
+
+@dataclass(frozen=True)
+class CameraConfig:
+    """The camera fields the port reads (plvio_tpu/config.py:42-52, EuRoC
+    cam0 defaults: pinhole, 752x480, rad-tan k1, k2, p1, p2)."""
+    model: str = "pinhole"
+    width: int = 752
+    height: int = 480
+    fx: float = 458.654
+    fy: float = 457.296
+    cx: float = 367.215
+    cy: float = 248.375
+    dist: Tuple[float, ...] = (-0.28340811, 0.07395907, 0.00019359,
+                               1.76187114e-05)
+    fps: float = 20.0
+
+
+@dataclass(frozen=True)
+class SystemConfig:
+    """The fields of plvio_tpu/config.py:SystemConfig (:155-170) that the
+    monocular bootstrap reads, with the same defaults."""
+    sensor: Sensor = Sensor.MONOCULAR
+    camera: CameraConfig = field(default_factory=CameraConfig)
+    imu: ImuConfig = field(default_factory=ImuConfig)
+    use_lines: bool = True
+    seed: int = 0

@@ -8,8 +8,9 @@
 // The JAX version is a lax.scan over the samples whose carry holds the 15x15
 // covariance, then an LU inverse; each is a handful of tiny XLA ops.
 //
-// What bounds it on the H100: nothing but latency.  The window has <= 10
-// samples and each step depends on the previous one; the work is ~3000
+// What bounds it on the H100: nothing but latency.  A frame's window has
+// <= 10 samples (a keyframe's, padded, 64 or more: the kernel streams any
+// count) and each step depends on the previous one; the work is ~3000
 // flops per sample.  A chain of eager torch ops costs ~40 launches per
 // sample (~400 per frame) and the host time to issue them.
 //

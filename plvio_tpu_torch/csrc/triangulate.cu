@@ -21,6 +21,7 @@
 // 1e-12 guard).  The gates follow the reference's float32 expressions in
 // order.
 #include "common.cuh"
+#include "linalg.cuh"
 
 namespace {
 
@@ -37,50 +38,6 @@ struct Params {
   float* Xw;              // [n,3]
   uint8_t* good;          // [n]
 };
-
-// Eigenvector of the smallest eigenvalue of the symmetric 4x4 matrix S,
-// by cyclic Jacobi sweeps (S is overwritten).
-__device__ void jacobi_null4(double S[4][4], double v[4]) {
-  double V[4][4];
-  for (int i = 0; i < 4; ++i)
-    for (int j = 0; j < 4; ++j) V[i][j] = i == j ? 1.0 : 0.0;
-  for (int sweep = 0; sweep < 30; ++sweep) {
-    double off = 0.0;
-    for (int p = 0; p < 4; ++p)
-      for (int q = p + 1; q < 4; ++q) off += S[p][q] * S[p][q];
-    if (off < 1e-300) break;
-    for (int p = 0; p < 4; ++p) {
-      for (int q = p + 1; q < 4; ++q) {
-        const double apq = S[p][q];
-        if (fabs(apq) < 1e-300) continue;
-        const double theta = (S[q][q] - S[p][p]) / (2.0 * apq);
-        const double t = (theta >= 0.0 ? 1.0 : -1.0)
-            / (fabs(theta) + sqrt(theta * theta + 1.0));
-        const double c = 1.0 / sqrt(t * t + 1.0);
-        const double s = t * c;
-        for (int k = 0; k < 4; ++k) {          // S <- S J
-          const double skp = S[k][p], skq = S[k][q];
-          S[k][p] = c * skp - s * skq;
-          S[k][q] = s * skp + c * skq;
-        }
-        for (int k = 0; k < 4; ++k) {          // S <- J^T S
-          const double spk = S[p][k], sqk = S[q][k];
-          S[p][k] = c * spk - s * sqk;
-          S[q][k] = s * spk + c * sqk;
-        }
-        for (int k = 0; k < 4; ++k) {          // V <- V J
-          const double vkp = V[k][p], vkq = V[k][q];
-          V[k][p] = c * vkp - s * vkq;
-          V[k][q] = s * vkp + c * vkq;
-        }
-      }
-    }
-  }
-  int m = 0;
-  for (int i = 1; i < 4; ++i)
-    if (S[i][i] < S[m][m]) m = i;
-  for (int k = 0; k < 4; ++k) v[k] = V[k][m];
-}
 
 __global__ void triangulate_kernel(Params p) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;

@@ -13,7 +13,9 @@ loaded with ctypes; every pointer and the stream are passed as
 
 `--fmad=false` keeps every multiply and add separately rounded, as the
 plain PyTorch versions are, so that a kernel and its plain version agree
-bit for bit where their operations agree in order.
+bit for bit where their operations agree in order.  (Eager CUDA divides by
+a Python scalar as a multiply by its reciprocal: a plain version that must
+agree divides by a tensor.)
 
 A `Kernel` counts its launches in the plain integer `launches`; a run can
 reset it to 0 and read it after, to show that a path went through the
@@ -30,6 +32,7 @@ import threading
 from pathlib import Path
 from typing import Dict, Sequence
 
+import numpy as np
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -143,6 +146,29 @@ def resolve_device(device="cuda") -> torch.device:
         raise RuntimeError(f"device {device!r} requested but no CUDA device "
                            "is available")
     return dev
+
+
+class HostIO:
+    """Store arrays to the owner's device and kernel results back to
+    numpy, for the host bookkeeping that runs between device calls; the
+    owner sets `device` and counts each device-to-host read in
+    `host_syncs`."""
+    device: torch.device
+    host_syncs: int
+
+    def _dev(self, a) -> torch.Tensor:
+        """A numpy array on the owner's device (uint32 descriptors as int32
+        views with the same bits)."""
+        a = np.ascontiguousarray(a)
+        if a.dtype == np.uint32:
+            a = a.view(np.int32)
+        return torch.from_numpy(a).to(self.device, non_blocking=True)
+
+    def _host(self, t: torch.Tensor) -> np.ndarray:
+        """A kernel output back in numpy (a host sync on the card)."""
+        if t.device.type != "cpu":
+            self.host_syncs += 1
+        return t.detach().cpu().numpy()
 
 
 def check_cuda(name: str, *tensors: torch.Tensor) -> None:

@@ -27,6 +27,11 @@ neighborhood_step(...) -> (step, map store): the keyframe step's
                          (`create_new_lines` :541, `search_in_neighbors`
                          :329, `local_ba` :697) on a 14-keyframe map
                          from `inputs.build_keyframe_map`
+bootstrap_step(...)   -> (step, inputs): the monocular bootstrap, from
+                         rendered frames through the frame prelude
+                         (`models/system.py:160-169`) and the port's
+                         `Tracker` to the initial two-keyframe map
+                         (`_initialize_mono`, models/tracking.py:384)
 entry(device)         -> tracking_step_pl at EuRoC geometry on `device`
 
 Every entry point runs on the card unless the caller passes
@@ -515,3 +520,86 @@ def entry(device="cuda"):
     (480x752, 1000 features, 2048 map points, 128 map lines, 256 line
     features) on `device`."""
     return tracking_step_pl(device=device)
+
+
+class BootstrapOut(NamedTuple):
+    init_frame: int            # index of the frame that initialized, or -1
+    attempts: int              # two-view reconstructions run
+    used_homography: bool      # the last attempt's model
+    init_matches: int          # the last attempt's init matches
+    n_triangulated: int        # the last attempt's triangulated matches
+    points: int                # map points created
+    lines: int                 # map lines created
+    kf_pose_cw: np.ndarray     # [2,3,4] the two keyframes' T_cw
+    kf_pose_wb: np.ndarray     # [2,3,4] their body poses
+    host_syncs: list           # device-to-host reads per attempt
+    map: object                # the port's MapStore
+    tracker: object            # the port's Tracker (records, queue)
+
+
+class BootstrapStep(nn.Module):
+    """The monocular bootstrap of the mono-inertial point+line path: each
+    frame through the frame prelude (ORB, undistortion, lines) and
+    `Tracker.process_frame`, in order, until the tracker is OK; the
+    initial map is two keyframes with their points, lines, bindings,
+    covisibility and the first IMU preintegration.
+
+    forward(B) -> BootstrapOut; B is the dict of
+    `inputs.build_bootstrap_inputs` with its frames as tensors on the
+    step's device.  `cfg` defaults to the rendered frames' camera (EuRoC
+    intrinsics, no distortion), IMU_MONOCULAR with lines."""
+
+    def __init__(self, cfg=None, plain: bool = False, device="cuda"):
+        super().__init__()
+        from .config import CameraConfig, Sensor, SystemConfig
+        from .ops.cameras import make_camera
+        if cfg is None:
+            cfg = SystemConfig(camera=CameraConfig(dist=(0.0, 0.0, 0.0, 0.0)),
+                               sensor=Sensor.IMU_MONOCULAR, use_lines=True)
+        self.cfg, self.plain = cfg, plain
+        self.device = resolve_device(device)
+        cam = cfg.camera
+        self.cam = make_camera(cam)
+        specs = make_level_specs(cam.height, cam.width, 1000)
+        self.n_feat = sum(sp.n_keep for sp in specs)
+        self.orb = OrbExtractor(specs, plain=plain)
+        self.lines = LineExtractor(256, levels=2, plain=plain) \
+            if cfg.use_lines else None
+        self.to(self.device)
+
+    def forward(self, B) -> BootstrapOut:
+        from .models.mapstore import Atlas, MapStore
+        from .models.system import frame_prelude
+        from .models.tracking import Tracker, TrackState
+        atlas = Atlas([MapStore(n_feat=self.n_feat)])
+        tr = Tracker(self.cfg, atlas, self.n_feat, device=self.device,
+                     plain=self.plain)
+        init_frame = -1
+        for i, img in enumerate(B["frames"]):
+            feats, lf = frame_prelude(self.orb, self.lines, self.cam, img,
+                                      self.plain)
+            tr.process_frame(feats, float(B["timestamps"][i]),
+                             imu=B["imu"][i], line_feats=lf)
+            if tr.state == TrackState.OK:
+                init_frame = i
+                break
+        m = atlas.current
+        res = tr.last_twoview
+        kfs = list(tr.new_kf_queue)
+        return BootstrapOut(
+            init_frame, tr.attempts,
+            bool(res.used_homography) if res is not None else False,
+            tr.init_matches,
+            int(res.is_triangulated.sum()) if res is not None else 0,
+            m.n_pt, m.n_ln, m.kf_pose_cw[kfs].copy(),
+            m.kf_pose_wb[kfs].copy(), list(tr.attempt_syncs), m, tr)
+
+
+def bootstrap_step(seed: int = 0, device="cuda", plain: bool = False):
+    """The monocular bootstrap (`BootstrapStep`) and its inputs from
+    `inputs.build_bootstrap_inputs(seed)`, the frames on `device`."""
+    from .inputs import build_bootstrap_inputs
+    dev = resolve_device(device)
+    B = build_bootstrap_inputs(seed)
+    B["frames"] = [torch.from_numpy(f).to(dev) for f in B["frames"]]
+    return BootstrapStep(plain=plain, device=dev), B

@@ -1103,3 +1103,115 @@ def build_imu_init_inputs(n_kf: int = 32, seed: int = 0, device="cuda"):
         gt_ref_scale=1.0 / 1.03, gt_ref_gdir=f32(R_tilt @ gI),
         imu_gyro=f32(gyro), imu_acc=f32(acc), imu_dt=f32(dts),
         imu_mask=torch.from_numpy(mask).to(dev))
+
+
+# --------------------------------------------------------------------------
+# The monocular bootstrap
+# --------------------------------------------------------------------------
+
+TWOVIEW_CASES = ("general", "planar", "outliers", "rotation", "euroc_raw")
+
+
+def _twoview_pair(rng, X, baseline=(0.3, 0.05, 0.0), rot=(0.02, -0.03, 0.01),
+                  noise=0.3):
+    """tests/test_twoview.py:_make_pair: the points X [N,3] seen from the
+    origin and from (R2, t2), with pixel noise; (uv1, uv2, ok, R2, t2)."""
+    K = K_EUROC
+    R2 = lie.so3_exp(torch.tensor(rot, dtype=torch.float32)).double().numpy()
+    t2 = np.asarray(baseline, np.float64)
+
+    def project(R, t):
+        pc = X @ R.T + t
+        return np.stack([K.fx * pc[:, 0] / pc[:, 2] + K.cx,
+                         K.fy * pc[:, 1] / pc[:, 2] + K.cy], -1), pc[:, 2]
+
+    uv1, z1 = project(np.eye(3), np.zeros(3))
+    uv2, z2 = project(R2, t2)
+    ok = (z1 > 0.1) & (z2 > 0.1)
+    uv1 = uv1 + rng.normal(0, noise, uv1.shape)
+    uv2 = uv2 + rng.normal(0, noise, uv2.shape)
+    return uv1, uv2, ok, R2, t2
+
+
+def build_twoview_cases(seed: int = 0, n: int = 200):
+    """The correspondence cases of tests/test_twoview.py:18-97 at n matches,
+    each from numpy default_rng(seed) as its test draws them: 'general'
+    (points 3-8 m ahead, 0.3 m baseline), 'planar' (a tilted plane),
+    'outliers' (the general case with 40 matches thrown 20-80 px),
+    'rotation' (no baseline: must fail), and 'euroc_raw', the general
+    scene's projections passed through the EuRoC cam0 rad-tan model
+    (`ops.cameras.distort_pixels` at the `CameraConfig` coefficients): raw
+    pixels, which the bootstrap sees only through `undistort_pixels`.
+
+    Returns {name: dict(uv1, uv2 [n,2] float32, valid [n] bool, R, t (the
+    true second camera, float64), X [n,3] (points in camera 1), bad (the
+    outliers' rows, or None), raw (True where uv1 / uv2 are distorted))}."""
+    from .config import CameraConfig
+    from .ops import cameras as CAM
+
+    def general(rng):
+        X = rng.uniform(-2, 2, (n, 3))
+        X[:, 2] = rng.uniform(3, 8, n)
+        return X
+
+    def planar(rng):
+        X = rng.uniform(-2, 2, (n, 3))
+        X[:, 2] = 5.0 + 0.3 * X[:, 0]
+        return X
+
+    out = {}
+    for name in TWOVIEW_CASES:
+        rng = np.random.default_rng(seed)
+        X = planar(rng) if name == "planar" else general(rng)
+        kw = dict(baseline=(0.0, 0.0, 0.0), rot=(0.05, 0.02, 0.0),
+                  noise=0.2) if name == "rotation" else {}
+        uv1, uv2, ok, R2, t2 = _twoview_pair(rng, X, **kw)
+        bad = None
+        if name == "outliers":
+            bad = rng.choice(n, 40, replace=False)
+            uv2[bad] += rng.uniform(20, 80, (40, 2)) \
+                * rng.choice([-1, 1], (40, 2))
+        uv1 = uv1.astype(np.float32)
+        uv2 = uv2.astype(np.float32)
+        if name == "euroc_raw":
+            cam = CAM.make_camera(CameraConfig())
+            uv1, uv2 = (CAM.distort_pixels(cam, torch.from_numpy(a)).numpy()
+                        for a in (uv1, uv2))
+        out[name] = dict(uv1=uv1, uv2=uv2, valid=ok, R=R2, t=t2, X=X,
+                         bad=bad, raw=name == "euroc_raw")
+    return out
+
+
+def build_bootstrap_inputs(seed: int = 0, n_frames: int = 6):
+    """Frames for the monocular bootstrap (after tests/test_e2e_mono.py:
+    21-24): the room (4000 points, 200 lines, numpy default_rng(seed)),
+    the 0.6 m orbit at 20 fps, each frame rendered at EuRoC K with zero
+    distortion, and the 200 Hz IMU (`synthesize_imu`, default_rng(seed +
+    1), biased) cut into each frame's batch: the samples in (t_{i-1},
+    t_i], none for frame 0.
+
+    Returns dict(frames [n] of [480,752] float32, timestamps [n], imu [n]
+    of (gyro [k,3], acc [k,3], dt [k]) float32, pose_cw [n,3,4] float32
+    (the true camera poses), bias_gyro, bias_acc)."""
+    rng = np.random.default_rng(seed)
+    scene = syn.make_room_scene(rng, n_points=4000, n_lines=200)
+    traj = syn.make_orbit_trajectory(duration=n_frames / 20.0, fps=20.0,
+                                     radius=0.6)
+    frames = [syn.render_frame(scene, traj.R_wb[i], traj.p_wb[i], rng=rng)
+              for i in range(n_frames)]
+    imu = synthesize_imu(np.random.default_rng(seed + 1),
+                         n_frames / 20.0 + 0.2, radius=0.6)
+    batches, prev = [], -np.inf
+    for ts in traj.timestamps:
+        m = (imu.timestamps > prev) & (imu.timestamps <= ts)
+        k = int(m.sum())
+        batches.append((imu.gyro[m].astype(np.float32),
+                        imu.acc[m].astype(np.float32),
+                        np.full(k, 1.0 / 200.0, np.float32)))
+        prev = ts
+    R_cw = np.transpose(traj.R_wb, (0, 2, 1))
+    t_cw = -np.einsum("nij,nj->ni", R_cw, traj.p_wb)
+    pose_cw = np.concatenate([R_cw, t_cw[..., None]], -1).astype(np.float32)
+    return dict(frames=[np.asarray(f, np.float32) for f in frames],
+                timestamps=traj.timestamps, imu=batches, pose_cw=pose_cw,
+                bias_gyro=imu.bias_gyro, bias_acc=imu.bias_acc)

@@ -19,15 +19,14 @@ fusions), so the calls are not batched.
 from __future__ import annotations
 
 import numpy as np
-import torch
 
-from ..cuda import resolve_device
+from ..cuda import HostIO, resolve_device
 from ..solver.residuals import PinholeK
 from . import kernels as KN
 from .mapstore import INVALID, MapStore
 
 
-class LocalMapper:
+class LocalMapper(HostIO):
     """The local mapper's neighbourhood methods at production's caps
     (models/local_mapping.py:31-34, 71, 87-90: the point BA window
     `ba_kf_cap` x `ba_pt_cap` x `ba_obs_cap`, 512 lines x 1024 line
@@ -63,21 +62,6 @@ class LocalMapper:
         self.ba_path = None
         self.ba_stats: list = []
         self.host_syncs = 0
-
-    # ------------------------------------------------------------------
-    def _dev(self, a) -> torch.Tensor:
-        """A numpy array on the mapper's device (uint32 descriptors as
-        int32 views with the same bits)."""
-        a = np.ascontiguousarray(a)
-        if a.dtype == np.uint32:
-            a = a.view(np.int32)
-        return torch.from_numpy(a).to(self.device, non_blocking=True)
-
-    def _host(self, t: torch.Tensor) -> np.ndarray:
-        """A kernel output back in numpy (a host sync on the card)."""
-        if t.device.type != "cpu":
-            self.host_syncs += 1
-        return t.detach().cpu().numpy()
 
     # ------------------------------------------------------------------
     # Duplicate-landmark fusion

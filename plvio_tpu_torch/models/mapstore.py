@@ -1,9 +1,10 @@
-"""The struct-of-arrays map store, as far as the keyframe step's
-neighbourhood work touches it (port of plvio_tpu/models/mapstore.py:
-the arrays of `MapStore.__init__` :27-105, `alloc_kf` :108, `alloc_points`
-:117, `alloc_lines` :123, `update_covisibility` :140 (its numpy path
-:155-175), `covisible_kfs` :177, `remove_point` :206 and
-`valid_kf_indices` :245).
+"""The struct-of-arrays map store, as far as the monocular bootstrap and
+the keyframe step's neighbourhood work touch it (port of
+plvio_tpu/models/mapstore.py: the arrays and inertial fields of
+`MapStore.__init__` :27-105, `alloc_kf` :108, `alloc_points` :117,
+`alloc_lines` :123, `update_covisibility` :140 (its numpy path :155-175),
+`covisible_kfs` :177, `remove_point` :206, `valid_kf_indices` :245, and a
+minimal `Atlas` :413-435).
 
 Host-side numpy, as in the reference: fixed-capacity arrays with validity
 masks, mutated only by the host bookkeeping of the local mapper; device
@@ -11,6 +12,9 @@ kernels receive copies of slices.  `state.mapstore_from_numpy` /
 `mapstore_to_numpy` carry a store's arrays across.
 """
 from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import List
 
 import numpy as np
 
@@ -29,6 +33,11 @@ ARRAYS = (
 # the scalars beside them
 SCALARS = ("map_id", "max_kf", "max_pts", "max_lines", "n_feat",
            "n_line_feat", "n_kf", "n_pt", "n_ln", "change_index")
+# the IMU initialization stages and the keyframes' inertial links (kf ->
+# ops.imu.Preintegrated of numpy arrays; kf -> (gyro [K,3], acc [K,3], dt
+# [K]) raw samples)
+INERTIAL = ("imu_initialized", "imu_ba1", "imu_ba2", "kf_preint",
+            "kf_imu_raw")
 
 
 class MapStore:
@@ -93,6 +102,14 @@ class MapStore:
         # ---- covisibility (shared point and line observations) --------
         self.covis = np.zeros((max_kf, max_kf), np.int32)
         self.change_index = 0
+        # IMU initialization stages
+        self.imu_initialized = False
+        self.imu_ba1 = False
+        self.imu_ba2 = False
+        # preintegration from the previous keyframe of the temporal chain,
+        # and the raw samples for reintegration at new biases
+        self.kf_preint = {}
+        self.kf_imu_raw = {}
 
     # ------------------------------------------------------------------
     def alloc_kf(self) -> int:
@@ -169,3 +186,20 @@ class MapStore:
 
     def valid_kf_indices(self) -> np.ndarray:
         return np.nonzero(self.kf_valid)[0]
+
+
+@dataclass
+class Atlas:
+    """Multi-map container: the maps and the active one (the reference's
+    `create_new_map`, which starts a map after a tracking loss, comes with
+    relocalization)."""
+    maps: List[MapStore] = field(default_factory=list)
+    active: int = 0
+
+    def __post_init__(self):
+        if not self.maps:
+            self.maps = [MapStore(map_id=0)]
+
+    @property
+    def current(self) -> MapStore:
+        return self.maps[self.active]

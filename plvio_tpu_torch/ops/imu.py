@@ -220,10 +220,11 @@ IMU_PREINT = cuda.Kernel("imu_preint", "imu_preint",
 
 def imu_preint(gyro, acc, dt, mask, calib: ImuCalib, bias_gyro, bias_acc,
                pose_wb, vel) -> ImuFrame:
-    """Preintegrate the window (gyro/acc [K,3], dt [K], mask [K] bool, K <=
-    64) at biases (bias_gyro, bias_acc) [3], predict from (pose_wb [3,4],
-    vel [3]), and invert the 9x9 covariance block.  CPU tensors take the
-    plain version; CUDA tensors launch csrc/imu_preint.cu."""
+    """Preintegrate the window (gyro/acc [K,3], dt [K], mask [K] bool, any
+    K: the kernel streams the samples) at biases (bias_gyro, bias_acc)
+    [3], predict from (pose_wb [3,4], vel [3]), and invert the 9x9
+    covariance block.  CPU tensors take the plain version; CUDA tensors
+    launch csrc/imu_preint.cu."""
     if gyro.device.type == "cpu":
         return imu_preint_plain(gyro, acc, dt, mask, calib, bias_gyro,
                                 bias_acc, pose_wb, vel)
@@ -237,8 +238,8 @@ def imu_preint(gyro, acc, dt, mask, calib: ImuCalib, bias_gyro, bias_acc,
     if gyro.shape != (k, 3) or acc.shape != (k, 3) or dt.shape != (k,) \
             or mask.shape != (k,) or bias_gyro.shape != (3,) \
             or bias_acc.shape != (3,) or pose_wb.shape != (3, 4) \
-            or vel.shape != (3,) or k > 64:
-        raise ValueError("imu_preint: shape mismatch (K <= 64 samples)")
+            or vel.shape != (3,):
+        raise ValueError("imu_preint: shape mismatch")
     out = torch.empty(OUT_FLOATS, dtype=torch.float32, device=gyro.device)
     IMU_PREINT.launch(
         cuda.ptr(gyro), cuda.ptr(acc), cuda.ptr(dt), cuda.ptr(mask), k,

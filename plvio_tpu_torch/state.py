@@ -9,6 +9,7 @@ import torch
 
 from .models import mapstore as MS
 from .models.kernels import PRE_KEYS
+from .ops.imu import Preintegrated
 from .ops.frontend import brief_pattern
 from .ops.lines import _band_pair_pattern
 
@@ -48,21 +49,40 @@ def from_numpy(arrays: Dict[str, np.ndarray],
     return out
 
 
+def _preint_to_numpy(p) -> Dict[str, np.ndarray]:
+    """A Preintegrated (the port's or the JAX package's, or a dict of its
+    fields) as a dict of numpy arrays, field by field."""
+    if isinstance(p, dict):
+        items = p.items()
+    else:
+        items = ((f, getattr(p, f)) for f in p._fields)
+    return {f: np.array(v) for f, v in items}
+
+
 def mapstore_to_numpy(m: MS.MapStore) -> Dict[str, np.ndarray]:
-    """A map store's arrays (`models.mapstore.ARRAYS`, copies) and its
-    scalars (`SCALARS`, as Python ints): the layout of the JAX package's
-    `MapStore` attributes of the same names."""
+    """A map store's arrays (`models.mapstore.ARRAYS`, copies), its
+    scalars (`SCALARS`, as Python ints) and its inertial fields
+    (`INERTIAL`: the three flags as bools; `kf_preint` as {kf: {field of
+    Preintegrated: array}}; `kf_imu_raw` as {kf: (gyro, acc, dt)}): the
+    layout of the JAX package's `MapStore` attributes of the same names."""
     out = {k: np.array(getattr(m, k)) for k in MS.ARRAYS}
     out.update({k: int(getattr(m, k)) for k in MS.SCALARS})
+    out.update({k: bool(getattr(m, k)) for k in MS.INERTIAL[:3]})
+    out["kf_preint"] = {int(kf): _preint_to_numpy(p)
+                        for kf, p in m.kf_preint.items()}
+    out["kf_imu_raw"] = {int(kf): tuple(np.array(a) for a in raw)
+                         for kf, raw in m.kf_imu_raw.items()}
     return out
 
 
 def mapstore_from_numpy(arrays: Dict[str, np.ndarray]) -> MS.MapStore:
     """The port's map store holding `arrays`: every name of
-    `models.mapstore.ARRAYS` and `SCALARS`, as `mapstore_to_numpy` gives
-    them or as a JAX package `MapStore`'s attributes hold them.  The
-    arrays are copied in their store dtypes (descriptors stay uint32 on
-    the host; the mapper hands them to the device as int32 views)."""
+    `models.mapstore.ARRAYS` and `SCALARS`, and those of `INERTIAL` that
+    are given (the others keep their defaults), as `mapstore_to_numpy`
+    gives them or as a JAX package `MapStore`'s attributes hold them.
+    The arrays are copied in their store dtypes (descriptors stay uint32
+    on the host; the mapper hands them to the device as int32 views);
+    each `kf_preint` entry becomes a Preintegrated of numpy arrays."""
     missing = [k for k in MS.ARRAYS + MS.SCALARS if k not in arrays]
     if missing:
         raise KeyError(f"mapstore_from_numpy: missing {missing}")
@@ -81,6 +101,12 @@ def mapstore_from_numpy(arrays: Dict[str, np.ndarray]) -> MS.MapStore:
         setattr(m, k, np.array(a, dtype=ref.dtype))
     for k in ("n_kf", "n_pt", "n_ln", "change_index"):
         setattr(m, k, int(arrays[k]))
+    for k in MS.INERTIAL[:3]:
+        setattr(m, k, bool(arrays.get(k, False)))
+    m.kf_preint = {int(kf): Preintegrated(**_preint_to_numpy(p))
+                   for kf, p in arrays.get("kf_preint", {}).items()}
+    m.kf_imu_raw = {int(kf): tuple(np.array(a, np.float32) for a in raw)
+                    for kf, raw in arrays.get("kf_imu_raw", {}).items()}
     return m
 
 

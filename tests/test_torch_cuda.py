@@ -1,4 +1,4 @@
-"""The sixteen CUDA kernels against their plain PyTorch versions on the card.
+"""The nineteen CUDA kernels against their plain PyTorch versions on the card.
 
 Marked `cuda`; each test skips without a CUDA device.  This file imports
 no JAX, so it also runs on a GPU machine without JAX, where the suite's
@@ -234,8 +234,12 @@ def test_line_kernels_match_plain(dev, image):
     assert LN.LINE_DETECT.launches > 0 and LN.LINE_REFINE_LBD.launches > 0
 
 
-@pytest.mark.parametrize("k,n_valid", [(10, 10), (10, 4), (16, 16)])
+@pytest.mark.parametrize("k,n_valid", [(10, 10), (10, 4), (16, 16),
+                                       (128, 100)])
 def test_imu_preint_matches_plain(dev, k, n_valid):
+    """Up to 16 samples (a frame) within 1e-5 relative; the keyframe
+    window of the bootstrap, padded past 64 samples, within 5e-5 (the bias
+    Jacobians drift ~1.5e-5 over ~100 samples in another order)."""
     from plvio_tpu_torch.config import ImuConfig
     from plvio_tpu_torch.ops import imu as IMU
     rng = np.random.default_rng(k + n_valid)
@@ -257,7 +261,8 @@ def test_imu_preint_matches_plain(dev, k, n_valid):
                  for f in fk.pre._fields] + [(fk.R2, fp.R2), (fk.v2, fp.v2),
                                              (fk.p2, fp.p2)]:
         scale = float(b.abs().max())
-        assert float((a - b).abs().max()) <= 1e-5 * max(scale, 1e-30)
+        tol = 1e-5 if k <= 16 else 5e-5
+        assert float((a - b).abs().max()) <= tol * max(scale, 1e-30)
     rel = (fk.imu_info - fp.imu_info).norm() / fp.imu_info.norm()
     assert float(rel) <= 1e-4
 
@@ -424,29 +429,60 @@ def test_triangulate_matches_plain(dev):
 
 @pytest.mark.parametrize("perturbed", [False, True])
 def test_mapping_step_kernel_path_matches_plain_path(dev, perturbed):
+    """The typical mapping step held to runs that repeat: the plain path in
+    float32 on the CPU and the BA's plain engine in float64.  (The card's
+    plain path sums by atomics, so its KF poses move ~1e-4 from run to
+    run, and its LM decisions with them: 1.33e-4 from the kernel path in
+    one of three full runs on an H100; it is run and printed, not asserted
+    on.)
+    The triangulated count, the LM iterations per round and the point and
+    line inlier masks equal to the CPU run's; the KF poses within 1e-4 of
+    its, and within 2x its distance to the float64 BA (+ 1e-6); the landmarks
+    reprojecting within 0.1 px of the CPU run's (~2x 1e-4 x fx)."""
     from plvio_tpu_torch.entry import MAPPING_TYPICAL, mapping_step
     from plvio_tpu_torch.inputs import perturb_window
     step, A = mapping_step(**MAPPING_TYPICAL, device=dev)
     plain, _ = mapping_step(**MAPPING_TYPICAL, device=dev, plain=True)
+    cpu_step, _ = mapping_step(**MAPPING_TYPICAL, device="cpu")
     if perturbed:
         P, X = perturb_window(A["kf_poses"].cpu().numpy(),
                               A["pt_xyz"].cpu().numpy())
         A["kf_poses"] = torch.from_numpy(P).to(dev)
         A["pt_xyz"] = torch.from_numpy(X).to(dev)
+    Ac = {k: v.cpu() for k, v in A.items()}
     n0 = KN.SCHUR_SOLVE.launches
-    sk, sp = [], []
+    sk, sp, sc = [], [], []
     with torch.no_grad():
         ok_ = step(A, stats=sk)
         op_ = plain(A, stats=sp)
+        oc_ = cpu_step(Ac, stats=sc)
     torch.cuda.synchronize()
-    assert [int(x) for x in sk] == sp
-    assert int(ok_.n_good) == int(op_.n_good)
-    assert torch.equal(ok_.inlier, op_.inlier)
-    assert torch.equal(ok_.inlier_l, op_.inlier_l)
-    assert float((ok_.kf_poses - op_.kf_poses).abs().max()) <= 1e-4
+    assert KN.SCHUR_SOLVE.launches - n0 == 16
+    ref = KN.local_ba_pl_plain(K, *[Ac[k].double() if Ac[k].is_floating_point()
+                                    else Ac[k] for k in BA_KEYS])[0]
+    gk, gp, gc = (float((o.kf_poses.double().cpu() - ref).abs().max())
+                  for o in (ok_, op_, oc_))
+    flips = int((ok_.inlier.cpu() != oc_.inlier).sum())
+    flips_l = int((ok_.inlier_l.cpu() != oc_.inlier_l).sum())
+    dc = float((ok_.kf_poses.cpu() - oc_.kf_poses).abs().max())
+    print(f"perturbed={perturbed}: iterations kernel {[int(x) for x in sk]}, "
+          f"CPU {[int(x) for x in sc]}, card plain {sp}; mask rows differing "
+          f"from the CPU run {flips} points, {flips_l} lines; KF poses from "
+          f"the float64 BA: kernel {gk:.2e}, CPU {gc:.2e}, card plain "
+          f"{gp:.2e}; kernel - card plain "
+          f"{float((ok_.kf_poses - op_.kf_poses).abs().max()):.2e}, kernel - "
+          f"CPU {dc:.2e}")
+    assert int(ok_.n_good) == int(oc_.n_good)
+    assert [int(x) for x in sk] == [int(x) for x in sc]
+    assert flips == 0 and flips_l == 0
+    assert dc <= 1e-4
+    assert gk <= 2 * gc + 1e-6
     assert bool(torch.isfinite(ok_.pt_xyz).all())
+    oc_dev = oc_._replace(kf_poses=oc_.kf_poses.to(dev),
+                          pt_xyz=oc_.pt_xyz.to(dev), ln_ep6=oc_.ln_ep6.to(dev))
+
     # the landmarks, by their reprojection in every observation (null
-    # directions do not count): within 0.1 px, ~2x the pose tolerance x fx
+    # directions do not count)
     def residuals(o):
         return (RES.point_reproj_jac(K, o.kf_poses[A["obs_kf"].long()],
                                      o.pt_xyz[A["obs_pt"].long()],
@@ -454,9 +490,8 @@ def test_mapping_step_kernel_path_matches_plain_path(dev, perturbed):
                 RES.line_reproj_jac(K, o.kf_poses[A["lobs_kf"].long()],
                                     o.ln_ep6[A["lobs_ln"].long()],
                                     A["lobs_eq"])[0])
-    for rk, rp in zip(residuals(ok_), residuals(op_)):
-        assert float((rk - rp).abs().max()) <= 0.1
-    assert KN.SCHUR_SOLVE.launches - n0 == 16
+    for rk, rc in zip(residuals(ok_), residuals(oc_dev)):
+        assert float((rk - rc).abs().max()) <= 0.1
 
 
 BA_KEYS = ("kf_poses", "kf_free", "pt_xyz", "pt_free", "obs_kf", "obs_pt",
@@ -601,21 +636,24 @@ def _f64_gaps(outs, ref, keys):
                                              (True, False)])
 def test_inertial_ba_step_kernel_path_matches_plain_path(dev, perturbed,
                                                          lines):
-    """The whole window solve at the half bucket: LM iterations per round
-    within one of the plain path's (the card's plain path sums by atomics,
-    and its early exit at a relative cost change of 1e-2 can fire one
-    iteration apart: [5, 6] against [5, 7] seen), the point and line
-    inlier masks equal to its (and some observations rejected), the final
-    LM cost (evaluated in float64 at both paths' results and the final
-    masks) within 2% of the plain path's, as the 1e-2 exit allows; poses, velocities and accelerometer
-    biases as close to the plain engine run in float64 on the CPU as 1.5x
-    the farther of the plain path's float32 runs on the card and on the
-    CPU (every float32 path lies ~1e-3 from float64 here: 120 fixed CG
-    steps per iteration; printed, run with -s), the gyro bias (2e-3 rad/s
-    here; the float32 runs 1e-7 to 1.5e-6 from float64) within 1e-5;
-    landmarks reprojecting within 0.1 px of the plain path's where the
-    iteration counts agree.  Without lines (the reference's default n_ln
-    = 0) the same on the point-only window."""
+    """The whole window solve at the half bucket, held to runs that repeat:
+    the plain engine in float32 on the CPU and in float64.  (The card's
+    plain path sums by atomics, so its LM iterations and its inlier mask
+    near the chi2 gate change from run to run: [6, 6] against the
+    kernel's [5, 6] on an H100; it is run and printed, not asserted on.)
+    LM iterations per round within one of the CPU run's (the early exit
+    at a relative cost change of 1e-2 can fire one iteration apart: the
+    kernel's [5, 6] against the CPU's [5, 7] without lines), the point and
+    line inlier masks equal to its and some observations rejected, the
+    final LM cost (evaluated in float64 at both
+    results and their masks) within 2% of the CPU run's, as the 1e-2 exit
+    allows; poses, velocities and accelerometer biases within 1.5x the CPU
+    float32 run's distance to the float64 run (every float32 path lies ~1e-3
+    from float64 here: 120 fixed CG steps per iteration; printed, run with
+    -s), the gyro bias (2e-3 rad/s here; the float32 runs 1e-7 to 1.5e-6
+    from float64) within 1e-5; landmarks reprojecting within 0.1 px of the
+    CPU run's where the iteration counts agree.  Without lines (the
+    reference's default n_ln = 0) the same on the point-only window."""
     from plvio_tpu_torch.entry import LIBA_HALF, InertialBAOut
     A, args = _liba(dev, perturbed)
     Rcb, tcb = A["Rcb"].cpu(), A["tcb"].cpu()
@@ -625,7 +663,7 @@ def test_inertial_ba_step_kernel_path_matches_plain_path(dev, perturbed,
         K, 16, sz["n_pt"], sz["n_obs"], Rcb, tcb, 9.81, n_ln=sz["n_ln"],
         n_lobs=sz["n_lobs"], plain=p) for p in (False, True))
     n0 = KN.INERTIAL_CHAIN.launches
-    sk, sp = [], []
+    sk, sp, sc = [], [], []
     with torch.no_grad():
         ok_ = InertialBAOut(*step(*args[:nl], stats=sk))
         op_ = InertialBAOut(*plain(*args[:nl], stats=sp))
@@ -635,24 +673,29 @@ def test_inertial_ba_step_kernel_path_matches_plain_path(dev, perturbed,
     _, args32 = _liba(torch.device("cpu"), perturbed)
     ref = KN.local_inertial_ba_plain(K, Rcb.double(), tcb.double(), 9.81,
                                      *args64[:nl])
-    oc_ = KN.local_inertial_ba_plain(K, Rcb, tcb, 9.81, *args32[:nl])
+    oc_ = InertialBAOut(*KN.local_inertial_ba_plain(
+        K, Rcb, tcb, 9.81, *args32[:nl], stats=sc))
     keys = [(0, "pose"), (1, "vel"), (2, "bg"), (3, "ba")]
     gk, gp, gc = _f64_gaps((ok_, op_, oc_), ref, keys)
-    kp = [float((a - b).abs().max()) for a, b in zip(ok_[:4], op_[:4])]
-    print(f"perturbed={perturbed}, lines={lines}: iterations "
-          f"{[int(x) for x in sk]} / {sp}; inliers {int(ok_.inlier.sum())} / "
-          f"{int(op_.inlier.sum())}; kernel - plain {kp}; from float64: "
-          f"kernel {gk}, plain on the card {gp}, plain on the CPU {gc}")
-    assert len(sk) == len(sp) == 2
-    assert all(abs(int(a) - b) <= 1 for a, b in zip(sk, sp))
-    assert torch.equal(ok_.inlier, op_.inlier)
+    flips = int((ok_.inlier.cpu() != oc_.inlier).sum())
+    flips_l = int((ok_.inlier_l.cpu() != oc_.inlier_l).sum()) if lines \
+        else 0
+    print(f"perturbed={perturbed}, lines={lines}: iterations kernel "
+          f"{[int(x) for x in sk]}, CPU {[int(x) for x in sc]}, card plain "
+          f"{sp}; inliers kernel {int(ok_.inlier.sum())}, CPU "
+          f"{int(oc_.inlier.sum())}, card plain {int(op_.inlier.sum())}; "
+          f"mask rows differing from the CPU run: {flips} points, {flips_l} "
+          f"lines; from float64: kernel {gk}, CPU {gc}, card plain {gp}")
+    assert len(sk) == len(sc) == 2
+    assert all(abs(int(a) - int(b)) <= 1 for a, b in zip(sk, sc))
+    assert flips == 0
     assert int((~ok_.inlier).sum()) > 0
     if lines:
-        assert torch.equal(ok_.inlier_l, op_.inlier_l)
+        assert flips_l == 0
     else:
-        assert ok_.ln_ep6 is None and op_.inlier_l is None
+        assert ok_.ln_ep6 is None and oc_.inlier_l is None
     for k in ("pose", "vel", "ba"):
-        assert gk[k] <= 1.5 * max(gp[k], gc[k]) + 1e-7, k
+        assert gk[k] <= 1.5 * gc[k] + 1e-7, k
     assert gk["bg"] <= 1e-5
     for o in (ok_, op_):
         assert all(bool(torch.isfinite(x).all()) for x in o if x is not None)
@@ -670,12 +713,14 @@ def test_inertial_ba_step_kernel_path_matches_plain_path(dev, perturbed,
         if not lines:
             del st["ln"]
         return float(prob.cost(st)[0])
-    ck, cp = cost64(ok_), cost64(op_)
-    print(f"final cost in float64: kernel {ck}, plain {cp}")
-    assert abs(ck - cp) <= 0.02 * cp
-    if [int(x) for x in sk] != sp:
+    ck, cc = cost64(ok_), cost64(oc_)
+    print(f"final cost in float64: kernel {ck}, CPU {cc}, card plain "
+          f"{cost64(op_)}")
+    assert abs(ck - cc) <= 0.02 * cc
+    if [int(x) for x in sk] != [int(x) for x in sc]:
         return
     Rcb, tcb = A["Rcb"], A["tcb"]
+    oc_dev = InertialBAOut(*(None if x is None else x.to(dev) for x in oc_))
 
     def res(o):
         r = [RES.point_reproj_body_ba_jac(
@@ -686,8 +731,8 @@ def test_inertial_ba_step_kernel_path_matches_plain_path(dev, perturbed,
                 K, Rcb, tcb, o.pose_wb[A["lobs_kf"].long()],
                 o.ln_ep6[A["lobs_ln"].long()], A["lobs_eq"])[0])
         return r
-    for rk, rp in zip(res(ok_), res(op_)):
-        assert float((rk - rp).abs().max()) <= 0.1
+    for rk, rc in zip(res(ok_), res(oc_dev)):
+        assert float((rk - rc).abs().max()) <= 0.1
 
 
 @pytest.mark.parametrize("refine", [False, True])
@@ -891,3 +936,168 @@ def test_neighborhood_step_kernel_path_matches_plain_path(dev, confirmed):
           f"{float(np.abs(mk.kf_pose_cw - mp.kf_pose_cw).max()):.2e}")
     assert gk <= 2 * gc + 1e-6
     assert ok_.host_syncs > 0 and op_.host_syncs > 0
+
+
+def test_undistort_matches_plain(dev):
+    """Keypoints on a grid over the whole image and 256 segments at EuRoC's
+    coefficients: the kernel's undistorted pixels equal to the plain
+    version's (the same float32 operations in the same order; the plain
+    version divides by tensors, as eager CUDA divides by a Python scalar
+    through its reciprocal), the segments' line equations those of the
+    kernel's own endpoints (`ops.lines.line_equation`): a, b within 1e-6,
+    c within 1e-6 of the products it cancels over the segment's length
+    (6.1e-5 at c ~ 200 on an H100); `undistort_pixels` on the card goes
+    through it."""
+    from plvio_tpu_torch.config import CameraConfig
+    from plvio_tpu_torch.ops import cameras as CAM
+    cam = CAM.make_camera(CameraConfig())
+    u, v = np.meshgrid(np.linspace(0, 751, 40), np.linspace(0, 479, 25))
+    kp = torch.from_numpy(np.stack([u.ravel(), v.ravel()], -1).astype(
+        np.float32)).to(dev)
+    rng = np.random.default_rng(6)
+    ep = torch.from_numpy(rng.uniform([0, 0, 0, 0], [751, 479, 751, 479],
+                                      (256, 4)).astype(np.float32)).to(dev)
+    n0 = CAM.UNDISTORT.launches
+    kk, ek, qk = CAM.undistort(cam, kp, ep)
+    kp_, ep_, qp = CAM.undistort_frame_plain(cam, kp, ep)
+    torch.cuda.synchronize()
+    assert CAM.UNDISTORT.launches == n0 + 1
+    from plvio_tpu_torch.ops.lines import line_equation
+    own = line_equation(ek)
+    print(f"undistort: kernel - plain {float((kk - kp_).abs().max()):.2e} "
+          f"px (keypoints), {float((ek - ep_).abs().max()):.2e} px "
+          f"(endpoints); line equations against line_equation of the "
+          f"kernel's endpoints {float((qk - own).abs().max()):.2e}")
+    assert torch.equal(kk, kp_) and torch.equal(ek, ep_)
+    assert float((qk[:, :2] - own[:, :2]).abs().max()) <= 1e-6
+    # c = (x0 y1 - y0 x1) / n cancels products of ~1e5: its rounding scales
+    # with them, not with c
+    scale = (ek[:, 0] * ek[:, 3]).abs() + (ek[:, 1] * ek[:, 2]).abs()
+    n = torch.linalg.vector_norm(ek[:, 2:] - ek[:, :2], dim=1)
+    assert bool(((qk[:, 2] - own[:, 2]).abs() <= 1e-6 * scale / n).all())
+    und = CAM.undistort_pixels(cam, kp)
+    assert CAM.UNDISTORT.launches == n0 + 2 and torch.equal(und, kk)
+
+
+def _twoview_case(name, n, dev):
+    from plvio_tpu_torch.config import CameraConfig
+    from plvio_tpu_torch.inputs import build_twoview_cases
+    from plvio_tpu_torch.ops import cameras as CAM
+    from plvio_tpu_torch.ops import twoview as TV
+    c = build_twoview_cases(0, n)[name]
+    uv1, uv2 = (torch.from_numpy(c[k]).to(dev) for k in ("uv1", "uv2"))
+    if c["raw"]:
+        cam = CAM.make_camera(CameraConfig())
+        uv1, uv2 = CAM.undistort_pixels(cam, uv1), \
+            CAM.undistort_pixels(cam, uv2)
+    valid = torch.from_numpy(c["valid"]).to(dev)
+    g = torch.Generator().manual_seed(n)
+    idx_h = TV.sample_indices(valid.cpu(), 200, 4, g)
+    idx_f = TV.sample_indices(valid.cpu(), 200, 8, g)
+    return uv1, uv2, valid, idx_h, idx_f
+
+
+@pytest.mark.parametrize("name,n", [("general", 200), ("planar", 200),
+                                    ("outliers", 200), ("rotation", 200),
+                                    ("euroc_raw", 200), ("general", 1000)])
+def test_twoview_kernels_match_plain(dev, name, n):
+    """`twoview_hypotheses` + `twoview_recover` against the plain version
+    in float64 (the kernels solve in float64) on the same sample indices
+    (`ops.twoview.kernels_against_float64`): every minimal model's score
+    within 1e-6 of the best score where the model's condition number is
+    below 1e6, the best hypotheses equal (ties of the top two scores
+    within 1e-9 excepted), success, the model, R and t within 1e-5 (an
+    entry), `is_triangulated` equal but for 1% of the matches (gate values
+    within rounding), the common points within 1e-5 of their magnitude.
+    The pure rotation fails."""
+    from plvio_tpu_torch.ops import twoview as TV
+    uv1, uv2, valid, idx_h, idx_f = _twoview_case(name, n, dev)
+    n0 = (TV.TWOVIEW_HYPOTHESES.launches, TV.TWOVIEW_RECOVER.launches)
+    g = TV.kernels_against_float64(K, uv1, uv2, valid, idx_h, idx_f)
+    torch.cuda.synchronize()
+    assert (TV.TWOVIEW_HYPOTHESES.launches, TV.TWOVIEW_RECOVER.launches) \
+        == (n0[0] + 1, n0[1] + 1)
+    r, rp = g.out.result, g.ref.result
+    print(f"{name} N={n}: info {g.info.tolist()}; plain float64 success "
+          f"{bool(rp.success)} homography {bool(rp.used_homography)} "
+          f"triangulated {int(rp.is_triangulated.sum())}; scores within "
+          f"{g.score_gap:.1e}, R / t / points within {g.gaps}, {g.flips} "
+          "flips")
+    assert g.score_gap <= 1e-6 and g.best_equal
+    assert bool(r.success) == bool(rp.success) == (name != "rotation")
+    assert bool(r.used_homography) == bool(rp.used_homography)
+    assert max(g.gaps) <= 1e-5
+    assert g.flips <= 0.01 * n
+
+
+def test_bootstrap_step_kernel_path_matches_float64(dev):
+    """`bootstrap_step` on the kernel path (its own RANSAC draws): the map
+    starts on a frame of the sequence, every kernel of the path launched
+    (but `undistort`: the rendered frames have no distortion); its last
+    two-view attempt held to the plain version in float64 on the same
+    matches and draws (R and t within 1e-5, `is_triangulated` but for
+    1%), the second keyframe's pose consistent with it, the first
+    preintegration held to the plain version's.  The CPU's plain run of
+    the whole bootstrap (its front end rounds differently, so its matches
+    may differ) is printed."""
+    from plvio_tpu_torch.entry import bootstrap_step
+    from plvio_tpu_torch.ops import imu as IMU
+    from plvio_tpu_torch.ops import lines as LN
+    from plvio_tpu_torch.ops import twoview as TV
+    kernels = (FE.ORB_FAST_GRID, FE.ORB_DESCRIBE, M.HAMMING_MATCH,
+               M.ROT_HIST, LN.LINE_DETECT, LN.LINE_REFINE_LBD,
+               TV.TWOVIEW_HYPOTHESES, TV.TWOVIEW_RECOVER,
+               KN.LINE_TRIANGULATE, IMU.IMU_PREINT)
+    step, B = bootstrap_step(device=dev)
+    n0 = [k.launches for k in kernels]
+    with torch.no_grad():
+        out = step(B)
+    torch.cuda.synchronize()
+    assert all(k.launches > c for k, c in zip(kernels, n0)), \
+        [k.name for k, c in zip(kernels, n0) if k.launches == c]
+    tr = out.tracker
+    print(f"kernel path: frame {out.init_frame}, attempts {out.attempts}, "
+          f"homography {out.used_homography}, matches {out.init_matches}, "
+          f"triangulated {out.n_triangulated}, points {out.points}, lines "
+          f"{out.lines}, host syncs {out.host_syncs}")
+    assert out.init_frame >= 1 and out.points >= 60 and out.lines > 0
+    uv0, uv1, ok, idx_h, idx_f = tr.last_twoview_inputs
+    ref = TV.twoview_plain(K, uv0.double().cpu(), uv1.double().cpu(),
+                           ok.cpu(), torch.as_tensor(idx_h),
+                           torch.as_tensor(idx_f)).result
+    r = tr.last_twoview
+    assert bool(ref.success) and bool(r.success)
+    assert bool(ref.used_homography) == bool(r.used_homography)
+    assert float((r.R.double().cpu() - ref.R).abs().max()) <= 1e-5
+    assert float((r.t.double().cpu() - ref.t).abs().max()) <= 1e-5
+    assert int((r.is_triangulated.cpu() != ref.is_triangulated).sum()) \
+        <= 0.01 * int(ok.sum())
+    m = out.map
+    kf1 = tr.new_kf_queue[1]
+    np.testing.assert_allclose(m.kf_pose_cw[kf1, :, :3],
+                               r.R.cpu().numpy(), atol=1e-6)
+    pre = m.kf_preint[kf1]
+    raw = m.kf_imu_raw[kf1]
+    n_imu = len(raw[2])
+    cap = 64
+    while cap < n_imu:
+        cap *= 2
+
+    def pad(a, shape):
+        z = np.zeros(shape, np.float32)
+        z[:len(a)] = a
+        return torch.from_numpy(z)
+    plain = IMU.preintegrate(pad(raw[0], (cap, 3)), pad(raw[1], (cap, 3)),
+                             pad(raw[2], (cap,)),
+                             torch.arange(cap) < n_imu, tr.calib,
+                             torch.zeros(3), torch.zeros(3))
+    for f in pre._fields:
+        a, b = np.asarray(getattr(pre, f)), getattr(plain, f).numpy()
+        assert np.abs(a - b).max() <= 1e-5 * max(np.abs(b).max(), 1e-30), f
+    cpu_step, B_cpu = bootstrap_step(device="cpu")
+    with torch.no_grad():
+        oc = cpu_step(B_cpu)
+    print(f"CPU plain path: frame {oc.init_frame}, attempts {oc.attempts}, "
+          f"homography {oc.used_homography}, matches {oc.init_matches}, "
+          f"triangulated {oc.n_triangulated}, points {oc.points}, lines "
+          f"{oc.lines}")

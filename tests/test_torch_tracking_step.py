@@ -122,6 +122,7 @@ DEFAULTS_TO_CARD = {
         256, 512, 32, 64, n_kf=8, n_observers=3),
     "build_imu_init_inputs": lambda: IN.build_imu_init_inputs(),
     "neighborhood_step": lambda: E.neighborhood_step(),
+    "bootstrap_step": lambda: E.bootstrap_step(),
 }
 
 
@@ -181,6 +182,10 @@ def test_port_never_loads_jax():
         "ba_pt_cap=1024, ba_obs_cap=2048)\n"
         "o = ns(mst)\n"
         "assert o.new_lines > 0 and o.n_merged > 0 and o.ba_path == 'pt'\n"
+        "from plvio_tpu_torch.entry import bootstrap_step\n"
+        "bs, BB = bootstrap_step(device='cpu')\n"
+        "bo = bs(BB)\n"
+        "assert bo.init_frame >= 1 and bo.points >= 60 and bo.lines > 0\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'plvio_tpu'))\n"
         "assert not bad, bad\n"
@@ -188,6 +193,10 @@ def test_port_never_loads_jax():
     env = {k: v for k, v in os.environ.items()
            if k not in ("PLVIO_MATMUL_PRECISION", "PYTHONSTARTUP")}
     env["PYTHONPATH"] = str(REPO)
+    # one thread: the suite's workers already share the cores, and torch's
+    # default of one thread per core then thrashes (this run takes ~14 s
+    # alone either way)
+    env["OMP_NUM_THREADS"] = "1"
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                        env=env, capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-2000:]
