@@ -99,7 +99,8 @@ from plvio_tpu_torch.config import CameraConfig, ImuConfig
 from plvio_tpu_torch.entry import (K_EUROC, LIBA_HALF, LIBA_WORST,
                                    MAPPING_TYPICAL, MAPPING_WORST,
                                    bootstrap_step, imu_init,
-                                   inertial_ba_step, mapping_step,
+                                   inertial_ba_step, keyframe_sequence,
+                                   mapping_step,
                                    neighborhood_step, point_projection_match,
                                    project_points, tracking_step_pl,
                                    tracking_step_vi)
@@ -144,6 +145,10 @@ KERNELS = {
                            "plvio_tpu/ops/twoview.py:290"),
     "twoview_recover": (TV.TWOVIEW_RECOVER, "plvio_tpu/ops/twoview.py:296"),
 }
+# schur_solve's launches whose reduced system exceeds one block (its
+# global path, counted in KN.SCHUR_SOLVE.global_launches), and the TPU
+# kernel it replaces
+GLOBAL = ("schur_solve_global", "plvio_tpu/solver/engine.py:256")
 PATH_PL = ("orb_fast_grid", "orb_describe", "hamming_match", "pose_irls",
            "line_detect", "line_refine_lbd")
 PATH_VI = ("orb_fast_grid", "orb_describe", "hamming_match", "line_detect",
@@ -158,6 +163,23 @@ PATH_BOOT = ("orb_fast_grid", "orb_describe", "hamming_match", "rot_hist",
              "line_detect", "line_refine_lbd", "twoview_hypotheses",
              "twoview_recover", "line_triangulate", "imu_preint")
 PATH_RAW = ("undistort", "twoview_hypotheses", "twoview_recover")
+PATH_SEQ = ("hamming_match", "rot_hist", "triangulate", "line_triangulate",
+            "proj_match", "ba_linearize", "schur_solve", "inertial_chain",
+            "inertial_gs_lm", "imu_preint", "schur_solve_global")
+# tests/test_torch_keyframe_step.py's JAX LocalMapper over
+# build_keyframe_sequence(0) at production's sizes on the CPU (float32):
+# the keyframe at which the IMU initialized and the scale it applied, 1 /
+# the start's monocular scale, keyframes, points and lines alive at the
+# end, the map's final scale against the truth, its gravity direction
+# error (deg), the full-map solves and their largest window, and the
+# keyframe centres' ATE RMSE (m); printed by
+# `JAX_PLATFORMS=cpu PYTHONPATH=. python3 tests/test_torch_keyframe_step.py`
+REF_SEQ = {"init_kf": 13, "init_scale": 1.7033237218856812,
+           "inv_lam": 1.7327722230765765, "keyframes": 32, "points": 6216,
+           "lines": 1349, "scale": 0.9881112200492166,
+           "gravity_err_deg": 0.0451966042240831, "viba_solves": 1,
+           "viba_window": 26, "ate_sim3": 0.004874773026713829,
+           "ate_se3": 0.012946194053327333}
 # tests/test_torch_bootstrap.py's JAX tracker on build_bootstrap_inputs(0)
 # (the port's CPU front end's features): the initializing frame, attempts,
 # model, init matches, triangulated matches, points and lines with the
@@ -1726,10 +1748,12 @@ def check_boot_kernels(imgs, orb, lines, report):
 def reset_counts():
     for k, _ in KERNELS.values():
         k.launches = 0
+    KN.SCHUR_SOLVE.global_launches = 0
 
 
 def read_counts():
-    return {name: k.launches for name, (k, _) in KERNELS.items()}
+    return {**{name: k.launches for name, (k, _) in KERNELS.items()},
+            GLOBAL[0]: KN.SCHUR_SOLVE.global_launches}
 
 
 def run_slice3(dev, pl_step, imgs, pose0, map_args, smi):
@@ -2185,6 +2209,132 @@ def run_slice6(dev, smi, report):
     return {k: launches[k] + launches_raw[k] for k in launches}
 
 
+def gram_ops(okf, olm, n_lm, D):
+    """Operations of the Gram fill-in: each landmark's 6m x 6m block of
+    its m observing keyframes, D columns each."""
+    key = torch.unique(okf.long() * n_lm + olm.long())
+    m = torch.bincount(key % n_lm, minlength=n_lm).double()
+    return float((6 * m * (6 * m + 1) / 2 * D * 2).sum())
+
+
+def check_global_kernels(report):
+    """schur_solve's global path (the reduced solve beyond one block)
+    against its plain version, by `KN.global_solve_against_float64`'s
+    rule: one Schur step from the perturbed start of the 64 KF inertial
+    window with lines (S = 960) and of the 128 KF point-only window (S =
+    768).  report["schur_solve_global"] gets the 64 KF row (the sequence's
+    shape), report["schur_solve_global_128"] the 128 KF one."""
+    for kind, n_kf, key in (("inertial", 64, GLOBAL[0]),
+                            ("points", 128, GLOBAL[0] + "_128")):
+        got = KN.global_solve_against_float64(kind, n_kf, "cuda")
+        print(f"  schur_solve global path, {kind} {n_kf} KF (S = {got.S}), "
+              "kernel / plain on the card from float64, kernel - plain: "
+              + got.summary())
+        check(not got.failures(),
+              f"schur_solve global path, {kind} {n_kf} KF: the global path "
+              "taken, the same bits on a second launch, each state within "
+              "2x the plain float32 step's distance to float64 and no "
+              "farther from the plain step than that (+1e-6), the pose "
+              "within a quarter of the float64 step's largest entry "
+              f"{got.failures()}")
+        c = got.case
+        w, A, prob, st, free = (c["work"], c["inputs"], c["prob"],
+                                c["states"], c["free"])
+        t, S = w.t, got.S
+        lam = torch.tensor(c["lam"], device="cuda")
+        n_pt, n_ln = t["pts"].shape[0], t["lns"].shape[0]
+        ops = 300 * n_pt + 1500 * n_ln + 250 * w.n_obs \
+            + gram_ops(A["obs_kf"], A["obs_pt"], n_pt, 3) \
+            + w_cg(S) * 2 * S * S
+        if w.body:
+            ops += 1000 * t["lobs_kf"].shape[0] + gram_ops(
+                A["lobs_kf"], A["lobs_ln"], n_ln, 6)
+        report[key] = dict(
+            **work(nbytes(t["hcc"], t["hpt"], t["hln"], t["p_w"], t["l_w"],
+                          t["link"] if w.body else (), t["poses"],
+                          t["kfx"] if w.body else (), t["pts"], t["lns"])
+                   + nbytes(t["cposes"], t["ckfx"] if w.body else (),
+                            t["cpts"], t["clns"], t["dx"]), ops),
+            max_abs_err=got.gaps["pose"].kernel_plain,
+            ms=cuda_ms(w.solve, reps=5, warmup=1),
+            plain_ms=cuda_ms(lambda: prob.solve_step(st, lam, *free),
+                             reps=2, warmup=1))
+
+
+def run_slice7(dev, smi):
+    """Phase 11: the whole keyframe step over the keyframe sequence
+    (`keyframe_sequence`, production's sizes) in its own launch window,
+    held to REF_SEQ.  Returns its launches."""
+    print("[11] slice 7: keyframe_sequence, the keyframe step over "
+          f"{REF_SEQ['keyframes']}+ keyframes at production's sizes")
+    step, seq = keyframe_sequence(device=dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        out = step(seq)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    m = out.map
+    got = dict(init_kf=out.init_kf, init_scale=out.init_scale,
+               keyframes=int(m.n_kf), points=int(m.n_pt), lines=int(m.n_ln),
+               scale=out.scale, gravity_err_deg=out.gravity_err_deg,
+               viba_solves=out.n_viba, viba_window=out.viba_window,
+               ate_sim3=out.ate_sim3, ate_se3=out.ate_se3,
+               refine=out.n_refine)
+    print(f"  launches: {launches}")
+    print(f"  kernel path: {got}; reference {REF_SEQ}")
+    by_path = {}
+    for s_ in out.steps:
+        paths = [b[0] for b in s_.ba]
+        key = "viba" if "viba" in paths else (paths[0] if paths else "none")
+        by_path.setdefault(key, []).append(s_)
+    for key, st_ in sorted(by_path.items()):
+        iters = [sum(b[2]) for s_ in st_ for b in s_.ba if b[0] == key]
+        print(f"  {key}: {len(st_)} steps, {np.mean([x.ms for x in st_]):.1f}"
+              f" ms a step (wall; max {max(x.ms for x in st_):.1f}), "
+              f"{np.mean([x.host_syncs for x in st_]):.1f} host syncs a step,"
+              f" windows {sorted({b[1] for x in st_ for b in x.ba})}, LM "
+              f"iterations a solve {np.mean(iters) if iters else 0:.1f}, on "
+              f"{smi}")
+    print(f"  the sequence: {len(out.steps)} steps in {wall:.1f} s, culled "
+          f"{sum(len(x.culled) for x in out.steps)} keyframes, on {smi}")
+    ref = REF_SEQ
+    check(all(np.isfinite(a[m.kf_valid]).all() for a in (
+        m.kf_pose_cw, m.kf_vel, m.kf_bias_g, m.kf_bias_a))
+          and np.isfinite(m.pt_xyz[m.pt_valid]).all(),
+          "keyframe states and map points finite")
+    check(all(launches[k] > 0 for k in PATH_SEQ),
+          "every kernel of the keyframe step launched "
+          f"({', '.join(PATH_SEQ)})")
+    check(out.viba_window > 22 and launches[GLOBAL[0]] > 0,
+          f"a full-map pulse of {out.viba_window} > 22 keyframes took "
+          f"schur_solve's global path ({launches[GLOBAL[0]]} launches)")
+    check(got["init_kf"] == ref["init_kf"],
+          f"the IMU initialized at keyframe {got['init_kf']}, as REF_SEQ")
+    check(all(abs(got[k] - ref[k]) <= 0.05 * ref[k]
+              for k in ("keyframes", "points", "lines")),
+          f"keyframes {got['keyframes']}, points {got['points']}, lines "
+          f"{got['lines']} within 5% of REF_SEQ")
+    e_init = abs(got["init_scale"] - ref["inv_lam"])
+    e_ref = abs(ref["init_scale"] - ref["inv_lam"])
+    check(e_init <= 2 * e_ref
+          and abs(got["scale"] - 1) <= 2 * abs(ref["scale"] - 1),
+          f"init scale {got['init_scale']:.4f} against 1/lam "
+          f"{ref['inv_lam']:.4f}: off {e_init:.4f} <= 2x the reference's "
+          f"{e_ref:.4f}; final scale {got['scale']:.4f} within 2x the "
+          "reference's distance to 1")
+    check(got["gravity_err_deg"] <= 2 * ref["gravity_err_deg"],
+          f"gravity error {got['gravity_err_deg']:.4f} deg <= 2x the "
+          f"reference's {ref['gravity_err_deg']:.4f}")
+    check(got["ate_sim3"] <= 2 * ref["ate_sim3"]
+          and got["ate_se3"] <= 2 * ref["ate_se3"],
+          f"ATE {got['ate_sim3'] * 1e3:.2f} mm (Sim3), "
+          f"{got['ate_se3'] * 1e3:.2f} mm (SE3) <= 2x the reference's "
+          f"{ref['ate_sim3'] * 1e3:.2f} / {ref['ate_se3'] * 1e3:.2f}")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2237,6 +2387,7 @@ def main():
     check_inertial_kernels(report)
     check_nbh_kernels(report)
     check_boot_kernels(imgs, step.orb, step.lines, report)
+    check_global_kernels(report)
 
     print(f"[4] slice 1: {N_FRAMES} frames through tracking_step_pl, pose "
           "carried")
@@ -2361,9 +2512,11 @@ def main():
     launches_liba = run_slice4(dev, smi)
     launches_nbh = run_slice5(dev, smi, report)
     launches_boot = run_slice6(dev, smi, report)
+    launches_seq = run_slice7(dev, smi)
 
     rows = []
-    for name, (k, replaces) in KERNELS.items():
+    for name, (k, replaces) in [*KERNELS.items(),
+                                (GLOBAL[0], (KN.SCHUR_SOLVE, GLOBAL[1]))]:
         rep = report[name]
         print(f"  {name}: {rep['ms']:.4f} ms, plain {rep['plain_ms']:.4f} ms,"
               f" bound {rep['bound_ms']:.6f} ms ({rep['bound_by']}: "
@@ -2372,10 +2525,19 @@ def main():
                          replaces=replaces,
                          launches=launches_pl[name] + launches_vi[name]
                          + launches_map[name] + launches_liba[name]
-                         + launches_nbh[name] + launches_boot[name],
+                         + launches_nbh[name] + launches_boot[name]
+                         + launches_seq[name],
                          max_abs_err=rep["max_abs_err"], ms=rep["ms"],
                          plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"],
                          bound_by=rep["bound_by"], library_ms=None))
+    for key, what in ((GLOBAL[0], "64 KF inertial window with lines"),
+                      (GLOBAL[0] + "_128", "128 KF point-only window")):
+        rep = report[key]
+        n_seq = launches_seq[GLOBAL[0]] if key == GLOBAL[0] else 0
+        print(f"  schur_solve global path, {what}: {rep['ms']:.4f} ms, plain "
+              f"{rep['plain_ms']:.4f} ms, bound {rep['bound_ms']:.6f} ms "
+              f"({rep['bound_by']}: {rep['bytes']} B, {rep['ops']} ops), "
+              f"{n_seq} launches on the sequence, on {smi}")
     for name in ("ba_linearize", "schur_solve"):
         for cfg, what in (("inertial", "inertial window (15-DoF)"),
                           ("points", "point-only window (make_local_ba)")):

@@ -1,8 +1,9 @@
 """The port's own configuration (copy of the fields of
 plvio_tpu/config.py that the port reads, with the same defaults:
 `ImuConfig`, reference src/Tracking.cc:1057, EuRoC.yaml:38-44; the
-camera, `CameraConfig`; and the few `SystemConfig` fields of the
-monocular bootstrap)."""
+camera, `CameraConfig`; `SlamMode`; the local inertial BA window of
+`TrackingConfig`; and the `SystemConfig` fields of the monocular
+bootstrap and the local mapper)."""
 from __future__ import annotations
 
 from dataclasses import dataclass, field
@@ -41,6 +42,20 @@ class Sensor(IntEnum):
     IMU_STEREO = 4
 
 
+class SlamMode(IntEnum):
+    """Point / line feature usage (plvio_tpu/config.py:31-38)."""
+    POINT_LINE = 0
+    LINE_ONLY_1 = 1
+    LINE_ONLY_2 = 2
+    LINE_ONLY_3 = 3
+
+
+@dataclass(frozen=True)
+class TrackingConfig:
+    """The tracking field the port reads (plvio_tpu/config.py:114-128)."""
+    lba_window: int = 10             # LocalInertialBA Nd (Optimizer.cc:9185)
+
+
 @dataclass(frozen=True)
 class CameraConfig:
     """The camera fields the port reads (plvio_tpu/config.py:42-52, EuRoC
@@ -60,9 +75,12 @@ class CameraConfig:
 @dataclass(frozen=True)
 class SystemConfig:
     """The fields of plvio_tpu/config.py:SystemConfig (:155-170) that the
-    monocular bootstrap reads, with the same defaults."""
+    monocular bootstrap and the local mapper read, with the same
+    defaults."""
     sensor: Sensor = Sensor.MONOCULAR
+    slam_mode: SlamMode = SlamMode.POINT_LINE
     camera: CameraConfig = field(default_factory=CameraConfig)
     imu: ImuConfig = field(default_factory=ImuConfig)
+    tracking: TrackingConfig = field(default_factory=TrackingConfig)
     use_lines: bool = True
     seed: int = 0

@@ -22,6 +22,11 @@
 // `link_cost` [n_kf-1, 3] its three costs (inertial, bg random walk, ba
 // random walk), and `ccost` [1] the chain's share of the LM cost.
 //
+// cgw: the reduced solve's workspace when the system does not fit one
+// block's shared memory (csrc/schur_solve.cu, the global path): the full
+// S x S system, the CG direction p [S] and two partial-sum rows, one float
+// per block each; a one-float stub otherwise.
+//
 // ctrl (float[8]) carries the LM loop on the device: [0] lambda, [1] cost
 // of the current state, [2] cost of the last candidate, [3] done (early
 // exit), [4] iterations run, [5] last candidate accepted, [6] accepted
@@ -45,10 +50,12 @@ enum Ptr {
   kHcc, kHpt, kHln, kFpt, kFln, kOccPt, kOccLn,
   kGm, kGpart, kRr, kFf, kDx, kCtrl,
   kKfX, kCKfX, kKfFreeBias, kPre, kImuInfo, kEdgeValid, kRwG, kRwA, kLink,
-  kLinkCost, kCCost, kNumPtrs
+  kLinkCost, kCCost, kCgw, kNumPtrs
 };
+// kCgwFloats: the floats of the cgw workspace; kSolvePath: set by
+// schur_solve to the path its reduced solve took (0 one block, 1 global)
 enum Int { kNKf, kNPt, kNObs, kNLn, kNLobs, kCgIters, kGramSplit, kBody,
-           kNumInts };
+           kCgwFloats, kSolvePath, kNumInts };
 enum Flt { kFx, kFy, kCx, kCy, kDelta, kChi2Th, kLam0, kEarlyTol, kGravity,
            kRcb, kTcb = kRcb + 9, kNumFlts = kTcb + 3 };
 constexpr int kLinkFloats = 465 + 30;

@@ -52,6 +52,16 @@
 //   reduced in a fixed order.  A 2-CTA cluster with distributed shared
 //   memory would hold the full matrix; the packed form keeps one block and
 //   the same matrix-vector order as the full one.
+// - solve_global_kernel: the same system and CG when the packed triangle
+//   and the vectors exceed one block's 227 KB (S > 327: the 64-keyframe
+//   inertial window of the full-map BA, S = 960, and the point-only window
+//   beyond 54 keyframes, S = 768 at 128).  One cooperative launch of
+//   ceil(S / 128) blocks, one row a thread, the full symmetric system in a
+//   global workspace that stays in L2; each CG step takes three grid
+//   barriers (after p.Hp's block partials, after r.r's, after the new p),
+//   every block summing the partials in block order.  At S = 960 that is
+//   384 barriers an LM iteration; a 16-CTA cluster holding the packed
+//   triangle in distributed shared memory would avoid them.
 // - backsub_kernel: back-substitutes each landmark (dx_p = F F^T (g_p -
 //   sum_o W_o^T dx_kf)) and retracts each keyframe into the candidate state
 //   (T <- Exp(dx) T for T_cw; R <- R Exp(dtheta), p <- p + dp for pose_wb,
@@ -59,7 +69,11 @@
 // Every kernel reads the device-side early-exit flag first and returns at
 // once when it has fired, so an iteration after the exit costs five empty
 // launches and no memory traffic.
+#include <cooperative_groups.h>
+
 #include "ba_common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -360,10 +374,50 @@ __device__ float chain_g(const BA& b, int i) {
   return v;
 }
 
+// 1 where row i's state is free: pose and velocity rows by kf_free, bias
+// rows by kf_free_bias
+__device__ __forceinline__ float row_free(const BA& b, int i) {
+  int k, l;
+  dense_to_kf(i, b.n_kf, k, l);
+  return (l < 9 ? b.at<uint8_t>(kKfFree)[k]
+                : b.at<uint8_t>(kKfFreeBias)[k]) ? 1.f : 0.f;
+}
+
+// entry (i, j), i <= j, of the damped reduced system with the fixed rows
+// frozen (fi, fj: the rows' free masks)
+__device__ __forceinline__ float reduced_h(const BA& b, int i, int j,
+                                           float lam, float fi, float fj) {
+  const int Sp = b.Sp();
+  const float* hcc = b.at<float>(kHcc);
+  float v = j < Sp && i / 6 == j / 6
+      ? hcc[(i / 6) * 27 + ut(6, i % 6, j % 6)] : 0.f;
+  if (b.body) v = v + chain_h(b, i, j);
+  if (i == j) v = v + (v * lam + 1e-6f);
+  if (j < Sp) v = v - b.at<float>(kFf)[i * Sp + j];
+  return v * fi * fj + (i == j ? 1.f - fi : 0.f);
+}
+
+// row i of the reduced right-hand side: the keyframe's gradient minus its
+// observations' Schur shares (in segment order), the chain's gradient
+__device__ __forceinline__ float reduced_rhs(const BA& b, int i, float fi) {
+  const int Sp = b.Sp();
+  float gv = 0.f, a = 0.f;
+  if (i < Sp) {
+    const int k = i / 6, c = i % 6;
+    const int* order = b.at<int>(kKfOrder);
+    const int* start = b.at<int>(kKfStart);
+    const float* rr = b.at<float>(kRr);
+    for (int q = start[k]; q < start[k + 1]; ++q) a += rr[order[q] * 6 + c];
+    gv = b.at<float>(kHcc)[k * 27 + 21 + c];
+  }
+  if (b.body) gv = gv + chain_g(b, i);
+  return (gv - a) * fi;
+}
+
 __global__ void solve_kernel(BA b) {
   if (b.done()) return;
   extern __shared__ float sh[];
-  const int S = b.Sd(), Sp = b.Sp(), n = b.n_kf;
+  const int S = b.Sd();
   float* H = sh;                 // [S (S + 1) / 2] packed upper triangle
   float* x = H + S * (S + 1) / 2;
   float* r = x + S;
@@ -372,39 +426,15 @@ __global__ void solve_kernel(BA b) {
   float* fr = Hp + S;            // free mask
   float* wsh = fr + S;           // [32]
   const float lam = b.at<float>(kCtrl)[cLam];
-  const float* hcc = b.at<float>(kHcc);
-  const float* ff = b.at<float>(kFf);
-  const uint8_t* kf_free = b.at<uint8_t>(kKfFree);
-  const uint8_t* bias_free = b.at<uint8_t>(kKfFreeBias);
-  for (int i = threadIdx.x; i < S; i += blockDim.x) {
-    int k, l;
-    dense_to_kf(i, n, k, l);
-    fr[i] = (l < 9 ? kf_free[k] : bias_free[k]) ? 1.f : 0.f;
-  }
+  for (int i = threadIdx.x; i < S; i += blockDim.x) fr[i] = row_free(b, i);
   __syncthreads();
   for (int i = 0; i < S; ++i) {
     const int row = i * S - i * (i - 1) / 2 - i;      // + j: ut(S, i, j)
-    for (int j = i + threadIdx.x; j < S; j += blockDim.x) {
-      float v = j < Sp && i / 6 == j / 6
-          ? hcc[(i / 6) * 27 + ut(6, i % 6, j % 6)] : 0.f;
-      if (b.body) v = v + chain_h(b, i, j);
-      if (i == j) v = v + (v * lam + 1e-6f);
-      if (j < Sp) v = v - ff[i * Sp + j];
-      H[row + j] = v * fr[i] * fr[j] + (i == j ? 1.f - fr[i] : 0.f);
-    }
+    for (int j = i + threadIdx.x; j < S; j += blockDim.x)
+      H[row + j] = reduced_h(b, i, j, lam, fr[i], fr[j]);
   }
-  const int* order = b.at<int>(kKfOrder);
-  const int* start = b.at<int>(kKfStart);
-  const float* rr = b.at<float>(kRr);
   for (int i = threadIdx.x; i < S; i += blockDim.x) {
-    float gv = 0.f, a = 0.f;
-    if (i < Sp) {
-      const int k = i / 6, c = i % 6;
-      for (int q = start[k]; q < start[k + 1]; ++q) a += rr[order[q] * 6 + c];
-      gv = hcc[k * 27 + 21 + c];
-    }
-    if (b.body) gv = gv + chain_g(b, i);
-    const float rhs = (gv - a) * fr[i];
+    const float rhs = reduced_rhs(b, i, fr[i]);
     x[i] = 0.f;
     r[i] = rhs;
     p[i] = rhs;
@@ -440,6 +470,102 @@ __global__ void solve_kernel(BA b) {
   }
   float* dx = b.at<float>(kDx);
   for (int i = threadIdx.x; i < S; i += blockDim.x) dx[i] = x[i] * fr[i];
+}
+
+// ---- the reduced solve in global memory (S beyond one block)
+
+constexpr int kRowThreads = 128;
+
+// fixed-order sum of v over the block (warp shuffles, then warps in
+// order); every thread gets the sum
+__device__ float block_sum(float v, float* warp_sh) {
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  if ((threadIdx.x & 31) == 0) warp_sh[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float s = 0.f;
+  for (int w = 0; w < int(blockDim.x >> 5); ++w) s += warp_sh[w];
+  __syncthreads();
+  return s;
+}
+
+// the blocks' partial sums, added in block order (the same on every block)
+__device__ __forceinline__ float grid_total(const float* part) {
+  float s = 0.f;
+  for (int g = 0; g < int(gridDim.x); ++g) s += part[g];
+  return s;
+}
+
+// The same damped system and fixed-step CG as solve_kernel, for a reduced
+// system that one block's shared memory cannot hold.  One cooperative
+// launch; thread t of the grid owns row t.  The full symmetric system sits
+// in the workspace (L2-resident: 3.7 MB at S = 960), entry (i, j) computed
+// once from the upper triangle, so row i of H is also column i and a warp
+// reads 32 consecutive floats per column.  Each CG step: H p on the own
+// row (columns in order, p staged in shared memory), p.Hp summed per block
+// then across blocks in block order after a grid barrier, the same for
+// r.r, and a barrier after the new p is written: three barriers a step,
+// every block holding the same alpha and beta, so runs repeat bit for bit.
+__global__ void solve_global_kernel(BA b) {
+  if (b.done()) return;
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ float psh[];             // [S] p, then [32] warp sums
+  const int S = b.Sd();
+  float* wsh = psh + S;
+  float* H = b.at<float>(kCgw);              // [S, S]
+  float* pg = H + size_t(S) * S;             // [S]
+  float* part_a = pg + S;                    // [gridDim.x]
+  float* part_b = part_a + gridDim.x;        // [gridDim.x]
+  const float lam = b.at<float>(kCtrl)[cLam];
+  const size_t nn = size_t(S) * S;
+  for (size_t e = size_t(blockIdx.x) * blockDim.x + threadIdx.x; e < nn;
+       e += size_t(gridDim.x) * blockDim.x) {
+    int i = int(e / S), j = int(e % S);
+    if (i > j) {
+      const int t = i;
+      i = j;
+      j = t;
+    }
+    H[e] = reduced_h(b, i, j, lam, row_free(b, i), row_free(b, j));
+  }
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool own = i < S;
+  const float fi = own ? row_free(b, i) : 0.f;
+  float x = 0.f, r = own ? reduced_rhs(b, i, fi) : 0.f, p = r, Hp = 0.f;
+  if (own) pg[i] = p;
+  float t = block_sum(r * r, wsh);
+  // into part_b: a block may write its first p.Hp into part_a before a
+  // slower one has read this sum; part_b is next written after the first
+  // barrier inside the loop, which every block reaches after reading it
+  if (threadIdx.x == 0) part_b[blockIdx.x] = t;
+  grid.sync();
+  float rs = grid_total(part_b);
+  for (int it = 0; it < b.cg_iters; ++it) {
+    for (int j = threadIdx.x; j < S; j += blockDim.x) psh[j] = pg[j];
+    __syncthreads();
+    if (own) {
+      float a = 0.f;
+      const float* col = H + i;
+      for (int j = 0; j < S; ++j) a += col[size_t(j) * S] * psh[j];
+      Hp = a;
+    }
+    t = block_sum(p * Hp, wsh);
+    if (threadIdx.x == 0) part_a[blockIdx.x] = t;
+    grid.sync();
+    const float alpha = rs / fmaxf(grid_total(part_a), 1e-20f);
+    x = x + alpha * p;
+    r = r - alpha * Hp;
+    t = block_sum(r * r, wsh);
+    if (threadIdx.x == 0) part_b[blockIdx.x] = t;
+    grid.sync();
+    const float rs_new = grid_total(part_b);
+    const float beta = rs_new / fmaxf(rs, 1e-20f);
+    p = r + beta * p;
+    if (own) pg[i] = p;
+    grid.sync();
+    rs = rs_new;
+  }
+  if (own) b.at<float>(kDx)[i] = x * fi;
 }
 
 // ---- back-substitution and retraction into the candidate state
@@ -591,27 +717,69 @@ inline size_t solve_smem(int S) {
   return (size_t(S) * (S + 1) / 2 + 5 * size_t(S) + 32) * sizeof(float);
 }
 
+constexpr size_t kSmemMax = 232448;
+
+// the global path's cooperative launch: ceil(S / 128) blocks of 128 rows,
+// all co-resident or an error
+int launch_solve_global(const BA& b, cudaStream_t s) {
+  const int S = b.Sd();
+  const int grid = blocks(S, kRowThreads);
+  const size_t smem = (size_t(S) + 32) * sizeof(float);
+  if (smem > kSmemMax) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = cudaFuncSetAttribute(
+      solve_global_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
+      (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                  dev)) != cudaSuccess ||
+      (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, solve_global_kernel, kRowThreads, smem)) != cudaSuccess)
+    return static_cast<int>(e);
+  if (grid > sms * per_sm)
+    return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  BA arg = b;
+  void* args[] = {&arg};
+  return static_cast<int>(cudaLaunchCooperativeKernel(
+      reinterpret_cast<void*>(solve_global_kernel), dim3(grid),
+      dim3(kRowThreads), args, smem, s));
+}
+
 }  // namespace
 
 // one damped Schur step: landmark factors and the Gram operand, the
-// fill-in, the reduced solve, back-substitution and retraction
-PLVIO_API int schur_solve(void* const* ptrs, const int* ints,
-                          const float* flts, void* stream) {
+// fill-in, the reduced solve (one block, or the global path when the
+// packed system does not fit its shared memory), back-substitution and
+// retraction.  ints[kSolvePath] reports the path the reduced solve took;
+// the global path needs ints[kCgwFloats] >= S * S + S + 2 * blocks.
+PLVIO_API int schur_solve(void* const* ptrs, int* ints, const float* flts,
+                          void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const BA b = make_ba(ptrs, ints, flts);
+  if (b.gram_split < 1) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = solve_smem(b.Sd());
-  if (smem > 232448 || b.gram_split < 1)
+  const bool global = smem > kSmemMax;
+  const size_t S = size_t(b.Sd());
+  if (global &&
+      size_t(ints[kCgwFloats]) < S * S + S + 2 * blocks(b.Sd(), kRowThreads))
     return static_cast<int>(cudaErrorInvalidValue);
+  ints[kSolvePath] = global ? 1 : 0;
   const int n = b.n_pt + b.n_ln;
   if (n > 0) factor_kernel<<<blocks(n, 128), 128, 0, s>>>(b);
   const int nT = blocks(b.Sp(), kTile);
   gram_kernel<<<dim3(nT * (nT + 1) / 2, b.gram_split), kGramThreads, 0, s>>>(
       b);
   gram_reduce_kernel<<<blocks(b.Sp() * b.Sp(), 256), 256, 0, s>>>(b);
-  cudaFuncSetAttribute(solve_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       static_cast<int>(smem));
-  solve_kernel<<<1, kSolveThreads, smem, s>>>(b);
+  if (!global) {
+    cudaFuncSetAttribute(solve_kernel,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         static_cast<int>(smem));
+    solve_kernel<<<1, kSolveThreads, smem, s>>>(b);
+  } else {
+    const int rc = launch_solve_global(b, s);
+    if (rc != 0) return rc;
+  }
   const int m = b.n_kf + b.n_pt + b.n_ln;
   backsub_kernel<<<blocks(m, 128), 128, 0, s>>>(b);
   return static_cast<int>(cudaGetLastError());

@@ -32,6 +32,12 @@ bootstrap_step(...)   -> (step, inputs): the monocular bootstrap, from
                          (`models/system.py:160-169`) and the port's
                          `Tracker` to the initial two-keyframe map
                          (`_initialize_mono`, models/tracking.py:384)
+keyframe_sequence(...) -> (step, sequence): the whole keyframe step
+                         (`LocalMapper.process_keyframe`, :169-238) over
+                         the keyframes of `inputs.build_keyframe_sequence`
+                         (~8.7 s of the room orbit from a two-keyframe
+                         map), the tracker's keyframe insertion stood in
+                         by `inputs.insert_keyframe`
 entry(device)         -> tracking_step_pl at EuRoC geometry on `device`
 
 Every entry point runs on the card unless the caller passes
@@ -451,6 +457,26 @@ def imu_init(n_kf: int = 32, device="cuda", plain: bool = False):
     return ImuInit(n_kf, plain=plain).to(dev), A
 
 
+def mapper_config(sensor, K: PinholeK = K_EUROC, identity_tbc=False):
+    """The SystemConfig of the keyframe step's entry points: the pinhole
+    camera K without distortion, lines on, `sensor`; with identity_tbc
+    the body frame is the camera's (the synthetic sequences' IMU)."""
+    from .config import CameraConfig, SystemConfig
+    imu = ImuConfig(Tbc=tuple(np.eye(4).reshape(-1))) if identity_tbc \
+        else ImuConfig()
+    return SystemConfig(sensor=sensor, use_lines=True, imu=imu,
+                        camera=CameraConfig(fx=K.fx, fy=K.fy, cx=K.cx,
+                                            cy=K.cy,
+                                            dist=(0.0, 0.0, 0.0, 0.0)))
+
+
+def _empty_store():
+    """A one-slot placeholder store, until a step is handed its map."""
+    from .models.mapstore import MapStore
+    return MapStore(max_kf=1, max_pts=1, max_lines=1, n_feat=1,
+                    n_line_feat=1)
+
+
 class NeighborhoodOut(NamedTuple):
     new_lines: int             # map lines created by create_new_lines
     n_bound: int               # features bound by the fuse
@@ -480,9 +506,13 @@ class NeighborhoodStep(nn.Module):
                  ba_kf_cap: int = 16, ba_pt_cap: int = 4096,
                  ba_obs_cap: int = 8192, K: PinholeK = K_EUROC):
         super().__init__()
+        from .config import Sensor
         from .models.local_mapping import LocalMapper
-        self.mapper = LocalMapper(K, ba_kf_cap, ba_pt_cap, ba_obs_cap,
-                                  device=device, plain=plain)
+        from .models.mapstore import Atlas
+        self.mapper = LocalMapper(
+            mapper_config(Sensor.MONOCULAR, K), Atlas([_empty_store()]),
+            1000, ba_kf_cap, ba_pt_cap, ba_obs_cap, device=device,
+            plain=plain)
 
     def forward(self, m, kf=None):
         mp = self.mapper
@@ -603,3 +633,166 @@ def bootstrap_step(seed: int = 0, device="cuda", plain: bool = False):
     B = build_bootstrap_inputs(seed)
     B["frames"] = [torch.from_numpy(f).to(dev) for f in B["frames"]]
     return BootstrapStep(plain=plain, device=dev), B
+
+
+class SeqStep(NamedTuple):
+    kf: int                    # the keyframe's slot
+    points: int                # map points alive after the step
+    lines: int                 # map lines alive
+    keyframes: int             # keyframes alive
+    culled: list               # slots of the keyframes culled
+    ba: list                   # window solves: (path, keyframes, LM iters)
+    host_syncs: int            # device-to-host reads of the mapper
+    ms: float                  # wall ms of process_keyframe
+
+
+class KeyframeSequenceOut(NamedTuple):
+    steps: list                # SeqStep per keyframe from the third on
+    init_kf: int               # sequence index at which the IMU initialized
+    init_scale: float          # the scale the initialization applied
+    inv_lam: float             # 1 / the map's starting monocular scale
+    scale: float               # the map's final scale against the truth
+    gravity_err_deg: float     # map's gravity direction against the truth
+    n_refine: int              # scale / gravity refinement pulses
+    n_viba: int                # full-map inertial BA solves
+    viba_window: int           # keyframes in the largest full-map window
+    ate_sim3: float            # final keyframe centres' ATE RMSE (m)
+    ate_se3: float
+    map: object                # the port's MapStore at the end
+    track: dict                # the tracker stand-in's state
+
+
+class KeyframeSequence(nn.Module):
+    """The whole keyframe step over a keyframe sequence: the map of
+    `inputs.start_keyframe_map`, then for each further keyframe the
+    tracker stand-in's `inputs.insert_keyframe` and the port's
+    `LocalMapper.process_keyframe` (culling, new points and lines, fusion,
+    the point statistics, IMU init, the window BA, the scale refinement
+    and full-map pulses, keyframe culling), the mapper's pending map
+    transform composed into the stand-in's frame after each step.
+
+    The caps are production's unless given: store 512 KF / 16384 points /
+    2048 lines, point BA window 16 x 4096 x 8192, inertial window 16 KF
+    with lines 256 / 512 (its half bucket), the full-map window 64 x 8192
+    x 16384 + 512 / 1024, IMU init cap 32, fuse cap 2048.  Mono-inertial
+    with lines; the camera is `K_EUROC` without distortion, the body frame
+    the camera's.  forward(seq) -> KeyframeSequenceOut."""
+
+    def __init__(self, plain: bool = False, device="cuda",
+                 store=None, caps=None, viba_caps=None, K: PinholeK = K_EUROC):
+        super().__init__()
+        from .config import Sensor
+        self.device = resolve_device(device)
+        self.store = {**dict(max_kf=512, max_pts=16384, max_lines=2048),
+                      **(store or {})}
+        self.cfg = mapper_config(Sensor.IMU_MONOCULAR, K, identity_tbc=True)
+        self.caps = dict(caps or {})
+        self.viba_caps = dict(viba_caps or {})
+        self.plain = plain
+        self.mapper = None
+
+    def new_mapper(self):
+        """A fresh LocalMapper at the step's caps (the full-map window's
+        set before its first use, as the reference allows)."""
+        from .models.local_mapping import LocalMapper
+        from .models.mapstore import Atlas
+        mp = LocalMapper(self.cfg, Atlas([_empty_store()]), 1000,
+                         device=self.device, plain=self.plain, **self.caps)
+        for k, v in self.viba_caps.items():
+            setattr(mp, k, v)
+        return mp
+
+    def forward(self, seq) -> KeyframeSequenceOut:
+        import time
+        from .inputs import compose_transform, insert_keyframe, \
+            start_keyframe_map
+        from .models.mapstore import MapStore
+        mp = self.mapper = self.new_mapper()
+        m = MapStore(n_feat=seq["n_feat"], n_line_feat=seq["n_line_feat"],
+                     **self.store)
+        mp.map = m
+        track = start_keyframe_map(m, seq)
+        steps, init_kf, n_viba, viba_window = [], -1, 0, 0
+        cuda = self.device.type == "cuda"
+        for i in range(2, len(seq["t_kf"])):
+            kf = insert_keyframe(m, seq, i, track)
+            mp.host_syncs = 0
+            mp.ba_calls = []
+            was_init = m.imu_initialized
+            t0 = time.perf_counter()
+            culled = mp.process_keyframe(kf)
+            if cuda:
+                torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            if mp.pending_transform is not None:
+                compose_transform(track, mp.pending_transform)
+                mp.pending_transform = None
+            if m.imu_initialized and not was_init:
+                init_kf = i
+            ba = [(c["path"], c["window"], [int(x) for x in c["iters"]])
+                  for c in mp.ba_calls]
+            for path, w, _ in ba:
+                if path == "viba":
+                    n_viba += 1
+                    viba_window = max(viba_window, w)
+            steps.append(SeqStep(kf, m.n_pt, m.n_ln, m.n_kf,
+                                 [int(c[0]) for c in culled], ba,
+                                 mp.host_syncs, ms))
+        return KeyframeSequenceOut(
+            steps, init_kf,
+            float(mp.init_scale) if mp.init_scale is not None else 0.0,
+            1.0 / seq["lam"], sequence_scale(m, seq),
+            gravity_error_deg(m, seq, track), mp.n_refine, n_viba,
+            viba_window,
+            *sequence_ate(m, seq), m, track)
+
+
+def gravity_error_deg(m, seq, track) -> float:
+    """Angle (deg) between the map's gravity direction (0, 0, -1) and the
+    world's as the newest keyframe's pose maps it (R_cw^map^T R_cw^true
+    (0, 0, -1)), which IMU init should have aligned."""
+    kf, i = track["last_kf"], track["last_i"]
+    R_mw = m.kf_pose_cw[kf, :, :3].astype(np.float64).T @ seq["R_wc"][i].T
+    d = R_mw @ np.array([0.0, 0.0, -1.0])
+    return float(np.degrees(np.arccos(np.clip(-d[2], -1.0, 1.0))))
+
+
+def _centres(m, seq):
+    """The live keyframes' camera centres and their true ones."""
+    kfs = m.kf_chain()
+    P = m.kf_pose_cw[kfs].astype(np.float64)
+    c = -np.einsum("kji,kj->ki", P[:, :, :3], P[:, :, 3])
+    i = np.searchsorted(seq["t_kf"], m.kf_timestamp[kfs] - 1e-6)
+    return c, seq["p_wc"][i], m.kf_timestamp[kfs]
+
+
+def sequence_scale(m, seq) -> float:
+    """The map's scale against the truth (map units per metre; 1 is
+    metric): the Sim3 (Umeyama) alignment of the true keyframe centres
+    onto the map's."""
+    from .io.trajectory import umeyama
+    c, g, _ = _centres(m, seq)
+    return float(umeyama(g, c)[0])
+
+
+def sequence_ate(m, seq):
+    """(Sim3, SE3) ATE RMSE (m) of the live keyframes' camera centres
+    against the truth at their timestamps (io/trajectory.ate_rmse)."""
+    from .io.trajectory import Trajectory, ate_rmse
+    c, _, t = _centres(m, seq)
+    est = Trajectory(t, c, np.zeros((len(t), 4)))
+    gt = Trajectory(seq["t_kf"], seq["p_wc"], np.zeros((len(seq["t_kf"]),
+                                                        4)))
+    return ate_rmse(est, gt, True), ate_rmse(est, gt, False)
+
+
+def keyframe_sequence(seed: int = 0, device="cuda", plain: bool = False,
+                      **kw):
+    """The whole keyframe step over a keyframe sequence
+    (`KeyframeSequence`, production's caps unless `kw` names others:
+    store, caps, viba_caps) and the sequence of
+    `inputs.build_keyframe_sequence(seed)` (`seq_kw` in kw: its sizes)."""
+    from .inputs import build_keyframe_sequence
+    dev = resolve_device(device)
+    seq = build_keyframe_sequence(seed, **kw.pop("seq_kw", {}))
+    return KeyframeSequence(plain=plain, device=dev, **kw), seq

@@ -1,7 +1,8 @@
 """Synthetic inputs (port of bench.build_inputs, bench.py:33-119, of the
 VI frame's IMU windows, bench.py:407-433, and of the mapping step's
-window, bench.py:214-292), and the inertial back end's window and IMU
-chain.
+window, bench.py:214-292), the inertial back end's window and IMU chain,
+the keyframe step's maps, the bootstrap's frames, and the keyframe
+sequence with its stand-in for the tracker's keyframe insertion.
 
 The same synthetic room, orbit and frames (seed 0) as the reference; the
 local map's descriptors come from the port's own extractors, so nothing
@@ -1215,3 +1216,465 @@ def build_bootstrap_inputs(seed: int = 0, n_frames: int = 6):
     return dict(frames=[np.asarray(f, np.float32) for f in frames],
                 timestamps=traj.timestamps, imu=batches, pose_cw=pose_cw,
                 bias_gyro=imu.bias_gyro, bias_acc=imu.bias_acc)
+
+
+# --------------------------------------------------------------------------
+# The keyframe sequence: a map kept alive over ~55 keyframes by a numpy
+# stand-in for the tracker's keyframe insertion
+# --------------------------------------------------------------------------
+
+SEQ_KF = 58                 # keyframes: one every 3rd frame at 20 fps
+SEQ_SCENE_POINTS = 50000
+SEQ_SCENE_LINES = 4000
+SEQ_FOUND = 0.9             # share of the visible mapped points found
+SEQ_LINE_FOUND = 0.75       # ... of the visible mapped lines
+SEQ_FRAMES = 3              # tracked frames a keyframe stands for
+SEQ_RADIUS = 1.0            # the orbit's radius (m): walls 2-4 m away
+SEQ_OMEGA = 0.6             # its rate (rad/s): 0.6 m/s, ~0.5 m/s^2
+SEQ_LOCAL = 15              # newest keyframes whose landmarks are tracked
+
+
+def build_keyframe_sequence(seed: int = 0, n_kf: int = SEQ_KF,
+                            n_feat: int = 1000, n_line_feat: int = 256,
+                            n_points: int = SEQ_SCENE_POINTS,
+                            n_lines: int = SEQ_SCENE_LINES):
+    """The scene, truth and IMU of the keyframe sequence (numpy,
+    default_rng(seed)): the port's room (`io/synthetic.make_room_scene`,
+    n_points points and n_lines segments on its walls, each point with a
+    random 256-bit descriptor, a base angle, an octave and a detector
+    response) and orbit (`_eval_orbit` at SEQ_RADIUS, SEQ_OMEGA: faster
+    than the frames' orbit, so that IMU init sees ~0.5 m/s^2), one
+    keyframe every 3rd frame at 20 fps (keyframe k at 0.15 (k + 1) s,
+    n_kf of them: 8.7 s at 58), and a 200 Hz IMU along the orbit
+    (`synthesize_imu`, EuRoC noise, gyro bias ~0.003 rad/s, no
+    accelerometer bias).  The body frame is the camera's.
+
+    The map starts in keyframe 0's camera frame at the monocular scale
+    lam = 1 / (keyframe 0's median scene depth), as a two-view bootstrap
+    leaves it: rotated off gravity, not metric.
+
+    Returns a dict: t_kf [n_kf], R_wc [n_kf,3,3], p_wc [n_kf,3], v_w
+    [n_kf,3] (the truth), pose_err [n_kf,6] (the tracker's smooth error:
+    translation, rotation), X [P,3], desc [P,8] uint32, angle [P] (deg),
+    octave [P], response [P] (a detector's, 0-1),
+    seg [L,2,3], ldesc [L,8] uint32, imu (a SyntheticImu), lam, seed,
+    n_feat, n_line_feat."""
+    rng = np.random.default_rng(seed)
+    scene = syn.make_room_scene(rng, n_points=n_points, n_lines=n_lines)
+    t_kf = 0.15 * (np.arange(n_kf) + 1)
+    traj = syn._eval_orbit(t_kf, SEQ_RADIUS, 0.3, SEQ_OMEGA)
+    imu = synthesize_imu(rng, float(t_kf[-1]) + 0.1, radius=SEQ_RADIUS,
+                         omega=SEQ_OMEGA, bias_gyro_mag=0.003,
+                         bias_acc_mag=0.0)
+    X = scene.points
+    R_cw0 = traj.R_wb[0].T
+    z0 = (X - traj.p_wb[0]) @ R_cw0.T
+    vis0 = z0[:, 2] > 0.1
+    # the tracker's pose error: smooth in time (three sinusoids of 0.2-0.6
+    # Hz a component), ~2 mm and ~0.5 mrad
+    f = rng.uniform(0.2, 0.6, (3, 6))
+    ph = rng.uniform(0, 2 * np.pi, (3, 6))
+    amp = np.concatenate([np.full(3, 1.2e-3), np.full(3, 3e-4)])
+    err = (amp * np.sin(2 * np.pi * f[None] * t_kf[:, None, None]
+                        + ph[None])).sum(1)
+    return dict(
+        t_kf=t_kf, R_wc=traj.R_wb, p_wc=traj.p_wb, v_w=traj.v_wb,
+        pose_err=err, X=X,
+        desc=rng.integers(0, 2 ** 32, (len(X), 8), dtype=np.uint32),
+        angle=rng.uniform(0.0, 360.0, len(X)), octave=_octaves(rng, len(X)),
+        response=rng.random(len(X)),
+        seg=scene.lines,
+        ldesc=rng.integers(0, 2 ** 32, (len(scene.lines), 8),
+                           dtype=np.uint32),
+        imu=imu, lam=float(1.0 / np.median(z0[vis0, 2])), seed=seed,
+        n_feat=n_feat, n_line_feat=n_line_feat)
+
+
+def _seq_view(seq, i, rng):
+    """Keyframe i's features: (uv [n_feat,2], desc, octave, angle, scene
+    id or -1 [n_feat]) and line features (ep [n_line_feat,4], desc, valid,
+    scene id or -1), in a random order; the scene points and lines it
+    sees (visible masks)."""
+    K = K_EUROC
+    width, height = 752, 480
+    F, LF = seq["n_feat"], seq["n_line_feat"]
+    R_cw = seq["R_wc"][i].T
+    p = seq["p_wc"][i]
+
+    def project(P):
+        pc = (P - p) @ R_cw.T
+        z = np.maximum(pc[:, 2], 1e-6)
+        uv = np.stack([K.fx * pc[:, 0] / z + K.cx,
+                       K.fy * pc[:, 1] / z + K.cy], -1)
+        ok = (pc[:, 2] > 0.1) & (pc[:, 2] < 30.0)
+        return uv, ok
+
+    uv, ok = project(seq["X"])
+    vis = ok & (uv[:, 0] >= 8) & (uv[:, 0] < width - 8) & (uv[:, 1] >= 8) \
+        & (uv[:, 1] < height - 8)
+    # the strongest responses in view, as a detector keeps them: the same
+    # points from view to view but for the noise of the response
+    sid = np.nonzero(vis)[0]
+    resp = seq["response"][sid] + rng.normal(0, 0.03, len(sid))
+    sid = rng.permutation(sid[np.argsort(-resp)[:int(0.88 * F)]])
+    n = len(sid)
+    # a scene point's octave is its own, +-1 in 2 views of 5
+    octv = _octaves(rng, F)
+    octv[:n] = np.clip(seq["octave"][sid]
+                       + rng.choice([-1, 0, 0, 0, 1], n), 0, 7)
+    fuv = uv[sid] + rng.normal(0, 1, (n, 2)) * 0.5 * 1.2 ** octv[:n, None]
+    out = rng.random(n) < 0.02
+    a = rng.uniform(0, 2 * np.pi, n)
+    fuv[out] += 15.0 * np.stack([np.cos(a), np.sin(a)], -1)[out]
+    fdesc = _flip_bits(rng, seq["desc"][sid], rng.integers(0, 11, n))
+    fang = (seq["angle"][sid] + rng.normal(0, 2.0, n)) % 360.0
+    nn = F - n
+    all_uv = np.concatenate([fuv, np.stack([rng.uniform(0, width, nn),
+                                            rng.uniform(0, height, nn)], -1)])
+    all_desc = np.concatenate(
+        [fdesc, rng.integers(0, 2 ** 32, (nn, 8), dtype=np.uint32)])
+    all_ang = np.concatenate([fang, rng.uniform(0, 360.0, nn)])
+    all_sid = np.concatenate([sid, np.full(nn, -1)])
+    order = rng.permutation(F)
+    feats = (all_uv[order].astype(np.float32), all_desc[order],
+             octv[order], all_ang[order].astype(np.float32), all_sid[order])
+
+    # a segment is seen as its longest run inside the image (sampled at
+    # 64 points), if that run is at least 30 px long
+    seg = seq["seg"]
+    tt = np.linspace(0.0, 1.0, 64)
+    P = seg[:, :1] + tt[None, :, None] * (seg[:, 1:] - seg[:, :1])
+    suv, sok = project(P.reshape(-1, 3))
+    suv, sok = suv.reshape(-1, 64, 2), sok.reshape(-1, 64)
+    ins = sok & (suv[..., 0] >= 4) & (suv[..., 0] < width - 4) \
+        & (suv[..., 1] >= 4) & (suv[..., 1] < height - 4)
+    first = np.argmax(ins, 1)
+    last = 63 - np.argmax(ins[:, ::-1], 1)
+    # the run from the first inside sample while it stays inside
+    out_after = ~ins & (np.arange(64)[None] > first[:, None])
+    stop = np.where(out_after.any(1), np.argmax(out_after, 1) - 1, last)
+    ar = np.arange(len(seg))
+    us, ue = suv[ar, first], suv[ar, stop]
+    lvis = ins.any(1) & (np.linalg.norm(ue - us, axis=1) >= 30.0)
+    lsid = rng.permutation(np.nonzero(lvis)[0])[:int(0.75 * LF)]
+    m = len(lsid)
+    ep = np.concatenate([us[lsid], ue[lsid]], 1) + rng.normal(0, 0.3, (m, 4))
+    flip = rng.random(m) < 0.5
+    ep[flip] = ep[flip][:, [2, 3, 0, 1]]
+    ldesc = _flip_bits(rng, seq["ldesc"][lsid], rng.integers(0, 13, m))
+    nl = LF - m
+    a0 = np.stack([rng.uniform(40, width - 40, nl),
+                   rng.uniform(40, height - 40, nl)], -1)
+    ang = rng.uniform(0, np.pi, nl)
+    ln = rng.uniform(20, 120, nl)
+    a1 = a0 + ln[:, None] * np.stack([np.cos(ang), np.sin(ang)], -1)
+    lorder = rng.permutation(LF)
+    lines = (np.concatenate([ep, np.concatenate([a0, a1], 1)])[lorder]
+             .astype(np.float32),
+             np.concatenate([ldesc, rng.integers(0, 2 ** 32, (nl, 8),
+                                                 dtype=np.uint32)])[lorder],
+             np.ones(LF, bool),
+             np.concatenate([lsid, np.full(nl, -1)])[lorder])
+    return feats, lines, vis, lvis
+
+
+def _scene_of_landmarks(match, scene_of, kfs, valid, n_scene):
+    """Each live landmark's scene id: the one most of its bound features
+    carry (the lowest on a tie), -1 where none; and for each scene id the
+    lowest live landmark carrying it (-1)."""
+    rows = match[kfs]
+    sc = np.stack([scene_of[int(k)] for k in kfs]) if len(kfs) else rows
+    sel = (rows >= 0) & (sc >= 0)
+    lm, s = rows[sel].astype(np.int64), sc[sel].astype(np.int64)
+    lm_sid = np.full(len(valid), -1, np.int64)
+    if len(lm):
+        key, cnt = np.unique(lm * n_scene + s, return_counts=True)
+        klm, ks = key // n_scene, key % n_scene
+        order = np.lexsort((ks, -cnt, klm))
+        klm, ks = klm[order], ks[order]
+        first = np.ones(len(klm), bool)
+        first[1:] = klm[1:] != klm[:-1]
+        lm_sid[klm[first]] = ks[first]
+    lm_sid[~valid] = -1
+    best = np.full(n_scene, np.iinfo(np.int64).max)
+    live = np.nonzero(lm_sid >= 0)[0]
+    np.minimum.at(best, lm_sid[live], live)
+    best[best == np.iinfo(np.int64).max] = -1
+    return lm_sid, best
+
+
+def _seq_preint(seq, t0, t1, bg, ba):
+    """The raw IMU samples of (t0, t1] and their preintegration at (bg,
+    ba) by the port's plain `ops/imu.preintegrate` (float32, the CPU), as
+    numpy: ((gyro, acc, dt), Preintegrated)."""
+    imu = seq["imu"]
+    # sample times and keyframe times are both multiples of 5 ms, up to
+    # float rounding
+    m = (imu.timestamps > t0 + 1e-9) & (imu.timestamps <= t1 + 1e-9)
+    ts = imu.timestamps[m]
+    raw = (imu.gyro[m].astype(np.float32), imu.acc[m].astype(np.float32),
+           np.diff(np.concatenate([[t0], ts])).astype(np.float32))
+    cal = IMU.make_calib(ImuConfig(Tbc=tuple(np.eye(4).reshape(-1))))
+    p = IMU.preintegrate(*(torch.from_numpy(a) for a in raw),
+                         torch.ones(len(ts), dtype=torch.bool), cal,
+                         torch.from_numpy(np.asarray(bg, np.float32)),
+                         torch.from_numpy(np.asarray(ba, np.float32)))
+    return raw, IMU.Preintegrated(*(v.numpy() for v in p))
+
+
+def _seq_pose(m, seq, i, track):
+    """Keyframe i's camera pose T_cw and velocity in the map's current
+    frame, as a tracker localizing against the map would report them: the
+    true motion from the newest keyframe (its translation at the map's
+    scale `track["s"]`) applied to that keyframe's pose in the map, with
+    the increment of the sequence's smooth tracker error (`pose_err`)."""
+    prev, ip = track["last_kf"], track["last_i"]
+    s = track["s"]
+    R_cw = [seq["R_wc"][j].T for j in (ip, i)]
+    t_cw = [-R_cw[k] @ seq["p_wc"][j] for k, j in enumerate((ip, i))]
+    e = seq["pose_err"][i] - seq["pose_err"][ip]
+    dR = lie.so3_exp(torch.from_numpy(e[3:])).numpy()
+    R_rel = dR @ R_cw[1] @ R_cw[0].T
+    t_rel = s * (t_cw[1] - R_cw[1] @ R_cw[0].T @ t_cw[0] + e[:3])
+    P = m.kf_pose_cw[prev].astype(np.float64)
+    pose = np.concatenate([R_rel @ P[:, :3], (R_rel @ P[:, 3] + t_rel)
+                           [:, None]], 1).astype(np.float32)
+    R_mw = pose[:, :3].T.astype(np.float64) @ R_cw[1]
+    return pose, (s * R_mw @ seq["v_w"][i]).astype(np.float32)
+
+
+def _bind_keyframe(m, seq, kf, track, feats, lines, vis, lvis, rng):
+    """Bind keyframe kf's features to the local map's points and lines
+    (those bound in the SEQ_LOCAL newest keyframes) of their scene ids
+    (the lowest id of a scene id, with probability
+    SEQ_FOUND) and count the tracked frames since the last keyframe: each
+    live landmark whose scene point is in view is visible in SEQ_FRAMES
+    frames, and found in each with probability SEQ_FOUND if it is the
+    lowest id of a scene id among the keyframe's features (a duplicate
+    is never found, so `cull_points` removes it); lines with probability
+    SEQ_LINE_FOUND."""
+    chain = m.kf_chain()
+    kfs = np.array([k for k in chain[chain != kf][-SEQ_LOCAL:]
+                    if int(k) in track["feat_scene"]], int)
+    n_sc = len(seq["X"])
+    pt_sid, best = _scene_of_landmarks(m.kf_match_pt, track["feat_scene"],
+                                       kfs, m.pt_valid, n_sc)
+    seen = pt_sid >= 0
+    seen[seen] = vis[pt_sid[seen]]
+    m.pt_visible[seen] += SEQ_FRAMES
+    sid = feats[4]
+    cand = np.nonzero((sid >= 0) & (best[np.maximum(sid, 0)] >= 0))[0]
+    m.pt_found[best[sid[cand]]] += rng.binomial(SEQ_FRAMES, SEQ_FOUND,
+                                                len(cand)).astype(np.int32)
+    cand = cand[rng.random(len(cand)) < SEQ_FOUND]
+    pts = best[sid[cand]]
+    n_ls = len(seq["seg"])
+    ln_sid, lbest = _scene_of_landmarks(m.kf_match_ln, track["line_scene"],
+                                        kfs, m.ln_valid, n_ls)
+    lseen = ln_sid >= 0
+    lseen[lseen] = lvis[ln_sid[lseen]]
+    m.ln_visible[lseen] += SEQ_FRAMES
+    lsid = lines[3]
+    lc = np.nonzero((lsid >= 0) & (lbest[np.maximum(lsid, 0)] >= 0))[0]
+    m.ln_found[lbest[lsid[lc]]] += rng.binomial(
+        SEQ_FRAMES, SEQ_LINE_FOUND, len(lc)).astype(np.int32)
+    lc = lc[rng.random(len(lc)) < SEQ_LINE_FOUND]
+    lns = lbest[lsid[lc]]
+    m.ln_n_obs[lns] += 1
+    m.kf_match_ln[kf, lc] = lns
+    m.add_observations(kf, cand, pts)
+
+
+def _write_keyframe(m, kf, t, pose, vel, feats, lines):
+    m.kf_timestamp[kf] = t
+    m.kf_pose_cw[kf] = pose
+    m.kf_vel[kf] = vel
+    uv, desc, octv, ang, _ = feats
+    m.kf_feat_uv[kf] = uv
+    m.kf_feat_uv_raw[kf] = uv
+    m.kf_feat_desc[kf] = desc
+    m.kf_feat_octave[kf] = octv
+    m.kf_feat_angle[kf] = ang
+    m.kf_feat_valid[kf] = True
+    m.kf_match_pt[kf] = -1
+    m.kf_match_ln[kf] = -1
+    m.kf_line_ep[kf], m.kf_line_desc[kf], m.kf_line_valid[kf] = lines[:3]
+
+
+def start_keyframe_map(m, seq):
+    """The two-keyframe map a monocular bootstrap leaves, in the map store
+    m (the port's or the JAX package's: only the fields and methods both
+    have): keyframes 0 and 1 at their true poses in the map frame
+    (keyframe 0's camera frame at scale lam), a map point at the scene
+    point of every feature pair the two share (3 mm noise, in metres) and
+    a map line at every shared segment, both bound in both, and keyframe
+    1's IMU window.  Returns the tracker stand-in's state: the map's scale
+    s (map units per metre), the newest keyframe's slot and sequence
+    index, and the scene ids of each keyframe's features and lines."""
+    s = seq["lam"]
+    R = seq["R_wc"][0].T
+    t = -s * R @ seq["p_wc"][0]
+    track = dict(s=s, feat_scene={}, line_scene={})
+    rng = np.random.default_rng([seq["seed"], 0])
+    views = [_seq_view(seq, i, rng) for i in (0, 1)]
+    kfs = []
+    for i, (feats, lines, _, _) in enumerate(views):
+        kf = m.alloc_kf()
+        if i:
+            pose, vel = _seq_pose(m, seq, i, track)
+        else:
+            pose = np.eye(3, 4, dtype=np.float32)
+            vel = (s * R @ seq["v_w"][0]).astype(np.float32)
+        _write_keyframe(m, kf, seq["t_kf"][i], pose, vel, feats, lines)
+        track["feat_scene"][kf] = feats[4]
+        track["line_scene"][kf] = lines[3]
+        track["last_kf"], track["last_i"] = kf, i
+        kfs.append(kf)
+    k0, k1 = kfs
+    m.kf_next[k0], m.kf_prev[k1] = k1, k0
+    raw, pre = _seq_preint(seq, seq["t_kf"][0], seq["t_kf"][1],
+                           np.zeros(3), np.zeros(3))
+    m.kf_imu_raw[k1], m.kf_preint[k1] = raw, pre
+    (f0, l0, _, _), (f1, l1, _, _) = views
+    shared = np.intersect1d(f0[4][f0[4] >= 0], f1[4][f1[4] >= 0])
+    pts = m.alloc_points(len(shared))
+    Xm = s * (seq["X"][shared] + rng.normal(0, 0.003, (len(shared), 3))) \
+        @ R.T + t
+    m.pt_xyz[pts] = Xm
+    m.pt_desc[pts] = seq["desc"][shared]
+    m.pt_first_kf[pts] = k0
+    m.pt_n_obs[pts] = 2
+    m.pt_found[pts] = 2
+    m.pt_visible[pts] = 2
+    for kf, f in ((k0, f0), (k1, f1)):
+        pos = np.full(len(seq["X"]), -1)
+        pos[f[4][f[4] >= 0]] = np.nonzero(f[4] >= 0)[0]
+        m.kf_match_pt[kf, pos[shared]] = pts
+    lsh = np.intersect1d(l0[3][l0[3] >= 0], l1[3][l1[3] >= 0])
+    lns = m.alloc_lines(len(lsh))
+    m.ln_ep[lns] = (s * (seq["seg"][lsh].reshape(-1, 3) @ R.T)
+                    + t).reshape(-1, 6)
+    m.ln_desc[lns] = seq["ldesc"][lsh]
+    m.ln_first_kf[lns] = k0
+    m.ln_n_obs[lns] = 2
+    m.ln_found[lns] = 2
+    m.ln_visible[lns] = 2
+    for kf, ln in ((k0, l0), (k1, l1)):
+        pos = np.full(len(seq["seg"]), -1)
+        pos[ln[3][ln[3] >= 0]] = np.nonzero(ln[3] >= 0)[0]
+        m.kf_match_ln[kf, pos[lsh]] = lns
+    m.update_covisibility(k0)
+    m.update_covisibility(k1)
+    return track
+
+
+def insert_keyframe(m, seq, i, track):
+    """The tracker's keyframe insertion for keyframe i >= 2, a numpy
+    stand-in until the host tracker is ported, on the map store m (the
+    port's or the JAX package's): a new keyframe slot at keyframe i's true
+    pose relative to the newest keyframe's in the map (`_seq_pose`),
+    chained
+    after the newest keyframe; its 1000 point and 256 line features
+    (`_seq_view`: scene points in view with octave noise, flipped
+    descriptor bits and 2% 15 px outliers, noise features to the count);
+    each feature bound to the live landmark of its scene id (the lowest
+    id) with probability SEQ_FOUND, pt_visible / pt_found raised for the 3
+    frames since the last keyframe (`_bind_keyframe`; lines alike); the IMU
+    samples since the newest keyframe in kf_imu_raw and their
+    preintegration at its biases in kf_preint; the new keyframe's biases
+    are the newest keyframe's.  Draws from default_rng([seed, i]).
+    Returns the new keyframe's slot."""
+    rng = np.random.default_rng([seq["seed"], i])
+    feats, lines, vis, lvis = _seq_view(seq, i, rng)
+    prev = track["last_kf"]
+    pose, vel = _seq_pose(m, seq, i, track)
+    kf = m.alloc_kf()
+    _write_keyframe(m, kf, seq["t_kf"][i], pose, vel, feats, lines)
+    track["feat_scene"][kf] = feats[4]
+    track["line_scene"][kf] = lines[3]
+    m.kf_prev[kf], m.kf_next[kf] = prev, -1
+    m.kf_next[prev] = kf
+    bg, ba = m.kf_bias_g[prev].copy(), m.kf_bias_a[prev].copy()
+    m.kf_bias_g[kf], m.kf_bias_a[kf] = bg, ba
+    raw, pre = _seq_preint(seq, float(m.kf_timestamp[prev]), seq["t_kf"][i],
+                           bg, ba)
+    m.kf_imu_raw[kf], m.kf_preint[kf] = raw, pre
+    _bind_keyframe(m, seq, kf, track, feats, lines, vis, lvis, rng)
+    track["last_kf"], track["last_i"] = kf, i
+    return kf
+
+
+def compose_transform(track, pending):
+    """The tracker stand-in takes the mapper's pending transform (R_gw,
+    s), X' = s R_gw X: the map's scale becomes s times its own (its
+    rotation reaches the stand-in through the newest keyframe's pose,
+    which the transform re-expressed)."""
+    track["s"] = float(pending[1]) * track["s"]
+
+
+def build_inertial_map(seq, n_kf: int, store=None, seed: int = 1):
+    """The map the keyframe step holds after IMU init, built directly from
+    the sequence's truth (numpy, default_rng(seed)): keyframes 0..n_kf-1
+    of `seq` chained, in the metric gravity-aligned world frame, their
+    poses with the tracker's smooth error, true velocities, biases zero
+    and the IMU windows preintegrated at them; a map point at each scene
+    point featured in >= 2 of the keyframes (3 mm noise) and a map line at
+    each segment featured in >= 3, bound wherever featured; the
+    covisibility, and the IMU stages set (initialized, ba1).  `store`:
+    the port MapStore's capacities (production's by default).  Returns
+    the port `MapStore`."""
+    from .models.mapstore import MapStore
+    rng = np.random.default_rng(seed)
+    m = MapStore(n_feat=seq["n_feat"], n_line_feat=seq["n_line_feat"],
+                 **(store or {}))
+    views = [_seq_view(seq, i, rng) for i in range(n_kf)]
+    for i, (feats, lines, _, _) in enumerate(views):
+        kf = m.alloc_kf()
+        R_cw = seq["R_wc"][i].T
+        e = seq["pose_err"][i]
+        dR = lie.so3_exp(torch.from_numpy(e[3:])).numpy()
+        pose = np.concatenate([dR @ R_cw, (-R_cw @ seq["p_wc"][i] + e[:3])
+                               [:, None]], 1)
+        _write_keyframe(m, kf, seq["t_kf"][i], pose.astype(np.float32),
+                        seq["v_w"][i].astype(np.float32), feats, lines)
+        if i:
+            m.kf_prev[kf], m.kf_next[kf - 1] = kf - 1, kf
+            raw, pre = _seq_preint(seq, seq["t_kf"][i - 1], seq["t_kf"][i],
+                                   np.zeros(3), np.zeros(3))
+            m.kf_imu_raw[kf], m.kf_preint[kf] = raw, pre
+    for fam, key, n_min in (("pt", 4, 2), ("ln", 3, 3)):
+        sids = np.stack([v[0 if fam == "pt" else 1][key] for v in views])
+        src = seq["X"] if fam == "pt" else seq["seg"]
+        cnt = np.bincount(sids[sids >= 0], minlength=len(src))
+        keep = np.nonzero(cnt >= n_min)[0]
+        if fam == "pt":
+            ids = m.alloc_points(len(keep))
+            m.pt_xyz[ids] = src[keep] + rng.normal(0, 0.003, (len(keep), 3))
+            m.pt_desc[ids] = seq["desc"][keep]
+        else:
+            ids = m.alloc_lines(len(keep))
+            m.ln_ep[ids] = src[keep].reshape(-1, 6) \
+                + rng.normal(0, 0.003, (len(keep), 6))
+            m.ln_desc[ids] = seq["ldesc"][keep]
+        lm_of = np.full(len(src), -1)
+        lm_of[keep] = ids
+        match = np.where(sids >= 0, lm_of[np.maximum(sids, 0)], -1)
+        first = np.full(len(src), -1)
+        for k in range(n_kf - 1, -1, -1):
+            first[sids[k][sids[k] >= 0]] = k
+        if fam == "pt":
+            m.pt_first_kf[ids] = first[keep]
+            m.kf_match_pt[:n_kf] = match
+            m.pt_n_obs[ids] = cnt[keep]
+            m.pt_found[ids] = cnt[keep]
+            m.pt_visible[ids] = cnt[keep]
+        else:
+            m.ln_first_kf[ids] = first[keep]
+            m.kf_match_ln[:n_kf] = match
+            m.ln_n_obs[ids] = cnt[keep]
+            m.ln_found[ids] = cnt[keep]
+            m.ln_visible[ids] = cnt[keep]
+    for k in range(n_kf):
+        m.update_covisibility(k)
+    m.imu_initialized = m.imu_ba1 = True
+    return m

@@ -15,7 +15,13 @@ points both trees have) and compare the printed lines:
   inlier masks;
 - `hamming_match`: its window, line and epipolar gate modes (0-2) through
   `ops.matching.hamming_match` on fixed inputs (700 x 500, seed 4): idx
-  and ok.
+  and ok;
+- `inertial_ba_step`: the inertial window BA at both buckets, true and
+  perturbed start: the states, landmarks and inlier masks;
+- `imu_init`: the IMU initialization and the scale refinement at 32 KF;
+- `neighborhood_step`: the keyframe step's neighbourhood work on both maps
+  of `inputs.build_keyframe_map`: the store's poses, points, lines and
+  bindings after the step.
 
 Needs one card; JAX is never imported.
 """
@@ -134,6 +140,24 @@ def main() -> int:
     from plvio_tpu_torch.ops import matching as M
     for name, args, kw in hamming_cases(dev):
         print(f"hamming_match {name} {digest(M.hamming_match(*args, **kw))}")
+    from plvio_tpu_torch.entry import (LIBA_HALF, LIBA_WORST, imu_init,
+                                       inertial_ba_step, neighborhood_step)
+    for bucket, sz in (("worst", LIBA_WORST), ("half", LIBA_HALF)):
+        for pert in (False, True):
+            step, A = inertial_ba_step(**sz, perturbed=pert, device=dev)
+            with torch.no_grad():
+                o = step(A)
+            print(f"inertial_ba_step {bucket} perturbed={pert} "
+                  f"{digest([x for x in o if torch.is_tensor(x)])}")
+    mod, B = imu_init(device=dev)
+    print(f"imu_init {digest(mod(B))} refine {digest(mod.refine(B))}")
+    for confirmed in (False, True):
+        step, m = neighborhood_step(confirmed, device=dev)
+        step(m)
+        print(f"neighborhood_step confirmed_lines={confirmed} " + digest(
+            [torch.from_numpy(getattr(m, k).copy()) for k in (
+                "kf_pose_cw", "pt_xyz", "pt_valid", "kf_match_pt", "ln_ep",
+                "ln_valid", "kf_match_ln")]))
     return 0
 
 

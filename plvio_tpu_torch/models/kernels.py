@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -632,28 +633,50 @@ _BA_PTRS = (
     "hcc", "hpt", "hln", "fpt", "fln", "occ_pt", "occ_ln",
     "gm", "gpart", "rr", "ff", "dx", "ctrl",
     "kfx", "ckfx", "kf_free_bias", "pre", "imu_info", "edge_valid", "rw_g",
-    "rw_a", "link", "link_cost", "ccost")
+    "rw_a", "link", "link_cost", "ccost", "cgw")
 # column chunks of schur_solve's Gram fill-in (partial tiles summed in order)
 GRAM_SPLIT = 24
 BA_LINEARIZE = cuda.Kernel("ba_linearize", "ba_linearize",
                            [_P, _P, _P, _I, _P])
 SCHUR_SOLVE = cuda.Kernel("schur_solve", "schur_solve", [_P, _P, _P, _P])
+
+
+# schur_solve's launches whose reduced solve took the global path (the
+# kernel reports its path, `_BAWork.solve` counts it; csrc/schur_solve.cu
+# `solve_global_kernel`)
+SCHUR_SOLVE.global_launches = 0
 BA_MODE_LINEARIZE, BA_MODE_DECIDE, BA_MODE_INIT, BA_MODE_REGATE = range(4)
 
 
 def solve_fits(S: int) -> bool:
     """Whether schur_solve's one-block solve holds the S x S reduced system
     (packed upper triangle) and its CG vectors in shared memory
-    (csrc/schur_solve.cu `solve_smem`, at most 232448 bytes)."""
+    (csrc/schur_solve.cu `solve_smem`, at most 232448 bytes); beyond it
+    the kernel takes its global path."""
     return (S * (S + 1) // 2 + 5 * S + 32) * 4 <= 232448
 
 
-def _segments(keys: torch.Tensor, n: int):
-    """(order int32, start int32 [n+1]): one stable sort of `keys`."""
-    keys = keys.long()
+def cg_workspace_floats(S: int) -> int:
+    """Floats of the global path's workspace (csrc/ba_common.cuh `cgw`):
+    the full S x S system, p [S] and two partial-sum rows of one float per
+    128-row block; 1 when the one-block solve fits."""
+    if solve_fits(S):
+        return 1
+    return S * S + S + 2 * (-(-S // 128))
+
+
+def _segments(keys: torch.Tensor, n: int, valid: torch.Tensor):
+    """(order int32, start int32 [n+1]): one stable sort of `keys`, the
+    rows whose `valid` is False left out of every segment (placed after
+    start[n]).  Those rows are the windows' padding (keyframe 0, landmark
+    0, weight 0): they add +-0 to every segment sum, so leaving them out
+    changes no result, and the kernels' per-segment loops no longer walk
+    them serially on keyframe 0 and landmark 0.  Rows the chi2 gate masks
+    stay in: they are real observations and may come back."""
+    keys = torch.where(valid, keys.long(), n)
     order = torch.sort(keys, stable=True).indices.to(torch.int32)
     start = torch.zeros(n + 1, dtype=torch.int64, device=keys.device)
-    start[1:] = torch.cumsum(torch.bincount(keys, minlength=n), 0)
+    start[1:] = torch.cumsum(torch.bincount(keys, minlength=n + 1)[:n], 0)
     return order.contiguous(), start.to(torch.int32)
 
 
@@ -692,10 +715,11 @@ class _BAWork:
                  lobs_eq=lobs_eq, lobs_is2=lobs_is2, lobs_valid=lobs_valid,
                  mask_l=lobs_valid.clone(), kf_free=kf_free, pt_free=pt_free,
                  ln_free=ln_free)
-        t["kf_order"], t["kf_start"] = _segments(torch.cat([obs_kf, lobs_kf]),
-                                                 n_kf)
-        t["pt_order"], t["pt_start"] = _segments(obs_pt, n_pt)
-        t["ln_order"], t["ln_start"] = _segments(lobs_ln, n_ln)
+        t["kf_order"], t["kf_start"] = _segments(
+            torch.cat([obs_kf, lobs_kf]), n_kf,
+            torch.cat([obs_valid, lobs_valid]))
+        t["pt_order"], t["pt_start"] = _segments(obs_pt, n_pt, obs_valid)
+        t["ln_order"], t["ln_start"] = _segments(lobs_ln, n_ln, lobs_valid)
         t.update(obs_c=buf(N, 27), p_l=buf(n_obs, 9), p_w=buf(n_obs, 18),
                  l_l=buf(n_lobs, 27), l_w=buf(n_lobs, 36), chi2=buf(N),
                  wchi2=buf(N), hcc=buf(n_kf, 27), hpt=buf(n_pt, 9),
@@ -705,6 +729,8 @@ class _BAWork:
                  gpart=buf(GRAM_SPLIT, S, S), rr=buf(N, 6),
                  dx=buf(S if inertial is None else 15 * n_kf), ctrl=buf(8))
         t["ff"] = buf(S, S)
+        t["cgw"] = buf(cg_workspace_floats(
+            S if inertial is None else 15 * n_kf))
         if inertial is None:
             for name in _LIBA_PTRS:
                 t[name] = buf(1)
@@ -729,8 +755,9 @@ class _BAWork:
         self._keep = (
             (ctypes.c_void_p * len(_BA_PTRS))(
                 *[t[name].data_ptr() for name in _BA_PTRS]),
-            (ctypes.c_int * 8)(n_kf, n_pt, n_obs, n_ln, n_lobs, cg_iters,
-                               GRAM_SPLIT, int(self.body)),
+            (ctypes.c_int * 10)(n_kf, n_pt, n_obs, n_ln, n_lobs, cg_iters,
+                                GRAM_SPLIT, int(self.body),
+                                t["cgw"].numel(), 0),
             (ctypes.c_float * 21)(K.fx, K.fy, K.cx, K.cy,
                                   float(math.sqrt(CHI2_MONO)), CHI2_MONO,
                                   lam0, early_tol, grav, *rcb, *tcb))
@@ -742,12 +769,24 @@ class _BAWork:
     def chain(self, mode: int):
         INERTIAL_CHAIN.launch(*self.args, mode, cuda.stream())
 
+    def solve(self):
+        """One damped Schur step (csrc/schur_solve.cu), its reduced solve
+        in one block or, beyond one block's shared memory, on the global
+        path (counted in SCHUR_SOLVE.global_launches)."""
+        SCHUR_SOLVE.launch(*self.args, cuda.stream())
+        SCHUR_SOLVE.global_launches += self.solve_path()
+
+    def solve_path(self) -> int:
+        """The path of the last schur_solve launch: 0 one block, 1 the
+        global path (as the kernel library reported it)."""
+        return self._keep[1][9]
+
     def step(self):
         """One LM iteration, decided on the device."""
         self.linearize(BA_MODE_LINEARIZE)
         if self.body:
             self.chain(CHAIN_LINEARIZE)
-        SCHUR_SOLVE.launch(*self.args, cuda.stream())
+        self.solve()
         if self.body:
             self.chain(CHAIN_COST_CAND)
         self.linearize(BA_MODE_DECIDE)
@@ -786,9 +825,6 @@ def local_ba_pl(K: PinholeK, kf_poses, kf_free, pt_xyz, pt_free, obs_kf,
             raise ValueError(f"local_ba_pl: argument {i} must be {dt} "
                              f"{shape}, got {x.dtype} {tuple(x.shape)}")
     S = 6 * n_kf
-    if not solve_fits(S):
-        raise ValueError("local_ba_pl: the packed reduced system must fit in "
-                         "shared memory (n_kf <= 55)")
     w = _BAWork(K, *args, lam0=1e-4, early_tol=early_tol,
                 cg_iters=min(max(S // 2, 16), 128))
     for _ in range(rounds):
@@ -1382,9 +1418,6 @@ def inertial_work(K: PinholeK, Rcb, tcb, gravity: float, kf_pose_wb,
                              f"{shape}, got {x.dtype} {tuple(x.shape)}")
     cuda.check_cuda("local_inertial_ba", *[x for x, _, _ in want])
     S = 15 * n_kf
-    if not solve_fits(S):
-        raise ValueError("local_inertial_ba: the packed reduced system must "
-                         "fit in shared memory (n_kf <= 22)")
     extra = dict(
         kfx=torch.cat([kf_vel, kf_bg, kf_ba], 1).contiguous(),
         kf_free_bias=kf_free_bias, pre=pre,
@@ -1492,6 +1525,165 @@ def make_local_inertial_ba(K: PinholeK, n_kf: int, n_pt: int, n_obs: int,
                   stats=stats)
     return run
 
+
+
+# the point+line window BA's argument order (local_ba_pl), by the names of
+# inputs.build_mapping_inputs's dict
+BA_KEYS = ("kf_poses", "kf_free", "pt_xyz", "pt_free", "obs_kf", "obs_pt",
+           "obs_uv", "obs_valid", "obs_is2", "ln_ep6", "ln_free", "lobs_kf",
+           "lobs_ln", "lobs_eq", "lobs_valid", "lobs_is2")
+
+
+def global_window(kind: str, n_kf: int, device, dtype=torch.float32):
+    """A perturbed window whose reduced system exceeds one block's shared
+    memory: `inertial`, the full-map inertial BA's caps at n_kf keyframes
+    (8192 points / 16384 observations, 512 lines / 1024), or `points`,
+    the global point-only BA's (8192 points / 32768 observations).
+    Returns (inputs, argument list, plain problem, states, free masks) at
+    `dtype` on `device`; the inputs stay on the CPU."""
+    from ..entry import K_EUROC
+    from ..inputs import (build_inertial_window, build_mapping_inputs,
+                          perturb_window)
+    dev = torch.device(device)
+    if kind == "inertial":
+        A = build_inertial_window(8192, 16384, 512, 1024, n_kf=n_kf,
+                                  perturbed=True, device="cpu")
+        keys = LIBA_KEYS
+    else:
+        A = build_mapping_inputs(n_kf, 8192, 32768, n_ln=0, n_lobs=0,
+                                 device="cpu")
+        P, X = perturb_window(A["kf_poses"].numpy(), A["pt_xyz"].numpy())
+        A["kf_poses"], A["pt_xyz"] = torch.from_numpy(P), torch.from_numpy(X)
+        keys = BA_KEYS
+
+    def cast(v):
+        if isinstance(v, dict):
+            return {k: cast(x) for k, x in v.items()}
+        v = v.to(dev)
+        return v.to(dtype) if v.is_floating_point() else v
+    args = [cast(A[k]) for k in keys]
+    if kind == "inertial":
+        prob = _liba_problem(
+            K_EUROC, cast(A["Rcb"]), cast(A["tcb"]), 9.81, n_kf,
+            args[6].shape[0], args[18].shape[0],
+            (args[8].long(), args[9].long(), args[10], args[12]), args[11],
+            (args[20].long(), args[21].long(), args[22]), args[23],
+            (args[13], args[14], args[15], args[16], args[17]))
+        st = {"pose": args[0], "vel": args[1], "bg": args[2], "ba": args[3],
+              "pt": args[6], "ln": args[18]}
+        free = ({"pose": args[4], "vel": args[4], "bg": args[5],
+                 "ba": args[5]}, {"pt": args[7], "ln": args[19]})
+    else:
+        prob = _ba_problem(K_EUROC, n_kf, args[2].shape[0], 0,
+                           args[4].long(), args[5].long(), args[6], args[7],
+                           args[8])
+        st = {"pose": args[0], "pt": args[2]}
+        free = ({"pose": args[1]}, {"pt": args[3]})
+    return A, args, prob, st, free
+
+
+class StepGap(NamedTuple):
+    """One dense state's largest entry gaps after one Schur step: kernel -
+    float64, plain - float64, kernel - plain, and the float64 step's own
+    largest entry |new - old|."""
+    kernel: float
+    plain: float
+    kernel_plain: float
+    step: float
+
+
+class GlobalSolveCheck(NamedTuple):
+    """`global_solve_against_float64`'s result: S, the path the kernel
+    reported (1 global), whether a second launch gave the same bits, a
+    StepGap per dense state, and `case` (the kernel path's work, the
+    window's inputs and the plain problem, for timing)."""
+    S: int
+    path: int
+    same_bits: bool
+    gaps: dict
+    case: dict
+
+    def failures(self) -> list:
+        """What breaks the rule the global path is held to: it ran; a
+        second launch repeats bit for bit; per state the kernel lies
+        within 2x the plain float32 step's distance to float64 and no
+        farther from the plain step than that step lies from float64 (each
+        + 1e-6); and its pose lies within a quarter of the float64 step's
+        largest pose entry of the float64 step.  Empty when it holds."""
+        bad = []
+        if self.path != 1:
+            bad.append(f"S = {self.S} took the one-block path")
+        if not self.same_bits:
+            bad.append("a second launch gave other bits")
+        for name, g in self.gaps.items():
+            if g.kernel > 2 * g.plain + 1e-6:
+                bad.append(f"{name}: kernel {g.kernel:.2e} from float64 > "
+                           f"2x the plain step's {g.plain:.2e} + 1e-6")
+            if g.kernel_plain > g.plain + 1e-6:
+                bad.append(f"{name}: kernel - plain {g.kernel_plain:.2e} > "
+                           f"the plain step's {g.plain:.2e} from float64 "
+                           "+ 1e-6")
+        g = self.gaps["pose"]
+        if g.kernel > 0.25 * g.step:
+            bad.append(f"pose: kernel {g.kernel:.2e} from float64 > a "
+                       f"quarter of the step's {g.step:.2e}")
+        return bad
+
+    def summary(self) -> str:
+        return ", ".join(
+            f"{k} {g.kernel:.2e} / {g.plain:.2e} / {g.kernel_plain:.2e} "
+            f"(step {g.step:.2e})" for k, g in self.gaps.items())
+
+
+def global_solve_against_float64(kind: str, n_kf: int,
+                                 device="cuda") -> GlobalSolveCheck:
+    """schur_solve's global path (the reduced solve beyond one block) on
+    `global_window(kind, n_kf)`: one damped Schur step from the perturbed
+    start, launched twice, against the plain engine's step in float32 on
+    the same device and in float64 on the CPU (damping 1e-4, the reference
+    engine's initial lambda)."""
+    from ..entry import K_EUROC
+    dev = cuda.resolve_device(device)
+    lam = 1e-4
+    A, args, prob, st, free = global_window(kind, n_kf, dev)
+    if kind == "inertial":
+        w = inertial_work(K_EUROC, A["Rcb"], A["tcb"], 9.81, *args)
+        w.chain(CHAIN_COST_STATE)
+        S = 15 * n_kf
+    else:
+        S = 6 * n_kf
+        w = _BAWork(K_EUROC, *args, lam0=lam, early_tol=1e-2,
+                    cg_iters=min(max(S // 2, 16), 128))
+    w.linearize(BA_MODE_INIT)
+    w.linearize(BA_MODE_LINEARIZE)
+    if w.body:
+        w.chain(CHAIN_LINEARIZE)
+    t = w.t
+
+    def cand():
+        w.solve()
+        out = {"pose": t["cposes"].view(n_kf, 3, 4).clone()}
+        if w.body:
+            kfx = t["ckfx"]
+            out.update(vel=kfx[:, :3].clone(), bg=kfx[:, 3:6].clone(),
+                       ba=kfx[:, 6:].clone())
+        return out
+    with torch.no_grad():
+        ck, ck2 = cand(), cand()
+        plain = prob.solve_step(st, torch.tensor(lam, device=dev), *free)[0]
+        _, _, p64, s64, f64 = global_window(kind, n_kf, "cpu", torch.float64)
+        ref = p64.solve_step(s64, torch.tensor(lam, dtype=torch.float64),
+                             *f64)[0]
+    gaps = {}
+    for name in ck:
+        k, p = ck[name].double().cpu(), plain[name].double().cpu()
+        gaps[name] = StepGap(float((k - ref[name]).abs().max()),
+                             float((p - ref[name]).abs().max()),
+                             float((k - p).abs().max()),
+                             float((ref[name] - s64[name]).abs().max()))
+    return GlobalSolveCheck(
+        S, w.solve_path(), all(torch.equal(ck[k], ck2[k]) for k in ck), gaps,
+        dict(inputs=A, work=w, prob=prob, states=st, free=free, lam=lam))
 
 def _gs_problem(gravity, n_kf, pre_const, pose_R, pose_p, imu_info,
                 edge_valid, prior_g=None, prior_a=None):

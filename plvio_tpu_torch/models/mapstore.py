@@ -1,9 +1,11 @@
 """The struct-of-arrays map store, as far as the monocular bootstrap and
-the keyframe step's neighbourhood work touch it (port of
-plvio_tpu/models/mapstore.py: the arrays and inertial fields of
-`MapStore.__init__` :27-105, `alloc_kf` :108, `alloc_points` :117,
-`alloc_lines` :123, `update_covisibility` :140 (its numpy path :155-175),
-`covisible_kfs` :177, `remove_point` :206, `valid_kf_indices` :245, and a
+the keyframe step touch it (port of plvio_tpu/models/mapstore.py: the
+arrays and inertial fields of `MapStore.__init__` :27-105, `alloc_kf`
+:108, `alloc_points` :117, `alloc_lines` :123, `add_observations` :130,
+`update_covisibility` :140 (its numpy path :155-175), `covisible_kfs`
+:177, `remove_point` :206, `remove_line` :215, `remove_keyframe` :223,
+`valid_kf_indices` :245, `kf_chain` :248, `apply_scaled_rotation` :253,
+`recompute_body_poses` :280, `set_cam_poses_from_body` :297, and a
 minimal `Atlas` :413-435).
 
 Host-side numpy, as in the reference: fixed-capacity arrays with validity
@@ -14,7 +16,7 @@ kernels receive copies of slices.  `state.mapstore_from_numpy` /
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 
@@ -134,6 +136,15 @@ class MapStore:
         return free
 
     # ------------------------------------------------------------------
+    def add_observations(self, kf: int, feat_idx: np.ndarray,
+                         pt_idx: np.ndarray) -> None:
+        """Bind features of keyframe `kf` to map points and update the
+        covisibility."""
+        self.kf_match_pt[kf, feat_idx] = pt_idx
+        self.pt_n_obs[pt_idx] += 1
+        self.update_covisibility(kf)
+        self.change_index += 1
+
     def update_covisibility(self, kf: int) -> None:
         """Recompute the covisibility row and column of `kf` from shared
         point and line observations (the reference's numpy path; its
@@ -184,8 +195,96 @@ class MapStore:
         self.n_pt -= len(ids)
         self.change_index += 1
 
+    def remove_line(self, ids: np.ndarray) -> None:
+        ids = np.atleast_1d(ids)
+        self.ln_valid[ids] = False
+        mask = np.isin(self.kf_match_ln, ids)
+        self.kf_match_ln[mask] = INVALID
+        self.n_ln -= len(ids)
+        self.change_index += 1
+
+    def remove_keyframe(self, kf: int) -> None:
+        """Remove a keyframe: its observations, its covisibility, and its
+        place in the temporal chain (prev <-> next rewired)."""
+        pts = self.kf_match_pt[kf]
+        good = pts >= 0
+        self.pt_n_obs[pts[good]] -= 1
+        lns = self.kf_match_ln[kf]
+        self.ln_n_obs[lns[lns >= 0]] -= 1
+        self.kf_match_pt[kf] = INVALID
+        self.kf_match_ln[kf] = INVALID
+        self.kf_valid[kf] = False
+        self.kf_feat_valid[kf] = False
+        self.covis[kf] = 0
+        self.covis[:, kf] = 0
+        p, n = self.kf_prev[kf], self.kf_next[kf]
+        if p >= 0:
+            self.kf_next[p] = n
+        if n >= 0:
+            self.kf_prev[n] = p
+        self.n_kf -= 1
+        self.change_index += 1
+
     def valid_kf_indices(self) -> np.ndarray:
         return np.nonzero(self.kf_valid)[0]
+
+    def kf_chain(self) -> np.ndarray:
+        """The temporal keyframe chain, oldest to newest."""
+        kfs = self.valid_kf_indices()
+        return kfs[np.argsort(self.kf_timestamp[kfs])]
+
+    def apply_scaled_rotation(self, R_gw: np.ndarray, scale: float,
+                              Tbc: Optional[np.ndarray] = None) -> None:
+        """Re-express the whole map in a gravity-aligned, metric frame:
+        X' = s R_gw X; camera poses T_cw' = [R_cw R_gw^T | s t_cw],
+        velocities rotated and scaled, body poses recomputed from Tbc."""
+        R_gw = np.asarray(R_gw, np.float32)
+        kfs = self.valid_kf_indices()
+        R_cw = self.kf_pose_cw[kfs, :, :3]
+        t_cw = self.kf_pose_cw[kfs, :, 3]
+        self.kf_pose_cw[kfs, :, :3] = np.einsum("kij,lj->kil", R_cw, R_gw)
+        self.kf_pose_cw[kfs, :, 3] = scale * t_cw
+        self.pt_xyz[self.pt_valid] = scale * np.einsum(
+            "ij,kj->ki", R_gw, self.pt_xyz[self.pt_valid])
+        if self.ln_valid.any():
+            ep = self.ln_ep[self.ln_valid].reshape(-1, 3)
+            self.ln_ep[self.ln_valid] = (scale * np.einsum(
+                "ij,kj->ki", R_gw, ep)).reshape(-1, 6)
+        self.kf_vel[kfs] = scale * np.einsum("ij,kj->ki", R_gw,
+                                             self.kf_vel[kfs])
+        if Tbc is not None:
+            self.recompute_body_poses(Tbc)
+        self.change_index += 1
+
+    def recompute_body_poses(self, Tbc: np.ndarray) -> None:
+        """kf_pose_wb from kf_pose_cw: T_wb = T_wc T_cb, T_cb = Tbc^-1."""
+        R_bc = np.asarray(Tbc[:3, :3], np.float32)
+        t_bc = np.asarray(Tbc[:3, 3], np.float32)
+        R_cb = R_bc.T
+        t_cb = -R_cb @ t_bc
+        kfs = self.valid_kf_indices()
+        R_cw = self.kf_pose_cw[kfs, :, :3]
+        t_cw = self.kf_pose_cw[kfs, :, 3]
+        R_wc = R_cw.transpose(0, 2, 1)
+        p_wc = -np.einsum("kij,kj->ki", R_wc, t_cw)
+        R_wb = np.einsum("kij,jl->kil", R_wc, R_cb)
+        p_wb = np.einsum("kij,j->ki", R_wc, t_cb) + p_wc
+        self.kf_pose_wb[kfs, :, :3] = R_wb
+        self.kf_pose_wb[kfs, :, 3] = p_wb
+
+    def set_cam_poses_from_body(self, kfs: np.ndarray,
+                                Tbc: np.ndarray) -> None:
+        """The inverse of recompute_body_poses for the keyframes `kfs`."""
+        R_bc = np.asarray(Tbc[:3, :3], np.float32)
+        t_bc = np.asarray(Tbc[:3, 3], np.float32)
+        R_wb = self.kf_pose_wb[kfs, :, :3]
+        p_wb = self.kf_pose_wb[kfs, :, 3]
+        R_wc = np.einsum("kij,jl->kil", R_wb, R_bc)
+        p_wc = np.einsum("kij,j->ki", R_wb, t_bc) + p_wb
+        R_cw = R_wc.transpose(0, 2, 1)
+        t_cw = -np.einsum("kij,kj->ki", R_cw, p_wc)
+        self.kf_pose_cw[kfs, :, :3] = R_cw
+        self.kf_pose_cw[kfs, :, 3] = t_cw
 
 
 @dataclass

@@ -1,8 +1,8 @@
 """Where the time of the two tracked frames, the mapping step, the
-inertial back end and the keyframe step's neighbourhood work goes, on one
-CUDA card.
+inertial back end, the keyframe step's neighbourhood work and the whole
+keyframe step over a keyframe sequence goes, on one CUDA card.
 
-    python3 -m plvio_tpu_torch.profile_frames
+    python3 -m plvio_tpu_torch.profile_frames [sequence]
 
 Builds the synthetic inputs of `chip_smoke.py` (EuRoC geometry: 480x752,
 1000 ORB features, 256 line features, 2048 map points, 128 map lines; 16
@@ -30,7 +30,11 @@ device time as the stages.  The keyframe step's neighbourhood work
 (`neighborhood_step`, both maps of `inputs.build_keyframe_map`, 2 steps a
 pass, each on a fresh copy of the map made before the pass) gets them per
 step, with the stages create_new_lines, search_in_neighbors and local_ba
-and the step's host syncs (device-to-host reads).
+and the step's host syncs (device-to-host reads).  The keyframe sequence
+(`keyframe_sequence`, production's sizes) gets wall ms, device busy ms,
+idle share and host syncs per step, split by the step's BA path (lba,
+liba, liba_half, viba), and the device kernels with the most time;
+`sequence` as the argument runs that part alone.
 
 Prints the card's `nvidia-smi` name and power limit first.  Needs one
 card; JAX is never imported.
@@ -206,6 +210,75 @@ def profile(name, step, run, n_frames: int, spans=stage_spans,
     print(f"   stage host enqueue ms/{unit}: {host}")
 
 
+def step_path(st) -> str:
+    """A keyframe step's BA path: "viba" when it ran a full-map solve,
+    else its window solve's ("lba", "liba", "liba_half")."""
+    paths = [b[0] for b in st.ba]
+    return "viba" if "viba" in paths else (paths[0] if paths else "none")
+
+
+def profile_sequence(dev):
+    """The keyframe sequence at production's sizes: a warm-up run, one run
+    for the wall ms and host syncs of each step (`process_keyframe`
+    between host clocks, synchronized), one under `torch.profiler` with
+    each step in a `record_function` range, its device busy ms the
+    device events that start inside the range; split by the step's BA
+    path."""
+    step, seq = E.keyframe_sequence(device=dev)
+    with torch.no_grad():
+        step(seq)
+        out = step(seq)
+    from .models.local_mapping import LocalMapper
+    inner = LocalMapper.process_keyframe
+
+    def ranged(self, kf, protect=()):
+        with torch.profiler.record_function("seq step"):
+            res = inner(self, kf, protect)
+            torch.cuda.synchronize()
+        return res
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    LocalMapper.process_keyframe = ranged
+    try:
+        with torch.no_grad(), torch.profiler.profile(activities=acts) as prof:
+            out_p = step(seq)
+    finally:
+        LocalMapper.process_keyframe = inner
+    cuda_t = torch.autograd.DeviceType.CUDA
+    evts = prof.events()
+    # the range's CPU event (the profiler also marks it on the device)
+    ranges = sorted((e.time_range.start, e.time_range.end) for e in evts
+                    if e.name == "seq step" and e.device_type != cuda_t)
+    dev_ev = [(e.time_range.start, e.time_range.end - e.time_range.start,
+               e.name) for e in evts
+              if e.device_type == cuda_t and e.name != "seq step"]
+    busy = [sum(d for t, d, _ in dev_ev if a <= t <= b) / 1e3
+            for a, b in ranges]
+    rows = defaultdict(list)
+    for st, stp, b in zip(out.steps, out_p.steps, busy):
+        rows[step_path(stp)].append((st.ms, b, st.host_syncs))
+    print(f"== keyframe sequence ({len(out.steps)} steps, production's "
+          f"sizes; {len(ranges)} profiled steps): per step by BA path")
+    for path, r in sorted(rows.items()):
+        r = np.array(r)
+        wall, dbusy = r[:, 0].mean(), r[:, 1].mean()
+        print(f"   {path:10s} steps {len(r):3d} wall {wall:8.3f} ms/step "
+              f"device busy {dbusy:8.3f} ms/step idle share "
+              f"{1 - dbusy / wall:6.1%} host syncs {r[:, 2].mean():6.1f}/step")
+    tot = np.array([x for r in rows.values() for x in r])
+    print(f"   all        steps {len(tot):3d} wall {tot[:, 0].mean():8.3f} "
+          f"ms/step device busy {tot[:, 1].mean():8.3f} ms/step idle share "
+          f"{1 - tot[:, 1].sum() / tot[:, 0].sum():6.1%}")
+    per = defaultdict(lambda: [0, 0.0])
+    for _, d, name in dev_ev:
+        per[name][0] += 1
+        per[name][1] += d / 1e3
+    n = len(out_p.steps)
+    for name, (c, ms) in sorted(per.items(), key=lambda kv: -kv[1][1])[:12]:
+        print(f"   {name[:70]:70s} n/step {c / n:6.1f} dev ms/step "
+              f"{ms / n:.4f}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("profile_frames: no CUDA device", file=sys.stderr)
@@ -214,6 +287,9 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip().splitlines()[0])
+    if sys.argv[1:] == ["sequence"]:
+        profile_sequence(dev)
+        return 0
     (frames, poses, pt_xyz, pt_desc, pt_valid, ln_ep6, ln_desc, ln_valid,
      traj) = build_inputs(N_FRAMES, CAP_PTS, CAP_LNS, H, W,
                           n_features=N_FEAT, device=dev)
@@ -298,6 +374,7 @@ def main() -> int:
         profile(f"neighbourhood step, {name} map ({N_NBH} steps)", ns,
                 run_nbh, N_NBH, spans=neighborhood_spans, unit="step")
         print(f"   host syncs per step: {syncs}")
+    profile_sequence(dev)
     return 0
 
 

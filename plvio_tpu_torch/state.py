@@ -1,5 +1,6 @@
 """Carry what the JAX package holds (the map, a pose, the inertial
-window's state, a keyframe map store) over to the port."""
+window's state, a keyframe map store, the local mapper's host state) over
+to the port."""
 from __future__ import annotations
 
 from typing import Dict
@@ -108,6 +109,42 @@ def mapstore_from_numpy(arrays: Dict[str, np.ndarray]) -> MS.MapStore:
     m.kf_imu_raw = {int(kf): tuple(np.array(a, np.float32) for a in raw)
                     for kf, raw in arrays.get("kf_imu_raw", {}).items()}
     return m
+
+
+def mapper_state(mapper) -> dict:
+    """The local mapper's host state between keyframes (the port's or the
+    JAX package's `LocalMapper`): the culling batches `recent_pts` /
+    `recent_lns` (lists of id arrays), `_kf_since_init`, the full-map
+    pulse state `_viba` ({map_id: {"t0", "last", "v2", "pulse_blocks"}}),
+    the pending map transform (R_gw [3,3], scale) or None and the last
+    gravity fixes `_last_gfix` ({map_id: time}); copies."""
+    pt = mapper.pending_transform
+    return dict(
+        recent_pts=[np.array(b) for b in mapper.recent_pts],
+        recent_lns=[np.array(b) for b in getattr(mapper, "recent_lns", [])],
+        kf_since_init=int(getattr(mapper, "_kf_since_init", 0)),
+        viba={int(k): {f: (list(v) if isinstance(v, list) else v)
+                       for f, v in st.items()}
+              for k, st in getattr(mapper, "_viba", {}).items()},
+        pending_transform=None if pt is None else
+        (np.array(pt[0], np.float32), float(pt[1])),
+        last_gfix={int(k): float(v)
+                   for k, v in getattr(mapper, "_last_gfix", {}).items()})
+
+
+def load_mapper_state(mapper, st: dict) -> None:
+    """Set a local mapper's host state from `mapper_state`'s dict (taken
+    from either package's mapper)."""
+    mapper.recent_pts = [np.array(b) for b in st["recent_pts"]]
+    mapper.recent_lns = [np.array(b) for b in st["recent_lns"]]
+    mapper._kf_since_init = int(st["kf_since_init"])
+    mapper._viba = {int(k): {f: (list(v) if isinstance(v, list) else v)
+                             for f, v in s.items()}
+                    for k, s in st["viba"].items()}
+    pt = st["pending_transform"]
+    mapper.pending_transform = None if pt is None else \
+        (np.array(pt[0], np.float32), float(pt[1]))
+    mapper._last_gfix = dict(st["last_gfix"])
 
 
 _INERTIAL_FLOAT = ("pose_wb", "vel", "bias_g", "bias_a", "imu_info",

@@ -1,4 +1,5 @@
-"""The nineteen CUDA kernels against their plain PyTorch versions on the card.
+"""The nineteen CUDA kernels against their plain PyTorch versions on the card
+(and schur_solve's global path, and a short keyframe sequence).
 
 Marked `cuda`; each test skips without a CUDA device.  This file imports
 no JAX, so it also runs on a GPU machine without JAX, where the suite's
@@ -1101,3 +1102,61 @@ def test_bootstrap_step_kernel_path_matches_float64(dev):
           f"homography {oc.used_homography}, matches {oc.init_matches}, "
           f"triangulated {oc.n_triangulated}, points {oc.points}, lines "
           f"{oc.lines}")
+
+
+# -- slice 7: schur_solve's global path (S beyond one block) ------------------
+
+@pytest.mark.parametrize("kind,n_kf", [("inertial", 23), ("inertial", 64),
+                                       ("points", 128)])
+def test_schur_solve_global_path(dev, kind, n_kf):
+    """The reduced solve beyond one block (S = 345 and 960 for the 15-DoF
+    window, 768 for the point-only one): one Schur step from the
+    perturbed start held by `KN.global_solve_against_float64`'s rule
+    (the global path taken, the same bits on a second launch, each state
+    within 2x the card's plain float32 step's distance to float64 and no
+    farther from that step than it lies from float64, the pose within a
+    quarter of the float64 step of it)."""
+    got = KN.global_solve_against_float64(kind, n_kf, dev)
+    print(f"{kind} {n_kf} KF (S = {got.S}), kernel / plain from float64, "
+          f"kernel - plain: {got.summary()}")
+    assert not got.failures(), got.failures()
+
+
+def test_keyframe_sequence_kernel_path_matches_cpu(dev):
+    """A short keyframe sequence (17 keyframes of 256 features, the
+    reduced store and windows of tests/test_torch_keyframe_step.py) on the
+    kernel path against the plain path in float32 on the CPU: the IMU
+    initializes at the same keyframe, keyframes, points and lines alive at
+    the end within 5%, the final scale against the truth and the Sim3 ATE
+    within 2x the CPU run's error plus 2 mm, and every kernel of the step
+    launched."""
+    from plvio_tpu_torch.entry import keyframe_sequence
+    from plvio_tpu_torch.ops import imu as IMU
+    kw = dict(store=dict(max_kf=16, max_pts=4096, max_lines=1024),
+              caps=dict(ba_kf_cap=16, ba_pt_cap=1024, ba_obs_cap=2048),
+              viba_caps=dict(viba_kf_cap=32, viba_pt_cap=1024,
+                             viba_obs_cap=2048, viba_ln_cap=128,
+                             viba_lobs_cap=256),
+              seq_kw=dict(n_kf=17, n_feat=256))
+    kern = (M.HAMMING_MATCH, M.ROT_HIST, KN.TRIANGULATE,
+            KN.LINE_TRIANGULATE, KN.PROJ_MATCH, KN.BA_LINEARIZE,
+            KN.SCHUR_SOLVE, KN.INERTIAL_CHAIN, KN.INERTIAL_GS_LM,
+            IMU.IMU_PREINT)
+    n0 = [k.launches for k in kern]
+    step, seq = keyframe_sequence(device=dev, **kw)
+    with torch.no_grad():
+        ok_ = step(seq)
+    torch.cuda.synchronize()
+    assert all(k.launches > n for k, n in zip(kern, n0))
+    cpu, seq_c = keyframe_sequence(device="cpu", **kw)
+    oc = cpu(seq_c)
+    print(f"kernel: init {ok_.init_kf} kf {ok_.map.n_kf} pts {ok_.map.n_pt} "
+          f"lines {ok_.map.n_ln} scale {ok_.scale:.4f} ate {ok_.ate_sim3:.4f};"
+          f" CPU: init {oc.init_kf} kf {oc.map.n_kf} pts {oc.map.n_pt} lines "
+          f"{oc.map.n_ln} scale {oc.scale:.4f} ate {oc.ate_sim3:.4f}")
+    assert ok_.init_kf == oc.init_kf == 13
+    for a, b in ((ok_.map.n_kf, oc.map.n_kf), (ok_.map.n_pt, oc.map.n_pt),
+                 (ok_.map.n_ln, oc.map.n_ln)):
+        assert abs(a - b) <= 0.05 * b, (a, b)
+    assert abs(ok_.scale - 1) <= 2 * abs(oc.scale - 1) + 2e-3
+    assert ok_.ate_sim3 <= 2 * oc.ate_sim3 + 2e-3

@@ -139,7 +139,8 @@ def test_entry_points_default_to_the_card(name):
 def test_port_never_loads_jax():
     """The port, chip_smoke.py, the profile and the kernel digest load
     neither JAX nor the JAX package while driving every entry point on the
-    CPU."""
+    CPU (the keyframe sequence at a reduced size: 15 keyframes of 128
+    features, through IMU init and the first inertial window)."""
     code = (
         "import sys\n"
         "import torch\n"
@@ -186,6 +187,14 @@ def test_port_never_loads_jax():
         "bs, BB = bootstrap_step(device='cpu')\n"
         "bo = bs(BB)\n"
         "assert bo.init_frame >= 1 and bo.points >= 60 and bo.lines > 0\n"
+        "from plvio_tpu_torch.entry import keyframe_sequence\n"
+        "ks, S = keyframe_sequence(device='cpu', store=dict(max_kf=16, "
+        "max_pts=2048, max_lines=512), caps=dict(ba_kf_cap=16, "
+        "ba_pt_cap=512, ba_obs_cap=1024), seq_kw=dict(n_kf=15, "
+        "n_feat=128))\n"
+        "so = ks(S)\n"
+        "assert so.init_kf == 13 and so.map.imu_initialized\n"
+        "assert [c[0] for c in so.steps[-2].ba] == ['liba', 'liba']\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'plvio_tpu'))\n"
         "assert not bad, bad\n"
