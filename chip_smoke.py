@@ -8,12 +8,13 @@ features, 256 line features, 2048 map points, 128 map lines), its
 keyframe mapping step at both window sizes of the reference's benchmark
 (16 KF x 4096 points x 8192 observations + 512 lines x 1024 observations,
 and 2048 / 4096 / 256 / 512), the inertial back end, the keyframe step's
-neighbourhood work and the monocular bootstrap through their user entry
-points, and fails (nonzero exit, no result line) unless every phase
-passes:
+neighbourhood work, the monocular bootstrap, the whole keyframe step and
+the tracked sequence (180 rendered frames through the front ends, the
+tracker and the keyframe step) through their user entry points, and
+fails (nonzero exit, no result line) unless every phase passes:
 
 1. the card is there (prints `nvidia-smi` name and power limit);
-2. the nineteen CUDA kernels build from `plvio_tpu_torch/csrc` (18
+2. the twenty-one CUDA kernels build from `plvio_tpu_torch/csrc` (19
    sources: nvcc, sm_90a, one nvcc per source, all started together);
 3. each kernel agrees with its plain PyTorch version on the card at the
    paths' shapes (the mapping kernels also on a perturbed window at the
@@ -26,7 +27,9 @@ passes:
    keypoints and line endpoints, the two-view kernels on the five cases
    of `inputs.build_twoview_cases` at 200 matches and the general one at
    1000, held to the plain version in float64 on the same samples, and
-   `imu_preint` on a 128-sample keyframe window);
+   `imu_preint` on a 128-sample keyframe window; slice 8's `pyramid` at
+   every ORB level, chained and from the plain level above, and its line
+   level, on the 16 frames, within 1e-4 grey levels);
 4. slice 1, `tracking_step_pl`: 16 synthetic frames with the pose carried,
    >= 80 inliers, camera centre <= 10 mm and rotation <= 0.3 deg from
    ground truth on every frame, every kernel of the path launched; the
@@ -72,7 +75,21 @@ passes:
    of the path launched (PATH_BOOT; `undistort` not, as the renders have
    no distortion); then, as a path of its own, the EuRoC-raw case (raw
    cam0 pixels) through `undistort_pixels` and `reconstruct_two_views`,
-   every kernel of it launched (PATH_RAW); ms per attempt on both paths.
+   every kernel of it launched (PATH_RAW); ms per attempt on both paths;
+11. slice 7, `keyframe_sequence`, held to REF_SEQ;
+12. slice 8, `tracked_sequence`: the 180 frames of
+   `inputs.build_tracked_sequence` at production's sizes, held to the
+   JAX package's run on the CPU (REF_TRACK below: frames tracked >= its
+   fewest - 2, the IMU initialized within 2 keyframes of its, keyframes,
+   points and lines within 10%, the init scale's, the final scale's, the
+   gravity's and the ATE's errors within 2x its worst over five RANSAC
+   keys, REF_BOOT's rule), every kernel of the
+   path launched, the pyramid 7 + 1 launches a frame; wall ms and host
+   syncs a frame for the bootstrap, tracked and keyframe frames.
+
+`library_ms` is one PyTorch call computing the same function where
+there is one (the pyramid's: 7 antialiased bilinear `F.interpolate`, its
+own weights; the line level's: `avg_pool2d`), else null.
 
 Each kernel's least time on the card (`bound_ms`) is the larger of its
 bytes (inputs read once, outputs written once) over 3.35 TB/s and its
@@ -102,8 +119,8 @@ from plvio_tpu_torch.entry import (K_EUROC, LIBA_HALF, LIBA_WORST,
                                    inertial_ba_step, keyframe_sequence,
                                    mapping_step,
                                    neighborhood_step, point_projection_match,
-                                   project_points, tracking_step_pl,
-                                   tracking_step_vi)
+                                   project_points, tracked_sequence,
+                                   tracking_step_pl, tracking_step_vi)
 from plvio_tpu_torch.inputs import (TWOVIEW_CASES, build_imu_windows,
                                     build_inputs, build_keyframe_map,
                                     build_twoview_cases, perturb_window)
@@ -144,6 +161,8 @@ KERNELS = {
     "twoview_hypotheses": (TV.TWOVIEW_HYPOTHESES,
                            "plvio_tpu/ops/twoview.py:290"),
     "twoview_recover": (TV.TWOVIEW_RECOVER, "plvio_tpu/ops/twoview.py:296"),
+    "pyramid": (FE.PYRAMID, "plvio_tpu/ops/frontend.py:98"),
+    "pyramid_line": (FE.PYRAMID_LINE, "plvio_tpu/ops/lines.py:737"),
 }
 # schur_solve's launches whose reduced system exceeds one block (its
 # global path, counted in KN.SCHUR_SOLVE.global_launches), and the TPU
@@ -163,6 +182,12 @@ PATH_BOOT = ("orb_fast_grid", "orb_describe", "hamming_match", "rot_hist",
              "line_detect", "line_refine_lbd", "twoview_hypotheses",
              "twoview_recover", "line_triangulate", "imu_preint")
 PATH_RAW = ("undistort", "twoview_hypotheses", "twoview_recover")
+PATH_TRACK = ("pyramid", "pyramid_line", "orb_fast_grid", "orb_describe",
+              "line_detect", "line_refine_lbd", "hamming_match", "rot_hist",
+              "twoview_hypotheses", "twoview_recover", "line_triangulate",
+              "imu_preint", "proj_match", "pose_irls", "vi_pose_lm",
+              "triangulate", "ba_linearize", "schur_solve",
+              "inertial_chain", "inertial_gs_lm")
 PATH_SEQ = ("hamming_match", "rot_hist", "triangulate", "line_triangulate",
             "proj_match", "ba_linearize", "schur_solve", "inertial_chain",
             "inertial_gs_lm", "imu_preint", "schur_solve_global")
@@ -180,6 +205,33 @@ REF_SEQ = {"init_kf": 13, "init_scale": 1.7033237218856812,
            "gravity_err_deg": 0.0451966042240831, "viba_solves": 1,
            "viba_window": 26, "ate_sim3": 0.004874773026713829,
            "ate_se3": 0.012946194053327333}
+# tests/test_torch_tracked_sequence.py's JAX package over
+# build_tracked_sequence(0) (scripts/run_synthetic_vi.py's 180 frames) at
+# full width on the CPU, its own front end, production's caps, no keyframe
+# database, with the RANSAC key 0: frames with a pose (and the fewest over
+# the keys 0..4), the bootstrap frame, the keyframes made when the IMU
+# initialized and its frame, the scale it applied and the trajectory's
+# scale the frame before, the final trajectory scale, the gravity error
+# (deg) at the last frame, keyframes, points and lines at the end, the
+# ATE RMSE (m) over every tracked frame; and each error against the
+# truth at its worst over the keys 0..4 (`_worst`: the IMU init's scale
+# error |init_scale x pre_init_scale - 1|, the final scale's |scale - 1|,
+# gravity, ATE), as REF_BOOT's rule holds the card, which draws its own
+# RANSAC samples; printed by
+# `JAX_PLATFORMS=cpu PYTHONPATH=. python3 tests/test_torch_tracked_sequence.py`
+REF_TRACK = {"n_frames": 180, "n_tracked": 178, "n_tracked_min": 178,
+             "init_frame": 2, "imu_init_kf": 10, "imu_init_frame": 41,
+             "init_scale": 1.9935938119888306,
+             "pre_init_scale": 0.424464417560102,
+             "scale": 0.9572593560990982,
+             "gravity_err_deg": 0.27519892413438296, "keyframes": 51,
+             "points": 6622, "lines": 26, "ate_sim3": 0.01783909232166533,
+             "ate_se3": 0.02993225677915693,
+             "init_scale_err_worst": 0.22953015813895083,
+             "scale_err_worst": 0.12024451265424752,
+             "gravity_err_deg_worst": 0.731032035986275,
+             "ate_sim3_worst": 0.024866913032282948,
+             "ate_se3_worst": 0.07098224984586711}
 # tests/test_torch_bootstrap.py's JAX tracker on build_bootstrap_inputs(0)
 # (the port's CPU front end's features): the initializing frame, attempts,
 # model, init matches, triangulated matches, points and lines with the
@@ -1639,6 +1691,71 @@ def twoview_against_f64(name, n, uv1, uv2, valid, idx_h, idx_f):
     return g.out, g.info, g.gaps
 
 
+def library_pyramid(img, specs):
+    """The pyramid's levels by PyTorch's antialiased bilinear resize, its
+    own weights: the library yardstick of the `pyramid` kernel (the port
+    never calls it)."""
+    out = [img]
+    for spec in specs[1:]:
+        out.append(torch.nn.functional.interpolate(
+            out[-1][None, None], size=(spec.height, spec.width),
+            mode="bilinear", align_corners=False, antialias=True)[0, 0])
+    return out
+
+
+def check_pyramid_kernels(imgs, report):
+    """The `pyramid` kernels against their plain versions on the rendered
+    frames: the 7 ORB levels chained as the front end runs them, each
+    level also from the plain level above, and the line level; then their
+    times beside the plain versions and the library calls (7 antialiased
+    bilinear resizes; one 2x2 average pool)."""
+    specs = FE.make_level_specs(H, W, N_FEAT)
+    e_chain = e_level = e_line = 0.0
+    with torch.no_grad():
+        for img in imgs:
+            pk = FE.build_pyramid(img, specs)
+            pp = FE.build_pyramid_plain(img, specs)
+            e_chain = max(e_chain, *(float((a - b).abs().max())
+                                     for a, b in zip(pk, pp)))
+            for lv in range(1, len(specs)):
+                one = FE.pyramid_level(pp[lv - 1], specs[lv].height,
+                                       specs[lv].width)
+                e_level = max(e_level, float((one - pp[lv]).abs().max()))
+            e_line = max(e_line, float((FE.line_level(img)
+                                        - FE.line_level_plain(img)).abs()
+                                       .max()))
+    check(e_chain <= 1e-4 and e_level <= 1e-4,
+          f"pyramid on {len(imgs)} rendered frames: every level within "
+          f"{e_chain:.2e} (chained) and {e_level:.2e} (from the plain level "
+          "above) of the plain version (<= 1e-4 grey levels)")
+    check(e_line <= 1e-4, f"pyramid_line: the line level within "
+          f"{e_line:.2e} of the plain version (<= 1e-4)")
+    img = imgs[1]
+    # bytes: each level reads the one above and writes itself; operations:
+    # a multiply and an add per nonzero weight, over the rows (each output
+    # row's taps at every input column), then the columns
+    nb, ops, prev = 0, 0, (H, W)
+    for sp in specs[1:]:
+        nb += 4 * (prev[0] * prev[1] + sp.height * sp.width)
+        wy = FE.resize_weights(prev[0], sp.height, "cpu")
+        wx = FE.resize_weights(prev[1], sp.width, "cpu")
+        ops += 2 * (int((wy != 0).sum()) * prev[1]
+                    + int((wx != 0).sum()) * sp.height)
+        prev = (sp.height, sp.width)
+    report["pyramid"] = dict(
+        **work(nb, ops), max_abs_err=max(e_chain, e_level),
+        ms=cuda_ms(lambda: FE.build_pyramid(img, specs)),
+        plain_ms=cuda_ms(lambda: FE.build_pyramid_plain(img, specs)),
+        library_ms=cuda_ms(lambda: library_pyramid(img, specs)))
+    h2, w2 = H // 2, W // 2
+    report["pyramid_line"] = dict(
+        **work(4 * (4 * h2 * w2 + h2 * w2), 4 * h2 * w2), max_abs_err=e_line,
+        ms=cuda_ms(lambda: FE.line_level(img)),
+        plain_ms=cuda_ms(lambda: FE.line_level_plain(img)),
+        library_ms=cuda_ms(lambda: torch.nn.functional.avg_pool2d(
+            img[None, None], 2)))
+
+
 def check_boot_kernels(imgs, orb, lines, report):
     """The kernels of slice 6 against their plain versions: `undistort` at
     EuRoC's coefficients on the 16 frames' keypoints and segment endpoints
@@ -2335,6 +2452,89 @@ def run_slice7(dev, smi):
     return launches
 
 
+def run_slice8(dev, smi):
+    """Phase 12: the tracked sequence (`tracked_sequence`, 180 rendered
+    frames at production's sizes) in its own launch window, held to
+    REF_TRACK.  Returns its launches."""
+    print("[12] slice 8: tracked_sequence, 180 rendered frames through the "
+          "frame prelude, the tracker and the keyframe step")
+    step, S = tracked_sequence(device=dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        out = step(S)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    fr = out.frames
+    boot = fr[:out.init_frame + 1]
+    trk = [f for f in fr[out.init_frame + 1:] if f.tracked and not f.keyframe]
+    kfs = [f for f in fr[out.init_frame + 1:] if f.keyframe]
+    got = dict(n_tracked=out.n_tracked, init_frame=out.init_frame,
+               imu_init_kf=out.imu_init_kf,
+               imu_init_frame=out.imu_init_frame, init_scale=out.init_scale,
+               pre_init_scale=out.pre_init_scale, scale=out.scale,
+               gravity_err_deg=out.gravity_err_deg, keyframes=out.keyframes,
+               points=out.points, lines=out.lines, ate_sim3=out.ate_sim3,
+               ate_se3=out.ate_se3, maps=len(out.tracker.atlas.maps))
+    print(f"  launches: {launches}")
+    print(f"  kernel path: {got}; reference {REF_TRACK}")
+    print(f"  inliers per tracked frame: {[f.inliers for f in fr]}")
+    print(f"  states per frame: {[f.state for f in fr]}")
+    for what, fs in (("bootstrap frames", boot), ("tracked frames", trk),
+                     ("keyframe frames", kfs)):
+        ms = [f.ms for f in fs]
+        print(f"  {what}: {len(fs)}, {np.mean(ms):.2f} ms a frame (wall; "
+              f"median {np.median(ms):.2f}, max {max(ms):.2f}), "
+              f"{np.mean([f.host_syncs for f in fs]):.1f} host syncs a "
+              f"frame, on {smi}")
+    print(f"  the sequence: {len(fr)} frames in {wall:.1f} s "
+          f"({len(fr) / wall:.1f} frames/s), on {smi}")
+    ref = REF_TRACK
+    m = out.map
+    check(all(np.isfinite(a[m.kf_valid]).all() for a in (
+        m.kf_pose_cw, m.kf_vel, m.kf_bias_g, m.kf_bias_a))
+          and np.isfinite(m.pt_xyz[m.pt_valid]).all(),
+          "keyframe states and map points finite")
+    check(all(launches[k] > 0 for k in PATH_TRACK),
+          f"every kernel of the tracked sequence launched "
+          f"({', '.join(PATH_TRACK)})")
+    check(launches["pyramid"] == 7 * len(fr)
+          and launches["pyramid_line"] == len(fr),
+          f"the pyramid: 7 level launches and 1 line level a frame "
+          f"({launches['pyramid']} / {launches['pyramid_line']} over "
+          f"{len(fr)} frames)")
+    check(got["n_tracked"] >= ref["n_tracked_min"] - 2,
+          f"{got['n_tracked']} frames tracked >= the reference's "
+          f"{ref['n_tracked_min']} - 2 (the fewest over its RANSAC keys)")
+    check(abs(got["imu_init_kf"] - ref["imu_init_kf"]) <= 2
+          and got["imu_init_kf"] > 0,
+          f"the IMU initialized at keyframe {got['imu_init_kf']} (frame "
+          f"{got['imu_init_frame']}), within 2 of the reference's "
+          f"{ref['imu_init_kf']} (frame {ref['imu_init_frame']})")
+    check(all(abs(got[k] - ref[k]) <= 0.1 * ref[k]
+              for k in ("keyframes", "points", "lines")),
+          f"keyframes {got['keyframes']}, points {got['points']}, lines "
+          f"{got['lines']} within 10% of the reference's {ref['keyframes']}"
+          f" / {ref['points']} / {ref['lines']}")
+    errs = dict(init_scale_err=abs(got["init_scale"] * got["pre_init_scale"]
+                                   - 1),
+                scale_err=abs(got["scale"] - 1),
+                gravity_err_deg=got["gravity_err_deg"],
+                ate_sim3=got["ate_sim3"], ate_se3=got["ate_se3"])
+    print(f"  errors against the truth: {errs}")
+    for k, what in (("init_scale_err", "the IMU init's scale error "
+                     "|init_scale x pre_init_scale - 1|"),
+                    ("scale_err", "the final scale error |scale - 1|"),
+                    ("gravity_err_deg", "the gravity error (deg)"),
+                    ("ate_sim3", "the Sim3 ATE (m)"),
+                    ("ate_se3", "the SE3 ATE (m)")):
+        worst = ref[k + "_worst"]
+        check(errs[k] <= 2 * worst, f"{what} {errs[k]:.4f} <= 2x the "
+              f"reference's worst over its RANSAC keys ({worst:.4f})")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2388,6 +2588,7 @@ def main():
     check_nbh_kernels(report)
     check_boot_kernels(imgs, step.orb, step.lines, report)
     check_global_kernels(report)
+    check_pyramid_kernels(imgs, report)
 
     print(f"[4] slice 1: {N_FRAMES} frames through tracking_step_pl, pose "
           "carried")
@@ -2513,23 +2714,28 @@ def main():
     launches_nbh = run_slice5(dev, smi, report)
     launches_boot = run_slice6(dev, smi, report)
     launches_seq = run_slice7(dev, smi)
+    launches_track = run_slice8(dev, smi)
 
     rows = []
     for name, (k, replaces) in [*KERNELS.items(),
                                 (GLOBAL[0], (KN.SCHUR_SOLVE, GLOBAL[1]))]:
         rep = report[name]
+        lib = rep.get("library_ms")
         print(f"  {name}: {rep['ms']:.4f} ms, plain {rep['plain_ms']:.4f} ms,"
               f" bound {rep['bound_ms']:.6f} ms ({rep['bound_by']}: "
-              f"{rep['bytes']} B, {rep['ops']} ops), on {smi}")
+              f"{rep['bytes']} B, {rep['ops']} ops)"
+              + ("" if lib is None else f", library {lib:.4f} ms")
+              + f", on {smi}")
         rows.append(dict(name=name, route="cuda", source=k.source,
                          replaces=replaces,
                          launches=launches_pl[name] + launches_vi[name]
                          + launches_map[name] + launches_liba[name]
                          + launches_nbh[name] + launches_boot[name]
-                         + launches_seq[name],
+                         + launches_seq[name] + launches_track[name],
                          max_abs_err=rep["max_abs_err"], ms=rep["ms"],
                          plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"],
-                         bound_by=rep["bound_by"], library_ms=None))
+                         bound_by=rep["bound_by"],
+                         library_ms=rep.get("library_ms")))
     for key, what in ((GLOBAL[0], "64 KF inertial window with lines"),
                       (GLOBAL[0] + "_128", "128 KF point-only window")):
         rep = report[key]

@@ -52,8 +52,13 @@ class SlamMode(IntEnum):
 
 @dataclass(frozen=True)
 class TrackingConfig:
-    """The tracking field the port reads (plvio_tpu/config.py:114-128)."""
+    """The tracking fields the port reads (plvio_tpu/config.py:114-128)."""
     lba_window: int = 10             # LocalInertialBA Nd (Optimizer.cc:9185)
+    min_matches_track: int = 15
+    min_inliers_track: int = 10      # pose-opt inliers to keep OK state
+    recently_lost_s: float = 5.0     # time_recently_lost (reference)
+    kf_min_interval: int = 0         # frames; see _need_keyframe
+    kf_max_interval: int = 20        # mMaxFrames defaults to fps
 
 
 @dataclass(frozen=True)
@@ -75,8 +80,7 @@ class CameraConfig:
 @dataclass(frozen=True)
 class SystemConfig:
     """The fields of plvio_tpu/config.py:SystemConfig (:155-170) that the
-    monocular bootstrap and the local mapper read, with the same
-    defaults."""
+    tracker and the local mapper read, with the same defaults."""
     sensor: Sensor = Sensor.MONOCULAR
     slam_mode: SlamMode = SlamMode.POINT_LINE
     camera: CameraConfig = field(default_factory=CameraConfig)

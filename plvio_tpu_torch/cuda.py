@@ -127,13 +127,15 @@ class Kernel:
             self._fn, self._err = fn, err
         return self._fn
 
-    def launch(self, *args) -> None:
+    def launch(self, *args, kernels: int = 1) -> None:
+        """Call the entry point, which launches `kernels` kernels (one
+        unless it launches several in a row: each counts)."""
         fn = self._load()
         rc = fn(*args)
         if rc != 0:
             raise RuntimeError(f"{self.name}: CUDA error {rc}: "
                                f"{self._err(rc).decode()}")
-        self.launches += 1
+        self.launches += kernels
 
 
 def resolve_device(device="cuda") -> torch.device:

@@ -38,6 +38,15 @@ keyframe_sequence(...) -> (step, sequence): the whole keyframe step
                          (~8.7 s of the room orbit from a two-keyframe
                          map), the tracker's keyframe insertion stood in
                          by `inputs.insert_keyframe`
+tracked_sequence(...) -> (step, frames): the mono-inertial main path
+                         over the rendered frames of
+                         scripts/run_synthetic_vi.py, each through the
+                         frame prelude
+                         (`models/system.py:160-169`), the `Tracker`
+                         (`process_frame`, models/tracking.py:236-366) and
+                         the keyframe glue (`_drain_keyframes`,
+                         models/system.py:325-388) to a gravity-aligned
+                         metric map
 entry(device)         -> tracking_step_pl at EuRoC geometry on `device`
 
 Every entry point runs on the card unless the caller passes
@@ -796,3 +805,181 @@ def keyframe_sequence(seed: int = 0, device="cuda", plain: bool = False,
     dev = resolve_device(device)
     seq = build_keyframe_sequence(seed, **kw.pop("seq_kw", {}))
     return KeyframeSequence(plain=plain, device=dev, **kw), seq
+
+
+class TrackedFrame(NamedTuple):
+    state: int                 # TrackState after the frame
+    tracked: bool              # process_frame returned a pose
+    inliers: int               # the pose optimization's inliers (0 untracked)
+    matched: int               # projection matches of the frame
+    keyframe: bool             # the frame made a keyframe (or the map)
+    ms: float                  # wall ms: upload, front end, tracker, mapping
+    host_syncs: int            # device-to-host reads of tracker and mapper
+
+
+class TrackedSequenceOut(NamedTuple):
+    frames: list               # TrackedFrame per frame
+    n_tracked: int             # frames with a pose
+    init_frame: int            # the frame that bootstrapped the map, or -1
+    imu_init_kf: int           # keyframes made when the IMU initialized, or -1
+    imu_init_frame: int        # the frame at which it initialized, or -1
+    init_scale: float          # the scale IMU init applied (0 if none)
+    pre_init_scale: float      # the trajectory's scale the frame before
+    scale: float               # the trajectory's scale against the truth
+    gravity_err_deg: float     # the map's gravity direction, last frame
+    keyframes: int             # keyframes, points and lines alive at the end
+    points: int
+    lines: int
+    ate_sim3: float            # ATE RMSE (m) over every tracked frame
+    ate_se3: float
+    map: object                # the port's MapStore
+    tracker: object            # the port's Tracker
+    mapper: object             # the port's LocalMapper
+
+
+class TrackedSequence(nn.Module):
+    """The mono-inertial main path from rendered frames to a gravity-aligned
+    metric map, as `System.track_monocular` runs it with synchronous
+    mapping and no keyframe database (scripts/run_synthetic_vi.py): each
+    frame uploaded, through the frame prelude (ORB with the `pyramid`
+    kernel, the 2-level line front end), `Tracker.process_frame` (the
+    bootstrap, then tracking against the local map, the keyframe
+    decision) and the keyframe glue (`models/system.drain_keyframes`:
+    `LocalMapper.process_keyframe` for every new keyframe, then the IMU
+    init's transform).
+
+    IMU_MONOCULAR with lines, EuRoC K without distortion, the body frame
+    the camera's (`mapper_config(..., identity_tbc=True)`), 1000 ORB and
+    256 line features at 752x480, production's store (512 KF / 16384
+    points / 2048 lines) and caps unless given: `store`, `caps` (the
+    LocalMapper's), `viba_caps`, `n_features`, `local_pts_cap`.  The
+    bootstrap's RANSAC samples come from `sampler` where given (see
+    `models/tracking.Tracker`).  forward(S) -> TrackedSequenceOut, S the
+    dict of `inputs.build_tracked_sequence`."""
+
+    def __init__(self, plain: bool = False, device="cuda", store=None,
+                 caps=None, viba_caps=None, n_features: int = 1000,
+                 local_pts_cap: int = 2048, sampler=None,
+                 K: PinholeK = K_EUROC):
+        super().__init__()
+        from .config import Sensor
+        from .ops.cameras import make_camera
+        self.device = resolve_device(device)
+        self.plain = plain
+        self.cfg = mapper_config(Sensor.IMU_MONOCULAR, K, identity_tbc=True)
+        cam = self.cfg.camera
+        self.cam = make_camera(cam)
+        specs = make_level_specs(cam.height, cam.width, n_features)
+        self.n_feat = sum(sp.n_keep for sp in specs)
+        self.orb = OrbExtractor(specs, plain=plain)
+        self.lines = LineExtractor(256, levels=2, plain=plain)
+        self.store = {**dict(max_kf=512, max_pts=16384, max_lines=2048),
+                      **(store or {})}
+        self.caps = dict(caps or {})
+        self.viba_caps = dict(viba_caps or {})
+        self.local_pts_cap = local_pts_cap
+        self.sampler = sampler
+        self.to(self.device)
+
+    def new_pipeline(self):
+        """A fresh (tracker, mapper) pair on one Atlas at the step's caps."""
+        from .models.local_mapping import LocalMapper
+        from .models.mapstore import Atlas, MapStore
+        from .models.tracking import Tracker
+        atlas = Atlas([MapStore(n_feat=self.n_feat, **self.store)])
+        tr = Tracker(self.cfg, atlas, self.n_feat, self.local_pts_cap,
+                     device=self.device, plain=self.plain,
+                     sampler=self.sampler)
+        mp = LocalMapper(self.cfg, atlas, self.n_feat, device=self.device,
+                         plain=self.plain, **self.caps)
+        for k, v in self.viba_caps.items():
+            setattr(mp, k, v)
+        return tr, mp
+
+    def forward(self, S, frame_ctx=None) -> TrackedSequenceOut:
+        """`frame_ctx(i)`, where given, is a context manager entered around
+        frame i's work (a profiler's range)."""
+        import contextlib
+        import time
+        from .models.system import (apply_pending_transform,
+                                    drain_keyframes, frame_prelude)
+        from .models.tracking import TrackState
+        tr, mp = self.new_pipeline()
+        cuda = self.device.type == "cuda"
+        frames, init_frame, imu_kf, imu_frame, n_made = [], -1, -1, -1, 0
+        pre_scale = 0.0
+        for i, img in enumerate(S["frames"]):
+            syncs0 = tr.host_syncs + mp.host_syncs
+            was_init = tr.map.imu_initialized
+            booting = tr.state in (TrackState.NO_IMAGES_YET,
+                                   TrackState.NOT_INITIALIZED)
+            t0 = time.perf_counter()
+            with frame_ctx(i) if frame_ctx else contextlib.nullcontext():
+                img_t = torch.as_tensor(img, dtype=torch.float32).to(
+                    self.device)
+                feats, lf = frame_prelude(self.orb, self.lines, self.cam,
+                                          img_t, self.plain)
+                pose = tr.process_frame(feats, float(S["timestamps"][i]),
+                                        imu=S["imu"][i], line_feats=lf)
+                made = len(tr.new_kf_queue)
+                drain_keyframes(tr, mp)
+                apply_pending_transform(tr, mp)
+                if cuda:
+                    torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            n_made += made
+            if booting and tr.state == TrackState.OK and init_frame < 0:
+                init_frame = i
+            if tr.map.imu_initialized and not was_init:
+                imu_kf, imu_frame = n_made, i
+            elif not tr.map.imu_initialized and tr.last_pose_cw is not None:
+                pre_scale = tracked_errors(tr, S)[1]
+            ok = tr.state == TrackState.OK and not booting
+            frames.append(TrackedFrame(
+                int(tr.state), pose is not None,
+                int(tr.last_n_inliers) if ok else 0,
+                int(tr.last_n_matched) if ok else 0, made > 0, ms,
+                tr.host_syncs + mp.host_syncs - syncs0))
+        m = tr.map
+        ate, scale, grav = tracked_errors(tr, S)
+        init_scale = 0.0 if mp.init_scale is None else float(mp.init_scale)
+        return TrackedSequenceOut(
+            frames, sum(f.tracked for f in frames), init_frame, imu_kf,
+            imu_frame, init_scale, pre_scale, scale, grav, int(m.n_kf),
+            int(m.n_pt), int(m.n_ln), ate[0], ate[1], m, tr, mp)
+
+
+def tracked_errors(tracker, S):
+    """((Sim3, SE3) ATE RMSE (m) of every tracked frame's camera centre
+    (`Tracker.full_trajectory`) against the truth, the trajectory's scale
+    against the truth (Umeyama, map units per metre; 1 is metric), the
+    map's gravity direction error (deg) at the last tracked frame: the
+    angle between (0, 0, -1) and the world's down as R_cw^map^T
+    R_cw^true maps it)."""
+    from .io.trajectory import Trajectory, associate, ate_rmse, umeyama
+    ts, pos, quat = tracker.full_trajectory()
+    gt = Trajectory(np.asarray(S["timestamps"]), np.asarray(S["p_wc"]),
+                    np.zeros((len(S["timestamps"]), 4)))
+    if len(ts) < 3 or tracker.last_pose_cw is None:
+        return (float("inf"), float("inf")), 0.0, 180.0
+    est = Trajectory(ts, pos, quat)
+    ate = (ate_rmse(est, gt, True), ate_rmse(est, gt, False))
+    ia, ib = associate(est.timestamps, gt.timestamps)
+    ok = np.isfinite(pos[ia]).all(-1)
+    scale = float(umeyama(gt.positions[ib][ok], pos[ia][ok])[0])
+    i = int(np.argmin(np.abs(gt.timestamps - ts[-1])))
+    R_cw = tracker.last_pose_cw[:, :3].astype(np.float64)
+    d = R_cw.T @ S["R_wc"][i].T @ np.array([0.0, 0.0, -1.0])
+    grav = float(np.degrees(np.arccos(np.clip(-d[2], -1.0, 1.0))))
+    return ate, scale, grav
+
+
+def tracked_sequence(seed: int = 0, device="cuda", plain: bool = False,
+                     n_frames: int = 180, **kw):
+    """The mono-inertial main path over rendered frames
+    (`TrackedSequence`, production's caps unless `kw` names others) and
+    the frames of `inputs.build_tracked_sequence(seed, n_frames)`."""
+    from .inputs import build_tracked_sequence
+    dev = resolve_device(device)
+    S = build_tracked_sequence(seed, n_frames)
+    return TrackedSequence(plain=plain, device=dev, **kw), S

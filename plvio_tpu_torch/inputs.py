@@ -1,8 +1,9 @@
 """Synthetic inputs (port of bench.build_inputs, bench.py:33-119, of the
 VI frame's IMU windows, bench.py:407-433, and of the mapping step's
 window, bench.py:214-292), the inertial back end's window and IMU chain,
-the keyframe step's maps, the bootstrap's frames, and the keyframe
-sequence with its stand-in for the tracker's keyframe insertion.
+the keyframe step's maps, the bootstrap's frames, the keyframe
+sequence with its stand-in for the tracker's keyframe insertion, and the
+tracked sequence's rendered frames.
 
 The same synthetic room, orbit and frames (seed 0) as the reference; the
 local map's descriptors come from the port's own extractors, so nothing
@@ -1678,3 +1679,50 @@ def build_inertial_map(seq, n_kf: int, store=None, seed: int = 1):
         m.update_covisibility(k)
     m.imu_initialized = m.imu_ba1 = True
     return m
+
+
+# --------------------------------------------------------------------------
+# The tracked sequence: rendered frames with their IMU batches, as
+# scripts/run_synthetic_vi.py makes them
+# --------------------------------------------------------------------------
+
+TRACK_FRAMES = 180          # 9 s at 20 fps
+
+
+def build_tracked_sequence(seed: int = 0, n_frames: int = TRACK_FRAMES):
+    """The inputs of scripts/run_synthetic_vi.py:28-56 (numpy,
+    default_rng(seed) shared in the script's order): the room with 4000
+    points and 60 segments, the 0.6 m orbit at 20 fps over n_frames / 20
+    + 0.2 s, the 200 Hz IMU along it (EuRoC noise, gyro bias ~0.002 rad/s,
+    accelerometer bias ~0.01 m/s^2), then each frame rendered at EuRoC K
+    without distortion; frame i's IMU batch is the samples in (t_{i-1},
+    t_i] with their time steps, none for frame 0.
+
+    Returns dict(frames [n] of [480,752] float32, timestamps [n], imu [n]
+    of (gyro [k,3], acc [k,3], dt [k]) float64 or None, R_wc [n,3,3],
+    p_wc [n,3] (the truth: the body frame is the camera's), bias_gyro,
+    bias_acc)."""
+    rng = np.random.default_rng(seed)
+    scene = syn.make_room_scene(rng, n_points=4000, n_lines=60)
+    dur = n_frames / 20.0 + 0.2
+    traj = syn.make_orbit_trajectory(duration=dur, fps=20.0, radius=0.6)
+    imu = synthesize_imu(rng, dur, radius=0.6, noise_gyro=1.7e-4,
+                         noise_acc=2e-3, bias_gyro_mag=0.002,
+                         bias_acc_mag=0.01)
+    n = min(n_frames, len(traj.timestamps))
+    frames, batches, last_t = [], [], None
+    for i in range(n):
+        t = traj.timestamps[i]
+        frames.append(np.asarray(syn.render_frame(
+            scene, traj.R_wb[i], traj.p_wb[i], rng=rng), np.float32))
+        if last_t is None:
+            batches.append(None)
+        else:
+            sel = (imu.timestamps > last_t) & (imu.timestamps <= t)
+            ts = imu.timestamps[sel]
+            batches.append((imu.gyro[sel], imu.acc[sel],
+                            np.diff(np.concatenate([[last_t], ts]))))
+        last_t = t
+    return dict(frames=frames, timestamps=traj.timestamps[:n], imu=batches,
+                R_wc=traj.R_wb[:n], p_wc=traj.p_wb[:n],
+                bias_gyro=imu.bias_gyro, bias_acc=imu.bias_acc)

@@ -1,7 +1,9 @@
 """Tracking and mapping kernels (port of plvio_tpu/models/kernels.py:
-`fast_pose_opt` :111, `fast_pose_opt_pl` :179, `line_proj_match_core`
-:355, `make_line_triangulator` :389, `make_line_pair_matcher` :605,
-`make_local_ba_pl` :641, `make_projection_matcher` :767,
+`make_pose_optimizer` :88, `fast_pose_opt` :111, `fast_pose_opt_pl` :179,
+`make_fast_pose_optimizer_pl` :312, `make_line_projection_matcher` :334,
+`line_proj_match_core` :355, `make_line_triangulator` :389,
+`make_line_pair_matcher` :605, `make_local_ba_pl` :641,
+`make_projection_matcher` :767,
 `make_epipolar_matcher` :828, `make_triangulator` :878,
 `make_vi_pose_optimizer` :932, `make_local_ba` :1307).
 
@@ -204,6 +206,50 @@ def fast_pose_opt(K: PinholeK, pose0, uv, X, valid, inv_sigma2,
         torch.zeros(0, dtype=torch.bool, device=X.device), e1, rounds, iters,
         plain=plain)
     return pose, inl, n
+
+
+def make_pose_optimizer(K: PinholeK, rounds: int = 4, iters: int = 3,
+                        plain: bool = False):
+    """run(pose0 [3,4], uv [cap,2], X [cap,3], valid, inv_sigma2) ->
+    (pose, inlier, n_inliers): the tracker's point-only pose IRLS
+    (models/kernels.py:88, `pose_irls` with no lines)."""
+    def run(pose0, uv, X, valid, is2):
+        return fast_pose_opt(K, pose0.contiguous(), uv.contiguous(),
+                             X.contiguous(), valid, is2.contiguous(), rounds,
+                             iters, plain=plain)
+    return run
+
+
+def make_fast_pose_optimizer_pl(K: PinholeK, rounds: int = 4,
+                                iters: int = 3, plain: bool = False):
+    """run(pose0 [3,4], uv [cap,2], X [cap,3], valid, is2, l_obs [L,3],
+    Xs [L,3], Xe [L,3], valid_l, is2_l) -> (pose, inlier_pt, inlier_ln,
+    n_inliers): the tracker's point+line pose IRLS (models/kernels.py:312,
+    mono: bf = 0), on `pose_irls`."""
+    def run(pose0, uv, X, valid, is2, l_obs, Xs, Xe, valid_l, is2_l):
+        c = [t.contiguous() for t in (pose0, uv, X, is2, l_obs, Xs, Xe,
+                                       is2_l)]
+        return fast_pose_opt_pl(K, c[0], c[1], c[2], valid, c[3], c[4], c[5],
+                                c[6], valid_l, c[7], rounds, iters,
+                                plain=plain)
+    return run
+
+
+def make_line_projection_matcher(K: PinholeK, plain: bool = False):
+    """run(pose [3,4], ln_ep [cap,6], ln_desc [cap,8] int32, ln_valid,
+    obs_ep [F,4], obs_desc [F,8] int32, obs_angle [F], obs_valid,
+    obs_lineq [F,3], radius=40.0, angle_tol=0.25) -> (ln_feat [cap] int32,
+    matched [cap], l_obs_eq [cap,3]): the tracker's line projection match
+    (models/kernels.py:334) on `hamming_match`'s line mode."""
+    def run(pose, ln_ep, ln_desc, ln_valid, obs_ep, obs_desc, obs_angle,
+            obs_valid, obs_lineq, radius: float = 40.0,
+            angle_tol: float = 0.25):
+        return line_proj_match_core(K, pose.contiguous(),
+                                    ln_ep.contiguous(), ln_desc, ln_valid,
+                                    obs_ep.contiguous(), obs_desc,
+                                    obs_angle.contiguous(), obs_valid,
+                                    obs_lineq, radius, angle_tol, plain)
+    return run
 
 
 def line_proj_match_core(K: PinholeK, pose, ln_ep, ln_desc, ln_valid,

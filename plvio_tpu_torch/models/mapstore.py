@@ -1,12 +1,13 @@
-"""The struct-of-arrays map store, as far as the monocular bootstrap and
-the keyframe step touch it (port of plvio_tpu/models/mapstore.py: the
-arrays and inertial fields of `MapStore.__init__` :27-105, `alloc_kf`
+"""The struct-of-arrays map store, as far as the monocular bootstrap, the
+tracker and the keyframe step touch it (port of
+plvio_tpu/models/mapstore.py: the arrays and inertial fields of `MapStore.__init__` :27-105, `alloc_kf`
 :108, `alloc_points` :117, `alloc_lines` :123, `add_observations` :130,
 `update_covisibility` :140 (its numpy path :155-175), `covisible_kfs`
 :177, `remove_point` :206, `remove_line` :215, `remove_keyframe` :223,
 `valid_kf_indices` :245, `kf_chain` :248, `apply_scaled_rotation` :253,
-`recompute_body_poses` :280, `set_cam_poses_from_body` :297, and a
-minimal `Atlas` :413-435).
+`recompute_body_poses` :280, `set_cam_poses_from_body` :297, the
+tracker's `local_map_points` :189 and `local_map_lines` :198, and the
+`Atlas` :413-435 with `create_new_map`).
 
 Host-side numpy, as in the reference: fixed-capacity arrays with validity
 masks, mutated only by the host bookkeeping of the local mapper; device
@@ -185,6 +186,26 @@ class MapStore:
             out = order[w[order] > 0][:n]
         return out
 
+    def local_map_points(self, kfs: np.ndarray, cap: int) -> np.ndarray:
+        """The live points observed by `kfs`, in np.unique's (ascending)
+        order, as a fixed-size index array (INVALID-padded, the first `cap`
+        kept)."""
+        ids = np.unique(self.kf_match_pt[kfs])
+        ids = ids[(ids >= 0)
+                  & self.pt_valid[np.clip(ids, 0, self.max_pts - 1)]]
+        out = np.full(cap, INVALID, np.int32)
+        out[:min(len(ids), cap)] = ids[:cap]
+        return out
+
+    def local_map_lines(self, kfs: np.ndarray, cap: int) -> np.ndarray:
+        """The live lines observed by `kfs`, as `local_map_points`."""
+        ids = np.unique(self.kf_match_ln[kfs])
+        ids = ids[(ids >= 0)
+                  & self.ln_valid[np.clip(ids, 0, self.max_lines - 1)]]
+        out = np.full(cap, INVALID, np.int32)
+        out[:min(len(ids), cap)] = ids[:cap]
+        return out
+
     # ------------------------------------------------------------------
     def remove_point(self, ids: np.ndarray) -> None:
         """Clear validity and every back-pointer of the points `ids`."""
@@ -289,16 +310,26 @@ class MapStore:
 
 @dataclass
 class Atlas:
-    """Multi-map container: the maps and the active one (the reference's
-    `create_new_map`, which starts a map after a tracking loss, comes with
-    relocalization)."""
+    """Multi-map container: the maps and the active one, which receives
+    new data; a tracking loss on a map of more than 10 keyframes starts a
+    fresh one (`create_new_map`)."""
     maps: List[MapStore] = field(default_factory=list)
     active: int = 0
+    next_map_id: int = 1
 
     def __post_init__(self):
         if not self.maps:
             self.maps = [MapStore(map_id=0)]
+        self.next_map_id = max([m.map_id for m in self.maps] + [0]) + 1
 
     @property
     def current(self) -> MapStore:
         return self.maps[self.active]
+
+    def create_new_map(self, **kw) -> MapStore:
+        """A new empty map (MapStore's keywords), appended and active."""
+        m = MapStore(map_id=self.next_map_id, **kw)
+        self.next_map_id += 1
+        self.maps.append(m)
+        self.active = len(self.maps) - 1
+        return m

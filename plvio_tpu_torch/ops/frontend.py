@@ -4,8 +4,12 @@ Same pipeline and numbers as the reference: 8-level x1.2 pyramid, dense
 FAST-16/9 at two thresholds with 3x3 NMS and a blend, one winner per 16 px
 cell, a stable top-k of cell winners per level, intensity-centroid angle,
 7x7 Gaussian blur of each patch and steered 256-bit BRIEF on the seed-7
-numpy pattern.  Two stages are hand-written CUDA kernels:
+numpy pattern.  Three stages are hand-written CUDA kernels:
 
+* `pyramid` (csrc/pyramid.cu): the pyramid's levels, each
+  jax.image.resize's antialiased 'linear' function of the one above
+  (`pyramid_chain`: one launch a level from one host call), and the line
+  front end's 2x2-mean level 1 (`line_level`);
 * `orb_fast_grid` (csrc/orb_fast_grid.cu): FAST + NMS + blend + border +
   per-cell argmax of one level;
 * `orb_describe` (csrc/orb_describe.cu): patch, angle, blur and BRIEF of
@@ -85,17 +89,170 @@ def make_level_specs(height: int, width: int, n_features: int = 1000,
     return specs
 
 
-def build_pyramid(img: torch.Tensor,
-                  specs: Sequence[LevelSpec]) -> List[torch.Tensor]:
-    """[H,W] float32 -> per-level images, each an antialiased bilinear
-    resize of the one above (jax.image.resize 'linear' antialiases when it
-    downsamples, so antialias=True is the matching mode)."""
+# --------------------------------------------------------------------------
+# Kernel 0: pyramid (the ORB pyramid's levels and the line level)
+# --------------------------------------------------------------------------
+
+_RESIZE_EPS = 1000.0 * float(np.finfo(np.float32).eps)
+
+
+def resize_axis(n_in: int, n_out: int):
+    """(inv_scale, kernel_scale) of one axis as jax.image.resize computes
+    them (jax/_src/image/scale.py `_resize`, `compute_weight_mat`): the
+    scale is out / in of this axis, inverted in float64 and used in
+    float32, the triangle widened by max(1 / scale, 1) (antialias)."""
+    inv = 1.0 / (n_out / n_in)
+    return np.float32(inv), np.float32(max(inv, 1.0))
+
+
+def resize_weights(n_in: int, n_out: int, device) -> torch.Tensor:
+    """[n_in, n_out] float32 weights of jax.image.resize 'linear' with
+    antialias along one axis, as `compute_weight_mat` computes them under
+    jit on the CPU: sample (o + 0.5) inv - 0.5, the triangle max(0, 1 -
+    |sample - i| / ks), each column divided by its total (zero where
+    |total| <= 1000 eps), columns whose sample lies outside [-0.5, n_in -
+    0.5] zeroed.  XLA contracts the sample into one fused multiply-add
+    where it computes a weight, but the reduction that totals a column
+    recomputes it unfused (two roundings), and so does this function
+    (the fused one in float64, where a product of two float32 is
+    exact)."""
+    inv, ks = resize_axis(n_in, n_out)
+    inv_t, ks = (torch.tensor(v, dtype=torch.float32, device=device)
+                 for v in (inv, ks))
+    o = torch.arange(n_out, dtype=torch.float32, device=device) + 0.5
+    i = torch.arange(n_in, dtype=torch.float32, device=device)
+
+    def triangle(sample):
+        x = (sample[None, :] - i[:, None]).abs() / ks
+        return torch.clamp_min(1.0 - x, 0.0)
+
+    sample = (o.double() * float(inv) - 0.5).float()
+    w = triangle(sample)
+    total = triangle(o * inv_t - 0.5).sum(0, keepdim=True)
+    w = torch.where(total.abs() > _RESIZE_EPS,
+                    w / torch.where(total != 0, total, torch.ones_like(total)),
+                    torch.zeros_like(w))
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return torch.where(inside[None, :], w, torch.zeros_like(w))
+
+
+def resize_plain(img: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """jax.image.resize(img, (height, width), 'linear') of a [H,W] float32
+    image: the per-axis weights contracted over the rows, then the columns,
+    as XLA orders the einsum (an axis whose size stays is left as it is,
+    as JAX skips it)."""
+    H, W = img.shape
+    out = img
+    if height != H:
+        out = resize_weights(H, height, img.device).T @ out
+    if width != W:
+        out = out @ resize_weights(W, width, img.device)
+    return out
+
+
+def build_pyramid_plain(img: torch.Tensor,
+                        specs: Sequence[LevelSpec]) -> List[torch.Tensor]:
+    """Plain version of `build_pyramid`: each level `resize_plain` of the
+    one above (plvio_tpu/ops/frontend.py:98-106)."""
     out = [img]
     for spec in specs[1:]:
-        out.append(F.interpolate(out[-1][None, None],
-                                 size=(spec.height, spec.width),
-                                 mode="bilinear", align_corners=False,
-                                 antialias=True)[0, 0])
+        out.append(resize_plain(out[-1], spec.height, spec.width))
+    return out
+
+
+def line_level_plain(img: torch.Tensor) -> torch.Tensor:
+    """The line front end's level 1 (plvio_tpu/ops/lines.py:737-739): the
+    2x2 mean of the image's even crop."""
+    h2, w2 = (img.shape[0] // 2) * 2, (img.shape[1] // 2) * 2
+    return img[:h2, :w2].reshape(h2 // 2, 2, w2 // 2, 2).mean((1, 3))
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+PYRAMID = cuda.Kernel("pyramid", "pyramid_levels",
+                      [_P, _I, _I, _I, _P, _P, _P, _P, _P])
+PYRAMID_LINE = cuda.Kernel("pyramid", "pyramid_line_level",
+                           [_P, _I, _I, _P, _P])
+PYRAMID_KS_MAX = 1.5        # the kernel's tap window and shared tile
+
+
+def _check_level(name: str, img: torch.Tensor) -> None:
+    cuda.check_cuda(name, img)
+    if img.dtype != torch.float32 or img.dim() != 2:
+        raise ValueError(f"{name}: a [H,W] float32 image")
+
+
+@functools.lru_cache(maxsize=None)
+def _chain_layout(H: int, W: int, sizes: tuple):
+    """The host arguments of a chain of levels (each from the one above):
+    ctypes arrays of the sizes, the levels' offsets in one buffer (each
+    aligned as an allocation of its own would be) and the per-axis (inv,
+    ks), and the buffer's length."""
+    hw, off, par, n, (h_in, w_in) = [], [], [], 0, (H, W)
+    for h, w in sizes:
+        iy, ky = resize_axis(h_in, h)
+        ix, kx = resize_axis(w_in, w)
+        if max(ky, kx, iy, ix) > PYRAMID_KS_MAX or h < 1 or w < 1:
+            raise ValueError("pyramid: levels of 1/1.5 the one above a "
+                             "side or more")
+        hw += [h, w]
+        off.append(n)
+        par += [float(iy), float(ky), float(ix), float(kx)]
+        n += -(-h * w // 128) * 128      # each level 512-byte aligned
+        h_in, w_in = h, w
+    return ((ctypes.c_int * len(hw))(*hw),
+            (ctypes.c_longlong * len(off))(*off),
+            (ctypes.c_float * len(par))(*par), n)
+
+
+def pyramid_chain(img: torch.Tensor, sizes) -> List[torch.Tensor]:
+    """Levels of `sizes` [(h, w), ...], each `resize_plain` of the one
+    above, the first of img: the plain version for a CPU image,
+    csrc/pyramid.cu's `pyramid_levels` for a CUDA one (one launch a level,
+    all from one host call; down to at most 1/1.5 a side a level)."""
+    sizes = tuple((int(h), int(w)) for h, w in sizes)
+    if img.device.type == "cpu":
+        out = [img]
+        for h, w in sizes:
+            out.append(resize_plain(out[-1], h, w))
+        return out[1:]
+    _check_level("pyramid", img)
+    H, W = img.shape
+    hw, off, par, n = _chain_layout(H, W, sizes)
+    buf = torch.empty(n, dtype=torch.float32, device=img.device)
+    PYRAMID.launch(cuda.ptr(img), H, W, len(sizes), cuda.ptr(buf), hw, off,
+                   par, cuda.stream(), kernels=len(sizes))
+    return [buf[o:o + h * w].view(h, w)
+            for o, (h, w) in zip(off, sizes)]
+
+
+def pyramid_level(img: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """One pyramid level, `resize_plain`'s function (`pyramid_chain` of
+    one level)."""
+    return pyramid_chain(img, [(height, width)])[0]
+
+
+def build_pyramid(img: torch.Tensor,
+                  specs: Sequence[LevelSpec]) -> List[torch.Tensor]:
+    """[H,W] float32 -> per-level images, each jax.image.resize 'linear'
+    (antialiased) of the one above: `pyramid_chain` of specs[1:]."""
+    return [img] + pyramid_chain(img, [(sp.height, sp.width)
+                                       for sp in specs[1:]])
+
+
+def line_level(img: torch.Tensor) -> torch.Tensor:
+    """The line front end's level 1, `line_level_plain`'s function: the
+    plain version for a CPU image, csrc/pyramid.cu's `pyramid_line_level`
+    for a CUDA one."""
+    if img.device.type == "cpu":
+        return line_level_plain(img)
+    _check_level("pyramid_line", img)
+    H, W = img.shape
+    out = torch.empty(H // 2, W // 2, dtype=torch.float32, device=img.device)
+    if out.numel():
+        PYRAMID_LINE.launch(cuda.ptr(img), H, W, cuda.ptr(out),
+                            cuda.stream())
     return out
 
 
@@ -159,9 +316,6 @@ def orb_fast_grid_plain(img: torch.Tensor, th_hi: float, th_lo: float,
     return rc.amax(1), torch.argmax(rc, 1).to(torch.int32)
 
 
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_F = ctypes.c_float
 ORB_FAST_GRID = cuda.Kernel("orb_fast_grid", "orb_fast_grid",
                             [_P, _I, _I, _F, _F, _I, _P, _P, _P])
 
@@ -378,7 +532,8 @@ class OrbExtractor(nn.Module):
     def forward(self, img: torch.Tensor) -> Features:
         fast = orb_fast_grid_plain if self.plain else orb_fast_grid
         describe = orb_describe_plain if self.plain else orb_describe
-        pyr = build_pyramid(img, self.specs)
+        pyr = (build_pyramid_plain if self.plain else build_pyramid)(
+            img, self.specs)
         xys, scores, valids, octs, scales = [], [], [], [], []
         for lv, spec in enumerate(self.specs):
             best, arg = fast(pyr[lv], self.ini_th, self.min_th, self.cell)

@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import cuda
+from .frontend import line_level, line_level_plain
 from .matching import pack_bits_u32
 
 CELL_PX = 4
@@ -572,14 +573,14 @@ def extract_lines(img: torch.Tensor, max_lines: int, pairs: torch.Tensor,
 def extract_lines_pyramid(img: torch.Tensor, max_lines: int,
                           pairs: torch.Tensor, plain: bool = False,
                           **kw) -> LineFeatures:
-    """2-level line pyramid: level 1 detects on a 2x box-downsampled image;
+    """2-level line pyramid: level 1 detects on a 2x box-downsampled image
+    (`ops.frontend.line_level`: the `pyramid` kernel's line level on a CUDA
+    image unless `plain`);
     its segments map back to level-0 pixel centres and are dropped where a
     valid level-0 segment already covers them."""
     n1 = max_lines // 4
     n0 = max_lines - n1
-    h2 = (img.shape[0] // 2) * 2
-    w2 = (img.shape[1] // 2) * 2
-    img1 = img[:h2, :w2].reshape(h2 // 2, 2, w2 // 2, 2).mean((1, 3))
+    img1 = (line_level_plain if plain else line_level)(img)
     f0 = extract_lines(img, n0, pairs, plain, **kw)
     f1 = extract_lines(img1, n1, pairs, plain, level0=f0, **kw)
     return LineFeatures(*(torch.cat([a, b]) for a, b in zip(f0, f1)))

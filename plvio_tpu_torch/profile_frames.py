@@ -1,8 +1,9 @@
 """Where the time of the two tracked frames, the mapping step, the
-inertial back end, the keyframe step's neighbourhood work and the whole
-keyframe step over a keyframe sequence goes, on one CUDA card.
+inertial back end, the keyframe step's neighbourhood work, the whole
+keyframe step over a keyframe sequence and the tracked sequence goes, on
+one CUDA card.
 
-    python3 -m plvio_tpu_torch.profile_frames [sequence]
+    python3 -m plvio_tpu_torch.profile_frames [sequence | tracked]
 
 Builds the synthetic inputs of `chip_smoke.py` (EuRoC geometry: 480x752,
 1000 ORB features, 256 line features, 2048 map points, 128 map lines; 16
@@ -34,7 +35,13 @@ and the step's host syncs (device-to-host reads).  The keyframe sequence
 (`keyframe_sequence`, production's sizes) gets wall ms, device busy ms,
 idle share and host syncs per step, split by the step's BA path (lba,
 liba, liba_half, viba), and the device kernels with the most time;
-`sequence` as the argument runs that part alone.
+`sequence` as the argument runs that part alone.  The tracked sequence
+(`tracked_sequence`, 180 rendered frames at production's sizes) gets wall
+ms, device busy ms, idle share and host syncs per frame, split into the
+bootstrap frames, the tracked frames and the frames that make a
+keyframe, the device kernels with the most time and the pyramid's own,
+and the device ms of the ORB front end and of the pyramid inside it;
+`tracked` runs that part alone.
 
 Prints the card's `nvidia-smi` name and power limit first.  Needs one
 card; JAX is never imported.
@@ -279,6 +286,76 @@ def profile_sequence(dev):
               f"{ms / n:.4f}")
 
 
+def profile_tracked(dev):
+    """The tracked sequence at production's sizes: a warm-up run, one run
+    for the wall ms and host syncs of each frame (the entry point's own
+    host clocks, synchronized), one under `torch.profiler` with each frame
+    in a `record_function` range (device busy ms: the device events that
+    start inside it), split into the bootstrap frames, the tracked frames
+    and the frames that make a keyframe; and one with CUDA events around
+    the ORB front end and the pyramid inside it."""
+    from .ops import frontend as FE
+    step, S = E.tracked_sequence(device=dev)
+    with torch.no_grad():
+        step(S)
+        out = step(S)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.no_grad(), torch.profiler.profile(activities=acts) as prof:
+        step(S, frame_ctx=lambda i: torch.profiler.record_function("frame"))
+    cuda_t = torch.autograd.DeviceType.CUDA
+    evts = prof.events()
+    ranges = sorted((e.time_range.start, e.time_range.end) for e in evts
+                    if e.name == "frame" and e.device_type != cuda_t)
+    dev_ev = [(e.time_range.start, e.time_range.end - e.time_range.start,
+               e.name) for e in evts
+              if e.device_type == cuda_t and e.name != "frame"]
+    busy = [sum(d for t, d, _ in dev_ev if a <= t <= b) / 1e3
+            for a, b in ranges]
+    rows = defaultdict(list)
+    for i, (f, b) in enumerate(zip(out.frames, busy)):
+        kind = "bootstrap" if i <= out.init_frame else (
+            "keyframe" if f.keyframe else "tracked")
+        rows[kind].append((f.ms, b, f.host_syncs))
+    print(f"== tracked sequence ({len(out.frames)} frames, production's "
+          f"sizes; {len(ranges)} profiled frames): per frame")
+    for kind in ("bootstrap", "tracked", "keyframe"):
+        r = np.array(rows[kind])
+        wall, dbusy = r[:, 0].mean(), r[:, 1].mean()
+        print(f"   {kind:10s} frames {len(r):3d} wall {wall:8.3f} ms/frame "
+              f"device busy {dbusy:8.3f} ms/frame idle share "
+              f"{1 - dbusy / wall:6.1%} host syncs {r[:, 2].mean():5.1f}/"
+              "frame")
+    tot = np.array([x for r in rows.values() for x in r])
+    print(f"   all        frames {len(tot):3d} wall {tot[:, 0].mean():8.3f} "
+          f"ms/frame device busy {tot[:, 1].mean():8.3f} ms/frame idle share"
+          f" {1 - tot[:, 1].sum() / tot[:, 0].sum():6.1%}")
+    per = defaultdict(lambda: [0, 0.0])
+    for _, d, name in dev_ev:
+        per[name][0] += 1
+        per[name][1] += d / 1e3
+    n = len(out.frames)
+    for name, (c, ms) in sorted(per.items(), key=lambda kv: -kv[1][1])[:12]:
+        print(f"   {name[:70]:70s} n/frame {c / n:6.1f} dev ms/frame "
+              f"{ms / n:.4f}")
+    for name, (c, ms) in sorted(per.items()):
+        if "pyramid" in name:
+            print(f"   {name[:70]:70s} n/frame {c / n:6.1f} dev ms/frame "
+                  f"{ms / n:.4f} (the pyramid's own kernels)")
+    sp = Spans()
+    inner = FE.build_pyramid
+    FE.build_pyramid = sp.wrap("pyramid", inner)
+    step.orb.forward = sp.wrap("orb (pyramid included)", step.orb.forward)
+    try:
+        with torch.no_grad():
+            step(S)
+        dev_ms, host_ms = sp.read(n)
+    finally:
+        FE.build_pyramid = inner
+        del step.orb.forward
+    print(f"   spans, device ms/frame {dev_ms}, host ms/frame {host_ms}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("profile_frames: no CUDA device", file=sys.stderr)
@@ -289,6 +366,9 @@ def main() -> int:
                          text=True, timeout=60).stdout.strip().splitlines()[0])
     if sys.argv[1:] == ["sequence"]:
         profile_sequence(dev)
+        return 0
+    if sys.argv[1:] == ["tracked"]:
+        profile_tracked(dev)
         return 0
     (frames, poses, pt_xyz, pt_desc, pt_valid, ln_ep6, ln_desc, ln_valid,
      traj) = build_inputs(N_FRAMES, CAP_PTS, CAP_LNS, H, W,
@@ -375,6 +455,7 @@ def main() -> int:
                 run_nbh, N_NBH, spans=neighborhood_spans, unit="step")
         print(f"   host syncs per step: {syncs}")
     profile_sequence(dev)
+    profile_tracked(dev)
     return 0
 
 

@@ -1,6 +1,6 @@
 """Carry what the JAX package holds (the map, a pose, the inertial
-window's state, a keyframe map store, the local mapper's host state) over
-to the port."""
+window's state, a keyframe map store, the local mapper's and the
+tracker's host state) over to the port."""
 from __future__ import annotations
 
 from typing import Dict
@@ -184,3 +184,56 @@ def inertial_from_numpy(arrays: Dict[str, np.ndarray],
         out["pre_const"] = {k: torch.from_numpy(np.ascontiguousarray(
             pre[k], dtype=np.float32)).to(device) for k in PRE_KEYS}
     return out
+
+
+# the tracker's host state between frames: arrays (copied) and scalars
+_TRACKER_ARRAYS = ("last_pose_cw", "velocity", "last_feat_pt",
+                   "last_feat_ln", "frame_vel", "frame_bg", "frame_ba",
+                   "prior_H15")
+_TRACKER_SCALARS = ("frame_idx", "last_frame_time", "ref_kf",
+                    "last_created_kf", "last_kf_frame_idx", "last_kf_time",
+                    "lost_count", "last_n_inliers", "_prior_frame_idx",
+                    "init_timestamp", "only_tracking", "_skip_next_kf_imu")
+
+
+def tracker_state(tracker) -> dict:
+    """The tracker's host state between frames (the port's or the JAX
+    package's `Tracker`): its state, the frame pose, motion model,
+    feature bindings and inertial frame state, the carried VI prior, the
+    keyframe bookkeeping, the IMU buffered since the last keyframe, the
+    keyframe queue and the frame records (as (timestamp, ref_kf, T_cr,
+    map_id)); copies.  The feature sets of the last and the bootstrap
+    frames are not carried (device data of one frame)."""
+    st = {k: (None if getattr(tracker, k, None) is None
+              else np.array(getattr(tracker, k)))
+          for k in _TRACKER_ARRAYS}
+    for k in _TRACKER_SCALARS:
+        v = getattr(tracker, k, None)
+        st[k] = v if v is None or isinstance(v, (bool, np.bool_)) \
+            else (int(v) if isinstance(v, (int, np.integer)) else float(v))
+    st["_skip_next_kf_imu"] = bool(getattr(tracker, "_skip_next_kf_imu",
+                                           False))
+    st["state"] = int(tracker.state)
+    st["imu_since_kf"] = [tuple(np.array(a) for a in b)
+                          for b in tracker.imu_since_kf]
+    st["new_kf_queue"] = [int(k) for k in tracker.new_kf_queue]
+    st["frames"] = [(float(r.timestamp), int(r.ref_kf), np.array(r.T_cr),
+                     int(r.map_id)) for r in tracker.frames]
+    return st
+
+
+def load_tracker_state(tracker, st: dict) -> None:
+    """Set a tracker's host state from `tracker_state`'s dict (taken from
+    either package's tracker)."""
+    from .models.tracking import FrameRecord, TrackState
+    for k in _TRACKER_ARRAYS:
+        setattr(tracker, k, None if st[k] is None else np.array(st[k]))
+    for k in _TRACKER_SCALARS:
+        if st[k] is not None or k in ("last_frame_time",):
+            setattr(tracker, k, st[k])
+    tracker.state = TrackState(st["state"])
+    tracker.imu_since_kf = [tuple(np.array(a) for a in b)
+                            for b in st["imu_since_kf"]]
+    tracker.new_kf_queue = list(st["new_kf_queue"])
+    tracker.frames = [FrameRecord(t, r, np.array(T), m)
+                      for t, r, T, m in st["frames"]]

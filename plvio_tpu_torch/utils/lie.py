@@ -1,6 +1,7 @@
 """SO(3)/SE(3) helpers of the pose IRLS and the VI pose optimizer (port
 of plvio_tpu/utils/lie.py: `hat`, `vee`, `so3_exp`, `so3_log`,
-`so3_right_jacobian(_inv)`, `_so3_left_V`, `se3_exp`, `so3_normalize`).
+`so3_right_jacobian(_inv)`, `_so3_left_V`, `se3_exp`, `so3_normalize`,
+`rot_to_quat`).
 Same conventions: tangent order (rho, phi), arbitrary leading batch
 dimensions, Taylor guards below `_EPS`."""
 from __future__ import annotations
@@ -128,3 +129,30 @@ def so3_right_jacobian_inv(w: torch.Tensor) -> torch.Tensor:
         1.0 / t2 - (1.0 + torch.cos(theta))
         / (2.0 * theta * torch.clamp_min(torch.sin(theta), 1e-12)))
     return _eye_like(W) + 0.5 * W + cot[..., None, None] * W2
+
+
+def rot_to_quat(R: torch.Tensor) -> torch.Tensor:
+    """[...,3,3] -> [...,4] (x, y, z, w), w >= 0: Shepperd's method, the
+    candidate of the largest trace term (the first on ties), normalized
+    (utils/lie.py:160)."""
+    m = [[R[..., i, j] for j in range(3)] for i in range(3)]
+    (m00, m01, m02), (m10, m11, m12), (m20, m21, m22) = m
+    qw = torch.stack([1 + m00 + m11 + m22, m21 - m12, m02 - m20,
+                      m10 - m01], -1)
+    qx = torch.stack([m21 - m12, 1 + m00 - m11 - m22, m01 + m10,
+                      m02 + m20], -1)
+    qy = torch.stack([m02 - m20, m01 + m10, 1 - m00 + m11 - m22,
+                      m12 + m21], -1)
+    qz = torch.stack([m10 - m01, m02 + m20, m12 + m21,
+                      1 - m00 - m11 + m22], -1)
+    trace = torch.stack([1 + m00 + m11 + m22, 1 + m00 - m11 - m22,
+                         1 - m00 + m11 - m22, 1 - m00 - m11 + m22], -1)
+    best = torch.argmax(trace, -1)
+    cands = torch.stack([qw, qx, qy, qz], -2)       # [...,4,4] (w,x,y,z)
+    idx = best[..., None, None].expand(*best.shape, 1, 4)
+    q_wxyz = torch.gather(cands, -2, idx)[..., 0, :]
+    q = torch.stack([q_wxyz[..., 1], q_wxyz[..., 2], q_wxyz[..., 3],
+                     q_wxyz[..., 0]], -1)
+    q = q / torch.clamp_min(torch.linalg.norm(q, dim=-1, keepdim=True),
+                            1e-12)
+    return q * torch.where(q[..., 3:4] < 0, -1.0, 1.0)

@@ -1,5 +1,6 @@
-"""The nineteen CUDA kernels against their plain PyTorch versions on the card
-(and schur_solve's global path, and a short keyframe sequence).
+"""The twenty-one CUDA kernels against their plain PyTorch versions on the
+card (and schur_solve's global path, a short keyframe sequence and a short
+tracked sequence).
 
 Marked `cuda`; each test skips without a CUDA device.  This file imports
 no JAX, so it also runs on a GPU machine without JAX, where the suite's
@@ -1160,3 +1161,135 @@ def test_keyframe_sequence_kernel_path_matches_cpu(dev):
         assert abs(a - b) <= 0.05 * b, (a, b)
     assert abs(ok_.scale - 1) <= 2 * abs(oc.scale - 1) + 2e-3
     assert ok_.ate_sim3 <= 2 * oc.ate_sim3 + 2e-3
+
+
+# -- slice 8: the pyramid and the tracked sequence -----------------------------
+
+@pytest.mark.parametrize("shape", [(480, 752), (121, 203)])
+def test_pyramid_matches_plain(dev, shape):
+    """The 7 pyramid levels and the line level on the card against their
+    plain versions (contracted by matmul with TF32 off): within 1e-4 grey
+    levels at every level, chained and from the plain level above."""
+    h, w = shape
+    img = _image(4, h, w, dev)
+    specs = FE.make_level_specs(h, w, 1000)
+    n0 = (FE.PYRAMID.launches, FE.PYRAMID_LINE.launches)
+    pk, pp = FE.build_pyramid(img, specs), FE.build_pyramid_plain(img, specs)
+    torch.cuda.synchronize()
+    assert FE.PYRAMID.launches == n0[0] + 7
+    for lv in range(8):
+        assert tuple(pk[lv].shape) == (specs[lv].height, specs[lv].width)
+        assert float((pk[lv] - pp[lv]).abs().max()) <= 1e-4, lv
+        if lv:
+            one = FE.pyramid_level(pp[lv - 1], specs[lv].height,
+                                   specs[lv].width)
+            assert float((one - pp[lv]).abs().max()) <= 1e-4, lv
+    lk, lp = FE.line_level(img), FE.line_level_plain(img)
+    assert FE.PYRAMID_LINE.launches == n0[1] + 1
+    assert lk.shape == lp.shape and float((lk - lp).abs().max()) <= 1e-4
+    with pytest.raises(ValueError):
+        FE.pyramid_level(img, h // 2, w // 2)        # below 1/1.5 a side
+
+
+def test_hamming_match_ungated_matches_plain(dev):
+    """The tracker's reference-keyframe match: `hamming_match`'s window
+    mode at an infinite radius against the plain version's NN-ratio match
+    with no gate (ratio 0.75, max 60, mutual), 2048 x 1000."""
+    rng = np.random.default_rng(0)
+    a = rng.integers(0, 2 ** 32, (2048, 8), dtype=np.uint32)
+    b = rng.integers(0, 2 ** 32, (1000, 8), dtype=np.uint32)
+    b[:300] = a[:300] ^ 1
+    ta, tb = (torch.from_numpy(x.view(np.int32)).to(dev) for x in (a, b))
+    va = torch.from_numpy(rng.random(2048) < 0.8).to(dev)
+    vb = torch.ones(1000, dtype=torch.bool, device=dev)
+    uv = torch.from_numpy(rng.uniform(0, 500, (1000, 2)).astype(
+        np.float32)).to(dev)
+    z = torch.zeros(2048, 2, device=dev)
+    ik, ok = M.hamming_match(ta, tb, va, vb, z, uv, radius=math.inf,
+                             max_dist=60.0, ratio=0.75)
+    dist = M.hamming_matrix(M.unpack_u32_to_pm1(ta), M.unpack_u32_to_pm1(tb))
+    ip, op = M.match_nn_ratio(dist, va, vb, None, max_dist=60.0, ratio=0.75,
+                              mutual=True)
+    torch.cuda.synchronize()
+    assert torch.equal(ok, op) and int(op.sum()) > 100
+    assert torch.equal(ik[op], ip[op].to(ik.dtype))
+
+
+def test_tracked_sequence_kernel_path_matches_cpu(dev):
+    """The tracker and the keyframe step on the kernel path against the
+    plain path on the CPU, from one state and on the same features: 24
+    frames of the tracked sequence (1000 features, the reduced store and
+    windows of tests/test_torch_tracked_sequence.py), the CPU front end's
+    features for both, the CPU run's state after its bootstrap carried to
+    the card (`state.mapstore_from_numpy`, `load_mapper_state`,
+    `load_tracker_state`: two bootstraps' float32 homography refits leave
+    maps ~1e-3 apart). Every frame after it: the state equal, inliers
+    within 3% and the camera centre within 2 mm of the CPU run's (the
+    slice-1 frame's bounds); keyframes within one and points within 5% at
+    the end; the kernels of the tracker and of the keyframe step's point
+    path launched (the line triangulator only where a line pair matches,
+    which chip_smoke.py's 180 frames hold)."""
+    from plvio_tpu_torch.entry import TrackedSequence
+    from plvio_tpu_torch.inputs import build_tracked_sequence
+    from plvio_tpu_torch.models.system import (apply_pending_transform,
+                                               drain_keyframes,
+                                               frame_prelude)
+    from plvio_tpu_torch.models.tracking import TrackState
+    from plvio_tpu_torch.ops import imu as IMU
+    from plvio_tpu_torch.state import (load_mapper_state,
+                                       load_tracker_state, mapper_state,
+                                       mapstore_from_numpy,
+                                       mapstore_to_numpy, tracker_state)
+    kw = dict(store=dict(max_kf=64, max_pts=4096, max_lines=512),
+              caps=dict(ba_kf_cap=16, ba_pt_cap=1024, ba_obs_cap=2048),
+              n_features=1000)
+    S = build_tracked_sequence(0, 24)
+    cpu = TrackedSequence(plain=True, device="cpu", **kw)
+    card = TrackedSequence(device=dev, **kw)
+    with torch.no_grad():
+        feats = [frame_prelude(cpu.orb, cpu.lines, cpu.cam,
+                               torch.from_numpy(im)) for im in S["frames"]]
+    tc, mc = cpu.new_pipeline()
+    tk, mk = card.new_pipeline()
+    kern = (M.HAMMING_MATCH, M.ROT_HIST, KN.PROJ_MATCH, KN.POSE_IRLS,
+            KN.TRIANGULATE, KN.BA_LINEARIZE, KN.SCHUR_SOLVE, IMU.IMU_PREINT)
+    n0, rows, start = [k.launches for k in kern], [], -1
+    for i, (f, lf) in enumerate(feats):
+        t, imu = float(S["timestamps"][i]), S["imu"][i]
+        if start < 0 and tc.state == TrackState.OK:
+            start = i
+            tk.atlas.maps[0] = mapstore_from_numpy(mapstore_to_numpy(tc.map))
+            load_mapper_state(mk, mapper_state(mc))
+            load_tracker_state(tk, tracker_state(tc))
+        with torch.no_grad():
+            for tr, mp, ff, ll in ((tc, mc, f, lf), (tk, mk, None, None)):
+                if tr is tk:
+                    if start < 0:
+                        continue
+                    ff = f._replace(**{k: getattr(f, k).to(dev)
+                                       for k in f._fields})
+                    ll = lf._replace(**{k: getattr(lf, k).to(dev)
+                                        for k in lf._fields})
+                tr.process_frame(ff, t, imu=imu, line_feats=ll)
+                drain_keyframes(tr, mp)
+                apply_pending_transform(tr, mp)
+        if start >= 0:
+            rows.append((i, int(tc.state), int(tk.state), tc.last_n_inliers,
+                         tk.last_n_inliers, tc.last_pose_cw.copy(),
+                         tk.last_pose_cw.copy()))
+    torch.cuda.synchronize()
+    gaps = [float(np.linalg.norm(Pk[:, :3].T @ Pk[:, 3]
+                                 - Pc[:, :3].T @ Pc[:, 3]))
+            for *_, Pc, Pk in rows]
+    print(f"inliers (card, CPU): {[(r[4], r[3]) for r in rows]}; largest "
+          f"centre gap {max(gaps):.2e}; keyframes {tk.map.n_kf} / "
+          f"{tc.map.n_kf}, points {tk.map.n_pt} / {tc.map.n_pt}; launches "
+          f"{[k.launches - n for k, n in zip(kern, n0)]}")
+    assert 1 <= start <= 4 and len(rows) == 24 - start
+    assert all(k.launches > n for k, n in zip(kern, n0))
+    for i, sc, sk, nc, nk, _, _ in rows:
+        assert sc == sk == int(TrackState.OK), (i, sc, sk)
+        assert abs(nk - nc) <= 0.03 * nc, (i, nk, nc)
+    assert max(gaps) <= 2e-3
+    assert abs(tk.map.n_kf - tc.map.n_kf) <= 1
+    assert abs(tk.map.n_pt - tc.map.n_pt) <= 0.05 * tc.map.n_pt

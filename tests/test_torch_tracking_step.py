@@ -77,6 +77,9 @@ def _run(inputs, pl):
 @pytest.mark.parametrize("pl", [True, False])
 def test_tracking_step_matches_reference(inputs, pl):
     out, _ = _run(inputs, pl)
+    print("inliers (port, JAX):", [(nt, nj) for _, nj, _, nt in out],
+          "centre / rotation gaps:", [_centre_rot(pt, pj)
+                                      for pj, _, pt, _ in out])
     for pj, nj, pt, nt in out:
         assert nj >= 10, nj
         assert abs(nt - nj) <= 0.03 * nj, (nt, nj)
@@ -123,6 +126,7 @@ DEFAULTS_TO_CARD = {
     "build_imu_init_inputs": lambda: IN.build_imu_init_inputs(),
     "neighborhood_step": lambda: E.neighborhood_step(),
     "bootstrap_step": lambda: E.bootstrap_step(),
+    "tracked_sequence": lambda: E.tracked_sequence(n_frames=2),
 }
 
 
@@ -140,7 +144,9 @@ def test_port_never_loads_jax():
     """The port, chip_smoke.py, the profile and the kernel digest load
     neither JAX nor the JAX package while driving every entry point on the
     CPU (the keyframe sequence at a reduced size: 15 keyframes of 128
-    features, through IMU init and the first inertial window)."""
+    features, through IMU init and the first inertial window; the tracked
+    sequence's first 7 frames at 300 features: the bootstrap on frame 2
+    or 3, then tracking)."""
     code = (
         "import sys\n"
         "import torch\n"
@@ -195,6 +201,16 @@ def test_port_never_loads_jax():
         "so = ks(S)\n"
         "assert so.init_kf == 13 and so.map.imu_initialized\n"
         "assert [c[0] for c in so.steps[-2].ba] == ['liba', 'liba']\n"
+        "from plvio_tpu_torch.entry import tracked_sequence\n"
+        "tq, TS = tracked_sequence(device='cpu', n_frames=7, "
+        "n_features=300, store=dict(max_kf=16, max_pts=2048, "
+        "max_lines=256), caps=dict(ba_kf_cap=8, ba_pt_cap=512, "
+        "ba_obs_cap=1024))\n"
+        "to = tq(TS)\n"
+        "assert 2 <= to.init_frame <= 3 and to.n_tracked == 7 - "
+        "to.init_frame\n"
+        "assert to.keyframes >= 2 and min(f.inliers for f in "
+        "to.frames[to.init_frame + 1:]) > 30\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'plvio_tpu'))\n"
         "assert not bad, bad\n"

@@ -106,6 +106,7 @@ def _check_frame(i, cj, nj, lj, ct, nt, lt):
 
 def test_vi_frames_match_reference(runs):
     out, traj = runs
+    print("inliers (port, JAX):", [(f[4], f[1]) for f in out])
     for i, frame in enumerate(out, start=1):
         _check_frame(i, *frame)
         # and the reference itself stays on the orbit
