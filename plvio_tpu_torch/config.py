@@ -2,13 +2,15 @@
 plvio_tpu/config.py that the port reads, with the same defaults:
 `ImuConfig`, reference src/Tracking.cc:1057, EuRoC.yaml:38-44; the
 camera, `CameraConfig`; `SlamMode`; the local inertial BA window of
-`TrackingConfig`; and the `SystemConfig` fields of the monocular
-bootstrap and the local mapper)."""
+`TrackingConfig`; `OrbConfig`, `LineConfig`, `MapConfig`, `RelocConfig`;
+and the `SystemConfig` fields that `System`, the tracker and the local
+mapper read)."""
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 from enum import IntEnum
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -78,13 +80,66 @@ class CameraConfig:
 
 
 @dataclass(frozen=True)
+class OrbConfig:
+    """The ORB extractor's settings (plvio_tpu/config.py:55-65)."""
+    n_features: int = 1000
+    scale_factor: float = 1.2
+    n_levels: int = 8
+    ini_th_fast: int = 20
+    min_th_fast: int = 7
+    max_raw_keypoints: int = 4096
+
+
+@dataclass(frozen=True)
+class LineConfig:
+    """The line front end's settings (plvio_tpu/config.py:68-79)."""
+    n_features: int = 200
+    levels: int = 2
+    scale: float = 2.0
+    lsd_scale: float = 0.8
+    detector: int = 0               # 0 = LSD-like, 1 = ED-like
+    min_length_frac: float = 0.025
+    max_raw_segments: int = 1024
+
+
+@dataclass(frozen=True)
+class MapConfig:
+    """The map store's capacities (plvio_tpu/config.py:99-107)."""
+    max_keyframes: int = 512
+    max_points: int = 16384
+    max_lines: int = 2048
+    max_obs_per_frame: int = 1024
+    max_line_obs_per_frame: int = 256
+    max_maps: int = 8
+    covis_threshold: int = 15
+
+
+@dataclass(frozen=True)
+class RelocConfig:
+    """The prior-map relocalizer's settings (plvio_tpu/config.py:131-138)."""
+    enabled: bool = False
+    prior_data_dir: Optional[str] = None
+    top_k: int = 3
+    ratio: float = 0.75
+
+
+@dataclass(frozen=True)
 class SystemConfig:
-    """The fields of plvio_tpu/config.py:SystemConfig (:155-170) that the
-    tracker and the local mapper read, with the same defaults."""
+    """The fields of plvio_tpu/config.py:SystemConfig (:141-159) that
+    `System`, the tracker and the local mapper read, with the same
+    defaults."""
     sensor: Sensor = Sensor.MONOCULAR
     slam_mode: SlamMode = SlamMode.POINT_LINE
     camera: CameraConfig = field(default_factory=CameraConfig)
+    orb: OrbConfig = field(default_factory=OrbConfig)
+    line: LineConfig = field(default_factory=LineConfig)
     imu: ImuConfig = field(default_factory=ImuConfig)
+    map: MapConfig = field(default_factory=MapConfig)
     tracking: TrackingConfig = field(default_factory=TrackingConfig)
+    reloc: RelocConfig = field(default_factory=RelocConfig)
     use_lines: bool = True
+    use_loop_closing: bool = True
     seed: int = 0
+
+    def replace(self, **kw) -> "SystemConfig":
+        return dataclasses.replace(self, **kw)

@@ -55,9 +55,10 @@ __device__ inline void jacobi_null4(double S[4][4], double v[4]) {
 // (overwritten) by cyclic Jacobi sweeps.  A pair is rotated until its
 // off-diagonal entry is below 1e-16 of the geometric mean of the two
 // diagonal entries, the criterion under which Jacobi resolves small
-// eigenvalues to high relative accuracy.
+// eigenvalues to high relative accuracy.  Returns the rotations applied.
 template <int N>
-__device__ void jacobi_min_eigvec(double S[N][N], double v[N]) {
+__device__ int jacobi_min_eigvec(double S[N][N], double v[N]) {
+  int rotations = 0;
   double V[N][N];
   for (int i = 0; i < N; ++i)
     for (int j = 0; j < N; ++j) V[i][j] = i == j ? 1.0 : 0.0;
@@ -70,6 +71,7 @@ __device__ void jacobi_min_eigvec(double S[N][N], double v[N]) {
             || fabs(apq) < 1e-300)
           continue;
         rotated = true;
+        ++rotations;
         const double theta = (S[q][q] - S[p][p]) / (2.0 * apq);
         const double t = (theta >= 0.0 ? 1.0 : -1.0)
             / (fabs(theta) + sqrt(theta * theta + 1.0));
@@ -98,6 +100,7 @@ __device__ void jacobi_min_eigvec(double S[N][N], double v[N]) {
   for (int i = 1; i < N; ++i)
     if (S[i][i] < S[m][m]) m = i;
   for (int k = 0; k < N; ++k) v[k] = V[k][m];
+  return rotations;
 }
 
 // One-sided Jacobi (Hestenes) on the M x N matrix A: rotates pairs of

@@ -47,6 +47,12 @@ tracked_sequence(...) -> (step, frames): the mono-inertial main path
                          the keyframe glue (`_drain_keyframes`,
                          models/system.py:325-388) to a gravity-aligned
                          metric map
+mh_replay(...)        -> (run, replay): the whole system end to end,
+                         `models/system.System.track_monocular`
+                         (models/system.py:153) over the 8 s MH replay of
+                         tests/test_mh_replay_regression.py
+                         (`inputs.build_mh_replay`), then `global_refine`,
+                         with the keyframe database and relocalization
 entry(device)         -> tracking_step_pl at EuRoC geometry on `device`
 
 Every entry point runs on the card unless the caller passes
@@ -983,3 +989,208 @@ def tracked_sequence(seed: int = 0, device="cuda", plain: bool = False,
     dev = resolve_device(device)
     S = build_tracked_sequence(seed, n_frames)
     return TrackedSequence(plain=plain, device=dev, **kw), S
+
+
+class SystemFrame(NamedTuple):
+    state: int                 # TrackState after the frame
+    tracked: bool              # track_monocular returned a pose
+    inliers: int               # the pose optimization's inliers (0 untracked)
+    keyframe: bool             # the frame made a keyframe (or the map)
+    reloc_tried: int           # relocalization attempts in the frame
+    reloc_ok: int              # ... that succeeded
+    ms: float                  # wall ms: upload, front end, tracker, mapping
+    host_syncs: int            # device-to-host reads of the whole system
+
+
+class SystemRunOut(NamedTuple):
+    frames: list               # SystemFrame per frame
+    n_tracked: int             # frames with a pose
+    init_frame: int            # the frame that bootstrapped the map, or -1
+    imu_init_kf: int           # keyframes made when the IMU initialized, or -1
+    imu_init_frame: int        # the frame at which it initialized, or -1
+    imu_initialized: bool
+    init_scale: float          # the scale IMU init applied (0 if none)
+    pre_init_scale: float      # the trajectory's scale the frame before
+    scale: float               # after global_refine: the trajectory's scale
+    gravity_err_deg: float     # the map's gravity direction, last frame
+    keyframes: int             # keyframes, points and lines alive at the end
+    points: int
+    lines: int
+    maps: int                  # maps in the Atlas
+    ba_norm: float             # |accelerometer bias| of the frame state
+    final_state: int           # TrackState after the last frame
+    ate_sim3: float            # after global_refine, over every frame (m)
+    ate_se3: float
+    reloc_tried: int           # relocalization attempts and successes
+    reloc_ok: int
+    poses: list                # each frame's T_cw (None untracked)
+    metrics: dict              # System.metrics_summary()
+    system: object             # the port's System
+
+
+def system_config(**kw):
+    """tests/test_mh_replay_regression.py's SystemConfig with loop closing
+    off (the port's loop closer comes later): IMU_MONOCULAR with lines,
+    EuRoC K without distortion, the body frame the camera's; kw replaces
+    fields."""
+    from .config import CameraConfig, Sensor, SystemConfig
+    base = dict(sensor=Sensor.IMU_MONOCULAR,
+                camera=CameraConfig(dist=(0.0, 0.0, 0.0, 0.0)),
+                imu=ImuConfig(Tbc=tuple(np.eye(4).reshape(-1))),
+                use_loop_closing=False)
+    return SystemConfig(**{**base, **kw})
+
+
+class SystemRun(nn.Module):
+    """The port's `System` over a replay: every frame through
+    `System.track_monocular` (the front ends, the tracker with the
+    keyframe database and relocalization, the keyframe step), then
+    `global_refine`.  The configuration is `system_config(**cfg_kw)`
+    (production's store and feature counts unless cfg_kw names others:
+    `map`, `orb`, `seed`, ...); `caps`, `viba_caps`, `sampler`,
+    `pnp_sampler` go to `System`.  forward(S) -> SystemRunOut, S the dict
+    of `inputs.build_mh_replay` (or of `inputs.build_tracked_sequence`)."""
+
+    def __init__(self, plain: bool = False, device="cuda", caps=None,
+                 viba_caps=None, sampler=None, pnp_sampler=None,
+                 **cfg_kw):
+        super().__init__()
+        self.device = resolve_device(device)
+        self.plain = plain
+        self.cfg = system_config(**cfg_kw)
+        self.kw = dict(caps=caps, viba_caps=viba_caps, sampler=sampler,
+                       pnp_sampler=pnp_sampler)
+
+    def new_system(self):
+        from .models.system import System
+        return System(self.cfg, device=self.device, plain=self.plain,
+                      **self.kw)
+
+    def forward(self, S, frame_ctx=None) -> SystemRunOut:
+        """`frame_ctx(i)`, where given, is a context manager entered around
+        frame i's work (a profiler's range)."""
+        import contextlib
+        import time
+        from .models.tracking import TrackState
+        slam = self.new_system()
+        tr = slam.tracker
+        cuda = self.device.type == "cuda"
+        frames, poses = [], []
+        init_frame = imu_kf = imu_frame = -1
+        n_made, pre_scale = 0, 0.0
+        for i, img in enumerate(S["frames"]):
+            syncs0 = slam.host_syncs
+            r0, ok0 = tr.reloc_tries, tr.reloc_ok
+            was_init = tr.map.imu_initialized
+            booting = tr.state in (TrackState.NO_IMAGES_YET,
+                                   TrackState.NOT_INITIALIZED)
+            t0 = time.perf_counter()
+            with frame_ctx(i) if frame_ctx else contextlib.nullcontext():
+                pose = slam.track_monocular(img, float(S["timestamps"][i]),
+                                            imu=S["imu"][i])
+                if cuda:
+                    torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            # the bootstrap makes two keyframes, a tracked frame one
+            made = tr.last_kf_frame_idx == tr.frame_idx \
+                and tr.state == TrackState.OK
+            n_made += (2 if booting else 1) if made else 0
+            if booting and tr.state == TrackState.OK and init_frame < 0:
+                init_frame = i
+            if tr.map.imu_initialized and not was_init:
+                imu_kf, imu_frame = n_made, i
+            elif not tr.map.imu_initialized and tr.last_pose_cw is not None:
+                pre_scale = tracked_errors(tr, S)[1]
+            ok = tr.state == TrackState.OK and not booting
+            poses.append(None if pose is None else np.array(pose))
+            frames.append(SystemFrame(
+                int(tr.state), pose is not None,
+                int(tr.last_n_inliers) if ok else 0, bool(made),
+                tr.reloc_tries - r0, tr.reloc_ok - ok0, ms,
+                slam.host_syncs - syncs0))
+        m = tr.map
+        stats = (bool(m.imu_initialized), int(m.n_kf), int(m.n_pt),
+                 int(m.n_ln), len(slam.atlas.maps),
+                 float(np.linalg.norm(tr.frame_ba)), int(tr.state))
+        slam.global_refine()
+        if cuda:
+            torch.cuda.synchronize()
+        ate, scale, grav = tracked_errors(tr, S)
+        mp = slam.mapper
+        init_scale = 0.0 if mp.init_scale is None else float(mp.init_scale)
+        return SystemRunOut(
+            frames, sum(f.tracked for f in frames), init_frame, imu_kf,
+            imu_frame, stats[0], init_scale, pre_scale,
+            scale, grav, *stats[1:], ate[0], ate[1], tr.reloc_tries,
+            tr.reloc_ok, poses, slam.metrics_summary(), slam)
+
+
+def lose_tracking(tracker) -> None:
+    """The tracker as the reference's `System.load_atlas` leaves it
+    (models/system.py:480-490): LOST, no pose, no motion model, its next
+    frame re-enters the map through `_relocalize`."""
+    from .models.mapstore import INVALID
+    from .models.tracking import TrackState
+    tracker.state = TrackState.LOST
+    tracker.init_feats = None
+    tracker.last_feats = None
+    tracker.last_pose_cw = None
+    tracker.last_feat_pt = None
+    tracker.last_feat_ln = None
+    tracker.ref_kf = INVALID
+    tracker.last_created_kf = INVALID
+    tracker.velocity = None
+    tracker.lost_count = 0
+    tracker.imu_since_kf = []
+
+
+RELOC_START = 83        # the relocalization case's first frame (4.15 s)
+RELOC_FRAMES = 5        # frames fed to it at most
+
+
+def relocalization_case(slam, S, poses, start: int = RELOC_START,
+                        max_frames: int = RELOC_FRAMES) -> dict:
+    """Relocalization on a replay's final map: the tracker lost as
+    `lose_tracking` leaves it, then the replay's frames from `start` fed
+    again without IMU until one is tracked.  Returns the frames it took
+    (-1 if none), the relocalized pose's camera-centre distance (m) and
+    rotation (deg) from `poses[j]` (the pose the run tracked at that
+    frame), the tries, the last frame's wall ms and the accepted
+    attempt's record (`Tracker.last_reloc`)."""
+    import time
+    lose_tracking(slam.tracker)
+    tries0 = slam.tracker.reloc_tries
+    out = dict(frames=-1, centre_m=float("inf"), rot_deg=float("inf"))
+    for j in range(start, min(start + max_frames, len(S["frames"]))):
+        t0 = time.perf_counter()
+        pose = slam.track_monocular(S["frames"][j],
+                                    float(S["timestamps"][j]), imu=None)
+        if slam.device.type == "cuda":
+            torch.cuda.synchronize()
+        out["ms"] = (time.perf_counter() - t0) * 1e3
+        if pose is not None:
+            P = np.asarray(pose, np.float64)
+            G = np.asarray(poses[j], np.float64)
+            c_p = -P[:, :3].T @ P[:, 3]
+            c_g = -G[:, :3].T @ G[:, 3]
+            R = P[:, :3] @ G[:, :3].T
+            out.update(frames=j - start + 1,
+                       centre_m=float(np.linalg.norm(c_p - c_g)),
+                       rot_deg=float(np.degrees(np.arccos(np.clip(
+                           (np.trace(R) - 1) / 2, -1.0, 1.0)))),
+                       reloc=slam.tracker.last_reloc)
+            break
+    out["tries"] = slam.tracker.reloc_tries - tries0
+    return out
+
+
+def mh_replay(seconds: float = 8.0, seed: int = 7, device="cuda",
+              plain: bool = False, **kw):
+    """The whole system over the MH replay (`SystemRun`, production's
+    sizes unless `kw` names others) and the replay of
+    `inputs.build_mh_replay(seconds, seed)` (`replay_kw` in kw: its
+    sizes)."""
+    from .inputs import build_mh_replay
+    dev = resolve_device(device)
+    S = build_mh_replay(seconds, seed, **kw.pop("replay_kw", {}))
+    return SystemRun(plain=plain, device=dev, **kw), S

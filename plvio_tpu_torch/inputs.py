@@ -2,8 +2,8 @@
 VI frame's IMU windows, bench.py:407-433, and of the mapping step's
 window, bench.py:214-292), the inertial back end's window and IMU chain,
 the keyframe step's maps, the bootstrap's frames, the keyframe
-sequence with its stand-in for the tracker's keyframe insertion, and the
-tracked sequence's rendered frames.
+sequence with its stand-in for the tracker's keyframe insertion, the
+tracked sequence's rendered frames and the MH replay's.
 
 The same synthetic room, orbit and frames (seed 0) as the reference; the
 local map's descriptors come from the port's own extractors, so nothing
@@ -1726,3 +1726,92 @@ def build_tracked_sequence(seed: int = 0, n_frames: int = TRACK_FRAMES):
     return dict(frames=frames, timestamps=traj.timestamps[:n], imu=batches,
                 R_wc=traj.R_wb[:n], p_wc=traj.p_wb[:n],
                 bias_gyro=imu.bias_gyro, bias_acc=imu.bias_acc)
+
+
+MH_SECONDS = 8.0
+MH_SEED = 7
+
+
+def build_mh_replay(seconds: float = MH_SECONDS, seed: int = MH_SEED,
+                    n_points: int = 9000, n_lines: int = 500,
+                    n_frames=None):
+    """The inputs of tests/test_mh_replay_regression.py:21-48 (numpy,
+    default_rng(seed) shared in its order): the machine hall with n_points
+    points and n_lines structural lines, the MH trajectory at 20 fps over
+    seconds + 0.3 s, the 200 Hz IMU along it with bias random walk, then
+    every frame rendered in order (752x480, motion blur, exposure jitter,
+    vignetting, noise; the first n_frames only where given); frame i's
+    IMU batch is the samples in (t_{i-1}, t_i] with their time steps, none
+    for frame 0.  Rendering takes ~0.5 s a frame of one CPU core.
+
+    Returns dict(frames [n] of [480,752] float32, timestamps [n], imu [n]
+    of (gyro [k,3], acc [k,3], dt [k]) float64 or None, R_wc [n,3,3],
+    p_wc [n,3] (the truth: the body frame is the camera's), scene, traj,
+    imu_data)."""
+    rng = np.random.default_rng(seed)
+    scene = syn.make_hall_scene(rng, n_points=n_points, n_lines=n_lines)
+    traj = syn.make_mh_trajectory(seconds + 0.3, fps=20.0)
+    imu = syn.synthesize_imu_mh(rng, seconds + 0.3)
+    n = len(traj.timestamps) if n_frames is None \
+        else min(n_frames, len(traj.timestamps))
+    frames, batches, last_t = [], [], None
+    for i in range(n):
+        t = traj.timestamps[i]
+        frames.append(syn.render_frame_realistic(scene, syn._eval_mh, t,
+                                                 rng))
+        if last_t is None:
+            batches.append(None)
+        else:
+            sel = (imu.timestamps > last_t) & (imu.timestamps <= t)
+            ts = imu.timestamps[sel]
+            batches.append((imu.gyro[sel], imu.acc[sel],
+                            np.diff(np.concatenate([[last_t], ts]))))
+        last_t = t
+    return dict(frames=frames, timestamps=traj.timestamps[:n], imu=batches,
+                R_wc=traj.R_wb[:n], p_wc=traj.p_wb[:n], scene=scene,
+                traj=traj, imu_data=imu)
+
+
+PNP_CASES = ("place", "rendered")
+
+
+def build_pnp_case(name: str = "rendered", seed: int = 0):
+    """2D-3D matches for `ops.pnp` at relocalization's shapes: "place",
+    tests/test_place_recognition.py:65-87's 200 matches (points 4-8 m
+    ahead, 0.5 px noise, 25% outliers); "rendered", 512 rows as the
+    tracker pads them, 400 valid: the MH replay's hall seen from its
+    trajectory at 5 s, 1 px noise, 20% outliers.  Returns (uv [N,2], X
+    [N,3] float32, valid [N] bool, T_cw [3,4] the truth)."""
+    rng = np.random.default_rng(seed)
+    K = K_EUROC
+    if name == "place":
+        n = 200
+        X = rng.uniform(-2, 2, (n, 3)).astype(np.float32)
+        X[:, 2] += 6
+        w, t = rng.normal(0, 0.3, 3), rng.normal(0, 0.5, 3)
+        R = lie.so3_exp(torch.tensor(w, dtype=torch.float32)).numpy()
+        pc = X @ R.T + t
+        uv = np.stack([K.fx * pc[:, 0] / pc[:, 2] + K.cx,
+                       K.fy * pc[:, 1] / pc[:, 2] + K.cy], -1)
+        uv += rng.normal(0, 0.5, uv.shape)
+        bad = rng.choice(n, n // 4, replace=False)
+        uv[bad] += rng.uniform(40, 150, (len(bad), 2))
+        return (uv.astype(np.float32), X, np.ones(n, bool),
+                np.concatenate([R, t[:, None]], 1).astype(np.float32))
+    scene = syn.make_hall_scene(rng, n_points=9000, n_lines=500)
+    traj = syn._eval_mh(np.array([5.0]))
+    R_wc, p_wc = traj.R_wb[0], traj.p_wb[0]
+    uv_all, _, vis, _, _ = syn.project_scene(scene, R_wc, p_wc, K.fx, K.fy,
+                                             K.cx, K.cy, 752, 480)
+    ids = np.nonzero(vis)[0][:400]
+    N = 512
+    X = np.zeros((N, 3), np.float32)
+    uv = np.zeros((N, 2), np.float32)
+    X[:400] = scene.points[ids]
+    uv[:400] = uv_all[ids] + rng.normal(0, 1.0, (400, 2))
+    bad = rng.choice(400, 80, replace=False)
+    uv[bad] += rng.uniform(30, 120, (80, 2)) * rng.choice([-1, 1], (80, 2))
+    valid = np.zeros(N, bool)
+    valid[:400] = True
+    T = np.concatenate([R_wc.T, (-R_wc.T @ p_wc)[:, None]], 1)
+    return uv, X, valid, T.astype(np.float32)

@@ -1,8 +1,8 @@
-"""Trajectory evaluation: nearest-timestamp association, Umeyama
-alignment and the absolute trajectory error (port of
-plvio_tpu/io/trajectory.py: `Trajectory` :22, `associate` :58, `umeyama`
-:71, `ate_rmse` :88; the TUM readers and writers and `rpe_rmse` are not
-ported).  Host-side numpy."""
+"""Trajectory files and evaluation: the TUM writer and reader,
+nearest-timestamp association, Umeyama alignment and the absolute
+trajectory error (port of plvio_tpu/io/trajectory.py: `Trajectory` :22,
+`write_tum` :37, `read_tum` :44, `associate` :58, `umeyama` :71,
+`ate_rmse` :88; `rpe_rmse` is not ported).  Host-side numpy."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -18,6 +18,30 @@ class Trajectory:
 
     def __len__(self):
         return len(self.timestamps)
+
+
+def write_tum(path: str, traj: Trajectory) -> None:
+    """One line a pose, `t tx ty tz qx qy qz qw`, timestamps in seconds
+    with 9 decimals."""
+    with open(path, "w") as f:
+        for t, p, q in zip(traj.timestamps, traj.positions, traj.quaternions):
+            f.write(f"{t:.9f} {p[0]:.7f} {p[1]:.7f} {p[2]:.7f} "
+                    f"{q[0]:.7f} {q[1]:.7f} {q[2]:.7f} {q[3]:.7f}\n")
+
+
+def read_tum(path: str) -> Trajectory:
+    """A TUM file (comments and commas allowed) as a Trajectory."""
+    rows = []
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line or line.startswith("#"):
+                continue
+            vals = [float(x) for x in line.replace(",", " ").split()]
+            if len(vals) >= 8:
+                rows.append(vals[:8])
+    arr = np.asarray(rows, np.float64)
+    return Trajectory(arr[:, 0], arr[:, 1:4], arr[:, 4:8])
 
 
 def associate(t_a: np.ndarray, t_b: np.ndarray, max_dt: float = 0.02):

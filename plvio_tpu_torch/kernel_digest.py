@@ -21,7 +21,14 @@ points both trees have) and compare the printed lines:
 - `imu_init`: the IMU initialization and the scale refinement at 32 KF;
 - `neighborhood_step`: the keyframe step's neighbourhood work on both maps
   of `inputs.build_keyframe_map`: the store's poses, points, lines and
-  bindings after the step.
+  bindings after the step;
+- `bow_transform`: the ORB (10 000 words) and LBD (1 000) pipelines on
+  fixed random descriptors (1000 and 256 rows, seed 5, every 10th
+  invalid): word ids and bag;
+- `bow_score`: a 512-row bank of those bags' kind (seed 6): the scores;
+- `pnp_ransac`, `mlpnp_refine`: both cases of `inputs.build_pnp_case`
+  with 128 samples of `torch.Generator().manual_seed(0)`: pose, inliers,
+  count and best hypothesis; the refinement from that pose.
 
 Needs one card; JAX is never imported.
 """
@@ -158,7 +165,46 @@ def main() -> int:
             [torch.from_numpy(getattr(m, k).copy()) for k in (
                 "kf_pose_cw", "pt_xyz", "pt_valid", "kf_match_pt", "ln_ep",
                 "ln_valid", "kf_match_ln")]))
+    for line in bow_pnp_digests(dev):
+        print(line)
     return 0
+
+
+def bow_pnp_digests(dev):
+    """The digests of slice 9's kernels (lines to print)."""
+    from plvio_tpu_torch.inputs import PNP_CASES, build_pnp_case
+    from plvio_tpu_torch.models import vocabulary as V
+    from plvio_tpu_torch.ops import pnp as PNP
+    from plvio_tpu_torch.ops.twoview import sample_indices
+    from plvio_tpu_torch.entry import K_EUROC
+    out = []
+    rng = np.random.default_rng(5)
+    for kind, n in (("orb", 1000), ("lbd", 256)):
+        voc = V.default_vocabulary(kind)
+        d = torch.from_numpy(rng.integers(0, 2 ** 32, (n, 8), dtype=np.uint32)
+                             .view(np.int32)).to(dev)
+        valid = (torch.arange(n) % 10 != 0).to(dev)
+        out.append(f"bow_transform {kind} "
+                   f"{digest(V.make_bow_pipeline(voc, n)(d, valid))}")
+    rng = np.random.default_rng(6)
+    W = 10000
+    bank = np.zeros((512, W), np.float32)
+    for r in range(512):
+        np.add.at(bank[r], rng.integers(0, W, 1000), 1.0)
+        bank[r] /= bank[r].sum()
+    tb = torch.from_numpy(bank).to(dev)
+    mask = torch.from_numpy(rng.random(512) > 0.2).to(dev)
+    out.append(f"bow_score {digest([V.bow_score(tb[5].clone(), tb, mask)])}")
+    for name in PNP_CASES:
+        uv, X, valid, _ = build_pnp_case(name)
+        s = sample_indices(torch.from_numpy(valid), 128, 6,
+                           torch.Generator().manual_seed(0)).to(dev)
+        uv, X, valid = (torch.from_numpy(a).to(dev) for a in (uv, X, valid))
+        r = PNP.pnp_ransac(K_EUROC, uv, X, valid, s)
+        out.append(f"pnp_ransac {name} {digest(r)}")
+        out.append(f"mlpnp_refine {name} " + digest(PNP.mlpnp_refine(
+            K_EUROC, uv, X, r.inliers, r.R, r.t)))
+    return out
 
 
 if __name__ == "__main__":

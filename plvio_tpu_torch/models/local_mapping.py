@@ -33,9 +33,11 @@ before it, so the calls are not batched.
 Not ported, each for a later part of the port: the multi-device window
 solve (`_dist_runner`, models/local_mapping.py:140-157; one card takes
 the single-device path, as the reference does on one device), the KB8
-fisheye branches (`kb8`, `_ba_uv`'s raw pixels), the `Metrics` stages and
-the PLVIO_TRACE prints, and the line-only local BA of SLAM modes 1-3,
-which raises NotImplementedError.
+fisheye branches (`kb8`, `_ba_uv`'s raw pixels), the PLVIO_TRACE prints,
+and the line-only local BA of SLAM modes 1-3, which raises
+NotImplementedError.  `metrics` times the reference's stages
+("mapping/cull", "/triangulate", "/lines", "/fuse", "/liba", "/lba",
+"/kf_cull").
 """
 from __future__ import annotations
 
@@ -49,6 +51,7 @@ from ..cuda import HostIO, resolve_device
 from ..ops import imu as IMU
 from ..solver.residuals import PinholeK
 from ..utils import lie
+from ..utils.metrics import Metrics
 from . import kernels as KN
 from .mapstore import INVALID, Atlas, MapStore
 
@@ -97,9 +100,10 @@ class LocalMapper(HostIO):
         self.recent_pts: List[np.ndarray] = []  # per-KF batches for culling
         self.fuse_cap = 2048
         self.fuse_match = KN.make_projection_matcher(self.K, plain=plain)
-        # the keyframe database's hook: culled keyframes leave it too (the
-        # database comes with place recognition)
+        # the keyframe database's hook (culled keyframes leave it too) and
+        # the stage profiler; `System` hands over its own
         self.kfdb = None
+        self.metrics = Metrics()
         self.n_culled = 0
         self.n_fused = 0
 
@@ -183,19 +187,25 @@ class LocalMapper(HostIO):
         inertial window, the scale / gravity refinement pulses and the
         full-map pulses), then cull keyframes.  `protect`: keyframes never
         culled.  Returns [(culled_kf, pose_cw, timestamp), ...]."""
-        self.cull_points()
-        self.cull_points_pressure(kf)
-        self.create_new_points(kf)
+        met = self.metrics
+        with met.stage("mapping/cull"):
+            self.cull_points()
+            self.cull_points_pressure(kf)
+        with met.stage("mapping/triangulate"):
+            self.create_new_points(kf)
         if self.use_lines:
-            self.cull_lines()
-            self.cull_lines_pressure(kf)
-            self.create_new_lines(kf)
-        self.search_in_neighbors(kf)
-        self.update_point_stats(kf)
+            with met.stage("mapping/lines"):
+                self.cull_lines()
+                self.cull_lines_pressure(kf)
+                self.create_new_lines(kf)
+        with met.stage("mapping/fuse"):
+            self.search_in_neighbors(kf)
+            self.update_point_stats(kf)
         if self.use_imu and not self.map.imu_initialized:
             self.maybe_initialize_imu()
         if self.use_imu and self.map.imu_initialized:
-            self.local_inertial_ba(kf)
+            with met.stage("mapping/liba"):
+                self.local_inertial_ba(kf)
             self._kf_since_init += 1
             # refinement every 3rd keyframe until the scale converged
             # (imu_ba2), every 10th after
@@ -214,8 +224,10 @@ class LocalMapper(HostIO):
                     st["v2"] = True
                     self.map.imu_ba2 = True
         else:
-            self.local_ba(kf)
-        culled = self.cull_keyframes(kf, protect=protect)
+            with met.stage("mapping/lba"):
+                self.local_ba(kf)
+        with met.stage("mapping/kf_cull"):
+            culled = self.cull_keyframes(kf, protect=protect)
         self.map.change_index += 1
         return culled
 

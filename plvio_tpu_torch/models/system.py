@@ -1,26 +1,56 @@
-"""The per-frame prelude of `System.track_monocular` (port of
-plvio_tpu/models/system.py:160-169 and `_extract_frame_lines` :314-323):
-ORB extraction, the keypoints' undistortion, line extraction, the
-endpoints' undistortion and the segments' new line equations; and the
-keyframe glue that follows the tracker each frame (`_apply_pending_transform`
-:325, `_drain_keyframes` :331, `_process_kf` :339-388, synchronous
-mapping): every new keyframe through `LocalMapper.process_keyframe`, the
+"""The public SLAM system (port of plvio_tpu/models/system.py:34-569):
+`System` builds the camera, the front ends, the Atlas, both vocabularies
+and the keyframe database, the stage profiler, the tracker and the local
+mapper, and runs them synchronously frame by frame
+(`track_monocular`); it saves trajectories and refines the map
+(`global_refine`).
+
+Its glue is shared with the entry points: the per-frame prelude
+(`frame_prelude`: ORB extraction, the keypoints' undistortion, line
+extraction, the endpoints' undistortion and the segments' new line
+equations, reference :160-169, :314-323) and the keyframe glue that
+follows the tracker each frame (`apply_pending_transform` :325,
+`drain_keyframes` :331, `process_kf` :339-388: every new keyframe into
+the keyframe database and through `LocalMapper.process_keyframe`, the
 frame records of culled keyframes re-anchored, the tracker's frame state
 brought to the keyframe the window BA moved, and the IMU init's map
-transform handed to the tracker.  The rest of `System` (the vocabulary
-and keyframe database, loop closing, the prior-map relocalizer, the
-threads, viewers and metrics) comes with the end-to-end slice.
+transform handed to the tracker).
+
+Not ported, each raising NotImplementedError naming its ROADMAP item
+where the reference would take it: loop closing (`use_loop_closing`,
+Queue 1 item 6), the prior-map relocalizer (`reloc.enabled`, item 5),
+stereo and RGB-D (`track_stereo`, `track_rgbd`, item 7), and the
+peripherals of item 9 (`async_mapping`, `change_dataset`, `save_atlas` /
+`load_atlas`, the live viewer, the overlay and snapshot dumps,
+`export_map`).  The XLA cache hygiene of the reference
+(`_host_hygiene`) has no counterpart.
 """
 from __future__ import annotations
+
+import contextlib
+import os
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
+from ..config import Sensor, SystemConfig
+from ..cuda import resolve_device
+from ..io import trajectory as TIO
 from ..ops import cameras as CAM
+from ..utils import lie
+from ..utils.metrics import Metrics
+
+_ITEM5 = ("the prior-map relocalizer is not ported yet (ROADMAP Queue 1 "
+          "item 5)")
+_ITEM6 = ("loop closing is not ported yet (ROADMAP Queue 1 item 6): pass "
+          "use_loop_closing=False")
+_ITEM7 = "is not ported yet (ROADMAP Queue 1 item 7)"
+_ITEM9 = "is not ported yet (ROADMAP Queue 1 item 9)"
 
 
 def frame_prelude(orb, lines, cam: CAM.Camera, img: torch.Tensor,
-                  plain: bool = False):
+                  plain: bool = False, metrics: Optional[Metrics] = None):
     """One frame's features, as `System.track_monocular` hands them to the
     tracker: (Features with uv_und undistorted, LineFeatures with ep
     undistorted and lineq recomputed, or None when `lines` is None).
@@ -31,16 +61,26 @@ def frame_prelude(orb, lines, cam: CAM.Camera, img: torch.Tensor,
     CUDA image (its plain version on the CPU or with `plain`).  A camera
     without distortion leaves the coordinates as they are (the
     reference's short-circuit), and then the segments keep the line
-    equations their extractor computed from the same endpoints."""
-    feats = orb(img)
-    lf = lines(img) if lines is not None else None
-    if not any(cam.dist):
-        return feats._replace(uv_und=feats.uv), lf
-    ep = None if lf is None else lf.ep.contiguous()
-    if plain or img.device.type == "cpu":
-        und, ep_u, lineq = CAM.undistort_frame_plain(cam, feats.uv, ep)
-    else:
-        und, ep_u, lineq = CAM.undistort(cam, feats.uv.contiguous(), ep)
+    equations their extractor computed from the same endpoints.
+
+    With `metrics`, the ORB extraction is timed as the stage
+    "extract_orb" and the line extraction with the one undistortion
+    launch as "extract_lines" (the reference's stages)."""
+    def stage(name):
+        return metrics.stage(name) if metrics is not None \
+            else contextlib.nullcontext()
+    with stage("extract_orb"):
+        feats = orb(img)
+    with stage("extract_lines") if lines is not None \
+            else contextlib.nullcontext():
+        lf = lines(img) if lines is not None else None
+        if not any(cam.dist):
+            return feats._replace(uv_und=feats.uv), lf
+        ep = None if lf is None else lf.ep.contiguous()
+        if plain or img.device.type == "cpu":
+            und, ep_u, lineq = CAM.undistort_frame_plain(cam, feats.uv, ep)
+        else:
+            und, ep_u, lineq = CAM.undistort(cam, feats.uv.contiguous(), ep)
     feats = feats._replace(uv_und=und)
     if lf is not None:
         lf = lf._replace(ep=ep_u, lineq=lineq)
@@ -56,27 +96,37 @@ def apply_pending_transform(tracker, mapper) -> None:
         tracker.apply_map_transform(R_gw, scale)
 
 
-def drain_keyframes(tracker, mapper) -> list:
+def drain_keyframes(tracker, mapper, kfdb=None, metrics=None) -> list:
     """Every keyframe the tracker queued, oldest first, through
     `process_kf`.  Returns [(kf, culled), ...]."""
     done = []
     while tracker.new_kf_queue:
         kf = tracker.new_kf_queue.pop(0)
-        done.append((kf, process_kf(tracker, mapper, kf)))
+        done.append((kf, process_kf(tracker, mapper, kf, kfdb, metrics)))
     return done
 
 
-def process_kf(tracker, mapper, kf: int) -> list:
-    """The mapping step of keyframe kf (the tracker's reference keyframe
-    protected from culling), the frame records of culled keyframes
-    re-anchored, and, when kf is the frame just tracked, the tracker's
-    pose (and after IMU init its velocity and biases) taken from the
-    keyframe the window BA moved; the carried VI prior is dropped then.
-    Skipped while an IMU-init transform is pending: applying it resyncs
-    the same state in the new frame.  Returns the culled keyframes."""
+def process_kf(tracker, mapper, kf: int, kfdb=None, metrics=None) -> list:
+    """Keyframe kf into the keyframe database (where one is given), its
+    mapping step (the tracker's reference keyframe protected from
+    culling), the frame records of culled keyframes re-anchored, and,
+    when kf is the frame just tracked, the tracker's pose (and after IMU
+    init its velocity and biases) taken from the keyframe the window BA
+    moved; the carried VI prior is dropped then.  Skipped while an
+    IMU-init transform is pending: applying it resyncs the same state in
+    the new frame.  With `metrics`, all of it is the stage "mapping".
+    Returns the culled keyframes."""
+    with metrics.stage("mapping") if metrics is not None \
+            else contextlib.nullcontext():
+        return _process_kf(tracker, mapper, kf, kfdb)
+
+
+def _process_kf(tracker, mapper, kf: int, kfdb) -> list:
     m = tracker.map
-    # the keyframe database's add_keyframe comes with place recognition
-    # (Queue 1 item 4)
+    if kfdb is not None:
+        kfdb.add_keyframe(kf, m.kf_feat_desc[kf], m.kf_feat_valid[kf],
+                          line_desc=m.kf_line_desc[kf],
+                          line_valid=m.kf_line_valid[kf])
     culled = mapper.process_keyframe(kf, protect=(tracker.ref_kf,))
     if culled:
         tracker.reanchor_records(culled)
@@ -95,3 +145,212 @@ def process_kf(tracker, mapper, kf: int) -> list:
     # the loop closer's and the prior-map relocalizer's hooks come with
     # Queue 1 items 6 and 5
     return culled
+
+
+class System:
+    """The monocular / mono-inertial SLAM system on the port's kernels.
+
+        slam = System(cfg)                       # on the card
+        for img, t, imu in frames:
+            pose = slam.track_monocular(img, t, imu)
+        slam.save_trajectory("CameraTrajectory.txt")
+
+    Built as the reference builds it (`cfg.orb`, `cfg.line`, `cfg.map`,
+    both vocabularies, the keyframe database on the tracker and the
+    mapper, one `Metrics`), on `device` (the card unless the caller asks
+    for the CPU, which runs the kernels' plain versions).  Keyword
+    arguments the reference does not have: `plain` runs the plain
+    versions on any device; `caps` / `viba_caps` are the LocalMapper's
+    window caps (production's by default) and `local_pts_cap` the
+    tracker's; `sampler` / `pnp_sampler` give the bootstrap's and
+    relocalization's RANSAC samples (models/tracking.py)."""
+
+    def __init__(self, cfg: SystemConfig, async_mapping: bool = False,
+                 device="cuda", plain: bool = False, caps=None,
+                 viba_caps=None, local_pts_cap: int = 2048, sampler=None,
+                 pnp_sampler=None):
+        from ..ops.frontend import OrbExtractor, make_level_specs
+        from ..ops.lines import LineExtractor
+        from .kfdb import AtlasKeyFrameDatabase
+        from .local_mapping import LocalMapper
+        from .mapstore import Atlas, MapStore
+        from .tracking import Tracker
+        from . import vocabulary as V
+        if async_mapping:
+            raise NotImplementedError(f"async_mapping {_ITEM9}")
+        if cfg.sensor not in (Sensor.MONOCULAR, Sensor.IMU_MONOCULAR):
+            raise NotImplementedError(f"sensor {cfg.sensor.name} {_ITEM7}")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.plain = plain
+        cam = cfg.camera
+        self.camera = CAM.make_camera(cam)
+        self.level_specs = make_level_specs(
+            cam.height, cam.width, cfg.orb.n_features, cfg.orb.n_levels,
+            cfg.orb.scale_factor)
+        self.extract = OrbExtractor(self.level_specs, cfg.orb.ini_th_fast,
+                                    cfg.orb.min_th_fast, plain=plain).to(
+                                        self.device)
+        self.n_feat = sum(s.n_keep for s in self.level_specs)
+        self.atlas = Atlas([MapStore(
+            max_kf=cfg.map.max_keyframes, max_pts=cfg.map.max_points,
+            max_lines=cfg.map.max_lines, n_feat=self.n_feat)])
+        self.extract_lines = None
+        if cfg.use_lines:
+            if cfg.line.detector != 0:
+                raise NotImplementedError(f"the ED line detector {_ITEM7}")
+            self.extract_lines = LineExtractor(
+                256, levels=cfg.line.levels, plain=plain).to(self.device)
+        self.vocabulary = V.default_vocabulary("orb", seed=cfg.seed)
+        self.line_vocabulary = \
+            V.default_vocabulary("lbd", seed=cfg.seed + 1) \
+            if cfg.use_lines else None
+        self.kfdb = AtlasKeyFrameDatabase(
+            self.vocabulary, cfg.map.max_keyframes, self.n_feat, self.atlas,
+            line_voc=self.line_vocabulary,
+            n_line_feat=self.atlas.current.n_line_feat, device=self.device,
+            plain=plain)
+        self.metrics = Metrics()
+        self.tracker = Tracker(cfg, self.atlas, self.n_feat, local_pts_cap,
+                               device=self.device, plain=plain,
+                               sampler=sampler, pnp_sampler=pnp_sampler)
+        self.tracker.kfdb = self.kfdb
+        self.tracker.metrics = self.metrics
+        self.mapper = LocalMapper(cfg, self.atlas, self.n_feat,
+                                  device=self.device, plain=plain,
+                                  **(caps or {}))
+        for k, v in (viba_caps or {}).items():
+            setattr(self.mapper, k, v)
+        self.mapper.kfdb = self.kfdb
+        self.mapper.metrics = self.metrics
+        if cfg.use_loop_closing:
+            raise NotImplementedError(_ITEM6)
+        self.loop_closer = None
+        if cfg.reloc.enabled:
+            raise NotImplementedError(_ITEM5)
+        self.relocalizer = None
+        self.async_mapping = False
+        if os.environ.get("PLVIO_VIEWER_PORT"):
+            raise NotImplementedError(f"the live viewer {_ITEM9}")
+
+    # ------------------------------------------------------------------
+    @property
+    def host_syncs(self) -> int:
+        """Device-to-host reads of the tracker, mapper and database."""
+        return self.tracker.host_syncs + self.mapper.host_syncs \
+            + self.kfdb.host_syncs
+
+    def track_monocular(self, img, timestamp: float,
+                        imu: Optional[Sequence] = None
+                        ) -> Optional[np.ndarray]:
+        """One frame: img [H,W] grayscale (numpy or tensor), imu an
+        optional (gyro [k,3], acc [k,3], dt [k]) batch of the samples since
+        the previous frame.  Returns T_cw [3,4] or None while not
+        tracking."""
+        img_dev = torch.as_tensor(img, dtype=torch.float32).to(self.device)
+        feats, lf = frame_prelude(self.extract, self.extract_lines,
+                                  self.camera, img_dev, self.plain,
+                                  self.metrics)
+        return self.track_features(feats, lf, timestamp, imu, img)
+
+    def track_features(self, feats, line_feats, timestamp: float,
+                       imu: Optional[Sequence] = None, img=None
+                       ) -> Optional[np.ndarray]:
+        """`track_monocular` past its front end, on a frame's features."""
+        with self.metrics.stage("track"):
+            pose = self.tracker.process_frame(feats, timestamp, imu=imu,
+                                              line_feats=line_feats)
+        drain_keyframes(self.tracker, self.mapper, self.kfdb, self.metrics)
+        self._maybe_snapshot()
+        apply_pending_transform(self.tracker, self.mapper)
+        self._maybe_dump_overlay(img)
+        return pose
+
+    def track_stereo(self, *args, **kw):
+        raise NotImplementedError(f"track_stereo {_ITEM7}")
+
+    def track_rgbd(self, *args, **kw):
+        raise NotImplementedError(f"track_rgbd {_ITEM7}")
+
+    def _maybe_dump_overlay(self, img) -> None:
+        if os.environ.get("PLVIO_OVERLAY_DIR"):
+            raise NotImplementedError(f"the tracking overlay {_ITEM9}")
+
+    def _maybe_snapshot(self) -> None:
+        if os.environ.get("PLVIO_SNAPSHOT_DIR"):
+            raise NotImplementedError(f"the map snapshots {_ITEM9}")
+
+    # ------------------------------------------------------------------
+    def activate_localization_mode(self) -> None:
+        """Freeze the map and run tracking only."""
+        self.tracker.only_tracking = True
+
+    def deactivate_localization_mode(self) -> None:
+        self.tracker.only_tracking = False
+
+    def reset_active_map(self) -> None:
+        """Restart the active map in place (the tracker's loss path)."""
+        was = self.tracker.only_tracking
+        self.tracker.only_tracking = False
+        try:
+            self.tracker._handle_lost()
+        finally:
+            self.tracker.only_tracking = was
+
+    def change_dataset(self) -> None:
+        raise NotImplementedError(f"change_dataset {_ITEM9}")
+
+    def save_atlas(self, directory: str) -> None:
+        raise NotImplementedError(f"save_atlas {_ITEM9}")
+
+    def load_atlas(self, directory: str) -> None:
+        raise NotImplementedError(f"load_atlas {_ITEM9}")
+
+    def export_map(self, path_prefix: str, fmt: str = "all") -> None:
+        raise NotImplementedError(f"export_map (the viewer) {_ITEM9}")
+
+    def save_relocalized_trajectory(self, path: str) -> None:
+        raise NotImplementedError(_ITEM5)
+
+    def global_refine(self) -> None:
+        """One full-map refinement pass: the full inertial BA of an
+        initialized VI map (the global BA of a visual map comes with loop
+        closing)."""
+        m = self.atlas.current
+        if self.cfg.sensor in (3, 4) and m.imu_initialized:
+            self.mapper.full_inertial_ba()
+
+    def metrics_summary(self) -> dict:
+        """Per-stage wall time and counters (`Metrics.summary`)."""
+        return self.metrics.summary()
+
+    def shutdown(self) -> None:
+        """PLVIO_METRICS=<path>: the stage summary written on shutdown."""
+        path = os.environ.get("PLVIO_METRICS")
+        if path:
+            self.metrics.dump(path)
+
+    @property
+    def state(self):
+        return self.tracker.state
+
+    def trajectory(self) -> TIO.Trajectory:
+        ts, pos, quat = self.tracker.full_trajectory()
+        return TIO.Trajectory(ts, pos, np.asarray(quat))
+
+    def save_trajectory(self, path: str) -> None:
+        """Every frame's pose, TUM format."""
+        TIO.write_tum(path, self.trajectory())
+
+    def save_keyframe_trajectory(self, path: str) -> None:
+        """The live keyframes' poses in time order, TUM format."""
+        m = self.atlas.current
+        kfs = m.valid_kf_indices()
+        kfs = kfs[np.argsort(m.kf_timestamp[kfs])]
+        R_cw = m.kf_pose_cw[kfs, :, :3]
+        t_cw = m.kf_pose_cw[kfs, :, 3]
+        R_wc = R_cw.transpose(0, 2, 1)
+        p = -np.einsum("kij,kj->ki", R_wc, t_cw)
+        q = lie.rot_to_quat(torch.from_numpy(
+            np.ascontiguousarray(R_wc, np.float32))).numpy()
+        TIO.write_tum(path, TIO.Trajectory(m.kf_timestamp[kfs], p, q))

@@ -9,38 +9,44 @@ lines: `TrackState`, `FrameRecord`, `Tracker.__init__` :60-192,
 :773, `_track_reference_kf` :782, `_match_and_record_lines` :821,
 `_gather_local_lines` :846, `_gather_local_points` :857, `_track_frame`
 :872-1201, `_reselect_ref_kf` :1203, `_handle_lost` :1229, `_relocalize`
-as far as :1270, `_need_keyframe` :1330, `_create_keyframe` :1390,
+:1263-1326, `_need_keyframe` :1330, `_create_keyframe` :1390,
 `_store_kf_inertial` :1424, `reanchor_records` :1450 and
 `full_trajectory` :1478).
 
 The host bookkeeping is the reference's, line for line, on the port's
-numpy `MapStore`; the device calls are the port's kernels: the init match
-(`hamming_match`'s window mode and `rot_hist`), the two-view
+numpy `MapStore`; the device calls are the port's kernels: the init
+match (`hamming_match`'s window mode and `rot_hist`), the two-view
 reconstruction (`twoview_hypotheses` and `twoview_recover`), the line
 pair matcher and `line_triangulate`, the preintegration and the frame's
 IMU prediction (`imu_preint`), the projection matcher in tracker mode
 (`proj_match`), the line projection matcher (`hamming_match`'s line
 mode), the reference-keyframe match (`hamming_match`'s window mode at an
-infinite radius: no gate), the point+line pose IRLS (`pose_irls`) and
-the VI pose optimization (`vi_pose_lm`).  A value the reference keeps on
-the device between two device calls stays a tensor here; kernel outputs
-come back to numpy where the reference calls `np.asarray` or `int()`,
-and each such read is counted in `host_syncs` (several values the
-reference reads at one point come back in one read).  `plain=True` runs
-the kernels' plain PyTorch versions on any device.
+infinite radius: no gate), the point+line pose IRLS (`pose_irls`), the
+VI pose optimization (`vi_pose_lm`) and, in relocalization, the keyframe
+database's query (`bow_transform`, `bow_score`), the ungated ratio match
+against a candidate's bound features (`hamming_match`'s window mode at
+an infinite radius), `pnp_ransac` and `mlpnp_refine`. A value the
+reference keeps on the device between two device calls stays a tensor
+here; kernel outputs come back to numpy where the reference calls
+`np.asarray` or `int()`, and each such read is counted in `host_syncs`
+(several values the reference reads at one point come back in one read).
+`plain=True` runs the kernels' plain PyTorch versions on any device.
 
 The RANSAC samples of each bootstrap attempt come from the tracker's
 `torch.Generator` (seeded with `cfg.seed`, drawn once per attempt as the
 reference splits its key per attempt), or from `sampler(valid)` ->
-(idx_h, idx_f) where the caller gives one.
+(idx_h, idx_f) where the caller gives one; those of each relocalization
+PnP attempt from the same generator, or from `pnp_sampler(valid)` ->
+[128, 6] indices.
 
-Not ported, each for a later item of the port: relocalization against
-the keyframe database (`_relocalize` past `kfdb is None`, and with it the
-in-map VI bridge's snap), the stereo / RGB-D depth branches, the KB8
-camera, the line-only pose optimizers of SLAM modes 1-3 and
-`on_map_merged` (loop closing); each raises NotImplementedError where the
-reference would take it.  The `Metrics` stages and PLVIO_TRACE prints
-are left out.
+`metrics` (a `utils.metrics.Metrics`; `System` hands the tracker its own)
+times the reference's stages: "track/preintegrate", "track/kf_create",
+and the value "track/inliers".
+
+Not ported, each for a later item of the port: the stereo / RGB-D depth
+branches, the KB8 camera, the line-only pose optimizers of SLAM modes 1-3
+and `on_map_merged` (loop closing); each raises NotImplementedError where
+the reference would take it.  The PLVIO_TRACE prints are left out.
 """
 from __future__ import annotations
 
@@ -56,16 +62,18 @@ from ..config import SystemConfig
 from ..cuda import HostIO, resolve_device
 from ..ops import imu as IMU
 from ..ops import matching as M
+from ..ops import pnp as PNP
 from ..ops import twoview as TV
 from ..solver.residuals import PinholeK
 from ..utils import lie
+from ..utils.metrics import Metrics
 from . import kernels as KN
 from .mapstore import INVALID, Atlas, MapStore
 
 _ITEM7 = ("is not ported yet (the other sensors and camera models come "
           "with Queue 1 item 7)")
-_ITEM5 = ("relocalization against the keyframe database is not ported yet "
-          "(Queue 1 item 5)")
+RELOC_ITERS = 128      # PnP RANSAC hypotheses a candidate (ops/pnp.py:49)
+RELOC_CAP = 512        # matches handed to PnP a candidate
 # 1 / 1.2^(2 octave) of octaves 0..7, as the reference computes it on the
 # host in numpy float32 (models/tracking.py:953-954)
 INV_SIGMA2 = (1.0 / (1.2 ** (2.0 * np.arange(8, dtype=np.float32)))).astype(
@@ -93,7 +101,8 @@ class Tracker(HostIO):
     def __init__(self, cfg: SystemConfig, atlas: Atlas, n_feat: int,
                  local_pts_cap: int = 2048, imu_cap: int = 64,
                  device="cuda", plain: bool = False,
-                 sampler: Optional[Callable] = None):
+                 sampler: Optional[Callable] = None,
+                 pnp_sampler: Optional[Callable] = None):
         self.cfg = cfg
         self.atlas = atlas
         self.n_feat = n_feat
@@ -147,9 +156,10 @@ class Tracker(HostIO):
         self.frame_ba = np.zeros(3, np.float32)
         # localization-only mode: track against the frozen map
         self.only_tracking = False
-        # the keyframe database (place recognition comes with the end-to-end
-        # System; without one, relocalization fails as the reference's)
+        # the keyframe database (`System` hands over its own; without one,
+        # relocalization fails, as the reference's) and the stage profiler
         self.kfdb = None
+        self.metrics = Metrics()
 
         self.state = TrackState.NO_IMAGES_YET
         self.last_feats = None
@@ -170,6 +180,14 @@ class Tracker(HostIO):
         self.last_n_inliers = 0
         self.generator = torch.Generator().manual_seed(cfg.seed)
         self.sampler = sampler
+        self.pnp_sampler = pnp_sampler
+        # what relocalization did: attempts (and successes) of _relocalize,
+        # the last attempt's candidates, the PnP attempts on them
+        # (candidate, matches, RANSAC inliers, refined inliers, tracked)
+        # and the candidate accepted (-1 when none)
+        self.reloc_tries = 0
+        self.reloc_ok = 0
+        self.last_reloc = None
         # what the bootstrap did: two-view attempts, the last attempt's
         # matches, result and inputs, device-to-host reads (in all and per
         # attempt)
@@ -256,7 +274,8 @@ class Tracker(HostIO):
                 return None
         self.last_frame_time = timestamp
         if self.use_imu and imu is not None:
-            self.grab_imu(*imu)
+            with self.metrics.stage("track/preintegrate"):
+                self.grab_imu(*imu)
             self._frame_imu = imu
         if self.state in (TrackState.NO_IMAGES_YET,
                           TrackState.NOT_INITIALIZED):
@@ -298,8 +317,10 @@ class Tracker(HostIO):
         if ok:
             self.lost_count = 0
             self.state = TrackState.OK
+            self.metrics.add("track/inliers", self.last_n_inliers)
             if self._need_keyframe():
-                self._create_keyframe(feats, timestamp)
+                with self.metrics.stage("track/kf_create"):
+                    self._create_keyframe(feats, timestamp)
             self.frames.append(self._make_record(timestamp))
             return self.last_pose_cw
         self.lost_count += 1
@@ -352,12 +373,82 @@ class Tracker(HostIO):
         self.imu_since_kf = []
 
     def _relocalize(self, feats) -> bool:
-        """Relocalization: without a keyframe database (the reference's
-        state until place recognition is built) it fails."""
+        """Relocalization against the map: the keyframe database's best 3
+        candidates for the frame's bag of words; for each, the ratio match
+        (max 60, ratio 0.8) of the frame's features against the
+        candidate's bound features, PnP RANSAC on up to 512 matches, the
+        ML refinement on its inliers, then `_track_frame` against the
+        candidate's local map.  Without a keyframe database it fails."""
         self.invalidate_vi_prior()
         if self.kfdb is None:
             return False
-        raise NotImplementedError(_ITEM5)
+        self.reloc_tries += 1
+        m = self.map
+        cands, _ = self.kfdb.query(feats.desc, feats.valid, top_n=3)
+        rec = dict(cands=[int(c) for c in cands], attempts=[], accepted=-1)
+        self.last_reloc = rec
+        uv_und = None
+        for cand in cands:
+            if not m.kf_valid[cand]:
+                continue
+            match = m.kf_match_pt[cand]
+            cf = np.nonzero(match >= 0)[0]
+            if len(cf) < 15:
+                continue
+            dev = self.device
+            idx, ok = self._match(
+                feats.desc, self._dev(m.kf_feat_desc[cand][cf]), feats.valid,
+                torch.ones(len(cf), dtype=torch.bool, device=dev),
+                torch.zeros(feats.desc.shape[0], 2, dtype=torch.float32,
+                            device=dev),
+                torch.zeros(len(cf), 2, dtype=torch.float32, device=dev),
+                radius=math.inf, max_dist=60.0, ratio=0.8)
+            ok_np, idx_np = self._host_many(ok, idx)
+            if ok_np.sum() < 12:
+                continue
+            fsel = np.nonzero(ok_np)[0]
+            pts = match[cf[idx_np[fsel]]]
+            if uv_und is None:
+                uv_und = self._host(feats.uv_und)
+            uv_p = np.zeros((RELOC_CAP, 2), np.float32)
+            X_p = np.zeros((RELOC_CAP, 3), np.float32)
+            valid = np.zeros(RELOC_CAP, bool)
+            nv = min(len(fsel), RELOC_CAP)
+            uv_p[:nv] = uv_und[fsel[:nv]]
+            X_p[:nv] = m.pt_xyz[pts[:nv]]
+            valid[:nv] = True
+            if self.pnp_sampler is not None:
+                samples = self.pnp_sampler(valid)
+            else:
+                samples = TV.sample_indices(torch.from_numpy(valid),
+                                            RELOC_ITERS, 6, self.generator)
+            uv_t, X_t, valid_t = (self._dev(a) for a in (uv_p, X_p, valid))
+            pnp = PNP.pnp_ransac_plain if self.plain else PNP.pnp_ransac
+            ml = PNP.mlpnp_refine_plain if self.plain \
+                else PNP.mlpnp_refine
+            res = pnp(self.K, uv_t, X_t, valid_t,
+                      torch.as_tensor(samples).to(dev))
+            att = dict(cand=int(cand), matches=int(nv), n_ransac=0,
+                       n_ml=0, tracked=False)
+            rec["attempts"].append(att)
+            att["n_ransac"] = int(self._host(res.n))
+            if att["n_ransac"] < 10:
+                continue
+            R, t, inl, n = ml(self.K, uv_t, X_t, res.inliers, res.R, res.t)
+            R, t, n = self._host_many(R, t, n)
+            att["n_ml"] = int(n)
+            if att["n_ml"] < 10:
+                continue
+            pose = np.concatenate([R, t[:, None]], 1).astype(np.float32)
+            self.last_pose_cw = pose
+            self.ref_kf = int(cand)
+            self.velocity = None
+            att["tracked"] = self._track_frame(feats)
+            if att["tracked"]:
+                rec["accepted"] = int(cand)
+                self.reloc_ok += 1
+                return True
+        return False
 
     def _initialize_with_depth(self, feats, timestamp: float) -> None:
         raise NotImplementedError(f"the stereo / RGB-D bootstrap {_ITEM7}")

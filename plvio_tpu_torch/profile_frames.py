@@ -3,7 +3,7 @@ inertial back end, the keyframe step's neighbourhood work, the whole
 keyframe step over a keyframe sequence and the tracked sequence goes, on
 one CUDA card.
 
-    python3 -m plvio_tpu_torch.profile_frames [sequence | tracked]
+    python3 -m plvio_tpu_torch.profile_frames [sequence | tracked | system]
 
 Builds the synthetic inputs of `chip_smoke.py` (EuRoC geometry: 480x752,
 1000 ORB features, 256 line features, 2048 map points, 128 map lines; 16
@@ -41,7 +41,13 @@ ms, device busy ms, idle share and host syncs per frame, split into the
 bootstrap frames, the tracked frames and the frames that make a
 keyframe, the device kernels with the most time and the pyramid's own,
 and the device ms of the ORB front end and of the pyramid inside it;
-`tracked` runs that part alone.
+`tracked` runs that part alone.  The whole `System` over the MH replay
+(`mh_replay`, 166 rendered frames at production's sizes, then
+`global_refine`) gets the same figures per frame, split into the
+bootstrap, tracked, keyframe and relocalization frames, the share of a
+keyframe frame's wall and device time spent in `bow_transform`, and the
+relocalization case on its final map (`entry.relocalization_case`);
+`system` runs that part alone.
 
 Prints the card's `nvidia-smi` name and power limit first.  Needs one
 card; JAX is never imported.
@@ -356,6 +362,96 @@ def profile_tracked(dev):
     print(f"   spans, device ms/frame {dev_ms}, host ms/frame {host_ms}")
 
 
+def _frame_ranges(prof):
+    """The profiled frames' host ranges and the device events (start,
+    duration us, name)."""
+    cuda_t = torch.autograd.DeviceType.CUDA
+    evts = prof.events()
+    ranges = sorted((e.time_range.start, e.time_range.end) for e in evts
+                    if e.name == "frame" and e.device_type != cuda_t)
+    dev_ev = [(e.time_range.start, e.time_range.end - e.time_range.start,
+               e.name) for e in evts
+              if e.device_type == cuda_t and e.name != "frame"]
+    return ranges, dev_ev
+
+
+def profile_system(dev):
+    """The System over the MH replay at production's sizes: a warm-up run,
+    one run for the wall ms and host syncs of each frame, one under
+    `torch.profiler` with each frame in a `record_function` range (device
+    busy ms), split into bootstrap, tracked, keyframe and relocalization
+    frames, with `bow_transform`'s device ms inside the keyframe frames;
+    then the relocalization case on the last run's map, profiled."""
+    step, S = E.mh_replay(device=dev)
+    with torch.no_grad():
+        step(S)
+        out = step(S)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.no_grad(), torch.profiler.profile(activities=acts) as prof:
+        prof_out = step(S, frame_ctx=lambda i: torch.profiler.record_function(
+            "frame"))
+    ranges, dev_ev = _frame_ranges(prof)
+    busy = [sum(d for t, d, _ in dev_ev if a <= t <= b) / 1e3
+            for a, b in ranges]
+    bow = [sum(d for t, d, nm in dev_ev if a <= t <= b and "bow_transform"
+               in nm) / 1e3 for a, b in ranges]
+    rows = defaultdict(list)
+    for i, (f, b, bw) in enumerate(zip(out.frames, busy, bow)):
+        kind = "bootstrap" if i <= out.init_frame else (
+            "relocalize" if f.reloc_tried else
+            "keyframe" if f.keyframe else "tracked")
+        rows[kind].append((f.ms, b, f.host_syncs, bw))
+    n = len(out.frames)
+    print(f"== System over the MH replay ({n} frames, production's sizes; "
+          f"{len(ranges)} profiled frames, keyframes {out.keyframes}, "
+          f"relocalizations {out.reloc_tried}): per frame")
+    for kind in ("bootstrap", "tracked", "keyframe", "relocalize"):
+        if not rows[kind]:
+            print(f"   {kind:10s} frames   0")
+            continue
+        r = np.array(rows[kind])
+        wall, dbusy = r[:, 0].mean(), r[:, 1].mean()
+        print(f"   {kind:10s} frames {len(r):3d} wall {wall:8.3f} ms/frame "
+              f"device busy {dbusy:8.3f} ms/frame idle share "
+              f"{1 - dbusy / wall:6.1%} host syncs {r[:, 2].mean():5.1f}/"
+              f"frame bow_transform {r[:, 3].mean():.4f} dev ms/frame")
+    k = np.array(rows["keyframe"])
+    if len(k):
+        print(f"   bow_transform in a keyframe frame: {k[:, 3].mean():.4f} "
+              f"dev ms = {k[:, 3].sum() / k[:, 0].sum():.3%} of its wall, "
+              f"{k[:, 3].sum() / max(k[:, 1].sum(), 1e-9):.3%} of its "
+              "device busy time")
+    tot = np.array([x for r in rows.values() for x in r])
+    print(f"   all        frames {len(tot):3d} wall {tot[:, 0].mean():8.3f} "
+          f"ms/frame device busy {tot[:, 1].mean():8.3f} ms/frame idle share"
+          f" {1 - tot[:, 1].sum() / tot[:, 0].sum():6.1%}")
+    for name, (c, ms) in sorted(_per_name(dev_ev).items(),
+                                key=lambda kv: -kv[1][1])[:12]:
+        print(f"   {name[:70]:70s} n/frame {c / n:6.1f} dev ms/frame "
+              f"{ms / n:.4f}")
+    with torch.no_grad(), torch.profiler.profile(activities=acts) as prof:
+        with torch.profiler.record_function("frame"):
+            case = E.relocalization_case(prof_out.system, S, prof_out.poses,
+                                         max_frames=1)
+    ranges, dev_ev = _frame_ranges(prof)
+    b = sum(d for t, d, _ in dev_ev) / 1e3
+    print(f"   relocalization case (the profiled run's map): frames "
+          f"{case['frames']}, wall {case.get('ms', float('nan')):.3f} ms, "
+          f"device busy {b:.3f} ms, centre gap {case['centre_m']:.4f} m")
+    for name, (c, ms) in sorted(_per_name(dev_ev).items(),
+                                key=lambda kv: -kv[1][1])[:8]:
+        print(f"     {name[:68]:68s} n {c:4d} dev ms {ms:.4f}")
+
+
+def _per_name(dev_ev):
+    per = defaultdict(lambda: [0, 0.0])
+    for _, d, name in dev_ev:
+        per[name][0] += 1
+        per[name][1] += d / 1e3
+    return per
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("profile_frames: no CUDA device", file=sys.stderr)
@@ -369,6 +465,9 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["tracked"]:
         profile_tracked(dev)
+        return 0
+    if sys.argv[1:] == ["system"]:
+        profile_system(dev)
         return 0
     (frames, poses, pt_xyz, pt_desc, pt_valid, ln_ep6, ln_desc, ln_valid,
      traj) = build_inputs(N_FRAMES, CAP_PTS, CAP_LNS, H, W,
@@ -456,6 +555,7 @@ def main() -> int:
         print(f"   host syncs per step: {syncs}")
     profile_sequence(dev)
     profile_tracked(dev)
+    profile_system(dev)
     return 0
 
 

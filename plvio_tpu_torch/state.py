@@ -1,6 +1,7 @@
 """Carry what the JAX package holds (the map, a pose, the inertial
 window's state, a keyframe map store, the local mapper's and the
-tracker's host state) over to the port."""
+tracker's host state, a vocabulary, the keyframe database's banks) over
+to the port."""
 from __future__ import annotations
 
 from typing import Dict
@@ -193,7 +194,8 @@ _TRACKER_ARRAYS = ("last_pose_cw", "velocity", "last_feat_pt",
 _TRACKER_SCALARS = ("frame_idx", "last_frame_time", "ref_kf",
                     "last_created_kf", "last_kf_frame_idx", "last_kf_time",
                     "lost_count", "last_n_inliers", "_prior_frame_idx",
-                    "init_timestamp", "only_tracking", "_skip_next_kf_imu")
+                    "init_timestamp", "only_tracking", "_skip_next_kf_imu",
+                    "reloc_tries", "reloc_ok")
 
 
 def tracker_state(tracker) -> dict:
@@ -219,6 +221,9 @@ def tracker_state(tracker) -> dict:
     st["new_kf_queue"] = [int(k) for k in tracker.new_kf_queue]
     st["frames"] = [(float(r.timestamp), int(r.ref_kf), np.array(r.T_cr),
                      int(r.map_id)) for r in tracker.frames]
+    # relocalization's sample source (the port's tracker only)
+    gen = getattr(tracker, "generator", None)
+    st["generator"] = None if gen is None else gen.get_state()
     return st
 
 
@@ -229,11 +234,56 @@ def load_tracker_state(tracker, st: dict) -> None:
     for k in _TRACKER_ARRAYS:
         setattr(tracker, k, None if st[k] is None else np.array(st[k]))
     for k in _TRACKER_SCALARS:
-        if st[k] is not None or k in ("last_frame_time",):
-            setattr(tracker, k, st[k])
+        # the relocalization counters default to 0: states made by hand or
+        # by an older tracker_state lack them
+        v = st.get(k, 0) if k in ("reloc_tries", "reloc_ok") else st[k]
+        if v is not None or k == "last_frame_time":
+            setattr(tracker, k, v)
     tracker.state = TrackState(st["state"])
     tracker.imu_since_kf = [tuple(np.array(a) for a in b)
                             for b in st["imu_since_kf"]]
     tracker.new_kf_queue = list(st["new_kf_queue"])
     tracker.frames = [FrameRecord(t, r, np.array(T), m)
                       for t, r, T, m in st["frames"]]
+    if st.get("generator") is not None:
+        tracker.generator.set_state(st["generator"])
+
+
+def vocabulary_from_numpy(voc):
+    """The JAX package's `Vocabulary` (+-1 centroid levels) as the port's
+    (packed [k^(l+1), 8] int32 levels)."""
+    from .models.vocabulary import from_bits
+    return from_bits([np.asarray(C, np.float32) > 0 for C in voc.centroids],
+                     int(voc.k), int(voc.depth))
+
+
+_KFDB_ARRAYS = ("bows", "word_ids", "present", "bows_l", "has_lines")
+
+
+def _np(a):
+    return a.detach().cpu().numpy() if torch.is_tensor(a) else np.array(a)
+
+
+def kfdb_state(atlas_db) -> dict:
+    """Every map's keyframe database banks (the port's or the JAX
+    package's `AtlasKeyFrameDatabase`): {map_id: {bows, word_ids, present,
+    bows_l, has_lines}} as numpy copies (the line banks None without a
+    line vocabulary)."""
+    return {int(mid): {k: (None if getattr(db, k, None) is None
+                           else _np(getattr(db, k))) for k in _KFDB_ARRAYS}
+            for mid, db in atlas_db._dbs.items()}
+
+
+def load_kfdb_state(atlas_db, st: dict) -> None:
+    """Set the port's `AtlasKeyFrameDatabase` banks from `kfdb_state`'s
+    dict (maps it lacks are made; maps st lacks are dropped)."""
+    atlas_db._dbs = {}
+    for mid, arrays in st.items():
+        db = atlas_db.db(int(mid))
+        db.bows.copy_(torch.from_numpy(arrays["bows"]))
+        db.word_ids.copy_(torch.from_numpy(
+            np.asarray(arrays["word_ids"], np.int32)))
+        db.present[:] = arrays["present"]
+        if db.line_voc is not None and arrays["bows_l"] is not None:
+            db.bows_l.copy_(torch.from_numpy(arrays["bows_l"]))
+            db.has_lines[:] = arrays["has_lines"]

@@ -1,6 +1,6 @@
-"""The twenty-one CUDA kernels against their plain PyTorch versions on the
-card (and schur_solve's global path, a short keyframe sequence and a short
-tracked sequence).
+"""The twenty-five CUDA kernels against their plain PyTorch versions on
+the card (and schur_solve's global path, a short keyframe sequence and a
+short tracked sequence; PnP against a float64 run of its plain version).
 
 Marked `cuda`; each test skips without a CUDA device.  This file imports
 no JAX, so it also runs on a GPU machine without JAX, where the suite's
@@ -1293,3 +1293,75 @@ def test_tracked_sequence_kernel_path_matches_cpu(dev):
     assert max(gaps) <= 2e-3
     assert abs(tk.map.n_kf - tc.map.n_kf) <= 1
     assert abs(tk.map.n_pt - tc.map.n_pt) <= 0.05 * tc.map.n_pt
+
+
+@pytest.mark.parametrize("kind", ["orb", "lbd"])
+def test_bow_transform_bit_equal(dev, kind):
+    """The descent and the bag on the card against the plain pipeline on
+    the same device: ids and bags bit-equal (integer counts over their
+    total, one true division), written into a bank's row."""
+    from plvio_tpu_torch.models import vocabulary as V
+    voc = V.default_vocabulary(kind)
+    n = 1000 if kind == "orb" else 256
+    rng = np.random.default_rng(5)
+    d = torch.from_numpy(rng.integers(0, 2 ** 32, (n, 8), dtype=np.uint32)
+                         .view(np.int32)).to(dev)
+    d[n // 2:] = d[: n - n // 2] ^ 1            # repeated words
+    valid = torch.from_numpy(rng.random(n) > 0.1).to(dev)
+    bank = torch.zeros(4, voc.n_words, device=dev)
+    ids = torch.full((4, n), -1, dtype=torch.int32, device=dev)
+    n0 = V.BOW_TRANSFORM.launches
+    wk, bk = V.make_bow_pipeline(voc, n)(d, valid, ids_out=ids[2],
+                                         bow_out=bank[2])
+    wp, bp = V.make_bow_pipeline(voc, n, plain=True)(d, valid)
+    torch.cuda.synchronize()
+    assert V.BOW_TRANSFORM.launches == n0 + 1
+    assert torch.equal(wk, wp) and torch.equal(bk, bp)
+    assert torch.equal(ids[2], wp) and torch.equal(bank[2], bp)
+    assert float(bank[[0, 1, 3]].abs().sum()) == 0.0
+
+
+def test_bow_score_matches_plain(dev):
+    """The masked L1 score of a query against a 512-row bank: within 1e-6
+    of the plain version (another summation order)."""
+    from plvio_tpu_torch.models import vocabulary as V
+    rng = np.random.default_rng(6)
+    W = 10000
+    bank = np.zeros((512, W), np.float32)
+    for r in range(512):
+        np.add.at(bank[r], rng.integers(0, W, 1000), 1.0)
+        bank[r] /= bank[r].sum()
+    v = torch.from_numpy(0.5 * bank[3] + 0.5 * bank[9]).to(dev)
+    tb = torch.from_numpy(bank).to(dev)
+    mask = torch.from_numpy(rng.random(512) > 0.2).to(dev)
+    sk = V.bow_score(v, tb, mask)
+    sp = V.score_plain(v, tb, mask)
+    torch.cuda.synchronize()
+    assert float((sk - sp).abs().max()) <= 1e-6
+    assert torch.equal(sk < -0.5, ~mask)
+
+
+@pytest.mark.parametrize("name", ["place", "rendered"])
+def test_pnp_kernels_match_float64(dev, name):
+    """`pnp_ransac` and `mlpnp_refine` against the plain version's float64
+    run on the same samples (`ops.pnp.kernels_against_float64`: the best
+    hypothesis equal, masks equal but near the gate, poses within 2x the
+    plain float32 run's gap + 1e-5)."""
+    from plvio_tpu_torch.inputs import build_pnp_case
+    from plvio_tpu_torch.ops import pnp as PNP
+    from plvio_tpu_torch.ops.twoview import sample_indices
+    uv, X, valid, _ = build_pnp_case(name)
+    tv = torch.from_numpy(valid)
+    s = sample_indices(tv, 128, 6, torch.Generator().manual_seed(1))
+    r = PNP.kernels_against_float64(
+        K, *(torch.from_numpy(a).to(dev) for a in (uv, X, valid)),
+        s.to(dev))
+    print({k: v for k, v in r.items() if k != "failures"})
+    assert not r["failures"], r["failures"]
+    assert r["n"] >= 10 and r["n_ml"] >= 10
+    # the Jacobi rotations the kernels report (chip_smoke.py's bound):
+    # at least one a solve, at most 50 sweeps of 66 (linalg.cuh)
+    st = {}
+    PNP.pnp_ransac(K, *(torch.from_numpy(a).to(dev) for a in (uv, X, valid)),
+                   s.to(dev), stats=st)
+    assert 128 + 3 <= int(st["rotations"]) <= (128 + 3) * 50 * 66

@@ -146,7 +146,8 @@ def test_port_never_loads_jax():
     CPU (the keyframe sequence at a reduced size: 15 keyframes of 128
     features, through IMU init and the first inertial window; the tracked
     sequence's first 7 frames at 300 features: the bootstrap on frame 2
-    or 3, then tracking)."""
+    or 3, then tracking; `System` through `mh_replay` on 3 frames of a
+    small hall)."""
     code = (
         "import sys\n"
         "import torch\n"
@@ -211,6 +212,16 @@ def test_port_never_loads_jax():
         "to.init_frame\n"
         "assert to.keyframes >= 2 and min(f.inliers for f in "
         "to.frames[to.init_frame + 1:]) > 30\n"
+        "from plvio_tpu_torch.config import MapConfig, OrbConfig\n"
+        "from plvio_tpu_torch.entry import mh_replay\n"
+        "mr, MS = mh_replay(1.0, device='cpu', replay_kw=dict(n_points=500, "
+        "n_lines=50, n_frames=3), orb=OrbConfig(n_features=300), "
+        "map=MapConfig(max_keyframes=16, max_points=2048, max_lines=256), "
+        "caps=dict(ba_kf_cap=8, ba_pt_cap=512, ba_obs_cap=1024))\n"
+        "mo = mr(MS)\n"
+        "assert len(mo.frames) == 3 and mo.maps == 1\n"
+        "assert mo.metrics['extract_orb']['calls'] == 3\n"
+        "assert mo.system.kfdb.db().present.sum() == mo.keyframes\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'plvio_tpu'))\n"
         "assert not bad, bad\n"
