@@ -11,12 +11,13 @@ and 2048 / 4096 / 256 / 512), the inertial back end, the keyframe step's
 neighbourhood work, the monocular bootstrap, the whole keyframe step, the
 tracked sequence (180 rendered frames through the front ends, the
 tracker and the keyframe step) and the whole `System` over the 8 s MH
-replay (166 frames, with the keyframe database and relocalization)
-through their user entry points, and fails (nonzero exit, no result
-line) unless every phase passes:
+replay (166 frames, with the keyframe database and relocalization), the
+loop closer on hand-made maps and `System` with loop closing over the
+28 s closed circuit through their user entry points, and fails (nonzero
+exit, no result line) unless every phase passes:
 
 1. the card is there (prints `nvidia-smi` name and power limit);
-2. the twenty-five CUDA kernels build from `plvio_tpu_torch/csrc` (21
+2. the twenty-eight CUDA kernels build from `plvio_tpu_torch/csrc` (23
    sources: nvcc, sm_90a, one nvcc per source, all started together);
 3. each kernel agrees with its plain PyTorch version on the card at the
    paths' shapes (the mapping kernels also on a perturbed window at the
@@ -108,18 +109,41 @@ line) unless every phase passes:
    within the regression's bounds and REF_MH's ranges, the median of each
    count inside them.  The replay is rendered once on
    the host before phase 3's slice-9 checks (numpy and cv2, in order
-   with the one generator; ~40 s there).
+   with the one generator; ~40 s there);
+14. slice 10, loop closing: `entry.loop_closure` at production caps on
+   the drifted circle (closed within its last 4 keyframes, revisit error
+   < 0.12 m and within 2x REF_LOOPCLOSE's) and on the two-map merge
+   (merged, the fused points within 5% of REF_LOOPCLOSE's), each in a
+   launch window of its own with every kernel of the path launched; on
+   the inputs those runs gave them, `sim3_ransac` (the path's samples and
+   the card's own), `sim3_reproj` (with and without fix_scale) and
+   `pose_graph` (Sim3 and 4-DoF at S = 119 in one block; the 601-keyframe
+   chain at 301 anchors and a 512-keyframe chain, S = 3584, on the global
+   path) held to their plain versions' float64 runs (within 2x the plain
+   float32 run's distance + 1e-6, the same bits on a second launch, the
+   path reported), `hamming_match`'s matrix mode equal to plain; the
+   global BA of phase 11's final map at 128 KF with lines (schur_solve's
+   global path, the reprojection RMS not above the input's); then
+   `System` with its default configuration (loop closing on) over the 28
+   s circuit (`entry.mh_loop`, 560 frames rendered by a process started
+   at the beginning, on one niced core), held to
+   test_mh_loop_single_map_survival's bounds but for the map count (no
+   more maps than REF_LOOP, the JAX run's), with every kernel of the path
+   and the loop closer's query launched.
 
 `library_ms` is one PyTorch call computing the same function where
 there is one (the pyramid's: 7 antialiased bilinear `F.interpolate`, its
 own weights; the line level's: `avg_pool2d`; `bow_score`'s: 1 - 0.5
-`torch.cdist(v[None], bank, p=1)`), else null.
+`torch.cdist(v[None], bank, p=1)`; `pose_graph`'s: its 15 dense solves
+alone, 15 x `torch.linalg.cholesky` + `cholesky_solve` at the same S),
+else null.
 
 Each kernel's least time on the card (`bound_ms`) is the larger of its
 bytes (inputs read once, outputs written once) over 3.35 TB/s and its
 operations over 67 TFLOP/s (the float32 rate outside the tensor cores,
-also used for the integer work; the two-view kernels solve in float64 by
-choice, but the float32 function they replace sets their bound), counted
+also used for the integer work; the two-view, Sim3 and pose-graph
+kernels solve in float64 by choice, but the float32 function they
+replace sets their bound), counted
 from this run's shapes and data (`work`, beside each kernel's check).
 
 Prints a JSON line of the kernels, then, as its last line,
@@ -141,7 +165,7 @@ from plvio_tpu_torch.entry import (K_EUROC, LIBA_HALF, LIBA_WORST,
                                    MAPPING_TYPICAL, MAPPING_WORST,
                                    bootstrap_step, imu_init,
                                    inertial_ba_step, keyframe_sequence,
-                                   mapping_step,
+                                   loop_closure, mapping_step,
                                    neighborhood_step, point_projection_match,
                                    project_points, relocalization_case,
                                    SystemRun, tracked_sequence,
@@ -196,11 +220,17 @@ KERNELS = {
     "bow_score": (V.BOW_SCORE, "plvio_tpu/models/vocabulary.py:116"),
     "pnp_ransac": (PNP.PNP_RANSAC, "plvio_tpu/ops/pnp.py:49"),
     "mlpnp_refine": (PNP.MLPNP_REFINE, "plvio_tpu/ops/pnp.py:217"),
+    "hamming_matrix": (M.HAMMING_MATRIX, "plvio_tpu/ops/matching.py:49"),
+    "sim3_ransac": (PNP.SIM3_RANSAC, "plvio_tpu/ops/pnp.py:165"),
+    "sim3_reproj": (KN.SIM3_REPROJ, "plvio_tpu/models/kernels.py:524"),
+    "pose_graph": (KN.POSE_GRAPH, "plvio_tpu/models/kernels.py:488"),
 }
 # schur_solve's launches whose reduced system exceeds one block (its
 # global path, counted in KN.SCHUR_SOLVE.global_launches), and the TPU
 # kernel it replaces
 GLOBAL = ("schur_solve_global", "plvio_tpu/solver/engine.py:256")
+# pose_graph's launches whose Cholesky took the cooperative global path
+GLOBAL_PG = ("pose_graph_global", "plvio_tpu/models/kernels.py:488")
 PATH_PL = ("orb_fast_grid", "orb_describe", "hamming_match", "pose_irls",
            "line_detect", "line_refine_lbd")
 PATH_VI = ("orb_fast_grid", "orb_describe", "hamming_match", "line_detect",
@@ -1942,11 +1972,13 @@ def reset_counts():
     for k, _ in KERNELS.values():
         k.launches = 0
     KN.SCHUR_SOLVE.global_launches = 0
+    KN.POSE_GRAPH.global_launches = 0
 
 
 def read_counts():
     return {**{name: k.launches for name, (k, _) in KERNELS.items()},
-            GLOBAL[0]: KN.SCHUR_SOLVE.global_launches}
+            GLOBAL[0]: KN.SCHUR_SOLVE.global_launches,
+            GLOBAL_PG[0]: KN.POSE_GRAPH.global_launches}
 
 
 def run_slice3(dev, pl_step, imgs, pose0, map_args, smi):
@@ -2457,7 +2489,7 @@ def check_global_kernels(report):
 def run_slice7(dev, smi):
     """Phase 11: the whole keyframe step over the keyframe sequence
     (`keyframe_sequence`, production's sizes) in its own launch window,
-    held to REF_SEQ.  Returns its launches."""
+    held to REF_SEQ.  Returns its launches and the final map."""
     print("[11] slice 7: keyframe_sequence, the keyframe step over "
           f"{REF_SEQ['keyframes']}+ keyframes at production's sizes")
     step, seq = keyframe_sequence(device=dev)
@@ -2525,7 +2557,7 @@ def run_slice7(dev, smi):
           f"ATE {got['ate_sim3'] * 1e3:.2f} mm (Sim3), "
           f"{got['ate_se3'] * 1e3:.2f} mm (SE3) <= 2x the reference's "
           f"{ref['ate_sim3'] * 1e3:.2f} / {ref['ate_se3'] * 1e3:.2f}")
-    return launches
+    return launches, m
 
 
 def run_slice8(dev, smi):
@@ -2747,7 +2779,7 @@ def run_slice9(dev, smi, S):
     print("[13] slice 9: System.track_monocular over the 8 s MH replay "
           f"({len(S['frames'])} frames, the 9000 / 500 hall), then "
           "global_refine, then relocalization on its map")
-    step = SystemRun(device=dev)
+    step = SystemRun(device=dev, use_loop_closing=False)
     reset_counts()
     t0 = time.perf_counter()
     with torch.no_grad():
@@ -2899,7 +2931,8 @@ def seed_spread(dev, S, first):
     for seed in SPREAD_SEEDS:
         t0 = time.perf_counter()
         with torch.no_grad():
-            o = SystemRun(device=dev, seed=seed)(S)
+            o = SystemRun(device=dev, seed=seed,
+                          use_loop_closing=False)(S)
         torch.cuda.synchronize()
         runs.append(dict(n_tracked=o.n_tracked, imu_init_kf=o.imu_init_kf,
                          keyframes=o.keyframes, points=o.points,
@@ -2929,6 +2962,368 @@ def seed_spread(dev, S, first):
               f"inside it")
 
 
+
+# --------------------------------------------------------------------------
+# Phase 14: loop closing and map merge (slice 10)
+# --------------------------------------------------------------------------
+# tests/test_torch_loop_closing.py's JAX LoopCloser at production caps (pose
+# graph 512 x 4096, global BA 128 x 8192 x 32768) on the CPU: the drifted
+# circle (the last 4 keyframes fed: which closed, the revisit keyframe's
+# centre from the first's before and after, m) and the merge (the young
+# map's last 3: which merged, merges, live points after, the merged
+# keyframes' largest centre error, m); printed by
+# `JAX_PLATFORMS=cpu PYTHONPATH=.:tests python3 \
+#  tests/test_torch_loop_closing.py`
+REF_LOOPCLOSE = {"circle": {"closed": [False, False, False, True],
+                            "err_before": 0.2630667984485626,
+                            "err_after": 0.006363206543028355},
+                 "merge": {"closed": [False, True, False], "merges": 1,
+                           "points": 2820,
+                           "err_after": 1.727771374249414e-07}}
+# scripts/run_mh_loop.py 28 cpu: the JAX System over the 28 s circuit (560
+# frames) with the default configuration on the CPU: frames tracked,
+# keyframes and maps at the end, loops closed, ATE RMSE (m) after
+# global_refine, the loop-closing stage's mean ms a keyframe (the CPU's)
+REF_LOOP = {"n_frames": 560, "n_tracked": 530, "keyframes": 68, "maps": 2,
+            "loops": 0, "ate_sim3": 1.8088, "ate_se3": 1.9566,
+            "loop_closing_ms_cpu": 4947.87, "loop_closing_calls": 133}
+PATH_LOOP = ("bow_transform", "bow_score", "hamming_match", "hamming_matrix",
+             "sim3_ransac", "sim3_reproj", "pose_graph", "ba_linearize",
+             "schur_solve", "schur_solve_global")
+PATH_MERGE = ("bow_transform", "bow_score", "hamming_match",
+              "hamming_matrix", "sim3_ransac", "sim3_reproj", "ba_linearize",
+              "schur_solve", "schur_solve_global")
+PATH_GBA = ("ba_linearize", "schur_solve", "schur_solve_global")
+PATH_MH_LOOP = PATH_SYSTEM + ("bow_score",)
+
+
+class Recorder:
+    """Wraps a module function and keeps the arguments of its calls (the
+    kernel checks of phase 14 run on the inputs the path gave them)."""
+
+    def __init__(self, mod, name):
+        self.mod, self.name = mod, name
+        self.orig = getattr(mod, name)
+        self.calls = []
+
+        def rec(*a, **kw):
+            self.calls.append((tuple(x.clone() if torch.is_tensor(x) else x
+                                     for x in a), dict(kw)))
+            return self.orig(*a, **kw)
+        setattr(mod, name, rec)
+
+    def restore(self):
+        setattr(self.mod, self.name, self.orig)
+
+
+def reproj_rms(m):
+    """RMS reprojection error (px) of every point observation of a map."""
+    ks, fs = np.nonzero((m.kf_match_pt >= 0) & m.kf_valid[:, None])
+    X = m.pt_xyz[m.kf_match_pt[ks, fs]].astype(np.float64)
+    P = m.kf_pose_cw[ks].astype(np.float64)
+    pc = np.einsum("oij,oj->oi", P[:, :, :3], X) + P[:, :, 3]
+    z = np.maximum(pc[:, 2], 1e-6)
+    K = K_EUROC
+    uv = np.stack([K.fx * pc[:, 0] / z + K.cx, K.fy * pc[:, 1] / z + K.cy],
+                  -1)
+    return float(np.sqrt(((uv - m.kf_feat_uv[ks, fs]) ** 2).sum(-1).mean()))
+
+
+def check_loop_kernels(rec, report, smi):
+    """Phase 14 (a): each new kernel against its plain version and float64
+    on the inputs the loop-closure path gave it (the drifted circle's
+    verification and graph), by the rule of `ops.pnp.sim3_against_float64`
+    / `KN.pose_graph_against_float64` (within 2x the plain float32 run's
+    distance to float64 + 1e-6, the same bits on a second launch), and
+    times, bounds and launches for the kernel line."""
+    dev = torch.device("cuda")
+    (X1, X2, valid, samples), kw = rec["sim3_ransac"].calls[0]
+    th, fix = kw.get("th", 0.08), kw.get("fix_scale", False)
+    own = TV.sample_indices(valid.cpu(), 64, 3,
+                            torch.Generator().manual_seed(1)).to(dev)
+    for what, smp in (("the path's samples", samples), ("the card's own",
+                                                        own)):
+        r = PNP.sim3_against_float64(X1, X2, valid, smp, th, fix)
+        check(not r["failures"],
+              f"sim3_ransac on the drifted circle's verification "
+              f"({int(valid.sum())} matches), {what}: best {r['best']}, "
+              f"{r['n']} inliers and (s, R, t) as the float64 run's (gap "
+              f"{r['gap']:.2e}, the plain float32 run's "
+              f"{r['plain_gap']:.2e}) {r['failures']}")
+    n, it = X1.shape[0], samples.shape[0]
+    report["sim3_ransac"] = dict(
+        **work(4 * (6 * n + 3 * it + 2 + it + 13) + 2 * n,
+               it * (400 + 30 * n) + 40 * n + 2000),
+        max_abs_err=r["gap"],
+        ms=cuda_ms(lambda: PNP.sim3_ransac(X1, X2, valid, samples, th, fix)),
+        plain_ms=cuda_ms(lambda: PNP.sim3_ransac_plain(X1, X2, valid,
+                                                       samples, th, fix),
+                         reps=5), library_ms=None)
+    args, kw = rec["sim3_reproj"].calls[0]
+    K, targs = args[0], args[1:12]
+    for fs in (False, True):
+        r = KN.sim3_reproj_against_float64(K, targs, fix_scale=fs)
+        check(not r["failures"],
+              f"sim3_reproj (fix_scale {fs}) on the circle's "
+              f"{int(targs[3].sum())} pairs a side: S13 {r['kernel']:.2e} "
+              f"from float64 (the plain run's {r['plain']:.2e}), {r['n']} "
+              f"inliers {r['failures']}")
+        if not fs:
+            e_rep = r["kernel"]
+    cap = targs[1].shape[0]
+    rounds, iters = 3, 8
+    report["sim3_reproj"] = dict(
+        **work(4 * (2 * cap * 6 + 13 + 24) + 4 * cap + 13 * 4 + 4,
+               rounds * (iters + 1) * 2 * cap * (160 + 60)),
+        max_abs_err=e_rep,
+        ms=cuda_ms(lambda: KN.sim3_reproj(K, *targs)),
+        plain_ms=cuda_ms(lambda: KN.sim3_reproj_plain(K, *targs), reps=2,
+                         warmup=1), library_ms=None)
+    gargs, _ = rec["pose_graph"].calls[0]
+    graphs = [("Sim3, the circle", gargs[:9], False, gargs[11]),
+              ("4-DoF, the circle", gargs[:9], True, gargs[11])]
+    # the 601-keyframe chain through a production-cap graph (301 anchors)
+    from plvio_tpu_torch.config import CameraConfig, SystemConfig
+    from plvio_tpu_torch.inputs import build_big_chain
+    from plvio_tpu_torch.models.loop_closing import LoopCloser
+    from plvio_tpu_torch.models.mapstore import Atlas
+    m, kfs, gt = build_big_chain()
+    lc = LoopCloser(SystemConfig(camera=CameraConfig(dist=(0.0,) * 4),
+                                 use_lines=False), Atlas(maps=[m], active=0),
+                    None, m.n_feat, device=dev)
+    chain = m.kf_chain()
+    pre = {int(k): (m.kf_pose_cw[k, :, :3].copy(),
+                    m.kf_pose_cw[k, :, 3].copy()) for k in chain}
+    kf, cand = int(kfs[-1]), int(kfs[0])
+    R_w = gt[-1][0].T @ pre[kf][0]
+    t_w = gt[-1][0].T @ (pre[kf][1] - gt[-1][1])
+    Rn = m.kf_pose_cw[kf, :, :3] @ R_w.T
+    m.kf_pose_cw[kf, :, 3] = m.kf_pose_cw[kf, :, 3] - Rn @ t_w
+    m.kf_pose_cw[kf, :, :3] = Rn
+    n0 = len(rec["pose_graph"].calls)
+    lc._essential_graph(kf, cand, 1.0, R_w, t_w, pre, {kf})
+    bargs, n_act = rec["pose_graph"].calls[n0][0][:9], \
+        rec["pose_graph"].calls[n0][0][11]
+    graphs.append((f"Sim3, the 601-KF chain ({n_act} anchors)", bargs,
+                   False, n_act))
+    # the graph at its full capacity: a 512-keyframe chain, S = 3584
+    m, kfs, gt = build_big_chain(n_kf=511)
+    lc = LoopCloser(SystemConfig(camera=CameraConfig(dist=(0.0,) * 4),
+                                 use_lines=False), Atlas(maps=[m], active=0),
+                    None, m.n_feat, device=dev)
+    chain = m.kf_chain()
+    pre = {int(k): (m.kf_pose_cw[k, :, :3].copy(),
+                    m.kf_pose_cw[k, :, 3].copy()) for k in chain}
+    kf, cand = int(kfs[-1]), int(kfs[0])
+    R_w = gt[-1][0].T @ pre[kf][0]
+    t_w = gt[-1][0].T @ (pre[kf][1] - gt[-1][1])
+    n0 = len(rec["pose_graph"].calls)
+    lc._essential_graph(kf, cand, 1.0, R_w, t_w, pre, {kf})
+    fargs, n_full = rec["pose_graph"].calls[n0][0][:9], \
+        rec["pose_graph"].calls[n0][0][11]
+    graphs.append((f"Sim3, a {n_full}-KF chain (the capacity)", fargs,
+                   False, n_full))
+    errs = []
+    for what, a, four, n_act in graphs:
+        r = KN.pose_graph_against_float64(a, four_dof=four, n_active=n_act)
+        print(f"  pose_graph {what}: S = {r['S']}, path "
+              f"{('one block', 'global')[r['path']]}, kernel "
+              f"{r['kernel']:.2e} / plain {r['plain']:.2e} from float64, "
+              f"the float64 solve moved a state by {r['step']:.3f}")
+        check(not r["failures"],
+              f"pose_graph {what} (S = {r['S']}, "
+              f"{('one block', 'global')[r['path']]} path): within 2x the "
+              "plain float32 run's distance to float64 + 1e-6, the same bits "
+              f"on a second launch {r['failures']}")
+        check(r["path"] == (1 if r["S"] > KN.PG_ONE_BLOCK_MAX_S else 0),
+              f"pose_graph reported the {('one block', 'global')[r['path']]}"
+              f" path at S = {r['S']}")
+        errs.append(r["kernel"])
+    # a graph's work: 15 iterations of the edges' 14-direction
+    # linearization (~1500 operations a direction), the blocks' sums, the
+    # factorization S^3 / 3 and two solves, the retraction and two cost
+    # passes (~700 operations an edge); bytes: states in and out, edges
+    for key, (what, a, four, n_a) in (("pose_graph", graphs[0]),
+                                      (GLOBAL_PG[0], graphs[3])):
+        E_ = int(a[7].sum())
+        S = 7 * n_a
+        ops = 15 * (E_ * (14 * 1500 + 2 * 700 + 2 * 49 * 14) + S ** 3 / 3
+                    + 2 * S * S + n_a * 400)
+        Hs = torch.randn(S, S, device=dev)
+        Hs = Hs @ Hs.T + S * torch.eye(S, device=dev)
+        g = torch.randn(S, 1, device=dev)
+
+        def library():
+            for _ in range(15):
+                torch.cholesky_solve(g, torch.linalg.cholesky(Hs))
+        report[key] = dict(
+            **work(4 * (13 * n_a * 2 + E_ * 16 + n_a), ops),
+            max_abs_err=errs[0 if key == "pose_graph" else 3],
+            ms=cuda_ms(lambda: KN.pose_graph(*a, four_dof=four,
+                                             n_active=n_a), reps=3,
+                       warmup=1),
+            plain_ms=cuda_ms(lambda: KN.pose_graph_compacted_plain(
+                *a, four_dof=four, n_active=n_a), reps=1, warmup=1),
+            library_ms=cuda_ms(library, reps=2, warmup=1))
+        print(f"  pose_graph, {what}: S = {S}, {E_} edges; plain: the "
+              "engine's float32 LM with torch's Cholesky, on the card; "
+              "library: 15 x torch.linalg.cholesky + cholesky_solve at the "
+              f"same S, on {smi}")
+    (a, b), _ = rec["hamming_dist"].calls[0]
+    hk = M.hamming_dist(a, b)
+    hp = M.hamming_dist_plain(a, b)
+    check(torch.equal(hk, hp), f"hamming_match's matrix mode "
+          f"{a.shape[0]} x {b.shape[0]}: equal to the plain matmul")
+    report["hamming_matrix"] = dict(
+        **work(32 * (a.shape[0] + b.shape[0]) + 4 * a.shape[0] * b.shape[0],
+               16 * a.shape[0] * b.shape[0]), max_abs_err=0.0,
+        ms=cuda_ms(lambda: M.hamming_dist(a, b)),
+        plain_ms=cuda_ms(lambda: M.hamming_dist_plain(a, b)),
+        library_ms=None)
+
+
+def run_slice10(dev, smi, seq_map, circuit):
+    """Phase 14: the loop closer at production caps on the drifted circle
+    and the merge (`entry.loop_closure`, each in a launch window of its
+    own), the new kernels against plain and float64 on the inputs the
+    circle gave them, the global BA of the keyframe sequence's final map
+    (window of its own), and the 28 s circuit through `System` with the
+    default configuration (`entry.mh_loop`; frames rendered by a process
+    started at the script's beginning).  Returns (launches by path,
+    report entries)."""
+    print("[14] slice 10: loop closing and map merge (entry.loop_closure at "
+          "production caps), the kernels against float64, the global BA "
+          "at 128 KF, the 28 s circuit through System")
+    report = {}
+    recs = {name: Recorder(mod, name) for mod, name in (
+        (PNP, "sim3_ransac"), (KN, "sim3_reproj"), (KN, "pose_graph"),
+        (M, "hamming_dist"))}
+    launches = {}
+    try:
+        out = {}
+        for case in ("circle", "merge"):
+            step, inputs = loop_closure(case, device=dev)
+            reset_counts()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                out[case] = o = step(inputs)
+            torch.cuda.synchronize()
+            launches[case] = read_counts()
+            print(f"  {case}: closed {o.closed}, loops {o.loops}, merges "
+                  f"{o.merges}, verifications {o.verifications}, error "
+                  f"{o.err_before:.4f} -> {o.err_after:.4f} m, points "
+                  f"{o.points}, graph {o.graph}, ms per keyframe "
+                  f"{[round(x, 1) for x in o.ms]} "
+                  f"({time.perf_counter() - t0:.1f} s), on {smi}")
+            print(f"  launches: {launches[case]}")
+        ref = REF_LOOPCLOSE
+        o = out["circle"]
+        check(o.loops == 1 and o.err_after < 0.12
+              and o.err_after <= 2 * ref["circle"]["err_after"],
+              f"the drifted circle closed within its last 4 keyframes "
+              f"({o.closed}), revisit error {o.err_after:.4f} m < 0.12 and "
+              f"<= 2x the JAX loop closer's {ref['circle']['err_after']:.4f}")
+        check(all(launches["circle"][k] > 0 for k in PATH_LOOP),
+              f"every kernel of the loop closure launched "
+              f"({', '.join(PATH_LOOP)})")
+        o = out["merge"]
+        rm = ref["merge"]
+        check(o.merges == rm["merges"] == 1 and o.maps == 1
+              and abs(o.points - rm["points"]) <= 0.05 * rm["points"]
+              and o.err_after < 0.08,
+              f"the young map merged ({o.closed}), {o.points} points after "
+              f"the fusion within 5% of the JAX run's {rm['points']}, the "
+              f"merged keyframes within {o.err_after:.4f} < 0.08 m")
+        check(all(launches["merge"][k] > 0 for k in PATH_MERGE),
+              f"every kernel of the merge launched ({', '.join(PATH_MERGE)})")
+        check_loop_kernels(recs, report, smi)
+    finally:
+        for r in recs.values():
+            r.restore()
+    # (c) the global BA of the keyframe sequence's final map
+    from plvio_tpu_torch.config import CameraConfig, SystemConfig
+    from plvio_tpu_torch.models.loop_closing import LoopCloser
+    from plvio_tpu_torch.models.mapstore import Atlas
+    rms0 = reproj_rms(seq_map)
+    n_lines = int(seq_map.ln_valid.sum())
+    lc = LoopCloser(SystemConfig(camera=CameraConfig(dist=(0.0,) * 4)),
+                    Atlas(maps=[seq_map], active=0), None, seq_map.n_feat,
+                    device=dev)
+    chain = seq_map.kf_chain()
+    reset_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        lc.run_global_ba(fixed_kf=int(chain[0]))
+    torch.cuda.synchronize()
+    ms_gba = (time.perf_counter() - t0) * 1e3
+    launches["gba"] = read_counts()
+    rms1 = reproj_rms(seq_map)
+    print(f"  global BA of the sequence's map ({len(chain)} KF, {n_lines} "
+          f"lines, caps {lc._gba_caps}): reprojection RMS {rms0:.4f} -> "
+          f"{rms1:.4f} px in {ms_gba:.1f} ms, launches {launches['gba']}, "
+          f"on {smi}")
+    check(launches["gba"][GLOBAL[0]] > 0 and lc.gba_pl_kernel is not None
+          and all(launches["gba"][k] > 0 for k in PATH_GBA),
+          "the global BA with lines took schur_solve's global path (S = 768)")
+    check(np.isfinite(rms1) and rms1 <= rms0,
+          f"its reprojection RMS {rms1:.4f} px <= the input's {rms0:.4f}")
+    # (d) the circuit through System with the default configuration
+    proc, shm, n_frames = circuit
+    t0 = time.perf_counter()
+    proc.join()
+    check(proc.exitcode == 0, "the circuit's frames rendered (waited "
+          f"{time.perf_counter() - t0:.1f} s for the render process)")
+    from plvio_tpu_torch.entry import SystemRun
+    from plvio_tpu_torch.inputs import MH_LOOP_SECONDS, build_mh_loop
+    view = np.ndarray((n_frames, H, W), np.float32, buffer=shm.buf)
+    frames = view.copy()
+    del view
+    S = build_mh_loop(MH_LOOP_SECONDS, frames=frames)
+    step = SystemRun(device=dev)
+    check(step.cfg.use_loop_closing, "the default configuration: loop "
+          "closing on")
+    reset_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        o = step(S)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches["mh_loop"] = read_counts()
+    from plvio_tpu_torch.models.tracking import TrackState
+    fr = o.frames
+    kf_ms = [f.ms for f in fr if f.keyframe]
+    tr_ms = [f.ms for f in fr if f.tracked and not f.keyframe]
+    lcs = o.metrics.get("loop_closing", {})
+    got = dict(n_tracked=o.n_tracked, n_frames=len(fr), keyframes=o.keyframes,
+               lines=o.lines, maps=o.maps, loops=o.loops, merges=o.merges,
+               verifications=o.verifications, imu=o.imu_initialized,
+               final_state=o.final_state, ate_sim3=o.ate_sim3,
+               ate_se3=o.ate_se3,
+               loop_closing_ms=lcs.get("mean_ms"),
+               loop_closing_calls=lcs.get("calls"))
+    print(f"  the circuit: {got}; reference {REF_LOOP}")
+    print(f"  wall ms a frame: tracked {np.mean(tr_ms):.1f}, keyframe "
+          f"{np.mean(kf_ms):.1f} (max {max(kf_ms):.1f}); the loop-closing "
+          f"stage {lcs.get('mean_ms')} ms a keyframe; {wall:.1f} s in all; "
+          f"launches {launches['mh_loop']}, on {smi}")
+    # test_mh_loop_single_map_survival's bounds, but for the map count:
+    # the JAX System's own run of this tree splits the circuit in two
+    # maps at t ~ 15 s (REF_LOOP), so the port is held to no more maps
+    # than the reference made
+    check(o.imu_initialized and o.maps <= max(1, REF_LOOP["maps"])
+          and o.final_state != int(TrackState.LOST)
+          and o.n_tracked >= 0.85 * len(fr),
+          f"test_mh_loop_single_map_survival's bounds: IMU initialized "
+          f"({o.imu_initialized}), {o.maps} map(s) (one: "
+          f"{o.maps == 1}; the reference's run {REF_LOOP['maps']}), not "
+          f"LOST at the end ({o.final_state}), {o.n_tracked} / {len(fr)} "
+          ">= 85% tracked")
+    check(all(launches["mh_loop"][k] > 0 for k in PATH_MH_LOOP),
+          f"every kernel of the System path launched, the loop closer's "
+          f"query included ({', '.join(PATH_MH_LOOP)})")
+    return launches, report
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2942,6 +3337,68 @@ def main():
         f"{torch.__version__}, CUDA {torch.version.cuda})"
     print(smi)
     print(f"[1] card: {card}")
+    circuit = start_circuit_render()
+    try:
+        return run_phases(dev, smi, circuit)
+    finally:
+        proc, shm, _ = circuit
+        if proc.is_alive():
+            proc.terminate()
+        proc.join()
+        shm.close()
+        shm.unlink()
+
+
+def start_circuit_render():
+    """A process rendering the 28 s circuit's frames (`inputs.
+    render_mh_loop`, ~0.3 s a frame of one core) into shared memory while
+    phases 2-13 run, held to one thread on the host's last core at the
+    lowest priority: a renderer on every core moves the CUDA-event times
+    of the small kernels (PERF.md §6).  Returns (process, shared block,
+    frame count)."""
+    import multiprocessing as mp
+    import os
+    from multiprocessing import shared_memory
+    from plvio_tpu_torch.inputs import MH_LOOP_SECONDS
+    n = len(np.arange(0.0, MH_LOOP_SECONDS, 1.0 / 20.0))
+    shm = shared_memory.SharedMemory(create=True, size=n * H * W * 4)
+    saved = {k: os.environ.get(k) for k in ("OMP_NUM_THREADS",
+                                            "OPENBLAS_NUM_THREADS",
+                                            "MKL_NUM_THREADS")}
+    os.environ.update({k: "1" for k in saved})
+    try:
+        proc = mp.get_context("spawn").Process(
+            target=_render_circuit, args=(shm.name, n), daemon=True)
+        proc.start()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+    return proc, shm, n
+
+
+def _render_circuit(name, n):
+    import os
+    from multiprocessing import shared_memory
+    os.nice(19)
+    cores = sorted(os.sched_getaffinity(0))
+    os.sched_setaffinity(0, {cores[-1]})
+    try:
+        import cv2
+        cv2.setNumThreads(1)
+    except ImportError:
+        pass
+    from plvio_tpu_torch.inputs import render_mh_loop
+    shm = shared_memory.SharedMemory(name=name)
+    try:
+        render_mh_loop(np.ndarray((n, H, W), np.float32, buffer=shm.buf))
+    finally:
+        shm.close()
+
+
+def run_phases(dev, smi, circuit):
 
     print("[2] build")
     t0 = time.perf_counter()
@@ -3112,13 +3569,17 @@ def main():
     launches_liba = run_slice4(dev, smi)
     launches_nbh = run_slice5(dev, smi, report)
     launches_boot = run_slice6(dev, smi, report)
-    launches_seq = run_slice7(dev, smi)
+    launches_seq, seq_map = run_slice7(dev, smi)
     launches_track = run_slice8(dev, smi)
     launches_sys, launches_reloc = run_slice9(dev, smi, S)
+    launches_loop, report_loop = run_slice10(dev, smi, seq_map, circuit)
+    report.update(report_loop)
 
     rows = []
     for name, (k, replaces) in [*KERNELS.items(),
-                                (GLOBAL[0], (KN.SCHUR_SOLVE, GLOBAL[1]))]:
+                                (GLOBAL[0], (KN.SCHUR_SOLVE, GLOBAL[1])),
+                                (GLOBAL_PG[0], (KN.POSE_GRAPH,
+                                                GLOBAL_PG[1]))]:
         rep = report[name]
         lib = rep.get("library_ms")
         print(f"  {name}: {rep['ms']:.4f} ms, plain {rep['plain_ms']:.4f} ms,"
@@ -3132,7 +3593,8 @@ def main():
                          + launches_map[name] + launches_liba[name]
                          + launches_nbh[name] + launches_boot[name]
                          + launches_seq[name] + launches_track[name]
-                         + launches_sys[name] + launches_reloc[name],
+                         + launches_sys[name] + launches_reloc[name]
+                         + sum(v[name] for v in launches_loop.values()),
                          max_abs_err=rep["max_abs_err"], ms=rep["ms"],
                          plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"],
                          bound_by=rep["bound_by"],

@@ -10,8 +10,8 @@ nvcc for sm_90a at first use, see `cuda.py`).  Each kernel's wrapper runs
 its plain PyTorch version for CPU tensors and launches the kernel for CUDA
 tensors; there is no silent fallback between the two.
 
-Slices ported so far (`entry.py`): the point+line tracked frame and the
-production mono-inertial point+line frame.
+The slices ported so far, from the tracked frames to `System` with loop
+closing, are the entry points of `entry.py`.
 """
 import torch
 

@@ -47,6 +47,14 @@
 // difference < ang_tol, len_a / max(len_b, 1e-6) lies in (0.5, 2) and both
 // lengths exceed 40 px.  At 256 x 256 segments it is launch-bound like the
 // other modes.
+//
+// The matrix mode (entry point hamming_matrix) writes the whole N x M
+// distance matrix as float32, for the loop closer's host-side matching
+// (`_refine_sim3_guided` at 1024 x 1024, `_refine_sim3_reproj` and
+// `_fuse_duplicates`, plvio_tpu/models/loop_closing.py:322, 443, 1064,
+// which read `hamming_matrix` whole).  One thread an entry: the row's 8
+// words from the L1-cached row, the column's from shared memory (a
+// block's 32 columns), XOR and __popc.  Bound by writing 4 N M bytes.
 #include "common.cuh"
 
 namespace {
@@ -176,7 +184,39 @@ __global__ void mutual_check(Params p) {
   p.ok[row] = (p.col_best[p.idx[row]] & 0xffffu) == uint32_t(row);
 }
 
+// dist[i, j] = popcount(a_i ^ b_j): blocks of 32 x 8 threads over 32
+// columns x 8 rows.
+__global__ void hamming_matrix_kernel(const uint32_t* __restrict__ a,
+                                      const uint32_t* __restrict__ b, int n,
+                                      int m, float* __restrict__ dist) {
+  __shared__ uint32_t cols[32][9];
+  const int j0 = blockIdx.x * 32;
+  for (int e = threadIdx.y * 32 + threadIdx.x; e < 32 * 8; e += 256) {
+    const int jj = e >> 3, w = e & 7;
+    cols[jj][w] = j0 + jj < m ? b[size_t(j0 + jj) * 8 + w] : 0u;
+  }
+  __syncthreads();
+  const int i = blockIdx.y * 8 + threadIdx.y;
+  const int j = j0 + threadIdx.x;
+  if (i >= n || j >= m) return;
+  int d = 0;
+#pragma unroll
+  for (int w = 0; w < 8; ++w)
+    d += __popc(a[size_t(i) * 8 + w] ^ cols[threadIdx.x][w]);
+  dist[size_t(i) * m + j] = float(d);
+}
+
 }  // namespace
+
+PLVIO_API int hamming_matrix(const void* a, const void* b, int n, int m,
+                             void* dist, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid((m + 31) / 32, (n + 7) / 8);
+  hamming_matrix_kernel<<<grid, dim3(32, 8), 0, s>>>(
+      static_cast<const uint32_t*>(a), static_cast<const uint32_t*>(b), n, m,
+      static_cast<float*>(dist));
+  return static_cast<int>(cudaGetLastError());
+}
 
 PLVIO_API int hamming_match(const void* map_desc, const void* obs_desc,
                             const void* row_ok, const void* col_ok,

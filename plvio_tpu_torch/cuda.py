@@ -6,6 +6,8 @@ at first use:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 --fmad=false
          -shared -Xcompiler -fPIC -o build/lib<name>-<hash>.so csrc/<name>.cu
 
+(with `SOURCE_FLAGS` added for the sources that name some)
+
 into `build/` beside this file (ignored by git), named by a hash of the
 sources and flags so that an edited kernel is rebuilt.  The library is
 loaded with ctypes; every pointer and the stream are passed as
@@ -39,6 +41,12 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+# flags of one source besides NVCC_FLAGS.  pose_graph.cu: the NVVM
+# optimizer at its default -O3 (nvcc 12.9) returns NaN for the rho rows of
+# the forward-mode Dual residual of csrc/sim3.cuh (a standalone kernel of
+# that chain reproduces it; -O2, -G and __noinline__ give the host's
+# values), so its front end runs at -O2
+SOURCE_FLAGS = {"pose_graph": ("-Xcicc", "-O2")}
 
 _lock = threading.Lock()
 
@@ -56,14 +64,16 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS
+                                + SOURCE_FLAGS.get(name, ())).encode())
     for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
         h.update(src.read_bytes())
     return BUILD / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def _compile_cmd(name: str, out: Path, ptxas_info: bool) -> list:
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(out), str(CSRC / f"{name}.cu")]
+    cmd = [nvcc_path(), *NVCC_FLAGS, *SOURCE_FLAGS.get(name, ()), "-o",
+           str(out), str(CSRC / f"{name}.cu")]
     if ptxas_info:
         cmd[1:1] = ["-Xptxas", "-v"]
     return cmd
@@ -171,6 +181,22 @@ class HostIO:
         if t.device.type != "cpu":
             self.host_syncs += 1
         return t.detach().cpu().numpy()
+
+    def _host_many(self, *ts) -> list:
+        """Several kernel outputs back in numpy with one read of the
+        device (what the reference reads at one point)."""
+        if ts and ts[0].device.type != "cpu":
+            self.host_syncs += 1
+            flat = torch.cat([t.detach().reshape(-1).to(torch.float64)
+                              for t in ts]).cpu().numpy()
+            out, off = [], 0
+            for t in ts:
+                n = t.numel()
+                a = flat[off:off + n].reshape(tuple(t.shape))
+                out.append(a.astype(str(t.dtype).replace("torch.", "")))
+                off += n
+            return out
+        return [t.detach().numpy() for t in ts]
 
 
 def check_cuda(name: str, *tensors: torch.Tensor) -> None:

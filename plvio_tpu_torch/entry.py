@@ -47,6 +47,15 @@ tracked_sequence(...) -> (step, frames): the mono-inertial main path
                          the keyframe glue (`_drain_keyframes`,
                          models/system.py:325-388) to a gravity-aligned
                          metric map
+mh_loop(...)          -> (run, circuit): the whole system with its default
+                         configuration (loop closing on) over the closed
+                         circuit of scripts/run_mh_loop.py
+                         (`inputs.build_mh_loop`)
+loop_closure(case)    -> (step, inputs): `models/loop_closing.LoopCloser`
+                         at production caps over a hand-made map of the
+                         reference's loop-closing tests ("circle": the
+                         drifted circle closes at its revisit; "merge":
+                         a young map merges into the old one)
 mh_replay(...)        -> (run, replay): the whole system end to end,
                          `models/system.System.track_monocular`
                          (models/system.py:153) over the 8 s MH replay of
@@ -1026,18 +1035,22 @@ class SystemRunOut(NamedTuple):
     poses: list                # each frame's T_cw (None untracked)
     metrics: dict              # System.metrics_summary()
     system: object             # the port's System
+    loops: int = 0             # loops the loop closer closed
+    merges: int = 0            # maps it merged
+    verifications: int = 0     # Sim3 verifications it ran
 
 
 def system_config(**kw):
-    """tests/test_mh_replay_regression.py's SystemConfig with loop closing
-    off (the port's loop closer comes later): IMU_MONOCULAR with lines,
-    EuRoC K without distortion, the body frame the camera's; kw replaces
-    fields."""
+    """The SystemConfig of tests/test_mh_replay_regression.py and
+    scripts/run_mh_loop.py, the system's defaults otherwise (loop closing
+    on): IMU_MONOCULAR with lines, EuRoC K without distortion, the body
+    frame the camera's; kw replaces fields (the MH replay's comparisons
+    pass use_loop_closing=False, as the JAX reference run they are held
+    to)."""
     from .config import CameraConfig, Sensor, SystemConfig
     base = dict(sensor=Sensor.IMU_MONOCULAR,
                 camera=CameraConfig(dist=(0.0, 0.0, 0.0, 0.0)),
-                imu=ImuConfig(Tbc=tuple(np.eye(4).reshape(-1))),
-                use_loop_closing=False)
+                imu=ImuConfig(Tbc=tuple(np.eye(4).reshape(-1))))
     return SystemConfig(**{**base, **kw})
 
 
@@ -1047,19 +1060,20 @@ class SystemRun(nn.Module):
     keyframe database and relocalization, the keyframe step), then
     `global_refine`.  The configuration is `system_config(**cfg_kw)`
     (production's store and feature counts unless cfg_kw names others:
-    `map`, `orb`, `seed`, ...); `caps`, `viba_caps`, `sampler`,
-    `pnp_sampler` go to `System`.  forward(S) -> SystemRunOut, S the dict
+    `map`, `orb`, `seed`, `use_loop_closing`, ...); `caps`, `viba_caps`,
+    `sampler`, `pnp_sampler`, `sim3_sampler` go to `System`.
+    forward(S) -> SystemRunOut, S the dict
     of `inputs.build_mh_replay` (or of `inputs.build_tracked_sequence`)."""
 
     def __init__(self, plain: bool = False, device="cuda", caps=None,
                  viba_caps=None, sampler=None, pnp_sampler=None,
-                 **cfg_kw):
+                 sim3_sampler=None, **cfg_kw):
         super().__init__()
         self.device = resolve_device(device)
         self.plain = plain
         self.cfg = system_config(**cfg_kw)
         self.kw = dict(caps=caps, viba_caps=viba_caps, sampler=sampler,
-                       pnp_sampler=pnp_sampler)
+                       pnp_sampler=pnp_sampler, sim3_sampler=sim3_sampler)
 
     def new_system(self):
         from .models.system import System
@@ -1118,11 +1132,14 @@ class SystemRun(nn.Module):
         ate, scale, grav = tracked_errors(tr, S)
         mp = slam.mapper
         init_scale = 0.0 if mp.init_scale is None else float(mp.init_scale)
+        lc = slam.loop_closer
         return SystemRunOut(
             frames, sum(f.tracked for f in frames), init_frame, imu_kf,
             imu_frame, stats[0], init_scale, pre_scale,
             scale, grav, *stats[1:], ate[0], ate[1], tr.reloc_tries,
-            tr.reloc_ok, poses, slam.metrics_summary(), slam)
+            tr.reloc_ok, poses, slam.metrics_summary(), slam,
+            *((lc.n_loops_closed, lc.n_maps_merged, lc.n_verifications)
+              if lc is not None else (0, 0, 0)))
 
 
 def lose_tracking(tracker) -> None:
@@ -1194,3 +1211,137 @@ def mh_replay(seconds: float = 8.0, seed: int = 7, device="cuda",
     dev = resolve_device(device)
     S = build_mh_replay(seconds, seed, **kw.pop("replay_kw", {}))
     return SystemRun(plain=plain, device=dev, **kw), S
+
+
+def mh_loop(duration: float = 28.0, seed: int = 7, device="cuda",
+            plain: bool = False, **kw):
+    """The whole system with its default configuration (loop closing on)
+    over the closed circuit of scripts/run_mh_loop.py (`SystemRun`,
+    production's sizes unless `kw` names others) and the circuit of
+    `inputs.build_mh_loop(duration, seed)` (`replay_kw` in kw: its
+    sizes)."""
+    from .inputs import build_mh_loop
+    dev = resolve_device(device)
+    S = build_mh_loop(duration, seed, **kw.pop("replay_kw", {}))
+    return SystemRun(plain=plain, device=dev, **kw), S
+
+
+class LoopClosureOut(NamedTuple):
+    case: str
+    closed: list               # per keyframe fed: a loop closed / maps merged
+    loops: int
+    merges: int
+    verifications: int         # Sim3 verifications run
+    err_before: float          # circle: the revisit keyframe's centre from
+    err_after: float           # the first's (m); merge: the largest merged
+                               # keyframe centre's error against the truth
+    maps: int                  # maps in the Atlas after
+    points: int                # live points after
+    graph: dict                # LoopCloser.last_graph: the last graph
+    verify: dict               # LoopCloser.last_verify
+    ms: list                   # wall ms per keyframe fed
+    loop_closer: object
+
+
+class LoopClosure(nn.Module):
+    """`LoopCloser.process_keyframe` over the last keyframes of a hand-made
+    map (`inputs.build_drifted_loop_map`: the last 4; `inputs.
+    build_merge_maps`: the young map's last 3), with the reference tests'
+    keyframe database (the random vocabulary of seed 0, a database per map
+    for the merge) at production caps (pose graph 512 keyframes x 4096
+    edges, global BA 128 x 8192 x 32768; `gba_caps` replaces the last: on
+    the CPU pass smaller ones).  forward(inputs) works on copies of the
+    maps and returns LoopClosureOut."""
+
+    def __init__(self, case: str = "circle", device="cuda",
+                 plain: bool = False, gba_caps=None):
+        super().__init__()
+        if case not in ("circle", "merge"):
+            raise ValueError(f"loop_closure: no case {case!r}")
+        self.case = case
+        self.device = resolve_device(device)
+        self.plain = plain
+        self.gba_caps = gba_caps
+
+    def forward(self, inputs) -> LoopClosureOut:
+        import copy
+        import time
+        from .config import CameraConfig, SystemConfig
+        from .models import vocabulary as V
+        from .models.kfdb import AtlasKeyFrameDatabase, KeyFrameDatabase
+        from .models.loop_closing import LoopCloser
+        from .models.mapstore import Atlas
+        cfg = SystemConfig(camera=CameraConfig(dist=(0.0, 0.0, 0.0, 0.0)),
+                           use_lines=False)
+        voc = V.random_vocabulary(seed=0)
+        dev, plain = self.device, self.plain
+        if self.case == "circle":
+            m = copy.deepcopy(inputs["map"])
+            kfs = inputs["keyframes"]
+            atlas = Atlas(maps=[m], active=0)
+            db = KeyFrameDatabase(voc, m.max_kf, m.n_feat, device=dev,
+                                  plain=plain)
+            for kf in kfs:
+                db.add_keyframe(kf, m.kf_feat_desc[kf], m.kf_feat_valid[kf])
+            feed = kfs[-4:]
+        else:
+            m_old = copy.deepcopy(inputs["m_old"])
+            m_cur = copy.deepcopy(inputs["m_cur"])
+            atlas = Atlas(maps=[m_old, m_cur], active=1)
+            db = AtlasKeyFrameDatabase(voc, 64, m_cur.n_feat, atlas,
+                                       device=dev, plain=plain)
+            for mm, ks in ((m_old, inputs["old_kfs"]),
+                           (m_cur, inputs["cur_kfs"])):
+                for kf in ks:
+                    db.add_keyframe(kf, mm.kf_feat_desc[kf],
+                                    mm.kf_feat_valid[kf], map_id=mm.map_id)
+            feed = inputs["cur_kfs"][-3:]
+        lc = LoopCloser(cfg, atlas, db, atlas.current.n_feat, device=dev,
+                        plain=plain)
+        if self.gba_caps is not None:
+            lc._gba_caps = tuple(self.gba_caps)
+        err0 = self._error(atlas, inputs, None)
+        closed, ms = [], []
+        for kf in feed:
+            t0 = time.perf_counter()
+            closed.append(bool(lc.process_keyframe(int(kf))))
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        kf_map = None if lc.pending_merge is None \
+            else lc.pending_merge["kf_map"]
+        return LoopClosureOut(
+            self.case, closed, lc.n_loops_closed, lc.n_maps_merged,
+            lc.n_verifications, err0, self._error(atlas, inputs, kf_map),
+            len(atlas.maps), int(atlas.current.pt_valid.sum()),
+            lc.last_graph, lc.last_verify, ms, lc)
+
+    def _error(self, atlas, inputs, kf_map) -> float:
+        m = atlas.current
+        c = m.kf_centers()
+        if self.case == "circle":
+            kfs = inputs["keyframes"]
+            return float(np.linalg.norm(c[kfs[-1]] - c[kfs[0]]))
+        if kf_map is None:
+            return float("inf")
+        return float(max(np.linalg.norm(c[kf_map[k]] - p)
+                         for k, p in zip(inputs["cur_kfs"],
+                                         inputs["centres"])))
+
+
+def loop_closure(case: str = "circle", seed: int = 0, device="cuda",
+                 plain: bool = False, gba_caps=None):
+    """The loop closer at production caps over a hand-made map
+    (`LoopClosure`) and the map's inputs: "circle",
+    `inputs.build_drifted_loop_map(seed)`; "merge",
+    `inputs.build_merge_maps(seed)`."""
+    from .inputs import build_drifted_loop_map, build_merge_maps
+    if case == "circle":
+        m, kfs, _ = build_drifted_loop_map(seed)
+        inputs = dict(map=m, keyframes=kfs)
+    else:
+        m_old, m_cur, old_kfs, cur_kfs, centres = build_merge_maps(seed)
+        inputs = dict(m_old=m_old, m_cur=m_cur, old_kfs=old_kfs,
+                      cur_kfs=cur_kfs, centres=centres)
+    return LoopClosure(case, device=device, plain=plain,
+                       gba_caps=gba_caps), inputs

@@ -1815,3 +1815,305 @@ def build_pnp_case(name: str = "rendered", seed: int = 0):
     valid[:400] = True
     T = np.concatenate([R_wc.T, (-R_wc.T @ p_wc)[:, None]], 1)
     return uv, X, valid, T.astype(np.float32)
+
+
+# --------------------------------------------------------------------------
+# Loop closing: the hand-made maps of the reference's loop-closing tests and
+# the closed circuit of scripts/run_mh_loop.py
+# --------------------------------------------------------------------------
+LOOP_CASES = ("circle", "merge")
+
+
+def pack_bits_np(pm1: np.ndarray) -> np.ndarray:
+    """[...,256] {-1,+1} descriptors -> [...,8] uint32 (bit j of word w is
+    descriptor bit 32 w + j, as ops/matching.py `pack_bits_u32`)."""
+    bits = (pm1 > 0).astype(np.uint64).reshape(pm1.shape[:-1] + (8, 32))
+    return (bits << np.arange(32, dtype=np.uint64)).sum(-1).astype(np.uint32)
+
+
+def _circle_cam(a: float, radius: float = 1.2):
+    """A camera on the circle of `radius` at angle a looking outward:
+    (R_wc, p)."""
+    c, s = np.cos(a), np.sin(a)
+    p = np.array([radius * c, radius * s, 0.0])
+    look = np.array([c, s, 0.0])
+    x = np.cross([0, 0, -1.0], look)
+    x /= np.linalg.norm(x)
+    y = np.cross(look, x)
+    return np.stack([x, y, look], -1), p
+
+
+def _wall_projection(pts_w, R_cw, t_cw, K=K_EUROC, n_feat: int = 256):
+    """The first n_feat wall points in front of the camera and inside the
+    image (10 px margin): (indices, uv)."""
+    pc = pts_w @ R_cw.T + t_cw
+    z = pc[:, 2]
+    uv = np.stack([K.fx * pc[:, 0] / np.maximum(z, 1e-6) + K.cx,
+                   K.fy * pc[:, 1] / np.maximum(z, 1e-6) + K.cy], -1)
+    vis = (z > 0.3) & (uv[:, 0] > 10) & (uv[:, 0] < 742) \
+        & (uv[:, 1] > 10) & (uv[:, 1] < 470)
+    sel = np.nonzero(vis)[0][:n_feat]
+    return sel, uv[sel]
+
+
+def build_drifted_loop_map(seed: int = 0, n_kf: int = 16,
+                           drift: float = 0.25):
+    """tests/test_loop_closing.py:15's drifted circle: 1200 wall points on a
+    3 m cylinder with one random descriptor each, n_kf + 1 keyframes on
+    the 1.2 m circle looking outward (the last revisits the first view),
+    translation drift growing linearly to `drift`; the last two keyframes
+    observe duplicates of their points in the drifted frame.  Returns
+    (port MapStore, keyframes, angles)."""
+    from .models.mapstore import MapStore
+    rng = np.random.default_rng(seed)
+    K = K_EUROC
+    n_feat = 256
+    m = MapStore(max_kf=64, max_pts=4096, max_lines=64, n_feat=n_feat)
+    n_pts = 1200
+    ang = rng.uniform(0, 2 * np.pi, n_pts)
+    pts_w = np.stack([3.0 * np.cos(ang), 3.0 * np.sin(ang),
+                      rng.uniform(-1.5, 1.5, n_pts)], -1)
+    packed = pack_bits_np(rng.choice([-1.0, 1.0], (n_pts, 256)))
+    pt_ids = m.alloc_points(n_pts)
+    m.pt_xyz[pt_ids] = pts_w.astype(np.float32)
+    m.pt_desc[pt_ids] = packed
+    m.pt_n_obs[pt_ids] = 2
+    angles = np.concatenate([np.linspace(0, 2 * np.pi, n_kf,
+                                         endpoint=False), [0.0]])
+    kfs = []
+    for i, a in enumerate(angles):
+        R_wc, p_true = _circle_cam(a)
+        d = drift * i / len(angles)
+        p_est = p_true + np.array([d, -0.5 * d, 0.0])
+        R_cw = R_wc.T
+        kf = m.alloc_kf()
+        m.kf_timestamp[kf] = i * 0.5
+        m.kf_pose_cw[kf] = np.concatenate(
+            [R_cw, (-R_cw @ p_est)[:, None]], 1).astype(np.float32)
+        if i > 0:
+            m.kf_prev[kf] = kfs[-1]
+            m.kf_next[kfs[-1]] = kf
+        sel, uv = _wall_projection(pts_w, R_cw, -R_cw @ p_true, K, n_feat)
+        m.kf_feat_uv[kf, :len(sel)] = uv
+        m.kf_feat_desc[kf, :len(sel)] = packed[sel]
+        m.kf_feat_valid[kf, :len(sel)] = True
+        if i >= len(angles) - 2:
+            dup = m.alloc_points(len(sel))
+            m.pt_xyz[dup] = (pts_w[sel][:len(dup)]
+                             + np.array([d, -0.5 * d, 0.0])).astype(
+                                 np.float32)
+            m.pt_desc[dup] = packed[sel][:len(dup)]
+            m.pt_n_obs[dup] = 2
+            m.kf_match_pt[kf, :len(dup)] = dup
+        else:
+            m.kf_match_pt[kf, :len(sel)] = pt_ids[sel]
+        kfs.append(kf)
+    for kf in kfs:
+        m.update_covisibility(kf)
+    return m, kfs, angles
+
+
+def build_gba_chain(seed: int = 0, n_kf: int = 48, n_pts: int = 3000,
+                    n_feat: int = 128):
+    """tests/test_loop_closing.py:120's chain for the chained global BA:
+    n_kf keyframes around the circle observing the wall from their true
+    poses, every stored pose perturbed (0.01 rad, 5 cm).  Returns (port
+    MapStore, [(R_cw, t_cw)] the truth)."""
+    from .models.mapstore import MapStore
+    from .utils import lie
+    rng = np.random.default_rng(seed)
+    m = MapStore(max_kf=64, max_pts=8192, max_lines=8, n_feat=n_feat)
+    ang = rng.uniform(0, 2 * np.pi, n_pts)
+    pts_w = np.stack([3.0 * np.cos(ang), 3.0 * np.sin(ang),
+                      rng.uniform(-1.5, 1.5, n_pts)], -1)
+    pt_ids = m.alloc_points(n_pts)
+    m.pt_xyz[pt_ids] = pts_w.astype(np.float32)
+    m.pt_n_obs[pt_ids] = 3
+    truth, prev = [], None
+    for i, a in enumerate(np.linspace(0, 2 * np.pi, n_kf, endpoint=False)):
+        R_wc, p = _circle_cam(a)
+        R_cw = R_wc.T
+        t_cw = -R_cw @ p
+        kf = m.alloc_kf()
+        m.kf_timestamp[kf] = 0.5 * i
+        sel, uv = _wall_projection(pts_w, R_cw, t_cw, K_EUROC, n_feat)
+        m.kf_feat_uv[kf, :len(sel)] = uv
+        m.kf_feat_uv_raw[kf, :len(sel)] = uv
+        m.kf_feat_valid[kf, :len(sel)] = True
+        m.kf_match_pt[kf, :len(sel)] = pt_ids[sel]
+        dR = lie.so3_exp(torch.tensor(rng.normal(0, 0.01, 3),
+                                      dtype=torch.float32)).numpy()
+        m.kf_pose_cw[kf, :, :3] = (dR @ R_cw).astype(np.float32)
+        m.kf_pose_cw[kf, :, 3] = (t_cw + rng.normal(0, 0.05, 3)).astype(
+            np.float32)
+        truth.append((R_cw, t_cw))
+        if prev is not None:
+            m.kf_prev[kf] = prev
+            m.kf_next[prev] = kf
+        prev = kf
+    return m, truth
+
+
+def build_big_chain(n_kf: int = 600, drift: float = 0.8):
+    """tests/test_essential_graph_big.py:33's chain: n_kf + 1 keyframes
+    around the circle (the last revisits the first view), translation
+    drift growing linearly to `drift`, covisibility 80 to the previous
+    keyframe and 45 to the one before.  Returns (port MapStore,
+    keyframes, [(R_cw, t_cw)] the truth)."""
+    from .models.mapstore import MapStore
+    m = MapStore(max_kf=n_kf + 40, max_pts=64, max_lines=8, n_feat=8)
+    angles = np.concatenate([np.linspace(0, 2 * np.pi, n_kf,
+                                         endpoint=False), [0.0]])
+    kfs, gt, prev = [], [], None
+    for i, a in enumerate(angles):
+        R_wc, p_true = _circle_cam(a)
+        R_cw = R_wc.T
+        d = drift * i / len(angles)
+        p_est = p_true + np.array([d, -0.6 * d, 0.3 * d])
+        kf = m.alloc_kf()
+        m.kf_timestamp[kf] = 0.5 * i
+        m.kf_pose_cw[kf] = np.concatenate(
+            [R_cw, (-R_cw @ p_est)[:, None]], 1).astype(np.float32)
+        gt.append((R_cw.copy(), -R_cw @ p_true))
+        if prev is not None:
+            m.kf_prev[kf] = prev
+            m.kf_next[prev] = kf
+            m.covis[kf, prev] = m.covis[prev, kf] = 80
+            if i >= 2:
+                m.covis[kf, kfs[-2]] = m.covis[kfs[-2], kf] = 45
+        prev = kf
+        kfs.append(kf)
+    return m, np.asarray(kfs), gt
+
+
+def build_merge_maps(seed: int = 0, n_pts: int = 1500):
+    """tests/test_map_merge.py:63's two maps: the old one, 14 keyframes on
+    the full circle in the world frame, and a young one (map id 1), 5
+    keyframes of a revisit near angle 0 expressed in a frame related to
+    the old one by X_old = 1.3 R_z(0.3) X_cur + (0.5, -0.2, 0.1), the same
+    points and descriptors.  Returns (m_old, m_cur, old keyframes, current
+    keyframes, the current keyframes' true centres)."""
+    from .models.mapstore import MapStore
+    rng = np.random.default_rng(seed)
+    n_feat = 256
+    ang = rng.uniform(0, 2 * np.pi, n_pts)
+    pts_w = np.stack([3.0 * np.cos(ang), 3.0 * np.sin(ang),
+                      rng.uniform(-1.5, 1.5, n_pts)], -1).astype(np.float32)
+    packed = pack_bits_np(rng.choice([-1.0, 1.0], (n_pts, 256)))
+
+    def add_kf(m, pts, R_cw, t_cw, ts, ids, prev):
+        kf = m.alloc_kf()
+        m.kf_timestamp[kf] = ts
+        m.kf_pose_cw[kf] = np.concatenate([R_cw, t_cw[:, None]], 1)
+        sel, uv = _wall_projection(pts, R_cw, t_cw, K_EUROC, n_feat)
+        m.kf_feat_uv[kf, :len(sel)] = uv
+        m.kf_feat_desc[kf, :len(sel)] = packed[sel]
+        m.kf_feat_valid[kf, :len(sel)] = True
+        m.kf_match_pt[kf, :len(sel)] = ids[sel]
+        if prev is not None:
+            m.kf_prev[kf] = prev
+            m.kf_next[prev] = kf
+        return kf
+
+    def pose(a):
+        R_wc, p = _circle_cam(a)
+        R_cw = R_wc.T
+        return R_cw.astype(np.float32), (-R_cw @ p).astype(np.float32), p
+
+    def new_map(pts, map_id):
+        m = MapStore(max_kf=64, max_pts=8192, max_lines=64, n_feat=n_feat,
+                     map_id=map_id)
+        ids = m.alloc_points(len(pts))
+        m.pt_xyz[ids] = pts
+        m.pt_desc[ids] = packed
+        m.pt_n_obs[ids] = 2
+        return m, ids
+
+    m_old, ids_old = new_map(pts_w, 0)
+    old_kfs, prev = [], None
+    for i, a in enumerate(np.linspace(0, 2 * np.pi, 14, endpoint=False)):
+        R_cw, t_cw, _ = pose(a)
+        prev = add_kf(m_old, pts_w, R_cw, t_cw, 0.5 * i, ids_old, prev)
+        old_kfs.append(prev)
+    for kf in old_kfs:
+        m_old.update_covisibility(kf)
+    s0, th = 1.3, 0.3
+    R0 = np.array([[np.cos(th), -np.sin(th), 0],
+                   [np.sin(th), np.cos(th), 0], [0, 0, 1.0]], np.float32)
+    t0 = np.array([0.5, -0.2, 0.1], np.float32)
+    pts_cur = ((pts_w - t0) @ R0) / s0
+    m_cur, ids_cur = new_map(pts_cur.astype(np.float32), 1)
+    cur_kfs, centres, prev = [], [], None
+    for i, a in enumerate([0.0, 0.12, 0.24, 0.36, 0.48]):
+        R_cw_w, t_cw_w, p_true = pose(a)
+        R_cw = R_cw_w @ R0
+        t_cw = (R_cw_w @ t0 + t_cw_w) / s0
+        prev = add_kf(m_cur, pts_cur, R_cw.astype(np.float32),
+                      t_cw.astype(np.float32), 100.0 + 0.5 * i, ids_cur,
+                      prev)
+        cur_kfs.append(prev)
+        centres.append(p_true)
+    for kf in cur_kfs:
+        m_cur.update_covisibility(kf)
+    return m_old, m_cur, old_kfs, cur_kfs, centres
+
+
+MH_LOOP_SECONDS = 28.0
+
+
+def _mh_loop_world(duration: float, seed: int, n_points: int = 9000,
+                   n_lines: int = 500):
+    """(rng, hall, circuit at 20 fps, IMU): scripts/run_mh_loop.py's
+    world, the generator left where its first frame draws."""
+    rng = np.random.default_rng(seed)
+    scene = syn.make_hall_scene(rng, n_points=n_points, n_lines=n_lines)
+    traj = syn._eval_mh_loop(np.arange(0.0, duration, 1.0 / 20.0))
+    imu = syn.synthesize_imu_mh(rng, duration + 0.3,
+                                eval_fn=syn._eval_mh_loop)
+    return rng, scene, traj, imu
+
+
+def build_mh_loop(duration: float = MH_LOOP_SECONDS, seed: int = 7,
+                  n_points: int = 9000, n_lines: int = 500, n_frames=None,
+                  frames=None):
+    """The inputs of scripts/run_mh_loop.py (numpy, default_rng(seed) in its
+    order): the 9000-point / 500-line hall, the closed circuit
+    `_eval_mh_loop` at 20 fps over `duration`, the 200 Hz IMU along it over
+    duration + 0.3 s, then every frame rendered in order (the first
+    n_frames only where given; ~0.5 s a frame of one CPU core).  `frames`,
+    where given, holds the frames already rendered (an [n,480,752] array,
+    e.g. `render_mh_loop`'s by another process) and nothing is rendered.
+    Returns the dict of `build_mh_replay`."""
+    rng, scene, traj, imu = _mh_loop_world(duration, seed, n_points,
+                                           n_lines)
+    t_frames = traj.timestamps
+    n = len(t_frames) if n_frames is None else min(n_frames, len(t_frames))
+    rendered, frames = frames, []
+    batches, last_t = [], None
+    for i in range(n):
+        t = traj.timestamps[i]
+        frames.append(rendered[i] if rendered is not None else
+                      syn.render_frame_realistic(scene, syn._eval_mh_loop,
+                                                 t, rng))
+        if last_t is None:
+            batches.append(None)
+        else:
+            sel = (imu.timestamps > last_t) & (imu.timestamps <= t)
+            ts = imu.timestamps[sel]
+            batches.append((imu.gyro[sel], imu.acc[sel],
+                            np.diff(np.concatenate([[last_t], ts]))))
+        last_t = t
+    return dict(frames=frames, timestamps=traj.timestamps[:n], imu=batches,
+                R_wc=traj.R_wb[:n], p_wc=traj.p_wb[:n], scene=scene,
+                traj=traj, imu_data=imu)
+
+
+def render_mh_loop(out: np.ndarray, duration: float = MH_LOOP_SECONDS,
+                   seed: int = 7) -> None:
+    """`build_mh_loop`'s frames, rendered in order into out [n,480,752]
+    float32 (a shared buffer: another process renders while the caller
+    does other work)."""
+    rng, scene, traj, _ = _mh_loop_world(duration, seed)
+    for i in range(len(out)):
+        out[i] = syn.render_frame_realistic(scene, syn._eval_mh_loop,
+                                            traj.timestamps[i], rng)

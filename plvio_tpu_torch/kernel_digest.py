@@ -28,7 +28,14 @@ points both trees have) and compare the printed lines:
 - `bow_score`: a 512-row bank of those bags' kind (seed 6): the scores;
 - `pnp_ransac`, `mlpnp_refine`: both cases of `inputs.build_pnp_case`
   with 128 samples of `torch.Generator().manual_seed(0)`: pose, inliers,
-  count and best hypothesis; the refinement from that pose.
+  count and best hypothesis; the refinement from that pose;
+- `sim3_ransac`, `sim3_reproj`, `pose_graph`, `hamming_match`'s matrix
+  mode (slice 10, on a tree that has them): the Sim3 RANSAC on 256 matched
+  points (seed 8, 60 outliers, 64 samples of manual_seed(0)), the
+  reprojection refinement on 256 pairs a side with and without
+  fix_scale, the essential graph on random chains with loop and extra
+  edges at 17 keyframes (one block) and 200 (global path), Sim3 and
+  4-DoF, and the distance matrix of 1024 x 700 descriptors.
 
 Needs one card; JAX is never imported.
 """
@@ -165,7 +172,7 @@ def main() -> int:
             [torch.from_numpy(getattr(m, k).copy()) for k in (
                 "kf_pose_cw", "pt_xyz", "pt_valid", "kf_match_pt", "ln_ep",
                 "ln_valid", "kf_match_ln")]))
-    for line in bow_pnp_digests(dev):
+    for line in bow_pnp_digests(dev) + loop_digests(dev):
         print(line)
     return 0
 
@@ -204,6 +211,101 @@ def bow_pnp_digests(dev):
         out.append(f"pnp_ransac {name} {digest(r)}")
         out.append(f"mlpnp_refine {name} " + digest(PNP.mlpnp_refine(
             K_EUROC, uv, X, r.inliers, r.R, r.t)))
+    return out
+
+
+def random_graph(n: int, n_extra: int, seed: int):
+    """A chain of n Sim(3) keyframe states with a loop edge and n_extra
+    random edges, each measured from the states with noise; the first
+    keyframe fixed: the arguments of `make_pose_graph_optimizer`'s run
+    (numpy)."""
+    from plvio_tpu_torch.utils import lie
+    r = np.random.default_rng(seed)
+    st = np.zeros((n, 13), np.float32)
+    for i in range(n):
+        R = lie.so3_exp(torch.tensor(r.normal(0, .5, 3))).numpy()
+        st[i] = np.concatenate([R.reshape(-1), r.normal(0, 1, 3),
+                                [np.exp(r.normal(0, .05))]])
+    pairs = [(i, i - 1) for i in range(1, n)] + [(n - 1, 0)] + [
+        (int(a), int(b)) for a, b in r.integers(0, n, (n_extra, 2)) if a != b]
+    Rs, ts, ss = [], [], []
+    for i, j in pairs:
+        Si = [torch.tensor(st[i, :9]).view(3, 3).double(),
+              torch.tensor(st[i, 9:12]).double(),
+              torch.tensor(float(st[i, 12])).double()]
+        Sj = [torch.tensor(st[j, :9]).view(3, 3).double(),
+              torch.tensor(st[j, 9:12]).double(),
+              torch.tensor(float(st[j, 12])).double()]
+        Rm, tm, sm = lie.sim3_mul(*Sj, *lie.sim3_inv(*Si))
+        dR = lie.so3_exp(torch.tensor(r.normal(0, .03, 3))).double()
+        Rs.append((dR @ Rm).numpy())
+        ts.append(tm.numpy() + r.normal(0, .05, 3))
+        ss.append(float(sm) * np.exp(r.normal(0, .02)))
+    E = len(pairs)
+    free = np.ones(n, bool)
+    free[0] = False
+    return [st, free, np.array([p[0] for p in pairs], np.int32),
+            np.array([p[1] for p in pairs], np.int32),
+            np.stack(Rs).astype(np.float32), np.stack(ts).astype(np.float32),
+            np.array(ss, np.float32), np.ones(E, bool),
+            r.uniform(0.3, 1, E).astype(np.float32)]
+
+
+def loop_digests(dev):
+    """The digests of slice 10's kernels (lines to print; none on a tree
+    without them)."""
+    from plvio_tpu_torch.models import kernels as KN
+    from plvio_tpu_torch.ops import matching as M
+    from plvio_tpu_torch.ops import pnp as PNP
+    from plvio_tpu_torch.solver.residuals import PinholeK
+    from plvio_tpu_torch.utils import lie
+    if not hasattr(PNP, "sim3_ransac"):
+        return []
+    out = []
+    rng = np.random.default_rng(8)
+    n = 256
+    X1 = rng.uniform(-2, 2, (n, 3)).astype(np.float32)
+    R = lie.so3_exp(torch.tensor([0.1, 0.2, -0.3])).numpy()
+    X2 = (1.2 * X1 @ R.T + [0.3, 0.1, -0.2]).astype(np.float32)
+    X2[:60] += rng.normal(0, 0.5, (60, 3)).astype(np.float32)
+    valid = np.arange(n) < 200
+    smp = torch.multinomial(torch.from_numpy(valid).double().expand(64, -1),
+                            3, generator=torch.Generator().manual_seed(0))
+    t = [torch.from_numpy(a).to(dev) for a in (X1, X2, valid)]
+    out.append("sim3_ransac " + digest(PNP.sim3_ransac(*t, smp.to(dev),
+                                                       0.08)))
+    K = PinholeK(400., 400., 376., 240.)
+    Xa = rng.uniform(-2, 2, (n, 3))
+    Xa[:, 2] = rng.uniform(3, 7, n)
+    Xb = 1.1 * Xa @ R.T + [0.5, -0.3, 0.2]
+
+    def proj(X):
+        return np.stack([400 * X[:, 0] / X[:, 2] + 376,
+                         400 * X[:, 1] / X[:, 2] + 240], -1)
+    S13 = np.concatenate([R.reshape(-1), [0.6, -0.4, 0.25], [1.0]])
+    args = [torch.from_numpy(np.ascontiguousarray(a, dt)).to(dev)
+            for a, dt in ((S13, np.float32), (Xa, np.float32),
+                          (proj(Xb) + rng.normal(0, .3, (n, 2)), np.float32),
+                          (np.ones(n), bool), (np.ones(n), np.float32),
+                          (Xb, np.float32),
+                          (proj(Xa) + rng.normal(0, .3, (n, 2)), np.float32),
+                          (np.ones(n), bool), (np.ones(n), np.float32),
+                          (np.eye(3, 4), np.float32),
+                          (np.eye(3, 4), np.float32))]
+    for fix in (False, True):
+        out.append(f"sim3_reproj fix_scale={fix} "
+                   + digest(KN.sim3_reproj(K, *args, fix_scale=fix)))
+    for n_kf, extra in ((17, 20), (200, 400)):
+        g = [torch.from_numpy(a).to(dev) for a in random_graph(n_kf, extra,
+                                                               n_kf)]
+        for four in (False, True):
+            out.append(f"pose_graph n={n_kf} four_dof={four} "
+                       + digest([KN.pose_graph(*g, four_dof=four)]))
+    a = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, (1024, 8)).astype(
+        np.int32)).to(dev)
+    b = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, (700, 8)).astype(
+        np.int32)).to(dev)
+    out.append("hamming_match matrix " + digest([M.hamming_dist(a, b)]))
     return out
 
 

@@ -1,8 +1,10 @@
-"""Tracking and mapping kernels (port of plvio_tpu/models/kernels.py:
-`make_pose_optimizer` :88, `fast_pose_opt` :111, `fast_pose_opt_pl` :179,
-`make_fast_pose_optimizer_pl` :312, `make_line_projection_matcher` :334,
-`line_proj_match_core` :355, `make_line_triangulator` :389,
-`make_line_pair_matcher` :605, `make_local_ba_pl` :641,
+"""Tracking, mapping and loop-closing kernels (port of
+plvio_tpu/models/kernels.py: `make_pose_optimizer` :88, `fast_pose_opt`
+:111, `fast_pose_opt_pl` :179, `make_fast_pose_optimizer_pl` :312,
+`make_line_projection_matcher` :334, `line_proj_match_core` :355,
+`make_line_triangulator` :389, `make_pose_graph_optimizer` :488,
+`make_sim3_reproj_optimizer` :524, `make_line_pair_matcher` :605,
+`make_local_ba_pl` :641,
 `make_projection_matcher` :767,
 `make_epipolar_matcher` :828, `make_triangulator` :878,
 `make_vi_pose_optimizer` :932, `make_local_ba` :1307).
@@ -29,6 +31,11 @@ The keyframe step's neighbourhood work: `make_line_pair_matcher` (the
 `make_projection_matcher` (csrc/proj_match.cu beside `proj_match_plain`;
 the fuse's and the tracker's matcher) and `make_local_ba`, the point-only
 window BA (`local_ba_pl`'s kernel path with an empty line family).
+
+Loop closing: `make_sim3_reproj_optimizer` (csrc/sim3.cu's `sim3_reproj`
+beside `sim3_reproj_plain` on the engine) and `make_pose_graph_optimizer`
+(csrc/pose_graph.cu beside `pose_graph_plain`, the engine's dense LM with
+its Cholesky), with their float64 checks for the card.
 """
 from __future__ import annotations
 
@@ -1930,3 +1937,349 @@ def inertial_dense_system(t, n_kf: int):
         H.index_put_((idx[:, None], idx[None, :]), Hl[i], accumulate=True)
         g.index_put_((idx,), t["link"][i, 465:].double(), accumulate=True)
     return H, g
+
+
+# --------------------------------------------------------------------------
+# Loop closing: the Sim3 reprojection refinement and the essential graph
+# --------------------------------------------------------------------------
+CHI2_SIM3 = 9.21       # the reference's chi2 gate of the Sim3 edges
+
+
+def _sim3_reproj_problem(K: PinholeK, cap: int, dmask, consts, mask_f,
+                         mask_b):
+    X1, uv2, is2_f, X2, uv1, is2_b, Pk, Pc = consts
+
+    def retract(S, d):
+        return RES.retract_sim3(S, d * dmask)
+
+    def proj(pc):
+        z = torch.clamp_min(pc[2], 1e-4)
+        return torch.stack([K.fx * pc[0] / z + K.cx, K.fy * pc[1] / z + K.cy])
+
+    def fwd(blocks, deltas, const):
+        Rw, tw, sw = RES.retract_sim3_single(blocks[0], deltas[0] * dmask)
+        X2p = sw * (Rw @ const["X"]) + tw
+        return proj(const["P"][:, :3] @ X2p + const["P"][:, 3]) - const["uv"]
+
+    def bwd(blocks, deltas, const):
+        Rw, tw, sw = RES.retract_sim3_single(blocks[0], deltas[0] * dmask)
+        X1p = (Rw.T @ (const["X"] - tw)) / torch.clamp_min(sw, 1e-9)
+        return proj(const["P"][:, :3] @ X1p + const["P"][:, 3]) - const["uv"]
+
+    z_idx = torch.zeros(cap, dtype=torch.long, device=X1.device)
+    delta = math.sqrt(CHI2_SIM3)
+    prob = E.Problem()
+    prob.add_dense("sim3", 1, 7, retract)
+    prob.add_term(E.Term(name="fwd", res_fn=fwd, rdim=2,
+                         dense_refs=[("sim3", z_idx)],
+                         const={"X": X1, "uv": uv2,
+                                "P": Pc.expand(cap, 3, 4)},
+                         mask=mask_f, info=is2_f, robust_delta=delta))
+    prob.add_term(E.Term(name="bwd", res_fn=bwd, rdim=2,
+                         dense_refs=[("sim3", z_idx)],
+                         const={"X": X2, "uv": uv1,
+                                "P": Pk.expand(cap, 3, 4)},
+                         mask=mask_b, info=is2_b, robust_delta=delta))
+    return prob
+
+
+def sim3_reproj_plain(K: PinholeK, S13, X1, uv2, valid_f, is2_f, X2, uv1,
+                      valid_b, is2_b, pose_kf, pose_cand,
+                      fix_scale: bool = False, rounds: int = 3,
+                      iters: int = 8):
+    """Plain version of `sim3_reproj` on the dense engine, in the inputs'
+    dtype: `rounds` x `iters` LM iterations on the forward and backward
+    edges, each round's masks re-gated on the chi2 at its result.  Returns
+    (S13 [13], inlier_f [cap], inlier_b [cap], n int32)."""
+    cap = X1.shape[0]
+    dmask = torch.ones(7, dtype=S13.dtype, device=S13.device)
+    if fix_scale:
+        dmask[6] = 0.0
+    consts = (X1, uv2, is2_f, X2, uv1, is2_b, pose_kf, pose_cand)
+    mask_f, mask_b = valid_f, valid_b
+    states = {"sim3": S13[None]}
+    for _ in range(rounds):
+        prob = _sim3_reproj_problem(K, cap, dmask, consts, mask_f, mask_b)
+        states, _, chi2s = E.optimize(prob, states, iters=iters)
+        mask_f = valid_f & (chi2s["fwd"] < CHI2_SIM3)
+        mask_b = valid_b & (chi2s["bwd"] < CHI2_SIM3)
+    return (states["sim3"][0], mask_f, mask_b,
+            (mask_f.sum() + mask_b.sum()).to(torch.int32))
+
+
+SIM3_REPROJ = cuda.Kernel(
+    "sim3", "sim3_reproj",
+    [_P] * 11 + [_I, ctypes.c_double, ctypes.c_double, ctypes.c_double,
+                 ctypes.c_double, _I, _I, _I, _P, _P, _P, _P])
+
+
+def sim3_reproj(K: PinholeK, S13, X1, uv2, valid_f, is2_f, X2, uv1, valid_b,
+                is2_b, pose_kf, pose_cand, fix_scale: bool = False,
+                rounds: int = 3, iters: int = 8):
+    """The welding similarity S13 [13] (R, t, s; X2 ~ s R X1 + t) refined
+    on reprojection edges in both keyframes (the reference's
+    OptimizeSim3): forward edges X1 [cap,3] observed at uv2 in the
+    candidate keyframe (pose_cand [3,4] T_cw), backward edges X2 observed
+    at uv1 in the current one (pose_kf), each with a validity mask and
+    its octave information is2.  CPU tensors take the plain version; CUDA
+    tensors launch csrc/sim3.cu's `sim3_reproj` (one block, float64)."""
+    if S13.device.type == "cpu":
+        return sim3_reproj_plain(K, S13, X1, uv2, valid_f, is2_f, X2, uv1,
+                                 valid_b, is2_b, pose_kf, pose_cand,
+                                 fix_scale, rounds, iters)
+    cap = X1.shape[0]
+    ts = [S13, X1, uv2, valid_f, is2_f, X2, uv1, valid_b, is2_b,
+          pose_kf.contiguous(), pose_cand.contiguous()]
+    cuda.check_cuda("sim3_reproj", *ts)
+    f32 = torch.float32
+    if S13.shape != (13,) or X1.shape != (cap, 3) or X2.shape != (cap, 3) \
+            or uv1.shape != (cap, 2) or uv2.shape != (cap, 2) \
+            or is2_f.shape != (cap,) or is2_b.shape != (cap,) \
+            or valid_f.shape != (cap,) or valid_b.shape != (cap,) \
+            or valid_f.dtype != torch.bool or valid_b.dtype != torch.bool \
+            or any(t.dtype != f32 for t in (S13, X1, uv2, is2_f, X2, uv1,
+                                            is2_b, pose_kf, pose_cand)) \
+            or pose_kf.shape != (3, 4) or pose_cand.shape != (3, 4):
+        raise ValueError("sim3_reproj: S13 [13], X [cap,3], uv [cap,2], "
+                         "valid [cap] bool, is2 [cap], poses [3,4] float32")
+    if not 1 <= cap <= 16384:
+        raise ValueError("sim3_reproj: 1 <= cap <= 16384")
+    dev = S13.device
+    out = torch.empty(13, dtype=f32, device=dev)
+    masks = torch.empty(2 * cap, dtype=torch.bool, device=dev)
+    n = torch.empty((), dtype=torch.int32, device=dev)
+    SIM3_REPROJ.launch(*(cuda.ptr(t) for t in ts), cap, K.fx, K.fy, K.cx,
+                       K.cy, int(fix_scale), rounds, iters, cuda.ptr(out),
+                       cuda.ptr(masks), cuda.ptr(n), cuda.stream())
+    return out, masks[:cap], masks[cap:], n
+
+
+def make_sim3_reproj_optimizer(K: PinholeK, cap: int, rounds: int = 3,
+                               iters: int = 8, fix_scale: bool = False,
+                               plain: bool = False):
+    """run(S13 [13], X1 [cap,3], uv2 [cap,2], valid_f, is2_f [cap], X2,
+    uv1, valid_b, is2_b, pose_kf [3,4], pose_cand [3,4]) -> (S13,
+    inlier_f, inlier_b, n_inliers); `plain` runs the plain version on any
+    device."""
+    fn = sim3_reproj_plain if plain else sim3_reproj
+
+    def run(S13, X1, uv2, valid_f, is2_f, X2, uv1, valid_b, is2_b, pose_kf,
+            pose_cand):
+        if X1.shape[0] != cap:
+            raise ValueError(f"sim3_reproj: built for cap {cap}")
+        return fn(K, S13, X1, uv2, valid_f, is2_f, X2, uv1, valid_b, is2_b,
+                  pose_kf, pose_cand, fix_scale, rounds, iters)
+    return run
+
+
+def pose_graph_plain(states13, kf_free, edge_i, edge_j, Rji, tji, sji,
+                     edge_valid, edge_info, four_dof: bool = False,
+                     iters: int = 15):
+    """Plain version of `pose_graph`: the engine's dense LM with the
+    Cholesky solve (`Problem()`), in the states' dtype."""
+    retract = RES.retract_sim3_4dof if four_dof else RES.retract_sim3
+    edge_fn = RES.sim3_edge_4dof if four_dof else RES.sim3_edge
+    prob = E.Problem()
+    prob.add_dense("sim3", states13.shape[0], 7, retract)
+    prob.add_term(E.Term(
+        name="sim3", res_fn=edge_fn, rdim=7,
+        dense_refs=[("sim3", edge_i.long()), ("sim3", edge_j.long())],
+        const={"Rji": Rji, "tji": tji, "sji": sji},
+        mask=edge_valid, info=edge_info))
+    out, _, _ = E.optimize(prob, {"sim3": states13}, iters=iters,
+                           dense_free_mask={"sim3": kf_free})
+    return out["sim3"]
+
+
+def pose_graph_compacted_plain(states13, kf_free, edge_i, edge_j, Rji, tji,
+                               sji, edge_valid, edge_info,
+                               four_dof: bool = False, iters: int = 15,
+                               n_active=None):
+    """`pose_graph_plain` on the graph compacted to its first `n_active`
+    keyframes and the edges between them (on the tensors' device)."""
+    n_kf = states13.shape[0]
+    n = n_kf if n_active is None else int(n_active)
+    ok = edge_valid & (edge_i < n) & (edge_j < n)
+    out = pose_graph_plain(states13[:n], kf_free[:n], edge_i[ok], edge_j[ok],
+                           Rji[ok], tji[ok], sji[ok], edge_valid[ok],
+                           edge_info[ok], four_dof, iters)
+    return out if n == n_kf else torch.cat([out, states13[n:]], 0)
+
+
+POSE_GRAPH = cuda.Kernel("pose_graph", "pose_graph",
+                         [_P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P,
+                          _I, _I, _I, _P, _P, _P, _P])
+# launches whose solve took the cooperative global path
+POSE_GRAPH.global_launches = 0
+PG_ONE_BLOCK_MAX_S = 168       # csrc/pose_graph.cu kOneBlockMaxS
+
+
+def graph_tables(edge_i: np.ndarray, edge_j: np.ndarray, n: int):
+    """The fixed summation order of the normal matrix's blocks: each
+    keyframe's incident edges (CSR, 2 e + side) and each keyframe pair's
+    edges (a < b; 2 e + flip), in edge order."""
+    ei, ej = np.asarray(edge_i, np.int64), np.asarray(edge_j, np.int64)
+    E_ = len(ei)
+    node = np.concatenate([ei, ej])
+    code = np.concatenate([2 * np.arange(E_), 2 * np.arange(E_) + 1])
+    order = np.lexsort((code, node))
+    inc = code[order].astype(np.int32)
+    inc_ptr = np.searchsorted(node[order], np.arange(n + 1)).astype(np.int32)
+    a, b = np.minimum(ei, ej), np.maximum(ei, ej)
+    key = a * n + b
+    order = np.lexsort((np.arange(E_), key))
+    uk, start = np.unique(key[order], return_index=True)
+    pair_ab = np.stack([uk // n, uk % n], 1).astype(np.int32)
+    pair_ptr = np.append(start, E_).astype(np.int32)
+    pair_list = (2 * order + (ei[order] > ej[order])).astype(np.int32)
+    return inc_ptr, inc, pair_ab, pair_ptr, pair_list
+
+
+def pose_graph(states13, kf_free, edge_i, edge_j, Rji, tji, sji, edge_valid,
+               edge_info, four_dof: bool = False, iters: int = 15,
+               n_active=None, stats: dict = None):
+    """Essential-graph LM over Sim(3) keyframe states [n_kf,13] (R, t, s;
+    kf_free [n_kf]) and relative-similarity edges (edge_i / edge_j
+    [n_edges], Rji [n_edges,3,3], tji [n_edges,3], sji, edge_valid,
+    edge_info [n_edges]), compacted to its first `n_active` keyframes (the
+    rest fixed and unreferenced by valid edges; default all) and its valid
+    edges, which gives the same solve: the reference's padding slots are
+    fixed, so their rows decouple with a unit diagonal, and masked edges
+    add nothing.  CPU tensors take the plain version; CUDA tensors launch
+    csrc/pose_graph.cu; `stats`, where given, gets "path" (0 one block, 1
+    global) and "S".  Returns the states [n_kf,13]."""
+    n_kf = states13.shape[0]
+    n = n_kf if n_active is None else int(n_active)
+    if states13.device.type == "cpu":
+        return pose_graph_compacted_plain(
+            states13, kf_free, edge_i, edge_j, Rji, tji, sji, edge_valid,
+            edge_info, four_dof, iters, n_active)
+    dev = states13.device
+    cuda.check_cuda("pose_graph", states13, kf_free, edge_i, edge_j, Rji,
+                    tji, sji, edge_valid, edge_info)
+    if states13.dtype != torch.float32 or states13.shape != (n_kf, 13) \
+            or not 1 <= n <= n_kf:
+        raise ValueError("pose_graph: states [n_kf,13] float32, 1 <= "
+                         "n_active <= n_kf")
+    ok = edge_valid.cpu().numpy()
+    ei = edge_i.cpu().numpy()[ok]
+    ej = edge_j.cpu().numpy()[ok]
+    if len(ei) and (max(ei.max(), ej.max()) >= n or (ei == ej).any()):
+        raise ValueError("pose_graph: valid edges join two distinct active "
+                         "keyframes")
+    sel = torch.from_numpy(np.nonzero(ok)[0]).to(dev)
+    meas = torch.cat([Rji[sel].reshape(-1, 9), tji[sel], sji[sel, None]],
+                     1).float().contiguous()
+    info = edge_info[sel].float().contiguous()
+    tables = [torch.from_numpy(a).to(dev) for a in (
+        np.asarray(ei, np.int32), np.asarray(ej, np.int32),
+        *graph_tables(ei, ej, n))]
+    E_, P_, S = len(ei), tables[4].shape[0], 7 * n
+    work = torch.empty(26 * n + 105 * E_ + S * S + S + 2,
+                       dtype=torch.float64, device=dev)
+    st = states13[:n].contiguous()
+    free = kf_free[:n].contiguous()
+    out = torch.empty_like(st)
+    path = torch.empty((), dtype=torch.int32, device=dev)
+    POSE_GRAPH.launch(
+        cuda.ptr(st), cuda.ptr(free), n, cuda.ptr(tables[0]),
+        cuda.ptr(tables[1]), cuda.ptr(meas), cuda.ptr(info), E_,
+        cuda.ptr(tables[2]), cuda.ptr(tables[3]), cuda.ptr(tables[4]),
+        cuda.ptr(tables[5]), cuda.ptr(tables[6]), P_, int(four_dof), iters,
+        cuda.ptr(work), cuda.ptr(out), cuda.ptr(path), cuda.stream())
+    if S > PG_ONE_BLOCK_MAX_S:
+        POSE_GRAPH.global_launches += 1
+    if stats is not None:
+        stats.update(path=path, S=S)
+    if n == n_kf:
+        return out
+    return torch.cat([out, states13[n:]], 0)
+
+
+def make_pose_graph_optimizer(n_kf: int, n_edges: int, iters: int = 15,
+                              four_dof: bool = False, plain: bool = False):
+    """run(sim3_states [n_kf,13], kf_free [n_kf], edge_i, edge_j,
+    edge_Rji [n_edges,3,3], edge_tji [n_edges,3], edge_sji, edge_valid,
+    edge_info [n_edges], n_active=None) -> sim3_states: Sim(3) (or, with
+    four_dof, translation + yaw) essential-graph optimization; `plain`
+    runs the plain version on any device."""
+    def run(states13, kf_free, edge_i, edge_j, Rji, tji, sji, edge_valid,
+            edge_info, n_active=None):
+        if states13.shape[0] != n_kf or edge_i.shape[0] != n_edges:
+            raise ValueError(f"pose_graph: built for {n_kf} keyframes and "
+                             f"{n_edges} edges")
+        if plain:
+            return pose_graph_compacted_plain(
+                states13, kf_free, edge_i, edge_j, Rji, tji, sji, edge_valid,
+                edge_info, four_dof, iters, n_active)
+        return pose_graph(states13, kf_free, edge_i, edge_j, Rji, tji, sji,
+                          edge_valid, edge_info, four_dof, iters, n_active)
+    return run
+
+
+def _f64(ts):
+    return [t.double() if t.is_floating_point() else t for t in ts]
+
+
+def pose_graph_against_float64(args, four_dof: bool = False,
+                               n_active=None, iters: int = 15) -> dict:
+    """`pose_graph` on the card against its plain version on the same
+    device in float32 and in float64, on the graph `args` (the arguments
+    of `make_pose_graph_optimizer`'s run, CUDA tensors), launched twice.
+    Returns dict(S, path, same_bits, kernel, plain, kernel_plain,
+    failures): the largest state gaps to float64 of the kernel and of the
+    plain float32 run, and between them.  The rule (chip_smoke.py and the
+    card test): the kernel within 2x the plain float32 run's distance to
+    float64 + 1e-6, the same bits on the second launch."""
+    st = {}
+    k = pose_graph(*args, four_dof=four_dof, iters=iters, n_active=n_active,
+                   stats=st)
+    k2 = pose_graph(*args, four_dof=four_dof, iters=iters, n_active=n_active)
+    p = pose_graph_compacted_plain(*args, four_dof=four_dof, iters=iters,
+                                   n_active=n_active).cpu()
+    p64 = pose_graph_compacted_plain(*_f64(args), four_dof=four_dof,
+                                     iters=iters, n_active=n_active).cpu()
+    n = args[0].shape[0] if n_active is None else n_active
+    kd, pd = k[:n].double().cpu(), p[:n].double()
+    out = dict(S=st["S"], path=int(st["path"]),
+               same_bits=bool(torch.equal(k, k2)),
+               kernel=float((kd - p64[:n]).abs().max()),
+               plain=float((pd - p64[:n]).abs().max()),
+               kernel_plain=float((kd - pd).abs().max()),
+               step=float((p64[:n] - args[0][:n].double().cpu()).abs()
+                          .max()))
+    fail = []
+    if not out["same_bits"]:
+        fail.append("a second launch gave other bits")
+    if out["kernel"] > 2 * out["plain"] + 1e-6:
+        fail.append(f"kernel {out['kernel']:.2e} from float64 > 2x the "
+                    f"plain float32 run's {out['plain']:.2e} + 1e-6")
+    out["failures"] = fail
+    return out
+
+
+def sim3_reproj_against_float64(K: PinholeK, args,
+                                fix_scale: bool = False) -> dict:
+    """`sim3_reproj` on the card against its plain version in float32 and
+    float64 on the CPU (args: CUDA tensors), launched twice; the rule of
+    `pose_graph_against_float64` and the inlier count equal to the float64
+    run's.  Returns dict(kernel, plain, same_bits, n, n64, failures)."""
+    k = sim3_reproj(K, *args, fix_scale=fix_scale)
+    k2 = sim3_reproj(K, *args, fix_scale=fix_scale)
+    cpu = [a.cpu() for a in args]
+    p = sim3_reproj_plain(K, *cpu, fix_scale=fix_scale)
+    p64 = sim3_reproj_plain(K, *_f64(cpu), fix_scale=fix_scale)
+    out = dict(kernel=float((k[0].double().cpu() - p64[0]).abs().max()),
+               plain=float((p[0].double() - p64[0]).abs().max()),
+               same_bits=bool(torch.equal(k[0], k2[0])),
+               n=int(k[3]), n64=int(p64[3]))
+    fail = []
+    if not out["same_bits"]:
+        fail.append("a second launch gave other bits")
+    if out["n"] != out["n64"]:
+        fail.append(f"inliers {out['n']} != {out['n64']}")
+    if out["kernel"] > 2 * out["plain"] + 1e-6:
+        fail.append(f"S13 {out['kernel']:.2e} from float64 > 2x the plain "
+                    f"run's {out['plain']:.2e} + 1e-6")
+    out["failures"] = fail
+    return out

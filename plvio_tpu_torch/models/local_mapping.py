@@ -92,6 +92,8 @@ class LocalMapper(HostIO):
             raise NotImplementedError("the KB8 back end is not ported")
         self.K = PinholeK(fx=cam.fx, fy=cam.fy, cx=cam.cx, cy=cam.cy)
         self.ba_kf_cap = ba_kf_cap
+        # the outlier erasure's chi2 gate multiplier (3 around merge welds)
+        self._erase_chi2_mult = 1.0
         self.ba_pt_cap = ba_pt_cap
         self.ba_obs_cap = ba_obs_cap
         self.epi_match = KN.make_epipolar_matcher(self.K, plain=plain)
@@ -1178,8 +1180,9 @@ class LocalMapper(HostIO):
                                obs_pt: np.ndarray, obs_uv: np.ndarray,
                                obs_is2: np.ndarray) -> None:
         """Unbind the observations the window solve left chi2-inconsistent
-        (chi2 > 5.991 or depth < 5 cm), recomputed on the host from the
-        solved states, and remove the points left with fewer than 2
+        (chi2 > 5.991 x `_erase_chi2_mult`, which the loop closer raises to
+        3 around a merge weld, or depth < 5 cm), recomputed on the host
+        from the solved states, and remove the points left with fewer than 2
         observations (1 for stereo / RGB-D).  `pt_n_obs[bad_pts] -= 1`
         subtracts once per point of a keyframe however many of its
         features were unbound, as the reference does."""
@@ -1194,7 +1197,7 @@ class LocalMapper(HostIO):
         u = K.fx * pc[:, 0] / np.maximum(z, 1e-6) + K.cx
         v = K.fy * pc[:, 1] / np.maximum(z, 1e-6) + K.cy
         err2 = (u - obs_uv[:, 0]) ** 2 + (v - obs_uv[:, 1]) ** 2
-        bad = (err2 * obs_is2 > 5.991) | (z < 0.05)
+        bad = (err2 * obs_is2 > self._erase_chi2_mult * 5.991) | (z < 0.05)
         if not bad.any():
             return
         for s_loc in np.unique(obs_kf[bad]):

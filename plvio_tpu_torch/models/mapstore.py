@@ -5,7 +5,8 @@ plvio_tpu/models/mapstore.py: the arrays and inertial fields of `MapStore.__init
 `update_covisibility` :140 (its numpy path :155-175), `covisible_kfs`
 :177, `remove_point` :206, `remove_line` :215, `remove_keyframe` :223,
 `valid_kf_indices` :245, `kf_chain` :248, `apply_scaled_rotation` :253,
-`recompute_body_poses` :280, `set_cam_poses_from_body` :297, the
+`recompute_body_poses` :280, `set_cam_poses_from_body` :297, the loop
+closer's `apply_sim3` :310, `absorb` :340 and `kf_centers` :407, the
 tracker's `local_map_points` :189 and `local_map_lines` :198, and the
 `Atlas` :413-435 with `create_new_map`).
 
@@ -306,6 +307,91 @@ class MapStore:
         t_cw = -np.einsum("kij,kj->ki", R_cw, p_wc)
         self.kf_pose_cw[kfs, :, :3] = R_cw
         self.kf_pose_cw[kfs, :, 3] = t_cw
+
+
+    def apply_sim3(self, s: float, R: np.ndarray, t: np.ndarray,
+                   Tbc: Optional[np.ndarray] = None) -> None:
+        """Re-express the whole map under the similarity X' = s R X + t (a
+        map merge's weld): camera poses T_cw' = [R_cw R^T | s t_cw -
+        R_cw R^T t] (projectively identical, pc' = s pc), velocities
+        scaled and rotated, body poses recomputed from Tbc."""
+        R = np.asarray(R, np.float32)
+        t = np.asarray(t, np.float32)
+        kfs = self.valid_kf_indices()
+        self.pt_xyz[self.pt_valid] = (
+            s * self.pt_xyz[self.pt_valid] @ R.T + t).astype(np.float32)
+        if self.ln_valid.any():
+            ep = self.ln_ep[self.ln_valid].reshape(-1, 3)
+            self.ln_ep[self.ln_valid] = (
+                s * ep @ R.T + t).reshape(-1, 6).astype(np.float32)
+        R_cw = self.kf_pose_cw[kfs, :, :3]
+        t_cw = self.kf_pose_cw[kfs, :, 3]
+        R_new = np.einsum("kij,lj->kil", R_cw, R)
+        self.kf_pose_cw[kfs, :, :3] = R_new
+        self.kf_pose_cw[kfs, :, 3] = s * t_cw - np.einsum(
+            "kij,j->ki", R_new, t)
+        self.kf_vel[kfs] = s * self.kf_vel[kfs] @ R.T
+        if Tbc is not None:
+            self.recompute_body_poses(Tbc)
+        self.change_index += 1
+
+    def absorb(self, other: "MapStore"):
+        """Append `other`'s keyframes, points and lines (already expressed
+        in this map's world frame) to this store.  Returns (kf_map, pt_map,
+        ln_map): old slot -> new slot (INVALID where the old slot was not
+        valid)."""
+        kfs = np.nonzero(other.kf_valid)[0]
+        pts = np.nonzero(other.pt_valid)[0]
+        lns = np.nonzero(other.ln_valid)[0]
+        new_kf = np.nonzero(~self.kf_valid)[0][:len(kfs)]
+        if len(new_kf) < len(kfs):
+            raise RuntimeError("keyframe capacity exhausted in merge")
+        new_pt = self.alloc_points(len(pts))
+        new_ln = self.alloc_lines(len(lns))
+        if len(new_pt) < len(pts) or len(new_ln) < len(lns):
+            raise RuntimeError("landmark capacity exhausted in merge")
+        self.kf_valid[new_kf] = True
+        self.n_kf += len(new_kf)
+        kf_map = np.full(other.max_kf, INVALID, np.int32)
+        pt_map = np.full(other.max_pts, INVALID, np.int32)
+        ln_map = np.full(other.max_lines, INVALID, np.int32)
+        kf_map[kfs] = new_kf
+        pt_map[pts] = new_pt
+        ln_map[lns] = new_ln
+
+        def remap(idx, lut):
+            return np.where(idx >= 0, lut[np.maximum(idx, 0)], INVALID)
+        for f in ("kf_timestamp", "kf_pose_cw", "kf_pose_wb", "kf_vel",
+                  "kf_bias_g", "kf_bias_a", "kf_feat_uv", "kf_feat_uv_raw",
+                  "kf_feat_octave", "kf_feat_angle", "kf_feat_desc",
+                  "kf_feat_valid", "kf_line_ep", "kf_line_desc",
+                  "kf_line_valid"):
+            getattr(self, f)[new_kf] = getattr(other, f)[kfs]
+        self.kf_match_pt[new_kf] = remap(other.kf_match_pt[kfs], pt_map)
+        self.kf_match_ln[new_kf] = remap(other.kf_match_ln[kfs], ln_map)
+        self.kf_prev[new_kf] = remap(other.kf_prev[kfs], kf_map)
+        self.kf_next[new_kf] = remap(other.kf_next[kfs], kf_map)
+        for f in ("pt_xyz", "pt_desc", "pt_normal", "pt_min_dist",
+                  "pt_max_dist", "pt_n_obs", "pt_found", "pt_visible"):
+            getattr(self, f)[new_pt] = getattr(other, f)[pts]
+        self.pt_first_kf[new_pt] = remap(other.pt_first_kf[pts], kf_map)
+        for f in ("ln_ep", "ln_desc", "ln_n_obs", "ln_found", "ln_visible"):
+            getattr(self, f)[new_ln] = getattr(other, f)[lns]
+        self.ln_first_kf[new_ln] = remap(other.ln_first_kf[lns], kf_map)
+        self.covis[np.ix_(new_kf, new_kf)] = other.covis[np.ix_(kfs, kfs)]
+        for kf_old, kf_new in zip(kfs, new_kf):
+            if kf_old in other.kf_preint:
+                self.kf_preint[int(kf_new)] = other.kf_preint[kf_old]
+            if kf_old in other.kf_imu_raw:
+                self.kf_imu_raw[int(kf_new)] = other.kf_imu_raw[kf_old]
+        self.change_index += 1
+        return kf_map, pt_map, ln_map
+
+    def kf_centers(self) -> np.ndarray:
+        """Camera centres of all keyframe slots: C = -R^T t."""
+        R = self.kf_pose_cw[:, :, :3]
+        t = self.kf_pose_cw[:, :, 3]
+        return -np.einsum("kji,kj->ki", R, t)
 
 
 @dataclass

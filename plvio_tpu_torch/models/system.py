@@ -13,12 +13,14 @@ follows the tracker each frame (`apply_pending_transform` :325,
 `drain_keyframes` :331, `process_kf` :339-388: every new keyframe into
 the keyframe database and through `LocalMapper.process_keyframe`, the
 frame records of culled keyframes re-anchored, the tracker's frame state
-brought to the keyframe the window BA moved, and the IMU init's map
-transform handed to the tracker).
+brought to the keyframe the window BA moved, then, with loop closing on
+(`cfg.use_loop_closing`, the default), `LoopCloser.process_keyframe` and
+a pending map merge handed to `Tracker.on_map_merged`; and the IMU init's
+map transform handed to the tracker).
 
 Not ported, each raising NotImplementedError naming its ROADMAP item
-where the reference would take it: loop closing (`use_loop_closing`,
-Queue 1 item 6), the prior-map relocalizer (`reloc.enabled`, item 5),
+where the reference would take it: the prior-map relocalizer
+(`reloc.enabled`, Queue 1 item 5),
 stereo and RGB-D (`track_stereo`, `track_rgbd`, item 7), and the
 peripherals of item 9 (`async_mapping`, `change_dataset`, `save_atlas` /
 `load_atlas`, the live viewer, the overlay and snapshot dumps,
@@ -43,8 +45,6 @@ from ..utils.metrics import Metrics
 
 _ITEM5 = ("the prior-map relocalizer is not ported yet (ROADMAP Queue 1 "
           "item 5)")
-_ITEM6 = ("loop closing is not ported yet (ROADMAP Queue 1 item 6): pass "
-          "use_loop_closing=False")
 _ITEM7 = "is not ported yet (ROADMAP Queue 1 item 7)"
 _ITEM9 = "is not ported yet (ROADMAP Queue 1 item 9)"
 
@@ -96,17 +96,20 @@ def apply_pending_transform(tracker, mapper) -> None:
         tracker.apply_map_transform(R_gw, scale)
 
 
-def drain_keyframes(tracker, mapper, kfdb=None, metrics=None) -> list:
+def drain_keyframes(tracker, mapper, kfdb=None, metrics=None,
+                    loop_closer=None) -> list:
     """Every keyframe the tracker queued, oldest first, through
     `process_kf`.  Returns [(kf, culled), ...]."""
     done = []
     while tracker.new_kf_queue:
         kf = tracker.new_kf_queue.pop(0)
-        done.append((kf, process_kf(tracker, mapper, kf, kfdb, metrics)))
+        done.append((kf, process_kf(tracker, mapper, kf, kfdb, metrics,
+                                    loop_closer)))
     return done
 
 
-def process_kf(tracker, mapper, kf: int, kfdb=None, metrics=None) -> list:
+def process_kf(tracker, mapper, kf: int, kfdb=None, metrics=None,
+               loop_closer=None) -> list:
     """Keyframe kf into the keyframe database (where one is given), its
     mapping step (the tracker's reference keyframe protected from
     culling), the frame records of culled keyframes re-anchored, and,
@@ -114,11 +117,23 @@ def process_kf(tracker, mapper, kf: int, kfdb=None, metrics=None) -> list:
     init its velocity and biases) taken from the keyframe the window BA
     moved; the carried VI prior is dropped then.  Skipped while an
     IMU-init transform is pending: applying it resyncs the same state in
-    the new frame.  With `metrics`, all of it is the stage "mapping".
-    Returns the culled keyframes."""
-    with metrics.stage("mapping") if metrics is not None \
-            else contextlib.nullcontext():
-        return _process_kf(tracker, mapper, kf, kfdb)
+    the new frame.  Then, with a `loop_closer`, its
+    `process_keyframe` (the stage "loop_closing" inside "mapping") and a
+    merge it performed handed to the tracker.  With `metrics`, all of it
+    is the stage "mapping".  Returns the culled keyframes."""
+    def stage(name):
+        return metrics.stage(name) if metrics is not None \
+            else contextlib.nullcontext()
+    with stage("mapping"):
+        culled = _process_kf(tracker, mapper, kf, kfdb)
+        if loop_closer is not None:
+            with stage("loop_closing"):
+                loop_closer.process_keyframe(kf)
+            merge = loop_closer.pending_merge
+            if merge is not None:
+                loop_closer.pending_merge = None
+                tracker.on_map_merged(**merge)
+        return culled
 
 
 def _process_kf(tracker, mapper, kf: int, kfdb) -> list:
@@ -142,8 +157,6 @@ def _process_kf(tracker, mapper, kf: int, kfdb) -> list:
             t.frame_vel = m.kf_vel[kf].copy()
             t.frame_bg = m.kf_bias_g[kf].copy()
             t.frame_ba = m.kf_bias_a[kf].copy()
-    # the loop closer's and the prior-map relocalizer's hooks come with
-    # Queue 1 items 6 and 5
     return culled
 
 
@@ -163,12 +176,13 @@ class System:
     versions on any device; `caps` / `viba_caps` are the LocalMapper's
     window caps (production's by default) and `local_pts_cap` the
     tracker's; `sampler` / `pnp_sampler` give the bootstrap's and
-    relocalization's RANSAC samples (models/tracking.py)."""
+    relocalization's RANSAC samples (models/tracking.py), `sim3_sampler`
+    the loop closer's (models/loop_closing.py)."""
 
     def __init__(self, cfg: SystemConfig, async_mapping: bool = False,
                  device="cuda", plain: bool = False, caps=None,
                  viba_caps=None, local_pts_cap: int = 2048, sampler=None,
-                 pnp_sampler=None):
+                 pnp_sampler=None, sim3_sampler=None):
         from ..ops.frontend import OrbExtractor, make_level_specs
         from ..ops.lines import LineExtractor
         from .kfdb import AtlasKeyFrameDatabase
@@ -223,9 +237,14 @@ class System:
             setattr(self.mapper, k, v)
         self.mapper.kfdb = self.kfdb
         self.mapper.metrics = self.metrics
-        if cfg.use_loop_closing:
-            raise NotImplementedError(_ITEM6)
         self.loop_closer = None
+        if cfg.use_loop_closing:
+            from .loop_closing import LoopCloser
+            self.loop_closer = LoopCloser(
+                cfg, self.atlas, self.kfdb, self.n_feat, device=self.device,
+                plain=plain, sim3_sampler=sim3_sampler)
+            self.loop_closer.mapper = self.mapper
+            self.loop_closer.metrics = self.metrics
         if cfg.reloc.enabled:
             raise NotImplementedError(_ITEM5)
         self.relocalizer = None
@@ -238,7 +257,8 @@ class System:
     def host_syncs(self) -> int:
         """Device-to-host reads of the tracker, mapper and database."""
         return self.tracker.host_syncs + self.mapper.host_syncs \
-            + self.kfdb.host_syncs
+            + self.kfdb.host_syncs + (self.loop_closer.host_syncs
+                                      if self.loop_closer else 0)
 
     def track_monocular(self, img, timestamp: float,
                         imu: Optional[Sequence] = None
@@ -260,7 +280,8 @@ class System:
         with self.metrics.stage("track"):
             pose = self.tracker.process_frame(feats, timestamp, imu=imu,
                                               line_feats=line_feats)
-        drain_keyframes(self.tracker, self.mapper, self.kfdb, self.metrics)
+        drain_keyframes(self.tracker, self.mapper, self.kfdb, self.metrics,
+                        self.loop_closer)
         self._maybe_snapshot()
         apply_pending_transform(self.tracker, self.mapper)
         self._maybe_dump_overlay(img)
@@ -314,11 +335,14 @@ class System:
 
     def global_refine(self) -> None:
         """One full-map refinement pass: the full inertial BA of an
-        initialized VI map (the global BA of a visual map comes with loop
-        closing)."""
+        initialized VI map, else the loop closer's global BA (the oldest
+        keyframe fixed)."""
         m = self.atlas.current
         if self.cfg.sensor in (3, 4) and m.imu_initialized:
             self.mapper.full_inertial_ba()
+        elif self.loop_closer is not None and m.n_kf >= 3:
+            chain = m.kf_chain()
+            self.loop_closer.run_global_ba(fixed_kf=int(chain[0]))
 
     def metrics_summary(self) -> dict:
         """Per-stage wall time and counters (`Metrics.summary`)."""

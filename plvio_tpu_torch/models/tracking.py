@@ -11,7 +11,7 @@ lines: `TrackState`, `FrameRecord`, `Tracker.__init__` :60-192,
 :872-1201, `_reselect_ref_kf` :1203, `_handle_lost` :1229, `_relocalize`
 :1263-1326, `_need_keyframe` :1330, `_create_keyframe` :1390,
 `_store_kf_inertial` :1424, `reanchor_records` :1450 and
-`full_trajectory` :1478).
+`full_trajectory` :1478, and `on_map_merged` :722).
 
 The host bookkeeping is the reference's, line for line, on the port's
 numpy `MapStore`; the device calls are the port's kernels: the init
@@ -44,9 +44,9 @@ times the reference's stages: "track/preintegrate", "track/kf_create",
 and the value "track/inliers".
 
 Not ported, each for a later item of the port: the stereo / RGB-D depth
-branches, the KB8 camera, the line-only pose optimizers of SLAM modes 1-3
-and `on_map_merged` (loop closing); each raises NotImplementedError where
-the reference would take it.  The PLVIO_TRACE prints are left out.
+branches, the KB8 camera and the line-only pose optimizers of SLAM modes
+1-3; each raises NotImplementedError where the reference would take it.
+The PLVIO_TRACE prints are left out.
 """
 from __future__ import annotations
 
@@ -203,22 +203,6 @@ class Tracker(HostIO):
         self.last_n_matched = 0
         self.last_match_path = ""
         self.last_guard = False
-
-    def _host_many(self, *ts) -> list:
-        """Several kernel outputs back in numpy with one read of the
-        device (what the reference reads at one point)."""
-        if ts and ts[0].device.type != "cpu":
-            self.host_syncs += 1
-            flat = torch.cat([t.detach().reshape(-1).to(torch.float64)
-                              for t in ts]).cpu().numpy()
-            out, off = [], 0
-            for t in ts:
-                n = t.numel()
-                a = flat[off:off + n].reshape(tuple(t.shape))
-                out.append(a.astype(str(t.dtype).replace("torch.", "")))
-                off += n
-            return out
-        return [t.detach().numpy() for t in ts]
 
     # ------------------------------------------------------------------
     @property
@@ -691,6 +675,54 @@ class Tracker(HostIO):
             self.frame_ba = m.kf_bias_a[newest].copy()
             self.frame_vel = m.kf_vel[newest].copy()
         self.velocity = None
+
+    def on_map_merged(self, s: float, R: np.ndarray, t: np.ndarray,
+                      kf_map: np.ndarray, pt_map: np.ndarray,
+                      ln_map: np.ndarray, merged_atlas_index: int,
+                      new_atlas_index: int) -> None:
+        """Rebind the frame state after the loop closer merged the active
+        map into an older one: the merged-in map was re-expressed as
+        X' = s R X + t and its slots remapped by kf_map / pt_map /
+        ln_map; the Atlas slot merged_atlas_index was removed."""
+        self.invalidate_vi_prior()
+        R = np.asarray(R, np.float32)
+        t = np.asarray(t, np.float32)
+        if self.last_pose_cw is not None:
+            R_cw, t_cw = self.last_pose_cw[:, :3], self.last_pose_cw[:, 3]
+            R_new = R_cw @ R.T
+            self.last_pose_cw = np.concatenate(
+                [R_new, (s * t_cw - R_new @ t)[:, None]], 1).astype(
+                    np.float32)
+        if self.velocity is not None:
+            vel = self.velocity.copy()
+            vel[:, 3] *= s
+            self.velocity = vel
+        self.frame_vel = s * (R @ self.frame_vel)
+        if self.last_feat_pt is not None:
+            fp = self.last_feat_pt
+            self.last_feat_pt = np.where(
+                fp >= 0, pt_map[np.maximum(fp, 0)], INVALID).astype(np.int32)
+        if self.last_feat_ln is not None:
+            fl = self.last_feat_ln
+            self.last_feat_ln = np.where(
+                fl >= 0, ln_map[np.maximum(fl, 0)], INVALID).astype(np.int32)
+        if self.ref_kf != INVALID and kf_map[self.ref_kf] >= 0:
+            self.ref_kf = int(kf_map[self.ref_kf])
+        if self.last_created_kf != INVALID \
+                and kf_map[self.last_created_kf] >= 0:
+            self.last_created_kf = int(kf_map[self.last_created_kf])
+        # the merged map's records follow their reference keyframes (the
+        # relative translations scale by s); records of the maps behind
+        # the removed Atlas slot shift down one index
+        for rec in self.frames:
+            if rec.map_id == merged_atlas_index:
+                rec.map_id = new_atlas_index
+                if kf_map[rec.ref_kf] >= 0:
+                    rec.ref_kf = int(kf_map[rec.ref_kf])
+                rec.T_cr = rec.T_cr.copy()
+                rec.T_cr[:, 3] *= s
+            elif rec.map_id > merged_atlas_index:
+                rec.map_id -= 1
 
     # ------------------------------------------------------------------
     # Frame tracking

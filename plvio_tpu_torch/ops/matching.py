@@ -10,7 +10,9 @@ kernel (csrc/hamming_match.cu) for the fused gate + popcount + ratio test +
 mutual check, which never forms the N x M matrix; `rot_hist` is the
 hand-written CUDA kernel (csrc/epipolar_match.cu) of the rotation
 histogram filter, beside its plain version
-`rotation_histogram_filter`.
+`rotation_histogram_filter`.  `hamming_dist` is `hamming_match`'s matrix
+mode: the whole distance matrix, which the loop closer reads on the
+host.
 """
 from __future__ import annotations
 
@@ -263,6 +265,37 @@ def hamming_match(map_desc, obs_desc, row_ok, col_ok, a_xy, b_xy,
         float(angle_tol) if line else 0.0, float(max_dist), float(ratio),
         cuda.ptr(idx), cuda.ptr(ok), cuda.ptr(col_best), cuda.stream())
     return idx, ok
+
+
+HAMMING_MATRIX = cuda.Kernel("hamming_match", "hamming_matrix",
+                             [_P, _P, _I, _I, _P, _P])
+
+
+def hamming_dist_plain(desc_a: torch.Tensor, desc_b: torch.Tensor
+                       ) -> torch.Tensor:
+    """Plain version of `hamming_dist`: the reference's unpack + matmul."""
+    return hamming_matrix(unpack_u32_to_pm1(desc_a),
+                          unpack_u32_to_pm1(desc_b))
+
+
+def hamming_dist(desc_a: torch.Tensor, desc_b: torch.Tensor
+                 ) -> torch.Tensor:
+    """The whole Hamming distance matrix [N,M] float32 of packed
+    descriptors desc_a [N,8] / desc_b [M,8] int32 (`hamming_match`'s
+    matrix mode).  CPU tensors take the plain version; CUDA tensors launch
+    csrc/hamming_match.cu's `hamming_matrix`."""
+    if desc_a.device.type == "cpu":
+        return hamming_dist_plain(desc_a, desc_b)
+    n, m = desc_a.shape[0], desc_b.shape[0]
+    cuda.check_cuda("hamming_dist", desc_a, desc_b)
+    if desc_a.dtype != torch.int32 or desc_b.dtype != torch.int32 \
+            or desc_a.shape[1:] != (8,) or desc_b.shape[1:] != (8,):
+        raise ValueError("hamming_dist: descriptors must be [*,8] int32")
+    dist = torch.empty(n, m, dtype=torch.float32, device=desc_a.device)
+    if n and m:
+        HAMMING_MATRIX.launch(cuda.ptr(desc_a), cuda.ptr(desc_b), n, m,
+                              cuda.ptr(dist), cuda.stream())
+    return dist
 
 
 # --------------------------------------------------------------------------

@@ -1,6 +1,6 @@
-"""PnP for relocalization (port of plvio_tpu/ops/pnp.py: `_dlt_pose` :22,
-`pnp_ransac` :49, `mlpnp_refine` :217; `sim3_horn` and `sim3_ransac` wait
-for loop closing).
+"""PnP for relocalization and the loop closer's Sim3 RANSAC (port of
+plvio_tpu/ops/pnp.py: `_dlt_pose` :22, `pnp_ransac` :49, `sim3_horn`
+:143, `sim3_ransac` :165, `mlpnp_refine` :217).
 
 `pnp_ransac` scores iters minimal six-point DLT hypotheses (the 12-column
 null vector, its 3x3 block polar-decomposed onto SO(3)) against all N
@@ -22,6 +22,15 @@ SVDs lie far from it).  On CUDA tensors `pnp_ransac` launches
 csrc/pnp.cu's `pnp_hypotheses` (one block a hypothesis) and
 `pnp_refine` (one block), and `mlpnp_refine` its `mlpnp_refine` (one
 block); the kernels solve in float64.
+
+`sim3_ransac` scores iters three-point Horn similarities (X2 ~ s R X1 +
+t) against all N matched 3D points under the relative gate th x
+scale_ref (scale_ref the mean distance of the X2 rows, padding included,
+from their mean) and 0.1 < s < 10, takes the first hypothesis of the
+most inliers, and refits the similarity on its inliers; the samples are
+an input [iters,3] as for `pnp_ransac`.  On CUDA tensors it launches
+csrc/sim3.cu's `sim3_ransac` (one block: a warp a hypothesis, then the
+argmax and the refit), in float64.
 """
 from __future__ import annotations
 
@@ -173,6 +182,70 @@ def mlpnp_refine_plain(K: PinholeK, uv, X, inliers, R0, t0, iters: int = 8,
     return R, t, inl, n.to(torch.int32)
 
 
+class Sim3Result(NamedTuple):
+    s: torch.Tensor        # [] scale
+    R: torch.Tensor        # [3,3]
+    t: torch.Tensor        # [3]
+    inliers: torch.Tensor  # [N] bool, the best hypothesis' inliers
+    n: torch.Tensor        # [] int32 their count
+    best: torch.Tensor     # [] int32 the best hypothesis
+    counts: torch.Tensor   # [iters] int32 each hypothesis' inliers
+
+
+def _horn_from_cov(cov, var1, fix_scale: bool):
+    """(s, R) of Horn's alignment from the cross-covariance [...,3,3] and
+    the source variance: R = U diag(1, 1, sign(det U det Vt)) Vt."""
+    U, D, Vt = torch.linalg.svd(cov)
+    sg = torch.sign(torch.linalg.det(U) * torch.linalg.det(Vt))
+    diag = torch.stack([torch.ones_like(sg), torch.ones_like(sg), sg], -1)
+    R = U @ (diag[..., :, None] * Vt)
+    if fix_scale:
+        s = torch.ones_like(sg)
+    else:
+        s = (D * diag).sum(-1) / torch.clamp_min(var1, 1e-12)
+    return s, R
+
+
+def sim3_horn(X1: torch.Tensor, X2: torch.Tensor, fix_scale: bool = False):
+    """Closed-form Horn alignment of [...,n,3] point sets (n >= 3):
+    (s, R, t) with X2 ~ s R X1 + t."""
+    mu1, mu2 = X1.mean(-2), X2.mean(-2)
+    x1, x2 = X1 - mu1[..., None, :], X2 - mu2[..., None, :]
+    cov = x2.transpose(-1, -2) @ x1 / X1.shape[-2]
+    var1 = (x1 * x1).sum(-1).mean(-1)
+    s, R = _horn_from_cov(cov, var1, fix_scale)
+    t = mu2 - s[..., None] * (R @ mu1[..., None])[..., 0]
+    return s, R, t
+
+
+def sim3_ransac_plain(X1, X2, valid, samples, th: float = 0.05,
+                      fix_scale: bool = False) -> Sim3Result:
+    """Plain version of `sim3_ransac`, in the inputs' dtype."""
+    scale_ref = torch.sqrt(torch.clamp_min(
+        ((X2 - X2.mean(0)) ** 2).sum(-1), 1e-9)).mean()
+    idx = samples.long()
+    ss, Rs, ts = sim3_horn(X1[idx], X2[idx], fix_scale)
+    pred = ss[:, None, None] * (X1[None] @ Rs.transpose(-1, -2)) \
+        + ts[:, None, :]
+    d = torch.linalg.vector_norm(pred - X2[None], dim=-1)
+    inls = valid[None] & (d < th * scale_ref) & (ss[:, None] > 0.1) \
+        & (ss[:, None] < 10.0)
+    counts = inls.sum(-1)
+    best = torch.argmax(counts)
+    inl = inls[best]
+    w = inl.to(X1.dtype)[:, None]
+    nw = torch.clamp_min(w.sum(), 1.0)
+    mu1 = (X1 * w).sum(0) / nw
+    mu2 = (X2 * w).sum(0) / nw
+    x1 = (X1 - mu1) * w
+    x2 = (X2 - mu2) * w
+    cov = x2.T @ x1 / nw
+    s, R = _horn_from_cov(cov, (x1 * x1).sum(-1).sum() / nw, fix_scale)
+    t = mu2 - s * (R @ mu1)
+    return Sim3Result(s, R, t, inl, counts[best].to(torch.int32),
+                      best.to(torch.int32), counts.to(torch.int32))
+
+
 # --------------------------------------------------------------------------
 # Kernels: pnp_hypotheses + pnp_refine, mlpnp_refine (csrc/pnp.cu)
 # --------------------------------------------------------------------------
@@ -265,6 +338,46 @@ def mlpnp_refine(K: PinholeK, uv: torch.Tensor, X: torch.Tensor,
     return R, t, inl, cnt
 
 
+SIM3_RANSAC = cuda.Kernel("sim3", "sim3_ransac",
+                          [_P, _P, _P, _I, _P, _I, _D, _I, _P, _P, _P, _P])
+SIM3_MAX_N = 1024
+
+
+def sim3_ransac(X1: torch.Tensor, X2: torch.Tensor, valid: torch.Tensor,
+                samples: torch.Tensor, th: float = 0.05,
+                fix_scale: bool = False) -> Sim3Result:
+    """Robust similarity X2 ~ s R X1 + t between matched 3D points X1 / X2
+    [N,3] float32 (valid [N]) from the hypotheses of samples [iters,3]
+    (valid rows, each row's 3 distinct).  CPU tensors take the plain
+    version; CUDA tensors launch csrc/sim3.cu (one block, float64)."""
+    if X1.device.type == "cpu":
+        return sim3_ransac_plain(X1, X2, valid, samples.to(X1.device), th,
+                                 fix_scale)
+    n = X1.shape[0]
+    cuda.check_cuda("sim3_ransac", X1, X2, valid)
+    if X1.dtype != torch.float32 or X2.dtype != torch.float32 \
+            or X1.shape != (n, 3) or X2.shape != (n, 3) \
+            or valid.dtype != torch.bool or valid.shape != (n,):
+        raise ValueError("sim3_ransac: X1 / X2 [N,3] float32, valid [N] "
+                         "bool")
+    if not 3 <= n <= SIM3_MAX_N:
+        raise ValueError(f"sim3_ransac: needs 3 <= N <= {SIM3_MAX_N}")
+    samples = samples.to(device=X1.device, dtype=torch.int32).contiguous()
+    iters = samples.shape[0]
+    if samples.shape != (iters, 3) or not 1 <= iters <= 1024:
+        raise ValueError("sim3_ransac: samples [iters,3], iters <= 1024")
+    dev = X1.device
+    out = torch.empty(13, dtype=torch.float32, device=dev)
+    inl = torch.empty(n, dtype=torch.bool, device=dev)
+    ints = torch.empty(2 + iters, dtype=torch.int32, device=dev)
+    SIM3_RANSAC.launch(cuda.ptr(X1), cuda.ptr(X2), cuda.ptr(valid), n,
+                       cuda.ptr(samples), iters, float(th), int(fix_scale),
+                       cuda.ptr(out), cuda.ptr(inl), cuda.ptr(ints),
+                       cuda.stream())
+    return Sim3Result(out[12], out[:9].view(3, 3), out[9:12], inl, ints[0],
+                      ints[1], ints[2:])
+
+
 # a float32 floor of a pose entry's gap to float64: the DLT's null vector
 # on raw world coordinates is ill-conditioned (1.4e-5 on the MH replay's
 # hall, tests/test_torch_pnp.py)
@@ -336,4 +449,49 @@ def kernels_against_float64(K: PinholeK, uv, X, valid, samples,
     if out["ml_gap"] > 2 * out["ml_plain_gap"] + FLOOR:
         fail.append(f"mlpnp_refine pose gap {out['ml_gap']:.2e} > 2 x "
                     f"{out['ml_plain_gap']:.2e} + {FLOOR}")
+    return out
+
+
+def sim3_against_float64(X1, X2, valid, samples, th: float = 0.08,
+                         fix_scale: bool = False) -> dict:
+    """`sim3_ransac` on the card against the plain version's float32 and
+    float64 runs on the CPU with the same samples, launched twice.  The
+    rule (chip_smoke.py and the card test): the best hypothesis and its
+    count equal to the float64 run's, the inlier masks equal but for rows
+    within 1e-6 (relative) of the gate, (s, R, t) within 2x the plain
+    float32 run's largest gap to float64 + 1e-6, the same bits on the
+    second launch.  Returns dict(gap, plain_gap, n, best, failures)."""
+    k = sim3_ransac(X1, X2, valid, samples, th, fix_scale)
+    k2 = sim3_ransac(X1, X2, valid, samples, th, fix_scale)
+    u1, u2, v, s = (t.detach().cpu() for t in (X1, X2, valid, samples))
+    p = sim3_ransac_plain(u1, u2, v, s, th, fix_scale)
+    p64 = sim3_ransac_plain(u1.double(), u2.double(), v, s, th, fix_scale)
+
+    def gap(r):
+        return max(abs(float(r.s) - float(p64.s)),
+                   float((r.R.double().cpu() - p64.R).abs().max()),
+                   float((r.t.double().cpu() - p64.t).abs().max()))
+    out = dict(gap=gap(k), plain_gap=gap(p), n=int(k.n), best=int(k.best))
+    fail = []
+    if not all(torch.equal(a, b) for a, b in zip(k, k2)):
+        fail.append("a second launch gave other bits")
+    if int(k.best) != int(p64.best) or int(k.n) != int(p64.n):
+        fail.append(f"best {int(k.best)} / {int(k.n)} inliers != "
+                    f"{int(p64.best)} / {int(p64.n)}")
+    A, B = u1.double(), u2.double()
+    idx = s[int(p64.best)].long()
+    hs, hR, ht = sim3_horn(A[idx], B[idx], fix_scale)
+    d = torch.linalg.vector_norm(hs * A @ hR.T + ht - B, dim=-1)
+    scale_ref = torch.sqrt(torch.clamp_min(
+        ((B - B.mean(0)) ** 2).sum(-1), 1e-9)).mean()
+    gate = th * scale_ref
+    near = (d - gate).abs() <= 1e-6 * gate
+    diff = k.inliers.cpu() != p64.inliers
+    if bool((diff & ~near).any()):
+        fail.append(f"inlier masks differ on rows "
+                    f"{torch.nonzero(diff & ~near)[:, 0].tolist()}")
+    if out["gap"] > 2 * out["plain_gap"] + 1e-6:
+        fail.append(f"(s, R, t) {out['gap']:.2e} from float64 > 2x the "
+                    f"plain run's {out['plain_gap']:.2e} + 1e-6")
+    out["failures"] = fail
     return out

@@ -3,7 +3,8 @@ inertial back end, the keyframe step's neighbourhood work, the whole
 keyframe step over a keyframe sequence and the tracked sequence goes, on
 one CUDA card.
 
-    python3 -m plvio_tpu_torch.profile_frames [sequence | tracked | system]
+    python3 -m plvio_tpu_torch.profile_frames \
+        [sequence | tracked | system | loop | mh_loop]
 
 Builds the synthetic inputs of `chip_smoke.py` (EuRoC geometry: 480x752,
 1000 ORB features, 256 line features, 2048 map points, 128 map lines; 16
@@ -47,7 +48,15 @@ and the device ms of the ORB front end and of the pyramid inside it;
 bootstrap, tracked, keyframe and relocalization frames, the share of a
 keyframe frame's wall and device time spent in `bow_transform`, and the
 relocalization case on its final map (`entry.relocalization_case`);
-`system` runs that part alone.
+`system` runs that part alone.  `loop` profiles the loop closer at
+production caps on the hand-made maps (`entry.loop_closure`, the drifted
+circle and the merge): wall and device busy ms per keyframe fed, the
+closing keyframe apart, and the device kernels with the most time.
+`mh_loop` runs the whole `System` with its default configuration (loop
+closing on) over the 28 s circuit (`entry.mh_loop`, 560 rendered frames)
+and gives the per-frame figures of `system` (bootstrap, tracked,
+keyframe, relocalization frames) and the loop-closing stage's wall ms per
+keyframe (`Metrics`).
 
 Prints the card's `nvidia-smi` name and power limit first.  Needs one
 card; JAX is never imported.
@@ -382,7 +391,7 @@ def profile_system(dev):
     busy ms), split into bootstrap, tracked, keyframe and relocalization
     frames, with `bow_transform`'s device ms inside the keyframe frames;
     then the relocalization case on the last run's map, profiled."""
-    step, S = E.mh_replay(device=dev)
+    step, S = E.mh_replay(device=dev, use_loop_closing=False)
     with torch.no_grad():
         step(S)
         out = step(S)
@@ -444,6 +453,83 @@ def profile_system(dev):
         print(f"     {name[:68]:68s} n {c:4d} dev ms {ms:.4f}")
 
 
+def profile_loop(dev):
+    """The loop closer at production caps on the drifted circle and the
+    merge: a warm-up run each, then one under `torch.profiler` with each
+    keyframe fed in a range."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for case in ("circle", "merge"):
+        step, inputs = E.loop_closure(case, device=dev)
+        with torch.no_grad():
+            step(inputs)
+            import plvio_tpu_torch.models.loop_closing as LC
+            pk = LC.LoopCloser.process_keyframe
+
+            def ranged(self, kf):
+                with torch.profiler.record_function("frame"):
+                    return pk(self, kf)
+            LC.LoopCloser.process_keyframe = ranged
+            try:
+                with torch.profiler.profile(activities=acts) as prof:
+                    out = step(inputs)
+            finally:
+                LC.LoopCloser.process_keyframe = pk
+        ranges, dev_ev = _frame_ranges(prof)
+        busy = [sum(d for t, d, _ in dev_ev if a <= t <= b) / 1e3
+                for a, b in ranges]
+        print(f"== loop closure, {case} (production caps): closed "
+              f"{out.closed}, graph {out.graph}")
+        for i, (ms, b) in enumerate(zip(out.ms, busy)):
+            print(f"   keyframe {i} ({'closing' if out.closed[i] else 'no '}"
+                  f") wall {ms:9.3f} ms device busy {b:9.3f} ms idle share "
+                  f"{1 - b / ms:6.1%}")
+        for name, (c, ms) in sorted(_per_name(dev_ev).items(),
+                                    key=lambda kv: -kv[1][1])[:12]:
+            print(f"   {name[:70]:70s} n {c:5d} dev ms {ms:.4f}")
+
+
+def profile_mh_loop(dev):
+    """The System with loop closing over the 28 s circuit: one run for the
+    wall ms of each frame, one under `torch.profiler` for the device busy
+    ms, split by frame kind; the loop-closing stage from `Metrics`."""
+    step, S = E.mh_loop(device=dev)
+    with torch.no_grad():
+        out = step(S)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.no_grad(), torch.profiler.profile(activities=acts) as prof:
+        step(S, frame_ctx=lambda i: torch.profiler.record_function("frame"))
+    ranges, dev_ev = _frame_ranges(prof)
+    busy = [sum(d for t, d, _ in dev_ev if a <= t <= b) / 1e3
+            for a, b in ranges]
+    rows = defaultdict(list)
+    for i, (f, b) in enumerate(zip(out.frames, busy)):
+        kind = "bootstrap" if i <= out.init_frame else (
+            "relocalize" if f.reloc_tried else
+            "keyframe" if f.keyframe else "tracked")
+        rows[kind].append((f.ms, b, f.host_syncs))
+    lcs = out.metrics.get("loop_closing", {})
+    print(f"== System over the 28 s circuit ({len(out.frames)} frames): "
+          f"tracked {out.n_tracked}, keyframes {out.keyframes}, maps "
+          f"{out.maps}, loops {out.loops}, merges {out.merges}, Sim3 "
+          f"verifications {out.verifications}, ATE {out.ate_sim3:.4f} / "
+          f"{out.ate_se3:.4f} m; loop_closing stage {lcs}")
+    for kind in ("bootstrap", "tracked", "keyframe", "relocalize"):
+        if not rows[kind]:
+            continue
+        r = np.array(rows[kind])
+        wall, dbusy = r[:, 0].mean(), r[:, 1].mean()
+        print(f"   {kind:10s} frames {len(r):3d} wall {wall:8.3f} ms/frame "
+              f"device busy {dbusy:8.3f} ms/frame idle share "
+              f"{1 - dbusy / wall:6.1%} host syncs {r[:, 2].mean():5.1f}")
+    n = len(out.frames)
+    for name, (c, ms) in sorted(_per_name(dev_ev).items(),
+                                key=lambda kv: -kv[1][1])[:12]:
+        print(f"   {name[:70]:70s} n/frame {c / n:6.1f} dev ms/frame "
+              f"{ms / n:.4f}")
+
+
 def _per_name(dev_ev):
     per = defaultdict(lambda: [0, 0.0])
     for _, d, name in dev_ev:
@@ -468,6 +554,12 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["system"]:
         profile_system(dev)
+        return 0
+    if sys.argv[1:] == ["loop"]:
+        profile_loop(dev)
+        return 0
+    if sys.argv[1:] == ["mh_loop"]:
+        profile_mh_loop(dev)
         return 0
     (frames, poses, pt_xyz, pt_desc, pt_valid, ln_ep6, ln_desc, ln_valid,
      traj) = build_inputs(N_FRAMES, CAP_PTS, CAP_LNS, H, W,

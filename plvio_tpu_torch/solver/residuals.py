@@ -8,7 +8,10 @@ retractions (port of plvio_tpu/solver/residuals.py:
 `make_point_reproj_body` :248, `make_point_reproj_body_ba` :290,
 `state_prior` :308, `make_inertial` :318, `make_inertial_gs` :348,
 `bias_rw` :466, `make_prior15` :474, `point_reproj_ba_for` :559,
-`point_reproj_body_ba_for` :567).
+`point_reproj_body_ba_for` :567, and the loop closer's Sim(3) pieces
+`sim3_from_flat` :387, `sim3_to_flat` :392, `retract_sim3(_single)`
+:396-409, `retract_sim3_4dof(_single)` :414-434 with `_SIM3_4DOF_MASK`,
+`sim3_edge` :437 and `sim3_edge_4dof` :452).
 
 A residual is `res(blocks, deltas, const) -> r` that applies its own
 retraction to each block; the engine (solver/engine.py) differentiates it
@@ -478,3 +481,78 @@ def prior15_jac(blocks, const):
     J[3:6, 0:3] = torch.eye(3, dtype=v.dtype, device=v.device)
     J[6:, 6:] = torch.eye(9, dtype=v.dtype, device=v.device)
     return r, J
+
+
+# --------------------------------------------------------------------------
+# Sim(3) states and the essential graph's edge (vertices S_iw, world ->
+# keyframe similarities; storage [13] = R (9, row-major), t (3), s)
+# --------------------------------------------------------------------------
+
+def sim3_from_flat(S: torch.Tensor):
+    return S[..., :9].reshape(S.shape[:-1] + (3, 3)), S[..., 9:12], \
+        S[..., 12]
+
+
+def sim3_to_flat(R, t, s):
+    return torch.cat([R.reshape(R.shape[:-2] + (9,)), t, s[..., None]], -1)
+
+
+def retract_sim3_single(S: torch.Tensor, d: torch.Tensor):
+    """Left perturbation S <- Exp(d) S."""
+    R, t, s = sim3_from_flat(S)
+    dR, dt, ds = lie.sim3_exp(d)
+    return dR @ R, ds * (dR @ t) + dt, ds * s
+
+
+def retract_sim3(S: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """Batched engine retract [N,13], [N,7] -> [N,13], the rotation
+    re-orthonormalized."""
+    R, t, s = sim3_from_flat(S)
+    dR, dt, ds = lie.sim3_exp(d)
+    return sim3_to_flat(lie.so3_normalize(dR @ R),
+                        ds[..., None] * (dR @ t[..., None])[..., 0] + dt,
+                        ds * s)
+
+
+# rho and the world yaw free; roll, pitch and sigma frozen
+SIM3_4DOF_MASK = (1.0, 1.0, 1.0, 0.0, 0.0, 1.0, 0.0)
+
+
+def _mask4(d: torch.Tensor) -> torch.Tensor:
+    return d * torch.tensor(SIM3_4DOF_MASK, dtype=d.dtype, device=d.device)
+
+
+def retract_sim3_4dof_single(S: torch.Tensor, d: torch.Tensor):
+    """World-frame (right) perturbation S <- S Exp(d_masked): translation
+    and yaw about the world z (gravity) axis, scale pinned."""
+    R, t, s = sim3_from_flat(S)
+    dR, dt, _ = lie.sim3_exp(_mask4(d))
+    return R @ dR, s * (R @ dt) + t, s
+
+
+def retract_sim3_4dof(S: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    R, t, s = sim3_from_flat(S)
+    dR, dt, _ = lie.sim3_exp(_mask4(d))
+    return sim3_to_flat(lie.so3_normalize(R @ dR),
+                        s[..., None] * (R @ dt[..., None])[..., 0] + t, s)
+
+
+def _edge(retract, blocks, deltas, const):
+    Ri, ti, si = retract(blocks[0], deltas[0])
+    Rj, tj, sj = retract(blocks[1], deltas[1])
+    Rj_inv, tj_inv, sj_inv = lie.sim3_inv(Rj, tj, sj)
+    R1, t1, s1 = lie.sim3_mul(Ri, ti, si, Rj_inv, tj_inv, sj_inv)
+    R2, t2, s2 = lie.sim3_mul(const["Rji"], const["tji"], const["sji"],
+                              R1, t1, s1)
+    return lie.sim3_log(R2, t2, s2)
+
+
+def sim3_edge(blocks, deltas, const):
+    """r [7] = log(S_ji_meas S_i S_j^{-1}); const {'Rji', 'tji', 'sji'}."""
+    return _edge(retract_sim3_single, blocks, deltas, const)
+
+
+def sim3_edge_4dof(blocks, deltas, const):
+    """`sim3_edge` with both perturbations restricted to world
+    translation and yaw, scale pinned."""
+    return _edge(retract_sim3_4dof_single, blocks, deltas, const)

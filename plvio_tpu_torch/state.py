@@ -1,7 +1,7 @@
 """Carry what the JAX package holds (the map, a pose, the inertial
-window's state, a keyframe map store, the local mapper's and the
-tracker's host state, a vocabulary, the keyframe database's banks) over
-to the port."""
+window's state, a keyframe map store, the local mapper's, the tracker's
+and the loop closer's host state, a vocabulary, the keyframe database's
+banks) over to the port."""
 from __future__ import annotations
 
 from typing import Dict
@@ -287,3 +287,30 @@ def load_kfdb_state(atlas_db, st: dict) -> None:
         if db.line_voc is not None and arrays["bows_l"] is not None:
             db.bows_l.copy_(torch.from_numpy(arrays["bows_l"]))
             db.has_lines[:] = arrays["has_lines"]
+
+
+def loop_closer_state(lc) -> dict:
+    """The loop closer's host state between keyframes (the port's or the
+    JAX package's `LoopCloser`): the consistency groups and their votes,
+    the merge votes, the failed-candidate cooldowns, the loop edges per
+    map and the counters; copies.  The RANSAC sample source is not carried
+    (the JAX key and the port's generator differ)."""
+    return dict(
+        consistency=[(set(int(k) for k in g), int(v))
+                     for g, v in lc.consistency],
+        merge_votes={int(k): int(v) for k, v in lc.merge_votes.items()},
+        failed_cands={int(k): int(v) for k, v in lc._failed_cands.items()},
+        loop_edges={int(k): [(int(a), int(b)) for a, b in v]
+                    for k, v in lc._loop_edges.items()},
+        n_loops_closed=int(lc.n_loops_closed),
+        n_maps_merged=int(lc.n_maps_merged))
+
+
+def load_loop_closer_state(lc, st: dict) -> None:
+    """Set a loop closer's host state from `loop_closer_state`'s dict."""
+    lc.consistency = [(set(g), int(v)) for g, v in st["consistency"]]
+    lc.merge_votes = dict(st["merge_votes"])
+    lc._failed_cands = dict(st["failed_cands"])
+    lc._loop_edges = {k: list(v) for k, v in st["loop_edges"].items()}
+    lc.n_loops_closed = st["n_loops_closed"]
+    lc.n_maps_merged = st["n_maps_merged"]

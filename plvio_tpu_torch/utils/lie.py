@@ -156,3 +156,133 @@ def rot_to_quat(R: torch.Tensor) -> torch.Tensor:
     q = q / torch.clamp_min(torch.linalg.norm(q, dim=-1, keepdim=True),
                             1e-12)
     return q * torch.where(q[..., 3:4] < 0, -1.0, 1.0)
+
+
+def quat_to_rot(q: torch.Tensor) -> torch.Tensor:
+    """[...,4] (x, y, z, w) -> [...,3,3] (utils/lie.py:146)."""
+    q = q / torch.clamp_min(torch.linalg.vector_norm(q, dim=-1,
+                                                     keepdim=True), 1e-12)
+    x, y, z, w = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    return torch.stack([
+        torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - z * w),
+                     2 * (x * z + y * w)], -1),
+        torch.stack([2 * (x * y + z * w), 1 - 2 * (x * x + z * z),
+                     2 * (y * z - x * w)], -1),
+        torch.stack([2 * (x * z - y * w), 2 * (y * z + x * w),
+                     1 - 2 * (x * x + y * y)], -1)], -2)
+
+
+def _so3_left_V_inv(phi: torch.Tensor) -> torch.Tensor:
+    theta2, t2, theta, W, W2, small = _theta_terms(phi)
+    cot = torch.where(
+        small, 1.0 / 12.0 + theta2 / 720.0,
+        1.0 / t2 - (1.0 + torch.cos(theta))
+        / (2.0 * theta * torch.clamp_min(torch.sin(theta), 1e-12)))
+    return _eye_like(W) - 0.5 * W + cot[..., None, None] * W2
+
+
+def se3_log(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """(R, t) -> [...,6] (rho, phi)."""
+    phi = so3_log(R)
+    rho = (_so3_left_V_inv(phi) @ t[..., None])[..., 0]
+    return torch.cat([rho, phi], -1)
+
+
+def se3_inv(R: torch.Tensor, t: torch.Tensor):
+    Rt = R.transpose(-1, -2)
+    return Rt, -(Rt @ t[..., None])[..., 0]
+
+
+def se3_mul(Ra, ta, Rb, tb):
+    """(Ra, ta) * (Rb, tb)."""
+    return Ra @ Rb, (Ra @ tb[..., None])[..., 0] + ta
+
+
+def se3_apply(R, t, p):
+    """Points p [...,3] under (R, t)."""
+    return (R @ p[..., None])[..., 0] + t
+
+
+def se3_matrix(R, t):
+    """(R, t) -> [...,4,4]."""
+    M = torch.zeros(R.shape[:-2] + (4, 4), dtype=R.dtype, device=R.device)
+    M[..., :3, :3] = R
+    M[..., :3, 3] = t
+    M[..., 3, 3] = 1.0
+    return M
+
+
+# --------------------------------------------------------------------------
+# Sim(3): (R, t, s), tangent order (rho, phi, sigma), sigma = log s (the
+# loop closer's welds and essential graph; utils/lie.py:260-329)
+# --------------------------------------------------------------------------
+
+SIM3_EPS = 1e-4
+
+
+def _sim3_W(phi: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
+    """W = int_0^1 e^{sigma u} Exp(u phi) du = a0 I + a1 phi^ + a2 phi^^2,
+    with the reference's Taylor guards (|sigma| and theta below 1e-4) and
+    its 1e-24 floors.  Where a guard holds, the other branch is evaluated
+    at a safe stand-in (theta, theta^2 and the denominator 1), so that
+    reverse-mode derivatives stay finite; the values are the reference's."""
+    eps = SIM3_EPS
+    theta2 = (phi * phi).sum(-1)
+    theta = torch.sqrt(torch.clamp_min(theta2, 1e-24))
+    s = torch.exp(sigma)
+    sig_small = torch.abs(sigma) < eps
+    th_small = theta < eps
+    one = torch.ones_like(theta)
+    sig_safe = torch.where(sig_small, one, sigma)
+    th_safe = torch.where(th_small, one, theta)
+    th2_safe = torch.where(th_small, one, theta2)
+    denom = torch.clamp_min(sigma * sigma + th2_safe, 1e-24)
+    a0 = torch.where(sig_small, 1.0 + sigma / 2.0 + sigma * sigma / 6.0,
+                     (s - 1.0) / sig_safe)
+    int_sin = (s * (sigma * torch.sin(th_safe) - th_safe
+                    * torch.cos(th_safe)) + th_safe) / denom
+    int_cos = (s * (sigma * torch.cos(th_safe) + th_safe
+                    * torch.sin(th_safe)) - sigma) / denom
+    int_u = torch.where(sig_small, 0.5 + sigma / 3.0,
+                        (s * (sigma - 1.0) + 1.0) / (sig_safe * sig_safe))
+    a1 = torch.where(th_small, int_u, int_sin / th_safe)
+    int_u2h = torch.where(
+        sig_small, 1.0 / 6.0 + sigma / 8.0,
+        (s * (sigma * sigma - 2.0 * sigma + 2.0) - 2.0)
+        / (2.0 * sig_safe ** 3))
+    a2 = torch.where(th_small, int_u2h,
+                     (a0 - int_cos) / torch.clamp_min(th2_safe, 1e-24))
+    Wh = hat(phi)
+    return a0[..., None, None] * _eye_like(Wh) + a1[..., None, None] * Wh \
+        + a2[..., None, None] * (Wh @ Wh)
+
+
+def sim3_exp(xi: torch.Tensor):
+    """[...,7] (rho, phi, sigma) -> (R, t, s)."""
+    rho, phi, sigma = xi[..., :3], xi[..., 3:6], xi[..., 6]
+    t = (_sim3_W(phi, sigma) @ rho[..., None])[..., 0]
+    return so3_exp(phi), t, torch.exp(sigma)
+
+
+def sim3_log(R: torch.Tensor, t: torch.Tensor, s: torch.Tensor
+             ) -> torch.Tensor:
+    """(R, t, s) -> [...,7] (rho, phi, sigma), the inverse of sim3_exp."""
+    sigma = torch.log(torch.clamp_min(s, 1e-12))
+    phi = so3_log(R)
+    rho = torch.linalg.solve(_sim3_W(phi, sigma), t[..., None])[..., 0]
+    return torch.cat([rho, phi, sigma[..., None]], -1)
+
+
+def sim3_inv(R, t, s):
+    Rt = R.transpose(-1, -2)
+    s_inv = 1.0 / s
+    return Rt, -s_inv[..., None] * (Rt @ t[..., None])[..., 0], s_inv
+
+
+def sim3_mul(Ra, ta, sa, Rb, tb, sb):
+    return Ra @ Rb, sa[..., None] * (Ra @ tb[..., None])[..., 0] + ta, \
+        sa * sb
+
+
+def sim3_apply(R, t, s, p):
+    return s[..., None] * (R @ p[..., None])[..., 0] + t

@@ -1,6 +1,8 @@
-"""The twenty-five CUDA kernels against their plain PyTorch versions on
-the card (and schur_solve's global path, a short keyframe sequence and a
-short tracked sequence; PnP against a float64 run of its plain version).
+"""The CUDA kernels against their plain PyTorch versions on the card (and
+schur_solve's global path, a short keyframe sequence and a short tracked
+sequence; PnP, the Sim3 RANSAC, the Sim3 reprojection refinement and the
+essential graph, one block and global, against a float64 run of their
+plain versions, within 2x the plain float32 run's distance to it + 1e-6).
 
 Marked `cuda`; each test skips without a CUDA device.  This file imports
 no JAX, so it also runs on a GPU machine without JAX, where the suite's
@@ -1365,3 +1367,151 @@ def test_pnp_kernels_match_float64(dev, name):
     PNP.pnp_ransac(K, *(torch.from_numpy(a).to(dev) for a in (uv, X, valid)),
                    s.to(dev), stats=st)
     assert 128 + 3 <= int(st["rotations"]) <= (128 + 3) * 50 * 66
+
+
+# --------------------------------------------------------------------------
+# Slice 10: the loop closer's kernels against float64
+# --------------------------------------------------------------------------
+
+def _circle_verification():
+    """The drifted circle's first Sim3 verification inputs and its
+    essential graph, from the loop closer's plain run on the CPU."""
+    from plvio_tpu_torch.entry import loop_closure
+    from plvio_tpu_torch.ops import pnp as PNP
+    got = {}
+    orig_r, orig_g = PNP.sim3_ransac_plain, KN.pose_graph_compacted_plain
+
+    def rec_r(*a, **kw):
+        got.setdefault("ransac", (a, kw))
+        return orig_r(*a, **kw)
+
+    def rec_g(*a, **kw):
+        got.setdefault("graph", (a, kw))
+        return orig_g(*a, **kw)
+    PNP.sim3_ransac_plain, KN.pose_graph_compacted_plain = rec_r, rec_g
+    try:
+        step, inputs = loop_closure("circle", device="cpu", plain=True,
+                                    gba_caps=(32, 2048, 4096))
+        step(inputs)
+    finally:
+        PNP.sim3_ransac_plain, KN.pose_graph_compacted_plain = orig_r, orig_g
+    return got
+
+
+@pytest.fixture(scope="module")
+def circle_inputs():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return _circle_verification()
+
+
+@pytest.mark.parametrize("own_samples", [False, True])
+def test_sim3_ransac_matches_float64(dev, circle_inputs, own_samples):
+    from plvio_tpu_torch.ops import pnp as PNP
+    from plvio_tpu_torch.ops import twoview as TV
+    (X1, X2, valid, samples), kw = circle_inputs["ransac"]
+    if own_samples:
+        samples = TV.sample_indices(valid, 64, 3,
+                                    torch.Generator().manual_seed(1))
+    r = PNP.sim3_against_float64(X1.to(dev), X2.to(dev), valid.to(dev),
+                                 samples.to(dev), kw.get("th", 0.08),
+                                 kw.get("fix_scale", False))
+    assert not r["failures"], r
+
+
+@pytest.mark.parametrize("fix_scale", [False, True])
+def test_sim3_reproj_matches_float64(dev, fix_scale):
+    """tests/test_essential_graph_big.py:114's case: 256 pairs a side
+    observed with 0.3 px noise, 7 forward outliers, from a perturbed
+    start."""
+    from plvio_tpu_torch.utils import lie
+    rng = np.random.default_rng(0)
+    cap = 256
+
+    def rot(v):
+        return lie.so3_exp(torch.tensor(v, dtype=torch.float32)).numpy()
+    Rg, tg = rot([0.02, -0.03, 0.2]), np.array([0.5, -0.3, 0.2])
+    P1 = np.eye(3, 4, dtype=np.float32)
+    P2 = np.concatenate([rot([0., 0.25, 0.]),
+                         np.array([[0.1], [0.], [0.3]], np.float32)], 1)
+    X1 = rng.uniform(-2, 2, (cap, 3))
+    X1[:, 2] = rng.uniform(3, 7, cap)
+    X2 = 1.1 * X1 @ Rg.T + tg
+
+    def proj(P, X):
+        pc = X @ P[:, :3].T + P[:, 3]
+        return np.stack([400 * pc[:, 0] / pc[:, 2] + 376,
+                         400 * pc[:, 1] / pc[:, 2] + 240], -1)
+    uv2 = proj(P2, X2) + rng.normal(0, 0.3, (cap, 2))
+    uv2[:7] += 25.0
+    uv1 = proj(P1, X1) + rng.normal(0, 0.3, (cap, 2))
+    S13 = np.concatenate([rot([0.01, 0.01, 0.25]).reshape(-1),
+                          tg + [0.1, -0.1, 0.05], [1.0]])
+    ones, valid = np.ones(cap, np.float32), np.ones(cap, bool)
+    ts = [torch.from_numpy(np.ascontiguousarray(a, dt)).to(dev)
+          for a, dt in ((S13, np.float32), (X1, np.float32),
+                        (uv2, np.float32), (valid, bool), (ones, np.float32),
+                        (X2, np.float32), (uv1, np.float32), (valid, bool),
+                        (ones, np.float32), (P1, np.float32),
+                        (P2, np.float32))]
+    r = KN.sim3_reproj_against_float64(PinholeK(400., 400., 376., 240.),
+                                       ts, fix_scale=fix_scale)
+    assert not r["failures"], r
+
+
+@pytest.mark.parametrize("four_dof", [False, True])
+def test_pose_graph_one_block_matches_float64(dev, circle_inputs, four_dof):
+    (args, kw) = circle_inputs["graph"]
+    n_active = args[11] if len(args) > 11 else kw.get("n_active")
+    r = KN.pose_graph_against_float64([a.to(dev) for a in args[:9]],
+                                      four_dof=four_dof, n_active=n_active)
+    assert r["path"] == 0 and not r["failures"], r
+
+
+@pytest.mark.parametrize("n_kf", [600, 511])
+def test_pose_graph_global_path_matches_float64(dev, n_kf):
+    """tests/test_essential_graph_big.py's chain through the
+    production-cap graph (512 keyframes x 4096 edges), on the cooperative
+    global path: 601 keyframes subsampled to 301 anchors (S = 2107), and
+    512 keyframes, the graph's capacity (S = 3584)."""
+    from plvio_tpu_torch.config import CameraConfig, SystemConfig
+    from plvio_tpu_torch.inputs import build_big_chain
+    from plvio_tpu_torch.models.loop_closing import LoopCloser
+    from plvio_tpu_torch.models.mapstore import Atlas
+    got = {}
+    orig = KN.pose_graph
+
+    def rec(*a, **kw):
+        got["args"] = a
+        return orig(*a, **kw)
+    KN.pose_graph = rec
+    try:
+        m, kfs, gt = build_big_chain(n_kf=n_kf)
+        lc = LoopCloser(SystemConfig(camera=CameraConfig(dist=(0.0,) * 4),
+                                     use_lines=False),
+                        Atlas(maps=[m], active=0), None, m.n_feat,
+                        device=dev)
+        chain = m.kf_chain()
+        pre = {int(k): (m.kf_pose_cw[k, :, :3].copy(),
+                        m.kf_pose_cw[k, :, 3].copy()) for k in chain}
+        kf, cand = int(kfs[-1]), int(kfs[0])
+        R_w = gt[-1][0].T @ pre[kf][0]
+        t_w = gt[-1][0].T @ (pre[kf][1] - gt[-1][1])
+        lc._essential_graph(kf, cand, 1.0, R_w, t_w, pre, {kf})
+    finally:
+        KN.pose_graph = orig
+    a = got["args"]
+    r = KN.pose_graph_against_float64(list(a[:9]), four_dof=False,
+                                      n_active=a[11])
+    assert r["S"] == 7 * (301 if n_kf == 600 else 512) and r["path"] == 1 \
+        and not r["failures"], r
+
+
+def test_hamming_matrix_mode_matches_plain(dev):
+    rng = np.random.default_rng(4)
+    a = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, (1024, 8)).astype(
+        np.int32))
+    b = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, (700, 8)).astype(
+        np.int32))
+    assert torch.equal(M.hamming_dist(a.to(dev), b.to(dev)).cpu(),
+                       M.hamming_dist_plain(a, b))

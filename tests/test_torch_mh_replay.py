@@ -26,7 +26,7 @@ def test_mh_replay_meets_regression_bounds():
         pytest.skip("needs a CUDA device")
     from plvio_tpu_torch.entry import mh_replay, relocalization_case
     from plvio_tpu_torch.models.tracking import TrackState
-    step, S = mh_replay()
+    step, S = mh_replay(use_loop_closing=False)
     with torch.no_grad():
         out = step(S)
     n = len(out.frames)

@@ -26,6 +26,15 @@ LOST with no pose, as `System.load_atlas` leaves the tracker
 RECENTLY_LOST for 10 frames (0.5 s) with its pose turned about, so that
 tracking from it fails and the bridge relocalizes.
 
+(d) The port's `System` with loop closing on (the system's default)
+against the JAX `System` with its `LoopCloser`, monocular at the same
+reduced sizes over LC_FRAMES frames, the port from the JAX run's state
+(the loop closer's too: `state.load_loop_closer_state`) once the map
+holds LC_START_KF keyframes, so that `_detect` runs on every later
+keyframe; teacher-forced as tests/test_torch_loop_closing.py is (the
+reference's RANSAC samples and database answers, the port's own answers
+held to them above the float32 noise of disjoint bags).
+
 Tolerances, and why:
 - every frame's state, inliers, the keyframes made and the map's counts
   equal, poses within 1e-4 a pose entry (the rule of
@@ -284,9 +293,12 @@ def reference_mh(seed: int = 0, seconds: float = MH_SECONDS) -> dict:
 # --------------------------------------------------------------------------
 
 def _port_cfg(**kw):
+    """The file's reduced sizes, loop closing off as `mh_config`'s unless
+    kw turns it on."""
     from plvio_tpu_torch.config import MapConfig as PMap
     from plvio_tpu_torch.config import OrbConfig as POrb
     from plvio_tpu_torch.entry import system_config
+    kw.setdefault("use_loop_closing", False)
     return system_config(orb=POrb(n_features=N_FEATURES), map=PMap(**MAP),
                          **kw)
 
@@ -298,15 +310,14 @@ def _port_system(**kw):
 
 
 @pytest.mark.parametrize("what,item", [
-    ("loop_closing", 6), ("prior_reloc", 5), ("async", 9), ("stereo", 7),
+    ("prior_reloc", 5), ("async", 9), ("stereo", 7),
     ("rgbd", 7), ("change_dataset", 9), ("save_atlas", 9),
     ("load_atlas", 9), ("viewer", 9), ("overlay", 9), ("snapshot", 9),
     ("export_map", 9), ("stereo_sensor", 7)])
 def test_not_ported_options_raise(what, item, monkeypatch):
     from plvio_tpu_torch.config import RelocConfig, Sensor as PSensor
     from plvio_tpu_torch.models.system import System
-    ctor = {"loop_closing": dict(use_loop_closing=True),
-            "prior_reloc": dict(reloc=RelocConfig(enabled=True)),
+    ctor = {"prior_reloc": dict(reloc=RelocConfig(enabled=True)),
             "stereo_sensor": dict(sensor=PSensor.IMU_STEREO)}
     env = {"viewer": "PLVIO_VIEWER_PORT"}
     with pytest.raises(NotImplementedError, match=f"item {item}"):
@@ -688,6 +699,132 @@ def test_relocalization_vi_bridge(run):
 # of the five seeds' (the card draws its own RANSAC samples)
 MH_ERRORS = ("init_scale_err", "scale_err", "gravity_err_deg", "ate_sim3",
              "ate_se3", "reloc_centre_m", "reloc_rot_deg")
+
+
+# --------------------------------------------------------------------------
+# (d) the System with loop closing on (the default) against the JAX System
+# --------------------------------------------------------------------------
+LC_FRAMES = 56          # frames of the loop-closing run (JAX's map holds
+#                         11 keyframes at frame 47, 13 by frame 55)
+LC_START_KF = 11        # the port starts once the JAX map holds this many
+
+
+def jax_lc_config():
+    """The file's reduced sizes, monocular (no IMU), loop closing on."""
+    return SystemConfig(sensor=Sensor.MONOCULAR,
+                        camera=CameraConfig(dist=(0.0, 0.0, 0.0, 0.0)),
+                        orb=OrbConfig(n_features=N_FEATURES),
+                        map=MapConfig(**MAP))
+
+
+def _lc_record(lc, db):
+    return dict(groups=[(sorted(int(k) for k in g), int(v))
+                        for g, v in lc.consistency],
+                counters=(int(lc.n_loops_closed), int(lc.n_maps_merged)),
+                failed={int(k): int(v) for k, v in lc._failed_cands.items()},
+                queries=None if db is None else db.queries)
+
+
+@pytest.fixture(scope="module")
+def run_lc():
+    """Both systems with loop closing over LC_FRAMES frames: JAX from the
+    start, the port from the JAX run's state (map, mapper, tracker, the
+    database's banks and the loop closer) once its map holds LC_START_KF
+    keyframes, so that the next keyframe runs `_detect`.  The port's
+    closer draws JAX's RANSAC samples and acts on the JAX database's
+    answers, its own held to them above the float32 noise
+    (tests/test_torch_loop_closing.py `TeacherDB`)."""
+    from plvio_tpu.models.loop_closing import LoopCloser as JLC
+    from plvio_tpu_torch.config import Sensor as PSensor
+    from plvio_tpu_torch.inputs import build_tracked_sequence
+    from plvio_tpu_torch.models.system import System, frame_prelude
+    from plvio_tpu_torch.state import (kfdb_state, load_kfdb_state,
+                                       load_loop_closer_state,
+                                       load_mapper_state, load_tracker_state,
+                                       loop_closer_state, mapper_state,
+                                       mapstore_from_numpy,
+                                       mapstore_to_numpy, tracker_state)
+    from test_torch_loop_closing import TeacherDB
+    from test_torch_sim3 import JaxSim3Samples
+    S = build_tracked_sequence(0, LC_FRAMES)
+    sampler = JaxSim3Samples(0)
+    port = System(_port_cfg(sensor=PSensor.MONOCULAR, use_loop_closing=True),
+                  device="cpu", caps=CAPS, viba_caps=VIBA,
+                  sim3_sampler=sampler)
+    with torch.no_grad():
+        feats = [frame_prelude(port.extract, port.extract_lines,
+                               port.camera, torch.from_numpy(im))
+                 for im in S["frames"]]
+    orig = jit_reconstruction()
+    try:
+        cfg = jax_lc_config()
+        js = jax_system_with_database(cfg)
+        js.loop_closer = JLC(cfg, js.atlas, js.kfdb, js.n_feat)
+        js.loop_closer.mapper = js.mapper
+        jt, pt = js.tracker, port.tracker
+        made_p = []
+        process = port.mapper.process_keyframe
+
+        def recording(kf, protect=()):
+            made_p.append(int(kf))
+            return process(kf, protect=protect)
+        port.mapper.process_keyframe = recording
+        recs, start, base, db = [], -1, None, None
+        for i, (f, lf) in enumerate(feats):
+            t = float(S["timestamps"][i])
+            if start < 0 and js.atlas.current.n_kf >= LC_START_KF:
+                start = i
+                port.atlas.maps[0] = mapstore_from_numpy(
+                    mapstore_to_numpy(js.atlas.current))
+                load_mapper_state(port.mapper, mapper_state(js.mapper))
+                load_tracker_state(pt, tracker_state(jt))
+                load_kfdb_state(port.kfdb, kfdb_state(js.kfdb))
+                load_loop_closer_state(port.loop_closer,
+                                       loop_closer_state(js.loop_closer))
+                sampler.key = js.loop_closer._key
+                db = TeacherDB(port.kfdb, js.kfdb)
+                port.loop_closer.kfdb = db
+                base = js.metrics.summary()
+            n0 = len(js.processed)
+            jf, jl = jax_layout(f, lf)
+            jax_track(js, jf, jl, t, None)
+            jrec = dict(_record(jt, js.processed[n0:]),
+                        lc=_lc_record(js.loop_closer, None))
+            if start >= 0:
+                del made_p[:]
+                with torch.no_grad():
+                    port.track_features(f, lf, t, None)
+                prec = dict(_record(pt, made_p),
+                            lc=_lc_record(port.loop_closer, db))
+                recs.append((i, jrec, prec))
+    finally:
+        JTV.reconstruct_two_views = orig
+    return dict(recs=recs, start=start, js=js, port=port, base=base, db=db)
+
+
+def test_system_with_loop_closing_as_reference(run_lc):
+    """From the common start: every frame's state, inliers, keyframes made
+    and map counts equal, the pose within POSE_TOL; after every frame the
+    loop closer's consistency groups and votes, cooldowns and counters
+    equal; `_detect` ran (the database was asked) on a map of >= 12
+    keyframes; the loop-closing stage called as often."""
+    assert run_lc["start"] > 0
+    recs = run_lc["recs"]
+    assert len(recs) >= 8
+    for i, j, p in recs:
+        for k in ("state", "made", "inliers", "counts"):
+            assert p[k] == j[k], (i, k, p[k], j[k])
+        if j["pose"] is not None:
+            assert float(np.abs(p["pose"] - j["pose"]).max()) <= POSE_TOL, i
+        jl, pl = j["lc"], p["lc"]
+        for k in ("groups", "counters", "failed"):
+            assert pl[k] == jl[k], (i, k, pl[k], jl[k])
+    assert recs[-1][2]["lc"]["queries"] > 0
+    assert recs[-1][2]["counts"][0] >= 12
+    pj = _calls(run_lc["js"].metrics.summary(), run_lc["base"])
+    pp = _calls(run_lc["port"].metrics_summary())
+    assert pp.get("loop_closing") == pj.get("loop_closing") > 0
+
 
 
 def with_errors(r: dict) -> dict:

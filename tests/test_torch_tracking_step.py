@@ -147,7 +147,8 @@ def test_port_never_loads_jax():
     features, through IMU init and the first inertial window; the tracked
     sequence's first 7 frames at 300 features: the bootstrap on frame 2
     or 3, then tracking; `System` through `mh_replay` on 3 frames of a
-    small hall)."""
+    small hall; the loop closer on the drifted circle, its global BA at
+    32 keyframes)."""
     code = (
         "import sys\n"
         "import torch\n"
@@ -222,6 +223,12 @@ def test_port_never_loads_jax():
         "assert len(mo.frames) == 3 and mo.maps == 1\n"
         "assert mo.metrics['extract_orb']['calls'] == 3\n"
         "assert mo.system.kfdb.db().present.sum() == mo.keyframes\n"
+        "from plvio_tpu_torch.entry import loop_closure\n"
+        "lq, LI = loop_closure('circle', device='cpu', gba_caps=(32, 2048, "
+        "4096))\n"
+        "lo = lq(LI)\n"
+        "assert lo.loops == 1 and lo.err_after < 0.12 and "
+        "lo.verifications >= 1\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'plvio_tpu'))\n"
         "assert not bad, bad\n"
