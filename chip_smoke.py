@@ -17,7 +17,7 @@ loop closer on hand-made maps and `System` with loop closing over the
 exit, no result line) unless every phase passes:
 
 1. the card is there (prints `nvidia-smi` name and power limit);
-2. the twenty-eight CUDA kernels build from `plvio_tpu_torch/csrc` (23
+2. the thirty-two CUDA kernels build from `plvio_tpu_torch/csrc` (23
    sources: nvcc, sm_90a, one nvcc per source, all started together);
 3. each kernel agrees with its plain PyTorch version on the card at the
    paths' shapes (the mapping kernels also on a perturbed window at the
@@ -57,9 +57,11 @@ exit, no result line) unless every phase passes:
    triangulated and inlier counts within 1% of the JAX reference run on
    the CPU (REF_MAP below), from the perturbed start
    (`inputs.perturb_window`) the largest camera-centre error within
-   max(2x the reference's, 10 mm), the kernel and plain paths' KF poses
-   within 1e-4 and their landmarks' reprojection residuals within 0.1 px,
-   every kernel of the path launched; CUDA-event times per mapping step on
+   max(2x the reference's, 10 mm), the kernel path's KF poses within
+   1e-4 of the plain path's on the CPU and their landmarks' reprojection
+   residuals within 0.1 px (the card's plain path sums by atomics and
+   moves ~1e-4 from run to run: printed, as the card test does), every
+   kernel of the path launched; CUDA-event times per mapping step on
    both paths, of `schur_solve` beside torch.mm of its Gram fill-in,
    and the sustained figure of bench.py's `bench_sustained` (3 point+line
    frames + 1 typical mapping step, ms per frame);
@@ -129,7 +131,34 @@ exit, no result line) unless every phase passes:
    at the beginning, on one niced core), held to
    test_mh_loop_single_map_survival's bounds but for the map count (no
    more maps than REF_LOOP, the JAX run's), with every kernel of the path
-   and the loop closer's query launched.
+   and the loop closer's query launched;
+15. slice 11, the rectified-stereo front: `hamming_match`'s stereo point
+   and line modes bit-equal to their plain versions on a full-width
+   rendered pair (the stereo replay's first) and on synthetic sets;
+   `System.track_stereo` (`entry.stereo_replay`: IMU_STEREO with lines,
+   the reference's stereo_line_inertial_euroc3 at EuRoC geometry, 0.11 m
+   baseline, loop closing on) over the 8 s stereo replay (166 pairs,
+   rendered after the circuit by the same niced process): pairs 0..110,
+   through the keyframe that initializes the IMU, against the JAX System
+   fed the port's CPU features (FED_STEREO: keyframes equal after every
+   pair, points, lines and bound features within max(2, 1%)); then
+   with cfg.seed 0..4 held to REF_STEREO (the JAX System's five runs on
+   the CPU): frames tracked, keyframes, points and lines of every run
+   within 10% of the reference's range over its seeds (and the median
+   inside it where the range has width: the reference's five runs are
+   one), the IMU initialized, the SE3 ATE within 2x the
+   reference's worst; `pose_irls` with the u_R column and
+   `vi_pose_lm` with the stereo term on the inputs the tracker gave them
+   in that run, held to their plain versions' float64 runs (within 2x the
+   plain float32 runs' distance over four row orders + 1e-6, the same
+   bits on a second launch), and the mono calls' digests of
+   `kernel_digest.py` equal to the mono-only tree's (PARENT_DIGESTS);
+   STEREO with lines over the room orbit of tests/test_stereo.py
+   (`entry.stereo_room`, 15 pairs: >= 14 tracked,
+   SE3 ATE < 0.05 m and within 2x REF_STEREO's) and RGB-D over it
+   (`entry.rgbd_room`, 12 frames: >= 11 tracked, SE3 ATE < 0.08 m), each
+   run in a launch window of its own with every kernel of its path
+   launched.
 
 `library_ms` is one PyTorch call computing the same function where
 there is one (the pyramid's: 7 antialiased bilinear `F.interpolate`, its
@@ -155,6 +184,7 @@ import math
 import subprocess
 import sys
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -168,13 +198,14 @@ from plvio_tpu_torch.entry import (K_EUROC, LIBA_HALF, LIBA_WORST,
                                    loop_closure, mapping_step,
                                    neighborhood_step, point_projection_match,
                                    project_points, relocalization_case,
+                                   rgbd_room, stereo_config, stereo_room,
                                    SystemRun, tracked_sequence,
                                    tracking_step_pl, tracking_step_vi)
 from plvio_tpu_torch.inputs import (PNP_CASES, TWOVIEW_CASES,
                                     build_imu_windows, build_inputs,
                                     build_keyframe_map, build_mh_replay,
-                                    build_pnp_case, build_twoview_cases,
-                                    perturb_window)
+                                    build_pnp_case, build_stereo_replay,
+                                    build_twoview_cases, perturb_window)
 from plvio_tpu_torch.models import kernels as KN
 from plvio_tpu_torch.models import vocabulary as V
 from plvio_tpu_torch.ops import cameras as CAM
@@ -183,6 +214,7 @@ from plvio_tpu_torch.ops import imu as IMU
 from plvio_tpu_torch.ops import lines as LN
 from plvio_tpu_torch.ops import matching as M
 from plvio_tpu_torch.ops import pnp as PNP
+from plvio_tpu_torch.ops import stereo as ST
 from plvio_tpu_torch.ops import twoview as TV
 from plvio_tpu_torch.solver import engine as E
 from plvio_tpu_torch.solver import residuals as RES
@@ -224,6 +256,14 @@ KERNELS = {
     "sim3_ransac": (PNP.SIM3_RANSAC, "plvio_tpu/ops/pnp.py:165"),
     "sim3_reproj": (KN.SIM3_REPROJ, "plvio_tpu/models/kernels.py:524"),
     "pose_graph": (KN.POSE_GRAPH, "plvio_tpu/models/kernels.py:488"),
+    "hamming_match_stereo": (ST.STEREO_MATCH_POINTS,
+                             "plvio_tpu/ops/stereo.py:16"),
+    "hamming_match_stereo_lines": (ST.STEREO_MATCH_LINES,
+                                   "plvio_tpu/ops/stereo.py:38"),
+    "pose_irls_stereo": (KN.POSE_IRLS_STEREO,
+                         "plvio_tpu/models/kernels.py:179"),
+    "vi_pose_lm_stereo": (KN.VI_POSE_LM_STEREO,
+                          "plvio_tpu/models/kernels.py:932"),
 }
 # schur_solve's launches whose reduced system exceeds one block (its
 # global path, counted in KN.SCHUR_SOLVE.global_launches), and the TPU
@@ -338,6 +378,78 @@ REF_MH = {"n_frames": 166, "n_tracked": 164, "init_frame": 2,
           "keyframes_max": 43, "points_min": 4218, "points_max": 6414,
           "lines_min": 181, "lines_max": 283, "imu_init_kf_min": 12,
           "imu_init_kf_max": 13}
+# tests/test_torch_stereo_system.py's JAX System (IMU_STEREO with lines,
+# rectified EuRoC geometry, 0.11 m baseline, the system's defaults: loop
+# closing on, synchronous mapping) over the 8 s stereo replay
+# (build_stereo_replay(8.0, 7): 166 pairs) at full width on the CPU,
+# cfg.seed 0: frames with a pose, the IMU init's frame, maps, the final
+# state, keyframes, points and lines alive, the ATE RMSE (m) after
+# global_refine; the ranges of the counts and the worst SE3 ATE over the
+# seeds 0..4 (the seed reaches no RANSAC draw on this path: the five runs
+# are one); and the room orbits of tests/test_stereo.py: STEREO with
+# lines over 15 pairs, RGB-D (no lines) over 12 frames; printed by
+# `JAX_PLATFORMS=cpu PYTHONPATH=. python3 tests/test_torch_stereo_system.py`
+REF_STEREO = {"n_frames": 166, "n_tracked": 166, "imu_init_frame": 110,
+              "imu_initialized": True, "maps": 1, "final_state": 2,
+              "keyframes": 32, "points": 12756, "lines": 511,
+              "ate_sim3": 0.11922747022506756,
+              "ate_se3": 0.43347584578210047,
+              "n_tracked_range": [166, 166], "keyframes_range": [32, 32],
+              "points_range": [12756, 12756], "lines_range": [511, 511],
+              "ate_se3_worst": 0.43347584578210047, "maps_max": 1,
+              "room_stereo": {"n_frames": 15, "n_tracked": 15,
+                              "keyframes": 3, "points": 1204, "lines": 4,
+                              "ate_sim3": 0.0032265398028096574,
+                              "ate_se3": 0.005777861674711516,
+                              "final_state": 2},
+              "room_rgbd": {"n_frames": 12, "n_tracked": 12, "keyframes": 3,
+                            "points": 1359, "lines": 0,
+                            "ate_sim3": 0.0036179086650171663,
+                            "ate_se3": 0.004232408568307856,
+                            "final_state": 2}}
+# plvio_tpu_torch/kernel_digest.py's mono lines on the tree before the
+# stereo rows and modes (its commit's `git archive`, PYTHONPATH at it,
+# the script of this tree), on an H100 80GB HBM3 at 700 W: the kernels
+# the stereo rows extend give the same bits on mono calls
+# The JAX System fed the port's CPU features of the stereo replay (the
+# replay of REF_STEREO, cfg.seed 0) through pair 110, whose keyframe
+# initializes the IMU: the map's (keyframes, points, lines) from each pair
+# of `counts_at` on, and each pair's features bound to a map point;
+# printed as the "jax" columns of
+# `JAX_PLATFORMS=cpu PYTHONPATH=. python3 tests/test_torch_stereo_system.py --fed`
+FED_STEREO = {
+    "counts_at": [[0, 1, 667, 23], [12, 2, 965, 38], [32, 3, 1264, 60],
+                  [52, 4, 1561, 75], [56, 5, 1866, 84], [76, 6, 2197, 99],
+                  [96, 7, 2569, 133], [110, 8, 2937, 169]],
+    "inliers": [
+        667, 469, 484, 457, 449, 434, 439, 432, 415, 416, 398, 405, 361, 521,
+        491, 498, 497, 478, 484, 470, 442, 424, 431, 420, 408, 418, 390, 408,
+        419, 418, 397, 403, 382, 531, 486, 430, 398, 373, 384, 364, 388, 369,
+        349, 356, 354, 341, 337, 331, 336, 402, 381, 320, 261, 302, 223, 187,
+        173, 307, 280, 273, 296, 292, 279, 278, 295, 331, 386, 425, 431, 365,
+        350, 325, 276, 250, 228, 247, 243, 339, 332, 343, 351, 355, 376, 382,
+        378, 383, 342, 352, 333, 331, 320, 319, 298, 298, 308, 276, 275, 288,
+        274, 268, 254, 276, 255, 240, 242, 229, 214, 201, 188, 184, 166]}
+PARENT_DIGESTS = {
+    "vi_pose_lm have_prior=True": "37ea30a8a290d2c88c800dd7a3a51f93",
+    "vi_pose_lm have_prior=False": "6f78a10c419546a19ef6a4f638b18a58",
+    "hamming_match window": "ca998a1ead77423fb022a08e0d0a5664",
+    "hamming_match line": "00b9cec0d480e37091a5502e60b7a0c3",
+    "hamming_match epipolar": "7e81bfa9c6443682a347dcfab4f64f21",
+    "pose_irls mono n_lines=0": "2b87e410ad469cec8feef728b7891294",
+    "pose_irls mono n_lines=64": "e72396e61c8ec2f03f7e6ce7be602589"}
+PATH_STEREO = ("pyramid", "pyramid_line", "orb_fast_grid", "orb_describe",
+               "line_detect", "line_refine_lbd", "hamming_match", "rot_hist",
+               "triangulate", "line_triangulate", "imu_preint", "proj_match",
+               "ba_linearize", "schur_solve", "inertial_chain",
+               "inertial_gs_lm", "bow_transform", "hamming_match_stereo",
+               "hamming_match_stereo_lines", "pose_irls_stereo",
+               "vi_pose_lm_stereo")
+PATH_ROOM_STEREO = ("orb_fast_grid", "orb_describe", "line_detect",
+                    "line_refine_lbd", "hamming_match_stereo",
+                    "hamming_match_stereo_lines", "pose_irls_stereo",
+                    "proj_match")
+PATH_RGBD = ("orb_fast_grid", "orb_describe", "pose_irls", "proj_match")
 # tests/test_torch_bootstrap.py's JAX tracker on build_bootstrap_inputs(0)
 # (the port's CPU front end's features): the initializing frame, attempts,
 # model, init matches, triangulated matches, points and lines with the
@@ -1987,10 +2099,12 @@ def run_slice3(dev, pl_step, imgs, pose0, map_args, smi):
           "perturbed start")
     sizes = (("worst", MAPPING_WORST), ("typical", MAPPING_TYPICAL))
     runs = {}
+    cpu_runs = {}
     for name, sz in sizes:
         step, A = mapping_step(**sz, device=dev)
         plain, _ = mapping_step(**sz, device=dev, plain=True)
         runs[name] = (step, plain, A, perturbed_window(A))
+        cpu_runs[name], _ = mapping_step(**sz, device="cpu")
     reset_counts()
     outs = {}
     with torch.no_grad():
@@ -2006,15 +2120,30 @@ def run_slice3(dev, pl_step, imgs, pose0, map_args, smi):
     for name, (step, plain, A, B) in runs.items():
         ref = REF_MAP[name]
         o_t, o_p, it_t, it_p = outs[name]
+        # the kernel path is held to the plain path on the CPU, which
+        # repeats: the card's plain path sums by atomics and its KF poses
+        # move ~1e-4 from run to run (tests/test_torch_cuda.py
+        # test_mapping_step_kernel_path_matches_plain_path); it is run
+        # and printed
         with torch.no_grad():
             sp_t, sp_p = [], []
-            q_t, q_p = plain(A, stats=sp_t), plain(B, stats=sp_p)
+            q_t, q_p = (cpu_runs[name]({k: v.cpu() for k, v in W.items()},
+                                       stats=st)
+                        for W, st in ((A, sp_t), (B, sp_p)))
+            q_t, q_p = (q._replace(kf_poses=q.kf_poses.to(dev),
+                                   pt_xyz=q.pt_xyz.to(dev),
+                                   ln_ep6=q.ln_ep6.to(dev))
+                        for q in (q_t, q_p))
+            c_t, c_p = plain(A), plain(B)
         counts = (int(o_t.n_good), int(o_t.n_inliers), int(o_t.n_inliers_l))
         e_t = centre_err(o_t.kf_poses, A["kf_poses"])
         e0 = centre_err(B["kf_poses"], A["kf_poses"])
         e_p = centre_err(o_p.kf_poses, A["kf_poses"])
         d_t = float((o_t.kf_poses - q_t.kf_poses).abs().max())
         d_p = float((o_p.kf_poses - q_p.kf_poses).abs().max())
+        print(f"  {name}: the card's plain path's KF poses from the kernel "
+              f"path's: true {float((o_t.kf_poses - c_t.kf_poses).abs().max()):.2e}"
+              f", perturbed {float((o_p.kf_poses - c_p.kf_poses).abs().max()):.2e}")
         print(f"  {name}: n_good / inliers / line inliers {counts} (reference "
               f"{ref['n_good']}, {ref['n_inliers']}, {ref['n_inliers_l']}); "
               f"largest camera-centre error: true start {e_t * 1e3:.3f} mm "
@@ -2022,8 +2151,8 @@ def run_slice3(dev, pl_step, imgs, pose0, map_args, smi):
               f"{e0 * 1e3:.3f} -> {e_p * 1e3:.3f} mm (reference "
               f"{ref['perturbed_max_centre_m'] * 1e3:.3f}); LM iterations "
               f"per round kernel {[int(x) for x in it_t]} / "
-              f"{[int(x) for x in it_p]}, plain {sp_t} / {sp_p}; plain path "
-              f"inliers {int(q_t.n_inliers)} / {int(q_p.n_inliers)}")
+              f"{[int(x) for x in it_p]}, plain (CPU) {sp_t} / {sp_p}; plain "
+              f"path inliers {int(q_t.n_inliers)} / {int(q_p.n_inliers)}")
         check(all(bool(torch.isfinite(x).all()) for x in
                   (o_t.kf_poses, o_t.pt_xyz, o_t.ln_ep6, o_p.kf_poses,
                    o_p.pt_xyz, o_p.ln_ep6))
@@ -2036,7 +2165,7 @@ def run_slice3(dev, pl_step, imgs, pose0, map_args, smi):
         check(e_p <= lim, f"{name}: perturbed start's largest camera-centre "
               f"error {e_p * 1e3:.3f} mm <= {lim * 1e3:.3f} mm")
         check(max(d_t, d_p) <= MAP_POSE_TOL,
-              f"{name}: kernel and plain paths' KF poses within "
+              f"{name}: kernel and plain (CPU) paths' KF poses within "
               f"{MAP_POSE_TOL:g} (true {d_t:.2e}, perturbed {d_p:.2e})")
         gaps = []
         for o, q, W in ((o_t, q_t, A), (o_p, q_p, B)):
@@ -2044,7 +2173,8 @@ def run_slice3(dev, pl_step, imgs, pose0, map_args, smi):
             rq = window_residuals(q.kf_poses, q.pt_xyz, q.ln_ep6, W)
             gaps += [float((a - b).abs().max()) for a, b in zip(rk, rq)]
         check(max(gaps) <= MAP_RES_TOL_PX,
-              f"{name}: kernel and plain paths' points and lines reproject "
+              f"{name}: kernel and plain (CPU) paths' points and lines "
+              f"reproject "
               f"within {MAP_RES_TOL_PX:g} px of each other in every "
               f"observation (true start {gaps[0]:.2e} / {gaps[1]:.2e}, "
               f"perturbed {gaps[2]:.2e} / {gaps[3]:.2e} px)")
@@ -3182,7 +3312,7 @@ def check_loop_kernels(rec, report, smi):
         library_ms=None)
 
 
-def run_slice10(dev, smi, seq_map, circuit):
+def run_slice10(dev, smi, seq_map, render):
     """Phase 14: the loop closer at production caps on the drifted circle
     and the merge (`entry.loop_closure`, each in a launch window of its
     own), the new kernels against plain and float64 on the inputs the
@@ -3268,17 +3398,16 @@ def run_slice10(dev, smi, seq_map, circuit):
     check(np.isfinite(rms1) and rms1 <= rms0,
           f"its reprojection RMS {rms1:.4f} px <= the input's {rms0:.4f}")
     # (d) the circuit through System with the default configuration
-    proc, shm, n_frames = circuit
     t0 = time.perf_counter()
-    proc.join()
-    check(proc.exitcode == 0, "the circuit's frames rendered (waited "
-          f"{time.perf_counter() - t0:.1f} s for the render process)")
+    while not render.circuit_done.wait(1.0) and render.proc.is_alive():
+        pass
+    check(render.circuit_done.is_set(), "the circuit's frames rendered "
+          f"(waited {time.perf_counter() - t0:.1f} s for the render "
+          "process)")
     from plvio_tpu_torch.entry import SystemRun
     from plvio_tpu_torch.inputs import MH_LOOP_SECONDS, build_mh_loop
-    view = np.ndarray((n_frames, H, W), np.float32, buffer=shm.buf)
-    frames = view.copy()
-    del view
-    S = build_mh_loop(MH_LOOP_SECONDS, frames=frames)
+    S = build_mh_loop(MH_LOOP_SECONDS,
+                      frames=render.frames(0, render.n_circuit))
     step = SystemRun(device=dev)
     check(step.cfg.use_loop_closing, "the default configuration: loop "
           "closing on")
@@ -3324,6 +3453,382 @@ def run_slice10(dev, smi, seq_map, circuit):
     return launches, report
 
 
+# --------------------------------------------------------------------------
+# Phase 15: slice 11, the rectified-stereo front
+# --------------------------------------------------------------------------
+
+class RecordingRun(SystemRun):
+    """`SystemRun` whose System's tracker records the last arguments of
+    its point+line pose IRLS and of its VI pose optimizer (by have_prior):
+    the kernels' inputs on the main path; and after every pair the map's
+    keyframes, points and lines and the features bound to a map point
+    (`per_pair`, host values the tracker holds anyway)."""
+
+    def forward(self, S):
+        import contextlib
+        self.per_pair = []
+
+        @contextlib.contextmanager
+        def after(i):
+            yield
+            tr = self.slam.tracker
+            m, f = tr.map, tr.last_feat_pt
+            self.per_pair.append((int(m.n_kf), int(m.n_pt), int(m.n_ln),
+                                  0 if f is None else int((f >= 0).sum())))
+        return super().forward(S, frame_ctx=after)
+
+    def new_system(self):
+        slam = super().new_system()
+        self.slam = slam
+        tr = slam.tracker
+        self.rec = {}
+        pl, vi = getattr(tr, "pose_opt_pl", None), tr.vi_pose_opt
+
+        def pl_rec(*a):
+            self.rec["pl"] = a
+            return pl(*a)
+
+        def vi_rec(*a):
+            self.rec[("vi", bool(a[-1]))] = a
+            return vi(*a)
+        if pl is not None:
+            tr.pose_opt_pl = pl_rec
+        tr.vi_pose_opt = vi_rec
+        return slam
+
+
+def check_fed_trace(per_pair):
+    """The replay's first pairs, through the keyframe that initializes the
+    IMU, against the JAX System fed the port's CPU features (FED_STEREO):
+    the same keyframe count after every pair, and the map's points and
+    lines and the pair's bound features each within max(2, 1%) (the
+    inlier rule of the solvers against float64: a feature near a gate
+    may fall either way in float32)."""
+    ref = FED_STEREO
+    n = len(ref["inliers"])
+    at = {c[0]: tuple(c[1:]) for c in ref["counts_at"]}
+    want, counts = [], None
+    for i in range(n):
+        counts = at.get(i, counts)
+        want.append(counts + (ref["inliers"][i],))
+    bad, worst = [], [0] * 4
+    for i, (got, ref_i) in enumerate(zip(per_pair[:n], want)):
+        gaps = [abs(a - b) for a, b in zip(got, ref_i)]
+        worst = [max(w, g) for w, g in zip(worst, gaps)]
+        if gaps[0] or any(g > max(2, 0.01 * r)
+                          for g, r in zip(gaps[1:], ref_i[1:])):
+            bad.append((i, got, ref_i))
+    print(f"  pairs 0..{n - 1} against the JAX System fed the port's CPU "
+          f"features: largest gaps (keyframes, points, lines, bound) "
+          f"{worst}; off: {bad[:8]}")
+    check(len(per_pair) >= n and not bad,
+          f"pairs 0..{n - 1} (through the IMU initialization): keyframes "
+          f"equal, points, lines and bound features within max(2, 1%) of "
+          f"the JAX System fed the port's CPU features")
+
+
+def check_stereo_matchers(S, report):
+    """`match_stereo` / `match_stereo_lines` against their plain versions on
+    the stereo replay's first pair (the port's front end on the card) and
+    on synthetic sets: every output bit-equal; times and bounds on the
+    pair."""
+    dev = torch.device("cuda")
+    orb = FE.OrbExtractor(FE.make_level_specs(H, W, N_FEAT)).to(dev)
+    lines = LN.LineExtractor(N_LINE, levels=2).to(dev)
+    views = [torch.from_numpy(S[k][0]).to(dev) for k in ("frames", "right")]
+    with torch.no_grad():
+        fl, fr = (orb(v) for v in views)
+        ll, lr = (lines(v) for v in views)
+    bf = stereo_config().camera.baseline * K_EUROC.fx
+    pt_case = (fl.uv.contiguous(), fl.desc, fl.octave, fl.valid,
+               fr.uv.contiguous(), fr.desc, fr.octave, fr.valid, bf)
+    ln_case = (ll.ep.contiguous(), ll.desc, ll.angle.contiguous(), ll.valid,
+               lr.ep.contiguous(), lr.desc, lr.angle.contiguous(), lr.valid,
+               bf)
+    from plvio_tpu_torch.kernel_digest import stereo_point_case
+    syn_case = (*stereo_point_case(dev), bf)
+    errs = {}
+    for name, fn, plain, case in (
+            ("points", ST.match_stereo, ST.match_stereo_plain, pt_case),
+            ("synthetic points", ST.match_stereo, ST.match_stereo_plain,
+             syn_case),
+            ("lines", ST.match_stereo_lines, ST.match_stereo_lines_plain,
+             ln_case)):
+        k, p = fn(*case), plain(*case)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(k, p))
+        errs[name] = max(float((a.float() - b.float()).abs().max())
+                         for a, b in zip(k, p))
+        check(same, f"hamming_match stereo {name}: u_R / depths and has "
+              f"bit-equal to the plain version ({int(k[2].sum())} of "
+              f"{case[0].shape[0]} with a depth)")
+    # the point gate on every pair (~6 operations), the line gate (~20:
+    # the wrapped angle, the y-spans, the midpoints), then XOR + popc of
+    # 8 words on the pairs it admits (~17); the epilogue ~10 a row
+    n_l, n_r = fl.uv.shape[0], fr.uv.shape[0]
+    tol = 2.0 * torch.from_numpy(M.OCTAVE_SCALE).to(dev)[fl.octave.long()]
+    disp = fl.uv[:, None, 0] - fr.uv[None, :, 0]
+    gated = int(((fl.uv[:, None, 1] - fr.uv[None, :, 1]).abs()
+                 <= tol[:, None]) .logical_and(disp > 0.1)
+                .logical_and(disp <= bf / 0.1)
+                .logical_and(fl.valid[:, None] & fr.valid[None, :]).sum())
+    out = ST.match_stereo(*pt_case)
+    report["hamming_match_stereo"] = dict(
+        **work(nbytes(*pt_case[:8]) + nbytes(*out),
+               6 * n_l * n_r + 17 * gated + 10 * n_l),
+        max_abs_err=max(errs["points"], errs["synthetic points"]),
+        ms=cuda_ms(lambda: ST.match_stereo(*pt_case)),
+        plain_ms=cuda_ms(lambda: ST.match_stereo_plain(*pt_case)),
+        library_ms=None)
+    nl_l, nl_r = ll.ep.shape[0], lr.ep.shape[0]
+    out = ST.match_stereo_lines(*ln_case)
+    lg = ll.valid[:, None] & lr.valid[None, :]
+    report["hamming_match_stereo_lines"] = dict(
+        **work(nbytes(*ln_case[:8]) + nbytes(*out),
+               20 * nl_l * nl_r + 17 * int(lg.sum()) + 20 * nl_l),
+        max_abs_err=errs["lines"],
+        ms=cuda_ms(lambda: ST.match_stereo_lines(*ln_case)),
+        plain_ms=cuda_ms(lambda: ST.match_stereo_lines_plain(*ln_case)),
+        library_ms=None)
+
+
+def check_stereo_solvers(run, slam, report):
+    """The stereo pose IRLS and the stereo VI pose optimizer on the inputs
+    the tracker gave them in the replay (its last call of each; the VI
+    one with and without the prior where the run made both), against
+    their plain versions' float64 runs; times and bounds on them."""
+    tr = slam.tracker
+    bf = tr.bf
+    a = run.rec["pl"]
+    pargs = [x.contiguous() for x in a[:10]]
+    ur = a[10].contiguous()
+    r = KN.pose_irls_against_float64(K_EUROC, pargs, ur, bf)
+    n_st = int(((ur > 0) & pargs[3]).sum())
+    print(f"  pose_irls_stereo on the replay's last point+line frame "
+          f"({int(pargs[3].sum())} points matched, {n_st} of them with "
+          f"u_R): {r}")
+    check(not r["failures"], "pose_irls with u_R rows as its float64 run "
+          f"(state gap {r['kernel']:.2e}, the plain float32 runs' "
+          f"{r['plain']:.2e} over {len(r['plain_orders'])} row orders; "
+          f"{r['failures']})")
+    Pk = KN.pose_irls(K_EUROC, *pargs, ur=ur, bf=bf)
+    Pp = KN.pose_irls_plain(K_EUROC, *pargs, ur=ur, bf=bf)
+    n, L = pargs[2].shape[0], pargs[5].shape[0]
+    report["pose_irls_stereo"] = dict(
+        **work(nbytes(*pargs, ur) + nbytes(*Pk[:3]) + 4,
+               12 * (150 * n + 50 * n_st + 300 * L)),
+        max_abs_err=float((Pk[0] - Pp[0]).abs().max()),
+        ms=cuda_ms(lambda: KN.pose_irls(K_EUROC, *pargs, ur=ur, bf=bf)),
+        plain_ms=cuda_ms(lambda: KN.pose_irls_plain(K_EUROC, *pargs, ur=ur,
+                                                    bf=bf)),
+        library_ms=None)
+    dev = pargs[0].device
+    Rcb = torch.from_numpy(np.ascontiguousarray(tr.R_cb)).to(dev)
+    tcb = torch.from_numpy(np.ascontiguousarray(tr.t_cb)).to(dev)
+    vis = [k for k in (("vi", True), ("vi", False)) if k in run.rec]
+    check(bool(vis), "the replay ran the VI pose optimizer")
+    worst = 0.0
+    for key in vis:
+        v = run.rec[key]
+        hp = key[1]
+        vargs = [Rcb, tcb, slam.cfg.imu.gravity, *v[:4],
+                 v[4][:, :2].contiguous(), *v[5:15]]
+        vur = v[4][:, 2].contiguous()
+        r = KN.vi_pose_lm_against_float64(K_EUROC, vargs, hp, vur, bf)
+        print(f"  vi_pose_lm_stereo on the replay's last VI frame "
+              f"(have_prior={hp}; {int(v[6].sum())} matched, "
+              f"{int(((vur > 0) & v[6]).sum())} of them with u_R): {r}")
+        check(not r["failures"], f"vi_pose_lm with the stereo term "
+              f"(have_prior={hp}) as its float64 run (state gap "
+              f"{r['kernel']:.2e}, the plain float32 runs' {r['plain']:.2e}"
+              f" over {len(r['plain_orders'])} row orders; "
+              f"{r['failures']})")
+        ok_ = KN.vi_pose_lm(K_EUROC, *vargs, hp, ur=vur, bf=bf)
+        stats = []
+        op_ = KN.vi_pose_opt_plain(K_EUROC, *vargs, hp, stats=stats,
+                                   ur=vur, bf=bf)
+        worst = max(worst, float((ok_[0] - op_[0]).abs().max()))
+    # per LM iteration (the plain version's count on the last case): the
+    # linearization and the cost of every edge (~250 operations, ~100 more
+    # for a stereo row), then the 30x30 factorization
+    cap = vargs[8].shape[0]
+    n_st = int(((vur > 0) & vargs[9]).sum())
+    report["vi_pose_lm_stereo"] = dict(
+        **work(nbytes(*vargs[7:11], vur) + 448 * 4 + 246 * 4 + cap + 4,
+               sum(stats) * (250 * cap + 100 * n_st + 2 * 30 ** 3)),
+        max_abs_err=worst,
+        ms=cuda_ms(lambda: KN.vi_pose_lm(K_EUROC, *vargs, hp, ur=vur,
+                                         bf=bf)),
+        plain_ms=cuda_ms(lambda: KN.vi_pose_opt_plain(
+            K_EUROC, *vargs, hp, ur=vur, bf=bf), reps=3, warmup=1),
+        library_ms=None)
+
+
+def check_mono_digests():
+    """The mono calls of the kernels that gained stereo rows and modes
+    give the mono-only tree's bits (kernel_digest.py's cases)."""
+    from plvio_tpu_torch import kernel_digest as KD
+    dev = torch.device("cuda")
+    got = {}
+    case = KD.vi_case(dev)
+    for hp in (True, False):
+        got[f"vi_pose_lm have_prior={hp}"] = KD.digest(KN.vi_pose_lm(*case,
+                                                                      hp))
+    for name, args, kw in KD.hamming_cases(dev):
+        got[f"hamming_match {name}"] = KD.digest(M.hamming_match(*args,
+                                                                 **kw))
+    for nl in (0, 64):
+        got[f"pose_irls mono n_lines={nl}"] = KD.digest(
+            KN.pose_irls(*KD.pose_case(dev, nl)))
+    bad = [k for k, v in PARENT_DIGESTS.items() if got[k] != v]
+    check(not bad, "the mono calls of vi_pose_lm, pose_irls and "
+          f"hamming_match's modes 0-2 give the mono-only tree's digests "
+          f"(differ: {bad})")
+
+
+def stereo_frames_summary(out, smi):
+    fr = out.frames
+    boot = fr[:out.init_frame + 1]
+    rest = fr[out.init_frame + 1:]
+    for what, fs in (("bootstrap frames", boot),
+                     ("tracked frames", [f for f in rest if f.tracked
+                                         and not f.keyframe]),
+                     ("keyframe frames", [f for f in rest if f.keyframe])):
+        if not fs:
+            print(f"  {what}: none")
+            continue
+        ms = [f.ms for f in fs]
+        print(f"  {what}: {len(fs)}, {np.mean(ms):.2f} ms a frame (wall; "
+              f"median {np.median(ms):.2f}, max {max(ms):.2f}), "
+              f"{np.mean([f.host_syncs for f in fs]):.1f} host syncs a "
+              f"frame, on {smi}")
+
+
+def run_slice11(dev, smi, render, report):
+    """Phase 15 (see the module docstring).  Returns the launches of the
+    replay (cfg.seed 0), the STEREO room and the RGB-D room, each counted
+    in a window of its own."""
+    print("[15] slice 11: track_stereo / track_rgbd, the stereo matchers "
+          "and the stereo solver rows")
+    t0 = time.perf_counter()
+    render.proc.join()
+    check(render.proc.exitcode == 0, f"the stereo replay's "
+          f"{render.n_stereo} pairs rendered after the circuit by the "
+          f"render process (waited {time.perf_counter() - t0:.1f} s)")
+    frames = tuple(render.frames(k, render.n_stereo) for k in (1, 2))
+    S = build_stereo_replay(frames=frames)
+    check_stereo_matchers(S, report)
+    check_mono_digests()
+
+    run = RecordingRun(device=dev, cfg=stereo_config(seed=0))
+    reset_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        out = run(S)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    got = dict(n_tracked=out.n_tracked, init_frame=out.init_frame,
+               imu_init_frame=out.imu_init_frame, imu=out.imu_initialized,
+               keyframes=out.keyframes, points=out.points, lines=out.lines,
+               maps=out.maps, final_state=out.final_state,
+               ate_sim3=out.ate_sim3, ate_se3=out.ate_se3)
+    print(f"  launches: {launches}")
+    print(f"  cfg.seed 0: {got}")
+    print(f"  inliers per frame: {[f.inliers for f in out.frames]}")
+    stereo_frames_summary(out, smi)
+    print(f"  the stereo replay: {len(out.frames)} pairs in {wall:.1f} s "
+          f"({len(out.frames) / wall:.1f} pairs/s, global_refine "
+          f"included), on {smi}")
+    print(f"  metrics_summary: {json.dumps(out.metrics)}")
+    check(out.init_frame == 0, "the depth bootstrap on the first pair")
+    check(all(launches[k] > 0 for k in PATH_STEREO),
+          f"every kernel of the stereo replay launched "
+          f"({', '.join(PATH_STEREO)})")
+    check_stereo_solvers(run, out.system, report)
+    check_fed_trace(run.per_pair)
+    runs = [got]
+    for seed in SPREAD_SEEDS:
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            o = SystemRun(device=dev, cfg=stereo_config(seed=seed))(S)
+        torch.cuda.synchronize()
+        runs.append(dict(n_tracked=o.n_tracked, imu=o.imu_initialized,
+                         keyframes=o.keyframes, points=o.points,
+                         lines=o.lines, maps=o.maps,
+                         final_state=o.final_state, ate_sim3=o.ate_sim3,
+                         ate_se3=o.ate_se3))
+        print(f"  cfg.seed {seed}: {runs[-1]} "
+              f"({time.perf_counter() - t0:.1f} s)")
+        del o
+    ref = REF_STEREO
+    check(all(r["imu"] and r["maps"] <= ref["maps_max"]
+              and r["final_state"] != 4 for r in runs),
+          "every cfg.seed 0..4: the IMU initialized, one map, not LOST at "
+          "the end (as every reference run)")
+    # The reference's five runs are one run (cfg.seed reaches no RANSAC
+    # draw on this path), so its ranges have no width, and the median rule
+    # of REF_MH would ask for its counts bit for bit after 166 pairs.  The
+    # pairs through the IMU initialization are held pair by pair above
+    # (check_fed_trace).  From there on the runs part: the initialization
+    # at pair 110 moves its velocities by 6.1e-3 m/s when every keyframe
+    # translation moves one float32 ulp (ROADMAP Queue 3), so where the
+    # range has no width, the rule for the end counts is the 10% band.
+    for k in ("n_tracked", "keyframes", "points", "lines"):
+        vals = [r[k] for r in runs]
+        lo, hi = ref[k + "_range"]
+        med = float(np.median(vals))
+        inside = lo <= med <= hi if hi > lo else True
+        check(all(0.9 * lo <= v <= 1.1 * hi for v in vals) and inside,
+              f"{k} over cfg.seed 0..4 {vals} (median {med:g}) within 10% "
+              f"of the reference's {lo}..{hi} over its seeds"
+              + (", the median inside it" if hi > lo else
+                 f" (its runs are one: the median {med / lo - 1:+.2%} from "
+                 f"it)"))
+    worst = ref["ate_se3_worst"]
+    ates = [r["ate_se3"] for r in runs]
+    check(max(ates) <= 2 * worst, f"the SE3 ATE over cfg.seed 0..4 "
+          f"{[round(a, 4) for a in ates]} m <= 2x the reference's worst "
+          f"({worst:.4f} m)")
+
+    reset_counts()
+    step, R = stereo_room(15, device=dev)
+    with torch.no_grad():
+        ro = step(R)
+    torch.cuda.synchronize()
+    launches_room = read_counts()
+    rs = ref["room_stereo"]
+    print(f"  STEREO room: tracked {ro.n_tracked} / {len(R['frames'])}, "
+          f"keyframes {ro.keyframes}, points {ro.points}, lines {ro.lines},"
+          f" ATE {ro.ate_sim3:.4f} / {ro.ate_se3:.4f} m (the reference: "
+          f"{rs}); launches {launches_room}")
+    check(ro.n_tracked >= 14 and ro.ate_se3 < 0.05
+          and ro.ate_se3 <= 2 * rs["ate_se3"],
+          f"STEREO with lines over the room: {ro.n_tracked} >= 14 pairs "
+          f"tracked, SE3 ATE {ro.ate_se3:.4f} m < 0.05 and <= 2x the "
+          f"reference's {rs['ate_se3']:.4f}")
+    check(all(launches_room[k] > 0 for k in PATH_ROOM_STEREO),
+          f"every kernel of the STEREO room launched "
+          f"({', '.join(PATH_ROOM_STEREO)})")
+    reset_counts()
+    step, R = rgbd_room(12, device=dev)
+    with torch.no_grad():
+        rd = step(R)
+    torch.cuda.synchronize()
+    launches_rgbd = read_counts()
+    rr = ref["room_rgbd"]
+    print(f"  RGB-D room: tracked {rd.n_tracked} / {len(R['frames'])}, "
+          f"keyframes {rd.keyframes}, points {rd.points}, ATE "
+          f"{rd.ate_sim3:.4f} / {rd.ate_se3:.4f} m (the reference: {rr}); "
+          f"launches {launches_rgbd}")
+    check(rd.n_tracked >= 11 and rd.ate_se3 < 0.08,
+          f"RGB-D over the room: {rd.n_tracked} >= 11 frames tracked, SE3 "
+          f"ATE {rd.ate_se3:.4f} m < 0.08")
+    check(all(launches_rgbd[k] > 0 for k in PATH_RGBD),
+          f"every kernel of the RGB-D room launched ({', '.join(PATH_RGBD)})")
+    return launches, launches_room, launches_rgbd
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3337,38 +3842,56 @@ def main():
         f"{torch.__version__}, CUDA {torch.version.cuda})"
     print(smi)
     print(f"[1] card: {card}")
-    circuit = start_circuit_render()
+    render = start_render()
     try:
-        return run_phases(dev, smi, circuit)
+        return run_phases(dev, smi, render)
     finally:
-        proc, shm, _ = circuit
-        if proc.is_alive():
-            proc.terminate()
-        proc.join()
-        shm.close()
-        shm.unlink()
+        if render.proc.is_alive():
+            render.proc.terminate()
+        render.proc.join()
+        for shm in render.shms:
+            shm.close()
+            shm.unlink()
 
 
-def start_circuit_render():
-    """A process rendering the 28 s circuit's frames (`inputs.
-    render_mh_loop`, ~0.3 s a frame of one core) into shared memory while
-    phases 2-13 run, held to one thread on the host's last core at the
-    lowest priority: a renderer on every core moves the CUDA-event times
-    of the small kernels (PERF.md §6).  Returns (process, shared block,
-    frame count)."""
+class Render(NamedTuple):
+    proc: object            # the render process
+    circuit_done: object    # set once the circuit's frames are written
+    shms: list              # shared blocks: circuit, left views, right views
+    n_circuit: int          # the circuit's frames
+    n_stereo: int           # the stereo replay's pairs
+
+    def frames(self, k: int, n: int) -> np.ndarray:
+        """A copy of shared block k as n [H, W] float32 frames."""
+        return np.array(np.ndarray((n, H, W), np.float32,
+                                   buffer=self.shms[k].buf))
+
+
+def start_render() -> Render:
+    """One process rendering into shared memory while phases 2-14 run,
+    held to one thread on the host's last core at the lowest priority (a
+    renderer on every core moves the CUDA-event times of the small
+    kernels, PERF.md §6): first the 28 s circuit's frames (`inputs.
+    render_mh_loop`, ~0.3 s a frame of one core), then the 8 s stereo
+    replay's pairs (`inputs.render_stereo_replay`, ~1 s a pair)."""
     import multiprocessing as mp
     import os
     from multiprocessing import shared_memory
-    from plvio_tpu_torch.inputs import MH_LOOP_SECONDS
-    n = len(np.arange(0.0, MH_LOOP_SECONDS, 1.0 / 20.0))
-    shm = shared_memory.SharedMemory(create=True, size=n * H * W * 4)
+    from plvio_tpu_torch.inputs import MH_LOOP_SECONDS, MH_SECONDS
+    from plvio_tpu_torch.io import synthetic as syn
+    n_c = len(np.arange(0.0, MH_LOOP_SECONDS, 1.0 / 20.0))
+    n_s = len(syn.make_mh_trajectory(MH_SECONDS + 0.3, fps=20.0).timestamps)
+    shms = [shared_memory.SharedMemory(create=True, size=n * H * W * 4)
+            for n in (n_c, n_s, n_s)]
+    ctx = mp.get_context("spawn")
+    done = ctx.Event()
     saved = {k: os.environ.get(k) for k in ("OMP_NUM_THREADS",
                                             "OPENBLAS_NUM_THREADS",
                                             "MKL_NUM_THREADS")}
     os.environ.update({k: "1" for k in saved})
     try:
-        proc = mp.get_context("spawn").Process(
-            target=_render_circuit, args=(shm.name, n), daemon=True)
+        proc = ctx.Process(target=_render, daemon=True, args=(
+            done, [b.name for b in shms], n_c, n_s))
         proc.start()
     finally:
         for k, v in saved.items():
@@ -3376,29 +3899,33 @@ def start_circuit_render():
                 os.environ.pop(k)
             else:
                 os.environ[k] = v
-    return proc, shm, n
+    return Render(proc, done, shms, n_c, n_s)
 
 
-def _render_circuit(name, n):
+def _render(done, names, n_c, n_s):
     import os
     from multiprocessing import shared_memory
     os.nice(19)
-    cores = sorted(os.sched_getaffinity(0))
-    os.sched_setaffinity(0, {cores[-1]})
+    os.sched_setaffinity(0, {sorted(os.sched_getaffinity(0))[-1]})
     try:
         import cv2
         cv2.setNumThreads(1)
     except ImportError:
         pass
-    from plvio_tpu_torch.inputs import render_mh_loop
-    shm = shared_memory.SharedMemory(name=name)
+    from plvio_tpu_torch.inputs import render_mh_loop, render_stereo_replay
+    shms = [shared_memory.SharedMemory(name=nm) for nm in names]
     try:
-        render_mh_loop(np.ndarray((n, H, W), np.float32, buffer=shm.buf))
+        render_mh_loop(np.ndarray((n_c, H, W), np.float32,
+                                  buffer=shms[0].buf))
+        done.set()
+        render_stereo_replay(*(np.ndarray((n_s, H, W), np.float32,
+                                          buffer=b.buf) for b in shms[1:]))
     finally:
-        shm.close()
+        for b in shms:
+            b.close()
 
 
-def run_phases(dev, smi, circuit):
+def run_phases(dev, smi, render):
 
     print("[2] build")
     t0 = time.perf_counter()
@@ -3572,8 +4099,9 @@ def run_phases(dev, smi, circuit):
     launches_seq, seq_map = run_slice7(dev, smi)
     launches_track = run_slice8(dev, smi)
     launches_sys, launches_reloc = run_slice9(dev, smi, S)
-    launches_loop, report_loop = run_slice10(dev, smi, seq_map, circuit)
+    launches_loop, report_loop = run_slice10(dev, smi, seq_map, render)
     report.update(report_loop)
+    launches_stereo = run_slice11(dev, smi, render, report)
 
     rows = []
     for name, (k, replaces) in [*KERNELS.items(),
@@ -3594,7 +4122,8 @@ def run_phases(dev, smi, circuit):
                          + launches_nbh[name] + launches_boot[name]
                          + launches_seq[name] + launches_track[name]
                          + launches_sys[name] + launches_reloc[name]
-                         + sum(v[name] for v in launches_loop.values()),
+                         + sum(v[name] for v in launches_loop.values())
+                         + sum(v[name] for v in launches_stereo),
                          max_abs_err=rep["max_abs_err"], ms=rep["ms"],
                          plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"],
                          bound_by=rep["bound_by"],

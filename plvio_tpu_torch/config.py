@@ -65,8 +65,9 @@ class TrackingConfig:
 
 @dataclass(frozen=True)
 class CameraConfig:
-    """The camera fields the port reads (plvio_tpu/config.py:42-52, EuRoC
-    cam0 defaults: pinhole, 752x480, rad-tan k1, k2, p1, p2)."""
+    """The camera fields the port reads (plvio_tpu/config.py:42-56, EuRoC
+    cam0 defaults: pinhole, 752x480, rad-tan k1, k2, p1, p2; the rectified
+    pair's baseline, bf = baseline * fx, 0 without a second view)."""
     model: str = "pinhole"
     width: int = 752
     height: int = 480
@@ -77,6 +78,8 @@ class CameraConfig:
     dist: Tuple[float, ...] = (-0.28340811, 0.07395907, 0.00019359,
                                1.76187114e-05)
     fps: float = 20.0
+    baseline: float = 0.0           # metres
+    th_depth: float = 35.0          # close / far stereo threshold (bf units)
 
 
 @dataclass(frozen=True)

@@ -48,6 +48,28 @@
 // lengths exceed 40 px.  At 256 x 256 segments it is launch-bound like the
 // other modes.
 //
+// Two stereo gate modes (entry point stereo_match) replace the rectified
+// pair's matchers of plvio_tpu/ops/stereo.py, `match_stereo` (:16) and
+// `match_stereo_lines` (:38), each with an epilogue in the mutual-check
+// kernel that writes the per-feature result, so the N x M matrix, the
+// match indices and the gate never reach the host.  Mode 4 (points): a
+// pair passes when |v_L - v_R| <= the row's tolerance (2 x 1.2^octave,
+// the float32 table the wrapper indexes, OCTAVE_SCALE) and the disparity
+// u_L - u_R lies in (0.1, bf / min_z]; the epilogue writes u_R, the depth
+// bf / max(d, 1e-6) and has = ok & (d > 0.1), -1 where not has.  Mode 5
+// (line segments, endpoints (x0, y0, x1, y1)): the wrapped direction
+// difference < 0.1 pi, the share of the left segment's y-span that the
+// right one covers > 0.75 and mid_R <= mid_L (the columns' endpoints and
+// angles staged in shared memory); the epilogue intersects the matched
+// right line with the rows of both left endpoints (x0 + (y - y0) * slope,
+// slope = dx / dy, dy of magnitude < 1e-6 taken as infinite) and writes
+// both endpoint depths when both disparities are >= 1 px and neither
+// segment is horizontal (|dy| <= 0.1).  Every gate and epilogue runs in
+// the reference's operation order (--fmad=false, true divisions), so the
+// kernel and its plain version agree bit for bit.  At 1000 x 1000
+// features (or 256 x 256 segments) each mode is bound by the 1M gate
+// evaluations and launch latency, not by the ~80 KB it reads.
+//
 // The matrix mode (entry point hamming_matrix) writes the whole N x M
 // distance matrix as float32, for the loop closer's host-side matching
 // (`_refine_sim3_guided` at 1024 x 1024, `_refine_sim3_reproj` and
@@ -72,11 +94,18 @@ struct Params {
   const float* a_ang;         // [n] line mode only
   const float* b_ang;         // [m] line mode; epipolar mode: thresholds
   const float* F;             // [9] epipolar mode only, row-major
-  int n, m, line_mode;        // 0 window, 1 line, 2 epipolar, 3 pair
+  int n, m, line_mode;        // 0 window, 1 line, 2 epipolar, 3 pair,
+                              // 4 stereo points, 5 stereo lines
   float r2, ang_tol, max_dist, ratio;
   int* idx;                   // [n]
   uint8_t* ok;                // [n]
   uint32_t* col_best;         // [m] (dist<<16)|row, 0xffffffff = none
+  // stereo modes: bf, the largest disparity (mode 4) and the outputs
+  // (mode 4: u_R, depth; mode 5: both endpoint depths) and has
+  float bf, max_disp;
+  float* out0;
+  float* out1;
+  uint8_t* has;
 };
 
 // Midpoint and length of segment i of ep [*,4] (reference order:
@@ -92,16 +121,22 @@ __device__ __forceinline__ float2 seg_mid_len(const float2* ep, int i,
 __global__ void match_rows(Params p) {
   extern __shared__ float4 smem_f4[];
   const bool pair = p.line_mode == 3;
+  const bool slines = p.line_mode == 5;
+  // mode 5 keeps both endpoints of a column: two float2 a column
   float2* s_xy = reinterpret_cast<float2*>(smem_f4);
-  float* s_ang = reinterpret_cast<float*>(s_xy + p.m);
+  float* s_ang = reinterpret_cast<float*>(s_xy + (slines ? 2 * p.m : p.m));
   float* s_len = s_ang + p.m;                      // mode 3 only
   uint8_t* s_ok = reinterpret_cast<uint8_t*>(s_len + (pair ? p.m : 0));
   for (int j = threadIdx.x; j < p.m; j += blockDim.x) {
-    if (pair)
+    if (pair) {
       s_xy[j] = seg_mid_len(p.b_xy, j, s_len + j);
-    else
+    } else if (slines) {
+      s_xy[2 * j] = p.b_xy[2 * j];
+      s_xy[2 * j + 1] = p.b_xy[2 * j + 1];
+    } else {
       s_xy[j] = p.b_xy[j];
-    s_ang[j] = p.line_mode ? p.b_ang[j] : 0.f;
+    }
+    s_ang[j] = (p.line_mode && p.line_mode != 4) ? p.b_ang[j] : 0.f;
     s_ok[j] = p.col_ok[j];
   }
   __syncthreads();
@@ -116,8 +151,20 @@ __global__ void match_rows(Params p) {
 #pragma unroll
     for (int w = 0; w < 8; ++w) a[w] = p.map_desc[row * 8 + w];
     float alen = 0.f;
-    const float2 axy = pair ? seg_mid_len(p.a_xy, row, &alen) : p.a_xy[row];
-    const float aang = (p.line_mode == 1 || pair) ? p.a_ang[row] : 0.f;
+    const float2 axy = pair ? seg_mid_len(p.a_xy, row, &alen)
+                            : p.a_xy[slines ? 2 * row : row];
+    // the row's angle (modes 1, 3, 5) or its row tolerance (mode 4)
+    const float aang = (p.line_mode == 1 || p.line_mode >= 3)
+                           ? p.a_ang[row] : 0.f;
+    // mode 5: the left segment's y-span and midpoint x
+    float ylo_l = 0.f, yhi_l = 0.f, mid_l = 0.f, span_l = 1.f;
+    if (slines) {
+      const float2 e1 = p.a_xy[2 * row + 1];
+      ylo_l = fminf(axy.y, e1.y);
+      yhi_l = fmaxf(axy.y, e1.y);
+      span_l = fmaxf(yhi_l - ylo_l, 1e-6f);
+      mid_l = (axy.x + e1.x) * 0.5f;
+    }
     float l0 = 0.f, l1 = 0.f, l2 = 0.f, den = 1.f;
     if (p.line_mode == 2) {
       l0 = (p.F[0] * axy.x + p.F[1] * axy.y) + p.F[2];
@@ -140,6 +187,19 @@ __global__ void match_rows(Params p) {
         const float lr = alen / fmaxf(s_len[j], 1e-6f);
         gate = (d2 < p.r2) && (da < p.ang_tol) && (lr > 0.5f) && (lr < 2.0f)
             && (alen > 40.f) && (s_len[j] > 40.f);
+      } else if (p.line_mode == 4) {
+        // dx is the disparity u_L - u_R, |dy| the row difference
+        gate = (fabsf(dy) <= aang) && (dx > 0.1f) && (dx <= p.max_disp);
+      } else if (slines) {
+        const float2 r0 = s_xy[2 * j], r1 = s_xy[2 * j + 1];
+        float da = fmodf(fabsf(aang - s_ang[j]), PLVIO_PI_F);
+        da = fminf(da, PLVIO_PI_F - da);
+        const float ylo_r = fminf(r0.y, r1.y), yhi_r = fmaxf(r0.y, r1.y);
+        const float inter = fmaxf(0.f, fminf(yhi_l, yhi_r)
+                                           - fmaxf(ylo_l, ylo_r));
+        const float mid_r = (r0.x + r1.x) * 0.5f;
+        gate = (da < p.ang_tol) && (inter / span_l > 0.75f)
+            && (mid_r <= mid_l);
       } else if (p.line_mode) {
         // |a - b| % pi for a non-negative operand is fmod (jnp.remainder)
         float da = fmodf(fabsf(aang - s_ang[j]), PLVIO_PI_F);
@@ -182,6 +242,45 @@ __global__ void mutual_check(Params p) {
   const int row = blockIdx.x * blockDim.x + threadIdx.x;
   if (row >= p.n || !p.ok[row]) return;
   p.ok[row] = (p.col_best[p.idx[row]] & 0xffffu) == uint32_t(row);
+}
+
+// The stereo modes' mutual check and epilogue, one thread a left feature.
+__global__ void stereo_epilogue(Params p) {
+  const int row = blockIdx.x * blockDim.x + threadIdx.x;
+  if (row >= p.n) return;
+  const int j = p.idx[row];
+  bool ok = p.ok[row];
+  if (ok) ok = (p.col_best[j] & 0xffffu) == uint32_t(row);
+  p.ok[row] = ok;
+  if (!ok) {                 // no match: idx may name no column at all
+    p.out0[row] = -1.f;
+    p.out1[row] = -1.f;
+    p.has[row] = 0;
+    return;
+  }
+  if (p.line_mode == 4) {
+    const float u_r = p.b_xy[j].x;
+    const float d = p.a_xy[row].x - u_r;
+    const bool has = d > 0.1f;
+    p.out0[row] = has ? u_r : -1.f;
+    p.out1[row] = has ? p.bf / fmaxf(d, 1e-6f) : -1.f;
+    p.has[row] = has;
+    return;
+  }
+  const float* er = reinterpret_cast<const float*>(p.b_xy) + 4 * j;
+  const float* el = reinterpret_cast<const float*>(p.a_xy) + 4 * row;
+  const float dy_r = er[3] - er[1];
+  const float slope = (er[2] - er[0])
+                      / (fabsf(dy_r) < 1e-6f ? __int_as_float(0x7f800000) : dy_r);
+  const float disp_s = el[0] - (er[0] + (el[1] - er[1]) * slope);
+  const float disp_e = el[2] - (er[0] + (el[3] - er[1]) * slope);
+  const bool horiz_l = fabsf(el[1] - el[3]) <= 0.1f;
+  const bool horiz_r = fabsf(dy_r) <= 0.1f;
+  const bool has = (disp_s >= 1.f) && (disp_e >= 1.f) && !horiz_l
+                   && !horiz_r;
+  p.out0[row] = has ? p.bf / fmaxf(disp_s, 1e-6f) : -1.f;
+  p.out1[row] = has ? p.bf / fmaxf(disp_e, 1e-6f) : -1.f;
+  p.has[row] = has;
 }
 
 // dist[i, j] = popcount(a_i ^ b_j): blocks of 32 x 8 threads over 32
@@ -236,12 +335,46 @@ PLVIO_API int hamming_match(const void* map_desc, const void* obs_desc,
            static_cast<const float*>(a_ang), static_cast<const float*>(b_ang),
            static_cast<const float*>(F), n, m, line_mode, r2, ang_tol, max_dist, ratio,
            static_cast<int*>(idx), static_cast<uint8_t*>(ok),
-           static_cast<uint32_t*>(col_best)};
+           static_cast<uint32_t*>(col_best), 0.f, 0.f, nullptr, nullptr,
+           nullptr};
   cudaMemsetAsync(col_best, 0xff, size_t(m > 0 ? m : 1) * 4, s);
   const size_t smem = size_t(m) * (sizeof(float2) + sizeof(float) + 1
                                     + (line_mode == 3 ? sizeof(float) : 0))
       + 16;
   match_rows<<<(n + kWarps - 1) / kWarps, kWarps * 32, smem, s>>>(p);
   mutual_check<<<(n + 255) / 256, 256, 0, s>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The rectified pair's matchers: mode 4 (points: a_xy / b_xy [n] / [m]
+// pixels, row_tol [n] the rows' tolerances, lim the largest disparity;
+// out0 u_R, out1 depth) or mode 5 (segments: a_xy / b_xy [n,4] / [m,4]
+// endpoints, a_ang / b_ang their angles, lim the angle tolerance; out0 /
+// out1 the endpoint depths).  idx, ok and col_best are scratch.
+PLVIO_API int stereo_match(const void* desc_l, const void* desc_r,
+                           const void* valid_l, const void* valid_r,
+                           const void* a_xy, const void* b_xy,
+                           const void* a_ang, const void* b_ang, int n, int m,
+                           int mode, float lim, float bf, float max_dist,
+                           float ratio, void* idx, void* ok, void* col_best,
+                           void* out0, void* out1, void* has, void* stream) {
+  if (mode != 4 && mode != 5) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  Params p{static_cast<const uint32_t*>(desc_l),
+           static_cast<const uint32_t*>(desc_r),
+           static_cast<const uint8_t*>(valid_l),
+           static_cast<const uint8_t*>(valid_r),
+           static_cast<const float2*>(a_xy), static_cast<const float2*>(b_xy),
+           static_cast<const float*>(a_ang), static_cast<const float*>(b_ang),
+           nullptr, n, m, mode, 0.f, mode == 5 ? lim : 0.f, max_dist, ratio,
+           static_cast<int*>(idx), static_cast<uint8_t*>(ok),
+           static_cast<uint32_t*>(col_best), bf, mode == 4 ? lim : 0.f,
+           static_cast<float*>(out0), static_cast<float*>(out1),
+           static_cast<uint8_t*>(has)};
+  cudaMemsetAsync(col_best, 0xff, size_t(m > 0 ? m : 1) * 4, s);
+  const size_t smem = size_t(m) * ((mode == 5 ? 2 : 1) * sizeof(float2)
+                                   + sizeof(float) + 1) + 16;
+  match_rows<<<(n + kWarps - 1) / kWarps, kWarps * 32, smem, s>>>(p);
+  stereo_epilogue<<<(n + 255) / 256, 256, 0, s>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

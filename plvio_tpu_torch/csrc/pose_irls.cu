@@ -4,7 +4,14 @@
 // chi2 gating and the inlier count.
 //
 // Replaces plvio_tpu/models/kernels.py `fast_pose_opt` (:111) and
-// `fast_pose_opt_pl` (:179) (mono; the stereo `ur` branch is not ported).
+// `fast_pose_opt_pl` (:179), its stereo / RGB-D `ur` branch (:196-262)
+// included: given ur [n] (the right-eye u_R of each observation, <= 0 for
+// a mono one) and bf = baseline * fx, a point with ur > 0 gains the third
+// residual (u - bf / z - u_R) with the Jacobian row [fx / z, 0,
+// (-fx x + bf) / z^2] (then the rotation block as the others), is re-gated
+// at chi2 < 7.815 (a mono point at 5.991) and keeps the Huber delta
+// sqrt(5.991).  Without ur the kernel runs the mono arithmetic unchanged,
+// bit for bit.
 // The JAX version is a lax.scan of 12 steps, each a dozen XLA ops over the
 // [N,2,6] Jacobians, float gates in the carry (bool carries miscompiled on
 // the TPU backend) and a 6-step CG in place of a factorisation.
@@ -32,6 +39,7 @@ namespace {
 constexpr int kThreads = 512;
 constexpr int kAcc = 27;            // 21 (H upper triangle) + 6 (g)
 constexpr float kChi2Mono = 5.991f;
+constexpr float kChi2Stereo = 7.815f;
 
 struct Params {
   const float* pose0;      // [3,4]
@@ -44,6 +52,8 @@ struct Params {
   const float* Xe;         // [L,3]
   const uint8_t* valid_l;  // [L]
   const float* is2_l;      // [L]
+  const float* ur;         // [n] stereo: u_R (<= 0 mono), or null
+  float bf;                // stereo: baseline * fx
   int n, L, rounds, iters;
   float fx, fy, cx, cy, w_line, delta;
   float* pose_out;         // [3,4]
@@ -87,7 +97,8 @@ __device__ __forceinline__ void accumulate(float* acc, const float* J,
 }
 
 struct PointEval {
-  float pc[3], r[2], chi2;
+  float pc[3], r[3], chi2, thr;
+  bool stereo;             // a stereo row: ur given and ur > 0
 };
 
 __device__ __forceinline__ PointEval eval_point(const Params& p,
@@ -99,7 +110,18 @@ __device__ __forceinline__ PointEval eval_point(const Params& p,
   const float v = p.fy * e.pc[1] / z + p.cy;
   e.r[0] = u - p.uv[2 * k];
   e.r[1] = v - p.uv[2 * k + 1];
-  e.chi2 = (e.r[0] * e.r[0] + e.r[1] * e.r[1]) * p.is2[k];
+  e.stereo = false;
+  e.thr = kChi2Mono;
+  if (p.ur == nullptr) {
+    e.r[2] = 0.f;
+    e.chi2 = (e.r[0] * e.r[0] + e.r[1] * e.r[1]) * p.is2[k];
+    return e;
+  }
+  // the stereo flavour: a third row, zero (and mono gated) where ur <= 0
+  e.stereo = p.ur[k] > 0.f;
+  e.r[2] = e.stereo ? (u - p.bf / z) - p.ur[k] : 0.f;
+  e.thr = e.stereo ? kChi2Stereo : kChi2Mono;
+  e.chi2 = (e.r[0] * e.r[0] + e.r[1] * e.r[1] + e.r[2] * e.r[2]) * p.is2[k];
   return e;
 }
 
@@ -260,7 +282,7 @@ __global__ void __launch_bounds__(kThreads) pose_irls_kernel(Params p) {
 
     for (int k = tid; k < p.n; k += kThreads) {
       const PointEval e = eval_point(p, P, k);
-      if (regate) gate_p[k] = p.valid[k] && (e.chi2 < kChi2Mono);
+      if (regate) gate_p[k] = p.valid[k] && (e.chi2 < e.thr);
       const float wh = fminf(1.f, p.delta / sqrtf(fmaxf(e.chi2, 1e-12f)));
       const float w = float(gate_p[k]) * float(e.pc[2] > 0.05f) * wh
                       * p.is2[k];
@@ -277,6 +299,12 @@ __global__ void __launch_bounds__(kThreads) pose_irls_kernel(Params p) {
       J[0] = 0.f; J[1] = p.fy * iz; J[2] = -p.fy * e.pc[1] * iz2;
       jphi(J, e.pc, J + 3);
       accumulate(acc, J, w, e.r[1]);
+      if (e.stereo) {
+        // u_R row: d(u - bf / z) / dpc
+        J[0] = p.fx * iz; J[1] = 0.f; J[2] = (-p.fx * e.pc[0] + p.bf) * iz2;
+        jphi(J, e.pc, J + 3);
+        accumulate(acc, J, w, e.r[2]);
+      }
     }
     for (int k = tid; k < p.L; k += kThreads) {
       bool depth_ok;
@@ -320,7 +348,7 @@ __global__ void __launch_bounds__(kThreads) pose_irls_kernel(Params p) {
   int cnt = 0;
   for (int k = tid; k < p.n; k += kThreads) {
     const PointEval e = eval_point(p, P, k);
-    const bool in = p.valid[k] && (e.chi2 < kChi2Mono);
+    const bool in = p.valid[k] && (e.chi2 < e.thr);
     p.inl_p[k] = in;
     cnt += in;
   }
@@ -351,7 +379,7 @@ PLVIO_API int pose_irls(const void* pose0, const void* uv, const void* X,
                         const void* valid, const void* is2, int n,
                         const void* l_obs, const void* Xs, const void* Xe,
                         const void* valid_l, const void* is2_l, int L,
-                        float fx, float fy, float cx, float cy, float w_line,
+                        const void* ur, float bf, float fx, float fy, float cx, float cy, float w_line,
                         float delta, int rounds, int iters, void* pose_out,
                         void* inl_p, void* inl_l, void* n_inl, void* stream) {
   Params p{static_cast<const float*>(pose0), static_cast<const float*>(uv),
@@ -359,7 +387,8 @@ PLVIO_API int pose_irls(const void* pose0, const void* uv, const void* X,
            static_cast<const float*>(is2), static_cast<const float*>(l_obs),
            static_cast<const float*>(Xs), static_cast<const float*>(Xe),
            static_cast<const uint8_t*>(valid_l),
-           static_cast<const float*>(is2_l), n, L, rounds, iters,
+           static_cast<const float*>(is2_l), static_cast<const float*>(ur),
+           bf, n, L, rounds, iters,
            fx, fy, cx, cy, w_line, delta, static_cast<float*>(pose_out),
            static_cast<uint8_t*>(inl_p), static_cast<uint8_t*>(inl_l),
            static_cast<int*>(n_inl)};

@@ -7,7 +7,10 @@
 // previous state marginalized out of the 30x30 information.
 //
 // Replaces plvio_tpu/models/kernels.py `make_vi_pose_optimizer` (:932,
-// mono) running on plvio_tpu/solver/engine.py `Problem` (:355, :452) and
+// mono, and its IMU_STEREO flavour bf > 0: the rows with u_R > 0 form a
+// separate 3-row stereo term, residuals.py:266, with the Huber delta
+// sqrt(7.815) and re-gated at 7.815, the mono term keeping the others)
+// running on plvio_tpu/solver/engine.py `Problem` (:355, :452) and
 // `optimize` (:624) with the residuals of solver/residuals.py (:248, :318,
 // :466, :474).  The JAX version linearizes each edge family by vmapped
 // jacfwd, assembles the 30x30 system by one-hot matmuls and scatters, runs
@@ -34,6 +37,12 @@
 // Cholesky does, so a non-definite carried prior poisons the cost the same
 // way.  The marginalization's pseudo-inverse comes from a cyclic Jacobi
 // eigendecomposition of the 15x15 block, run by one warp.
+//
+// The stereo term is a second pass over the edges (the rows with u_R > 0;
+// the mono pass then skips them), reduced and added to the system after
+// the mono block and before the dense terms, in the engine's term order
+// (reproj, stereo, inertial, random walks, prior).  Without u_R (bf = 0)
+// the kernel runs the mono arithmetic unchanged, bit for bit.
 #include "inertial.cuh"
 
 namespace {
@@ -44,6 +53,7 @@ constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int kAcc = 28;          // 21 (H6 upper) + 6 (g6) + 1 (cost)
 constexpr float kChi2 = 5.991f;
+constexpr float kChi2Stereo = 7.815f;
 
 struct St {
   float R[9], p[3], v[3], bg[3], ba[3];
@@ -62,7 +72,7 @@ struct Shared {
   float red[kWarps][kAcc], acc[kAcc];
   float A[225], V[225];            // Jacobi workspace
   float Hd[900], Lc[900], J[225];  // thread 0's solve and Jacobians
-  float lam, cost_prev;
+  float lam, cost_prev, pt_cost, st_cost;
   int done;
 };
 
@@ -72,8 +82,9 @@ struct Params {
   const float* X;
   const uint8_t* valid;
   const float* is2;
+  const float* ur;        // [cap] stereo: u_R (<= 0 mono), or null
   int cap, have_prior, rounds, iters;
-  float fx, fy, cx, cy, gravity, delta;
+  float fx, fy, cx, cy, gravity, delta, bf, delta_s;
   float* out;
   uint8_t* inlier;
   int* n_inl;
@@ -81,11 +92,17 @@ struct Params {
 
 // ------------------------------------------------------------ point edges
 struct PtEval {
-  float r[2], chi2, pc[3], Xb[3], s;
+  float r[3], chi2, pc[3], Xb[3], s;
 };
 
+// the row's family: 1 for a stereo row (u_R given and > 0), else 0
+__device__ __forceinline__ int family(const Params& p, int k) {
+  return (p.ur != nullptr && p.ur[k] > 0.f) ? 1 : 0;
+}
+
 __device__ __forceinline__ void point_eval(const Params& p, const Shared& sh,
-                                           const St& S, int k, PtEval& e) {
+                                           const St& S, int k, PtEval& e,
+                                           int fam = 0) {
   const float* X = p.X + 3 * k;
   const float d[3] = {X[0] - S.p[0], X[1] - S.p[1], X[2] - S.p[2]};
   mtv3(S.R, d, e.Xb);
@@ -97,34 +114,46 @@ __device__ __forceinline__ void point_eval(const Params& p, const Shared& sh,
   e.s = sqrtf(p.is2[k]);
   const float a = e.r[0] * e.s, b = e.r[1] * e.s;
   e.chi2 = a * a + b * b;
+  e.r[2] = 0.f;
+  if (fam) {
+    e.r[2] = (p.fx * e.pc[0] / z + p.cx - p.bf / z) - p.ur[k];
+    const float c = e.r[2] * e.s;
+    e.chi2 = e.chi2 + c * c;
+  }
 }
 
-__device__ __forceinline__ float huber_w(const Params& p, float chi2,
+__device__ __forceinline__ float huber_w(float delta, float chi2,
                                          bool gate) {
-  const float w = fminf(1.f, p.delta / sqrtf(fmaxf(chi2, 1e-18f)));
+  const float w = fminf(1.f, delta / sqrtf(fmaxf(chi2, 1e-18f)));
   return gate ? w : 0.f;
 }
 
-// block: sum over edges of (H6 upper, g6, cost) (jac) or of cost alone
+// block: sum over the edges of family fam (0 mono, 1 stereo) of (H6
+// upper, g6, cost) (jac) or of cost alone
 __device__ void point_pass(const Params& p, Shared& sh, const St& S,
-                           const uint8_t* gate, bool jac) {
+                           const uint8_t* gate, bool jac, int fam) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   float acc[kAcc];
 #pragma unroll
   for (int q = 0; q < kAcc; ++q) acc[q] = 0.f;
+  const int nr = fam ? 3 : 2;
+  const float delta = fam ? p.delta_s : p.delta;
   for (int k = tid; k < p.cap; k += kThreads) {
+    if (p.ur != nullptr && family(p, k) != fam) continue;
     PtEval e;
-    point_eval(p, sh, S, k, e);
-    const float w = huber_w(p, e.chi2, gate[k] != 0);
+    point_eval(p, sh, S, k, e, fam);
+    const float w = huber_w(delta, e.chi2, gate[k] != 0);
     acc[27] += w * e.chi2;
     if (!jac || w == 0.f) continue;
     const float z = fmaxf(e.pc[2], 1e-4f);
     const float iz = 1.f / z;
     const float dz = e.pc[2] > 1e-4f ? 1.f : 0.f;
-    const float Jpi[6] = {p.fx * iz, 0.f, -p.fx * e.pc[0] * iz * iz * dz,
-                          0.f, p.fy * iz, -p.fy * e.pc[1] * iz * iz * dz};
-    float J[2][6];
-    for (int row = 0; row < 2; ++row) {
+    const float Jpi[9] = {p.fx * iz, 0.f, -p.fx * e.pc[0] * iz * iz * dz,
+                          0.f, p.fy * iz, -p.fy * e.pc[1] * iz * iz * dz,
+                          p.fx * iz, 0.f,
+                          (-p.fx * e.pc[0] + p.bf) * iz * iz * dz};
+    float J[3][6];
+    for (int row = 0; row < nr; ++row) {
       float JR[3];                                     // Jpi_row Rcb
       for (int c = 0; c < 3; ++c)
         JR[c] = Jpi[3 * row] * sh.Rcb[c] + Jpi[3 * row + 1] * sh.Rcb[3 + c]
@@ -137,7 +166,7 @@ __device__ void point_pass(const Params& p, Shared& sh, const St& S,
       J[row][4] = JR[2] * e.Xb[0] - JR[0] * e.Xb[2];
       J[row][5] = JR[0] * e.Xb[1] - JR[1] * e.Xb[0];
     }
-    for (int row = 0; row < 2; ++row) {
+    for (int row = 0; row < nr; ++row) {
       float Jw[6];
       const float rw = e.r[row] * e.s;
       for (int c = 0; c < 6; ++c) Jw[c] = J[row][c] * e.s;
@@ -253,34 +282,58 @@ __device__ void dense_terms(const Params& p, Shared& sh, const St* S,
   }
 }
 
+// thread 0: the reduced point block of sh.acc into H and g
+__device__ void add_point_block(Shared& sh) {
+  int q = 0;
+  for (int i = 0; i < 6; ++i)
+    for (int j = i; j < 6; ++j) {
+      sh.H[(6 + i) * 30 + 6 + j] += sh.acc[q];
+      if (j != i) sh.H[(6 + j) * 30 + 6 + i] += sh.acc[q];
+      ++q;
+    }
+  for (int i = 0; i < 6; ++i) sh.g[6 + i] += sh.acc[21 + i];
+}
+
 // H, g (undamped) and the cost at S
 __device__ void linearize(const Params& p, Shared& sh, const St* S,
                           const uint8_t* gate) {
   for (int i = threadIdx.x; i < 900; i += kThreads) sh.H[i] = 0.f;
   if (threadIdx.x < 30) sh.g[threadIdx.x] = 0.f;
   __syncthreads();
-  point_pass(p, sh, S[1], gate, true);
+  point_pass(p, sh, S[1], gate, true, 0);
   if (threadIdx.x == 0) {
-    int q = 0;
-    for (int i = 0; i < 6; ++i)
-      for (int j = i; j < 6; ++j) {
-        sh.H[(6 + i) * 30 + 6 + j] += sh.acc[q];
-        if (j != i) sh.H[(6 + j) * 30 + 6 + i] += sh.acc[q];
-        ++q;
-      }
-    for (int i = 0; i < 6; ++i) sh.g[6 + i] += sh.acc[21 + i];
+    add_point_block(sh);
+    sh.pt_cost = sh.acc[27];
+  }
+  if (p.ur != nullptr) {
+    __syncthreads();
+    point_pass(p, sh, S[1], gate, true, 1);
+    if (threadIdx.x == 0) {
+      add_point_block(sh);
+      sh.st_cost = sh.acc[27];
+    }
+  }
+  if (threadIdx.x == 0) {
     dense_terms(p, sh, S, true);
-    sh.dense_cost += sh.acc[27];
+    sh.dense_cost += sh.pt_cost;
+    if (p.ur != nullptr) sh.dense_cost += sh.st_cost;
   }
   __syncthreads();
 }
 
 __device__ float cost(const Params& p, Shared& sh, const St* S,
                       const uint8_t* gate) {
-  point_pass(p, sh, S[1], gate, false);
+  point_pass(p, sh, S[1], gate, false, 0);
+  if (threadIdx.x == 0) sh.pt_cost = sh.acc[27];
+  if (p.ur != nullptr) {
+    __syncthreads();
+    point_pass(p, sh, S[1], gate, false, 1);
+    if (threadIdx.x == 0) sh.st_cost = sh.acc[27];
+  }
   if (threadIdx.x == 0) {
     dense_terms(p, sh, S, false);
-    sh.dense_cost += sh.acc[27];
+    sh.dense_cost += sh.pt_cost;
+    if (p.ur != nullptr) sh.dense_cost += sh.st_cost;
   }
   __syncthreads();
   const float c = sh.dense_cost;
@@ -453,8 +506,9 @@ __global__ void __launch_bounds__(kThreads) vi_pose_lm_kernel(Params p) {
     // re-gate on the whitened chi2 at the round's solution
     for (int k = tid; k < p.cap; k += kThreads) {
       PtEval e;
-      point_eval(p, sh, sh.S[1], k, e);
-      s_gate[k] = p.valid[k] && (e.chi2 < kChi2);
+      const int fam = family(p, k);
+      point_eval(p, sh, sh.S[1], k, e, fam);
+      s_gate[k] = p.valid[k] && (e.chi2 < (fam ? kChi2Stereo : kChi2));
     }
     __syncthreads();
   }
@@ -538,15 +592,17 @@ __global__ void __launch_bounds__(kThreads) vi_pose_lm_kernel(Params p) {
 }  // namespace
 
 PLVIO_API int vi_pose_lm(const void* state, const void* uv, const void* X,
-                         const void* valid, const void* is2, int cap,
-                         int have_prior, int rounds, int iters, float fx,
-                         float fy, float cx, float cy, float gravity,
-                         float delta, void* out, void* inlier, void* n_inl,
+                         const void* valid, const void* is2, const void* ur,
+                         int cap, int have_prior, int rounds, int iters,
+                         float fx, float fy, float cx, float cy,
+                         float gravity, float delta, float bf, float delta_s,
+                         void* out, void* inlier, void* n_inl,
                          void* stream) {
   Params p{static_cast<const float*>(state), static_cast<const float*>(uv),
            static_cast<const float*>(X), static_cast<const uint8_t*>(valid),
-           static_cast<const float*>(is2), cap, have_prior, rounds, iters,
-           fx, fy, cx, cy, gravity, delta, static_cast<float*>(out),
+           static_cast<const float*>(is2), static_cast<const float*>(ur),
+           cap, have_prior, rounds, iters, fx, fy, cx, cy, gravity, delta,
+           bf, delta_s, static_cast<float*>(out),
            static_cast<uint8_t*>(inlier), static_cast<int*>(n_inl)};
   const size_t smem = size_t(cap);
   const size_t static_smem = sizeof(Shared);

@@ -62,6 +62,18 @@ mh_replay(...)        -> (run, replay): the whole system end to end,
                          tests/test_mh_replay_regression.py
                          (`inputs.build_mh_replay`), then `global_refine`,
                          with the keyframe database and relocalization
+stereo_replay(...)    -> (run, replay): the whole system over the 8 s
+                         replay's rectified pairs,
+                         `System.track_stereo` (models/system.py:180)
+                         with IMU_STEREO and lines at EuRoC geometry
+                         (baseline 0.11 m), loop closing on, then
+                         `global_refine` (`inputs.build_stereo_replay`)
+stereo_room(...)      -> (run, orbit): `System.track_stereo` over the room
+                         orbit of tests/test_stereo.py (STEREO with lines;
+                         imu=True: IMU_STEREO over
+                         tests/test_stereo_inertial.py's orbit)
+rgbd_room(...)        -> (run, orbit): `System.track_rgbd` (:230) over the
+                         RGB-D room orbit of tests/test_stereo.py
 entry(device)         -> tracking_step_pl at EuRoC geometry on `device`
 
 Every entry point runs on the card unless the caller passes
@@ -1054,24 +1066,46 @@ def system_config(**kw):
     return SystemConfig(**{**base, **kw})
 
 
+STEREO_BASELINE = 0.11       # m, EuRoC's cam0-cam1 baseline
+
+
+def stereo_config(sensor=None, **kw):
+    """`system_config` for a second view: the reference's
+    `stereo_line_inertial_euroc3` (IMU_STEREO, lines) by default, or
+    STEREO (`stereo_line_euroc3`) or RGBD; the rectified EuRoC camera
+    (no distortion) with the 0.11 m baseline, none for RGB-D (its depth
+    image gives the depths, the residuals stay mono); kw replaces
+    fields."""
+    from .config import CameraConfig, Sensor
+    sensor = Sensor.IMU_STEREO if sensor is None else Sensor(sensor)
+    cam = dict(dist=(0.0, 0.0, 0.0, 0.0))
+    if sensor != Sensor.RGBD:
+        cam["baseline"] = STEREO_BASELINE
+    return system_config(**{"sensor": sensor, "camera": CameraConfig(**cam),
+                            **kw})
+
+
 class SystemRun(nn.Module):
     """The port's `System` over a replay: every frame through
     `System.track_monocular` (the front ends, the tracker with the
-    keyframe database and relocalization, the keyframe step), then
+    keyframe database and relocalization, the keyframe step), or
+    `track_stereo` where the replay has right views (`S["right"]`),
+    `track_rgbd` where it has depth images (`S["depth"]`), then
     `global_refine`.  The configuration is `system_config(**cfg_kw)`
     (production's store and feature counts unless cfg_kw names others:
-    `map`, `orb`, `seed`, `use_loop_closing`, ...); `caps`, `viba_caps`,
-    `sampler`, `pnp_sampler`, `sim3_sampler` go to `System`.
-    forward(S) -> SystemRunOut, S the dict
-    of `inputs.build_mh_replay` (or of `inputs.build_tracked_sequence`)."""
+    `map`, `orb`, `seed`, `use_loop_closing`, ...), or `cfg` where given;
+    `caps`, `viba_caps`, `sampler`, `pnp_sampler`, `sim3_sampler` go to
+    `System`.  forward(S) -> SystemRunOut, S the dict of
+    `inputs.build_mh_replay` (or `build_tracked_sequence`,
+    `build_stereo_replay`, `build_stereo_room`, `build_rgbd_room`)."""
 
     def __init__(self, plain: bool = False, device="cuda", caps=None,
                  viba_caps=None, sampler=None, pnp_sampler=None,
-                 sim3_sampler=None, **cfg_kw):
+                 sim3_sampler=None, cfg=None, **cfg_kw):
         super().__init__()
         self.device = resolve_device(device)
         self.plain = plain
-        self.cfg = system_config(**cfg_kw)
+        self.cfg = cfg if cfg is not None else system_config(**cfg_kw)
         self.kw = dict(caps=caps, viba_caps=viba_caps, sampler=sampler,
                        pnp_sampler=pnp_sampler, sim3_sampler=sim3_sampler)
 
@@ -1099,16 +1133,25 @@ class SystemRun(nn.Module):
             booting = tr.state in (TrackState.NO_IMAGES_YET,
                                    TrackState.NOT_INITIALIZED)
             t0 = time.perf_counter()
+            t = float(S["timestamps"][i])
             with frame_ctx(i) if frame_ctx else contextlib.nullcontext():
-                pose = slam.track_monocular(img, float(S["timestamps"][i]),
-                                            imu=S["imu"][i])
+                if "right" in S:
+                    pose = slam.track_stereo(img, S["right"][i], t,
+                                             imu=S["imu"][i])
+                elif "depth" in S:
+                    pose = slam.track_rgbd(img, S["depth"][i], t,
+                                           imu=S["imu"][i])
+                else:
+                    pose = slam.track_monocular(img, t, imu=S["imu"][i])
                 if cuda:
                     torch.cuda.synchronize()
             ms = (time.perf_counter() - t0) * 1e3
-            # the bootstrap makes two keyframes, a tracked frame one
+            # the monocular bootstrap makes two keyframes, the depth
+            # bootstrap and a tracked frame one
             made = tr.last_kf_frame_idx == tr.frame_idx \
                 and tr.state == TrackState.OK
-            n_made += (2 if booting else 1) if made else 0
+            two = booting and "right" not in S and "depth" not in S
+            n_made += (2 if two else 1) if made else 0
             if booting and tr.state == TrackState.OK and init_frame < 0:
                 init_frame = i
             if tr.map.imu_initialized and not was_init:
@@ -1211,6 +1254,57 @@ def mh_replay(seconds: float = 8.0, seed: int = 7, device="cuda",
     dev = resolve_device(device)
     S = build_mh_replay(seconds, seed, **kw.pop("replay_kw", {}))
     return SystemRun(plain=plain, device=dev, **kw), S
+
+
+def stereo_replay(seconds: float = 8.0, seed: int = 7, device="cuda",
+                  plain: bool = False, **kw):
+    """The whole system over the stereo-inertial replay (`SystemRun` with
+    `stereo_config()`: IMU_STEREO with lines, loop closing on,
+    production's sizes unless `kw` names others) and the replay of
+    `inputs.build_stereo_replay(seconds, seed)` (`replay_kw` in kw: its
+    sizes)."""
+    from .inputs import build_stereo_replay
+    dev = resolve_device(device)
+    S = build_stereo_replay(seconds, seed, **kw.pop("replay_kw", {}))
+    caps = {k: kw.pop(k) for k in ("caps", "viba_caps", "sampler",
+                                   "pnp_sampler", "sim3_sampler")
+            if k in kw}
+    return SystemRun(plain=plain, device=dev, cfg=stereo_config(**kw),
+                     **caps), S
+
+
+def stereo_room(n_frames: int = 15, seed: int = 0, imu: bool = False,
+                device="cuda", plain: bool = False, **kw):
+    """`System.track_stereo` with lines over the room orbit of
+    tests/test_stereo.py (STEREO; imu=True: IMU_STEREO over
+    tests/test_stereo_inertial.py's orbit), loop closing off as there
+    (`SystemRun`; kw: `stereo_config` fields and `caps`, `viba_caps`),
+    and the orbit of `inputs.build_stereo_room`."""
+    from .config import Sensor
+    from .inputs import build_stereo_room
+    dev = resolve_device(device)
+    S = build_stereo_room(seed, n_frames, imu=imu)
+    caps = {k: kw.pop(k) for k in ("caps", "viba_caps") if k in kw}
+    kw.setdefault("use_loop_closing", False)
+    cfg = stereo_config(Sensor.IMU_STEREO if imu else Sensor.STEREO, **kw)
+    return SystemRun(plain=plain, device=dev, cfg=cfg, **caps), S
+
+
+def rgbd_room(n_frames: int = 12, seed: int = 0, device="cuda",
+              plain: bool = False, **kw):
+    """`System.track_rgbd` over the RGB-D room orbit of tests/test_stereo.py
+    (no lines, loop closing off, as there; `SystemRun`; kw:
+    `stereo_config` fields and `caps`, `viba_caps`) and the orbit of
+    `inputs.build_rgbd_room`."""
+    from .config import Sensor
+    from .inputs import build_rgbd_room
+    dev = resolve_device(device)
+    S = build_rgbd_room(seed, n_frames)
+    caps = {k: kw.pop(k) for k in ("caps", "viba_caps") if k in kw}
+    kw.setdefault("use_loop_closing", False)
+    kw.setdefault("use_lines", False)
+    cfg = stereo_config(Sensor.RGBD, **kw)
+    return SystemRun(plain=plain, device=dev, cfg=cfg, **caps), S
 
 
 def mh_loop(duration: float = 28.0, seed: int = 7, device="cuda",

@@ -16,7 +16,7 @@ import torch
 
 from .config import ImuConfig
 from .cuda import resolve_device
-from .entry import K_EUROC
+from .entry import K_EUROC, STEREO_BASELINE
 from .io import synthetic as syn
 from .models.kernels import PRE_KEYS
 from .ops import imu as IMU
@@ -1770,6 +1770,134 @@ def build_mh_replay(seconds: float = MH_SECONDS, seed: int = MH_SEED,
     return dict(frames=frames, timestamps=traj.timestamps[:n], imu=batches,
                 R_wc=traj.R_wb[:n], p_wc=traj.p_wb[:n], scene=scene,
                 traj=traj, imu_data=imu)
+
+
+def _stereo_world(seconds: float, seed: int, n_points: int = 9000,
+                  n_lines: int = 500):
+    """(rng, hall, MH trajectory, IMU): `build_mh_replay`'s world, the
+    generator left where its first frame draws."""
+    rng = np.random.default_rng(seed)
+    scene = syn.make_hall_scene(rng, n_points=n_points, n_lines=n_lines)
+    traj = syn.make_mh_trajectory(seconds + 0.3, fps=20.0)
+    imu = syn.synthesize_imu_mh(rng, seconds + 0.3)
+    return rng, scene, traj, imu
+
+
+def build_stereo_replay(seconds: float = MH_SECONDS, seed: int = MH_SEED,
+                        n_points: int = 9000, n_lines: int = 500,
+                        n_frames=None, frames=None):
+    """`build_mh_replay`'s hall, trajectory and IMU with both views of a
+    rectified pair: per frame the left view, then the right one (the
+    camera moved STEREO_BASELINE along its own x axis, every sub-exposure
+    alike), drawn from the one generator in that order.  Rendering takes
+    ~1 s a pair of one CPU core.  `frames`, where given, holds the views
+    already rendered (left and right [n,480,752] arrays, e.g.
+    `render_stereo_replay`'s by another process) and nothing is rendered.
+
+    Returns `build_mh_replay`'s dict with `right` [n] of [480,752]
+    float32 beside `frames` (the left views)."""
+    rng, scene, traj, imu = _stereo_world(seconds, seed, n_points, n_lines)
+    right_ev = syn.right_eye(syn._eval_mh, STEREO_BASELINE)
+    n = len(traj.timestamps) if n_frames is None \
+        else min(n_frames, len(traj.timestamps))
+    left, right, batches, last_t = [], [], [], None
+    for i in range(n):
+        t = traj.timestamps[i]
+        if frames is not None:
+            left.append(frames[0][i])
+            right.append(frames[1][i])
+        else:
+            left.append(syn.render_frame_realistic(scene, syn._eval_mh, t,
+                                                   rng))
+            right.append(syn.render_frame_realistic(scene, right_ev, t,
+                                                    rng))
+        if last_t is None:
+            batches.append(None)
+        else:
+            sel = (imu.timestamps > last_t) & (imu.timestamps <= t)
+            ts = imu.timestamps[sel]
+            batches.append((imu.gyro[sel], imu.acc[sel],
+                            np.diff(np.concatenate([[last_t], ts]))))
+        last_t = t
+    return dict(frames=left, right=right, timestamps=traj.timestamps[:n],
+                imu=batches, R_wc=traj.R_wb[:n], p_wc=traj.p_wb[:n],
+                scene=scene, traj=traj, imu_data=imu)
+
+
+def render_stereo_replay(left: np.ndarray, right: np.ndarray,
+                         seconds: float = MH_SECONDS,
+                         seed: int = MH_SEED) -> None:
+    """`build_stereo_replay`'s views, rendered in order into left / right
+    [n,480,752] float32 (shared buffers: another process renders while the
+    caller does other work)."""
+    rng, scene, traj, _ = _stereo_world(seconds, seed)
+    right_ev = syn.right_eye(syn._eval_mh, STEREO_BASELINE)
+    for i in range(len(left)):
+        t = traj.timestamps[i]
+        left[i] = syn.render_frame_realistic(scene, syn._eval_mh, t, rng)
+        right[i] = syn.render_frame_realistic(scene, right_ev, t, rng)
+
+
+def build_stereo_room(seed: int = 0, n_frames: int = 15, imu: bool = False):
+    """The room orbits of tests/test_stereo.py:14-30 (imu False: 1 s,
+    STEREO) and tests/test_stereo_inertial.py:24-55 (imu True: 3 s with
+    the low-noise, bias-free 200 Hz IMU): default_rng(seed), the room with
+    4000 points and 60 lines, the 0.6 m orbit at 20 fps, then per frame
+    the left and the right view (render_frame with noise, in that order);
+    frame i's IMU batch is the samples in (t_{i-1}, t_i], none for frame 0
+    (None throughout without imu).
+
+    Returns dict(frames, right [n] of [480,752] float32, timestamps [n],
+    imu [n], R_wc [n,3,3], p_wc [n,3], scene)."""
+    rng = np.random.default_rng(seed)
+    scene = syn.make_room_scene(rng, n_points=4000, n_lines=60)
+    duration = 3.0 if imu else 1.0
+    traj = syn.make_orbit_trajectory(duration=duration, radius=0.6)
+    data = synthesize_imu(rng, duration, radius=0.6, noise_gyro=1e-5,
+                          noise_acc=1e-4, bias_gyro_mag=0.0,
+                          bias_acc_mag=0.0) if imu else None
+    n = min(n_frames, len(traj.timestamps))
+    frames, right, batches, last_t = [], [], [], None
+    for i in range(n):
+        t = traj.timestamps[i]
+        R, p = traj.R_wb[i], traj.p_wb[i]
+        frames.append(np.asarray(syn.render_frame(scene, R, p, rng=rng),
+                                 np.float32))
+        right.append(np.asarray(syn.render_frame(
+            scene, R, p + R[:, 0] * STEREO_BASELINE, rng=rng), np.float32))
+        if data is None or last_t is None:
+            batches.append(None)
+        else:
+            sel = (data.timestamps > last_t) & (data.timestamps <= t)
+            batches.append((data.gyro[sel], data.acc[sel], np.diff(
+                np.concatenate([[last_t], data.timestamps[sel]]))))
+        last_t = t
+    return dict(frames=frames, right=right, timestamps=traj.timestamps[:n],
+                imu=batches, R_wc=traj.R_wb[:n], p_wc=traj.p_wb[:n],
+                scene=scene)
+
+
+def build_rgbd_room(seed: int = 0, n_frames: int = 12):
+    """The RGB-D room orbit of tests/test_stereo.py:41-63: default_rng(seed),
+    the room with 4000 points and no lines, the 1 s orbit of radius 0.6 m,
+    then per frame the view (render_frame with noise) and its oracle depth
+    image (`io.synthetic.oracle_depth`, EuRoC K).
+
+    Returns dict(frames, depth [n] of [480,752] float32, timestamps [n],
+    imu [n] of None, R_wc [n,3,3], p_wc [n,3], scene)."""
+    rng = np.random.default_rng(seed)
+    scene = syn.make_room_scene(rng, n_points=4000, n_lines=0)
+    traj = syn.make_orbit_trajectory(duration=1.0, radius=0.6)
+    n = min(n_frames, len(traj.timestamps))
+    frames, depth = [], []
+    for i in range(n):
+        R, p = traj.R_wb[i], traj.p_wb[i]
+        frames.append(np.asarray(syn.render_frame(scene, R, p, rng=rng),
+                                 np.float32))
+        depth.append(syn.oracle_depth(scene, R, p))
+    return dict(frames=frames, depth=depth, timestamps=traj.timestamps[:n],
+                imu=[None] * n, R_wc=traj.R_wb[:n], p_wc=traj.p_wb[:n],
+                scene=scene)
 
 
 PNP_CASES = ("place", "rendered")

@@ -9,6 +9,11 @@ and the EuRoC-realism MH replay (:375-632: `make_hall_scene`, `_eval_mh`,
 the reference's order, so that one seed gives the same scene, IMU and
 images.
 
+The rectified pair's second view and the RGB-D depth image (what
+tests/test_stereo.py and tests/test_stereo_inertial.py make inline):
+`right_eye` moves a trajectory's camera `baseline` metres along its own x
+axis, and `oracle_depth` splats every visible point's depth.
+
 Host-side test and benchmark utilities, not device ops.  The IMU
 synthesis along the orbit is `plvio_tpu_torch.inputs.synthesize_imu`.
 
@@ -537,3 +542,32 @@ def render_frame_realistic(scene: Scene, traj_eval, t: float,
     img = img * rng.uniform(0.92, 1.08)                 # exposure jitter
     img = img + rng.normal(0, noise, img.shape)         # shot/read noise
     return np.clip(img, 0, 255).astype(np.float32)
+
+
+def right_eye(traj_eval, baseline: float):
+    """A trajectory evaluator (as `_eval_mh`) whose camera sits `baseline`
+    metres along its own x axis: the right view of a rectified pair,
+    p + R[:, 0] * baseline at every time asked (so every sub-exposure of
+    `render_frame_realistic` moves alike)."""
+    def ev(t: np.ndarray) -> SyntheticTrajectory:
+        tr = traj_eval(t)
+        return SyntheticTrajectory(tr.timestamps, tr.R_wb,
+                                   tr.p_wb + tr.R_wb[:, :, 0] * baseline,
+                                   tr.v_wb)
+    return ev
+
+
+def oracle_depth(scene: Scene, R_wc: np.ndarray, p_wc: np.ndarray,
+                 fx: float = 458.654, fy: float = 457.296,
+                 cx: float = 367.215, cy: float = 248.375,
+                 width: int = 752, height: int = 480) -> np.ndarray:
+    """The RGB-D depth image of tests/test_stereo.py:57-62: each visible
+    scene point's depth splatted as a 7x7 square (later points over
+    earlier ones), 0 elsewhere.  [height, width] float32."""
+    depth = np.zeros((height, width), np.float32)
+    uv, z, vis, _, _ = project_scene(scene, R_wc, p_wc, fx, fy, cx, cy,
+                                     width, height)
+    for j in np.nonzero(vis)[0]:
+        x0, y0 = int(uv[j, 0]), int(uv[j, 1])
+        depth[max(0, y0 - 3):y0 + 4, max(0, x0 - 3):x0 + 4] = z[j]
+    return depth

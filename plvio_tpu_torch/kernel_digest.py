@@ -35,7 +35,16 @@ points both trees have) and compare the printed lines:
   reprojection refinement on 256 pairs a side with and without
   fix_scale, the essential graph on random chains with loop and extra
   edges at 17 keyframes (one block) and 200 (global path), Sim3 and
-  4-DoF, and the distance matrix of 1024 x 700 descriptors.
+  4-DoF, and the distance matrix of 1024 x 700 descriptors;
+- `pose_irls` mono (bf = 0; on every tree): the case of
+  tests/test_torch_cuda.py `test_pose_irls_matches_plain` (1500 points,
+  seed 5) without and with 64 lines;
+- `stereo_match`, `pose_irls` and `vi_pose_lm` stereo (slice 11, on a
+  tree that has them): `hamming_match`'s stereo point and line modes on
+  synthetic rectified sets (seeds 5 and 6), the pose IRLS with a u_R
+  column on two thirds of the 1500 points, the VI case with one on two
+  thirds of its 1024 points (drawn after the mono case's numbers), with
+  and without the prior.
 
 Needs one card; JAX is never imported.
 """
@@ -55,7 +64,10 @@ def digest(tensors) -> str:
     return h.hexdigest()[:32]
 
 
-def vi_case(dev):
+def vi_case(dev, stereo: bool = False):
+    """The VI pose optimizer's arguments (K first, have_prior not); with
+    stereo, also a u_R column (bf = 0.11 fx) on two thirds of the points,
+    its numbers drawn after all of the mono case's."""
     from plvio_tpu_torch.config import ImuConfig
     from plvio_tpu_torch.entry import K_EUROC as K
     from plvio_tpu_torch.ops import imu as IMU
@@ -104,7 +116,124 @@ def vi_case(dev):
             d(torch.tensor(1 / 1.2 ** (2 * rng.integers(0, 3, cap)),
                            dtype=torch.float32)),
             d(prev), d(v0), d(pre_const), d(f.imu_info), d(rw),
-            d(prior_const), d(torch.eye(15) * 100.0)]
+            d(prior_const), d(torch.eye(15) * 100.0)] + (
+                [d(torch.tensor(_ur(rng, uv, Xc[:, 2], K.fx * 0.11),
+                                dtype=torch.float32))] if stereo else [])
+
+
+def _ur(rng, uv, z, bf):
+    """A u_R column: the left u less bf / z with 0.7 px noise, -1 (mono)
+    on every third row."""
+    ur = uv[:, 0] - bf / z + rng.normal(0, 0.7, len(z))
+    ur[::3] = -1.0
+    return ur
+
+
+def pose_case(dev, n_lines: int, stereo: bool = False):
+    """tests/test_torch_cuda.py `test_pose_irls_matches_plain`'s case (K,
+    then the kernel's tensors); with stereo, also a u_R column."""
+    from plvio_tpu_torch.entry import K_EUROC as K
+    rng = np.random.default_rng(5)
+    n = 1500
+    X = rng.uniform([-3, -2, 3], [3, 2, 9], (n, 3))
+    uv = np.stack([K.fx * X[:, 0] / X[:, 2] + K.cx,
+                   K.fy * X[:, 1] / X[:, 2] + K.cy], -1)
+    uv += rng.normal(0, 0.8, uv.shape)
+    uv[: n // 5] += rng.uniform(-30, 30, (n // 5, 2))
+    Xs = rng.uniform([-3, -2, 3], [3, 2, 9], (n_lines, 3))
+    Xe = Xs + rng.normal(0, 0.8, (n_lines, 3))
+
+    def pr(P):
+        return np.c_[K.fx * P[:, 0] / P[:, 2] + K.cx,
+                     K.fy * P[:, 1] / P[:, 2] + K.cy, np.ones(len(P))]
+
+    ln = np.cross(pr(Xs), pr(Xe)).reshape(n_lines, 3)
+    ln /= np.maximum(np.linalg.norm(ln[:, :2], axis=1, keepdims=True), 1e-9)
+    pose0 = np.eye(3, 4)
+    pose0[:, 3] = [0.02, -0.03, 0.05]
+
+    def t(a, dt=torch.float32):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dt).to(dev)
+
+    args = [K, t(pose0), t(uv), t(X), t(rng.random(n) < 0.95, torch.bool),
+            t(np.ones(n)), t(ln), t(Xs), t(Xe),
+            t(np.ones(n_lines, bool), torch.bool), t(np.ones(n_lines))]
+    if stereo:
+        args.append(t(_ur(rng, uv, X[:, 2], K.fx * 0.11)))
+    return args
+
+
+def _t(dev, a, dt=torch.float32):
+    return torch.from_numpy(np.ascontiguousarray(a)).to(dt).to(dev)
+
+
+def stereo_point_case(dev, seed: int = 5, n: int = 900):
+    """`match_stereo`'s inputs (left uv, packed descriptors, octaves,
+    valid; then the right view's) on a synthetic rectified set: a few
+    candidates a row under the row and disparity gates, descriptors drawn
+    from 60 bases (ties, the mutual check)."""
+    from plvio_tpu_torch.ops import matching as M
+    rng = np.random.default_rng(seed)
+    uv_l = np.stack([rng.uniform(40, 700, n), rng.uniform(20, 460, n)], -1)
+    perm = rng.permutation(n)
+    uv_r = uv_l[perm] - np.stack([rng.uniform(-2.0, 60.0, n),
+                                  rng.normal(0, 1.5, n)], -1)
+    base = rng.integers(0, 2, (60, 256))
+    d_l = base[rng.integers(0, 60, n)] ^ (rng.random((n, 256)) < 0.05)
+    d_r = d_l[perm] ^ (rng.random((n, 256)) < 0.05)
+    oct_l = rng.integers(0, 8, n)
+    pk = lambda d: M.pack_bits_u32(_t(dev, d)).contiguous()  # noqa: E731
+    return (_t(dev, uv_l), pk(d_l), _t(dev, oct_l, torch.int32),
+            _t(dev, rng.random(n) < 0.95, torch.bool), _t(dev, uv_r),
+            pk(d_r), _t(dev, oct_l[perm], torch.int32),
+            _t(dev, rng.random(n) < 0.95, torch.bool))
+
+
+def stereo_line_case(dev, seed: int = 6, L: int = 256):
+    """`match_stereo_lines`' inputs on a synthetic rectified pair: L
+    segments of 3D lines 2-8 m away seen by both eyes (0.11 m apart),
+    seven eighths of the right ones shuffled, the same LBD bits on true
+    pairs."""
+    from plvio_tpu_torch.ops import matching as M
+    rng = np.random.default_rng(seed)
+    z0 = rng.uniform(2.0, 8.0, L)
+    z1 = z0 + rng.uniform(-0.3, 0.3, L)
+    x0, y0 = rng.uniform(-1.5, 1.5, L), rng.uniform(-1.0, 0.2, L)
+    x1, y1 = x0 + rng.uniform(-0.3, 0.3, L), y0 + rng.uniform(-1.2, 1.2, L)
+
+    def proj(X, Y, Z, tx=0.0):
+        return np.stack([458.654 * (X - tx) / Z + 367.215,
+                         457.296 * Y / Z + 248.375], -1)
+    ep_l = np.concatenate([proj(x0, y0, z0), proj(x1, y1, z1)], 1)
+    ep_r = np.concatenate([proj(x0, y0, z0, 0.11), proj(x1, y1, z1, 0.11)],
+                          1)
+    ep_r[L // 8:] = rng.permutation(ep_r[L // 8:])
+    ang = lambda e: np.arctan2(e[:, 3] - e[:, 1],  # noqa: E731
+                               e[:, 2] - e[:, 0]) % np.pi
+    desc = M.pack_bits_u32(_t(dev, rng.integers(0, 2, (L, 256)))).contiguous()
+    valid = _t(dev, np.ones(L, bool), torch.bool)
+    return (_t(dev, ep_l), desc, _t(dev, ang(ep_l)), valid, _t(dev, ep_r),
+            desc, _t(dev, ang(ep_r)), valid)
+
+
+def stereo_digests(dev):
+    """Slice 11's lines (see the module docstring)."""
+    from plvio_tpu_torch.models import kernels as KN
+    from plvio_tpu_torch.ops import stereo as ST
+    bf = 0.11 * 458.654
+    out = ["stereo_match points " + digest(ST.match_stereo(
+               *stereo_point_case(dev), bf)),
+           "stereo_match lines " + digest(ST.match_stereo_lines(
+               *stereo_line_case(dev), bf))]
+    for nl in (0, 64):
+        args = pose_case(dev, nl, stereo=True)
+        out.append(f"pose_irls stereo n_lines={nl} " + digest(
+            KN.pose_irls(*args[:-1], ur=args[-1], bf=bf)))
+    case = vi_case(dev, stereo=True)
+    for hp in (True, False):
+        out.append(f"vi_pose_lm stereo have_prior={hp} " + digest(
+            KN.vi_pose_lm(*case[:-1], hp, ur=case[-1], bf=bf)))
+    return out
 
 
 def hamming_cases(dev):
@@ -174,6 +303,13 @@ def main() -> int:
                 "ln_valid", "kf_match_ln")]))
     for line in bow_pnp_digests(dev) + loop_digests(dev):
         print(line)
+    for nl in (0, 64):
+        print(f"pose_irls mono n_lines={nl} "
+              f"{digest(KN.pose_irls(*pose_case(dev, nl)))}")
+    import importlib.util
+    if importlib.util.find_spec("plvio_tpu_torch.ops.stereo") is not None:
+        for line in stereo_digests(dev):
+            print(line)
     return 0
 
 

@@ -10,13 +10,19 @@ plvio_tpu/models/kernels.py: `make_pose_optimizer` :88, `fast_pose_opt`
 `make_vi_pose_optimizer` :932, `make_local_ba` :1307).
 
 `pose_irls` is the hand-written CUDA kernel (csrc/pose_irls.cu) for the
-fused point+line pose IRLS; `pose_irls_plain` beside it is the same
-algorithm in plain PyTorch with an exact Cholesky solve where the
-reference runs 6 CG steps (equivalent for this damped 6x6 system).
+fused point+line pose IRLS, with the stereo / RGB-D right-eye rows where
+a u_R column is given (its launches counted as `POSE_IRLS_STEREO`);
+`pose_irls_plain` beside it is the same algorithm in plain PyTorch with
+an exact Cholesky solve where the reference runs 6 CG steps (equivalent
+for this damped 6x6 system).
 
 `vi_pose_lm` is the hand-written CUDA kernel (csrc/vi_pose_lm.cu) of the
-VI frame's 30-DoF pose optimization; `vi_pose_opt_plain` beside it runs
-the same problem on the dense LM engine (solver/engine.py).
+VI frame's 30-DoF pose optimization, with IMU_STEREO's 3-row stereo term
+where a u_R column is given (`VI_POSE_LM_STEREO`); `vi_pose_opt_plain`
+beside it runs the same problem on the dense LM engine
+(solver/engine.py).  `pose_irls_against_float64` and
+`vi_pose_lm_against_float64` hold the kernels to float64 runs of the
+plain versions for the card.
 
 The keyframe mapping step: `make_epipolar_matcher` (the `hamming_match`
 kernel in its epipolar gate mode, then `rot_hist`), `make_triangulator`
@@ -55,6 +61,7 @@ from ..solver.residuals import PinholeK
 from ..utils import lie
 
 CHI2_MONO = 5.991
+CHI2_STEREO = 7.815
 
 
 def project(K: PinholeK, pc: torch.Tensor) -> torch.Tensor:
@@ -76,15 +83,28 @@ def _proj_jac(K: PinholeK, pc: torch.Tensor):
 
 def pose_irls_plain(K: PinholeK, pose0, uv, X, valid, inv_sigma2,
                     l_obs, Xs, Xe, valid_l, is2_l, rounds: int = 4,
-                    iters: int = 3, w_line: float = 1.0):
+                    iters: int = 3, w_line: float = 1.0, ur=None,
+                    bf: float = 0.0):
     """Plain version of `pose_irls`.  Returns (pose [3,4], inlier_pt [N],
     inlier_ln [L], n_inliers int32 scalar)."""
     delta = float(math.sqrt(CHI2_MONO))
     eye6 = torch.eye(6, dtype=pose0.dtype, device=pose0.device)
+    stereo = ur is not None
+    chi2_pt_th = CHI2_MONO
+    if stereo:
+        has_r = (ur > 0).to(pose0.dtype)
+        chi2_pt_th = torch.where(ur > 0, CHI2_STEREO, CHI2_MONO).to(
+            pose0.dtype)
+        bf_t = torch.tensor(bf, dtype=pose0.dtype, device=pose0.device)
 
     def point_part(Rt):
         pc = X @ Rt[:, :3].T + Rt[:, 3]
-        r = project(K, pc) - uv
+        uvp = project(K, pc)
+        r = uvp - uv
+        if stereo:
+            z = torch.clamp_min(pc[:, 2], 1e-4)
+            r3 = (uvp[:, 0] - bf_t / z - ur) * has_r
+            r = torch.cat([r, r3[:, None]], 1)
         return r, pc, (r * r).sum(-1) * inv_sigma2
 
     def line_endpoint(Rt, Xep):
@@ -108,15 +128,22 @@ def pose_irls_plain(K: PinholeK, pose0, uv, X, valid, inv_sigma2,
         r, pc, chi2 = point_part(Rt)
         chi2_l, depth_ok = line_chi2(Rt)
         if i % iters == 0 and i > 0:
-            gate_p = (valid & (chi2 < CHI2_MONO)).to(pose0.dtype)
+            gate_p = (valid & (chi2 < chi2_pt_th)).to(pose0.dtype)
             gate_l = (valid_l & (chi2_l < CHI2_MONO)).to(pose0.dtype)
         w_h = torch.clamp_max(delta / torch.sqrt(torch.clamp_min(chi2, 1e-12)),
                               1.0)
         w = gate_p * (pc[:, 2] > 0.05).to(pose0.dtype) * w_h * inv_sigma2
         ju, jv = _proj_jac(K, pc)
-        Jp = torch.stack([ju, jv], 1)                       # [N,2,3]
+        rows = [ju, jv]
+        if stereo:
+            # d(u - bf/z)/dpc, masked to the stereo rows
+            iz = 1.0 / torch.clamp_min(pc[:, 2], 1e-4)
+            rows.append(torch.stack([
+                K.fx * iz, torch.zeros_like(iz),
+                (-K.fx * pc[:, 0] + bf) * iz ** 2], -1) * has_r[:, None])
+        Jp = torch.stack(rows, 1)                           # [N,2|3,3]
         Jphi = -torch.einsum("nij,njk->nik", Jp, lie.hat(pc))
-        J = torch.cat([Jp, Jphi], -1)                       # [N,2,6]
+        J = torch.cat([Jp, Jphi], -1)                       # [N,2|3,6]
         Jw = J * w[:, None, None]
         H = torch.einsum("ndi,ndj->ij", Jw, J)
         g = torch.einsum("ndi,nd->i", Jw, r)
@@ -136,7 +163,7 @@ def pose_irls_plain(K: PinholeK, pose0, uv, X, valid, inv_sigma2,
                         (Rn @ Rt[:, 3] + tn)[:, None]], 1)
     _, _, chi2 = point_part(Rt)
     chi2_l, _ = line_chi2(Rt)
-    inl_p = valid & (chi2 < CHI2_MONO)
+    inl_p = valid & (chi2 < chi2_pt_th)
     inl_l = valid_l & (chi2_l < CHI2_MONO)
     return Rt, inl_p, inl_l, (inl_p.sum() + inl_l.sum()).to(torch.int32)
 
@@ -144,23 +171,28 @@ def pose_irls_plain(K: PinholeK, pose0, uv, X, valid, inv_sigma2,
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-POSE_IRLS = cuda.Kernel(
-    "pose_irls", "pose_irls",
-    [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I,
-     _F, _F, _F, _F, _F, _F, _I, _I, _P, _P, _P, _P, _P])
+_POSE_IRLS_ARGS = [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P, _F,
+                   _F, _F, _F, _F, _F, _F, _I, _I, _P, _P, _P, _P, _P]
+# one library entry; the launches with the stereo rows are counted apart
+POSE_IRLS = cuda.Kernel("pose_irls", "pose_irls", _POSE_IRLS_ARGS)
+POSE_IRLS_STEREO = cuda.Kernel("pose_irls", "pose_irls", _POSE_IRLS_ARGS)
 
 
 def pose_irls(K: PinholeK, pose0, uv, X, valid, inv_sigma2,
               l_obs, Xs, Xe, valid_l, is2_l, rounds: int = 4,
-              iters: int = 3, w_line: float = 1.0):
-    """Fused point+line pose-only IRLS (mono).  pose0 [3,4] T_cw; points
-    uv [N,2], X [N,3], valid [N] bool, inv_sigma2 [N]; lines l_obs [L,3],
-    Xs/Xe [L,3], valid_l [L] bool, is2_l [L] (L may be 0).  Returns (pose,
-    inlier_pt, inlier_ln, n_inliers int32 scalar).  CPU tensors take the
-    plain version; CUDA tensors launch csrc/pose_irls.cu."""
+              iters: int = 3, w_line: float = 1.0, ur=None,
+              bf: float = 0.0):
+    """Fused point+line pose-only IRLS.  pose0 [3,4] T_cw; points uv
+    [N,2], X [N,3], valid [N] bool, inv_sigma2 [N]; lines l_obs [L,3],
+    Xs/Xe [L,3], valid_l [L] bool, is2_l [L] (L may be 0); stereo / RGB-D
+    (ur given, bf = baseline * fx > 0): ur [N] the right-eye u_R of each
+    point, <= 0 for a mono one.  Returns (pose, inlier_pt, inlier_ln,
+    n_inliers int32 scalar).  CPU tensors take the plain version; CUDA
+    tensors launch csrc/pose_irls.cu."""
     if pose0.device.type == "cpu":
         return pose_irls_plain(K, pose0, uv, X, valid, inv_sigma2, l_obs, Xs,
-                               Xe, valid_l, is2_l, rounds, iters, w_line)
+                               Xe, valid_l, is2_l, rounds, iters, w_line, ur,
+                               bf)
     n, L = X.shape[0], Xs.shape[0]
     cuda.check_cuda("pose_irls", pose0, uv, X, valid, inv_sigma2, l_obs, Xs,
                     Xe, valid_l, is2_l)
@@ -174,6 +206,10 @@ def pose_irls(K: PinholeK, pose0, uv, X, valid, inv_sigma2,
             or Xs.shape != (L, 3) or valid_l.shape != (L,) \
             or is2_l.shape != (L,):
         raise ValueError("pose_irls: shape mismatch")
+    if ur is not None:
+        cuda.check_cuda("pose_irls", pose0, ur)
+        if ur.dtype != torch.float32 or ur.shape != (n,) or not bf > 0:
+            raise ValueError("pose_irls: ur [N] float32 with bf > 0")
     if n + L > 200_000:
         raise ValueError("pose_irls: the gates of N + L rows must fit in "
                          "shared memory (N + L <= 200000)")
@@ -182,11 +218,12 @@ def pose_irls(K: PinholeK, pose0, uv, X, valid, inv_sigma2,
     inl_p = torch.empty(n, dtype=torch.bool, device=dev)
     inl_l = torch.empty(L, dtype=torch.bool, device=dev)
     n_inl = torch.empty((), dtype=torch.int32, device=dev)
-    POSE_IRLS.launch(
+    (POSE_IRLS if ur is None else POSE_IRLS_STEREO).launch(
         cuda.ptr(pose0), cuda.ptr(uv), cuda.ptr(X), cuda.ptr(valid),
         cuda.ptr(inv_sigma2), n, cuda.ptr(l_obs), cuda.ptr(Xs), cuda.ptr(Xe),
-        cuda.ptr(valid_l), cuda.ptr(is2_l), L, K.fx, K.fy, K.cx, K.cy,
-        float(w_line), float(math.sqrt(CHI2_MONO)), rounds, iters,
+        cuda.ptr(valid_l), cuda.ptr(is2_l), L,
+        None if ur is None else cuda.ptr(ur), float(bf), K.fx, K.fy, K.cx,
+        K.cy, float(w_line), float(math.sqrt(CHI2_MONO)), rounds, iters,
         cuda.ptr(pose), cuda.ptr(inl_p), cuda.ptr(inl_l), cuda.ptr(n_inl),
         cuda.stream())
     return pose, inl_p, inl_l, n_inl
@@ -194,12 +231,13 @@ def pose_irls(K: PinholeK, pose0, uv, X, valid, inv_sigma2,
 
 def fast_pose_opt_pl(K: PinholeK, pose0, uv, X, valid, inv_sigma2,
                      l_obs, Xs, Xe, valid_l, is2_l, rounds: int = 4,
-                     iters: int = 3, w_line: float = 1.0, plain: bool = False):
-    """Point+line pose IRLS.  Returns (pose, inlier_pt, inlier_ln,
-    n_inliers)."""
+                     iters: int = 3, w_line: float = 1.0, plain: bool = False,
+                     ur=None, bf: float = 0.0):
+    """Point+line pose IRLS (with the stereo third row where ur is given).
+    Returns (pose, inlier_pt, inlier_ln, n_inliers)."""
     fn = pose_irls_plain if plain else pose_irls
     return fn(K, pose0, uv, X, valid, inv_sigma2, l_obs, Xs, Xe, valid_l,
-              is2_l, rounds, iters, w_line)
+              is2_l, rounds, iters, w_line, ur, bf)
 
 
 def fast_pose_opt(K: PinholeK, pose0, uv, X, valid, inv_sigma2,
@@ -228,17 +266,24 @@ def make_pose_optimizer(K: PinholeK, rounds: int = 4, iters: int = 3,
 
 
 def make_fast_pose_optimizer_pl(K: PinholeK, rounds: int = 4,
-                                iters: int = 3, plain: bool = False):
+                                iters: int = 3, plain: bool = False,
+                                bf: float = 0.0):
     """run(pose0 [3,4], uv [cap,2], X [cap,3], valid, is2, l_obs [L,3],
     Xs [L,3], Xe [L,3], valid_l, is2_l) -> (pose, inlier_pt, inlier_ln,
-    n_inliers): the tracker's point+line pose IRLS (models/kernels.py:312,
-    mono: bf = 0), on `pose_irls`."""
-    def run(pose0, uv, X, valid, is2, l_obs, Xs, Xe, valid_l, is2_l):
+    n_inliers): the tracker's point+line pose IRLS (models/kernels.py:312),
+    on `pose_irls`.  bf > 0 builds the stereo / RGB-D flavour, whose run
+    takes a trailing ur [cap] (u_R; <= 0 marks a mono point)."""
+    def run(pose0, uv, X, valid, is2, l_obs, Xs, Xe, valid_l, is2_l,
+            *ur):
+        if (len(ur) == 1) != (bf > 0):
+            raise TypeError("the stereo flavour (bf > 0) takes ur, the mono "
+                            "one does not")
         c = [t.contiguous() for t in (pose0, uv, X, is2, l_obs, Xs, Xe,
                                        is2_l)]
         return fast_pose_opt_pl(K, c[0], c[1], c[2], valid, c[3], c[4], c[5],
                                 c[6], valid_l, c[7], rounds, iters,
-                                plain=plain)
+                                plain=plain,
+                                ur=ur[0].contiguous() if ur else None, bf=bf)
     return run
 
 
@@ -301,7 +346,10 @@ PRE_KEYS = ("dT", "dR", "dV", "dP", "JRg", "JVg", "JVa", "JPg", "JPa",
 PRIOR_KEYS = ("R0", "p0", "v0", "bg0", "ba0")
 
 
-def _vi_problem(K, Rcb, tcb, gravity, cap, mask, consts):
+def _vi_problem(K, Rcb, tcb, gravity, cap, mask, consts, stereo=None):
+    """The engine's problem in the reference's term order: reproj, (the
+    stereo term when `stereo` = (bf, ur, mask_s)), inertial, the random
+    walks, prior."""
     (uv, X, is2, pre_const, imu_info, bias_rw_info, prior_const,
      prior_info_safe, have_prior) = consts
     dev = uv.device
@@ -319,6 +367,16 @@ def _vi_problem(K, Rcb, tcb, gravity, cap, mask, consts):
                                                 device=dev))],
         const={"uv": uv, "X": X}, mask=mask, info=is2,
         robust_delta=float(math.sqrt(CHI2_MONO))))
+    if stereo is not None:
+        bf, ur, mask_s = stereo
+        prob.add_term(E.Term(
+            name="stereo",
+            res_fn=RES.make_stereo_reproj_body(K, bf, Rcb, tcb), rdim=3,
+            dense_refs=[("pose", torch.ones(cap, dtype=torch.int64,
+                                            device=dev))],
+            const={"uvr": torch.cat([uv, ur[:, None]], 1), "X": X},
+            mask=mask_s, info=is2,
+            robust_delta=float(math.sqrt(CHI2_STEREO))))
     prob.add_term(E.Term(
         name="inertial", res_fn=RES.make_inertial(gravity), rdim=9,
         dense_refs=[("pose", z1), ("vel", z1), ("bg", o1), ("ba", o1),
@@ -345,14 +403,17 @@ def vi_pose_opt_plain(K: PinholeK, Rcb, tcb, gravity: float, pose_wb0, v0,
                       bg0, ba0, uv, X, valid, is2, prev_pose_wb, prev_v,
                       pre_const, imu_info, bias_rw_info, prior_const,
                       prior_info, have_prior: bool, rounds: int = 3,
-                      iters: int = 6, stats=None):
-    """Plain version of `vi_pose_lm` on the dense engine (mono): the
+                      iters: int = 6, stats=None, ur=None, bf: float = 0.0):
+    """Plain version of `vi_pose_lm` on the dense engine: the
     current (pose_wb, v, bg, ba) against the previous state through the
     body-frame reprojection edges, one 9-dim inertial edge, the bias
     random walks and (have_prior) the 15-DoF prior on the previous state,
     `rounds` x <= `iters` LM with early exit and chi2 re-gating, then the
     next prior: the previous state marginalized out of the 30x30 H
     (eigh pseudo-inverse), or the current block when have_prior is False.
+    With ur [cap] and bf > 0 (IMU_STEREO), the rows with ur > 0 form the
+    3-row stereo term (u, v, u_R; Huber delta sqrt(7.815), re-gated at
+    7.815) and the mono term keeps the others.
     Returns (pose_wb [3,4], v, bg, ba, inlier [cap], n_inliers int32,
     H15 [15,15]); `stats` (a list) gets each round's iteration count."""
     dev = pose_wb0.device
@@ -368,13 +429,23 @@ def vi_pose_opt_plain(K: PinholeK, Rcb, tcb, gravity: float, pose_wb0, v0,
     free = {k: torch.stack([hp, t]) for k in states}
     consts = (uv, X, is2, pre_const, imu_info, bias_rw_info, prior_const,
               prior_info_safe, hp)
+    stereo = ur is not None and bf > 0
+    has_r = ur > 0 if stereo else torch.zeros(cap, dtype=torch.bool,
+                                              device=dev)
+    mask = valid & ~has_r
+    mask_s = valid & has_r
+
+    def problem():
+        return _vi_problem(K, Rcb, tcb, gravity, cap, mask, consts,
+                           (bf, ur, mask_s) if stereo else None)
     for _ in range(rounds):
-        prob = _vi_problem(K, Rcb, tcb, gravity, cap, mask, consts)
-        states, _, chi2s = E.optimize(prob, states, iters=iters,
+        states, _, chi2s = E.optimize(problem(), states, iters=iters,
                                       dense_free_mask=free, early_tol=1e-2,
                                       stats=stats)
-        mask = valid & (chi2s["reproj"] < CHI2_MONO)
-    prob = _vi_problem(K, Rcb, tcb, gravity, cap, mask, consts)
+        mask = valid & ~has_r & (chi2s["reproj"] < CHI2_MONO)
+        if stereo:
+            mask_s = valid & has_r & (chi2s["stereo"] < CHI2_STEREO)
+    prob = problem()
     _, H, _, _, _, _ = prob.build_normal_equations(states)
     ip, ic = IDX_PREV.to(dev), IDX_CUR.to(dev)
     Hpp = H[ip][:, ip]
@@ -392,14 +463,17 @@ def vi_pose_opt_plain(K: PinholeK, Rcb, tcb, gravity: float, pose_wb0, v0,
     marg = torch.where(fin, marg, torch.full_like(marg, float("nan")))
     H15 = torch.where(hp, marg, Hcc)
     H15 = 0.5 * (H15 + H15.T)
+    inlier = mask | mask_s
     return (states["pose"][1], states["vel"][1], states["bg"][1],
-            states["ba"][1], mask, mask.sum().to(torch.int32), H15)
+            states["ba"][1], inlier, inlier.sum().to(torch.int32), H15)
 
 
-VI_POSE_LM = cuda.Kernel(
-    "vi_pose_lm", "vi_pose_lm",
-    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F,
-     _P, _P, _P, _P])
+_VI_POSE_LM_ARGS = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F,
+                    _F, _F, _F, _F, _P, _P, _P, _P]
+# one library entry; the launches with the stereo term are counted apart
+VI_POSE_LM = cuda.Kernel("vi_pose_lm", "vi_pose_lm", _VI_POSE_LM_ARGS)
+VI_POSE_LM_STEREO = cuda.Kernel("vi_pose_lm", "vi_pose_lm",
+                                _VI_POSE_LM_ARGS)
 
 
 def _pack(d, keys):
@@ -409,17 +483,19 @@ def _pack(d, keys):
 def vi_pose_lm(K: PinholeK, Rcb, tcb, gravity: float, pose_wb0, v0, bg0,
                ba0, uv, X, valid, is2, prev_pose_wb, prev_v, pre_const,
                imu_info, bias_rw_info, prior_const, prior_info,
-               have_prior: bool, rounds: int = 3, iters: int = 6):
-    """VI pose optimization of the tracked frame (mono), see
-    `vi_pose_opt_plain`.  CPU tensors take the plain version; CUDA tensors
-    launch csrc/vi_pose_lm.cu, which runs every round, LM iteration, early
-    exit and the marginalization on the device (no host sync)."""
+               have_prior: bool, rounds: int = 3, iters: int = 6, ur=None,
+               bf: float = 0.0):
+    """VI pose optimization of the tracked frame, see `vi_pose_opt_plain`
+    (mono, or with ur [cap] and bf > 0 the stereo term).  CPU tensors take
+    the plain version; CUDA tensors launch csrc/vi_pose_lm.cu, which runs
+    every round, LM iteration, early exit and the marginalization on the
+    device (no host sync)."""
     if pose_wb0.device.type == "cpu":
         return vi_pose_opt_plain(K, Rcb, tcb, gravity, pose_wb0, v0, bg0,
                                  ba0, uv, X, valid, is2, prev_pose_wb,
                                  prev_v, pre_const, imu_info, bias_rw_info,
                                  prior_const, prior_info, have_prior,
-                                 rounds, iters)
+                                 rounds, iters, ur=ur, bf=bf)
     if not isinstance(have_prior, bool):
         raise ValueError("vi_pose_lm: have_prior must be a Python bool")
     cap = X.shape[0]
@@ -441,17 +517,23 @@ def vi_pose_lm(K: PinholeK, Rcb, tcb, gravity: float, pose_wb0, v0, bg0,
             or is2.shape != (cap,) or valid.dtype != torch.bool \
             or uv.dtype != f32 or X.dtype != f32 or is2.dtype != f32:
         raise ValueError("vi_pose_lm: shape or dtype mismatch")
+    if ur is not None:
+        cuda.check_cuda("vi_pose_lm", state, ur)
+        if ur.dtype != f32 or ur.shape != (cap,) or not bf > 0:
+            raise ValueError("vi_pose_lm: ur [cap] float32 with bf > 0")
     if cap > 32768:
         raise ValueError("vi_pose_lm: the edge gates of cap rows must fit "
                          "in shared memory (cap <= 32768)")
     out = torch.empty(21 + 225, dtype=f32, device=dev)
     inlier = torch.empty(cap, dtype=torch.bool, device=dev)
     n_inl = torch.empty((), dtype=torch.int32, device=dev)
-    VI_POSE_LM.launch(
+    (VI_POSE_LM if ur is None else VI_POSE_LM_STEREO).launch(
         cuda.ptr(state), cuda.ptr(uv), cuda.ptr(X), cuda.ptr(valid),
-        cuda.ptr(is2), cap, int(have_prior), rounds, iters, K.fx, K.fy,
-        K.cx, K.cy, float(gravity), float(math.sqrt(CHI2_MONO)),
-        cuda.ptr(out), cuda.ptr(inlier), cuda.ptr(n_inl), cuda.stream())
+        cuda.ptr(is2), None if ur is None else cuda.ptr(ur), cap,
+        int(have_prior), rounds, iters, K.fx, K.fy, K.cx, K.cy,
+        float(gravity), float(math.sqrt(CHI2_MONO)), float(bf),
+        float(math.sqrt(CHI2_STEREO)), cuda.ptr(out), cuda.ptr(inlier),
+        cuda.ptr(n_inl), cuda.stream())
     pose = out[:12].view(3, 4)
     return (pose, out[12:15], out[15:18], out[18:21], inlier, n_inl,
             out[21:].view(15, 15))
@@ -459,14 +541,14 @@ def vi_pose_lm(K: PinholeK, Rcb, tcb, gravity: float, pose_wb0, v0, bg0,
 
 def make_vi_pose_optimizer(K: PinholeK, cap: int, Rcb, tcb, gravity: float,
                            rounds: int = 3, iters: int = 6,
-                           plain: bool = False):
+                           plain: bool = False, bf: float = 0.0):
     """run(pose_wb0 [3,4], v0, bg0, ba0, uvr [cap,3], X [cap,3], valid,
     is2, prev_pose_wb, prev_v, pre_const dict, imu_info [9,9],
     bias_rw_info [6], prior_const {R0,p0,v0,bg0,ba0}, prior_info [15,15],
     have_prior bool) -> (pose_wb, v, bg, ba, inlier, n_inliers, H15): the
-    mono flavour (bf = 0) of the reference's make_vi_pose_optimizer; uvr's
-    third column is ignored.  `plain` runs the plain version on any
-    device."""
+    reference's make_vi_pose_optimizer.  With bf = 0 (mono) uvr's third
+    column is ignored; with bf > 0 (IMU_STEREO) the rows with uvr[:, 2] > 0
+    take the stereo term.  `plain` runs the plain version on any device."""
     fn = vi_pose_opt_plain if plain else vi_pose_lm
     Rcb = torch.as_tensor(np.asarray(Rcb, np.float32))
     tcb = torch.as_tensor(np.asarray(tcb, np.float32))
@@ -478,7 +560,8 @@ def make_vi_pose_optimizer(K: PinholeK, cap: int, Rcb, tcb, gravity: float,
         return fn(K, Rcb.to(dev), tcb.to(dev), gravity, pose_wb0, v0, bg0,
                   ba0, uvr[:, :2].contiguous(), X, valid, is2, prev_pose_wb,
                   prev_v, pre_const, imu_info, bias_rw_info, prior_const,
-                  prior_info, have_prior, rounds, iters)
+                  prior_info, have_prior, rounds, iters,
+                  ur=uvr[:, 2].contiguous() if bf > 0 else None, bf=bf)
     return run
 
 
@@ -1147,7 +1230,7 @@ def make_line_triangulator(K: PinholeK, plain: bool = False):
 # 1.2 ** octave for octaves 0..7 as the reference's float32 power gives it
 # (float32(1.2) raised in float64, rounded to float32; a CPU test holds it
 # to JAX's `1.2 ** feat_octave.astype(float32)`)
-OCTAVE_SCALE = np.float32(np.float64(np.float32(1.2)) ** np.arange(8))
+OCTAVE_SCALE = M.OCTAVE_SCALE
 
 
 def project_gates(K: PinholeK, pose, pt_xyz, pt_valid, pt_normal=None,
@@ -2283,3 +2366,97 @@ def sim3_reproj_against_float64(K: PinholeK, args,
                     f"run's {out['plain']:.2e} + 1e-6")
     out["failures"] = fail
     return out
+
+
+def _to64_cpu(x):
+    if isinstance(x, (list, tuple)):
+        return [_to64_cpu(v) for v in x]
+    if isinstance(x, dict):
+        return {k: _to64_cpu(v) for k, v in x.items()}
+    if torch.is_tensor(x):
+        x = x.detach().cpu()
+        return x.double() if x.is_floating_point() else x
+    return x
+
+
+FLOAT32_ORDERS = 4      # row orders of the plain float32 runs
+
+
+def _solver_against_float64(kernel_fn, plain_fn, args, kw, n_idx: int,
+                            state_idx, rows) -> dict:
+    """A solver kernel on the card against its plain version in float32
+    and float64 on the CPU, launched twice.  Returns dict(kernel, plain,
+    plain_orders, same_bits, n, n64, failures): the largest state-entry
+    gaps (the outputs `state_idx`) to float64 of the kernel and of the
+    plain float32 runs.  The kernel sums its rows in another order than
+    the plain version, and on an ill-conditioned problem (a weakly
+    observed bias under a carried prior) float32 rounding alone moves the
+    state by several times one run's distance, so the plain float32
+    version runs on FLOAT32_ORDERS row orders (the given one and seeded
+    permutations of the per-row arguments `rows` and of kw's ur) and
+    `plain` is the largest of their distances.  The rule: the kernel
+    within 2x that + 1e-6, the same bits on the second launch, its inlier
+    count within max(2, 1%) of the float64 run's."""
+    k = kernel_fn(*args, **kw)
+    k2 = kernel_fn(*args, **kw)
+    a32, kw32 = _cpu(list(args)), _cpu(kw)
+    p64 = plain_fn(*_to64_cpu(list(args)), **_to64_cpu(kw))
+
+    def gap(a, b):
+        return max(float((a[i].detach().double().cpu() - b[i].double())
+                         .abs().max()) for i in state_idx)
+    orders = []
+    for o in range(FLOAT32_ORDERS):
+        a, kk = list(a32), dict(kw32)
+        if o:
+            perm = torch.from_numpy(np.random.default_rng(o).permutation(
+                a32[rows[0]].shape[0]))
+            for i in rows:
+                a[i] = a[i][perm].contiguous()
+            if kk.get("ur") is not None:
+                kk["ur"] = kk["ur"][perm].contiguous()
+        orders.append(gap(plain_fn(*a, **kk), p64))
+    out = dict(kernel=gap(k, p64), plain=max(orders), plain_orders=orders,
+               same_bits=all(torch.equal(k[i], k2[i]) for i in state_idx),
+               n=int(k[n_idx]), n64=int(p64[n_idx]))
+    fail = []
+    if not out["same_bits"]:
+        fail.append("a second launch gave other bits")
+    if abs(out["n"] - out["n64"]) > max(2, 0.01 * out["n64"]):
+        fail.append(f"inliers {out['n']} against {out['n64']}")
+    if out["kernel"] > 2 * out["plain"] + 1e-6:
+        fail.append(f"state {out['kernel']:.2e} from float64 > 2x the plain "
+                    f"float32 runs' {out['plain']:.2e} + 1e-6")
+    out["failures"] = fail
+    return out
+
+
+def _cpu(x):
+    if isinstance(x, (list, tuple)):
+        return [_cpu(v) for v in x]
+    if isinstance(x, dict):
+        return {k: _cpu(v) for k, v in x.items()}
+    return x.detach().cpu() if torch.is_tensor(x) else x
+
+
+def pose_irls_against_float64(K: PinholeK, args, ur=None,
+                              bf: float = 0.0) -> dict:
+    """`pose_irls` (args: its CUDA tensors after K, the point rows uv, X,
+    valid, is2 second to fifth; the stereo rows with ur and bf) against
+    float64, `_solver_against_float64`'s rule on the pose."""
+    return _solver_against_float64(
+        lambda *a, **k: pose_irls(K, *a, **k),
+        lambda *a, **k: pose_irls_plain(K, *a, **k), args,
+        dict(ur=ur, bf=bf), 3, (0,), rows=(1, 2, 3, 4))
+
+
+def vi_pose_lm_against_float64(K: PinholeK, args, have_prior: bool,
+                               ur=None, bf: float = 0.0) -> dict:
+    """`vi_pose_lm` (args: Rcb, tcb, gravity and its CUDA tensors up to
+    prior_info, the point rows uv, X, valid, is2 at 7-10; the stereo term
+    with ur and bf) against float64, `_solver_against_float64`'s rule on
+    the pose, velocity and biases."""
+    return _solver_against_float64(
+        lambda *a, **k: vi_pose_lm(K, *a, have_prior, **k),
+        lambda *a, **k: vi_pose_opt_plain(K, *a, have_prior, **k), args,
+        dict(ur=ur, bf=bf), 5, (0, 1, 2, 3), rows=(7, 8, 9, 10))

@@ -711,12 +711,15 @@ class LocalMapper(HostIO):
         pt_free = np.zeros(self.ba_pt_cap, bool)
         pt_free[:len(pt_ids)] = True
 
-        ln_ids = np.unique(m.kf_match_ln[window])
-        ln_ids = ln_ids[ln_ids >= 0]
-        ln_ids = ln_ids[m.ln_valid[ln_ids]]
-        # only multi-view-confirmed lines optimize poses
-        ln_ids = ln_ids[m.ln_n_obs[ln_ids] >= 3][:self.ba_ln_cap]
-        use_pl = len(ln_ids) >= 8
+        ln_ids = np.zeros(0, np.int32)
+        use_pl = False
+        if self.use_lines:
+            ln_ids = np.unique(m.kf_match_ln[window])
+            ln_ids = ln_ids[ln_ids >= 0]
+            ln_ids = ln_ids[m.ln_valid[ln_ids]]
+            # only multi-view-confirmed lines optimize poses
+            ln_ids = ln_ids[m.ln_n_obs[ln_ids] >= 3][:self.ba_ln_cap]
+            use_pl = len(ln_ids) >= 8
         if use_pl:
             ln_slot = np.full(m.max_lines, -1, np.int32)
             ln_slot[ln_ids] = np.arange(len(ln_ids))

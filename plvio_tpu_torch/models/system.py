@@ -1,8 +1,9 @@
 """The public SLAM system (port of plvio_tpu/models/system.py:34-569):
 `System` builds the camera, the front ends, the Atlas, both vocabularies
 and the keyframe database, the stage profiler, the tracker and the local
-mapper, and runs them synchronously frame by frame
-(`track_monocular`); it saves trajectories and refines the map
+mapper, and runs them synchronously frame by frame (`track_monocular`,
+and for a rectified pair `track_stereo`, for a depth camera
+`track_rgbd`); it saves trajectories and refines the map
 (`global_refine`).
 
 Its glue is shared with the entry points: the per-frame prelude
@@ -20,11 +21,11 @@ map transform handed to the tracker).
 
 Not ported, each raising NotImplementedError naming its ROADMAP item
 where the reference would take it: the prior-map relocalizer
-(`reloc.enabled`, Queue 1 item 5),
-stereo and RGB-D (`track_stereo`, `track_rgbd`, item 7), and the
-peripherals of item 9 (`async_mapping`, `change_dataset`, `save_atlas` /
-`load_atlas`, the live viewer, the overlay and snapshot dumps,
-`export_map`).  The XLA cache hygiene of the reference
+(`reloc.enabled`, Queue 1 item 5), STEREO or RGB-D with a baseline and
+no lines (the point-only stereo pose optimizer), the KB8 camera and the
+ED line detector (item 7), and the peripherals of item 9
+(`async_mapping`, `change_dataset`, `save_atlas` / `load_atlas`, the live
+viewer, the overlay and snapshot dumps, `export_map`).  The XLA cache hygiene of the reference
 (`_host_hygiene`) has no counterpart.
 """
 from __future__ import annotations
@@ -36,10 +37,11 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from ..config import Sensor, SystemConfig
+from ..config import SystemConfig
 from ..cuda import resolve_device
 from ..io import trajectory as TIO
 from ..ops import cameras as CAM
+from ..ops import stereo as ST
 from ..utils import lie
 from ..utils.metrics import Metrics
 
@@ -74,13 +76,22 @@ def frame_prelude(orb, lines, cam: CAM.Camera, img: torch.Tensor,
     with stage("extract_lines") if lines is not None \
             else contextlib.nullcontext():
         lf = lines(img) if lines is not None else None
-        if not any(cam.dist):
-            return feats._replace(uv_und=feats.uv), lf
-        ep = None if lf is None else lf.ep.contiguous()
-        if plain or img.device.type == "cpu":
-            und, ep_u, lineq = CAM.undistort_frame_plain(cam, feats.uv, ep)
-        else:
-            und, ep_u, lineq = CAM.undistort(cam, feats.uv.contiguous(), ep)
+        return undistort_features(cam, feats, lf, plain)
+
+
+def undistort_features(cam: CAM.Camera, feats, lf=None,
+                       plain: bool = False):
+    """The keypoints' undistortion (`uv_und`) and, with segments `lf`,
+    their endpoints' with new line equations, in one `undistort` launch
+    for CUDA features (the plain version on the CPU or with `plain`); a
+    camera without distortion leaves them as they are."""
+    if not any(cam.dist):
+        return feats._replace(uv_und=feats.uv), lf
+    ep = None if lf is None else lf.ep.contiguous()
+    if plain or feats.uv.device.type == "cpu":
+        und, ep_u, lineq = CAM.undistort_frame_plain(cam, feats.uv, ep)
+    else:
+        und, ep_u, lineq = CAM.undistort(cam, feats.uv.contiguous(), ep)
     feats = feats._replace(uv_und=und)
     if lf is not None:
         lf = lf._replace(ep=ep_u, lineq=lineq)
@@ -161,7 +172,8 @@ def _process_kf(tracker, mapper, kf: int, kfdb) -> list:
 
 
 class System:
-    """The monocular / mono-inertial SLAM system on the port's kernels.
+    """The SLAM system on the port's kernels: monocular, mono-inertial,
+    rectified stereo and stereo-inertial with lines, and RGB-D.
 
         slam = System(cfg)                       # on the card
         for img, t, imu in frames:
@@ -192,12 +204,12 @@ class System:
         from . import vocabulary as V
         if async_mapping:
             raise NotImplementedError(f"async_mapping {_ITEM9}")
-        if cfg.sensor not in (Sensor.MONOCULAR, Sensor.IMU_MONOCULAR):
-            raise NotImplementedError(f"sensor {cfg.sensor.name} {_ITEM7}")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.plain = plain
         cam = cfg.camera
+        if cam.model != "pinhole":
+            raise NotImplementedError(f"the {cam.model} camera {_ITEM7}")
         self.camera = CAM.make_camera(cam)
         self.level_specs = make_level_specs(
             cam.height, cam.width, cfg.orb.n_features, cfg.orb.n_levels,
@@ -274,12 +286,18 @@ class System:
         return self.track_features(feats, lf, timestamp, imu, img)
 
     def track_features(self, feats, line_feats, timestamp: float,
-                       imu: Optional[Sequence] = None, img=None
+                       imu: Optional[Sequence] = None, img=None,
+                       depth: Optional[np.ndarray] = None,
+                       line_depth: Optional[tuple] = None
                        ) -> Optional[np.ndarray]:
-        """`track_monocular` past its front end, on a frame's features."""
+        """`track_monocular` (and `track_stereo` / `track_rgbd`, with the
+        per-feature `depth` and the segments' `line_depth`) past its front
+        end, on a frame's features."""
         with self.metrics.stage("track"):
             pose = self.tracker.process_frame(feats, timestamp, imu=imu,
-                                              line_feats=line_feats)
+                                              line_feats=line_feats,
+                                              depth=depth,
+                                              line_depth=line_depth)
         drain_keyframes(self.tracker, self.mapper, self.kfdb, self.metrics,
                         self.loop_closer)
         self._maybe_snapshot()
@@ -287,11 +305,81 @@ class System:
         self._maybe_dump_overlay(img)
         return pose
 
-    def track_stereo(self, *args, **kw):
-        raise NotImplementedError(f"track_stereo {_ITEM7}")
+    def track_stereo(self, img_left, img_right, timestamp: float,
+                     imu: Optional[Sequence] = None
+                     ) -> Optional[np.ndarray]:
+        """One rectified pair (the reference's System::TrackStereo): both
+        views' ORB features and segments (`stereo_features`), then
+        `track_stereo_features`.  Returns T_cw [3,4] or None while not
+        tracking."""
+        return self.track_stereo_features(
+            *self.stereo_features(img_left, img_right), timestamp, imu,
+            img_left)
 
-    def track_rgbd(self, *args, **kw):
-        raise NotImplementedError(f"track_rgbd {_ITEM7}")
+    def stereo_features(self, img_left, img_right):
+        """Both views' raw features: (left Features, right Features, left
+        LineFeatures, right LineFeatures), the segments None without
+        lines.  The ORB extraction of both is the stage "extract_orb"."""
+        dev = self.device
+        img_l = torch.as_tensor(img_left, dtype=torch.float32).to(dev)
+        img_r = torch.as_tensor(img_right, dtype=torch.float32).to(dev)
+        with self.metrics.stage("extract_orb"):
+            f_l = self.extract(img_l)
+            f_r = self.extract(img_r)
+        if self.extract_lines is None:
+            return f_l, f_r, None, None
+        return f_l, f_r, self.extract_lines(img_l), self.extract_lines(img_r)
+
+    def track_stereo_features(self, f_l, f_r, lf_l, lf_r, timestamp: float,
+                              imu: Optional[Sequence] = None, img=None
+                              ) -> Optional[np.ndarray]:
+        """`track_stereo` past its front end: the stereo match of the RAW
+        left keypoints against the right ones (`ops.stereo.match_stereo`,
+        a depth per left feature; the stage "stereo_match") and of the raw
+        segments (`match_stereo_lines`, both endpoint depths), each read
+        back once, the left view's undistortion, then the tracker with
+        the depths."""
+        tr = self.tracker
+        bf = self.cfg.camera.baseline * self.cfg.camera.fx
+        with self.metrics.stage("stereo_match"):
+            _, depth, has = ST.match_stereo(
+                f_l.uv.contiguous(), f_l.desc, f_l.octave, f_l.valid,
+                f_r.uv.contiguous(), f_r.desc, f_r.octave, f_r.valid, bf)
+            depth, has = tr._host_many(depth, has)
+            depth = np.where(has, depth, -1.0).astype(np.float32)
+        line_depth = None
+        if lf_l is not None:
+            ds, de, lhas = ST.match_stereo_lines(
+                lf_l.ep.contiguous(), lf_l.desc, lf_l.angle.contiguous(),
+                lf_l.valid, lf_r.ep.contiguous(), lf_r.desc,
+                lf_r.angle.contiguous(), lf_r.valid, bf)
+            line_depth = tuple(tr._host_many(ds, de, lhas))
+        feats, lf_l = undistort_features(self.camera, f_l, lf_l, self.plain)
+        return self.track_features(feats, lf_l, timestamp, imu, img,
+                                   depth=depth, line_depth=line_depth)
+
+    def track_rgbd(self, img, depth_img, timestamp: float,
+                   imu: Optional[Sequence] = None) -> Optional[np.ndarray]:
+        """One colour (grayscale) image and its registered depth image (the
+        reference's System::TrackRGBD): the frame's features, each
+        keypoint's depth (`depth_at_features`), then the tracker with the
+        depths."""
+        img_dev = torch.as_tensor(img, dtype=torch.float32).to(self.device)
+        feats, lf = frame_prelude(self.extract, self.extract_lines,
+                                  self.camera, img_dev, self.plain,
+                                  self.metrics)
+        return self.track_features(feats, lf, timestamp, imu, img,
+                                   depth=self.depth_at_features(feats,
+                                                                depth_img))
+
+    def depth_at_features(self, feats, depth_img) -> np.ndarray:
+        """Each keypoint's depth read from the depth image at its RAW pixel
+        (truncated to int, clipped to the image): [n_feat] float32."""
+        depth_img = np.asarray(depth_img)
+        uv = self.tracker._host(feats.uv)
+        ui = np.clip(uv[:, 0].astype(int), 0, depth_img.shape[1] - 1)
+        vi = np.clip(uv[:, 1].astype(int), 0, depth_img.shape[0] - 1)
+        return depth_img[vi, ui].astype(np.float32)
 
     def _maybe_dump_overlay(self, img) -> None:
         if os.environ.get("PLVIO_OVERLAY_DIR"):

@@ -4,6 +4,8 @@ lines: `TrackState`, `FrameRecord`, `Tracker.__init__` :60-192,
 `grab_imu` :199, `_preintegrate_batches` :208, `process_frame` :236-366,
 `_make_record` :369, the monocular bootstrap `_initialize_mono` :384,
 `_create_initial_map` :421, `_triangulate_init_lines` :491,
+`_initialize_with_depth` :534, `_create_depth_points` :579,
+`_create_depth_lines` :608,
 `_store_kf_features` :646, `_cw_to_wb` :665, `_wb_to_cw` :674,
 `invalidate_vi_prior` :684, `apply_map_transform` :693, `_predict_pose`
 :773, `_track_reference_kf` :782, `_match_and_record_lines` :821,
@@ -43,10 +45,20 @@ PnP attempt from the same generator, or from `pnp_sampler(valid)` ->
 times the reference's stages: "track/preintegrate", "track/kf_create",
 and the value "track/inliers".
 
-Not ported, each for a later item of the port: the stereo / RGB-D depth
-branches, the KB8 camera and the line-only pose optimizers of SLAM modes
-1-3; each raises NotImplementedError where the reference would take it.
-The PLVIO_TRACE prints are left out.
+Stereo and RGB-D (`depth` / `line_depth` given to `process_frame`): the
+one-keyframe bootstrap from depth, the depth-seeded points and lines of
+each new keyframe, and the right-eye residual u_R = u - bf / z in the
+point+line pose IRLS (`pose_irls` with its u_R column, sensors STEREO,
+RGB-D and IMU_STEREO before IMU init) and in the VI pose optimization
+(`vi_pose_lm`'s stereo term, IMU_STEREO).  The u_R column is computed on
+the device from the frame's depths, in the reference's float32
+operations (uv - bf / max(z, 0.1) where z > 0.1, else -1).
+
+Not ported, each for a later item of the port: the point-only stereo pose
+optimizer (STEREO or RGB-D with bf > 0 and no lines), the KB8 camera and
+the line-only pose optimizers of SLAM modes 1-3; each raises
+NotImplementedError where the reference would take it.  The PLVIO_TRACE
+prints are left out.
 """
 from __future__ import annotations
 
@@ -123,14 +135,23 @@ class Tracker(HostIO):
         self.use_lines = cfg.use_lines
         self.local_ln_cap = 256
         self.n_line_feat = 256
+        # stereo / RGB-D: bf = baseline * fx; the right-eye residual joins
+        # the point+line pose IRLS (sensors 1, 2, 4) and the VI pose
+        # optimization (sensor 4)
+        self.bf = cam.baseline * cam.fx
+        self.pl_stereo = cfg.sensor in (1, 2, 4) and self.bf > 0
+        if cfg.sensor in (1, 2) and self.bf > 0 and not self.use_lines:
+            raise NotImplementedError(
+                "the point-only stereo pose optimizer "
+                f"(make_pose_optimizer_stereo) {_ITEM7}")
         if self.use_lines:
             self._init_line_pair = KN.make_line_pair_matcher(plain=plain)
             self._init_line_tri = KN.make_line_triangulator(self.K,
                                                             plain=plain)
             self.line_proj_match = KN.make_line_projection_matcher(
                 self.K, plain=plain)
-            self.pose_opt_pl = KN.make_fast_pose_optimizer_pl(self.K,
-                                                              plain=plain)
+            self.pose_opt_pl = KN.make_fast_pose_optimizer_pl(
+                self.K, plain=plain, bf=self.bf if self.pl_stereo else 0.0)
         self.last_line_feats = None
         self.last_feat_ln: Optional[np.ndarray] = None
 
@@ -144,7 +165,8 @@ class Tracker(HostIO):
         self.gravity_w = np.array([0, 0, -cfg.imu.gravity], np.float32)
         self.vi_pose_opt = KN.make_vi_pose_optimizer(
             self.K, local_pts_cap, self.R_cb, self.t_cb, cfg.imu.gravity,
-            plain=plain)
+            plain=plain,
+            bf=self.bf if cfg.sensor == 4 and self.bf > 0 else 0.0)
         # the frame-to-frame marginalization prior carried between VI
         # solves; dropped whenever the frame state is rewritten
         self.prior_H15: Optional[np.ndarray] = None
@@ -245,6 +267,7 @@ class Tracker(HostIO):
         self._pred_wb = None
         self._frame_lines = line_feats
         self._frame_depth = depth
+        self._frame_depth_t = None
         self._frame_line_depth = line_depth
         if self.last_frame_time is not None \
                 and self.state in (TrackState.OK, TrackState.RECENTLY_LOST):
@@ -435,7 +458,137 @@ class Tracker(HostIO):
         return False
 
     def _initialize_with_depth(self, feats, timestamp: float) -> None:
-        raise NotImplementedError(f"the stereo / RGB-D bootstrap {_ITEM7}")
+        """The stereo / RGB-D bootstrap: one keyframe at the identity, its
+        map points straight from the features' depths (0.1 < z < 60), its
+        map lines from the segments' endpoint depths."""
+        depth = self._frame_depth
+        valid, uv, desc = self._host_many(feats.valid, feats.uv_und,
+                                          feats.desc)
+        good = valid & (depth > 0.1) & (depth < 60.0)
+        if good.sum() < 100:
+            return
+        m = self.map
+        kf = m.alloc_kf()
+        m.kf_timestamp[kf] = timestamp
+        m.kf_pose_cw[kf] = np.eye(3, 4, dtype=np.float32)
+        self._store_kf_features(kf, feats, self._frame_lines)
+        ids = np.nonzero(good)[0]
+        pts = m.alloc_points(len(ids))
+        ids = ids[:len(pts)]
+        z = depth[ids]
+        X = np.stack([(uv[ids, 0] - self.K.cx) / self.K.fx * z,
+                      (uv[ids, 1] - self.K.cy) / self.K.fy * z, z], -1)
+        m.pt_xyz[pts] = X.astype(np.float32)
+        m.pt_desc[pts] = desc.view(np.uint32)[ids]
+        m.pt_first_kf[pts] = kf
+        m.kf_match_pt[kf, ids] = pts
+        m.pt_n_obs[pts] = 1
+        m.pt_found[pts] = 1
+        m.pt_visible[pts] = 1
+        if self._frame_line_depth is not None:
+            self._create_depth_lines(kf)
+        self.ref_kf = kf
+        self.last_created_kf = kf
+        self.last_feats = feats
+        self.last_pose_cw = np.eye(3, 4, dtype=np.float32)
+        feat_pt = np.full(self.n_feat, INVALID, np.int32)
+        feat_pt[ids] = pts
+        self.last_feat_pt = feat_pt
+        self.velocity = None
+        self.state = TrackState.OK
+        self.last_kf_frame_idx = self.frame_idx
+        self.last_kf_time = timestamp
+        self.new_kf_queue.append(kf)
+        if self.use_imu:
+            m.kf_pose_wb[kf] = self._cw_to_wb(m.kf_pose_cw[kf])
+            self.imu_since_kf = []
+        self.frames.append(self._make_record(timestamp))
+
+    def _create_depth_points(self, kf: int) -> None:
+        """A new keyframe's close points from depth: up to 300 of its
+        features not bound to a map point, with 0.1 < z < 40."""
+        depth = self._frame_depth
+        if depth is None:
+            return
+        m = self.map
+        unbound = (m.kf_match_pt[kf] == INVALID) & m.kf_feat_valid[kf]
+        good = unbound[:len(depth)] & (depth > 0.1) & (depth < 40.0)
+        ids = np.nonzero(good)[0][:300]
+        if len(ids) == 0:
+            return
+        pts = m.alloc_points(len(ids))
+        ids = ids[:len(pts)]
+        uv = m.kf_feat_uv[kf]
+        z = depth[ids]
+        Xc = np.stack([(uv[ids, 0] - self.K.cx) / self.K.fx * z,
+                       (uv[ids, 1] - self.K.cy) / self.K.fy * z, z], -1)
+        R_cw = m.kf_pose_cw[kf, :, :3]
+        t_cw = m.kf_pose_cw[kf, :, 3]
+        Xw = (Xc - t_cw) @ R_cw
+        m.pt_xyz[pts] = Xw.astype(np.float32)
+        m.pt_desc[pts] = m.kf_feat_desc[kf][ids]
+        m.pt_first_kf[pts] = kf
+        m.kf_match_pt[kf, ids] = pts
+        m.pt_n_obs[pts] = 1
+        m.pt_found[pts] = 1
+        m.pt_visible[pts] = 1
+
+    def _create_depth_lines(self, kf: int) -> None:
+        """A keyframe's map lines from the rectified line match's endpoint
+        depths: up to 128 of its segments not bound to a map line, both
+        endpoints at 0.1 < z < 40, back-projected from the keyframe's
+        (undistorted) endpoints."""
+        lf = self._frame_lines
+        if lf is None or self._frame_line_depth is None:
+            return
+        m = self.map
+        ds, de, has = self._frame_line_depth
+        nl = min(m.n_line_feat, lf.ep.shape[0])
+        unbound = (m.kf_match_ln[kf, :nl] == INVALID) \
+            & m.kf_line_valid[kf, :nl]
+
+        def zok(z):
+            return (z[:nl] > 0.1) & (z[:nl] < 40.0)
+        good = unbound & has[:nl] & zok(ds) & zok(de)
+        ids = np.nonzero(good)[0][:128]
+        if len(ids) == 0:
+            return
+        lns = m.alloc_lines(len(ids))
+        ids = ids[:len(lns)]
+        ep = m.kf_line_ep[kf, :nl]      # the frame's undistorted segments
+
+        def backproj(uv, z):
+            return np.stack([(uv[:, 0] - self.K.cx) / self.K.fx * z,
+                             (uv[:, 1] - self.K.cy) / self.K.fy * z, z], -1)
+        Xs = backproj(ep[ids, :2], ds[ids])
+        Xe = backproj(ep[ids, 2:], de[ids])
+        R_cw = m.kf_pose_cw[kf, :, :3]
+        t_cw = m.kf_pose_cw[kf, :, 3]
+        m.ln_ep[lns] = np.concatenate(
+            [(Xs - t_cw) @ R_cw, (Xe - t_cw) @ R_cw], -1).astype(np.float32)
+        m.ln_desc[lns] = m.kf_line_desc[kf][ids]
+        m.ln_first_kf[lns] = kf
+        m.kf_match_ln[kf, ids] = lns
+        m.ln_n_obs[lns] = 1
+        m.ln_found[lns] = 1
+        m.ln_visible[lns] = 1
+
+    def _ur_column(self, uv_m: torch.Tensor, pt_feat: torch.Tensor
+                   ) -> torch.Tensor:
+        """The right-eye u_R of each local-map slot from its matched
+        feature's depth: uv - bf / max(z, 0.1) where z > 0.1, else -1
+        (float32, the reference's host operations on the device)."""
+        depth = self._frame_depth
+        n = len(depth)
+        if self._frame_depth_t is None:
+            self._frame_depth_t = self._dev(depth.astype(np.float32))
+        pf = pt_feat.long()
+        inb = (pf >= 0) & (pf < n)
+        neg = torch.full_like(uv_m[:, 0], -1.0)
+        z = torch.where(inb, self._frame_depth_t[pf.clamp(0, n - 1)], neg)
+        bf = torch.tensor(self.bf, dtype=torch.float32, device=uv_m.device)
+        return torch.where(z > 0.1, uv_m[:, 0] - bf / torch.clamp_min(z, 0.1),
+                           neg).contiguous()
 
     # ------------------------------------------------------------------
     def _make_record(self, timestamp: float) -> FrameRecord:
@@ -869,8 +1022,6 @@ class Tracker(HostIO):
 
     def _track_frame(self, feats) -> bool:
         m = self.map
-        if self._frame_depth is not None:
-            raise NotImplementedError(f"tracking with depth {_ITEM7}")
         vi_mode = self.use_imu and m.imu_initialized
         # the inertial frame state before the VI solve: a failed fit must
         # not poison the dead reckoning of RECENTLY_LOST
@@ -943,7 +1094,12 @@ class Tracker(HostIO):
             rw_info = np.concatenate([
                 np.full(3, 1.0 / (self.cfg.imu.gyro_walk ** 2 * n_samp)),
                 np.full(3, 1.0 / (self.cfg.imu.acc_walk ** 2 * n_samp))])
-            uvr = torch.cat([uv_m, torch.full_like(uv_m[:, :1], -1.0)], 1)
+            # stereo / RGB-D depth: u_R third column where available
+            if self.bf > 0 and self._frame_depth is not None:
+                ur = self._ur_column(uv_m, pt_feat)
+            else:
+                ur = torch.full_like(uv_m[:, 0], -1.0)
+            uvr = torch.cat([uv_m, ur[:, None]], 1)
             # the LastFrame flavour with the previous frame's prior when it
             # is live, the LastKeyFrame one (previous state fixed) otherwise
             have_prior = (self.prior_H15 is not None
@@ -992,11 +1148,18 @@ class Tracker(HostIO):
             if int(self.cfg.slam_mode) in (1, 2, 3):
                 raise NotImplementedError(
                     f"the line-only pose optimizers {_ITEM7}")
-            pose, inlier, inl_l, n_inl = self.pose_opt_pl(
-                pose_t, uv_m, xyz_t, matched, is2, l_eq, ln_ep6_t[:, :3],
-                ln_ep6_t[:, 3:], ln_matched,
-                torch.ones(self.local_ln_cap, dtype=torch.float32,
-                           device=self.device))
+            args = (pose_t, uv_m, xyz_t, matched, is2, l_eq,
+                    ln_ep6_t[:, :3], ln_ep6_t[:, 3:], ln_matched,
+                    torch.ones(self.local_ln_cap, dtype=torch.float32,
+                               device=self.device))
+            if self.pl_stereo:
+                # the u_R residual for features with a depth
+                if self._frame_depth is not None:
+                    ur = self._ur_column(uv_m, pt_feat)
+                else:
+                    ur = torch.full_like(uv_m[:, 0], -1.0)
+                args = args + (ur,)
+            pose, inlier, inl_l, n_inl = self.pose_opt_pl(*args)
             # line bookkeeping: observed segment -> map line
             inl_l_np, ln_feat_np = self._host_many(inl_l, ln_feat_idx)
             feat_ln = np.full(self.n_line_feat, INVALID, np.int32)
@@ -1134,8 +1297,6 @@ class Tracker(HostIO):
 
     def _create_keyframe(self, feats, timestamp: float) -> None:
         m = self.map
-        if self._frame_depth is not None or self._frame_line_depth is not None:
-            raise NotImplementedError(f"keyframes with depth {_ITEM7}")
         kf = m.alloc_kf()
         m.kf_timestamp[kf] = timestamp
         m.kf_pose_cw[kf] = self.last_pose_cw.astype(np.float32)
@@ -1156,6 +1317,11 @@ class Tracker(HostIO):
         m.update_covisibility(kf)
         if self.use_imu:
             self._store_kf_inertial(kf)
+        if self._frame_depth is not None:
+            self._create_depth_points(kf)
+            m.update_covisibility(kf)
+        if self._frame_line_depth is not None:
+            self._create_depth_lines(kf)
         self.ref_kf = kf
         self.last_created_kf = kf
         self.last_kf_frame_idx = self.frame_idx

@@ -19,12 +19,16 @@ from __future__ import annotations
 import ctypes
 from typing import Optional
 
+import numpy as np
 import torch
 
 from .. import cuda
 
 DESC_BITS = 256
 _SHIFTS = torch.arange(32, dtype=torch.int64)
+# float32 1.2 ** octave as the reference computes it (jnp.power of the
+# float32 octave): the octave scale of the projection and stereo gates
+OCTAVE_SCALE = np.float32(np.float64(np.float32(1.2)) ** np.arange(8))
 
 
 def pack_bits_u32(pm1_or_bits: torch.Tensor) -> torch.Tensor:

@@ -5,7 +5,8 @@ retractions (port of plvio_tpu/solver/residuals.py:
 `retract_pose_wb_single` :56, `retract_pose_wb` :61, `retract_additive`
 :68, `retract_gdir` :72, `retract_scale` :78, `make_point_reproj` :107,
 `make_line_reproj` :155, `make_line_reproj_body_ba` :226,
-`make_point_reproj_body` :248, `make_point_reproj_body_ba` :290,
+`make_point_reproj_body` :248, `make_stereo_reproj_body` :266,
+`make_point_reproj_body_ba` :290,
 `state_prior` :308, `make_inertial` :318, `make_inertial_gs` :348,
 `bias_rw` :466, `make_prior15` :474, `point_reproj_ba_for` :559,
 `point_reproj_body_ba_for` :567, and the loop closer's Sim(3) pieces
@@ -136,6 +137,25 @@ def make_point_reproj_body(K: PinholeK, Rcb: torch.Tensor, tcb: torch.Tensor):
         R_wb, p_wb = retract_pose_wb_single(P, d)
         Xb = R_wb.T @ (const["X"] - p_wb)
         return _project(K, Rcb @ Xb + tcb) - const["uv"]
+    return res
+
+
+def make_stereo_reproj_body(K: PinholeK, bf: float, Rcb: torch.Tensor,
+                            tcb: torch.Tensor):
+    """The pose-only stereo edge on the body frame: (u, v, u_R = u - bf/z)
+    against const {'uvr': [3], 'X': [3] world point}; blocks =
+    (pose_wb,)."""
+    def res(blocks, deltas, const):
+        (P,) = blocks
+        (d,) = deltas
+        R_wb, p_wb = retract_pose_wb_single(P, d)
+        Xb = R_wb.T @ (const["X"] - p_wb)
+        pc = Rcb @ Xb + tcb
+        z = torch.clamp_min(pc[2], 1e-4)
+        u = K.fx * pc[0] / z + K.cx
+        v = K.fy * pc[1] / z + K.cy
+        ur = u - torch.full_like(z, bf) / z
+        return torch.stack([u, v, ur]) - const["uvr"]
     return res
 
 
@@ -280,6 +300,32 @@ def point_reproj_body_jac(K: PinholeK, Rcb, tcb, P, X, uv):
         torch.stack([zero, K.fy * iz, -K.fy * pc[:, 1] * iz * iz * dz], -1),
     ], 1)                                             # [N,2,3]
     JR = Jpi @ Rcb                                    # d r / d Xb
+    J = torch.cat([-(JR @ R.T), JR @ lie.hat(Xb)], -1)
+    return r, J
+
+
+def stereo_reproj_body_jac(K: PinholeK, bf: float, Rcb, tcb, P, X, uvr):
+    """Batched `make_stereo_reproj_body` at delta = 0: P [3,4] pose_wb, X
+    [N,3], uvr [N,3] -> (r [N,3], J [N,3,6]) w.r.t. [dp, dtheta]; the u_R
+    row is d(u - bf/z)/dpc = [fx/z, 0, (-fx x + bf)/z^2] (no depth
+    derivative where z is clamped)."""
+    R, p = P[:, :3], P[:, 3]
+    Xb = (X - p) @ R
+    pc = Xb @ Rcb.T + tcb
+    z = torch.clamp_min(pc[:, 2], 1e-4)
+    u = K.fx * pc[:, 0] / z + K.cx
+    v = K.fy * pc[:, 1] / z + K.cy
+    r = torch.stack([u, v, u - torch.full_like(z, bf) / z], -1) - uvr
+    iz = 1.0 / z
+    dz = (pc[:, 2] > 1e-4).to(pc.dtype)
+    zero = torch.zeros_like(z)
+    Jpi = torch.stack([
+        torch.stack([K.fx * iz, zero, -K.fx * pc[:, 0] * iz * iz * dz], -1),
+        torch.stack([zero, K.fy * iz, -K.fy * pc[:, 1] * iz * iz * dz], -1),
+        torch.stack([K.fx * iz, zero,
+                     (-K.fx * pc[:, 0] + bf) * iz * iz * dz], -1),
+    ], 1)                                             # [N,3,3]
+    JR = Jpi @ Rcb
     J = torch.cat([-(JR @ R.T), JR @ lie.hat(Xb)], -1)
     return r, J
 

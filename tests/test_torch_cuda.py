@@ -1515,3 +1515,76 @@ def test_hamming_matrix_mode_matches_plain(dev):
         np.int32))
     assert torch.equal(M.hamming_dist(a.to(dev), b.to(dev)).cpu(),
                        M.hamming_dist_plain(a, b))
+
+
+# ---------------------------------------------------------------------------
+# slice 11: the rectified pair's matchers and the stereo solver rows
+# ---------------------------------------------------------------------------
+
+BF = 0.11 * K.fx
+
+
+def test_stereo_match_modes_identical(dev):
+    """`match_stereo` (mode 4) and `match_stereo_lines` (mode 5) bit-equal
+    to their plain versions on the card, on synthetic sets and on the
+    features of a rendered full-width pair."""
+    from plvio_tpu_torch.inputs import build_stereo_replay
+    from plvio_tpu_torch.kernel_digest import (stereo_line_case,
+                                               stereo_point_case)
+    from plvio_tpu_torch.ops import stereo as ST
+    from plvio_tpu_torch.ops.lines import LineExtractor
+    cases = [("points", stereo_point_case(dev)),
+             ("lines", stereo_line_case(dev))]
+    S = build_stereo_replay(n_frames=1)
+    orb = FE.OrbExtractor(FE.make_level_specs(480, 752, 1000, 8)).to(dev)
+    lines = LineExtractor(256, levels=2).to(dev)
+    views = [torch.from_numpy(S[k][0]).to(dev) for k in ("frames", "right")]
+    with torch.no_grad():
+        fl, fr = (orb(v) for v in views)
+        ll, lr = (lines(v) for v in views)
+    cases.append(("points", (fl.uv.contiguous(), fl.desc, fl.octave,
+                             fl.valid, fr.uv.contiguous(), fr.desc,
+                             fr.octave, fr.valid)))
+    cases.append(("lines", (ll.ep.contiguous(), ll.desc,
+                            ll.angle.contiguous(), ll.valid,
+                            lr.ep.contiguous(), lr.desc,
+                            lr.angle.contiguous(), lr.valid)))
+    for kind, case in cases:
+        if kind == "points":
+            k = ST.match_stereo(*case, BF)
+            p = ST.match_stereo_plain(*case, BF)
+        else:
+            k = ST.match_stereo_lines(*case, BF)
+            p = ST.match_stereo_lines_plain(*case, BF)
+        torch.cuda.synchronize()
+        for a, b in zip(k, p):
+            assert torch.equal(a, b), kind
+        assert int(k[2].sum()) >= 5, kind
+    assert ST.STEREO_MATCH_POINTS.launches >= 2
+    assert ST.STEREO_MATCH_LINES.launches >= 2
+
+
+def test_pose_irls_stereo_matches_float64(dev):
+    """`pose_irls` with the u_R column against float64 runs of its plain
+    version: within 2x the plain float32 runs' distance (over
+    `KN.FLOAT32_ORDERS` row orders) + 1e-6, the same bits on a second
+    launch, inliers within max(2, 1%)."""
+    from plvio_tpu_torch.kernel_digest import pose_case
+    *args, ur = pose_case(dev, 128, stereo=True)[1:]
+    n0 = KN.POSE_IRLS_STEREO.launches
+    out = KN.pose_irls_against_float64(K, args, ur, BF)
+    assert not out["failures"], out
+    assert KN.POSE_IRLS_STEREO.launches == n0 + 2
+
+
+@pytest.mark.parametrize("have_prior", [True, False])
+def test_vi_pose_lm_stereo_matches_float64(dev, have_prior):
+    """`vi_pose_lm` with the stereo term against float64 runs of its plain
+    version (`pose_irls_stereo`'s rule, on pose, velocity and biases), on
+    kernel_digest.py's VI case with a u_R column."""
+    from plvio_tpu_torch.kernel_digest import vi_case
+    _, *args, ur = vi_case(dev, stereo=True)
+    n0 = KN.VI_POSE_LM_STEREO.launches
+    out = KN.vi_pose_lm_against_float64(K, args, have_prior, ur, BF)
+    assert not out["failures"], out
+    assert KN.VI_POSE_LM_STEREO.launches == n0 + 2

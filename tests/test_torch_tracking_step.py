@@ -147,8 +147,10 @@ def test_port_never_loads_jax():
     features, through IMU init and the first inertial window; the tracked
     sequence's first 7 frames at 300 features: the bootstrap on frame 2
     or 3, then tracking; `System` through `mh_replay` on 3 frames of a
-    small hall; the loop closer on the drifted circle, its global BA at
-    32 keyframes)."""
+    small hall; `track_stereo` through `stereo_replay` on 3 pairs of it
+    and `stereo_room`, `track_rgbd` through `rgbd_room`, 3 frames each;
+    the loop closer on the drifted circle, its global BA at 32
+    keyframes)."""
     code = (
         "import sys\n"
         "import torch\n"
@@ -223,6 +225,20 @@ def test_port_never_loads_jax():
         "assert len(mo.frames) == 3 and mo.maps == 1\n"
         "assert mo.metrics['extract_orb']['calls'] == 3\n"
         "assert mo.system.kfdb.db().present.sum() == mo.keyframes\n"
+        "from plvio_tpu_torch.entry import rgbd_room, stereo_replay, "
+        "stereo_room\n"
+        "small = dict(orb=OrbConfig(n_features=300), map=MapConfig("
+        "max_keyframes=16, max_points=2048, max_lines=256), caps=dict("
+        "ba_kf_cap=8, ba_pt_cap=512, ba_obs_cap=1024))\n"
+        "sr, SS = stereo_replay(1.0, device='cpu', replay_kw=dict("
+        "n_points=500, n_lines=50, n_frames=3), **small)\n"
+        "so = sr(SS)\n"
+        "assert so.init_frame == 0 and so.n_tracked == 3 and so.maps == 1\n"
+        "assert so.metrics['stereo_match']['calls'] == 3\n"
+        "for fn in (stereo_room, rgbd_room):\n"
+        "    rr, RS = fn(3, device='cpu', **small)\n"
+        "    ro = rr(RS)\n"
+        "    assert ro.n_tracked == 3 and ro.ate_se3 < 0.05\n"
         "from plvio_tpu_torch.entry import loop_closure\n"
         "lq, LI = loop_closure('circle', device='cpu', gba_caps=(32, 2048, "
         "4096))\n"
