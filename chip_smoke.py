@@ -17,8 +17,8 @@ loop closer on hand-made maps and `System` with loop closing over the
 exit, no result line) unless every phase passes:
 
 1. the card is there (prints `nvidia-smi` name and power limit);
-2. the thirty-two CUDA kernels build from `plvio_tpu_torch/csrc` (23
-   sources: nvcc, sm_90a, one nvcc per source, all started together);
+2. the CUDA kernels build from `plvio_tpu_torch/csrc` (24 sources: nvcc,
+   sm_90a, one nvcc per source, all started together);
 3. each kernel agrees with its plain PyTorch version on the card at the
    paths' shapes (the mapping kernels also on a perturbed window at the
    same shape in which every gate of the epipolar match and of the
@@ -59,9 +59,10 @@ exit, no result line) unless every phase passes:
    (`inputs.perturb_window`) the largest camera-centre error within
    max(2x the reference's, 10 mm), the kernel path's KF poses within
    1e-4 of the plain path's on the CPU and their landmarks' reprojection
-   residuals within 0.1 px (the card's plain path sums by atomics and
-   moves ~1e-4 from run to run: printed, as the card test does), every
-   kernel of the path launched; CUDA-event times per mapping step on
+   residuals within 0.1 px, and within 1e-4 of the card's plain path,
+   whose three runs from each start give the same bits (its normal
+   equations summed by sorted segment sums), every kernel of the path
+   launched; CUDA-event times per mapping step on
    both paths, of `schur_solve` beside torch.mm of its Gram fill-in,
    and the sustained figure of bench.py's `bench_sustained` (3 point+line
    frames + 1 typical mapping step, ms per frame);
@@ -158,7 +159,28 @@ exit, no result line) unless every phase passes:
    SE3 ATE < 0.05 m and within 2x REF_STEREO's) and RGB-D over it
    (`entry.rgbd_room`, 12 frames: >= 11 tracked, SE3 ATE < 0.08 m), each
    run in a launch window of its own with every kernel of its path
-   launched.
+   launched;
+16. slice 12, STEREO and RGB-D without lines and the KB8 fisheye through
+   `System`: the pinhole calls of `undistort`, `proj_match` and the
+   point BA give the digests of the tree before the KB8 modes
+   (PINHOLE_DIGESTS); STEREO without lines
+   over tests/test_stereo.py's room (15 pairs, 0.11 m baseline: >= 14
+   tracked, SE3 ATE < 0.05 m and within 2x the JAX run's,
+   REF_STEREO_PTS), RGB-D with ORB-SLAM3's bf 40 over its room (12
+   frames: >= 11 tracked, SE3 ATE < 0.08 m and within 2x the JAX run's),
+   `pose_lm`'s stereo mode on the inputs the tracker gave it held to its
+   plain version's float64 run (as phase 15's solvers); the fisheye room
+   of tests/test_kb8_native.py (`entry.kb8_room`, 30 frames, loop closing
+   on) with cfg.seed 0 (Sim3 ATE < 0.06 m) and 1..4: the Sim3 ATE within
+   2x the JAX runs' worst, the counts within 10% of their ranges
+   (REF_KB8; the keyframes within one: the frames before the bootstrap
+   follow the RANSAC draws, and JAX's own seeds track 24-27); `pose_lm`'s KB8 mode (float64 rule),
+   `undistort`'s and `proj_match`'s KB8 modes (against their plain
+   versions on the run's last frame and call) and `ba_linearize`'s KB8
+   mode on the typical window (`inputs.build_kb8_window`: one
+   linearization within 1e-4 relative of the plain engine, the BA within
+   2x the CPU plain run's distance to float64); each room in a launch
+   window of its own with every kernel of its path launched.
 
 `library_ms` is one PyTorch call computing the same function where
 there is one (the pyramid's: 7 antialiased bilinear `F.interpolate`, its
@@ -264,6 +286,13 @@ KERNELS = {
                          "plvio_tpu/models/kernels.py:179"),
     "vi_pose_lm_stereo": (KN.VI_POSE_LM_STEREO,
                           "plvio_tpu/models/kernels.py:932"),
+    "pose_lm_stereo": (KN.POSE_LM_STEREO, "plvio_tpu/models/kernels.py:687"),
+    "pose_lm_kb8": (KN.POSE_LM_KB8, "plvio_tpu/models/kernels.py:1493"),
+    "undistort_kb8": (CAM.UNDISTORT_KB8, "plvio_tpu/ops/cameras.py:170"),
+    "proj_match_kb8": (KN.PROJ_MATCH_KB8,
+                       "plvio_tpu/models/kernels.py:1443"),
+    "ba_linearize_kb8": (KN.BA_LINEARIZE_KB8,
+                         "plvio_tpu/solver/residuals.py:534"),
 }
 # schur_solve's launches whose reduced system exceeds one block (its
 # global path, counted in KN.SCHUR_SOLVE.global_launches), and the TPU
@@ -450,6 +479,50 @@ PATH_ROOM_STEREO = ("orb_fast_grid", "orb_describe", "line_detect",
                     "hamming_match_stereo_lines", "pose_irls_stereo",
                     "proj_match")
 PATH_RGBD = ("orb_fast_grid", "orb_describe", "pose_irls", "proj_match")
+# slice 12: STEREO without lines over the room (15 pairs), RGB-D with bf 40
+# over it (12 frames), the KB8 fisheye room (30 frames, loop closing on)
+PATH_STEREO_PTS = ("pyramid", "orb_fast_grid", "orb_describe",
+                   "hamming_match_stereo", "proj_match", "pose_lm_stereo",
+                   "hamming_match", "triangulate", "ba_linearize",
+                   "schur_solve", "bow_transform")
+PATH_RGBD_PTS = ("pyramid", "orb_fast_grid", "orb_describe", "proj_match",
+                 "pose_lm_stereo", "ba_linearize", "schur_solve",
+                 "bow_transform")
+PATH_KB8 = ("pyramid", "orb_fast_grid", "orb_describe", "undistort_kb8",
+            "hamming_match", "rot_hist", "twoview_hypotheses",
+            "twoview_recover", "proj_match_kb8", "pose_lm_kb8", "triangulate",
+            "ba_linearize_kb8", "schur_solve", "bow_transform")
+# tests/test_torch_pose_lm.py's JAX System on the CPU over the room orbits
+# without lines (STEREO, 15 pairs; RGB-D with bf 40, 12 frames), loop
+# closing off
+REF_STEREO_PTS = {"stereo": {"n_frames": 15, "n_tracked": 15,
+                             "keyframes": 3, "points": 1205,
+                             "ate_sim3": 0.003244420961376264,
+                             "ate_se3": 0.005761990550406985,
+                             "final_state": 2},
+                  "rgbd": {"n_frames": 12, "n_tracked": 12, "keyframes": 3,
+                           "points": 1373,
+                           "ate_sim3": 0.0029691855829989907,
+                           "ate_se3": 0.003510777120423907,
+                           "final_state": 2}}
+# tests/test_torch_kb8.py's JAX System on the CPU over the fisheye room (30
+# frames, loop closing on) with cfg.seed 0..4: the ranges of the counts
+# and the worst ATE after `global_refine` (as SystemRun reports it) and
+# before it ("_run")
+REF_KB8 = {"n_tracked_range": [24, 27],
+           "keyframes_range": [5, 7],
+           "points_range": [375, 834],
+           "maps_range": [1, 1],
+           "ate_sim3_worst": 0.05138924211133539,
+           "ate_se3_worst": 0.08882849378260928,
+           "ate_sim3_run_worst": 0.05102360126862187,
+           "ate_se3_run_worst": 0.08960969547069364}
+# kernel_digest.pinhole_digests on the tree before the KB8 modes
+PINHOLE_DIGESTS = {
+    "undistort pinhole": "d14e8e9e156578e8287ef66837fc5a29",
+    "proj_match pinhole fuse": "f85a6bf39cc5fc2c491fc7dbaee688ea",
+    "proj_match pinhole tracker": "288ee89b36fe188d8465ea25ffdf8b58",
+    "local_ba pinhole points": "f0089d9e6cb04c42f015959d9673178f"}
 # tests/test_torch_bootstrap.py's JAX tracker on build_bootstrap_inputs(0)
 # (the port's CPU front end's features): the initializing frame, attempts,
 # model, init matches, triangulated matches, points and lines with the
@@ -2120,11 +2193,10 @@ def run_slice3(dev, pl_step, imgs, pose0, map_args, smi):
     for name, (step, plain, A, B) in runs.items():
         ref = REF_MAP[name]
         o_t, o_p, it_t, it_p = outs[name]
-        # the kernel path is held to the plain path on the CPU, which
-        # repeats: the card's plain path sums by atomics and its KF poses
-        # move ~1e-4 from run to run (tests/test_torch_cuda.py
-        # test_mapping_step_kernel_path_matches_plain_path); it is run
-        # and printed
+        # the kernel path is held to the plain path on the CPU and to the
+        # card's plain path, which sums its normal equations by sorted
+        # segment sums (solver/engine.py `accumulate`) and so repeats:
+        # three runs of it from each start, the same bits
         with torch.no_grad():
             sp_t, sp_p = [], []
             q_t, q_p = (cpu_runs[name]({k: v.cpu() for k, v in W.items()},
@@ -2134,7 +2206,17 @@ def run_slice3(dev, pl_step, imgs, pose0, map_args, smi):
                                    pt_xyz=q.pt_xyz.to(dev),
                                    ln_ep6=q.ln_ep6.to(dev))
                         for q in (q_t, q_p))
-            c_t, c_p = plain(A), plain(B)
+            c3 = [(plain(A), plain(B)) for _ in range(3)]
+        c_t, c_p = c3[0]
+        same = all(torch.equal(a, b) for c in c3[1:]
+                   for o, o0 in zip(c, c3[0]) for a, b in zip(o, o0)
+                   if torch.is_tensor(a))
+        check(same, f"{name}: three runs of the card's plain path from each "
+              "start give the same bits")
+        dcp = max(float((o_t.kf_poses - c_t.kf_poses).abs().max()),
+                  float((o_p.kf_poses - c_p.kf_poses).abs().max()))
+        check(dcp <= MAP_POSE_TOL, f"{name}: kernel and card plain paths' "
+              f"KF poses within {MAP_POSE_TOL:g} ({dcp:.2e})")
         counts = (int(o_t.n_good), int(o_t.n_inliers), int(o_t.n_inliers_l))
         e_t = centre_err(o_t.kf_poses, A["kf_poses"])
         e0 = centre_err(B["kf_poses"], A["kf_poses"])
@@ -3829,6 +3911,295 @@ def run_slice11(dev, smi, render, report):
     return launches, launches_room, launches_rgbd
 
 
+class Slice12Run(SystemRun):
+    """`SystemRun` whose System's tracker records the last arguments of
+    its point-only stereo LM, of its pose solve and of its projection
+    matcher (the KB8 ones on a fisheye camera), and the last frame's raw
+    keypoints: the kernels' inputs on the main path."""
+
+    def new_system(self):
+        slam = super().new_system()
+        tr = slam.tracker
+        self.rec = {}
+
+        def recorder(name, fn):
+            def rec(*a, **kw):
+                self.rec[name] = (a, kw)
+                return fn(*a, **kw)
+            return rec
+        for name in ("pose_opt_stereo", "pose_opt", "proj_match"):
+            fn = getattr(tr, name)
+            if fn is not None:
+                setattr(tr, name, recorder(name, fn))
+        extract = slam.extract
+
+        def extract_rec(img):
+            f = extract(img)
+            self.rec["feats"] = f
+            return f
+        slam.extract = extract_rec
+        return slam
+
+
+def pose_lm_report(name, args, kb8, smi):
+    """A pose LM mode on the inputs the tracker gave it: the float64 rule
+    of `KN.pose_lm_against_float64`, then its report (times, bound)."""
+    r = KN.pose_lm_against_float64(args, kb8)
+    valid = args[4] if kb8 else args[5]
+    print(f"  {name} on the run's last call ({int(valid.sum())} of "
+          f"{valid.shape[0]} rows valid): {r}")
+    check(not r["failures"], f"{name} as its float64 run (pose gap "
+          f"{r['kernel']:.2e}, the plain float32 runs' {r['plain']:.2e} over "
+          f"{len(r['plain_orders'])} row orders; {r['failures']})")
+    if kb8:
+        K8, *t = args
+        fk = lambda: KN.kb8_pose_lm(K8, *t)  # noqa: E731
+        fp = lambda: KN.kb8_pose_lm_plain(K8, *t)  # noqa: E731
+        rounds, iters, per_row, per_cost = 3, 6, 260, 70
+    else:
+        K, bf, *t = args
+        fk = lambda: KN.stereo_pose_lm(K, bf, *t)  # noqa: E731
+        fp = lambda: KN.stereo_pose_lm_plain(K, bf, *t)  # noqa: E731
+        rounds, iters, per_row, per_cost = 4, 10, 200, 45
+    Pk, Pp = fk(), fp()
+    n = int(valid.sum())
+    cap = valid.shape[0]
+    # per round: the cost at the start, per iteration the linearization
+    # and the candidate's cost of every valid row and a 6x6 factor, then
+    # the re-gate of every row
+    ops = rounds * (n * per_cost + iters * (n * (per_row + per_cost) + 400)
+                    + cap * per_cost)
+    return dict(**work(nbytes(*t) + nbytes(*Pk), ops),
+                max_abs_err=float((Pk[0] - Pp[0]).abs().max()),
+                ms=cuda_ms(fk), plain_ms=cuda_ms(fp, reps=3, warmup=1),
+                library_ms=None)
+
+
+def check_pinhole_digests():
+    """The pinhole calls of undistort, proj_match and the point BA give
+    the bits of the tree before the KB8 modes
+    (kernel_digest.pinhole_digests)."""
+    from plvio_tpu_torch import kernel_digest as KD
+    got = KD.pinhole_digests(torch.device("cuda"))
+    bad = [k for k, v in PINHOLE_DIGESTS.items() if got[k] != v]
+    check(not bad, "the pinhole calls of undistort, proj_match and the "
+          f"point BA give the pre-KB8 tree's digests (differ: {bad})")
+
+
+def check_kb8_ba(dev, report):
+    """ba_linearize's KB8 mode on the typical window
+    (`inputs.build_kb8_window`): one linearization against the plain
+    engine's normal equations (jacrev through the lens), the whole BA
+    against the float64 rule of the point-only window."""
+    from plvio_tpu_torch.inputs import build_kb8_window, kb8_camera
+    K8 = kb8_camera()
+    A = build_kb8_window(device=dev)
+    ba = list(A.values())
+    cpu = [a.cpu() for a in ba]
+    ref = KN.local_ba_plain(K8, *[a.double() if a.is_floating_point()
+                                  else a for a in cpu])[0]
+
+    def gap(out):
+        return float((out[0].cpu().double() - ref).abs().max())
+    with torch.no_grad():
+        gk = gap(KN.local_ba(K8, *ba))
+        gc = gap(KN.local_ba_plain(K8, *cpu))
+    print(f"  KB8 window BA (16 KF x {ba[2].shape[0]} points x "
+          f"{ba[4].shape[0]} observations): KF poses from the float64 run: "
+          f"kernel {gk:.2e}, plain on the CPU {gc:.2e}")
+    check(gk <= 2 * gc + 1e-6, "the KB8 window BA's kernel path within 2x "
+          "the CPU plain run's distance to the engine in float64")
+    w = KN._BAWork(K8, *ba, *KN.no_lines(dev), lam0=1e-4, early_tol=1e-2,
+                   cg_iters=w_cg(6 * ba[0].shape[0]))
+    w.linearize(KN.BA_MODE_INIT)
+    w.linearize(KN.BA_MODE_LINEARIZE)
+    t = w.t
+    n_kf, n_pt, n_obs = ba[0].shape[0], ba[2].shape[0], ba[4].shape[0]
+    prob = KN._ba_problem(K8, n_kf, n_pt, 0, ba[4].long(), ba[5].long(),
+                          ba[6], ba[7], ba[8])
+    st = {"pose": ba[0], "pt": ba[2]}
+    _, H, gv, lm_sys, _, _ = prob.build_normal_equations(st)
+    Hk = torch.block_diag(*unpack_sym(t["hcc"][:, :21], 6).unbind(0))
+    lerr = max(rel_err(Hk, H), rel_err(t["hcc"][:, 21:].reshape(-1), gv),
+               rel_err(unpack_sym(t["hpt"][:, :6], 3), lm_sys["pt"][0]),
+               rel_err(t["hpt"][:, 6:], lm_sys["pt"][1]))
+    check(lerr <= 1e-4, f"ba_linearize's KB8 mode: H blocks, g, Hpp and gp "
+          f"within {lerr:.2e} relative of the plain engine (<= 1e-4)")
+    # per observation: the projection through the lens and its Jacobian
+    # (~150 operations), the pose and point rows and the blocks (~400)
+    report["ba_linearize_kb8"] = dict(
+        **work(nbytes(*ba) + nbytes(t["hcc"], t["hpt"], t["p_w"]),
+               550 * n_obs),
+        max_abs_err=lerr,
+        ms=cuda_ms(lambda: w.linearize(KN.BA_MODE_LINEARIZE)),
+        plain_ms=cuda_ms(lambda: prob.build_normal_equations(st), reps=5),
+        library_ms=None)
+
+
+def check_kb8_front(run, slam, report):
+    """undistort's and proj_match's KB8 modes on the fisheye run's last
+    frame: its raw keypoints and the matcher's last call, against their
+    plain versions on the card."""
+    cam = slam.camera
+    kp = run.rec["feats"].uv.contiguous()
+    uk = CAM.undistort(cam, kp, None)[0]
+    up = CAM.undistort_frame_plain(cam, kp, None)[0]
+    du = float((uk - up).abs().max())
+    check(du <= 1e-4, f"undistort's KB8 mode on the last frame's "
+          f"{kp.shape[0]} keypoints within {du:.2e} px of the plain version "
+          "(<= 1e-4)")
+    n = kp.shape[0]
+    # per keypoint 10 Newton steps of ~25 operations, tan and the pixels
+    report["undistort_kb8"] = dict(
+        **work(nbytes(kp) + nbytes(uk), n * (10 * 25 + 40)),
+        max_abs_err=du, ms=cuda_ms(lambda: CAM.undistort(cam, kp, None)),
+        plain_ms=cuda_ms(lambda: CAM.undistort_frame_plain(cam, kp, None)),
+        library_ms=None)
+    a, kw = run.rec["proj_match"]
+    K8 = slam.tracker.kb8
+    args = [x.contiguous() if torch.is_tensor(x) else x for x in a]
+    kw = {k: (v.contiguous() if torch.is_tensor(v) else v)
+          for k, v in kw.items()}
+    pk = KN.proj_match(K8, *args, **kw)
+    pp = KN.proj_match_plain(K8, *args, **kw)
+    check(all(torch.equal(x, y) for x, y in zip(pk, pp)),
+          f"proj_match's KB8 mode on the tracker's last call: all four "
+          f"outputs identical ({int(pk[2].sum())} of {args[1].shape[0]} "
+          "matched)")
+    P, F_ = args[1].shape[0], args[4].shape[0]
+    scale = torch.from_numpy(KN.OCTAVE_SCALE).to(kp.device)[args[6].long()]
+    uvp, okp = KN.project_gates(K8, args[0], args[1], args[3])
+    adm = int((((uvp[:, None] - args[4][None]) ** 2).sum(-1)
+               <= (float(args[8]) * scale) ** 2)[okp].sum())
+    report["proj_match_kb8"] = dict(
+        **work(nbytes(*args[:8]) + nbytes(*pk), 90 * P + 8 * P * F_
+               + 17 * adm),
+        max_abs_err=float((pk[0] - pp[0]).abs().max()),
+        ms=cuda_ms(lambda: KN.proj_match(K8, *args, **kw)),
+        plain_ms=cuda_ms(lambda: KN.proj_match_plain(K8, *args, **kw)),
+        library_ms=None)
+
+
+def room_summary(what, out, n, ref, launches, smi):
+    print(f"  {what}: tracked {out.n_tracked} / {n}, keyframes "
+          f"{out.keyframes}, points {out.points}, maps {out.maps}, ATE "
+          f"{out.ate_sim3:.4f} / {out.ate_se3:.4f} m (the reference: {ref});"
+          f" launches {launches}")
+    stereo_frames_summary(out, smi)
+
+
+def run_slice12(dev, smi, report):
+    """Phase 16 (see the module docstring).  Returns the launches of the
+    STEREO room, the RGB-D room and the fisheye room, each counted in a
+    window of its own."""
+    from plvio_tpu_torch.config import Sensor
+    from plvio_tpu_torch.entry import kb8_config
+    from plvio_tpu_torch.inputs import build_kb8_room, build_stereo_room
+    print("[16] slice 12: STEREO and RGB-D without lines, the KB8 fisheye")
+    check_pinhole_digests()
+    # -- STEREO without lines
+    R = build_stereo_room(0, 15)
+    run = Slice12Run(device=dev, cfg=stereo_config(
+        Sensor.STEREO, use_lines=False, use_loop_closing=False))
+    reset_counts()
+    with torch.no_grad():
+        ro = run(R)
+    torch.cuda.synchronize()
+    l_st = read_counts()
+    rs = REF_STEREO_PTS["stereo"]
+    room_summary("STEREO room without lines", ro, len(R["frames"]), rs, l_st,
+                 smi)
+    check(ro.n_tracked >= 14 and ro.ate_se3 < 0.05
+          and ro.ate_se3 <= 2 * rs["ate_se3"],
+          f"STEREO without lines over the room: {ro.n_tracked} >= 14 pairs "
+          f"tracked, SE3 ATE {ro.ate_se3:.4f} m < 0.05 and <= 2x the "
+          f"reference's {rs['ate_se3']:.4f}")
+    check(all(l_st[k] > 0 for k in PATH_STEREO_PTS),
+          f"every kernel of the STEREO room without lines launched "
+          f"({', '.join(PATH_STEREO_PTS)})")
+    tr = ro.system.tracker
+    a, _ = run.rec["pose_opt_stereo"]
+    args = (tr.K, tr.bf, *[x.contiguous() for x in a])
+    report["pose_lm_stereo"] = pose_lm_report("pose_lm_stereo", args, False,
+                                              smi)
+    # -- RGB-D with bf 40
+    step, R = rgbd_room(12, device=dev, bf=40.0)
+    reset_counts()
+    with torch.no_grad():
+        rd = step(R)
+    torch.cuda.synchronize()
+    l_rgbd = read_counts()
+    rr = REF_STEREO_PTS["rgbd"]
+    room_summary("RGB-D room, bf 40", rd, len(R["frames"]), rr, l_rgbd, smi)
+    check(rd.n_tracked >= 11 and rd.ate_se3 < 0.08
+          and rd.ate_se3 <= 2 * rr["ate_se3"],
+          f"RGB-D with bf 40 over the room: {rd.n_tracked} >= 11 frames "
+          f"tracked, SE3 ATE {rd.ate_se3:.4f} m < 0.08 and <= 2x the "
+          f"reference's {rr['ate_se3']:.4f}")
+    check(rd.system.tracker.pose_opt_stereo is not None
+          and all(l_rgbd[k] > 0 for k in PATH_RGBD_PTS),
+          f"every kernel of the RGB-D room with bf 40 launched "
+          f"({', '.join(PATH_RGBD_PTS)})")
+    # -- the KB8 fisheye
+    R = build_kb8_room(0, 30)
+    run = Slice12Run(device=dev, cfg=kb8_config(seed=0))
+    reset_counts()
+    with torch.no_grad():
+        rk = run(R)
+    torch.cuda.synchronize()
+    l_kb8 = read_counts()
+    ref = REF_KB8
+    room_summary("KB8 fisheye room, cfg.seed 0", rk, len(R["frames"]),
+                 {k: v for k, v in ref.items() if k != "per_seed"}, l_kb8,
+                 smi)
+    check(rk.ate_sim3 < 0.06, f"the fisheye room (cfg.seed 0): Sim3 ATE "
+          f"{rk.ate_sim3:.4f} m < 0.06 (tests/test_kb8_native.py's bound)")
+    check(all(l_kb8[k] > 0 for k in PATH_KB8),
+          f"every kernel of the fisheye room launched ({', '.join(PATH_KB8)})")
+    slam = rk.system
+    check_kb8_front(run, slam, report)
+    a, _ = run.rec["pose_opt"]
+    report["pose_lm_kb8"] = pose_lm_report(
+        "pose_lm_kb8", (slam.tracker.kb8, *[x.contiguous() for x in a]),
+        True, smi)
+    check_kb8_ba(dev, report)
+    runs = [rk]
+    for seed in SPREAD_SEEDS:
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            o = SystemRun(device=dev, cfg=kb8_config(seed=seed))(R)
+        torch.cuda.synchronize()
+        print(f"  cfg.seed {seed}: tracked {o.n_tracked}, keyframes "
+              f"{o.keyframes}, points {o.points}, maps {o.maps}, ATE "
+              f"{o.ate_sim3:.4f} / {o.ate_se3:.4f} m "
+              f"({time.perf_counter() - t0:.1f} s)")
+        runs.append(o)
+    worst = ref["ate_sim3_worst"]
+    ates = [o.ate_sim3 for o in runs]
+    check(max(ates) <= 2 * worst, f"the fisheye room's Sim3 ATE over "
+          f"cfg.seed 0..4 {[round(x, 4) for x in ates]} m <= 2x the "
+          f"reference's worst ({worst:.4f} m)")
+    # The runs differ from the reference's by their RANSAC draws alone:
+    # given the JAX package's draws, the port's CPU run of this room gives
+    # the JAX run's frames tracked (26 of 30: tests/test_kb8_native.py's
+    # >= 25), keyframes and points exactly (tests/test_torch_kb8.py,
+    # slow).  With the port's own draws the frames before the two-view
+    # bootstrap follow the draws, as the JAX package's own cfg.seed 0..4
+    # track 26, 24, 24, 27, 27: the counts are held to that range.  A
+    # handful of keyframes moves by one with the bootstrap's frame, so
+    # that count has a floor of one.
+    for k in ("n_tracked", "keyframes", "points"):
+        vals = [getattr(o, k) for o in runs]
+        lo, hi = ref[k + "_range"]
+        slack = 1 if k == "keyframes" else 0
+        check(all(min(0.9 * lo, lo - slack) <= v <= max(1.1 * hi, hi + slack)
+                  for v in vals),
+              f"the fisheye room's {k} over cfg.seed 0..4 {vals} within 10% "
+              f"of the reference's {lo}..{hi}"
+              + (" or one keyframe" if slack else ""))
+    return l_st, l_rgbd, l_kb8
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4102,6 +4473,7 @@ def run_phases(dev, smi, render):
     launches_loop, report_loop = run_slice10(dev, smi, seq_map, render)
     report.update(report_loop)
     launches_stereo = run_slice11(dev, smi, render, report)
+    launches_s12 = run_slice12(dev, smi, report)
 
     rows = []
     for name, (k, replaces) in [*KERNELS.items(),
@@ -4123,7 +4495,8 @@ def run_phases(dev, smi, render):
                          + launches_seq[name] + launches_track[name]
                          + launches_sys[name] + launches_reloc[name]
                          + sum(v[name] for v in launches_loop.values())
-                         + sum(v[name] for v in launches_stereo),
+                         + sum(v[name] for v in launches_stereo)
+                         + sum(v[name] for v in launches_s12),
                          max_abs_err=rep["max_abs_err"], ms=rep["ms"],
                          plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"],
                          bound_by=rep["bound_by"],

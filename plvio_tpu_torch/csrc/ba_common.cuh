@@ -54,18 +54,20 @@ enum Ptr {
 };
 // kCgwFloats: the floats of the cgw workspace; kSolvePath: set by
 // schur_solve to the path its reduced solve took (0 one block, 1 global)
+// kKb8: the point edge projects through the KB8 fisheye (k1..k4 in kK1..)
+// onto raw pixels (the point-only window BA of a KB8 camera)
 enum Int { kNKf, kNPt, kNObs, kNLn, kNLobs, kCgIters, kGramSplit, kBody,
-           kCgwFloats, kSolvePath, kNumInts };
+           kCgwFloats, kSolvePath, kKb8, kNumInts };
 enum Flt { kFx, kFy, kCx, kCy, kDelta, kChi2Th, kLam0, kEarlyTol, kGravity,
-           kRcb, kTcb = kRcb + 9, kNumFlts = kTcb + 3 };
+           kRcb, kTcb = kRcb + 9, kK1 = kTcb + 3, kNumFlts = kK1 + 4 };
 constexpr int kLinkFloats = 465 + 30;
 enum Ctrl { cLam, cCost, cNewCost, cDone, cIters, cAccept, cAccepted };
 
 struct BA {
   void* p[kNumPtrs];
-  int n_kf, n_pt, n_obs, n_ln, n_lobs, cg_iters, gram_split, body;
+  int n_kf, n_pt, n_obs, n_ln, n_lobs, cg_iters, gram_split, body, kb8;
   float fx, fy, cx, cy, delta, chi2_th, lam0, early_tol, gravity;
-  float Rcb[9], tcb[3];
+  float Rcb[9], tcb[3], k[4];
 
   template <typename T>
   __device__ __forceinline__ T* at(Ptr i) const {
@@ -92,6 +94,7 @@ inline BA make_ba(void* const* ptrs, const int* ints, const float* flts) {
   b.cg_iters = ints[kCgIters];
   b.gram_split = ints[kGramSplit];
   b.body = ints[kBody];
+  b.kb8 = ints[kKb8];
   b.fx = flts[kFx];
   b.fy = flts[kFy];
   b.cx = flts[kCx];
@@ -103,6 +106,7 @@ inline BA make_ba(void* const* ptrs, const int* ints, const float* flts) {
   b.gravity = flts[kGravity];
   for (int i = 0; i < 9; ++i) b.Rcb[i] = flts[kRcb + i];
   for (int i = 0; i < 3; ++i) b.tcb[i] = flts[kTcb + i];
+  for (int i = 0; i < 4; ++i) b.k[i] = flts[kK1 + i];
   return b;
 }
 

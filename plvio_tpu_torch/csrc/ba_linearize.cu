@@ -41,6 +41,15 @@
 // body mode the cost adds the chain's share (`ccost`, written just before by
 // csrc/inertial_chain.cu at the same state) and an accepted step also
 // copies the keyframes' (vel, bg, ba).
+//
+// The KB8 mode (kb8 = 1, the point-only window BA of a KB8 fisheye and
+// the loop closer's global BA on its map) replaces the point edge by
+// `make_point_reproj_kb8` (solver/residuals.py:534) on raw pixels: the
+// projection through the theta polynomial and its analytic Jacobian
+// d(u, v) / d pc (solver/residuals.py `kb8_proj_jac`: no r derivative
+// where r = sqrt(max(x^2 + y^2, 1e-18)) is floored, no depth derivative
+// where the depth is clamped at 1e-6), then the same pose and point rows.
+// The pinhole arithmetic is unchanged.
 #include "ba_common.cuh"
 
 namespace {
@@ -58,11 +67,47 @@ struct Proj {
   float J[2][3];     // d(u, v) / d pc
 };
 
+// KB8 fisheye: raw pixel of q.pc and (jac) its Jacobian
+__device__ __forceinline__ void project_kb8(const BA& b, bool jac, Proj& q) {
+  const float x = q.pc[0], y = q.pc[1];
+  const float r2 = x * x + y * y;
+  const float r = sqrtf(fmaxf(r2, 1e-18f));
+  const bool zon = q.pc[2] > 1e-6f;
+  const float zc = fmaxf(q.pc[2], 1e-6f);
+  const float th = atan2f(r, zc);
+  const float t2 = th * th;
+  const float q2 = t2 * t2, q3 = t2 * q2, q4 = q2 * q2;
+  const float td = th * ((((1.0f + b.k[0] * t2) + b.k[1] * q2) + b.k[2] * q3)
+                         + b.k[3] * q4);
+  const float s = td / r;
+  q.u = b.fx * x * s + b.cx;
+  q.v = b.fy * y * s + b.cy;
+  if (jac) {
+    const float dtd = (((1.0f + 3.0f * b.k[0] * t2) + 5.0f * b.k[1] * q2)
+                       + 7.0f * b.k[2] * q3) + 9.0f * b.k[3] * q4;
+    const float den = r * r + zc * zc;
+    const float ds_dr = (dtd * zc / den * r - td) / (r * r);
+    const float ds_dz = zon ? dtd * (-r / den) / r : 0.f;
+    const bool on = r2 > 1e-18f;
+    const float drx = on ? x / r : 0.f, dry = on ? y / r : 0.f;
+    q.J[0][0] = b.fx * (s + x * ds_dr * drx);
+    q.J[0][1] = b.fx * x * ds_dr * dry;
+    q.J[0][2] = b.fx * x * ds_dz;
+    q.J[1][0] = b.fy * y * ds_dr * drx;
+    q.J[1][1] = b.fy * (s + y * ds_dr * dry);
+    q.J[1][2] = b.fy * y * ds_dz;
+  }
+}
+
 __device__ __forceinline__ void project(const BA& b, const float* P,
                                         const float* X, bool jac, Proj& q) {
   for (int r = 0; r < 3; ++r)
     q.pc[r] = ((P[r * 4] * X[0] + P[r * 4 + 1] * X[1]) + P[r * 4 + 2] * X[2])
         + P[r * 4 + 3];
+  if (b.kb8) {
+    project_kb8(b, jac, q);
+    return;
+  }
   const float z = fmaxf(q.pc[2], 1e-4f);
   q.u = b.fx * q.pc[0] / z + b.cx;
   q.v = b.fy * q.pc[1] / z + b.cy;

@@ -35,6 +35,15 @@
 // matched, 0 otherwise) points at it, found by an integer atomicMax in
 // shared memory, so the result does not depend on the order the threads
 // run in.
+//
+// The KB8 mode (kb8 = 1) replaces `make_projection_matcher_kb8` (:1443),
+// the fisheye tracker's and fuse's matcher: the projection goes through
+// the equidistant model onto raw pixels, r = sqrt(max(x^2 + y^2, 1e-18)),
+// theta = atan2(r, max(z, 1e-6)), theta_d = theta (1 + k1 t2 + k2 t2^2 +
+// k3 t2^3 + k4 t2^4) with jnp's powers (t2^3 = t2 (t2 t2), t2^4 = (t2 t2)
+// (t2 t2)), u = fx x theta_d / r + cx; the same image gate [0, 2 cx) x
+// [0, 2 cy); the range gate only (the reference's fisheye matcher has no
+// viewing-angle gate).  The pinhole mode's arithmetic is unchanged.
 #include "common.cuh"
 
 namespace {
@@ -58,6 +67,8 @@ struct Params {
   int P, F, frustum;          // frustum: 0 none, 1 range, 2 range + angle
   float fx, fy, cx, cy, w_lim, h_lim, radius, max_dist, ratio;
   float scale[8];             // 1.2^octave
+  int kb8;                    // 1: the KB8 projection with k1..k4
+  float k1, k2, k3, k4;
   float2* uv_m;               // [P]
   int* pt_feat;               // [P]
   uint8_t* matched;           // [P]
@@ -96,9 +107,22 @@ __global__ void match_points(Params p) {
     pc[i] = ((R[4 * i] * x + R[4 * i + 1] * y) + R[4 * i + 2] * zw)
         + R[4 * i + 3];
   const float z = pc[2];
-  const float zc = fmaxf(z, 1e-6f);
-  const float u = p.fx * pc[0] / zc + p.cx;
-  const float v = p.fy * pc[1] / zc + p.cy;
+  float u, v;
+  if (p.kb8) {
+    const float r = sqrtf(fmaxf(pc[0] * pc[0] + pc[1] * pc[1], 1e-18f));
+    const float th = atan2f(r, fmaxf(z, 1e-6f));
+    const float t2 = th * th;
+    const float q2 = t2 * t2;
+    const float td = th * ((((1.0f + p.k1 * t2) + p.k2 * q2)
+                            + p.k3 * (t2 * q2)) + p.k4 * (q2 * q2));
+    const float s = td / r;
+    u = p.fx * pc[0] * s + p.cx;
+    v = p.fy * pc[1] * s + p.cy;
+  } else {
+    const float zc = fmaxf(z, 1e-6f);
+    u = p.fx * pc[0] / zc + p.cx;
+    v = p.fy * pc[1] / zc + p.cy;
+  }
   bool ok = p.pt_valid[row] && z > 0.05f && u >= 0.f && u < p.w_lim
       && v >= 0.f && v < p.h_lim;
   if (p.frustum) {
@@ -186,7 +210,8 @@ PLVIO_API int proj_match(const void* pose, const void* pt_xyz,
                          float fx, float fy, float cx, float cy, float w_lim,
                          float h_lim, float radius, float max_dist,
                          float ratio, float s0, float s1, float s2, float s3,
-                         float s4, float s5, float s6, float s7, void* uv_m,
+                         float s4, float s5, float s6, float s7, int kb8,
+                         float k1, float k2, float k3, float k4, void* uv_m,
                          void* pt_feat, void* matched, void* feat_pt,
                          void* col_best, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -201,7 +226,8 @@ PLVIO_API int proj_match(const void* pose, const void* pt_xyz,
            static_cast<const int*>(feat_octave),
            static_cast<const uint8_t*>(feat_valid), P, F, frustum, fx, fy, cx,
            cy, w_lim, h_lim, radius, max_dist, ratio,
-           {s0, s1, s2, s3, s4, s5, s6, s7}, static_cast<float2*>(uv_m),
+           {s0, s1, s2, s3, s4, s5, s6, s7}, kb8, k1, k2, k3, k4,
+           static_cast<float2*>(uv_m),
            static_cast<int*>(pt_feat), static_cast<uint8_t*>(matched),
            static_cast<int*>(feat_pt), static_cast<uint32_t*>(col_best)};
   if (P <= 0 || F <= 0) return static_cast<int>(cudaGetLastError());

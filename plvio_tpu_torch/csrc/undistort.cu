@@ -15,6 +15,13 @@
 // point per Newton step (~1 Mflop in all), microseconds at the card's
 // rates.
 //
+// The KB8 mode (kb8 = 1, keypoints only) replaces `kb8_unproject` (:170)
+// through `kb8_undistort_pixels` (:192), which the fisheye System runs on
+// every frame's keypoints: 10 Newton steps of theta_d(theta) = |m| from
+// theta = |m|, each divided by max(df, 1e-6), then m tan(theta) / |m|
+// back to pixels; the polynomial's powers and sums in the reference's
+// order (t2^3 = t2 (t2 t2), t2^4 = (t2 t2)(t2 t2)).
+//
 // Design: one thread per keypoint and one per segment (both endpoints,
 // then the normalized cross product of the two), the 8 Newton steps in
 // registers.  Each step keeps the reference's float32 operation order
@@ -28,7 +35,8 @@ struct Params {
   const float* kp;   // [n,2] raw pixels
   const float* ep;   // [l,4] raw segment endpoints (x0, y0, x1, y1)
   int n, l;
-  float fx, fy, cx, cy, k1, k2, p1, p2;
+  float fx, fy, cx, cy, k1, k2, p1, p2;   // kb8: k1..k4 in these four
+  int kb8;
   float* kp_out;     // [n,2] undistorted pixels
   float* ep_out;     // [l,4]
   float* lineq;      // [l,3] (a, b, c) of the undistorted segment, |(a,b)| = 1
@@ -65,8 +73,38 @@ __device__ void undistort_one(const Params& p, float u, float v, float* uo,
   *vo = p.fy * y + p.cy;
 }
 
+// KB8: raw pixel -> undistorted pixel through the unit-depth ray
+__device__ void undistort_kb8(const Params& p, float u, float v, float* uo,
+                              float* vo) {
+  const float mx = (u - p.cx) / p.fx;
+  const float my = (v - p.cy) / p.fy;
+  const float theta_d = sqrtf(fmaxf(mx * mx + my * my, 1e-18f));
+  const float c1 = 3.0f * p.k1, c2 = 5.0f * p.k2, c3 = 7.0f * p.p1,
+              c4 = 9.0f * p.p2;
+  float theta = theta_d;
+  for (int it = 0; it < 10; ++it) {
+    const float t2 = theta * theta;
+    const float q2 = t2 * t2;
+    const float q3 = t2 * q2;
+    const float q4 = q2 * q2;
+    const float f = theta * ((((1.0f + p.k1 * t2) + p.k2 * q2) + p.p1 * q3)
+                             + p.p2 * q4) - theta_d;
+    const float df = (((1.0f + c1 * t2) + c2 * q2) + c3 * q3) + c4 * q4;
+    theta = theta - f / fmaxf(df, 1e-6f);
+  }
+  const float scale = tanf(theta) / theta_d;
+  *uo = p.fx * (mx * scale) + p.cx;
+  *vo = p.fy * (my * scale) + p.cy;
+}
+
 __global__ void undistort_kernel(Params p) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p.kb8) {
+    if (i < p.n)
+      undistort_kb8(p, p.kp[2 * i], p.kp[2 * i + 1], &p.kp_out[2 * i],
+                    &p.kp_out[2 * i + 1]);
+    return;
+  }
   if (i < p.n) {
     undistort_one(p, p.kp[2 * i], p.kp[2 * i + 1], &p.kp_out[2 * i],
                   &p.kp_out[2 * i + 1]);
@@ -90,12 +128,12 @@ __global__ void undistort_kernel(Params p) {
 
 PLVIO_API int undistort(const void* kp, int n, const void* ep, int l,
                         float fx, float fy, float cx, float cy, float k1,
-                        float k2, float p1, float p2, void* kp_out,
+                        float k2, float p1, float p2, int kb8, void* kp_out,
                         void* ep_out, void* lineq, void* stream) {
   Params p{static_cast<const float*>(kp), static_cast<const float*>(ep), n, l,
-           fx, fy, cx, cy, k1, k2, p1, p2, static_cast<float*>(kp_out),
+           fx, fy, cx, cy, k1, k2, p1, p2, kb8, static_cast<float*>(kp_out),
            static_cast<float*>(ep_out), static_cast<float*>(lineq)};
-  const int total = n + l;
+  const int total = kb8 ? n : n + l;
   if (total > 0)
     undistort_kernel<<<(total + 127) / 128, 128, 0,
                        static_cast<cudaStream_t>(stream)>>>(p);

@@ -69,11 +69,16 @@ stereo_replay(...)    -> (run, replay): the whole system over the 8 s
                          (baseline 0.11 m), loop closing on, then
                          `global_refine` (`inputs.build_stereo_replay`)
 stereo_room(...)      -> (run, orbit): `System.track_stereo` over the room
-                         orbit of tests/test_stereo.py (STEREO with lines;
-                         imu=True: IMU_STEREO over
-                         tests/test_stereo_inertial.py's orbit)
+                         orbit of tests/test_stereo.py (STEREO with lines,
+                         or without: the point-only stereo LM; imu=True:
+                         IMU_STEREO over tests/test_stereo_inertial.py's
+                         orbit)
 rgbd_room(...)        -> (run, orbit): `System.track_rgbd` (:230) over the
-                         RGB-D room orbit of tests/test_stereo.py
+                         RGB-D room orbit of tests/test_stereo.py (bf > 0:
+                         the depths as u_R rows of the stereo LM)
+kb8_room(...)         -> (run, frames): `System.track_monocular` with the
+                         KB8 fisheye over the room of
+                         tests/test_kb8_native.py (`kb8_config`)
 entry(device)         -> tracking_step_pl at EuRoC geometry on `device`
 
 Every entry point runs on the card unless the caller passes
@@ -1278,8 +1283,10 @@ def stereo_room(n_frames: int = 15, seed: int = 0, imu: bool = False,
     """`System.track_stereo` with lines over the room orbit of
     tests/test_stereo.py (STEREO; imu=True: IMU_STEREO over
     tests/test_stereo_inertial.py's orbit), loop closing off as there
-    (`SystemRun`; kw: `stereo_config` fields and `caps`, `viba_caps`),
-    and the orbit of `inputs.build_stereo_room`."""
+    (`SystemRun`; kw: `stereo_config` fields and `caps`, `viba_caps`;
+    `use_lines=False` gives the point-only STEREO of
+    tests/test_stereo.py:14-38, whose tracker solves the pose with the
+    stereo LM), and the orbit of `inputs.build_stereo_room`."""
     from .config import Sensor
     from .inputs import build_stereo_room
     dev = resolve_device(device)
@@ -1291,20 +1298,54 @@ def stereo_room(n_frames: int = 15, seed: int = 0, imu: bool = False,
 
 
 def rgbd_room(n_frames: int = 12, seed: int = 0, device="cuda",
-              plain: bool = False, **kw):
+              plain: bool = False, bf: float = 0.0, **kw):
     """`System.track_rgbd` over the RGB-D room orbit of tests/test_stereo.py
     (no lines, loop closing off, as there; `SystemRun`; kw:
     `stereo_config` fields and `caps`, `viba_caps`) and the orbit of
-    `inputs.build_rgbd_room`."""
-    from .config import Sensor
+    `inputs.build_rgbd_room`.  bf > 0 (ORB-SLAM3's `Camera.bf`, 40.0 in
+    its TUM RGB-D settings) gives the camera the baseline bf / fx: the
+    depths then enter the pose solve as u_R rows (the stereo LM); bf = 0
+    keeps the residuals mono."""
+    from .config import CameraConfig, Sensor
     from .inputs import build_rgbd_room
     dev = resolve_device(device)
-    S = build_rgbd_room(seed, n_frames)
+    S = build_rgbd_room(seed, n_frames, bf=bf)
     caps = {k: kw.pop(k) for k in ("caps", "viba_caps") if k in kw}
     kw.setdefault("use_loop_closing", False)
     kw.setdefault("use_lines", False)
+    if bf > 0:
+        kw.setdefault("camera", CameraConfig(
+            dist=(0.0, 0.0, 0.0, 0.0), baseline=bf / CameraConfig().fx))
     cfg = stereo_config(Sensor.RGBD, **kw)
     return SystemRun(plain=plain, device=dev, cfg=cfg, **caps), S
+
+
+def kb8_config(**kw):
+    """tests/test_kb8_native.py:131-133's configuration: the fisheye
+    room's KB8 camera (fx = fy = 380, cx = 376, cy = 240, k =
+    `inputs.KB8_K`, 752x480), monocular, no lines, the system's defaults
+    otherwise (loop closing on); kw replaces fields."""
+    from .config import CameraConfig, SystemConfig
+    from .inputs import KB8_INTRINSICS, KB8_K
+    base = dict(camera=CameraConfig(model="kb8", dist=KB8_K,
+                                    **KB8_INTRINSICS),
+                use_lines=False)
+    return SystemConfig(**{**base, **kw})
+
+
+def kb8_room(n_frames: int = 30, seed: int = 0, device="cuda",
+             plain: bool = False, **kw):
+    """`System.track_monocular` with the KB8 fisheye over the room of
+    tests/test_kb8_native.py:116-169 (`SystemRun` with `kb8_config(**kw)`,
+    kw also `caps`, `viba_caps`, `sampler`, `sim3_sampler`) and its frames
+    (`inputs.build_kb8_room`)."""
+    from .inputs import build_kb8_room
+    dev = resolve_device(device)
+    S = build_kb8_room(seed, n_frames)
+    caps = {k: kw.pop(k) for k in ("caps", "viba_caps", "sampler",
+                                   "sim3_sampler") if k in kw}
+    return SystemRun(plain=plain, device=dev, cfg=kb8_config(**kw),
+                     **caps), S
 
 
 def mh_loop(duration: float = 28.0, seed: int = 7, device="cuda",

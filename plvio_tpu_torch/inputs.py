@@ -3,7 +3,8 @@ VI frame's IMU windows, bench.py:407-433, and of the mapping step's
 window, bench.py:214-292), the inertial back end's window and IMU chain,
 the keyframe step's maps, the bootstrap's frames, the keyframe
 sequence with its stand-in for the tracker's keyframe insertion, the
-tracked sequence's rendered frames and the MH replay's.
+tracked sequence's rendered frames and the MH replay's, the stereo and
+RGB-D rooms, and the KB8 fisheye's room and window BA.
 
 The same synthetic room, orbit and frames (seed 0) as the reference; the
 local map's descriptors come from the port's own extractors, so nothing
@@ -19,6 +20,7 @@ from .cuda import resolve_device
 from .entry import K_EUROC, STEREO_BASELINE
 from .io import synthetic as syn
 from .models.kernels import PRE_KEYS
+from .solver.residuals import KB8K
 from .ops import imu as IMU
 from .ops.frontend import make_extractor
 from .ops.lines import LineExtractor
@@ -934,7 +936,7 @@ def build_keyframe_map(confirmed_lines: bool = False, seed: int = 0):
     return mapstore_to_numpy(m), truth
 
 
-def build_projection_case(seed: int = 0):
+def build_projection_case(seed: int = 0, kb8: bool = False):
     """A case of the projection matcher at its path's shapes in which every
     gate decides some rows (numpy, default_rng(seed)): a random pose;
     2048 points (4% behind the camera, 1% nearer than 5 cm, 5% outside
@@ -948,8 +950,14 @@ def build_projection_case(seed: int = 0):
     beyond 60 deg, 10% zero).  Returns a dict of the matcher's arguments
     (pose, pt_xyz, pt_desc [P,8] uint32, pt_valid, feat_uv, feat_desc,
     feat_octave, feat_valid) and the frustum statistics (pt_normal,
-    pt_min_dist, pt_max_dist)."""
+    pt_min_dist, pt_max_dist).  With kb8, the same case for the fisheye
+    room's KB8 camera (`KB8_INTRINSICS`, `KB8_K`): the points placed on
+    the lens's rays through their pixels (`ops.cameras.kb8_unproject` in
+    float64), the pixels raw."""
     K = K_EUROC
+    if kb8:
+        K = KB8K(**KB8_INTRINSICS, k1=KB8_K[0], k2=KB8_K[1], k3=KB8_K[2],
+                 k4=KB8_K[3])
     P, F = 2048, 1000
     rng = np.random.default_rng(seed)
     R = lie.so3_exp(torch.tensor(rng.normal(0, 0.3, 3))).numpy()
@@ -962,7 +970,14 @@ def build_projection_case(seed: int = 0):
     z[80:100] = rng.uniform(0.01, 0.045, 20)              # too near
     u[100:180] += rng.choice([-1, 1], 80) * rng.uniform(2 * K.cx, 900, 80)
     u[180:200] = 2 * K.cx + rng.uniform(0.1, 15.0, 20)    # past 2 cx
-    xc = np.stack([(u - K.cx) / K.fx * z, (v - K.cy) / K.fy * z, z], -1)
+    if kb8:
+        from .ops import cameras as CAM
+        cam = CAM.Camera(K.fx, K.fy, K.cx, K.cy, KB8_K, 752, 480, "kb8")
+        ray = CAM.kb8_unproject(cam, torch.from_numpy(
+            np.stack([u, v], -1))).numpy()
+        xc = ray * z[:, None]
+    else:
+        xc = np.stack([(u - K.cx) / K.fx * z, (v - K.cy) / K.fy * z, z], -1)
     X = (xc - t) @ R                                       # R^T (xc - t)
     X[1960:2000] = X[1000:1040] + 0.001                   # duplicates
     valid = np.ones(P, bool)
@@ -1877,14 +1892,17 @@ def build_stereo_room(seed: int = 0, n_frames: int = 15, imu: bool = False):
                 scene=scene)
 
 
-def build_rgbd_room(seed: int = 0, n_frames: int = 12):
+def build_rgbd_room(seed: int = 0, n_frames: int = 12, bf: float = 0.0):
     """The RGB-D room orbit of tests/test_stereo.py:41-63: default_rng(seed),
     the room with 4000 points and no lines, the 1 s orbit of radius 0.6 m,
     then per frame the view (render_frame with noise) and its oracle depth
-    image (`io.synthetic.oracle_depth`, EuRoC K).
+    image (`io.synthetic.oracle_depth`, EuRoC K).  `bf` is the depth
+    camera's baseline times fx (ORB-SLAM3's `Camera.bf`, 40.0 in its TUM
+    RGB-D settings; 0 keeps the residuals mono): it changes no input and
+    is carried to the configuration (`entry.rgbd_room`).
 
     Returns dict(frames, depth [n] of [480,752] float32, timestamps [n],
-    imu [n] of None, R_wc [n,3,3], p_wc [n,3], scene)."""
+    imu [n] of None, R_wc [n,3,3], p_wc [n,3], scene, bf)."""
     rng = np.random.default_rng(seed)
     scene = syn.make_room_scene(rng, n_points=4000, n_lines=0)
     traj = syn.make_orbit_trajectory(duration=1.0, radius=0.6)
@@ -1896,6 +1914,69 @@ def build_rgbd_room(seed: int = 0, n_frames: int = 12):
                                  np.float32))
         depth.append(syn.oracle_depth(scene, R, p))
     return dict(frames=frames, depth=depth, timestamps=traj.timestamps[:n],
+                imu=[None] * n, R_wc=traj.R_wb[:n], p_wc=traj.p_wb[:n],
+                scene=scene, bf=float(bf))
+
+
+KB8_K = (0.01, -0.005, 0.002, 0.0)   # tests/test_kb8_native.py:130
+KB8_INTRINSICS = dict(fx=380.0, fy=380.0, cx=376.0, cy=240.0)
+
+
+def kb8_camera() -> "KB8K":
+    """The fisheye room's lens as the BA and pose edges take it."""
+    return KB8K(**KB8_INTRINSICS, k1=KB8_K[0], k2=KB8_K[1], k3=KB8_K[2],
+                k4=KB8_K[3])
+
+
+def build_kb8_window(n_kf: int = 16, n_pt: int = 2048, n_obs: int = 4096,
+                     perturbed: bool = True, device="cuda"):
+    """The point-only window BA of a KB8 camera at the typical bucket:
+    `build_mapping_inputs`' window (its keyframes, points and observation
+    pairs, seed 1), observed through the fisheye room's lens
+    (`kb8_camera`, float64 numpy) on raw pixels with N(0, 0.5) px noise
+    (default_rng(2)), from `perturb_window`'s start when `perturbed`.
+    Returns dict of `make_local_ba`'s arguments (kf_poses, kf_free,
+    pt_xyz, pt_free, obs_kf, obs_pt, obs_uv, obs_valid, obs_is2) on
+    `device`."""
+    dev = resolve_device(device)
+    A = build_mapping_inputs(n_kf, n_pt, n_obs, 64, 0, 0, device="cpu")
+    P = A["kf_poses"].numpy().astype(np.float64)
+    X = A["pt_xyz"].numpy().astype(np.float64)
+    okf, opt = A["obs_kf"].numpy(), A["obs_pt"].numpy()
+    pc = np.einsum("oij,oj->oi", P[okf, :, :3], X[opt]) + P[okf, :, 3]
+    K8 = kb8_camera()
+    uv = syn._kb8_project_cam_np(pc, K8.fx, K8.fy, K8.cx, K8.cy, KB8_K)
+    uv += np.random.default_rng(2).normal(0, 0.5, uv.shape)
+    out = {k: A[k] for k in ("kf_poses", "kf_free", "pt_xyz", "pt_free",
+                             "obs_kf", "obs_pt", "obs_valid", "obs_is2")}
+    out["obs_uv"] = torch.from_numpy(uv.astype(np.float32))
+    if perturbed:
+        Pp, Xp = perturb_window(A["kf_poses"].numpy(), A["pt_xyz"].numpy())
+        out["kf_poses"], out["pt_xyz"] = (torch.from_numpy(Pp),
+                                          torch.from_numpy(Xp))
+    keys = ("kf_poses", "kf_free", "pt_xyz", "pt_free", "obs_kf", "obs_pt",
+            "obs_uv", "obs_valid", "obs_is2")
+    return {k: out[k].contiguous().to(dev) for k in keys}
+
+
+def build_kb8_room(seed: int = 0, n_frames: int = 30):
+    """The fisheye room of tests/test_kb8_native.py:116-169:
+    default_rng(seed), the room with 4000 points and 10 lines, the orbit of
+    radius 0.6 m at 20 fps over n_frames / 20 s, then per frame the raw
+    KB8 view (`io.synthetic.render_frame_kb8`, k = KB8_K, fx = fy = 380,
+    cx = 376, cy = 240, 752x480, with noise).
+
+    Returns dict(frames [n] of [480,752] float32, timestamps [n], imu [n]
+    of None, R_wc [n,3,3], p_wc [n,3], scene)."""
+    rng = np.random.default_rng(seed)
+    scene = syn.make_room_scene(rng, n_points=4000, n_lines=10)
+    traj = syn.make_orbit_trajectory(duration=n_frames / 20.0, fps=20.0,
+                                     radius=0.6)
+    n = min(n_frames, len(traj.timestamps))
+    frames = [np.asarray(syn.render_frame_kb8(
+        scene, traj.R_wb[i], traj.p_wb[i], k=KB8_K, rng=rng,
+        **KB8_INTRINSICS), np.float32) for i in range(n)]
+    return dict(frames=frames, timestamps=traj.timestamps[:n],
                 imu=[None] * n, R_wc=traj.R_wb[:n], p_wc=traj.p_wb[:n],
                 scene=scene)
 

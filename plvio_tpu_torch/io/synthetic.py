@@ -5,7 +5,8 @@ port (numpy/cv2 copies of plvio_tpu/io/synthetic.py:22-305: `GRAVITY`,
 and the EuRoC-realism MH replay (:375-632: `make_hall_scene`, `_eval_mh`,
 `make_mh_trajectory`, `_eval_mh_loop`, `_eval_mh_loop_pos`,
 `synthesize_imu_mh` on the port's float32 `so3_log`,
-`render_frame_realistic`), each consuming its `np.random.Generator` in
+`render_frame_realistic`), and the fisheye renderer (:309-363:
+`_kb8_project_cam_np`, `render_frame_kb8`), each consuming its `np.random.Generator` in
 the reference's order, so that one seed gives the same scene, IMU and
 images.
 
@@ -270,6 +271,63 @@ def render_frame(scene: Scene, R_wc: np.ndarray, p_wc: np.ndarray,
         r = max(2, int(round(blob_r * 2.0 / max(z[i], 0.5))))
         cv2.circle(img, c, r, float(col), -1, cv2.LINE_AA)
 
+    img = cv2.GaussianBlur(img, (3, 3), 0.8)
+    if rng is not None and noise > 0:
+        img = img + rng.normal(0, noise, img.shape).astype(np.float32)
+    return np.clip(img, 0, 255)
+
+
+def _kb8_project_cam_np(pc: np.ndarray, fx, fy, cx, cy, k) -> np.ndarray:
+    """Camera-frame points [N,3] -> raw fisheye pixels [N,2] (the
+    equidistant theta polynomial, numpy twin of `ops.cameras.kb8_project`
+    for the host-side renderer)."""
+    x, y, z = pc[:, 0], pc[:, 1], pc[:, 2]
+    r = np.sqrt(np.maximum(x * x + y * y, 1e-18))
+    theta = np.arctan2(r, np.maximum(z, 1e-9))
+    t2 = theta * theta
+    theta_d = theta * (1.0 + k[0] * t2 + k[1] * t2 ** 2
+                       + k[2] * t2 ** 3 + k[3] * t2 ** 4)
+    s = theta_d / r
+    return np.stack([fx * x * s + cx, fy * y * s + cy], -1)
+
+
+def render_frame_kb8(scene: Scene, R_wc: np.ndarray, p_wc: np.ndarray,
+                     fx: float = 380.0, fy: float = 380.0,
+                     cx: float = 376.0, cy: float = 240.0,
+                     k=(0.01, -0.005, 0.002, 0.0),
+                     width: int = 752, height: int = 480,
+                     rng: Optional[np.random.Generator] = None,
+                     noise: float = 2.0, blob_r: int = 3) -> np.ndarray:
+    """Fisheye (Kannala-Brandt equidistant) render of the point scene on
+    raw pixels: texture dots, then the points' blobs, blur and noise, as
+    `render_frame` draws them.  Straight 3D segments are curves under the
+    lens, so the lines are not drawn."""
+    import cv2
+
+    img = np.full((height, width), 128.0, np.float32)
+    R_cw = R_wc.T
+
+    def proj(P):
+        pc = (R_cw @ (P - p_wc).T).T
+        uv = _kb8_project_cam_np(pc, fx, fy, cx, cy, k)
+        z = pc[:, 2]
+        ok = (z > 0.2) & (uv[:, 0] >= 8) & (uv[:, 0] < width - 8) \
+            & (uv[:, 1] >= 8) & (uv[:, 1] < height - 8)
+        return uv, z, ok
+
+    if len(scene.texture_dots):
+        uvd, zd, okd = proj(scene.texture_dots)
+        for i in np.nonzero(okd)[0]:
+            col = 128.0 + 90.0 * scene.texture_intensity[i]
+            c = tuple(np.round(uvd[i]).astype(int))
+            r = max(1, int(round(1.5 * 2.0 / max(zd[i], 0.5))))
+            cv2.circle(img, c, r, float(col), -1, cv2.LINE_AA)
+    uv, z, ok = proj(scene.points)
+    for i in np.nonzero(ok)[0]:
+        col = 128.0 + 100.0 * scene.point_polarity[i]
+        c = tuple(np.round(uv[i]).astype(int))
+        r = max(2, int(round(blob_r * 2.0 / max(z[i], 0.5))))
+        cv2.circle(img, c, r, float(col), -1, cv2.LINE_AA)
     img = cv2.GaussianBlur(img, (3, 3), 0.8)
     if rng is not None and noise > 0:
         img = img + rng.normal(0, noise, img.shape).astype(np.float32)

@@ -44,7 +44,16 @@ points both trees have) and compare the printed lines:
   synthetic rectified sets (seeds 5 and 6), the pose IRLS with a u_R
   column on two thirds of the 1500 points, the VI case with one on two
   thirds of its 1024 points (drawn after the mono case's numbers), with
-  and without the prior.
+  and without the prior;
+- slice 12 (on a tree that has them; `python3 kernel_digest.py kb8` or
+  `stereo_points` prints that mode's lines alone): `pose_lm` stereo on
+  `stereo_lm_case` (1500 rows, a u_R column on two thirds, 20% outliers),
+  `pose_lm` KB8 on `kb8_lm_case` (2048 rows of a wide-angle cloud, 20%
+  outliers), `undistort` KB8 on a 40 x 25 grid of raw pixels,
+  `proj_match` KB8 on `inputs.build_projection_case(kb8=True)` in the
+  fuse's and the tracker's modes, and the KB8 window BA
+  (`inputs.build_kb8_window`, 16 KF, perturbed start); and on every
+  tree the pinhole calls of those kernels (`pinhole_digests`).
 
 Needs one card; JAX is never imported.
 """
@@ -236,6 +245,127 @@ def stereo_digests(dev):
     return out
 
 
+def stereo_lm_case(dev):
+    """`make_pose_optimizer_stereo`'s arguments (K, bf, then pose0, uvr
+    [1500,3], X, valid, is2) from `pose_case`'s stereo points: 20% of the
+    rows outliers (up to 30 px), a u_R column (0.7 px noise) on two
+    thirds."""
+    K, pose0, uv, X, valid, is2, *_, ur = pose_case(dev, 0, stereo=True)
+    return (K, K.fx * 0.11, pose0, torch.cat([uv, ur[:, None]], 1)
+            .contiguous(), X, valid, is2)
+
+
+def kb8_lm_case(dev, n: int = 2048, seed: int = 9):
+    """`make_pose_optimizer_kb8`'s arguments (K8, then pose0, uv [n,2] raw
+    pixels, X, valid, is2): tests/test_kb8_native.py's wide-angle cloud
+    (up to 69 deg off-axis, 1.5-5 m) seen through the fisheye room's lens
+    from a pose 3 deg / 0.2 m off the start, 0.3 px noise, 20% of the rows
+    outliers (up to 30 px), 5% invalid, octaves 0-2."""
+    from plvio_tpu_torch.inputs import kb8_camera
+    from plvio_tpu_torch.io.synthetic import _kb8_project_cam_np
+    from plvio_tpu_torch.utils import lie
+    K8 = kb8_camera()
+    rng = np.random.default_rng(seed)
+    th, ph, d = (rng.uniform(0, 1.2, n), rng.uniform(0, 2 * np.pi, n),
+                 rng.uniform(1.5, 5.0, n))
+    X = np.stack([np.sin(th) * np.cos(ph), np.sin(th) * np.sin(ph),
+                  np.cos(th)], -1) * d[:, None]
+    R = lie.so3_exp(torch.tensor([0.03, -0.05, 0.02],
+                                 dtype=torch.float64)).numpy()
+    t = np.array([0.1, -0.1, 0.15])
+    uv = _kb8_project_cam_np(X @ R.T + t, K8.fx, K8.fy, K8.cx, K8.cy,
+                             (K8.k1, K8.k2, K8.k3, K8.k4))
+    uv += rng.normal(0, 0.3, uv.shape)
+    uv[: n // 5] += rng.uniform(-30, 30, (n // 5, 2))
+    pose0 = np.eye(3, 4)
+    return (K8, _t(dev, pose0), _t(dev, uv), _t(dev, X),
+            _t(dev, rng.random(n) < 0.95, torch.bool),
+            _t(dev, 1 / 1.2 ** (2 * rng.integers(0, 3, n))))
+
+
+def pinhole_digests(dev):
+    """The pinhole calls of the kernels that gained a KB8 mode in slice 12
+    (`undistort` at EuRoC's coefficients on a 40 x 25 grid and 256
+    segments, `proj_match` on `inputs.build_projection_case()` in the
+    fuse's and the tracker's modes, `make_local_ba` on the typical
+    window's points from the perturbed start), on entry points both
+    trees have: their digests must not change."""
+    from plvio_tpu_torch.config import CameraConfig
+    from plvio_tpu_torch.entry import K_EUROC, MAPPING_TYPICAL
+    from plvio_tpu_torch.inputs import (build_mapping_inputs,
+                                        build_projection_case,
+                                        perturb_window)
+    from plvio_tpu_torch.models import kernels as KN
+    from plvio_tpu_torch.ops import cameras as CAM
+    out = {}
+    cam = CAM.make_camera(CameraConfig())
+    u, v = np.meshgrid(np.linspace(0, 751, 40), np.linspace(0, 479, 25))
+    kp = _t(dev, np.stack([u.ravel(), v.ravel()], -1))
+    ep = _t(dev, np.random.default_rng(6).uniform(
+        [0, 0, 0, 0], [751, 479, 751, 479], (256, 4)))
+    out["undistort pinhole"] = digest(CAM.undistort(cam, kp, ep))
+    c = build_projection_case()
+    a = [_t(dev, c[k].view(np.int32) if c[k].dtype == np.uint32 else c[k],
+            torch.int32 if c[k].dtype in (np.uint32, np.int32)
+            else torch.bool if c[k].dtype == bool else torch.float32)
+         for k in ("pose", "pt_xyz", "pt_desc", "pt_valid", "feat_uv",
+                   "feat_desc", "feat_octave", "feat_valid", "pt_normal",
+                   "pt_min_dist", "pt_max_dist")]
+    out["proj_match pinhole fuse"] = digest(KN.proj_match(
+        K_EUROC, *a[:8], 2.0, 50.0))
+    out["proj_match pinhole tracker"] = digest(KN.proj_match(
+        K_EUROC, *a[:8], 6.0, 80.0, *a[8:]))
+    A = build_mapping_inputs(**MAPPING_TYPICAL, device="cpu")
+    P, X = perturb_window(A["kf_poses"].numpy(), A["pt_xyz"].numpy())
+    A["kf_poses"], A["pt_xyz"] = torch.from_numpy(P), torch.from_numpy(X)
+    with torch.no_grad():
+        out["local_ba pinhole points"] = digest(KN.local_ba(
+            K_EUROC, *[A[k].contiguous().to(dev) for k in (
+                "kf_poses", "kf_free", "pt_xyz", "pt_free", "obs_kf",
+                "obs_pt", "obs_uv", "obs_valid", "obs_is2")]))
+    return out
+
+
+def slice12_digests(dev, which=("stereo_points", "kb8")):
+    """Slice 12's lines (see the module docstring)."""
+    from plvio_tpu_torch.config import CameraConfig
+    from plvio_tpu_torch.inputs import (KB8_INTRINSICS, KB8_K,
+                                        build_kb8_window,
+                                        build_projection_case, kb8_camera)
+    from plvio_tpu_torch.models import kernels as KN
+    from plvio_tpu_torch.ops import cameras as CAM
+    out = []
+    if "stereo_points" in which:
+        K, bf, *args = stereo_lm_case(dev)
+        out.append("pose_lm stereo " + digest(KN.stereo_pose_lm(K, bf,
+                                                                *args)))
+    if "kb8" in which:
+        K8, *args = kb8_lm_case(dev)
+        out.append("pose_lm kb8 " + digest(KN.kb8_pose_lm(K8, *args)))
+        cam = CAM.make_camera(CameraConfig(model="kb8", dist=KB8_K,
+                                           **KB8_INTRINSICS))
+        u, v = np.meshgrid(np.linspace(0, 751, 40), np.linspace(0, 479, 25))
+        kp = _t(dev, np.stack([u.ravel(), v.ravel()], -1))
+        out.append("undistort kb8 " + digest(CAM.undistort(cam, kp,
+                                                           None)[:1]))
+        c = build_projection_case(kb8=True)
+        a = [_t(dev, c[k].view(np.int32) if c[k].dtype == np.uint32
+                else c[k], torch.int32 if c[k].dtype in (np.uint32, np.int32)
+                else torch.bool if c[k].dtype == bool else torch.float32)
+             for k in ("pose", "pt_xyz", "pt_desc", "pt_valid", "feat_uv",
+                       "feat_desc", "feat_octave", "feat_valid",
+                       "pt_normal", "pt_min_dist", "pt_max_dist")]
+        out.append("proj_match kb8 fuse " + digest(KN.proj_match(
+            K8, *a[:8], 2.0, 50.0)))
+        out.append("proj_match kb8 tracker " + digest(KN.proj_match(
+            K8, *a[:8], 6.0, 80.0, *a[8:])))
+        W = build_kb8_window(device=dev)
+        with torch.no_grad():
+            out.append("local_ba kb8 perturbed " + digest(KN.local_ba(
+                kb8_camera(), *W.values())))
+    return out
+
+
 def hamming_cases(dev):
     """(name, args, keywords) of hamming_match's modes 0-2 on fixed
     inputs: random two-bit descriptors (many ties), positions in a 120 px
@@ -263,6 +393,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_digest: no CUDA device", file=sys.stderr)
         return 1
+    if sys.argv[1:2] in (["kb8"], ["stereo_points"]):
+        for line in slice12_digests(torch.device("cuda"), sys.argv[1:2]):
+            print(line)
+        return 0
     from plvio_tpu_torch.entry import MAPPING_TYPICAL, mapping_step
     from plvio_tpu_torch.inputs import perturb_window
     from plvio_tpu_torch.models import kernels as KN
@@ -309,6 +443,11 @@ def main() -> int:
     import importlib.util
     if importlib.util.find_spec("plvio_tpu_torch.ops.stereo") is not None:
         for line in stereo_digests(dev):
+            print(line)
+    for name, d in pinhole_digests(dev).items():
+        print(f"{name} {d}")
+    if hasattr(KN, "kb8_pose_lm"):
+        for line in slice12_digests(dev):
             print(line)
     return 0
 

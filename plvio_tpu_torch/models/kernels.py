@@ -7,7 +7,18 @@ plvio_tpu/models/kernels.py: `make_pose_optimizer` :88, `fast_pose_opt`
 `make_local_ba_pl` :641,
 `make_projection_matcher` :767,
 `make_epipolar_matcher` :828, `make_triangulator` :878,
-`make_vi_pose_optimizer` :932, `make_local_ba` :1307).
+`make_vi_pose_optimizer` :932, `make_local_ba` :1307,
+`make_pose_optimizer_stereo` :687, `make_projection_matcher_kb8` :1443,
+`make_pose_optimizer_kb8` :1493).
+
+`pose_lm` is the hand-written CUDA kernel (csrc/pose_lm.cu) of the
+pose-only LM of STEREO / RGB-D without lines (`stereo_pose_lm`, counted
+as `POSE_LM_STEREO`) and of the KB8 fisheye (`kb8_pose_lm`,
+`POSE_LM_KB8`); their plain versions run the same problems on the engine
+(`stereo_pose_lm_plain`, `kb8_pose_lm_plain`), and
+`pose_lm_against_float64` holds the kernel to their float64 runs.  A
+KB8K camera takes `proj_match`'s and `ba_linearize`'s KB8 modes
+(`PROJ_MATCH_KB8`, `BA_LINEARIZE_KB8`).
 
 `pose_irls` is the hand-written CUDA kernel (csrc/pose_irls.cu) for the
 fused point+line pose IRLS, with the stereo / RGB-D right-eye rows where
@@ -284,6 +295,147 @@ def make_fast_pose_optimizer_pl(K: PinholeK, rounds: int = 4,
                                 c[6], valid_l, c[7], rounds, iters,
                                 plain=plain,
                                 ur=ur[0].contiguous() if ur else None, bf=bf)
+    return run
+
+
+# --------------------------------------------------------------------------
+# The pose-only LM of STEREO / RGB-D without lines and of the KB8 fisheye
+# --------------------------------------------------------------------------
+
+def _pose_lm_run(terms, pose0, rounds: int, iters: int):
+    """`rounds` x `iters` LM iterations of the engine on one pose block,
+    each round's masks re-gated on the chi2 at its result.  terms: [(name,
+    res_fn, rdim, const, gate, chi2 gate, info)], gate the rows a term
+    holds (its first round's mask), the Huber delta the chi2 gate's
+    square root.  Returns (pose, {name: mask})."""
+    cap = terms[0][4].shape[0]
+    zero = torch.zeros(cap, dtype=torch.long, device=pose0.device)
+    masks = {t[0]: t[4] for t in terms}
+    states = {"pose": pose0[None]}
+    for _ in range(rounds):
+        prob = E.Problem()
+        prob.add_dense("pose", 1, 6, RES.retract_pose_cw)
+        for name, res_fn, rdim, const, _, chi2_th, is2 in terms:
+            prob.add_term(E.Term(
+                name=name, res_fn=res_fn, rdim=rdim,
+                dense_refs=[("pose", zero)], const=const, mask=masks[name],
+                info=is2, robust_delta=float(math.sqrt(chi2_th))))
+        states, _, chi2s = E.optimize(prob, states, iters=iters)
+        for name, _, _, _, gate, chi2_th, _ in terms:
+            masks[name] = gate & (chi2s[name] < chi2_th)
+    return states["pose"][0], masks
+
+
+def stereo_pose_lm_plain(K: PinholeK, bf: float, pose0, uvr, X, valid, is2,
+                         rounds: int = 4, iters: int = 10):
+    """Plain version of `pose_lm`'s stereo mode on the engine, in the
+    inputs' dtype: a stereo term of (u, v, u_R) rows (Huber sqrt(7.815))
+    where u_R > 0 and a mono term of (u, v) rows (sqrt(5.991)) elsewhere.
+    Returns (pose [3,4], inlier [cap], n int32)."""
+    has_r = uvr[:, 2] > 0
+    pose, masks = _pose_lm_run([
+        ("stereo", RES.make_stereo_reproj_fixed(K, bf), 3,
+         {"uvr": uvr, "X": X}, valid & has_r, CHI2_STEREO, is2),
+        ("mono", RES.make_point_reproj_fixed(K), 2,
+         {"uv": uvr[:, :2].contiguous(), "X": X}, valid & ~has_r, CHI2_MONO,
+         is2)], pose0, rounds, iters)
+    inlier = masks["stereo"] | masks["mono"]
+    return pose, inlier, inlier.sum().to(torch.int32)
+
+
+def kb8_pose_lm_plain(K8: RES.KB8K, pose0, uv, X, valid, is2,
+                      rounds: int = 3, iters: int = 6):
+    """Plain version of `pose_lm`'s KB8 mode on the engine, in the inputs'
+    dtype: KB8 (u, v) rows on raw pixels, Huber sqrt(5.991).  Returns
+    (pose [3,4], inlier [cap], n int32)."""
+    pose, masks = _pose_lm_run([
+        ("reproj", RES.make_point_reproj_kb8_fixed(K8), 2,
+         {"uv": uv, "X": X}, valid, CHI2_MONO, is2)], pose0, rounds, iters)
+    return pose, masks["reproj"], masks["reproj"].sum().to(torch.int32)
+
+
+_POSE_LM_ARGS = [_I, _P, _P, _P, _P, _P, _I, _I, _I] \
+    + [ctypes.c_double] * 9 + [_P, _P, _P, _P]
+# one library entry, two residual families counted apart
+POSE_LM_STEREO = cuda.Kernel("pose_lm", "pose_lm", _POSE_LM_ARGS)
+POSE_LM_KB8 = cuda.Kernel("pose_lm", "pose_lm", _POSE_LM_ARGS)
+
+
+def _pose_lm(family: int, K, bf: float, pose0, obs, X, valid, is2,
+             rounds: int, iters: int):
+    cap = X.shape[0]
+    w = 3 if family == 0 else 2
+    cuda.check_cuda("pose_lm", pose0, obs, X, valid, is2)
+    if any(t.dtype != torch.float32 for t in (pose0, obs, X, is2)) \
+            or valid.dtype != torch.bool or pose0.shape != (3, 4) \
+            or obs.shape != (cap, w) or X.shape != (cap, 3) \
+            or valid.shape != (cap,) or is2.shape != (cap,):
+        raise ValueError(f"pose_lm: float32 pose0 [3,4], obs [cap,{w}], X "
+                         "[cap,3], is2 [cap] and bool valid [cap]")
+    if not 1 <= cap <= 32768:
+        raise ValueError("pose_lm: 1 <= cap <= 32768 (the masks live in "
+                         "shared memory)")
+    dev = pose0.device
+    pose = torch.empty(3, 4, dtype=torch.float32, device=dev)
+    inlier = torch.empty(cap, dtype=torch.bool, device=dev)
+    n = torch.empty((), dtype=torch.int32, device=dev)
+    ks = (K.k1, K.k2, K.k3, K.k4) if family == 1 else (0.0,) * 4
+    (POSE_LM_STEREO if family == 0 else POSE_LM_KB8).launch(
+        family, cuda.ptr(pose0), cuda.ptr(obs), cuda.ptr(X), cuda.ptr(valid),
+        cuda.ptr(is2), cap, rounds, iters, K.fx, K.fy, K.cx, K.cy,
+        float(bf), *ks, cuda.ptr(pose), cuda.ptr(inlier), cuda.ptr(n),
+        cuda.stream())
+    return pose, inlier, n
+
+
+def stereo_pose_lm(K: PinholeK, bf: float, pose0, uvr, X, valid, is2,
+                   rounds: int = 4, iters: int = 10):
+    """The pose-only LM of STEREO / RGB-D without lines (pose0 [3,4] T_cw,
+    uvr [cap,3] = (u, v, u_R), u_R <= 0 for a row without depth, X
+    [cap,3], valid [cap] bool, is2 [cap]) -> (pose, inlier, n_inliers).
+    CPU tensors take the plain version; CUDA tensors launch
+    csrc/pose_lm.cu in its stereo mode (one block, float64)."""
+    if pose0.device.type == "cpu":
+        return stereo_pose_lm_plain(K, bf, pose0, uvr, X, valid, is2, rounds,
+                                    iters)
+    return _pose_lm(0, K, bf, pose0, uvr, X, valid, is2, rounds, iters)
+
+
+def kb8_pose_lm(K8: RES.KB8K, pose0, uv, X, valid, is2, rounds: int = 3,
+                iters: int = 6):
+    """The KB8 fisheye's pose-only LM on raw pixels (uv [cap,2]) ->
+    (pose, inlier, n_inliers).  CPU tensors take the plain version; CUDA
+    tensors launch csrc/pose_lm.cu in its KB8 mode."""
+    if pose0.device.type == "cpu":
+        return kb8_pose_lm_plain(K8, pose0, uv, X, valid, is2, rounds, iters)
+    return _pose_lm(1, K8, 0.0, pose0, uv, X, valid, is2, rounds, iters)
+
+
+def make_pose_optimizer_stereo(K: PinholeK, bf: float, rounds: int = 4,
+                               iters: int = 10, plain: bool = False):
+    """run(pose0 [3,4], uvr [cap,3], X [cap,3], valid, is2) -> (pose,
+    inlier, n_inliers): the tracker's pose solve of STEREO / RGB-D without
+    lines (models/kernels.py:687), 4 rounds x 10 LM iterations, on
+    `stereo_pose_lm`.  `plain` runs the plain version on any device."""
+    fn = stereo_pose_lm_plain if plain else stereo_pose_lm
+
+    def run(pose0, uvr, X, valid, is2):
+        return fn(K, bf, pose0.contiguous(), uvr.contiguous(),
+                  X.contiguous(), valid, is2.contiguous(), rounds, iters)
+    return run
+
+
+def make_pose_optimizer_kb8(K8: RES.KB8K, rounds: int = 3, iters: int = 6,
+                            plain: bool = False):
+    """run(pose0 [3,4], uv [cap,2] raw pixels, X [cap,3], valid, is2) ->
+    (pose, inlier, n_inliers): the KB8 tracker's pose solve
+    (models/kernels.py:1493), 3 rounds x 6 LM iterations, on
+    `kb8_pose_lm`.  `plain` runs the plain version on any device."""
+    fn = kb8_pose_lm_plain if plain else kb8_pose_lm
+
+    def run(pose0, uv, X, valid, is2):
+        return fn(K8, pose0.contiguous(), uv.contiguous(), X.contiguous(),
+                  valid, is2.contiguous(), rounds, iters)
     return run
 
 
@@ -774,6 +926,10 @@ _BA_PTRS = (
 GRAM_SPLIT = 24
 BA_LINEARIZE = cuda.Kernel("ba_linearize", "ba_linearize",
                            [_P, _P, _P, _I, _P])
+# the same library entry with the KB8 point edge (a KB8K camera), counted
+# apart
+BA_LINEARIZE_KB8 = cuda.Kernel("ba_linearize", "ba_linearize",
+                               [_P, _P, _P, _I, _P])
 SCHUR_SOLVE = cuda.Kernel("schur_solve", "schur_solve", [_P, _P, _P, _P])
 
 
@@ -885,22 +1041,30 @@ class _BAWork:
         for name in _BA_PTRS:
             if t[name].numel() and not t[name].is_contiguous():
                 raise ValueError(f"local BA: {name} is not contiguous")
+        kb8 = isinstance(K, RES.KB8K)
+        if kb8 and (inertial is not None or n_lobs):
+            raise NotImplementedError(
+                "the KB8 camera in the inertial or the line BA is not ported "
+                "yet (ROADMAP Queue 1 item 7b')")
+        ks = (K.k1, K.k2, K.k3, K.k4) if kb8 else (0.0,) * 4
         self.t = t
         self.n_obs = n_obs
         self.body = inertial is not None
+        self.kb8 = kb8
         self._keep = (
             (ctypes.c_void_p * len(_BA_PTRS))(
                 *[t[name].data_ptr() for name in _BA_PTRS]),
-            (ctypes.c_int * 10)(n_kf, n_pt, n_obs, n_ln, n_lobs, cg_iters,
+            (ctypes.c_int * 11)(n_kf, n_pt, n_obs, n_ln, n_lobs, cg_iters,
                                 GRAM_SPLIT, int(self.body),
-                                t["cgw"].numel(), 0),
-            (ctypes.c_float * 21)(K.fx, K.fy, K.cx, K.cy,
+                                t["cgw"].numel(), 0, int(kb8)),
+            (ctypes.c_float * 25)(K.fx, K.fy, K.cx, K.cy,
                                   float(math.sqrt(CHI2_MONO)), CHI2_MONO,
-                                  lam0, early_tol, grav, *rcb, *tcb))
+                                  lam0, early_tol, grav, *rcb, *tcb, *ks))
         self.args = [ctypes.cast(a, ctypes.c_void_p) for a in self._keep]
 
     def linearize(self, mode: int):
-        BA_LINEARIZE.launch(*self.args, mode, cuda.stream())
+        (BA_LINEARIZE_KB8 if self.kb8 else BA_LINEARIZE).launch(
+            *self.args, mode, cuda.stream())
 
     def chain(self, mode: int):
         INERTIAL_CHAIN.launch(*self.args, mode, cuda.stream())
@@ -1240,14 +1404,22 @@ def project_gates(K: PinholeK, pose, pt_xyz, pt_valid, pt_normal=None,
     [0, 2 cx), v in [0, 2 cy), and with pt_min_dist / pt_max_dist the
     distance-range gate (0.8 min, 1.2 max; off where max <= 1e-6), with
     pt_normal too the viewing-angle gate cos > 0.5 (off where the normal is
-    zero).  Every 3-vector product summed as (x0 y0 + x1 y1) + x2 y2."""
+    zero).  Every 3-vector product summed as (x0 y0 + x1 y1) + x2 y2.  A
+    KB8K camera projects through `kb8_project_single` onto raw pixels and
+    takes no viewing-angle gate, as the reference's fisheye matcher."""
     R, t = pose[:, :3], pose[:, 3]
     X = _v3(pt_xyz)
     pc = [_dot3([R[i, 0], R[i, 1], R[i, 2]], X) + t[i] for i in range(3)]
     z = pc[2]
-    zc = torch.clamp_min(z, 1e-6)
-    u = K.fx * pc[0] / zc + K.cx
-    v = K.fy * pc[1] / zc + K.cy
+    if isinstance(K, RES.KB8K):
+        # the fisheye matcher (models/kernels.py:1443): raw pixels, and no
+        # viewing-angle gate
+        u, v = RES.kb8_project_single(K, torch.stack(pc, -1)).unbind(-1)
+        pt_normal = None
+    else:
+        zc = torch.clamp_min(z, 1e-6)
+        u = K.fx * pc[0] / zc + K.cx
+        v = K.fy * pc[1] / zc + K.cy
     ok = pt_valid & (z > 0.05) & (u >= 0) & (u < 2 * K.cx) & (v >= 0) \
         & (v < 2 * K.cy)
     if pt_min_dist is not None:
@@ -1305,11 +1477,12 @@ def proj_match_plain(K: PinholeK, pose, pt_xyz, pt_desc, pt_valid, feat_uv,
             feat_back_map(idx, ok, feat_uv.shape[0]))
 
 
-PROJ_MATCH = cuda.Kernel(
-    "proj_match", "proj_match",
-    [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-     _F, _F, _F, _F, _F, _F, _F, _F, _F] + [_F] * 8 + [_P, _P, _P, _P, _P,
-                                                       _P])
+_PROJ_MATCH_ARGS = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                    _F, _F, _F, _F, _F, _F, _F, _F, _F] + [_F] * 8 \
+    + [_I, _F, _F, _F, _F] + [_P] * 6
+PROJ_MATCH = cuda.Kernel("proj_match", "proj_match", _PROJ_MATCH_ARGS)
+# the same library entry in its KB8 mode, counted apart
+PROJ_MATCH_KB8 = cuda.Kernel("proj_match", "proj_match", _PROJ_MATCH_ARGS)
 
 
 def proj_match(K: PinholeK, pose, pt_xyz, pt_desc, pt_valid, feat_uv,
@@ -1321,13 +1494,18 @@ def proj_match(K: PinholeK, pose, pt_xyz, pt_desc, pt_valid, feat_uv,
     feat_desc [F,8] int32, feat_octave [F] int32 in 0..7, feat_valid [F];
     the tracker's frustum gates when pt_min_dist / pt_max_dist [P] (and
     pt_normal [P,3]) are given).  Returns (uv_m [P,2], pt_feat [P] int32,
-    matched [P], feat_pt [F] int32).  CPU tensors take the plain version;
-    CUDA tensors launch csrc/proj_match.cu."""
+    matched [P], feat_pt [F] int32).  With a KB8K camera the points project
+    onto raw pixels (feat_uv raw) and pt_normal is not read.  CPU tensors
+    take the plain version; CUDA tensors launch csrc/proj_match.cu (its
+    KB8 mode for a KB8K camera)."""
     if pose.device.type == "cpu":
         return proj_match_plain(K, pose, pt_xyz, pt_desc, pt_valid, feat_uv,
                                 feat_desc, feat_octave, feat_valid, radius,
                                 max_dist, pt_normal, pt_min_dist, pt_max_dist)
     P, F = pt_xyz.shape[0], feat_uv.shape[0]
+    kb8 = isinstance(K, RES.KB8K)
+    if kb8:
+        pt_normal = None
     frustum = 0 if pt_min_dist is None else (1 if pt_normal is None else 2)
     ts = [pose, pt_xyz, pt_desc, pt_valid, feat_uv, feat_desc, feat_octave,
           feat_valid]
@@ -1367,13 +1545,14 @@ def proj_match(K: PinholeK, pose, pt_xyz, pt_desc, pt_valid, feat_uv,
         return uv_m, pt_feat, matched, feat_pt
     opt = [cuda.ptr(x) if x is not None else None
            for x in (pt_normal, pt_min_dist, pt_max_dist)]
-    PROJ_MATCH.launch(
+    ks = (K.k1, K.k2, K.k3, K.k4) if kb8 else (0.0,) * 4
+    (PROJ_MATCH_KB8 if kb8 else PROJ_MATCH).launch(
         cuda.ptr(pose), cuda.ptr(pt_xyz), cuda.ptr(pt_desc),
         cuda.ptr(pt_valid), *opt, cuda.ptr(feat_uv), cuda.ptr(feat_desc),
         cuda.ptr(feat_octave), cuda.ptr(feat_valid), P, F, frustum, K.fx,
         K.fy, K.cx, K.cy, float(2 * K.cx), float(2 * K.cy), float(radius),
-        float(max_dist), 0.9, *[float(s) for s in OCTAVE_SCALE],
-        cuda.ptr(uv_m), cuda.ptr(pt_feat), cuda.ptr(matched),
+        float(max_dist), 0.9, *[float(s) for s in OCTAVE_SCALE], int(kb8),
+        *ks, cuda.ptr(uv_m), cuda.ptr(pt_feat), cuda.ptr(matched),
         cuda.ptr(feat_pt), cuda.ptr(col_best), cuda.stream())
     return uv_m, pt_feat, matched, feat_pt
 
@@ -1396,6 +1575,14 @@ def make_projection_matcher(K: PinholeK, plain: bool = False):
                   feat_valid, float(radius), float(max_dist), pt_normal,
                   pt_min_dist, pt_max_dist)
     return run
+
+
+def make_projection_matcher_kb8(K8: RES.KB8K, plain: bool = False):
+    """`make_projection_matcher` of a KB8 fisheye (models/kernels.py:1443):
+    the points project through the equidistant model onto raw pixels,
+    feat_uv are raw pixels, and pt_normal is not read (range gate only).
+    `plain` runs the plain version on any device."""
+    return make_projection_matcher(K8, plain=plain)
 
 
 # --------------------------------------------------------------------------
@@ -1822,17 +2009,20 @@ def global_solve_against_float64(kind: str, n_kf: int,
         dict(inputs=A, work=w, prob=prob, states=st, free=free, lam=lam))
 
 def _gs_problem(gravity, n_kf, pre_const, pose_R, pose_p, imu_info,
-                edge_valid, prior_g=None, prior_a=None):
+                edge_valid, prior_g=None, prior_a=None, order=None):
     """The IMU-initialization problem (models/kernels.py:1162-1195):
     gravity direction, scale, shared biases and per-KF velocities with the
-    poses fixed; the bias priors when prior_g / prior_a are given."""
+    poses fixed; the bias priors when prior_g / prior_a are given.  `order`
+    (a permutation of the n_kf - 1 edges) lists the edges in another
+    order: the same problem, its sums taken in that order."""
     dev = pose_p.device
     n_e = n_kf - 1
-    i1 = torch.arange(n_e, device=dev)
+    i1 = torch.arange(n_e, device=dev) if order is None else order.to(dev)
     z = torch.zeros(n_e, dtype=torch.int64, device=dev)
-    const = dict(pre_const)
-    const.update(R1=pose_R[:-1], p1=pose_p[:-1], R2=pose_R[1:],
-                 p2=pose_p[1:])
+    const = {k: v[i1] for k, v in pre_const.items()}
+    const.update(R1=pose_R[i1], p1=pose_p[i1], R2=pose_R[i1 + 1],
+                 p2=pose_p[i1 + 1])
+    imu_info, edge_valid = imu_info[i1], edge_valid[i1]
     prob = E.Problem()
     prob.add_dense("gdir", 1, 2, RES.retract_gdir)
     prob.add_dense("scale", 1, 1, RES.retract_scale)
@@ -1858,14 +2048,16 @@ def _gs_problem(gravity, n_kf, pre_const, pose_R, pose_p, imu_info,
 
 def inertial_init_plain(gravity: float, Rwg0, vel0, pre_const, pose_R,
                         pose_p, imu_info, edge_valid, iters: int = 20,
-                        prior_g: float = 1e2, prior_a: float = 1e10):
+                        prior_g: float = 1e2, prior_a: float = 1e10,
+                        order=None):
     """Plain version of the IMU initialization on the dense engine: every
     state free from scale 1 and zero biases, `iters` LM iterations (no
-    early exit), Cholesky solve.  Returns (Rwg, scale, bg, ba, vel)."""
+    early exit), Cholesky solve (`order`: the edges' order in the sums,
+    `_gs_problem`).  Returns (Rwg, scale, bg, ba, vel)."""
     n_kf = vel0.shape[0]
     dt_ = vel0.dtype
     prob = _gs_problem(gravity, n_kf, pre_const, pose_R, pose_p, imu_info,
-                       edge_valid, prior_g, prior_a)
+                       edge_valid, prior_g, prior_a, order)
     z = torch.zeros(1, 3, dtype=dt_, device=vel0.device)
     states = {"gdir": Rwg0[None], "scale": torch.ones(1, 1, dtype=dt_,
                                                       device=vel0.device),
@@ -1876,14 +2068,15 @@ def inertial_init_plain(gravity: float, Rwg0, vel0, pre_const, pose_R,
 
 
 def scale_refine_plain(gravity: float, Rwg0, vel, bg, ba, pre_const, pose_R,
-                       pose_p, imu_info, edge_valid, iters: int = 12):
+                       pose_p, imu_info, edge_valid, iters: int = 12,
+                       order=None):
     """Plain version of the scale/gravity refinement: the same edges with
-    only the gravity direction and the scale free.  Returns (Rwg,
-    scale)."""
+    only the gravity direction and the scale free (`order` as
+    `inertial_init_plain`'s).  Returns (Rwg, scale)."""
     n_kf = vel.shape[0]
     dev = vel.device
     prob = _gs_problem(gravity, n_kf, pre_const, pose_R, pose_p, imu_info,
-                       edge_valid)
+                       edge_valid, order=order)
     states = {"gdir": Rwg0[None], "scale": torch.ones(1, 1, dtype=vel.dtype,
                                                       device=dev),
               "bg": bg[None], "ba": ba[None], "vel": vel}
@@ -2448,6 +2641,24 @@ def pose_irls_against_float64(K: PinholeK, args, ur=None,
         lambda *a, **k: pose_irls(K, *a, **k),
         lambda *a, **k: pose_irls_plain(K, *a, **k), args,
         dict(ur=ur, bf=bf), 3, (0,), rows=(1, 2, 3, 4))
+
+
+def pose_lm_against_float64(args, kb8: bool) -> dict:
+    """`pose_lm` (args: K, bf, then the stereo LM's CUDA tensors pose0,
+    uvr, X, valid, is2; with kb8: K8, then pose0, uv, X, valid, is2)
+    against float64 runs of its plain version, `_solver_against_float64`'s
+    rule on the pose."""
+    if kb8:
+        K8, rest = args[0], list(args[1:])
+        return _solver_against_float64(
+            lambda *a, **k: kb8_pose_lm(K8, *a),
+            lambda *a, **k: kb8_pose_lm_plain(K8, *a), rest, {}, 2, (0,),
+            rows=(1, 2, 3, 4))
+    K, bf, rest = args[0], args[1], list(args[2:])
+    return _solver_against_float64(
+        lambda *a, **k: stereo_pose_lm(K, bf, *a),
+        lambda *a, **k: stereo_pose_lm_plain(K, bf, *a), rest, {}, 2, (0,),
+        rows=(1, 2, 3, 4))
 
 
 def vi_pose_lm_against_float64(K: PinholeK, args, have_prior: bool,

@@ -33,9 +33,10 @@ before it, so the calls are not batched.
 Not ported, each for a later part of the port: the multi-device window
 solve (`_dist_runner`, models/local_mapping.py:140-157; one card takes
 the single-device path, as the reference does on one device), the KB8
-fisheye branches (`kb8`, `_ba_uv`'s raw pixels), the PLVIO_TRACE prints,
-and the line-only local BA of SLAM modes 1-3, which raises
-NotImplementedError.  `metrics` times the reference's stages
+fisheye with an IMU or lines (Queue 1 item 7b'), the PLVIO_TRACE prints,
+and the line-only local BA of SLAM modes 1-3; the last two raise
+NotImplementedError.  A monocular KB8 camera without lines (`kb8`) runs
+its lens through the point BA and the fuse on raw pixels (`_ba_uv`).  `metrics` times the reference's stages
 ("mapping/cull", "/triangulate", "/lines", "/fuse", "/liba", "/lba",
 "/kf_cull").
 """
@@ -49,7 +50,7 @@ import torch
 from ..config import SystemConfig
 from ..cuda import HostIO, resolve_device
 from ..ops import imu as IMU
-from ..solver.residuals import PinholeK
+from ..solver.residuals import PinholeK, kb8_for
 from ..utils import lie
 from ..utils.metrics import Metrics
 from . import kernels as KN
@@ -88,9 +89,13 @@ class LocalMapper(HostIO):
         self.device = resolve_device(device)
         self.plain = plain
         cam = cfg.camera
-        if cam.model != "pinhole":
-            raise NotImplementedError("the KB8 back end is not ported")
         self.K = PinholeK(fx=cam.fx, fy=cam.fy, cx=cam.cx, cy=cam.cy)
+        # the KB8 fisheye runs its lens through the window BA and the fuse
+        # on raw pixels; the epipolar matcher and the triangulator stay on
+        # undistorted coordinates (exact pinhole rays after the
+        # unprojection)
+        self.kb8 = kb8_for(cfg)
+        self.ba_K = self.K if self.kb8 is None else self.kb8
         self.ba_kf_cap = ba_kf_cap
         # the outlier erasure's chi2 gate multiplier (3 around merge welds)
         self._erase_chi2_mult = 1.0
@@ -98,10 +103,13 @@ class LocalMapper(HostIO):
         self.ba_obs_cap = ba_obs_cap
         self.epi_match = KN.make_epipolar_matcher(self.K, plain=plain)
         self.triangulate = KN.make_triangulator(self.K, plain=plain)
-        self.local_ba_kernel = KN.make_local_ba(self.K, plain=plain)
+        self.local_ba_kernel = KN.make_local_ba(self.ba_K, plain=plain)
         self.recent_pts: List[np.ndarray] = []  # per-KF batches for culling
         self.fuse_cap = 2048
-        self.fuse_match = KN.make_projection_matcher(self.K, plain=plain)
+        self.fuse_match = KN.make_projection_matcher_kb8(self.kb8,
+                                                         plain=plain) \
+            if self.kb8 is not None \
+            else KN.make_projection_matcher(self.K, plain=plain)
         # the keyframe database's hook (culled keyframes leave it too) and
         # the stage profiler; `System` hands over its own
         self.kfdb = None
@@ -171,6 +179,11 @@ class LocalMapper(HostIO):
     @property
     def map(self) -> MapStore:
         return self.atlas.current
+
+    def _ba_uv(self, m: MapStore) -> np.ndarray:
+        """The BA's and the fuse's observation pixels: raw when the KB8
+        lens is the BA camera, undistorted otherwise."""
+        return m.kf_feat_uv_raw if self.kb8 is not None else m.kf_feat_uv
 
     @map.setter
     def map(self, m: MapStore) -> None:
@@ -274,7 +287,7 @@ class LocalMapper(HostIO):
         _, pt_feat, matched, _ = self.fuse_match(
             self._dev(m.kf_pose_cw[target_kf]), self._dev(xyz),
             self._dev(desc), self._dev(live),
-            self._dev(m.kf_feat_uv[target_kf]),
+            self._dev(self._ba_uv(m)[target_kf]),
             self._dev(m.kf_feat_desc[target_kf]),
             self._dev(m.kf_feat_octave[target_kf]),
             self._dev(m.kf_feat_valid[target_kf]), 2.0, 50.0)
@@ -690,7 +703,7 @@ class LocalMapper(HostIO):
             feat = np.nonzero((match >= 0) & np.isin(match, pt_ids))[0]
             obs_kf.append(np.full(len(feat), s, np.int32))
             obs_pt.append(pt_slot[match[feat]])
-            obs_uv.append(m.kf_feat_uv[kfi, feat])
+            obs_uv.append(self._ba_uv(m)[kfi, feat])
             obs_is2.append(1.0 / 1.2 ** (2.0 * m.kf_feat_octave[kfi, feat]))
         obs_kf = np.concatenate(obs_kf)[:self.ba_obs_cap]
         obs_pt = np.concatenate(obs_pt)[:self.ba_obs_cap]
@@ -1188,9 +1201,11 @@ class LocalMapper(HostIO):
         from the solved states, and remove the points left with fewer than 2
         observations (1 for stereo / RGB-D).  `pt_n_obs[bad_pts] -= 1`
         subtracts once per point of a keyframe however many of its
-        features were unbound, as the reference does."""
+        features were unbound, as the reference does.  A KB8 camera's
+        window erases nothing (its observations are raw pixels; the
+        reference skips the pass, models/local_mapping.py:1316)."""
         m = self.map
-        if len(obs_kf) == 0:
+        if len(obs_kf) == 0 or self.kb8 is not None:
             return
         T_cw = m.kf_pose_cw[win[obs_kf]]
         X = m.pt_xyz[pt_ids[obs_pt]]
@@ -1288,7 +1303,7 @@ class LocalMapper(HostIO):
             feat = np.nonzero((match >= 0) & np.isin(match, pt_ids))[0]
             obs_kf.append(np.full(len(feat), s, np.int32))
             obs_pt.append(pt_slot[match[feat]])
-            obs_uv.append(m.kf_feat_uv[kfi, feat])
+            obs_uv.append(self._ba_uv(m)[kfi, feat])
             obs_is2.append(1.0 / 1.2 ** (2.0 * m.kf_feat_octave[kfi, feat]))
         obs_kf = np.concatenate(obs_kf)[:obs_cap]
         obs_pt = np.concatenate(obs_pt)[:obs_cap]

@@ -26,7 +26,9 @@ hamming_dist`), `sim3_ransac` and `sim3_reproj` (csrc/sim3.cu), the
 essential graph (csrc/pose_graph.cu, the graph compacted to the chain's
 anchors) and the global BA (`make_local_ba_pl` / `make_local_ba` at the
 reference's capacities: 128 keyframes, S = 768, on schur_solve's global
-path).  `plain=True` runs the plain versions on any device.
+path; with a KB8 camera its point edge is the lens's on raw pixels,
+`ba_linearize`'s KB8 mode).  `plain=True` runs the plain versions on any
+device.
 
 The RANSAC samples of each verification come from the closer's
 `torch.Generator` (seeded with cfg.seed + 7, one draw per verification as
@@ -49,7 +51,7 @@ from ..cuda import HostIO, resolve_device
 from ..ops import matching as M
 from ..ops import pnp as PNP
 from ..ops import twoview as TV
-from ..solver.residuals import PinholeK
+from ..solver.residuals import PinholeK, kb8_for
 from ..utils import lie
 from ..utils.metrics import Metrics
 from . import kernels as KN
@@ -77,11 +79,11 @@ class LoopCloser(HostIO):
         self.plain = plain
         self.host_syncs = 0
         cam = cfg.camera
-        if cam.model != "pinhole":
-            raise NotImplementedError(
-                f"the {cam.model} camera is not ported yet (ROADMAP Queue 1 "
-                "item 7)")
         self.K = PinholeK(fx=cam.fx, fy=cam.fy, cx=cam.cx, cy=cam.cy)
+        # the KB8 fisheye: the global BA runs the lens on raw pixels (the
+        # Sim3 steps stay on undistorted coordinates)
+        self.kb8 = kb8_for(cfg)
+        self.ba_K = self.K if self.kb8 is None else self.kb8
         self.pg_kf_cap = pg_kf_cap
         self.pg_edge_cap = pg_edge_cap
         self.pose_graph = KN.make_pose_graph_optimizer(
@@ -786,7 +788,8 @@ class LoopCloser(HostIO):
             ks, fs, pts = ks[sel], fs[sel], pts[sel]
         obs_kf = ks.astype(np.int32)
         obs_pt = pt_slot[pts]
-        obs_uv = m.kf_feat_uv[chain[ks], fs]
+        uv_src = m.kf_feat_uv_raw if self.kb8 is not None else m.kf_feat_uv
+        obs_uv = uv_src[chain[ks], fs]
         obs_is2 = (1.0 / 1.2 ** (2.0 * m.kf_feat_octave[chain[ks], fs])
                    ).astype(np.float32)
 
@@ -849,7 +852,7 @@ class LoopCloser(HostIO):
             ln_free[:len(ln_ids)] = True
             if self.gba_pl_kernel is None:
                 self.gba_pl_kernel = KN.make_local_ba_pl(
-                    self.K, rounds=2, iters=5, plain=self.plain)
+                    self.ba_K, rounds=2, iters=5, plain=self.plain)
             poses_out, pts_out, lns_out, _, _ = self.gba_pl_kernel(
                 *point_args, *(self._dev(a) for a in (
                     ln_ep6, ln_free, pad(lobs_kf, lobs_cap),
@@ -863,7 +866,7 @@ class LoopCloser(HostIO):
         else:
             if self.gba_kernel is None:
                 self.gba_kernel = KN.make_local_ba(
-                    self.K, rounds=2, iters=5, plain=self.plain)
+                    self.ba_K, rounds=2, iters=5, plain=self.plain)
             poses_out, pts_out, _ = self.gba_kernel(*point_args)
             poses_out, pts_out = self._host_many(poses_out, pts_out)
         self.metrics.bump("gba/solves")

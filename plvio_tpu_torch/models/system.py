@@ -21,9 +21,8 @@ map transform handed to the tracker).
 
 Not ported, each raising NotImplementedError naming its ROADMAP item
 where the reference would take it: the prior-map relocalizer
-(`reloc.enabled`, Queue 1 item 5), STEREO or RGB-D with a baseline and
-no lines (the point-only stereo pose optimizer), the KB8 camera and the
-ED line detector (item 7), and the peripherals of item 9
+(`reloc.enabled`, Queue 1 item 5), the KB8 camera with an IMU or lines
+(item 7b'), the ED line detector (item 7), and the peripherals of item 9
 (`async_mapping`, `change_dataset`, `save_atlas` / `load_atlas`, the live
 viewer, the overlay and snapshot dumps, `export_map`).  The XLA cache hygiene of the reference
 (`_host_hygiene`) has no counterpart.
@@ -42,6 +41,7 @@ from ..cuda import resolve_device
 from ..io import trajectory as TIO
 from ..ops import cameras as CAM
 from ..ops import stereo as ST
+from ..solver.residuals import kb8_for
 from ..utils import lie
 from ..utils.metrics import Metrics
 
@@ -83,9 +83,10 @@ def undistort_features(cam: CAM.Camera, feats, lf=None,
                        plain: bool = False):
     """The keypoints' undistortion (`uv_und`) and, with segments `lf`,
     their endpoints' with new line equations, in one `undistort` launch
-    for CUDA features (the plain version on the CPU or with `plain`); a
+    for CUDA features (the plain version on the CPU or with `plain`; a
+    KB8 camera takes the kernel's KB8 mode, keypoints only); a pinhole
     camera without distortion leaves them as they are."""
-    if not any(cam.dist):
+    if cam.model != "kb8" and not any(cam.dist):
         return feats._replace(uv_und=feats.uv), lf
     ep = None if lf is None else lf.ep.contiguous()
     if plain or feats.uv.device.type == "cpu":
@@ -208,8 +209,7 @@ class System:
         self.device = resolve_device(device)
         self.plain = plain
         cam = cfg.camera
-        if cam.model != "pinhole":
-            raise NotImplementedError(f"the {cam.model} camera {_ITEM7}")
+        kb8_for(cfg)        # raises where the KB8 camera is not ported
         self.camera = CAM.make_camera(cam)
         self.level_specs = make_level_specs(
             cam.height, cam.width, cfg.orb.n_features, cfg.orb.n_levels,

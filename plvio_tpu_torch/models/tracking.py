@@ -50,15 +50,21 @@ one-keyframe bootstrap from depth, the depth-seeded points and lines of
 each new keyframe, and the right-eye residual u_R = u - bf / z in the
 point+line pose IRLS (`pose_irls` with its u_R column, sensors STEREO,
 RGB-D and IMU_STEREO before IMU init) and in the VI pose optimization
-(`vi_pose_lm`'s stereo term, IMU_STEREO).  The u_R column is computed on
-the device from the frame's depths, in the reference's float32
-operations (uv - bf / max(z, 0.1) where z > 0.1, else -1).
+(`vi_pose_lm`'s stereo term, IMU_STEREO), and without lines (STEREO or
+RGB-D with bf > 0) in the point-only stereo LM (`pose_lm`'s stereo mode,
+`make_pose_optimizer_stereo`).  The u_R column is computed on the device
+from the frame's depths, in the reference's float32 operations (uv - bf /
+max(z, 0.1) where z > 0.1, else -1).
 
-Not ported, each for a later item of the port: the point-only stereo pose
-optimizer (STEREO or RGB-D with bf > 0 and no lines), the KB8 camera and
-the line-only pose optimizers of SLAM modes 1-3; each raises
-NotImplementedError where the reference would take it.  The PLVIO_TRACE
-prints are left out.
+The KB8 fisheye (monocular, no lines): the local-map matcher
+(`proj_match`'s KB8 mode) and the pose solve (`pose_lm`'s KB8 mode) run
+against the frame's raw pixels (`uv`), the bootstrap and the keyframes'
+undistorted coordinates stay as for the pinhole camera.
+
+Not ported, each for a later item of the port: the KB8 camera with an IMU
+or with lines (Queue 1 item 7b') and the line-only pose optimizers of
+SLAM modes 1-3; each raises NotImplementedError where the reference would
+take it.  The PLVIO_TRACE prints are left out.
 """
 from __future__ import annotations
 
@@ -76,7 +82,7 @@ from ..ops import imu as IMU
 from ..ops import matching as M
 from ..ops import pnp as PNP
 from ..ops import twoview as TV
-from ..solver.residuals import PinholeK
+from ..solver.residuals import PinholeK, kb8_for
 from ..utils import lie
 from ..utils.metrics import Metrics
 from . import kernels as KN
@@ -123,27 +129,34 @@ class Tracker(HostIO):
         self.device = resolve_device(device)
         self.plain = plain
         cam = cfg.camera
-        if cam.model != "pinhole":
-            raise NotImplementedError(f"the {cam.model} camera {_ITEM7}")
         self.K = PinholeK(fx=cam.fx, fy=cam.fy, cx=cam.cx, cy=cam.cy)
         self._match = M.hamming_match_plain if plain else M.hamming_match
         self._hist = M.rotation_histogram_filter if plain else M.rot_hist
         self._preint = IMU.imu_preint_plain if plain else IMU.imu_preint
         self.pose_opt = KN.make_pose_optimizer(self.K, plain=plain)
         self.proj_match = KN.make_projection_matcher(self.K, plain=plain)
+        # the KB8 fisheye: the local-map matcher and the pose solve run
+        # through the lens on raw pixels
+        self.kb8 = kb8_for(cfg)
+        if self.kb8 is not None:
+            self.proj_match = KN.make_projection_matcher_kb8(self.kb8,
+                                                             plain=plain)
+            self.pose_opt = KN.make_pose_optimizer_kb8(self.kb8, plain=plain)
 
         self.use_lines = cfg.use_lines
         self.local_ln_cap = 256
         self.n_line_feat = 256
         # stereo / RGB-D: bf = baseline * fx; the right-eye residual joins
         # the point+line pose IRLS (sensors 1, 2, 4) and the VI pose
-        # optimization (sensor 4)
+        # optimization (sensor 4); without lines, STEREO / RGB-D solve the
+        # pose with the point-only stereo LM
         self.bf = cam.baseline * cam.fx
-        self.pl_stereo = cfg.sensor in (1, 2, 4) and self.bf > 0
-        if cfg.sensor in (1, 2) and self.bf > 0 and not self.use_lines:
-            raise NotImplementedError(
-                "the point-only stereo pose optimizer "
-                f"(make_pose_optimizer_stereo) {_ITEM7}")
+        self.pl_stereo = cfg.sensor in (1, 2, 4) and self.bf > 0 \
+            and self.kb8 is None
+        self.pose_opt_stereo = None
+        if cfg.sensor in (1, 2) and self.bf > 0 and self.kb8 is None:
+            self.pose_opt_stereo = KN.make_pose_optimizer_stereo(
+                self.K, self.bf, plain=plain)
         if self.use_lines:
             self._init_line_pair = KN.make_line_pair_matcher(plain=plain)
             self._init_line_tri = KN.make_line_triangulator(self.K,
@@ -166,7 +179,8 @@ class Tracker(HostIO):
         self.vi_pose_opt = KN.make_vi_pose_optimizer(
             self.K, local_pts_cap, self.R_cb, self.t_cb, cfg.imu.gravity,
             plain=plain,
-            bf=self.bf if cfg.sensor == 4 and self.bf > 0 else 0.0)
+            bf=self.bf if cfg.sensor == 4 and self.bf > 0
+            and self.kb8 is None else 0.0)
         # the frame-to-frame marginalization prior carried between VI
         # solves; dropped whenever the frame state is rewritten
         self.prior_H15: Optional[np.ndarray] = None
@@ -961,7 +975,9 @@ class Tracker(HostIO):
             torch.zeros(cap, 2, dtype=torch.float32, device=self.device),
             feats.uv_und.contiguous(), radius=math.inf, max_dist=60.0,
             ratio=0.75)
-        uv_m = feats.uv_und[idx.long()]
+        # the KB8 fisheye solves against raw pixels
+        uv_m = (feats.uv if self.kb8 is not None else feats.uv_und)[
+            idx.long()]
         ok_np, idx_np = self._host_many(ok, idx)
         feat_pt = np.full(self.n_feat, -1, np.int32)
         slots = np.nonzero(ok_np)[0]
@@ -1047,7 +1063,9 @@ class Tracker(HostIO):
             radius = 40.0
         pose_t = self._dev(np.asarray(pose_pred, np.float32))
         xyz_t, desc_t, live_t = (self._dev(a) for a in (xyz, desc, live))
-        obs = (feats.uv_und, feats.desc, feats.octave, feats.valid)
+        # the KB8 fisheye matches and solves against raw pixels
+        obs = (feats.uv if self.kb8 is not None else feats.uv_und,
+               feats.desc, feats.octave, feats.valid)
         uv_m, pt_feat, matched, _ = self.proj_match(
             pose_t, xyz_t, desc_t, live_t, *obs, radius,
             pt_normal=self._dev(nrm), pt_min_dist=self._dev(dmin),
@@ -1169,6 +1187,14 @@ class Tracker(HostIO):
             self.last_line_feats = lf
             m.ln_visible[ln_ids[ln_live]] += 1
             m.ln_found[ln_ids[good_l]] += 1
+        elif self.pose_opt_stereo is not None \
+                and self._frame_depth is not None:
+            # STEREO / RGB-D without lines: the u_R column where the
+            # matched feature has a depth (u_R < 0 keeps the row mono)
+            uvr = torch.cat([uv_m, self._ur_column(uv_m, pt_feat)[:, None]],
+                            1)
+            pose, inlier, n_inl = self.pose_opt_stereo(pose_t, uvr, xyz_t,
+                                                       matched, is2)
         else:
             pose, inlier, n_inl = self.pose_opt(pose_t, uv_m, xyz_t, matched,
                                                 is2)

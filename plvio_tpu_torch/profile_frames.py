@@ -4,7 +4,8 @@ keyframe step over a keyframe sequence and the tracked sequence goes, on
 one CUDA card.
 
     python3 -m plvio_tpu_torch.profile_frames \
-        [sequence | tracked | system | loop | mh_loop | stereo]
+        [sequence | tracked | system | loop | mh_loop | stereo |
+         stereo_points | kb8]
 
 Builds the synthetic inputs of `chip_smoke.py` (EuRoC geometry: 480x752,
 1000 ORB features, 256 line features, 2048 map points, 128 map lines; 16
@@ -63,6 +64,12 @@ of `system` (bootstrap, tracked and keyframe frames), the device kernels
 with the most time, and the right view's front end (its ORB and line
 extraction, CUDA events around it alone on every pair's right view):
 ms a frame and its share of a tracked frame's wall and of a frame's.
+`stereo_points` runs the point-only STEREO room (`entry.stereo_room`
+without lines, 15 pairs) and the RGB-D room with bf = 40
+(`entry.rgbd_room`, 12 frames), `kb8` the fisheye room
+(`entry.kb8_room`, 30 frames, loop closing on): each the per-frame
+figures of `system` (bootstrap, tracked and keyframe frames) and the
+device kernels with the most time.
 
 Prints the card's `nvidia-smi` name and power limit first.  Needs one
 card; JAX is never imported.
@@ -537,49 +544,14 @@ def profile_mh_loop(dev):
 
 
 def profile_stereo(dev):
-    """The System over the stereo-inertial replay: a warm-up run, one run
-    for the wall ms and host syncs of each frame, one under
-    `torch.profiler` for the device busy ms, split by frame kind; then the
-    right view's front end alone on every pair."""
+    """The System over the stereo-inertial replay (`_profile_run`), then
+    the right view's front end alone on every pair."""
     step, S = E.stereo_replay(device=dev)
-    with torch.no_grad():
-        step(S)
-        out = step(S)
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.no_grad(), torch.profiler.profile(activities=acts) as prof:
-        step(S, frame_ctx=lambda i: torch.profiler.record_function("frame"))
-    ranges, dev_ev = _frame_ranges(prof)
-    busy = [sum(d for t, d, _ in dev_ev if a <= t <= b) / 1e3
-            for a, b in ranges]
-    rows = defaultdict(list)
-    for i, (f, b) in enumerate(zip(out.frames, busy)):
-        kind = "bootstrap" if i <= out.init_frame else (
-            "relocalize" if f.reloc_tried else
-            "keyframe" if f.keyframe else "tracked")
-        rows[kind].append((f.ms, b, f.host_syncs))
+    out, rows, tot = _profile_run(
+        step, S, "System over the stereo-inertial replay (production's "
+        "sizes)", lambda o: f", lines {o.lines}, IMU initialized at frame "
+        f"{o.imu_init_frame}")
     n = len(out.frames)
-    print(f"== System over the stereo-inertial replay ({n} pairs, "
-          f"production's sizes): tracked {out.n_tracked}, keyframes "
-          f"{out.keyframes}, points {out.points}, lines {out.lines}, IMU "
-          f"initialized at frame {out.imu_init_frame}, ATE "
-          f"{out.ate_sim3:.4f} / {out.ate_se3:.4f} m; per frame")
-    for kind in ("bootstrap", "tracked", "keyframe", "relocalize"):
-        if not rows[kind]:
-            continue
-        r = np.array(rows[kind])
-        wall, dbusy = r[:, 0].mean(), r[:, 1].mean()
-        print(f"   {kind:10s} frames {len(r):3d} wall {wall:8.3f} ms/frame "
-              f"device busy {dbusy:8.3f} ms/frame idle share "
-              f"{1 - dbusy / wall:6.1%} host syncs {r[:, 2].mean():5.1f}")
-    tot = np.array([x for r in rows.values() for x in r])
-    print(f"   all        frames {len(tot):3d} wall {tot[:, 0].mean():8.3f} "
-          f"ms/frame device busy {tot[:, 1].mean():8.3f} ms/frame idle share"
-          f" {1 - tot[:, 1].sum() / tot[:, 0].sum():6.1%}")
-    for name, (c, ms) in sorted(_per_name(dev_ev).items(),
-                                key=lambda kv: -kv[1][1])[:14]:
-        print(f"   {name[:70]:70s} n/frame {c / n:6.1f} dev ms/frame "
-              f"{ms / n:.4f}")
     slam = out.system
     imgs = [torch.from_numpy(im).to(dev) for im in S["right"]]
     t0 = torch.cuda.Event(enable_timing=True)
@@ -600,6 +572,64 @@ def profile_stereo(dev):
     print(f"   the right view's front end (ORB + lines): {right:.3f} ms a "
           f"frame = {right / tracked:.1%} of a tracked frame's wall, "
           f"{right / tot[:, 0].mean():.1%} of a frame's")
+
+
+def _profile_run(step, S, title: str, detail=lambda out: ""):
+    """A SystemRun over S: a warm-up run, one for the wall ms and host
+    syncs of each frame, one under `torch.profiler` for the device busy
+    ms; per frame kind and the device kernels with the most time.
+    Returns (out, rows by frame kind, all rows)."""
+    with torch.no_grad():
+        step(S)
+        out = step(S)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.no_grad(), torch.profiler.profile(activities=acts) as prof:
+        step(S, frame_ctx=lambda i: torch.profiler.record_function("frame"))
+    ranges, dev_ev = _frame_ranges(prof)
+    busy = [sum(d for t, d, _ in dev_ev if a <= t <= b) / 1e3
+            for a, b in ranges]
+    rows = defaultdict(list)
+    for i, (f, b) in enumerate(zip(out.frames, busy)):
+        kind = "bootstrap" if i <= out.init_frame else (
+            "relocalize" if f.reloc_tried else
+            "keyframe" if f.keyframe else "tracked")
+        rows[kind].append((f.ms, b, f.host_syncs))
+    n = len(out.frames)
+    print(f"== {title} ({n} frames): tracked {out.n_tracked}, keyframes "
+          f"{out.keyframes}, points {out.points}{detail(out)}, ATE "
+          f"{out.ate_sim3:.4f} / {out.ate_se3:.4f} m; per frame")
+    for kind in ("bootstrap", "tracked", "keyframe", "relocalize"):
+        if not rows[kind]:
+            continue
+        r = np.array(rows[kind])
+        wall, dbusy = r[:, 0].mean(), r[:, 1].mean()
+        print(f"   {kind:10s} frames {len(r):3d} wall {wall:8.3f} ms/frame "
+              f"device busy {dbusy:8.3f} ms/frame idle share "
+              f"{1 - dbusy / wall:6.1%} host syncs {r[:, 2].mean():5.1f}")
+    tot = np.array([x for r in rows.values() for x in r])
+    print(f"   all        frames {len(tot):3d} wall {tot[:, 0].mean():8.3f} "
+          f"ms/frame device busy {tot[:, 1].mean():8.3f} ms/frame idle share"
+          f" {1 - tot[:, 1].sum() / tot[:, 0].sum():6.1%}")
+    for name, (c, ms) in sorted(_per_name(dev_ev).items(),
+                                key=lambda kv: -kv[1][1])[:14]:
+        print(f"   {name[:70]:70s} n/frame {c / n:6.1f} dev ms/frame "
+              f"{ms / n:.4f}")
+    return out, rows, tot
+
+
+def profile_stereo_points(dev):
+    """The point-only STEREO room and the RGB-D room with bf = 40."""
+    step, S = E.stereo_room(device=dev, use_lines=False)
+    _profile_run(step, S, "STEREO room without lines")
+    step, S = E.rgbd_room(device=dev, bf=40.0)
+    _profile_run(step, S, "RGB-D room, bf 40")
+
+
+def profile_kb8(dev):
+    """The KB8 fisheye room, monocular, loop closing on."""
+    step, S = E.kb8_room(device=dev)
+    _profile_run(step, S, "KB8 fisheye room")
 
 
 def _per_name(dev_ev):
@@ -635,6 +665,12 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["stereo"]:
         profile_stereo(dev)
+        return 0
+    if sys.argv[1:] == ["stereo_points"]:
+        profile_stereo_points(dev)
+        return 0
+    if sys.argv[1:] == ["kb8"]:
+        profile_kb8(dev)
         return 0
     (frames, poses, pt_xyz, pt_desc, pt_valid, ln_ep6, ln_desc, ln_valid,
      traj) = build_inputs(N_FRAMES, CAP_PTS, CAP_LNS, H, W,

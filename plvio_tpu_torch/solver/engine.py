@@ -22,6 +22,14 @@ Python float a float64 tangent, which a float32 matmul then refuses
 (torch 2.13 on the CPU).  The Huber weight is w = min(1, delta/sqrt(chi2))
 on the whitened chi2, recomputed at every evaluation, and the LM cost is
 sum(w * chi2).
+
+The normal equations' sums over observations (`accumulate`) are
+`index_add_` / `index_put_(accumulate=True)` on the CPU, where they run
+in observation order.  On the card those are float atomics, whose order
+changes from run to run; there the sums go through `segment_sum`: one
+stable sort by destination, then fixed-shape sums of chunks of SEG_CHUNK
+rows, level by level, so that every run adds the same numbers in the same
+order.
 """
 from __future__ import annotations
 
@@ -180,6 +188,69 @@ def _cg_solve(H: torch.Tensor, g: torch.Tensor, iters: int) -> torch.Tensor:
     return x
 
 
+SEG_CHUNK = 64          # rows summed together at each level of segment_sum
+
+
+def segment_sum(keys: torch.Tensor, vals: torch.Tensor):
+    """Deterministic sums of the rows vals [N,W] by keys [N]: (the distinct
+    keys in ascending order [U], their sums [U,W]).  One stable sort, then
+    per level each key's rows in chunks of SEG_CHUNK: every chunk is
+    written to its own slots of a zero buffer (no two rows share a slot)
+    and summed along a fixed axis; the chunks' sums are the next level's
+    rows, until each key has one row.  The order of the additions depends
+    on the keys alone, not on the scheduling of the card."""
+    dev = keys.device
+    order = torch.argsort(keys, stable=True)
+    k, v = keys[order], vals[order]
+    while True:
+        uniq, counts = torch.unique_consecutive(k, return_counts=True)
+        if k.numel() == uniq.numel():
+            return uniq, v
+        start = torch.cumsum(counts, 0) - counts
+        seg = torch.repeat_interleave(
+            torch.arange(uniq.numel(), device=dev), counts)
+        pos = torch.arange(k.numel(), device=dev) - start[seg]
+        n_chunk = (counts + SEG_CHUNK - 1) // SEG_CHUNK
+        chunk = (torch.cumsum(n_chunk, 0) - n_chunk)[seg] + pos // SEG_CHUNK
+        buf = torch.zeros(int(n_chunk.sum()), SEG_CHUNK, v.shape[1],
+                          dtype=v.dtype, device=dev)
+        buf[chunk, pos % SEG_CHUNK] = v
+        v = buf.sum(1)
+        k = torch.repeat_interleave(uniq, n_chunk)
+
+
+def accumulate(out: torch.Tensor, indices, values: torch.Tensor,
+               sorted_sums: Optional[bool] = None) -> None:
+    """out[indices] += values with repeated indices summed, as
+    `out.index_put_(indices, values, accumulate=True)` (indices a tuple of
+    index tensors over out's leading dimensions, broadcast together; values
+    of their shape + out's remaining dimensions).  CPU tensors take
+    `index_add_` (one 1-D index) or `index_put_`, which sum in observation
+    order; CUDA tensors (or `sorted_sums=True`) sum by `segment_sum` and
+    add each distinct destination once."""
+    if sorted_sums is None:
+        sorted_sums = out.device.type != "cpu"
+    if not sorted_sums:
+        if len(indices) == 1 and indices[0].ndim == 1:
+            out.index_add_(0, indices[0], values)
+        else:
+            out.index_put_(indices, values, accumulate=True)
+        return
+    n = len(indices)
+    idx = torch.broadcast_tensors(*indices)
+    key = torch.zeros(idx[0].shape, dtype=torch.long, device=out.device)
+    for d in range(n):
+        key = key * out.shape[d] + idx[d].long()
+    rest = out.shape[n:]
+    width = 1
+    for r in rest:
+        width *= r
+    vals = values.expand(*idx[0].shape, *rest).reshape(-1, width)
+    uniq, sums = segment_sum(key.reshape(-1), vals)
+    flat = out.view(-1, width)
+    flat[uniq] = flat[uniq] + sums
+
+
 def _robust_weight(term: Term, chi2: torch.Tensor) -> torch.Tensor:
     if term.robust_delta > 0:
         w = torch.clamp_max(term.robust_delta
@@ -279,9 +350,10 @@ class Problem:
                 Hab = torch.einsum("kdi,kdj->kij", Jaw, Jparts[0])
                 ga = -torch.einsum("kdi,kd->ki", Jaw, r)
                 Hk = torch.zeros(fam.count, da, da, dtype=H.dtype,
-                                 device=dev).index_add_(0, idx_a, Hab)
-                gk = torch.zeros(fam.count, da, dtype=H.dtype,
-                                 device=dev).index_add_(0, idx_a, ga)
+                                 device=dev)
+                accumulate(Hk, (idx_a,), Hab)
+                gk = torch.zeros(fam.count, da, dtype=H.dtype, device=dev)
+                accumulate(gk, (idx_a,), ga)
                 n = fam.count * da
                 H[off0:off0 + n, off0:off0 + n] += torch.block_diag(
                     *Hk.unbind(0))
@@ -301,14 +373,12 @@ class Problem:
             rows = layout.offset_of(name_a, idx_a)[:, None] \
                 + torch.arange(Jparts[a].shape[2], device=dev)[None, :]
             Jaw = Jparts[a] * w[:, None, None]
-            g.index_put_((rows,), -torch.einsum("kdi,kd->ki", Jaw, r),
-                         accumulate=True)
+            accumulate(g, (rows,), -torch.einsum("kdi,kd->ki", Jaw, r))
             for b, (name_b, idx_b) in enumerate(refs):
                 cols = layout.offset_of(name_b, idx_b)[:, None] \
                     + torch.arange(Jparts[b].shape[2], device=dev)[None, :]
                 Hab = torch.einsum("kdi,kdj->kij", Jaw, Jparts[b])
-                H.index_put_((rows[:, :, None], cols[:, None, :]), Hab,
-                             accumulate=True)
+                accumulate(H, (rows[:, :, None], cols[:, None, :]), Hab)
 
     def _couple_landmark(self, layout, term, Jparts, w, r, lm_sys):
         """Hpp, gp and the coupling B of a term's landmark reference."""
@@ -318,8 +388,8 @@ class Problem:
         Jl = Jparts[nd]
         Jlw = Jl * w[:, None, None]
         Hpp, gp, B = lm_sys[lname]
-        Hpp.index_add_(0, lidx, torch.einsum("kdi,kdj->kij", Jlw, Jl))
-        gp.index_add_(0, lidx, -torch.einsum("kdi,kd->ki", Jlw, r))
+        accumulate(Hpp, (lidx,), torch.einsum("kdi,kdj->kij", Jlw, Jl))
+        accumulate(gp, (lidx,), -torch.einsum("kdi,kd->ki", Jlw, r))
         dev = B.device
         cols = (lidx[:, None] * dl + torch.arange(dl, device=dev))[:, None, :]
         for a in range(nd):
@@ -329,7 +399,7 @@ class Problem:
                     + torch.arange(da, device=dev))[:, :, None]
             Hal = torch.einsum("kdi,kdj->kij", Jparts[a] * w[:, None, None],
                                Jl)
-            B.index_put_((rows, cols), Hal, accumulate=True)
+            accumulate(B, (rows, cols), Hal)
 
     def solve_step(self, states, lam: torch.Tensor,
                    dense_free_mask: Optional[Dict[str, torch.Tensor]] = None,

@@ -8,7 +8,11 @@ retractions (port of plvio_tpu/solver/residuals.py:
 `make_point_reproj_body` :248, `make_stereo_reproj_body` :266,
 `make_point_reproj_body_ba` :290,
 `state_prior` :308, `make_inertial` :318, `make_inertial_gs` :348,
-`bias_rw` :466, `make_prior15` :474, `point_reproj_ba_for` :559,
+`bias_rw` :466, `make_prior15` :474, the pose-only edges
+`make_point_reproj_fixed` :119 and `make_stereo_reproj_fixed` :132, the
+KB8 fisheye's `KB8K` :500, `kb8_project_single` :511,
+`make_point_reproj_kb8_fixed` :524 and `make_point_reproj_kb8` :534,
+`point_reproj_ba_for` :559,
 `point_reproj_body_ba_for` :567, and the loop closer's Sim(3) pieces
 `sim3_from_flat` :387, `sim3_to_flat` :392, `retract_sim3(_single)`
 :396-409, `retract_sim3_4dof(_single)` :414-434 with `_SIM3_4DOF_MASK`,
@@ -25,7 +29,7 @@ perturbation T <- Exp(rho, phi) T of `lie.se3_exp`.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -37,6 +41,34 @@ class PinholeK(NamedTuple):
     fy: float
     cx: float
     cy: float
+
+
+class KB8K(NamedTuple):
+    """The Kannala-Brandt (equidistant) fisheye's intrinsics: the BA and
+    pose edges of a KB8 camera project through it onto raw pixels."""
+    fx: float
+    fy: float
+    cx: float
+    cy: float
+    k1: float
+    k2: float
+    k3: float
+    k4: float
+
+
+def kb8_for(cfg) -> Optional[KB8K]:
+    """The KB8K of a SystemConfig's KB8 camera, None for a pinhole one.
+    The KB8 camera with an IMU or lines raises: its inertial and line
+    edges on raw pixels are not ported yet (ROADMAP Queue 1 item 7b')."""
+    cam = cfg.camera
+    if cam.model != "kb8":
+        return None
+    if cfg.sensor in (3, 4) or cfg.use_lines:
+        raise NotImplementedError("the KB8 camera with an IMU or lines is "
+                                  "not ported yet (ROADMAP Queue 1 item "
+                                  "7b')")
+    d = tuple(cam.dist) + (0.0,) * 4
+    return KB8K(cam.fx, cam.fy, cam.cx, cam.cy, *d[:4])
 
 
 # --------------------------------------------------------------------------
@@ -103,10 +135,76 @@ def make_point_reproj(K: PinholeK):
     return res
 
 
-def point_reproj_ba_for(K: PinholeK):
-    """The full-BA point edge of a pinhole camera (the reference's
-    camera-model dispatch; the port has the pinhole model only)."""
-    return make_point_reproj(K)
+def make_point_reproj_fixed(K: PinholeK):
+    """Pose-only edge (pose_cw) -> r [2], the landmark a constant;
+    const = {'uv': [2], 'X': [3]}."""
+    def res(blocks, deltas, const):
+        (P,) = blocks
+        (dp,) = deltas
+        R, t = retract_pose_cw_single(P, dp)
+        return _project(K, R @ const["X"] + t) - const["uv"]
+    return res
+
+
+def make_stereo_reproj_fixed(K: PinholeK, bf: float):
+    """Pose-only stereo edge -> r [3] with the right-eye row u_R = u -
+    bf / z (depth clamped at 1e-4); const = {'uvr': [3], 'X': [3]}."""
+    def res(blocks, deltas, const):
+        (P,) = blocks
+        (dp,) = deltas
+        R, t = retract_pose_cw_single(P, dp)
+        pc = R @ const["X"] + t
+        z = torch.clamp_min(pc[2], 1e-4)
+        u = K.fx * pc[0] / z + K.cx
+        v = K.fy * pc[1] / z + K.cy
+        ur = u - bf / z
+        return torch.stack([u, v, ur]) - const["uvr"]
+    return res
+
+
+def kb8_project_single(K: KB8K, pc: torch.Tensor) -> torch.Tensor:
+    """Camera-frame point [3] -> raw pixel [2] through the theta polynomial
+    (r floored at 1e-9, the depth at 1e-6; the powers and sums in jnp's
+    order).  Batched over leading dimensions too."""
+    x, y, z = pc[..., 0], pc[..., 1], pc[..., 2]
+    r = torch.sqrt(torch.clamp_min(x * x + y * y, 1e-18))
+    theta = torch.atan2(r, torch.clamp_min(z, 1e-6))
+    t2 = theta * theta
+    p2 = t2 * t2
+    theta_d = theta * (1.0 + K.k1 * t2 + K.k2 * p2 + K.k3 * (t2 * p2)
+                       + K.k4 * (p2 * p2))
+    s = theta_d / r
+    return torch.stack([K.fx * x * s + K.cx, K.fy * y * s + K.cy], -1)
+
+
+def make_point_reproj_kb8_fixed(K: KB8K):
+    """Pose-only KB8 edge against raw pixels; const = {'uv': [2], 'X':
+    [3]}."""
+    def res(blocks, deltas, const):
+        (P,) = blocks
+        (dp,) = deltas
+        R, t = retract_pose_cw_single(P, dp)
+        return kb8_project_single(K, R @ const["X"] + t) - const["uv"]
+    return res
+
+
+def make_point_reproj_kb8(K: KB8K):
+    """Full BA KB8 edge (pose_cw, point) against raw pixels; const =
+    {'uv': [2]}."""
+    def res(blocks, deltas, const):
+        P, X = blocks
+        dp, dX = deltas
+        R, t = retract_pose_cw_single(P, dp)
+        return kb8_project_single(K, R @ (X + dX) + t) - const["uv"]
+    return res
+
+
+def point_reproj_ba_for(K):
+    """The camera-model dispatch of the full-BA point edge: a KB8K camera
+    optimizes the equidistant lens against raw pixels, a PinholeK one the
+    undistorted projection."""
+    return make_point_reproj_kb8(K) if isinstance(K, KB8K) \
+        else make_point_reproj(K)
 
 
 def make_line_reproj(K: PinholeK):
@@ -344,6 +442,52 @@ def _proj_jac_clamped(K: PinholeK, pc: torch.Tensor):
         torch.stack([zero, K.fy * iz, -K.fy * pc[:, 1] * iz * iz * dz], -1),
     ], 1)
     return uv, Jpi
+
+
+def kb8_proj_jac(K: KB8K, pc: torch.Tensor):
+    """(uv [N,2], d uv / d pc [N,2,3]) of `kb8_project_single`, analytic:
+    with r = sqrt(max(x^2 + y^2, 1e-18)), zc = max(z, 1e-6), theta =
+    atan2(r, zc), theta_d = theta P(theta^2), s = theta_d / r:
+    d theta / d r = zc / (r^2 + zc^2), d theta / d zc = -r / (r^2 + zc^2),
+    d theta_d / d theta = 1 + 3 k1 t2 + 5 k2 t2^2 + 7 k3 t2^3 + 9 k4 t2^4,
+    u = fx x s + cx.  No r derivative where r is floored (r -> 0) and no
+    depth derivative where the depth is clamped."""
+    x, y, z = pc[:, 0], pc[:, 1], pc[:, 2]
+    r2 = x * x + y * y
+    r = torch.sqrt(torch.clamp_min(r2, 1e-18))
+    zc = torch.clamp_min(z, 1e-6)
+    theta = torch.atan2(r, zc)
+    t2 = theta * theta
+    p2 = t2 * t2
+    p3 = t2 * p2
+    p4 = p2 * p2
+    theta_d = theta * (1.0 + K.k1 * t2 + K.k2 * p2 + K.k3 * p3 + K.k4 * p4)
+    dtd = 1.0 + 3.0 * K.k1 * t2 + 5.0 * K.k2 * p2 + 7.0 * K.k3 * p3 \
+        + 9.0 * K.k4 * p4
+    s = theta_d / r
+    den = r * r + zc * zc
+    ds_dr = (dtd * zc / den * r - theta_d) / (r * r)
+    ds_dz = dtd * (-r / den) / r * (z > 1e-6).to(pc.dtype)
+    on = (r2 > 1e-18).to(pc.dtype)
+    dr_dx, dr_dy = x / r * on, y / r * on
+    uv = torch.stack([K.fx * x * s + K.cx, K.fy * y * s + K.cy], -1)
+    J = torch.stack([
+        torch.stack([K.fx * (s + x * ds_dr * dr_dx), K.fx * x * ds_dr * dr_dy,
+                     K.fx * x * ds_dz], -1),
+        torch.stack([K.fy * y * ds_dr * dr_dx, K.fy * (s + y * ds_dr * dr_dy),
+                     K.fy * y * ds_dz], -1)], 1)
+    return uv, J
+
+
+def point_reproj_kb8_jac(K: KB8K, P, X, uv):
+    """Batched `make_point_reproj_kb8` at delta = 0 (the `ba_linearize`
+    kernel's KB8 mode): P [N,3,4] pose_cw, X [N,3], uv [N,2] -> (r [N,2],
+    J_pose [N,2,6], J_point [N,2,3])."""
+    R, t = P[..., :3], P[..., 3]
+    pc = (R @ X[..., None])[..., 0] + t
+    proj, Jpi = kb8_proj_jac(K, pc)
+    Jp = torch.cat([Jpi, -Jpi @ lie.hat(pc)], -1)
+    return proj - uv, Jp, Jpi @ R
 
 
 def point_reproj_jac(K: PinholeK, P, X, uv):

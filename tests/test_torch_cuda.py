@@ -744,11 +744,14 @@ def test_inertial_gs_lm_matches_plain(dev, refine):
     """IMU initialization and scale refinement at the cap of 32 KF, one
     launch: the kernel's gravity direction, scale, biases and velocities
     against the plain engine run in float64 on the CPU, within twice the
-    farther of the plain float32 runs' (on the card and on the CPU) plus
-    a floor (printed, run with -s): the LM's last accept / reject
-    decisions follow float32 noise in the cost near the optimum, which
-    leaves the plain path on the card 6.5e-5 from float64 in the scale and
-    the kernel 1.2e-5."""
+    farthest of the plain float32 runs' (on the card, and on the CPU over
+    `KN.FLOAT32_ORDERS` orders of the edges in the sums, the row-order
+    rule of `KN._solver_against_float64`) plus a floor (printed, run with
+    -s): the LM's last accept / reject decisions follow float32 noise in
+    the cost near the optimum, which leaves the kernel 1.2e-5 from float64
+    in the scale and the CPU's float32 runs up to 2.0e-6 over four edge
+    orders.  (Before the card's plain path summed in a fixed order, its
+    atomics gave that spread, 6.5e-5 in one run.)"""
     from plvio_tpu_torch.entry import imu_init
     m, B = imu_init(device=dev)
     mp, _ = imu_init(device=dev, plain=True)
@@ -767,12 +770,28 @@ def test_inertial_gs_lm_matches_plain(dev, refine):
             else v
     B64 = cast(Bc)
     ref = mc.refine(B64) if refine else mc(B64)
-    oc_ = mc.refine(Bc) if refine else mc(Bc)
     keys = list(enumerate(("Rwg", "scale", "bg", "ba", "vel")[:len(ref)]))
-    gk, gp, gc = _f64_gaps((ok_, op_, oc_), ref, keys)
+    gc = None
+    for o in range(KN.FLOAT32_ORDERS):
+        order = None if o == 0 else torch.from_numpy(
+            np.random.default_rng(o).permutation(Bc["edge_valid"].shape[0]))
+        if refine:
+            oc_ = KN.scale_refine_plain(
+                9.81, *[Bc[k] for k in ("ref_Rwg0", "ref_vel", "ref_bg",
+                                        "ref_ba", "pre_const", "ref_pose_R",
+                                        "ref_pose_p", "imu_info",
+                                        "edge_valid")], order=order)
+        else:
+            oc_ = KN.inertial_init_plain(
+                9.81, *[Bc[k] for k in ("Rwg0", "vel0", "pre_const",
+                                        "pose_R", "pose_p", "imu_info",
+                                        "edge_valid")], order=order)
+        g = _f64_gaps((oc_,), ref, keys)[0]
+        gc = g if gc is None else {k: max(gc[k], g[k]) for k in gc}
+    gk, gp = _f64_gaps((ok_, op_), ref, keys)
     print(f"refine={refine}: scale {float(ok_[1])} / {float(op_[1])} / "
           f"{float(ref[1])}; from float64: kernel {gk}, plain on the card "
-          f"{gp}, plain on the CPU {gc}")
+          f"{gp}, plain on the CPU over {KN.FLOAT32_ORDERS} edge orders {gc}")
     floor = {"Rwg": 1e-6, "scale": 1e-5, "bg": 1e-7, "ba": 1e-8,
              "vel": 1e-6}
     for _, k in keys:
@@ -1588,3 +1607,133 @@ def test_vi_pose_lm_stereo_matches_float64(dev, have_prior):
     out = KN.vi_pose_lm_against_float64(K, args, have_prior, ur, BF)
     assert not out["failures"], out
     assert KN.VI_POSE_LM_STEREO.launches == n0 + 2
+
+
+# --------------------------------------------------------------------------
+# Slice 12: the pose LM (stereo, KB8) and the KB8 modes of undistort,
+# proj_match and ba_linearize; the plain mapping path's sums
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kb8", [False, True])
+def test_pose_lm_matches_float64(dev, kb8):
+    """`pose_lm` (stereo: 1500 rows, u_R on two thirds; KB8: 2048 rows of
+    a wide-angle cloud; both with 20% outliers) against float64 runs of
+    its plain version: within 2x the plain float32 runs' distance (over
+    `KN.FLOAT32_ORDERS` row orders) + 1e-6 a pose entry, the same bits on
+    a second launch, inliers within max(2, 1%)."""
+    from plvio_tpu_torch.kernel_digest import kb8_lm_case, stereo_lm_case
+    args = kb8_lm_case(dev) if kb8 else stereo_lm_case(dev)
+    kern = KN.POSE_LM_KB8 if kb8 else KN.POSE_LM_STEREO
+    n0 = kern.launches
+    out = KN.pose_lm_against_float64(args, kb8)
+    print(f"pose_lm kb8={kb8}: from float64 kernel {out['kernel']:.2e}, "
+          f"plain float32 {out['plain']:.2e}; inliers {out['n']} / "
+          f"{out['n64']}")
+    assert not out["failures"], out
+    assert kern.launches == n0 + 2
+
+
+def test_undistort_kb8_matches_plain(dev):
+    """The KB8 mode of `undistort` against `kb8_undistort_pixels` on the
+    card on a 40 x 25 grid of raw pixels over the image: within 1e-4 px
+    (the same float32 operations in the same order; tan and atan are the
+    card's in both)."""
+    from plvio_tpu_torch.config import CameraConfig
+    from plvio_tpu_torch.inputs import KB8_INTRINSICS, KB8_K
+    from plvio_tpu_torch.ops import cameras as CAM
+    cam = CAM.make_camera(CameraConfig(model="kb8", dist=KB8_K,
+                                       **KB8_INTRINSICS))
+    u, v = np.meshgrid(np.linspace(0, 751, 40), np.linspace(0, 479, 25))
+    kp = torch.from_numpy(np.stack([u.ravel(), v.ravel()], -1).astype(
+        np.float32)).to(dev)
+    n0 = CAM.UNDISTORT_KB8.launches
+    kk, _, _ = CAM.undistort(cam, kp, None)
+    pk = CAM.kb8_undistort_pixels(cam, kp)
+    torch.cuda.synchronize()
+    assert CAM.UNDISTORT_KB8.launches == n0 + 1
+    d = float((kk - pk).abs().max())
+    print(f"undistort kb8: kernel - plain {d:.2e} px, bit-equal "
+          f"{torch.equal(kk, pk)}")
+    assert d <= 1e-4
+    assert torch.equal(CAM.undistort_pixels(cam, kp), kk)
+
+
+@pytest.mark.parametrize("mode", ["fuse", "tracker"])
+def test_proj_match_kb8_matches_plain(dev, mode):
+    """`proj_match`'s KB8 mode on `inputs.build_projection_case(kb8=True)`
+    in the fuse's mode and the tracker's (range gate; the normal is not
+    read): uv_m, pt_feat, matched and feat_pt identical to the plain
+    version on the card."""
+    from plvio_tpu_torch.inputs import build_projection_case, kb8_camera
+    c = {k: _np_t(v, dev) for k, v in build_projection_case(
+        kb8=True).items()}
+    args = [c[k] for k in ("pose", "pt_xyz", "pt_desc", "pt_valid",
+                           "feat_uv", "feat_desc", "feat_octave",
+                           "feat_valid")]
+    fr = (c["pt_normal"], c["pt_min_dist"], c["pt_max_dist"]) \
+        if mode == "tracker" else (None, None, None)
+    rk = (2.0, 50.0) if mode == "fuse" else (6.0, 80.0)
+    K8 = kb8_camera()
+    n0 = KN.PROJ_MATCH_KB8.launches
+    ok_ = KN.proj_match(K8, *args, *rk, *fr)
+    op_ = KN.proj_match_plain(K8, *args, *rk, *fr)
+    torch.cuda.synchronize()
+    assert KN.PROJ_MATCH_KB8.launches == n0 + 1
+    for a, b in zip(ok_, op_):
+        assert torch.equal(a, b)
+    assert int(ok_[2].sum()) >= 150
+
+
+def test_local_ba_kb8_kernel_as_close_to_float64_as_plain(dev):
+    """`make_local_ba` with the KB8 lens (`inputs.build_kb8_window`, 16
+    KF, perturbed start): the kernel path's KF poses within 2x the CPU
+    plain run's distance to the plain engine in float64, inlier masks
+    equal to the card's plain path's."""
+    from plvio_tpu_torch.inputs import build_kb8_window, kb8_camera
+    K8 = kb8_camera()
+    A = build_kb8_window(device="cpu")
+    args = list(A.values())
+    ref = KN.local_ba_plain(K8, *[a.double() if a.is_floating_point()
+                                  else a for a in args])[0]
+    card = [a.to(dev) for a in args]
+
+    def gap(out):
+        return float((out[0].cpu().double() - ref).abs().max())
+    n0 = KN.BA_LINEARIZE_KB8.launches
+    with torch.no_grad():
+        ok_ = KN.local_ba(K8, *card)
+        op_ = KN.local_ba_plain(K8, *card)
+        gk, gp = gap(ok_), gap(op_)
+        gc = gap(KN.local_ba_plain(K8, *args))
+    torch.cuda.synchronize()
+    print(f"KB8 BA, KF poses from the float64 run: kernel {gk:.2e}, plain "
+          f"on the card {gp:.2e}, plain on the CPU {gc:.2e}")
+    assert KN.BA_LINEARIZE_KB8.launches > n0
+    assert gk <= 2 * gc
+    assert torch.equal(ok_[2], op_[2])
+
+
+def test_mapping_step_plain_path_is_deterministic(dev):
+    """The plain mapping path on the card sums its normal equations by
+    sorted segment sums (solver/engine.py `accumulate`): three runs of the
+    typical mapping step from the perturbed start give the same bits, and
+    the kernel path's KF poses lie within 1e-4 of them."""
+    from plvio_tpu_torch.entry import MAPPING_TYPICAL, mapping_step
+    from plvio_tpu_torch.inputs import perturb_window
+    step, A = mapping_step(**MAPPING_TYPICAL, device=dev)
+    plain, _ = mapping_step(**MAPPING_TYPICAL, device=dev, plain=True)
+    P, X = perturb_window(A["kf_poses"].cpu().numpy(),
+                          A["pt_xyz"].cpu().numpy())
+    A["kf_poses"] = torch.from_numpy(P).to(dev)
+    A["pt_xyz"] = torch.from_numpy(X).to(dev)
+    with torch.no_grad():
+        ok_ = step(A)
+        runs = [plain(A) for _ in range(3)]
+    torch.cuda.synchronize()
+    for o in runs[1:]:
+        for a, b in zip(o, runs[0]):
+            if torch.is_tensor(a):
+                assert torch.equal(a, b)
+    d = float((ok_.kf_poses - runs[0].kf_poses).abs().max())
+    print(f"typical perturbed: kernel - card plain KF poses {d:.2e}")
+    assert d <= 1e-4

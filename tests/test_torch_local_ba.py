@@ -327,3 +327,34 @@ def test_local_ba_matches_reference(window, jax_lba_pt, perturbed):
     ej = _centre_err(oj[0], window["kf_poses"])
     et = _centre_err(ot[0], window["kf_poses"])
     assert abs(et - ej) <= 0.1 * ej, (et, ej)
+
+
+# -- the engine's deterministic sums (the card's path, run here) -------------
+
+@pytest.mark.parametrize("shape", ["blocks", "matrix"])
+def test_sorted_segment_sums_match_index_put(shape):
+    """`engine.accumulate`'s card path (`sorted_sums=True`: one stable
+    sort, fixed chunk sums by `segment_sum`) against `index_put_` with
+    accumulate on the CPU, in float64 on destinations hit from 0 to ~900
+    times (more than SEG_CHUNK^1: two levels): within 1e-12 relative (the
+    same sums in another order)."""
+    rng = np.random.default_rng(3)
+    if shape == "blocks":
+        out = torch.zeros(7, 6, 6, dtype=torch.float64)
+        idx = (torch.from_numpy(np.concatenate(
+            [np.zeros(900, np.int64), rng.integers(1, 6, 300)])),)
+        vals = torch.from_numpy(rng.normal(size=(1200, 6, 6)))
+    else:
+        out = torch.zeros(48, 48, dtype=torch.float64)
+        rows = torch.from_numpy(rng.integers(0, 8, (500, 1)) * 6
+                                + np.arange(6))
+        cols = torch.from_numpy(rng.integers(0, 8, (500, 1)) * 6
+                                + np.arange(6))
+        idx = (rows[:, :, None], cols[:, None, :])
+        vals = torch.from_numpy(rng.normal(size=(500, 6, 6)))
+    ref = out.clone().index_put_(idx, vals, accumulate=True)
+    got = out.clone()
+    TE.accumulate(got, idx, vals, sorted_sums=True)
+    assert float((got - ref).abs().max()) <= 1e-12 * float(ref.abs().max())
+    untouched = ref == 0
+    assert bool((got[untouched] == 0).all())

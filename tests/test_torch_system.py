@@ -310,21 +310,19 @@ def _port_system(**kw):
 
 
 @pytest.mark.parametrize("what,item", [
-    ("prior_reloc", 5), ("async", 9), ("stereo_points", 7),
-    ("kb8", 7), ("change_dataset", 9), ("save_atlas", 9),
+    ("prior_reloc", 5), ("async", 9), ("kb8_imu", 7),
+    ("kb8_lines", 7), ("change_dataset", 9), ("save_atlas", 9),
     ("load_atlas", 9), ("viewer", 9), ("overlay", 9), ("snapshot", 9),
     ("export_map", 9), ("ed_lines", 7)])
 def test_not_ported_options_raise(what, item, monkeypatch):
     from plvio_tpu_torch.config import (CameraConfig as PCam, LineConfig,
                                         RelocConfig, Sensor as PSensor)
     from plvio_tpu_torch.models.system import System
-    # the point-only stereo pose optimizer (STEREO with a baseline and no
-    # lines), the KB8 camera and the ED line detector
+    # the KB8 camera with an IMU or with lines, and the ED line detector
+    kb8 = PCam(model="kb8", dist=(0.0,) * 4)
     ctor = {"prior_reloc": dict(reloc=RelocConfig(enabled=True)),
-            "stereo_points": dict(sensor=PSensor.STEREO, use_lines=False,
-                                  camera=PCam(dist=(0.0,) * 4,
-                                              baseline=0.11)),
-            "kb8": dict(camera=PCam(model="kb8", dist=(0.0,) * 4)),
+            "kb8_imu": dict(camera=kb8, use_lines=False),
+            "kb8_lines": dict(sensor=PSensor.MONOCULAR, camera=kb8),
             "ed_lines": dict(line=LineConfig(detector=1))}
     env = {"viewer": "PLVIO_VIEWER_PORT"}
     with pytest.raises(NotImplementedError, match=f"item {item}"):

@@ -148,7 +148,9 @@ def test_port_never_loads_jax():
     sequence's first 7 frames at 300 features: the bootstrap on frame 2
     or 3, then tracking; `System` through `mh_replay` on 3 frames of a
     small hall; `track_stereo` through `stereo_replay` on 3 pairs of it
-    and `stereo_room`, `track_rgbd` through `rgbd_room`, 3 frames each;
+    and `stereo_room` (with and without lines), `track_rgbd` through
+    `rgbd_room` (bf 0 and 40), `track_monocular` with the KB8 camera
+    through `kb8_room`, 3 frames each;
     the loop closer on the drifted circle, its global BA at 32
     keyframes)."""
     code = (
@@ -235,10 +237,15 @@ def test_port_never_loads_jax():
         "so = sr(SS)\n"
         "assert so.init_frame == 0 and so.n_tracked == 3 and so.maps == 1\n"
         "assert so.metrics['stereo_match']['calls'] == 3\n"
-        "for fn in (stereo_room, rgbd_room):\n"
-        "    rr, RS = fn(3, device='cpu', **small)\n"
+        "for fn, kw in ((stereo_room, {}), (rgbd_room, {}), (stereo_room, "
+        "dict(use_lines=False)), (rgbd_room, dict(bf=40.0))):\n"
+        "    rr, RS = fn(3, device='cpu', **small, **kw)\n"
         "    ro = rr(RS)\n"
         "    assert ro.n_tracked == 3 and ro.ate_se3 < 0.05\n"
+        "from plvio_tpu_torch.entry import kb8_room\n"
+        "kr, KS = kb8_room(3, device='cpu', **small)\n"
+        "ko = kr(KS)\n"
+        "assert len(ko.frames) == 3 and ko.system.tracker.kb8 is not None\n"
         "from plvio_tpu_torch.entry import loop_closure\n"
         "lq, LI = loop_closure('circle', device='cpu', gba_caps=(32, 2048, "
         "4096))\n"
