@@ -180,7 +180,41 @@ exit, no result line) unless every phase passes:
    mode on the typical window (`inputs.build_kb8_window`: one
    linearization within 1e-4 relative of the plain engine, the BA within
    2x the CPU plain run's distance to float64); each room in a launch
-   window of its own with every kernel of its path launched.
+   window of its own with every kernel of its path launched;
+17. slice 13, the KB8 fisheye with the IMU (with and without lines) and
+   the line-only SLAM modes 1-3 through `System`: slice 12's digests of the
+   kernels that gained modes (SLICE12_DIGESTS); the new modes on fixed
+   windows at the paths' shapes, each by one linearization within 1e-4
+   relative of the plain engine's normal equations (pose blocks, g, Hpp,
+   gp, the couplings B: `KN.linearization_against_plain`) and by the
+   whole BA within 2x the plain float32 runs' distance to a float64 run
+   + 1e-6, bit-stable over three launches (`KN.against_float64`):
+   `ba_linearize`'s body-frame KB8 mode
+   (`inputs.build_inertial_window(kb8=True)`, 16 KF, with lines at the
+   worst bucket; without them at the half by the BA's rule alone; the
+   64-KF window on schur_solve's global path by its one-step rule), its
+   KB8 point edge beside the line family (`inputs.build_kb8_window(
+   n_ln=256, n_lobs=512)`), its line-only modes 1, 2 and 3 each with
+   schur_solve on no point blocks (`inputs.build_line_window`, 16 KF x
+   512 lines x 1024 observations); the KB8 camera's keyframe mapping step
+   (`entry.mapping_step(kb8=True)`, the worst window, the only path that
+   reaches the KB8 + line BA) in a launch window of its own; the fisheye
+   replay (`entry.kb8_vi_replay`'s inputs, its frames rendered by the
+   render process after the stereo pairs) without and with lines at
+   cfg.seed 0..4, and the MH replay's frames under SLAM modes 1, 2, 3 at
+   cfg.seed 0..4: each run against the JAX runs of its regime (with or
+   without IMU init; REF_KB8_VI over cfg.seed 0..9, with lines 0..19,
+   where 2 of the 20 initialize; REF_LINE_MODES over 0..9): frames
+   tracked, keyframes (the keyframes at the init where the reference's
+   runs mostly do not initialize) and the IMU init frame within 10% of
+   that pool's ranges, the ATE within 2x its worst (REF_KB8_VI: SE3;
+   REF_LINE_MODES: Sim3), each seed 0 run in a launch window of its own
+   with every kernel of its path launched; `undistort`'s KB8 mode on the
+   fisheye run's last frame's keypoints and segments (NaN on both where
+   the padding undistorts), `pose_irls` on its last point+line call (NaN
+   line rows: a NaN pose and no inliers on both, as the reference's), and
+   `pose_lm`'s line families on SLAM mode 3's last line-only call and on
+   `inputs.build_line_pose_case` (float64 rule).
 
 `library_ms` is one PyTorch call computing the same function where
 there is one (the pyramid's: 7 antialiased bilinear `F.interpolate`, its
@@ -229,6 +263,7 @@ from plvio_tpu_torch.inputs import (PNP_CASES, TWOVIEW_CASES,
                                     build_pnp_case, build_stereo_replay,
                                     build_twoview_cases, perturb_window)
 from plvio_tpu_torch.models import kernels as KN
+from plvio_tpu_torch.models.kernels import rel_err, unpack_sym
 from plvio_tpu_torch.models import vocabulary as V
 from plvio_tpu_torch.ops import cameras as CAM
 from plvio_tpu_torch.ops import frontend as FE
@@ -293,6 +328,13 @@ KERNELS = {
                        "plvio_tpu/models/kernels.py:1443"),
     "ba_linearize_kb8": (KN.BA_LINEARIZE_KB8,
                          "plvio_tpu/solver/residuals.py:534"),
+    "ba_linearize_kb8_body": (KN.BA_LINEARIZE_KB8_BODY,
+                              "plvio_tpu/solver/residuals.py:544"),
+    "ba_linearize_kb8_lines": (KN.BA_LINEARIZE_KB8_LINES,
+                               "plvio_tpu/models/kernels.py:641"),
+    "ba_linearize_line_only": (KN.BA_LINEARIZE_LINE_ONLY,
+                               "plvio_tpu/models/kernels.py:1394"),
+    "pose_lm_line": (KN.POSE_LM_LINE, "plvio_tpu/models/kernels.py:1344"),
 }
 # schur_solve's launches whose reduced system exceeds one block (its
 # global path, counted in KN.SCHUR_SOLVE.global_launches), and the TPU
@@ -1055,18 +1097,22 @@ def centre_err(P, G):
     return float((c - cg).norm(dim=1).max())
 
 
-def unpack_sym(packed, d):
-    """[..., d(d+1)/2] upper triangles (row by row) -> [..., d, d]."""
-    iu = torch.triu_indices(d, d)
-    out = torch.zeros(*packed.shape[:-1], d, d, dtype=packed.dtype,
-                      device=packed.device)
-    out[..., iu[0], iu[1]] = packed
-    out[..., iu[1], iu[0]] = packed
-    return out
+def within(v, lo, hi, slack=0):
+    """v within 10% of lo..hi (or within `slack` of it)."""
+    return min(0.9 * lo, lo - slack) <= v <= max(1.1 * hi, hi + slack)
 
 
-def rel_err(a, b):
-    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+def check_band(what, vals, lo, hi, slack=0, median=False):
+    """The guard on a count against the reference's range lo..hi over its
+    seeds: every value of `vals` within 10% of it (or within `slack`),
+    and with `median` the median inside it where it has a width."""
+    med = float(np.median(vals))
+    inside = not median or hi == lo or lo <= med <= hi
+    check(all(within(v, lo, hi, slack) for v in vals) and inside,
+          f"{what} {vals} (median {med:g}) within 10% "
+          + (f"or {slack} " if slack else "")
+          + f"of the reference's {lo}..{hi} over its seeds"
+          + (", the median inside it" if median and hi > lo else ""))
 
 
 def changed(ref, idx, ok):
@@ -1901,20 +1947,15 @@ def check_nbh_kernels(report):
     # step of the window, no line family
     w = KN._BAWork(K_EUROC, *ba, *KN.no_lines(dev), lam0=1e-4,
                    early_tol=1e-2, cg_iters=w_cg(6 * ba[0].shape[0]))
-    w.linearize(KN.BA_MODE_INIT)
-    w.linearize(KN.BA_MODE_LINEARIZE)
-    t = w.t
     n_kf, n_pt, n_obs = ba[0].shape[0], ba[2].shape[0], ba[4].shape[0]
     prob = KN._ba_problem(K_EUROC, n_kf, n_pt, 0, ba[4].long(), ba[5].long(),
                           ba[6], ba[7], ba[8])
     st = {"pose": ba[0], "pt": ba[2]}
-    layout, H, gv, lm_sys, cost, _ = prob.build_normal_equations(st)
-    Hk = torch.block_diag(*unpack_sym(t["hcc"][:, :21], 6).unbind(0))
-    lerr = max(rel_err(Hk, H), rel_err(t["hcc"][:, 21:].reshape(-1), gv),
-               rel_err(unpack_sym(t["hpt"][:, :6], 3), lm_sys["pt"][0]),
-               rel_err(t["hpt"][:, 6:], lm_sys["pt"][1]))
-    check(lerr <= 1e-4, f"ba_linearize, point-only window: H blocks, g, Hpp "
-          f"and gp within {lerr:.2e} relative of the plain engine (<= 1e-4)")
+    lerr = max(KN.linearization_against_plain(w, prob, st).values())
+    t = w.t
+    check(lerr <= 1e-4, f"ba_linearize, point-only window: H blocks, g, "
+          f"Hpp, gp and B within {lerr:.2e} relative of the plain engine "
+          "(<= 1e-4)")
     report["ba_linearize"]["points"] = dict(
         **work(nbytes(*ba) + nbytes(t["hcc"], t["hpt"], t["p_w"]),
                400 * n_obs),
@@ -1926,6 +1967,7 @@ def check_nbh_kernels(report):
     def schur():
         KN.SCHUR_SOLVE.launch(*w.args, cuda.stream())
     schur()
+    layout, H, gv, lm_sys, _, _ = prob.build_normal_equations(st)
     lam = torch.tensor(1e-4, device=dev)
     free = ({"pose": ba[1]}, {"pt": ba[3]})
     new = prob.step_from_system(layout, H, gv, lm_sys, st, lam, *free)
@@ -3061,11 +3103,8 @@ def run_slice9(dev, smi, S):
           f"{ref['imu_init_kf_min']}..{ref['imu_init_kf_max']} over its "
           f"seeds)")
     for k in ("keyframes", "points", "lines"):
-        lo, hi = 0.9 * ref[k + "_min"], 1.1 * ref[k + "_max"]
-        check(lo <= got[k] <= hi,
-              f"{k} {got[k]} within 10% of the reference's "
-              f"{ref[k + '_min']}..{ref[k + '_max']} over its seeds "
-              f"(seed 0: {ref[k]})")
+        check_band(f"{k} (the reference's seed 0: {ref[k]})", [got[k]],
+                   ref[k + "_min"], ref[k + "_max"])
     errs = dict(init_scale_err=abs(got["init_scale"] * got["pre_init_scale"]
                                    - 1),
                 scale_err=abs(got["scale"] - 1),
@@ -3164,14 +3203,8 @@ def seed_spread(dev, S, first):
           f"(failing: {bad})")
     ref = REF_MH
     for k in ("keyframes", "points", "lines"):
-        vals = [r[k] for r in runs]
-        lo, hi = ref[k + "_min"], ref[k + "_max"]
-        med = float(np.median(vals))
-        check(all(0.9 * lo <= v <= 1.1 * hi for v in vals)
-              and lo <= med <= hi,
-              f"{k} over cfg.seed 0..4 {vals} (median {med:g}) within 10% "
-              f"of the reference's {lo}..{hi} over its seeds, the median "
-              f"inside it")
+        check_band(f"{k} over cfg.seed 0..4", [r[k] for r in runs],
+                   ref[k + "_min"], ref[k + "_max"], median=True)
 
 
 
@@ -3480,12 +3513,9 @@ def run_slice10(dev, smi, seq_map, render):
     check(np.isfinite(rms1) and rms1 <= rms0,
           f"its reprojection RMS {rms1:.4f} px <= the input's {rms0:.4f}")
     # (d) the circuit through System with the default configuration
-    t0 = time.perf_counter()
-    while not render.circuit_done.wait(1.0) and render.proc.is_alive():
-        pass
-    check(render.circuit_done.is_set(), "the circuit's frames rendered "
-          f"(waited {time.perf_counter() - t0:.1f} s for the render "
-          "process)")
+    waited = render.wait(0)
+    check(waited is not None, "the circuit's frames rendered "
+          f"(waited {waited} s for the render process)")
     from plvio_tpu_torch.entry import SystemRun
     from plvio_tpu_torch.inputs import MH_LOOP_SECONDS, build_mh_loop
     S = build_mh_loop(MH_LOOP_SECONDS,
@@ -3792,11 +3822,10 @@ def run_slice11(dev, smi, render, report):
     in a window of its own."""
     print("[15] slice 11: track_stereo / track_rgbd, the stereo matchers "
           "and the stereo solver rows")
-    t0 = time.perf_counter()
-    render.proc.join()
-    check(render.proc.exitcode == 0, f"the stereo replay's "
-          f"{render.n_stereo} pairs rendered after the circuit by the "
-          f"render process (waited {time.perf_counter() - t0:.1f} s)")
+    waited = render.wait(1)
+    check(waited is not None, f"the stereo replay's {render.n_stereo} "
+          "pairs rendered after the circuit by the render process (waited "
+          f"{waited} s)")
     frames = tuple(render.frames(k, render.n_stereo) for k in (1, 2))
     S = build_stereo_replay(frames=frames)
     check_stereo_matchers(S, report)
@@ -3857,16 +3886,8 @@ def run_slice11(dev, smi, render, report):
     # translation moves one float32 ulp (ROADMAP Queue 3), so where the
     # range has no width, the rule for the end counts is the 10% band.
     for k in ("n_tracked", "keyframes", "points", "lines"):
-        vals = [r[k] for r in runs]
-        lo, hi = ref[k + "_range"]
-        med = float(np.median(vals))
-        inside = lo <= med <= hi if hi > lo else True
-        check(all(0.9 * lo <= v <= 1.1 * hi for v in vals) and inside,
-              f"{k} over cfg.seed 0..4 {vals} (median {med:g}) within 10% "
-              f"of the reference's {lo}..{hi} over its seeds"
-              + (", the median inside it" if hi > lo else
-                 f" (its runs are one: the median {med / lo - 1:+.2%} from "
-                 f"it)"))
+        check_band(f"{k} over cfg.seed 0..4", [r[k] for r in runs],
+                   *ref[k + "_range"], median=True)
     worst = ref["ate_se3_worst"]
     ates = [r["ate_se3"] for r in runs]
     check(max(ates) <= 2 * worst, f"the SE3 ATE over cfg.seed 0..4 "
@@ -4011,20 +4032,14 @@ def check_kb8_ba(dev, report):
           "the CPU plain run's distance to the engine in float64")
     w = KN._BAWork(K8, *ba, *KN.no_lines(dev), lam0=1e-4, early_tol=1e-2,
                    cg_iters=w_cg(6 * ba[0].shape[0]))
-    w.linearize(KN.BA_MODE_INIT)
-    w.linearize(KN.BA_MODE_LINEARIZE)
-    t = w.t
     n_kf, n_pt, n_obs = ba[0].shape[0], ba[2].shape[0], ba[4].shape[0]
     prob = KN._ba_problem(K8, n_kf, n_pt, 0, ba[4].long(), ba[5].long(),
                           ba[6], ba[7], ba[8])
     st = {"pose": ba[0], "pt": ba[2]}
-    _, H, gv, lm_sys, _, _ = prob.build_normal_equations(st)
-    Hk = torch.block_diag(*unpack_sym(t["hcc"][:, :21], 6).unbind(0))
-    lerr = max(rel_err(Hk, H), rel_err(t["hcc"][:, 21:].reshape(-1), gv),
-               rel_err(unpack_sym(t["hpt"][:, :6], 3), lm_sys["pt"][0]),
-               rel_err(t["hpt"][:, 6:], lm_sys["pt"][1]))
-    check(lerr <= 1e-4, f"ba_linearize's KB8 mode: H blocks, g, Hpp and gp "
-          f"within {lerr:.2e} relative of the plain engine (<= 1e-4)")
+    lerr = max(KN.linearization_against_plain(w, prob, st).values())
+    t = w.t
+    check(lerr <= 1e-4, f"ba_linearize's KB8 mode: H blocks, g, Hpp, gp and "
+          f"B within {lerr:.2e} relative of the plain engine (<= 1e-4)")
     # per observation: the projection through the lens and its Jacobian
     # (~150 operations), the pose and point rows and the blocks (~400)
     report["ba_linearize_kb8"] = dict(
@@ -4189,15 +4204,756 @@ def run_slice12(dev, smi, report):
     # handful of keyframes moves by one with the bootstrap's frame, so
     # that count has a floor of one.
     for k in ("n_tracked", "keyframes", "points"):
-        vals = [getattr(o, k) for o in runs]
-        lo, hi = ref[k + "_range"]
-        slack = 1 if k == "keyframes" else 0
-        check(all(min(0.9 * lo, lo - slack) <= v <= max(1.1 * hi, hi + slack)
-                  for v in vals),
-              f"the fisheye room's {k} over cfg.seed 0..4 {vals} within 10% "
-              f"of the reference's {lo}..{hi}"
-              + (" or one keyframe" if slack else ""))
+        check_band(f"the fisheye room's {k} over cfg.seed 0..4",
+                   [getattr(o, k) for o in runs], *ref[k + "_range"],
+                   slack=1 if k == "keyframes" else 0)
     return l_st, l_rgbd, l_kb8
+
+
+# --------------------------------------------------------------------------
+# Phase 17: slice 13, the KB8 fisheye with the IMU and lines, SLAM modes 1-3
+# --------------------------------------------------------------------------
+
+KB8_VI_SECONDS = 8.0
+# kernel_digest.slice12_digests on the tree before slice 13 (its commit's
+# `git archive`, PYTHONPATH at it, the script of this tree), on an H100
+# 80GB HBM3 at 700 W: the pose LM, the KB8 modes and the KB8 window BA
+SLICE12_DIGESTS = {
+    "pose_lm stereo": "ed02638e8edd2fbac96ac65316b66072",
+    "pose_lm kb8": "65a5001c4fbe39715cacc3c03939e23a",
+    "undistort kb8": "05f373353876d10d2d1a1752e203ef41",
+    "proj_match kb8 fuse": "c1a57da662ad85e7e150457e4dbff934",
+    "proj_match kb8 tracker": "97b836f9a89b74b82828d957908b4f22",
+    "local_ba kb8 perturbed": "63f130a01d6c95bfa6953536aa9948a5"}
+# tests/test_torch_kb8_inertial.py's JAX System over the fisheye replay
+# (8 s, IMU_MONOCULAR, loop closing on) with cfg.seed 0..9, without and
+# with lines: per seed, then the ranges of the counts and the worst ATE
+# (after global_refine); printed by `JAX_PLATFORMS=cpu PYTHONPATH=.:tests
+# python3 tests/test_torch_kb8_inertial.py` (ten seeds: five undersample
+# the spread, its N_SEEDS)
+REF_KB8_VI = {
+    "points_only": {
+        "per_seed": [
+            {"n_tracked": 122, "init_frame": 44, "imu_init_frame": 128,
+             "imu_init_kf": 8, "keyframes": 24, "points": 3602, "lines": 0,
+             "ate_sim3": 0.012668049906608227, "ate_se3": 0.0542862916898143,
+             "calls": {"local_ba_kernel": 7, "_liba_window": 19, "liba_kernel":
+             18, "full_inertial_ba": 1}},
+            {"n_tracked": 122, "init_frame": 44, "imu_init_frame": 129,
+             "imu_init_kf": 8, "keyframes": 24, "points": 3639, "lines": 0,
+             "ate_sim3": 0.015280808954164653, "ate_se3": 0.06850578302334033,
+             "calls": {"local_ba_kernel": 7, "_liba_window": 19, "liba_kernel":
+             18, "full_inertial_ba": 1}},
+            {"n_tracked": 122, "init_frame": 44, "imu_init_frame": 128,
+             "imu_init_kf": 8, "keyframes": 24, "points": 3887, "lines": 0,
+             "ate_sim3": 0.013886718484883211, "ate_se3": 0.06272685047447359,
+             "calls": {"local_ba_kernel": 7, "_liba_window": 19, "liba_kernel":
+             18, "full_inertial_ba": 1}},
+            {"n_tracked": 131, "init_frame": 35, "imu_init_frame": 113,
+             "imu_init_kf": 8, "keyframes": 37, "points": 5127, "lines": 0,
+             "ate_sim3": 0.018667684318611072, "ate_se3": 0.0433945056769513,
+             "calls": {"local_ba_kernel": 7, "_liba_window": 32, "liba_kernel":
+             31, "full_inertial_ba": 1}},
+            {"n_tracked": 122, "init_frame": 44, "imu_init_frame": 128,
+             "imu_init_kf": 8, "keyframes": 24, "points": 3658, "lines": 0,
+             "ate_sim3": 0.013819996560269946, "ate_se3": 0.06566557956719585,
+             "calls": {"local_ba_kernel": 7, "_liba_window": 19, "liba_kernel":
+             18, "full_inertial_ba": 1}},
+            {"n_tracked": 131, "init_frame": 35, "imu_init_frame": 93,
+             "imu_init_kf": 8, "keyframes": 37, "points": 4469, "lines": 0,
+             "ate_sim3": 0.014879183370614214, "ate_se3": 0.02001221348693987,
+             "calls": {"local_ba_kernel": 7, "_liba_window": 35, "liba_kernel":
+             34, "full_inertial_ba": 1}},
+            {"n_tracked": 123, "init_frame": 43, "imu_init_frame": 130,
+             "imu_init_kf": 8, "keyframes": 24, "points": 3697, "lines": 0,
+             "ate_sim3": 0.018015046334958217, "ate_se3": 0.018727671274355668,
+             "calls": {"local_ba_kernel": 7, "_liba_window": 19, "liba_kernel":
+             18, "full_inertial_ba": 1}},
+            {"n_tracked": 126, "init_frame": 40, "imu_init_frame": 133,
+             "imu_init_kf": 8, "keyframes": 20, "points": 2600, "lines": 0,
+             "ate_sim3": 0.0458699869404857, "ate_se3": 0.2331275448788402,
+             "calls": {"local_ba_kernel": 7, "_liba_window": 16, "liba_kernel":
+             13, "full_inertial_ba": 1}},
+            {"n_tracked": 131, "init_frame": 35, "imu_init_frame": 107,
+             "imu_init_kf": 8, "keyframes": 37, "points": 5063, "lines": 0,
+             "ate_sim3": 0.017491024330940633, "ate_se3": 0.019836437536573655,
+             "calls": {"local_ba_kernel": 7, "_liba_window": 32, "liba_kernel":
+             31, "full_inertial_ba": 1}},
+            {"n_tracked": 131, "init_frame": 35, "imu_init_frame": 128,
+             "imu_init_kf": 8, "keyframes": 25, "points": 3581, "lines": 0,
+             "ate_sim3": 0.019843237659313687, "ate_se3": 0.11098564296132528,
+             "calls": {"local_ba_kernel": 7, "_liba_window": 20, "liba_kernel":
+             17, "full_inertial_ba": 1}}],
+        "n_tracked_range": [122, 131],
+        "keyframes_range": [20, 37],
+        "points_range": [2600, 5127],
+        "lines_range": [0, 0],
+        "maps_range": [1, 1],
+        "init_frame_range": [35, 44],
+        "imu_init_frame_range": [93, 133],
+        "imu_init_kf_range": [8, 8],
+        "ate_sim3_worst": 0.0458699869404857,
+        "ate_se3_worst": 0.2331275448788402},
+    "lines": {
+        "per_seed": [
+            {"n_tracked": 5, "init_frame": 44, "imu_init_frame": -1,
+             "imu_init_kf": -1, "keyframes": 6, "points": 450, "lines": 0,
+             "ate_sim3": 0.010918888445601434, "ate_se3": 0.7370680402867277,
+             "calls": {"local_ba_kernel": 6}},
+            {"n_tracked": 4, "init_frame": 44, "imu_init_frame": -1,
+             "imu_init_kf": -1, "keyframes": 5, "points": 451, "lines": 0,
+             "ate_sim3": 0.01377281263123336, "ate_se3": 0.08803396717409405,
+             "calls": {"local_ba_kernel": 5}},
+            {"n_tracked": 5, "init_frame": 44, "imu_init_frame": -1,
+             "imu_init_kf": -1, "keyframes": 6, "points": 441, "lines": 0,
+             "ate_sim3": 0.028445225637284518, "ate_se3": 0.7232003494519913,
+             "calls": {"local_ba_kernel": 6}},
+            {"n_tracked": 7, "init_frame": 35, "imu_init_frame": -1,
+             "imu_init_kf": -1, "keyframes": 5, "points": 388, "lines": 0,
+             "ate_sim3": 0.08941003738611362, "ate_se3": 0.13087463947628197,
+             "calls": {"local_ba_kernel": 5}},
+            {"n_tracked": 5, "init_frame": 44, "imu_init_frame": -1,
+             "imu_init_kf": -1, "keyframes": 6, "points": 453, "lines": 0,
+             "ate_sim3": 0.11583021341661774, "ate_se3": 0.7151105639672496,
+             "calls": {"local_ba_kernel": 6}},
+            {"n_tracked": 7, "init_frame": 35, "imu_init_frame": -1,
+             "imu_init_kf": -1, "keyframes": 4, "points": 364, "lines": 0,
+             "ate_sim3": 0.0990778483167697, "ate_se3": 0.14704928849156532,
+             "calls": {"local_ba_kernel": 4}},
+            {"n_tracked": 4, "init_frame": 43, "imu_init_frame": -1,
+             "imu_init_kf": -1, "keyframes": 3, "points": 373, "lines": 0,
+             "ate_sim3": 0.10156855090164102, "ate_se3": 0.10364529131212685,
+             "calls": {"local_ba_kernel": 3}},
+            {"n_tracked": 6, "init_frame": 40, "imu_init_frame": -1,
+             "imu_init_kf": -1, "keyframes": 5, "points": 291, "lines": 0,
+             "ate_sim3": 0.14001716412804427, "ate_se3": 0.731024239551703,
+             "calls": {"local_ba_kernel": 5}},
+            {"n_tracked": 7, "init_frame": 35, "imu_init_frame": -1,
+             "imu_init_kf": -1, "keyframes": 5, "points": 358, "lines": 0,
+             "ate_sim3": 0.09233514658730642, "ate_se3": 0.09560600845311942,
+             "calls": {"local_ba_kernel": 5}},
+            {"n_tracked": 7, "init_frame": 35, "imu_init_frame": -1,
+             "imu_init_kf": -1, "keyframes": 5, "points": 390, "lines": 0,
+             "ate_sim3": 0.08720819399948572, "ate_se3": 0.1095640439380073,
+             "calls": {"local_ba_kernel": 5}},
+            {"n_tracked": 7, "init_frame": 35, "imu_init_frame": -1,
+             "imu_init_kf": -1, "keyframes": 6, "points": 387, "lines": 0,
+             "ate_sim3": 0.07388337449801065, "ate_se3": 0.07480874556753762,
+             "calls": {"local_ba_kernel": 6}},
+            {"n_tracked": 105, "init_frame": 35, "imu_init_frame": 67,
+             "imu_init_kf": 8, "keyframes": 9, "points": 626, "lines": 0,
+             "ate_sim3": 0.40559404530290244, "ate_se3": 0.9151829870794898,
+             "calls": {"local_ba_kernel": 7, "_liba_window": 4,
+             "full_inertial_ba": 1}},
+            {"n_tracked": 7, "init_frame": 35, "imu_init_frame": -1,
+             "imu_init_kf": -1, "keyframes": 4, "points": 369, "lines": 0,
+             "ate_sim3": 0.10164790975203204, "ate_se3": 0.13840171838625334,
+             "calls": {"local_ba_kernel": 4}},
+            {"n_tracked": 7, "init_frame": 35, "imu_init_frame": -1,
+             "imu_init_kf": -1, "keyframes": 4, "points": 381, "lines": 0,
+             "ate_sim3": 0.10115761086327953, "ate_se3": 0.14513108417764048,
+             "calls": {"local_ba_kernel": 4}},
+            {"n_tracked": 126, "init_frame": 3, "imu_init_frame": 52,
+             "imu_init_kf": 8, "keyframes": 13, "points": 632, "lines": 0,
+             "ate_sim3": 0.6058779297021215, "ate_se3": 0.7988871246456322,
+             "calls": {"local_ba_kernel": 7, "_liba_window": 42,
+             "full_inertial_ba": 1}},
+            {"n_tracked": 6, "init_frame": 35, "imu_init_frame": -1,
+             "imu_init_kf": -1, "keyframes": 4, "points": 357, "lines": 0,
+             "ate_sim3": 0.10653593543820854, "ate_se3": 0.11626479113426233,
+             "calls": {"local_ba_kernel": 4}},
+            {"n_tracked": 4, "init_frame": 43, "imu_init_frame": -1,
+             "imu_init_kf": -1, "keyframes": 3, "points": 374, "lines": 0,
+             "ate_sim3": 0.09926746399159735, "ate_se3": 0.10019084596379944,
+             "calls": {"local_ba_kernel": 3}},
+            {"n_tracked": 7, "init_frame": 35, "imu_init_frame": -1,
+             "imu_init_kf": -1, "keyframes": 5, "points": 380, "lines": 0,
+             "ate_sim3": 0.10385427066363356, "ate_se3": 0.11180477379999418,
+             "calls": {"local_ba_kernel": 5}},
+            {"n_tracked": 4, "init_frame": 44, "imu_init_frame": -1,
+             "imu_init_kf": -1, "keyframes": 5, "points": 416, "lines": 0,
+             "ate_sim3": 0.011814826308964065, "ate_se3": 0.08576943863573719,
+             "calls": {"local_ba_kernel": 5}},
+            {"n_tracked": 6, "init_frame": 35, "imu_init_frame": -1,
+             "imu_init_kf": -1, "keyframes": 5, "points": 379, "lines": 0,
+             "ate_sim3": 0.08627916723447536, "ate_se3": 0.08711098055776158,
+             "calls": {"local_ba_kernel": 5}}],
+        "n_tracked_range": [4, 126],
+        "keyframes_range": [3, 13],
+        "points_range": [291, 632],
+        "lines_range": [0, 0],
+        "maps_range": [1, 1],
+        "init_frame_range": [3, 44],
+        "imu_init_frame_range": [-1, 67],
+        "imu_init_kf_range": [-1, 8],
+        "ate_sim3_worst": 0.6058779297021215,
+        "ate_se3_worst": 0.9151829870794898}}
+# tests/test_torch_line_modes.py's JAX System over the MH replay's frames
+# (MONOCULAR with lines, loop closing on) under SLAM modes 1-3 with
+# cfg.seed 0..9; printed by `JAX_PLATFORMS=cpu PYTHONPATH=.:tests python3
+# tests/test_torch_line_modes.py`
+REF_LINE_MODES = {
+    "1": {
+        "per_seed": [
+            {"n_tracked": 159, "init_frame": 2, "imu_init_frame": -1,
+             "imu_init_kf": -1, "keyframes": 39, "points": 4202, "lines": 277,
+             "ate_sim3": 0.30980287079381386, "ate_se3": 1.4170167721319105,
+             "calls": {"local_ba_kernel": 19, "local_ba_lines_kernel": 27}},
+            {"n_tracked": 157, "init_frame": 2, "imu_init_frame": -1,
+             "imu_init_kf": -1, "keyframes": 43, "points": 5170, "lines": 309,
+             "ate_sim3": 0.2990468801353229, "ate_se3": 1.4570920837321706,
+             "calls": {"local_ba_kernel": 17, "local_ba_lines_kernel": 32}},
+            {"n_tracked": 161, "init_frame": 2, "imu_init_frame": -1,
+             "imu_init_kf": -1, "keyframes": 41, "points": 4733, "lines": 267,
+             "ate_sim3": 0.2624394068436159, "ate_se3": 1.4726645545267647,
+             "calls": {"local_ba_kernel": 15, "local_ba_lines_kernel": 31}},
+            {"n_tracked": 152, "init_frame": 2, "imu_init_frame": -1,
+             "imu_init_kf": -1, "keyframes": 40, "points": 4197, "lines": 249,
+             "ate_sim3": 0.3144240720548059, "ate_se3": 1.6067240929902493,
+             "calls": {"local_ba_kernel": 19, "local_ba_lines_kernel": 29}},
+            {"n_tracked": 119, "init_frame": 2, "imu_init_frame": -1,
+             "imu_init_kf": -1, "keyframes": 28, "points": 2540, "lines": 122,
+             "ate_sim3": 0.2749101351989767, "ate_se3": 0.8636552441673531,
+             "calls": {"local_ba_kernel": 19, "local_ba_lines_kernel": 16}},
+            {"n_tracked": 158, "init_frame": 2, "imu_init_frame": -1,
+             "imu_init_kf": -1, "keyframes": 61, "points": 9181, "lines": 462,
+             "ate_sim3": 0.28071408083075206, "ate_se3": 1.5304640828815903,
+             "calls": {"local_ba_kernel": 20, "local_ba_lines_kernel": 48}},
+            {"n_tracked": 139, "init_frame": 2, "imu_init_frame": -1,
+             "imu_init_kf": -1, "keyframes": 41, "points": 6826, "lines": 316,
+             "ate_sim3": 0.21525919703574178, "ate_se3": 1.1844300387641262,
+             "calls": {"local_ba_kernel": 16, "local_ba_lines_kernel": 30}},
+            {"n_tracked": 122, "init_frame": 2, "imu_init_frame": -1,
+             "imu_init_kf": -1, "keyframes": 30, "points": 3235, "lines": 133,
+             "ate_sim3": 0.4883362420975312, "ate_se3": 0.8781301472203036,
+             "calls": {"local_ba_kernel": 17, "local_ba_lines_kernel": 18}},
+            {"n_tracked": 157, "init_frame": 2, "imu_init_frame": -1,
+             "imu_init_kf": -1, "keyframes": 38, "points": 3379, "lines": 196,
+             "ate_sim3": 0.5014242066873397, "ate_se3": 1.5807231856523891,
+             "calls": {"local_ba_kernel": 16, "local_ba_lines_kernel": 27}},
+            {"n_tracked": 105, "init_frame": 2, "imu_init_frame": -1,
+             "imu_init_kf": -1, "keyframes": 19, "points": 1577, "lines": 70,
+             "ate_sim3": 0.4449085690276552, "ate_se3": 0.6052773346672053,
+             "calls": {"local_ba_kernel": 16, "local_ba_lines_kernel": 9}}],
+        "n_tracked_range": [105, 161],
+        "keyframes_range": [19, 61],
+        "points_range": [1577, 9181],
+        "lines_range": [70, 462],
+        "maps_range": [1, 1],
+        "init_frame_range": [2, 2],
+        "imu_init_frame_range": [-1, -1],
+        "imu_init_kf_range": [-1, -1],
+        "ate_sim3_worst": 0.5014242066873397,
+        "ate_se3_worst": 1.6067240929902493},
+    "2": {
+        "per_seed": [
+            {"n_tracked": 96, "init_frame": 2, "imu_init_frame": -1,
+             "imu_init_kf": -1, "keyframes": 16, "points": 920, "lines": 51,
+             "ate_sim3": 0.31495594976191355, "ate_se3": 0.5614266000673626,
+             "calls": {"local_ba_kernel": 19, "local_ba_lines_kernel": 5}},
+            {"n_tracked": 114, "init_frame": 2, "imu_init_frame": -1,
+             "imu_init_kf": -1, "keyframes": 22, "points": 1370, "lines": 67,
+             "ate_sim3": 0.6517456824382104, "ate_se3": 1.1498731599016263,
+             "calls": {"local_ba_kernel": 19, "local_ba_lines_kernel": 9}},
+            {"n_tracked": 90, "init_frame": 2, "imu_init_frame": -1,
+             "imu_init_kf": -1, "keyframes": 12, "points": 1140, "lines": 31,
+             "ate_sim3": 0.33491338128291376, "ate_se3": 0.4371673391583282,
+             "calls": {"local_ba_kernel": 16, "local_ba_lines_kernel": 1}},
+            {"n_tracked": 95, "init_frame": 2, "imu_init_frame": -1,
+             "imu_init_kf": -1, "keyframes": 13, "points": 1136, "lines": 48,
+             "ate_sim3": 0.2418120594660087, "ate_se3": 0.5595106624888513,
+             "calls": {"local_ba_kernel": 18, "local_ba_lines_kernel": 3}},
+            {"n_tracked": 101, "init_frame": 2, "imu_init_frame": -1,
+             "imu_init_kf": -1, "keyframes": 19, "points": 1330, "lines": 56,
+             "ate_sim3": 0.2766469767382269, "ate_se3": 0.7016797093631961,
+             "calls": {"local_ba_kernel": 19, "local_ba_lines_kernel": 6}},
+            {"n_tracked": 102, "init_frame": 2, "imu_init_frame": -1,
+             "imu_init_kf": -1, "keyframes": 14, "points": 1118, "lines": 49,
+             "ate_sim3": 0.2602139221521576, "ate_se3": 0.6135443208223079,
+             "calls": {"local_ba_kernel": 18, "local_ba_lines_kernel": 4}},
+            {"n_tracked": 104, "init_frame": 2, "imu_init_frame": -1,
+             "imu_init_kf": -1, "keyframes": 18, "points": 1161, "lines": 48,
+             "ate_sim3": 0.250963080659693, "ate_se3": 0.7440470594747542,
+             "calls": {"local_ba_kernel": 15, "local_ba_lines_kernel": 8}},
+            {"n_tracked": 122, "init_frame": 2, "imu_init_frame": -1,
+             "imu_init_kf": -1, "keyframes": 22, "points": 1715, "lines": 68,
+             "ate_sim3": 0.48846175140606, "ate_se3": 1.5134062311009195,
+             "calls": {"local_ba_kernel": 18, "local_ba_lines_kernel": 10}},
+            {"n_tracked": 94, "init_frame": 2, "imu_init_frame": -1,
+             "imu_init_kf": -1, "keyframes": 18, "points": 1366, "lines": 61,
+             "ate_sim3": 0.32472050952108017, "ate_se3": 0.5773863964041385,
+             "calls": {"local_ba_kernel": 18, "local_ba_lines_kernel": 6}},
+            {"n_tracked": 126, "init_frame": 2, "imu_init_frame": -1,
+             "imu_init_kf": -1, "keyframes": 22, "points": 1812, "lines": 64,
+             "ate_sim3": 0.4240145628771701, "ate_se3": 1.3145801485668667,
+             "calls": {"local_ba_kernel": 20, "local_ba_lines_kernel": 8}}],
+        "n_tracked_range": [90, 126],
+        "keyframes_range": [12, 22],
+        "points_range": [920, 1812],
+        "lines_range": [31, 68],
+        "maps_range": [1, 1],
+        "init_frame_range": [2, 2],
+        "imu_init_frame_range": [-1, -1],
+        "imu_init_kf_range": [-1, -1],
+        "ate_sim3_worst": 0.6517456824382104,
+        "ate_se3_worst": 1.5134062311009195},
+    "3": {
+        "per_seed": [
+            {"n_tracked": 159, "init_frame": 2, "imu_init_frame": -1,
+             "imu_init_kf": -1, "keyframes": 35, "points": 3260, "lines": 192,
+             "ate_sim3": 0.32883637092133927, "ate_se3": 1.5321771863054499,
+             "calls": {"local_ba_kernel": 19, "local_ba_lines_kernel": 23}},
+            {"n_tracked": 156, "init_frame": 2, "imu_init_frame": -1,
+             "imu_init_kf": -1, "keyframes": 39, "points": 4106, "lines": 197,
+             "ate_sim3": 0.24362623417522725, "ate_se3": 1.562896736132347,
+             "calls": {"local_ba_kernel": 17, "local_ba_lines_kernel": 28}},
+            {"n_tracked": 160, "init_frame": 2, "imu_init_frame": -1,
+             "imu_init_kf": -1, "keyframes": 40, "points": 4256, "lines": 251,
+             "ate_sim3": 0.3014494382402797, "ate_se3": 1.449385652564463,
+             "calls": {"local_ba_kernel": 16, "local_ba_lines_kernel": 29}},
+            {"n_tracked": 158, "init_frame": 2, "imu_init_frame": -1,
+             "imu_init_kf": -1, "keyframes": 39, "points": 3719, "lines": 247,
+             "ate_sim3": 0.33594507563939613, "ate_se3": 1.571365063870467,
+             "calls": {"local_ba_kernel": 19, "local_ba_lines_kernel": 28}},
+            {"n_tracked": 130, "init_frame": 2, "imu_init_frame": -1,
+             "imu_init_kf": -1, "keyframes": 28, "points": 2606, "lines": 138,
+             "ate_sim3": 0.1911682279478078, "ate_se3": 0.9276695667960568,
+             "calls": {"local_ba_kernel": 18, "local_ba_lines_kernel": 16}},
+            {"n_tracked": 118, "init_frame": 2, "imu_init_frame": -1,
+             "imu_init_kf": -1, "keyframes": 23, "points": 1647, "lines": 93,
+             "ate_sim3": 0.18642381773444325, "ate_se3": 0.7508619014454015,
+             "calls": {"local_ba_kernel": 19, "local_ba_lines_kernel": 11}},
+            {"n_tracked": 151, "init_frame": 2, "imu_init_frame": -1,
+             "imu_init_kf": -1, "keyframes": 51, "points": 8859, "lines": 424,
+             "ate_sim3": 0.4872430870085605, "ate_se3": 1.492475068890247,
+             "calls": {"local_ba_kernel": 16, "local_ba_lines_kernel": 40}},
+            {"n_tracked": 124, "init_frame": 2, "imu_init_frame": -1,
+             "imu_init_kf": -1, "keyframes": 26, "points": 2695, "lines": 143,
+             "ate_sim3": 0.2650825565338401, "ate_se3": 0.8688937876999064,
+             "calls": {"local_ba_kernel": 17, "local_ba_lines_kernel": 15}},
+            {"n_tracked": 109, "init_frame": 2, "imu_init_frame": -1,
+             "imu_init_kf": -1, "keyframes": 24, "points": 2832, "lines": 115,
+             "ate_sim3": 0.16163742398359526, "ate_se3": 0.5320852137690651,
+             "calls": {"local_ba_kernel": 16, "local_ba_lines_kernel": 13}},
+            {"n_tracked": 134, "init_frame": 2, "imu_init_frame": -1,
+             "imu_init_kf": -1, "keyframes": 27, "points": 1506, "lines": 102,
+             "ate_sim3": 0.5737027478676414, "ate_se3": 1.4128714115466572,
+             "calls": {"local_ba_kernel": 16, "local_ba_lines_kernel": 17}}],
+        "n_tracked_range": [109, 160],
+        "keyframes_range": [23, 51],
+        "points_range": [1506, 8859],
+        "lines_range": [93, 424],
+        "maps_range": [1, 1],
+        "init_frame_range": [2, 2],
+        "imu_init_frame_range": [-1, -1],
+        "imu_init_kf_range": [-1, -1],
+        "ate_sim3_worst": 0.5737027478676414,
+        "ate_se3_worst": 1.571365063870467}}
+PATH_KB8_VI = ("pyramid", "orb_fast_grid", "orb_describe", "undistort_kb8",
+               "hamming_match", "rot_hist", "twoview_hypotheses",
+               "twoview_recover", "proj_match_kb8", "pose_lm_kb8",
+               "triangulate", "ba_linearize_kb8", "schur_solve", "imu_preint",
+               "inertial_gs_lm", "vi_pose_lm", "ba_linearize_kb8_body",
+               "inertial_chain", "schur_solve_global", "bow_transform")
+# with lines the reference's tracker solves the pose with the pinhole
+# point+line IRLS on the raw pixels and loses nearly every frame: no IMU
+# init, and no line reaches the map (the KB8 renderer draws none)
+PATH_KB8_VI_LINES = ("pyramid", "pyramid_line", "orb_fast_grid",
+                     "orb_describe", "line_detect", "line_refine_lbd",
+                     "undistort_kb8", "hamming_match", "rot_hist",
+                     "twoview_hypotheses", "twoview_recover",
+                     "proj_match_kb8", "pose_irls", "triangulate",
+                     "ba_linearize_kb8", "schur_solve", "imu_preint",
+                     "bow_transform")
+# the keyframe mapping step of the KB8 camera (`entry.mapping_step(kb8=
+# True)`): the KB8 point edge beside the line family
+PATH_KB8_MAP = ("hamming_match", "rot_hist", "triangulate",
+                "ba_linearize_kb8_lines", "schur_solve")
+PATH_LINE_MODE = ("pyramid", "pyramid_line", "orb_fast_grid", "orb_describe",
+                  "line_detect", "line_refine_lbd", "hamming_match",
+                  "rot_hist", "twoview_hypotheses", "twoview_recover",
+                  "line_triangulate", "proj_match", "pose_irls",
+                  "pose_lm_line", "triangulate", "ba_linearize",
+                  "ba_linearize_line_only", "schur_solve", "bow_transform")
+
+
+class Slice13Run(SystemRun):
+    """`SystemRun` whose System records the last arguments of the
+    tracker's line-only and point+line pose solves and the last frame's
+    raw keypoints and segments (the kernels' inputs on the main path)."""
+
+    def new_system(self):
+        slam = super().new_system()
+        tr = slam.tracker
+        self.rec = {}
+        for name in ("pose_opt_line_only", "pose_opt_pl"):
+            fn = getattr(tr, name, None)
+            if fn is None:
+                continue
+
+            def rec(*a, _fn=fn, _name=name, **kw):
+                self.rec[_name] = (a, kw)
+                return _fn(*a, **kw)
+            setattr(tr, name, rec)
+        if slam.extract_lines is not None:
+            lines = slam.extract_lines
+
+            def lines_rec(img):
+                lf = lines(img)
+                self.rec["lines"] = lf
+                return lf
+            slam.extract_lines = lines_rec
+        extract = slam.extract
+
+        def extract_rec(img):
+            f = extract(img)
+            self.rec["feats"] = f
+            return f
+        slam.extract = extract_rec
+        return slam
+
+
+def check_slice12_digests():
+    """The kernels that gained slice 13's modes give slice 12's bits on its
+    calls (kernel_digest.slice12_digests)."""
+    from plvio_tpu_torch import kernel_digest as KD
+    got = dict(line.rsplit(" ", 1) for line in KD.slice12_digests(
+        torch.device("cuda")))
+    bad = [k for k, v in SLICE12_DIGESTS.items() if got.get(k) != v]
+    check(not bad, "the pose LM's stereo and KB8 families and the KB8 modes "
+          "of undistort, proj_match and the window BA give slice 12's "
+          f"digests (differ: {bad})")
+
+
+def window_report(name, got, wk, prob, st, ops):
+    """A window BA mode's checks and report: one linearization of the
+    kernel (`wk`, a _BAWork at the path's shape) against the plain
+    engine's normal equations of the same terms (`prob` at the states
+    `st`) within 1e-4 relative (`KN.linearization_against_plain`), then
+    the whole BA by `KN.against_float64`'s rule (its result `got`).  The
+    report's max_abs_err is the linearization's largest relative gap."""
+    errs = KN.linearization_against_plain(wk, prob, st)
+    worst = max(errs, key=errs.get)
+    print(f"  {name}, one linearization against the plain engine, "
+          "relative: " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+    check(errs[worst] <= 1e-4, f"{name}: pose blocks, g, Hpp, gp and the "
+          f"couplings B within 1e-4 relative of the plain engine (worst "
+          f"{worst} {errs[worst]:.2e})")
+    print(f"  {name}, the whole BA: kernel {got['kernel']:.2e} / plain "
+          f"float32 {got['plain']:.2e} from float64 (orders "
+          f"{[f'{x:.2e}' for x in got['plain_orders']]}), kernel - plain "
+          f"{got['kernel_plain']:.2e}")
+    check(not got["failures"], f"{name}: the whole BA within 2x the plain "
+          f"float32 runs' distance to float64 + 1e-6 (over "
+          f"{len(got['plain_orders'])} observation orders), the same bits "
+          f"on three launches {got['failures']}")
+    t = wk.t
+    nb = nbytes(t["poses"], t["pts"], t["lns"], t["obs_kf"], t["obs_pt"],
+                t["obs_uv"], t["obs_is2"], t["lobs_kf"], t["lobs_ln"],
+                t["lobs_eq"], t["lobs_is2"], t["lobs_dir"]) \
+        + nbytes(t["hcc"], t["hpt"], t["hln"], t["p_w"], t["l_w"])
+    return dict(**work(nb, ops), max_abs_err=errs[worst],
+                ms=cuda_ms(lambda: wk.linearize(KN.BA_MODE_LINEARIZE)),
+                plain_ms=cuda_ms(lambda: prob.build_normal_equations(st),
+                                 reps=3, warmup=1), library_ms=None)
+
+
+def check_slice13_kernels(dev, report):
+    """The new modes on fixed windows at the paths' shapes (16 KF): the
+    body-frame KB8 mode (the worst inertial bucket with lines and the
+    half one without; the 64-KF window on schur_solve's global path), the
+    KB8 point edge beside the line family, the line-only mode (1-3), each
+    by `window_report` (one linearization against the plain engine, the
+    whole BA by `KN.against_float64`'s rule) where it has the window's
+    line family, by the whole BA's rule alone without it."""
+    from plvio_tpu_torch.entry import K_EUROC
+    from plvio_tpu_torch.inputs import (build_inertial_window,
+                                        build_kb8_window, build_line_window,
+                                        kb8_camera)
+    K8 = kb8_camera()
+    # -- the body-frame KB8 mode
+    for lines, sz in ((True, LIBA_WORST), (False, LIBA_HALF)):
+        A = build_inertial_window(**{**sz, **({} if lines else dict(
+            n_ln=0, n_lobs=0))}, perturbed=True, device=dev, kb8=True)
+        keys = KN.LIBA_KEYS if lines else KN.LIBA_KEYS[:18]
+        Rcb, tcb = A["Rcb"].cpu(), A["tcb"].cpu()
+        with torch.no_grad():
+            got = KN.against_float64(
+                lambda *a: KN.local_inertial_ba(K8, Rcb, tcb, GRAVITY, *a),
+                lambda *a: KN.local_inertial_ba_plain(
+                    K8, Rcb.to(a[0].dtype), tcb.to(a[0].dtype), GRAVITY, *a),
+                [A[k] for k in keys], (0, 1, 2, 3),
+                rows=KN.LIBA_ROWS if lines else KN.LIBA_ROWS[:1])
+        if lines:
+            args = [A[k] for k in KN.LIBA_KEYS]
+            wk = KN.inertial_work(K8, Rcb, tcb, GRAVITY, *args)
+            wk.chain(KN.CHAIN_COST_STATE)
+            prob = KN._liba_problem(
+                K8, A["Rcb"], A["tcb"], GRAVITY, 16, sz["n_pt"], sz["n_ln"],
+                (args[8].long(), args[9].long(), args[10], args[12]),
+                args[11], (args[20].long(), args[21].long(), args[22]),
+                args[23], (args[13], args[14], args[15], args[16],
+                           args[17]))
+            prob.terms = [t for t in prob.terms
+                          if t.name in ("reproj", "line")]
+            st = {"pose": args[0], "vel": args[1], "bg": args[2],
+                  "ba": args[3], "pt": args[6], "ln": args[18]}
+            # per point row: the lens and its Jacobian (~150), the body
+            # rows and the blocks (~450); per line row ~1200
+            report["ba_linearize_kb8_body"] = window_report(
+                "ba_linearize body-frame KB8, 16 KF worst bucket with lines",
+                got, wk, prob, st, 600 * sz["n_obs"] + 1200 * sz["n_lobs"])
+        else:
+            print(f"  ba_linearize body-frame KB8, half bucket without lines: "
+                  f"kernel {got['kernel']:.2e} / plain {got['plain']:.2e} "
+                  "from float64")
+            check(not got["failures"], "ba_linearize body-frame KB8 without "
+                  f"lines by the float64 rule {got['failures']}")
+    r = KN.global_solve_against_float64("inertial", 64, dev, kb8=True)
+    print(f"  body-frame KB8 at 64 KF (S = {r.S}): " + r.summary())
+    check(not r.failures(), "the 64-KF inertial window with the KB8 lens on "
+          f"schur_solve's global path by its float64 rule {r.failures()}")
+    # -- the KB8 point edge beside the line family
+    A = build_kb8_window(device=dev, n_ln=256, n_lobs=512)
+    args = list(A.values())
+    with torch.no_grad():
+        got = KN.against_float64(
+            lambda *a: KN.local_ba_pl(K8, *a),
+            lambda *a: KN.local_ba_pl_plain(K8, *a), args, (0, 1, 2),
+            rows=KN.BA_ROWS)
+    wk = KN._BAWork(K8, *args, lam0=1e-4, early_tol=1e-2, cg_iters=w_cg(96))
+    prob = KN._ba_problem(K8, 16, args[2].shape[0], 256, args[4].long(),
+                          args[5].long(), args[6], args[7], args[8],
+                          args[11].long(), args[12].long(), args[13],
+                          args[14], args[15])
+    st = {"pose": args[0], "pt": args[2], "ln": args[9]}
+    report["ba_linearize_kb8_lines"] = window_report(
+        "ba_linearize KB8 points + pinhole lines, 16 KF x 2048 points x 4096 "
+        "obs + 256 lines x 512 obs", got, wk, prob, st,
+        550 * args[4].shape[0] + 1000 * args[11].shape[0])
+    # -- the line-only mode: each of its three edge sets (modes 1-3) on its
+    # own; the report is mode 3's (both edges), with the largest
+    # linearization gap of the three
+    W = build_line_window(device=dev)
+    wargs = list(W.values())
+    reps = {}
+    for mode in (1, 2, 3):
+        with torch.no_grad():
+            got = KN.against_float64(
+                lambda *a: KN.local_ba_lines_only(K_EUROC, mode, *a),
+                lambda *a: KN.local_ba_lines_only_plain(K_EUROC, mode, *a),
+                wargs, (0, 1), rows=KN.LINES_ONLY_ROWS)
+        wk = KN.lines_only_work(K_EUROC, mode, *wargs)
+        prob = KN._lines_only_problem(
+            K_EUROC, 16, 512, wargs[4].long(), wargs[5].long(), wargs[6],
+            wargs[7], wargs[8], wargs[9], mode)
+        st = {"pose": wargs[0], "ln": wargs[2]}
+        # per observation: two projections and their rows (~300), the
+        # endpoint rows (~250, modes 1 and 3), the angle row (~250, modes 2
+        # and 3), the blocks (~700)
+        ops = (1000 + 250 * (mode != 2) + 250 * (mode != 1)) \
+            * wargs[4].shape[0]
+        reps[mode] = window_report(
+            f"ba_linearize line-only mode {mode}, 16 KF x 512 lines x 1024 "
+            "obs", got, wk, prob, st, ops)
+    report["ba_linearize_line_only"] = dict(
+        reps[3], max_abs_err=max(r["max_abs_err"] for r in reps.values()))
+
+
+def line_pose_lm_report(args, smi, what):
+    """`pose_lm`'s line families on args (pose0, l_obs, dir_obs, Xs, Xe,
+    valid, is2): each mode by `KN.line_pose_lm_against_float64`'s rule,
+    then mode 3's report."""
+    from plvio_tpu_torch.entry import K_EUROC
+    for mode in (1, 2, 3):
+        r = KN.line_pose_lm_against_float64(K_EUROC, mode, args)
+        print(f"  pose_lm line mode {mode} on {what}: kernel "
+              f"{r['kernel']:.2e} / plain float32 {r['plain']:.2e} from "
+              f"float64, inliers {r['n']} / {r['n64']}")
+        check(not r["failures"], f"pose_lm line mode {mode} on {what} as its "
+              f"float64 run {r['failures']}")
+    fk = lambda: KN.line_only_pose_lm(K_EUROC, 3, *args)  # noqa: E731
+    fp = lambda: KN.line_only_pose_lm_plain(K_EUROC, 3, *args)  # noqa: E731
+    Pk, Pp = fk(), fp()
+    n, cap = int(args[5].sum()), args[5].shape[0]
+    # per round: the cost at the start (~150 a row), per iteration the
+    # rows (~500) and the candidate's cost, a 6x6 factor, the re-gate
+    ops = 3 * (n * 150 + 6 * (n * 650 + 400) + cap * 150)
+    return dict(**work(nbytes(*args) + nbytes(*Pk), ops),
+                max_abs_err=float((Pk[0] - Pp[0]).abs().max()),
+                ms=cuda_ms(fk), plain_ms=cuda_ms(fp, reps=3, warmup=1),
+                library_ms=None)
+
+
+def replay_guards(what, runs, ref, ate_key):
+    """Each run against the reference's runs of its regime (the pool: the
+    runs without IMU init for one without it, those with it for one with
+    it; a run whose regime the reference never reached fails): its frames
+    tracked and IMU init frame within 10% of the pool's ranges, its
+    keyframes within 10% (or one), its `ate_key` ATE within 2x the pool's
+    worst.  Where every reference run initializes the keyframes are the
+    final ones; where its runs mostly do not, a run with IMU init is held
+    by the keyframes made when it initialized (`imu_init_kf`): the fisheye
+    replay with lines, where the init is a rare event after which float32
+    rounding parts the runs, the port with the reference's draws
+    reproducing its frames tracked and init frame but not its final
+    keyframes (tests/test_torch_kb8_inertial.py
+    `test_kb8_vi_replay_with_reference_draws`)."""
+    seeds = ref["per_seed"]
+    for seed, o in enumerate(runs):
+        init = o.imu_init_frame >= 0
+        pool = [r for r in seeds if (r["imu_init_frame"] >= 0) == init]
+        regime = f"{'with' if init else 'without'} IMU init"
+        check(bool(pool), f"{what}, cfg.seed {seed}: a run {regime}, as "
+              f"{len(pool)} of the reference's {len(seeds)}")
+        kf_key = "imu_init_kf" if init and len(pool) < len(seeds) \
+            else "keyframes"
+        for key, slack in (("n_tracked", 0), ("imu_init_frame", 0),
+                           (kf_key, 1)):
+            if key == "imu_init_frame" and not init:
+                continue
+            v = getattr(o, key)
+            lo, hi = (f(r[key] for r in pool) for f in (min, max))
+            check(within(v, lo, hi, slack), f"{what}, cfg.seed {seed}: "
+                  f"{key} {v} within 10% " + ("or one " if slack else "")
+                  + f"of the reference's {lo}..{hi} over its {len(pool)} "
+                  f"runs {regime}")
+        worst = max(r[ate_key] for r in pool)
+        v = getattr(o, ate_key)
+        check(v <= 2 * worst, f"{what}, cfg.seed {seed}: {ate_key} {v:.4f} "
+              f"m <= 2x the worst of the reference's {len(pool)} runs "
+              f"{regime} ({worst:.4f} m)")
+
+
+def replay_seeds(what, cfg_of, S, path, ref, ate_key, smi):
+    """The replay S with cfg_of(seed) for cfg.seed 0..4, seed 0's run in a
+    launch window of its own; the guards.  Returns (launches, seed 0's
+    run, its recorder)."""
+    runs = []
+    for seed in range(5):
+        run = Slice13Run(device=torch.device("cuda"), cfg=cfg_of(seed))
+        if seed == 0:
+            reset_counts()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            o = run(S)
+        torch.cuda.synchronize()
+        if seed == 0:
+            launches, rec0 = read_counts(), run.rec
+        print(f"  {what}, cfg.seed {seed}: tracked {o.n_tracked} / "
+              f"{len(S['frames'])}, bootstrap frame {o.init_frame}, IMU init "
+              f"frame {o.imu_init_frame}, keyframes {o.keyframes}, points "
+              f"{o.points}, lines {o.lines}, maps {o.maps}, ATE "
+              f"{o.ate_sim3:.4f} / {o.ate_se3:.4f} m "
+              f"({time.perf_counter() - t0:.1f} s)")
+        runs.append(o)
+    stereo_frames_summary(runs[0], smi)
+    print(f"  launches (cfg.seed 0): {launches}")
+    check(all(launches[k] > 0 for k in path),
+          f"{what}: every kernel of the path launched ({', '.join(path)})")
+    replay_guards(what, runs, ref, ate_key)
+    return launches, runs[0], rec0
+
+
+def run_slice13(dev, smi, render, S, report):
+    """Phase 17 (see the module docstring).  Returns the launches of the
+    fisheye replay without and with lines and of the three line modes'
+    replays (cfg.seed 0), each counted in a window of its own."""
+    from plvio_tpu_torch.entry import kb8_vi_config, line_mode_config
+    from plvio_tpu_torch.inputs import build_kb8_vi_replay
+    print("[17] slice 13: the KB8 fisheye with the IMU and lines, SLAM "
+          "modes 1-3")
+    check_slice12_digests()
+    check_slice13_kernels(dev, report)
+    out = {}
+    ms, A = mapping_step(**MAPPING_WORST, device=dev, kb8=True)
+    reset_counts()
+    with torch.no_grad():
+        mo = ms(A)
+    torch.cuda.synchronize()
+    out["kb8_map"] = read_counts()
+    n_obs, n_lobs = A["obs_kf"].shape[0], A["lobs_kf"].shape[0]
+    print(f"  the KB8 camera's mapping step (worst window): triangulated "
+          f"{int(mo.n_good)}, inliers {int(mo.n_inliers)} / {n_obs} points, "
+          f"{int(mo.n_inliers_l)} / {n_lobs} lines; launches "
+          f"{out['kb8_map']}")
+    dP = float((mo.kf_poses - A["kf_poses"]).abs().max())
+    check(bool(torch.isfinite(mo.kf_poses).all()) and dP <= 1e-2
+          and int(mo.n_inliers) >= 0.95 * n_obs
+          and int(mo.n_inliers_l) >= 0.95 * n_lobs,
+          f"the KB8 mapping step from the truth: KF poses finite and within "
+          f"{dP:.2e} (<= 1e-2) of it, >= 95% of the point and line "
+          "observations inliers")
+    check(all(out["kb8_map"][k] > 0 for k in PATH_KB8_MAP),
+          f"every kernel of the KB8 mapping step launched "
+          f"({', '.join(PATH_KB8_MAP)})")
+    waited = render.wait(2)
+    check(waited is not None, f"the fisheye replay's {render.n_kb8} frames "
+          "rendered after the stereo pairs by the render process (waited "
+          f"{waited} s)")
+    K = build_kb8_vi_replay(KB8_VI_SECONDS,
+                            frames=render.frames(3, render.n_kb8))
+    out["kb8_vi"], _, _ = replay_seeds(
+        "the fisheye replay with the IMU, no lines",
+        lambda seed: kb8_vi_config(False, seed=seed), K, PATH_KB8_VI,
+        REF_KB8_VI["points_only"], "ate_se3", smi)
+    out["kb8_vi_lines"], o, rec = replay_seeds(
+        "the fisheye replay with the IMU and lines",
+        lambda seed: kb8_vi_config(True, seed=seed), K, PATH_KB8_VI_LINES,
+        REF_KB8_VI["lines"], "ate_se3", smi)
+    # undistort's KB8 mode on the run's last frame: its keypoints and
+    # segments against the plain version
+    cam = o.system.camera
+    kp = rec["feats"].uv.contiguous()
+    ep = rec["lines"].ep.contiguous()
+    uk = CAM.undistort(cam, kp, ep)
+    up = CAM.undistort_frame_plain(cam, kp, ep)
+    # the padded segments' endpoints (+-1e9 px) undistort to NaN on both
+    same_nan = all(torch.equal(torch.isnan(a), torch.isnan(b))
+                   for a, b in zip(uk, up))
+    du = max(float(torch.nan_to_num((a - b).abs(), nan=0.0).max())
+             for a, b in zip(uk[:2], up[:2]))
+    n_nan = int(torch.isnan(uk[1]).any(-1).sum())
+    check(same_nan and du <= 1e-4, f"undistort's KB8 mode on the fisheye "
+          f"run's last frame ({kp.shape[0]} keypoints, {ep.shape[0]} "
+          f"segments, {n_nan} of them NaN on both, the padding) within "
+          f"{du:.2e} px of the plain version (<= 1e-4)")
+    # pose_irls on the run's last point+line call: a KB8 frame's unmatched
+    # line rows carry NaN line equations (the padding), which poison the
+    # reference's normal equations (0 x NaN); the kernel as its plain
+    # version: the same inliers, the pose within 1e-4 or NaN on both
+    a, _ = rec["pose_opt_pl"]
+    args = [x.contiguous() for x in a]
+    K = o.system.tracker.K
+    pk = KN.pose_irls(K, *args)
+    pp = KN.pose_irls_plain(K, *args)
+    nan_l = int(torch.isnan(args[5]).any(-1).sum())
+    both_nan = bool(torch.isnan(pk[0]).all() and torch.isnan(pp[0]).all())
+    dP = float((pk[0] - pp[0]).abs().max())
+    check(int(pk[3]) == int(pp[3]) and (both_nan or dP <= 1e-4),
+          f"pose_irls on the fisheye run's last point+line pose solve "
+          f"({nan_l} line rows with NaN equations): {int(pk[3])} inliers as "
+          f"the plain version's {int(pp[3])}, pose "
+          + ("NaN on both" if both_nan else f"within {dP:.2e}"))
+    Sm = dict(S, imu=[None] * len(S["frames"]))
+    line_rec = None
+    for mode in (1, 2, 3):
+        out[f"line_mode_{mode}"], o, rec = replay_seeds(
+            f"SLAM mode {mode} over the MH replay",
+            lambda seed, m=mode: line_mode_config(m, seed=seed), Sm,
+            PATH_LINE_MODE, REF_LINE_MODES[str(mode)], "ate_sim3", smi)
+        if mode == 3:
+            line_rec = rec
+    check("pose_opt_line_only" in line_rec, "SLAM mode 3's replay ran the "
+          "line-only pose solve")
+    a, _ = line_rec["pose_opt_line_only"]
+    args = [x.contiguous() for x in a]
+    report["pose_lm_line"] = line_pose_lm_report(
+        args, smi, "SLAM mode 3's last line-only pose solve")
+    from plvio_tpu_torch.inputs import build_line_pose_case
+    line_pose_lm_report(build_line_pose_case(device=dev)[0], smi,
+                        "inputs.build_line_pose_case")
+    return out
 
 
 def main():
@@ -4227,24 +4983,41 @@ def main():
 
 class Render(NamedTuple):
     proc: object            # the render process
-    circuit_done: object    # set once the circuit's frames are written
-    shms: list              # shared blocks: circuit, left views, right views
+    done: list              # an Event per group of blocks, set once it is
+                            # written: the circuit, the stereo pairs, the
+                            # fisheye replay
+    shms: list              # shared blocks: circuit, left views, right
+                            # views, the fisheye replay's frames
     n_circuit: int          # the circuit's frames
     n_stereo: int           # the stereo replay's pairs
+    n_kb8: int              # the fisheye replay's frames
 
     def frames(self, k: int, n: int) -> np.ndarray:
         """A copy of shared block k as n [H, W] float32 frames."""
         return np.array(np.ndarray((n, H, W), np.float32,
                                    buffer=self.shms[k].buf))
 
+    def wait(self, k: int):
+        """Wait for group k (0 the circuit, 1 the stereo pairs, 2 the
+        fisheye replay); the seconds waited, rounded to 0.1, or None if
+        the render process ended without writing it."""
+        t0 = time.perf_counter()
+        while not self.done[k].wait(1.0) and self.proc.is_alive():
+            pass
+        if not self.done[k].is_set():
+            return None
+        return round(time.perf_counter() - t0, 1)
+
 
 def start_render() -> Render:
-    """One process rendering into shared memory while phases 2-14 run,
+    """One process rendering into shared memory while phases 2-16 run,
     held to one thread on the host's last core at the lowest priority (a
     renderer on every core moves the CUDA-event times of the small
     kernels, PERF.md §6): first the 28 s circuit's frames (`inputs.
     render_mh_loop`, ~0.3 s a frame of one core), then the 8 s stereo
-    replay's pairs (`inputs.render_stereo_replay`, ~1 s a pair)."""
+    replay's pairs (`inputs.render_stereo_replay`, ~1 s a pair), then the
+    fisheye replay's frames (`inputs.render_kb8_vi_replay`, ~0.25 s a
+    frame)."""
     import multiprocessing as mp
     import os
     from multiprocessing import shared_memory
@@ -4252,17 +5025,19 @@ def start_render() -> Render:
     from plvio_tpu_torch.io import synthetic as syn
     n_c = len(np.arange(0.0, MH_LOOP_SECONDS, 1.0 / 20.0))
     n_s = len(syn.make_mh_trajectory(MH_SECONDS + 0.3, fps=20.0).timestamps)
+    n_k = len(syn.make_mh_trajectory(KB8_VI_SECONDS + 0.3,
+                                     fps=20.0).timestamps)
     shms = [shared_memory.SharedMemory(create=True, size=n * H * W * 4)
-            for n in (n_c, n_s, n_s)]
+            for n in (n_c, n_s, n_s, n_k)]
     ctx = mp.get_context("spawn")
-    done = ctx.Event()
+    done = [ctx.Event() for _ in range(3)]
     saved = {k: os.environ.get(k) for k in ("OMP_NUM_THREADS",
                                             "OPENBLAS_NUM_THREADS",
                                             "MKL_NUM_THREADS")}
     os.environ.update({k: "1" for k in saved})
     try:
         proc = ctx.Process(target=_render, daemon=True, args=(
-            done, [b.name for b in shms], n_c, n_s))
+            done, [b.name for b in shms], n_c, n_s, n_k))
         proc.start()
     finally:
         for k, v in saved.items():
@@ -4270,10 +5045,10 @@ def start_render() -> Render:
                 os.environ.pop(k)
             else:
                 os.environ[k] = v
-    return Render(proc, done, shms, n_c, n_s)
+    return Render(proc, done, shms, n_c, n_s, n_k)
 
 
-def _render(done, names, n_c, n_s):
+def _render(done, names, n_c, n_s, n_k):
     import os
     from multiprocessing import shared_memory
     os.nice(19)
@@ -4283,14 +5058,19 @@ def _render(done, names, n_c, n_s):
         cv2.setNumThreads(1)
     except ImportError:
         pass
-    from plvio_tpu_torch.inputs import render_mh_loop, render_stereo_replay
+    from plvio_tpu_torch.inputs import (render_kb8_vi_replay, render_mh_loop,
+                                        render_stereo_replay)
     shms = [shared_memory.SharedMemory(name=nm) for nm in names]
+
+    def block(k, n):
+        return np.ndarray((n, H, W), np.float32, buffer=shms[k].buf)
     try:
-        render_mh_loop(np.ndarray((n_c, H, W), np.float32,
-                                  buffer=shms[0].buf))
-        done.set()
-        render_stereo_replay(*(np.ndarray((n_s, H, W), np.float32,
-                                          buffer=b.buf) for b in shms[1:]))
+        render_mh_loop(block(0, n_c))
+        done[0].set()
+        render_stereo_replay(block(1, n_s), block(2, n_s))
+        done[1].set()
+        render_kb8_vi_replay(block(3, n_k), KB8_VI_SECONDS)
+        done[2].set()
     finally:
         for b in shms:
             b.close()
@@ -4474,6 +5254,7 @@ def run_phases(dev, smi, render):
     report.update(report_loop)
     launches_stereo = run_slice11(dev, smi, render, report)
     launches_s12 = run_slice12(dev, smi, report)
+    launches_s13 = run_slice13(dev, smi, render, S, report)
 
     rows = []
     for name, (k, replaces) in [*KERNELS.items(),
@@ -4496,7 +5277,8 @@ def run_phases(dev, smi, render):
                          + launches_sys[name] + launches_reloc[name]
                          + sum(v[name] for v in launches_loop.values())
                          + sum(v[name] for v in launches_stereo)
-                         + sum(v[name] for v in launches_s12),
+                         + sum(v[name] for v in launches_s12)
+                         + sum(v[name] for v in launches_s13.values()),
                          max_abs_err=rep["max_abs_err"], ms=rep["ms"],
                          plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"],
                          bound_by=rep["bound_by"],

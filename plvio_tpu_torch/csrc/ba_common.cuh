@@ -27,6 +27,15 @@
 // S x S system, the CG direction p [S] and two partial-sum rows, one float
 // per block each; a one-float stub otherwise.
 //
+// The line-only window BA of SLAM modes 1-3 (line_mode = 1, 2, 3): no
+// point family (n_pt = n_obs = 0); mode 1 the line edge alone, mode 2 the
+// angle edge alone (one row an observation: the sine of the angle between
+// the projected segment and the observed unit direction lobs_dir [n_lobs,
+// 2], information ang_info x is2), mode 3 both edges of each observation,
+// each with its own Huber weight; the chi2 re-gate reads the line edge's
+// chi2 in modes 1 and 3, the angle edge's in mode 2.  line_mode = 0 is the
+// point+line BA.
+//
 // ctrl (float[8]) carries the LM loop on the device: [0] lambda, [1] cost
 // of the current state, [2] cost of the last candidate, [3] done (early
 // exit), [4] iterations run, [5] last candidate accepted, [6] accepted
@@ -50,24 +59,27 @@ enum Ptr {
   kHcc, kHpt, kHln, kFpt, kFln, kOccPt, kOccLn,
   kGm, kGpart, kRr, kFf, kDx, kCtrl,
   kKfX, kCKfX, kKfFreeBias, kPre, kImuInfo, kEdgeValid, kRwG, kRwA, kLink,
-  kLinkCost, kCCost, kCgw, kNumPtrs
+  kLinkCost, kCCost, kCgw, kLobsDir, kNumPtrs
 };
 // kCgwFloats: the floats of the cgw workspace; kSolvePath: set by
 // schur_solve to the path its reduced solve took (0 one block, 1 global)
 // kKb8: the point edge projects through the KB8 fisheye (k1..k4 in kK1..)
-// onto raw pixels (the point-only window BA of a KB8 camera)
+// onto raw pixels (the window BAs of a KB8 camera; the line edges keep
+// the pinhole fx, fy, cx, cy); kLineMode: the line-only modes above
 enum Int { kNKf, kNPt, kNObs, kNLn, kNLobs, kCgIters, kGramSplit, kBody,
-           kCgwFloats, kSolvePath, kKb8, kNumInts };
+           kCgwFloats, kSolvePath, kKb8, kLineMode, kNumInts };
 enum Flt { kFx, kFy, kCx, kCy, kDelta, kChi2Th, kLam0, kEarlyTol, kGravity,
-           kRcb, kTcb = kRcb + 9, kK1 = kTcb + 3, kNumFlts = kK1 + 4 };
+           kRcb, kTcb = kRcb + 9, kK1 = kTcb + 3, kAngInfo = kK1 + 4,
+           kNumFlts };
 constexpr int kLinkFloats = 465 + 30;
 enum Ctrl { cLam, cCost, cNewCost, cDone, cIters, cAccept, cAccepted };
 
 struct BA {
   void* p[kNumPtrs];
   int n_kf, n_pt, n_obs, n_ln, n_lobs, cg_iters, gram_split, body, kb8;
+  int line_mode;
   float fx, fy, cx, cy, delta, chi2_th, lam0, early_tol, gravity;
-  float Rcb[9], tcb[3], k[4];
+  float Rcb[9], tcb[3], k[4], ang_info;
 
   template <typename T>
   __device__ __forceinline__ T* at(Ptr i) const {
@@ -95,6 +107,7 @@ inline BA make_ba(void* const* ptrs, const int* ints, const float* flts) {
   b.gram_split = ints[kGramSplit];
   b.body = ints[kBody];
   b.kb8 = ints[kKb8];
+  b.line_mode = ints[kLineMode];
   b.fx = flts[kFx];
   b.fy = flts[kFy];
   b.cx = flts[kCx];
@@ -107,6 +120,7 @@ inline BA make_ba(void* const* ptrs, const int* ints, const float* flts) {
   for (int i = 0; i < 9; ++i) b.Rcb[i] = flts[kRcb + i];
   for (int i = 0; i < 3; ++i) b.tcb[i] = flts[kTcb + i];
   for (int i = 0; i < 4; ++i) b.k[i] = flts[kK1 + i];
+  b.ang_info = flts[kAngInfo];
   return b;
 }
 

@@ -50,6 +50,24 @@
 // where r = sqrt(max(x^2 + y^2, 1e-18)) is floored, no depth derivative
 // where the depth is clamped at 1e-6), then the same pose and point rows.
 // The pinhole arithmetic is unchanged.
+//
+// Slice 13 adds three modes.  The body-frame KB8 mode (body = 1, kb8 = 1)
+// replaces `make_point_reproj_body_ba_kb8` (solver/residuals.py:544), the
+// inertial window's point edge of a KB8 camera (models/kernels.py:1228):
+// Xb = R^T (X - p), pc = Rcb Xb + tcb, r = kb8(pc) - uv, its rows the lens
+// Jacobian above through the body rows (JR = (d kb8 / d pc) Rcb), at 16 KF
+// and on schur_solve's global path at 64 KF.  The KB8 point family beside
+// the line family (`make_local_ba_pl` with a KB8K, models/kernels.py:641):
+// the flag reaches the point edges only, the line edges of both frames
+// project through the pinhole fx, fy, cx, cy as `make_line_reproj` reads a
+// KB8K.  The line-only mode (line_mode 1-3, `make_local_ba_lines_only`,
+// models/kernels.py:1394; no point family): mode 1 the line edge, mode 2
+// the angle edge `make_line_angle` (solver/residuals.py:208), mode 3 both,
+// each observation's blocks summing its edges' rows under their own Huber
+// weights.  The angle row: with d = uv_e - uv_s, n = 1 / sqrt(|d|^2 +
+// 1e-12) and g = (dir_1, -dir_0), r = n (d . g) and d r / d d = n g - n^3
+// (d . g) d, through each endpoint's pinhole rows (solver/residuals.py
+// `line_angle_jac`); whitened by sqrt(ang_info x is2).
 #include "ba_common.cuh"
 
 namespace {
@@ -99,12 +117,15 @@ __device__ __forceinline__ void project_kb8(const BA& b, bool jac, Proj& q) {
   }
 }
 
+// lens: through the KB8 fisheye (a point edge of a KB8 camera), else the
+// pinhole fx, fy, cx, cy
 __device__ __forceinline__ void project(const BA& b, const float* P,
-                                        const float* X, bool jac, Proj& q) {
+                                        const float* X, bool jac, Proj& q,
+                                        bool lens) {
   for (int r = 0; r < 3; ++r)
     q.pc[r] = ((P[r * 4] * X[0] + P[r * 4 + 1] * X[1]) + P[r * 4 + 2] * X[2])
         + P[r * 4 + 3];
-  if (b.kb8) {
+  if (lens) {
     project_kb8(b, jac, q);
     return;
   }
@@ -126,13 +147,18 @@ __device__ __forceinline__ void project(const BA& b, const float* P,
 // body frame: Xb = R^T (X - p), pc = Rcb Xb + tcb
 __device__ __forceinline__ void project_body(const BA& b, const float* P,
                                              const float* X, bool jac,
-                                             Proj& q, float Xb[3]) {
+                                             Proj& q, float Xb[3],
+                                             bool lens) {
   const float d[3] = {X[0] - P[3], X[1] - P[7], X[2] - P[11]};
   for (int c = 0; c < 3; ++c)
     Xb[c] = (P[c] * d[0] + P[4 + c] * d[1]) + P[8 + c] * d[2];
   for (int r = 0; r < 3; ++r)
     q.pc[r] = ((b.Rcb[3 * r] * Xb[0] + b.Rcb[3 * r + 1] * Xb[1])
                + b.Rcb[3 * r + 2] * Xb[2]) + b.tcb[r];
+  if (lens) {
+    project_kb8(b, jac, q);
+    return;
+  }
   const float z = fmaxf(q.pc[2], 1e-4f);
   q.u = b.fx * q.pc[0] / z + b.cx;
   q.v = b.fy * q.pc[1] / z + b.cy;
@@ -213,6 +239,117 @@ __device__ void write_blocks(float w, const float r[2], const float Jc[2][6],
   }
 }
 
+// blocks of one line-only observation from nr whitened rows (r, Jc [6],
+// Jl [6]), row d weighted by wr[d]
+template <int NR>
+__device__ void write_rows(const float wr[NR], const float r[NR],
+                           const float Jc[NR][6], const float Jl[NR][6],
+                           float* oc, float* ol, float* ow) {
+  for (int i = 0; i < 6; ++i) {
+    for (int j = i; j < 6; ++j) {
+      float a = 0.f;
+      for (int d = 0; d < NR; ++d) a += (Jc[d][i] * wr[d]) * Jc[d][j];
+      oc[ut(6, i, j)] = a;
+    }
+    float g = 0.f;
+    for (int d = 0; d < NR; ++d) g += (Jc[d][i] * wr[d]) * r[d];
+    oc[21 + i] = -g;
+    for (int j = 0; j < 6; ++j) {
+      float a = 0.f;
+      for (int d = 0; d < NR; ++d) a += (Jc[d][i] * wr[d]) * Jl[d][j];
+      ow[i * 6 + j] = a;
+    }
+  }
+  for (int i = 0; i < 6; ++i) {
+    for (int j = i; j < 6; ++j) {
+      float a = 0.f;
+      for (int d = 0; d < NR; ++d) a += (Jl[d][i] * wr[d]) * Jl[d][j];
+      ol[ut(6, i, j)] = a;
+    }
+    float g = 0.f;
+    for (int d = 0; d < NR; ++d) g += (Jl[d][i] * wr[d]) * r[d];
+    ol[21 + i] = -g;
+  }
+}
+
+// line observation k of the line-only modes 2 and 3: the angle row and
+// (mode 3) the two endpoint rows; chi2 the gate's (the line edge's in
+// mode 3, the angle's in mode 2), w_chi2 the observation's robust cost
+__device__ void line_only_obs(const BA& b, int k, const float* poses,
+                              bool cand, bool jac, float& chi2_gate,
+                              float& w_chi2) {
+  const int o = b.n_obs + k;
+  const float* lns = cand ? b.at<float>(kCLns) : b.at<float>(kLns);
+  const float* P = poses + b.at<int>(kLobsKf)[k] * 12;
+  const float* L = lns + b.at<int>(kLobsLn)[k] * 6;
+  const float* l = b.at<float>(kLobsEq) + k * 3;
+  const float* dir = b.at<float>(kLobsDir) + k * 2;
+  const float is2 = b.at<float>(kLobsIs2)[k];
+  const bool on = b.at<uint8_t>(kMaskL)[k] != 0;
+  const bool both = b.line_mode == 3;
+  const float s = sqrtf(is2), sa = sqrtf(is2 * b.ang_info);
+  Proj q[2];
+  for (int e = 0; e < 2; ++e) project(b, P, L + 3 * e, jac, q[e], false);
+  // rows: [0, 1] the endpoint rows (mode 3), [2] the angle row
+  float r[3], Jc[3][6], Jl[3][6], wr[3];
+  float ce = 0.f;
+  if (both) {
+    for (int e = 0; e < 2; ++e) {
+      r[e] = ((l[0] * q[e].u + l[1] * q[e].v) + l[2]) * s;
+      if (jac) {
+        float jr[3], jp[3];
+        for (int c = 0; c < 3; ++c)
+          jr[c] = l[0] * q[e].J[0][c] + l[1] * q[e].J[1][c];
+        pose_row(jr, q[e].pc, Jc[e]);
+        point_row(jr, P, jp);
+        for (int c = 0; c < 3; ++c) {
+          Jl[e][3 * e + c] = jp[c] * s;
+          Jl[e][3 * (1 - e) + c] = 0.f;
+        }
+        for (int i = 0; i < 6; ++i) Jc[e][i] *= s;
+      }
+    }
+    ce = r[0] * r[0] + r[1] * r[1];
+  }
+  const float d0 = q[1].u - q[0].u, d1 = q[1].v - q[0].v;
+  const float n = 1.f / sqrtf((d0 * d0 + d1 * d1) + 1e-12f);
+  const float g0 = dir[1], g1 = -dir[0];
+  const float dg = d0 * g0 + d1 * g1;
+  r[2] = (n * dg) * sa;
+  const float ca = r[2] * r[2];
+  if (jac) {
+    const float n3 = n * n * n * dg;
+    const float dd[2] = {n * g0 - n3 * d0, n * g1 - n3 * d1};
+    for (int i = 0; i < 6; ++i) Jc[2][i] = 0.f;
+    for (int e = 0; e < 2; ++e) {
+      const float sg = e ? sa : -sa;
+      float jr[3], pr[6], jp[3];
+      for (int c = 0; c < 3; ++c)
+        jr[c] = (dd[0] * q[e].J[0][c] + dd[1] * q[e].J[1][c]) * sg;
+      pose_row(jr, q[e].pc, pr);
+      for (int i = 0; i < 6; ++i) Jc[2][i] += pr[i];
+      point_row(jr, P, jp);
+      for (int c = 0; c < 3; ++c) Jl[2][3 * e + c] = jp[c];
+    }
+  }
+  const float we = both ? huber(b, ce, on) : 0.f;
+  const float wa = huber(b, ca, on);
+  chi2_gate = both ? ce : ca;
+  w_chi2 = both ? we * ce + wa * ca : wa * ca;
+  if (!jac) return;
+  float* oc = b.at<float>(kObsC) + o * 27;
+  float* ol = b.at<float>(kLL) + k * 27;
+  float* ow = b.at<float>(kLW) + k * 36;
+  if (both) {
+    wr[0] = we;
+    wr[1] = we;
+    wr[2] = wa;
+    write_rows<3>(wr, r, Jc, Jl, oc, ol, ow);
+  } else {
+    write_rows<1>(&wa, &r[2], &Jc[2], &Jl[2], oc, ol, ow);
+  }
+}
+
 __global__ void obs_kernel(BA b, int mode) {
   const int o = blockIdx.x * blockDim.x + threadIdx.x;
   const int N = b.n_obs + b.n_lobs;
@@ -229,10 +366,11 @@ __global__ void obs_kernel(BA b, int mode) {
     const float* X = pts + b.at<int>(kObsPt)[o] * 3;
     Proj q;
     float Xb[3];
+    const bool lens = b.kb8 != 0;
     if (b.body)
-      project_body(b, P, X, jac, q, Xb);
+      project_body(b, P, X, jac, q, Xb, lens);
     else
-      project(b, P, X, jac, q);
+      project(b, P, X, jac, q, lens);
     const float* uv = b.at<float>(kObsUv) + o * 2;
     s = sqrtf(b.at<float>(kObsIs2)[o]);
     r[0] = (q.u - uv[0]) * s;
@@ -254,6 +392,12 @@ __global__ void obs_kernel(BA b, int mode) {
       write_blocks<3>(w, r, Jc, Jl, b.at<float>(kObsC) + o * 27,
                       b.at<float>(kPL) + o * 9, b.at<float>(kPW) + o * 18);
     }
+  } else if (b.line_mode >= 2) {
+    float wc;
+    line_only_obs(b, o - b.n_obs, poses, cand, jac, chi2, wc);
+    b.at<float>(kChi2)[o] = chi2;
+    b.at<float>(kWChi2)[o] = wc;
+    return;
   } else {
     const int k = o - b.n_obs;
     const float* lns = cand ? b.at<float>(kCLns) : b.at<float>(kLns);
@@ -266,9 +410,9 @@ __global__ void obs_kernel(BA b, int mode) {
       Proj q;
       float Xb[3];
       if (b.body)
-        project_body(b, P, L + 3 * e, jac, q, Xb);
+        project_body(b, P, L + 3 * e, jac, q, Xb, false);
       else
-        project(b, P, L + 3 * e, jac, q);
+        project(b, P, L + 3 * e, jac, q, false);
       r[e] = ((l[0] * q.u + l[1] * q.v) + l[2]) * s;
       if (jac) {
         float jr[3], jp[3];

@@ -32,11 +32,28 @@
 // with a 6x6 Cholesky in registers (measured equivalent to the reference's
 // CG for this system), retracts with se3_exp and re-orthonormalises the
 // rotation by Gram-Schmidt.  Lines are optional: L = 0 is fast_pose_opt.
+// A NaN chi2 gives a NaN Huber weight (`nan_max`, `nan_min`), so a gated-
+// off row with NaN residuals poisons the step as it does the reference's
+// (0 x NaN); the row is not skipped then.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 512;
+
+// max / min that propagate NaN, as jnp.maximum / jnp.minimum and the plain
+// version's clamp_min / clamp_max do (fmaxf / fminf return the other
+// operand): a row whose chi2 is NaN (a KB8 frame's padded segments
+// undistort to NaN line equations, which the line matcher hands to its
+// unmatched rows) gets a NaN Huber weight, and 0 x NaN poisons the normal
+// equations as in the reference.  On finite values the same as fmaxf /
+// fminf, bit for bit.
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return (a > b || a != a) ? a : b;
+}
+__device__ __forceinline__ float nan_min(float a, float b) {
+  return (a < b || a != a) ? a : b;
+}
 constexpr int kAcc = 27;            // 21 (H upper triangle) + 6 (g)
 constexpr float kChi2Mono = 5.991f;
 constexpr float kChi2Stereo = 7.815f;
@@ -283,7 +300,8 @@ __global__ void __launch_bounds__(kThreads) pose_irls_kernel(Params p) {
     for (int k = tid; k < p.n; k += kThreads) {
       const PointEval e = eval_point(p, P, k);
       if (regate) gate_p[k] = p.valid[k] && (e.chi2 < e.thr);
-      const float wh = fminf(1.f, p.delta / sqrtf(fmaxf(e.chi2, 1e-12f)));
+      const float wh = nan_min(p.delta / sqrtf(nan_max(e.chi2, 1e-12f)),
+                               1.f);
       const float w = float(gate_p[k]) * float(e.pc[2] > 0.05f) * wh
                       * p.is2[k];
       if (w == 0.f) continue;
@@ -310,7 +328,7 @@ __global__ void __launch_bounds__(kThreads) pose_irls_kernel(Params p) {
       bool depth_ok;
       const float c2 = line_chi2(p, P, k, &depth_ok);
       if (regate) gate_l[k] = p.valid_l[k] && (c2 < kChi2Mono);
-      const float wh = fminf(1.f, p.delta / sqrtf(fmaxf(c2, 1e-12f)));
+      const float wh = nan_min(p.delta / sqrtf(nan_max(c2, 1e-12f)), 1.f);
       const float w = float(gate_l[k]) * float(depth_ok) * wh * p.is2_l[k]
                       * p.w_line;
       if (w == 0.f) continue;

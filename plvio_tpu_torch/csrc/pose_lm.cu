@@ -37,6 +37,20 @@
 // bf / z; KB8 as solver/residuals.py `kb8_proj_jac`.  The residual family
 // is a template parameter (kStereo, kKb8), so that further families (the
 // line-only pose modes) add a case and not a kernel.
+//
+// The line-only families (slice 13) replace `make_pose_opt_line_only`
+// (models/kernels.py:1344), the tracker's pose solve from lines alone
+// under SLAM modes 1-3 (models/tracking.py:1040-1066: 3 rounds x 6, cap
+// 256): kLineEp the two endpoint-to-line rows of each map line
+// (`make_line_reproj_fixed`, solver/residuals.py:173), kLineAng the sine
+// of the angle between the projected segment and the observed direction
+// (`make_line_angle_fixed`, :188; information 400 x is2), kLineBoth both,
+// each term with its own Huber weight (delta sqrt(5.991)) on one mask, the
+// rows re-gated on the endpoint term's chi2 (kLineEp, kLineBoth) or the
+// angle term's (kLineAng).  The angle row's Jacobian goes through the
+// normalised direction: with d = uv_e - uv_s, n = (|d|^2 + 1e-12)^-1/2 and
+// g = (dir_1, -dir_0), r = n (d . g) and d r / d d = n g - n^3 (d . g) d
+// (solver/residuals.py `line_angle_jac`).
 #include <math.h>
 
 #include "common.cuh"
@@ -47,13 +61,18 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kStereo = 0;
 constexpr int kKb8 = 1;
+constexpr int kLineEp = 2;
+constexpr int kLineAng = 3;
+constexpr int kLineBoth = 4;
+constexpr double kAngInfo = 400.0;
 constexpr double kChi2Mono = 5.991;
 constexpr double kChi2Stereo = 7.815;
 
 struct Params {
   const float* pose0;   // [12] T_cw, row-major [3,4]
-  const float* obs;     // [cap, ostride]: (u, v, u_R) stereo, (u, v) KB8
-  const float* X;       // [cap,3]
+  const float* obs;     // [cap, ostride]: (u, v, u_R) stereo, (u, v) KB8,
+                        // the line equation (a, b, c) of the line families
+  const float* X;       // [cap,3]; the start points Xs of the line families
   const bool* valid;    // [cap]
   const float* is2;     // [cap]
   int cap, ostride, rounds, iters;
@@ -62,6 +81,8 @@ struct Params {
   float* pose;          // [12]
   bool* inlier;         // [cap]
   int* n_inl;           // [1]
+  const float* Xe;      // [cap,3] the end points (line families)
+  const float* dir;     // [cap,2] the observed unit directions (line families)
 };
 
 __device__ double block_sum(double v, double* red) {
@@ -162,6 +183,90 @@ __device__ double row(const Params& p, const double* T, int i, bool& stereo_row,
   return chi2;
 }
 
+// pinhole projection of X under T (depth clamped at 1e-4) and, when J is
+// given, [d uv / d pc] and pc
+__device__ void pinhole(const Params& p, const double* T, const float* Xf,
+                        double uv[2], double J[2][3], double pc[3]) {
+  const double X[3] = {Xf[0], Xf[1], Xf[2]};
+  for (int r = 0; r < 3; ++r)
+    pc[r] = T[4 * r] * X[0] + T[4 * r + 1] * X[1] + T[4 * r + 2] * X[2]
+        + T[4 * r + 3];
+  const bool zc = pc[2] > 1e-4;
+  const double z = zc ? pc[2] : 1e-4;
+  uv[0] = p.fx * pc[0] / z + p.cx;
+  uv[1] = p.fy * pc[1] / z + p.cy;
+  if (J) {
+    const double iz = 1.0 / z, dz = zc ? 1.0 : 0.0;
+    J[0][0] = p.fx * iz; J[0][1] = 0.0;
+    J[0][2] = -p.fx * pc[0] * iz * iz * dz;
+    J[1][0] = 0.0; J[1][1] = p.fy * iz;
+    J[1][2] = -p.fy * pc[1] * iz * iz * dz;
+  }
+}
+
+// [j, -j hat(pc)]: d r / d (rho, phi) of a row j = d r / d pc
+__device__ inline void pose_row(const double j[3], const double pc[3],
+                                double out[6]) {
+  out[0] = j[0];
+  out[1] = j[1];
+  out[2] = j[2];
+  out[3] = -(j[1] * pc[2] - j[2] * pc[1]);
+  out[4] = -(j[2] * pc[0] - j[0] * pc[2]);
+  out[5] = -(j[0] * pc[1] - j[1] * pc[0]);
+}
+
+// Line i of a line family under pose T: rows 0-1 the whitened endpoint
+// rows (kLineEp, kLineBoth), row 2 the whitened angle row (kLineAng,
+// kLineBoth), their Jacobians when Jw != nullptr, and each term's chi2
+// (0 for a term the family lacks).
+template <int F>
+__device__ void line_rows(const Params& p, const double* T, int i,
+                          double rw[3], double (*Jw)[6], double& chi_ep,
+                          double& chi_ang) {
+  double uv[2][2], J[2][2][3], pc[2][3];
+  pinhole(p, T, p.X + 3 * i, uv[0], Jw ? J[0] : nullptr, pc[0]);
+  pinhole(p, T, p.Xe + 3 * i, uv[1], Jw ? J[1] : nullptr, pc[1]);
+  const double is2 = (double)p.is2[i];
+  chi_ep = chi_ang = 0.0;
+  rw[0] = rw[1] = rw[2] = 0.0;
+  if (F != kLineAng) {
+    const float* l = p.obs + 3 * i;
+    const double w = sqrt(is2);
+    for (int e = 0; e < 2; ++e) {
+      rw[e] = (l[0] * uv[e][0] + l[1] * uv[e][1] + l[2]) * w;
+      if (Jw) {
+        double j[3];
+        for (int c = 0; c < 3; ++c)
+          j[c] = (l[0] * J[e][0][c] + l[1] * J[e][1][c]) * w;
+        pose_row(j, pc[e], Jw[e]);
+      }
+    }
+    chi_ep = rw[0] * rw[0] + rw[1] * rw[1];
+  }
+  if (F != kLineEp) {
+    const double w = sqrt(is2 * kAngInfo);
+    const double d0 = uv[1][0] - uv[0][0], d1 = uv[1][1] - uv[0][1];
+    const double n = 1.0 / sqrt(d0 * d0 + d1 * d1 + 1e-12);
+    const double g0 = p.dir[2 * i + 1], g1 = -p.dir[2 * i];
+    const double dg = d0 * g0 + d1 * g1;
+    rw[2] = n * dg * w;
+    chi_ang = rw[2] * rw[2];
+    if (Jw) {
+      const double n3 = n * n * n * dg;
+      const double dd[2] = {n * g0 - n3 * d0, n * g1 - n3 * d1};
+      for (int a = 0; a < 6; ++a) Jw[2][a] = 0.0;
+      for (int e = 0; e < 2; ++e) {
+        const double sg = e ? w : -w;
+        double j[3], row[6];
+        for (int c = 0; c < 3; ++c)
+          j[c] = (dd[0] * J[e][0][c] + dd[1] * J[e][1][c]) * sg;
+        pose_row(j, pc[e], row);
+        for (int a = 0; a < 6; ++a) Jw[2][a] += row[a];
+      }
+    }
+  }
+}
+
 __device__ inline double delta_of(bool stereo_row) {
   return sqrt(stereo_row ? kChi2Stereo : kChi2Mono);
 }
@@ -176,6 +281,13 @@ __device__ double cost(const Params& p, const double* T, const bool* mask,
   double acc = 0.0;
   for (int i = threadIdx.x; i < p.cap; i += kThreads) {
     if (!mask[i]) continue;
+    if constexpr (F >= kLineEp) {
+      double rw[3], ce, ca;
+      line_rows<F>(p, T, i, rw, nullptr, ce, ca);
+      const double dm = sqrt(kChi2Mono);
+      acc += huber(dm, ce) * ce + huber(dm, ca) * ca;
+      continue;
+    }
     bool st;
     int rdim;
     double rw[3];
@@ -291,6 +403,28 @@ __global__ void __launch_bounds__(kThreads) pose_lm_kernel(Params p) {
       for (int k = 0; k < 27; ++k) acc[k] = 0.0;
       for (int i = tid; i < p.cap; i += kThreads) {
         if (!mask[i]) continue;
+        if constexpr (F >= kLineEp) {
+          double rw[3], J[3][6], ce, ca;
+          line_rows<F>(p, T, i, rw, J, ce, ca);
+          const double dm = sqrt(kChi2Mono);
+          const double we = huber(dm, ce), wa = huber(dm, ca);
+          const int d0 = F == kLineAng ? 2 : 0, d1 = F == kLineEp ? 2 : 3;
+          int q = 0;
+          for (int a = 0; a < 6; ++a)
+            for (int b = a; b < 6; ++b, ++q) {
+              double h = 0.0;
+              for (int d = d0; d < d1; ++d)
+                h += (d == 2 ? wa : we) * (J[d][a] * J[d][b]);
+              acc[q] += h;
+            }
+          for (int a = 0; a < 6; ++a) {
+            double gg = 0.0;
+            for (int d = d0; d < d1; ++d)
+              gg += (d == 2 ? wa : we) * (J[d][a] * rw[d]);
+            acc[21 + a] -= gg;
+          }
+          continue;
+        }
         bool st;
         int rdim;
         double rw[3], J[3][6];
@@ -348,6 +482,12 @@ __global__ void __launch_bounds__(kThreads) pose_lm_kernel(Params p) {
     }
     // re-gate every valid row on its chi2 at the round's result
     for (int i = tid; i < p.cap; i += kThreads) {
+      if constexpr (F >= kLineEp) {
+        double rw[3], ce, ca;
+        line_rows<F>(p, T, i, rw, nullptr, ce, ca);
+        mask[i] = p.valid[i] && (F == kLineAng ? ca : ce) < kChi2Mono;
+        continue;
+      }
       bool st;
       int rdim;
       double rw[3];
@@ -369,26 +509,38 @@ __global__ void __launch_bounds__(kThreads) pose_lm_kernel(Params p) {
 }  // namespace
 
 // family 0: stereo (obs = uvr [cap,3], bf > 0); 1: KB8 (obs = uv [cap,2],
-// k1..k4)
+// k1..k4); 2, 3, 4: the line families of SLAM modes 1, 2, 3 (obs = the
+// line equations [cap,3], X = Xs, Xe and dir given)
 PLVIO_API int pose_lm(int family, const void* pose0, const void* obs,
                       const void* X, const void* valid, const void* is2,
                       int cap, int rounds, int iters, double fx, double fy,
                       double cx, double cy, double bf, double k1, double k2,
                       double k3, double k4, void* pose, void* inlier,
-                      void* n_inl, void* stream) {
+                      void* n_inl, const void* Xe, const void* dir,
+                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (family != kStereo && family != kKb8)
+  const bool line = family >= kLineEp && family <= kLineBoth;
+  if ((family != kStereo && family != kKb8 && !line) ||
+      (line && (Xe == nullptr || dir == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   Params p{static_cast<const float*>(pose0), static_cast<const float*>(obs),
            static_cast<const float*>(X), static_cast<const bool*>(valid),
-           static_cast<const float*>(is2), cap, family == kStereo ? 3 : 2,
+           static_cast<const float*>(is2), cap,
+           family == kKb8 ? 2 : 3,
            rounds, iters, fx, fy, cx, cy, bf, k1, k2, k3, k4,
            static_cast<float*>(pose), static_cast<bool*>(inlier),
-           static_cast<int*>(n_inl)};
+           static_cast<int*>(n_inl), static_cast<const float*>(Xe),
+           static_cast<const float*>(dir)};
   const size_t smem = size_t(cap);
   if (family == kStereo)
     pose_lm_kernel<kStereo><<<1, kThreads, smem, s>>>(p);
-  else
+  else if (family == kKb8)
     pose_lm_kernel<kKb8><<<1, kThreads, smem, s>>>(p);
+  else if (family == kLineEp)
+    pose_lm_kernel<kLineEp><<<1, kThreads, smem, s>>>(p);
+  else if (family == kLineAng)
+    pose_lm_kernel<kLineAng><<<1, kThreads, smem, s>>>(p);
+  else
+    pose_lm_kernel<kLineBoth><<<1, kThreads, smem, s>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

@@ -15,9 +15,11 @@
 // point per Newton step (~1 Mflop in all), microseconds at the card's
 // rates.
 //
-// The KB8 mode (kb8 = 1, keypoints only) replaces `kb8_unproject` (:170)
-// through `kb8_undistort_pixels` (:192), which the fisheye System runs on
-// every frame's keypoints: 10 Newton steps of theta_d(theta) = |m| from
+// The KB8 mode (kb8 = 1) replaces `kb8_unproject` (:170) through
+// `kb8_undistort_pixels` (:192), which the fisheye System runs on every
+// frame's keypoints and, with lines (slice 13, models/system.py:318-321),
+// on both endpoints of its segments before their new line equations: 10
+// Newton steps of theta_d(theta) = |m| from
 // theta = |m|, each divided by max(df, 1e-6), then m tan(theta) / |m|
 // back to pixels; the polynomial's powers and sums in the reference's
 // order (t2^3 = t2 (t2 t2), t2^4 = (t2 t2)(t2 t2)).
@@ -97,23 +99,25 @@ __device__ void undistort_kb8(const Params& p, float u, float v, float* uo,
   *vo = p.fy * (my * scale) + p.cy;
 }
 
+__device__ void undistort_px(const Params& p, float u, float v, float* uo,
+                             float* vo) {
+  if (p.kb8)
+    undistort_kb8(p, u, v, uo, vo);
+  else
+    undistort_one(p, u, v, uo, vo);
+}
+
 __global__ void undistort_kernel(Params p) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p.kb8) {
-    if (i < p.n)
-      undistort_kb8(p, p.kp[2 * i], p.kp[2 * i + 1], &p.kp_out[2 * i],
-                    &p.kp_out[2 * i + 1]);
-    return;
-  }
   if (i < p.n) {
-    undistort_one(p, p.kp[2 * i], p.kp[2 * i + 1], &p.kp_out[2 * i],
-                  &p.kp_out[2 * i + 1]);
+    undistort_px(p, p.kp[2 * i], p.kp[2 * i + 1], &p.kp_out[2 * i],
+                 &p.kp_out[2 * i + 1]);
   } else if (i < p.n + p.l) {
     const int j = i - p.n;
     const float* e = p.ep + 4 * j;
     float* o = p.ep_out + 4 * j;
-    undistort_one(p, e[0], e[1], &o[0], &o[1]);
-    undistort_one(p, e[2], e[3], &o[2], &o[3]);
+    undistort_px(p, e[0], e[1], &o[0], &o[1]);
+    undistort_px(p, e[2], e[3], &o[2], &o[3]);
     // (x0, y0, 1) x (x1, y1, 1), normalized by |(a, b)|
     const float a = o[1] - o[3], b = o[2] - o[0];
     const float c = o[0] * o[3] - o[1] * o[2];
@@ -133,7 +137,7 @@ PLVIO_API int undistort(const void* kp, int n, const void* ep, int l,
   Params p{static_cast<const float*>(kp), static_cast<const float*>(ep), n, l,
            fx, fy, cx, cy, k1, k2, p1, p2, kb8, static_cast<float*>(kp_out),
            static_cast<float*>(ep_out), static_cast<float*>(lineq)};
-  const int total = kb8 ? n : n + l;
+  const int total = n + l;
   if (total > 0)
     undistort_kernel<<<(total + 127) / 128, 128, 0,
                        static_cast<cudaStream_t>(stream)>>>(p);

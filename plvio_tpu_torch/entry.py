@@ -356,13 +356,17 @@ class MappingStep(nn.Module):
 
     forward(A, stats=None) -> MappingOut; A is the dict of
     `inputs.build_mapping_inputs`; `stats` (a list) gets each BA round's
-    LM iteration count."""
+    LM iteration count.  `ba_K` (a KB8K: the window BA of a fisheye
+    camera, its point edges through the lens on raw pixels) replaces K in
+    the BA; the matcher and the triangulator work on the undistorted
+    pinhole coordinates of K."""
 
-    def __init__(self, plain: bool = False, K: PinholeK = K_EUROC):
+    def __init__(self, plain: bool = False, K: PinholeK = K_EUROC,
+                 ba_K=None):
         super().__init__()
         self.epi = make_epipolar_matcher(K, plain=plain)
         self.tri = make_triangulator(K, plain=plain)
-        self.lba = make_local_ba_pl(K, plain=plain)
+        self.lba = make_local_ba_pl(K if ba_K is None else ba_K, plain=plain)
 
     def forward(self, A, stats=None):
         idx2, ok2 = self.epi(A["pose_a"], A["pose_b"], A["uv_a"], A["desc"],
@@ -389,16 +393,34 @@ MAPPING_TYPICAL = dict(n_kf=16, n_pt=2048, n_obs=4096, n_feat=1024, n_ln=256,
 
 def mapping_step(n_kf: int = 16, n_pt: int = 4096, n_obs: int = 8192,
                  n_feat: int = 1024, n_ln: int = 512, n_lobs: int = 1024,
-                 device="cuda", plain: bool = False):
+                 device="cuda", plain: bool = False, kb8: bool = False):
     """The keyframe mapping step at the given window size (default: the
     worst case, 16 KF x 4096 points x 8192 observations, 512 lines x 1024
     observations, 1024 features) and its inputs from
-    `inputs.build_mapping_inputs` (bench.py's numpy draws, seed 1)."""
-    from .inputs import build_mapping_inputs
+    `inputs.build_mapping_inputs` (bench.py's numpy draws, seed 1).  With
+    `kb8` the step of the fisheye room's KB8 camera
+    (`inputs.kb8_camera`): the window of `inputs.build_kb8_window` from the
+    truth (the points' observations through the lens on raw pixels, the
+    lines' on its pinhole fx, fy, cx, cy), the epipolar pair the first
+    n_feat points at keyframes 0 and 1 in undistorted coordinates; the BA
+    with the KB8K, the matcher and the triangulator on its pinhole four."""
+    from .inputs import build_kb8_window, build_mapping_inputs, kb8_camera
     dev = resolve_device(device)
     A = build_mapping_inputs(n_kf, n_pt, n_obs, n_feat, n_ln, n_lobs,
                              device=dev)
-    return MappingStep(plain=plain).to(dev), A
+    if not kb8:
+        return MappingStep(plain=plain).to(dev), A
+    K8 = kb8_camera()
+    K = PinholeK(K8.fx, K8.fy, K8.cx, K8.cy)
+    A.update(build_kb8_window(n_kf, n_pt, n_obs, perturbed=False, device=dev,
+                              n_ln=n_ln, n_lobs=n_lobs))
+    X = A["pt_xyz"][:n_feat]
+    for key, P in (("uv_a", A["pose_a"]), ("uv_b", A["pose_b"])):
+        pc = X @ P[:, :3].T + P[:, 3]
+        A[key] = torch.stack([K.fx * pc[:, 0] / pc[:, 2] + K.cx,
+                              K.fy * pc[:, 1] / pc[:, 2] + K.cy],
+                             -1).contiguous()
+    return MappingStep(plain=plain, K=K, ba_K=K8).to(dev), A
 
 
 class InertialBAOut(NamedTuple):
@@ -1346,6 +1368,62 @@ def kb8_room(n_frames: int = 30, seed: int = 0, device="cuda",
                                    "sim3_sampler") if k in kw}
     return SystemRun(plain=plain, device=dev, cfg=kb8_config(**kw),
                      **caps), S
+
+
+def kb8_vi_config(use_lines: bool = True, **kw):
+    """The fork's main configuration on a fisheye lens: IMU_MONOCULAR with
+    the fisheye room's KB8 camera (`inputs.KB8_INTRINSICS`, `KB8_K`), the
+    body frame the camera's, lines on unless use_lines=False, the system's
+    defaults otherwise (loop closing on); kw replaces fields."""
+    from .config import Sensor
+    return system_config(**{**dict(
+        sensor=Sensor.IMU_MONOCULAR, use_lines=use_lines,
+        camera=kb8_config().camera), **kw})
+
+
+def kb8_vi_replay(seconds: float = 8.0, seed: int = 7, use_lines: bool = True,
+                  device="cuda", plain: bool = False, **kw):
+    """The whole system with the KB8 fisheye and the IMU over the MH
+    replay's hall (`SystemRun` with `kb8_vi_config(use_lines, **kw)`, kw
+    also `caps`, `viba_caps`, `sampler`, `pnp_sampler`, `sim3_sampler`,
+    `replay_kw`: `inputs.build_kb8_vi_replay`'s n_frames / frames) and the
+    replay of `inputs.build_kb8_vi_replay(seconds, seed)`."""
+    from .inputs import build_kb8_vi_replay
+    dev = resolve_device(device)
+    S = build_kb8_vi_replay(seconds, seed, **kw.pop("replay_kw", {}))
+    caps = {k: kw.pop(k) for k in ("caps", "viba_caps", "sampler",
+                                   "pnp_sampler", "sim3_sampler")
+            if k in kw}
+    return SystemRun(plain=plain, device=dev,
+                     cfg=kb8_vi_config(use_lines, **kw), **caps), S
+
+
+def line_mode_config(mode: int, **kw):
+    """SLAM mode 1, 2 or 3 (the reference's YAML `SLAM`: the pose and the
+    window BA from lines alone) on `system_config`'s camera: MONOCULAR
+    with lines, loop closing on (as the JAX package's System runs it);
+    kw replaces fields."""
+    from .config import Sensor, SlamMode
+    return system_config(**{**dict(sensor=Sensor.MONOCULAR, use_lines=True,
+                                   slam_mode=SlamMode(mode)), **kw})
+
+
+def line_mode_replay(mode: int, seconds: float = 8.0, seed: int = 7,
+                     device="cuda", plain: bool = False, **kw):
+    """The whole system under SLAM mode 1, 2 or 3 over the MH replay's
+    frames (`SystemRun` with `line_mode_config(mode, **kw)`, kw also the
+    caps and samplers of `kb8_vi_replay` and `replay_kw`) and the replay
+    of `inputs.build_mh_replay(seconds, seed)` with its IMU batches
+    dropped (MONOCULAR)."""
+    from .inputs import build_mh_replay
+    dev = resolve_device(device)
+    S = build_mh_replay(seconds, seed, **kw.pop("replay_kw", {}))
+    S["imu"] = [None] * len(S["frames"])
+    caps = {k: kw.pop(k) for k in ("caps", "viba_caps", "sampler",
+                                   "pnp_sampler", "sim3_sampler")
+            if k in kw}
+    return SystemRun(plain=plain, device=dev,
+                     cfg=line_mode_config(mode, **kw), **caps), S
 
 
 def mh_loop(duration: float = 28.0, seed: int = 7, device="cuda",

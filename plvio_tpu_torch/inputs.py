@@ -424,9 +424,14 @@ def _pick_observations(rng, vis, n_obs):
 def build_inertial_window(n_pt: int = 4096, n_obs: int = 8192,
                           n_ln: int = 256, n_lobs: int = 512, seed: int = 0,
                           device="cuda", perturbed: bool = False,
-                          n_kf: int = 16, n_observers: int = 5):
+                          n_kf: int = 16, n_observers: int = 5,
+                          kb8: bool = False):
     """A window of the sliding-window VI BA shaped as production's
     (models/local_mapping.py:1143-1176, 1377-1445), numpy default_rng(seed).
+    With `kb8` the same draws observed by the fisheye room's camera
+    (`kb8_camera`): the points through the lens on raw pixels, the lines
+    as the pinhole projection of its fx, fy, cx, cy (the window BA's line
+    edge of a KB8K camera).
 
     - Trajectory: the port's orbit (radius 1.5 m) at 20 fps, a KF every 3
       frames; the n_kf slots are `n_observers` older fixed visual
@@ -497,12 +502,18 @@ def build_inertial_window(n_pt: int = 4096, n_obs: int = 8192,
     X = np.zeros((n_pt, 3))
     X[:m_pt] = Xr
 
-    def project(Xw, kf):
-        pc = np.einsum("nji,nj->ni", R_wc[kf], Xw - p_wc[kf])
-        return np.stack([K.fx * pc[:, 0] / pc[:, 2] + K.cx,
-                         K.fy * pc[:, 1] / pc[:, 2] + K.cy], -1)
+    Kl = kb8_camera() if kb8 else K
 
-    obs_uv = project(X[obs_pt], obs_kf) + rng.normal(0, 0.5, (n_obs, 2))
+    def project(Xw, kf, lens=False):
+        pc = np.einsum("nji,nj->ni", R_wc[kf], Xw - p_wc[kf])
+        if lens:
+            return syn._kb8_project_cam_np(pc, Kl.fx, Kl.fy, Kl.cx, Kl.cy,
+                                           KB8_K)
+        return np.stack([Kl.fx * pc[:, 0] / pc[:, 2] + Kl.cx,
+                         Kl.fy * pc[:, 1] / pc[:, 2] + Kl.cy], -1)
+
+    obs_uv = project(X[obs_pt], obs_kf, kb8) \
+        + rng.normal(0, 0.5, (n_obs, 2))
     octave = rng.integers(0, 8, n_obs)
     obs_is2 = 1.0 / 1.2 ** (2.0 * octave)
     out_p = rng.random(n_obs) < 0.02
@@ -1929,7 +1940,8 @@ def kb8_camera() -> "KB8K":
 
 
 def build_kb8_window(n_kf: int = 16, n_pt: int = 2048, n_obs: int = 4096,
-                     perturbed: bool = True, device="cuda"):
+                     perturbed: bool = True, device="cuda",
+                     n_ln: int = 0, n_lobs: int = 0):
     """The point-only window BA of a KB8 camera at the typical bucket:
     `build_mapping_inputs`' window (its keyframes, points and observation
     pairs, seed 1), observed through the fisheye room's lens
@@ -1937,9 +1949,15 @@ def build_kb8_window(n_kf: int = 16, n_pt: int = 2048, n_obs: int = 4096,
     (default_rng(2)), from `perturb_window`'s start when `perturbed`.
     Returns dict of `make_local_ba`'s arguments (kf_poses, kf_free,
     pt_xyz, pt_free, obs_kf, obs_pt, obs_uv, obs_valid, obs_is2) on
-    `device`."""
+    `device`.  With n_lobs > 0 the window of `make_local_ba_pl` with a
+    KB8K camera: `build_mapping_inputs`' lines too, each observation the
+    line equation of its endpoints' pinhole projections at the camera's
+    fx, fy, cx, cy (the line edge of a KB8K) with N(0, 0.5) px noise
+    (default_rng(3)), the endpoints perturbed by N(0, 0.02) (default_rng(
+    4)) when `perturbed`; then every key of BA_KEYS."""
     dev = resolve_device(device)
-    A = build_mapping_inputs(n_kf, n_pt, n_obs, 64, 0, 0, device="cpu")
+    A = build_mapping_inputs(n_kf, n_pt, n_obs, 64, n_ln, n_lobs,
+                             device="cpu")
     P = A["kf_poses"].numpy().astype(np.float64)
     X = A["pt_xyz"].numpy().astype(np.float64)
     okf, opt = A["obs_kf"].numpy(), A["obs_pt"].numpy()
@@ -1956,7 +1974,134 @@ def build_kb8_window(n_kf: int = 16, n_pt: int = 2048, n_obs: int = 4096,
                                           torch.from_numpy(Xp))
     keys = ("kf_poses", "kf_free", "pt_xyz", "pt_free", "obs_kf", "obs_pt",
             "obs_uv", "obs_valid", "obs_is2")
+    if n_lobs:
+        L = A["ln_ep6"].numpy().astype(np.float64)
+        lkf, lln = A["lobs_kf"].numpy(), A["lobs_ln"].numpy()
+        lrng = np.random.default_rng(3)
+        out["lobs_eq"] = torch.from_numpy(_line_obs(
+            lrng, K8, P[lkf], L[lln], 0.5)[0])
+        for k in ("ln_free", "lobs_kf", "lobs_ln", "lobs_valid",
+                  "lobs_is2"):
+            out[k] = A[k]
+        out["ln_ep6"] = A["ln_ep6"]
+        if perturbed:
+            out["ln_ep6"] = A["ln_ep6"] + torch.from_numpy(
+                np.random.default_rng(4).normal(0, 0.02, L.shape).astype(
+                    np.float32))
+        keys = keys + ("ln_ep6", "ln_free", "lobs_kf", "lobs_ln", "lobs_eq",
+                       "lobs_valid", "lobs_is2")
     return {k: out[k].contiguous().to(dev) for k in keys}
+
+
+def _line_obs(rng, K, P, L, noise: float):
+    """Observations of segments L [n,6] (float64) by cameras P [n,3,4]
+    T_cw through the pinhole fx, fy, cx, cy of K: both endpoints projected
+    with N(0, noise) px added (start, then end).  Returns (line equations
+    [n,3] |(a, b)| = 1, unit directions end - start [n,2]) float32."""
+    uv = []
+    for k in range(2):
+        pc = np.einsum("nij,nj->ni", P[:, :, :3], L[:, 3 * k:3 * k + 3]) \
+            + P[:, :, 3]
+        z = np.maximum(pc[:, 2], 1e-3)
+        uv.append(np.stack([K.fx * pc[:, 0] / z + K.cx,
+                            K.fy * pc[:, 1] / z + K.cy], -1)
+                  + rng.normal(0, noise, (len(L), 2)))
+    one = np.ones((len(L), 1))
+    leq = np.cross(np.concatenate([uv[0], one], 1),
+                   np.concatenate([uv[1], one], 1))
+    leq /= np.maximum(np.linalg.norm(leq[:, :2], axis=1, keepdims=True),
+                      1e-9)
+    d = uv[1] - uv[0]
+    d /= np.maximum(np.linalg.norm(d, axis=1, keepdims=True), 1e-6)
+    return leq.astype(np.float32), d.astype(np.float32)
+
+
+def build_line_window(n_kf: int = 16, n_ln: int = 512, n_lobs: int = 1024,
+                      m_ln: int = 128, seed: int = 5, perturbed: bool = True,
+                      device="cuda"):
+    """The line-only window BA of SLAM modes 1-3 at production's caps
+    (models/local_mapping.py: 16 KF x 512 lines x 1024 observations):
+    `build_mapping_inputs`' keyframes (seed 1), m_ln segments (default_rng(
+    seed): start points in its box, 0.5-1.5 m long in a random direction),
+    each seen by n_lobs // m_ln distinct keyframes, observed through the
+    EuRoC pinhole with N(0, 0.5) px noise (`_line_obs`: the line equation
+    and the unit direction); the other n_ln - m_ln line slots padded
+    (ln_free false), as the mapper pads its buckets.  With `perturbed` the
+    keyframes start from `perturb_window` and the endpoints move by
+    N(0, 0.05).  Returns dict of `make_local_ba_lines_only`'s arguments
+    (kf_poses, kf_free, ln_ep6, ln_free, lobs_kf, lobs_ln, lobs_eq,
+    lobs_dir, lobs_valid, lobs_is2) on `device`."""
+    dev = resolve_device(device)
+    A = build_mapping_inputs(n_kf, 64, 128, 64, 0, 0, device="cpu")
+    P = A["kf_poses"].numpy().astype(np.float64)
+    rng = np.random.default_rng(seed)
+    per = n_lobs // m_ln
+    Xs = rng.uniform([-3, -2, 4], [3, 2, 10], (m_ln, 3))
+    d = rng.normal(0, 1, (m_ln, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    L = np.concatenate([Xs, Xs + d * rng.uniform(0.5, 1.5, (m_ln, 1))], 1)
+    lkf = np.concatenate([rng.choice(n_kf, per, replace=False)
+                          for _ in range(m_ln)]).astype(np.int32)
+    lln = np.repeat(np.arange(m_ln), per).astype(np.int32)
+    leq, ldir = _line_obs(rng, K_EUROC, P[lkf], L[lln], 0.5)
+    ln = np.zeros((n_ln, 6))
+    ln[:m_ln] = L
+    kf = A["kf_poses"].numpy()
+    if perturbed:
+        kf = perturb_window(kf, np.zeros((1, 3), np.float32))[0]
+        ln[:m_ln] += np.random.default_rng(seed + 1).normal(0, 0.05,
+                                                             (m_ln, 6))
+
+    def t(a, dt=np.float32):
+        return torch.from_numpy(np.ascontiguousarray(a, dt)).to(dev)
+    n = len(lkf)
+    return dict(kf_poses=t(kf), kf_free=t(np.arange(n_kf) > 0, bool),
+                ln_ep6=t(ln), ln_free=t(np.arange(n_ln) < m_ln, bool),
+                lobs_kf=t(lkf, np.int32), lobs_ln=t(lln, np.int32),
+                lobs_eq=t(leq), lobs_dir=t(ldir),
+                lobs_valid=t(np.ones(n, bool), bool),
+                lobs_is2=t(np.ones(n)))
+
+
+def build_line_pose_case(seed: int = 0, cap: int = 256, n: int = 160,
+                         outliers: float = 0.1, device="cuda"):
+    """The line-only pose LM's inputs at the tracker's cap (256 map
+    lines): n of the cap's rows valid, segments 1.5-6 m in front of a
+    pose near the identity (default_rng(seed)), observed through the
+    EuRoC pinhole with N(0, 0.5) px noise (`_line_obs`), a share
+    `outliers` of them observed 30 px off across the segment; the start
+    the truth moved by N(0, 0.02) rad / m.  Returns (pose0 [3,4], l_obs
+    [cap,3], dir_obs [cap,2], Xs, Xe [cap,3], valid [cap], is2 [cap]) on
+    `device`, then the true pose [3,4] in numpy."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    R = lie.so3_exp(torch.from_numpy(rng.normal(0, 0.05, 3))).numpy()
+    P = np.concatenate([R, rng.normal(0, 0.1, (3, 1))], 1)
+    pc = np.stack([rng.uniform(-2, 2, n), rng.uniform(-1.3, 1.3, n),
+                   rng.uniform(1.5, 6.0, n)], -1)
+    Xs = (pc - P[:, 3]) @ R
+    d = rng.normal(0, 1, (n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    Xe = Xs + 0.8 * d
+    L = np.concatenate([Xs, Xe], 1)
+    leq, ldir = _line_obs(rng, K_EUROC, np.repeat(P[None], n, 0), L, 0.5)
+    bad = rng.random(n) < outliers
+    leq[bad, 2] += 30.0          # the observed line moved 30 px
+    dx = rng.normal(0, 0.02, 6)
+    dR = lie.so3_exp(torch.from_numpy(dx[3:])).numpy()
+    P0 = np.concatenate([dR @ P[:, :3], (dR @ P[:, 3] + dx[:3])[:, None]], 1)
+
+    def pad(a):
+        out = np.zeros((cap,) + a.shape[1:], np.float32)
+        out[:n] = a
+        return torch.from_numpy(out).to(dev)
+    valid = torch.from_numpy(np.arange(cap) < n).to(dev)
+    return (torch.from_numpy(P0.astype(np.float32)).to(dev), pad(leq),
+            pad(ldir), pad(Xs), pad(Xe), valid,
+            torch.ones(cap, dtype=torch.float32, device=dev)), P
+
+
+
 
 
 def build_kb8_room(seed: int = 0, n_frames: int = 30):
@@ -1979,6 +2124,52 @@ def build_kb8_room(seed: int = 0, n_frames: int = 30):
     return dict(frames=frames, timestamps=traj.timestamps[:n],
                 imu=[None] * n, R_wc=traj.R_wb[:n], p_wc=traj.p_wb[:n],
                 scene=scene)
+
+
+def build_kb8_vi_replay(seconds: float = MH_SECONDS, seed: int = MH_SEED,
+                        n_frames=None, frames=None):
+    """The MH replay seen through the fisheye room's lens: `build_mh_replay`'s
+    world, trajectory and 200 Hz IMU (its generators, in its rng order),
+    each frame the raw KB8 view of the hall at the frame's pose
+    (`io.synthetic.render_frame_kb8`, KB8_INTRINSICS, k = KB8_K, 752x480,
+    with noise).  The KB8 renderer draws the points only (a straight
+    segment is a curve under the lens, plvio_tpu/io/synthetic.py:330-333),
+    so the line front end finds few segments on these frames.  `frames`,
+    where given, holds the views already rendered (e.g. by
+    `render_kb8_vi_replay` in another process) and nothing is rendered.
+
+    Returns `build_mh_replay`'s dict (frames [n] of [480,752] float32,
+    timestamps, imu batches, R_wc, p_wc, scene, traj, imu_data)."""
+    rng, scene, traj, imu = _stereo_world(seconds, seed)
+    n = len(traj.timestamps) if n_frames is None \
+        else min(n_frames, len(traj.timestamps))
+    out, batches, last_t = [], [], None
+    for i in range(n):
+        t = traj.timestamps[i]
+        out.append(frames[i] if frames is not None else np.asarray(
+            syn.render_frame_kb8(scene, traj.R_wb[i], traj.p_wb[i], k=KB8_K,
+                                 rng=rng, **KB8_INTRINSICS), np.float32))
+        if last_t is None:
+            batches.append(None)
+        else:
+            sel = (imu.timestamps > last_t) & (imu.timestamps <= t)
+            ts = imu.timestamps[sel]
+            batches.append((imu.gyro[sel], imu.acc[sel],
+                            np.diff(np.concatenate([[last_t], ts]))))
+        last_t = t
+    return dict(frames=out, timestamps=traj.timestamps[:n], imu=batches,
+                R_wc=traj.R_wb[:n], p_wc=traj.p_wb[:n], scene=scene,
+                traj=traj, imu_data=imu)
+
+
+def render_kb8_vi_replay(out: np.ndarray, seconds: float = MH_SECONDS,
+                         seed: int = MH_SEED) -> None:
+    """`build_kb8_vi_replay`'s frames, rendered in order into out
+    [n,480,752] float32 (a shared buffer)."""
+    rng, scene, traj, _ = _stereo_world(seconds, seed)
+    for i in range(len(out)):
+        out[i] = syn.render_frame_kb8(scene, traj.R_wb[i], traj.p_wb[i],
+                                      k=KB8_K, rng=rng, **KB8_INTRINSICS)
 
 
 PNP_CASES = ("place", "rendered")

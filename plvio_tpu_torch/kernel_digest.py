@@ -53,7 +53,13 @@ points both trees have) and compare the printed lines:
   `proj_match` KB8 on `inputs.build_projection_case(kb8=True)` in the
   fuse's and the tracker's modes, and the KB8 window BA
   (`inputs.build_kb8_window`, 16 KF, perturbed start); and on every
-  tree the pinhole calls of those kernels (`pinhole_digests`).
+  tree the pinhole calls of those kernels (`pinhole_digests`);
+- slice 13 (on a tree that has it; `python3 kernel_digest.py slice13`
+  prints these lines alone): `pose_lm`'s line families (modes 1-3) on
+  `inputs.build_line_pose_case`, the line-only window BA (modes 1-3) on
+  `inputs.build_line_window`, the inertial window with the KB8 lens at the
+  half bucket with and without lines, the point+line window with the KB8
+  lens and `undistort`'s KB8 mode with 256 segments (`slice13_digests`).
 
 Needs one card; JAX is never imported.
 """
@@ -366,6 +372,55 @@ def slice12_digests(dev, which=("stereo_points", "kb8")):
     return out
 
 
+def slice13_digests(dev):
+    """Slice 13's lines: `pose_lm`'s line families (modes 1-3) on
+    `inputs.build_line_pose_case`, the line-only window BA (modes 1-3) on
+    `inputs.build_line_window`, the inertial window with the KB8 lens
+    (half bucket, with and without lines) on
+    `inputs.build_inertial_window(kb8=True)`, the point+line window with
+    the KB8 lens on `inputs.build_kb8_window(n_ln=256, n_lobs=512)` and
+    `undistort`'s KB8 mode with 256 segments."""
+    from plvio_tpu_torch.config import CameraConfig
+    from plvio_tpu_torch.entry import K_EUROC
+    from plvio_tpu_torch.inputs import (KB8_INTRINSICS, KB8_K,
+                                        build_inertial_window,
+                                        build_kb8_window, build_line_pose_case,
+                                        build_line_window, kb8_camera)
+    from plvio_tpu_torch.models import kernels as KN
+    from plvio_tpu_torch.ops import cameras as CAM
+    out = []
+    case, _ = build_line_pose_case(device=dev)
+    W = build_line_window(device=dev)
+    K8 = kb8_camera()
+    with torch.no_grad():
+        for mode in (1, 2, 3):
+            out.append(f"pose_lm line mode={mode} " + digest(
+                KN.line_only_pose_lm(K_EUROC, mode, *case)))
+            out.append(f"local_ba_lines_only mode={mode} " + digest(
+                KN.local_ba_lines_only(K_EUROC, mode, *W.values())))
+        for lines in (False, True):
+            A = build_inertial_window(2048, 4096, 256 if lines else 0,
+                                      512 if lines else 0, perturbed=True,
+                                      device=dev, kb8=True)
+            keys = KN.LIBA_KEYS if lines else KN.LIBA_KEYS[:18]
+            o = KN.local_inertial_ba(K8, A["Rcb"].cpu(), A["tcb"].cpu(), 9.81,
+                                     *[A[k] for k in keys])
+            out.append(f"local_inertial_ba kb8 lines={lines} " + digest(
+                [x for x in o if torch.is_tensor(x)]))
+        out.append("local_ba_pl kb8 " + digest(KN.local_ba_pl(
+            K8, *build_kb8_window(device=dev, n_ln=256,
+                                  n_lobs=512).values())))
+    cam = CAM.make_camera(CameraConfig(model="kb8", dist=KB8_K,
+                                       **KB8_INTRINSICS))
+    u, v = np.meshgrid(np.linspace(0, 751, 40), np.linspace(0, 479, 25))
+    kp = _t(dev, np.stack([u.ravel(), v.ravel()], -1))
+    ep = _t(dev, np.random.default_rng(6).uniform(
+        [0, 0, 0, 0], [751, 479, 751, 479], (256, 4)))
+    out.append("undistort kb8 segments " + digest(CAM.undistort(cam, kp,
+                                                                ep)))
+    return out
+
+
 def hamming_cases(dev):
     """(name, args, keywords) of hamming_match's modes 0-2 on fixed
     inputs: random two-bit descriptors (many ties), positions in a 120 px
@@ -395,6 +450,10 @@ def main() -> int:
         return 1
     if sys.argv[1:2] in (["kb8"], ["stereo_points"]):
         for line in slice12_digests(torch.device("cuda"), sys.argv[1:2]):
+            print(line)
+        return 0
+    if sys.argv[1:2] == ["slice13"]:
+        for line in slice13_digests(torch.device("cuda")):
             print(line)
         return 0
     from plvio_tpu_torch.entry import MAPPING_TYPICAL, mapping_step
@@ -448,6 +507,9 @@ def main() -> int:
         print(f"{name} {d}")
     if hasattr(KN, "kb8_pose_lm"):
         for line in slice12_digests(dev):
+            print(line)
+    if hasattr(KN, "line_only_pose_lm"):
+        for line in slice13_digests(dev):
             print(line)
     return 0
 

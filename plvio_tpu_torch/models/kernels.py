@@ -9,16 +9,27 @@ plvio_tpu/models/kernels.py: `make_pose_optimizer` :88, `fast_pose_opt`
 `make_epipolar_matcher` :828, `make_triangulator` :878,
 `make_vi_pose_optimizer` :932, `make_local_ba` :1307,
 `make_pose_optimizer_stereo` :687, `make_projection_matcher_kb8` :1443,
-`make_pose_optimizer_kb8` :1493).
+`make_pose_optimizer_kb8` :1493, and the line-only modes'
+`make_pose_opt_line_only` :1344 and `make_local_ba_lines_only` :1394).
 
 `pose_lm` is the hand-written CUDA kernel (csrc/pose_lm.cu) of the
 pose-only LM of STEREO / RGB-D without lines (`stereo_pose_lm`, counted
 as `POSE_LM_STEREO`) and of the KB8 fisheye (`kb8_pose_lm`,
 `POSE_LM_KB8`); their plain versions run the same problems on the engine
 (`stereo_pose_lm_plain`, `kb8_pose_lm_plain`), and
-`pose_lm_against_float64` holds the kernel to their float64 runs.  A
-KB8K camera takes `proj_match`'s and `ba_linearize`'s KB8 modes
-(`PROJ_MATCH_KB8`, `BA_LINEARIZE_KB8`).
+`pose_lm_against_float64` holds the kernel to their float64 runs.  Its
+line families solve SLAM modes 1-3's pose from lines alone
+(`line_only_pose_lm`, `POSE_LM_LINE`; plain `line_only_pose_lm_plain`).
+A KB8K camera takes `proj_match`'s and `ba_linearize`'s KB8 modes
+(`PROJ_MATCH_KB8`; `BA_LINEARIZE_KB8` in the point-only window,
+`BA_LINEARIZE_KB8_BODY` in the inertial ones, `BA_LINEARIZE_KB8_LINES`
+beside the line family); the line-only window BA of SLAM modes 1-3
+(`local_ba_lines_only`) runs `ba_linearize`'s line-only mode
+(`BA_LINEARIZE_LINE_ONLY`) with no point family.
+`against_float64` holds a solver's kernel path (a pose solve, a window
+BA) to float64 runs of its plain version; `linearization_against_plain`
+holds one linearization of a window BA to the plain engine's normal
+equations.
 
 `pose_irls` is the hand-written CUDA kernel (csrc/pose_irls.cu) for the
 fused point+line pose IRLS, with the stereo / RGB-D right-eye rows where
@@ -302,12 +313,14 @@ def make_fast_pose_optimizer_pl(K: PinholeK, rounds: int = 4,
 # The pose-only LM of STEREO / RGB-D without lines and of the KB8 fisheye
 # --------------------------------------------------------------------------
 
-def _pose_lm_run(terms, pose0, rounds: int, iters: int):
+def _pose_lm_run(terms, pose0, rounds: int, iters: int, gate_key=None):
     """`rounds` x `iters` LM iterations of the engine on one pose block,
     each round's masks re-gated on the chi2 at its result.  terms: [(name,
     res_fn, rdim, const, gate, chi2 gate, info)], gate the rows a term
     holds (its first round's mask), the Huber delta the chi2 gate's
-    square root.  Returns (pose, {name: mask})."""
+    square root.  With `gate_key` every term's mask is re-gated on that
+    term's chi2 (the terms then share their rows).  Returns (pose, {name:
+    mask})."""
     cap = terms[0][4].shape[0]
     zero = torch.zeros(cap, dtype=torch.long, device=pose0.device)
     masks = {t[0]: t[4] for t in terms}
@@ -322,7 +335,7 @@ def _pose_lm_run(terms, pose0, rounds: int, iters: int):
                 info=is2, robust_delta=float(math.sqrt(chi2_th))))
         states, _, chi2s = E.optimize(prob, states, iters=iters)
         for name, _, _, _, gate, chi2_th, _ in terms:
-            masks[name] = gate & (chi2s[name] < chi2_th)
+            masks[name] = gate & (chi2s[gate_key or name] < chi2_th)
     return states["pose"][0], masks
 
 
@@ -354,18 +367,57 @@ def kb8_pose_lm_plain(K8: RES.KB8K, pose0, uv, X, valid, is2,
     return pose, masks["reproj"], masks["reproj"].sum().to(torch.int32)
 
 
+def line_only_pose_lm_plain(K: PinholeK, mode: int, pose0, l_obs, dir_obs,
+                            Xs, Xe, valid, is2, rounds: int = 3,
+                            iters: int = 6):
+    """Plain version of `pose_lm`'s line-only families on the engine, in
+    the inputs' dtype (models/kernels.py:1344-1391): mode 1 the two
+    endpoint-to-line rows of each line (Huber sqrt(5.991)), mode 2 the
+    angle row (information ANG_INFO x is2), mode 3 both, every term on
+    the rows of one mask re-gated at 5.991 on the endpoint term's chi2
+    (modes 1, 3) or the angle term's (mode 2).  Returns (pose [3,4],
+    inlier [cap], n int32)."""
+    if mode not in (1, 2, 3):
+        raise ValueError("line-only pose LM: mode 1, 2 or 3")
+    terms = []
+    if mode in (1, 3):
+        terms.append(("ep", RES.make_line_reproj_fixed(K), 2,
+                      {"l": l_obs, "Xs": Xs, "Xe": Xe}, valid, CHI2_MONO,
+                      is2))
+    if mode in (2, 3):
+        terms.append(("ang", RES.make_line_angle_fixed(K), 1,
+                      {"dir": dir_obs, "Xs": Xs, "Xe": Xe}, valid,
+                      CHI2_MONO, is2 * ANG_INFO))
+    key = "ep" if mode in (1, 3) else "ang"
+    pose, masks = _pose_lm_run(terms, pose0, rounds, iters, gate_key=key)
+    return pose, masks[key], masks[key].sum().to(torch.int32)
+
+
 _POSE_LM_ARGS = [_I, _P, _P, _P, _P, _P, _I, _I, _I] \
-    + [ctypes.c_double] * 9 + [_P, _P, _P, _P]
-# one library entry, two residual families counted apart
+    + [ctypes.c_double] * 9 + [_P, _P, _P, _P, _P, _P]
+# one library entry, its residual families counted apart: stereo, KB8 and
+# the three line-only families (counted as one)
 POSE_LM_STEREO = cuda.Kernel("pose_lm", "pose_lm", _POSE_LM_ARGS)
 POSE_LM_KB8 = cuda.Kernel("pose_lm", "pose_lm", _POSE_LM_ARGS)
+POSE_LM_LINE = cuda.Kernel("pose_lm", "pose_lm", _POSE_LM_ARGS)
+# csrc/pose_lm.cu's family of line-only mode 1, 2, 3
+LINE_FAMILY = {1: 2, 2: 3, 3: 4}
 
 
 def _pose_lm(family: int, K, bf: float, pose0, obs, X, valid, is2,
-             rounds: int, iters: int):
+             rounds: int, iters: int, Xe=None, dir_obs=None):
     cap = X.shape[0]
-    w = 3 if family == 0 else 2
-    cuda.check_cuda("pose_lm", pose0, obs, X, valid, is2)
+    w = 3 if family in (0, 2, 3, 4) else 2
+    line = family >= 2
+    if line != (Xe is not None and dir_obs is not None):
+        raise ValueError("pose_lm: the line families take Xe and dir_obs, "
+                         "the others neither")
+    extra = (Xe, dir_obs) if line else ()
+    cuda.check_cuda("pose_lm", pose0, obs, X, valid, is2, *extra)
+    if line and (Xe.shape != (cap, 3) or dir_obs.shape != (cap, 2)
+                 or Xe.dtype != torch.float32
+                 or dir_obs.dtype != torch.float32):
+        raise ValueError("pose_lm: float32 Xe [cap,3] and dir_obs [cap,2]")
     if any(t.dtype != torch.float32 for t in (pose0, obs, X, is2)) \
             or valid.dtype != torch.bool or pose0.shape != (3, 4) \
             or obs.shape != (cap, w) or X.shape != (cap, 3) \
@@ -380,12 +432,49 @@ def _pose_lm(family: int, K, bf: float, pose0, obs, X, valid, is2,
     inlier = torch.empty(cap, dtype=torch.bool, device=dev)
     n = torch.empty((), dtype=torch.int32, device=dev)
     ks = (K.k1, K.k2, K.k3, K.k4) if family == 1 else (0.0,) * 4
-    (POSE_LM_STEREO if family == 0 else POSE_LM_KB8).launch(
+    kern = POSE_LM_STEREO if family == 0 else POSE_LM_KB8 if family == 1 \
+        else POSE_LM_LINE
+    kern.launch(
         family, cuda.ptr(pose0), cuda.ptr(obs), cuda.ptr(X), cuda.ptr(valid),
         cuda.ptr(is2), cap, rounds, iters, K.fx, K.fy, K.cx, K.cy,
         float(bf), *ks, cuda.ptr(pose), cuda.ptr(inlier), cuda.ptr(n),
+        *[cuda.ptr(t) if line else None for t in (Xe, dir_obs)],
         cuda.stream())
     return pose, inlier, n
+
+
+def line_only_pose_lm(K: PinholeK, mode: int, pose0, l_obs, dir_obs, Xs, Xe,
+                      valid, is2, rounds: int = 3, iters: int = 6):
+    """The line-only pose LM of SLAM modes 1-3 (pose0 [3,4] T_cw, l_obs
+    [cap,3] the observed line equations, dir_obs [cap,2] their unit
+    directions, Xs, Xe [cap,3] the map lines' endpoints, valid [cap] bool,
+    is2 [cap]) -> (pose, inlier, n_inliers).  CPU tensors take the plain
+    version; CUDA tensors launch csrc/pose_lm.cu in its line family of
+    the mode (one block, float64)."""
+    if pose0.device.type == "cpu":
+        return line_only_pose_lm_plain(K, mode, pose0, l_obs, dir_obs, Xs,
+                                       Xe, valid, is2, rounds, iters)
+    if mode not in LINE_FAMILY:
+        raise ValueError("line-only pose LM: mode 1, 2 or 3")
+    return _pose_lm(LINE_FAMILY[mode], K, 0.0, pose0, l_obs, Xs, valid, is2,
+                    rounds, iters, Xe=Xe, dir_obs=dir_obs)
+
+
+def make_pose_opt_line_only(K: PinholeK, mode: int, rounds: int = 3,
+                            iters: int = 6, plain: bool = False):
+    """run(pose0 [3,4], l_obs [cap,3], dir_obs [cap,2], Xs [cap,3], Xe
+    [cap,3], valid, is2) -> (pose, inlier, n_inliers): the tracker's pose
+    solve from lines alone under SLAM mode 1, 2 or 3 (reference
+    PoseOptimizationOnlyLine / OnlyLineAngles / OnlyLineWithAngles;
+    models/kernels.py:1344), 3 rounds x 6 LM iterations, on
+    `line_only_pose_lm`.  `plain` runs the plain version on any device."""
+    fn = line_only_pose_lm_plain if plain else line_only_pose_lm
+
+    def run(pose0, l_obs, dir_obs, Xs, Xe, valid, is2):
+        return fn(K, mode, *[t.contiguous() for t in (
+            pose0, l_obs, dir_obs, Xs, Xe)], valid, is2.contiguous(),
+            rounds, iters)
+    return run
 
 
 def stereo_pose_lm(K: PinholeK, bf: float, pose0, uvr, X, valid, is2,
@@ -921,15 +1010,26 @@ _BA_PTRS = (
     "hcc", "hpt", "hln", "fpt", "fln", "occ_pt", "occ_ln",
     "gm", "gpart", "rr", "ff", "dx", "ctrl",
     "kfx", "ckfx", "kf_free_bias", "pre", "imu_info", "edge_valid", "rw_g",
-    "rw_a", "link", "link_cost", "ccost", "cgw")
+    "rw_a", "link", "link_cost", "ccost", "cgw", "lobs_dir")
 # column chunks of schur_solve's Gram fill-in (partial tiles summed in order)
 GRAM_SPLIT = 24
 BA_LINEARIZE = cuda.Kernel("ba_linearize", "ba_linearize",
                            [_P, _P, _P, _I, _P])
-# the same library entry with the KB8 point edge (a KB8K camera), counted
-# apart
+# the same library entry in its other modes, counted apart: the KB8 point
+# edge of the point-only window, of the inertial window (body frame, with
+# or without lines) and beside the line family of the point+line window,
+# and the line-only window of SLAM modes 1-3
 BA_LINEARIZE_KB8 = cuda.Kernel("ba_linearize", "ba_linearize",
                                [_P, _P, _P, _I, _P])
+BA_LINEARIZE_KB8_BODY = cuda.Kernel("ba_linearize", "ba_linearize",
+                                    [_P, _P, _P, _I, _P])
+BA_LINEARIZE_KB8_LINES = cuda.Kernel("ba_linearize", "ba_linearize",
+                                     [_P, _P, _P, _I, _P])
+BA_LINEARIZE_LINE_ONLY = cuda.Kernel("ba_linearize", "ba_linearize",
+                                     [_P, _P, _P, _I, _P])
+# the angle edge's information factor (models/kernels.py:1362, 1410): the
+# chi2 gate at 5.991 then holds the angle to ~7 deg
+ANG_INFO = 400.0
 SCHUR_SOLVE = cuda.Kernel("schur_solve", "schur_solve", [_P, _P, _P, _P])
 
 
@@ -977,12 +1077,17 @@ class _BAWork:
     the point+line window BA (keyframe poses T_cw), or with `inertial`
     (a dict of kfx [n_kf,9] = (vel, bg, ba), kf_free_bias, pre, imu_info
     [n_kf-1,81], edge_valid, rw_g, rw_a, Rcb, tcb, gravity) the inertial
-    window BA (body poses pose_wb, 15-DoF keyframe states)."""
+    window BA (body poses pose_wb, 15-DoF keyframe states), or with
+    `line_mode` 1-3 the line-only window of SLAM modes 1-3 (no points;
+    lobs_dir [n_lobs,2] the observed unit directions of the angle edge).
+    A KB8K camera's point edges project through the lens; its line edges
+    through the pinhole fx, fy, cx, cy."""
 
     def __init__(self, K, kf_poses, kf_free, pt_xyz, pt_free, obs_kf, obs_pt,
                  obs_uv, obs_valid, obs_is2, ln_ep, ln_free, lobs_kf,
                  lobs_ln, lobs_eq, lobs_valid, lobs_is2, lam0, early_tol,
-                 cg_iters, inertial=None):
+                 cg_iters, inertial=None, line_mode: int = 0,
+                 lobs_dir=None):
         dev = kf_poses.device
         f32 = torch.float32
         n_kf, n_pt, n_ln = kf_poses.shape[0], pt_xyz.shape[0], ln_ep.shape[0]
@@ -1023,6 +1128,7 @@ class _BAWork:
         t["ff"] = buf(S, S)
         t["cgw"] = buf(cg_workspace_floats(
             S if inertial is None else 15 * n_kf))
+        t["lobs_dir"] = buf(1) if lobs_dir is None else lobs_dir
         if inertial is None:
             for name in _LIBA_PTRS:
                 t[name] = buf(1)
@@ -1042,29 +1148,37 @@ class _BAWork:
             if t[name].numel() and not t[name].is_contiguous():
                 raise ValueError(f"local BA: {name} is not contiguous")
         kb8 = isinstance(K, RES.KB8K)
-        if kb8 and (inertial is not None or n_lobs):
-            raise NotImplementedError(
-                "the KB8 camera in the inertial or the line BA is not ported "
-                "yet (ROADMAP Queue 1 item 7b')")
+        if line_mode and (n_obs or inertial is not None or kb8
+                          or lobs_dir is None):
+            raise ValueError("the line-only BA takes no points, no inertial "
+                             "states, a pinhole camera and lobs_dir")
         ks = (K.k1, K.k2, K.k3, K.k4) if kb8 else (0.0,) * 4
         self.t = t
         self.n_obs = n_obs
         self.body = inertial is not None
         self.kb8 = kb8
+        if line_mode:
+            self.counter = BA_LINEARIZE_LINE_ONLY
+        elif kb8:
+            self.counter = BA_LINEARIZE_KB8_BODY if self.body \
+                else BA_LINEARIZE_KB8_LINES if n_lobs else BA_LINEARIZE_KB8
+        else:
+            self.counter = BA_LINEARIZE
         self._keep = (
             (ctypes.c_void_p * len(_BA_PTRS))(
                 *[t[name].data_ptr() for name in _BA_PTRS]),
-            (ctypes.c_int * 11)(n_kf, n_pt, n_obs, n_ln, n_lobs, cg_iters,
+            (ctypes.c_int * 12)(n_kf, n_pt, n_obs, n_ln, n_lobs, cg_iters,
                                 GRAM_SPLIT, int(self.body),
-                                t["cgw"].numel(), 0, int(kb8)),
-            (ctypes.c_float * 25)(K.fx, K.fy, K.cx, K.cy,
+                                t["cgw"].numel(), 0, int(kb8),
+                                int(line_mode)),
+            (ctypes.c_float * 26)(K.fx, K.fy, K.cx, K.cy,
                                   float(math.sqrt(CHI2_MONO)), CHI2_MONO,
-                                  lam0, early_tol, grav, *rcb, *tcb, *ks))
+                                  lam0, early_tol, grav, *rcb, *tcb, *ks,
+                                  ANG_INFO))
         self.args = [ctypes.cast(a, ctypes.c_void_p) for a in self._keep]
 
     def linearize(self, mode: int):
-        (BA_LINEARIZE_KB8 if self.kb8 else BA_LINEARIZE).launch(
-            *self.args, mode, cuda.stream())
+        self.counter.launch(*self.args, mode, cuda.stream())
 
     def chain(self, mode: int):
         INERTIAL_CHAIN.launch(*self.args, mode, cuda.stream())
@@ -1223,6 +1337,140 @@ def make_local_ba(K: PinholeK, rounds: int = 2, iters: int = 8,
     def run(*args, stats=None):
         return fn(K, *args, rounds=rounds, iters=iters, early_tol=early_tol,
                   stats=stats)
+    return run
+
+
+# --------------------------------------------------------------------------
+# The line-only window BA of SLAM modes 1-3
+# --------------------------------------------------------------------------
+
+def _lines_only_problem(K, n_kf, n_ln, lobs_kf, lobs_ln, lobs_eq, lobs_dir,
+                        mask, lobs_is2, mode: int):
+    """The line-only window BA's problem (models/kernels.py:1412-1430):
+    keyframe poses and Schur-eliminated line endpoints, the line edge
+    (modes 1, 3) and the angle edge (modes 2, 3) on the rows of one
+    mask."""
+    prob = E.Problem(linear_solver="cg")
+    prob.add_dense("pose", n_kf, 6, RES.retract_pose_cw)
+    prob.add_landmarks("ln", n_ln, 6, RES.retract_additive)
+    delta = float(math.sqrt(CHI2_MONO))
+    if mode in (1, 3):
+        prob.add_term(E.Term(
+            name="line", res_fn=RES.make_line_reproj(K), rdim=2,
+            dense_refs=[("pose", lobs_kf)], lm_ref=("ln", lobs_ln),
+            const={"l": lobs_eq}, mask=mask, info=lobs_is2,
+            robust_delta=delta))
+    if mode in (2, 3):
+        prob.add_term(E.Term(
+            name="ang", res_fn=RES.make_line_angle(K), rdim=1,
+            dense_refs=[("pose", lobs_kf)], lm_ref=("ln", lobs_ln),
+            const={"dir": lobs_dir}, mask=mask, info=lobs_is2 * ANG_INFO,
+            robust_delta=delta))
+    return prob
+
+
+def local_ba_lines_only_plain(K: PinholeK, mode: int, kf_poses, kf_free,
+                              ln_ep, ln_free, lobs_kf, lobs_ln, lobs_eq,
+                              lobs_dir, lobs_valid, lobs_is2,
+                              rounds: int = 2, iters: int = 8, stats=None):
+    """Plain version of the line-only window BA of SLAM modes 1-3 on the
+    engine: `rounds` x `iters` LM iterations (CG reduced solve, no early
+    exit, as the reference's optimize default), the mask re-gated at 5.991
+    on the line edge's chi2 (modes 1, 3) or the angle edge's (mode 2)
+    between rounds.  Returns (kf_poses, ln_ep, inlier_l [n_lobs])."""
+    if mode not in (1, 2, 3):
+        raise ValueError("line-only BA: mode 1, 2 or 3")
+    n_kf, n_ln = kf_poses.shape[0], ln_ep.shape[0]
+    lkf, lln = lobs_kf.long(), lobs_ln.long()
+    states = {"pose": kf_poses, "ln": ln_ep}
+    mask = lobs_valid
+    key = "line" if mode in (1, 3) else "ang"
+    for _ in range(rounds):
+        prob = _lines_only_problem(K, n_kf, n_ln, lkf, lln, lobs_eq,
+                                   lobs_dir, mask, lobs_is2, mode)
+        states, _, chi2s = E.optimize(
+            prob, states, iters=iters, dense_free_mask={"pose": kf_free},
+            lm_free_mask={"ln": ln_free}, stats=stats)
+        mask = lobs_valid & (chi2s[key] < CHI2_MONO)
+    return states["pose"], states["ln"], mask
+
+
+def local_ba_lines_only(K: PinholeK, mode: int, kf_poses, kf_free, ln_ep,
+                        ln_free, lobs_kf, lobs_ln, lobs_eq, lobs_dir,
+                        lobs_valid, lobs_is2, rounds: int = 2,
+                        iters: int = 8, stats=None):
+    """The line-only window BA (see `local_ba_lines_only_plain`).  CPU
+    tensors take the plain version; CUDA tensors run `local_ba_pl`'s
+    kernel path with no point family and csrc/ba_linearize.cu in its
+    line-only mode (the angle edge in modes 2 and 3): every LM iteration,
+    accept/reject and the re-gate on the device."""
+    args = (kf_poses, kf_free, ln_ep, ln_free, lobs_kf, lobs_ln, lobs_eq,
+            lobs_dir, lobs_valid, lobs_is2)
+    if kf_poses.device.type == "cpu":
+        return local_ba_lines_only_plain(K, mode, *args, rounds=rounds,
+                                         iters=iters, stats=stats)
+    if mode not in (1, 2, 3):
+        raise ValueError("line-only BA: mode 1, 2 or 3")
+    cuda.check_cuda("local_ba_lines_only", *args)
+    n_kf, n_ln, n_lobs = kf_poses.shape[0], ln_ep.shape[0], lobs_kf.shape[0]
+    f32, i32, b8 = torch.float32, torch.int32, torch.bool
+    want = [(kf_poses, f32, (n_kf, 3, 4)), (kf_free, b8, (n_kf,)),
+            (ln_ep, f32, (n_ln, 6)), (ln_free, b8, (n_ln,)),
+            (lobs_kf, i32, (n_lobs,)), (lobs_ln, i32, (n_lobs,)),
+            (lobs_eq, f32, (n_lobs, 3)), (lobs_dir, f32, (n_lobs, 2)),
+            (lobs_valid, b8, (n_lobs,)), (lobs_is2, f32, (n_lobs,))]
+    for i, (x, dt, shape) in enumerate(want):
+        if x.dtype != dt or tuple(x.shape) != shape:
+            raise ValueError(f"local_ba_lines_only: argument {i} must be "
+                             f"{dt} {shape}, got {x.dtype} "
+                             f"{tuple(x.shape)}")
+    w = lines_only_work(K, mode, *args)
+    for _ in range(rounds):
+        w.linearize(BA_MODE_INIT)
+        for _ in range(iters):
+            w.step()
+        w.linearize(BA_MODE_REGATE)
+        if stats is not None:
+            stats.append(w.t["ctrl"][4].clone())
+    t = w.t
+    return t["poses"].view(n_kf, 3, 4), t["lns"], t["mask_l"]
+
+
+def lines_only_work(K: PinholeK, mode: int, kf_poses, kf_free, ln_ep,
+                    ln_free, lobs_kf, lobs_ln, lobs_eq, lobs_dir, lobs_valid,
+                    lobs_is2) -> "_BAWork":
+    """The kernel path's buffers of one line-only window BA call: an
+    empty point family, ba_linearize in the line-only mode `mode`, no
+    early exit."""
+    dev, f32 = kf_poses.device, torch.float32
+    i32, b8 = torch.int32, torch.bool
+    no_pts = (torch.zeros(0, 3, dtype=f32, device=dev),
+              torch.zeros(0, dtype=b8, device=dev),
+              torch.zeros(0, dtype=i32, device=dev),
+              torch.zeros(0, dtype=i32, device=dev),
+              torch.zeros(0, 2, dtype=f32, device=dev),
+              torch.zeros(0, dtype=b8, device=dev),
+              torch.zeros(0, dtype=f32, device=dev))
+    S = 6 * kf_poses.shape[0]
+    return _BAWork(K, kf_poses, kf_free, *no_pts, ln_ep, ln_free, lobs_kf,
+                   lobs_ln, lobs_eq, lobs_valid, lobs_is2, lam0=1e-4,
+                   early_tol=0.0, cg_iters=min(max(S // 2, 16), 128),
+                   line_mode=mode, lobs_dir=lobs_dir)
+
+
+def make_local_ba_lines_only(K: PinholeK, mode: int, rounds: int = 2,
+                             iters: int = 8, plain: bool = False):
+    """run(kf_poses [n_kf,3,4] T_cw, kf_free, ln_ep [n_ln,6], ln_free,
+    lobs_kf, lobs_ln [n_lobs] int32, lobs_eq [n_lobs,3], lobs_dir
+    [n_lobs,2], lobs_valid, lobs_is2, stats=None) -> (kf_poses, ln_ep,
+    inlier_l): the line-only window BA of SLAM mode 1, 2 or 3 (reference
+    LocalBundleAdjustmentOnlyLines / ...Angle / ...WithAngle;
+    models/kernels.py:1394), 2 rounds x 8 LM iterations, CG reduced
+    solve.  `plain` runs the plain version on any device."""
+    fn = local_ba_lines_only_plain if plain else local_ba_lines_only
+
+    def run(*args, stats=None):
+        return fn(K, mode, *args, rounds=rounds, iters=iters, stats=stats)
     return run
 
 
@@ -1857,20 +2105,22 @@ BA_KEYS = ("kf_poses", "kf_free", "pt_xyz", "pt_free", "obs_kf", "obs_pt",
            "lobs_ln", "lobs_eq", "lobs_valid", "lobs_is2")
 
 
-def global_window(kind: str, n_kf: int, device, dtype=torch.float32):
+def global_window(kind: str, n_kf: int, device, dtype=torch.float32,
+                  kb8: bool = False):
     """A perturbed window whose reduced system exceeds one block's shared
     memory: `inertial`, the full-map inertial BA's caps at n_kf keyframes
-    (8192 points / 16384 observations, 512 lines / 1024), or `points`,
-    the global point-only BA's (8192 points / 32768 observations).
-    Returns (inputs, argument list, plain problem, states, free masks) at
-    `dtype` on `device`; the inputs stay on the CPU."""
-    from ..entry import K_EUROC
+    (8192 points / 16384 observations, 512 lines / 1024; with `kb8` seen
+    by the fisheye room's camera, `build_inertial_window(kb8=True)`), or
+    `points`, the global point-only BA's (8192 points / 32768
+    observations).  Returns (inputs, argument list, plain problem, states,
+    free masks) at `dtype` on `device`; the inputs stay on the CPU."""
     from ..inputs import (build_inertial_window, build_mapping_inputs,
                           perturb_window)
+    K = _window_camera(kb8)
     dev = torch.device(device)
     if kind == "inertial":
         A = build_inertial_window(8192, 16384, 512, 1024, n_kf=n_kf,
-                                  perturbed=True, device="cpu")
+                                  perturbed=True, device="cpu", kb8=kb8)
         keys = LIBA_KEYS
     else:
         A = build_mapping_inputs(n_kf, 8192, 32768, n_ln=0, n_lobs=0,
@@ -1887,7 +2137,7 @@ def global_window(kind: str, n_kf: int, device, dtype=torch.float32):
     args = [cast(A[k]) for k in keys]
     if kind == "inertial":
         prob = _liba_problem(
-            K_EUROC, cast(A["Rcb"]), cast(A["tcb"]), 9.81, n_kf,
+            K, cast(A["Rcb"]), cast(A["tcb"]), 9.81, n_kf,
             args[6].shape[0], args[18].shape[0],
             (args[8].long(), args[9].long(), args[10], args[12]), args[11],
             (args[20].long(), args[21].long(), args[22]), args[23],
@@ -1897,7 +2147,7 @@ def global_window(kind: str, n_kf: int, device, dtype=torch.float32):
         free = ({"pose": args[4], "vel": args[4], "bg": args[5],
                  "ba": args[5]}, {"pt": args[7], "ln": args[19]})
     else:
-        prob = _ba_problem(K_EUROC, n_kf, args[2].shape[0], 0,
+        prob = _ba_problem(K, n_kf, args[2].shape[0], 0,
                            args[4].long(), args[5].long(), args[6], args[7],
                            args[8])
         st = {"pose": args[0], "pt": args[2]}
@@ -1958,24 +2208,32 @@ class GlobalSolveCheck(NamedTuple):
             f"(step {g.step:.2e})" for k, g in self.gaps.items())
 
 
-def global_solve_against_float64(kind: str, n_kf: int,
-                                 device="cuda") -> GlobalSolveCheck:
-    """schur_solve's global path (the reduced solve beyond one block) on
-    `global_window(kind, n_kf)`: one damped Schur step from the perturbed
-    start, launched twice, against the plain engine's step in float32 on
-    the same device and in float64 on the CPU (damping 1e-4, the reference
-    engine's initial lambda)."""
+def _window_camera(kb8: bool):
+    """The EuRoC pinhole of the synthetic windows, or the fisheye room's
+    KB8 camera."""
     from ..entry import K_EUROC
+    from ..inputs import kb8_camera
+    return kb8_camera() if kb8 else K_EUROC
+
+
+def global_solve_against_float64(kind: str, n_kf: int, device="cuda",
+                                 kb8: bool = False) -> GlobalSolveCheck:
+    """schur_solve's global path (the reduced solve beyond one block) on
+    `global_window(kind, n_kf, kb8=kb8)`: one damped Schur step from the
+    perturbed start, launched twice, against the plain engine's step in
+    float32 on the same device and in float64 on the CPU (damping 1e-4,
+    the reference engine's initial lambda)."""
     dev = cuda.resolve_device(device)
     lam = 1e-4
-    A, args, prob, st, free = global_window(kind, n_kf, dev)
+    K = _window_camera(kb8)
+    A, args, prob, st, free = global_window(kind, n_kf, dev, kb8=kb8)
     if kind == "inertial":
-        w = inertial_work(K_EUROC, A["Rcb"], A["tcb"], 9.81, *args)
+        w = inertial_work(K, A["Rcb"], A["tcb"], 9.81, *args)
         w.chain(CHAIN_COST_STATE)
         S = 15 * n_kf
     else:
         S = 6 * n_kf
-        w = _BAWork(K_EUROC, *args, lam0=lam, early_tol=1e-2,
+        w = _BAWork(K, *args, lam0=lam, early_tol=1e-2,
                     cg_iters=min(max(S // 2, 16), 128))
     w.linearize(BA_MODE_INIT)
     w.linearize(BA_MODE_LINEARIZE)
@@ -1994,7 +2252,8 @@ def global_solve_against_float64(kind: str, n_kf: int,
     with torch.no_grad():
         ck, ck2 = cand(), cand()
         plain = prob.solve_step(st, torch.tensor(lam, device=dev), *free)[0]
-        _, _, p64, s64, f64 = global_window(kind, n_kf, "cpu", torch.float64)
+        _, _, p64, s64, f64 = global_window(kind, n_kf, "cpu", torch.float64,
+                                            kb8=kb8)
         ref = p64.solve_step(s64, torch.tensor(lam, dtype=torch.float64),
                              *f64)[0]
     gaps = {}
@@ -2575,55 +2834,6 @@ def _to64_cpu(x):
 FLOAT32_ORDERS = 4      # row orders of the plain float32 runs
 
 
-def _solver_against_float64(kernel_fn, plain_fn, args, kw, n_idx: int,
-                            state_idx, rows) -> dict:
-    """A solver kernel on the card against its plain version in float32
-    and float64 on the CPU, launched twice.  Returns dict(kernel, plain,
-    plain_orders, same_bits, n, n64, failures): the largest state-entry
-    gaps (the outputs `state_idx`) to float64 of the kernel and of the
-    plain float32 runs.  The kernel sums its rows in another order than
-    the plain version, and on an ill-conditioned problem (a weakly
-    observed bias under a carried prior) float32 rounding alone moves the
-    state by several times one run's distance, so the plain float32
-    version runs on FLOAT32_ORDERS row orders (the given one and seeded
-    permutations of the per-row arguments `rows` and of kw's ur) and
-    `plain` is the largest of their distances.  The rule: the kernel
-    within 2x that + 1e-6, the same bits on the second launch, its inlier
-    count within max(2, 1%) of the float64 run's."""
-    k = kernel_fn(*args, **kw)
-    k2 = kernel_fn(*args, **kw)
-    a32, kw32 = _cpu(list(args)), _cpu(kw)
-    p64 = plain_fn(*_to64_cpu(list(args)), **_to64_cpu(kw))
-
-    def gap(a, b):
-        return max(float((a[i].detach().double().cpu() - b[i].double())
-                         .abs().max()) for i in state_idx)
-    orders = []
-    for o in range(FLOAT32_ORDERS):
-        a, kk = list(a32), dict(kw32)
-        if o:
-            perm = torch.from_numpy(np.random.default_rng(o).permutation(
-                a32[rows[0]].shape[0]))
-            for i in rows:
-                a[i] = a[i][perm].contiguous()
-            if kk.get("ur") is not None:
-                kk["ur"] = kk["ur"][perm].contiguous()
-        orders.append(gap(plain_fn(*a, **kk), p64))
-    out = dict(kernel=gap(k, p64), plain=max(orders), plain_orders=orders,
-               same_bits=all(torch.equal(k[i], k2[i]) for i in state_idx),
-               n=int(k[n_idx]), n64=int(p64[n_idx]))
-    fail = []
-    if not out["same_bits"]:
-        fail.append("a second launch gave other bits")
-    if abs(out["n"] - out["n64"]) > max(2, 0.01 * out["n64"]):
-        fail.append(f"inliers {out['n']} against {out['n64']}")
-    if out["kernel"] > 2 * out["plain"] + 1e-6:
-        fail.append(f"state {out['kernel']:.2e} from float64 > 2x the plain "
-                    f"float32 runs' {out['plain']:.2e} + 1e-6")
-    out["failures"] = fail
-    return out
-
-
 def _cpu(x):
     if isinstance(x, (list, tuple)):
         return [_cpu(v) for v in x]
@@ -2636,38 +2846,168 @@ def pose_irls_against_float64(K: PinholeK, args, ur=None,
                               bf: float = 0.0) -> dict:
     """`pose_irls` (args: its CUDA tensors after K, the point rows uv, X,
     valid, is2 second to fifth; the stereo rows with ur and bf) against
-    float64, `_solver_against_float64`'s rule on the pose."""
-    return _solver_against_float64(
+    float64, `against_float64`'s rule on the pose."""
+    return against_float64(
         lambda *a, **k: pose_irls(K, *a, **k),
-        lambda *a, **k: pose_irls_plain(K, *a, **k), args,
-        dict(ur=ur, bf=bf), 3, (0,), rows=(1, 2, 3, 4))
+        lambda *a, **k: pose_irls_plain(K, *a, **k), args, (0,),
+        rows=((1, 2, 3, 4),), kw=dict(ur=ur, bf=bf), n_idx=3)
 
 
 def pose_lm_against_float64(args, kb8: bool) -> dict:
     """`pose_lm` (args: K, bf, then the stereo LM's CUDA tensors pose0,
     uvr, X, valid, is2; with kb8: K8, then pose0, uv, X, valid, is2)
-    against float64 runs of its plain version, `_solver_against_float64`'s
-    rule on the pose."""
+    against float64 runs of its plain version, `against_float64`'s rule on
+    the pose."""
     if kb8:
         K8, rest = args[0], list(args[1:])
-        return _solver_against_float64(
-            lambda *a, **k: kb8_pose_lm(K8, *a),
-            lambda *a, **k: kb8_pose_lm_plain(K8, *a), rest, {}, 2, (0,),
-            rows=(1, 2, 3, 4))
+        return against_float64(
+            lambda *a: kb8_pose_lm(K8, *a),
+            lambda *a: kb8_pose_lm_plain(K8, *a), rest, (0,),
+            rows=((1, 2, 3, 4),), n_idx=2)
     K, bf, rest = args[0], args[1], list(args[2:])
-    return _solver_against_float64(
-        lambda *a, **k: stereo_pose_lm(K, bf, *a),
-        lambda *a, **k: stereo_pose_lm_plain(K, bf, *a), rest, {}, 2, (0,),
-        rows=(1, 2, 3, 4))
+    return against_float64(
+        lambda *a: stereo_pose_lm(K, bf, *a),
+        lambda *a: stereo_pose_lm_plain(K, bf, *a), rest, (0,),
+        rows=((1, 2, 3, 4),), n_idx=2)
 
 
 def vi_pose_lm_against_float64(K: PinholeK, args, have_prior: bool,
                                ur=None, bf: float = 0.0) -> dict:
     """`vi_pose_lm` (args: Rcb, tcb, gravity and its CUDA tensors up to
     prior_info, the point rows uv, X, valid, is2 at 7-10; the stereo term
-    with ur and bf) against float64, `_solver_against_float64`'s rule on
-    the pose, velocity and biases."""
-    return _solver_against_float64(
+    with ur and bf) against float64, `against_float64`'s rule on the pose,
+    velocity and biases."""
+    return against_float64(
         lambda *a, **k: vi_pose_lm(K, *a, have_prior, **k),
         lambda *a, **k: vi_pose_opt_plain(K, *a, have_prior, **k), args,
-        dict(ur=ur, bf=bf), 5, (0, 1, 2, 3), rows=(7, 8, 9, 10))
+        (0, 1, 2, 3), rows=((7, 8, 9, 10),), kw=dict(ur=ur, bf=bf),
+        n_idx=5)
+
+
+def line_pose_lm_against_float64(K: PinholeK, mode: int, args) -> dict:
+    """`pose_lm`'s line family of SLAM mode 1, 2 or 3 (args: its CUDA
+    tensors pose0, l_obs, dir_obs, Xs, Xe, valid, is2) against float64
+    runs of its plain version, `against_float64`'s rule on the pose."""
+    return against_float64(
+        lambda *a: line_only_pose_lm(K, mode, *a),
+        lambda *a: line_only_pose_lm_plain(K, mode, *a), list(args), (0,),
+        rows=((1, 2, 3, 4, 5, 6),), n_idx=2)
+
+
+def against_float64(kernel_fn, plain_fn, args, state_idx, rows=(),
+                    kw=None, n_idx=None, launches: int = 3) -> dict:
+    """A solver's kernel path on the card against its plain version in
+    float32 and in float64 on the CPU (args, kw: the CUDA tensors and
+    options of both): the largest entry gaps to float64 of the outputs
+    `state_idx` (a pose, keyframe states, landmarks), of the kernel and of
+    the plain float32 runs.  The kernel sums its rows in another order
+    than the plain version, and on an ill-conditioned problem (a weakly
+    observed bias under a carried prior; 120 CG steps of a window) float32
+    rounding alone moves the state by several times one run's distance,
+    so the plain version runs on FLOAT32_ORDERS row orders: the given one
+    and seeded permutations of each group of per-row arguments in `rows`
+    (tuples of argument indices permuted together; kw's `ur` with the
+    first group).  The rule: the kernel within 2x the plain runs' largest
+    distance + 1e-6, the same bits on every one of `launches` launches,
+    and where `n_idx` names the inlier count among the outputs, the
+    kernel's within max(2, 1%) of the float64 run's.  Returns dict(kernel,
+    plain, plain_orders, kernel_plain (the largest kernel - plain float32
+    gap, given order), same_bits, n, n64 (None without n_idx), failures,
+    out)."""
+    kw = kw or {}
+    ks = [kernel_fn(*args, **kw) for _ in range(launches)]
+    a32, kw32 = _cpu(list(args)), _cpu(kw)
+    p32 = plain_fn(*a32, **kw32)
+    p64 = plain_fn(*_to64_cpu(list(args)), **_to64_cpu(kw))
+
+    def gap(a, b):
+        return max(float((a[i].detach().cpu().double() - b[i].double())
+                         .abs().max()) for i in state_idx)
+    orders = [gap(p32, p64)]
+    for o in range(1, FLOAT32_ORDERS if rows else 1):
+        a, kk = list(a32), dict(kw32)
+        for g, group in enumerate(rows):
+            perm = torch.from_numpy(np.random.default_rng(
+                [o, g]).permutation(a32[group[0]].shape[0]))
+            for i in group:
+                a[i] = a32[i][perm].contiguous()
+            if g == 0 and kk.get("ur") is not None:
+                kk["ur"] = kw32["ur"][perm].contiguous()
+        orders.append(gap(plain_fn(*a, **kk), p64))
+    out = dict(kernel=gap(ks[0], p64), plain=max(orders), plain_orders=orders,
+               kernel_plain=gap(ks[0], p32),
+               same_bits=all(torch.equal(k[i], ks[0][i]) for k in ks[1:]
+                             for i in state_idx),
+               n=None if n_idx is None else int(ks[0][n_idx]),
+               n64=None if n_idx is None else int(p64[n_idx]), out=ks[0])
+    fail = []
+    if not out["same_bits"]:
+        fail.append("another launch gave other bits")
+    if n_idx is not None and abs(out["n"] - out["n64"]) > max(
+            2, 0.01 * out["n64"]):
+        fail.append(f"inliers {out['n']} against {out['n64']}")
+    if out["kernel"] > 2 * out["plain"] + 1e-6:
+        fail.append(f"state {out['kernel']:.2e} from float64 > 2x the plain "
+                    f"float32 runs' {out['plain']:.2e} + 1e-6")
+    out["failures"] = fail
+    return out
+
+
+def unpack_sym(packed, d: int):
+    """[..., d(d+1)/2] upper triangles (row by row) -> [..., d, d]."""
+    iu = torch.triu_indices(d, d, device=packed.device)
+    out = packed.new_zeros(*packed.shape[:-1], d, d)
+    out[..., iu[0], iu[1]] = packed
+    out[..., iu[1], iu[0]] = packed
+    return out
+
+
+def rel_err(a, b) -> float:
+    """The largest entry gap of a to b, relative to b's largest entry."""
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def linearization_against_plain(w: "_BAWork", prob, st) -> dict:
+    """One linearization of a window BA's kernel path (`w`, with its
+    inertial chain's cost state set where it has one) against the plain
+    engine's normal equations of the same visual terms (`prob` at the
+    states `st`, on the window's masks): the largest entry gaps, relative
+    to the plain block's largest entry, of the keyframes' pose blocks and
+    gradient, and per landmark family of its Hpp, gp and the couplings B
+    (the per-observation blocks summed per keyframe and landmark).
+    Returns {name: gap}."""
+    w.linearize(BA_MODE_INIT)
+    w.linearize(BA_MODE_LINEARIZE)
+    t = w.t
+    n_kf = t["hcc"].shape[0]
+    S6 = 6 * n_kf
+    _, H, g, lm_sys, _, _ = prob.build_normal_equations(st)
+    Hk = torch.block_diag(*unpack_sym(t["hcc"][:, :21], 6).unbind(0))
+    errs = {"pose blocks": rel_err(Hk, H[:S6, :S6]),
+            "g": rel_err(t["hcc"][:, 21:].reshape(-1), g[:S6])}
+    for fam, d, hkey, wkey, okf, olm in (
+            ("pt", 3, "hpt", "p_w", "obs_kf", "obs_pt"),
+            ("ln", 6, "hln", "l_w", "lobs_kf", "lobs_ln")):
+        if fam not in lm_sys:
+            continue
+        Hpp, gp, Bp = lm_sys[fam]
+        n = Hpp.shape[0]
+        nt = d * (d + 1) // 2
+        errs[f"Hpp {fam}"] = rel_err(unpack_sym(t[hkey][:n, :nt], d), Hpp)
+        errs[f"gp {fam}"] = rel_err(t[hkey][:n, nt:nt + d], gp)
+        n_o = t[okf].shape[0]
+        Bk = torch.zeros(n_kf, n, 6, d, dtype=torch.float64, device=H.device)
+        Bk.index_put_((t[okf].long(), t[olm].long()),
+                      t[wkey][:n_o].double().view(-1, 6, d), accumulate=True)
+        errs[f"B {fam}"] = rel_err(Bk.permute(0, 2, 1, 3).reshape(S6, -1),
+                                    Bp[:S6].double())
+    return errs
+
+
+# the per-observation argument groups of the window BAs' argument lists
+# (against_float64's `rows`): the point and line observations of
+# local_ba_pl / local_inertial_ba, the line observations of
+# local_ba_lines_only
+BA_ROWS = ((4, 5, 6, 7, 8), (11, 12, 13, 14, 15))
+LIBA_ROWS = ((8, 9, 10, 11, 12), (20, 21, 22, 23))
+LINES_ONLY_ROWS = ((4, 5, 6, 7, 8, 9),)

@@ -33,10 +33,12 @@ before it, so the calls are not batched.
 Not ported, each for a later part of the port: the multi-device window
 solve (`_dist_runner`, models/local_mapping.py:140-157; one card takes
 the single-device path, as the reference does on one device), the KB8
-fisheye with an IMU or lines (Queue 1 item 7b'), the PLVIO_TRACE prints,
-and the line-only local BA of SLAM modes 1-3; the last two raise
-NotImplementedError.  A monocular KB8 camera without lines (`kb8`) runs
-its lens through the point BA and the fuse on raw pixels (`_ba_uv`).  `metrics` times the reference's stages
+the PLVIO_TRACE prints.  A KB8 camera (`kb8`) runs its lens through the
+point edges of every window BA (`ba_K`: the point+line and the inertial
+windows too, their line edges on its pinhole fx, fy, cx, cy) and the fuse
+on raw pixels (`_ba_uv`).  Under SLAM modes 1-3 the window BA with 8 or
+more confirmed lines is the line-only one (`make_local_ba_lines_only`,
+the points held fixed).  `metrics` times the reference's stages
 ("mapping/cull", "/triangulate", "/lines", "/fuse", "/liba", "/lba",
 "/kf_cull").
 """
@@ -125,9 +127,14 @@ class LocalMapper(HostIO):
             self.line_pair_match = KN.make_line_pair_matcher(plain=plain)
             self.line_triangulate = KN.make_line_triangulator(self.K,
                                                               plain=plain)
-            self.local_ba_pl_kernel = KN.make_local_ba_pl(self.K,
+            self.local_ba_pl_kernel = KN.make_local_ba_pl(self.ba_K,
                                                           plain=plain)
             self.recent_lns: List[np.ndarray] = []
+            # SLAM modes 1-3: the line-only window BA (pinhole K)
+            self.local_ba_lines_kernel = None
+            if self.slam_mode in (1, 2, 3):
+                self.local_ba_lines_kernel = KN.make_local_ba_lines_only(
+                    self.K, self.slam_mode, plain=plain)
 
         self.use_imu = cfg.sensor in (3, 4)
         self.imu_init_cap = imu_init_cap
@@ -191,7 +198,7 @@ class LocalMapper(HostIO):
 
     def _make_liba(self, n_kf, n_pt, n_obs, n_ln, n_lobs):
         return KN.make_local_inertial_ba(
-            self.K, n_kf, n_pt, n_obs, self.R_cb, self.t_cb,
+            self.ba_K, n_kf, n_pt, n_obs, self.R_cb, self.t_cb,
             self.cfg.imu.gravity, n_ln=n_ln, n_lobs=n_lobs, plain=self.plain)
 
     # ------------------------------------------------------------------
@@ -736,7 +743,7 @@ class LocalMapper(HostIO):
         if use_pl:
             ln_slot = np.full(m.max_lines, -1, np.int32)
             ln_slot[ln_ids] = np.arange(len(ln_ids))
-            lobs_kf, lobs_ln, lobs_eq = [], [], []
+            lobs_kf, lobs_ln, lobs_eq, lobs_dir = [], [], [], []
             for s, kfi in enumerate(slots):
                 match = m.kf_match_ln[kfi]
                 feat = np.nonzero((match >= 0) & np.isin(match, ln_ids))[0]
@@ -751,9 +758,14 @@ class LocalMapper(HostIO):
                 l /= np.maximum(np.linalg.norm(l[:, :2], axis=1,
                                                keepdims=True), 1e-9)
                 lobs_eq.append(l.astype(np.float32))
+                d = ep[:, 2:] - ep[:, :2]
+                d /= np.maximum(np.linalg.norm(d, axis=1, keepdims=True),
+                                1e-6)
+                lobs_dir.append(d.astype(np.float32))
             lobs_kf = np.concatenate(lobs_kf)[:self.ba_lobs_cap]
             lobs_ln = np.concatenate(lobs_ln)[:self.ba_lobs_cap]
             lobs_eq = np.concatenate(lobs_eq)[:self.ba_lobs_cap]
+            lobs_dir = np.concatenate(lobs_dir)[:self.ba_lobs_cap]
             n_lobs = len(lobs_kf)
             ln_ep6 = np.zeros((self.ba_ln_cap, 6), np.float32)
             ln_ep6[:len(ln_ids)] = m.ln_ep[ln_ids]
@@ -761,10 +773,22 @@ class LocalMapper(HostIO):
             ln_free[:len(ln_ids)] = True
         d = self._sol
         self.ba_stats = []
-        if use_pl and self.slam_mode in (1, 2, 3):
-            raise NotImplementedError(
-                "the line-only local BA of SLAM modes 1-3 "
-                "(make_local_ba_lines_only) is not ported")
+        if use_pl and self.local_ba_lines_kernel is not None:
+            # SLAM modes 1-3: the poses from the line observations alone,
+            # the points held fixed
+            self.ba_path = "lines"
+            new_poses, new_lns, _ = self.local_ba_lines_kernel(
+                d(kf_poses), d(free_mask), d(ln_ep6), d(ln_free),
+                d(pad(lobs_kf, self.ba_lobs_cap)),
+                d(pad(lobs_ln, self.ba_lobs_cap)),
+                d(pad(lobs_eq, self.ba_lobs_cap)),
+                d(pad(lobs_dir, self.ba_lobs_cap)),
+                d(pad(np.ones(n_lobs, bool), self.ba_lobs_cap, False)),
+                d(pad(np.ones(n_lobs, np.float32), self.ba_lobs_cap)),
+                stats=self.ba_stats)
+            m.ln_ep[ln_ids] = self._host(new_lns)[:len(ln_ids)]
+            new_pts = pt_xyz
+            inlier = np.ones(self.ba_obs_cap, bool)
         elif use_pl:
             self.ba_path = "pl"
             (new_poses, new_pts, new_lns, inlier, _) = \
@@ -797,7 +821,8 @@ class LocalMapper(HostIO):
         self.ba_calls.append(dict(path="lba", window=len(slots),
                                   iters=list(self.ba_stats)))
         new_poses = self._host(new_poses)
-        new_pts = self._host(new_pts)
+        if torch.is_tensor(new_pts):
+            new_pts, inlier = self._host(new_pts), self._host(inlier)
         wr = free_mask[:len(slots)] \
             & np.isfinite(new_poses[:len(slots)]).all((1, 2))
         m.kf_pose_cw[slots[wr]] = new_poses[:len(slots)][wr]
@@ -805,8 +830,7 @@ class LocalMapper(HostIO):
         m.pt_xyz[pt_ids[okp]] = new_pts[:len(pt_ids)][okp]
 
         # drop observations judged outliers by the BA
-        inlier_np = self._host(inlier)[:n_obs]
-        bad = ~inlier_np
+        bad = ~inlier[:n_obs]
         if bad.any():
             for s, kfi in enumerate(slots):
                 sel = (obs_kf == s) & bad

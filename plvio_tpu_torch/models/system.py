@@ -21,8 +21,8 @@ map transform handed to the tracker).
 
 Not ported, each raising NotImplementedError naming its ROADMAP item
 where the reference would take it: the prior-map relocalizer
-(`reloc.enabled`, Queue 1 item 5), the KB8 camera with an IMU or lines
-(item 7b'), the ED line detector (item 7), and the peripherals of item 9
+(`reloc.enabled`, Queue 1 item 5), the ED line detector (item 7d), and
+the peripherals of item 9
 (`async_mapping`, `change_dataset`, `save_atlas` / `load_atlas`, the live
 viewer, the overlay and snapshot dumps, `export_map`).  The XLA cache hygiene of the reference
 (`_host_hygiene`) has no counterpart.
@@ -41,13 +41,12 @@ from ..cuda import resolve_device
 from ..io import trajectory as TIO
 from ..ops import cameras as CAM
 from ..ops import stereo as ST
-from ..solver.residuals import kb8_for
 from ..utils import lie
 from ..utils.metrics import Metrics
 
 _ITEM5 = ("the prior-map relocalizer is not ported yet (ROADMAP Queue 1 "
           "item 5)")
-_ITEM7 = "is not ported yet (ROADMAP Queue 1 item 7)"
+_ITEM7 = "is not ported yet (ROADMAP Queue 1 item 7d)"
 _ITEM9 = "is not ported yet (ROADMAP Queue 1 item 9)"
 
 
@@ -84,7 +83,7 @@ def undistort_features(cam: CAM.Camera, feats, lf=None,
     """The keypoints' undistortion (`uv_und`) and, with segments `lf`,
     their endpoints' with new line equations, in one `undistort` launch
     for CUDA features (the plain version on the CPU or with `plain`; a
-    KB8 camera takes the kernel's KB8 mode, keypoints only); a pinhole
+    KB8 camera takes the kernel's KB8 mode); a pinhole
     camera without distortion leaves them as they are."""
     if cam.model != "kb8" and not any(cam.dist):
         return feats._replace(uv_und=feats.uv), lf
@@ -209,7 +208,6 @@ class System:
         self.device = resolve_device(device)
         self.plain = plain
         cam = cfg.camera
-        kb8_for(cfg)        # raises where the KB8 camera is not ported
         self.camera = CAM.make_camera(cam)
         self.level_specs = make_level_specs(
             cam.height, cam.width, cfg.orb.n_features, cfg.orb.n_levels,

@@ -56,15 +56,20 @@ RGB-D with bf > 0) in the point-only stereo LM (`pose_lm`'s stereo mode,
 from the frame's depths, in the reference's float32 operations (uv - bf /
 max(z, 0.1) where z > 0.1, else -1).
 
-The KB8 fisheye (monocular, no lines): the local-map matcher
-(`proj_match`'s KB8 mode) and the pose solve (`pose_lm`'s KB8 mode) run
+The KB8 fisheye: the local-map matcher (`proj_match`'s KB8 mode) runs
 against the frame's raw pixels (`uv`), the bootstrap and the keyframes'
-undistorted coordinates stay as for the pinhole camera.
+undistorted coordinates stay as for the pinhole camera.  Without lines and
+before the IMU initializes, the pose solve is `pose_lm`'s KB8 mode on the
+raw pixels; with lines it is the pinhole point+line IRLS and, once the IMU
+is initialized, the pinhole VI pose LM, on those raw pixels, as the
+reference's tracker does (models/tracking.py:110-112, 145-149, 917-918: a
+fault of the reference, ROADMAP Queue 3).
 
-Not ported, each for a later item of the port: the KB8 camera with an IMU
-or with lines (Queue 1 item 7b') and the line-only pose optimizers of
-SLAM modes 1-3; each raises NotImplementedError where the reference would
-take it.  The PLVIO_TRACE prints are left out.
+SLAM modes 1-3 (`cfg.slam_mode`): once 8 map lines match, the pose comes
+from the lines alone (`make_pose_opt_line_only`, `pose_lm`'s line
+families), the point inliers at it counted on the host.
+
+The PLVIO_TRACE prints are left out.
 """
 from __future__ import annotations
 
@@ -88,8 +93,6 @@ from ..utils.metrics import Metrics
 from . import kernels as KN
 from .mapstore import INVALID, Atlas, MapStore
 
-_ITEM7 = ("is not ported yet (the other sensors and camera models come "
-          "with Queue 1 item 7)")
 RELOC_ITERS = 128      # PnP RANSAC hypotheses a candidate (ops/pnp.py:49)
 RELOC_CAP = 512        # matches handed to PnP a candidate
 # 1 / 1.2^(2 octave) of octaves 0..7, as the reference computes it on the
@@ -165,6 +168,11 @@ class Tracker(HostIO):
                 self.K, plain=plain)
             self.pose_opt_pl = KN.make_fast_pose_optimizer_pl(
                 self.K, plain=plain, bf=self.bf if self.pl_stereo else 0.0)
+        # SLAM modes 1-3: the pose from lines alone once 8 map lines match
+        self.pose_opt_line_only = None
+        if self.use_lines and int(cfg.slam_mode) in (1, 2, 3):
+            self.pose_opt_line_only = KN.make_pose_opt_line_only(
+                self.K, int(cfg.slam_mode), plain=plain)
         self.last_line_feats = None
         self.last_feat_ln: Optional[np.ndarray] = None
 
@@ -1163,21 +1171,24 @@ class Tracker(HostIO):
             ln_feat_idx, ln_matched, l_eq = self.line_proj_match(
                 pose_t, ln_ep6_t, self._dev(ln_desc), self._dev(ln_live),
                 lf.ep, lf.desc, lf.angle, lf.valid, lf.lineq)
-            if int(self.cfg.slam_mode) in (1, 2, 3):
-                raise NotImplementedError(
-                    f"the line-only pose optimizers {_ITEM7}")
-            args = (pose_t, uv_m, xyz_t, matched, is2, l_eq,
-                    ln_ep6_t[:, :3], ln_ep6_t[:, 3:], ln_matched,
-                    torch.ones(self.local_ln_cap, dtype=torch.float32,
-                               device=self.device))
-            if self.pl_stereo:
-                # the u_R residual for features with a depth
-                if self._frame_depth is not None:
-                    ur = self._ur_column(uv_m, pt_feat)
-                else:
-                    ur = torch.full_like(uv_m[:, 0], -1.0)
-                args = args + (ur,)
-            pose, inlier, inl_l, n_inl = self.pose_opt_pl(*args)
+            ones_l = torch.ones(self.local_ln_cap, dtype=torch.float32,
+                                device=self.device)
+            if self.pose_opt_line_only is not None \
+                    and self._count(ln_matched) >= 8:
+                pose, inlier, inl_l, n_inl = self._line_only_pose(
+                    pose_t, lf, ln_feat_idx, ln_matched, l_eq, ln_ep6_t,
+                    ones_l, xyz, uv_m, is2, matched)
+            else:
+                args = (pose_t, uv_m, xyz_t, matched, is2, l_eq,
+                        ln_ep6_t[:, :3], ln_ep6_t[:, 3:], ln_matched, ones_l)
+                if self.pl_stereo:
+                    # the u_R residual for features with a depth
+                    if self._frame_depth is not None:
+                        ur = self._ur_column(uv_m, pt_feat)
+                    else:
+                        ur = torch.full_like(uv_m[:, 0], -1.0)
+                    args = args + (ur,)
+                pose, inlier, inl_l, n_inl = self.pose_opt_pl(*args)
             # line bookkeeping: observed segment -> map line
             inl_l_np, ln_feat_np = self._host_many(inl_l, ln_feat_idx)
             feat_ln = np.full(self.n_line_feat, INVALID, np.int32)
@@ -1256,6 +1267,34 @@ class Tracker(HostIO):
         self.last_n_inliers = n_inliers
         self._reselect_ref_kf(ids[good_slots])
         return True
+
+    def _line_only_pose(self, pose_t, lf, ln_feat_idx, ln_matched, l_eq,
+                        ln_ep6_t, ones_l, xyz, uv_m, is2, matched):
+        """SLAM modes 1-3: the pose from the matched lines alone (the
+        reference's PoseOptimizationOnlyLine(+Angles)), each observed
+        segment's unit direction computed on the host as the reference
+        does, then the point inliers at that pose counted on the host
+        (pinhole K, chi2 < 5.991, depth > 0.05; bookkeeping only).
+        Returns (pose, inlier, inlier_l, n_inliers), pose and inlier in
+        numpy."""
+        ep, feat_idx = self._host_many(lf.ep, ln_feat_idx)
+        ep_obs = ep[feat_idx]
+        dirs = ep_obs[:, 2:] - ep_obs[:, :2]
+        dirs = dirs / np.maximum(np.linalg.norm(dirs, axis=-1,
+                                                keepdims=True), 1e-6)
+        pose, inl_l, n_inl_l = self.pose_opt_line_only(
+            pose_t, l_eq, self._dev(dirs.astype(np.float32)),
+            ln_ep6_t[:, :3], ln_ep6_t[:, 3:], ln_matched, ones_l)
+        pose_np, n_l, uv_np, is2_np, matched_np = self._host_many(
+            pose, n_inl_l, uv_m, is2, matched)
+        pc = np.asarray(xyz) @ pose_np[:, :3].T + pose_np[:, 3]
+        z_ = np.maximum(pc[:, 2], 1e-4)
+        pred = np.stack([self.K.fx * pc[:, 0] / z_ + self.K.cx,
+                         self.K.fy * pc[:, 1] / z_ + self.K.cy], -1)
+        chi2 = np.sum((pred - uv_np) ** 2, -1) * is2_np
+        inlier = matched_np & (chi2 < 5.991) & (pc[:, 2] > 0.05)
+        return pose_np, inlier, inl_l, np.asarray(int(n_l)
+                                                  + int(inlier.sum()))
 
     def _reselect_ref_kf(self, tracked_ids: np.ndarray) -> None:
         """The reference keyframe becomes the covisible keyframe (or one of

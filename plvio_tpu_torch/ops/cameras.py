@@ -11,10 +11,10 @@ fisheye (port of plvio_tpu/ops/cameras.py: `Camera`, `make_camera`,
 segments, with the undistorted segments' line equations, in one launch;
 `undistort_frame_plain` beside it is the plain PyTorch version (on
 `undistort_radtan`: 8 Newton steps with the analytic 2x2 Jacobian, the
-reference's float32 operation order).  Its KB8 mode (a KB8 camera,
-keypoints only: the fisheye path runs without lines; its launches counted
-as `UNDISTORT_KB8`) undistorts through `kb8_unproject`'s 10 Newton steps
-of theta_d(theta).
+reference's float32 operation order).  Its KB8 mode (a KB8 camera, its
+launches counted as `UNDISTORT_KB8`) undistorts the keypoints and the
+segments' endpoints through `kb8_unproject`'s 10 Newton steps of
+theta_d(theta).
 """
 from __future__ import annotations
 
@@ -261,15 +261,12 @@ UNDISTORT_KB8 = cuda.Kernel("undistort", "undistort", _UNDISTORT_ARGS)
 def undistort_frame_plain(cam: Camera, kp: torch.Tensor,
                           ep: Optional[torch.Tensor]):
     """Plain version of `undistort`."""
-    if cam.model == "kb8":
-        if ep is not None:
-            raise ValueError("undistort: the KB8 mode takes keypoints only")
-        return kb8_undistort_pixels(cam, kp), None, None
-    kp_out = _undistort_pixels_plain(cam, kp)
+    und = kb8_undistort_pixels if cam.model == "kb8" \
+        else _undistort_pixels_plain
+    kp_out = und(cam, kp)
     if ep is None:
         return kp_out, None, None
-    ep_out = torch.cat([_undistort_pixels_plain(cam, ep[:, :2]),
-                        _undistort_pixels_plain(cam, ep[:, 2:])], -1)
+    ep_out = torch.cat([und(cam, ep[:, :2]), und(cam, ep[:, 2:])], -1)
     return kp_out, ep_out, line_equation(ep_out)
 
 
@@ -278,12 +275,10 @@ def undistort(cam: Camera, kp: torch.Tensor, ep: Optional[torch.Tensor]):
     ep [L,4] = (x0, y0, x1, y1) (or None) in one launch: (kp_und [N,2],
     ep_und [L,4], lineq [L,3]) (the last two None without ep), lineq
     the normalized line equations of the undistorted segments
-    (`ops.lines.line_equation`).  A KB8 camera takes keypoints only (ep
-    None).  CPU tensors take the plain version; CUDA tensors launch
+    (`ops.lines.line_equation`), through the KB8 lens for a KB8 camera.
+    CPU tensors take the plain version; CUDA tensors launch
     csrc/undistort.cu."""
     kb8 = cam.model == "kb8"
-    if kb8 and ep is not None:
-        raise ValueError("undistort: the KB8 mode takes keypoints only")
     if kp.device.type == "cpu":
         return undistort_frame_plain(cam, kp, ep)
     ts = [kp] if ep is None else [kp, ep]

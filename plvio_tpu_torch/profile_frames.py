@@ -5,7 +5,7 @@ one CUDA card.
 
     python3 -m plvio_tpu_torch.profile_frames \
         [sequence | tracked | system | loop | mh_loop | stereo |
-         stereo_points | kb8]
+         stereo_points | kb8 | kb8_vi | line_modes]
 
 Builds the synthetic inputs of `chip_smoke.py` (EuRoC geometry: 480x752,
 1000 ORB features, 256 line features, 2048 map points, 128 map lines; 16
@@ -69,7 +69,10 @@ without lines, 15 pairs) and the RGB-D room with bf = 40
 (`entry.rgbd_room`, 12 frames), `kb8` the fisheye room
 (`entry.kb8_room`, 30 frames, loop closing on): each the per-frame
 figures of `system` (bootstrap, tracked and keyframe frames) and the
-device kernels with the most time.
+device kernels with the most time.  `kb8_vi` runs the fisheye MH replay
+with the IMU (`entry.kb8_vi_replay`, 8 s), without and with lines, and
+`line_modes` the MH replay's frames under SLAM modes 1, 2 and 3
+(`entry.line_mode_replay`): the same per-frame figures and kernels.
 
 Prints the card's `nvidia-smi` name and power limit first.  Needs one
 card; JAX is never imported.
@@ -632,6 +635,27 @@ def profile_kb8(dev):
     _profile_run(step, S, "KB8 fisheye room")
 
 
+def profile_kb8_vi(dev):
+    """The fisheye MH replay with the IMU (`entry.kb8_vi_replay`, 8 s,
+    loop closing on), without and with lines."""
+    for lines in (False, True):
+        step, S = E.kb8_vi_replay(device=dev, use_lines=lines)
+        _profile_run(step, S, f"KB8 fisheye replay with the IMU, lines "
+                     f"{'on' if lines else 'off'}",
+                     lambda o: f", IMU init frame {o.imu_init_frame}")
+
+
+def profile_line_modes(dev):
+    """SLAM modes 1-3 over the MH replay's frames (`entry.line_mode_replay`,
+    8 s, MONOCULAR with lines, loop closing on), the replay rendered once."""
+    from .inputs import build_mh_replay
+    S = build_mh_replay()
+    S["imu"] = [None] * len(S["frames"])
+    for mode in (1, 2, 3):
+        step = E.SystemRun(device=dev, cfg=E.line_mode_config(mode))
+        _profile_run(step, S, f"SLAM mode {mode} over the MH replay")
+
+
 def _per_name(dev_ev):
     per = defaultdict(lambda: [0, 0.0])
     for _, d, name in dev_ev:
@@ -671,6 +695,12 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["kb8"]:
         profile_kb8(dev)
+        return 0
+    if sys.argv[1:] == ["kb8_vi"]:
+        profile_kb8_vi(dev)
+        return 0
+    if sys.argv[1:] == ["line_modes"]:
+        profile_line_modes(dev)
         return 0
     (frames, poses, pt_xyz, pt_desc, pt_valid, ln_ep6, ln_desc, ln_valid,
      traj) = build_inputs(N_FRAMES, CAP_PTS, CAP_LNS, H, W,

@@ -10,9 +10,11 @@ retractions (port of plvio_tpu/solver/residuals.py:
 `state_prior` :308, `make_inertial` :318, `make_inertial_gs` :348,
 `bias_rw` :466, `make_prior15` :474, the pose-only edges
 `make_point_reproj_fixed` :119 and `make_stereo_reproj_fixed` :132, the
+line-only modes' edges `make_line_reproj_fixed` :173,
+`make_line_angle_fixed` :188 and `make_line_angle` :208, the
 KB8 fisheye's `KB8K` :500, `kb8_project_single` :511,
-`make_point_reproj_kb8_fixed` :524 and `make_point_reproj_kb8` :534,
-`point_reproj_ba_for` :559,
+`make_point_reproj_kb8_fixed` :524, `make_point_reproj_kb8` :534 and
+`make_point_reproj_body_ba_kb8` :544, `point_reproj_ba_for` :559,
 `point_reproj_body_ba_for` :567, and the loop closer's Sim(3) pieces
 `sim3_from_flat` :387, `sim3_to_flat` :392, `retract_sim3(_single)`
 :396-409, `retract_sim3_4dof(_single)` :414-434 with `_SIM3_4DOF_MASK`,
@@ -57,16 +59,10 @@ class KB8K(NamedTuple):
 
 
 def kb8_for(cfg) -> Optional[KB8K]:
-    """The KB8K of a SystemConfig's KB8 camera, None for a pinhole one.
-    The KB8 camera with an IMU or lines raises: its inertial and line
-    edges on raw pixels are not ported yet (ROADMAP Queue 1 item 7b')."""
+    """The KB8K of a SystemConfig's KB8 camera, None for a pinhole one."""
     cam = cfg.camera
     if cam.model != "kb8":
         return None
-    if cfg.sensor in (3, 4) or cfg.use_lines:
-        raise NotImplementedError("the KB8 camera with an IMU or lines is "
-                                  "not ported yet (ROADMAP Queue 1 item "
-                                  "7b')")
     d = tuple(cam.dist) + (0.0,) * 4
     return KB8K(cam.fx, cam.fy, cam.cx, cam.cy, *d[:4])
 
@@ -225,6 +221,57 @@ def make_line_reproj(K: PinholeK):
     return res
 
 
+def make_line_reproj_fixed(K: PinholeK):
+    """Pose-only line edge -> r [2], the endpoints constants; const =
+    {'l': [3], 'Xs': [3], 'Xe': [3]}."""
+    def res(blocks, deltas, const):
+        (P,) = blocks
+        (dp,) = deltas
+        R, t = retract_pose_cw_single(P, dp)
+        l = const["l"]
+        out = []
+        for key in ("Xs", "Xe"):
+            uv = _project(K, R @ const[key] + t)
+            out.append(l[0] * uv[0] + l[1] * uv[1] + l[2])
+        return torch.stack(out)
+    return res
+
+
+def _sin_angle(uv_s, uv_e, d_obs):
+    """Sine of the angle between the projected segment's direction, the
+    difference normalised by rsqrt(|d|^2 + 1e-12) (finite at d = 0, the
+    padded rows), and the observed unit direction d_obs [2]."""
+    d = uv_e - uv_s
+    d = d * torch.rsqrt(torch.sum(d * d) + 1e-12)
+    return torch.stack([d[0] * d_obs[1] - d[1] * d_obs[0]])
+
+
+def make_line_angle_fixed(K: PinholeK):
+    """Pose-only angle edge -> r [1]: the sine of the angle between the
+    projected segment and the observed direction; const = {'dir': [2],
+    'Xs': [3], 'Xe': [3]}."""
+    def res(blocks, deltas, const):
+        (P,) = blocks
+        (dp,) = deltas
+        R, t = retract_pose_cw_single(P, dp)
+        return _sin_angle(_project(K, R @ const["Xs"] + t),
+                          _project(K, R @ const["Xe"] + t), const["dir"])
+    return res
+
+
+def make_line_angle(K: PinholeK):
+    """BA angle edge (pose_cw, line6), both free -> r [1]; const = {'dir':
+    [2]}."""
+    def res(blocks, deltas, const):
+        P, L6 = blocks
+        dp, dl = deltas
+        R, t = retract_pose_cw_single(P, dp)
+        L6 = L6 + dl
+        return _sin_angle(_project(K, R @ L6[:3] + t),
+                          _project(K, R @ L6[3:] + t), const["dir"])
+    return res
+
+
 def make_point_reproj_body(K: PinholeK, Rcb: torch.Tensor, tcb: torch.Tensor):
     """Pose-only reprojection with the state on the body frame and a fixed
     camera-from-body extrinsic.  blocks = (pose_wb,), const = {'uv': [2],
@@ -270,10 +317,25 @@ def make_point_reproj_body_ba(K: PinholeK, Rcb: torch.Tensor,
     return res
 
 
-def point_reproj_body_ba_for(K: PinholeK, Rcb, tcb):
-    """The inertial-window point edge of a pinhole camera (the reference's
-    camera-model dispatch; the port has the pinhole model only)."""
-    return make_point_reproj_body_ba(K, Rcb, tcb)
+def make_point_reproj_body_ba_kb8(K: KB8K, Rcb: torch.Tensor,
+                                  tcb: torch.Tensor):
+    """Inertial-window BA edge (pose_wb, point) through the KB8 lens
+    against raw pixels; const = {'uv': [2]}."""
+    def res(blocks, deltas, const):
+        P, X = blocks
+        d, dX = deltas
+        R_wb, p_wb = retract_pose_wb_single(P, d)
+        Xb = R_wb.T @ (X + dX - p_wb)
+        return kb8_project_single(K, Rcb @ Xb + tcb) - const["uv"]
+    return res
+
+
+def point_reproj_body_ba_for(K, Rcb, tcb):
+    """The camera-model dispatch of the inertial-window point edge: a KB8K
+    camera projects through the lens onto raw pixels, a PinholeK one
+    onto undistorted pixels."""
+    return make_point_reproj_body_ba_kb8(K, Rcb, tcb) \
+        if isinstance(K, KB8K) else make_point_reproj_body_ba(K, Rcb, tcb)
 
 
 def make_line_reproj_body_ba(K: PinholeK, Rcb: torch.Tensor,
@@ -500,6 +562,52 @@ def point_reproj_jac(K: PinholeK, P, X, uv):
     proj, Jpi = _proj_jac_clamped(K, pc)
     Jp = torch.cat([Jpi, -Jpi @ lie.hat(pc)], -1)
     return proj - uv, Jp, Jpi @ R
+
+
+def line_reproj_fixed_jac(K: PinholeK, P, Xs, Xe, l):
+    """Batched `make_line_reproj_fixed` at delta = 0: P [N,3,4], Xs, Xe
+    [N,3], l [N,3] -> (r [N,2], J_pose [N,2,6])."""
+    r, Jp, _ = line_reproj_jac(K, P, torch.cat([Xs, Xe], -1), l)
+    return r, Jp
+
+
+def line_angle_jac(K: PinholeK, P, L, d_obs):
+    """Batched `make_line_angle` at delta = 0 (the kernels' angle row):
+    P [N,3,4], L [N,6], d_obs [N,2] -> (r [N,1], J_pose [N,1,6], J_line
+    [N,1,6]).  With d = uv_e - uv_s, n = (|d|^2 + 1e-12)^-1/2 and r =
+    n (d x d_obs): d r / d d = n g - n^3 (d . g) d, g = (d_obs[1],
+    -d_obs[0]); the endpoints enter as d uv_e / d . - d uv_s / d ., each
+    through the pinhole rows of `line_reproj_jac`."""
+    R, t = P[..., :3], P[..., 3]
+    uvs, rows = [], []
+    for k in range(2):
+        pc = (R @ L[:, 3 * k:3 * k + 3, None])[..., 0] + t
+        proj, Jpi = _proj_jac_clamped(K, pc)
+        uvs.append(proj)
+        rows.append((Jpi, pc))
+    d = uvs[1] - uvs[0]
+    n = torch.rsqrt((d * d).sum(-1) + 1e-12)
+    g = torch.stack([d_obs[:, 1], -d_obs[:, 0]], -1)
+    r = n * (d * g).sum(-1)
+    dr_dd = n[:, None] * g - (n ** 3 * (d * g).sum(-1))[:, None] * d
+    Jps, Jls = [], []
+    for k, (Jpi, pc) in enumerate(rows):
+        jrow = (dr_dd[:, None, :] @ Jpi) * (1.0 if k else -1.0)
+        Jps.append(torch.cat([jrow, -jrow @ lie.hat(pc)], -1))
+        Jls.append(jrow @ R)
+    return r[:, None], Jps[0] + Jps[1], torch.cat(Jls, -1)
+
+
+def point_reproj_body_ba_kb8_jac(K: KB8K, Rcb, tcb, P, X, uv):
+    """Batched `make_point_reproj_body_ba_kb8` at delta = 0 (the kernels'
+    body-KB8 mode): P [N,3,4] pose_wb, X [N,3], uv [N,2] -> (r [N,2],
+    J_pose [N,2,6], J_point [N,2,3]); the lens rows of `kb8_proj_jac`
+    through the body rows of `_body_rows`."""
+    R, p = P[..., :3], P[..., 3]
+    Xb = ((X - p)[:, None, :] @ R)[:, 0]
+    proj, Jpi = kb8_proj_jac(K, Xb @ Rcb.T + tcb)
+    Jp, JX = _body_rows(Jpi, Rcb, R, Xb)
+    return proj - uv, Jp, JX
 
 
 def line_reproj_jac(K: PinholeK, P, L, l):

@@ -746,7 +746,7 @@ def test_inertial_gs_lm_matches_plain(dev, refine):
     against the plain engine run in float64 on the CPU, within twice the
     farthest of the plain float32 runs' (on the card, and on the CPU over
     `KN.FLOAT32_ORDERS` orders of the edges in the sums, the row-order
-    rule of `KN._solver_against_float64`) plus a floor (printed, run with
+    rule of `KN.against_float64`) plus a floor (printed, run with
     -s): the LM's last accept / reject decisions follow float32 noise in
     the cost near the optimum, which leaves the kernel 1.2e-5 from float64
     in the scale and the CPU's float32 runs up to 2.0e-6 over four edge
@@ -1586,14 +1586,14 @@ def test_stereo_match_modes_identical(dev):
 def test_pose_irls_stereo_matches_float64(dev):
     """`pose_irls` with the u_R column against float64 runs of its plain
     version: within 2x the plain float32 runs' distance (over
-    `KN.FLOAT32_ORDERS` row orders) + 1e-6, the same bits on a second
-    launch, inliers within max(2, 1%)."""
+    `KN.FLOAT32_ORDERS` row orders) + 1e-6, the same bits on three
+    launches, inliers within max(2, 1%)."""
     from plvio_tpu_torch.kernel_digest import pose_case
     *args, ur = pose_case(dev, 128, stereo=True)[1:]
     n0 = KN.POSE_IRLS_STEREO.launches
     out = KN.pose_irls_against_float64(K, args, ur, BF)
     assert not out["failures"], out
-    assert KN.POSE_IRLS_STEREO.launches == n0 + 2
+    assert KN.POSE_IRLS_STEREO.launches == n0 + 3
 
 
 @pytest.mark.parametrize("have_prior", [True, False])
@@ -1606,7 +1606,7 @@ def test_vi_pose_lm_stereo_matches_float64(dev, have_prior):
     n0 = KN.VI_POSE_LM_STEREO.launches
     out = KN.vi_pose_lm_against_float64(K, args, have_prior, ur, BF)
     assert not out["failures"], out
-    assert KN.VI_POSE_LM_STEREO.launches == n0 + 2
+    assert KN.VI_POSE_LM_STEREO.launches == n0 + 3
 
 
 # --------------------------------------------------------------------------
@@ -1620,7 +1620,7 @@ def test_pose_lm_matches_float64(dev, kb8):
     a wide-angle cloud; both with 20% outliers) against float64 runs of
     its plain version: within 2x the plain float32 runs' distance (over
     `KN.FLOAT32_ORDERS` row orders) + 1e-6 a pose entry, the same bits on
-    a second launch, inliers within max(2, 1%)."""
+    three launches, inliers within max(2, 1%)."""
     from plvio_tpu_torch.kernel_digest import kb8_lm_case, stereo_lm_case
     args = kb8_lm_case(dev) if kb8 else stereo_lm_case(dev)
     kern = KN.POSE_LM_KB8 if kb8 else KN.POSE_LM_STEREO
@@ -1630,7 +1630,7 @@ def test_pose_lm_matches_float64(dev, kb8):
           f"plain float32 {out['plain']:.2e}; inliers {out['n']} / "
           f"{out['n64']}")
     assert not out["failures"], out
-    assert kern.launches == n0 + 2
+    assert kern.launches == n0 + 3
 
 
 def test_undistort_kb8_matches_plain(dev):
@@ -1737,3 +1737,229 @@ def test_mapping_step_plain_path_is_deterministic(dev):
     d = float((ok_.kf_poses - runs[0].kf_poses).abs().max())
     print(f"typical perturbed: kernel - card plain KF poses {d:.2e}")
     assert d <= 1e-4
+
+
+# --------------------------------------------------------------------------
+# Slice 13: the body-frame KB8 and KB8 + lines modes of ba_linearize, the
+# line-only families of pose_lm and the line-only mode of ba_linearize
+# (schur_solve with no point blocks), undistort's KB8 endpoints
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("mode", [1, 2, 3])
+def test_pose_lm_line_families_match_float64(dev, mode):
+    """`pose_lm`'s line family of SLAM mode 1, 2, 3 on
+    `inputs.build_line_pose_case` (cap 256, 160 valid lines, 10% 30 px
+    outliers) against float64 runs of its plain version: within 2x the
+    plain float32 runs' distance + 1e-6 a pose entry, the same bits on
+    three launches, inliers within max(2, 1%)."""
+    from plvio_tpu_torch.entry import K_EUROC
+    from plvio_tpu_torch.inputs import build_line_pose_case
+    args, _ = build_line_pose_case(device=dev)
+    n0 = KN.POSE_LM_LINE.launches
+    out = KN.line_pose_lm_against_float64(K_EUROC, mode, args)
+    print(f"pose_lm line mode {mode}: from float64 kernel "
+          f"{out['kernel']:.2e}, plain float32 {out['plain']:.2e}; inliers "
+          f"{out['n']} / {out['n64']}")
+    assert not out["failures"], out
+    assert KN.POSE_LM_LINE.launches == n0 + 3
+
+
+@pytest.mark.parametrize("mode", [1, 2, 3])
+def test_local_ba_lines_only_matches_float64(dev, mode):
+    """`make_local_ba_lines_only` (ba_linearize's line-only mode, schur_solve
+    with no point blocks) on `inputs.build_line_window` (16 KF x 512 line
+    slots x 1024 observations) against the plain engine in float32 and
+    float64 on the CPU: KF poses and endpoints within 2x the plain float32
+    runs' distance (over `KN.FLOAT32_ORDERS` observation orders) + 1e-6,
+    the same bits on three launches."""
+    from plvio_tpu_torch.entry import K_EUROC
+    from plvio_tpu_torch.inputs import build_line_window
+    A = build_line_window(device=dev)
+    n0 = KN.BA_LINEARIZE_LINE_ONLY.launches
+    with torch.no_grad():
+        out = KN.against_float64(
+            lambda *a: KN.local_ba_lines_only(K_EUROC, mode, *a),
+            lambda *a: KN.local_ba_lines_only_plain(K_EUROC, mode, *a),
+            list(A.values()), (0, 1), rows=KN.LINES_ONLY_ROWS)
+    print(f"line-only BA mode {mode}: from float64 kernel "
+          f"{out['kernel']:.2e}, plain float32 {out['plain']:.2e}")
+    assert KN.BA_LINEARIZE_LINE_ONLY.launches > n0
+    assert not out["failures"], out
+
+
+@pytest.mark.parametrize("lines", [False, True])
+def test_local_inertial_ba_kb8_matches_float64(dev, lines):
+    """The inertial window BA with the KB8 lens (ba_linearize's body-frame
+    KB8 mode) on `inputs.build_inertial_window(kb8=True)` at the half
+    bucket (16 KF, 2048 points / 4096 observations, with 256 lines / 512
+    or none), perturbed start: pose, velocity and biases within
+    2x the plain float32 runs' distance to float64 (over
+    `KN.FLOAT32_ORDERS` observation orders) + 1e-6, the same bits
+    on three launches (the keyframe states: a landmark that loses its
+    observations to the gate drifts by metres in either run, the pinhole
+    window's as well)."""
+    from plvio_tpu_torch.inputs import build_inertial_window, kb8_camera
+    K8 = kb8_camera()
+    A = build_inertial_window(2048, 4096, 256 if lines else 0,
+                              512 if lines else 0, perturbed=True,
+                              device=dev, kb8=True)
+    keys = KN.LIBA_KEYS if lines else KN.LIBA_KEYS[:18]
+    Rcb, tcb = A["Rcb"].cpu(), A["tcb"].cpu()
+    n0 = KN.BA_LINEARIZE_KB8_BODY.launches
+    with torch.no_grad():
+        out = KN.against_float64(
+            lambda *a: KN.local_inertial_ba(K8, Rcb, tcb, 9.81, *a),
+            lambda *a: KN.local_inertial_ba_plain(
+                K8, Rcb.to(a[0].dtype), tcb.to(a[0].dtype), 9.81, *a),
+            [A[k] for k in keys], (0, 1, 2, 3),
+            rows=KN.LIBA_ROWS if lines else KN.LIBA_ROWS[:1])
+    print(f"KB8 inertial window lines={lines}: from float64 kernel "
+          f"{out['kernel']:.2e}, plain float32 {out['plain']:.2e}")
+    assert KN.BA_LINEARIZE_KB8_BODY.launches > n0
+    assert not out["failures"], out
+
+
+def test_schur_solve_global_path_kb8(dev):
+    """The 64-KF inertial window with the KB8 lens (S = 960, the global
+    path): one Schur step against the plain engine's in float64, the rule
+    of `test_schur_solve_global_path`."""
+    n0 = KN.BA_LINEARIZE_KB8_BODY.launches
+    r = KN.global_solve_against_float64("inertial", 64, dev, kb8=True)
+    print(r.summary())
+    assert r.path == 1 and KN.BA_LINEARIZE_KB8_BODY.launches > n0
+    assert not r.failures(), r.failures()
+
+
+def test_local_ba_pl_kb8_matches_float64(dev):
+    """`make_local_ba_pl` with the KB8 lens (the point edges through it,
+    the line edges on its pinhole fx, fy, cx, cy) on
+    `inputs.build_kb8_window(n_ln=256, n_lobs=512)`: poses, points and
+    endpoints within 2x the plain float32 runs' distance to float64 (over
+    `KN.FLOAT32_ORDERS` observation orders) + 1e-6, the same bits on
+    three launches."""
+    from plvio_tpu_torch.inputs import build_kb8_window, kb8_camera
+    K8 = kb8_camera()
+    A = build_kb8_window(device=dev, n_ln=256, n_lobs=512)
+    n0 = KN.BA_LINEARIZE_KB8_LINES.launches
+    with torch.no_grad():
+        out = KN.against_float64(
+            lambda *a: KN.local_ba_pl(K8, *a),
+            lambda *a: KN.local_ba_pl_plain(K8, *a), list(A.values()),
+            (0, 1, 2), rows=KN.BA_ROWS)
+    print(f"KB8 point+line window: from float64 kernel {out['kernel']:.2e},"
+          f" plain float32 {out['plain']:.2e}")
+    assert KN.BA_LINEARIZE_KB8_LINES.launches > n0
+    assert not out["failures"], out
+
+
+def test_undistort_kb8_endpoints_match_plain(dev):
+    """`undistort`'s KB8 mode with segments (the fisheye System with
+    lines): keypoints bit-equal to the keypoint-only launch, endpoints
+    within 1e-4 px of the plain version, the line equations as
+    `test_undistort_matches_plain` holds them (against line_equation of
+    the kernel's endpoints: (a, b) within 1e-6, c within 1e-6 of its
+    products' scale)."""
+    from plvio_tpu_torch.config import CameraConfig
+    from plvio_tpu_torch.inputs import KB8_INTRINSICS, KB8_K
+    from plvio_tpu_torch.ops import cameras as CAM
+    cam = CAM.make_camera(CameraConfig(model="kb8", dist=KB8_K,
+                                       **KB8_INTRINSICS))
+    u, v = np.meshgrid(np.linspace(0, 751, 40), np.linspace(0, 479, 25))
+    kp = torch.from_numpy(np.stack([u.ravel(), v.ravel()], -1).astype(
+        np.float32)).to(dev)
+    ep = torch.from_numpy(np.random.default_rng(6).uniform(
+        [0, 0, 0, 0], [751, 479, 751, 479], (256, 4)).astype(
+            np.float32)).to(dev)
+    kk, ek, lk = CAM.undistort(cam, kp, ep)
+    k0 = CAM.undistort(cam, kp, None)[0]
+    _, ep_, lp = CAM.undistort_frame_plain(cam, kp, ep)
+    torch.cuda.synchronize()
+    from plvio_tpu_torch.ops.lines import line_equation
+    own = line_equation(ek)
+    de, dl = float((ek - ep_).abs().max()), float((lk - own).abs().max())
+    print(f"undistort kb8 endpoints: {de:.2e} px, line equations against "
+          f"line_equation of the kernel's endpoints {dl:.2e}")
+    assert torch.equal(kk, k0) and de <= 1e-4
+    assert float((lk[:, :2] - own[:, :2]).abs().max()) <= 1e-6
+    scale = (ek[:, 0] * ek[:, 3]).abs() + (ek[:, 1] * ek[:, 2]).abs()
+    n = torch.linalg.vector_norm(ek[:, 2:] - ek[:, :2], dim=1)
+    assert bool(((lk[:, 2] - own[:, 2]).abs() <= 1e-6 * scale / n).all())
+
+
+def test_pose_irls_nan_line_rows_as_plain(dev):
+    """`pose_irls` with gated-off line rows whose equations are NaN (a KB8
+    frame's padded segments undistort to NaN, and the line matcher hands
+    those to its unmatched rows): the Huber weight is NaN, 0 x NaN poisons
+    the normal equations as in the reference (jnp.maximum / minimum), so
+    the kernel returns a NaN pose and no inliers, as its plain version;
+    with finite rows the kernel keeps its bits (the case of
+    `test_pose_irls_matches_plain`, kernel_digest's `pose_irls mono`)."""
+    from plvio_tpu_torch.kernel_digest import pose_case
+    K_, *a = pose_case(dev, 64)
+    a[8] = torch.zeros_like(a[8])                 # no line matched
+    a[5] = torch.full_like(a[5], float("nan"))    # NaN equations
+    pk = KN.pose_irls(K_, *a)
+    pp = KN.pose_irls_plain(K_, *a)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(pp[0]).all()) and int(pp[3]) == 0
+    assert bool(torch.isnan(pk[0]).all()) and int(pk[3]) == 0
+
+
+def _slice13_linearization(case, dev):
+    """(_BAWork, plain problem, states) of one slice-13 window BA mode at
+    the path's shape, its kernel path's buffers at the window's start."""
+    from plvio_tpu_torch.entry import K_EUROC, LIBA_WORST
+    from plvio_tpu_torch.inputs import (build_inertial_window,
+                                        build_kb8_window, build_line_window,
+                                        kb8_camera)
+    K8 = kb8_camera()
+    if case == "kb8_body":
+        A = build_inertial_window(**LIBA_WORST, perturbed=True, device=dev,
+                                  kb8=True)
+        a = [A[k] for k in KN.LIBA_KEYS]
+        w = KN.inertial_work(K8, A["Rcb"].cpu(), A["tcb"].cpu(), 9.81, *a)
+        w.chain(KN.CHAIN_COST_STATE)
+        prob = KN._liba_problem(
+            K8, A["Rcb"], A["tcb"], 9.81, 16, LIBA_WORST["n_pt"],
+            LIBA_WORST["n_ln"], (a[8].long(), a[9].long(), a[10], a[12]),
+            a[11], (a[20].long(), a[21].long(), a[22]), a[23],
+            (a[13], a[14], a[15], a[16], a[17]))
+        prob.terms = [t for t in prob.terms if t.name in ("reproj", "line")]
+        return w, prob, {"pose": a[0], "vel": a[1], "bg": a[2], "ba": a[3],
+                         "pt": a[6], "ln": a[18]}
+    if case == "kb8_lines":
+        a = list(build_kb8_window(device=dev, n_ln=256, n_lobs=512).values())
+        w = KN._BAWork(K8, *a, lam0=1e-4, early_tol=1e-2, cg_iters=48)
+        prob = KN._ba_problem(K8, 16, a[2].shape[0], 256, a[4].long(),
+                              a[5].long(), a[6], a[7], a[8], a[11].long(),
+                              a[12].long(), a[13], a[14], a[15])
+        return w, prob, {"pose": a[0], "pt": a[2], "ln": a[9]}
+    mode = int(case[-1])
+    a = list(build_line_window(device=dev).values())
+    w = KN.lines_only_work(K_EUROC, mode, *a)
+    prob = KN._lines_only_problem(K_EUROC, 16, a[2].shape[0], a[4].long(),
+                                  a[5].long(), a[6], a[7], a[8], a[9], mode)
+    return w, prob, {"pose": a[0], "ln": a[2]}
+
+
+@pytest.mark.parametrize("case", ["kb8_body", "kb8_lines", "line_only_1",
+                                  "line_only_2", "line_only_3"])
+def test_slice13_linearization_matches_plain_engine(dev, case):
+    """One linearization of each slice-13 mode of `ba_linearize` (the
+    body-frame KB8 mode on the worst inertial bucket with lines, the KB8
+    point edge beside the line family, the line-only mode's edge sets of
+    SLAM modes 1, 2, 3) against the plain engine's normal equations of the
+    same terms: the pose blocks, g, Hpp, gp and the couplings B within
+    1e-4 relative (`KN.linearization_against_plain`), as chip_smoke.py
+    phase 17 holds them."""
+    counter = {"kb8_body": KN.BA_LINEARIZE_KB8_BODY,
+               "kb8_lines": KN.BA_LINEARIZE_KB8_LINES}.get(
+                   case, KN.BA_LINEARIZE_LINE_ONLY)
+    n0 = counter.launches
+    with torch.no_grad():
+        w, prob, st = _slice13_linearization(case, dev)
+        errs = KN.linearization_against_plain(w, prob, st)
+    torch.cuda.synchronize()
+    print(f"{case}: " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+    assert counter.launches == n0 + 2
+    assert max(errs.values()) <= 1e-4, errs

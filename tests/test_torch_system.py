@@ -324,6 +324,12 @@ def test_not_ported_options_raise(what, item, monkeypatch):
             "kb8_imu": dict(camera=kb8, use_lines=False),
             "kb8_lines": dict(sensor=PSensor.MONOCULAR, camera=kb8),
             "ed_lines": dict(line=LineConfig(detector=1))}
+    if what.startswith("kb8_"):
+        # ported since slice 13 (item 7b'): the System builds, its mapper's
+        # window BAs on the lens
+        slam = System(_port_cfg(**ctor[what]), device="cpu")
+        assert slam.mapper.ba_K == slam.tracker.kb8 is not None
+        return
     env = {"viewer": "PLVIO_VIEWER_PORT"}
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         if what in ctor:

@@ -127,6 +127,9 @@ DEFAULTS_TO_CARD = {
     "neighborhood_step": lambda: E.neighborhood_step(),
     "bootstrap_step": lambda: E.bootstrap_step(),
     "tracked_sequence": lambda: E.tracked_sequence(n_frames=2),
+    "kb8_vi_replay": lambda: E.kb8_vi_replay(replay_kw=dict(n_frames=1)),
+    "line_mode_replay": lambda: E.line_mode_replay(
+        1, replay_kw=dict(n_frames=1)),
 }
 
 
@@ -150,7 +153,9 @@ def test_port_never_loads_jax():
     small hall; `track_stereo` through `stereo_replay` on 3 pairs of it
     and `stereo_room` (with and without lines), `track_rgbd` through
     `rgbd_room` (bf 0 and 40), `track_monocular` with the KB8 camera
-    through `kb8_room`, 3 frames each;
+    through `kb8_room`, with the IMU and lines through `kb8_vi_replay`,
+    and SLAM mode 3 through `line_mode_replay`, 3 frames each; the
+    mapping step of the KB8 camera;
     the loop closer on the drifted circle, its global BA at 32
     keyframes)."""
     code = (
@@ -246,6 +251,21 @@ def test_port_never_loads_jax():
         "kr, KS = kb8_room(3, device='cpu', **small)\n"
         "ko = kr(KS)\n"
         "assert len(ko.frames) == 3 and ko.system.tracker.kb8 is not None\n"
+        "from plvio_tpu_torch.entry import kb8_vi_replay, "
+        "line_mode_replay\n"
+        "kv, KV = kb8_vi_replay(1.0, device='cpu', replay_kw=dict("
+        "n_frames=3), **small)\n"
+        "kvo = kv(KV)\n"
+        "assert len(kvo.frames) == 3 and kvo.system.mapper.ba_K == "
+        "kvo.system.tracker.kb8 is not None\n"
+        "lm, LS = line_mode_replay(3, 1.0, device='cpu', replay_kw=dict("
+        "n_points=500, n_lines=50, n_frames=3), **small)\n"
+        "lmo = lm(LS)\n"
+        "assert len(lmo.frames) == 3 and "
+        "lmo.system.tracker.pose_opt_line_only is not None\n"
+        "mk, MK = mapping_step(4, 256, 512, 128, 32, 64, device='cpu', "
+        "kb8=True)\n"
+        "assert int(mk(MK).n_inliers) > 0\n"
         "from plvio_tpu_torch.entry import loop_closure\n"
         "lq, LI = loop_closure('circle', device='cpu', gba_caps=(32, 2048, "
         "4096))\n"
