@@ -17,7 +17,7 @@ loop closer on hand-made maps and `System` with loop closing over the
 exit, no result line) unless every phase passes:
 
 1. the card is there (prints `nvidia-smi` name and power limit);
-2. the CUDA kernels build from `plvio_tpu_torch/csrc` (24 sources: nvcc,
+2. the CUDA kernels build from `plvio_tpu_torch/csrc` (25 sources: nvcc,
    sm_90a, one nvcc per source, all started together);
 3. each kernel agrees with its plain PyTorch version on the card at the
    paths' shapes (the mapping kernels also on a perturbed window at the
@@ -214,7 +214,26 @@ exit, no result line) unless every phase passes:
    the padding undistorts), `pose_irls` on its last point+line call (NaN
    line rows: a NaN pose and no inliers on both, as the reference's), and
    `pose_lm`'s line families on SLAM mode 3's last line-only call and on
-   `inputs.build_line_pose_case` (float64 rule).
+   `inputs.build_line_pose_case` (float64 rule);
+18. slice 14, the ED line detector (`line.detector = 1`) and the prior-map
+   relocalizer through `System`: `line_detect_ed` against its plain
+   version on the MH replay's frame 1 at both levels of the line pyramid
+   (`ops.lines.ed_against_plain`: the bf16 gradients and magnitude and the
+   cells' candidate anchors bit-equal, the walks that differ counted, the
+   segment sets within 0.01 px); `inputs.build_prior_set`'s prior set
+   (six views of the replay's hall at the prior camera, 640x480, with
+   16-bit depth) and the replay's frames of phase 13 through `System` with
+   `entry.ed_config` (IMU_MONOCULAR with lines, loop closing on, the
+   relocalizer on the prior set) at cfg.seed 0..4, cfg.seed 0 in a launch
+   window of its own with every kernel of its path launched and the cell
+   detector never: each run against REF_ED's runs of its regime
+   (`replay_guards`: frames tracked, IMU init frame, keyframes, SE3 ATE),
+   aligned where every reference run aligns, at a keyframe within the
+   reference's range +- 1, its relocalized keyframes within 2x the
+   reference's worst RMSE against the truth in the prior world; cfg.seed
+   0 again with the relocalizer off: every frame's pose bit-equal; the
+   STEREO room with lines under the ED detector (`entry.ed_stereo_room`,
+   15 pairs) by phase 15's room rule against REF_ED["room"].
 
 `library_ms` is one PyTorch call computing the same function where
 there is one (the pyramid's: 7 antialiased bilinear `F.interpolate`, its
@@ -335,6 +354,7 @@ KERNELS = {
     "ba_linearize_line_only": (KN.BA_LINEARIZE_LINE_ONLY,
                                "plvio_tpu/models/kernels.py:1394"),
     "pose_lm_line": (KN.POSE_LM_LINE, "plvio_tpu/models/kernels.py:1344"),
+    "line_detect_ed": (LN.LINE_DETECT_ED, "plvio_tpu/ops/lines.py:276"),
 }
 # schur_solve's launches whose reduced system exceeds one block (its
 # global path, counted in KN.SCHUR_SOLVE.global_launches), and the TPU
@@ -4956,6 +4976,266 @@ def run_slice13(dev, smi, render, S, report):
     return out
 
 
+# tests/test_torch_prior_reloc.py's JAX System over the MH replay's frames
+# (build_mh_replay(8.0, 7)) with the ED line detector (line.detector 1),
+# IMU_MONOCULAR with lines, loop closing on, the prior-map relocalizer on
+# inputs.build_prior_set's prior set, cfg.seed 0..9: each run's frames
+# tracked, bootstrap / IMU init frames, keyframes (alive at the end, and
+# made when the IMU initialized), points, lines, maps, ATE (Sim3, SE3) after
+# global_refine, whether the relocalizer aligned, the keyframe (its n-th
+# process_keyframe) at which it did, the keyframes it relocalized and their
+# position RMSE against the truth in the prior world; the ranges and worst
+# values; printed by
+# JAX_PLATFORMS=cpu PYTHONPATH=.:tests python3 tests/test_torch_prior_reloc.py
+# "room": tests/test_torch_lines_ed.py's JAX System over the STEREO room
+# with lines under the ED detector (15 pairs), printed by
+# `JAX_PLATFORMS=cpu PYTHONPATH=.:tests python3 tests/test_torch_lines_ed.py`
+REF_ED = {
+    "per_seed": [
+        {"n_frames": 166, "n_tracked": 164, "init_frame": 2, "imu_init_frame":
+        61, "imu_init_kf": 13, "imu_initialized": True, "keyframes": 37,
+        "points": 5460, "lines": 281, "maps": 1, "final_state": 2, "ate_sim3":
+        0.09741257065896768, "ate_se3": 0.33129248160892516, "scale":
+        0.8125304584086847, "aligned": True, "align_kf": 16, "n_relocalized":
+        28, "reloc_err": 0.6676709933189315},
+        {"n_frames": 166, "n_tracked": 164, "init_frame": 2, "imu_init_frame":
+        58, "imu_init_kf": 12, "imu_initialized": True, "keyframes": 39,
+        "points": 6254, "lines": 314, "maps": 1, "final_state": 2, "ate_sim3":
+        0.16430504857473094, "ate_se3": 0.33658431761262964, "scale":
+        1.161246789279312, "aligned": True, "align_kf": 14, "n_relocalized":
+        33, "reloc_err": 0.6530010359809468},
+        {"n_frames": 166, "n_tracked": 164, "init_frame": 2, "imu_init_frame":
+        61, "imu_init_kf": 13, "imu_initialized": True, "keyframes": 33,
+        "points": 4555, "lines": 258, "maps": 1, "final_state": 2, "ate_sim3":
+        0.06129164917969541, "ate_se3": 0.2531142907036525, "scale":
+        0.855689002700623, "aligned": True, "align_kf": 15, "n_relocalized":
+        24, "reloc_err": 0.47861928219316524},
+        {"n_frames": 166, "n_tracked": 164, "init_frame": 2, "imu_init_frame":
+        58, "imu_init_kf": 12, "imu_initialized": True, "keyframes": 34,
+        "points": 5071, "lines": 270, "maps": 1, "final_state": 2, "ate_sim3":
+        0.1581927927949123, "ate_se3": 0.26414594991669704, "scale":
+        1.1142602697437987, "aligned": True, "align_kf": 15, "n_relocalized":
+        26, "reloc_err": 0.4706890681830813},
+        {"n_frames": 166, "n_tracked": 164, "init_frame": 2, "imu_init_frame":
+        61, "imu_init_kf": 13, "imu_initialized": True, "keyframes": 34,
+        "points": 4867, "lines": 265, "maps": 1, "final_state": 2, "ate_sim3":
+        0.09481400990886905, "ate_se3": 0.27332403539561784, "scale":
+        0.8477712495625785, "aligned": True, "align_kf": 16, "n_relocalized":
+        25, "reloc_err": 0.5326176781346608},
+        {"n_frames": 166, "n_tracked": 164, "init_frame": 2, "imu_init_frame":
+        58, "imu_init_kf": 12, "imu_initialized": True, "keyframes": 36,
+        "points": 5593, "lines": 286, "maps": 1, "final_state": 2, "ate_sim3":
+        0.1574244850561478, "ate_se3": 0.2723466254029953, "scale":
+        1.1205583727680473, "aligned": True, "align_kf": 15, "n_relocalized":
+        28, "reloc_err": 0.48628052687069584},
+        {"n_frames": 166, "n_tracked": 164, "init_frame": 2, "imu_init_frame":
+        61, "imu_init_kf": 13, "imu_initialized": True, "keyframes": 34,
+        "points": 4684, "lines": 276, "maps": 1, "final_state": 2, "ate_sim3":
+        0.062411057294690396, "ate_se3": 0.20377455298442482, "scale":
+        0.8856979761290553, "aligned": True, "align_kf": 15, "n_relocalized":
+        25, "reloc_err": 0.5478536241743911},
+        {"n_frames": 166, "n_tracked": 164, "init_frame": 2, "imu_init_frame":
+        58, "imu_init_kf": 12, "imu_initialized": True, "keyframes": 37,
+        "points": 5489, "lines": 290, "maps": 1, "final_state": 2, "ate_sim3":
+        0.07356260716586845, "ate_se3": 0.34813546901649983, "scale":
+        1.196293842449894, "aligned": True, "align_kf": 15, "n_relocalized":
+        27, "reloc_err": 0.7235062112304956},
+        {"n_frames": 166, "n_tracked": 164, "init_frame": 2, "imu_init_frame":
+        58, "imu_init_kf": 12, "imu_initialized": True, "keyframes": 39,
+        "points": 6099, "lines": 312, "maps": 1, "final_state": 2, "ate_sim3":
+        0.1599361919449843, "ate_se3": 0.38406374694602713, "scale":
+        1.1939287999995603, "aligned": True, "align_kf": 14, "n_relocalized":
+        32, "reloc_err": 0.7358604606552015},
+        {"n_frames": 166, "n_tracked": 164, "init_frame": 2, "imu_init_frame":
+        62, "imu_init_kf": 14, "imu_initialized": True, "keyframes": 39,
+        "points": 5558, "lines": 309, "maps": 1, "final_state": 2, "ate_sim3":
+        0.11819811258913034, "ate_se3": 0.4226506885633573, "scale":
+        0.7593213903247075, "aligned": True, "align_kf": 16, "n_relocalized":
+        30, "reloc_err": 0.8387748137288535},
+    ],
+    "n_tracked_range": [164, 164],
+    "keyframes_range": [33, 39],
+    "points_range": [4555, 6254],
+    "lines_range": [258, 314],
+    "maps_range": [1, 1],
+    "init_frame_range": [2, 2],
+    "imu_init_frame_range": [58, 62],
+    "imu_init_kf_range": [12, 14],
+    "ate_sim3_worst": 0.16430504857473094,
+    "ate_se3_worst": 0.4226506885633573,
+    "align_kf_range": [14, 16],
+    "n_relocalized_range": [24, 33],
+    "reloc_err_worst": 0.8387748137288535,
+    "aligned": [True, True, True, True, True, True, True, True, True, True],
+    "room":
+        {"n_frames": 15, "n_tracked": 15, "keyframes": 3, "points": 1208,
+        "lines": 5, "ate_sim3": 0.003401744671773378, "ate_se3":
+        0.005684781796185705, "final_state": 2},
+}
+PATH_ED = tuple("line_detect_ed" if k == "line_detect" else k
+                for k in PATH_SYSTEM) + ("bow_score", "hamming_matrix",
+                                         "pnp_ransac", "mlpnp_refine")
+PATH_ED_ROOM = tuple("line_detect_ed" if k == "line_detect" else k
+                     for k in PATH_ROOM_STEREO)
+
+
+def check_ed_kernels(S, report):
+    """line_detect_ed against its plain version on the MH replay's frame 1
+    at both levels of the line pyramid, stage by stage."""
+    dev = torch.device("cuda")
+    img = torch.from_numpy(S["frames"][1]).to(dev)
+    levels = ((img, N_LINE - N_LINE // 4), (FE.line_level(img), N_LINE // 4))
+    err, nb, ops = 0.0, 0, 0
+    for lv, (im, n) in enumerate(levels):
+        r = LN.ed_against_plain(im, n)
+        k, p = r["kernel"], r["plain"]
+        check(r["grads"] and r["mag"] and r["cells"],
+              f"line_detect_ed level {lv}: bf16 gradients, magnitude and "
+              "the cells' candidate anchors bit-equal to the plain version")
+        print(f"  line_detect_ed level {lv}: {r['walks_differ']} of "
+              f"{r['n_walks']} anchors' walks differ from the plain "
+              f"version's; outputs bit-equal: {r['same']}; "
+              f"{int(k[3].sum())} segments")
+        check_segments(f"line_detect_ed level {lv}", k[0], k[3], p[0], p[3])
+        rows = k[3] & p[3]
+        if bool(rows.any()):
+            err = max(err, float((k[0] - p[0])[rows].abs().max()))
+        # the work this level's data needs: bf16 Scharr, magnitude and the
+        # anchor test (~40 operations a pixel), the live walk steps (five
+        # bilinear samples and the realignment, ~110 operations), the fits
+        # (97 points x ~30), the overlap test (A x A x ~25) and the two
+        # bitonic sorts (n log n (log n + 1) / 2 compares)
+        gx, gy, mag, score = LN.ed_anchor_field(im)
+        ax, ay, ts = LN.ed_cells(score)
+        _, _, w = LN.ed_points(gx, gy, mag, ax, ay, ts > 0)
+        A = ax.shape[0]
+        steps = int(w.sum()) - int((ts > 0).sum())
+        C = score.shape[0] // 8 * (score.shape[1] // 8)
+
+        def sort_ops(n):
+            lg = (n - 1).bit_length()
+            return (1 << lg) * lg * (lg + 1) // 2
+        ops += 40 * im.numel() + 110 * steps + 30 * 97 * A + 25 * A * A \
+            + sort_ops(C) + sort_ops(A)
+        nb += nbytes(im) + nbytes(k)
+    report["line_detect_ed"] = dict(
+        **work(nb, ops), max_abs_err=err,
+        ms=cuda_ms(lambda: [LN.line_detect_ed(im, n) for im, n in levels]),
+        plain_ms=cuda_ms(lambda: [LN.detect_lines_ed(im, n)
+                                  for im, n in levels], reps=3, warmup=1),
+        library_ms=None)
+
+
+def run_slice14(dev, smi, S, report):
+    """Phase 18 (see the module docstring).  Returns the launches of the
+    ED replay (cfg.seed 0) and of the ED STEREO room, each counted in a
+    window of its own."""
+    import shutil
+    import tempfile
+    from plvio_tpu_torch.entry import ed_config, ed_stereo_room
+    from plvio_tpu_torch.inputs import build_prior_set
+    print("[18] slice 14: the ED line detector and the prior-map "
+          "relocalizer through System")
+    check_ed_kernels(S, report)
+    ref = REF_ED
+    prior_dir = tempfile.mkdtemp(prefix="prior_set_")
+    try:
+        t0 = time.perf_counter()
+        Se = dict(S, prior=dict(build_prior_set(prior_dir), dir=prior_dir))
+        print(f"  the prior set: {len(Se['prior']['frames'])} frames of the "
+              f"replay's hall at the prior camera (640x480) rendered in "
+              f"{time.perf_counter() - t0:.1f} s")
+        runs, launches = [], None
+        for seed in range(5):
+            run = SystemRun(device=dev, cfg=ed_config(prior_dir, seed=seed))
+            if seed == 0:
+                reset_counts()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                o = run(Se)
+            torch.cuda.synchronize()
+            if seed == 0:
+                launches = read_counts()
+            print(f"  the ED replay, cfg.seed {seed}: tracked {o.n_tracked} "
+                  f"/ {len(Se['frames'])}, IMU init frame "
+                  f"{o.imu_init_frame}, keyframes {o.keyframes}, points "
+                  f"{o.points}, lines {o.lines}, ATE {o.ate_sim3:.4f} / "
+                  f"{o.ate_se3:.4f} m; the prior map aligned "
+                  f"{o.prior_aligned} at keyframe {o.prior_align_kf}, "
+                  f"{o.prior_n} keyframes relocalized at "
+                  f"{o.prior_err:.4f} m RMSE "
+                  f"({time.perf_counter() - t0:.1f} s)")
+            runs.append(o)
+        o0 = runs[0]
+        stereo_frames_summary(o0, smi)
+        st = o0.metrics.get("prior_reloc", {})
+        print(f"  the relocalizer's stage (prior_reloc): {json.dumps(st)}; "
+              f"its attempts {o0.system.relocalizer.attempts[-1:]}")
+        print(f"  launches (cfg.seed 0): {launches}")
+        check(all(launches[k] > 0 for k in PATH_ED)
+              and launches["line_detect"] == 0,
+              f"the ED replay: every kernel of the path launched "
+              f"({', '.join(PATH_ED)}), the cell detector line_detect never")
+        replay_guards("the ED replay", runs, ref, "ate_se3")
+        lo, hi = ref["align_kf_range"]
+        pool = ref["aligned"]
+        for seed, o in enumerate(runs):
+            # aligned where every reference run aligns, not where none does
+            check(o.prior_aligned if all(pool) else
+                  (not o.prior_aligned if not any(pool) else True),
+                  f"cfg.seed {seed}: the relocalizer aligned "
+                  f"({o.prior_aligned}), as {sum(pool)} of the reference's "
+                  f"{len(pool)} runs")
+            if o.prior_aligned:
+                check(lo - 1 <= o.prior_align_kf <= hi + 1,
+                      f"cfg.seed {seed}: aligned at keyframe "
+                      f"{o.prior_align_kf}, within the reference's {lo}..{hi}"
+                      " +- 1")
+                check(o.prior_err <= 2 * ref["reloc_err_worst"],
+                      f"cfg.seed {seed}: the relocalized trajectory "
+                      f"{o.prior_err:.4f} m from the truth in the prior world"
+                      f" (<= 2x the reference's worst "
+                      f"{ref['reloc_err_worst']:.4f})")
+        # the relocalizer only observes: the same run without it tracks to
+        # the same bits
+        with torch.no_grad():
+            off = SystemRun(device=dev, cfg=ed_config(None, seed=0))(Se)
+        torch.cuda.synchronize()
+        same = len(off.poses) == len(o0.poses) and all(
+            (a is None and b is None) or (a is not None and b is not None
+                                          and np.array_equal(a, b))
+            for a, b in zip(o0.poses, off.poses))
+        counts = [(x.n_tracked, x.keyframes, x.points, x.lines)
+                  for x in (o0, off)]
+        check(same and counts[0] == counts[1],
+              f"cfg.seed 0 with the relocalizer off: every frame's pose "
+              f"bit-equal to the run with it on, counts {counts[1]} as "
+              f"{counts[0]}")
+    finally:
+        shutil.rmtree(prior_dir, ignore_errors=True)
+    reset_counts()
+    step, R = ed_stereo_room(15, device=dev)
+    with torch.no_grad():
+        ro = step(R)
+    torch.cuda.synchronize()
+    launches_room = read_counts()
+    rs = ref["room"]
+    print(f"  the STEREO room under the ED detector: tracked {ro.n_tracked} "
+          f"/ {len(R['frames'])}, keyframes {ro.keyframes}, points "
+          f"{ro.points}, lines {ro.lines}, ATE {ro.ate_sim3:.4f} / "
+          f"{ro.ate_se3:.4f} m (the reference: {rs}); launches "
+          f"{launches_room}")
+    check(ro.n_tracked >= 14 and ro.ate_se3 < 0.05
+          and ro.ate_se3 <= 2 * rs["ate_se3"],
+          f"STEREO with lines under the ED detector over the room: "
+          f"{ro.n_tracked} >= 14 pairs tracked, SE3 ATE {ro.ate_se3:.4f} m "
+          f"< 0.05 and <= 2x the reference's {rs['ate_se3']:.4f}")
+    check(all(launches_room[k] > 0 for k in PATH_ED_ROOM),
+          f"every kernel of the ED STEREO room launched "
+          f"({', '.join(PATH_ED_ROOM)})")
+    return [launches, launches_room]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5255,6 +5535,7 @@ def run_phases(dev, smi, render):
     launches_stereo = run_slice11(dev, smi, render, report)
     launches_s12 = run_slice12(dev, smi, report)
     launches_s13 = run_slice13(dev, smi, render, S, report)
+    launches_s14 = run_slice14(dev, smi, S, report)
 
     rows = []
     for name, (k, replaces) in [*KERNELS.items(),
@@ -5278,7 +5559,8 @@ def run_phases(dev, smi, render):
                          + sum(v[name] for v in launches_loop.values())
                          + sum(v[name] for v in launches_stereo)
                          + sum(v[name] for v in launches_s12)
-                         + sum(v[name] for v in launches_s13.values()),
+                         + sum(v[name] for v in launches_s13.values())
+                         + sum(v[name] for v in launches_s14),
                          max_abs_err=rep["max_abs_err"], ms=rep["ms"],
                          plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"],
                          bound_by=rep["bound_by"],

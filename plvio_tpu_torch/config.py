@@ -4,7 +4,8 @@ plvio_tpu/config.py that the port reads, with the same defaults:
 camera, `CameraConfig`; `SlamMode`; the local inertial BA window of
 `TrackingConfig`; `OrbConfig`, `LineConfig`, `MapConfig`, `RelocConfig`;
 and the `SystemConfig` fields that `System`, the tracker and the local
-mapper read)."""
+mapper read), and the loader of the reference's settings files
+(`load_config`, plvio_tpu/config.py:166-238)."""
 from __future__ import annotations
 
 import dataclasses
@@ -78,6 +79,7 @@ class CameraConfig:
     dist: Tuple[float, ...] = (-0.28340811, 0.07395907, 0.00019359,
                                1.76187114e-05)
     fps: float = 20.0
+    rgb: bool = True                # colour order of the settings' images
     baseline: float = 0.0           # metres
     th_depth: float = 35.0          # close / far stereo threshold (bf units)
 
@@ -146,3 +148,81 @@ class SystemConfig:
 
     def replace(self, **kw) -> "SystemConfig":
         return dataclasses.replace(self, **kw)
+
+
+# --------------------------------------------------------------------------
+# the reference's settings files (cv::FileStorage YAML)
+# --------------------------------------------------------------------------
+
+def _load_cv_yaml(path: str) -> dict:
+    """Parse an OpenCV FileStorage YAML (the '%YAML:1.0' dialect with
+    !!opencv-matrix tags) into a flat dict."""
+    import yaml
+
+    with open(path) as f:
+        text = f.read()
+    text = text.replace("%YAML:1.0", "")
+    text = text.replace("!!opencv-matrix", "")
+    return yaml.safe_load(text) or {}
+
+
+def load_config(path: str, sensor: Sensor = Sensor.MONOCULAR) -> SystemConfig:
+    """A SystemConfig from a reference settings file (the reference's key
+    names: `Camera.*`, `ORBextractor.*`, the line extractor's `nfeatures`,
+    `levels`, `scale`, `lsd_scale`, `extractor` (the line detector), the
+    `IMU.*` noises, `Tbc`, `SLAM` (the mode), `bRelocalization` and
+    `Relocalization.data` (the prior keyframe set's directory)); the
+    defaults elsewhere."""
+    d = _load_cv_yaml(path)
+
+    def g(key, default):
+        return d.get(key, default)
+
+    fx = float(g("Camera.fx", 458.654))
+    cam = CameraConfig(
+        model="kb8" if str(g("Camera.type", "PinHole")).lower().startswith(
+            "kannala") else "pinhole",
+        width=int(g("Camera.width", 752)),
+        height=int(g("Camera.height", 480)),
+        fx=fx,
+        fy=float(g("Camera.fy", 457.296)),
+        cx=float(g("Camera.cx", 367.215)),
+        cy=float(g("Camera.cy", 248.375)),
+        dist=(float(g("Camera.k1", 0.0)), float(g("Camera.k2", 0.0)),
+              float(g("Camera.p1", 0.0)), float(g("Camera.p2", 0.0))),
+        fps=float(g("Camera.fps", 20.0)),
+        rgb=bool(g("Camera.RGB", 1)),
+        baseline=float(g("Camera.bf", 0.0)) / max(fx, 1e-9),
+        th_depth=float(g("ThDepth", 35.0)),
+    )
+    orb = OrbConfig(
+        n_features=int(g("ORBextractor.nFeatures", 1000)),
+        scale_factor=float(g("ORBextractor.scaleFactor", 1.2)),
+        n_levels=int(g("ORBextractor.nLevels", 8)),
+        ini_th_fast=int(g("ORBextractor.iniThFAST", 20)),
+        min_th_fast=int(g("ORBextractor.minThFAST", 7)),
+    )
+    line = LineConfig(
+        n_features=int(g("nfeatures", 200)),
+        levels=int(g("levels", 2)),
+        scale=float(g("scale", 2.0)),
+        lsd_scale=float(g("lsd_scale", 0.8)),
+        detector=int(g("extractor", 0)),
+    )
+    imu_kw = dict(
+        noise_gyro=float(g("IMU.NoiseGyro", 1.7e-4)),
+        noise_acc=float(g("IMU.NoiseAcc", 2.0e-3)),
+        gyro_walk=float(g("IMU.GyroWalk", 1.9393e-5)),
+        acc_walk=float(g("IMU.AccWalk", 3.0e-3)),
+        frequency=float(g("IMU.Frequency", 200)),
+    )
+    tbc = d.get("Tbc")
+    if isinstance(tbc, dict) and "data" in tbc:
+        imu_kw["Tbc"] = tuple(float(x) for x in tbc["data"])
+    reloc = RelocConfig(
+        enabled=bool(g("bRelocalization", 0)),
+        prior_data_dir=g("Relocalization.data", None),
+    )
+    return SystemConfig(
+        sensor=sensor, slam_mode=SlamMode(int(g("SLAM", 0))), camera=cam,
+        orb=orb, line=line, imu=ImuConfig(**imu_kw), reloc=reloc)

@@ -47,9 +47,7 @@
 // (components) where the plain version rounds each float addition, so
 // segments near a threshold or a near-tie of lengths may differ; the two
 // are compared as segment sets.
-#include <cuda_bf16.h>
-
-#include "common.cuh"
+#include "lines.cuh"
 
 namespace {
 
@@ -59,16 +57,6 @@ constexpr int kHalo = kTile + 2;            // cells with the halo ring
 constexpr int kImg = kHalo * kCell + 2;     // 74 px
 constexpr int kCompThreads = 1024;
 constexpr float kBig = 1e9f;
-
-__device__ __forceinline__ float bf(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-__device__ __forceinline__ float mod_pi(float a) {   // torch.remainder(a, pi)
-  float m = fmodf(a, PLVIO_PI_F);
-  if (m != 0.f && m < 0.f) m += PLVIO_PI_F;
-  return m;
-}
 
 struct DetectParams {
   int H, W, Hc, Wc;
@@ -81,21 +69,6 @@ struct CellStat {
   int atom;
 };
 
-// gradients of pixel (ly, lx) of the shared tile (tile coordinates of the
-// pixel itself; its 3x3 neighbourhood is in the tile)
-__device__ __forceinline__ void scharr(const float (*img)[kImg], int ly,
-                                       int lx, float* gx, float* gy) {
-  const float a = img[ly - 1][lx - 1], b = img[ly - 1][lx],
-              c = img[ly - 1][lx + 1];
-  const float d = img[ly][lx - 1], f = img[ly][lx + 1];
-  const float g = img[ly + 1][lx - 1], h = img[ly + 1][lx],
-              i = img[ly + 1][lx + 1];
-  const float k3 = 3.f / 32.f, k10 = 10.f / 32.f;
-  // row-major taps of kx = [[-3,0,3],[-10,0,10],[-3,0,3]]/32 and ky = kx^T
-  *gx = bf(-k3 * a + k3 * c + -k10 * d + k10 * f + -k3 * g + k3 * i);
-  *gy = bf(-k3 * a + -k10 * b + -k3 * c + k3 * g + k10 * h + k3 * i);
-}
-
 __device__ CellStat cell_stat(const DetectParams& p, const float (*img)[kImg],
                               int crow, int ccol, int ty0, int tx0) {
   // (crow, ccol) global cell; tile pixel origin (ty0, tx0) = global pixel
@@ -107,7 +80,7 @@ __device__ CellStat cell_stat(const DetectParams& p, const float (*img)[kImg],
     const int x = ccol * kCell + sub % kCell;
     float gx, gy;
     scharr(img, y - ty0, x - tx0, &gx, &gy);
-    float mag = bf(sqrtf(bf(bf(gx * gx) + bf(gy * gy))));
+    float mag = bf_mag(gx, gy);
     const bool interior = y >= 3 && y < p.H - 3 && x >= 3 && x < p.W - 3;
     if (!interior) mag = 0.f;
     const float w = mag > p.grad_th ? mag : 0.f;

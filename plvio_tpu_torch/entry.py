@@ -1077,6 +1077,10 @@ class SystemRunOut(NamedTuple):
     loops: int = 0             # loops the loop closer closed
     merges: int = 0            # maps it merged
     verifications: int = 0     # Sim3 verifications it ran
+    prior_aligned: bool = False     # the prior-map relocalizer aligned
+    prior_align_kf: int = -1   # ... at its n-th keyframe, or -1
+    prior_n: int = 0           # keyframes it re-expressed in the prior world
+    prior_err: float = float("nan")     # their RMSE against the truth (m)
 
 
 def system_config(**kw):
@@ -1203,13 +1207,19 @@ class SystemRun(nn.Module):
         mp = slam.mapper
         init_scale = 0.0 if mp.init_scale is None else float(mp.init_scale)
         lc = slam.loop_closer
+        rl = slam.relocalizer
+        prior = () if rl is None else (
+            rl.T_prior_from_live is not None, rl.aligned_at,
+            len(rl.relocalized_poses),
+            prior_error(rl.relocalized_poses, S["prior"]["T_pw"])
+            if "prior" in S else float("nan"))
         return SystemRunOut(
             frames, sum(f.tracked for f in frames), init_frame, imu_kf,
             imu_frame, stats[0], init_scale, pre_scale,
             scale, grav, *stats[1:], ate[0], ate[1], tr.reloc_tries,
             tr.reloc_ok, poses, slam.metrics_summary(), slam,
             *((lc.n_loops_closed, lc.n_maps_merged, lc.n_verifications)
-              if lc is not None else (0, 0, 0)))
+              if lc is not None else (0, 0, 0)), *prior)
 
 
 def lose_tracking(tracker) -> None:
@@ -1424,6 +1434,73 @@ def line_mode_replay(mode: int, seconds: float = 8.0, seed: int = 7,
             if k in kw}
     return SystemRun(plain=plain, device=dev,
                      cfg=line_mode_config(mode, **kw), **caps), S
+
+
+def ed_config(prior_dir=None, **kw):
+    """`system_config` with the ED line detector (`line.detector = 1`, the
+    reference's `extractor: 1`): IMU_MONOCULAR with lines at 752x480, loop
+    closing on; with `prior_dir`, the prior-map relocalizer on that prior
+    keyframe set (`reloc.enabled`); kw replaces fields."""
+    from .config import LineConfig, RelocConfig
+    base = dict(line=LineConfig(detector=1))
+    if prior_dir is not None:
+        base["reloc"] = RelocConfig(enabled=True,
+                                    prior_data_dir=str(prior_dir))
+    return system_config(**{**base, **kw})
+
+
+def prior_error(relocalized_poses: dict, T_pw) -> float:
+    """RMSE (m) of the relocalized keyframe positions (time -> [3,4] pose
+    in the prior world) against the truth of the MH trajectory at those
+    times taken into the prior world by T_pw [3,4]; nan if none."""
+    from .io import synthetic as syn
+    if not relocalized_poses:
+        return float("nan")
+    ts = np.asarray(sorted(relocalized_poses), np.float64)
+    got = np.stack([np.asarray(relocalized_poses[float(t)], np.float64)[:, 3]
+                    for t in ts])
+    T = np.asarray(T_pw, np.float64)
+    truth = syn._eval_mh(ts).p_wb @ T[:, :3].T + T[:, 3]
+    return float(np.sqrt(((got - truth) ** 2).sum(1).mean()))
+
+
+def ed_replay(seed: int = 7, cfg_seed: int = 0, reloc: bool = True,
+              device="cuda", plain: bool = False, prior_dir=None, **kw):
+    """The whole system with the ED line detector over the MH replay
+    (`SystemRun` with `ed_config`, cfg.seed = cfg_seed; kw also the caps
+    and samplers of `kb8_vi_replay` and `replay_kw`) and the replay of
+    `inputs.build_mh_replay(8.0, seed)`; with `reloc`, also the prior
+    keyframe set of `inputs.build_prior_set` written into `prior_dir` (a
+    new temporary directory where None) and the relocalizer on it.  The
+    replay dict then holds `prior` (build_prior_set's dict with its
+    `dir`), from which the run reports the relocalized trajectory's error
+    (`prior_error`)."""
+    import tempfile
+    from .inputs import build_mh_replay, build_prior_set
+    dev = resolve_device(device)
+    replay_kw = kw.pop("replay_kw", {})
+    S = build_mh_replay(8.0, seed, **replay_kw)
+    if reloc:
+        prior_dir = prior_dir or tempfile.mkdtemp(prefix="prior_set_")
+        scene = {k: replay_kw[k] for k in ("n_points", "n_lines")
+                 if k in replay_kw}
+        S["prior"] = dict(build_prior_set(prior_dir, replay_seed=seed,
+                                          **scene), dir=str(prior_dir))
+    caps = {k: kw.pop(k) for k in ("caps", "viba_caps", "sampler",
+                                   "pnp_sampler", "sim3_sampler")
+            if k in kw}
+    cfg = ed_config(S["prior"]["dir"] if reloc else None, seed=cfg_seed,
+                    **kw)
+    return SystemRun(plain=plain, device=dev, cfg=cfg, **caps), S
+
+
+def ed_stereo_room(n_frames: int = 15, seed: int = 0, device="cuda",
+                   plain: bool = False, **kw):
+    """`stereo_room` with lines under the ED line detector (STEREO, the
+    room orbit of tests/test_stereo.py)."""
+    from .config import LineConfig
+    return stereo_room(n_frames, seed, device=device, plain=plain,
+                       line=LineConfig(detector=1), **kw)
 
 
 def mh_loop(duration: float = 28.0, seed: int = 7, device="cuda",

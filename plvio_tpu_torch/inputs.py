@@ -1864,11 +1864,13 @@ def render_stereo_replay(left: np.ndarray, right: np.ndarray,
         right[i] = syn.render_frame_realistic(scene, right_ev, t, rng)
 
 
-def build_stereo_room(seed: int = 0, n_frames: int = 15, imu: bool = False):
+def build_stereo_room(seed: int = 0, n_frames: int = 15, imu: bool = False,
+                      n_lines: int = 60):
     """The room orbits of tests/test_stereo.py:14-30 (imu False: 1 s,
     STEREO) and tests/test_stereo_inertial.py:24-55 (imu True: 3 s with
     the low-noise, bias-free 200 Hz IMU): default_rng(seed), the room with
-    4000 points and 60 lines, the 0.6 m orbit at 20 fps, then per frame
+    4000 points and n_lines lines (60 there), the 0.6 m orbit at 20 fps,
+    then per frame
     the left and the right view (render_frame with noise, in that order);
     frame i's IMU batch is the samples in (t_{i-1}, t_i], none for frame 0
     (None throughout without imu).
@@ -1876,7 +1878,7 @@ def build_stereo_room(seed: int = 0, n_frames: int = 15, imu: bool = False):
     Returns dict(frames, right [n] of [480,752] float32, timestamps [n],
     imu [n], R_wc [n,3,3], p_wc [n,3], scene)."""
     rng = np.random.default_rng(seed)
-    scene = syn.make_room_scene(rng, n_points=4000, n_lines=60)
+    scene = syn.make_room_scene(rng, n_points=4000, n_lines=n_lines)
     duration = 3.0 if imu else 1.0
     traj = syn.make_orbit_trajectory(duration=duration, radius=0.6)
     data = synthesize_imu(rng, duration, radius=0.6, noise_gyro=1e-5,
@@ -2517,3 +2519,119 @@ def render_mh_loop(out: np.ndarray, duration: float = MH_LOOP_SECONDS,
     for i in range(len(out)):
         out[i] = syn.render_frame_realistic(scene, syn._eval_mh_loop,
                                             traj.timestamps[i], rng)
+
+
+# the prior keyframe set of the prior-map relocalizer: the reference's
+# prior camera (models/relocalization.py: 640x480, K hardcoded in the
+# reference's Relocalization.cpp:8), the MH replay's hall seen from the
+# truth poses of these replay frames, expressed in a "prior world" that is
+# the replay's world turned 30 deg about its vertical and moved
+PRIOR_K = (518.0, 519.0, 325.5, 253.5)
+PRIOR_SIZE = (480, 640)
+PRIOR_FRAMES = (36, 44, 52, 60, 68, 76)
+PRIOR_YAW = np.pi / 6
+PRIOR_SHIFT = (2.5, -1.5, 0.4)
+PRIOR_DEPTH_SCALE = 5000.0      # metres x 5000 in the 16-bit depth images
+
+
+def prior_from_replay() -> np.ndarray:
+    """[3,4] transform taking replay-world points into the prior world."""
+    c, s = np.cos(PRIOR_YAW), np.sin(PRIOR_YAW)
+    R = np.array([[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]])
+    return np.concatenate([R, np.asarray(PRIOR_SHIFT)[:, None]], 1)
+
+
+def _write_png_gray(path, img: np.ndarray) -> None:
+    import cv2
+    if not cv2.imwrite(str(path), img):
+        raise OSError(f"cannot write {path}")
+
+
+def _write_pgm16(path, img: np.ndarray) -> None:
+    h, w = img.shape
+    with open(path, "wb") as f:
+        f.write(f"P5\n{w} {h}\n65535\n".encode())
+        f.write(np.ascontiguousarray(img, ">u2").tobytes())
+
+
+def build_prior_set(out_dir, seed: int = 0, frames=PRIOR_FRAMES,
+                    tum: bool = False, seconds: float = MH_SECONDS,
+                    replay_seed: int = MH_SEED, n_points: int = 9000,
+                    n_lines: int = 500) -> dict:
+    """Write a prior keyframe set in the reference's on-disk format into
+    out_dir: color/<i+1>.png (8-bit grey), depth/<i+1>.pgm (16-bit, metres
+    x 5000, 0 where no scene point splats or beyond 13.1 m) and pose.txt,
+    row i the camera-to-prior-world pose of image i+1 as `x y z qx qy qz
+    qw` (with `tum`, a timestamp first: the TUM form).  Frame i is the MH
+    replay's hall (`build_mh_replay`'s scene of n_points / n_lines) rendered by
+    `io.synthetic.render_frame` at the prior camera (PRIOR_K, 640x480, no
+    distortion, noise from default_rng(seed)) from the truth pose of replay
+    frame frames[i], its depth `io.synthetic.oracle_depth` at that camera.
+
+    Returns dict(T_pw [3,4] (`prior_from_replay`), frames, T_wc [n,3,4] in
+    the prior world, timestamps [n] of the replay frames)."""
+    import os
+    _, scene, traj, _ = _stereo_world(seconds, replay_seed, n_points,
+                                      n_lines)
+    fx, fy, cx, cy = PRIOR_K
+    H, W = PRIOR_SIZE
+    T_pw = prior_from_replay()
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(out_dir, "color"), exist_ok=True)
+    os.makedirs(os.path.join(out_dir, "depth"), exist_ok=True)
+    rows, poses = [], []
+    for i, k in enumerate(frames):
+        R_wc, p_wc = traj.R_wb[k], traj.p_wb[k]
+        img = syn.render_frame(scene, R_wc, p_wc, fx, fy, cx, cy, W, H,
+                               rng=rng)
+        depth = syn.oracle_depth(scene, R_wc, p_wc, fx, fy, cx, cy, W, H)
+        d16 = np.where((depth > 0) & (depth * PRIOR_DEPTH_SCALE <= 65535),
+                       np.round(depth * PRIOR_DEPTH_SCALE), 0).astype(
+                           np.uint16)
+        _write_png_gray(os.path.join(out_dir, "color", f"{i + 1}.png"),
+                        np.round(img).astype(np.uint8))
+        _write_pgm16(os.path.join(out_dir, "depth", f"{i + 1}.pgm"), d16)
+        R_p = T_pw[:, :3] @ R_wc
+        p_p = T_pw[:, :3] @ p_wc + T_pw[:, 3]
+        q = lie.rot_to_quat(torch.from_numpy(R_p)).numpy()
+        rows.append(([traj.timestamps[k]] if tum else [])
+                    + list(p_p) + list(q))
+        poses.append(np.concatenate([R_p, p_p[:, None]], 1))
+    np.savetxt(os.path.join(out_dir, "pose.txt"), np.asarray(rows),
+               fmt="%.9f")
+    return dict(T_pw=T_pw, frames=tuple(frames), T_wc=np.stack(poses),
+                timestamps=traj.timestamps[list(frames)])
+
+
+def prior_live_offset():
+    """(R_lp [3,3], t_lp [3]) float32: the live world of
+    `place_prior_keyframes` in the prior world, 0.4 rad about a unit axis
+    and moved (tests/test_prior_reloc.py:83-90)."""
+    axis = np.array([0.36, -0.48, 0.8])
+    q = torch.tensor(np.concatenate([np.sin(0.2) * axis, [np.cos(0.2)]]),
+                     dtype=torch.float32)
+    return (lie.quat_to_rot(q).numpy(),
+            np.array([0.3, -0.2, 0.5], np.float32))
+
+
+def place_prior_keyframes(m, prior_frames) -> list:
+    """A hand-made live map for the prior-map relocalizer: one keyframe a
+    prior frame in the map store m (its features: uv, valid, packed
+    descriptors; its pose: the prior frame's moved into the live world of
+    `prior_live_offset`; timestamp i), the map marked mature (imu_ba2).
+    Returns the keyframes."""
+    R_lp, t_lp = prior_live_offset()
+    m.imu_ba2 = True
+    kfs = []
+    for i, p in enumerate(prior_frames):
+        kf = m.alloc_kf()
+        m.kf_feat_uv[kf] = p.uv
+        m.kf_feat_valid[kf] = p.valid
+        m.kf_feat_desc[kf] = p.desc_packed
+        R_lc = R_lp @ p.T_wc[:, :3]
+        t_lc = R_lp @ p.T_wc[:, 3] + t_lp
+        m.kf_pose_cw[kf, :, :3] = R_lc.T
+        m.kf_pose_cw[kf, :, 3] = -R_lc.T @ t_lc
+        m.kf_timestamp[kf] = float(i)
+        kfs.append(kf)
+    return kfs

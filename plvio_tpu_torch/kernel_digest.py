@@ -59,7 +59,13 @@ points both trees have) and compare the printed lines:
   `inputs.build_line_pose_case`, the line-only window BA (modes 1-3) on
   `inputs.build_line_window`, the inertial window with the KB8 lens at the
   half bucket with and without lines, the point+line window with the KB8
-  lens and `undistort`'s KB8 mode with 256 segments (`slice13_digests`).
+  lens and `undistort`'s KB8 mode with 256 segments (`slice13_digests`);
+- slice 14 (`python3 kernel_digest.py ed` prints these lines alone):
+  `line_detect` (on every tree: its bits must not move with the shared
+  header `csrc/lines.cuh`) and, on a tree that has it, `line_detect_ed`,
+  on a rendered view of the synthetic room with 200 lines (seed 0) and
+  its line level, 192 / 64 segments: endpoints, angles, lengths,
+  valid and the bf16 gradients (`ed_digests`).
 
 Needs one card; JAX is never imported.
 """
@@ -421,6 +427,33 @@ def slice13_digests(dev):
     return out
 
 
+def ed_digests(dev):
+    """Slice 14's lines: both line detectors on a rendered room view and
+    its line level."""
+    from plvio_tpu_torch.io import synthetic as syn
+    from plvio_tpu_torch.ops import frontend as FE
+    from plvio_tpu_torch.ops import lines as LN
+    rng = np.random.default_rng(0)
+    scene = syn.make_room_scene(rng, n_points=4000, n_lines=200)
+    traj = syn.make_orbit_trajectory(duration=0.1, radius=0.6)
+    img = _t(dev, syn.render_frame(scene, traj.R_wb[0], traj.p_wb[0],
+                                   rng=rng))
+    out = []
+    for lv, (im, n) in enumerate(((img, 192), (FE.line_level(img), 64))):
+        out.append(f"line_detect level={lv} " + digest(
+            _flat(LN.line_detect(im, n))))
+        if hasattr(LN, "line_detect_ed"):
+            out.append(f"line_detect_ed level={lv} " + digest(
+                _flat(LN.line_detect_ed(im, n))))
+    return out
+
+
+def _flat(out):
+    """A detector's (ep, angle, length, valid, (gx, gy)) as one list, the
+    bf16 gradients as their bits."""
+    return [*out[:4], *(g.view(torch.int16) for g in out[4])]
+
+
 def hamming_cases(dev):
     """(name, args, keywords) of hamming_match's modes 0-2 on fixed
     inputs: random two-bit descriptors (many ties), positions in a 120 px
@@ -454,6 +487,10 @@ def main() -> int:
         return 0
     if sys.argv[1:2] == ["slice13"]:
         for line in slice13_digests(torch.device("cuda")):
+            print(line)
+        return 0
+    if sys.argv[1:2] == ["ed"]:
+        for line in ed_digests(torch.device("cuda")):
             print(line)
         return 0
     from plvio_tpu_torch.entry import MAPPING_TYPICAL, mapping_step
@@ -511,6 +548,8 @@ def main() -> int:
     if hasattr(KN, "line_only_pose_lm"):
         for line in slice13_digests(dev):
             print(line)
+    for line in ed_digests(dev):
+        print(line)
     return 0
 
 

@@ -16,16 +16,17 @@ the keyframe database and through `LocalMapper.process_keyframe`, the
 frame records of culled keyframes re-anchored, the tracker's frame state
 brought to the keyframe the window BA moved, then, with loop closing on
 (`cfg.use_loop_closing`, the default), `LoopCloser.process_keyframe` and
-a pending map merge handed to `Tracker.on_map_merged`; and the IMU init's
-map transform handed to the tracker).
+a pending map merge handed to `Tracker.on_map_merged`, then, with
+`cfg.reloc.enabled`, the prior-map relocalizer's
+`PriorMapRelocalizer.process_keyframe`; and the IMU init's map transform
+handed to the tracker).  The line front end takes `cfg.line.detector`:
+0 the cell detector, 1 the ED detector.
 
 Not ported, each raising NotImplementedError naming its ROADMAP item
-where the reference would take it: the prior-map relocalizer
-(`reloc.enabled`, Queue 1 item 5), the ED line detector (item 7d), and
-the peripherals of item 9
+where the reference would take it: the peripherals of item 9
 (`async_mapping`, `change_dataset`, `save_atlas` / `load_atlas`, the live
-viewer, the overlay and snapshot dumps, `export_map`).  The XLA cache hygiene of the reference
-(`_host_hygiene`) has no counterpart.
+viewer, the overlay and snapshot dumps, `export_map`).  The XLA cache
+hygiene of the reference (`_host_hygiene`) has no counterpart.
 """
 from __future__ import annotations
 
@@ -44,9 +45,6 @@ from ..ops import stereo as ST
 from ..utils import lie
 from ..utils.metrics import Metrics
 
-_ITEM5 = ("the prior-map relocalizer is not ported yet (ROADMAP Queue 1 "
-          "item 5)")
-_ITEM7 = "is not ported yet (ROADMAP Queue 1 item 7d)"
 _ITEM9 = "is not ported yet (ROADMAP Queue 1 item 9)"
 
 
@@ -108,19 +106,19 @@ def apply_pending_transform(tracker, mapper) -> None:
 
 
 def drain_keyframes(tracker, mapper, kfdb=None, metrics=None,
-                    loop_closer=None) -> list:
+                    loop_closer=None, relocalizer=None) -> list:
     """Every keyframe the tracker queued, oldest first, through
     `process_kf`.  Returns [(kf, culled), ...]."""
     done = []
     while tracker.new_kf_queue:
         kf = tracker.new_kf_queue.pop(0)
         done.append((kf, process_kf(tracker, mapper, kf, kfdb, metrics,
-                                    loop_closer)))
+                                    loop_closer, relocalizer)))
     return done
 
 
 def process_kf(tracker, mapper, kf: int, kfdb=None, metrics=None,
-               loop_closer=None) -> list:
+               loop_closer=None, relocalizer=None) -> list:
     """Keyframe kf into the keyframe database (where one is given), its
     mapping step (the tracker's reference keyframe protected from
     culling), the frame records of culled keyframes re-anchored, and,
@@ -130,12 +128,16 @@ def process_kf(tracker, mapper, kf: int, kfdb=None, metrics=None,
     IMU-init transform is pending: applying it resyncs the same state in
     the new frame.  Then, with a `loop_closer`, its
     `process_keyframe` (the stage "loop_closing" inside "mapping") and a
-    merge it performed handed to the tracker.  With `metrics`, all of it
-    is the stage "mapping".  Returns the culled keyframes."""
+    merge it performed handed to the tracker; then, with a `relocalizer`
+    (`models/relocalization.PriorMapRelocalizer`), its `process_keyframe`
+    with the keyframe's timestamp (the stage "prior_reloc").  With
+    `metrics`, all of it is the stage "mapping".  Returns the culled
+    keyframes."""
     def stage(name):
         return metrics.stage(name) if metrics is not None \
             else contextlib.nullcontext()
     with stage("mapping"):
+        t_kf = tracker.map.kf_timestamp[kf]
         culled = _process_kf(tracker, mapper, kf, kfdb)
         if loop_closer is not None:
             with stage("loop_closing"):
@@ -144,6 +146,9 @@ def process_kf(tracker, mapper, kf: int, kfdb=None, metrics=None,
             if merge is not None:
                 loop_closer.pending_merge = None
                 tracker.on_map_merged(**merge)
+        if relocalizer is not None:
+            with stage("prior_reloc"):
+                relocalizer.process_keyframe(kf, t_kf)
         return culled
 
 
@@ -221,10 +226,9 @@ class System:
             max_lines=cfg.map.max_lines, n_feat=self.n_feat)])
         self.extract_lines = None
         if cfg.use_lines:
-            if cfg.line.detector != 0:
-                raise NotImplementedError(f"the ED line detector {_ITEM7}")
             self.extract_lines = LineExtractor(
-                256, levels=cfg.line.levels, plain=plain).to(self.device)
+                256, levels=cfg.line.levels, plain=plain,
+                detector=cfg.line.detector).to(self.device)
         self.vocabulary = V.default_vocabulary("orb", seed=cfg.seed)
         self.line_vocabulary = \
             V.default_vocabulary("lbd", seed=cfg.seed + 1) \
@@ -255,9 +259,16 @@ class System:
                 plain=plain, sim3_sampler=sim3_sampler)
             self.loop_closer.mapper = self.mapper
             self.loop_closer.metrics = self.metrics
-        if cfg.reloc.enabled:
-            raise NotImplementedError(_ITEM5)
+        # the prior-map relocalizer (the reference spawns its thread when
+        # bRelocalization == 1)
         self.relocalizer = None
+        if cfg.reloc.enabled:
+            from .relocalization import PriorMapRelocalizer
+            self.relocalizer = PriorMapRelocalizer(
+                cfg, self.atlas, self.vocabulary, self.n_feat,
+                device=self.device, plain=plain)
+            if cfg.reloc.prior_data_dir:
+                self.relocalizer.load_prior_dir(cfg.reloc.prior_data_dir)
         self.async_mapping = False
         if os.environ.get("PLVIO_VIEWER_PORT"):
             raise NotImplementedError(f"the live viewer {_ITEM9}")
@@ -267,8 +278,9 @@ class System:
     def host_syncs(self) -> int:
         """Device-to-host reads of the tracker, mapper and database."""
         return self.tracker.host_syncs + self.mapper.host_syncs \
-            + self.kfdb.host_syncs + (self.loop_closer.host_syncs
-                                      if self.loop_closer else 0)
+            + self.kfdb.host_syncs + sum(
+                x.host_syncs for x in (self.loop_closer, self.relocalizer)
+                if x is not None)
 
     def track_monocular(self, img, timestamp: float,
                         imu: Optional[Sequence] = None
@@ -297,7 +309,7 @@ class System:
                                               depth=depth,
                                               line_depth=line_depth)
         drain_keyframes(self.tracker, self.mapper, self.kfdb, self.metrics,
-                        self.loop_closer)
+                        self.loop_closer, self.relocalizer)
         self._maybe_snapshot()
         apply_pending_transform(self.tracker, self.mapper)
         self._maybe_dump_overlay(img)
@@ -417,7 +429,12 @@ class System:
         raise NotImplementedError(f"export_map (the viewer) {_ITEM9}")
 
     def save_relocalized_trajectory(self, path: str) -> None:
-        raise NotImplementedError(_ITEM5)
+        """The keyframe trajectory in the prior map's world, TUM format (the
+        reference's SaveKeyFrameTrajectoryByRelocalization)."""
+        if self.relocalizer is None:
+            raise RuntimeError("the prior-map relocalizer is off "
+                               "(cfg.reloc.enabled, bRelocalization)")
+        self.relocalizer.save_trajectory(path)
 
     def global_refine(self) -> None:
         """One full-map refinement pass: the full inertial BA of an

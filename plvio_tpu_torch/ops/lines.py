@@ -1,16 +1,20 @@
-"""Line segments + LBD descriptors (port of plvio_tpu/ops/lines.py, the
-detector-0 path: cell structure tensors, pointer-jumping connected
-components, collinear merge, sub-pixel refit, banded LBD, 2-level pyramid).
+"""Line segments + LBD descriptors (port of plvio_tpu/ops/lines.py): the
+cell detector (detector 0: cell structure tensors, pointer-jumping
+connected components), the ED detector (detector 1, the reference's
+`extractor: 1`: anchors, edge walks, a TLS fit, overlap suppression),
+collinear merge, sub-pixel refit, banded LBD, 2-level pyramid.
 
-Two hand-written CUDA kernels carry a level on the card: `line_detect`
-(csrc/line_detect.cu: gradients, cells, links, components, top-K) and
-`line_refine_lbd` (csrc/line_refine_lbd.cu: merge, refit, angle, LBD, line
-equation, level-1 dedupe).  The plain functions below (`detect_lines`,
-`refine_lbd_plain` and what they call) are their plain versions and the
-CPU path.  The reference's dtype flow is kept: Scharr gradients, their
-magnitude and the edge weights are bfloat16, the cell statistics upcast to
-float32 where the reference upcasts (plvio_tpu/ops/lines.py:93).
-Descriptors are packed [L,8] int32.
+Three hand-written CUDA kernels carry a level on the card: `line_detect`
+(csrc/line_detect.cu: gradients, cells, links, components, top-K) or
+`line_detect_ed` (csrc/line_detect_ed.cu: gradients, anchors, walks, fit,
+suppression, top-K), then `line_refine_lbd` (csrc/line_refine_lbd.cu:
+merge, refit, angle, LBD, line equation, level-1 dedupe).  The plain
+functions below (`detect_lines`, `detect_lines_ed`, `refine_lbd_plain` and
+what they call) are their plain versions and the CPU path.  The
+reference's dtype flow is kept: Scharr gradients, their magnitude and the
+edge weights are bfloat16, the cell statistics upcast to float32 where the
+reference upcasts (plvio_tpu/ops/lines.py:93), the ED walks sample the
+bf16 fields in float32.  Descriptors are packed [L,8] int32.
 """
 from __future__ import annotations
 
@@ -214,6 +218,244 @@ def detect_lines(img: torch.Tensor, max_lines: int = 256,
     ep = torch.stack([x1, y1, x2, y2], -1)
     ang = _mod_pi(torch.atan2(y2 - y1, x2 - x1))
     return ep, ang, top_score, valid, (gx, gy)
+
+
+# --------------------------------------------------------------------------
+# ED-style detector (detector 1, the reference's `extractor: 1`): anchors
+# at gradient maxima across the edge normal, one per 8x8 cell, then
+# fixed-budget walks along the edge from each, a weighted TLS fit with an
+# RMS gate, overlap suppression and the top segments by length
+# --------------------------------------------------------------------------
+
+ED_CELL = 8
+ED_CAND = (0.906, 0.423)     # cos, sin of the walk's ~25 deg probes
+
+
+def _bilinear(a: torch.Tensor, x: torch.Tensor, y: torch.Tensor):
+    """Bilinear sample of [H,W] `a` (bf16 values promoted to float32) at
+    float32 positions, clipped to [0, W - 1.001] x [0, H - 1.001]."""
+    H, W = a.shape
+    x = torch.clamp(x, 0.0, W - 1.001)
+    y = torch.clamp(y, 0.0, H - 1.001)
+    x0 = torch.floor(x).to(torch.int64)
+    y0 = torch.floor(y).to(torch.int64)
+    fx = x - x0
+    fy = y - y0
+    flat = a.reshape(-1)
+    i00 = y0 * W + x0
+    v00 = flat[i00].float()
+    v01 = flat[i00 + 1].float()
+    v10 = flat[i00 + W].float()
+    v11 = flat[i00 + W + 1].float()
+    return (v00 * (1 - fx) * (1 - fy) + v01 * fx * (1 - fy)
+            + v10 * (1 - fx) * fy + v11 * fx * fy)
+
+
+def ed_anchor_field(img: torch.Tensor, grad_th: float = 12.0,
+                    anchor_th: float = 4.0):
+    """The ED detector's per-pixel stage: bf16 gradients gx, gy, the bf16
+    magnitude with the 4-px border zeroed, and the anchor score (the
+    magnitude where it is a maximum across the edge normal, `>` on one
+    side and `>=` on the other, and above grad_th + anchor_th, else 0)."""
+    dev = img.device
+    H, W = img.shape
+    gx, gy = _gradients(img)
+    mag = torch.sqrt(gx * gx + gy * gy)
+    ys = torch.arange(H, device=dev)[:, None]
+    xs = torch.arange(W, device=dev)[None, :]
+    interior = (ys >= 4) & (ys < H - 4) & (xs >= 4) & (xs < W - 4)
+    zero = torch.zeros_like(mag)
+    mag = torch.where(interior, mag, zero)
+    horiz = torch.abs(gx) >= torch.abs(gy)
+    shl = F.pad(mag, (1, 0))[:, :-1]
+    shr = F.pad(mag, (0, 1))[:, 1:]
+    shu = F.pad(mag, (0, 0, 1, 0))[:-1]
+    shd = F.pad(mag, (0, 0, 0, 1))[1:]
+    nms = torch.where(horiz, (mag > shl) & (mag >= shr),
+                      (mag > shu) & (mag >= shd))
+    score = torch.where(nms & (mag > grad_th + anchor_th), mag, zero)
+    return gx, gy, mag, score
+
+
+def ed_cell_best(score: torch.Tensor):
+    """Each whole 8x8 cell's candidate anchor: its first maximum in
+    row-major order.  Returns (cell score bf16 [C], its index in the cell
+    [C]), cells row-major."""
+    H, W = score.shape
+    Hc, Wc = H // ED_CELL, W // ED_CELL
+    cells = score[:Hc * ED_CELL, :Wc * ED_CELL] \
+        .reshape(Hc, ED_CELL, Wc, ED_CELL).permute(0, 2, 1, 3) \
+        .reshape(Hc * Wc, ED_CELL * ED_CELL)
+    best = cells.argmax(-1)
+    return cells.gather(1, best[:, None])[:, 0], best
+
+
+def ed_cells(score: torch.Tensor, n_anchors: int = 512):
+    """One candidate anchor per 8x8 cell (`ed_cell_best`), then the top
+    n_anchors cells by score, lower cell first on ties (lax.top_k).
+    Returns (ax, ay float32 [A], score bf16 [A])."""
+    dev = score.device
+    H, W = score.shape
+    Hc, Wc = H // ED_CELL, W // ED_CELL
+    if Hc * Wc < n_anchors:
+        raise ValueError(f"detect_lines_ed: {Hc * Wc} cells of 8x8 px, "
+                         f"fewer than the {n_anchors} anchors")
+    cell_score, best = ed_cell_best(score)
+    cid = torch.arange(Hc * Wc, device=dev)
+    ax = ((cid % Wc) * ED_CELL + best % ED_CELL).float()
+    ay = ((cid // Wc) * ED_CELL + best // ED_CELL).float()
+    top = torch.sort(cell_score, descending=True, stable=True).indices[
+        :n_anchors]
+    return ax[top], ay[top], cell_score[top]
+
+
+@functools.lru_cache(maxsize=None)
+def _ed_cos_th(turn_tol: float, device) -> torch.Tensor:
+    """The walk's turn gate cos(turn_tol + 0.5), computed in float32 on
+    `device` (the reference's jnp.cos of a float32)."""
+    return torch.cos(torch.tensor(turn_tol + 0.5, dtype=torch.float32,
+                                  device=device))
+
+
+def _edge_dir(gx, gy, x, y):
+    """Unit edge direction (the gradient turned by +90 deg) at float
+    positions; (1, 0) where the gradient vanishes."""
+    gxx = _bilinear(gx, x, y)
+    gyy = _bilinear(gy, x, y)
+    n = torch.sqrt(gxx * gxx + gyy * gyy)
+    big = n > 1e-6
+    nc = torch.clamp_min(n, 1e-6)
+    return (torch.where(big, -gyy / nc, torch.ones_like(n)),
+            torch.where(big, gxx / nc, torch.zeros_like(n)))
+
+
+def ed_walks(gx, gy, mag, ax, ay, alive0, grad_th: float = 12.0,
+             walk_steps: int = 48, turn_tol: float = 0.45):
+    """Both walks of every anchor, forward (+edge direction) in lanes
+    0..A-1 and backward in A..2A-1: at each step the best of the straight
+    and the two ~25 deg probes by magnitude (first on ties), realigned to
+    the local edge direction, stopped for good on a magnitude <= grad_th
+    or a turn beyond turn_tol + 0.5 rad.  Returns the positions and live
+    flags after every step, [2A, steps] each."""
+    cos_th = _ed_cos_th(turn_tol, ax.device)
+    dx0, dy0 = _edge_dir(gx, gy, ax, ay)
+    x, y = torch.cat([ax, ax]), torch.cat([ay, ay])
+    dx, dy = torch.cat([dx0, -dx0]), torch.cat([dy0, -dy0])
+    live = torch.cat([alive0, alive0])
+    c, s = ED_CAND
+    lanes = torch.arange(x.shape[0], device=ax.device)
+    xs, ys, lv = [], [], []
+    for _ in range(walk_steps):
+        cdx = torch.stack([dx, c * dx - s * dy, c * dx + s * dy])
+        cdy = torch.stack([dy, s * dx + c * dy, -s * dx + c * dy])
+        mags = torch.stack([_bilinear(mag, x + cdx[k], y + cdy[k])
+                            for k in range(3)])
+        best = mags.argmax(0)
+        bdx, bdy = cdx[best, lanes], cdy[best, lanes]
+        nx, ny = x + bdx, y + bdy
+        ex, ey = _edge_dir(gx, gy, nx, ny)
+        flip = (ex * bdx + ey * bdy) < 0
+        ex = torch.where(flip, -ex, ex)
+        ey = torch.where(flip, -ey, ey)
+        m = _bilinear(mag, nx, ny)
+        turn = ex * dx + ey * dy
+        live = live & (m > grad_th) & (turn > cos_th)
+        x = torch.where(live, nx, x)
+        y = torch.where(live, ny, y)
+        dx = torch.where(live, ex, dx)
+        dy = torch.where(live, ey, dy)
+        xs.append(x)
+        ys.append(y)
+        lv.append(live)
+    return torch.stack(xs, 1), torch.stack(ys, 1), torch.stack(lv, 1)
+
+
+def ed_points(gx, gy, mag, ax, ay, alive0, grad_th: float = 12.0,
+              walk_steps: int = 48, turn_tol: float = 0.45):
+    """Each anchor's points (`ed_walks`): the backward walk reversed, the
+    anchor, the forward walk; (x, y, weight 0 / 1), each [A, 2 steps + 1]."""
+    A = ax.shape[0]
+    wx, wy, wl = ed_walks(gx, gy, mag, ax, ay, alive0, grad_th, walk_steps,
+                          turn_tol)
+    return (torch.cat([wx[A:].flip(1), ax[:, None], wx[:A]], 1),
+            torch.cat([wy[A:].flip(1), ay[:, None], wy[:A]], 1),
+            torch.cat([wl[A:].flip(1), alive0[:, None], wl[:A]], 1).float())
+
+
+def _row_sum(a: torch.Tensor) -> torch.Tensor:
+    """Sum of [A, P] over P, adding the columns in order."""
+    acc = a[:, 0]
+    for p in range(1, a.shape[1]):
+        acc = acc + a[:, p]
+    return acc
+
+
+def detect_lines_ed(img: torch.Tensor, max_lines: int = 256,
+                    grad_th: float = 12.0, anchor_th: float = 4.0,
+                    n_anchors: int = 512, walk_steps: int = 48,
+                    turn_tol: float = 0.45, fit_tol: float = 1.4,
+                    min_length: float = 12.0):
+    """EDLines-analog detector (plvio_tpu/ops/lines.py:276).  Same return
+    contract as `detect_lines`: (ep [L,4], angle [L], length [L],
+    valid [L], (gx, gy))."""
+    dev = img.device
+    gx, gy, mag, score = ed_anchor_field(img, grad_th, anchor_th)
+    ax, ay, top_s = ed_cells(score, n_anchors)
+    alive0 = top_s > 0.0
+    px, py, w = ed_points(gx, gy, mag, ax, ay, alive0, grad_th, walk_steps,
+                          turn_tol)
+    A = ax.shape[0]
+
+    # weighted TLS fit + validation; each sum runs over the points in
+    # order (as the kernel's), the reference's own order is XLA's
+    wsum = torch.clamp_min(_row_sum(w), 1e-6)
+    mx = _row_sum(w * px) / wsum
+    my = _row_sum(w * py) / wsum
+    ux = px - mx[:, None]
+    uy = py - my[:, None]
+    vx, vy, vn = _eig_dir(_row_sum(w * ux * ux), _row_sum(w * ux * uy),
+                          _row_sum(w * uy * uy))
+    big = vn > 1e-6
+    vnc = torch.clamp_min(vn, 1e-6)
+    vx = torch.where(big, vx / vnc, torch.ones_like(vx))
+    vy = torch.where(big, vy / vnc, torch.zeros_like(vy))
+    proj = ux * vx[:, None] + uy * vy[:, None]
+    perp = -ux * vy[:, None] + uy * vx[:, None]
+    rms = torch.sqrt(_row_sum(w * perp * perp) / wsum)
+    has = w > 0
+    pmin = torch.where(has, proj, torch.full_like(proj, _BIG)).min(1).values
+    pmax = torch.where(has, proj, torch.full_like(proj, -_BIG)).max(1).values
+    length = pmax - pmin
+    ok = alive0 & (rms < fit_tol) & (length >= min_length) & (wsum >= 8)
+    x1 = mx + pmin * vx
+    y1 = my + pmin * vy
+    x2 = mx + pmax * vx
+    y2 = my + pmax * vy
+    ang = _mod_pi(torch.atan2(y2 - y1, x2 - x1))
+
+    # overlap suppression: a shorter near-duplicate (midpoint near the
+    # longer one's line and within the two half-lengths along it) goes
+    midx = (x1 + x2) / 2
+    midy = (y1 + y2) / 2
+    dang = _mod_pi(torch.abs(ang[:, None] - ang[None, :]))
+    dang = torch.minimum(dang, math.pi - dang)
+    rx = midx[:, None] - midx[None, :]
+    ry = midy[:, None] - midy[None, :]
+    perp_ij = torch.abs(-rx * vy[None, :] + ry * vx[None, :])
+    along_ij = torch.abs(rx * vx[None, :] + ry * vy[None, :])
+    dup = (dang < 0.1) & (perp_ij < 2.5) \
+        & (along_ij < (length[None, :] + length[:, None]) / 2)
+    idx = torch.arange(A, device=dev)
+    better = (length[None, :] > length[:, None]) \
+        | ((length[None, :] == length[:, None])
+           & (idx[None, :] < idx[:, None]))
+    ok = ok & ~(dup & better & ok[None, :]).any(1)
+
+    score_l = torch.where(ok, length, torch.zeros_like(length))
+    r = torch.sort(score_l, descending=True, stable=True).indices[:max_lines]
+    top = score_l[r]
+    ep = torch.stack([x1[r], y1[r], x2[r], y2[r]], -1)
+    return ep, ang[r], top, top > 0.0, (gx, gy)
 
 
 # --------------------------------------------------------------------------
@@ -521,6 +763,101 @@ def line_detect(img: torch.Tensor, max_lines: int = 256,
     return ep, ang, length, valid, (gx, gy)
 
 
+LINE_DETECT_ED = cuda.Kernel("line_detect_ed", "line_detect_ed",
+                             [_P, _I, _I, _I, _F, _F, _I, _I, _F, _F, _F]
+                             + [_P] * 12 + [_P])
+_ED_STEPS_MAX = 48
+_ED_ANCHORS_MAX = 512
+
+
+def line_detect_ed(img: torch.Tensor, max_lines: int = 256,
+                   grad_th: float = 12.0, anchor_th: float = 4.0,
+                   n_anchors: int = 512, walk_steps: int = 48,
+                   turn_tol: float = 0.45, fit_tol: float = 1.4,
+                   min_length: float = 12.0, trace=None):
+    """`detect_lines_ed` through csrc/line_detect_ed.cu (CPU tensors take
+    the plain version).  Returns (ep [L,4], angle [L], length [L],
+    valid [L], (gx, gy) bf16).  A dict `trace` receives the kernel's
+    intermediates: `mag` (bf16 [H,W]), `cell_score` and `cell_best` ([C],
+    as `ed_cell_best`) and the walks' points `pts` ([3, A, 97]: x, y and
+    live of the backward walk reversed, the anchor, the forward walk)."""
+    if img.device.type == "cpu":
+        return detect_lines_ed(img, max_lines, grad_th, anchor_th, n_anchors,
+                               walk_steps, turn_tol, fit_tol, min_length)
+    cuda.check_cuda("line_detect_ed", img)
+    if img.dtype != torch.float32 or img.dim() != 2:
+        raise ValueError("line_detect_ed: a float32 [H,W] image")
+    H, W = img.shape
+    C = (H // ED_CELL) * (W // ED_CELL)
+    pad = 1 << max(C - 1, 0).bit_length()
+    if not (max_lines <= n_anchors <= min(C, _ED_ANCHORS_MAX)
+            and 1 <= walk_steps <= _ED_STEPS_MAX and 8 * pad <= _SMEM_MAX):
+        raise ValueError(
+            f"line_detect_ed: {C} cells, {n_anchors} anchors, {max_lines} "
+            f"lines, {walk_steps} steps: max_lines <= n_anchors <= cells, "
+            f"n_anchors <= {_ED_ANCHORS_MAX}, walk_steps <= {_ED_STEPS_MAX}, "
+            "cells <= 16384")
+    dev = img.device
+    gx = torch.empty(H, W, dtype=torch.bfloat16, device=dev)
+    gy, mag = torch.empty_like(gx), torch.empty_like(gx)
+    cell_score = torch.empty(C, device=dev)
+    cell_best = torch.empty(C, dtype=torch.int32, device=dev)
+    pts = torch.empty(3, n_anchors, 2 * _ED_STEPS_MAX + 1, device=dev)
+    ep = torch.empty(max_lines, 4, device=dev)
+    ang = torch.empty(max_lines, device=dev)
+    length = torch.empty(max_lines, device=dev)
+    valid = torch.empty(max_lines, dtype=torch.bool, device=dev)
+    # the thresholds as the plain version compares them: the anchor's
+    # against the bf16 magnitude in bf16, the turn gate's cosine in float32
+    # on the same device
+    anchor_bf = float(torch.tensor(grad_th + anchor_th).to(torch.bfloat16))
+    LINE_DETECT_ED.launch(
+        cuda.ptr(img), H, W, max_lines, grad_th, anchor_bf, n_anchors,
+        walk_steps, _ed_cos_th_value(turn_tol, dev), fit_tol, min_length,
+        cuda.ptr(gx), cuda.ptr(gy), cuda.ptr(mag), cuda.ptr(cell_score),
+        cuda.ptr(cell_best), cuda.ptr(pts[0]), cuda.ptr(pts[1]),
+        cuda.ptr(pts[2]), cuda.ptr(ep), cuda.ptr(ang), cuda.ptr(length),
+        cuda.ptr(valid), cuda.stream())
+    if trace is not None:
+        trace.update(mag=mag, cell_score=cell_score, cell_best=cell_best,
+                     pts=pts)
+    return ep, ang, length, valid, (gx, gy)
+
+
+def ed_against_plain(img: torch.Tensor, max_lines: int = 256, **kw) -> dict:
+    """`line_detect_ed` against its plain version on one CUDA image, stage
+    by stage: bf16 gradients and magnitude equal (`grads`, `mag`), the
+    cells' candidates equal (`cells`), the anchors' walks that differ in
+    any point (`walks_differ`), and the outputs bit-equal (`same`); with
+    both outputs (`kernel`, `plain`)."""
+    trace = {}
+    k = line_detect_ed(img, max_lines, trace=trace, **kw)
+    p = detect_lines_ed(img, max_lines, **kw)
+    gx, gy, mag, score = ed_anchor_field(img, kw.get("grad_th", 12.0),
+                                         kw.get("anchor_th", 4.0))
+    cs, cb = ed_cell_best(score)
+    ax, ay, ts = ed_cells(score, kw.get("n_anchors", 512))
+    px, py, w = ed_points(gx, gy, mag, ax, ay, ts > 0.0,
+                          kw.get("grad_th", 12.0), kw.get("walk_steps", 48),
+                          kw.get("turn_tol", 0.45))
+    P = px.shape[1]
+    q = trace["pts"][:, :, :P]
+    walks = ((q[0] != px) | (q[1] != py) | (q[2] != w)).any(1)
+    return dict(
+        grads=torch.equal(k[4][0], p[4][0]) and torch.equal(k[4][1], p[4][1]),
+        mag=torch.equal(trace["mag"], mag),
+        cells=torch.equal(trace["cell_score"], cs.float())
+        and torch.equal(trace["cell_best"].long(), cb),
+        walks_differ=int(walks.sum()), n_walks=int(walks.numel()),
+        same=all(torch.equal(a, b) for a, b in zip(k[:4], p[:4])),
+        kernel=k, plain=p)
+
+
+@functools.lru_cache(maxsize=None)
+def _ed_cos_th_value(turn_tol: float, device) -> float:
+    return float(_ed_cos_th(turn_tol, device))
+
+
 def line_refine_lbd(gx, gy, ep, valid, pairs, level0=None) -> LineFeatures:
     """`refine_lbd_plain` through csrc/line_refine_lbd.cu (CPU tensors take
     the plain version)."""
@@ -560,19 +897,25 @@ def line_refine_lbd(gx, gy, ep, valid, pairs, level0=None) -> LineFeatures:
 
 
 def extract_lines(img: torch.Tensor, max_lines: int, pairs: torch.Tensor,
-                  plain: bool = False, level0=None, **kw) -> LineFeatures:
-    """Detect + merge collinear fragments + refit + LBD + line equations.
-    Kernels for CUDA tensors unless `plain`."""
+                  plain: bool = False, level0=None, detector: int = 0,
+                  **kw) -> LineFeatures:
+    """Detect (the cell detector 0, `line_detect`, or the ED detector 1,
+    `line_detect_ed`) + merge collinear fragments + refit + LBD + line
+    equations.  Kernels for CUDA tensors unless `plain`."""
+    if detector not in (0, 1):
+        raise ValueError(f"line detector {detector}: 0 (cells) or 1 (ED)")
     if plain:
-        ep, _, _, valid, (gx, gy) = detect_lines(img, max_lines, **kw)
+        det = detect_lines_ed if detector == 1 else detect_lines
+        ep, _, _, valid, (gx, gy) = det(img, max_lines, **kw)
         return refine_lbd_plain(gx, gy, ep, valid, pairs, level0)
-    ep, _, _, valid, (gx, gy) = line_detect(img, max_lines, **kw)
+    det = line_detect_ed if detector == 1 else line_detect
+    ep, _, _, valid, (gx, gy) = det(img, max_lines, **kw)
     return line_refine_lbd(gx, gy, ep, valid, pairs, level0)
 
 
 def extract_lines_pyramid(img: torch.Tensor, max_lines: int,
                           pairs: torch.Tensor, plain: bool = False,
-                          **kw) -> LineFeatures:
+                          detector: int = 0, **kw) -> LineFeatures:
     """2-level line pyramid: level 1 detects on a 2x box-downsampled image
     (`ops.frontend.line_level`: the `pyramid` kernel's line level on a CUDA
     image unless `plain`);
@@ -581,31 +924,39 @@ def extract_lines_pyramid(img: torch.Tensor, max_lines: int,
     n1 = max_lines // 4
     n0 = max_lines - n1
     img1 = (line_level_plain if plain else line_level)(img)
-    f0 = extract_lines(img, n0, pairs, plain, **kw)
-    f1 = extract_lines(img1, n1, pairs, plain, level0=f0, **kw)
+    f0 = extract_lines(img, n0, pairs, plain, detector=detector, **kw)
+    f1 = extract_lines(img1, n1, pairs, plain, level0=f0, detector=detector,
+                       **kw)
     return LineFeatures(*(torch.cat([a, b]) for a, b in zip(f0, f1)))
 
 
 class LineExtractor(nn.Module):
     """Line front end for one grayscale image; holds the LBD band-pair
-    pattern as a buffer.  levels=2 is the production 2-level pyramid.
-    CUDA images go through the two kernels unless `plain`."""
+    pattern as a buffer.  levels=2 is the production 2-level pyramid;
+    detector 0 the cell detector, 1 the ED detector (the reference's
+    `extractor`).  CUDA images go through the kernels unless `plain`."""
 
     def __init__(self, max_lines: int = 256, levels: int = 2,
-                 plain: bool = False):
+                 plain: bool = False, detector: int = 0):
         super().__init__()
+        if detector not in (0, 1):
+            raise ValueError(f"line detector {detector}: 0 (cells) or 1 "
+                             "(ED)")
         self.max_lines, self.levels, self.plain = max_lines, levels, plain
+        self.detector = detector
         self.register_buffer("pairs", torch.from_numpy(_band_pair_pattern()))
 
     def forward(self, img: torch.Tensor) -> LineFeatures:
         if self.levels >= 2:
             return extract_lines_pyramid(img, self.max_lines, self.pairs,
-                                         self.plain)
-        return extract_lines(img, self.max_lines, self.pairs, self.plain)
+                                         self.plain, self.detector)
+        return extract_lines(img, self.max_lines, self.pairs, self.plain,
+                             detector=self.detector)
 
 
 def make_line_extractor(max_lines: int = 256, levels: int = 2,
-                        device="cuda") -> LineExtractor:
+                        device="cuda", detector: int = 0) -> LineExtractor:
     """Line extractor module on `device` (any image geometry; the card
-    unless the caller asks for the CPU)."""
-    return LineExtractor(max_lines, levels).to(cuda.resolve_device(device))
+    unless the caller asks for the CPU); `detector` 0 or 1 (ED)."""
+    return LineExtractor(max_lines, levels, detector=detector).to(
+        cuda.resolve_device(device))

@@ -5,7 +5,7 @@ one CUDA card.
 
     python3 -m plvio_tpu_torch.profile_frames \
         [sequence | tracked | system | loop | mh_loop | stereo |
-         stereo_points | kb8 | kb8_vi | line_modes]
+         stereo_points | kb8 | kb8_vi | line_modes | ed]
 
 Builds the synthetic inputs of `chip_smoke.py` (EuRoC geometry: 480x752,
 1000 ORB features, 256 line features, 2048 map points, 128 map lines; 16
@@ -73,12 +73,17 @@ device kernels with the most time.  `kb8_vi` runs the fisheye MH replay
 with the IMU (`entry.kb8_vi_replay`, 8 s), without and with lines, and
 `line_modes` the MH replay's frames under SLAM modes 1, 2 and 3
 (`entry.line_mode_replay`): the same per-frame figures and kernels.
+`ed` runs the MH replay under the ED line detector with the prior-map
+relocalizer (`entry.ed_replay`) with the same figures, the relocalizer's
+stage and its alignment attempt's wall and device ms, then the STEREO
+room under the ED detector (`entry.ed_stereo_room`).
 
 Prints the card's `nvidia-smi` name and power limit first.  Needs one
 card; JAX is never imported.
 """
 from __future__ import annotations
 
+import json
 import subprocess
 import sys
 import time
@@ -656,6 +661,48 @@ def profile_line_modes(dev):
         _profile_run(step, S, f"SLAM mode {mode} over the MH replay")
 
 
+def profile_ed(dev):
+    """The MH replay under the ED line detector with the prior-map
+    relocalizer (`entry.ed_replay`, 8 s, IMU_MONOCULAR with lines, loop
+    closing on): the per-frame figures of `system`; the relocalizer's
+    stage ("prior_reloc", wall ms a keyframe, `Metrics`); its alignment
+    attempt (`_try_align` on the keyframe that aligned, again on the final
+    map: wall ms between synchronizations and device busy ms under
+    `torch.profiler`); then the STEREO room with lines under the ED
+    detector (`entry.ed_stereo_room`)."""
+    step, S = E.ed_replay(device=dev)
+    out, _, _ = _profile_run(
+        step, S, "MH replay, ED detector, prior-map relocalizer",
+        lambda o: f", IMU init frame {o.imu_init_frame}, prior aligned "
+        f"{o.prior_aligned} at keyframe {o.prior_align_kf}, "
+        f"{o.prior_n} keyframes relocalized, {o.prior_err:.4f} m RMSE")
+    st = out.metrics.get("prior_reloc")
+    if st:
+        print(f"   prior_reloc stage: {json.dumps(st)}")
+    rl = out.system.relocalizer
+    if rl.aligned_kf >= 0:
+        def attempt():
+            rl.T_prior_from_live = None
+            rl._try_align(rl.aligned_kf)
+            torch.cuda.synchronize()
+        with torch.no_grad():
+            attempt()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                attempt()
+            wall = (time.perf_counter() - t0) / 5 * 1e3
+            acts = [torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=acts) as prof:
+                attempt()
+        busy = sum(d for _, d, _ in _frame_ranges(prof)[1]) / 1e3
+        print(f"   _try_align on keyframe {rl.aligned_kf}: wall "
+              f"{wall:.3f} ms, device busy {busy:.3f} ms, idle share "
+              f"{1 - busy / wall:.1%}, tried {rl.attempts[-1]}")
+    step, S = E.ed_stereo_room(device=dev)
+    _profile_run(step, S, "STEREO room with lines, ED detector")
+
+
 def _per_name(dev_ev):
     per = defaultdict(lambda: [0, 0.0])
     for _, d, name in dev_ev:
@@ -701,6 +748,9 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["line_modes"]:
         profile_line_modes(dev)
+        return 0
+    if sys.argv[1:] == ["ed"]:
+        profile_ed(dev)
         return 0
     (frames, poses, pt_xyz, pt_desc, pt_valid, ln_ep6, ln_desc, ln_valid,
      traj) = build_inputs(N_FRAMES, CAP_PTS, CAP_LNS, H, W,

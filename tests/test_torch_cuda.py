@@ -1963,3 +1963,118 @@ def test_slice13_linearization_matches_plain_engine(dev, case):
     print(f"{case}: " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
     assert counter.launches == n0 + 2
     assert max(errs.values()) <= 1e-4, errs
+
+
+@pytest.mark.parametrize("image", ["segments", "flat"])
+def test_line_detect_ed_matches_plain(dev, image):
+    """line_detect_ed against its plain version at both pyramid levels,
+    stage by stage (`ops.lines.ed_against_plain`): the bf16 gradients and
+    magnitude and the cells' candidate anchors bit-equal, no walk
+    different, the outputs bit-equal (so the segment sets agree); three
+    launches give the same bits; the flat image gives no segment."""
+    from plvio_tpu_torch.ops import lines as LN
+    img = _segments(dev, 480, 752, 80) if image == "segments" \
+        else torch.full((480, 752), 77.0, device=dev)
+    n0 = LN.LINE_DETECT_ED.launches
+    for lv, (im, n) in enumerate(((img, 192),
+                                  (FE.line_level(img), 64))):
+        r = LN.ed_against_plain(im, n)
+        k, p = r["kernel"], r["plain"]
+        print(f"{image} level {lv}: {int(k[3].sum())} segments, "
+              f"{r['walks_differ']} of {r['n_walks']} walks differ")
+        assert r["grads"] and r["mag"] and r["cells"], (lv, r)
+        assert r["walks_differ"] == 0 and r["same"], (lv, r)
+        assert _sets_agree(k[0], k[3], p[0], p[3])
+        again = [LN.line_detect_ed(im, n) for _ in range(2)]
+        for a in again:
+            assert all(torch.equal(x, y) for x, y in zip(a[:4], k[:4]))
+            assert torch.equal(a[4][0], k[4][0])
+        if image == "flat":
+            assert not bool(k[3].any())
+        else:
+            assert int(k[3].sum()) >= 10
+    assert LN.LINE_DETECT_ED.launches == n0 + 6
+
+
+def test_line_extractor_ed_matches_plain(dev):
+    """The whole pyramid under detector 1, kernel path against plain path:
+    the segment sets as `_sets_agree`, the kernel path the same on every
+    run."""
+    from plvio_tpu_torch.ops import lines as LN
+    img = _segments(dev, 480, 752, 80)
+    pk = LN.LineExtractor(256, 2, detector=1).to(dev)(img)
+    pp = LN.LineExtractor(256, 2, plain=True, detector=1).to(dev)(img)
+    torch.cuda.synchronize()
+    assert int(pk.valid.sum()) >= 10
+    assert _sets_agree(pk.ep, pk.valid, pp.ep, pp.valid)
+    again = LN.LineExtractor(256, 2, detector=1).to(dev)(img)
+    assert all(torch.equal(a, b) for a, b in zip(pk, again))
+
+
+def test_prior_relocalizer_aligns_as_plain(dev, tmp_path):
+    """The prior-map relocalizer on the card (ORB, the bag, the Hamming
+    matrix and PnP kernels) against its plain run on the CPU on a
+    hand-made live map of the synthetic prior set
+    (`inputs.place_prior_keyframes`), both with the same RANSAC samples:
+    the same prior frames tried with the same matches, T_prior_from_live
+    within 2x the CPU float32 run's distance to a float64 run of the plain
+    PnP + 1e-5 (the kernels solve in float64), the relocalized poses
+    within 1e-4."""
+    from plvio_tpu_torch.config import CameraConfig, RelocConfig, \
+        SystemConfig
+    from plvio_tpu_torch.inputs import build_prior_set, place_prior_keyframes
+    from plvio_tpu_torch.models import vocabulary as V
+    from plvio_tpu_torch.models.mapstore import Atlas, MapStore
+    from plvio_tpu_torch.models.relocalization import PriorMapRelocalizer
+    from plvio_tpu_torch.ops import pnp as PNP
+    build_prior_set(tmp_path)
+    cfg = SystemConfig(camera=CameraConfig(
+        width=640, height=480, fx=518.0, fy=519.0, cx=325.5, cy=253.5,
+        dist=()), reloc=RelocConfig(enabled=True))
+    voc = V.default_vocabulary("orb")
+    runs = {}
+    for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        r = PriorMapRelocalizer(cfg, Atlas([MapStore(max_kf=16,
+                                                     n_feat=1000)]),
+                                voc, 1000, device=d)
+        g = torch.Generator().manual_seed(5)
+        r.sampler = lambda v, g=g: torch.multinomial(
+            torch.from_numpy(v).double().expand(128, -1), 6, generator=g)
+        r.load_prior_dir(str(tmp_path))
+        rec = []
+        pnp = r._pnp
+
+        def recording(K, uv, X, v, s, _pnp=pnp, _rec=rec):
+            _rec.append((uv.cpu(), X.cpu(), v.cpu(), s.cpu()))
+            return _pnp(K, uv, X, v, s)
+        r._pnp = recording
+        with torch.no_grad():
+            for i, kf in enumerate(place_prior_keyframes(r.atlas.current,
+                                                         r.prior_frames)):
+                r.process_keyframe(kf, float(i))
+        torch.cuda.synchronize()
+        runs[name] = (r, rec)
+    (rc, kc), (rp, kp) = runs["card"], runs["cpu"]
+    assert rc.T_prior_from_live is not None \
+        and rp.T_prior_from_live is not None
+    tried = [[(a["prior"], a["matches"]) for a in t] for t in rc.attempts]
+    assert tried == [[(a["prior"], a["matches"]) for a in t]
+                     for t in rp.attempts]
+    assert len(kc) == len(kp) >= 1
+    uv, X, v, s = kp[-1]
+    K = rp.K
+    res = PNP.pnp_ransac_plain(K, uv.double(), X.double(), v, s)
+    R64, t64, _, _ = PNP.mlpnp_refine_plain(K, uv.double(), X.double(),
+                                            res.inliers, res.R, res.t)
+    m = rp.atlas.current
+    R_wc = R64.numpy().T
+    T64 = np.concatenate([R_wc @ m.kf_pose_cw[rp.aligned_kf, :, :3],
+                          (R_wc @ m.kf_pose_cw[rp.aligned_kf, :, 3]
+                           - R_wc @ t64.numpy())[:, None]], 1)
+    gap = np.abs(rc.T_prior_from_live - rp.T_prior_from_live).max()
+    ref = np.abs(rp.T_prior_from_live - T64).max()
+    print(f"T_prior_from_live: card - CPU {gap:.2e}, CPU - float64 "
+          f"{ref:.2e}")
+    assert gap <= 2 * ref + 1e-5
+    for t, T in rp.relocalized_poses.items():
+        assert np.abs(rc.relocalized_poses[t] - T).max() <= 1e-4

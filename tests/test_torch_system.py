@@ -318,7 +318,8 @@ def test_not_ported_options_raise(what, item, monkeypatch):
     from plvio_tpu_torch.config import (CameraConfig as PCam, LineConfig,
                                         RelocConfig, Sensor as PSensor)
     from plvio_tpu_torch.models.system import System
-    # the KB8 camera with an IMU or with lines, and the ED line detector
+    # the KB8 camera with an IMU or with lines, the ED line detector and
+    # the prior-map relocalizer
     kb8 = PCam(model="kb8", dist=(0.0,) * 4)
     ctor = {"prior_reloc": dict(reloc=RelocConfig(enabled=True)),
             "kb8_imu": dict(camera=kb8, use_lines=False),
@@ -329,6 +330,17 @@ def test_not_ported_options_raise(what, item, monkeypatch):
         # window BAs on the lens
         slam = System(_port_cfg(**ctor[what]), device="cpu")
         assert slam.mapper.ba_K == slam.tracker.kb8 is not None
+        return
+    if what in ("ed_lines", "prior_reloc"):
+        # ported since slice 14 (items 7d and 5): the System builds with
+        # the ED detector in its line front end, or with the relocalizer
+        # (no prior directory given: no prior frame)
+        slam = System(_port_cfg(**ctor[what]), device="cpu")
+        if what == "ed_lines":
+            assert slam.extract_lines.detector == 1
+        else:
+            assert slam.relocalizer is not None \
+                and not slam.relocalizer.prior_frames
         return
     env = {"viewer": "PLVIO_VIEWER_PORT"}
     with pytest.raises(NotImplementedError, match=f"item {item}"):

@@ -130,7 +130,18 @@ DEFAULTS_TO_CARD = {
     "kb8_vi_replay": lambda: E.kb8_vi_replay(replay_kw=dict(n_frames=1)),
     "line_mode_replay": lambda: E.line_mode_replay(
         1, replay_kw=dict(n_frames=1)),
+    "ed_replay": lambda: E.ed_replay(reloc=False,
+                                     replay_kw=dict(n_frames=1)),
+    "ed_stereo_room": lambda: E.ed_stereo_room(1),
+    "PriorMapRelocalizer": lambda: _prior_relocalizer(),
 }
+
+
+def _prior_relocalizer():
+    from plvio_tpu_torch.config import SystemConfig
+    from plvio_tpu_torch.models.mapstore import Atlas
+    from plvio_tpu_torch.models.relocalization import PriorMapRelocalizer
+    return PriorMapRelocalizer(SystemConfig(), Atlas(), None, 1000)
 
 
 @pytest.mark.parametrize("name", sorted(DEFAULTS_TO_CARD))
@@ -154,8 +165,10 @@ def test_port_never_loads_jax():
     and `stereo_room` (with and without lines), `track_rgbd` through
     `rgbd_room` (bf 0 and 40), `track_monocular` with the KB8 camera
     through `kb8_room`, with the IMU and lines through `kb8_vi_replay`,
-    and SLAM mode 3 through `line_mode_replay`, 3 frames each; the
-    mapping step of the KB8 camera;
+    SLAM mode 3 through `line_mode_replay`, and the ED line detector with
+    the prior-map relocalizer through `ed_replay`, 3 frames each; the
+    relocalizer aligned on a hand-made live map of its prior set
+    (`inputs.place_prior_keyframes`); the mapping step of the KB8 camera;
     the loop closer on the drifted circle, its global BA at 32
     keyframes)."""
     code = (
@@ -263,6 +276,29 @@ def test_port_never_loads_jax():
         "lmo = lm(LS)\n"
         "assert len(lmo.frames) == 3 and "
         "lmo.system.tracker.pose_opt_line_only is not None\n"
+        "from plvio_tpu_torch.entry import ed_replay\n"
+        "er, ES = ed_replay(device='cpu', replay_kw=dict(n_points=500, "
+        "n_lines=50, n_frames=3), **small)\n"
+        "eo = er(ES)\n"
+        "r0 = eo.system.relocalizer\n"
+        "assert len(eo.frames) == 3 and eo.system.extract_lines.detector "
+        "== 1 and len(r0.prior_frames) == 6\n"
+        "from plvio_tpu_torch.config import CameraConfig\n"
+        "from plvio_tpu_torch.inputs import place_prior_keyframes\n"
+        "from plvio_tpu_torch.models.mapstore import Atlas, MapStore\n"
+        "from plvio_tpu_torch.models.relocalization import "
+        "PriorMapRelocalizer\n"
+        "nf = r0.prior_frames[0].uv.shape[0]\n"
+        "rl = PriorMapRelocalizer(eo.system.cfg.replace(camera=CameraConfig("
+        "width=640, height=480, fx=518.0, fy=519.0, cx=325.5, cy=253.5, "
+        "dist=())), Atlas([MapStore(max_kf=8, n_feat=nf)]), r0.voc, nf, "
+        "device='cpu')\n"
+        "rl.prior_frames, rl._prior_dev = r0.prior_frames, r0._prior_dev\n"
+        "for i, kf in enumerate(place_prior_keyframes(rl.atlas.current, "
+        "rl.prior_frames)):\n"
+        "    rl.process_keyframe(kf, float(i))\n"
+        "assert rl.T_prior_from_live is not None and "
+        "len(rl.relocalized_poses) == 6\n"
         "mk, MK = mapping_step(4, 256, 512, 128, 32, 64, device='cpu', "
         "kb8=True)\n"
         "assert int(mk(MK).n_inliers) > 0\n"
