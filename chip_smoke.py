@@ -233,7 +233,34 @@ exit, no result line) unless every phase passes:
    reference's worst RMSE against the truth in the prior world; cfg.seed
    0 again with the relocalizer off: every frame's pose bit-equal; the
    STEREO room with lines under the ED detector (`entry.ed_stereo_room`,
-   15 pairs) by phase 15's room rule against REF_ED["room"].
+   15 pairs) by phase 15's room rule against REF_ED["room"];
+19. slice 15, the sharded back end (plvio_tpu_torch/parallel/):
+   `kernel_digest.window_digests` (the single-device window BAs) equal to
+   the parent tree's (WINDOW_DIGESTS); `schur_reduce` on each shard of
+   `entry.dist_window(2)` at C = 16 and C = 64 against the plain partial
+   (the engine's `reduce_system` of the shard's problem) within 1e-4
+   relative, the same bits on three launches; `schur_solve_reduced`'s
+   solve of their sum, CG at S = 240 and 960, and its Cholesky at
+   dist_ba's S on dist_ba's summed raw partials, by `KN.against_float64`
+   (whose limit must lie below half of max |dx64|, so that a zero or
+   halved dx fails it) and within 1e-2 x max |dx64| of the plain float32
+   solve of the same system; the CG solve of the partials, summed in
+   shard order by the kernel, bit-equal to the solve of their sum;
+   the sharded window solve at D = 1, 2, 4 against the single-device
+   window solve by the float64 rule (D = 2 three times, the same bits);
+   dist_ba, chain_ba and chain_liba on 2 shards against their plain
+   versions on a CPU mesh by the same rule (plain float32 runs over four
+   observation orders), each in a launch window of its own; the port's
+   two-process worker sharing the card over gloo, bit-equal to the
+   2-shard mesh of this process (or on the CPU where the card's compute
+   mode is exclusive, said on a line of its own); one window solve's wall
+   and CUDA-event ms at D = 1, 2, 4; `entry.dist_replay(2)` (the MH
+   replay's frames of phase 13, loop closing off) at cfg.seed 0..4
+   against REF_DIST's runs (`replay_guards`), every run with at least one
+   window solve on the sharded path and none on the single-device
+   inertial kernel, its dropped observations printed, cfg.seed 0 in a
+   launch window of its own with every kernel of PATH_DIST launched; and
+   cfg.seed 0 with loop closing on, >= 85% of its frames tracked.
 
 `library_ms` is one PyTorch call computing the same function where
 there is one (the pyramid's: 7 antialiased bilinear `F.interpolate`, its
@@ -355,6 +382,11 @@ KERNELS = {
                                "plvio_tpu/models/kernels.py:1394"),
     "pose_lm_line": (KN.POSE_LM_LINE, "plvio_tpu/models/kernels.py:1344"),
     "line_detect_ed": (LN.LINE_DETECT_ED, "plvio_tpu/ops/lines.py:276"),
+    "schur_reduce": (KN.SCHUR_REDUCE, "plvio_tpu/solver/engine.py:476"),
+    "schur_solve_reduced_cg": (KN.SCHUR_SOLVE_REDUCED_CG,
+                               "plvio_tpu/solver/engine.py:540"),
+    "schur_solve_reduced_chol": (KN.SCHUR_SOLVE_REDUCED_CHOL,
+                                 "plvio_tpu/parallel/dist_ba.py:186"),
 }
 # schur_solve's launches whose reduced system exceeds one block (its
 # global path, counted in KN.SCHUR_SOLVE.global_launches), and the TPU
@@ -2220,6 +2252,7 @@ def reset_counts():
         k.launches = 0
     KN.SCHUR_SOLVE.global_launches = 0
     KN.POSE_GRAPH.global_launches = 0
+    KN.SCHUR_SOLVE_REDUCED_CG.global_launches = 0
 
 
 def read_counts():
@@ -5236,6 +5269,669 @@ def run_slice14(dev, smi, S, report):
     return [launches, launches_room]
 
 
+# --------------------------------------------------------------------------
+# Phase 19: the sharded back end (slice 15)
+# --------------------------------------------------------------------------
+# tests/test_torch_dist_liba.py's `reference_dist`: the JAX System with
+# PLVIO_DIST=1 on a 2-device CPU mesh (XLA_FLAGS=
+# --xla_force_host_platform_device_count=2) over the 8 s MH replay at
+# cfg.seed 0..4, loop closing off (tests/test_torch_system.py's
+# `reference_mh`): seed 0's run, each quantity's range and worst over the
+# seeds, and each seed's counts; printed by
+# `JAX_PLATFORMS=cpu PYTHONPATH=. python3 tests/test_torch_dist_liba.py`
+REF_DIST = {"n_frames": 166, "n_tracked": 164, "init_frame": 2,
+    "imu_init_kf": 13, "imu_init_frame": 61, "keyframes": 39, "points": 5365,
+    "lines": 213, "ate_se3": 0.40361323274281263,
+    "ate_sim3": 0.11463203064981566, "scale": 0.7704989067403079,
+    "gravity_err_deg": 1.374549727109277,
+    "init_scale_err_worst": 0.505812534608407,
+    "scale_err_worst": 0.5036590773544329,
+    "gravity_err_deg_worst": 1.6856710140273785,
+    "ate_sim3_worst": 0.13379597817799055, "ate_se3_worst": 0.8874444335182512,
+    "reloc_centre_m_worst": 0.07937484006750314,
+    "reloc_rot_deg_worst": 0.7211436361301167, "n_tracked_min": 164,
+    "n_tracked_max": 164, "imu_init_frame_min": 58, "imu_init_frame_max": 61,
+    "keyframes_min": 33, "keyframes_max": 42, "init_frame_min": 2,
+    "init_frame_max": 2, "per_seed": [{"n_tracked": 164, "init_frame": 2,
+    "imu_init_frame": 61, "imu_init_kf": 13, "keyframes": 39, "points": 5365,
+    "lines": 213, "ate_se3": 0.40361323274281263,
+    "ate_sim3": 0.11463203064981566}, {"n_tracked": 164, "init_frame": 2,
+    "imu_init_frame": 58, "imu_init_kf": 12, "keyframes": 42, "points": 6068,
+    "lines": 272, "ate_se3": 0.7929078624537308,
+    "ate_sim3": 0.12746209651096296}, {"n_tracked": 164, "init_frame": 2,
+    "imu_init_frame": 59, "imu_init_kf": 13, "keyframes": 33, "points": 4727,
+    "lines": 189, "ate_se3": 0.0999189629579039,
+    "ate_sim3": 0.046202271106297994}, {"n_tracked": 164, "init_frame": 2,
+    "imu_init_frame": 58, "imu_init_kf": 12, "keyframes": 41, "points": 6400,
+    "lines": 262, "ate_se3": 0.5071106880384272,
+    "ate_sim3": 0.11710486326172481}, {"n_tracked": 164, "init_frame": 2,
+    "imu_init_frame": 58, "imu_init_kf": 12, "keyframes": 42, "points": 5889,
+    "lines": 274, "ate_se3": 0.8874444335182512,
+    "ate_sim3": 0.13379597817799055}]}
+PATH_DIST = PATH_SYSTEM + ("ba_linearize", "inertial_chain", "schur_reduce",
+                           "schur_solve_reduced_cg")
+# kernel_digest.window_digests on the tree before slice 15 (PR 14's, on the
+# H100 with `PYTHONPATH=<that tree> python3 plvio_tpu_torch/
+# kernel_digest.py window`): the single-device window BAs' existing
+# entries of ba_linearize, schur_solve and inertial_chain keep their bits
+# beside the new modes and entries
+WINDOW_DIGESTS = {
+    "mapping_step typical perturbed":
+        "ffee42bd85ba709ff5f3ffbb53f13dd2",
+    "inertial_ba_step worst perturbed=False":
+        "0d04417e03d24acba24ab736cb8797b1",
+    "inertial_ba_step worst perturbed=True":
+        "818c7a613f019b9f2c46aa2149068fd3",
+    "inertial_ba_step half perturbed=False":
+        "47441b0135441193ee29c35bd49223de",
+    "inertial_ba_step half perturbed=True":
+        "7172a6fcf7e94e963a5bfe3920b5e93d",
+    "local_ba pinhole points":
+        "f0089d9e6cb04c42f015959d9673178f",
+    "local_ba_lines_only mode=1":
+        "d7c3328f9bca7a793ee9a5d1a5a60be9",
+    "local_ba_lines_only mode=2":
+        "c421f800f2ea623353454ca60fc8eba7",
+    "local_ba_lines_only mode=3":
+        "fe6af36818209809840b085db86a8848",
+    "local_inertial_ba kb8 lines=False":
+        "8b6507d7b6bc4b7f601af02629233313",
+    "local_inertial_ba kb8 lines=True":
+        "baa3cf9fc9265fab4ee42c6a6908a718",
+    "local_ba_pl kb8":
+        "fdb842c024a07f21501509d8fcf5793f"}
+
+
+def _row_free(kf_free, kf_free_bias, body):
+    """The free mask of a dense system's rows (csrc/schur_solve.cu
+    `row_free`): pose and velocity rows by kf_free, bias rows by
+    kf_free_bias; 6 pose rows a keyframe without the inertial states."""
+    f = kf_free.to(torch.float32)
+    if not body:
+        return torch.repeat_interleave(f, 6)
+    fb = kf_free_bias.to(torch.float32)
+    return torch.cat([torch.repeat_interleave(f, 6),
+                      torch.repeat_interleave(f, 3),
+                      torch.repeat_interleave(fb, 3),
+                      torch.repeat_interleave(fb, 3)])
+
+
+def solve_only_work(n_kf: int, body: bool, kf_free, kf_free_bias, lam,
+                    device):
+    """A window's work with no landmarks and no observations, for
+    schur_solve_reduced's solve of a given system alone (its free masks
+    and damping from the arguments)."""
+    f32, i32, b8 = torch.float32, torch.int32, torch.bool
+    dev = torch.device(device)
+    z = lambda *s, dt=f32: torch.zeros(*s, dtype=dt, device=dev)
+    poses = torch.eye(3, 4, device=dev).repeat(n_kf, 1, 1).contiguous()
+    inertial = None
+    if body:
+        n_e = n_kf - 1
+        inertial = dict(kfx=z(n_kf, 9), kf_free_bias=kf_free_bias,
+                        pre=z(n_e, 67), imu_info=z(n_e, 81),
+                        edge_valid=z(n_e, dt=b8), rw_g=z(n_e), rw_a=z(n_e),
+                        Rcb=torch.eye(3), tcb=torch.zeros(3), gravity=0.0)
+    S = (15 if body else 6) * n_kf
+    w = KN._BAWork(RES.PinholeK(1.0, 1.0, 0.0, 0.0), poses, kf_free,
+                   z(0, 3), z(0, dt=b8), z(0, dt=i32), z(0, dt=i32), z(0, 2),
+                   z(0, dt=b8), z(0), z(0, 6), z(0, dt=b8), z(0, dt=i32),
+                   z(0, dt=i32), z(0, 3), z(0, dt=b8), z(0), lam0=lam,
+                   early_tol=0.0, cg_iters=min(max(S // 2, 16), 128),
+                   inertial=inertial)
+    w.t["ctrl"][0] = lam
+    return w
+
+
+def reduced_solve_kernel(H, rhs, kf_free, kf_free_bias, lam: float,
+                         raw: bool, chol: bool, body: bool):
+    """schur_solve_reduced's solve alone of a given summed system (H, rhs)
+    on the card: dx (against `KN.reduced_solve_plain`)."""
+    n_kf = kf_free.shape[0]
+    w = solve_only_work(n_kf, body, kf_free, kf_free_bias, lam, H.device)
+    Hs, rs = KN._system_bufs(w, "hsum", "rsum")
+    Hs.copy_(H)
+    rs.copy_(rhs)
+    kern = KN.SCHUR_SOLVE_REDUCED_CHOL if chol else KN.SCHUR_SOLVE_REDUCED_CG
+    kern.launch(*w.args, None, None, 0, cuda.ptr(Hs), cuda.ptr(rs), 1,
+                int(raw), int(chol), cuda.stream())
+    return w.t["dx"].clone()
+
+
+SOLVE_REL = 1e-2     # kernel - plain float32 dx, relative to max |dx64|
+
+
+def reduced_solve_rule(name, H, rhs, kf_free, kf_free_bias, lam, raw, chol,
+                       body):
+    """schur_solve_reduced's solve of (H, rhs) on the card against its
+    plain version: by `KN.against_float64` (the same bits on three
+    launches), and the kernel's dx within SOLVE_REL x max |dx64| of the
+    plain float32 solve of the same system.  The float64 rule's limit
+    must lie below half of max |dx64|, so that a zero or halved dx fails
+    it."""
+    def kern(H_, r_, f_, fb_):
+        return (reduced_solve_kernel(H_, r_, f_, fb_, lam, raw, chol, body),)
+
+    def plain(H_, r_, f_, fb_):
+        fr = _row_free(f_, fb_, body).to(H_.dtype)
+        return (KN.reduced_solve_plain(H_, r_, fr, lam, raw, chol),)
+    args = [H, rhs, kf_free, kf_free_bias]
+    got = KN.against_float64(kern, plain, args, (0,))
+    dx64 = plain(*[a.cpu().double() if a.is_floating_point() else a.cpu()
+                   for a in args])[0]
+    m64 = float(dx64.abs().max())
+    limit = 2 * got["plain"] + 1e-6
+    rel = got["kernel_plain"] / m64
+    got.update(max_dx64=m64, limit=limit, rel_plain=rel)
+    print(f"  schur_solve_reduced {name} (S = {H.shape[0]}): max |dx64| "
+          f"{m64:.4e}; dx from float64 kernel {got['kernel']:.2e} / plain "
+          f"float32 {got['plain']:.2e} (limit {limit:.2e}), kernel - plain "
+          f"{got['kernel_plain']:.2e} ({rel:.2e} of max |dx64|)")
+    check(not got["failures"], f"schur_solve_reduced {name}: within 2x the "
+          f"plain float32 solve's distance to float64 + 1e-6, the same bits "
+          f"on three launches {got['failures']}")
+    check(limit < 0.5 * m64, f"schur_solve_reduced {name}: the float64 "
+          f"rule's limit {limit:.2e} below half of max |dx64| {m64:.2e} (a "
+          "zero or halved dx fails it)")
+    check(rel <= SOLVE_REL, f"schur_solve_reduced {name}: dx within "
+          f"{SOLVE_REL:g} x max |dx64| of the plain float32 solve of the "
+          f"same system ({rel:.2e})")
+    return got
+
+
+def reduce_case(dev, big):
+    """One LM step's shard partials of `entry.dist_window(2, big)`: the
+    sharded data, its shard works after linearizing (lambda = 1e-4), per
+    shard the plain partial's problem, states and masks, and the window
+    (A)."""
+    from plvio_tpu_torch.entry import dist_window
+    from plvio_tpu_torch.parallel import dist_liba as DL
+    step, Wa, A = dist_window(2, big=big, device=dev)
+    runner = step.runner
+    data, layout, _ = runner.prepare(**Wa)
+    mesh = runner.mesh
+    C, Pl = data.kf_pose_wb.shape[0], data.pt_xyz.shape[1]
+    Ll, Lo = data.ln_ep.shape[1], data.lobs_kf.shape[1]
+    works = DL.shard_works(K_EUROC, runner.Rcb, runner.tcb, GRAVITY, data,
+                           mesh)
+    sds = DL.local_shards(data, mesh)
+    Rcb = torch.as_tensor(runner.Rcb, device=dev)
+    tcb = torch.as_tensor(runner.tcb, device=dev)
+    plains = []
+    for i, (w, sd) in enumerate(zip(works, sds)):
+        if i == 0:
+            w.chain(KN.CHAIN_COST_STATE)
+        w.linearize(KN.BA_MODE_INIT)
+        w.linearize(KN.BA_MODE_LINEARIZE)
+        if i == 0:
+            w.chain(KN.CHAIN_LINEARIZE)
+        prob = DL._problem(K_EUROC, Rcb, tcb, GRAVITY, C, Pl, Ll, Lo,
+                           sd, sd["obs_valid"], sd["lobs_valid"])
+        st = {"pose": sd["pose"], "vel": sd["vel"], "bg": sd["bg"],
+              "ba": sd["ba"], "pt": sd["pt_xyz"], "ln": sd["ln_ep"]}
+        free = ({"pose": sd["free"], "vel": sd["free"], "bg": sd["free_b"],
+                 "ba": sd["free_b"]},
+                {"pt": sd["pt_free"], "ln": sd["ln_free"]})
+        plains.append((prob, st, free, sd))
+    return dict(data=data, works=works, plains=plains, A=A)
+
+
+def check_reduce(case, what, report=None):
+    """schur_reduce on each shard against the plain partial (the engine's
+    `reduce_system` of the shard's problem) within 1e-4 relative, the same
+    bits on three launches.  Returns the shards' partials."""
+    dev = torch.device("cuda")
+    lam = torch.tensor(1e-4, device=dev)
+    parts = []
+    for i, (w, (prob, st, free, sd)) in enumerate(zip(case["works"],
+                                                      case["plains"])):
+        outs = [tuple(x.clone() for x in KN.schur_reduce(w))
+                for _ in range(3)]
+        same = all(torch.equal(o[0], outs[0][0])
+                   and torch.equal(o[1], outs[0][1]) for o in outs[1:])
+        lay, Hh, g, lm_sys, _, _ = prob.build_normal_equations(st)
+        Hp, rp, _, _ = prob.reduce_system(lay, Hh, g, lm_sys, lam, *free)
+        eh, er = rel_err(outs[0][0], Hp), rel_err(outs[0][1], rp)
+        print(f"  schur_reduce {what}, shard {i} (S = {Hp.shape[0]}, "
+              f"{int(sd['obs_valid'].sum())} point and "
+              f"{int(sd['lobs_valid'].sum())} line observations): H "
+              f"{eh:.2e}, rhs {er:.2e} relative to the plain partial")
+        check(max(eh, er) <= 1e-4 and same,
+              f"schur_reduce {what}, shard {i}: H and rhs within 1e-4 "
+              "relative of the plain partial (damped by the shard's own "
+              "diagonal, fixed rows frozen), the same bits on three "
+              "launches")
+        parts.append(outs[0])
+        if report is not None and i == 0:
+            t = w.t
+            n_pt, n_ln = t["pts"].shape[0], t["lns"].shape[0]
+            n_obs, n_lobs = t["obs_kf"].shape[0], t["lobs_kf"].shape[0]
+            report["schur_reduce"] = dict(
+                **work(nbytes(t["hcc"], t["hpt"], t["hln"], t["p_w"],
+                              t["l_w"], t["link"], t["obs_kf"],
+                              t["lobs_kf"])
+                       + nbytes(outs[0], t["fpt"], t["fln"]),
+                       300 * n_pt + 1500 * n_ln + 250 * n_obs
+                       + 1000 * n_lobs
+                       + gram_ops(t["obs_kf"][t["obs_valid"]],
+                                  t["obs_pt"][t["obs_valid"]], n_pt, 3)
+                       + gram_ops(t["lobs_kf"][t["lobs_valid"]],
+                                  t["lobs_ln"][t["lobs_valid"]], n_ln, 6)),
+                max_abs_err=max(eh, er), ms=cuda_ms(lambda: KN.schur_reduce(
+                    w)),
+                plain_ms=cuda_ms(lambda: prob.reduce_system(
+                    lay, Hh, g, lm_sys, lam, *free), reps=5),
+                library_ms=None)
+    return parts
+
+
+def gap64(a, b):
+    return float((a.detach().double().cpu() - b.detach().double().cpu())
+                 .abs().max())
+
+
+def dist_against_single(dev, A):
+    """The sharded window solve at D = 1, 2, 4 on the card against the
+    single-device window solve by the float64 rule: each D's kernel
+    within 2x the plain single-device float32 runs' largest distance to
+    its float64 run + 1e-6 (plain runs over KN.FLOAT32_ORDERS observation
+    orders, made once); D = 2 three times with the same bits."""
+    from plvio_tpu_torch.entry import dist_window_solve, shard_mesh
+    args = [{k: x.to(dev) for k, x in A[k].items()} if k == "pre_const"
+            else A[k].to(dev) for k in KN.LIBA_KEYS]
+    Rcb, tcb = A["Rcb"].cpu(), A["tcb"].cpu()
+
+    def plain(*a):
+        return KN.local_inertial_ba_plain(
+            K_EUROC, Rcb.to(a[0].dtype), tcb.to(a[0].dtype), GRAVITY, *a)
+    idx = (0, 1, 2, 3)
+    a32 = KN._cpu(list(args))
+    with torch.no_grad():
+        p64 = plain(*KN._to64_cpu(list(args)))
+        orders = []
+        for o in range(KN.FLOAT32_ORDERS):
+            a = list(a32)
+            if o:
+                for g, group in enumerate(KN.LIBA_ROWS):
+                    perm = torch.from_numpy(np.random.default_rng(
+                        [o, g]).permutation(a32[group[0]].shape[0]))
+                    for i in group:
+                        a[i] = a32[i][perm].contiguous()
+            p = plain(*a)
+            orders.append(max(gap64(p[i], p64[i]) for i in idx))
+    res = {}
+    for D in (1, 2, 4):
+        fn = dist_window_solve(shard_mesh(D, dev))
+        with torch.no_grad():
+            ks = [fn(*args) for _ in range(3 if D == 2 else 1)]
+        kern = max(gap64(ks[0][i], p64[i]) for i in idx)
+        same = all(torch.equal(k[i], ks[0][i]) for k in ks[1:] for i in idx)
+        res[D] = kern
+        print(f"  make_dist_liba D = {D} on the card: states {kern:.2e} from "
+              f"the single-device float64 run; the plain single-device "
+              f"float32 runs {[f'{x:.2e}' for x in orders]}")
+        check(kern <= 2 * max(orders) + 1e-6 and same,
+              f"make_dist_liba D = {D}: within 2x the single-device plain "
+              f"float32 runs' distance to float64 + 1e-6"
+              + (", the same bits on three runs" if D == 2 else ""))
+    return res, max(orders)
+
+
+def _perm_rows(data, groups, seed, flat_D=None):
+    """A NamedTuple problem with each shard's observations in another
+    order: groups of fields permuted together along the observation axis
+    (axis 1 of [D, O, ...]; with flat_D, blocks of O_total / D rows)."""
+    g = np.random.default_rng(seed)
+    out = data._asdict()
+    for fields in groups:
+        x0 = out[fields[0]]
+        if flat_D:
+            O = x0.shape[0] // flat_D
+            perm = torch.cat([d * O + torch.from_numpy(g.permutation(O))
+                              for d in range(flat_D)])
+            for f in fields:
+                out[f] = out[f][perm].contiguous()
+        else:
+            for d in range(x0.shape[0]):
+                perm = torch.from_numpy(g.permutation(x0.shape[1]))
+                for f in fields:
+                    out[f][d] = out[f][d][perm].clone()
+    return type(data)(**out)
+
+
+def solver_rule(name, make, data, idx, groups, flat_D=None):
+    """A sharded solver's kernel path (make(device, dtype) -> run) on a
+    2-shard card mesh against its plain version on a 2-shard CPU mesh by
+    the float64 rule (plain float32 runs over KN.FLOAT32_ORDERS
+    observation orders), the same bits on three runs.  Returns the gap."""
+    run_k = make("cuda", torch.float32)
+    run_32 = make("cpu", torch.float32)
+    run_64 = make("cpu", torch.float64)
+    with torch.no_grad():
+        ks = [run_k(data) for _ in range(3)]
+        p64 = run_64(data)
+        orders = []
+        for o in range(KN.FLOAT32_ORDERS):
+            d = data if o == 0 else _perm_rows(
+                copy_data(data), groups, o, flat_D)
+            p = run_32(d)
+            orders.append(max(gap64(p[i], p64[i]) for i in idx))
+    kern = max(gap64(ks[0][i], p64[i]) for i in idx)
+    same = all(torch.equal(k[i], ks[0][i]) for k in ks[1:] for i in idx)
+    print(f"  {name} D = 2 on the card: {kern:.2e} from the plain float64 "
+          f"run; plain float32 {[f'{x:.2e}' for x in orders]}")
+    check(kern <= 2 * max(orders) + 1e-6 and same,
+          f"{name}: within 2x the plain float32 runs' distance to float64 + "
+          "1e-6, the same bits on three runs")
+    return kern
+
+
+def copy_data(data):
+    d = data._asdict()
+    for k, v in d.items():
+        d[k] = {a: b.clone() for a, b in v.items()} if isinstance(v, dict) \
+            else v.clone()
+    return type(data)(**d)
+
+
+def two_process_check(dev):
+    """The port's multi-process worker on the card: two processes sharing
+    it over gloo (each a shard on cuda:0), their chain BA and sharded
+    window solve bit-equal to the 2-shard mesh of this process."""
+    import os
+    import socket
+    from plvio_tpu_torch.parallel import multihost as MH
+    from plvio_tpu_torch.parallel.mesh import Mesh
+    mode = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+    print(f"  the card's compute mode: {mode}")
+    if "Exclusive" in mode:
+        print("  the two-process check runs on the CPU with gloo only: the "
+              "card is in an exclusive compute mode")
+        worker_dev, mesh_dev = "cpu", "cpu"
+    else:
+        worker_dev, mesh_dev = "cuda:0", dev
+    sk = socket.socket()
+    sk.bind(("127.0.0.1", 0))
+    port = sk.getsockname()[1]
+    sk.close()
+    env = dict(os.environ, PLVIO_COORDINATOR=f"127.0.0.1:{port}",
+               PLVIO_NUM_PROCS="2", OMP_NUM_THREADS="1")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "plvio_tpu_torch.parallel.multihost",
+         "--device", worker_dev, "--backend", "gloo"],
+        env=dict(env, PLVIO_PROC_ID=str(r)), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=180)[0])
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+            p.communicate()
+        check(False, "the two worker processes finished within 180 s")
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0 and "MULTIHOST_OK" in out,
+              f"worker process {r} ({worker_dev}, gloo) ran the chain BA and "
+              f"the sharded window solve ({out.strip().splitlines()[-1]})")
+    res = [json.loads([x for x in out.splitlines() if x.startswith(
+        "MULTIHOST_RESULT = ")][-1].split(" = ", 1)[1]) for out in outs]
+    mesh = Mesh([mesh_dev, mesh_dev])
+    with torch.no_grad():
+        poses, pts = MH.chain_case(mesh)
+        dl = MH.dist_case(mesh)
+    ok = True
+    for r in range(2):
+        ok &= MH._digest([poses[r:r + 1], pts[r:r + 1]]) == res[r]["chain"]
+        ok &= MH._digest(list(dl[:4]) + [dl[4][r:r + 1], dl[5][r:r + 1]]) \
+            == res[r]["dist"]
+    check(ok, f"two processes ({worker_dev}, gloo): their chain BA and "
+          f"sharded window solve bit-equal to this process's 2-shard mesh "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+
+def dist_solve_times(dev, smi):
+    """Wall and CUDA-event ms of one sharded window solve (C = 16, the
+    worst bucket) at D = 1, 2, 4, beside the single-device window solve on
+    the same bucket."""
+    from plvio_tpu_torch.entry import dist_window, inertial_ba_step
+    out = {}
+    for D in (1, 2, 4):
+        step, Wa, _ = dist_window(D, device=dev)
+        with torch.no_grad():
+            step(Wa)
+            torch.cuda.synchronize()
+            walls = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                step(Wa)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            dev_ms = cuda_ms(lambda: step(Wa), reps=5, warmup=1)
+        out[D] = (float(np.median(walls)), dev_ms)
+        print(f"  the sharded window solve, C = 16, D = {D}: wall "
+              f"{out[D][0]:.2f} ms (median of 5), CUDA events "
+              f"{out[D][1]:.2f} ms, 6 host reads (the six outputs), on {smi}")
+    single, A = inertial_ba_step(**LIBA_WORST, perturbed=True, device=dev)
+    with torch.no_grad():
+        ms1 = cuda_ms(lambda: single(A), reps=5, warmup=1)
+    print(f"  the single-device window solve on the same bucket: {ms1:.2f} "
+          f"ms, on {smi}")
+
+
+def dist_replay_run(dev, S, seed, loop_closing=False):
+    from plvio_tpu_torch.entry import shard_mesh
+    run = SystemRun(device=dev, seed=seed, use_loop_closing=loop_closing,
+                    dist_mesh=shard_mesh(2, dev))
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        o = run(S)
+    torch.cuda.synchronize()
+    met = o.metrics
+    n_dist = met.get("mapping/dist_solves", {}).get("calls", 0)
+    dropped = met.get("mapping/dist_dropped_obs", {}).get("calls", 0)
+    paths = sorted({c["path"] for c in o.system.mapper.ba_calls})
+    print(f"  the dist replay, cfg.seed {seed}"
+          + (", loop closing on" if loop_closing else "")
+          + f": tracked {o.n_tracked} / {len(S['frames'])}, IMU init frame "
+          f"{o.imu_init_frame}, keyframes {o.keyframes}, points {o.points}, "
+          f"lines {o.lines}, ATE {o.ate_sim3:.4f} / {o.ate_se3:.4f} m; "
+          f"{n_dist} window solves on the sharded path, {dropped} "
+          f"observations dropped, window paths {paths} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    ref = REF_MH
+    print(f"    beside REF_MH (information): tracked {o.n_tracked} (its "
+          f"{ref['n_tracked_min']}..), keyframes {o.keyframes} (its "
+          f"{ref['keyframes_min']}..{ref['keyframes_max']}), SE3 ATE "
+          f"{o.ate_se3:.4f} (its worst {ref['ate_se3_worst']:.4f})")
+    check(n_dist >= 1 and not set(paths) - {"lba", "dist"},
+          f"cfg.seed {seed}: {n_dist} >= 1 window solves on the sharded "
+          f"path, no inertial window on the single-device kernel")
+    return o
+
+
+def run_slice15(dev, smi, S, report):
+    """Phase 19 (see the module docstring).  Returns the launches of the
+    dist replay (cfg.seed 0) and of dist_ba, chain_ba and chain_liba's
+    runs, each counted in a window of its own."""
+    from plvio_tpu_torch import kernel_digest as KD
+    from plvio_tpu_torch.entry import shard_mesh
+    from plvio_tpu_torch.inputs import (K_CHAIN, K_CHAIN_VI, K_DIST_BA,
+                                        build_chain_ba_problem,
+                                        build_chain_vi_problem,
+                                        build_dist_ba_scene)
+    from plvio_tpu_torch.parallel import chain_ba as CB
+    from plvio_tpu_torch.parallel import chain_liba as CL
+    from plvio_tpu_torch.parallel import dist_ba as DB
+    print("[19] slice 15: the landmark-sharded inertial window BA under "
+          "System's mapper on a shard mesh, dist_ba, chain_ba, chain_liba")
+    t_phase = time.perf_counter()
+    got = dict(line.rsplit(" ", 1) for line in KD.window_digests(dev))
+    bad = [k for k, v in WINDOW_DIGESTS.items() if got.get(k) != v]
+    check(not bad, "the single-device window BAs give the parent tree's "
+          f"digests (kernel_digest.window_digests; differ: {bad})")
+    # -- schur_reduce on both buckets' shards, schur_solve_reduced's CG
+    for big, what in ((False, "C = 16"), (True, "C = 64")):
+        case = reduce_case(dev, big)
+        parts = check_reduce(case, what, None if big else report)
+        H = parts[0][0] + parts[1][0]
+        rhs = parts[0][1] + parts[1][1]
+        d = case["data"]
+        free = d.kf_free.to(dev)
+        freeb = d.kf_free_bias.to(dev)
+        g = reduced_solve_rule(f"CG, {what}", H, rhs, free, freeb, 1e-4,
+                               False, False, True)
+        KN.schur_solve_reduced(case["works"], parts)
+        check(torch.equal(case["works"][0].t["dx"], g["out"][0]),
+              f"schur_solve_reduced CG, {what}: the shards' partials summed "
+              "in shard order and solved give the bits of the solve of "
+              "their sum")
+        if not big:
+            Sd = H.shape[0]
+            it = min(max(Sd // 2, 16), 128)
+            report["schur_solve_reduced_cg"] = dict(
+                **work(nbytes(parts) + nbytes(case["works"][0].t["dx"]),
+                       # the sum, then per CG step the matrix-vector product
+                       # and five vector updates
+                       2 * Sd * Sd + it * (2 * Sd * Sd + 10 * Sd)),
+                max_abs_err=g["kernel_plain"],
+                ms=cuda_ms(lambda: KN.schur_solve_reduced(
+                    case["works"], parts)),
+                plain_ms=cuda_ms(lambda: KN.reduced_solve_plain(
+                    H, rhs, _row_free(free, freeb, True), 1e-4, False,
+                    False), reps=5),
+                library_ms=None)
+            case16 = case
+    # -- the sharded window solve at D = 1, 2, 4 against the single-device
+    dist_against_single(dev, case16["A"])
+    # -- dist_ba: Cholesky at its S, then the solver by the float64 rule
+    n_cams, n_pts = 4, 96
+    scene = build_dist_ba_scene(np.random.default_rng(0), n_cams, n_pts)
+    _, _, poses0, X0, okf, opt, ouv = scene
+    _, _, opt_l, valid, (okf_b, ouv_b), (X0_b, free_b) = \
+        DB.bucket_observations(2, n_pts, opt, (okf, ouv),
+                               (X0, np.ones(n_pts, bool)))
+    t_ = torch.from_numpy
+    dba = DB.DistBAData(
+        kf_poses=t_(poses0), kf_free=t_(np.arange(n_cams) > 0),
+        pt_xyz=t_(X0_b), pt_free=t_(free_b),
+        obs_kf=t_(okf_b.astype(np.int32)), obs_pt=t_(opt_l),
+        obs_uv=t_(ouv_b), obs_valid=t_(valid),
+        obs_is2=t_(np.ones(len(valid), np.float32)))
+    mesh2 = shard_mesh(2, dev)
+    works = DB.shard_works(K_DIST_BA, dba, mesh2, 1e-3)
+    for w in works:
+        w.linearize(KN.BA_MODE_LINEARIZE)
+    parts = [tuple(x.clone() for x in KN.schur_reduce(w, raw=True))
+             for w in works]
+    Hb, rb = parts[0][0] + parts[1][0], parts[0][1] + parts[1][1]
+    fcam = dba.kf_free.to(dev)
+    g = reduced_solve_rule("Cholesky, dist_ba's", Hb, rb, fcam, fcam, 1e-3,
+                           True, True, False)
+    Sb = Hb.shape[0]
+    fr = _row_free(fcam, fcam, False)
+    Hd = (Hb + torch.diag(torch.diagonal(Hb) * 1e-3 + 1e-6)) \
+        * fr[:, None] * fr[None, :] + torch.diag(1.0 - fr)
+
+    def lib_chol():
+        L = torch.linalg.cholesky(Hd)
+        return torch.cholesky_solve((rb * fr)[:, None], L)
+    report["schur_solve_reduced_chol"] = dict(
+        **work(nbytes(parts) + nbytes(works[0].t["dx"]),
+               2 * Sb * Sb + Sb ** 3 / 3 + 2 * Sb * Sb),
+        max_abs_err=g["kernel_plain"],
+        ms=cuda_ms(lambda: KN.schur_solve_reduced(works, parts, raw=True,
+                                                  chol=True)),
+        plain_ms=cuda_ms(lambda: KN.reduced_solve_plain(
+            Hb, rb, fr, 1e-3, True, True), reps=5),
+        library_ms=cuda_ms(lib_chol))
+    print(f"  Cholesky at S = {Sb}: the kernel's solve "
+          f"{report['schur_solve_reduced_chol']['ms']:.4f} ms (its sum and "
+          f"back-substitutions included), one torch.linalg.cholesky + "
+          f"cholesky_solve {report['schur_solve_reduced_chol']['library_ms']:.4f}"
+          f" ms, on {smi}")
+    launches = []
+
+    def mk_db(device, dt):
+        return DB.make_dist_ba(K_DIST_BA, shard_mesh(2, device), n_cams,
+                               iters=12, dtype=dt)
+    reset_counts()
+    solver_rule("dist_ba", mk_db, dba, (0, 1),
+                (("obs_kf", "obs_pt", "obs_uv", "obs_valid", "obs_is2"),),
+                flat_D=2)
+    launches.append(read_counts())
+    chain = build_chain_ba_problem(np.random.default_rng(0), C=16)
+    poses_gt, pts, ckf, cpt, cuv = chain
+    rng = np.random.default_rng(1)
+    c0 = poses_gt.copy()
+    c0[1:, :, 3] += rng.normal(0, 0.03, (15, 3)).astype(np.float32)
+    cdata, clay = CB.partition_chain(
+        2, 2, np.arange(16), c0, ckf, cpt, cuv, np.ones(len(ckf), np.float32),
+        pts + rng.normal(0, 0.03, pts.shape).astype(np.float32),
+        fixed_kf=np.array([0]))
+
+    def mk_cb(device, dt):
+        return CB.make_chain_ba(K_CHAIN, shard_mesh(2, device), clay["Wh"],
+                                cdata.pt_xyz.shape[1],
+                                cdata.obs_kf.shape[1], outer_iters=6,
+                                halo=2, dtype=dt)
+    reset_counts()
+    solver_rule("chain_ba", mk_cb, cdata, (0, 1),
+                (("obs_kf", "obs_pt", "obs_uv", "obs_valid", "obs_is2"),))
+    launches.append(read_counts())
+    rng = np.random.default_rng(0)
+    vp = build_chain_vi_problem(rng, n_kf=12, n_pts=200, n_lns=64)
+    p0, v0 = vp[0].copy(), vp[1].copy()
+    p0[1:, :, 3] += rng.normal(0, 0.02, (11, 3))
+    v0[1:] += rng.normal(0, 0.03, (11, 3))
+    z3 = np.zeros((12, 3), np.float32)
+    vdata, vlay = CL.partition_chain_vi(
+        2, 2, 12, p0, v0, z3, z3, vp[4], vp[5], vp[6],
+        np.ones(len(vp[4]), np.float32), vp[2].copy(), *vp[10:],
+        lobs_kf=vp[7], lobs_ln=vp[8], lobs_eq=vp[9], ln_ep=vp[3].copy(),
+        fixed_pos=(0,), free_all_biases=False)
+
+    def mk_cl(device, dt):
+        return CL.make_chain_liba(
+            K_CHAIN_VI, shard_mesh(2, device), vlay["Wh"],
+            vdata.pt_xyz.shape[1], vdata.obs_kf.shape[1],
+            vdata.ln_ep.shape[1], vdata.lobs_kf.shape[1],
+            np.eye(3, dtype=np.float32), np.zeros(3, np.float32), GRAVITY,
+            halo=2, outer_sweeps=3, iters=6, dtype=dt)
+    reset_counts()
+    solver_rule("chain_liba", mk_cl, vdata, (0, 1, 2, 3),
+                (("obs_kf", "obs_pt", "obs_uv", "obs_valid", "obs_is2"),
+                 ("lobs_kf", "lobs_ln", "lobs_eq", "lobs_valid")))
+    launches.append(read_counts())
+    # -- the two-process check
+    two_process_check(dev)
+    # -- times of one window solve at D = 1, 2, 4
+    dist_solve_times(dev, smi)
+    # -- System over the MH replay on a 2-shard mesh, cfg.seed 0..4
+    runs = []
+    for seed in range(5):
+        if seed == 0:
+            reset_counts()
+        runs.append(dist_replay_run(dev, S, seed))
+        if seed == 0:
+            launches.append(read_counts())
+            print(f"  launches (cfg.seed 0): {launches[-1]}")
+    check(all(launches[-1][k] > 0 for k in PATH_DIST),
+          f"the dist replay: every kernel of the path launched "
+          f"({', '.join(PATH_DIST)})")
+    replay_guards("the dist replay", runs, REF_DIST, "ate_se3")
+    o = dist_replay_run(dev, S, 0, loop_closing=True)
+    check(o.n_tracked >= 0.85 * len(S["frames"]),
+          f"the dist replay with loop closing on: {o.n_tracked} frames "
+          "tracked (>= 85%)")
+    stereo_frames_summary(runs[0], smi)
+    print(f"  phase 19: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5536,6 +6232,7 @@ def run_phases(dev, smi, render):
     launches_s12 = run_slice12(dev, smi, report)
     launches_s13 = run_slice13(dev, smi, render, S, report)
     launches_s14 = run_slice14(dev, smi, S, report)
+    launches_s15 = run_slice15(dev, smi, S, report)
 
     rows = []
     for name, (k, replaces) in [*KERNELS.items(),
@@ -5560,7 +6257,8 @@ def run_phases(dev, smi, render):
                          + sum(v[name] for v in launches_stereo)
                          + sum(v[name] for v in launches_s12)
                          + sum(v[name] for v in launches_s13.values())
-                         + sum(v[name] for v in launches_s14),
+                         + sum(v[name] for v in launches_s14)
+                         + sum(v[name] for v in launches_s15),
                          max_abs_err=rep["max_abs_err"], ms=rep["ms"],
                          plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"],
                          bound_by=rep["bound_by"],

@@ -36,6 +36,9 @@
 // chi2 in modes 1 and 3, the angle edge's in mode 2.  line_mode = 0 is the
 // point+line BA.
 //
+// mcost [1]: the mesh's sum of the shards' partial costs, which the mesh
+// modes of csrc/ba_linearize.cu decide on (the landmark-sharded window BA).
+//
 // ctrl (float[8]) carries the LM loop on the device: [0] lambda, [1] cost
 // of the current state, [2] cost of the last candidate, [3] done (early
 // exit), [4] iterations run, [5] last candidate accepted, [6] accepted
@@ -59,7 +62,7 @@ enum Ptr {
   kHcc, kHpt, kHln, kFpt, kFln, kOccPt, kOccLn,
   kGm, kGpart, kRr, kFf, kDx, kCtrl,
   kKfX, kCKfX, kKfFreeBias, kPre, kImuInfo, kEdgeValid, kRwG, kRwA, kLink,
-  kLinkCost, kCCost, kCgw, kLobsDir, kNumPtrs
+  kLinkCost, kCCost, kCgw, kLobsDir, kMCost, kNumPtrs
 };
 // kCgwFloats: the floats of the cgw workspace; kSolvePath: set by
 // schur_solve to the path its reduced solve took (0 one block, 1 global)

@@ -42,6 +42,15 @@
 // csrc/inertial_chain.cu at the same state) and an accepted step also
 // copies the keyframes' (vel, bg, ba).
 //
+// The mesh modes (4-7) serve the landmark-sharded inertial window BA
+// (`make_dist_liba`, plvio_tpu/parallel/dist_liba.py:186): each shard's
+// launch computes its own observations' cost (its chain share on shard 0)
+// into ctrl[cNewCost] without deciding; the mesh sums the shards' costs in
+// shard order into `mcost`; then every shard takes the same decision (or
+// starts its round) from that sum, as the reference's engine decides on
+// the psum of the shards' costs (solver/engine.py:619-620), and accepts
+// its own candidate.  Modes 0-3 are unchanged.
+//
 // The KB8 mode (kb8 = 1, the point-only window BA of a KB8 fisheye and
 // the loop closer's global BA on its map) replaces the point edge by
 // `make_point_reproj_kb8` (solver/residuals.py:534) on raw pixels: the
@@ -78,6 +87,14 @@ constexpr int kModeLinearize = 0;
 constexpr int kModeDecide = 1;   // cost of the candidate, accept/reject
 constexpr int kModeInit = 2;     // cost of the state, start of a round
 constexpr int kModeRegate = 3;   // cost of the state, new chi2 masks
+// the mesh modes of the landmark-sharded window BA (parallel/dist_liba.py):
+// a shard's partial cost of the candidate or of the state into
+// ctrl[cNewCost]; then, once the mesh has summed the partials into
+// `mcost`, the start of a round or the accept/reject of the summed cost
+constexpr int kModePartialCand = 4;
+constexpr int kModePartialState = 5;
+constexpr int kModeMeshInit = 6;
+constexpr int kModeMeshDecide = 7;
 
 struct Proj {
   float pc[3];
@@ -354,8 +371,10 @@ __global__ void obs_kernel(BA b, int mode) {
   const int o = blockIdx.x * blockDim.x + threadIdx.x;
   const int N = b.n_obs + b.n_lobs;
   if (o >= N) return;
-  if ((mode == kModeLinearize || mode == kModeDecide) && b.done()) return;
-  const bool cand = mode == kModeDecide;
+  if ((mode == kModeLinearize || mode == kModeDecide ||
+       mode == kModePartialCand) && b.done())
+    return;
+  const bool cand = mode == kModeDecide || mode == kModePartialCand;
   const bool jac = mode == kModeLinearize;
   const float* poses = cand ? b.at<float>(kCPoses) : b.at<float>(kPoses);
   float r[2], Jc[2][6];
@@ -502,12 +521,21 @@ __device__ float block_sum(const float* x, int n, float* sh) {
 __global__ void cost_kernel(BA b, int mode) {
   __shared__ float sh[kRedThreads];
   float* ctrl = b.at<float>(kCtrl);
-  if (mode == kModeDecide && ctrl[cDone] != 0.f) return;
-  const float* wchi2 = b.at<float>(kWChi2);
-  const float sp = block_sum(wchi2, b.n_obs, sh);
-  const float sl = block_sum(wchi2 + b.n_obs, b.n_lobs, sh);
-  if (threadIdx.x != 0) return;
-  const float cost = b.body ? (sp + sl) + b.at<float>(kCCost)[0] : sp + sl;
+  if ((mode == kModeDecide || mode == kModePartialCand ||
+       mode == kModeMeshDecide) && ctrl[cDone] != 0.f)
+    return;
+  float cost;
+  if (mode == kModeMeshInit || mode == kModeMeshDecide) {
+    if (threadIdx.x != 0) return;
+    cost = b.at<float>(kMCost)[0];
+    mode = mode == kModeMeshInit ? kModeInit : kModeDecide;
+  } else {
+    const float* wchi2 = b.at<float>(kWChi2);
+    const float sp = block_sum(wchi2, b.n_obs, sh);
+    const float sl = block_sum(wchi2 + b.n_obs, b.n_lobs, sh);
+    if (threadIdx.x != 0) return;
+    cost = b.body ? (sp + sl) + b.at<float>(kCCost)[0] : sp + sl;
+  }
   if (mode == kModeInit) {
     ctrl[cLam] = b.lam0;
     ctrl[cCost] = cost;
@@ -571,14 +599,15 @@ PLVIO_API int ba_linearize(void* const* ptrs, const int* ints,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const BA b = make_ba(ptrs, ints, flts);
   const int N = b.n_obs + b.n_lobs;
-  if (mode < 0 || mode > 3) return static_cast<int>(cudaErrorInvalidValue);
-  if (N > 0) obs_kernel<<<blocks(N, 128), 128, 0, s>>>(b, mode);
+  if (mode < 0 || mode > 7) return static_cast<int>(cudaErrorInvalidValue);
+  const bool mesh = mode == kModeMeshInit || mode == kModeMeshDecide;
+  if (N > 0 && !mesh) obs_kernel<<<blocks(N, 128), 128, 0, s>>>(b, mode);
   if (mode == kModeLinearize) {
     const int n = b.n_kf * 27 + b.n_pt * 9 + b.n_ln * 27;
     reduce_kernel<<<blocks(n, 128), 128, 0, s>>>(b);
   } else {
     cost_kernel<<<1, kRedThreads, 0, s>>>(b, mode);
-    if (mode == kModeDecide) {
+    if (mode == kModeDecide || mode == kModeMeshDecide) {
       const int n = b.n_kf * (b.body ? 21 : 12) + b.n_pt * 3 + b.n_ln * 6;
       accept_kernel<<<blocks(n, 256), 256, 0, s>>>(b);
     } else if (mode == kModeRegate && N > 0) {

@@ -69,6 +69,27 @@
 // Every kernel reads the device-side early-exit flag first and returns at
 // once when it has fired, so an iteration after the exit costs five empty
 // launches and no memory traffic.
+//
+// The sharded step (slice 15) splits the same step at the mesh's sum, for
+// the landmark-sharded window BAs: `make_dist_liba` (plvio_tpu/parallel/
+// dist_liba.py:186, through the engine's psum_axis, solver/engine.py:
+// 448,472-568), `make_dist_ba` (parallel/dist_ba.py:107) and the local
+// steps of `make_chain_ba` (parallel/chain_ba.py:170).
+// - schur_reduce: one shard's factor and Gram stages as above, then
+//   assemble_kernel writes the shard's reduced system to global memory as
+//   a full [S, S] matrix and an [S] rhs, one thread an entry: in engine
+//   mode the entries of solve_kernel's system (damped by the shard's own
+//   diagonal, its fixed rows frozen, as every JAX device does before the
+//   psum), in raw mode H_cc - fill-in alone (dist_ba and chain_ba damp
+//   after the sum).
+// - schur_solve_reduced: stage 0 sums the shards' partials in shard order
+//   (sum_kernel, one thread an entry); the caller all-reduces the sum
+//   across processes where there are several; stage 1 solves it, the
+//   same CG as above (solve_kernel / solve_global_kernel on the summed
+//   system, raw mode damping and freezing it as it is read) or, for
+//   dist_ba and chain_ba, a lower Cholesky and the two triangular solves
+//   in one block (chol_kernel, the full matrix in shared memory, S <=
+//   240); stage 2 is backsub_kernel on each shard with the summed step.
 #include <cooperative_groups.h>
 
 #include "ba_common.cuh"
@@ -414,7 +435,40 @@ __device__ __forceinline__ float reduced_rhs(const BA& b, int i, float fi) {
   return (gv - a) * fi;
 }
 
-__global__ void solve_kernel(BA b) {
+// the reduced system of the single-device step: assembled from the
+// keyframe blocks, the chain's links and the fill-in (reduced_h / _rhs)
+struct FromBlocks {
+  __device__ __forceinline__ float h(const BA& b, int i, int j, float lam,
+                                     float fi, float fj) const {
+    return reduced_h(b, i, j, lam, fi, fj);
+  }
+  __device__ __forceinline__ float r(const BA& b, int i, float fi) const {
+    return reduced_rhs(b, i, fi);
+  }
+};
+
+// the mesh's summed system of the sharded step (schur_solve_reduced): in
+// engine mode every shard damped and froze its own partial, so the sum is
+// solved as it is; in raw mode (dist_ba, chain_ba) the sum is damped once,
+// H + diag(diag(H) lambda + 1e-6), and its fixed rows frozen here
+struct FromSum {
+  const float* H;
+  const float* rhs;
+  int raw;
+  __device__ __forceinline__ float h(const BA& b, int i, int j, float lam,
+                                     float fi, float fj) const {
+    float v = H[size_t(i) * b.Sd() + j];
+    if (!raw) return v;
+    if (i == j) v = v + (v * lam + 1e-6f);
+    return v * fi * fj + (i == j ? 1.f - fi : 0.f);
+  }
+  __device__ __forceinline__ float r(const BA& b, int i, float fi) const {
+    return raw ? rhs[i] * fi : rhs[i];
+  }
+};
+
+template <class Src>
+__global__ void solve_kernel(BA b, Src src) {
   if (b.done()) return;
   extern __shared__ float sh[];
   const int S = b.Sd();
@@ -431,10 +485,10 @@ __global__ void solve_kernel(BA b) {
   for (int i = 0; i < S; ++i) {
     const int row = i * S - i * (i - 1) / 2 - i;      // + j: ut(S, i, j)
     for (int j = i + threadIdx.x; j < S; j += blockDim.x)
-      H[row + j] = reduced_h(b, i, j, lam, fr[i], fr[j]);
+      H[row + j] = src.h(b, i, j, lam, fr[i], fr[j]);
   }
   for (int i = threadIdx.x; i < S; i += blockDim.x) {
-    const float rhs = reduced_rhs(b, i, fr[i]);
+    const float rhs = src.r(b, i, fr[i]);
     x[i] = 0.f;
     r[i] = rhs;
     p[i] = rhs;
@@ -506,7 +560,8 @@ __device__ __forceinline__ float grid_total(const float* part) {
 // then across blocks in block order after a grid barrier, the same for
 // r.r, and a barrier after the new p is written: three barriers a step,
 // every block holding the same alpha and beta, so runs repeat bit for bit.
-__global__ void solve_global_kernel(BA b) {
+template <class Src>
+__global__ void solve_global_kernel(BA b, Src src) {
   if (b.done()) return;
   cg::grid_group grid = cg::this_grid();
   extern __shared__ float psh[];             // [S] p, then [32] warp sums
@@ -526,12 +581,12 @@ __global__ void solve_global_kernel(BA b) {
       i = j;
       j = t;
     }
-    H[e] = reduced_h(b, i, j, lam, row_free(b, i), row_free(b, j));
+    H[e] = src.h(b, i, j, lam, row_free(b, i), row_free(b, j));
   }
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const bool own = i < S;
   const float fi = own ? row_free(b, i) : 0.f;
-  float x = 0.f, r = own ? reduced_rhs(b, i, fi) : 0.f, p = r, Hp = 0.f;
+  float x = 0.f, r = own ? src.r(b, i, fi) : 0.f, p = r, Hp = 0.f;
   if (own) pg[i] = p;
   float t = block_sum(r * r, wsh);
   // into part_b: a block may write its first p.Hp into part_a before a
@@ -721,13 +776,14 @@ constexpr size_t kSmemMax = 232448;
 
 // the global path's cooperative launch: ceil(S / 128) blocks of 128 rows,
 // all co-resident or an error
-int launch_solve_global(const BA& b, cudaStream_t s) {
+template <class Src>
+int launch_solve_global(const BA& b, Src src, cudaStream_t s) {
   const int S = b.Sd();
   const int grid = blocks(S, kRowThreads);
   const size_t smem = (size_t(S) + 32) * sizeof(float);
   if (smem > kSmemMax) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = cudaFuncSetAttribute(
-      solve_global_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      solve_global_kernel<Src>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
   int dev = 0, sms = 0, per_sm = 0;
@@ -735,15 +791,126 @@ int launch_solve_global(const BA& b, cudaStream_t s) {
       (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                   dev)) != cudaSuccess ||
       (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, solve_global_kernel, kRowThreads, smem)) != cudaSuccess)
+           &per_sm, solve_global_kernel<Src>, kRowThreads, smem)) !=
+      cudaSuccess)
     return static_cast<int>(e);
   if (grid > sms * per_sm)
     return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
   BA arg = b;
-  void* args[] = {&arg};
+  Src sarg = src;
+  void* args[] = {&arg, &sarg};
   return static_cast<int>(cudaLaunchCooperativeKernel(
-      reinterpret_cast<void*>(solve_global_kernel), dim3(grid),
+      reinterpret_cast<void*>(solve_global_kernel<Src>), dim3(grid),
       dim3(kRowThreads), args, smem, s));
+}
+
+// ---- the sharded step (schur_reduce / schur_solve_reduced)
+
+// one shard's partial reduced system, full [S, S] and [S]: engine mode
+// (raw = 0) the damped, frozen entries of the single-device step; raw mode
+// (raw = 1) the undamped, unfrozen H_cc - fill-in and its rhs
+__global__ void assemble_kernel(BA b, float* Hout, float* rout, int raw) {
+  if (b.done()) return;
+  const int S = b.Sd(), Sp = b.Sp();
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= S * S) return;
+  int i = e / S, j = e % S;
+  if (i > j) {
+    const int t = i;
+    i = j;
+    j = t;
+  }
+  float v;
+  if (raw) {
+    v = j < Sp && i / 6 == j / 6
+        ? b.at<float>(kHcc)[(i / 6) * 27 + ut(6, i % 6, j % 6)] : 0.f;
+    if (b.body) v = v + chain_h(b, i, j);
+    if (j < Sp) v = v - b.at<float>(kFf)[i * Sp + j];
+  } else {
+    v = reduced_h(b, i, j, b.at<float>(kCtrl)[cLam], row_free(b, i),
+                  row_free(b, j));
+  }
+  Hout[e] = v;
+  if (e < S) rout[e] = reduced_rhs(b, e, raw ? 1.f : row_free(b, e));
+}
+
+constexpr int kMaxParts = 16;
+
+struct Parts {
+  const float* h[kMaxParts];
+  const float* r[kMaxParts];
+  int n;
+};
+
+// the partials' sum in shard order
+__global__ void sum_kernel(BA b, Parts p, float* H, float* rhs) {
+  if (b.done()) return;
+  const int S = b.Sd();
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= S * S) return;
+  float a = p.h[0][e];
+  for (int k = 1; k < p.n; ++k) a = a + p.h[k][e];
+  H[e] = a;
+  if (e < S) {
+    float c = p.r[0][e];
+    for (int k = 1; k < p.n; ++k) c = c + p.r[k][e];
+    rhs[e] = c;
+  }
+}
+
+// lower Cholesky of the summed system and the two triangular solves, in
+// one block with the full matrix in shared memory (the reference's
+// cho_factor(lower=True) / cho_solve); a non-positive pivot gives NaN
+__global__ void chol_kernel(BA b, FromSum src) {
+  if (b.done()) return;
+  extern __shared__ float sh[];
+  const int S = b.Sd();
+  float* A = sh;                 // [S, S], the lower triangle used
+  float* x = A + size_t(S) * S;  // [S]
+  float* fr = x + S;             // [S]
+  const float lam = b.at<float>(kCtrl)[cLam];
+  for (int i = threadIdx.x; i < S; i += blockDim.x) fr[i] = row_free(b, i);
+  __syncthreads();
+  for (int e = threadIdx.x; e < S * S; e += blockDim.x) {
+    const int i = e / S, j = e % S;
+    if (j <= i) A[e] = src.h(b, j, i, lam, fr[j], fr[i]);
+  }
+  for (int i = threadIdx.x; i < S; i += blockDim.x) x[i] = src.r(b, i, fr[i]);
+  __syncthreads();
+  for (int k = 0; k < S; ++k) {
+    if (threadIdx.x == 0) A[k * S + k] = sqrtf(A[k * S + k]);
+    __syncthreads();
+    const float d = A[k * S + k];
+    for (int i = k + 1 + threadIdx.x; i < S; i += blockDim.x)
+      A[i * S + k] = A[i * S + k] / d;
+    __syncthreads();
+    const int m = S - k - 1;                  // trailing rows
+    for (int e = threadIdx.x; e < m * m; e += blockDim.x) {
+      const int i = k + 1 + e / m, j = k + 1 + e % m;
+      if (j <= i) A[i * S + j] = A[i * S + j] - A[i * S + k] * A[j * S + k];
+    }
+    __syncthreads();
+  }
+  for (int j = 0; j < S; ++j) {               // L y = rhs
+    if (threadIdx.x == 0) x[j] = x[j] / A[j * S + j];
+    __syncthreads();
+    for (int i = j + 1 + threadIdx.x; i < S; i += blockDim.x)
+      x[i] = x[i] - A[i * S + j] * x[j];
+    __syncthreads();
+  }
+  for (int j = S - 1; j >= 0; --j) {          // L^T dx = y
+    if (threadIdx.x == 0) x[j] = x[j] / A[j * S + j];
+    __syncthreads();
+    for (int i = threadIdx.x; i < j; i += blockDim.x)
+      x[i] = x[i] - A[j * S + i] * x[j];
+    __syncthreads();
+  }
+  float* dx = b.at<float>(kDx);
+  for (int i = threadIdx.x; i < S; i += blockDim.x) dx[i] = x[i] * fr[i];
+}
+
+inline size_t chol_smem(int S) {
+  return (size_t(S) * S + 2 * size_t(S)) * sizeof(float);
 }
 
 }  // namespace
@@ -772,15 +939,104 @@ PLVIO_API int schur_solve(void* const* ptrs, int* ints, const float* flts,
       b);
   gram_reduce_kernel<<<blocks(b.Sp() * b.Sp(), 256), 256, 0, s>>>(b);
   if (!global) {
-    cudaFuncSetAttribute(solve_kernel,
+    cudaFuncSetAttribute(solve_kernel<FromBlocks>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                          static_cast<int>(smem));
-    solve_kernel<<<1, kSolveThreads, smem, s>>>(b);
+    solve_kernel<<<1, kSolveThreads, smem, s>>>(b, FromBlocks());
   } else {
-    const int rc = launch_solve_global(b, s);
+    const int rc = launch_solve_global(b, FromBlocks(), s);
     if (rc != 0) return rc;
   }
   const int m = b.n_kf + b.n_pt + b.n_ln;
   backsub_kernel<<<blocks(m, 128), 128, 0, s>>>(b);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// one shard's partial of the sharded step (the landmark-sharded window
+// BAs): the landmark factors and the Gram operand, the fill-in (the
+// single-device step's stages, unchanged), then the shard's reduced system
+// written to H [S, S] and rhs [S]: engine mode (raw = 0) damped by the
+// shard's own diagonal and its fixed rows frozen, raw mode (raw = 1)
+// neither.  The shard's factors stay in its buffers for the
+// back-substitution.
+PLVIO_API int schur_reduce(void* const* ptrs, int* ints, const float* flts,
+                           void* H, void* rhs, int raw, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const BA b = make_ba(ptrs, ints, flts);
+  if (b.gram_split < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int n = b.n_pt + b.n_ln;
+  if (n > 0) factor_kernel<<<blocks(n, 128), 128, 0, s>>>(b);
+  const int nT = blocks(b.Sp(), kTile);
+  gram_kernel<<<dim3(nT * (nT + 1) / 2, b.gram_split), kGramThreads, 0, s>>>(
+      b);
+  gram_reduce_kernel<<<blocks(b.Sp() * b.Sp(), 256), 256, 0, s>>>(b);
+  assemble_kernel<<<blocks(b.Sd() * b.Sd(), 256), 256, 0, s>>>(
+      b, static_cast<float*>(H), static_cast<float*>(rhs), raw);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the sharded step after the shards' reductions, by stage (ptrs / ints /
+// flts: the first local shard's table at stages 0 and 1, each shard's at
+// stage 2):
+//   0: H, rhs = the n_parts partials summed in shard order (all on this
+//      device);
+//   1: the reduced solve of (H, rhs) into the table's dx: CG (chol = 0,
+//      one block, or the global path beyond it) or Cholesky (chol = 1, one
+//      block); raw = 1 damps and freezes the sum first;
+//   2: the shard's back-substitution and retraction with dx.
+// ints[kSolvePath] reports the CG path (0 one block, 1 global).
+PLVIO_API int schur_solve_reduced(void* const* ptrs, int* ints,
+                                  const float* flts, void* const* hparts,
+                                  void* const* rparts, int n_parts, void* H,
+                                  void* rhs, int stage, int raw, int chol,
+                                  void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const BA b = make_ba(ptrs, ints, flts);
+  const int S = b.Sd();
+  if (stage == 0) {
+    if (n_parts < 1 || n_parts > kMaxParts)
+      return static_cast<int>(cudaErrorInvalidValue);
+    Parts p;
+    for (int k = 0; k < kMaxParts; ++k) {
+      p.h[k] = k < n_parts ? static_cast<const float*>(hparts[k]) : nullptr;
+      p.r[k] = k < n_parts ? static_cast<const float*>(rparts[k]) : nullptr;
+    }
+    p.n = n_parts;
+    sum_kernel<<<blocks(S * S, 256), 256, 0, s>>>(
+        b, p, static_cast<float*>(H), static_cast<float*>(rhs));
+  } else if (stage == 1) {
+    FromSum src{static_cast<const float*>(H), static_cast<const float*>(rhs),
+                raw};
+    if (chol) {
+      const size_t smem = chol_smem(S);
+      if (smem > kSmemMax) return static_cast<int>(cudaErrorInvalidValue);
+      cudaFuncSetAttribute(chol_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem));
+      chol_kernel<<<1, kSolveThreads, smem, s>>>(b, src);
+      ints[kSolvePath] = 0;
+    } else {
+      const size_t smem = solve_smem(S);
+      const bool global = smem > kSmemMax;
+      if (global && size_t(ints[kCgwFloats]) <
+                        size_t(S) * S + S + 2 * blocks(S, kRowThreads))
+        return static_cast<int>(cudaErrorInvalidValue);
+      ints[kSolvePath] = global ? 1 : 0;
+      if (!global) {
+        cudaFuncSetAttribute(solve_kernel<FromSum>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+        solve_kernel<<<1, kSolveThreads, smem, s>>>(b, src);
+      } else {
+        const int rc = launch_solve_global(b, src, s);
+        if (rc != 0) return rc;
+      }
+    }
+  } else if (stage == 2) {
+    const int m = b.n_kf + b.n_pt + b.n_ln;
+    backsub_kernel<<<blocks(m, 128), 128, 0, s>>>(b);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1125,20 +1125,21 @@ class SystemRun(nn.Module):
     `global_refine`.  The configuration is `system_config(**cfg_kw)`
     (production's store and feature counts unless cfg_kw names others:
     `map`, `orb`, `seed`, `use_loop_closing`, ...), or `cfg` where given;
-    `caps`, `viba_caps`, `sampler`, `pnp_sampler`, `sim3_sampler` go to
-    `System`.  forward(S) -> SystemRunOut, S the dict of
+    `caps`, `viba_caps`, `sampler`, `pnp_sampler`, `sim3_sampler` and
+    `dist_mesh` go to `System`.  forward(S) -> SystemRunOut, S the dict of
     `inputs.build_mh_replay` (or `build_tracked_sequence`,
     `build_stereo_replay`, `build_stereo_room`, `build_rgbd_room`)."""
 
     def __init__(self, plain: bool = False, device="cuda", caps=None,
                  viba_caps=None, sampler=None, pnp_sampler=None,
-                 sim3_sampler=None, cfg=None, **cfg_kw):
+                 sim3_sampler=None, cfg=None, dist_mesh=None, **cfg_kw):
         super().__init__()
         self.device = resolve_device(device)
         self.plain = plain
         self.cfg = cfg if cfg is not None else system_config(**cfg_kw)
         self.kw = dict(caps=caps, viba_caps=viba_caps, sampler=sampler,
-                       pnp_sampler=pnp_sampler, sim3_sampler=sim3_sampler)
+                       pnp_sampler=pnp_sampler, sim3_sampler=sim3_sampler,
+                       dist_mesh=dist_mesh)
 
     def new_system(self):
         from .models.system import System
@@ -1635,3 +1636,205 @@ def loop_closure(case: str = "circle", seed: int = 0, device="cuda",
                       cur_kfs=cur_kfs, centres=centres)
     return LoopClosure(case, device=device, plain=plain,
                        gba_caps=gba_caps), inputs
+
+
+# --------------------------------------------------------------------------
+# Slice 15: the sharded back end (plvio_tpu_torch/parallel/)
+# --------------------------------------------------------------------------
+
+DIST_LIBA = dict(n_pt=4096, n_obs=8192, n_ln=256, n_lobs=512, n_kf=16)
+DIST_FULL = dict(n_pt=8192, n_obs=16384, n_ln=512, n_lobs=1024, n_kf=64)
+
+
+def shard_mesh(shards: int, device="cuda"):
+    """A mesh of `shards` shards, all on `device`."""
+    from .parallel.mesh import Mesh
+    return Mesh([resolve_device(device)] * shards)
+
+
+def window_runner_args(A) -> dict:
+    """An inertial window of `inputs.build_inertial_window` (tensors,
+    padded to its caps) as `DistLIBARunner.solve`'s unpadded numpy
+    arguments: the free landmarks and the valid observations."""
+    def np_(k):
+        return A[k].detach().cpu().numpy()
+    n_pt, n_ln = int(np_("pt_free").sum()), int(np_("ln_free").sum())
+    ov, lv = np_("obs_valid"), np_("lobs_valid")
+    return dict(pose_wb=np_("kf_pose_wb"), vel=np_("kf_vel"),
+                bg=np_("kf_bg"), ba=np_("kf_ba"), kf_free=np_("kf_free"),
+                kf_free_bias=np_("kf_free_bias"), obs_kf=np_("obs_kf")[ov],
+                obs_pt=np_("obs_pt")[ov], obs_uv=np_("obs_uv")[ov],
+                obs_is2=np_("obs_is2")[ov], pt_xyz=np_("pt_xyz")[:n_pt],
+                pre_stack={k: v.detach().cpu().numpy()
+                           for k, v in A["pre_const"].items()},
+                imu_info=np_("imu_info"), edge_valid=np_("edge_valid"),
+                rw_g=np_("rw_info_g"), rw_a=np_("rw_info_a"),
+                lobs_kf=np_("lobs_kf")[lv], lobs_ln=np_("lobs_ln")[lv],
+                lobs_eq=np_("lobs_eq")[lv], ln_ep=np_("ln_ep6")[:n_ln])
+
+
+class DistWindow(nn.Module):
+    """One inertial window solve on the landmark-sharded back end
+    (`parallel/dist_liba.DistLIBARunner` on `mesh`, the mapper's buckets):
+    forward(W) -> the runner's numpy (pose_wb, vel, bg, ba, pt_xyz,
+    ln_ep), W the dict of `window_runner_args`."""
+
+    def __init__(self, mesh, plain: bool = False):
+        super().__init__()
+        from .parallel.dist_liba import DistLIBARunner
+        Rcb, tcb = _euroc_extrinsic()
+        self.runner = DistLIBARunner(K_EUROC, Rcb, tcb, 9.81, mesh=mesh,
+                                     plain=plain)
+
+    def forward(self, W):
+        return self.runner.solve(**W)
+
+
+def _euroc_extrinsic():
+    from .inputs import extrinsics
+    Rcb, tcb = extrinsics()
+    return Rcb.astype(np.float32), tcb.astype(np.float32)
+
+
+def dist_window(shards: int = 2, big: bool = False, seed: int = 0,
+                device="cuda", plain: bool = False, sizes=None):
+    """One sharded inertial window at the mapper's bucket: the sliding
+    window's (C = 16; 4096 points, 8192 observations, 256 lines, 512 line
+    observations) or with `big` the full-map window's (C = 64; 8192 /
+    16384 / 512 / 1024), from `inputs.build_inertial_window(seed,
+    perturbed)`; `sizes` replaces the caps (the CPU's reduced runs).
+    Returns (DistWindow on a mesh of `shards` shards of `device`, W (its
+    arguments), A (the window's tensors on the CPU, with its truth))."""
+    from .inputs import build_inertial_window
+    dev = resolve_device(device)
+    z = dict(DIST_FULL if big else DIST_LIBA, **(sizes or {}))
+    A = build_inertial_window(z["n_pt"], z["n_obs"], z["n_ln"], z["n_lobs"],
+                              seed=seed, device="cpu", perturbed=True,
+                              n_kf=z["n_kf"],
+                              n_observers=z.get("n_observers", 5))
+    return DistWindow(shard_mesh(shards, dev), plain=plain), \
+        window_runner_args(A), A
+
+
+def dist_window_solve(mesh, plain: bool = False):
+    """fn(*args) -> (pose_wb, vel, bg, ba, pt_xyz [n_pt], obs_valid,
+    ln_ep [n_ln], lobs_valid) on the args' device: the sharded window
+    solve in `make_local_inertial_ba`'s argument and output layout (args:
+    `models/kernels.LIBA_KEYS` of a window), for `KN.against_float64`
+    against the single-device solve."""
+    from .models.kernels import LIBA_KEYS
+
+    def fn(*args):
+        A = dict(zip(LIBA_KEYS, args))
+        dev = args[0].device
+        out = DistWindow(mesh, plain=plain)(window_runner_args(A))
+        n_pt, n_ln = args[6].shape[0], args[18].shape[0]
+        pts = np.zeros((n_pt, 3), np.float32)
+        pts[:len(out[4])] = out[4]
+        pts[len(out[4]):] = args[6][len(out[4]):].cpu().numpy()
+        lns = args[18].cpu().numpy().copy()
+        if out[5] is not None:
+            lns[:len(out[5])] = out[5]
+        t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        return (t(out[0]), t(out[1]), t(out[2]), t(out[3]), t(pts),
+                args[11], t(lns), args[23])
+    return fn
+
+
+def dist_replay(shards: int = 2, seed: int = 7, cfg_seed: int = 0,
+                device="cuda", plain: bool = False, **kw):
+    """`System` over the MH replay (`mh_replay`'s, cfg.seed = cfg_seed)
+    with the mapper's runner on a mesh of `shards` shards on the one
+    device: every inertial window solve on the sharded back end (kw:
+    `mh_replay`'s)."""
+    from .inputs import build_mh_replay
+    dev = resolve_device(device)
+    S = build_mh_replay(8.0, seed, **kw.pop("replay_kw", {}))
+    return SystemRun(plain=plain, device=dev, seed=cfg_seed,
+                     dist_mesh=shard_mesh(shards, dev), **kw), S
+
+
+def dist_ba_step(shards: int = 2, seed: int = 0, n_cams: int = 4,
+                 n_pts: int = 96, iters: int = 12, device="cuda",
+                 plain: bool = False):
+    """`parallel/dist_ba.make_dist_ba` on the scene of tests/test_dist_ba.py
+    (`inputs.build_dist_ba_scene`, default_rng(seed)) over a mesh of
+    `shards` shards of `device`.  Returns (run, data, scene)."""
+    from .inputs import K_DIST_BA, build_dist_ba_scene
+    from .parallel import dist_ba as DB
+    dev = resolve_device(device)
+    scene = build_dist_ba_scene(np.random.default_rng(seed), n_cams, n_pts)
+    poses_gt, X_gt, poses0, X0, obs_kf, obs_pt, obs_uv = scene
+    _, _, obs_pt_l, valid, (okf_b, ouv_b), (X0_b, free_b) = \
+        DB.bucket_observations(shards, n_pts, obs_pt, (obs_kf, obs_uv),
+                               (X0, np.ones(n_pts, bool)))
+    t = torch.from_numpy
+    data = DB.DistBAData(
+        kf_poses=t(poses0), kf_free=t(np.arange(n_cams) > 0),
+        pt_xyz=t(X0_b), pt_free=t(free_b), obs_kf=t(okf_b.astype(np.int32)),
+        obs_pt=t(obs_pt_l), obs_uv=t(ouv_b), obs_valid=t(valid),
+        obs_is2=t(np.ones(len(valid), np.float32)))
+    run = DB.make_dist_ba(K_DIST_BA, shard_mesh(shards, dev), n_cams,
+                          iters=iters, plain=plain)
+    return run, data, scene
+
+
+def chain_ba_step(shards: int = 2, seed: int = 0, C: int = 16,
+                  pts_per_kf: int = 30, halo: int = 2, outer_iters: int = 6,
+                  device="cuda", plain: bool = False):
+    """`parallel/chain_ba.make_chain_ba` on tests/test_chain_ba.py's chain
+    (`inputs.build_chain_ba_problem`, default_rng(seed)) over a mesh of
+    `shards` shards of `device`, the first keyframe fixed.  Returns (run,
+    data, layout, problem)."""
+    from .inputs import K_CHAIN, build_chain_ba_problem
+    from .parallel import chain_ba as CB
+    dev = resolve_device(device)
+    prob = build_chain_ba_problem(np.random.default_rng(seed), C=C,
+                                  pts_per_kf=pts_per_kf)
+    poses_gt, pts, obs_kf, obs_pt, obs_uv = prob
+    rng = np.random.default_rng(seed + 1)
+    poses0 = poses_gt.copy()
+    poses0[1:, :, 3] += rng.normal(0, 0.03, (C - 1, 3)).astype(np.float32)
+    pts0 = pts + rng.normal(0, 0.03, pts.shape).astype(np.float32)
+    data, layout = CB.partition_chain(
+        shards, halo, np.arange(C), poses0, obs_kf, obs_pt, obs_uv,
+        np.ones(len(obs_kf), np.float32), pts0, fixed_kf=np.array([0]))
+    run = CB.make_chain_ba(K_CHAIN, shard_mesh(shards, dev), layout["Wh"],
+                           data.pt_xyz.shape[1], data.obs_kf.shape[1],
+                           outer_iters=outer_iters, halo=halo, plain=plain)
+    return run, data, layout, prob
+
+
+def chain_liba_step(shards: int = 2, seed: int = 0, n_kf: int = 12,
+                    n_pts: int = 200, n_lns: int = 8, halo: int = 2,
+                    outer_sweeps: int = 3, iters: int = 6, device="cuda",
+                    plain: bool = False):
+    """`parallel/chain_liba.make_chain_liba` on the chain of
+    tests/test_chain_liba.py:193 (`inputs.build_chain_vi_problem`,
+    default_rng(seed); positions moved by 2 cm and velocities by 3 cm/s)
+    over a mesh of `shards` shards of `device`.  Returns (run, data,
+    layout, problem)."""
+    from .inputs import K_CHAIN_VI, build_chain_vi_problem
+    from .parallel import chain_liba as CL
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    prob = build_chain_vi_problem(rng, n_kf=n_kf, n_pts=n_pts, n_lns=n_lns)
+    (pose_gt, vel_gt, X, ln_ep, obs_kf, obs_pt, obs_uv, lobs_kf, lobs_ln,
+     lobs_eq, pre_stack, infos, ev, rwg, rwa) = prob
+    pose0, vel0 = pose_gt.copy(), vel_gt.copy()
+    for i in range(1, n_kf):
+        pose0[i, :, 3] += rng.normal(0, 0.02, 3)
+        vel0[i] += rng.normal(0, 0.03, 3)
+    bgba = np.zeros((n_kf, 3), np.float32)
+    data, layout = CL.partition_chain_vi(
+        shards, halo, n_kf, pose0, vel0, bgba, bgba, obs_kf, obs_pt, obs_uv,
+        np.ones(len(obs_kf), np.float32), X.copy(), pre_stack, infos, ev,
+        rwg, rwa, lobs_kf=lobs_kf, lobs_ln=lobs_ln, lobs_eq=lobs_eq,
+        ln_ep=ln_ep.copy(), fixed_pos=(0,), free_all_biases=False)
+    Rcb, tcb = np.eye(3, dtype=np.float32), np.zeros(3, np.float32)
+    run = CL.make_chain_liba(
+        K_CHAIN_VI, shard_mesh(shards, dev), layout["Wh"],
+        data.pt_xyz.shape[1], data.obs_kf.shape[1], data.ln_ep.shape[1],
+        data.lobs_kf.shape[1], Rcb, tcb, 9.81, halo=halo,
+        outer_sweeps=outer_sweeps, iters=iters, plain=plain)
+    return run, data, layout, prob

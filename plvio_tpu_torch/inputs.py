@@ -20,7 +20,7 @@ from .cuda import resolve_device
 from .entry import K_EUROC, STEREO_BASELINE
 from .io import synthetic as syn
 from .models.kernels import PRE_KEYS
-from .solver.residuals import KB8K
+from .solver.residuals import KB8K, PinholeK
 from .ops import imu as IMU
 from .ops.frontend import make_extractor
 from .ops.lines import LineExtractor
@@ -2635,3 +2635,274 @@ def place_prior_keyframes(m, prior_frames) -> list:
         m.kf_timestamp[kf] = float(i)
         kfs.append(kf)
     return kfs
+
+
+# --------------------------------------------------------------------------
+# The sharded solvers' problems (parallel/): the builders of the
+# reference's tests, kept in the port
+# --------------------------------------------------------------------------
+
+K_CHAIN_VI = K_EUROC
+
+
+def _so3(w) -> np.ndarray:
+    return lie.so3_exp(torch.as_tensor(np.asarray(w, np.float32))).numpy()
+
+
+def build_chain_vi_problem(rng: np.random.Generator, n_kf: int = 24,
+                           n_pts: int = 400, n_lns: int = 24):
+    """The ground-truth orbit chain of tests/test_chain_liba.py:41
+    `_build_problem`: n_kf keyframes at 8 Hz on the radius-1.2 m orbit
+    (Tbc = identity, zero biases), the IMU with EuRoC noise
+    (`synthesize_imu`) preintegrated between them by the port's
+    `ops/imu.preintegrate`, points and line segments in the shell the
+    orbit looks out at, observed noise-free through K_EUROC.  Returns
+    (pose_gt [n,3,4] T_wb, vel_gt, X [n_pts,3], ln_ep [n_lns,6], obs_kf,
+    obs_pt, obs_uv, lobs_kf, lobs_ln, lobs_eq, pre_stack, infos, ev, rwg,
+    rwa) in numpy."""
+    K = K_CHAIN_VI
+    dur, fps = n_kf / 8.0, 8.0
+    traj = syn.make_orbit_trajectory(duration=dur + 0.3, fps=fps,
+                                     radius=1.2)
+    imu = synthesize_imu(rng, dur + 0.3, noise_gyro=1.7e-4,
+                         noise_acc=2.0e-3, bias_gyro_mag=0, bias_acc_mag=0)
+    kf_ids = np.arange(n_kf)
+    calib = IMU.make_calib(ImuConfig())
+    z3 = torch.zeros(3)
+    pose_gt = np.concatenate(
+        [traj.R_wb[kf_ids], traj.p_wb[kf_ids][..., None]], -1
+    ).astype(np.float32)
+    vel_gt = traj.v_wb[kf_ids].astype(np.float32)
+    cols = {key: [] for key in PRE_KEYS}
+    infos, ev, rwg, rwa = [], [], [], []
+    for a, b in zip(kf_ids[:-1], kf_ids[1:]):
+        t0, t1 = traj.timestamps[a], traj.timestamps[b]
+        m = (imu.timestamps > t0) & (imu.timestamps <= t1)
+        ts = imu.timestamps[m]
+        dts = np.diff(np.concatenate([[t0], ts]))
+        p = IMU.preintegrate(
+            torch.as_tensor(imu.gyro[m], dtype=torch.float32),
+            torch.as_tensor(imu.acc[m], dtype=torch.float32),
+            torch.as_tensor(dts, dtype=torch.float32),
+            torch.ones(len(ts), dtype=torch.bool), calib, z3, z3)
+        vals = {"dT": p.dT, "dR": p.dR, "dV": p.dV, "dP": p.dP,
+                "JRg": p.JRg, "JVg": p.JVg, "JVa": p.JVa, "JPg": p.JPg,
+                "JPa": p.JPa, "bg0": p.bias_gyro, "ba0": p.bias_acc}
+        for key in PRE_KEYS:
+            cols[key].append(np.asarray(vals[key].numpy(), np.float32))
+        C = p.C.numpy().astype(np.float64)
+        infos.append(np.linalg.inv(C[:9, :9] + np.eye(9) * 1e-8))
+        ev.append(True)
+        rwg.append(1.0 / max(C[9:12, 9:12].trace() / 3, 1e-12))
+        rwa.append(1.0 / max(C[12:15, 12:15].trace() / 3, 1e-12))
+    pre_stack = {k: np.stack(v) for k, v in cols.items()}
+
+    X = rng.uniform(-3, 3, (n_pts, 3)).astype(np.float32)
+    X[:, 2] = rng.uniform(0.5, 2.0, n_pts)
+    obs_kf, obs_pt, obs_uv = [], [], []
+    for k in range(n_kf):
+        R_wb, p_wb = pose_gt[k, :, :3], pose_gt[k, :, 3]
+        pc = (X - p_wb) @ R_wb
+        uv = np.stack([K.fx * pc[:, 0] / np.maximum(pc[:, 2], 1e-6) + K.cx,
+                       K.fy * pc[:, 1] / np.maximum(pc[:, 2], 1e-6) + K.cy],
+                      -1)
+        vis = (pc[:, 2] > 0.2) & (np.abs(uv[:, 0] - K.cx) < 360) \
+            & (np.abs(uv[:, 1] - K.cy) < 240)
+        ids = np.nonzero(vis)[0]
+        obs_kf.append(np.full(len(ids), k, np.int32))
+        obs_pt.append(ids.astype(np.int32))
+        obs_uv.append(uv[ids].astype(np.float32))
+    obs_kf = np.concatenate(obs_kf)
+    obs_pt = np.concatenate(obs_pt)
+    obs_uv = np.concatenate(obs_uv)
+
+    Ls = rng.uniform(-3, 3, (n_lns, 3)).astype(np.float32)
+    Ls[:, 2] = rng.uniform(0.5, 2.0, n_lns)
+    Le = Ls + rng.normal(0, 0.25, (n_lns, 3)).astype(np.float32)
+    ln_ep = np.concatenate([Ls, Le], -1)
+    lobs_kf, lobs_ln, lobs_eq = [], [], []
+    for k in range(n_kf):
+        R_wb, p_wb = pose_gt[k, :, :3], pose_gt[k, :, 3]
+        for li in range(n_lns):
+            pcs = R_wb.T @ (Ls[li] - p_wb)
+            pce = R_wb.T @ (Le[li] - p_wb)
+            if pcs[2] < 0.2 or pce[2] < 0.2:
+                continue
+            us = np.array([K.fx * pcs[0] / pcs[2] + K.cx,
+                           K.fy * pcs[1] / pcs[2] + K.cy])
+            ue = np.array([K.fx * pce[0] / pce[2] + K.cx,
+                           K.fy * pce[1] / pce[2] + K.cy])
+            if not (abs(us[0] - K.cx) < 360 and abs(us[1] - K.cy) < 240
+                    and abs(ue[0] - K.cx) < 360
+                    and abs(ue[1] - K.cy) < 240):
+                continue
+            l = np.cross(np.append(us, 1.0), np.append(ue, 1.0))
+            l /= max(np.linalg.norm(l[:2]), 1e-9)
+            lobs_kf.append(k)
+            lobs_ln.append(li)
+            lobs_eq.append(l.astype(np.float32))
+    return (pose_gt, vel_gt, X, ln_ep, obs_kf, obs_pt, obs_uv,
+            np.asarray(lobs_kf, np.int32), np.asarray(lobs_ln, np.int32),
+            np.asarray(lobs_eq, np.float32).reshape(-1, 3), pre_stack,
+            np.stack(infos).astype(np.float32), np.asarray(ev),
+            np.asarray(rwg, np.float32), np.asarray(rwa, np.float32))
+
+
+def perturb_chain_vi(rng: np.random.Generator, pose_gt, vel_gt, X, ln_ep,
+                     n_kf: int):
+    """tests/test_dist_liba.py:21 `_perturb`: points and line endpoints
+    moved by 2 cm, keyframes 1.. rotated by ~0.01 rad and moved by 3 cm,
+    velocities by 5 cm/s.  Returns (pose0, vel0, X0, ln0)."""
+    pose0 = pose_gt.copy()
+    vel0 = vel_gt.copy()
+    X0 = X + rng.normal(0, 0.02, X.shape).astype(np.float32)
+    ln0 = ln_ep + rng.normal(0, 0.02, ln_ep.shape).astype(np.float32)
+    for i in range(1, n_kf):
+        w = rng.normal(0, 0.01, 3)
+        pose0[i, :, :3] = pose0[i, :, :3] @ _so3(w)
+        pose0[i, :, 3] += rng.normal(0, 0.03, 3)
+        vel0[i] += rng.normal(0, 0.05, 3)
+    return pose0, vel0, X0, ln0
+
+
+def build_dist_window(seed: int = 0, n_kf: int = 16, n_pts: int = 300,
+                      n_lns: int = 16) -> dict:
+    """A perturbed inertial window for the sharded solvers: the chain of
+    `build_chain_vi_problem` (default_rng(seed)) perturbed by
+    `perturb_chain_vi`, the first keyframe fixed.  Returns a dict of the
+    `DistLIBARunner.solve` arguments (numpy) and the truth (`pose_gt`,
+    `vel_gt`, `X`, `ln_ep`)."""
+    rng = np.random.default_rng(seed)
+    (pose_gt, vel_gt, X, ln_ep, obs_kf, obs_pt, obs_uv, lobs_kf, lobs_ln,
+     lobs_eq, pre_stack, infos, ev, rwg, rwa) = build_chain_vi_problem(
+        rng, n_kf=n_kf, n_pts=n_pts, n_lns=n_lns)
+    pose0, vel0, X0, ln0 = perturb_chain_vi(rng, pose_gt, vel_gt, X, ln_ep,
+                                            n_kf)
+    bgba = np.zeros((n_kf, 3), np.float32)
+    kf_free = np.ones(n_kf, bool)
+    kf_free[0] = False
+    return dict(pose_wb=pose0, vel=vel0, bg=bgba, ba=bgba.copy(),
+                kf_free=kf_free, kf_free_bias=kf_free.copy(), obs_kf=obs_kf,
+                obs_pt=obs_pt, obs_uv=obs_uv,
+                obs_is2=np.ones(len(obs_kf), np.float32), pt_xyz=X0,
+                pre_stack=pre_stack, imu_info=infos, edge_valid=ev,
+                rw_g=rwg, rw_a=rwa, lobs_kf=lobs_kf, lobs_ln=lobs_ln,
+                lobs_eq=lobs_eq, ln_ep=ln0, pose_gt=pose_gt, vel_gt=vel_gt,
+                X=X, ln_gt=ln_ep)
+
+
+K_DIST_BA = K_EUROC
+
+
+def build_dist_ba_scene(rng: np.random.Generator, n_cams: int = 4,
+                        n_pts: int = 96):
+    """tests/test_dist_ba.py:17 `_problem`: n_cams cameras 0.4 m apart
+    looking at n_pts points 6 m ahead (0.3 px noise), every point seen by
+    every camera; the start moves cameras 1.. by ~0.008 rad and 3 cm and
+    the points by 4 cm.  Returns (poses_gt [n,3,4] T_cw, X_gt, poses0, X0,
+    obs_kf, obs_pt, obs_uv)."""
+    K = K_DIST_BA
+    X_gt = rng.uniform(-2, 2, (n_pts, 3)).astype(np.float32)
+    X_gt[:, 2] += 6.0
+    poses_gt = []
+    for c in range(n_cams):
+        w = rng.normal(0, 0.02, 3)
+        t = np.array([0.4 * c, 0.0, 0.0]) + rng.normal(0, 0.02, 3)
+        poses_gt.append(np.concatenate([_so3(w), t[:, None]],
+                                       1).astype(np.float32))
+    poses_gt = np.stack(poses_gt)
+    obs_kf, obs_pt, obs_uv = [], [], []
+    for c in range(n_cams):
+        pc = (poses_gt[c, :, :3] @ X_gt.T).T + poses_gt[c, :, 3]
+        uv = np.stack([K.fx * pc[:, 0] / pc[:, 2] + K.cx,
+                       K.fy * pc[:, 1] / pc[:, 2] + K.cy], -1)
+        uv += rng.normal(0, 0.3, uv.shape)
+        obs_kf.append(np.full(n_pts, c, np.int32))
+        obs_pt.append(np.arange(n_pts, dtype=np.int32))
+        obs_uv.append(uv.astype(np.float32))
+    obs_kf = np.concatenate(obs_kf)
+    obs_pt = np.concatenate(obs_pt)
+    obs_uv = np.concatenate(obs_uv)
+    poses0 = poses_gt.copy()
+    for c in range(1, n_cams):
+        w = rng.normal(0, 0.008, 3)
+        poses0[c, :, :3] = _so3(w) @ poses0[c, :, :3]
+        poses0[c, :, 3] += rng.normal(0, 0.03, 3)
+    X0 = X_gt + rng.normal(0, 0.04, X_gt.shape).astype(np.float32)
+    return (poses_gt, X_gt, poses0.astype(np.float32), X0.astype(np.float32),
+            obs_kf, obs_pt, obs_uv)
+
+
+# tests/test_chain_ba.py's and scripts/multihost_worker.py's cameras
+K_CHAIN = PinholeK(fx=200.0, fy=200.0, cx=128.0, cy=96.0)
+K_MULTIHOST = PinholeK(fx=100.0, fy=100.0, cx=64.0, cy=48.0)
+
+
+def build_chain_ba_problem(rng: np.random.Generator, C: int = 16,
+                           pts_per_kf: int = 30, obs_window: int = 2):
+    """tests/test_chain_ba.py:20 `_chain_problem`: a camera sweeping
+    along x (0.4 m a keyframe), pts_per_kf points ahead of each keyframe
+    seen by its +-obs_window chain neighbours through K_CHAIN (0.3 px
+    noise).  Returns (poses_gt [C,3,4] T_cw, pts, obs_kf, obs_pt,
+    obs_uv)."""
+    K = K_CHAIN
+    poses_gt, pts, obs_kf, obs_pt, obs_uv = [], [], [], [], []
+    for c in range(C):
+        R = _so3(rng.normal(0, 0.02, 3))
+        t = np.array([0.4 * c, 0, 0], np.float32) \
+            + rng.normal(0, 0.05, 3).astype(np.float32)
+        poses_gt.append(np.concatenate([R, t[:, None]], 1).astype(np.float32))
+    poses_gt = np.stack(poses_gt)
+    for c in range(C):
+        C1 = -poses_gt[c, :, :3].T @ poses_gt[c, :, 3]
+        for _ in range(pts_per_kf):
+            X = C1 + np.array([rng.uniform(-1, 1), rng.uniform(-1, 1),
+                               rng.uniform(2.0, 5.0)])
+            pid = len(pts)
+            pts.append(X)
+            for c2 in range(max(0, c - obs_window),
+                            min(C, c + obs_window + 1)):
+                pc = poses_gt[c2, :, :3] @ X + poses_gt[c2, :, 3]
+                if pc[2] < 0.2:
+                    continue
+                uv = np.array([K.fx * pc[0] / pc[2] + K.cx,
+                               K.fy * pc[1] / pc[2] + K.cy])
+                if not (0 <= uv[0] < 256 and 0 <= uv[1] < 192):
+                    continue
+                obs_kf.append(c2)
+                obs_pt.append(pid)
+                obs_uv.append(uv + rng.normal(0, 0.3, 2))
+    return (poses_gt, np.asarray(pts, np.float32),
+            np.asarray(obs_kf, np.int64), np.asarray(obs_pt, np.int64),
+            np.asarray(obs_uv, np.float32))
+
+
+def build_multihost_chain(n_shards: int):
+    """scripts/multihost_worker.py's chain: C = 2 n_shards keyframes 0.3 m
+    apart (identity rotations), 6 points per keyframe seen noise-free by
+    its two neighbours through K_MULTIHOST.  Returns (chain_poses, pts,
+    obs_kf, obs_pt, obs_uv)."""
+    K = K_MULTIHOST
+    rng = np.random.default_rng(0)
+    C = 2 * n_shards
+    chain_poses, pts, okf, opt, ouv = [], [], [], [], []
+    for c in range(C):
+        chain_poses.append(np.concatenate(
+            [np.eye(3, dtype=np.float32),
+             np.array([[0.3 * c], [0.0], [0.0]], np.float32)], 1))
+    chain_poses = np.stack(chain_poses)
+    for c in range(C):
+        for k in range(6):
+            X = np.array([0.3 * c + rng.uniform(-1, 1),
+                          rng.uniform(-1, 1), rng.uniform(2, 4)],
+                         np.float32)
+            pid_ = len(pts)
+            pts.append(X)
+            for c2 in range(max(0, c - 1), min(C, c + 2)):
+                pc = chain_poses[c2, :, :3] @ X + chain_poses[c2, :, 3]
+                okf.append(c2)
+                opt.append(pid_)
+                ouv.append([K.fx * pc[0] / pc[2] + K.cx,
+                            K.fy * pc[1] / pc[2] + K.cy])
+    return (chain_poses, np.asarray(pts, np.float32), np.asarray(okf),
+            np.asarray(opt), np.asarray(ouv, np.float32))

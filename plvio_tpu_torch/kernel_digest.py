@@ -67,6 +67,13 @@ points both trees have) and compare the printed lines:
   its line level, 192 / 64 segments: endpoints, angles, lengths,
   valid and the bf16 gradients (`ed_digests`).
 
+- slice 15 (`python3 kernel_digest.py window` prints the single-device
+  window BAs' lines alone, on every tree: `window_digests`, whose bits
+  must not move with the mesh modes of ba_linearize and the sharded
+  entries of schur_solve; `dist` adds, on a tree that has them, the
+  sharded inertial window of `entry.dist_window` on 1, 2 and 4 shards and
+  dist_ba, chain_ba and chain_liba on 2: `dist_digests`).
+
 Needs one card; JAX is never imported.
 """
 from __future__ import annotations
@@ -493,6 +500,13 @@ def main() -> int:
         for line in ed_digests(torch.device("cuda")):
             print(line)
         return 0
+    if sys.argv[1:2] in (["window"], ["dist"]):
+        for line in window_digests(torch.device("cuda")):
+            print(line)
+        if sys.argv[1:2] == ["dist"]:
+            for line in dist_digests(torch.device("cuda")):
+                print(line)
+        return 0
     from plvio_tpu_torch.entry import MAPPING_TYPICAL, mapping_step
     from plvio_tpu_torch.inputs import perturb_window
     from plvio_tpu_torch.models import kernels as KN
@@ -551,6 +565,63 @@ def main() -> int:
     for line in ed_digests(dev):
         print(line)
     return 0
+
+
+def window_digests(dev):
+    """The single-device window BAs' lines (the existing entries of
+    ba_linearize, inertial_chain and schur_solve beside slice 15's mesh
+    modes and sharded entries), on entry points both trees have: the
+    mapping step (typical bucket, perturbed), the inertial window (both
+    buckets and starts), the pinhole point BA and slice 13's window
+    BAs."""
+    from plvio_tpu_torch.entry import (LIBA_HALF, LIBA_WORST,
+                                       MAPPING_TYPICAL, inertial_ba_step,
+                                       mapping_step)
+    from plvio_tpu_torch.inputs import perturb_window
+    out = []
+    step, A = mapping_step(**MAPPING_TYPICAL, device=dev)
+    P, X = perturb_window(A["kf_poses"].cpu().numpy(),
+                          A["pt_xyz"].cpu().numpy())
+    A["kf_poses"], A["pt_xyz"] = (torch.from_numpy(P).to(dev),
+                                  torch.from_numpy(X).to(dev))
+    with torch.no_grad():
+        o = step(A)
+    out.append("mapping_step typical perturbed " + digest(
+        (o.kf_poses, o.pt_xyz, o.ln_ep6, o.inlier, o.inlier_l)))
+    for bucket, sz in (("worst", LIBA_WORST), ("half", LIBA_HALF)):
+        for pert in (False, True):
+            step, A = inertial_ba_step(**sz, perturbed=pert, device=dev)
+            with torch.no_grad():
+                o = step(A)
+            out.append(f"inertial_ba_step {bucket} perturbed={pert} "
+                       + digest([x for x in o if torch.is_tensor(x)]))
+    out.append("local_ba pinhole points "
+               + pinhole_digests(dev)["local_ba pinhole points"])
+    out += [line for line in slice13_digests(dev)
+            if line.startswith("local_")]
+    return out
+
+
+def dist_digests(dev):
+    """Slice 15's lines: the sharded inertial window (C = 16) on 1, 2 and
+    4 shards of the card, dist_ba, chain_ba and chain_liba on 2."""
+    from plvio_tpu_torch.entry import (chain_ba_step, chain_liba_step,
+                                       dist_ba_step, dist_window)
+    out = []
+    with torch.no_grad():
+        for D in (1, 2, 4):
+            step, W, _ = dist_window(D, device=dev)
+            o = step(W)
+            out.append(f"dist_window D={D} " + digest(
+                [torch.from_numpy(np.ascontiguousarray(x)) for x in o
+                 if x is not None]))
+        run, data, _ = dist_ba_step(2, device=dev)
+        out.append("dist_ba D=2 " + digest(run(data)))
+        run, data, _, _ = chain_ba_step(2, device=dev)
+        out.append("chain_ba D=2 " + digest(run(data)))
+        run, data, _, _ = chain_liba_step(2, device=dev)
+        out.append("chain_liba D=2 " + digest(run(data)))
+    return out
 
 
 def bow_pnp_digests(dev):

@@ -1010,7 +1010,7 @@ _BA_PTRS = (
     "hcc", "hpt", "hln", "fpt", "fln", "occ_pt", "occ_ln",
     "gm", "gpart", "rr", "ff", "dx", "ctrl",
     "kfx", "ckfx", "kf_free_bias", "pre", "imu_info", "edge_valid", "rw_g",
-    "rw_a", "link", "link_cost", "ccost", "cgw", "lobs_dir")
+    "rw_a", "link", "link_cost", "ccost", "cgw", "lobs_dir", "mcost")
 # column chunks of schur_solve's Gram fill-in (partial tiles summed in order)
 GRAM_SPLIT = 24
 BA_LINEARIZE = cuda.Kernel("ba_linearize", "ba_linearize",
@@ -1038,6 +1038,11 @@ SCHUR_SOLVE = cuda.Kernel("schur_solve", "schur_solve", [_P, _P, _P, _P])
 # `solve_global_kernel`)
 SCHUR_SOLVE.global_launches = 0
 BA_MODE_LINEARIZE, BA_MODE_DECIDE, BA_MODE_INIT, BA_MODE_REGATE = range(4)
+# ba_linearize's mesh modes (the landmark-sharded window BA): a shard's
+# partial cost of the candidate / of the state into ctrl[2]; the start of a
+# round / the accept-reject from the mesh's summed cost in `mcost`
+(BA_MODE_PARTIAL_CAND, BA_MODE_PARTIAL_STATE, BA_MODE_MESH_INIT,
+ BA_MODE_MESH_DECIDE) = range(4, 8)
 
 
 def solve_fits(S: int) -> bool:
@@ -1129,6 +1134,7 @@ class _BAWork:
         t["cgw"] = buf(cg_workspace_floats(
             S if inertial is None else 15 * n_kf))
         t["lobs_dir"] = buf(1) if lobs_dir is None else lobs_dir
+        t["mcost"] = buf(1)
         if inertial is None:
             for name in _LIBA_PTRS:
                 t[name] = buf(1)
@@ -1147,6 +1153,8 @@ class _BAWork:
         for name in _BA_PTRS:
             if t[name].numel() and not t[name].is_contiguous():
                 raise ValueError(f"local BA: {name} is not contiguous")
+        self.device = dev
+        self.S = S if inertial is None else 15 * n_kf
         kb8 = isinstance(K, RES.KB8K)
         if line_mode and (n_obs or inertial is not None or kb8
                           or lobs_dir is None):
@@ -3011,3 +3019,106 @@ def linearization_against_plain(w: "_BAWork", prob, st) -> dict:
 BA_ROWS = ((4, 5, 6, 7, 8), (11, 12, 13, 14, 15))
 LIBA_ROWS = ((8, 9, 10, 11, 12), (20, 21, 22, 23))
 LINES_ONLY_ROWS = ((4, 5, 6, 7, 8, 9),)
+
+
+# --------------------------------------------------------------------------
+# The sharded step of the landmark-sharded and chained window BAs
+# (plvio_tpu_torch/parallel/): one shard's partial reduced system, then the
+# mesh's sum, its solve and each shard's back-substitution
+# --------------------------------------------------------------------------
+
+SCHUR_REDUCE = cuda.Kernel("schur_solve", "schur_reduce",
+                           [_P, _P, _P, _P, _P, _I, _P])
+_SSR_ARGS = [_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _P]
+# the same entry in its two solves, counted apart: CG (dist_liba) and
+# Cholesky (dist_ba, chain_ba)
+SCHUR_SOLVE_REDUCED_CG = cuda.Kernel("schur_solve", "schur_solve_reduced",
+                                     _SSR_ARGS)
+SCHUR_SOLVE_REDUCED_CHOL = cuda.Kernel("schur_solve", "schur_solve_reduced",
+                                       _SSR_ARGS)
+SCHUR_SOLVE_REDUCED_CG.global_launches = 0
+CHOL_MAX_S = 240     # csrc/schur_solve.cu chol_kernel: S x S + 2 S floats
+
+
+def _system_bufs(w: "_BAWork", h: str, r: str):
+    """A reduced system's buffers [S, S] and [S] in w's table under the
+    names h and r (made at first use)."""
+    t = w.t
+    if h not in t:
+        t[h] = torch.zeros(w.S, w.S, dtype=torch.float32, device=w.device)
+        t[r] = torch.zeros(w.S, dtype=torch.float32, device=w.device)
+    return t[h], t[r]
+
+
+def schur_reduce(w: "_BAWork", raw: bool = False):
+    """One shard's partial reduced system (csrc/schur_solve.cu
+    `schur_reduce`) after its linearization: (H [S,S], rhs [S]) in the
+    shard's buffers, in engine mode damped by the shard's own diagonal and
+    its fixed rows frozen, in raw mode neither (the plain version:
+    `solver/engine.Problem.reduce_system` on the shard's problem, engine
+    mode; `parallel/dist_ba.local_reduce_plain`, raw mode)."""
+    H, rhs = _system_bufs(w, "hred", "rred")
+    with torch.cuda.device(w.device):
+        SCHUR_REDUCE.launch(*w.args, cuda.ptr(H), cuda.ptr(rhs), int(raw),
+                            cuda.stream())
+    return H, rhs
+
+
+def schur_solve_reduced(works, parts, mesh=None, raw: bool = False,
+                        chol: bool = False) -> None:
+    """The sharded step after the shards' reductions (csrc/schur_solve.cu
+    `schur_solve_reduced`): the partials `parts` [(H_d, rhs_d)] of the
+    local shards `works` summed in shard order on the first shard's
+    device (partials on another device copied there first), all-reduced
+    across the mesh's processes where it has several, solved there (CG, or
+    with `chol` Cholesky; `raw` damps and freezes the sum first) into the
+    first shard's dx, and every shard back-substituted and retracted with
+    it into its candidate state.  One launch counted a call."""
+    kern = SCHUR_SOLVE_REDUCED_CHOL if chol else SCHUR_SOLVE_REDUCED_CG
+    w0 = works[0]
+    if chol and w0.S > CHOL_MAX_S:
+        raise ValueError(f"schur_solve_reduced: Cholesky takes S <= "
+                         f"{CHOL_MAX_S}, not {w0.S}")
+    hs = [h if h.device == w0.device else h.to(w0.device) for h, _ in parts]
+    rs = [r if r.device == w0.device else r.to(w0.device) for _, r in parts]
+    n = len(hs)
+    hp = (ctypes.c_void_p * n)(*[h.data_ptr() for h in hs])
+    rp = (ctypes.c_void_p * n)(*[r.data_ptr() for r in rs])
+    H, rhs = _system_bufs(w0, "hsum", "rsum")
+    none = ctypes.c_void_p(0)
+    with torch.cuda.device(w0.device):
+        kern.launch(*w0.args, ctypes.cast(hp, ctypes.c_void_p),
+                    ctypes.cast(rp, ctypes.c_void_p), n, cuda.ptr(H),
+                    cuda.ptr(rhs), 0, int(raw), int(chol), cuda.stream(),
+                    kernels=0)
+        if mesh is not None and mesh.world > 1:
+            mesh._all_reduce(H)
+            mesh._all_reduce(rhs)
+        kern.launch(*w0.args, none, none, 0, cuda.ptr(H), cuda.ptr(rhs), 1,
+                    int(raw), int(chol), cuda.stream())
+    if not chol:
+        SCHUR_SOLVE_REDUCED_CG.global_launches += w0.solve_path()
+    for w in works[1:]:
+        w.t["dx"].copy_(w0.t["dx"])
+    for w in works:
+        with torch.cuda.device(w.device):
+            kern.launch(*w.args, none, none, 0, none, none, 2, int(raw),
+                        int(chol), cuda.stream(), kernels=0)
+
+
+def reduced_solve_plain(H, rhs, free, lam, raw: bool, chol: bool):
+    """Plain version of schur_solve_reduced's solve of a summed system:
+    raw mode damps, H + diag(diag(H) lam + 1e-6), and freezes the fixed
+    rows first; CG with the engine's count or Cholesky; dx times free."""
+    S = H.shape[0]
+    if raw:
+        H = H + torch.diag(torch.diagonal(H) * lam + 1e-6)
+        H = H * free[:, None] * free[None, :] + torch.diag(1.0 - free)
+        rhs = rhs * free
+    if chol:
+        L, info = torch.linalg.cholesky_ex(H)
+        dx = torch.cholesky_solve(rhs[:, None], L)[:, 0]
+        dx = torch.where(info == 0, dx, torch.full_like(dx, float("nan")))
+    else:
+        dx = E._cg_solve(H, rhs, iters=min(max(S // 2, 16), 128))
+    return dx * free

@@ -30,9 +30,15 @@ reference calls `np.asarray`, and each such read is counted in
 any device.  Each device call depends on the bookkeeping of the calls
 before it, so the calls are not batched.
 
-Not ported, each for a later part of the port: the multi-device window
-solve (`_dist_runner`, models/local_mapping.py:140-157; one card takes
-the single-device path, as the reference does on one device), the KB8
+The sharded window solve (models/local_mapping.py:140-157, 1446-1489):
+with an IMU and no KB8 lens, `dist_mesh` or the production rule of
+`parallel/mesh.default_mesh` (PLVIO_DIST=1 forces it, PLVIO_DIST=0 forbids
+it, otherwise more than one visible card turns it on) builds a
+`parallel/dist_liba.DistLIBARunner`, and every inertial window solve (the
+sliding window, the VIBA pulses, the full-map BA) goes through it; its
+solves are recorded in `ba_calls` with path "dist".
+
+Not ported, each for a later part of the port: the KB8
 the PLVIO_TRACE prints.  A KB8 camera (`kb8`) runs its lens through the
 point edges of every window BA (`ba_K`: the point+line and the inertial
 windows too, their line edges on its pinhole fx, fy, cx, cy) and the fuse
@@ -81,7 +87,7 @@ class LocalMapper(HostIO):
                  ba_kf_cap: int = 16, ba_pt_cap: int = 4096,
                  ba_obs_cap: int = 8192, imu_init_cap: int = 32,
                  device="cuda",
-                 plain: bool = False, dtype=torch.float32):
+                 plain: bool = False, dtype=torch.float32, dist_mesh=None):
         self.cfg = cfg
         # the window solves' and the IMU init's float inputs go in this
         # dtype (float64 only for the plain versions: a reference run)
@@ -167,6 +173,21 @@ class LocalMapper(HostIO):
             self.viba_ln_cap = 512 if self.use_lines else 0
             self.viba_lobs_cap = 1024 if self.use_lines else 0
             self.viba_kernel = None
+        # the sharded back end (models/local_mapping.py:140-157): every
+        # inertial window solve goes through the landmark-sharded solver
+        # when a mesh is given or the production rule asks for one; a KB8
+        # map keeps the single-device kernel (the sharded point edge is
+        # the pinhole's)
+        self._dist_runner = None
+        if self.use_imu and self.kb8 is None:
+            from ..parallel.mesh import default_mesh
+            mesh = dist_mesh if dist_mesh is not None \
+                else default_mesh(self.device)
+            if mesh is not None:
+                from ..parallel.dist_liba import DistLIBARunner
+                self._dist_runner = DistLIBARunner(
+                    self.K, self.R_cb, self.t_cb, cfg.imu.gravity,
+                    mesh=mesh, plain=plain, dtype=dtype)
 
         self.n_bound = 0
         self.n_merged = 0
@@ -875,13 +896,18 @@ class LocalMapper(HostIO):
     def _stack_consts(self, preints, cap):
         """The stacked preintegration constants [cap-1, ...] on the device,
         identity-filled where a link has none."""
+        return {key: self._sol(v)
+                for key, v in self._stack_consts_np(preints, cap).items()}
+
+    def _stack_consts_np(self, preints, cap):
+        """`_stack_consts` in numpy (float32)."""
         ident = IMU.identity_preintegrated(device="cpu")
         ident = IMU.Preintegrated(*(np.asarray(v) for v in ident))
         vals = [preints[i] if i < len(preints) and preints[i] is not None
                 else ident for i in range(cap - 1)]
-        return {key: self._sol(np.stack(
+        return {key: np.stack(
             [np.asarray(self._pre_const(p)[key], np.float32)
-             for p in vals])) for key in self._pre_const(ident)}
+             for p in vals]) for key in self._pre_const(ident)}
 
     def _chain_gs_inputs(self, chain, cap):
         """Padded (pose_R, pose_p, stacked preint consts, infos,
@@ -1335,6 +1361,12 @@ class LocalMapper(HostIO):
         obs_is2 = np.concatenate(obs_is2)[:obs_cap]
         n_obs = len(obs_kf)
 
+        if self._dist_runner is not None:
+            self._dist_window(win, n, cap, kf_free, kf_free_bias,
+                              self._stack_consts_np(preints, cap), infos, edge_valid, rw_g, rw_a, pt_ids, obs_kf,
+                              obs_pt, obs_uv, obs_is2, ln_cap, lobs_cap)
+            return
+
         # the half-cap bucket when the window fits it
         if not big and len(pt_ids) <= pt_cap // 2 \
                 and n_obs <= obs_cap // 2:
@@ -1406,6 +1438,52 @@ class LocalMapper(HostIO):
             m.ln_ep[ln_ids[okl]] = ln_new[okl]
         self._erase_window_outliers(win, pt_ids, obs_kf, obs_pt,
                                     obs_uv, obs_is2)
+
+    def _dist_window(self, win, n, cap, kf_free, kf_free_bias, stack, infos,
+                     edge_valid, rw_g, rw_a, pt_ids, obs_kf, obs_pt, obs_uv,
+                     obs_is2, ln_cap, lobs_cap) -> None:
+        """The window solve on the sharded back end (reference
+        models/local_mapping.py:1446-1489): the same inputs unpadded,
+        the same finite guards and write-back, then the outlier erase."""
+        m = self.map
+        if ln_cap > 0:
+            ln_ids, lobs_kf, lobs_ln, lobs_eq = \
+                self._window_line_obs(win, ln_cap, lobs_cap)
+        else:
+            ln_ids = np.zeros(0, np.int32)
+            lobs_kf = lobs_ln = np.zeros(0, np.int32)
+            lobs_eq = np.zeros((0, 3), np.float32)
+        stack_np = {k: v[:n - 1] for k, v in stack.items()}
+        runner = self._dist_runner
+        dropped = runner.n_dropped
+        (pose_o, vel_o, bg_o, ba_o, pts_o, lns_o) = runner.solve(
+            m.kf_pose_wb[win], m.kf_vel[win], m.kf_bias_g[win],
+            m.kf_bias_a[win], kf_free[:n], kf_free_bias[:n], obs_kf, obs_pt,
+            obs_uv, obs_is2.astype(np.float32), m.pt_xyz[pt_ids], stack_np,
+            np.asarray(infos)[:n - 1], edge_valid[:n - 1],
+            np.asarray(rw_g)[:n - 1], np.asarray(rw_a)[:n - 1],
+            lobs_kf=lobs_kf, lobs_ln=lobs_ln, lobs_eq=lobs_eq,
+            ln_ep=m.ln_ep[ln_ids] if len(ln_ids) else None)
+        self.host_syncs += 6
+        self.ba_calls.append(dict(path="dist", window=n,
+                                  iters=runner.last_stats,
+                                  dropped=runner.n_dropped - dropped))
+        okf = (np.isfinite(pose_o).all((1, 2)) & np.isfinite(vel_o).all(1)
+               & np.isfinite(bg_o).all(1) & np.isfinite(ba_o).all(1))
+        fr = kf_free[:n] & okf
+        m.kf_pose_wb[win[fr]] = pose_o[fr]
+        m.kf_vel[win[fr]] = vel_o[fr]
+        frb = kf_free_bias[:n] & okf
+        m.kf_bias_g[win[frb]] = bg_o[frb]
+        m.kf_bias_a[win[frb]] = ba_o[frb]
+        m.set_cam_poses_from_body(win[fr], self.Tbc)
+        okp = np.isfinite(pts_o).all(1)
+        m.pt_xyz[pt_ids[okp]] = pts_o[okp]
+        if lns_o is not None and len(ln_ids):
+            okl = np.all(np.isfinite(lns_o), axis=1)
+            m.ln_ep[ln_ids[okl]] = lns_o[okl]
+        self._erase_window_outliers(win, pt_ids, obs_kf, obs_pt, obs_uv,
+                                    obs_is2)
 
     # ------------------------------------------------------------------
     # Keyframe culling

@@ -194,12 +194,19 @@ class System:
     window caps (production's by default) and `local_pts_cap` the
     tracker's; `sampler` / `pnp_sampler` give the bootstrap's and
     relocalization's RANSAC samples (models/tracking.py), `sim3_sampler`
-    the loop closer's (models/loop_closing.py)."""
+    the loop closer's (models/loop_closing.py).  `dist_mesh` is
+    plumbing, not a feature: a `parallel/mesh.Mesh` handed to the mapper,
+    whose inertial window solves then run on the landmark-sharded back end
+    (the reference picks that back end from the devices it sees; the port
+    follows the same rule, `parallel/mesh.default_mesh`, when no mesh is
+    given).  `metrics_summary()` counts the sharded window solves
+    ("mapping/dist_solves") and the observations their sharding dropped
+    ("mapping/dist_dropped_obs")."""
 
     def __init__(self, cfg: SystemConfig, async_mapping: bool = False,
                  device="cuda", plain: bool = False, caps=None,
                  viba_caps=None, local_pts_cap: int = 2048, sampler=None,
-                 pnp_sampler=None, sim3_sampler=None):
+                 pnp_sampler=None, sim3_sampler=None, dist_mesh=None):
         from ..ops.frontend import OrbExtractor, make_level_specs
         from ..ops.lines import LineExtractor
         from .kfdb import AtlasKeyFrameDatabase
@@ -246,7 +253,7 @@ class System:
         self.tracker.metrics = self.metrics
         self.mapper = LocalMapper(cfg, self.atlas, self.n_feat,
                                   device=self.device, plain=plain,
-                                  **(caps or {}))
+                                  dist_mesh=dist_mesh, **(caps or {}))
         for k, v in (viba_caps or {}).items():
             setattr(self.mapper, k, v)
         self.mapper.kfdb = self.kfdb
@@ -448,8 +455,14 @@ class System:
             self.loop_closer.run_global_ba(fixed_kf=int(chain[0]))
 
     def metrics_summary(self) -> dict:
-        """Per-stage wall time and counters (`Metrics.summary`)."""
-        return self.metrics.summary()
+        """Per-stage wall time and counters (`Metrics.summary`), with the
+        sharded back end's window solves and dropped observations."""
+        out = self.metrics.summary()
+        runner = self.mapper._dist_runner
+        if runner is not None:
+            out["mapping/dist_solves"] = {"calls": runner.n_solves}
+            out["mapping/dist_dropped_obs"] = {"calls": runner.n_dropped}
+        return out
 
     def shutdown(self) -> None:
         """PLVIO_METRICS=<path>: the stage summary written on shutdown."""

@@ -5,7 +5,7 @@ one CUDA card.
 
     python3 -m plvio_tpu_torch.profile_frames \
         [sequence | tracked | system | loop | mh_loop | stereo |
-         stereo_points | kb8 | kb8_vi | line_modes | ed]
+         stereo_points | kb8 | kb8_vi | line_modes | ed | dist]
 
 Builds the synthetic inputs of `chip_smoke.py` (EuRoC geometry: 480x752,
 1000 ORB features, 256 line features, 2048 map points, 128 map lines; 16
@@ -76,7 +76,10 @@ with the IMU (`entry.kb8_vi_replay`, 8 s), without and with lines, and
 `ed` runs the MH replay under the ED line detector with the prior-map
 relocalizer (`entry.ed_replay`) with the same figures, the relocalizer's
 stage and its alignment attempt's wall and device ms, then the STEREO
-room under the ED detector (`entry.ed_stereo_room`).
+room under the ED detector (`entry.ed_stereo_room`).  `dist` profiles
+the sharded inertial window solve at C = 16 and 64 on 1, 2 and 4 shards
+of the card and `System` over the MH replay on 2 shards
+(`profile_dist`).
 
 Prints the card's `nvidia-smi` name and power limit first.  Needs one
 card; JAX is never imported.
@@ -703,6 +706,33 @@ def profile_ed(dev):
     _profile_run(step, S, "STEREO room with lines, ED detector")
 
 
+def profile_dist(dev):
+    """Slice 15: one sharded inertial window solve (`entry.dist_window`,
+    C = 16 and C = 64) on 1, 2 and 4 shards of the card, 4 solves a pass
+    (wall and device busy ms, idle share, the device kernels with the most
+    time per solve; 6 host reads a solve, its outputs), then `System` over
+    the MH replay with the mapper's runner on 2 shards
+    (`entry.dist_replay`, loop closing off) with the per-frame figures of
+    `system`."""
+    for big in (False, True):
+        for D in (1, 2, 4):
+            step, Wa, _ = E.dist_window(D, big=big, device=dev)
+
+            def run(step=step, Wa=Wa):
+                with torch.no_grad():
+                    for _ in range(N_LIBA):
+                        step(Wa)
+            profile(f"sharded window solve, C = {64 if big else 16}, D = "
+                    f"{D} (6 host reads a solve)", step, run, N_LIBA,
+                    spans=no_spans, unit="solve")
+    step, S = E.dist_replay(2, device=dev, use_loop_closing=False)
+    _profile_run(step, S, "System over the MH replay, 2 shards",
+                 lambda out: f"sharded window solves "
+                 f"{out.metrics['mapping/dist_solves']['calls']}, dropped "
+                 f"observations "
+                 f"{out.metrics['mapping/dist_dropped_obs']['calls']}")
+
+
 def _per_name(dev_ev):
     per = defaultdict(lambda: [0, 0.0])
     for _, d, name in dev_ev:
@@ -751,6 +781,9 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["ed"]:
         profile_ed(dev)
+        return 0
+    if sys.argv[1:] == ["dist"]:
+        profile_dist(dev)
         return 0
     (frames, poses, pt_xyz, pt_desc, pt_valid, ln_ep6, ln_desc, ln_valid,
      traj) = build_inputs(N_FRAMES, CAP_PTS, CAP_LNS, H, W,

@@ -418,6 +418,17 @@ class Problem:
         """The damped step from an assembled system (`solve_step` after
         `build_normal_equations`): damping, Schur reduction, the reduced
         solve, back-substitution and retraction.  Returns new_states."""
+        H, rhs, schur, free = self.reduce_system(layout, H, g, lm_sys, lam,
+                                                 dense_free_mask,
+                                                 lm_free_mask)
+        dx = self.solve_reduced(H, rhs, free)
+        return self.back_substitute(layout, states, dx, schur)
+
+    def reduce_system(self, layout, H, g, lm_sys, lam, dense_free_mask=None,
+                      lm_free_mask=None):
+        """Damping, the Schur reduction of every landmark family and the
+        freeze of the fixed rows: (H, rhs, schur, free).  On a mesh this
+        is one shard's partial (reference engine.py:467-538)."""
         S = H.shape[0]
         free = torch.ones(S, dtype=H.dtype, device=H.device)
         if dense_free_mask:
@@ -437,6 +448,11 @@ class Problem:
         # fill-in does not couple them back into the solve
         H = H * free[:, None] * free[None, :] + torch.diag(1.0 - free)
         rhs = rhs * free
+        return H, rhs, schur, free
+
+    def solve_reduced(self, H, rhs, free):
+        """The reduced solve (CG or Cholesky), dx times the free mask."""
+        S = H.shape[0]
         if self.linear_solver == "cg":
             dx = _cg_solve(H, rhs, iters=min(max(S // 2, 16), 128))
         else:
@@ -446,7 +462,11 @@ class Problem:
             # cho_factor
             dx = torch.where(info == 0, dx,
                              torch.full_like(dx, float("nan")))
-        dx = dx * free
+        return dx * free
+
+    def back_substitute(self, layout, states, dx, schur):
+        """The landmarks' back-substitution and every block's retraction
+        by the reduced step dx: new_states."""
         new_states = dict(states)
         for name, (Dinv, B3, gp, occupied) in schur.items():
             rhs_p = gp - torch.einsum("spi,s->pi", B3, dx)
@@ -538,25 +558,92 @@ def optimize(problem: Problem, states, iters: int = 10, lam0: float = 1e-4,
     step changes the cost by less than early_tol relative.  Returns
     (states, final cost, chi2_by_term).  The early exit reads the cost on
     the host (the kernel path decides it on the device).  `stats`, if
-    given, gets the number of iterations run appended."""
-    cost_prev, _ = problem.cost(states)
-    lam = torch.tensor(lam0, dtype=cost_prev.dtype, device=cost_prev.device)
+    given, gets the number of iterations run appended.  The one-shard case
+    of `optimize_sharded`."""
+    st, cost, chi2s = optimize_sharded(
+        None, [problem], [states], iters, lam0,
+        None if dense_free_mask is None else [dense_free_mask],
+        None if lm_free_mask is None else [lm_free_mask], early_tol, stats)
+    return st[0], cost, chi2s[0]
+
+
+def _psum(mesh, parts):
+    """The mesh's sum of the local shards' partials (mesh None: one shard,
+    its partial as it is)."""
+    return parts[0] if mesh is None else mesh.psum(parts)
+
+
+def _replicate(mesh, x):
+    """x on every local shard's device (mesh None: one shard)."""
+    return [x] if mesh is None else mesh.replicate(x)
+
+
+def solve_step_sharded(mesh, problems, states, lam, dense_free_mask=None,
+                       lm_free_mask=None):
+    """One damped step of a problem on `mesh` (the reference's
+    `psum_axis`), from the local shards' partial problems `problems` (the
+    dense states replicated, each shard its own landmark families and
+    their observations) and their states: each shard builds and reduces
+    its own partial system (damped by its own diagonal, its landmarks
+    eliminated, its fixed rows frozen: the reduced system sums D x 1e-6
+    and a D diagonal on the fixed rows, as the reference's psum does),
+    the mesh sums the reduced systems, the first shard's device solves
+    the sum once (every JAX device solves the same sum), and each shard
+    back-substitutes its own landmarks with the same step.  mesh None is
+    one problem on one device (`Problem.solve_step`'s operations).
+    Returns the new states, one dict a local shard."""
+    parts = []
+    for i, prob in enumerate(problems):
+        layout, H, g, lm_sys, _, _ = prob.build_normal_equations(states[i])
+        parts.append((layout,) + prob.reduce_system(
+            layout, H, g, lm_sys, lam[i],
+            None if dense_free_mask is None else dense_free_mask[i],
+            None if lm_free_mask is None else lm_free_mask[i]))
+    H = _psum(mesh, [p[1] for p in parts])
+    rhs = _psum(mesh, [p[2] for p in parts])
+    dx = problems[0].solve_reduced(H, rhs, parts[0][4].to(H.device))
+    dxs = _replicate(mesh, dx)
+    return [prob.back_substitute(parts[i][0], states[i], dxs[i], parts[i][3])
+            for i, prob in enumerate(problems)]
+
+
+def cost_sharded(mesh, problems, states):
+    """(the mesh's summed cost, replicated on every local shard's device;
+    each shard's chi2 by term)."""
+    costs, chi2s = zip(*[p.cost(st) for p, st in zip(problems, states)])
+    return _replicate(mesh, _psum(mesh, list(costs))), list(chi2s)
+
+
+def optimize_sharded(mesh, problems, states, iters: int = 10,
+                     lam0: float = 1e-4, dense_free_mask=None,
+                     lm_free_mask=None, early_tol: float = 0.0,
+                     stats: Optional[list] = None):
+    """`optimize` over `mesh`: problems, states, dense_free_mask and
+    lm_free_mask are lists over the local shards, every LM decision reads
+    the mesh's summed cost, so every shard takes the same one.  Returns
+    (states, final cost, chi2_by_term), the first and last one entry a
+    local shard."""
+    states = list(states)
+    cost_prev, _ = cost_sharded(mesh, problems, states)
+    lam = [torch.tensor(lam0, dtype=c.dtype, device=c.device)
+           for c in cost_prev]
     it = 0
     for it in range(1, iters + 1):
-        new_states, _, _ = problem.solve_step(states, lam, dense_free_mask,
-                                              lm_free_mask)
-        new_cost, _ = problem.cost(new_states)
-        accept = new_cost < cost_prev
-        states = {k: torch.where(accept, new_states[k], states[k])
-                  for k in states}
-        lam = torch.clamp(torch.where(accept, lam * 0.5, lam * 4.0),
-                          1e-8, 1e4)
-        rel = torch.abs(new_cost - cost_prev) \
-            / torch.clamp_min(cost_prev, 1e-20)
-        cost_prev = torch.where(accept, new_cost, cost_prev)
+        new_states = solve_step_sharded(mesh, problems, states, lam,
+                                        dense_free_mask, lm_free_mask)
+        new_cost, _ = cost_sharded(mesh, problems, new_states)
+        for i in range(len(problems)):
+            accept = new_cost[i] < cost_prev[i]
+            states[i] = {k: torch.where(accept, new_states[i][k],
+                                        states[i][k]) for k in states[i]}
+            lam[i] = torch.clamp(torch.where(accept, lam[i] * 0.5,
+                                             lam[i] * 4.0), 1e-8, 1e4)
+            rel = torch.abs(new_cost[i] - cost_prev[i]) \
+                / torch.clamp_min(cost_prev[i], 1e-20)
+            cost_prev[i] = torch.where(accept, new_cost[i], cost_prev[i])
         if early_tol > 0.0 and bool(rel < early_tol):
             break
     if stats is not None:
         stats.append(it)
-    final_cost, chi2s = problem.cost(states)
-    return states, final_cost, chi2s
+    final_cost, chi2s = cost_sharded(mesh, problems, states)
+    return states, final_cost[0], chi2s

@@ -170,7 +170,8 @@ def test_port_never_loads_jax():
     relocalizer aligned on a hand-made live map of its prior set
     (`inputs.place_prior_keyframes`); the mapping step of the KB8 camera;
     the loop closer on the drifted circle, its global BA at 32
-    keyframes)."""
+    keyframes; one sharded inertial window of 8 keyframes on 2 shards
+    through `dist_window`, and `dist_replay` on 3 frames)."""
     code = (
         "import sys\n"
         "import torch\n"
@@ -308,6 +309,17 @@ def test_port_never_loads_jax():
         "lo = lq(LI)\n"
         "assert lo.loops == 1 and lo.err_after < 0.12 and "
         "lo.verifications >= 1\n"
+        "import plvio_tpu_torch.parallel.multihost\n"
+        "from plvio_tpu_torch.entry import dist_replay, dist_window\n"
+        "dw, DW, _ = dist_window(2, device='cpu', sizes=dict(n_pt=256, "
+        "n_obs=512, n_ln=16, n_lobs=32, n_kf=8, n_observers=3))\n"
+        "do = dw(DW)\n"
+        "assert do[0].shape == (8, 3, 4) and dw.runner.n_solves == 1\n"
+        "dr, DR = dist_replay(2, device='cpu', replay_kw=dict(n_points=500, "
+        "n_lines=50, n_frames=3), **small)\n"
+        "dro = dr(DR)\n"
+        "assert len(dro.frames) == 3 and "
+        "dro.system.mapper._dist_runner.D == 2\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'plvio_tpu'))\n"
         "assert not bad, bad\n"
