@@ -35,7 +35,9 @@ exit, no result line) unless every phase passes:
    level, on the 16 frames, within 1e-4 grey levels; slice 9's
    `bow_transform` bit-equal to the plain pipeline on the ORB and LBD
    descriptors of every 4th frame of the MH replay, `bow_score` within
-   1e-6 on a 512-row bank of those frames, `pnp_ransac` and
+   1e-6 on a 512-row bank of those frames, alone and with the line bank
+   in one launch (`bow_score_pair`), the same bits on a second launch, -1
+   exactly on every masked row and an all-masked bank, `pnp_ransac` and
    `mlpnp_refine` against the plain version's float64 run on the same
    samples, `ops.pnp.kernels_against_float64`);
 4. slice 1, `tracking_step_pl`: 16 synthetic frames with the pose carried,
@@ -120,11 +122,16 @@ exit, no result line) unless every phase passes:
    launch window of its own with every kernel of the path launched; on
    the inputs those runs gave them, `sim3_ransac` (the path's samples and
    the card's own), `sim3_reproj` (with and without fix_scale) and
-   `pose_graph` (Sim3 and 4-DoF at S = 119 in one block; the 601-keyframe
-   chain at 301 anchors and a 512-keyframe chain, S = 3584, on the global
-   path) held to their plain versions' float64 runs (within 2x the plain
-   float32 run's distance + 1e-6, the same bits on a second launch, the
-   path reported), `hamming_match`'s matrix mode equal to plain; the
+   `pose_graph` (Sim3 and 4-DoF at S = 119 and the circle with three
+   past-loop arrows, the factor resident in shared memory; the 601-keyframe
+   chain at 301 anchors and a 512-keyframe chain, S = 3584, streamed; a
+   revisited 512-keyframe map and 400 random edges over 200 keyframes,
+   whose fill sends them to the grid path) held to their plain versions'
+   float64 runs (within 2x the plain float32 run's distance + 1e-6, the
+   same bits on a second launch, the path reported equal to the intended
+   one and to `KN.pg_path`'s), an indefinite
+   graph's step rejected as the plain version's, `hamming_match`'s matrix
+   mode equal to plain; the
    global BA of phase 11's final map at 128 KF with lines (schur_solve's
    global path, the reprojection RMS not above the input's); then
    `System` with its default configuration (loop closing on) over the 28
@@ -392,8 +399,15 @@ KERNELS = {
 # global path, counted in KN.SCHUR_SOLVE.global_launches), and the TPU
 # kernel it replaces
 GLOBAL = ("schur_solve_global", "plvio_tpu/solver/engine.py:256")
-# pose_graph's launches whose Cholesky took the cooperative global path
+# pose_graph's launches whose factor did not fit shared memory: streamed
+# by one block (path 1, counted in KN.POSE_GRAPH.global_launches), or the
+# whole grid on it where the fill is heavy (path 2, grid_launches; timed
+# on a revisited map)
 GLOBAL_PG = ("pose_graph_global", "plvio_tpu/models/kernels.py:488")
+FILL_PG = ("pose_graph_grid", "plvio_tpu/models/kernels.py:488",
+           "Sim3, a revisited 512-KF map (its last 50 KF joined to its "
+           "first 50)")
+PG_PATHS = ("resident", "streamed", "grid")
 PATH_PL = ("orb_fast_grid", "orb_describe", "hamming_match", "pose_irls",
            "line_detect", "line_refine_lbd")
 PATH_VI = ("orb_fast_grid", "orb_describe", "hamming_match", "line_detect",
@@ -744,6 +758,42 @@ def cuda_ms(fn, reps=20, warmup=3):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def cuda_ms_spread(fn, reps=20, warmup=1):
+    """Device milliseconds of fn() timed alone `reps` times (CUDA events
+    around each call, warm-up excluded): (median, min, max)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    got = []
+    for _ in range(reps):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        fn()
+        t1.record()
+        torch.cuda.synchronize()
+        got.append(t0.elapsed_time(t1))
+    got.sort()
+    return got[len(got) // 2], got[0], got[-1]
+
+
+def device_ms(fn, reps=20, warmup=3):
+    """Mean device milliseconds of the kernels fn() launches (torch.profiler
+    over `reps` calls): the card's time without the host's enqueue, for
+    calls short enough that `cuda_ms` reads the host."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / reps / 1e3
 
 
 def nbytes(*objs):
@@ -2252,13 +2302,15 @@ def reset_counts():
         k.launches = 0
     KN.SCHUR_SOLVE.global_launches = 0
     KN.POSE_GRAPH.global_launches = 0
+    KN.POSE_GRAPH.grid_launches = 0
     KN.SCHUR_SOLVE_REDUCED_CG.global_launches = 0
 
 
 def read_counts():
     return {**{name: k.launches for name, (k, _) in KERNELS.items()},
             GLOBAL[0]: KN.SCHUR_SOLVE.global_launches,
-            GLOBAL_PG[0]: KN.POSE_GRAPH.global_launches}
+            GLOBAL_PG[0]: KN.POSE_GRAPH.global_launches,
+            FILL_PG[0]: KN.POSE_GRAPH.grid_launches}
 
 
 def run_slice3(dev, pl_step, imgs, pose0, map_args, smi):
@@ -2982,6 +3034,7 @@ def check_system_kernels(S, report):
     pipes = {k: (V.make_bow_pipeline(v, 0), V.make_bow_pipeline(v, 0, True))
              for k, v in vocs.items()}
     bank = torch.zeros(512, vocs["orb"].n_words, device=dev)
+    bank_l = torch.zeros(512, vocs["lbd"].n_words, device=dev)
     n_ids = descs[0][0].shape[0]
     ids = torch.full((512, n_ids), -1, dtype=torch.int32, device=dev)
     bad = 0
@@ -2989,7 +3042,7 @@ def check_system_kernels(S, report):
         for r, (d, v, ld, lv) in enumerate(descs):
             wk, bk = pipes["orb"][0](d, v, ids_out=ids[r], bow_out=bank[r])
             wp, bp = pipes["orb"][1](d, v)
-            lk, lbk = pipes["lbd"][0](ld, lv)
+            lk, lbk = pipes["lbd"][0](ld, lv, bow_out=bank_l[r])
             lp, lbp = pipes["lbd"][1](ld, lv)
             bad += not (torch.equal(wk, wp) and torch.equal(bk, bp)
                         and torch.equal(lk, lp) and torch.equal(lbk, lbp))
@@ -3009,24 +3062,71 @@ def check_system_kernels(S, report):
     mask = torch.zeros(512, dtype=torch.bool, device=dev)
     mask[:len(descs)] = True
     q = bank[len(descs) // 2].clone()
+    ql = bank_l[len(descs) // 2].clone()
+    mask_l = mask & (bank_l.sum(1) > 0)
     sk = V.bow_score(q, bank, mask)
+    sk2 = V.bow_score(q, bank, mask)
     sp = V.score_plain(q, bank, mask)
+    n0 = V.BOW_SCORE.launches
+    pk = V.bow_score_pair(q, bank, mask, ql, bank_l, mask_l)
+    pair_launches = V.BOW_SCORE.launches - n0
+    pk2 = V.bow_score_pair(q, bank, mask, ql, bank_l, mask_l)
+    pp = V.score_pair_plain(q, bank, mask, ql, bank_l, mask_l)
+    none = torch.zeros_like(mask)
+    sn = V.bow_score(q, bank, none)
     lib = 1.0 - 0.5 * torch.cdist(q[None], bank, p=1)[0]
     torch.cuda.synchronize()
     e_score = float((sk - sp).abs().max())
+    e_pair = float((pk - pp).abs().max())
     e_lib = float((torch.where(mask, lib, -1.0) - sp).abs().max())
     check(e_score <= 1e-6 and int(torch.argmax(sk)) == len(descs) // 2,
           f"bow_score: a replay frame's bag against the 512-row bank of "
           f"{len(descs)} frames within {e_score:.2e} of the plain version "
           f"(<= 1e-6), its own row best (torch.cdist: {e_lib:.2e})")
-    # the kernel reads only the rows the mask lets in (a masked row
-    # returns at once): their bags, the query, the mask; 512 scores out
+    check(torch.equal(sk, sk2) and torch.equal(pk, pk2)
+          and bool((sk[~mask] == -1.0).all())
+          and bool((pk[0][~mask] == -1.0).all())
+          and bool((pk[1][~mask_l] == -1.0).all())
+          and bool((sn == -1.0).all()),
+          "bow_score: the same bits on a second launch (one bank and both), "
+          "-1 exactly on every masked row, an all-masked bank all -1")
+    check(e_pair <= 1e-6 and pair_launches == 1
+          and torch.equal(pk[0], sk),
+          f"bow_score_pair: the point and line banks ({int(mask_l.sum())} "
+          f"line rows) in {pair_launches} launch within {e_pair:.2e} of the "
+          "plain version (<= 1e-6), the point row equal to bow_score's")
+    # the kernel reads only the rows the mask lets in (a masked row costs
+    # a mask read): their bags, the query, the mask; 512 scores out
     W_, rows_in = voc.n_words, int(mask.sum())
+    Wl, rows_l = vocs["lbd"].n_words, int(mask_l.sum())
     report["bow_score"] = dict(
         **work(4 * (rows_in * W_ + W_ + 512) + 512, 3 * rows_in * W_),
         max_abs_err=e_score, ms=cuda_ms(lambda: V.bow_score(q, bank, mask)),
         plain_ms=cuda_ms(lambda: V.score_plain(q, bank, mask)),
         library_ms=cuda_ms(lambda: torch.cdist(q[None], bank, p=1)))
+    pw = work(4 * (rows_in * W_ + W_ + rows_l * Wl + Wl + 1024) + 1024,
+              3 * (rows_in * W_ + rows_l * Wl))
+    report["bow_score"]["extra"] = dict(
+        device_ms=device_ms(lambda: V.bow_score(q, bank, mask)),
+        library_device_ms=device_ms(
+            lambda: torch.cdist(q[None], bank, p=1)),
+        pair=dict(
+        ms=cuda_ms(lambda: V.bow_score_pair(q, bank, mask, ql, bank_l,
+                                            mask_l)),
+        plain_ms=cuda_ms(lambda: V.score_pair_plain(q, bank, mask, ql,
+                                                    bank_l, mask_l)),
+        library_ms=cuda_ms(lambda: (torch.cdist(q[None], bank, p=1),
+                                    torch.cdist(ql[None], bank_l, p=1))),
+        bound_ms=pw["bound_ms"], max_abs_err=e_pair, rows=rows_in,
+        line_rows=rows_l))
+    r = report["bow_score"]
+    print(f"  bow_score: {rows_in} of 512 rows live, {r['ms']:.4f} ms (bound "
+          f"{r['bound_ms']:.6f}, cdist {r['library_ms']:.4f}); on the card "
+          f"alone (profiler) {r['extra']['device_ms']:.5f} ms, cdist's "
+          f"{r['extra']['library_device_ms']:.5f} ms; with the line "
+          f"bank ({rows_l} rows) in one launch "
+          f"{r['extra']['pair']['ms']:.4f} ms (two cdist "
+          f"{r['extra']['pair']['library_ms']:.4f})")
     gaps = {}
     for name in PNP_CASES:
         uv, X, valid, _ = build_pnp_case(name)
@@ -3421,32 +3521,90 @@ def check_loop_kernels(rec, report, smi):
         rec["pose_graph"].calls[n0][0][11]
     graphs.append((f"Sim3, a {n_full}-KF chain (the capacity)", fargs,
                    False, n_full))
-    errs = []
-    for what, a, four, n_act in graphs:
+    # the circle's graph with three past-loop arrows between free keyframes
+    # (measured from the graph's own states)
+    from plvio_tpu_torch.utils import lie
+    arr = [t.clone() for t in gargs[:9]]
+    n_c = int(gargs[11])
+    ne = int(arr[7].sum())
+    stc = arr[0][:n_c].double().cpu()
+    for k, (i, j) in enumerate(((n_c - 2, 2), (n_c - 5, 4), (n_c - 1, 7))):
+        Si = (stc[i, :9].view(3, 3), stc[i, 9:12], stc[i, 12])
+        Sj = (stc[j, :9].view(3, 3), stc[j, 9:12], stc[j, 12])
+        Rm, tm, sm = lie.sim3_mul(*Sj, *lie.sim3_inv(*Si))
+        e = ne + k
+        arr[2][e], arr[3][e] = i, j
+        arr[4][e], arr[5][e], arr[6][e] = Rm.float(), tm.float(), sm.float()
+        arr[7][e], arr[8][e] = True, 1.0
+    graphs.append(("Sim3, the circle with three past-loop arrows", arr,
+                   False, n_c))
+    # graphs whose long-range edges fill the factor: a revisited map (a
+    # 512-keyframe chain, covisibility two back, its last 50 keyframes
+    # joined to its first 50) and 400 random edges over 200 keyframes
+    from plvio_tpu_torch.kernel_digest import random_graph, revisit_graph
+    filled = (FILL_PG[2], "Sim3, 200 keyframes with 400 random edges")
+    graphs.append((filled[0], [torch.from_numpy(x).to(dev) for x in
+                               revisit_graph(512, 50, 5)], False, 512))
+    graphs.append((filled[1], [torch.from_numpy(x).to(dev) for x in
+                               random_graph(200, 400, 200)], False, 200))
+    # (label, args, four_dof, n_active, the path it must take: 0 the factor
+    # resident in shared memory, 1 streamed through a window there, 2 the
+    # whole grid on it in global memory)
+    graphs = [(*gr, 1 if "chain" in gr[0] else 2 if gr[0] in filled else 0)
+              for gr in graphs]
+    errs, info = [], {}
+    for what, a, four, n_act, want in graphs:
         r = KN.pose_graph_against_float64(a, four_dof=four, n_active=n_act)
-        print(f"  pose_graph {what}: S = {r['S']}, path "
-              f"{('one block', 'global')[r['path']]}, kernel "
+        info[what] = r
+        print(f"  pose_graph {what}: S = {r['S']}, {r['nb']} pattern blocks, "
+              f"{r['n_updates']} block updates an iteration, path "
+              f"{PG_PATHS[r['path']]}, kernel "
               f"{r['kernel']:.2e} / plain {r['plain']:.2e} from float64, "
               f"the float64 solve moved a state by {r['step']:.3f}")
         check(not r["failures"],
               f"pose_graph {what} (S = {r['S']}, "
-              f"{('one block', 'global')[r['path']]} path): within 2x the "
+              f"{PG_PATHS[r['path']]} path): within 2x the "
               "plain float32 run's distance to float64 + 1e-6, the same bits "
               f"on a second launch {r['failures']}")
-        check(r["path"] == (1 if r["S"] > KN.PG_ONE_BLOCK_MAX_S else 0),
-              f"pose_graph reported the {('one block', 'global')[r['path']]}"
-              f" path at S = {r['S']}")
+        check(r["path"] == want == r["want"],
+              f"pose_graph reported the {PG_PATHS[r['path']]} path at S = "
+              f"{r['S']} ({r['nb']} blocks, {r['n_updates']} updates; "
+              f"intended {PG_PATHS[want]}, `KN.pg_path`: "
+              f"{PG_PATHS[r['want']]})")
         errs.append(r["kernel"])
+    # an indefinite graph: a negative information edge makes the first
+    # damped matrix indefinite, the step is rejected as the plain version's
+    ind = [t.clone() for t in gargs[:9]]
+    ind[8][0] = -1e4
+    r = KN.pose_graph_against_float64(ind, four_dof=False, n_active=n_c,
+                                      iters=1)
+    kk = KN.pose_graph(*ind, iters=1, n_active=n_c)
+    check(not r["failures"] and torch.equal(kk, ind[0]),
+          f"pose_graph on an indefinite graph (edge 0's information -1e4): "
+          f"the step rejected, the states returned unchanged as the plain "
+          f"version's ({r['plain']:.2e} from float64) {r['failures']}")
     # a graph's work: 15 iterations of the edges' 14-direction
-    # linearization (~1500 operations a direction), the blocks' sums, the
-    # factorization S^3 / 3 and two solves, the retraction and two cost
-    # passes (~700 operations an edge); bytes: states in and out, edges
-    for key, (what, a, four, n_a) in (("pose_graph", graphs[0]),
-                                      (GLOBAL_PG[0], graphs[3])):
+    # linearization (~1500 operations a direction), the blocks' sums and two
+    # cost passes (~700 operations an edge) and the retraction; the
+    # factorization and both solves on the pattern these inputs need: 686
+    # an update L_ij -= L_ik L_jk^T, 392 a block below a diagonal (its
+    # rows times the inverse factor), ~500 a diagonal block (its factor and
+    # inverse), 98 a block in the solves (the dense figure: S^3 / 3 and two
+    # dense solves); bytes: states in and out, edges
+    for key, what in (("pose_graph", graphs[0][0]),
+                      (GLOBAL_PG[0], graphs[3][0]),
+                      ("chain_601", graphs[2][0]),
+                      (FILL_PG[0], FILL_PG[2])):
+        a, four, n_a = next((g[1], g[2], g[3]) for g in graphs
+                            if g[0] == what)
+        r = info[what]
         E_ = int(a[7].sum())
         S = 7 * n_a
-        ops = 15 * (E_ * (14 * 1500 + 2 * 700 + 2 * 49 * 14) + S ** 3 / 3
-                    + 2 * S * S + n_a * 400)
+        base = E_ * (14 * 1500 + 2 * 700 + 2 * 49 * 14) + n_a * 400
+        ops = 15 * (base + 686 * r["n_updates"] + 392 * (r["nb"] - n_a)
+                    + 500 * n_a + 98 * r["nb"])
+        dense = work(4 * (13 * n_a * 2 + E_ * 16 + n_a),
+                     15 * (base + S ** 3 / 3 + 2 * S * S))
         Hs = torch.randn(S, S, device=dev)
         Hs = Hs @ Hs.T + S * torch.eye(S, device=dev)
         g = torch.randn(S, 1, device=dev)
@@ -3454,19 +3612,52 @@ def check_loop_kernels(rec, report, smi):
         def library():
             for _ in range(15):
                 torch.cholesky_solve(g, torch.linalg.cholesky(Hs))
-        report[key] = dict(
+        # the kernel and the library each timed alone 20 times: the
+        # medians, and the spreads beside them
+        k_ms = cuda_ms_spread(lambda: KN.pose_graph(
+            *a, four_dof=four, n_active=n_a), reps=20)
+        l_ms = cuda_ms_spread(library, reps=20)
+        rep = dict(
             **work(4 * (13 * n_a * 2 + E_ * 16 + n_a), ops),
-            max_abs_err=errs[0 if key == "pose_graph" else 3],
-            ms=cuda_ms(lambda: KN.pose_graph(*a, four_dof=four,
-                                             n_active=n_a), reps=3,
-                       warmup=1),
+            max_abs_err=r["kernel"], ms=k_ms[0],
             plain_ms=cuda_ms(lambda: KN.pose_graph_compacted_plain(
                 *a, four_dof=four, n_active=n_a), reps=1, warmup=1),
-            library_ms=cuda_ms(library, reps=2, warmup=1))
-        print(f"  pose_graph, {what}: S = {S}, {E_} edges; plain: the "
-              "engine's float32 LM with torch's Cholesky, on the card; "
+            library_ms=l_ms[0])
+        st = {}
+        KN.pose_graph(*a, four_dof=four, n_active=n_a, stats=st,
+                      profile=True)
+        phases = [round(x / 1e6, 4) for x in st["phases_ns"].tolist()]
+        rep["extra"] = dict(S=S, blocks=r["nb"], updates=r["n_updates"],
+                            path=PG_PATHS[r["path"]],
+                            dense_bound_ms=dense["bound_ms"],
+                            phases_ms=phases, ms_min_max=k_ms[1:],
+                            library_ms_min_max=l_ms[1:])
+        if r["path"] != 0:
+            # the same solve by one block (path 1, streamed) and by the
+            # grid (path 2): the evidence for `KN.pg_path`'s rule
+            rep["extra"]["ms_by_path"] = {
+                PG_PATHS[q]: cuda_ms_spread(lambda q=q: KN.pose_graph(
+                    *a, four_dof=four, n_active=n_a, path=q), reps=5)[0]
+                for q in (1, 2)}
+        if key == "chain_601":
+            report[GLOBAL_PG[0]]["extra"]["S_2107"] = dict(
+                ms=rep["ms"], plain_ms=rep["plain_ms"],
+                library_ms=rep["library_ms"], bound_ms=rep["bound_ms"],
+                **rep["extra"])
+        else:
+            report[key] = rep
+        print(f"  pose_graph, {what}: S = {S}, {E_} edges, {r['nb']} blocks, "
+              f"{r['n_updates']} updates, {PG_PATHS[r['path']]} path: "
+              f"{rep['ms']:.4f} ms ({k_ms[1]:.4f}-{k_ms[2]:.4f}; library "
+              f"{rep['library_ms']:.4f}, {l_ms[1]:.4f}-{l_ms[2]:.4f}; plain "
+              f"{rep['plain_ms']:.4f}), bound {rep['bound_ms']:.6f} ms "
+              f"(dense {dense['bound_ms']:.6f}); the launch's ms in "
+              f"linearize / assemble / forward / backward / update+cost "
+              f"{phases}; by path {rep['extra'].get('ms_by_path')}; "
+              "ms: medians of 20 launches timed alone (min-max); plain: "
+              "the engine's float32 LM with torch's Cholesky, on the card; "
               "library: 15 x torch.linalg.cholesky + cholesky_solve at the "
-              f"same S, on {smi}")
+              f"same S, 20 times; on {smi}")
     (a, b), _ = rec["hamming_dist"].calls[0]
     hk = M.hamming_dist(a, b)
     hp = M.hamming_dist_plain(a, b)
@@ -6238,7 +6429,9 @@ def run_phases(dev, smi, render):
     for name, (k, replaces) in [*KERNELS.items(),
                                 (GLOBAL[0], (KN.SCHUR_SOLVE, GLOBAL[1])),
                                 (GLOBAL_PG[0], (KN.POSE_GRAPH,
-                                                GLOBAL_PG[1]))]:
+                                                GLOBAL_PG[1])),
+                                (FILL_PG[0], (KN.POSE_GRAPH,
+                                              FILL_PG[1]))]:
         rep = report[name]
         lib = rep.get("library_ms")
         print(f"  {name}: {rep['ms']:.4f} ms, plain {rep['plain_ms']:.4f} ms,"
@@ -6262,7 +6455,8 @@ def run_phases(dev, smi, render):
                          max_abs_err=rep["max_abs_err"], ms=rep["ms"],
                          plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"],
                          bound_by=rep["bound_by"],
-                         library_ms=rep.get("library_ms")))
+                         library_ms=rep.get("library_ms"),
+                         **rep.get("extra", {})))
     for key, what in ((GLOBAL[0], "64 KF inertial window with lines"),
                       (GLOBAL[0] + "_128", "128 KF point-only window")):
         rep = report[key]

@@ -12,11 +12,14 @@
 // products with the node's k children as a batched matmul; the bag is a
 // scatter-add and a division; the score a dense |v - w| reduction.
 //
-// What bounds them on the H100: launch latency.  A keyframe has ~1000 ORB
-// descriptors (32 B each) and 4 levels of 10 children: 40 000 32-byte
-// popcount comparisons, ~1.3 MB of centroid reads from L2; the bag is 40
-// KB.  A query against a bank of 512 keyframes x 10 000 words reads 20 MB
-// (6 us at 3.35 TB/s).
+// What bounds them on the H100: launch latency and, for bow_score, the
+// latency of its reads.  A keyframe has ~1000 ORB descriptors (32 B each)
+// and 4 levels of 10 children: 40 000 32-byte popcount comparisons, ~1.3
+// MB of centroid reads from L2; the bag is 40 KB.  A query against a bank
+// of 512 keyframes x 10 000 words touches only the rows its mask lets in
+// (the keyframes present and not excluded: ~42 rows of 40 KB, 1.7 MB, 0.5
+// us at 3.35 TB/s), so the score is a few dependent round trips to memory
+// and a reduction, not bandwidth.
 //
 // bow_transform: one block of 1024 threads, one warp per descriptor at a
 // time.  The levels whose rows fit 48 KB (0-2 of both shipped
@@ -31,9 +34,19 @@
 // are written straight into the rows the caller gives (the database's
 // bank rows).
 //
-// bow_score: one block of 256 threads per bank row; each thread sums
-// |v - w| over its strided words in order, then a fixed tree reduction;
-// 1 - 0.5 s, or -1 where the row is masked.
+// bow_score: one launch a query, for the point bank and, where given, the
+// line bank (rows [0, K) and [K, 2K) of one list).  A fixed grid of
+// 256-thread blocks reads the masks, ranks the rows they let in with warp
+// ballots, and deals the live rows round-robin to the blocks, so a
+// masked-out row costs no block (its -1 is written by the block the row
+// falls to).  A live row is summed in one fixed order, bit for bit the
+// order this kernel has always used: thread t adds |v - w| over words t,
+// t + 256, ... in turn, then a halving tree over the 256 partials.  The
+// loop detector keeps the rows whose score is above 0, and two disjoint
+// bags score 0 up to the last bit of that sum, so its decisions follow
+// the order (a faster order, 16-byte loads with four partial sums a
+// thread, turned candidates around on SLAM mode 3's replay).  A thread's
+// loads, 32 at a time, are issued before its adds.  1 - 0.5 s.
 #include "common.cuh"
 
 namespace {
@@ -41,6 +54,8 @@ namespace {
 constexpr int kThreads = 1024;
 constexpr int kStageBytes = 48 * 1024;
 constexpr int kScoreThreads = 256;
+constexpr int kScoreUnroll = 32;    // loads a thread issues before its adds
+constexpr int kScoreBlocks = 128;
 
 __global__ void bow_transform_kernel(const uint32_t* __restrict__ table,
                                      int k, int depth, int staged_rows,
@@ -100,27 +115,79 @@ __global__ void bow_transform_kernel(const uint32_t* __restrict__ table,
     bow[i] = static_cast<float>(hist[i]) / den;
 }
 
-__global__ void bow_score_kernel(const float* __restrict__ v,
-                                 const float* __restrict__ bank,
-                                 const bool* __restrict__ mask, int W,
-                                 float* __restrict__ out) {
-  __shared__ float part[kScoreThreads];
-  const int r = blockIdx.x;
-  if (!mask[r]) {
-    if (threadIdx.x == 0) out[r] = -1.0f;
-    return;
-  }
-  const float* w = bank + static_cast<size_t>(r) * W;
+// |v - w|_1 of one row by the whole block, in the fixed order above
+__device__ float l1_row(const float* __restrict__ v,
+                        const float* __restrict__ w, int W, float* part) {
+  const int t = threadIdx.x;
   float s = 0.0f;
-  for (int i = threadIdx.x; i < W; i += kScoreThreads)
-    s += fabsf(v[i] - w[i]);
-  part[threadIdx.x] = s;
+  for (int i0 = t; i0 < W; i0 += kScoreUnroll * kScoreThreads) {
+    float a[kScoreUnroll], b[kScoreUnroll];
+#pragma unroll
+    for (int k = 0; k < kScoreUnroll; ++k) {
+      const int i = i0 + k * kScoreThreads;
+      a[k] = i < W ? v[i] : 0.0f;
+      b[k] = i < W ? w[i] : 0.0f;
+    }
+#pragma unroll
+    for (int k = 0; k < kScoreUnroll; ++k)
+      if (i0 + k * kScoreThreads < W) s += fabsf(a[k] - b[k]);
+  }
+  part[t] = s;
   __syncthreads();
   for (int h = kScoreThreads / 2; h > 0; h >>= 1) {
-    if (threadIdx.x < h) part[threadIdx.x] += part[threadIdx.x + h];
+    if (t < h) part[t] += part[t + h];
     __syncthreads();
   }
-  if (threadIdx.x == 0) out[r] = 1.0f - 0.5f * part[0];
+  const float tot = part[0];
+  __syncthreads();
+  return tot;
+}
+
+struct Bank {
+  const float* v;
+  const float* rows;
+  const bool* mask;
+  int W;
+};
+
+__global__ void __launch_bounds__(kScoreThreads)
+bow_score_kernel(Bank b0, Bank b1, int K, int n_rows,
+                 float* __restrict__ out) {
+  __shared__ int wcnt[kScoreThreads / 32];
+  __shared__ int mine[kScoreThreads];
+  __shared__ float part[kScoreThreads];
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int G = gridDim.x, me = blockIdx.x;
+  int base = 0;  // live rows ranked before this chunk
+  for (int c0 = 0; c0 < n_rows; c0 += kScoreThreads) {
+    const int row = c0 + t;
+    const bool live = row < n_rows &&
+                      (row < K ? b0.mask[row] : b1.mask[row - K]);
+    const unsigned bal = __ballot_sync(0xffffffffu, live);
+    if (lane == 0) wcnt[warp] = __popc(bal);
+    __syncthreads();
+    int off = 0, total = 0;
+    for (int w = 0; w < kScoreThreads / 32; ++w) {
+      off += w < warp ? wcnt[w] : 0;
+      total += wcnt[w];
+    }
+    const int rank = base + off + __popc(bal & ((1u << lane) - 1u));
+    // this block's live rows of the chunk: ranks r0, r0 + G, ...
+    const int r0 = base + ((me - base % G) % G + G) % G;
+    const int count = base + total > r0 ? (base + total - 1 - r0) / G + 1 : 0;
+    if (live && rank % G == me) mine[(rank - r0) / G] = row;
+    if (row < n_rows && !live && row % G == me) out[row] = -1.0f;
+    __syncthreads();
+    for (int m = 0; m < count; ++m) {
+      const int r = mine[m];
+      const Bank& bk = r < K ? b0 : b1;
+      const int rr = r < K ? r : r - K;
+      const float s = l1_row(bk.v, bk.rows + size_t(rr) * bk.W, bk.W, part);
+      if (t == 0) out[r] = 1.0f - 0.5f * s;
+    }
+    base += total;
+    __syncthreads();
+  }
 }
 
 }  // namespace
@@ -149,11 +216,20 @@ PLVIO_API int bow_transform(const void* table, int k, int depth,
   return cudaGetLastError();
 }
 
+// Scores of v against bank rows [K, W] (out[0, K)) and, where v1 is given,
+// of v1 against bank1 [K, W1] (out[K, 2K)), -1 where the mask is off.
 PLVIO_API int bow_score(const void* v, const void* bank, const void* mask,
-                        int rows, int W, void* out, void* stream) {
-  bow_score_kernel<<<rows, kScoreThreads, 0,
+                        int K, int W, const void* v1, const void* bank1,
+                        const void* mask1, int W1, void* out, void* stream) {
+  const Bank b0{static_cast<const float*>(v), static_cast<const float*>(bank),
+                static_cast<const bool*>(mask), W};
+  const Bank b1{static_cast<const float*>(v1),
+                static_cast<const float*>(bank1),
+                static_cast<const bool*>(mask1), W1};
+  const int n_rows = v1 ? 2 * K : K;
+  const int grid = n_rows < kScoreBlocks ? n_rows : kScoreBlocks;
+  bow_score_kernel<<<grid, kScoreThreads, 0,
                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(v), static_cast<const float*>(bank),
-      static_cast<const bool*>(mask), W, static_cast<float*>(out));
+      b0, b1, K, n_rows, static_cast<float*>(out));
   return cudaGetLastError();
 }

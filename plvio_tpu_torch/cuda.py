@@ -108,8 +108,12 @@ def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-def stream() -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+def stream(index: int = None) -> ctypes.c_void_p:
+    """The current stream of CUDA device `index` (default: the current
+    device), as a pointer, without building a torch Stream object."""
+    if index is None:
+        index = torch.cuda.current_device()
+    return ctypes.c_void_p(torch._C._cuda_getCurrentRawStream(index))
 
 
 class Kernel:

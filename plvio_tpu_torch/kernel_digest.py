@@ -45,6 +45,12 @@ points both trees have) and compare the printed lines:
   column on two thirds of the 1500 points, the VI case with one on two
   thirds of its 1024 points (drawn after the mono case's numbers), with
   and without the prior;
+- `pg_times` (not digests; a tree beside another): `pose_graph`'s ms
+  on each path the tree's kernel offers, on the circle's size, the
+  closer's chains, a revisited map and a randomly filled graph, beside
+  the library's dense solves (`pose_graph_times`); `line_mode3 [seeds]`:
+  SLAM mode 3's counts over the MH replay at those cfg.seeds
+  (`line_mode_counts`);
 - slice 12 (on a tree that has them; `python3 kernel_digest.py kb8` or
   `stereo_points` prints that mode's lines alone): `pose_lm` stereo on
   `stereo_lm_case` (1500 rows, a u_R column on two thirds, 20% outliers),
@@ -500,6 +506,15 @@ def main() -> int:
         for line in ed_digests(torch.device("cuda")):
             print(line)
         return 0
+    if sys.argv[1:2] == ["pg_times"]:
+        for line in pose_graph_times(torch.device("cuda")):
+            print(line, flush=True)
+        return 0
+    if sys.argv[1:2] == ["line_mode3"]:
+        for line in line_mode_counts(torch.device("cuda"),
+                                     [int(a) for a in sys.argv[2:]] or [4]):
+            print(line, flush=True)
+        return 0
     if sys.argv[1:2] in (["window"], ["dist"]):
         for line in window_digests(torch.device("cuda")):
             print(line)
@@ -661,20 +676,20 @@ def bow_pnp_digests(dev):
     return out
 
 
-def random_graph(n: int, n_extra: int, seed: int):
-    """A chain of n Sim(3) keyframe states with a loop edge and n_extra
-    random edges, each measured from the states with noise; the first
-    keyframe fixed: the arguments of `make_pose_graph_optimizer`'s run
-    (numpy)."""
+def _graph_states(n: int, r):
     from plvio_tpu_torch.utils import lie
-    r = np.random.default_rng(seed)
     st = np.zeros((n, 13), np.float32)
     for i in range(n):
         R = lie.so3_exp(torch.tensor(r.normal(0, .5, 3))).numpy()
         st[i] = np.concatenate([R.reshape(-1), r.normal(0, 1, 3),
                                 [np.exp(r.normal(0, .05))]])
-    pairs = [(i, i - 1) for i in range(1, n)] + [(n - 1, 0)] + [
-        (int(a), int(b)) for a, b in r.integers(0, n, (n_extra, 2)) if a != b]
+    return st
+
+
+def _measured_graph(st, pairs, r):
+    """Edges (i, j) measured from the states st with noise, the first
+    keyframe fixed: the arguments of `make_pose_graph_optimizer`'s run."""
+    from plvio_tpu_torch.utils import lie
     Rs, ts, ss = [], [], []
     for i, j in pairs:
         Si = [torch.tensor(st[i, :9]).view(3, 3).double(),
@@ -689,13 +704,152 @@ def random_graph(n: int, n_extra: int, seed: int):
         ts.append(tm.numpy() + r.normal(0, .05, 3))
         ss.append(float(sm) * np.exp(r.normal(0, .02)))
     E = len(pairs)
-    free = np.ones(n, bool)
+    free = np.ones(len(st), bool)
     free[0] = False
     return [st, free, np.array([p[0] for p in pairs], np.int32),
             np.array([p[1] for p in pairs], np.int32),
             np.stack(Rs).astype(np.float32), np.stack(ts).astype(np.float32),
             np.array(ss, np.float32), np.ones(E, bool),
             r.uniform(0.3, 1, E).astype(np.float32)]
+
+
+def random_graph(n: int, n_extra: int, seed: int):
+    """A chain of n Sim(3) keyframe states with a loop edge and n_extra
+    random edges, each measured from the states with noise; the first
+    keyframe fixed: the arguments of `make_pose_graph_optimizer`'s run
+    (numpy)."""
+    r = np.random.default_rng(seed)
+    st = _graph_states(n, r)
+    pairs = [(i, i - 1) for i in range(1, n)] + [(n - 1, 0)] + [
+        (int(a), int(b)) for a, b in r.integers(0, n, (n_extra, 2)) if a != b]
+    return _measured_graph(st, pairs, r)
+
+
+def revisit_graph(n: int, m: int, seed: int):
+    """A revisited map's essential graph: a chain of n Sim(3) keyframe
+    states with covisibility edges one and two back, and its last m
+    keyframes each joined to one of its first m (the camera passes the
+    start again), measured as `random_graph`'s (numpy)."""
+    r = np.random.default_rng(seed)
+    st = _graph_states(n, r)
+    pairs = [(i, i - 1) for i in range(1, n)] + [
+        (i, i - 2) for i in range(2, n)] + [(n - m + k, k) for k in range(m)]
+    return _measured_graph(st, pairs, r)
+
+
+def closer_chain_graph(n_kf: int, dev):
+    """The loop closer's essential graph over `inputs.build_big_chain(n_kf)`
+    (its last keyframe revisiting its first), as `_essential_graph` hands
+    it to the optimizer: (the run's first 9 arguments, n_active)."""
+    from plvio_tpu_torch.config import CameraConfig, SystemConfig
+    from plvio_tpu_torch.inputs import build_big_chain
+    from plvio_tpu_torch.models import kernels as KN
+    from plvio_tpu_torch.models.loop_closing import LoopCloser
+    from plvio_tpu_torch.models.mapstore import Atlas
+    got, orig = {}, KN.pose_graph
+
+    def rec(*a, **kw):
+        got["a"] = a
+        return orig(*a, **kw)
+    KN.pose_graph = rec
+    try:
+        m, kfs, gt = build_big_chain(n_kf=n_kf)
+        lc = LoopCloser(SystemConfig(camera=CameraConfig(dist=(0.0,) * 4),
+                                     use_lines=False),
+                        Atlas(maps=[m], active=0), None, m.n_feat, device=dev)
+        pre = {int(k): (m.kf_pose_cw[k, :, :3].copy(),
+                        m.kf_pose_cw[k, :, 3].copy()) for k in m.kf_chain()}
+        kf, cand = int(kfs[-1]), int(kfs[0])
+        R_w = gt[-1][0].T @ pre[kf][0]
+        t_w = gt[-1][0].T @ (pre[kf][1] - gt[-1][1])
+        lc._essential_graph(kf, cand, 1.0, R_w, t_w, pre, {kf})
+    finally:
+        KN.pose_graph = orig
+    return list(got["a"][:9]), got["a"][11]
+
+
+def pose_graph_times(dev):
+    """Lines: `pose_graph`'s device ms (median, min, max of 10 launches
+    timed alone with CUDA events) on graphs of every shape the closer can
+    give, on each path the tree's kernel offers (`path=`), beside the
+    library's 15 x `cholesky` + `cholesky_solve` at the same S (20 times).
+    The host's pattern is inside the launch's time: the card waits for
+    it."""
+    import inspect
+    from plvio_tpu_torch.models import kernels as KN
+
+    def times(fn, reps):
+        fn()
+        torch.cuda.synchronize()
+        got = []
+        for _ in range(reps):
+            a, b = torch.cuda.Event(True), torch.cuda.Event(True)
+            a.record()
+            fn()
+            b.record()
+            torch.cuda.synchronize()
+            got.append(a.elapsed_time(b))
+        got.sort()
+        return f"{got[len(got) // 2]:.4f} ({got[0]:.4f}-{got[-1]:.4f})"
+    paths = "path" in inspect.signature(KN.pose_graph).parameters
+    out = []
+    graphs = [("random 17+20", random_graph(17, 20, 17), None)]
+    for n_kf in (600, 511):
+        a, n = closer_chain_graph(n_kf, dev)
+        graphs.append((f"closer chain {n_kf}", a, n))
+    graphs += [("revisit 512/50", revisit_graph(512, 50, 5), None),
+               ("random 200+400", random_graph(200, 400, 200), None)]
+    for what, g, n in graphs:
+        a = [x if torch.is_tensor(x) else torch.from_numpy(x).to(dev)
+             for x in g]
+        S = 7 * (a[0].shape[0] if n is None else n)
+        line = f"pose_graph times {what}: S = {S}"
+        if paths:
+            nn = S // 7
+            ok = (a[7] & (a[2] < nn) & (a[3] < nn)).cpu().numpy()
+            pat = KN.pg_pattern(a[2].cpu().numpy()[ok],
+                                a[3].cpu().numpy()[ok], a[1].cpu().numpy(),
+                                nn)
+            line += (f", {pat['nb']} blocks, {pat['n_updates']} updates, "
+                     f"path {KN.pg_path(pat)}")
+            for q in ((0, 1, 2) if KN.pg_resident(pat) else (1, 2)):
+                line += f"; path {q} " + times(
+                    lambda q=q: KN.pose_graph(*a, n_active=n, path=q), 10)
+        else:
+            line += "; the tree's path " + times(
+                lambda: KN.pose_graph(*a, n_active=n), 10)
+        H = torch.randn(S, S, device=dev)
+        H = H @ H.T + S * torch.eye(S, device=dev)
+        rhs = torch.randn(S, 1, device=dev)
+
+        def library():
+            for _ in range(15):
+                torch.cholesky_solve(rhs, torch.linalg.cholesky(H))
+        out.append(line + "; library " + times(library, 20) + " ms")
+    return out
+
+
+def line_mode_counts(dev, seeds):
+    """Lines: SLAM mode 3 over the 8 s MH replay (as phase 17 of
+    chip_smoke.py runs it) at each cfg.seed: frames tracked, keyframes,
+    loops, SE3 ATE, and the `pose_graph` and `bow_score` launches."""
+    from plvio_tpu_torch.entry import SystemRun, line_mode_config
+    from plvio_tpu_torch.inputs import build_mh_replay
+    from plvio_tpu_torch.models import kernels as KN
+    from plvio_tpu_torch.models import vocabulary as V
+    S = build_mh_replay(8.0, 7)
+    S["imu"] = [None] * len(S["frames"])
+    out = []
+    for seed in seeds:
+        n_pg, n_bow = KN.POSE_GRAPH.launches, V.BOW_SCORE.launches
+        with torch.no_grad():
+            o = SystemRun(device=dev, cfg=line_mode_config(3, seed=seed))(S)
+        out.append(f"SLAM mode 3 cfg.seed {seed}: tracked {o.n_tracked}, "
+                   f"keyframes {o.keyframes}, loops {o.loops}, ATE "
+                   f"{o.ate_se3:.4f} m, pose_graph "
+                   f"{KN.POSE_GRAPH.launches - n_pg}, bow_score "
+                   f"{V.BOW_SCORE.launches - n_bow}")
+    return out
 
 
 def loop_digests(dev):

@@ -2650,11 +2650,23 @@ def pose_graph_compacted_plain(states13, kf_free, edge_i, edge_j, Rji, tji,
 
 
 POSE_GRAPH = cuda.Kernel("pose_graph", "pose_graph",
-                         [_P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P,
-                          _I, _I, _I, _P, _P, _P, _P])
-# launches whose solve took the cooperative global path
+                         [_P, _P, _I, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I,
+                          _I, _I, _I, _I, _P, _P, _P, _P, _P])
+# launches whose normal matrix's factor did not fit shared memory: path 1
+# of `pg_path` (one block streams it) and path 2 (the whole grid on it)
 POSE_GRAPH.global_launches = 0
-PG_ONE_BLOCK_MAX_S = 168       # csrc/pose_graph.cu kOneBlockMaxS
+POSE_GRAPH.grid_launches = 0
+# csrc/pose_graph.cu: (kSmemMax - kStaticSmem) / 8 doubles of dynamic
+# shared memory, the streamed path's staging buffers (kNBuf x kChunk
+# doubles) and the least window of 7x7 blocks (kMinCap) beside which the
+# pattern's tables stay there
+PG_SMEM_DOUBLES = (232448 - 256) // 8
+PG_STAGE = 5 * 512
+PG_MIN_CAP = 96
+# block updates a level of the elimination tree from which the whole grid
+# factors (path 2): a grid barrier costs about what block 0 alone takes
+# for this many updates
+PG_GRID_UPDATES = 20
 
 
 def graph_tables(edge_i: np.ndarray, edge_j: np.ndarray, n: int):
@@ -2678,9 +2690,172 @@ def graph_tables(edge_i: np.ndarray, edge_j: np.ndarray, n: int):
     return inc_ptr, inc, pair_ab, pair_ptr, pair_list
 
 
+def pg_symbolic(pairs: np.ndarray, n: int):
+    """The symbolic Cholesky of a symmetric block pattern over n block
+    columns: `pairs` [P,2] the off-diagonal blocks (a, b), a != b.  Returns
+    (struct, parent, level): struct[j] the sorted rows i > j of L's
+    nonzero blocks in column j, fill included; parent the elimination
+    tree (-1 at a root); level 0 at the leaves, 1 + the highest child's
+    above them."""
+    pairs = np.asarray(pairs, np.int64).reshape(-1, 2)
+    low = [set() for _ in range(n)]
+    for a, b in zip(pairs.min(1).tolist(), pairs.max(1).tolist()):
+        low[a].add(b)
+    parent = [-1] * n
+    level = [0] * n
+    for j in range(n):
+        if low[j]:
+            p = min(low[j])
+            parent[j] = p
+            low[p] |= low[j]
+            low[p].discard(p)
+            level[p] = max(level[p], level[j] + 1)
+    return ([sorted(s) for s in low], np.asarray(parent, np.int64),
+            np.asarray(level, np.int64))
+
+
+def pg_pattern(edge_i: np.ndarray, edge_j: np.ndarray, kf_free: np.ndarray,
+               n: int, pair_ab: np.ndarray = None) -> dict:
+    """The fill pattern and the schedule that csrc/pose_graph.cu walks, for
+    the essential graph's normal matrix over n keyframes with 7x7 blocks.
+
+    The off-diagonal blocks are the keyframe pairs that an edge joins
+    between two free keyframes (a fixed keyframe's row and column are
+    zero but for its unit diagonal).  `pg_symbolic` gives the elimination
+    tree and L's nonzero blocks, fill included.  The kernel factors the
+    columns level by level (a topological order of the tree, so the fill is
+    the same; columns of one level are independent and run side by side):
+    kernel column k holds keyframe `col_kf[k]`.  Each column's blocks are
+    stored diagonal first, the rows below ascending, then the border: one
+    more block row (index n) whose first row carries the right-hand side,
+    so that the forward solve runs as part of the factorization.
+
+    The schedule: for each level, every target block that the level's
+    columns update, L_ij -= sum_k L_ik L_jk^T over the level's columns k
+    in ascending order, with i, j in column k's structure (or i the
+    border), j not the border; a diagonal target's upper triangle is not
+    used.  A level's targets in the next level's columns come first
+    (`lvl_mid` starts the rest).  Returns a dict of numpy arrays (int32
+    unless named): colptr [n+1], rowidx [nb], bcol [nb], bsrc [nb] (-1
+    diagonal, -2 border, -3 fill, else 2 p + t for the edges of keyframe
+    pair p of `pair_ab`, t = 1 where the block stores the pair's (smaller,
+    larger) side), col_kf [n], kf_col [n], lvl_col [levels+1], lvl_tgt
+    [levels+1], lvl_mid [levels], tgt [T], tgt_ptr [T+1], src [U,2]; and
+    struct (list, kernel order), parent (int64, keyframe order), level,
+    nb, n_updates."""
+    ei = np.asarray(edge_i, np.int64)
+    ej = np.asarray(edge_j, np.int64)
+    free = np.asarray(kf_free, bool)[:n]
+    keep = (ei != ej) & free[ei] & free[ej]
+    a, b = np.minimum(ei, ej)[keep], np.maximum(ei, ej)[keep]
+    struct, parent, level = pg_symbolic(np.stack([a, b], 1), n)
+    col_kf = np.lexsort((np.arange(n), level))
+    kf_col = np.empty(n, np.int64)
+    kf_col[col_kf] = np.arange(n)
+    level_k = level
+    if (col_kf != np.arange(n)).any():
+        struct, _, level_k = pg_symbolic(
+            np.stack([kf_col[a], kf_col[b]], 1), n)
+    # column k: the diagonal, the rows below, the border
+    counts = np.array([len(s) + 2 for s in struct], np.int64)
+    colptr = np.concatenate([[0], np.cumsum(counts)])
+    nb = int(colptr[-1])
+    rows = []
+    for k, s in enumerate(struct):
+        rows += [k, *s, n]
+    rowidx = np.asarray(rows, np.int64)
+    bcol = np.repeat(np.arange(n), counts)
+    bsrc = np.full(nb, -3, np.int64)
+    bsrc[colptr[:-1]] = -1
+    bsrc[colptr[1:] - 1] = -2
+    if pair_ab is None:
+        pair_ab = graph_tables(ei, ej, n)[2]
+    pair_ab = np.asarray(pair_ab, np.int64).reshape(-1, 2)
+    blk_of = np.full((n + 1, n), -1, np.int64)
+    blk_of[rowidx, bcol] = np.arange(nb)
+    if len(pair_ab):
+        ra, rb = kf_col[pair_ab[:, 0]], kf_col[pair_ab[:, 1]]
+        ok = free[pair_ab[:, 0]] & free[pair_ab[:, 1]]
+        flip = (ra > rb).astype(np.int64)       # row on the smaller side
+        blk = blk_of[np.maximum(ra, rb), np.minimum(ra, rb)]
+        assert (blk[ok] >= 0).all()
+        bsrc[blk[ok]] = 2 * np.nonzero(ok)[0] + flip[ok]
+    # every update: blocks x >= y below the diagonal of one column, y not
+    # the border, target (row x, row y)
+    below = np.nonzero(bsrc != -1)[0]
+    pos = below - colptr[bcol[below]] - 1
+    X = np.repeat(below, pos + 1)
+    first = np.repeat(colptr[bcol[below]] + 1, pos + 1)
+    start = np.repeat(np.cumsum(pos + 1) - (pos + 1), pos + 1)
+    Y = first + np.arange(len(X)) - start
+    ok = rowidx[Y] != n
+    X, Y = X[ok], Y[ok]
+    T_ = blk_of[rowidx[X], rowidx[Y]]
+    assert (T_ >= 0).all()
+    lv = level_k[bcol[X]]
+    # a level's targets in the next level's columns first: the kernel
+    # applies the rest while it factors the next level
+    key = 2 * lv + (level_k[bcol[T_]] > lv + 1)
+    order = np.lexsort((bcol[X], T_, key))
+    X, Y, T_, key = X[order], Y[order], T_[order], key[order]
+    new = np.ones(len(T_), bool)
+    new[1:] = (T_[1:] != T_[:-1]) | (key[1:] != key[:-1])
+    tgt = T_[new]
+    tgt_ptr = np.append(np.nonzero(new)[0], len(T_))
+    assert (np.diff(level_k) >= 0).all()
+    n_lvl = int(level_k.max()) + 1
+    lvl_col = np.searchsorted(level_k, np.arange(n_lvl + 1))
+    lvl_tgt = np.searchsorted(key[new], 2 * np.arange(n_lvl + 1))
+    lvl_mid = np.searchsorted(key[new], 2 * np.arange(n_lvl) + 1)
+    i32 = np.int32
+    return dict(colptr=colptr.astype(i32), rowidx=rowidx.astype(i32),
+                bcol=bcol.astype(i32), bsrc=bsrc.astype(i32),
+                col_kf=col_kf.astype(i32), kf_col=kf_col.astype(i32),
+                lvl_col=lvl_col.astype(i32), lvl_tgt=lvl_tgt.astype(i32),
+                lvl_mid=lvl_mid.astype(i32),
+                tgt=tgt.astype(i32), tgt_ptr=tgt_ptr.astype(i32),
+                src=np.stack([X, Y], 1).astype(i32), struct=struct,
+                parent=parent, level=level_k, nb=nb, n_updates=len(X))
+
+
+def pg_resident(pat: dict) -> bool:
+    """Whether csrc/pose_graph.cu keeps the whole factor of `pg_pattern`'s
+    pattern in shared memory (path 0) or streams its blocks through a
+    window there (path 1): beside the solution and a partial (14 n
+    doubles) and the pattern's tables (where they leave room for
+    PG_MIN_CAP blocks), 49 doubles a block."""
+    n, nb = len(pat["colptr"]) - 1, pat["nb"]
+    meta = (len(pat["colptr"]) + len(pat["rowidx"]) + len(pat["bcol"])
+            + len(pat["lvl_col"]) + len(pat["lvl_tgt"]) + len(pat["lvl_mid"])
+            + len(pat["tgt"]) + len(pat["tgt_ptr"]) + pat["src"].size
+            + 1) // 2
+    if 14 * n + meta + PG_STAGE + 49 * PG_MIN_CAP > PG_SMEM_DOUBLES:
+        meta = 0
+    return 49 * nb <= PG_SMEM_DOUBLES - 14 * n - meta
+
+
+def pg_path(pat: dict) -> int:
+    """The path csrc/pose_graph.cu takes for `pg_pattern`'s pattern: 0 the
+    factor resident in block 0's shared memory (`pg_resident`); else 2, the
+    whole grid on the factor in global memory, where the fill gives a level
+    of the elimination tree PG_GRID_UPDATES block updates or more on
+    average (a graph whose long-range edges fill the factor), and 1, block 0
+    streaming the factor through shared memory (a band: the chains)."""
+    if pg_resident(pat):
+        return 0
+    n_lvl = len(pat["lvl_col"]) - 1
+    return 2 if pat["n_updates"] >= PG_GRID_UPDATES * n_lvl else 1
+
+
+_PG_TABLES = ("inc_ptr", "inc", "pair_ptr", "pair_list", "colptr", "rowidx",
+              "bcol", "bsrc", "col_kf", "kf_col", "lvl_col", "lvl_tgt",
+              "lvl_mid", "tgt", "tgt_ptr", "src")
+
+
 def pose_graph(states13, kf_free, edge_i, edge_j, Rji, tji, sji, edge_valid,
                edge_info, four_dof: bool = False, iters: int = 15,
-               n_active=None, stats: dict = None):
+               n_active=None, stats: dict = None, profile: bool = False,
+               path: int = None):
     """Essential-graph LM over Sim(3) keyframe states [n_kf,13] (R, t, s;
     kf_free [n_kf]) and relative-similarity edges (edge_i / edge_j
     [n_edges], Rji [n_edges,3,3], tji [n_edges,3], sji, edge_valid,
@@ -2689,8 +2864,15 @@ def pose_graph(states13, kf_free, edge_i, edge_j, Rji, tji, sji, edge_valid,
     edges, which gives the same solve: the reference's padding slots are
     fixed, so their rows decouple with a unit diagonal, and masked edges
     add nothing.  CPU tensors take the plain version; CUDA tensors launch
-    csrc/pose_graph.cu; `stats`, where given, gets "path" (0 one block, 1
-    global) and "S".  Returns the states [n_kf,13]."""
+    csrc/pose_graph.cu once for all `iters` iterations, with the block
+    pattern of `pg_pattern`, on the path `pg_path` chooses (or `path`,
+    where given: the same solve on another path, for measurement); `stats`,
+    where given, gets "path" (the path the launch reported, a device
+    tensor), "want" (the path asked for), "S", "nb" (the
+    factor's 7x7 blocks, border included), "n_updates" and, with
+    `profile`, "phases_ns" (int64 [5], a device tensor: the kernel's
+    nanoseconds in linearize, assemble, forward, backward, update and
+    cost, summed over the iterations).  Returns the states [n_kf,13]."""
     n_kf = states13.shape[0]
     n = n_kf if n_active is None else int(n_active)
     if states13.device.type == "cpu":
@@ -2704,36 +2886,66 @@ def pose_graph(states13, kf_free, edge_i, edge_j, Rji, tji, sji, edge_valid,
             or not 1 <= n <= n_kf:
         raise ValueError("pose_graph: states [n_kf,13] float32, 1 <= "
                          "n_active <= n_kf")
-    ok = edge_valid.cpu().numpy()
-    ei = edge_i.cpu().numpy()[ok]
-    ej = edge_j.cpu().numpy()[ok]
+    if Rji.dtype != torch.float32 or tji.dtype != torch.float32 \
+            or sji.dtype != torch.float32 or edge_info.dtype != torch.float32:
+        raise ValueError("pose_graph: edge measurements float32")
+    # the graph's integers to the host in one read
+    ins = (edge_valid, edge_i, edge_j, kf_free[:n])
+    raw = torch.cat([t.contiguous().view(torch.uint8).reshape(-1)
+                     for t in ins]).cpu().numpy()
+    got, at = [], 0
+    for t in ins:
+        nbytes = t.numel() * t.element_size()
+        got.append(raw[at:at + nbytes].view(
+            np.dtype(str(t.dtype).replace("torch.", ""))))
+        at += nbytes
+    ok, free_np = got[0], got[3]
+    ei, ej = got[1][ok], got[2][ok]
     if len(ei) and (max(ei.max(), ej.max()) >= n or (ei == ej).any()):
         raise ValueError("pose_graph: valid edges join two distinct active "
                          "keyframes")
-    sel = torch.from_numpy(np.nonzero(ok)[0]).to(dev)
-    meas = torch.cat([Rji[sel].reshape(-1, 9), tji[sel], sji[sel, None]],
-                     1).float().contiguous()
-    info = edge_info[sel].float().contiguous()
-    tables = [torch.from_numpy(a).to(dev) for a in (
-        np.asarray(ei, np.int32), np.asarray(ej, np.int32),
-        *graph_tables(ei, ej, n))]
-    E_, P_, S = len(ei), tables[4].shape[0], 7 * n
-    work = torch.empty(26 * n + 105 * E_ + S * S + S + 2,
+    if 14 * n + PG_STAGE + 49 * PG_MIN_CAP > PG_SMEM_DOUBLES:
+        raise ValueError("pose_graph: at most 1554 active keyframes (the "
+                         "solution's shared memory)")
+    inc_ptr, inc, pair_ab, pair_ptr, pair_list = graph_tables(ei, ej, n)
+    pat = pg_pattern(ei, ej, free_np, n, pair_ab)
+    want = pg_path(pat) if path is None else int(path)
+    if want not in (0, 1, 2) or want == 0 and not pg_resident(pat):
+        raise ValueError(f"pose_graph: path {want} (0 only where the factor "
+                         "fits shared memory, 1, 2)")
+    # every table in one upload; the kernel reads the edges' measurements
+    # in their padded slots (`sel`, the valid edges' slots)
+    tabs = dict(inc_ptr=inc_ptr, inc=inc, pair_ptr=pair_ptr,
+                pair_list=pair_list, ei=ei, ej=ej, sel=np.nonzero(ok)[0],
+                **pat)
+    parts = [np.asarray(tabs[k], np.int32).reshape(-1)
+             for k in ("ei", "ej", "sel") + _PG_TABLES]
+    offs = np.concatenate([[0], np.cumsum([len(p) for p in parts])])
+    ints = torch.from_numpy(np.concatenate(parts)).to(dev)
+    E_, nb, S = len(ei), pat["nb"], 7 * n
+    work = torch.empty(26 * n + 105 * E_ + 49 * nb + S + 1024,
                        dtype=torch.float64, device=dev)
     st = states13[:n].contiguous()
     free = kf_free[:n].contiguous()
     out = torch.empty_like(st)
-    path = torch.empty((), dtype=torch.int32, device=dev)
+    taken = torch.empty((), dtype=torch.int32, device=dev)
+    prof = torch.zeros(5, dtype=torch.int64, device=dev) if profile \
+        else None
+    offs_c = (ctypes.c_int * len(offs))(*offs.tolist())
     POSE_GRAPH.launch(
-        cuda.ptr(st), cuda.ptr(free), n, cuda.ptr(tables[0]),
-        cuda.ptr(tables[1]), cuda.ptr(meas), cuda.ptr(info), E_,
-        cuda.ptr(tables[2]), cuda.ptr(tables[3]), cuda.ptr(tables[4]),
-        cuda.ptr(tables[5]), cuda.ptr(tables[6]), P_, int(four_dof), iters,
-        cuda.ptr(work), cuda.ptr(out), cuda.ptr(path), cuda.stream())
-    if S > PG_ONE_BLOCK_MAX_S:
+        cuda.ptr(st), cuda.ptr(free), n, cuda.ptr(Rji), cuda.ptr(tji),
+        cuda.ptr(sji), cuda.ptr(edge_info), cuda.ptr(ints), E_,
+        ctypes.cast(offs_c, ctypes.c_void_p), nb, len(pat["lvl_col"]) - 1,
+        len(pat["tgt"]), pat["n_updates"], int(four_dof), iters, want,
+        cuda.ptr(work), cuda.ptr(out), cuda.ptr(taken),
+        None if prof is None else cuda.ptr(prof), cuda.stream())
+    if want == 1:
         POSE_GRAPH.global_launches += 1
+    elif want == 2:
+        POSE_GRAPH.grid_launches += 1
     if stats is not None:
-        stats.update(path=path, S=S)
+        stats.update(path=taken, want=want, S=S, nb=nb,
+                     n_updates=pat["n_updates"], phases_ns=prof)
     if n == n_kf:
         return out
     return torch.cat([out, states13[n:]], 0)
@@ -2765,26 +2977,31 @@ def _f64(ts):
 
 
 def pose_graph_against_float64(args, four_dof: bool = False,
-                               n_active=None, iters: int = 15) -> dict:
+                               n_active=None, iters: int = 15,
+                               path: int = None) -> dict:
     """`pose_graph` on the card against its plain version on the same
     device in float32 and in float64, on the graph `args` (the arguments
-    of `make_pose_graph_optimizer`'s run, CUDA tensors), launched twice.
-    Returns dict(S, path, same_bits, kernel, plain, kernel_plain,
-    failures): the largest state gaps to float64 of the kernel and of the
-    plain float32 run, and between them.  The rule (chip_smoke.py and the
-    card test): the kernel within 2x the plain float32 run's distance to
-    float64 + 1e-6, the same bits on the second launch."""
+    of `make_pose_graph_optimizer`'s run, CUDA tensors), launched twice
+    (on `path`, where given, else `pg_path`'s).  Returns dict(S, path,
+    want, nb, n_updates, same_bits, kernel,
+    plain, kernel_plain, step, failures): the largest state gaps to
+    float64 of the kernel and of the plain float32 run, and between them.
+    The rule (chip_smoke.py and the card test): the kernel within 2x the
+    plain float32 run's distance to float64 + 1e-6, the same bits on the
+    second launch."""
     st = {}
     k = pose_graph(*args, four_dof=four_dof, iters=iters, n_active=n_active,
-                   stats=st)
-    k2 = pose_graph(*args, four_dof=four_dof, iters=iters, n_active=n_active)
+                   stats=st, path=path)
+    k2 = pose_graph(*args, four_dof=four_dof, iters=iters, n_active=n_active,
+                    path=path)
     p = pose_graph_compacted_plain(*args, four_dof=four_dof, iters=iters,
                                    n_active=n_active).cpu()
     p64 = pose_graph_compacted_plain(*_f64(args), four_dof=four_dof,
                                      iters=iters, n_active=n_active).cpu()
     n = args[0].shape[0] if n_active is None else n_active
     kd, pd = k[:n].double().cpu(), p[:n].double()
-    out = dict(S=st["S"], path=int(st["path"]),
+    out = dict(S=st["S"], path=int(st["path"]), nb=st["nb"],
+               want=st["want"], n_updates=st["n_updates"],
                same_bits=bool(torch.equal(k, k2)),
                kernel=float((kd - p64[:n]).abs().max()),
                plain=float((pd - p64[:n]).abs().max()),

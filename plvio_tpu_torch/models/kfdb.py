@@ -5,8 +5,9 @@ bank mixed in at LINE_W, and `AtlasKeyFrameDatabase` :175-237).
 The banks live on the device: bags [max_kf, W] float32 and word ids
 [max_kf, n_feat] int32.  `add_keyframe` runs the keyframe's descriptors
 through the vocabulary (`bow_transform` on the card) straight into its
-bank rows; a query scores its bag against the whole bank in one launch
-(`bow_score`) and reads back the scores.  (The reference keeps the bank
+bank rows; a query scores its bag (and its line bag, where it has one)
+against the whole bank in one launch (`bow_score`, `bow_score_pair`) and
+reads back the scores.  (The reference keeps the bank
 in host memory and uploads all of it on every query.)  Which rows hold a
 keyframe (`present`, `has_lines`) and the ranking of the scores stay on
 the host, as in the reference, and so does the covisibility-group sum of
@@ -47,6 +48,7 @@ class KeyFrameDatabase(HostIO):
         self.present = np.zeros(max_kf, bool)
         self._pipeline = V.make_bow_pipeline(voc, n_feat, plain)
         self._score = V.score_plain if plain else V.bow_score
+        self._score_pair = V.score_pair_plain if plain else V.bow_score_pair
         self.line_voc = line_voc
         if line_voc is not None:
             self.bows_l = torch.zeros(max_kf, line_voc.n_words,
@@ -95,19 +97,21 @@ class KeyFrameDatabase(HostIO):
         """Masked L1 scores [max_kf] float32 of a query against the whole
         bank, line-word augmented when both sides carry line data."""
         _, bow = self._pipeline(self._t(desc_packed), self._t(valid, bool))
-        scores = [self._score(bow, self.bows, self._t(mask))]
         lines = self.line_voc is not None and line_desc is not None \
             and line_valid is not None and self._n_valid(line_valid) >= 5
         if lines:
             _, bow_l = self._pipeline_l(self._t(line_desc),
                                         self._t(line_valid, bool))
-            scores.append(self._score(bow_l, self.bows_l,
-                                      self._t(mask & self.has_lines)))
-        if scores[0].device.type == "cpu":
-            got = [s.numpy() for s in scores]
+            scores = self._score_pair(bow, self.bows, self._t(mask), bow_l,
+                                      self.bows_l,
+                                      self._t(mask & self.has_lines))
+        else:
+            scores = self._score(bow, self.bows, self._t(mask))[None]
+        if scores.device.type == "cpu":
+            got = scores.numpy()
         else:
             self.host_syncs += 1
-            got = list(torch.stack(scores).cpu().numpy())
+            got = scores.cpu().numpy()
         if lines:
             return got[0] + self.LINE_W * np.maximum(got[1], 0.0)
         return got[0]

@@ -38,8 +38,8 @@ it, otherwise more than one visible card turns it on) builds a
 sliding window, the VIBA pulses, the full-map BA) goes through it; its
 solves are recorded in `ba_calls` with path "dist".
 
-Not ported, each for a later part of the port: the KB8
-the PLVIO_TRACE prints.  A KB8 camera (`kb8`) runs its lens through the
+Not ported: the reference's PLVIO_TRACE prints, which compute nothing
+the mapper uses.  A KB8 camera (`kb8`) runs its lens through the
 point edges of every window BA (`ba_K`: the point+line and the inertial
 windows too, their line edges on its pinhole fx, fy, cx, cy) and the fuse
 on raw pixels (`_ba_uv`).  Under SLAM modes 1-3 the window BA with 8 or

@@ -152,7 +152,8 @@ def score_plain(v: torch.Tensor, ws: torch.Tensor,
 _P, _I = ctypes.c_void_p, ctypes.c_int
 BOW_TRANSFORM = cuda.Kernel("bow", "bow_transform",
                             [_P, _I, _I, _P, _P, _I, _P, _P, _P])
-BOW_SCORE = cuda.Kernel("bow", "bow_score", [_P, _P, _P, _I, _I, _P, _P])
+BOW_SCORE = cuda.Kernel("bow", "bow_score",
+                        [_P, _P, _P, _I, _I, _P, _P, _P, _I, _P, _P])
 
 
 def packed_levels(voc: Vocabulary, device) -> torch.Tensor:
@@ -198,25 +199,63 @@ def bow_transform(table: torch.Tensor, k: int, depth: int,
     return ids_out, bow_out
 
 
-def bow_score(v: torch.Tensor, bank: torch.Tensor,
-              mask: torch.Tensor) -> torch.Tensor:
-    """Masked L1 scores [K] float32 of a query v [W] against bank [K,W]
-    (-1 where not mask): one block a row, |v - w| summed in a fixed
-    order.  CPU tensors take the plain version; CUDA tensors launch
-    csrc/bow.cu."""
-    if v.device.type == "cpu":
-        return score_plain(v, bank, mask)
-    cuda.check_cuda("bow_score", v, bank, mask)
+def _check_score(v, bank, mask):
+    """Raise unless v [W] / bank [K,W] float32 and mask [K] bool are
+    contiguous on one CUDA device."""
+    dev = v.device
     K, W = bank.shape
+    if dev.type != "cuda" or bank.device != dev or mask.device != dev \
+            or not (v.is_contiguous() and bank.is_contiguous()
+                    and mask.is_contiguous()):
+        cuda.check_cuda("bow_score", v, bank, mask)
     if v.dtype != torch.float32 or bank.dtype != torch.float32 \
             or v.shape != (W,) or mask.dtype != torch.bool \
             or mask.shape != (K,):
         raise ValueError("bow_score: v [W] / bank [K,W] float32, mask [K] "
                          "bool")
+
+
+def bow_score(v: torch.Tensor, bank: torch.Tensor,
+              mask: torch.Tensor) -> torch.Tensor:
+    """Masked L1 scores [K] float32 of a query v [W] against bank [K,W]
+    (-1 where not mask), |v - w| summed in a fixed order.  CPU tensors
+    take the plain version; CUDA tensors launch csrc/bow.cu."""
+    if v.device.type == "cpu":
+        return score_plain(v, bank, mask)
+    _check_score(v, bank, mask)
+    K, W = bank.shape
     out = torch.empty(K, dtype=torch.float32, device=v.device)
     if K:
-        BOW_SCORE.launch(cuda.ptr(v), cuda.ptr(bank), cuda.ptr(mask), K, W,
-                         cuda.ptr(out), cuda.stream())
+        BOW_SCORE.launch(v.data_ptr(), bank.data_ptr(), mask.data_ptr(), K,
+                         W, None, None, None, 0, out.data_ptr(),
+                         cuda.stream(v.device.index))
+    return out
+
+
+def score_pair_plain(v, bank, mask, v_l, bank_l, mask_l) -> torch.Tensor:
+    """Plain version of `bow_score_pair`: `score_plain` on each bank."""
+    return torch.stack([score_plain(v, bank, mask),
+                        score_plain(v_l, bank_l, mask_l)])
+
+
+def bow_score_pair(v, bank, mask, v_l, bank_l, mask_l) -> torch.Tensor:
+    """A query's point and line bags against the keyframe database's two
+    banks (bank [K,W], bank_l [K,W_l]) in one launch of csrc/bow.cu:
+    scores [2,K] float32, -1 where the masks are off.  CPU tensors take
+    the plain version."""
+    if v.device.type == "cpu":
+        return score_pair_plain(v, bank, mask, v_l, bank_l, mask_l)
+    _check_score(v, bank, mask)
+    _check_score(v_l, bank_l, mask_l)
+    K, W = bank.shape
+    if bank_l.shape[0] != K or v_l.device != v.device:
+        raise ValueError("bow_score_pair: both banks [K,*] on one device")
+    out = torch.empty(2, K, dtype=torch.float32, device=v.device)
+    if K:
+        BOW_SCORE.launch(v.data_ptr(), bank.data_ptr(), mask.data_ptr(), K,
+                         W, v_l.data_ptr(), bank_l.data_ptr(),
+                         mask_l.data_ptr(), bank_l.shape[1], out.data_ptr(),
+                         cuda.stream(v.device.index))
     return out
 
 

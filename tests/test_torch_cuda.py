@@ -1,8 +1,10 @@
 """The CUDA kernels against their plain PyTorch versions on the card (and
 schur_solve's global path, a short keyframe sequence and a short tracked
 sequence; PnP, the Sim3 RANSAC, the Sim3 reprojection refinement and the
-essential graph, one block and global, against a float64 run of their
-plain versions, within 2x the plain float32 run's distance to it + 1e-6).
+essential graph, its factor resident in shared memory, streamed or on
+the whole grid,
+against a float64 run of their plain versions, within 2x the plain
+float32 run's distance to it + 1e-6).
 
 Marked `cuda`; each test skips without a CUDA device.  This file imports
 no JAX, so it also runs on a GPU machine without JAX, where the suite's
@@ -1360,6 +1362,7 @@ def test_bow_score_matches_plain(dev):
     torch.cuda.synchronize()
     assert float((sk - sp).abs().max()) <= 1e-6
     assert torch.equal(sk < -0.5, ~mask)
+    assert torch.equal(sk, V.bow_score(v, tb, mask))
 
 
 @pytest.mark.parametrize("name", ["place", "rendered"])
@@ -1490,9 +1493,9 @@ def test_pose_graph_one_block_matches_float64(dev, circle_inputs, four_dof):
 @pytest.mark.parametrize("n_kf", [600, 511])
 def test_pose_graph_global_path_matches_float64(dev, n_kf):
     """tests/test_essential_graph_big.py's chain through the
-    production-cap graph (512 keyframes x 4096 edges), on the cooperative
-    global path: 601 keyframes subsampled to 301 anchors (S = 2107), and
-    512 keyframes, the graph's capacity (S = 3584)."""
+    production-cap graph (512 keyframes x 4096 edges), the factor streamed
+    through shared memory: 601 keyframes subsampled to 301 anchors (S =
+    2107), and 512 keyframes, the graph's capacity (S = 3584)."""
     from plvio_tpu_torch.config import CameraConfig, SystemConfig
     from plvio_tpu_torch.inputs import build_big_chain
     from plvio_tpu_torch.models.loop_closing import LoopCloser
@@ -1524,6 +1527,111 @@ def test_pose_graph_global_path_matches_float64(dev, n_kf):
                                       n_active=a[11])
     assert r["S"] == 7 * (301 if n_kf == 600 else 512) and r["path"] == 1 \
         and not r["failures"], r
+
+
+def test_pose_graph_arrows_matches_float64(dev):
+    """A 40-keyframe chain with a loop edge to the fixed first keyframe and
+    three past-loop arrows (`kernel_digest.random_graph`): the pattern's
+    fill reaches the arrows' rows, the factor stays in shared memory."""
+    from plvio_tpu_torch.kernel_digest import random_graph
+    g = [torch.from_numpy(a).to(dev) for a in random_graph(40, 3, 40)]
+    pat = KN.pg_pattern(g[2].cpu().numpy(), g[3].cpu().numpy(),
+                        g[1].cpu().numpy(), 40)
+    assert pat["nb"] > 3 * 40          # the arrows' fill
+    r = KN.pose_graph_against_float64(g, four_dof=False)
+    assert r["path"] == 0 and r["nb"] == pat["nb"] and not r["failures"], r
+    r = KN.pose_graph_against_float64(g, four_dof=True)
+    assert not r["failures"], r
+
+
+@pytest.mark.parametrize("graph", ["revisit 512/50", "random 200+400"])
+def test_pose_graph_grid_path_matches_float64(dev, graph):
+    """Graphs whose long-range edges fill the factor take the grid path
+    (2, `KN.pg_path`): a revisited 512-keyframe map (its last 50
+    keyframes joined to its first 50, `kernel_digest.revisit_graph`) and
+    400 random edges over 200 keyframes; held to float64 by the rule of
+    the other graphs, and the same solve on the streamed path (1) by it
+    too."""
+    from plvio_tpu_torch.kernel_digest import random_graph, revisit_graph
+    g = revisit_graph(512, 50, 5) if graph.startswith("revisit") \
+        else random_graph(200, 400, 200)
+    g = [torch.from_numpy(a).to(dev) for a in g]
+    r = KN.pose_graph_against_float64(g, four_dof=False)
+    assert r["path"] == 2 and not r["failures"], r
+    r = KN.pose_graph_against_float64(g, four_dof=False, path=1)
+    assert r["path"] == 1 and not r["failures"], r
+
+
+def test_pose_graph_indefinite_step_rejected(dev):
+    """An edge of information -1e4 makes the damped normal matrix
+    indefinite: the kernel's factor meets a non-positive pivot, the step
+    is rejected as the plain version's, and the states come back
+    unchanged."""
+    from plvio_tpu_torch.kernel_digest import random_graph
+    g = [torch.from_numpy(a).to(dev) for a in random_graph(17, 20, 17)]
+    g[8][0] = -1e4
+    out = KN.pose_graph(*g, iters=1)
+    plain = KN.pose_graph_compacted_plain(*g, iters=1)
+    torch.cuda.synchronize()
+    assert torch.equal(out, g[0]) and torch.equal(plain, g[0])
+
+
+def test_bow_score_pair_and_masks(dev):
+    """The point and line banks scored in one launch (`bow_score_pair`)
+    within 1e-6 of the plain version, the same bits on a second launch,
+    -1 exactly on every masked row; an all-masked bank gives all -1."""
+    from plvio_tpu_torch.models import vocabulary as V
+    rng = np.random.default_rng(7)
+
+    def bank(W, n_words):
+        b = np.zeros((512, W), np.float32)
+        for r in range(512):
+            np.add.at(b[r], rng.integers(0, W, n_words), 1.0)
+            b[r] /= b[r].sum()
+        return torch.from_numpy(b).to(dev)
+    tb, tl = bank(10000, 1000), bank(1000, 256)
+    v, vl = 0.5 * (tb[3] + tb[9]), tl[11].clone()
+    mask = torch.from_numpy(rng.random(512) < 0.1).to(dev)
+    mask_l = mask & torch.from_numpy(rng.random(512) < 0.7).to(dev)
+    n0 = V.BOW_SCORE.launches
+    k = V.bow_score_pair(v, tb, mask, vl, tl, mask_l)
+    assert V.BOW_SCORE.launches == n0 + 1
+    k2 = V.bow_score_pair(v, tb, mask, vl, tl, mask_l)
+    p = V.score_pair_plain(v, tb, mask, vl, tl, mask_l)
+    none = V.bow_score(v, tb, torch.zeros_like(mask))
+    torch.cuda.synchronize()
+    assert float((k - p).abs().max()) <= 1e-6 and torch.equal(k, k2)
+    assert bool((k[0][~mask] == -1).all()) and bool((k[1][~mask_l] == -1)
+                                                   .all())
+    assert bool((k[0][mask] > -0.5).all()) and bool((none == -1).all())
+    assert torch.equal(k[0], V.bow_score(v, tb, mask))
+
+
+def test_bow_score_disjoint_bags_tie(dev):
+    """A query against 512 bags that share no word with it: the exact
+    score is 0, so `KeyFrameDatabase`'s `scores > 0` keeps a row only by
+    the rounding of the L1 sum, whose order differs between the card's
+    kernel and the CPU's plain version (ROADMAP Queue 3, the bow_score
+    tie).  Held here: both lie within 1e-6 of 0 and of each other; the
+    rows whose keep decision differs are printed, not bounded."""
+    from plvio_tpu_torch.models import vocabulary as V
+    rng = np.random.default_rng(8)
+    W = 10000
+    b = np.zeros((513, W), np.float32)
+    for r in range(513):
+        lo = 0 if r == 0 else W // 2
+        np.add.at(b[r], rng.integers(lo, lo + W // 2, 1000), 1.0)
+        b[r] /= b[r].sum()
+    v, bank = torch.from_numpy(b[0]), torch.from_numpy(b[1:])
+    mask = torch.ones(512, dtype=torch.bool)
+    k = V.bow_score(v.to(dev), bank.to(dev), mask.to(dev)).cpu()
+    p = V.score_plain(v, bank, mask)
+    differ = int(((k > 0) != (p > 0)).sum())
+    print(f"disjoint bags: kernel in [{float(k.min()):.2e}, "
+          f"{float(k.max()):.2e}], CPU plain in [{float(p.min()):.2e}, "
+          f"{float(p.max()):.2e}]; keep decisions differ on {differ} / 512")
+    assert float(k.abs().max()) <= 1e-6 and float(p.abs().max()) <= 1e-6
+    assert float((k - p).abs().max()) <= 1e-6
 
 
 def test_hamming_matrix_mode_matches_plain(dev):
