@@ -738,6 +738,14 @@ class Failed(Exception):
     pass
 
 
+T_START = time.perf_counter()
+
+
+def phase_head(text):
+    """A phase's heading, with the seconds since the script started."""
+    print(f"{text} (at {time.perf_counter() - T_START:.1f} s)")
+
+
 def check(cond, msg):
     if not cond:
         raise Failed(msg)
@@ -1523,10 +1531,12 @@ def check_map_kernels(report):
         ms=cuda_ms(lambda: w.linearize(KN.BA_MODE_LINEARIZE)),
         plain_ms=cuda_ms(lambda: prob.build_normal_equations(st), reps=5))
     KN.SCHUR_SOLVE.launch(*w.args, cuda.stream())
-    ff_ref = torch.mm(t["gm"], t["gm"].T)
+    gm = KN.schur_dense_operand(w)
+    ff_ref = torch.mm(gm, gm.T)
     gram_err = rel_err(t["ff"], ff_ref)
-    check(gram_err <= 1e-5, f"schur_solve: Gram fill-in within {gram_err:.2e}"
-          " relative of torch.mm on its operand (<= 1e-5)")
+    check(gram_err <= 1e-5, f"schur_solve: fill-in within {gram_err:.2e}"
+          " relative of torch.mm on the dense operand assembled from its "
+          "per-observation factors (<= 1e-5)")
     lam = torch.tensor(1e-4, device=dev)
     free = ({"pose": B["kf_free"]}, {"pt": B["pt_free"], "ln": B["ln_free"]})
     new = prob.step_from_system(layout, H, gv, lm_sys, st, lam, *free)
@@ -1600,8 +1610,27 @@ def check_map_kernels(report):
         max_abs_err=dpose, ms=cuda_ms(schur),
         plain_ms=cuda_ms(lambda: prob.step_from_system(
             layout, H, gv, lm_sys, st, lam, *free), reps=5),
-        gram_ms=cuda_ms(lambda: torch.mm(t["gm"], t["gm"].T, out=ff_ref)),
-        gram_work=work(nbytes(t["gm"], t["ff"]), 2 * S * S * C))
+        gram_ms=cuda_ms(lambda: torch.mm(gm, gm.T, out=ff_ref)),
+        gram_work=work(nbytes(gm, t["ff"]), 2 * S * S * C),
+        stages=schur_stage_report(w))
+    print_stages("point+line window", S, report["schur_solve"])
+
+
+def print_stages(what, S, rep):
+    st = rep["stages"]
+    print(f"  schur_solve stages, {what} (S = {S}): step {st['step_ms']:.4f} "
+          "ms (events); " + ", ".join(
+              f"{k} {v[0]:.4f} ms x{v[1]:g}" for k, v in st.items()
+              if k != "step_ms") + " (device, profiler)")
+
+
+def schur_stage_report(w):
+    """schur_solve's time a step by stage on the window w (torch.profiler's
+    kernel names, one session of 10 steps; kernel_digest.schur_stages):
+    {kernel: [ms, launches]} and the step's ms by CUDA events."""
+    from plvio_tpu_torch.kernel_digest import schur_stages
+    ms, stages = schur_stages(w, reps=10, zero_cg=False)
+    return {"step_ms": ms, **{k: [t, n] for k, t, n in stages}}
 
 
 def _cast(v, dt):
@@ -1807,10 +1836,13 @@ def check_inertial_kernels(report):
                300 * n_pt + 1500 * n_ln + 250 * n_obs + 1000 * n_lobs
                + gram_ops(A["obs_kf"], A["obs_pt"], n_pt, 3)
                + gram_ops(A["lobs_kf"], A["lobs_ln"], n_ln, 6)
-               + w_cg(S) * 2 * S * S),
+               + w_cg(S) * 2 * int(KN.cg_pattern(n_kf, True).sum())),
         max_abs_err=gaps["pose"][3], ms=cuda_ms(schur),
         plain_ms=cuda_ms(lambda: full.step_from_system(
-            *full.build_normal_equations(st)[:4], st, lam, *free), reps=3))
+            *full.build_normal_equations(st)[:4], st, lam, *free), reps=3),
+        stages=schur_stage_report(w))
+    print_stages("15-DoF inertial window", S,
+                 report["schur_solve"]["inertial"])
     # -- inertial_gs_lm: initialization and refinement at the cap
     m, B = imu_init(device=dev)
     mp, _ = imu_init(device=dev, plain=True)
@@ -2086,7 +2118,9 @@ def check_nbh_kernels(report):
                + w_cg(S) * 2 * S * S),
         max_abs_err=dpose, ms=cuda_ms(schur),
         plain_ms=cuda_ms(lambda: prob.step_from_system(
-            layout, H, gv, lm_sys, st, lam, *free), reps=5))
+            layout, H, gv, lm_sys, st, lam, *free), reps=5),
+        stages=schur_stage_report(w))
+    print_stages("point-only window", S, report["schur_solve"]["points"])
 
 
 def twoview_inputs(name, n, dev, cases=None):
@@ -2146,6 +2180,7 @@ def check_pyramid_kernels(imgs, report):
     bilinear resizes; one 2x2 average pool)."""
     specs = FE.make_level_specs(H, W, N_FEAT)
     e_chain = e_level = e_line = 0.0
+    line_bits = True
     with torch.no_grad():
         for img in imgs:
             pk = FE.build_pyramid(img, specs)
@@ -2156,15 +2191,20 @@ def check_pyramid_kernels(imgs, report):
                 one = FE.pyramid_level(pp[lv - 1], specs[lv].height,
                                        specs[lv].width)
                 e_level = max(e_level, float((one - pp[lv]).abs().max()))
-            e_line = max(e_line, float((FE.line_level(img)
-                                        - FE.line_level_plain(img)).abs()
-                                       .max()))
+            lp = FE.line_level_plain(img)
+            fk, lf = FE.build_pyramid_line(img, specs)
+            e_line = max(e_line, float((FE.line_level(img) - lp).abs()
+                                       .max()), float((lf - lp).abs().max()))
+            line_bits &= torch.equal(FE.line_level(img), lp) \
+                and torch.equal(lf, lp) \
+                and all(torch.equal(a, b) for a, b in zip(fk, pk))
     check(e_chain <= 1e-4 and e_level <= 1e-4,
           f"pyramid on {len(imgs)} rendered frames: every level within "
           f"{e_chain:.2e} (chained) and {e_level:.2e} (from the plain level "
           "above) of the plain version (<= 1e-4 grey levels)")
-    check(e_line <= 1e-4, f"pyramid_line: the line level within "
-          f"{e_line:.2e} of the plain version (<= 1e-4)")
+    check(line_bits, "pyramid_line: the line level, alone and from the "
+          "pyramid's first launch, bit-equal to the plain version, and the "
+          "pyramid's levels with it bit-equal to those without it")
     img = imgs[1]
     # bytes: each level reads the one above and writes itself; operations:
     # a multiply and an add per nonzero weight, over the rows (each output
@@ -2183,12 +2223,40 @@ def check_pyramid_kernels(imgs, report):
         plain_ms=cuda_ms(lambda: FE.build_pyramid_plain(img, specs)),
         library_ms=cuda_ms(lambda: library_pyramid(img, specs)))
     h2, w2 = H // 2, W // 2
+    # the frame path's line level: its marginal time inside the pyramid's
+    # call (build_pyramid_line minus build_pyramid), each a mean of 200
+    # calls, in turns (without, with, with, without), and the standalone
+    # launch
+    def without():
+        return cuda_ms(lambda: FE.build_pyramid(img, specs), reps=200)
+
+    def with_line():
+        return cuda_ms(lambda: FE.build_pyramid_line(img, specs), reps=200)
+    t_without = [without()]
+    t_with = [with_line(), with_line()]
+    t_without.append(without())
     report["pyramid_line"] = dict(
         **work(4 * (4 * h2 * w2 + h2 * w2), 4 * h2 * w2), max_abs_err=e_line,
-        ms=cuda_ms(lambda: FE.line_level(img)),
+        ms=sum(t_with) / 2 - sum(t_without) / 2,
         plain_ms=cuda_ms(lambda: FE.line_level_plain(img)),
         library_ms=cuda_ms(lambda: torch.nn.functional.avg_pool2d(
-            img[None, None], 2)))
+            img[None, None], 2)),
+        extra=dict(
+            pyramid_with_ms=sum(t_with) / 2,
+            pyramid_without_ms=sum(t_without) / 2,
+            device_marginal_ms=device_ms(
+                lambda: FE.build_pyramid_line(img, specs))
+            - device_ms(lambda: FE.build_pyramid(img, specs)),
+            standalone_ms=cuda_ms(lambda: FE.line_level(img)),
+            standalone_device_ms=device_ms(lambda: FE.line_level(img))))
+    pl = report["pyramid_line"]
+    print(f"  pyramid_line on the frame path: {pl['ms']:.5f} ms marginal in "
+          f"the pyramid's call ({pl['extra']['pyramid_with_ms']:.5f} with, "
+          f"{pl['extra']['pyramid_without_ms']:.5f} without; device "
+          f"{pl['extra']['device_marginal_ms']:.5f}), standalone "
+          f"{pl['extra']['standalone_ms']:.5f} ms (device "
+          f"{pl['extra']['standalone_device_ms']:.5f}), avg_pool2d "
+          f"{pl['library_ms']:.5f} ms")
 
 
 def check_boot_kernels(imgs, orb, lines, report):
@@ -2315,8 +2383,8 @@ def read_counts():
 
 def run_slice3(dev, pl_step, imgs, pose0, map_args, smi):
     """Phase 7: the mapping step at both sizes.  Returns its launches."""
-    print("[7] slice 3: mapping_step at both window sizes, true and "
-          "perturbed start")
+    phase_head("[7] slice 3: mapping_step at both window sizes, true and "
+               "perturbed start")
     sizes = (("worst", MAPPING_WORST), ("typical", MAPPING_TYPICAL))
     runs = {}
     cpu_runs = {}
@@ -2461,8 +2529,8 @@ def run_slice4(dev, smi):
     """Phase 8: the inertial window solve at both buckets and both starts,
     the IMU initialization and the scale refinement.  Returns the
     launches."""
-    print("[8] slice 4: inertial_ba_step at both buckets, true and perturbed "
-          "start; imu_init and its refinement")
+    phase_head("[8] slice 4: inertial_ba_step at both buckets, true and "
+               "perturbed start; imu_init and its refinement")
     runs = {}
     for name, sz in (("worst", LIBA_WORST), ("half", LIBA_HALF)):
         for start in ("true", "perturbed"):
@@ -2577,8 +2645,8 @@ def run_slice5(dev, smi, report):
     """Phase 9: the keyframe step's neighbourhood work on both maps, kernel
     and plain paths, each from its own copy of the map.  Returns the
     launches."""
-    print("[9] slice 5: neighborhood_step on both maps of "
-          "build_keyframe_map, kernel and plain paths")
+    phase_head("[9] slice 5: neighborhood_step on both maps of "
+               "build_keyframe_map, kernel and plain paths")
     runs = {}
     for name, conf in (("points", False), ("confirmed_lines", True)):
         arrays, truth = build_keyframe_map(conf)
@@ -2684,8 +2752,8 @@ def run_slice6(dev, smi, report):
     """Phase 10: the monocular bootstrap on the rendered frames, and the
     EuRoC-raw case through `undistort` and the two-view kernels, each a
     path with its own launch window.  Returns the launches of both."""
-    print("[10] slice 6: bootstrap_step on the rendered frames; the "
-          "EuRoC-raw case")
+    phase_head("[10] slice 6: bootstrap_step on the rendered frames; the "
+               "EuRoC-raw case")
     step, B = bootstrap_step(device=dev)
     plain, Bp = bootstrap_step(device=dev, plain=True)
     reset_counts()
@@ -2849,8 +2917,8 @@ def run_slice7(dev, smi):
     """Phase 11: the whole keyframe step over the keyframe sequence
     (`keyframe_sequence`, production's sizes) in its own launch window,
     held to REF_SEQ.  Returns its launches and the final map."""
-    print("[11] slice 7: keyframe_sequence, the keyframe step over "
-          f"{REF_SEQ['keyframes']}+ keyframes at production's sizes")
+    phase_head("[11] slice 7: keyframe_sequence, the keyframe step over "
+               f"{REF_SEQ['keyframes']}+ keyframes at production's sizes")
     step, seq = keyframe_sequence(device=dev)
     reset_counts()
     t0 = time.perf_counter()
@@ -2923,8 +2991,9 @@ def run_slice8(dev, smi):
     """Phase 12: the tracked sequence (`tracked_sequence`, 180 rendered
     frames at production's sizes) in its own launch window, held to
     REF_TRACK.  Returns its launches."""
-    print("[12] slice 8: tracked_sequence, 180 rendered frames through the "
-          "frame prelude, the tracker and the keyframe step")
+    phase_head("[12] slice 8: tracked_sequence, 180 rendered frames "
+               "through the frame prelude, the tracker and the keyframe "
+               "step")
     step, S = tracked_sequence(device=dev)
     reset_counts()
     t0 = time.perf_counter()
@@ -3183,9 +3252,9 @@ def run_slice9(dev, smi, S):
     frames at full width) in its own launch window, held to the
     regression's bounds and REF_MH; then the relocalization case in a
     window of its own.  Returns (the replay's launches, the case's)."""
-    print("[13] slice 9: System.track_monocular over the 8 s MH replay "
-          f"({len(S['frames'])} frames, the 9000 / 500 hall), then "
-          "global_refine, then relocalization on its map")
+    phase_head("[13] slice 9: System.track_monocular over the 8 s MH replay "
+               f"({len(S['frames'])} frames, the 9000 / 500 hall), then "
+               "global_refine, then relocalization on its map")
     step = SystemRun(device=dev, use_loop_closing=False)
     reset_counts()
     t0 = time.perf_counter()
@@ -3680,9 +3749,10 @@ def run_slice10(dev, smi, seq_map, render):
     default configuration (`entry.mh_loop`; frames rendered by a process
     started at the script's beginning).  Returns (launches by path,
     report entries)."""
-    print("[14] slice 10: loop closing and map merge (entry.loop_closure at "
-          "production caps), the kernels against float64, the global BA "
-          "at 128 KF, the 28 s circuit through System")
+    phase_head("[14] slice 10: loop closing and map merge "
+               "(entry.loop_closure at production caps), the kernels "
+               "against float64, the global BA at 128 KF, the 28 s circuit "
+               "through System")
     report = {}
     recs = {name: Recorder(mod, name) for mod, name in (
         (PNP, "sim3_ransac"), (KN, "sim3_reproj"), (KN, "pose_graph"),
@@ -4064,8 +4134,8 @@ def run_slice11(dev, smi, render, report):
     """Phase 15 (see the module docstring).  Returns the launches of the
     replay (cfg.seed 0), the STEREO room and the RGB-D room, each counted
     in a window of its own."""
-    print("[15] slice 11: track_stereo / track_rgbd, the stereo matchers "
-          "and the stereo solver rows")
+    phase_head("[15] slice 11: track_stereo / track_rgbd, the stereo matchers "
+               "and the stereo solver rows")
     waited = render.wait(1)
     check(waited is not None, f"the stereo replay's {render.n_stereo} "
           "pairs rendered after the circuit by the render process (waited "
@@ -4202,6 +4272,12 @@ class Slice12Run(SystemRun):
             f = extract(img)
             self.rec["feats"] = f
             return f
+
+        def extract_line_rec(img):
+            f, level1 = extract.with_line_level(img)
+            self.rec["feats"] = f
+            return f, level1
+        extract_rec.with_line_level = extract_line_rec
         slam.extract = extract_rec
         return slam
 
@@ -4354,7 +4430,8 @@ def run_slice12(dev, smi, report):
     from plvio_tpu_torch.config import Sensor
     from plvio_tpu_torch.entry import kb8_config
     from plvio_tpu_torch.inputs import build_kb8_room, build_stereo_room
-    print("[16] slice 12: STEREO and RGB-D without lines, the KB8 fisheye")
+    phase_head("[16] slice 12: STEREO and RGB-D without lines, the KB8 "
+               "fisheye")
     check_pinhole_digests()
     # -- STEREO without lines
     R = build_stereo_room(0, 15)
@@ -4842,10 +4919,11 @@ class Slice13Run(SystemRun):
         if slam.extract_lines is not None:
             lines = slam.extract_lines
 
-            def lines_rec(img):
-                lf = lines(img)
+            def lines_rec(img, level1=None):
+                lf = lines(img, level1)
                 self.rec["lines"] = lf
                 return lf
+            lines_rec.levels = lines.levels
             slam.extract_lines = lines_rec
         extract = slam.extract
 
@@ -4853,6 +4931,12 @@ class Slice13Run(SystemRun):
             f = extract(img)
             self.rec["feats"] = f
             return f
+
+        def extract_line_rec(img):
+            f, level1 = extract.with_line_level(img)
+            self.rec["feats"] = f
+            return f, level1
+        extract_rec.with_line_level = extract_line_rec
         slam.extract = extract_rec
         return slam
 
@@ -5105,8 +5189,8 @@ def run_slice13(dev, smi, render, S, report):
     replays (cfg.seed 0), each counted in a window of its own."""
     from plvio_tpu_torch.entry import kb8_vi_config, line_mode_config
     from plvio_tpu_torch.inputs import build_kb8_vi_replay
-    print("[17] slice 13: the KB8 fisheye with the IMU and lines, SLAM "
-          "modes 1-3")
+    phase_head("[17] slice 13: the KB8 fisheye with the IMU and lines, SLAM "
+               "modes 1-3")
     check_slice12_digests()
     check_slice13_kernels(dev, report)
     out = {}
@@ -5358,8 +5442,8 @@ def run_slice14(dev, smi, S, report):
     import tempfile
     from plvio_tpu_torch.entry import ed_config, ed_stereo_room
     from plvio_tpu_torch.inputs import build_prior_set
-    print("[18] slice 14: the ED line detector and the prior-map "
-          "relocalizer through System")
+    phase_head("[18] slice 14: the ED line detector and the prior-map "
+               "relocalizer through System")
     check_ed_kernels(S, report)
     ref = REF_ED
     prior_dir = tempfile.mkdtemp(prefix="prior_set_")
@@ -5505,7 +5589,8 @@ PATH_DIST = PATH_SYSTEM + ("ba_linearize", "inertial_chain", "schur_reduce",
 # H100 with `PYTHONPATH=<that tree> python3 plvio_tpu_torch/
 # kernel_digest.py window`): the single-device window BAs' existing
 # entries of ba_linearize, schur_solve and inertial_chain keep their bits
-# beside the new modes and entries
+# beside the new modes and entries (and, since slice 17, beside
+# schur_solve's sparse fill-in and CG, which keep its sum orders)
 WINDOW_DIGESTS = {
     "mapping_step typical perturbed":
         "ffee42bd85ba709ff5f3ffbb53f13dd2",
@@ -5957,8 +6042,9 @@ def run_slice15(dev, smi, S, report):
     from plvio_tpu_torch.parallel import chain_ba as CB
     from plvio_tpu_torch.parallel import chain_liba as CL
     from plvio_tpu_torch.parallel import dist_ba as DB
-    print("[19] slice 15: the landmark-sharded inertial window BA under "
-          "System's mapper on a shard mesh, dist_ba, chain_ba, chain_liba")
+    phase_head("[19] slice 15: the landmark-sharded inertial window BA "
+               "under System's mapper on a shard mesh, dist_ba, chain_ba, "
+               "chain_liba")
     t_phase = time.perf_counter()
     got = dict(line.rsplit(" ", 1) for line in KD.window_digests(dev))
     bad = [k for k, v in WINDOW_DIGESTS.items() if got.get(k) != v]
@@ -6245,7 +6331,7 @@ def _render(done, names, n_c, n_s, n_k):
 
 def run_phases(dev, smi, render):
 
-    print("[2] build")
+    phase_head("[2] build")
     t0 = time.perf_counter()
     msgs = cuda.build(sorted({k.name for k, _ in KERNELS.values()}),
                       ptxas_info=True)
@@ -6256,7 +6342,7 @@ def run_phases(dev, smi, render):
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
-    print("[3] kernels against their plain versions")
+    phase_head("[3] kernels against their plain versions")
     (frames, poses, pt_xyz, pt_desc, pt_valid, ln_ep6, ln_desc, ln_valid,
      traj) = build_inputs(N_FRAMES, CAP_PTS, CAP_LNS, H, W,
                           n_features=N_FEAT, device=dev)
@@ -6291,8 +6377,8 @@ def run_phases(dev, smi, render):
           f"{time.perf_counter() - t0:.1f} s (on the host, in order)")
     check_system_kernels(S, report)
 
-    print(f"[4] slice 1: {N_FRAMES} frames through tracking_step_pl, pose "
-          "carried")
+    phase_head(f"[4] slice 1: {N_FRAMES} frames through tracking_step_pl, "
+               "pose carried")
     pose0 = torch.from_numpy(poses[0]).to(dev)
     reset_counts()
     poses_k, inls = [], []
@@ -6332,8 +6418,8 @@ def run_phases(dev, smi, render):
             dmax.append(float((pose - Pk_).abs().max()))
     print(f"  plain path: largest pose difference per frame {dmax}")
 
-    print(f"[5] slice 2: frames 1..{N_FRAMES - 1} through tracking_step_vi, "
-          "carry (pose_wb, v, bg, ba, H15)")
+    phase_head(f"[5] slice 2: frames 1..{N_FRAMES - 1} through "
+               "tracking_step_vi, carry (pose_wb, v, bg, ba, H15)")
     vi_plain, _ = tracking_step_vi(H, W, N_FEAT, CAP_PTS, N_LINE, device=dev,
                                    plain=True)
 
@@ -6391,7 +6477,7 @@ def run_phases(dev, smi, render):
           f"relative Frobenius of the plain path, or non-finite on both "
           f"(max {max(h_rel):.2e})")
 
-    print("[6] times")
+    phase_head("[6] times")
 
     def run_pl(stp):
         def go():

@@ -22,6 +22,13 @@
 // `link_cost` [n_kf-1, 3] its three costs (inertial, bg random walk, ba
 // random walk), and `ccost` [1] the chain's share of the LM cost.
 //
+// gpt [n_obs, 18], gln [n_lobs, 36]: each observation's Schur factor G_o
+// = W_o F (6 x 3 or 6 x 6, row-major) of csrc/schur_solve.cu; rr [N +
+// n_kf, 6]: each observation's right-hand-side share, then each
+// keyframe's sum of its observations' shares; kf_col_order [N]: each
+// keyframe's observations (kf_start's segments) by their landmark's
+// column of the coupling (3 p for point p, 3 n_pt + 6 l for line l).
+//
 // cgw: the reduced solve's workspace when the system does not fit one
 // block's shared memory (csrc/schur_solve.cu, the global path): the full
 // S x S system, the CG direction p [S] and two partial-sum rows, one float
@@ -60,17 +67,17 @@ enum Ptr {
   kKfOrder, kKfStart, kPtOrder, kPtStart, kLnOrder, kLnStart,
   kObsC, kPL, kPW, kLL, kLW, kChi2, kWChi2,
   kHcc, kHpt, kHln, kFpt, kFln, kOccPt, kOccLn,
-  kGm, kGpart, kRr, kFf, kDx, kCtrl,
+  kGpt, kGln, kRr, kFf, kDx, kCtrl,
   kKfX, kCKfX, kKfFreeBias, kPre, kImuInfo, kEdgeValid, kRwG, kRwA, kLink,
-  kLinkCost, kCCost, kCgw, kLobsDir, kMCost, kNumPtrs
+  kLinkCost, kCCost, kCgw, kLobsDir, kMCost, kKfColOrder, kNumPtrs
 };
 // kCgwFloats: the floats of the cgw workspace; kSolvePath: set by
 // schur_solve to the path its reduced solve took (0 one block, 1 global)
 // kKb8: the point edge projects through the KB8 fisheye (k1..k4 in kK1..)
 // onto raw pixels (the window BAs of a KB8 camera; the line edges keep
 // the pinhole fx, fy, cx, cy); kLineMode: the line-only modes above
-enum Int { kNKf, kNPt, kNObs, kNLn, kNLobs, kCgIters, kGramSplit, kBody,
-           kCgwFloats, kSolvePath, kKb8, kLineMode, kNumInts };
+enum Int { kNKf, kNPt, kNObs, kNLn, kNLobs, kCgIters, kBody, kCgwFloats,
+           kSolvePath, kKb8, kLineMode, kNumInts };
 enum Flt { kFx, kFy, kCx, kCy, kDelta, kChi2Th, kLam0, kEarlyTol, kGravity,
            kRcb, kTcb = kRcb + 9, kK1 = kTcb + 3, kAngInfo = kK1 + 4,
            kNumFlts };
@@ -79,7 +86,7 @@ enum Ctrl { cLam, cCost, cNewCost, cDone, cIters, cAccept, cAccepted };
 
 struct BA {
   void* p[kNumPtrs];
-  int n_kf, n_pt, n_obs, n_ln, n_lobs, cg_iters, gram_split, body, kb8;
+  int n_kf, n_pt, n_obs, n_ln, n_lobs, cg_iters, body, kb8;
   int line_mode;
   float fx, fy, cx, cy, delta, chi2_th, lam0, early_tol, gravity;
   float Rcb[9], tcb[3], k[4], ang_info;
@@ -107,7 +114,6 @@ inline BA make_ba(void* const* ptrs, const int* ints, const float* flts) {
   b.n_ln = ints[kNLn];
   b.n_lobs = ints[kNLobs];
   b.cg_iters = ints[kCgIters];
-  b.gram_split = ints[kGramSplit];
   b.body = ints[kBody];
   b.kb8 = ints[kKb8];
   b.line_mode = ints[kLineMode];

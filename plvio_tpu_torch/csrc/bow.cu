@@ -46,7 +46,11 @@
 // bags score 0 up to the last bit of that sum, so its decisions follow
 // the order (a faster order, 16-byte loads with four partial sums a
 // thread, turned candidates around on SLAM mode 3's replay).  A thread's
-// loads, 32 at a time, are issued before its adds.  1 - 0.5 s.
+// loads, 32 at a time, are issued before its adds.  1 - 0.5 s, and
+// exactly 0 for a row that shares no word with the query (no word with v
+// > 0 and w > 0: DBoW2 sums over the shared words only, so its score is
+// exactly 0 there): each thread flags a shared word in the same pass as
+// its sum and the block ORs the flags in the tree's first barrier.
 #include "common.cuh"
 
 namespace {
@@ -115,11 +119,14 @@ __global__ void bow_transform_kernel(const uint32_t* __restrict__ table,
     bow[i] = static_cast<float>(hist[i]) / den;
 }
 
-// |v - w|_1 of one row by the whole block, in the fixed order above
+// |v - w|_1 of one row by the whole block, in the fixed order above;
+// `shared` whether some word has v > 0 and w > 0
 __device__ float l1_row(const float* __restrict__ v,
-                        const float* __restrict__ w, int W, float* part) {
+                        const float* __restrict__ w, int W, float* part,
+                        bool& shared) {
   const int t = threadIdx.x;
   float s = 0.0f;
+  bool any = false;
   for (int i0 = t; i0 < W; i0 += kScoreUnroll * kScoreThreads) {
     float a[kScoreUnroll], b[kScoreUnroll];
 #pragma unroll
@@ -130,10 +137,13 @@ __device__ float l1_row(const float* __restrict__ v,
     }
 #pragma unroll
     for (int k = 0; k < kScoreUnroll; ++k)
-      if (i0 + k * kScoreThreads < W) s += fabsf(a[k] - b[k]);
+      if (i0 + k * kScoreThreads < W) {
+        s += fabsf(a[k] - b[k]);
+        any = any || (a[k] > 0.0f && b[k] > 0.0f);
+      }
   }
   part[t] = s;
-  __syncthreads();
+  shared = __syncthreads_or(any) != 0;
   for (int h = kScoreThreads / 2; h > 0; h >>= 1) {
     if (t < h) part[t] += part[t + h];
     __syncthreads();
@@ -182,8 +192,10 @@ bow_score_kernel(Bank b0, Bank b1, int K, int n_rows,
       const int r = mine[m];
       const Bank& bk = r < K ? b0 : b1;
       const int rr = r < K ? r : r - K;
-      const float s = l1_row(bk.v, bk.rows + size_t(rr) * bk.W, bk.W, part);
-      if (t == 0) out[r] = 1.0f - 0.5f * s;
+      bool shared;
+      const float s = l1_row(bk.v, bk.rows + size_t(rr) * bk.W, bk.W, part,
+                             shared);
+      if (t == 0) out[r] = shared ? 1.0f - 0.5f * s : 0.0f;
     }
     base += total;
     __syncthreads();

@@ -32,8 +32,16 @@
 // 2 ks + 4 input samples, so ks <= 1.5 and inv <= 1.5 (the wrapper checks;
 // ORB's 1.2 factor needs <= 1.21).
 //
-// `pyramid_line_level`: one thread per output pixel,
-// ((a + b) + c) + d over the 2x2 block in memory order, times 0.25.
+// The line level, ((a + b) + c) + d over each 2x2 block in memory order,
+// times 0.25 (the plain version's sum, so the same bits), reads 1.44 MB
+// and writes 0.36 MB of a 480x752 frame: ~0.5 us, far below a host call.
+// So on the frame path it rides the first level's launch of
+// `pyramid_levels`, which reads the same frame: extra blocks of that grid
+// (behind a non-null `line_dst`) each take 256 x 4 outputs, a thread four
+// neighbours of one row from two 16-byte loads of each input row and one
+// 16-byte store (one output a thread where the width or the pointers do
+// not allow it).  `pyramid_line_level` launches the same body alone, for
+// callers without a pyramid.
 #include "common.cuh"
 
 namespace {
@@ -86,10 +94,69 @@ __device__ Taps make_taps(int o, int n_in, float inv, float ks) {
   return t;
 }
 
+constexpr int LINE_THREADS = TW * TH;   // a line-level block's threads
+
+// The line level's work items: four outputs of a row each when the rows
+// and both pointers allow 16-byte access, else one output each.
+__host__ __device__ inline bool line_vec(const float* src, int W,
+                                         const float* dst) {
+  return W % 8 == 0 && (reinterpret_cast<size_t>(src) & 15) == 0
+      && (reinterpret_cast<size_t>(dst) & 15) == 0;
+}
+
+__host__ __device__ inline int line_items(const float* src, int H, int W,
+                                          const float* dst) {
+  const int h = H / 2, w = W / 2;
+  return line_vec(src, W, dst) ? h * (w / 4) : h * w;
+}
+
+__device__ __forceinline__ float mean4(float a0, float a1, float b0,
+                                       float b1) {
+  return (((a0 + a1) + b0) + b1) * 0.25f;
+}
+
+// item g of the line level of src [H,W] into dst [H/2, W/2]
+__device__ void line_level_item(const float* __restrict__ src, int H, int W,
+                                float* __restrict__ dst, int g) {
+  const int w = W / 2;
+  if (line_vec(src, W, dst)) {
+    const int q = w / 4;
+    if (g >= (H / 2) * q) return;
+    const int r = g / q, c = 4 * (g % q);
+    const float4* a = reinterpret_cast<const float4*>(
+        src + (size_t)(2 * r) * W + 2 * c);
+    const float4* b = reinterpret_cast<const float4*>(
+        src + (size_t)(2 * r + 1) * W + 2 * c);
+    const float4 a0 = __ldg(a), a1 = __ldg(a + 1);
+    const float4 b0 = __ldg(b), b1 = __ldg(b + 1);
+    float4 o;
+    o.x = mean4(a0.x, a0.y, b0.x, b0.y);
+    o.y = mean4(a0.z, a0.w, b0.z, b0.w);
+    o.z = mean4(a1.x, a1.y, b1.x, b1.y);
+    o.w = mean4(a1.z, a1.w, b1.z, b1.w);
+    *reinterpret_cast<float4*>(dst + (size_t)r * w + c) = o;
+  } else {
+    if (g >= (H / 2) * w) return;
+    const int r = g / w, c = g % w;
+    const float* a = src + (size_t)(2 * r) * W + 2 * c;
+    const float* b = a + W;
+    dst[(size_t)r * w + c] = mean4(a[0], a[1], b[0], b[1]);
+  }
+}
+
+// blocks [0, level_gy) of grid rows: the level's tiles; rows beyond: the
+// line level of src into line_dst (when given), LINE_THREADS items a block
 __global__ void __launch_bounds__(TW * TH)
 pyramid_level_kernel(const float* __restrict__ src, int H, int W,
                      float* __restrict__ dst, int h, int w, float inv_y,
-                     float ks_y, float inv_x, float ks_x) {
+                     float ks_y, float inv_x, float ks_x,
+                     float* __restrict__ line_dst, int level_gy) {
+  if ((int)blockIdx.y >= level_gy) {
+    const int blk = ((int)blockIdx.y - level_gy) * gridDim.x + blockIdx.x;
+    line_level_item(src, H, W, line_dst,
+                    blk * LINE_THREADS + threadIdx.y * TW + threadIdx.x);
+    return;
+  }
   __shared__ float s_in[ROWS][COLS];
   __shared__ float s_mid[TH][COLS];
   __shared__ Taps s_ty[TH];
@@ -144,16 +211,10 @@ pyramid_level_kernel(const float* __restrict__ src, int H, int W,
   dst[(size_t)r * w + c] = acc;
 }
 
-__global__ void pyramid_line_kernel(const float* __restrict__ src, int H,
-                                    int W, float* __restrict__ dst, int h,
-                                    int w) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  const int r = blockIdx.y;
-  if (c >= w || r >= h) return;
-  const float* a = src + (size_t)(2 * r) * W + 2 * c;
-  const float* b = a + W;
-  const float sum = ((a[0] + a[1]) + b[0]) + b[1];
-  dst[(size_t)r * w + c] = sum * 0.25f;
+__global__ void __launch_bounds__(LINE_THREADS)
+pyramid_line_kernel(const float* __restrict__ src, int H, int W,
+                    float* __restrict__ dst) {
+  line_level_item(src, H, W, dst, blockIdx.x * LINE_THREADS + threadIdx.x);
 }
 
 }  // namespace
@@ -163,20 +224,29 @@ __global__ void pyramid_line_kernel(const float* __restrict__ src, int H,
 // its per-axis (inv_y, ks_y, inv_x, ks_x) at par[4l..4l+3] as the
 // reference computes them (the wrapper passes them in float32).  One
 // host call for all of them: the levels are small, and a call from the
-// wrapper costs more than a level's work.
+// wrapper costs more than a level's work.  With line_dst, the first
+// level's launch also writes src's line level [H/2, W/2] there.
 PLVIO_API int pyramid_levels(const float* src, int H, int W, int n,
                              float* dst, const int* hw, const long long* off,
-                             const float* par, void* stream) {
+                             const float* par, float* line_dst,
+                             void* stream) {
   const float* in = src;
   int h_in = H, w_in = W;
   for (int l = 0; l < n; ++l) {
     const int h = hw[2 * l], w = hw[2 * l + 1];
     float* out = dst + off[l];
     const dim3 block(TW, TH);
-    const dim3 grid((w + TW - 1) / TW, (h + TH - 1) / TH);
+    dim3 grid((w + TW - 1) / TW, (h + TH - 1) / TH);
+    const int level_gy = grid.y;
+    float* ld = l == 0 ? line_dst : nullptr;
+    if (ld != nullptr) {
+      const int nb = (line_items(src, H, W, ld) + LINE_THREADS - 1)
+          / LINE_THREADS;
+      grid.y += (nb + grid.x - 1) / grid.x;
+    }
     const float* p = par + 4 * l;
     pyramid_level_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-        in, h_in, w_in, out, h, w, p[0], p[1], p[2], p[3]);
+        in, h_in, w_in, out, h, w, p[0], p[1], p[2], p[3], ld, level_gy);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     in = out;
@@ -186,14 +256,14 @@ PLVIO_API int pyramid_levels(const float* src, int H, int W, int n,
   return (int)cudaSuccess;
 }
 
-// The line level: src [H,W] -> dst [H/2, W/2], the 2x2 mean of the even
-// crop.
+// The line level alone: src [H,W] -> dst [H/2, W/2], the 2x2 mean of the
+// even crop.
 PLVIO_API int pyramid_line_level(const float* src, int H, int W, float* dst,
                                  void* stream) {
-  const int h = H / 2, w = W / 2;
-  const dim3 block(128);
-  const dim3 grid((w + 127) / 128, h);
-  pyramid_line_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      src, H, W, dst, h, w);
+  const int nb = (line_items(src, H, W, dst) + LINE_THREADS - 1)
+      / LINE_THREADS;
+  if (nb > 0)
+    pyramid_line_kernel<<<nb, LINE_THREADS, 0, (cudaStream_t)stream>>>(
+        src, H, W, dst);
   return (int)cudaGetLastError();
 }

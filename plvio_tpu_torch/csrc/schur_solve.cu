@@ -13,49 +13,64 @@
 //
 // What bounds it on the H100: latency.  At the worst-case point+line window
 // (S = 96, 4096 3x3 point blocks, 512 6x6 line blocks, 9216 observations)
-// the factor stage moves ~2 MB and writes the 96 x 15360 Gram operand (5.9
-// MB); the Gram product (0.28 Gflop dense) runs as 6 upper-triangle tiles
-// x 24 column chunks; the CG is 48 sequential iterations of a 96 x 96
-// matrix-vector product, each a few block-wide barriers (~2 us an
-// iteration in one block).  The inertial window (S = 15 x 16 = 240) runs
-// the same factor and Gram stages (landmarks couple to the 96 pose rows
-// only) and 120 CG iterations on the 240 x 240 system.
+// the factor stage reads ~2 MB and writes each observation's 6 x 3 or 6 x
+// 6 factor (0.7 MB); the fill-in is ~1e7 multiply-adds over the
+// landmarks' keyframe pairs; the CG is 48 sequential iterations of a 96 x
+// 96 matrix-vector product.  The inertial window (S = 15 x 16 = 240) runs
+// the same factor and fill-in stages (landmarks couple to the 96 pose rows
+// only) and 120 CG iterations on a system that is dense only in its 96 x
+// 96 pose block: its velocity and bias rows couple through the chain's
+// keyframe-tridiagonal blocks alone (17 910 of 57 600 entries).
 //
-// Design:
-// - factor_kernel: one thread per landmark (points, then lines) zeroes its
-//   own columns of the Gram operand Gm [S, C], then takes the reference's
-//   steps in order: free mask, the per-landmark damping floor
-//   1e-4 mean(diag), lambda damping, the `occupied` gate, F = chol(Hpp)^-T
-//   by the same closed forms, the `blk_ok` guard (finite and max|F| < 1e3),
+// Design (four launches a step).  Every sum runs in the order of the
+// dense design this one replaced (a dense Gram operand, its tiled product
+// and a one-thread-a-row CG on the packed system), so the step keeps its
+// bits (the window BAs' kernel_digest.py lines did not move):
+// - factor_kernel: one thread per landmark (points, then lines; a warp a
+//   block, so the landmarks spread over every SM) takes the reference's
+//   steps in order: free mask, the per-landmark damping floor 1e-4
+//   mean(diag), lambda damping, the `occupied` gate, F = chol(Hpp)^-T by
+//   the same closed forms, the `blk_ok` guard (finite and max|F| < 1e3),
 //   then for each of its observations (in observation order) G_o = W_o F
-//   added into its columns, and the rhs share G_o F^T g_p kept per
-//   observation.  A thread owns its columns, so there are no atomics and
-//   the result is the same on every run.
-// - gram_kernel / gram_reduce_kernel: the fill-in Ff = Gm Gm^T.  Each block
-//   takes one 32 x 32 tile of the upper triangle over one chunk of the C
-//   columns (shared-memory tiles, 2 x 2 outputs a thread) and writes its
-//   partial tile; the reduction sums the partials in chunk order, so the
-//   fill-in too is the same on every run.
-// - solve_kernel: one block holds the reduced system in shared memory as
-//   its packed upper triangle (S (S + 1) / 2 floats: 115,680 B at S = 240,
-//   where the full 230,400 B would leave no room for the CG vectors in the
-//   227 KB a block may use; the one-block CG and its fixed-order dot
-//   products stay).  The dense system: the keyframes' visual pose blocks
+//   into gpt / gln and the rhs share G_o F^T g_p into rr.  No dense
+//   operand: the fill-in reads the per-observation factors.
+// - fill_kernel: the fill-in Ff = Gm Gm^T (engine.py:530, an XLA dot over
+//   the dense coupling there), one block of 256 threads per 6 x 6
+//   keyframe block (k1 <= k2), walking k1's observations in column order
+//   (the host's kf_col_order): for each landmark that k2 also sees, its
+//   columns' factors on both keyframes, then each entry's terms in column
+//   order, chunk by chunk (see kSumChunks).  No atomics and no host-built
+//   pair list; only the landmarks the two keyframes share cost work.  The
+//   diagonal blocks also sum each keyframe's rhs shares in kf_order (the
+//   serial loop the dense design's solve ran per row).  Ff [Sp, Sp] keeps
+//   the full
+//   symmetric layout its readers take (reduced_h, assemble_kernel,
+//   solve_global_kernel).
+// - solve_kernel: one block of 1024 threads assembles the reduced system in
+//   shared memory in full rows: the keyframes' visual pose blocks
 //   (csrc/ba_linearize.cu) and, for the inertial window, the chain's link
 //   blocks (csrc/inertial_chain.cu), each keyframe's 15 x 15 block summing
 //   links i-1 and i in link order and its off-diagonal block taken from
 //   link i; damped as H + diag(diag(H) lambda + 1e-6), minus the fill-in
 //   on the pose rows, the fixed states freed after the reduction (unit
 //   diagonal, zero rhs; pose and velocity rows by kf_free, bias rows by
-//   kf_free_bias), then CG with the reference's iteration count
-//   (min(max(S / 2, 16), 128)) and max(., 1e-20) guards, dot products
-//   reduced in a fixed order.  A 2-CTA cluster with distributed shared
-//   memory would hold the full matrix; the packed form keeps one block and
-//   the same matrix-vector order as the full one.
-// - solve_global_kernel: the same system and CG when the packed triangle
-//   and the vectors exceed one block's 227 KB (S > 327: the 64-keyframe
-//   inertial window of the full-map BA, S = 960, and the point-only window
-//   beyond 54 keyframes, S = 768 at 128).  One cooperative launch of
+//   kf_free_bias).  A row stores only its structural non-zeros in column
+//   order (`RowSegs`: all columns of a point+line window; the pose block
+//   and the keyframe-tridiagonal columns of the 15-DoF one), padded so that
+//   the 32 rows a warp walks at once read 32 banks.  Then
+//   CG with the reference's iteration count (min(max(S / 2, 16), 128)) and
+//   max(., 1e-20) guards on its first 256 threads (the others keep the
+//   barriers): a thread owns rows t and t + 256 and walks each
+//   row's stored columns in order (the dense row walk without its
+//   structural zeros), keeps x, r and p in registers, and forms p.Hp and
+//   r.r as the dense design's block sums did (a warp butterfly, the warps
+//   in order) in the same passes as the product and the update: three
+//   barriers an iteration (the dense design had seven, and its packed
+//   column reads met bank conflicts).
+// - solve_global_kernel: the same system and CG beyond one block (see
+//   one_block: a point+line window beyond 37 keyframes, S > 222, e.g. S =
+//   768 at 128; a 15-DoF window beyond 22, S > 330, e.g. the full-map
+//   BA's 64 keyframes, S = 960).  One cooperative launch of
 //   ceil(S / 128) blocks, one row a thread, the full symmetric system in a
 //   global workspace that stays in L2; each CG step takes three grid
 //   barriers (after p.Hp's block partials, after r.r's, after the new p),
@@ -67,15 +82,23 @@
 //   (T <- Exp(dx) T for T_cw; R <- R Exp(dtheta), p <- p + dp for pose_wb,
 //   and velocity and biases additive; rows re-orthonormalized).
 // Every kernel reads the device-side early-exit flag first and returns at
-// once when it has fired, so an iteration after the exit costs five empty
+// once when it has fired, so an iteration after the exit costs four empty
 // launches and no memory traffic.
+//
+// A lane-parallel variant (each row's product over 4 lanes and a shuffle
+// tree, the fill-in summed per observation pair) ran a step in 0.125 /
+// 0.317 / 0.101 ms at the point+line / 15-DoF / point-only windows
+// against this design's 0.141 / 0.349 / 0.117 (H100 80GB HBM3, 700 W),
+// but its other sum order moved the replays' counts, which follow float32
+// rounding (SLAM mode 3 at cfg.seed 4 to 58 keyframes, the tracked
+// sequence's map to 29 lines), out of their reference bands.
 //
 // The sharded step (slice 15) splits the same step at the mesh's sum, for
 // the landmark-sharded window BAs: `make_dist_liba` (plvio_tpu/parallel/
 // dist_liba.py:186, through the engine's psum_axis, solver/engine.py:
 // 448,472-568), `make_dist_ba` (parallel/dist_ba.py:107) and the local
 // steps of `make_chain_ba` (parallel/chain_ba.py:170).
-// - schur_reduce: one shard's factor and Gram stages as above, then
+// - schur_reduce: one shard's factor and fill-in stages as above, then
 //   assemble_kernel writes the shard's reduced system to global memory as
 //   a full [S, S] matrix and an [S] rhs, one thread an entry: in engine
 //   mode the entries of solve_kernel's system (damped by the shard's own
@@ -182,8 +205,8 @@ template <int D>
 __device__ void factor_landmark(const BA& b, int p, const float* Hpk,
                                 const uint8_t* free_, const float* W,
                                 const int* order, const int* start,
-                                const int* obs_kf, int comb0, int col0,
-                                float* Fout, uint8_t* occ_out) {
+                                int comb0, float* Gout, float* Fout,
+                                uint8_t* occ_out) {
   constexpr int NU = D * (D + 1) / 2;
   const float lam = b.at<float>(kCtrl)[cLam];
   const float lf = free_[p] ? 1.f : 0.f;
@@ -224,27 +247,19 @@ __device__ void factor_landmark(const BA& b, int p, const float* Hpk,
     for (int i = 0; i < D; ++i) a += F[i][j] * g[i];
     t[j] = a;
   }
-  const int C = b.C();
-  const int S = b.Sp();
-  float* gm = b.at<float>(kGm);
   float* rr = b.at<float>(kRr);
-  for (int r = 0; r < S; ++r)
-    for (int j = 0; j < D; ++j) gm[size_t(r) * C + col0 + p * D + j] = 0.f;
   for (int q = start[p]; q < start[p + 1]; ++q) {
     const int o = order[q];
-    const int k = obs_kf[o];
     const float* Wo = W + o * 6 * D;
+    float* Go = Gout + o * 6 * D;
     for (int i = 0; i < 6; ++i) {
-      float gi[D];
       float r = 0.f;
       for (int j = 0; j < D; ++j) {
         float a = 0.f;
         for (int m = 0; m < D; ++m) a += (Wo[i * D + m] * lf) * F[m][j];
-        gi[j] = a;
+        Go[i * D + j] = a;
         r += a * t[j];
       }
-      float* row = gm + size_t(k * 6 + i) * C + col0 + p * D;
-      for (int j = 0; j < D; ++j) row[j] += gi[j];
       rr[(comb0 + o) * 6 + i] = r;
     }
   }
@@ -256,109 +271,249 @@ __global__ void factor_kernel(BA b) {
   if (t < b.n_pt) {
     factor_landmark<3>(b, t, b.at<float>(kHpt), b.at<uint8_t>(kPtFree),
                        b.at<float>(kPW), b.at<int>(kPtOrder),
-                       b.at<int>(kPtStart), b.at<int>(kObsKf), 0, 0,
+                       b.at<int>(kPtStart), 0, b.at<float>(kGpt),
                        b.at<float>(kFpt), b.at<uint8_t>(kOccPt));
   } else if (t < b.n_pt + b.n_ln) {
     factor_landmark<6>(b, t - b.n_pt, b.at<float>(kHln),
                        b.at<uint8_t>(kLnFree), b.at<float>(kLW),
-                       b.at<int>(kLnOrder), b.at<int>(kLnStart),
-                       b.at<int>(kLobsKf), b.n_obs, 3 * b.n_pt,
-                       b.at<float>(kFln), b.at<uint8_t>(kOccLn));
+                       b.at<int>(kLnOrder), b.at<int>(kLnStart), b.n_obs,
+                       b.at<float>(kGln), b.at<float>(kFln),
+                       b.at<uint8_t>(kOccLn));
   }
 }
 
-// ---- the fill-in Ff = Gm Gm^T (engine.py:530, an XLA dot there)
+// ---- the fill-in Ff = Gm Gm^T (engine.py:530), sparse, in a fixed order
+//
+// Gm [Sp, C] is the coupling's Gram operand: column col of landmark p's
+// block holds, on keyframe k's six rows, the sum of G_o over p's
+// observations in k (in observation order).  Each entry of the fill-in is
+// summed over the C columns in kSumChunks chunks of ceil(C / kSumChunks)
+// columns, a chunk's terms in column order from 0, then the chunks in
+// order from 0: the order of the dense design's tiles, so the bits stay.
+// Only
+// the columns of landmarks that both keyframes see add a non-zero term;
+// every other column adds +-0, which moves no sum, so the walk skips them.
 
-constexpr int kTile = 32;
-constexpr int kGramThreads = 256;          // 16 x 16, 2 x 2 outputs each
+constexpr int kSumChunks = 24;
+constexpr int kFillThreads = 256;          // also the sorted entries a pass
+constexpr int kFillRecs = 6 * kFillThreads;   // records a pass, at most
 
-__global__ void gram_kernel(BA b) {
-  if (b.done()) return;
-  __shared__ float As[kTile][kTile + 1];
-  __shared__ float Bs[kTile][kTile + 1];
-  const int S = b.Sp(), C = b.C();
-  const int nT = (S + kTile - 1) / kTile;
-  int pr = blockIdx.x, ti = 0;             // blockIdx.x -> (ti <= tj)
-  while (pr >= nT - ti) {
-    pr -= nT - ti;
-    ++ti;
+// the column of combined observation o (points 3 p, lines 3 n_pt + 6 l)
+__device__ __forceinline__ int obs_col(const BA& b, int o) {
+  return o < b.n_obs ? 3 * b.at<int>(kObsPt)[o]
+                     : 3 * b.n_pt + 6 * b.at<int>(kLobsLn)[o - b.n_obs];
+}
+
+// column entries of landmark (family D) for the block (k1, k2): g1 the
+// sum of G_o over the run of k1's sorted entries from q (its observations
+// of the landmark), g2 over the landmark's observations in k2 (landmark
+// order); returns whether k2 sees the landmark
+template <int D>
+__device__ bool fill_columns(const BA& b, const float* __restrict__ G,
+                             const int* __restrict__ lm_order,
+                             const int* __restrict__ lm_start,
+                             const int* __restrict__ obs_kf, int lm,
+                             const int* __restrict__ sorted, int q, int q1,
+                             const int* wcol, int w0, int col, int off,
+                             int k2, float* g1, float* g2) {
+#pragma unroll
+  for (int e = 0; e < 6 * D; ++e) g1[e] = g2[e] = 0.f;
+  for (; q < q1; ++q) {
+    const int o = sorted[q];
+    const int c = q - w0 < kFillThreads ? wcol[q - w0] : obs_col(b, o);
+    if (c != col) break;
+    const float* g = G + (o - off) * 6 * D;
+#pragma unroll
+    for (int e = 0; e < 6 * D; ++e) g1[e] += g[e];
   }
-  const int tj = ti + pr;
-  const int chunk = (C + b.gram_split - 1) / b.gram_split;
-  const int k0 = blockIdx.y * chunk;
-  const int k1 = min(C, k0 + chunk);
-  const float* gm = b.at<float>(kGm);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float acc[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
-  for (int kk = k0; kk < k1; kk += kTile) {
-    for (int e = threadIdx.x; e < kTile * kTile; e += kGramThreads) {
-      const int r = e / kTile, c = e % kTile, k = kk + c;
-      const int ra = ti * kTile + r, rb = tj * kTile + r;
-      As[r][c] = ra < S && k < k1 ? gm[size_t(ra) * C + k] : 0.f;
-      Bs[r][c] = rb < S && k < k1 ? gm[size_t(rb) * C + k] : 0.f;
+  bool seen = false;
+  for (int j = lm_start[lm]; j < lm_start[lm + 1]; ++j) {
+    const int o2 = lm_order[j];
+    if (obs_kf[o2] != k2) continue;
+    seen = true;
+    const float* g = G + o2 * 6 * D;
+#pragma unroll
+    for (int e = 0; e < 6 * D; ++e) g2[e] += g[e];
+  }
+  return seen;
+}
+
+// a landmark's D columns as records from `first`: the column, then its
+// factors on k1's six rows and on k2's
+template <int D>
+__device__ __forceinline__ void put_records(const float* g1, const float* g2,
+                                            int col, int first, float* rec,
+                                            int* rec_col) {
+#pragma unroll
+  for (int m = 0; m < D; ++m) {
+    rec_col[first + m] = col + m;
+    float* r = rec + (first + m) * 12;
+#pragma unroll
+    for (int i = 0; i < 6; ++i) {
+      r[i] = g1[i * D + m];
+      r[6 + i] = g2[i * D + m];
+    }
+  }
+}
+
+// Block (k1 <= k2) of the fill-in, a block of threads: k1's observations
+// in column order (kf_col_order), a pass of kFillThreads at a time; the
+// first entry of each landmark's run forms its columns' factors on both
+// keyframes and, where k2 sees the landmark, writes them as records (a
+// column and its 6 + 6 factors) in column order (a block scan of their
+// counts); then thread (entry, chunk) adds its chunk's records' terms in
+// order to its running sum.  The diagonal blocks also sum each keyframe's
+// observations' rhs shares, in kf_order, into rr's keyframe rows.
+__global__ void __launch_bounds__(kFillThreads) fill_kernel(BA b) {
+  if (b.done()) return;
+  extern __shared__ float rec[];           // [kFillRecs][12]: g1 [6], g2 [6]
+  __shared__ int rec_col[kFillRecs];
+  __shared__ float part[36][kSumChunks + 1];
+  __shared__ int bound[kSumChunks + 1];
+  __shared__ int wsum[kFillThreads / 32];
+  __shared__ int wcol[kFillThreads + 1];   // the pass's columns; [-1] prev
+  const int n = b.n_kf, tid = threadIdx.x;
+  int pr = blockIdx.x, k1 = 0;             // blockIdx.x -> (k1 <= k2)
+  while (pr >= n - k1) {
+    pr -= n - k1;
+    ++k1;
+  }
+  const int k2 = k1 + pr;
+  const int C = b.C(), chunk = (C + kSumChunks - 1) / kSumChunks;
+  for (int e = tid; e < 36 * kSumChunks; e += kFillThreads)
+    part[e / kSumChunks][e % kSumChunks] = 0.f;
+  __syncthreads();               // a keyframe without observations: no pass
+  const int* start = b.at<int>(kKfStart);
+  const int* sorted = b.at<int>(kKfColOrder);
+  const int q0 = start[k1], q1 = start[k1 + 1];
+  for (int w0 = q0; w0 < q1; w0 += kFillThreads) {
+    const int q = w0 + tid;
+    int o = 0, col = -1;
+    if (q < q1) {
+      o = sorted[q];
+      col = obs_col(b, o);
+    }
+    wcol[tid + 1] = col;
+    if (tid == 0) wcol[0] = w0 > q0 ? obs_col(b, sorted[w0 - 1]) : -1;
+    __syncthreads();
+    float g1[36], g2[36];
+    int cols = 0;
+    if (q < q1 && wcol[tid] != col) {      // the first of its landmark's run
+      const bool pt = o < b.n_obs;
+      const bool seen = pt
+          ? fill_columns<3>(b, b.at<float>(kGpt), b.at<int>(kPtOrder),
+                            b.at<int>(kPtStart), b.at<int>(kObsKf),
+                            b.at<int>(kObsPt)[o], sorted, q, q1, wcol + 1,
+                            w0, col, 0, k2, g1, g2)
+          : fill_columns<6>(b, b.at<float>(kGln), b.at<int>(kLnOrder),
+                            b.at<int>(kLnStart), b.at<int>(kLobsKf),
+                            b.at<int>(kLobsLn)[o - b.n_obs], sorted, q, q1,
+                            wcol + 1, w0, col, b.n_obs, k2, g1, g2);
+      cols = seen ? (pt ? 3 : 6) : 0;
+    }
+    // exclusive scan of the record counts (warp shuffles, warps in order)
+    const int lane = tid & 31, warp = tid >> 5;
+    int incl = cols;
+    for (int off = 1; off < 32; off <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, incl, off);
+      if (lane >= off) incl += v;
+    }
+    if (lane == 31) wsum[warp] = incl;
+    __syncthreads();
+    int base = 0, total = 0;
+    for (int w = 0; w < kFillThreads / 32; ++w) {
+      base += w < warp ? wsum[w] : 0;
+      total += wsum[w];
+    }
+    const int first = base + incl - cols;
+    if (cols == 3)
+      put_records<3>(g1, g2, col, first, rec, rec_col);
+    else if (cols == 6)
+      put_records<6>(g1, g2, col, first, rec, rec_col);
+    __syncthreads();
+    // each chunk's records: [bound[c], bound[c + 1]) (columns ascending)
+    if (tid <= kSumChunks) {
+      const int lim = tid * chunk;
+      int lo = 0, hi = total;
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (rec_col[mid] < lim) lo = mid + 1;
+        else hi = mid;
+      }
+      bound[tid] = lo;
     }
     __syncthreads();
-    for (int c = 0; c < kTile; ++c)
-      for (int u = 0; u < 2; ++u)
-        for (int v = 0; v < 2; ++v)
-          acc[u][v] += As[ty + 16 * u][c] * Bs[tx + 16 * v][c];
+    // task (chunk, entry): a warp's threads mostly share a chunk, so they
+    // walk the same records in step
+    for (int e = tid; e < 36 * kSumChunks; e += kFillThreads) {
+      const int c = e / 36, ab = e % 36;
+      const float* ra = rec + ab / 6;
+      const float* rb = rec + 6 + ab % 6;
+      float acc = part[ab][c];
+      int r = bound[c];
+      const int re = bound[c + 1];
+      for (; r + 4 <= re; r += 4) {
+        float t[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) t[u] = ra[(r + u) * 12] * rb[(r + u) * 12];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) acc += t[u];
+      }
+      for (; r < re; ++r) acc += ra[r * 12] * rb[r * 12];
+      part[ab][c] = acc;
+    }
     __syncthreads();
   }
-  float* part = b.at<float>(kGpart) + size_t(blockIdx.y) * S * S;
-  for (int u = 0; u < 2; ++u)
-    for (int v = 0; v < 2; ++v) {
-      const int i = ti * kTile + ty + 16 * u, j = tj * kTile + tx + 16 * v;
-      if (i < S && j < S) part[i * S + j] = acc[u][v];
-    }
-}
-
-// Ff[i][j] = sum of the chunks' partials in chunk order (the lower tiles
-// read their transposed upper tile)
-__global__ void gram_reduce_kernel(BA b) {
-  if (b.done()) return;
-  const int S = b.Sp();
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= S * S) return;
-  int i = e / S, j = e % S;
-  if (i / kTile > j / kTile) {
-    const int t = i;
-    i = j;
-    j = t;
+  const int Sp = b.Sp();
+  if (tid < 36) {
+    const int a = tid / 6, bb = tid % 6;
+    float v = 0.f;
+    for (int c = 0; c < kSumChunks; ++c) v += part[tid][c];
+    float* ff = b.at<float>(kFf);
+    ff[(6 * k1 + a) * Sp + 6 * k2 + bb] = v;
+    if (k1 != k2) ff[(6 * k2 + bb) * Sp + 6 * k1 + a] = v;
   }
-  const float* part = b.at<float>(kGpart);
-  float a = 0.f;
-  for (int c = 0; c < b.gram_split; ++c) a += part[(size_t(c) * S + i) * S + j];
-  b.at<float>(kFf)[e] = a;
-}
-
-// ---- the reduced solve: one block
-
-constexpr int kSolveThreads = 256;
-
-// fixed-order block sum of v[0..n) (warp shuffles, then warps in order)
-__device__ float block_dot(const float* a, const float* c, int n,
-                           float* warp_sh) {
+  if (k1 != k2) return;
+  // keyframe k1's rhs share, its observations in kf_order from 0: the
+  // shares gathered into shared memory by the block, a pass at a time,
+  // then summed in order by six threads
+  const int* order = b.at<int>(kKfOrder);
+  float* rr = b.at<float>(kRr);
   float v = 0.f;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) v += a[i] * c[i];
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  if ((threadIdx.x & 31) == 0) warp_sh[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float s = 0.f;
-  for (int w = 0; w < int(blockDim.x >> 5); ++w) s += warp_sh[w];
-  __syncthreads();
-  return s;
+  for (int w0 = q0; w0 < q1; w0 += kFillRecs * 2) {
+    const int nw = min(q1 - w0, kFillRecs * 2);
+    __syncthreads();
+    for (int e = tid; e < nw * 6; e += kFillThreads)
+      rec[e] = rr[order[w0 + e / 6] * 6 + e % 6];
+    __syncthreads();
+    if (tid >= 36 && tid < 42) {
+      const float* sh6 = rec + tid - 36;
+      int q = 0;
+      for (; q + 8 <= nw; q += 8) {
+        float t[8];
+#pragma unroll
+        for (int u = 0; u < 8; ++u) t[u] = sh6[(q + u) * 6];
+#pragma unroll
+        for (int u = 0; u < 8; ++u) v += t[u];
+      }
+      for (; q < nw; ++q) v += sh6[q * 6];
+    }
+  }
+  if (tid >= 36 && tid < 42) rr[(b.n_obs + b.n_lobs + k1) * 6 + tid - 36] = v;
 }
+
+// ---- the reduced system
 
 // dense index -> (keyframe, index in its 15-DoF state: pose 0-5, vel 6-8,
 // bg 9-11, ba 12-14)
-__device__ __forceinline__ void dense_to_kf(int d, int n, int& k, int& l) {
+__host__ __device__ __forceinline__ void dense_to_kf(int d, int n, int& k,
+                                                     int& l) {
   if (d < 6 * n) {
     k = d / 6;
     l = d % 6;
   } else {
-    d -= 6 * n;
-    const int fam = d / (3 * n);       // 0 vel, 1 bg, 2 ba
+    d -= 6 * n;                        // family: 0 vel, 1 bg, 2 ba
+    const int fam = d < 3 * n ? 0 : d < 6 * n ? 1 : 2;
     d -= fam * 3 * n;
     k = d / 3;
     l = 6 + 3 * fam + d % 3;
@@ -419,17 +574,14 @@ __device__ __forceinline__ float reduced_h(const BA& b, int i, int j,
 }
 
 // row i of the reduced right-hand side: the keyframe's gradient minus its
-// observations' Schur shares (in segment order), the chain's gradient
+// observations' Schur shares (summed by fill_kernel into rr's keyframe
+// rows), the chain's gradient
 __device__ __forceinline__ float reduced_rhs(const BA& b, int i, float fi) {
   const int Sp = b.Sp();
   float gv = 0.f, a = 0.f;
   if (i < Sp) {
-    const int k = i / 6, c = i % 6;
-    const int* order = b.at<int>(kKfOrder);
-    const int* start = b.at<int>(kKfStart);
-    const float* rr = b.at<float>(kRr);
-    for (int q = start[k]; q < start[k + 1]; ++q) a += rr[order[q] * 6 + c];
-    gv = b.at<float>(kHcc)[k * 27 + 21 + c];
+    a = b.at<float>(kRr)[(b.n_obs + b.n_lobs) * 6 + i];
+    gv = b.at<float>(kHcc)[(i / 6) * 27 + 21 + i % 6];
   }
   if (b.body) gv = gv + chain_g(b, i);
   return (gv - a) * fi;
@@ -467,63 +619,250 @@ struct FromSum {
   }
 };
 
+// ---- the reduced solve: one block
+
+constexpr int kSolveThreads = 256;       // the CG's threads
+constexpr int kSolveBlock = 1024;        // all of them assemble the system
+constexpr int kRowsMax = 2;              // rows a thread: S <= 512
+constexpr int kSolveWarps = kSolveThreads / 32;
+constexpr int kBlockWarps = kSolveBlock / 32;
+
+// the smallest length >= len that is 1 (mod 32): thread t walking row t
+// and its warp's neighbours walking theirs read 32 different banks
+__host__ __device__ __forceinline__ int pad_row(int len) {
+  return (len + 30) / 32 * 32 + 1;
+}
+
+// Row i's stored columns in increasing order: [c0, c0 + len) and, in the
+// 15-DoF window, each family's keyframe-tridiagonal columns [6n + 3n f +
+// c1, + len1) (f = vel, bg, ba).  Pose rows: every pose column (the
+// fill-in is dense there); velocity and bias rows: the pose columns of
+// keyframes k-1..k+1.  Every other entry of the system is exactly 0: the
+// chain couples neighbouring keyframes only, the fill-in and the visual
+// blocks the pose rows only (KN.cg_pattern is the same rule).
+struct RowSegs {
+  int c0, len, c1, len1;
+};
+
+__host__ __device__ __forceinline__ RowSegs row_segs(int i, int n,
+                                                     int body) {
+  if (!body) return {0, 6 * n, 0, 0};
+  int k, l;
+  dense_to_kf(i, n, k, l);
+  const int lo = k > 0 ? k - 1 : 0, hi = k < n - 1 ? k + 1 : n - 1;
+  const int m = hi - lo + 1;
+  if (i < 6 * n) return {0, 6 * n, 3 * lo, 3 * m};
+  return {6 * lo, 6 * m, 3 * lo, 3 * m};
+}
+
+// where the rows live in shared memory: the pose rows (the first 6n) at a
+// stride of the longest one's padded length, the 15-DoF window's other
+// rows after them at theirs
+struct RowLayout {
+  int S, n, body, sp, sn;
+  __host__ __device__ RowLayout(int S_, int n_, int body_)
+      : S(S_), n(n_), body(body_) {
+    const int m = n < 3 ? n : 3;
+    sp = pad_row(6 * n + (body ? 9 * m : 0));
+    sn = pad_row(15 * m);
+  }
+  __host__ __device__ int off(int i) const {
+    return i < 6 * n ? i * sp : 6 * n * sp + (i - 6 * n) * sn;
+  }
+  __host__ __device__ size_t floats() const {
+    return size_t(6 * n) * sp + (body ? size_t(S - 6 * n) * sn : 0);
+  }
+};
+
+// a + sum_e v[e] p[e] for e < len, added in order, the next eight terms'
+// loads in flight while eight are added
+__device__ __forceinline__ float serial_dot(float a, const float* v,
+                                            const float* p, int len) {
+  constexpr int U = 8;
+  int e = 0;
+  float w[U], q[U];
+  if (len >= U) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      w[u] = v[u];
+      q[u] = p[u];
+    }
+    for (e = U; e + U <= len; e += U) {
+      float t[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) t[u] = w[u] * q[u];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        w[u] = v[e + u];
+        q[u] = p[e + u];
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) a += t[u];
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) a += w[u] * q[u];
+  }
+  for (; e < len; ++e) a += v[e] * p[e];
+  return a;
+}
+
+// The system in full rows (RowSegs); a thread walks its row's stored
+// columns in order, the order of the dense row walk (its structural
+// zeros added +-0, which moves no sum)
+struct FullRows {
+  RowLayout lay;
+  __host__ __device__ size_t floats() const { return lay.floats(); }
+  // the damped, frozen entries of src, a warp a row (entry (i, j) from the
+  // upper triangle, as every reader of the system takes it), four entries
+  // a lane at a time so that their reads are in flight together
+  template <class Src>
+  __device__ void fill(const BA& b, const Src& src, float* H,
+                       const float* fr, float lam) const {
+    const int lane = threadIdx.x & 31;
+    for (int i = threadIdx.x >> 5; i < lay.S; i += kBlockWarps) {
+      const RowSegs g = row_segs(i, lay.n, lay.body);
+      float* row = H + lay.off(i);
+      const int cnt = g.len + (lay.body ? 3 * g.len1 : 0);
+      for (int t0 = lane; t0 < cnt; t0 += 4 * 32) {
+        float v[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int t = t0 + 32 * u;
+          int j = g.c0 + t;
+          if (t >= g.len) {
+            const int w = t - g.len, f = w / g.len1;
+            j = 6 * lay.n + 3 * lay.n * f + g.c1 + w % g.len1;
+          }
+          const int lo = min(i, j), hi = max(i, j);
+          v[u] = t < cnt ? src.h(b, lo, hi, lam, fr[lo], fr[hi]) : 0.f;
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          if (t0 + 32 * u < cnt) row[t0 + 32 * u] = v[u];
+      }
+    }
+  }
+  __device__ float dot(const float* H, int i, const float* p) const {
+    const RowSegs g = row_segs(i, lay.n, lay.body);
+    const float* v = H + lay.off(i);
+    float a = serial_dot(0.f, v, p + g.c0, g.len);
+    if (lay.body) {
+      v += g.len;
+      for (int f = 0; f < 3; ++f, v += g.len1)
+        a = serial_dot(a, v, p + 6 * lay.n + 3 * lay.n * f + g.c1, g.len1);
+    }
+    return a;
+  }
+};
+
+// the dense design's block sum of a thread's value v: the warp's
+// butterfly, then the
+// warps' partials added in warp order (every thread the same bits); the
+// partials written to part after the barrier the caller takes
+__device__ __forceinline__ void warp_partial(float v, float* part) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = v;
+}
+
+__device__ __forceinline__ float warps_total(const float* part) {
+  float s = 0.f;
+#pragma unroll
+  for (int w = 0; w < kSolveWarps; ++w) s += part[w];
+  return s;
+}
+
+// The damped, frozen reduced system of `src` in shared memory in full
+// rows, then the fixed-step CG in the dense design's arithmetic:
+// thread t owns
+// rows t and t + 256 and keeps their x, r and p in registers (p also in
+// shared memory for the products); a row's product walks its columns in
+// order; p.Hp and r.r are the dense design's block sums, formed in the
+// same pass as the product and the update.  Three barriers an iteration:
+// after p.Hp's warp partials, after r.r's, after the new p.
 template <class Src>
-__global__ void solve_kernel(BA b, Src src) {
+__global__ void __launch_bounds__(kSolveBlock) solve_kernel(BA b, Src src,
+                                                            FullRows lay) {
   if (b.done()) return;
   extern __shared__ float sh[];
   const int S = b.Sd();
-  float* H = sh;                 // [S (S + 1) / 2] packed upper triangle
-  float* x = H + S * (S + 1) / 2;
-  float* r = x + S;
-  float* p = r + S;
-  float* Hp = p + S;
-  float* fr = Hp + S;            // free mask
-  float* wsh = fr + S;           // [32]
+  float* H = sh;
+  float* p = H + lay.floats();   // [S]
+  float* fr = p + S;             // [S] free mask
+  float* wa = fr + S;            // [kSolveWarps] p.Hp's warp partials
+  float* wb = wa + kSolveWarps;  // [kSolveWarps] r.r's
   const float lam = b.at<float>(kCtrl)[cLam];
-  for (int i = threadIdx.x; i < S; i += blockDim.x) fr[i] = row_free(b, i);
+  for (int i = threadIdx.x; i < S; i += kSolveBlock) fr[i] = row_free(b, i);
   __syncthreads();
-  for (int i = 0; i < S; ++i) {
-    const int row = i * S - i * (i - 1) / 2 - i;      // + j: ut(S, i, j)
-    for (int j = i + threadIdx.x; j < S; j += blockDim.x)
-      H[row + j] = src.h(b, i, j, lam, fr[i], fr[j]);
+  lay.fill(b, src, H, fr, lam);
+  // the CG's threads: the block's first kSolveThreads; the others only
+  // keep the barriers
+  const bool cg = threadIdx.x < kSolveThreads;
+  bool own[kRowsMax];
+  float x[kRowsMax], r[kRowsMax], pv[kRowsMax];
+  float t = 0.f;
+#pragma unroll
+  for (int m = 0; m < kRowsMax; ++m) {
+    const int i = threadIdx.x + m * kSolveThreads;
+    own[m] = cg && i < S;
+    const float rhs = own[m] ? src.r(b, i, fr[i]) : 0.f;
+    x[m] = 0.f;
+    r[m] = rhs;
+    pv[m] = rhs;
+    if (own[m]) {
+      p[i] = rhs;
+      t += rhs * rhs;
+    }
   }
-  for (int i = threadIdx.x; i < S; i += blockDim.x) {
-    const float rhs = src.r(b, i, fr[i]);
-    x[i] = 0.f;
-    r[i] = rhs;
-    p[i] = rhs;
-  }
-  __syncthreads();
-  float rs = block_dot(r, r, S, wsh);
+  if (cg) warp_partial(t, wb);
+  __syncthreads();               // the system, p and r.r's partials
+  float rs = cg ? warps_total(wb) : 0.f;
   for (int it = 0; it < b.cg_iters; ++it) {
-    for (int i = threadIdx.x; i < S; i += blockDim.x) {
-      // row i of the symmetric matrix: column j < i from row j's packed
-      // entries, j >= i from row i's
-      float a = 0.f;
-      int idx = i;
-      for (int j = 0; j < i; ++j) {
-        a += H[idx] * p[j];
-        idx += S - j - 1;
-      }
-      for (int j = i; j < S; ++j) a += H[idx + (j - i)] * p[j];
-      Hp[i] = a;
+    float hp[kRowsMax];
+    if (cg) {
+      t = 0.f;
+#pragma unroll
+      for (int m = 0; m < kRowsMax; ++m)
+        if (own[m]) {
+          hp[m] = lay.dot(H, threadIdx.x + m * kSolveThreads, p);
+          t += pv[m] * hp[m];
+        }
+      warp_partial(t, wa);
     }
-    __syncthreads();
-    const float alpha = rs / fmaxf(block_dot(p, Hp, S, wsh), 1e-20f);
-    for (int i = threadIdx.x; i < S; i += blockDim.x) {
-      x[i] = x[i] + alpha * p[i];
-      r[i] = r[i] - alpha * Hp[i];
+    __syncthreads();             // 1: p.Hp
+    if (cg) {
+      const float alpha = rs / fmaxf(warps_total(wa), 1e-20f);
+      t = 0.f;
+#pragma unroll
+      for (int m = 0; m < kRowsMax; ++m)
+        if (own[m]) {
+          x[m] = x[m] + alpha * pv[m];
+          r[m] = r[m] - alpha * hp[m];
+          t += r[m] * r[m];
+        }
+      warp_partial(t, wb);
     }
-    __syncthreads();
-    const float rs_new = block_dot(r, r, S, wsh);
-    const float beta = rs_new / fmaxf(rs, 1e-20f);
-    for (int i = threadIdx.x; i < S; i += blockDim.x)
-      p[i] = r[i] + beta * p[i];
-    __syncthreads();
-    rs = rs_new;
+    __syncthreads();             // 2: r.r
+    if (cg) {
+      const float rs_new = warps_total(wb);
+      const float beta = rs_new / fmaxf(rs, 1e-20f);
+#pragma unroll
+      for (int m = 0; m < kRowsMax; ++m)
+        if (own[m]) {
+          pv[m] = r[m] + beta * pv[m];
+          p[threadIdx.x + m * kSolveThreads] = pv[m];
+        }
+      rs = rs_new;
+    }
+    __syncthreads();             // 3: the new p
   }
   float* dx = b.at<float>(kDx);
-  for (int i = threadIdx.x; i < S; i += blockDim.x) dx[i] = x[i] * fr[i];
+#pragma unroll
+  for (int m = 0; m < kRowsMax; ++m) {
+    const int i = threadIdx.x + m * kSolveThreads;
+    if (own[m]) dx[i] = x[m] * fr[i];
+  }
 }
 
 // ---- the reduced solve in global memory (S beyond one block)
@@ -768,11 +1107,65 @@ __global__ void backsub_kernel(BA b) {
 
 inline int blocks(int n, int t) { return (n + t - 1) / t; }
 
-inline size_t solve_smem(int S) {
-  return (size_t(S) * (S + 1) / 2 + 5 * size_t(S) + 32) * sizeof(float);
-}
+// the landmark stages' blocks: one warp each, so that the ~4600
+// landmarks of a window spread over every SM (a thread each)
+constexpr int kLmThreads = 32;
 
 constexpr size_t kSmemMax = 232448;
+
+// the one-block solve's layout of b's reduced system
+inline FullRows rows_of(const BA& b) {
+  return FullRows{RowLayout(b.Sd(), b.n_kf, b.body)};
+}
+
+// the one-block solve's shared memory: the system in full rows, p, the
+// free mask and two rows of warp partials
+inline size_t cg_smem(const BA& b) {
+  return (rows_of(b).floats() + 2 * size_t(b.Sd()) + 2 * kSolveWarps) *
+         sizeof(float);
+}
+
+// the largest reduced system the one-block solve takes: a 15-DoF window
+// of up to 22 keyframes.  Its rows would fit up to 29, but the windows
+// from 23 keyframes keep the global path, whose arithmetic the card tests
+// hold there.
+constexpr int kOneBlockMaxS = 330;
+
+// Whether the reduced system takes the one-block solve: S <= 330 and its
+// full rows and vectors fit one block's shared memory (the rule
+// KN.solve_fits repeats: up to 37 keyframes in a point+line window, 22
+// in a 15-DoF one); beyond it the global path.
+inline bool one_block(const BA& b) {
+  return b.Sd() <= kOneBlockMaxS && cg_smem(b) <= kSmemMax;
+}
+
+// the global path's workspace is large enough (ints[kCgwFloats])
+inline bool cgw_fits(const int* ints, int S) {
+  return size_t(ints[kCgwFloats])
+      >= size_t(S) * S + S + 2 * blocks(S, kRowThreads);
+}
+
+// the fill-in's launch: a block a keyframe pair, its records in dynamic
+// shared memory
+int launch_fill(const BA& b, cudaStream_t s) {
+  const int smem = kFillRecs * 12 * sizeof(float);
+  const cudaError_t e = cudaFuncSetAttribute(
+      fill_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  fill_kernel<<<b.n_kf * (b.n_kf + 1) / 2, kFillThreads, smem, s>>>(b);
+  return 0;
+}
+
+template <class Src>
+int launch_cg_block(const BA& b, Src src, cudaStream_t s) {
+  const size_t smem = cg_smem(b);
+  const cudaError_t e = cudaFuncSetAttribute(
+      solve_kernel<Src>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  solve_kernel<Src><<<1, kSolveBlock, smem, s>>>(b, src, rows_of(b));
+  return 0;
+}
 
 // the global path's cooperative launch: ceil(S / 128) blocks of 128 rows,
 // all co-resident or an error
@@ -802,6 +1195,20 @@ int launch_solve_global(const BA& b, Src src, cudaStream_t s) {
   return static_cast<int>(cudaLaunchCooperativeKernel(
       reinterpret_cast<void*>(solve_global_kernel<Src>), dim3(grid),
       dim3(kRowThreads), args, smem, s));
+}
+
+// The reduced solve of src's system into dx: one block where its full
+// rows fit, else the global path.  ints[kSolvePath] reports the path (0
+// one block, 1 global); the caller has checked the global path's
+// workspace.
+template <class Src>
+int launch_cg(const BA& b, Src src, int* ints, cudaStream_t s) {
+  if (!one_block(b)) {
+    ints[kSolvePath] = 1;
+    return launch_solve_global(b, src, s);
+  }
+  ints[kSolvePath] = 0;
+  return launch_cg_block(b, src, s);
 }
 
 // ---- the sharded step (schur_reduce / schur_solve_reduced)
@@ -915,61 +1322,43 @@ inline size_t chol_smem(int S) {
 
 }  // namespace
 
-// one damped Schur step: landmark factors and the Gram operand, the
-// fill-in, the reduced solve (one block, or the global path when the
-// packed system does not fit its shared memory), back-substitution and
-// retraction.  ints[kSolvePath] reports the path the reduced solve took;
-// the global path needs ints[kCgwFloats] >= S * S + S + 2 * blocks.
+// one damped Schur step: landmark factors and the per-observation G_o, the
+// fill-in, the reduced solve (one block, or the global path when its
+// full rows do not fit the block's shared memory), back-substitution and
+// retraction: four launches.  ints[kSolvePath] reports the path the
+// reduced solve took; the global path needs ints[kCgwFloats] >= S * S + S
+// + 2 * blocks.
 PLVIO_API int schur_solve(void* const* ptrs, int* ints, const float* flts,
                           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const BA b = make_ba(ptrs, ints, flts);
-  if (b.gram_split < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = solve_smem(b.Sd());
-  const bool global = smem > kSmemMax;
-  const size_t S = size_t(b.Sd());
-  if (global &&
-      size_t(ints[kCgwFloats]) < S * S + S + 2 * blocks(b.Sd(), kRowThreads))
+  if (!one_block(b) && !cgw_fits(ints, b.Sd()))
     return static_cast<int>(cudaErrorInvalidValue);
-  ints[kSolvePath] = global ? 1 : 0;
   const int n = b.n_pt + b.n_ln;
-  if (n > 0) factor_kernel<<<blocks(n, 128), 128, 0, s>>>(b);
-  const int nT = blocks(b.Sp(), kTile);
-  gram_kernel<<<dim3(nT * (nT + 1) / 2, b.gram_split), kGramThreads, 0, s>>>(
-      b);
-  gram_reduce_kernel<<<blocks(b.Sp() * b.Sp(), 256), 256, 0, s>>>(b);
-  if (!global) {
-    cudaFuncSetAttribute(solve_kernel<FromBlocks>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         static_cast<int>(smem));
-    solve_kernel<<<1, kSolveThreads, smem, s>>>(b, FromBlocks());
-  } else {
-    const int rc = launch_solve_global(b, FromBlocks(), s);
-    if (rc != 0) return rc;
-  }
+  if (n > 0) factor_kernel<<<blocks(n, kLmThreads), kLmThreads, 0, s>>>(b);
+  const int fe = launch_fill(b, s);
+  if (fe != 0) return fe;
+  const int rc = launch_cg(b, FromBlocks(), ints, s);
+  if (rc != 0) return rc;
   const int m = b.n_kf + b.n_pt + b.n_ln;
-  backsub_kernel<<<blocks(m, 128), 128, 0, s>>>(b);
+  backsub_kernel<<<blocks(m, kLmThreads), kLmThreads, 0, s>>>(b);
   return static_cast<int>(cudaGetLastError());
 }
 
 // one shard's partial of the sharded step (the landmark-sharded window
-// BAs): the landmark factors and the Gram operand, the fill-in (the
-// single-device step's stages, unchanged), then the shard's reduced system
-// written to H [S, S] and rhs [S]: engine mode (raw = 0) damped by the
-// shard's own diagonal and its fixed rows frozen, raw mode (raw = 1)
-// neither.  The shard's factors stay in its buffers for the
-// back-substitution.
+// BAs): the landmark factors and the fill-in (the single-device step's
+// stages, unchanged), then the shard's reduced system written to H [S, S]
+// and rhs [S]: engine mode (raw = 0) damped by the shard's own diagonal
+// and its fixed rows frozen, raw mode (raw = 1) neither.  The shard's
+// factors stay in its buffers for the back-substitution.
 PLVIO_API int schur_reduce(void* const* ptrs, int* ints, const float* flts,
                            void* H, void* rhs, int raw, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const BA b = make_ba(ptrs, ints, flts);
-  if (b.gram_split < 1) return static_cast<int>(cudaErrorInvalidValue);
   const int n = b.n_pt + b.n_ln;
-  if (n > 0) factor_kernel<<<blocks(n, 128), 128, 0, s>>>(b);
-  const int nT = blocks(b.Sp(), kTile);
-  gram_kernel<<<dim3(nT * (nT + 1) / 2, b.gram_split), kGramThreads, 0, s>>>(
-      b);
-  gram_reduce_kernel<<<blocks(b.Sp() * b.Sp(), 256), 256, 0, s>>>(b);
+  if (n > 0) factor_kernel<<<blocks(n, kLmThreads), kLmThreads, 0, s>>>(b);
+  const int fe = launch_fill(b, s);
+  if (fe != 0) return fe;
   assemble_kernel<<<blocks(b.Sd() * b.Sd(), 256), 256, 0, s>>>(
       b, static_cast<float*>(H), static_cast<float*>(rhs), raw);
   return static_cast<int>(cudaGetLastError());
@@ -1016,25 +1405,14 @@ PLVIO_API int schur_solve_reduced(void* const* ptrs, int* ints,
       chol_kernel<<<1, kSolveThreads, smem, s>>>(b, src);
       ints[kSolvePath] = 0;
     } else {
-      const size_t smem = solve_smem(S);
-      const bool global = smem > kSmemMax;
-      if (global && size_t(ints[kCgwFloats]) <
-                        size_t(S) * S + S + 2 * blocks(S, kRowThreads))
+      if (!one_block(b) && !cgw_fits(ints, S))
         return static_cast<int>(cudaErrorInvalidValue);
-      ints[kSolvePath] = global ? 1 : 0;
-      if (!global) {
-        cudaFuncSetAttribute(solve_kernel<FromSum>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-        solve_kernel<<<1, kSolveThreads, smem, s>>>(b, src);
-      } else {
-        const int rc = launch_solve_global(b, src, s);
-        if (rc != 0) return rc;
-      }
+      const int rc = launch_cg(b, src, ints, s);
+      if (rc != 0) return rc;
     }
   } else if (stage == 2) {
     const int m = b.n_kf + b.n_pt + b.n_ln;
-    backsub_kernel<<<blocks(m, 128), 128, 0, s>>>(b);
+    backsub_kernel<<<blocks(m, kLmThreads), kLmThreads, 0, s>>>(b);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -181,8 +181,8 @@ class TrackingStepPL(nn.Module):
     def forward(self, img, pose_pred, pt_xyz, pt_desc, pt_valid, ln_ep6,
                 ln_desc, ln_valid):
         pose_pred = pose_pred.contiguous()
-        feats = self.orb(img)
-        lf = self.lines(img)
+        feats, level1 = self.orb.with_line_level(img)
+        lf = self.lines(img, level1)
         uv_m, ok, is2 = point_projection_match(
             self.K, feats, pose_pred, pt_xyz, pt_desc, pt_valid,
             self.height, self.width, self.plain)
@@ -237,8 +237,8 @@ class TrackingStepVI(nn.Module):
         pose_wb, vel, bg, ba, H15 = carry
         img, gyro, acc, dts = frame_xs
         pose_wb = pose_wb.contiguous()
-        feats = self.orb(img)
-        lf = self.lines(img)
+        feats, level1 = self.orb.with_line_level(img)
+        lf = self.lines(img, level1)
         preint = IMU.imu_preint_plain if self.plain else IMU.imu_preint
         imu = preint(gyro, acc, dts, self.imu_mask, self.calib, bg, ba,
                      pose_wb, vel)

@@ -73,6 +73,11 @@ points both trees have) and compare the printed lines:
   its line level, 192 / 64 segments: endpoints, angles, lengths,
   valid and the bf16 gradients (`ed_digests`).
 
+- `schur_stages` (not digests; a tree beside another): `schur_solve`'s
+  time a step by stage (torch.profiler's kernel names) and in all (CUDA
+  events) on the three windows it runs on the main paths: point+line (S =
+  96), 15-DoF (S = 240), point-only (`schur_stage_times`).
+
 - slice 15 (`python3 kernel_digest.py window` prints the single-device
   window BAs' lines alone, on every tree: `window_digests`, whose bits
   must not move with the mesh modes of ba_linearize and the sharded
@@ -85,6 +90,7 @@ Needs one card; JAX is never imported.
 from __future__ import annotations
 
 import hashlib
+import re
 import sys
 
 import numpy as np
@@ -515,6 +521,10 @@ def main() -> int:
                                      [int(a) for a in sys.argv[2:]] or [4]):
             print(line, flush=True)
         return 0
+    if sys.argv[1:2] == ["schur_stages"]:
+        for line in schur_stage_times(torch.device("cuda")):
+            print(line, flush=True)
+        return 0
     if sys.argv[1:2] in (["window"], ["dist"]):
         for line in window_digests(torch.device("cuda")):
             print(line)
@@ -615,6 +625,125 @@ def window_digests(dev):
     out += [line for line in slice13_digests(dev)
             if line.startswith("local_")]
     return out
+
+
+def schur_windows(dev):
+    """The three windows `schur_solve` runs on the main paths, each
+    linearized once from its perturbed start (entry points both trees
+    have): [(name, _BAWork)] for the point+line window (the mapping step's
+    worst bucket, S = 96), the 15-DoF inertial window (its worst bucket, S
+    = 240) and the point-only window (the mapping window's points)."""
+    from plvio_tpu_torch.entry import (K_EUROC, LIBA_WORST, MAPPING_WORST,
+                                       inertial_ba_step, mapping_step)
+    from plvio_tpu_torch.inputs import perturb_window
+    from plvio_tpu_torch.models import kernels as KN
+    _, A = mapping_step(**MAPPING_WORST, device=dev)
+    P, X = perturb_window(A["kf_poses"].cpu().numpy(),
+                          A["pt_xyz"].cpu().numpy())
+    A["kf_poses"], A["pt_xyz"] = (torch.from_numpy(P).to(dev),
+                                  torch.from_numpy(X).to(dev))
+    pts = [A[k] for k in ("kf_poses", "kf_free", "pt_xyz", "pt_free",
+                          "obs_kf", "obs_pt", "obs_uv", "obs_valid",
+                          "obs_is2")]
+    lns = [A[k] for k in ("ln_ep6", "ln_free", "lobs_kf", "lobs_ln",
+                          "lobs_eq", "lobs_valid", "lobs_is2")]
+    S = 6 * A["kf_poses"].shape[0]
+    kw = dict(lam0=1e-4, early_tol=1e-2, cg_iters=min(max(S // 2, 16), 128))
+    out = []
+    for name, fam in (("point+line", lns), ("point-only", KN.no_lines(dev))):
+        w = KN._BAWork(K_EUROC, *pts, *fam, **kw)
+        w.linearize(KN.BA_MODE_INIT)
+        w.linearize(KN.BA_MODE_LINEARIZE)
+        out.append((name, w))
+    _, B = inertial_ba_step(**LIBA_WORST, perturbed=True, device=dev)
+    w = KN.inertial_work(K_EUROC, B["Rcb"], B["tcb"], 9.81,
+                         *[B[k] for k in KN.LIBA_KEYS])
+    w.chain(KN.CHAIN_COST_STATE)
+    w.linearize(KN.BA_MODE_INIT)
+    w.linearize(KN.BA_MODE_LINEARIZE)
+    w.chain(KN.CHAIN_LINEARIZE)
+    out.insert(1, ("15-DoF", w))
+    return out
+
+
+def schur_stages(w, reps: int = 50, zero_cg: bool = True):
+    """One Schur step of the window `w` (a `_BAWork` after its
+    linearization) launched `reps` times, no LM decision between them, so
+    every launch does the whole step: (ms a step by CUDA events, [(kernel,
+    device ms a step, launches a step)] by torch.profiler's kernel names,
+    and last, with `zero_cg`, the solve stage run with 0 CG iterations:
+    its assembly of the reduced system alone)."""
+    from torch.profiler import ProfilerActivity, profile
+    from plvio_tpu_torch import cuda
+    from plvio_tpu_torch.models import kernels as KN
+
+    def step():
+        KN.SCHUR_SOLVE.launch(*w.args, cuda.stream())
+    for _ in range(5):
+        step()
+    torch.cuda.synchronize()
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0.record()
+    for _ in range(reps):
+        step()
+    t1.record()
+    torch.cuda.synchronize()
+    ms = t0.elapsed_time(t1) / reps
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            step()
+        torch.cuda.synchronize()
+    def by_kernel(prof):
+        out = []
+        for e in prof.key_averages():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            m = re.search(r"(\w+_kernel)", e.key)
+            out.append((m.group(1) if m else e.key[:40],
+                        e.self_device_time_total / reps / 1e3,
+                        e.count / reps))
+        return out
+    stages = by_kernel(prof)
+    if not zero_cg:
+        return ms, stages
+    ints = w._keep[1]                     # [5]: the CG's iteration count
+    iters, ints[5] = ints[5], 0
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                step()
+            torch.cuda.synchronize()
+    finally:
+        ints[5] = iters
+    stages += [(k + " (0 CG iterations)", t, n) for k, t, n
+               in by_kernel(prof) if k.startswith("solve")]
+    return ms, stages
+
+
+def schur_stage_times(dev, reps: int = 50):
+    """Lines of `schur_solve`'s time by stage (`schur_stages`) on the
+    three windows of `schur_windows`."""
+    smi = _nvidia_smi()
+    out = []
+    for name, w in schur_windows(dev):
+        ms, stages = schur_stages(w, reps)
+        busy = sum(st[1] for st in stages if "(0 CG" not in st[0])
+        out.append(f"schur_solve {name} S={w.S}: step {ms:.4f} ms (events), "
+                   f"device {busy:.4f} ms: " + ", ".join(
+                       f"{k} {t:.4f} ms x{n:g}" for k, t, n in stages)
+                   + f" on {smi}")
+    return out
+
+
+def _nvidia_smi() -> str:
+    import subprocess
+    try:
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=30).stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        return "nvidia-smi unavailable"
 
 
 def dist_digests(dev):

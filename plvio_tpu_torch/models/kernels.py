@@ -1008,11 +1008,10 @@ _BA_PTRS = (
     "kf_order", "kf_start", "pt_order", "pt_start", "ln_order", "ln_start",
     "obs_c", "p_l", "p_w", "l_l", "l_w", "chi2", "wchi2",
     "hcc", "hpt", "hln", "fpt", "fln", "occ_pt", "occ_ln",
-    "gm", "gpart", "rr", "ff", "dx", "ctrl",
+    "gpt", "gln", "rr", "ff", "dx", "ctrl",
     "kfx", "ckfx", "kf_free_bias", "pre", "imu_info", "edge_valid", "rw_g",
-    "rw_a", "link", "link_cost", "ccost", "cgw", "lobs_dir", "mcost")
-# column chunks of schur_solve's Gram fill-in (partial tiles summed in order)
-GRAM_SPLIT = 24
+    "rw_a", "link", "link_cost", "ccost", "cgw", "lobs_dir", "mcost",
+    "kf_col_order")
 BA_LINEARIZE = cuda.Kernel("ba_linearize", "ba_linearize",
                            [_P, _P, _P, _I, _P])
 # the same library entry in its other modes, counted apart: the KB8 point
@@ -1045,20 +1044,49 @@ BA_MODE_LINEARIZE, BA_MODE_DECIDE, BA_MODE_INIT, BA_MODE_REGATE = range(4)
  BA_MODE_MESH_DECIDE) = range(4, 8)
 
 
-def solve_fits(S: int) -> bool:
-    """Whether schur_solve's one-block solve holds the S x S reduced system
-    (packed upper triangle) and its CG vectors in shared memory
-    (csrc/schur_solve.cu `solve_smem`, at most 232448 bytes); beyond it
-    the kernel takes its global path."""
-    return (S * (S + 1) // 2 + 5 * S + 32) * 4 <= 232448
+def solve_fits(n_kf: int, body: bool) -> bool:
+    """Whether schur_solve takes its one-block solve for the reduced
+    system of n_kf keyframes (S = 6 n_kf, or 15 n_kf with `body`): S <=
+    330 and its full rows and CG vectors fit shared memory
+    (csrc/schur_solve.cu `one_block`, `RowLayout`: at most 232448 bytes),
+    so up to 37 keyframes without a body and 22 with one; beyond it the
+    kernel takes its global path."""
+    def pad(n):                     # `pad_row`: 1 (mod 32)
+        return (n + 30) // 32 * 32 + 1
+    S6, m = 6 * n_kf, min(n_kf, 3)
+    S = (15 if body else 6) * n_kf
+    if S > 330:
+        return False
+    floats = S6 * pad(S6 + (9 * m if body else 0))
+    if body:
+        floats += (S - S6) * pad(15 * m)
+    return (floats + 2 * S + 2 * 8) * 4 <= 232448
 
 
-def cg_workspace_floats(S: int) -> int:
+def cg_pattern(n_kf: int, body: bool) -> torch.Tensor:
+    """The entries [S, S] bool that schur_solve's one-block CG stores of
+    the reduced system (csrc/schur_solve.cu `row_segs`): every entry of a
+    point+line window (S = 6 n_kf); in the 15-DoF window (S = 15 n_kf,
+    pose rows, then velocity, gyro and accelerometer bias rows by
+    keyframe) the dense pose block and, for every other pair of rows,
+    those of keyframes at most one apart."""
+    S6 = 6 * n_kf
+    if not body:
+        return torch.ones(S6, S6, dtype=torch.bool)
+    kf = torch.cat([torch.arange(S6) // 6,
+                    (torch.arange(9 * n_kf) % (3 * n_kf)) // 3])
+    pose = torch.arange(15 * n_kf) < S6
+    near = (kf[:, None] - kf[None, :]).abs() <= 1
+    return near | (pose[:, None] & pose[None, :])
+
+
+def cg_workspace_floats(n_kf: int, body: bool) -> int:
     """Floats of the global path's workspace (csrc/ba_common.cuh `cgw`):
     the full S x S system, p [S] and two partial-sum rows of one float per
     128-row block; 1 when the one-block solve fits."""
-    if solve_fits(S):
+    if solve_fits(n_kf, body):
         return 1
+    S = (15 if body else 6) * n_kf
     return S * S + S + 2 * (-(-S // 128))
 
 
@@ -1098,7 +1126,7 @@ class _BAWork:
         n_kf, n_pt, n_ln = kf_poses.shape[0], pt_xyz.shape[0], ln_ep.shape[0]
         n_obs, n_lobs = obs_kf.shape[0], lobs_kf.shape[0]
         N = n_obs + n_lobs
-        S, C = 6 * n_kf, 3 * n_pt + 6 * n_ln
+        S = 6 * n_kf
         n_e = n_kf - 1
 
         def buf(*shape, dtype=f32):
@@ -1122,17 +1150,26 @@ class _BAWork:
             torch.cat([obs_valid, lobs_valid]))
         t["pt_order"], t["pt_start"] = _segments(obs_pt, n_pt, obs_valid)
         t["ln_order"], t["ln_start"] = _segments(lobs_ln, n_ln, lobs_valid)
+        # each keyframe's observations by their landmark's column of the
+        # coupling (points, then lines; kf_start's segments), the order
+        # the fill-in sums in
+        C = 3 * n_pt + 6 * n_ln
+        key = torch.cat([obs_kf, lobs_kf]).long() * C + torch.cat(
+            [obs_pt.long() * 3, 3 * n_pt + lobs_ln.long() * 6])
+        key = torch.where(torch.cat([obs_valid, lobs_valid]), key,
+                          n_kf * C)
+        t["kf_col_order"] = torch.sort(key, stable=True).indices.to(
+            torch.int32).contiguous()
         t.update(obs_c=buf(N, 27), p_l=buf(n_obs, 9), p_w=buf(n_obs, 18),
                  l_l=buf(n_lobs, 27), l_w=buf(n_lobs, 36), chi2=buf(N),
                  wchi2=buf(N), hcc=buf(n_kf, 27), hpt=buf(n_pt, 9),
                  hln=buf(n_ln, 27), fpt=buf(n_pt, 9), fln=buf(n_ln, 36),
                  occ_pt=buf(n_pt, dtype=torch.uint8),
-                 occ_ln=buf(n_ln, dtype=torch.uint8), gm=buf(S, C),
-                 gpart=buf(GRAM_SPLIT, S, S), rr=buf(N, 6),
+                 occ_ln=buf(n_ln, dtype=torch.uint8), gpt=buf(n_obs, 18),
+                 gln=buf(n_lobs, 36), rr=buf(N + n_kf, 6),
                  dx=buf(S if inertial is None else 15 * n_kf), ctrl=buf(8))
         t["ff"] = buf(S, S)
-        t["cgw"] = buf(cg_workspace_floats(
-            S if inertial is None else 15 * n_kf))
+        t["cgw"] = buf(cg_workspace_floats(n_kf, inertial is not None))
         t["lobs_dir"] = buf(1) if lobs_dir is None else lobs_dir
         t["mcost"] = buf(1)
         if inertial is None:
@@ -1175,10 +1212,9 @@ class _BAWork:
         self._keep = (
             (ctypes.c_void_p * len(_BA_PTRS))(
                 *[t[name].data_ptr() for name in _BA_PTRS]),
-            (ctypes.c_int * 12)(n_kf, n_pt, n_obs, n_ln, n_lobs, cg_iters,
-                                GRAM_SPLIT, int(self.body),
-                                t["cgw"].numel(), 0, int(kb8),
-                                int(line_mode)),
+            (ctypes.c_int * 11)(n_kf, n_pt, n_obs, n_ln, n_lobs, cg_iters,
+                                int(self.body), t["cgw"].numel(), 0,
+                                int(kb8), int(line_mode)),
             (ctypes.c_float * 26)(K.fx, K.fy, K.cx, K.cy,
                                   float(math.sqrt(CHI2_MONO)), CHI2_MONO,
                                   lam0, early_tol, grav, *rcb, *tcb, *ks,
@@ -1201,7 +1237,7 @@ class _BAWork:
     def solve_path(self) -> int:
         """The path of the last schur_solve launch: 0 one block, 1 the
         global path (as the kernel library reported it)."""
-        return self._keep[1][9]
+        return self._keep[1][8]
 
     def step(self):
         """One LM iteration, decided on the device."""
@@ -1220,7 +1256,7 @@ def local_ba_pl(K: PinholeK, kf_poses, kf_free, pt_xyz, pt_free, obs_kf,
                 iters: int = 8, early_tol: float = 1e-2, stats=None):
     """The windowed point+line BA (see `local_ba_pl_plain`).  CPU tensors
     take the plain version; CUDA tensors run every LM iteration on
-    csrc/ba_linearize.cu and csrc/schur_solve.cu (the Gram fill-in
+    csrc/ba_linearize.cu and csrc/schur_solve.cu (the Schur fill-in
     included), with accept/reject, the damping, the early exit and the chi2 re-gating on the device: no host
     sync inside the call.  `stats` (a list) gets, per round, a device
     tensor holding the iterations run."""
@@ -2115,10 +2151,11 @@ BA_KEYS = ("kf_poses", "kf_free", "pt_xyz", "pt_free", "obs_kf", "obs_pt",
 
 def global_window(kind: str, n_kf: int, device, dtype=torch.float32,
                   kb8: bool = False):
-    """A perturbed window whose reduced system exceeds one block's shared
-    memory: `inertial`, the full-map inertial BA's caps at n_kf keyframes
-    (8192 points / 16384 observations, 512 lines / 1024; with `kb8` seen
-    by the fisheye room's camera, `build_inertial_window(kb8=True)`), or
+    """A perturbed window at the full-map BAs' caps (beyond one block's
+    shared memory at their keyframe counts, see `solve_fits`): `inertial`,
+    the full-map inertial BA's caps at n_kf keyframes (8192 points /
+    16384 observations, 512 lines / 1024; with `kb8` seen by the fisheye
+    room's camera, `build_inertial_window(kb8=True)`), or
     `points`, the global point-only BA's (8192 points / 32768
     observations).  Returns (inputs, argument list, plain problem, states,
     free masks) at `dtype` on `device`; the inputs stay on the CPU."""
@@ -2175,25 +2212,29 @@ class StepGap(NamedTuple):
 
 class GlobalSolveCheck(NamedTuple):
     """`global_solve_against_float64`'s result: S, the path the kernel
-    reported (1 global), whether a second launch gave the same bits, a
-    StepGap per dense state, and `case` (the kernel path's work, the
-    window's inputs and the plain problem, for timing)."""
+    reported (0 one block, 1 global) and the one `solve_fits` names,
+    whether a second launch gave the same bits, a StepGap per dense state,
+    and `case` (the kernel path's work, the window's inputs and the plain
+    problem, for timing)."""
     S: int
     path: int
+    want_path: int
     same_bits: bool
     gaps: dict
     case: dict
 
     def failures(self) -> list:
-        """What breaks the rule the global path is held to: it ran; a
+        """What breaks the rule the reduced solve is held to: the path
+        `solve_fits` names ran (the global one beyond one block); a
         second launch repeats bit for bit; per state the kernel lies
         within 2x the plain float32 step's distance to float64 and no
         farther from the plain step than that step lies from float64 (each
         + 1e-6); and its pose lies within a quarter of the float64 step's
         largest pose entry of the float64 step.  Empty when it holds."""
         bad = []
-        if self.path != 1:
-            bad.append(f"S = {self.S} took the one-block path")
+        if self.path != self.want_path:
+            bad.append(f"S = {self.S} took path {self.path}, not "
+                       f"{self.want_path}")
         if not self.same_bits:
             bad.append("a second launch gave other bits")
         for name, g in self.gaps.items():
@@ -2226,8 +2267,9 @@ def _window_camera(kb8: bool):
 
 def global_solve_against_float64(kind: str, n_kf: int, device="cuda",
                                  kb8: bool = False) -> GlobalSolveCheck:
-    """schur_solve's global path (the reduced solve beyond one block) on
-    `global_window(kind, n_kf, kb8=kb8)`: one damped Schur step from the
+    """schur_solve's reduced solve on `global_window(kind, n_kf,
+    kb8=kb8)`, on the path `solve_fits` names (the global path beyond one
+    block, the windows this is made for): one damped Schur step from the
     perturbed start, launched twice, against the plain engine's step in
     float32 on the same device and in float64 on the CPU (damping 1e-4,
     the reference engine's initial lambda)."""
@@ -2272,7 +2314,8 @@ def global_solve_against_float64(kind: str, n_kf: int, device="cuda",
                              float((k - p).abs().max()),
                              float((ref[name] - s64[name]).abs().max()))
     return GlobalSolveCheck(
-        S, w.solve_path(), all(torch.equal(ck[k], ck2[k]) for k in ck), gaps,
+        S, w.solve_path(), int(not solve_fits(n_kf, w.body)),
+        all(torch.equal(ck[k], ck2[k]) for k in ck), gaps,
         dict(inputs=A, work=w, prob=prob, states=st, free=free, lam=lam))
 
 def _gs_problem(gravity, n_kf, pre_const, pose_R, pose_p, imu_info,
@@ -3190,6 +3233,35 @@ def unpack_sym(packed, d: int):
 def rel_err(a, b) -> float:
     """The largest entry gap of a to b, relative to b's largest entry."""
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def schur_dense_operand(w: "_BAWork") -> torch.Tensor:
+    """The fill-in's dense operand Gm [6 n_kf, 3 n_pt + 6 n_ln] of the last
+    `schur_solve` launch on `w`, assembled from its per-observation
+    factors G_o = W_o F (t["gpt"], t["gln"]) at the window's valid
+    observations: each G_o added at its keyframe's rows and its landmark's
+    columns, so that Gm Gm^T is the fill-in in the engine's Gram form
+    (solver/engine.py `_schur_reduce`).  For checking the kernel's
+    fill-in."""
+    t = w.t
+    n_kf, n_pt = t["hcc"].shape[0], t["pts"].shape[0]
+    dev = t["ff"].device
+    gm = torch.zeros(6 * n_kf, 3 * n_pt + 6 * t["lns"].shape[0],
+                     device=dev)
+    for G, okf, olm, ok, D, c0 in (
+            (t["gpt"], "obs_kf", "obs_pt", "obs_valid", 3, 0),
+            (t["gln"], "lobs_kf", "lobs_ln", "lobs_valid", 6, 3 * n_pt)):
+        n = t[okf].shape[0]
+        if n == 0:
+            continue
+        rows = t[okf].long()[:, None, None] * 6 \
+            + torch.arange(6, device=dev)[None, :, None]
+        cols = c0 + t[olm].long()[:, None, None] * D \
+            + torch.arange(D, device=dev)[None, None, :]
+        g = G[:n].view(n, 6, D) * t[ok][:, None, None]
+        gm.index_put_((rows.expand(n, 6, D), cols.expand(n, 6, D)), g,
+                      accumulate=True)
+    return gm
 
 
 def linearization_against_plain(w: "_BAWork", prob, st) -> dict:

@@ -69,11 +69,21 @@ def frame_prelude(orb, lines, cam: CAM.Camera, img: torch.Tensor,
         return metrics.stage(name) if metrics is not None \
             else contextlib.nullcontext()
     with stage("extract_orb"):
-        feats = orb(img)
+        feats, level1 = orb_and_line_level(orb, lines, img)
     with stage("extract_lines") if lines is not None \
             else contextlib.nullcontext():
-        lf = lines(img) if lines is not None else None
+        lf = lines(img, level1) if lines is not None else None
         return undistort_features(cam, feats, lf, plain)
+
+
+def orb_and_line_level(orb, lines, img: torch.Tensor):
+    """(ORB features of img, img's line level or None): where `lines` runs
+    the 2-level line pyramid, the ORB pyramid's first launch also makes
+    the line level, so the line extractor makes no call of its own for
+    it (`lines(img, level1)`)."""
+    if lines is None or getattr(lines, "levels", 1) < 2:
+        return orb(img), None
+    return orb.with_line_level(img)
 
 
 def undistort_features(cam: CAM.Camera, feats, lf=None,
@@ -340,12 +350,13 @@ class System:
         dev = self.device
         img_l = torch.as_tensor(img_left, dtype=torch.float32).to(dev)
         img_r = torch.as_tensor(img_right, dtype=torch.float32).to(dev)
+        lines = self.extract_lines
         with self.metrics.stage("extract_orb"):
-            f_l = self.extract(img_l)
-            f_r = self.extract(img_r)
-        if self.extract_lines is None:
+            f_l, l1_l = orb_and_line_level(self.extract, lines, img_l)
+            f_r, l1_r = orb_and_line_level(self.extract, lines, img_r)
+        if lines is None:
             return f_l, f_r, None, None
-        return f_l, f_r, self.extract_lines(img_l), self.extract_lines(img_r)
+        return f_l, f_r, lines(img_l, l1_l), lines(img_r, l1_r)
 
     def track_stereo_features(self, f_l, f_r, lf_l, lf_r, timestamp: float,
                               imu: Optional[Sequence] = None, img=None

@@ -135,8 +135,14 @@ def bow_vector(voc: Vocabulary, word_ids: torch.Tensor) -> torch.Tensor:
 
 def l1_score(v: torch.Tensor, ws: torch.Tensor) -> torch.Tensor:
     """DBoW2's L1 score of a query v [W] against a bank ws [K,W]:
-    1 - |v - w|_1 / 2, in [0, 1]."""
-    return 1.0 - 0.5 * torch.sum(torch.abs(v[None, :] - ws), dim=-1)
+    1 - |v - w|_1 / 2, in [0, 1], and exactly 0 for a row that shares no
+    word with v (DBoW2 sums over the shared words only; the L1 form would
+    leave the rounding of 1 - 2 / 2 there, whose sign the database's
+    `scores > 0` reads)."""
+    vb = v[None, :]
+    shared = ((vb > 0) & (ws > 0)).any(dim=-1)
+    s = 1.0 - 0.5 * torch.sum(torch.abs(vb - ws), dim=-1)
+    return torch.where(shared, s, torch.zeros_like(s))
 
 
 def score_plain(v: torch.Tensor, ws: torch.Tensor,

@@ -162,16 +162,20 @@ def build_pyramid_plain(img: torch.Tensor,
 
 def line_level_plain(img: torch.Tensor) -> torch.Tensor:
     """The line front end's level 1 (plvio_tpu/ops/lines.py:737-739): the
-    2x2 mean of the image's even crop."""
+    2x2 mean of the image's even crop, summed (((a + b) + c) + d) * 0.25
+    in memory order (elementwise, so the same bits on every device and
+    the kernel's)."""
     h2, w2 = (img.shape[0] // 2) * 2, (img.shape[1] // 2) * 2
-    return img[:h2, :w2].reshape(h2 // 2, 2, w2 // 2, 2).mean((1, 3))
+    e = img[:h2, :w2]
+    return (((e[0::2, 0::2] + e[0::2, 1::2]) + e[1::2, 0::2])
+            + e[1::2, 1::2]) * 0.25
 
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 PYRAMID = cuda.Kernel("pyramid", "pyramid_levels",
-                      [_P, _I, _I, _I, _P, _P, _P, _P, _P])
+                      [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P])
 PYRAMID_LINE = cuda.Kernel("pyramid", "pyramid_line_level",
                            [_P, _I, _I, _P, _P])
 PYRAMID_KS_MAX = 1.5        # the kernel's tap window and shared tile
@@ -206,25 +210,49 @@ def _chain_layout(H: int, W: int, sizes: tuple):
             (ctypes.c_float * len(par))(*par), n)
 
 
-def pyramid_chain(img: torch.Tensor, sizes) -> List[torch.Tensor]:
-    """Levels of `sizes` [(h, w), ...], each `resize_plain` of the one
-    above, the first of img: the plain version for a CPU image,
-    csrc/pyramid.cu's `pyramid_levels` for a CUDA one (one launch a level,
-    all from one host call; down to at most 1/1.5 a side a level)."""
+def _pyramid_chain(img: torch.Tensor, sizes, fuse_line: bool):
+    """(levels, line level or None): `pyramid_chain`'s levels and, with
+    `fuse_line`, img's line level where the first level's launch can make
+    it (a CUDA image of at least 2 x 2 and one level) or the CPU's plain
+    version."""
     sizes = tuple((int(h), int(w)) for h, w in sizes)
     if img.device.type == "cpu":
         out = [img]
         for h, w in sizes:
             out.append(resize_plain(out[-1], h, w))
-        return out[1:]
+        return out[1:], line_level_plain(img) if fuse_line else None
     _check_level("pyramid", img)
     H, W = img.shape
+    fused = bool(fuse_line and sizes and H >= 2 and W >= 2)
     hw, off, par, n = _chain_layout(H, W, sizes)
-    buf = torch.empty(n, dtype=torch.float32, device=img.device)
+    n_line = (H // 2) * (W // 2) if fused else 0
+    # the line level after the levels, in the same allocation
+    buf = torch.empty(n + n_line, dtype=torch.float32, device=img.device)
+    line = buf[n:].view(H // 2, W // 2) if fused else None
     PYRAMID.launch(cuda.ptr(img), H, W, len(sizes), cuda.ptr(buf), hw, off,
-                   par, cuda.stream(), kernels=len(sizes))
+                   par, cuda.ptr(line) if fused else None, cuda.stream(),
+                   kernels=len(sizes))
+    if fused:
+        PYRAMID_LINE.launches += 1
     return [buf[o:o + h * w].view(h, w)
-            for o, (h, w) in zip(off, sizes)]
+            for o, (h, w) in zip(off, sizes)], line
+
+
+def pyramid_chain(img: torch.Tensor, sizes) -> List[torch.Tensor]:
+    """Levels of `sizes` [(h, w), ...], each `resize_plain` of the one
+    above, the first of img: the plain version for a CPU image,
+    csrc/pyramid.cu's `pyramid_levels` for a CUDA one (one launch a level,
+    all from one host call; down to at most 1/1.5 a side a level)."""
+    return _pyramid_chain(img, sizes, False)[0]
+
+
+def pyramid_chain_line(img: torch.Tensor, sizes):
+    """(`pyramid_chain`'s levels, img's line level `line_level_plain`):
+    on the card the line level is written by extra blocks of the first
+    level's launch (counted in PYRAMID_LINE), or by `line_level` where
+    there is no first level."""
+    levels, line = _pyramid_chain(img, sizes, True)
+    return levels, line if line is not None else line_level(img)
 
 
 def pyramid_level(img: torch.Tensor, height: int, width: int) -> torch.Tensor:
@@ -241,10 +269,20 @@ def build_pyramid(img: torch.Tensor,
                                        for sp in specs[1:]])
 
 
+def build_pyramid_line(img: torch.Tensor, specs: Sequence[LevelSpec]):
+    """(`build_pyramid`'s levels, the line front end's level 1 of img),
+    the latter from the pyramid's first launch on the card
+    (`pyramid_chain_line`)."""
+    levels, line = pyramid_chain_line(
+        img, [(sp.height, sp.width) for sp in specs[1:]])
+    return [img] + levels, line
+
+
 def line_level(img: torch.Tensor) -> torch.Tensor:
-    """The line front end's level 1, `line_level_plain`'s function: the
-    plain version for a CPU image, csrc/pyramid.cu's `pyramid_line_level`
-    for a CUDA one."""
+    """The line front end's level 1, `line_level_plain`'s function, for
+    callers without a pyramid: the plain version for a CPU image,
+    csrc/pyramid.cu's `pyramid_line_level` for a CUDA one (the body the
+    pyramid's first launch runs for the frame path)."""
     if img.device.type == "cpu":
         return line_level_plain(img)
     _check_level("pyramid_line", img)
@@ -530,10 +568,25 @@ class OrbExtractor(nn.Module):
         self.register_buffer("wy", torch.from_numpy(wy))
 
     def forward(self, img: torch.Tensor) -> Features:
+        return self.features((build_pyramid_plain if self.plain
+                              else build_pyramid)(img, self.specs))
+
+    def with_line_level(self, img: torch.Tensor):
+        """(Features of img, the line front end's level 1 of img), the
+        latter made by the pyramid's first launch on the card (for
+        `LineExtractor(img, level1)`)."""
+        if self.plain:
+            pyr = build_pyramid_plain(img, self.specs)
+            level1 = line_level_plain(img)
+        else:
+            pyr, level1 = build_pyramid_line(img, self.specs)
+        return self.features(pyr), level1
+
+    def features(self, pyr: List[torch.Tensor]) -> Features:
+        """Features of the image pyramid `pyr` (the image, then its
+        levels)."""
         fast = orb_fast_grid_plain if self.plain else orb_fast_grid
         describe = orb_describe_plain if self.plain else orb_describe
-        pyr = (build_pyramid_plain if self.plain else build_pyramid)(
-            img, self.specs)
         xys, scores, valids, octs, scales = [], [], [], [], []
         for lv, spec in enumerate(self.specs):
             best, arg = fast(pyr[lv], self.ini_th, self.min_th, self.cell)
@@ -543,7 +596,7 @@ class OrbExtractor(nn.Module):
             scores.append(torch.where(score > 1e4, score - 1e4, score))
             valids.append(valid)
             octs.append(torch.full((xy.shape[0],), lv, dtype=torch.int32,
-                                   device=img.device))
+                                   device=pyr[0].device))
             scales.append(spec.scale)
         xy_all = torch.cat(xys)
         octave = torch.cat(octs)

@@ -915,15 +915,18 @@ def extract_lines(img: torch.Tensor, max_lines: int, pairs: torch.Tensor,
 
 def extract_lines_pyramid(img: torch.Tensor, max_lines: int,
                           pairs: torch.Tensor, plain: bool = False,
-                          detector: int = 0, **kw) -> LineFeatures:
+                          detector: int = 0, level1=None,
+                          **kw) -> LineFeatures:
     """2-level line pyramid: level 1 detects on a 2x box-downsampled image
-    (`ops.frontend.line_level`: the `pyramid` kernel's line level on a CUDA
-    image unless `plain`);
+    (`level1` where the caller has it, as the ORB pyramid's first launch
+    makes it on the frame path, else `ops.frontend.line_level`: the
+    `pyramid` kernel's line level on a CUDA image unless `plain`);
     its segments map back to level-0 pixel centres and are dropped where a
     valid level-0 segment already covers them."""
     n1 = max_lines // 4
     n0 = max_lines - n1
-    img1 = (line_level_plain if plain else line_level)(img)
+    img1 = level1 if level1 is not None else (
+        line_level_plain if plain else line_level)(img)
     f0 = extract_lines(img, n0, pairs, plain, detector=detector, **kw)
     f1 = extract_lines(img1, n1, pairs, plain, level0=f0, detector=detector,
                        **kw)
@@ -946,10 +949,12 @@ class LineExtractor(nn.Module):
         self.detector = detector
         self.register_buffer("pairs", torch.from_numpy(_band_pair_pattern()))
 
-    def forward(self, img: torch.Tensor) -> LineFeatures:
+    def forward(self, img: torch.Tensor, level1=None) -> LineFeatures:
+        """Segments of img; `level1`: img's line level where the caller
+        has made it (`OrbExtractor.with_line_level`)."""
         if self.levels >= 2:
             return extract_lines_pyramid(img, self.max_lines, self.pairs,
-                                         self.plain, self.detector)
+                                         self.plain, self.detector, level1)
         return extract_lines(img, self.max_lines, self.pairs, self.plain,
                              detector=self.detector)
 

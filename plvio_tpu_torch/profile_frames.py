@@ -567,15 +567,18 @@ def profile_stereo(dev):
     imgs = [torch.from_numpy(im).to(dev) for im in S["right"]]
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
+    from .models.system import orb_and_line_level
+
+    def front(img):
+        _, level1 = orb_and_line_level(slam.extract, slam.extract_lines, img)
+        slam.extract_lines(img, level1)
     with torch.no_grad():
         for img in imgs[:3]:
-            slam.extract(img)
-            slam.extract_lines(img)
+            front(img)
         torch.cuda.synchronize()
         t0.record()
         for img in imgs:
-            slam.extract(img)
-            slam.extract_lines(img)
+            front(img)
         t1.record()
         torch.cuda.synchronize()
     right = t0.elapsed_time(t1) / n

@@ -535,6 +535,47 @@ def test_local_ba_kernel_as_close_to_float64_as_plain(dev, size):
     assert gk <= 2 * gc
 
 
+def _window_without_keyframe(dev, k):
+    """The point+line window of `kernel_digest.schur_windows` with every
+    observation of keyframe k invalid (a keyframe slot with no
+    observations, as the full-map windows' padding has)."""
+    from plvio_tpu_torch.entry import MAPPING_WORST, mapping_step
+    _, A = mapping_step(**MAPPING_WORST, device=dev)
+    A["obs_valid"] = A["obs_valid"] & (A["obs_kf"] != k)
+    A["lobs_valid"] = A["lobs_valid"] & (A["lobs_kf"] != k)
+    w = KN._BAWork(K, *[A[k2] for k2 in BA_KEYS], lam0=1e-4, early_tol=1e-2,
+                   cg_iters=48)
+    w.linearize(KN.BA_MODE_INIT)
+    w.linearize(KN.BA_MODE_LINEARIZE)
+    return w
+
+
+@pytest.mark.parametrize("kind", ["point+line", "15-DoF", "point-only",
+                                  "empty keyframe"])
+def test_schur_fill_in_matches_dense_operand(dev, kind):
+    """schur_solve's sparse fill-in (a block a keyframe pair, walking the
+    pair's shared landmarks) within 1e-5 relative of torch.mm on the dense
+    operand assembled from its per-observation factors
+    (`KN.schur_dense_operand`), on the three windows the main paths give
+    it and on one with a keyframe that has no observations, and the whole
+    step bit-equal over three launches."""
+    from plvio_tpu_torch import cuda
+    from plvio_tpu_torch.kernel_digest import schur_windows
+    w = _window_without_keyframe(dev, 3) if kind == "empty keyframe" \
+        else dict(schur_windows(dev))[kind]
+    outs = []
+    for _ in range(3):
+        KN.SCHUR_SOLVE.launch(*w.args, cuda.stream())
+        outs.append([w.t[k].clone() for k in ("ff", "dx", "cposes", "cpts",
+                                               "clns")])
+    gm = KN.schur_dense_operand(w)
+    ref = gm @ gm.T
+    torch.cuda.synchronize()
+    assert _rel(w.t["ff"], ref) <= 1e-5
+    assert all(torch.equal(a, b) for o in outs[1:] for a, b in
+               zip(o, outs[0]))
+
+
 # -- slice 4: the inertial back end ------------------------------------------
 
 def _liba(dev, perturbed=True, dtype=torch.float32):
@@ -1146,6 +1187,19 @@ def test_schur_solve_global_path(dev, kind, n_kf):
     assert not got.failures(), got.failures()
 
 
+@pytest.mark.parametrize("kind,n_kf", [("inertial", 22), ("points", 37)])
+def test_schur_solve_one_block_largest(dev, kind, n_kf):
+    """The one-block solve on its largest windows (S = 330 for the 15-DoF
+    window, where a thread owns two rows, and 222 for the point-only one,
+    the most whose full rows fit): the path `KN.solve_fits` names, held by
+    the same rule as the global path."""
+    got = KN.global_solve_against_float64(kind, n_kf, dev)
+    print(f"{kind} {n_kf} KF (S = {got.S}), kernel / plain from float64, "
+          f"kernel - plain: {got.summary()}")
+    assert got.path == 0
+    assert not got.failures(), got.failures()
+
+
 def test_keyframe_sequence_kernel_path_matches_cpu(dev):
     """A short keyframe sequence (17 keyframes of 256 features, the
     reduced store and windows of tests/test_torch_keyframe_step.py) on the
@@ -1210,8 +1264,30 @@ def test_pyramid_matches_plain(dev, shape):
     lk, lp = FE.line_level(img), FE.line_level_plain(img)
     assert FE.PYRAMID_LINE.launches == n0[1] + 1
     assert lk.shape == lp.shape and float((lk - lp).abs().max()) <= 1e-4
+    n1 = FE.PYRAMID.launches
+    fk, lf = FE.build_pyramid_line(img, specs)
+    assert FE.PYRAMID_LINE.launches == n0[1] + 2
+    assert FE.PYRAMID.launches == n1 + 7
+    assert all(torch.equal(a, b) for a, b in zip(fk, pk))
+    assert torch.equal(lf, lp) and torch.equal(lk, lp)
     with pytest.raises(ValueError):
         FE.pyramid_level(img, h // 2, w // 2)        # below 1/1.5 a side
+
+
+@pytest.mark.parametrize("shape,offset", [((480, 752), 0), ((121, 203), 0),
+                                          ((64, 96), 1), ((33, 47), 0)])
+def test_line_level_bit_equal(dev, shape, offset):
+    """The line level, from the pyramid's first launch and alone, bit-equal
+    to `line_level_plain`: 16-byte loads where the width and pointers allow
+    (480 x 752), one output a thread elsewhere (odd widths, an image
+    starting one float past an aligned address)."""
+    h, w = shape
+    base = _image(5, h * w + offset, 1, dev).view(-1)
+    img = base[offset:].view(h, w)
+    lp = FE.line_level_plain(img)
+    specs = FE.make_level_specs(h, w, 200)
+    _, lf = FE.build_pyramid_line(img, specs)
+    assert torch.equal(FE.line_level(img), lp) and torch.equal(lf, lp)
 
 
 def test_hamming_match_ungated_matches_plain(dev):
@@ -1608,12 +1684,13 @@ def test_bow_score_pair_and_masks(dev):
 
 
 def test_bow_score_disjoint_bags_tie(dev):
-    """A query against 512 bags that share no word with it: the exact
-    score is 0, so `KeyFrameDatabase`'s `scores > 0` keeps a row only by
-    the rounding of the L1 sum, whose order differs between the card's
-    kernel and the CPU's plain version (ROADMAP Queue 3, the bow_score
-    tie).  Held here: both lie within 1e-6 of 0 and of each other; the
-    rows whose keep decision differs are printed, not bounded."""
+    """A query against 512 bags that share no word with it: DBoW2's score
+    is exactly 0 there (it sums over the shared words only), and
+    `KeyFrameDatabase` keeps a row where the score is above 0, so the
+    kernel and the plain version (on the CPU and on the card) must both
+    give exactly 0 on every row, with equal keep decisions; the same
+    bank's rows that share a word with a second query keep the kernel's
+    bits on a second launch and lie within 1e-6 of the plain version."""
     from plvio_tpu_torch.models import vocabulary as V
     rng = np.random.default_rng(8)
     W = 10000
@@ -1625,13 +1702,20 @@ def test_bow_score_disjoint_bags_tie(dev):
     v, bank = torch.from_numpy(b[0]), torch.from_numpy(b[1:])
     mask = torch.ones(512, dtype=torch.bool)
     k = V.bow_score(v.to(dev), bank.to(dev), mask.to(dev)).cpu()
-    p = V.score_plain(v, bank, mask)
-    differ = int(((k > 0) != (p > 0)).sum())
-    print(f"disjoint bags: kernel in [{float(k.min()):.2e}, "
-          f"{float(k.max()):.2e}], CPU plain in [{float(p.min()):.2e}, "
-          f"{float(p.max()):.2e}]; keep decisions differ on {differ} / 512")
-    assert float(k.abs().max()) <= 1e-6 and float(p.abs().max()) <= 1e-6
-    assert float((k - p).abs().max()) <= 1e-6
+    pc = V.bow_score(v, bank, mask)
+    pd = V.score_plain(v.to(dev), bank.to(dev), mask.to(dev)).cpu()
+    for name, s in (("kernel", k), ("CPU plain", pc), ("card plain", pd)):
+        assert bool((s == 0).all()), f"{name}: {int((s != 0).sum())} rows " \
+            f"of 512 not exactly 0 (in [{float(s.min()):.2e}, " \
+            f"{float(s.max()):.2e}])"
+    assert torch.equal(k > 0, pc > 0) and torch.equal(k > 0, pd > 0)
+    q = bank[7].clone().to(dev)
+    ks = V.bow_score(q, bank.to(dev), mask.to(dev))
+    ks2 = V.bow_score(q, bank.to(dev), mask.to(dev))
+    ps = V.score_plain(q.cpu(), bank, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(ks, ks2) and bool((ks > 0).all())
+    assert float((ks.cpu() - ps).abs().max()) <= 1e-6
 
 
 def test_hamming_matrix_mode_matches_plain(dev):
