@@ -39,7 +39,12 @@ exit, no result line) unless every phase passes:
    in one launch (`bow_score_pair`), the same bits on a second launch, -1
    exactly on every masked row and an all-masked bank, `pnp_ransac` and
    `mlpnp_refine` against the plain version's float64 run on the same
-   samples, `ops.pnp.kernels_against_float64`);
+   samples, `ops.pnp.kernels_against_float64`; the ORB detector
+   `orb_detect` (two launches a frame) bit-equal to its plain path on
+   every level of the 16 frames, its ms and device ms a frame;
+   `schur_solve`'s global path at 64 KF inertial and 128 KF point-only by
+   `KN.global_solve_against_float64`'s rule, its time by stage and the
+   fill-in's `torch.mm` on the dense operand beside it);
 4. slice 1, `tracking_step_pl`: 16 synthetic frames with the pose carried,
    >= 80 inliers, camera centre <= 10 mm and rotation <= 0.3 deg from
    ground truth on every frame, every kernel of the path launched; the
@@ -894,41 +899,43 @@ def check_pl_kernels(imgs, poses, st, step, report):
     """The four kernels of slice 1 against their plain versions."""
     dev = imgs[0].device
     orb = step.orb
-    # -- orb_fast_grid: every level of frame 1
-    pyr = FE.build_pyramid(imgs[1], orb.specs)
-    same, total, err, out_b = [], [], 0.0, 0
-    for im in pyr:
-        bk, ak = FE.orb_fast_grid(im, 20.0, 7.0)
-        bp, ap = FE.orb_fast_grid_plain(im, 20.0, 7.0)
-        out_b += nbytes(bk, ak)
-        eq = (ak == ap) & (bk == bp)
-        same.append(int(eq.sum()))
-        total.append(eq.numel())
-        err = max(err, float((bk - bp).abs().max()))
-    check(same[0] == total[0],
-          f"orb_fast_grid level 0 winners identical ({same[0]}/{total[0]})")
-    frac = sum(same[1:]) / sum(total[1:])
-    check(frac >= 0.995, f"orb_fast_grid levels 1-7 winners {frac:.4%} "
-          "identical (>= 99.5%)")
+    # -- orb_fast_grid: the detector of every level of the 16 frames (two
+    #    launches a frame, `orb_detect`), bit-equal to its plain path
+    specs = orb.specs
+    pyrs = [FE.build_pyramid(im, specs) for im in imgs]
+    same, err = 0, 0.0
+    for pyr_ in pyrs:
+        n0 = FE.ORB_FAST_GRID.launches
+        dk = FE.orb_detect(pyr_, specs, 20.0, 7.0)
+        n_launch = FE.ORB_FAST_GRID.launches - n0
+        dp = FE.orb_detect_plain(pyr_, specs, 20.0, 7.0)
+        same += all(torch.equal(getattr(dk, f), getattr(dp, f))
+                    for f in FE.Detected._fields)
+        err = max(err, float((dk.uv - dp.uv).abs().max()),
+                  float((dk.response - dp.response).abs().max()))
+    check(same == len(pyrs), "orb_fast_grid (orb_detect): xy, response, "
+          f"valid, octave and uv bit-equal to the plain path on every level "
+          f"of {same}/{len(pyrs)} frames, {n_launch} launches a frame")
+    pyr = pyrs[1]
+    det = FE.orb_detect(pyr, specs, 20.0, 7.0)
     # FAST at two thresholds on the 16-pixel ring, 3x3 NMS, cell argmax:
-    # ~60 operations a pixel
+    # ~60 operations a pixel (the cells' sort is ~1e5 more)
     report["orb_fast_grid"] = dict(
-        **work(nbytes(*pyr) + out_b, 60 * sum(im.numel() for im in pyr)),
+        **work(nbytes(*pyr) + nbytes(det), 60 * sum(im.numel() for im in pyr)),
         max_abs_err=err,
-        ms=cuda_ms(lambda: [FE.orb_fast_grid(im, 20.0, 7.0) for im in pyr]),
-        plain_ms=cuda_ms(lambda: [FE.orb_fast_grid_plain(im, 20.0, 7.0)
-                                  for im in pyr]))
+        ms=cuda_ms(lambda: FE.orb_detect(pyr, specs, 20.0, 7.0)),
+        plain_ms=cuda_ms(lambda: FE.orb_detect_plain(pyr, specs, 20.0, 7.0),
+                         reps=5, warmup=1),
+        extra=dict(device_ms=device_ms(
+            lambda: FE.orb_detect(pyr, specs, 20.0, 7.0)),
+            launches_a_frame=n_launch))
+    rep = report["orb_fast_grid"]
+    print(f"  orb detector a frame (480x752, 8 levels): {rep['ms']:.4f} ms "
+          f"(events), {rep['extra']['device_ms']:.4f} ms on the card, "
+          f"{n_launch} launches, plain {rep['plain_ms']:.4f} ms")
 
     # -- orb_describe: the keypoints of frame 1, all levels in one call
-    xys, octs = [], []
-    for lv, spec in enumerate(orb.specs):
-        best, arg = FE.orb_fast_grid(pyr[lv], 20.0, 7.0)
-        xy, _, _ = FE.select_top_cells(best, arg, spec.width // 16,
-                                       spec.n_keep)
-        xys.append(xy)
-        octs.append(torch.full((xy.shape[0],), lv, dtype=torch.int32,
-                               device=dev))
-    xy, oc = torch.cat(xys), torch.cat(octs)
+    xy, oc = det.xy, det.octave
     dargs = (pyr, xy, oc, orb.taps, orb.pattern, orb.wx, orb.wy)
     ang_k, desc_k = FE.orb_describe(*dargs)
     ang_p, desc_p = FE.orb_describe_plain(*dargs)
@@ -2895,9 +2902,11 @@ def check_global_kernels(report):
         t, S = w.t, got.S
         lam = torch.tensor(c["lam"], device="cuda")
         n_pt, n_ln = t["pts"].shape[0], t["lns"].shape[0]
+        # the CG: 2 operations a stored entry (its structural non-zeros)
+        # an iteration
         ops = 300 * n_pt + 1500 * n_ln + 250 * w.n_obs \
             + gram_ops(A["obs_kf"], A["obs_pt"], n_pt, 3) \
-            + w_cg(S) * 2 * S * S
+            + w_cg(S) * 2 * int(KN.cg_pattern(n_kf, w.body).sum())
         if w.body:
             ops += 1000 * t["lobs_kf"].shape[0] + gram_ops(
                 A["lobs_kf"], A["lobs_ln"], n_ln, 6)
@@ -2910,7 +2919,14 @@ def check_global_kernels(report):
             max_abs_err=got.gaps["pose"].kernel_plain,
             ms=cuda_ms(w.solve, reps=5, warmup=1),
             plain_ms=cuda_ms(lambda: prob.solve_step(st, lam, *free),
-                             reps=2, warmup=1))
+                             reps=2, warmup=1),
+            stages=schur_stage_report(w))
+        # the fill-in stage's library call: torch.mm on its dense operand
+        gm = KN.schur_dense_operand(w)
+        report[key]["fill_library_ms"] = cuda_ms(lambda: torch.mm(gm, gm.T),
+                                                 reps=5, warmup=1)
+        del gm
+        print_stages(f"global path, {kind} {n_kf} KF", S, report[key])
 
 
 def run_slice7(dev, smi):
@@ -6411,11 +6427,18 @@ def run_phases(dev, smi, render):
     plain_step, _ = tracking_step_pl(H, W, N_FEAT, CAP_PTS, CAP_LNS, N_LINE,
                                      device=dev, plain=True)
     pose = pose0
-    dmax = []
+    poses_p = []
+    # this run is also phase 6's plain-path time (no other run of it)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
     with torch.no_grad():
-        for img, Pk_ in zip(imgs, poses_k):
+        for img in imgs:
             pose, _ = plain_step(img, pose, *map_args)
-            dmax.append(float((pose - Pk_).abs().max()))
+            poses_p.append(pose)
+    ev[1].record()
+    torch.cuda.synchronize()
+    ms_p = ev[0].elapsed_time(ev[1]) / N_FRAMES
+    dmax = [float((P - Pk_).abs().max()) for P, Pk_ in zip(poses_p, poses_k)]
     print(f"  plain path: largest pose difference per frame {dmax}")
 
     phase_head(f"[5] slice 2: frames 1..{N_FRAMES - 1} through "
@@ -6461,7 +6484,12 @@ def run_phases(dev, smi, render):
           f"{max(rot):.4f})")
     check(all(launches_vi[k] > 0 for k in PATH_VI),
           f"every kernel of slice 2 launched ({', '.join(PATH_VI)})")
+    # this run is also phase 6's plain-path time (no other run of it)
+    ev[0].record()
     out_p = run_vi(vi_plain)
+    ev[1].record()
+    torch.cuda.synchronize()
+    vp = ev[0].elapsed_time(ev[1]) / (N_FRAMES - 1)
     dvi = [float((ck[0] - cp[0]).abs().max())
            for (ck, _, _), (cp, _, _) in zip(out_k, out_p)]
     inls_p = [int(n) for _, n, _ in out_p]
@@ -6488,13 +6516,11 @@ def run_phases(dev, smi, render):
         return go
 
     ms_k = cuda_ms(run_pl(step), reps=3, warmup=1) / N_FRAMES
-    ms_p = cuda_ms(run_pl(plain_step), reps=2, warmup=1) / N_FRAMES
     print(f"  tracking_step_pl: kernel path {ms_k:.3f} ms/frame, plain path "
-          f"{ms_p:.3f} ms/frame, on {smi}")
+          f"{ms_p:.3f} ms/frame (phase 4's run), on {smi}")
     vk = cuda_ms(lambda: run_vi(vi), reps=3, warmup=1) / (N_FRAMES - 1)
-    vp = cuda_ms(lambda: run_vi(vi_plain), reps=1, warmup=1) / (N_FRAMES - 1)
     print(f"  tracking_step_vi: kernel path {vk:.3f} ms/frame, plain path "
-          f"{vp:.3f} ms/frame, on {smi}")
+          f"{vp:.3f} ms/frame (phase 5's run), on {smi}")
 
     launches_map = run_slice3(dev, step, imgs, pose0, map_args, smi)
     launches_liba = run_slice4(dev, smi)
@@ -6550,7 +6576,10 @@ def run_phases(dev, smi, render):
         print(f"  schur_solve global path, {what}: {rep['ms']:.4f} ms, plain "
               f"{rep['plain_ms']:.4f} ms, bound {rep['bound_ms']:.6f} ms "
               f"({rep['bound_by']}: {rep['bytes']} B, {rep['ops']} ops), "
-              f"{n_seq} launches on the sequence, on {smi}")
+              f"{n_seq} launches on the sequence; its fill-in "
+              f"{rep['stages']['fill_kernel'][0]:.4f} ms beside torch.mm "
+              f"of the dense operand {rep['fill_library_ms']:.4f} ms, on "
+              f"{smi}")
     for name in ("ba_linearize", "schur_solve"):
         for cfg, what in (("inertial", "inertial window (15-DoF)"),
                           ("points", "point-only window (make_local_ba)")):

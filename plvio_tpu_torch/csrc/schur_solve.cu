@@ -22,10 +22,11 @@
 // 96 pose block: its velocity and bias rows couple through the chain's
 // keyframe-tridiagonal blocks alone (17 910 of 57 600 entries).
 //
-// Design (four launches a step).  Every sum runs in the order of the
-// dense design this one replaced (a dense Gram operand, its tiled product
-// and a one-thread-a-row CG on the packed system), so the step keeps its
-// bits (the window BAs' kernel_digest.py lines did not move):
+// Design (four launches a step, five on the global path).  Every sum
+// runs in the order of the dense design this one replaced (a dense Gram
+// operand, its tiled product and a one-thread-a-row CG on the packed
+// system), so the step keeps its bits (the window BAs' kernel_digest.py
+// lines did not move):
 // - factor_kernel: one thread per landmark (points, then lines; a warp a
 //   block, so the landmarks spread over every SM) takes the reference's
 //   steps in order: free mask, the per-landmark damping floor 1e-4
@@ -67,16 +68,31 @@
 //   in order) in the same passes as the product and the update: three
 //   barriers an iteration (the dense design had seven, and its packed
 //   column reads met bank conflicts).
-// - solve_global_kernel: the same system and CG beyond one block (see
+// - the global path, the same system and CG beyond one block (see
 //   one_block: a point+line window beyond 37 keyframes, S > 222, e.g. S =
 //   768 at 128; a 15-DoF window beyond 22, S > 330, e.g. the full-map
-//   BA's 64 keyframes, S = 960).  One cooperative launch of
-//   ceil(S / 128) blocks, one row a thread, the full symmetric system in a
-//   global workspace that stays in L2; each CG step takes three grid
-//   barriers (after p.Hp's block partials, after r.r's, after the new p),
-//   every block summing the partials in block order.  At S = 960 that is
-//   384 barriers an LM iteration; a 16-CTA cluster holding the packed
-//   triangle in distributed shared memory would avoid them.
+//   BA's 64 keyframes, S = 960), two launches.  assemble_rows_kernel
+//   writes the system's structural non-zeros in solve_kernel's full-row
+//   layout (RowSegs, RowLayout) to the global workspace, a warp a row
+//   over enough blocks to fill the card (S / 8 blocks).  cg_cluster_kernel
+//   runs the CG on one thread-block cluster of 16 CTAs: CTA c owns a run
+//   of 32-row warps, copies their stored rows into its shared memory (at
+//   S = 960 the widest CTA holds 64 pose rows of 417 floats, 107 KB; at S
+//   = 768, 64 dense rows of 769, 197 KB; a system whose rows do not fit,
+//   dense from 145 keyframes, leaves them in the workspace, in L2) and
+//   keeps the whole p in shared memory.  Each CG step: a thread
+//   walks its row's stored columns in order, as solve_kernel does; p.Hp
+//   and r.r are each warp's butterfly, stored by st.async into every
+//   CTA's shared memory (each store completing its bytes on that CTA's
+//   mbarrier), then summed by every thread in the dense design's tree
+//   (per 128 rows the four warps in order, then those groups in order,
+//   the tree the earlier one-cooperative-grid design took); the new p is
+//   stored into every CTA's copy the same way.  A CTA waits on its own
+//   three mbarriers a step; no barrier of the grid or the cluster runs in
+//   the loop (with three cluster barriers a step it was 6.1 us a step at
+//   S = 960, with the mbarriers 4.0).  The earlier design (8 blocks at S
+//   = 960, the dense S x S system in L2, three grid barriers a step) took
+//   5.01 ms a solve there, this one 0.52 (H100 80GB HBM3, 700 W).
 // - backsub_kernel: back-substitutes each landmark (dx_p = F F^T (g_p -
 //   sum_o W_o^T dx_kf)) and retracts each keyframe into the candidate state
 //   (T <- Exp(dx) T for T_cw; R <- R Exp(dtheta), p <- p + dp for pose_wb,
@@ -114,6 +130,8 @@
 //   in one block (chol_kernel, the full matrix in shared memory, S <=
 //   240); stage 2 is backsub_kernel on each shard with the summed step.
 #include <cooperative_groups.h>
+
+#include <algorithm>
 
 #include "ba_common.cuh"
 
@@ -715,11 +733,12 @@ struct FullRows {
   // the damped, frozen entries of src, a warp a row (entry (i, j) from the
   // upper triangle, as every reader of the system takes it), four entries
   // a lane at a time so that their reads are in flight together
+  // (rows w0 + this block's warp, then every `ws` rows on)
   template <class Src>
   __device__ void fill(const BA& b, const Src& src, float* H,
-                       const float* fr, float lam) const {
+                       const float* fr, float lam, int w0, int ws) const {
     const int lane = threadIdx.x & 31;
-    for (int i = threadIdx.x >> 5; i < lay.S; i += kBlockWarps) {
+    for (int i = w0 + (threadIdx.x >> 5); i < lay.S; i += ws) {
       const RowSegs g = row_segs(i, lay.n, lay.body);
       float* row = H + lay.off(i);
       const int cnt = g.len + (lay.body ? 3 * g.len1 : 0);
@@ -743,8 +762,11 @@ struct FullRows {
     }
   }
   __device__ float dot(const float* H, int i, const float* p) const {
+    return row_dot(H + lay.off(i), i, p);
+  }
+  // row i's product with p from its stored entries v
+  __device__ float row_dot(const float* v, int i, const float* p) const {
     const RowSegs g = row_segs(i, lay.n, lay.body);
-    const float* v = H + lay.off(i);
     float a = serial_dot(0.f, v, p + g.c0, g.len);
     if (lay.body) {
       v += g.len;
@@ -795,7 +817,7 @@ __global__ void __launch_bounds__(kSolveBlock) solve_kernel(BA b, Src src,
   const float lam = b.at<float>(kCtrl)[cLam];
   for (int i = threadIdx.x; i < S; i += kSolveBlock) fr[i] = row_free(b, i);
   __syncthreads();
-  lay.fill(b, src, H, fr, lam);
+  lay.fill(b, src, H, fr, lam, 0, kBlockWarps);
   // the CG's threads: the block's first kSolveThreads; the others only
   // keep the barriers
   const bool cg = threadIdx.x < kSolveThreads;
@@ -865,101 +887,184 @@ __global__ void __launch_bounds__(kSolveBlock) solve_kernel(BA b, Src src,
   }
 }
 
-// ---- the reduced solve in global memory (S beyond one block)
+// ---- the reduced solve beyond one block: assembly over the card, the CG
+//      on a thread-block cluster
 
-constexpr int kRowThreads = 128;
+constexpr int kAsmThreads = 256;          // assemble_rows_kernel: 8 rows
+constexpr int kClusterThreads = 256;      // a CTA's threads, at least
+constexpr int kCluster = 16;             // CTAs (H100: non-portable size)
+constexpr size_t kBarBytes = 64;          // cg_cluster_kernel's mbarriers
 
-// fixed-order sum of v over the block (warp shuffles, then warps in
-// order); every thread gets the sum
-__device__ float block_sum(float v, float* warp_sh) {
+// The damped, frozen system of src in FullRows' layout into the global
+// workspace, a warp a row (FullRows::fill), the rows spread over the grid
+template <class Src>
+__global__ void __launch_bounds__(kAsmThreads)
+    assemble_rows_kernel(BA b, Src src, FullRows lay) {
+  if (b.done()) return;
+  extern __shared__ float fr[];              // [S] free mask
+  const int S = b.Sd();
+  for (int i = threadIdx.x; i < S; i += blockDim.x) fr[i] = row_free(b, i);
+  __syncthreads();
+  constexpr int wpb = kAsmThreads / 32;
+  lay.fill(b, src, b.at<float>(kCgw), fr, b.at<float>(kCtrl)[cLam],
+           blockIdx.x * wpb, gridDim.x * wpb);
+}
+
+// a warp's butterfly sum of v (every lane the same bits)
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     v += __shfl_xor_sync(0xffffffffu, v, off);
-  if ((threadIdx.x & 31) == 0) warp_sh[threadIdx.x >> 5] = v;
-  __syncthreads();
+  return v;
+}
+
+// the dense design's tree over the warps' sums g [nw]: per 128 rows the
+// four warps in order (a missing warp adds +0), then those groups in
+// order, each from +0 (every thread the same bits)
+__device__ __forceinline__ float rows_total(const float* g, int nw) {
   float s = 0.f;
-  for (int w = 0; w < int(blockDim.x >> 5); ++w) s += warp_sh[w];
-  __syncthreads();
+  for (int w0 = 0; w0 < nw; w0 += 4) {
+    float t = 0.f;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) t += w0 + k < nw ? g[w0 + k] : 0.f;
+    s += t;
+  }
   return s;
 }
 
-// the blocks' partial sums, added in block order (the same on every block)
-__device__ __forceinline__ float grid_total(const float* part) {
-  float s = 0.f;
-  for (int g = 0; g < int(gridDim.x); ++g) s += part[g];
-  return s;
+// ---- distributed shared memory: asynchronous stores that complete a
+//      transaction count on the receiver's mbarrier
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-// The same damped system and fixed-step CG as solve_kernel, for a reduced
-// system that one block's shared memory cannot hold.  One cooperative
-// launch; thread t of the grid owns row t.  The full symmetric system sits
-// in the workspace (L2-resident: 3.7 MB at S = 960), entry (i, j) computed
-// once from the upper triangle, so row i of H is also column i and a warp
-// reads 32 consecutive floats per column.  Each CG step: H p on the own
-// row (columns in order, p staged in shared memory), p.Hp summed per block
-// then across blocks in block order after a grid barrier, the same for
-// r.r, and a barrier after the new p is written: three barriers a step,
-// every block holding the same alpha and beta, so runs repeat bit for bit.
-template <class Src>
-__global__ void solve_global_kernel(BA b, Src src) {
+// the address `a` (this CTA's shared memory) in CTA `rank`'s
+__device__ __forceinline__ unsigned cluster_addr(unsigned a, int rank) {
+  unsigned r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(r) : "r"(a), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ void mbar_init(unsigned bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar)
+               : "memory");
+}
+
+// this phase's one arrival, expecting `bytes` from the stores
+__device__ __forceinline__ void mbar_expect(unsigned bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               ::"r"(bar), "r"(bytes) : "memory");
+}
+
+// v into CTA rank's address a (this CTA's layout), completing 4 bytes on
+// that CTA's mbarrier bar
+__device__ __forceinline__ void send(unsigned a, float v, unsigned bar,
+                                     int rank) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, "
+      "[%2];" ::"r"(cluster_addr(a, rank)), "r"(__float_as_uint(v)),
+      "r"(cluster_addr(bar, rank)) : "memory");
+}
+
+// wait for the phase of parity `ph` to complete, then flip ph
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned& ph) {
+  asm volatile(
+      "{\n .reg .pred done;\n WAIT_%=:\n"
+      " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 done, [%0],"
+      " %1;\n @!done bra WAIT_%=;\n}" ::"r"(bar), "r"(ph) : "memory");
+  ph ^= 1u;
+}
+
+// The same fixed-step CG as solve_kernel on the system assemble_rows_kernel
+// wrote, on one cluster: CTA c < na owns warps [c wpc, (c + 1) wpc) of 32
+// rows each (thread t of its first wpc warps owns row 32 (c wpc) + t),
+// their stored rows in its shared memory (InSmem) or read from the
+// workspace, and a copy of the whole p.  Nothing waits on the whole
+// cluster inside the loop: a warp's p.Hp and r.r sums and each row's new
+// p are stored into every active CTA's shared memory by st.async, each
+// completing bytes on that CTA's mbarrier for the vector (ga, gb, p),
+// and a CTA waits for its own mbarrier's phase: the S or ceil(S / 32)
+// values of this step.  A buffer is written again only after every warp
+// has read it, since every warp's next contribution follows its reads
+// (the new p follows r.r's sums, which follow the product that read p;
+// the next p.Hp sums follow the product, which follows the new p), so
+// one copy of each suffices.
+template <class Src, bool InSmem>
+__global__ void cg_cluster_kernel(BA b, Src src, FullRows lay, int wpc) {
   if (b.done()) return;
-  cg::grid_group grid = cg::this_grid();
-  extern __shared__ float psh[];             // [S] p, then [32] warp sums
-  const int S = b.Sd();
-  float* wsh = psh + S;
-  float* H = b.at<float>(kCgw);              // [S, S]
-  float* pg = H + size_t(S) * S;             // [S]
-  float* part_a = pg + S;                    // [gridDim.x]
-  float* part_b = part_a + gridDim.x;        // [gridDim.x]
-  const float lam = b.at<float>(kCtrl)[cLam];
-  const size_t nn = size_t(S) * S;
-  for (size_t e = size_t(blockIdx.x) * blockDim.x + threadIdx.x; e < nn;
-       e += size_t(gridDim.x) * blockDim.x) {
-    int i = int(e / S), j = int(e % S);
-    if (i > j) {
-      const int t = i;
-      i = j;
-      j = t;
-    }
-    H[e] = src.h(b, i, j, lam, row_free(b, i), row_free(b, j));
+  cg::cluster_group cl = cg::this_cluster();
+  extern __shared__ float sh[];
+  __shared__ alignas(8) unsigned long long bar[3];    // ga, gb, p
+  const int S = b.Sd(), nw = (S + 31) / 32, na = (nw + wpc - 1) / wpc;
+  const int c = int(cl.block_rank());
+  float* p = sh;                             // [S]
+  float* ga = p + S;                         // [nw] p.Hp's warp sums
+  float* gb = ga + nw;                       // [nw] r.r's
+  float* rows = gb + nw;                     // the CTA's rows (InSmem)
+  const int r0 = min(S, 32 * wpc * c), r1 = min(S, 32 * wpc * (c + 1));
+  const int base = lay.lay.off(r0);
+  const float* H = b.at<float>(kCgw);
+  if (InSmem)
+    for (int e = threadIdx.x; e < lay.lay.off(r1) - base; e += blockDim.x)
+      rows[e] = H[base + e];
+  const float* R = InSmem ? rows : H + base;
+  const unsigned bA = smem_u32(&bar[0]), bB = smem_u32(&bar[1]),
+                 bP = smem_u32(&bar[2]);
+  if (threadIdx.x == 0 && c < na) {
+    mbar_init(bA);
+    mbar_init(bB);
+    mbar_init(bP);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    mbar_expect(bA, 4 * nw);
+    mbar_expect(bB, 4 * nw);
+    mbar_expect(bP, 4 * S);
   }
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool own = i < S;
-  const float fi = own ? row_free(b, i) : 0.f;
-  float x = 0.f, r = own ? src.r(b, i, fi) : 0.f, p = r, Hp = 0.f;
-  if (own) pg[i] = p;
-  float t = block_sum(r * r, wsh);
-  // into part_b: a block may write its first p.Hp into part_a before a
-  // slower one has read this sum; part_b is next written after the first
-  // barrier inside the loop, which every block reaches after reading it
-  if (threadIdx.x == 0) part_b[blockIdx.x] = t;
-  grid.sync();
-  float rs = grid_total(part_b);
-  for (int it = 0; it < b.cg_iters; ++it) {
-    for (int j = threadIdx.x; j < S; j += blockDim.x) psh[j] = pg[j];
-    __syncthreads();
-    if (own) {
-      float a = 0.f;
-      const float* col = H + i;
-      for (int j = 0; j < S; ++j) a += col[size_t(j) * S] * psh[j];
-      Hp = a;
+  const int lane = threadIdx.x & 31, w = wpc * c + (threadIdx.x >> 5);
+  const bool cgw = int(threadIdx.x >> 5) < wpc && w < nw;
+  const int i = 32 * w + lane;
+  const bool own = cgw && i < S;
+  cl.sync();                         // every CTA runs, its mbarriers set
+  if (cgw) {
+    const float fi = own ? row_free(b, i) : 0.f;
+    float x = 0.f, r = own ? src.r(b, i, fi) : 0.f, pv = r;
+    unsigned pa = 0, pb = 0, pp = 0;           // the phases' parities
+    const bool arm = threadIdx.x == 0;
+    if (own)
+      for (int k = 0; k < na; ++k) send(smem_u32(p + i), pv, bP, k);
+    float t = warp_sum(r * r);
+    if (lane < na) send(smem_u32(gb + w), t, bB, lane);
+    mbar_wait(bB, pb);
+    if (arm) mbar_expect(bB, 4 * nw);
+    float rs = rows_total(gb, nw);
+    for (int it = 0; it < b.cg_iters; ++it) {
+      const bool more = it + 1 < b.cg_iters;
+      mbar_wait(bP, pp);
+      if (arm && more) mbar_expect(bP, 4 * S);
+      const float hp =
+          own ? lay.row_dot(R + (lay.lay.off(i) - base), i, p) : 0.f;
+      t = warp_sum(pv * hp);
+      if (lane < na) send(smem_u32(ga + w), t, bA, lane);
+      mbar_wait(bA, pa);                     // 1: p.Hp
+      if (arm && more) mbar_expect(bA, 4 * nw);
+      const float alpha = rs / fmaxf(rows_total(ga, nw), 1e-20f);
+      x = x + alpha * pv;
+      r = r - alpha * hp;
+      t = warp_sum(r * r);
+      if (lane < na) send(smem_u32(gb + w), t, bB, lane);
+      mbar_wait(bB, pb);                     // 2: r.r
+      if (arm && more) mbar_expect(bB, 4 * nw);
+      const float rs_new = rows_total(gb, nw);
+      const float beta = rs_new / fmaxf(rs, 1e-20f);
+      pv = r + beta * pv;
+      if (own && more)                       // 3: the new p
+        for (int k = 0; k < na; ++k) send(smem_u32(p + i), pv, bP, k);
+      rs = rs_new;
     }
-    t = block_sum(p * Hp, wsh);
-    if (threadIdx.x == 0) part_a[blockIdx.x] = t;
-    grid.sync();
-    const float alpha = rs / fmaxf(grid_total(part_a), 1e-20f);
-    x = x + alpha * p;
-    r = r - alpha * Hp;
-    t = block_sum(r * r, wsh);
-    if (threadIdx.x == 0) part_b[blockIdx.x] = t;
-    grid.sync();
-    const float rs_new = grid_total(part_b);
-    const float beta = rs_new / fmaxf(rs, 1e-20f);
-    p = r + beta * p;
-    if (own) pg[i] = p;
-    grid.sync();
-    rs = rs_new;
+    if (own) b.at<float>(kDx)[i] = x * fi;
   }
-  if (own) b.at<float>(kDx)[i] = x * fi;
+  cl.sync();                         // no CTA leaves while others store
 }
 
 // ---- back-substitution and retraction into the candidate state
@@ -1139,10 +1244,10 @@ inline bool one_block(const BA& b) {
   return b.Sd() <= kOneBlockMaxS && cg_smem(b) <= kSmemMax;
 }
 
-// the global path's workspace is large enough (ints[kCgwFloats])
-inline bool cgw_fits(const int* ints, int S) {
-  return size_t(ints[kCgwFloats])
-      >= size_t(S) * S + S + 2 * blocks(S, kRowThreads);
+// the global path's workspace holds b's system in full rows
+// (ints[kCgwFloats])
+inline bool cgw_fits(const BA& b, const int* ints) {
+  return size_t(ints[kCgwFloats]) >= rows_of(b).floats();
 }
 
 // the fill-in's launch: a block a keyframe pair, its records in dynamic
@@ -1167,34 +1272,56 @@ int launch_cg_block(const BA& b, Src src, cudaStream_t s) {
   return 0;
 }
 
-// the global path's cooperative launch: ceil(S / 128) blocks of 128 rows,
-// all co-resident or an error
+// the global path: assemble_rows_kernel over S / 8 blocks, then
+// cg_cluster_kernel on a cluster of 16 CTAs, each CTA's rows in its shared
+// memory where they fit
 template <class Src>
 int launch_solve_global(const BA& b, Src src, cudaStream_t s) {
-  const int S = b.Sd();
-  const int grid = blocks(S, kRowThreads);
-  const size_t smem = (size_t(S) + 32) * sizeof(float);
-  if (smem > kSmemMax) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t e = cudaFuncSetAttribute(
-      solve_global_kernel<Src>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
-      (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                  dev)) != cudaSuccess ||
-      (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, solve_global_kernel<Src>, kRowThreads, smem)) !=
-      cudaSuccess)
+  const int S = b.Sd(), nw = blocks(S, 32), wpc = blocks(nw, kCluster);
+  const FullRows lay = rows_of(b);
+  const size_t asm_smem = size_t(S) * sizeof(float);
+  // p, the two rows of warp sums and, where they fit, the rows (the
+  // mbarriers take kBarBytes of static shared memory)
+  size_t region = 0;                         // the widest CTA's rows
+  for (int c = 0; c < kCluster; ++c) {
+    const int r0 = std::min(S, 32 * wpc * c);
+    const int r1 = std::min(S, 32 * wpc * (c + 1));
+    region = std::max(region, size_t(lay.lay.off(r1) - lay.lay.off(r0)));
+  }
+  const size_t vecs = (size_t(S) + 2 * nw) * sizeof(float);
+  const bool in_smem = vecs + region * sizeof(float) + kBarBytes <= kSmemMax;
+  const size_t smem = in_smem ? vecs + region * sizeof(float) : vecs;
+  if (asm_smem > kSmemMax || smem + kBarBytes > kSmemMax || 32 * wpc > 1024)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = in_smem ? cg_cluster_kernel<Src, true>
+                        : cg_cluster_kernel<Src, false>;
+  cudaError_t e;
+  if ((e = cudaFuncSetAttribute(assemble_rows_kernel<Src>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                static_cast<int>(asm_smem))) != cudaSuccess ||
+      (e = cudaFuncSetAttribute(
+           kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1)) !=
+          cudaSuccess ||
+      (e = cudaFuncSetAttribute(kernel,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                static_cast<int>(smem))) != cudaSuccess)
     return static_cast<int>(e);
-  if (grid > sms * per_sm)
-    return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-  BA arg = b;
-  Src sarg = src;
-  void* args[] = {&arg, &sarg};
-  return static_cast<int>(cudaLaunchCooperativeKernel(
-      reinterpret_cast<void*>(solve_global_kernel<Src>), dim3(grid),
-      dim3(kRowThreads), args, smem, s));
+  assemble_rows_kernel<Src><<<blocks(S, kAsmThreads / 32), kAsmThreads,
+                              asm_smem, s>>>(b, src, lay);
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = kCluster;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kCluster);
+  cfg.blockDim = dim3(std::max(kClusterThreads, 32 * wpc));
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  return static_cast<int>(
+      cudaLaunchKernelEx(&cfg, kernel, b, src, lay, wpc));
 }
 
 // The reduced solve of src's system into dx: one block where its full
@@ -1325,14 +1452,14 @@ inline size_t chol_smem(int S) {
 // one damped Schur step: landmark factors and the per-observation G_o, the
 // fill-in, the reduced solve (one block, or the global path when its
 // full rows do not fit the block's shared memory), back-substitution and
-// retraction: four launches.  ints[kSolvePath] reports the path the
-// reduced solve took; the global path needs ints[kCgwFloats] >= S * S + S
-// + 2 * blocks.
+// retraction: four launches (five on the global path).  ints[kSolvePath]
+// reports the path the reduced solve took; the global path needs
+// ints[kCgwFloats] >= its full rows' floats (RowLayout::floats).
 PLVIO_API int schur_solve(void* const* ptrs, int* ints, const float* flts,
                           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const BA b = make_ba(ptrs, ints, flts);
-  if (!one_block(b) && !cgw_fits(ints, b.Sd()))
+  if (!one_block(b) && !cgw_fits(b, ints))
     return static_cast<int>(cudaErrorInvalidValue);
   const int n = b.n_pt + b.n_ln;
   if (n > 0) factor_kernel<<<blocks(n, kLmThreads), kLmThreads, 0, s>>>(b);
@@ -1405,7 +1532,7 @@ PLVIO_API int schur_solve_reduced(void* const* ptrs, int* ints,
       chol_kernel<<<1, kSolveThreads, smem, s>>>(b, src);
       ints[kSolvePath] = 0;
     } else {
-      if (!one_block(b) && !cgw_fits(ints, S))
+      if (!one_block(b) && !cgw_fits(b, ints))
         return static_cast<int>(cudaErrorInvalidValue);
       const int rc = launch_cg(b, src, ints, s);
       if (rc != 0) return rc;

@@ -76,7 +76,15 @@ points both trees have) and compare the printed lines:
 - `schur_stages` (not digests; a tree beside another): `schur_solve`'s
   time a step by stage (torch.profiler's kernel names) and in all (CUDA
   events) on the three windows it runs on the main paths: point+line (S =
-  96), 15-DoF (S = 240), point-only (`schur_stage_times`).
+  96), 15-DoF (S = 240), point-only (`schur_stage_times`); `schur_stages
+  global` the same on the global path's windows, the 64-KF inertial one
+  (S = 960) and the 128-KF point-only one (S = 768).
+- `global` (a tree with `KN.global_work`; a parent tree's kernels are
+  read by copying its `csrc/schur_solve.cu` in): the candidate states of
+  one Schur step on the global path's windows (23 and 64 KF inertial,
+  128 KF point-only, 64 KF inertial with the KB8 lens).
+- `orb_detect` (not digests): the ORB detector's time and launches a
+  frame on a rendered 480 x 752 frame's eight levels (`orb_detect_times`).
 
 - slice 15 (`python3 kernel_digest.py window` prints the single-device
   window BAs' lines alone, on every tree: `window_digests`, whose bits
@@ -522,7 +530,16 @@ def main() -> int:
             print(line, flush=True)
         return 0
     if sys.argv[1:2] == ["schur_stages"]:
-        for line in schur_stage_times(torch.device("cuda")):
+        for line in schur_stage_times(torch.device("cuda"),
+                                      glob=sys.argv[2:3] == ["global"]):
+            print(line, flush=True)
+        return 0
+    if sys.argv[1:2] == ["global"]:
+        for line in global_digests(torch.device("cuda")):
+            print(line, flush=True)
+        return 0
+    if sys.argv[1:2] == ["orb_detect"]:
+        for line in orb_detect_times(torch.device("cuda")):
             print(line, flush=True)
         return 0
     if sys.argv[1:2] in (["window"], ["dist"]):
@@ -720,18 +737,113 @@ def schur_stages(w, reps: int = 50, zero_cg: bool = True):
     return ms, stages
 
 
-def schur_stage_times(dev, reps: int = 50):
+def global_windows(dev):
+    """The global path's windows on the main paths, each linearized once
+    from its perturbed start (`KN.global_work`): [(name, _BAWork)] for
+    the 64-KF inertial window (S = 960) and the 128-KF point-only one (S =
+    768)."""
+    from plvio_tpu_torch.models import kernels as KN
+    return [(f"{kind} {n} KF", KN.global_work(kind, n, dev)[-1])
+            for kind, n in (("inertial", 64), ("points", 128))]
+
+
+def global_digests(dev):
+    """Digests of one Schur step's candidate states (poses; velocity and
+    biases in a 15-DoF window) on the global path's windows."""
+    from plvio_tpu_torch.models import kernels as KN
+    out = []
+    for kind, n, kb8 in (("inertial", 23, False), ("inertial", 64, False),
+                         ("points", 128, False), ("inertial", 64, True)):
+        w = KN.global_work(kind, n, dev, kb8=kb8)[-1]
+        w.solve()
+        got = [w.t["cposes"]] + ([w.t["ckfx"]] if w.body else [])
+        out.append(f"schur_solve global {kind} {n} KF kb8={kb8} "
+                   f"path={w.solve_path()} {digest(got)}")
+    return out
+
+
+def schur_stage_times(dev, reps: int = 50, glob: bool = False):
     """Lines of `schur_solve`'s time by stage (`schur_stages`) on the
-    three windows of `schur_windows`."""
+    three windows of `schur_windows`, or with `glob` on the global path's
+    two (`global_windows`, 20 steps a session)."""
     smi = _nvidia_smi()
     out = []
-    for name, w in schur_windows(dev):
-        ms, stages = schur_stages(w, reps)
+    for name, w in (global_windows(dev) if glob else schur_windows(dev)):
+        ms, stages = schur_stages(w, 20 if glob else reps)
         busy = sum(st[1] for st in stages if "(0 CG" not in st[0])
         out.append(f"schur_solve {name} S={w.S}: step {ms:.4f} ms (events), "
                    f"device {busy:.4f} ms: " + ", ".join(
                        f"{k} {t:.4f} ms x{n:g}" for k, t, n in stages)
                    + f" on {smi}")
+    return out
+
+
+def orb_detect_times(dev, reps: int = 50):
+    """The ORB detector on frame 1 of `inputs.build_inputs` (480 x 752,
+    1000 features, eight levels), on the pyramid `build_pyramid` gives:
+    `OrbExtractor.features` (the detector, then `orb_describe` on its
+    keypoints) and `orb_describe` alone, each by CUDA events over `reps`
+    calls (ms a call, the host's enqueue included where it is longer than
+    the card's work) and by torch.profiler (the card's busy ms and the
+    kernels launched a call); the detector's share is the difference."""
+    from torch.profiler import ProfilerActivity, profile
+    from plvio_tpu_torch.inputs import build_inputs
+    from plvio_tpu_torch.ops import frontend as FE
+    frames = build_inputs(2, device=dev)[0]
+    orb, _ = FE.make_extractor(480, 752, 1000, device=dev)
+    pyr = FE.build_pyramid(torch.from_numpy(frames[1]).to(dev), orb.specs)
+    with torch.no_grad():
+        f = orb.features(pyr)
+    n_kp = f.uv.shape[0]
+    scale = torch.tensor([sp.scale for sp in orb.specs], device=dev)
+    xy = torch.round(f.uv / scale[f.octave.long(), None])   # level coords
+    dargs = (pyr, xy, f.octave, orb.taps, orb.pattern, orb.wx, orb.wy)
+
+    def events(fn):
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize()
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0.record()
+        for _ in range(reps):
+            fn()
+        t1.record()
+        torch.cuda.synchronize()
+        return t0.elapsed_time(t1) / reps
+
+    def device(fn):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+        ev.sort(key=lambda e: -e.self_device_time_total)
+        ms = [e.self_device_time_total / reps / 1e3 for e in ev]
+        return (sum(ms), sum(e.count for e in ev) / reps,
+                ", ".join(f"{e.key[:40]} {t:.4f}"
+                          for e, t in zip(ev[:4], ms)))
+
+    def features():
+        with torch.no_grad():
+            orb.features(pyr)
+
+    def describe():
+        FE.orb_describe(*dargs)
+    smi = _nvidia_smi()
+    out = []
+    got = {}
+    for name, fn in (("features", features), ("orb_describe", describe)):
+        ms = events(fn)
+        busy, n, top = device(fn)
+        got[name] = (ms, busy, n)
+        out.append(f"orb {name}: {ms:.4f} ms (events), device {busy:.4f} "
+                   f"ms, {n:g} kernels a call (the longest, ms: {top}) on "
+                   f"{smi}")
+    (fm, fb, fn_), (dm, db, dn) = got["features"], got["orb_describe"]
+    out.append(f"orb detector (features - orb_describe), {n_kp} keypoints: "
+               f"{fm - dm:.4f} ms (events), device {fb - db:.4f} ms, "
+               f"{fn_ - dn:g} kernels a frame on {smi}")
     return out
 
 

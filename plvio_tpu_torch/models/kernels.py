@@ -1044,6 +1044,77 @@ BA_MODE_LINEARIZE, BA_MODE_DECIDE, BA_MODE_INIT, BA_MODE_REGATE = range(4)
  BA_MODE_MESH_DECIDE) = range(4, 8)
 
 
+def _pad_row(n: int) -> int:
+    """csrc/schur_solve.cu `pad_row`: the smallest length >= n that is 1
+    (mod 32)."""
+    return (n + 30) // 32 * 32 + 1
+
+
+def row_layout(n_kf: int, body: bool):
+    """csrc/schur_solve.cu `RowLayout` of the reduced system of n_kf
+    keyframes (S = 6 n_kf, or 15 n_kf with `body`) in full rows: (sp, sn,
+    floats), the stride of a pose row (the longest's padded length), of a
+    velocity or bias row, and the system's floats."""
+    S6, m = 6 * n_kf, min(n_kf, 3)
+    S = (15 if body else 6) * n_kf
+    sp = _pad_row(S6 + (9 * m if body else 0))
+    sn = _pad_row(15 * m)
+    return sp, sn, S6 * sp + ((S - S6) * sn if body else 0)
+
+
+def row_segs(i: int, n_kf: int, body: bool):
+    """csrc/schur_solve.cu `row_segs`: row i's stored columns as [(first,
+    length)] in increasing order: every column of a point+line window; in
+    the 15-DoF window (pose rows, then velocity, gyro and accelerometer
+    bias rows by keyframe) a pose row's every pose column, a velocity or
+    bias row's pose columns of keyframes k-1..k+1, then in each family
+    (velocity, gyro bias, accelerometer bias) the columns of keyframes
+    k-1..k+1."""
+    S6 = 6 * n_kf
+    if not body:
+        return [(0, S6)]
+    k = i // 6 if i < S6 else ((i - S6) % (3 * n_kf)) // 3
+    lo, hi = max(k - 1, 0), min(k + 1, n_kf - 1)
+    m = hi - lo + 1
+    first = [(0, S6)] if i < S6 else [(6 * lo, 6 * m)]
+    return first + [(S6 + 3 * n_kf * f + 3 * lo, 3 * m) for f in range(3)]
+
+
+def stored_pattern(n_kf: int, body: bool) -> torch.Tensor:
+    """[S, S] bool: the entries the reduced solve stores and walks, from
+    `row_segs` (the kernel's rule; `cg_pattern` states the system's
+    structural non-zeros, which it must equal)."""
+    S = (15 if body else 6) * n_kf
+    out = torch.zeros(S, S, dtype=torch.bool)
+    for i in range(S):
+        for c0, n in row_segs(i, n_kf, body):
+            out[i, c0:c0 + n] = True
+    return out
+
+
+CLUSTER_CTAS = 16      # csrc/schur_solve.cu kCluster
+
+
+def cluster_rows(n_kf: int, body: bool):
+    """The global path's split of the reduced system over its thread-block
+    cluster of CLUSTER_CTAS (csrc/schur_solve.cu `launch_solve_global`):
+    CTA c owns the 32-row warps [c w, (c + 1) w), w = ceil(ceil(S / 32) /
+    CLUSTER_CTAS).  Returns (w, [floats of each CTA's rows in
+    `row_layout`]); a CTA holds its rows in shared memory where they, p
+    [S], two [ceil(S / 32)] rows of warp sums and 64 bytes of mbarriers
+    fit 232448 bytes."""
+    S = (15 if body else 6) * n_kf
+    sp, sn, _ = row_layout(n_kf, body)
+    S6 = 6 * n_kf
+
+    def off(i):
+        return i * sp if i < S6 else S6 * sp + (i - S6) * sn
+    nw = -(-S // 32)
+    w = -(-nw // CLUSTER_CTAS)
+    return w, [off(min(S, 32 * w * (c + 1))) - off(min(S, 32 * w * c))
+               for c in range(CLUSTER_CTAS)]
+
+
 def solve_fits(n_kf: int, body: bool) -> bool:
     """Whether schur_solve takes its one-block solve for the reduced
     system of n_kf keyframes (S = 6 n_kf, or 15 n_kf with `body`): S <=
@@ -1051,25 +1122,19 @@ def solve_fits(n_kf: int, body: bool) -> bool:
     (csrc/schur_solve.cu `one_block`, `RowLayout`: at most 232448 bytes),
     so up to 37 keyframes without a body and 22 with one; beyond it the
     kernel takes its global path."""
-    def pad(n):                     # `pad_row`: 1 (mod 32)
-        return (n + 30) // 32 * 32 + 1
-    S6, m = 6 * n_kf, min(n_kf, 3)
     S = (15 if body else 6) * n_kf
-    if S > 330:
-        return False
-    floats = S6 * pad(S6 + (9 * m if body else 0))
-    if body:
-        floats += (S - S6) * pad(15 * m)
-    return (floats + 2 * S + 2 * 8) * 4 <= 232448
+    return S <= 330 and (row_layout(n_kf, body)[2] + 2 * S + 2 * 8) * 4 \
+        <= 232448
 
 
 def cg_pattern(n_kf: int, body: bool) -> torch.Tensor:
-    """The entries [S, S] bool that schur_solve's one-block CG stores of
-    the reduced system (csrc/schur_solve.cu `row_segs`): every entry of a
-    point+line window (S = 6 n_kf); in the 15-DoF window (S = 15 n_kf,
-    pose rows, then velocity, gyro and accelerometer bias rows by
+    """The structural non-zeros [S, S] bool of the reduced system: every
+    entry of a point+line window (S = 6 n_kf); in the 15-DoF window (S =
+    15 n_kf, pose rows, then velocity, gyro and accelerometer bias rows by
     keyframe) the dense pose block and, for every other pair of rows,
-    those of keyframes at most one apart."""
+    those of keyframes at most one apart (the chain couples neighbouring
+    keyframes only, the fill-in and the visual blocks the pose rows
+    only)."""
     S6 = 6 * n_kf
     if not body:
         return torch.ones(S6, S6, dtype=torch.bool)
@@ -1082,12 +1147,11 @@ def cg_pattern(n_kf: int, body: bool) -> torch.Tensor:
 
 def cg_workspace_floats(n_kf: int, body: bool) -> int:
     """Floats of the global path's workspace (csrc/ba_common.cuh `cgw`):
-    the full S x S system, p [S] and two partial-sum rows of one float per
-    128-row block; 1 when the one-block solve fits."""
+    the reduced system in full rows (`row_layout`); 1 when the one-block
+    solve fits."""
     if solve_fits(n_kf, body):
         return 1
-    S = (15 if body else 6) * n_kf
-    return S * S + S + 2 * (-(-S // 128))
+    return row_layout(n_kf, body)[2]
 
 
 def _segments(keys: torch.Tensor, n: int, valid: torch.Tensor):
@@ -2180,9 +2244,19 @@ def global_window(kind: str, n_kf: int, device, dtype=torch.float32,
         v = v.to(dev)
         return v.to(dtype) if v.is_floating_point() else v
     args = [cast(A[k]) for k in keys]
+    return (A, args) + _window_problem(kind, K, args, A.get("Rcb"),
+                                       A.get("tcb"))
+
+
+def _window_problem(kind: str, K, args, Rcb=None, tcb=None):
+    """The plain engine's (problem, states, free masks) of a `global_window`
+    argument list (`inertial`: LIBA_KEYS, with the extrinsic Rcb, tcb;
+    `points`: BA_KEYS), at the arguments' device and dtype."""
+    n_kf = args[0].shape[0]
     if kind == "inertial":
+        dt, dev = args[0].dtype, args[0].device
         prob = _liba_problem(
-            K, cast(A["Rcb"]), cast(A["tcb"]), 9.81, n_kf,
+            K, Rcb.to(dev, dt), tcb.to(dev, dt), 9.81, n_kf,
             args[6].shape[0], args[18].shape[0],
             (args[8].long(), args[9].long(), args[10], args[12]), args[11],
             (args[20].long(), args[21].long(), args[22]), args[23],
@@ -2197,7 +2271,7 @@ def global_window(kind: str, n_kf: int, device, dtype=torch.float32,
                            args[8])
         st = {"pose": args[0], "pt": args[2]}
         free = ({"pose": args[1]}, {"pt": args[3]})
-    return A, args, prob, st, free
+    return prob, st, free
 
 
 class StepGap(NamedTuple):
@@ -2265,6 +2339,27 @@ def _window_camera(kb8: bool):
     return kb8_camera() if kb8 else K_EUROC
 
 
+def global_work(kind: str, n_kf: int, device, kb8: bool = False):
+    """`global_window(kind, n_kf, device, kb8=kb8)` and its kernel path's
+    `_BAWork`, linearized at the perturbed start (damping 1e-4, the
+    reference engine's initial lambda), ready for a Schur step: (inputs,
+    argument list, plain problem, states, free masks, work)."""
+    K = _window_camera(kb8)
+    A, args, prob, st, free = global_window(kind, n_kf, device, kb8=kb8)
+    if kind == "inertial":
+        w = inertial_work(K, A["Rcb"], A["tcb"], 9.81, *args)
+        w.chain(CHAIN_COST_STATE)
+    else:
+        S = 6 * n_kf
+        w = _BAWork(K, *args, lam0=1e-4, early_tol=1e-2,
+                    cg_iters=min(max(S // 2, 16), 128))
+    w.linearize(BA_MODE_INIT)
+    w.linearize(BA_MODE_LINEARIZE)
+    if w.body:
+        w.chain(CHAIN_LINEARIZE)
+    return A, args, prob, st, free, w
+
+
 def global_solve_against_float64(kind: str, n_kf: int, device="cuda",
                                  kb8: bool = False) -> GlobalSolveCheck:
     """schur_solve's reduced solve on `global_window(kind, n_kf,
@@ -2275,20 +2370,8 @@ def global_solve_against_float64(kind: str, n_kf: int, device="cuda",
     the reference engine's initial lambda)."""
     dev = cuda.resolve_device(device)
     lam = 1e-4
-    K = _window_camera(kb8)
-    A, args, prob, st, free = global_window(kind, n_kf, dev, kb8=kb8)
-    if kind == "inertial":
-        w = inertial_work(K, A["Rcb"], A["tcb"], 9.81, *args)
-        w.chain(CHAIN_COST_STATE)
-        S = 15 * n_kf
-    else:
-        S = 6 * n_kf
-        w = _BAWork(K, *args, lam0=lam, early_tol=1e-2,
-                    cg_iters=min(max(S // 2, 16), 128))
-    w.linearize(BA_MODE_INIT)
-    w.linearize(BA_MODE_LINEARIZE)
-    if w.body:
-        w.chain(CHAIN_LINEARIZE)
+    A, args, prob, st, free, w = global_work(kind, n_kf, dev, kb8=kb8)
+    S = w.S
     t = w.t
 
     def cand():
@@ -2317,6 +2400,51 @@ def global_solve_against_float64(kind: str, n_kf: int, device="cuda",
         S, w.solve_path(), int(not solve_fits(n_kf, w.body)),
         all(torch.equal(ck[k], ck2[k]) for k in ck), gaps,
         dict(inputs=A, work=w, prob=prob, states=st, free=free, lam=lam))
+
+def global_step_against_float64(kind: str, n_kf: int,
+                                device="cuda") -> dict:
+    """One damped Schur step (damping 1e-4) from `global_window(kind,
+    n_kf)`'s perturbed start: the kernel path on the card against the
+    plain engine's step in float32 on FLOAT32_ORDERS observation orders
+    and in float64, both on the CPU, by `against_float64`'s rule on each
+    keyframe state apart (pose; velocity and biases in a 15-DoF window).
+    Returns {state: `against_float64`'s dict}."""
+    dev = cuda.resolve_device(device)
+    K = _window_camera(False)
+    A, args, _, _, _ = global_window(kind, n_kf, dev)
+    body = kind == "inertial"
+    names = ("pose", "vel", "bg", "ba") if body else ("pose",)
+
+    def kernel(*a):
+        if body:
+            w = inertial_work(K, A["Rcb"], A["tcb"], 9.81, *a)
+            w.chain(CHAIN_COST_STATE)
+        else:
+            w = _BAWork(K, *a, lam0=1e-4, early_tol=1e-2,
+                        cg_iters=min(max(3 * n_kf, 16), 128))
+        w.linearize(BA_MODE_INIT)
+        w.linearize(BA_MODE_LINEARIZE)
+        if body:
+            w.chain(CHAIN_LINEARIZE)
+        w.solve()
+        out = (w.t["cposes"].view(n_kf, 3, 4).clone(),)
+        if body:
+            kfx = w.t["ckfx"]
+            out += (kfx[:, :3].clone(), kfx[:, 3:6].clone(),
+                    kfx[:, 6:].clone())
+        return out
+
+    def plain(*a):
+        prob, st, free = _window_problem(kind, K, a, A.get("Rcb"),
+                                         A.get("tcb"))
+        with torch.no_grad():
+            got = prob.solve_step(st, torch.tensor(
+                1e-4, dtype=a[0].dtype), *free)[0]
+        return tuple(got[k] for k in names)
+    rows = LIBA_ROWS if body else ((4, 5, 6, 7, 8),)
+    return {name: against_float64(kernel, plain, args, (j,), rows=rows)
+            for j, name in enumerate(names)}
+
 
 def _gs_problem(gravity, n_kf, pre_const, pose_R, pose_p, imu_info,
                 edge_valid, prior_g=None, prior_a=None, order=None):

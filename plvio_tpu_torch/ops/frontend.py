@@ -10,8 +10,10 @@ numpy pattern.  Three stages are hand-written CUDA kernels:
   jax.image.resize's antialiased 'linear' function of the one above
   (`pyramid_chain`: one launch a level from one host call), and the line
   front end's 2x2-mean level 1 (`line_level`);
-* `orb_fast_grid` (csrc/orb_fast_grid.cu): FAST + NMS + blend + border +
-  per-cell argmax of one level;
+* `orb_fast_grid` (csrc/orb_fast_grid.cu): the detector of every level in
+  two launches a frame (`orb_detect`): FAST + NMS + blend + border +
+  per-cell argmax, then each level's top-k cells and the keypoints'
+  outputs;
 * `orb_describe` (csrc/orb_describe.cu): patch, angle, blur and BRIEF of
   every keypoint of every level.
 
@@ -354,27 +356,39 @@ def orb_fast_grid_plain(img: torch.Tensor, th_hi: float, th_lo: float,
     return rc.amax(1), torch.argmax(rc, 1).to(torch.int32)
 
 
-ORB_FAST_GRID = cuda.Kernel("orb_fast_grid", "orb_fast_grid",
-                            [_P, _I, _I, _F, _F, _I, _P, _P, _P])
+ORB_FAST_GRID = cuda.Kernel(
+    "orb_fast_grid", "orb_fast_grid",
+    [ctypes.POINTER(_P), ctypes.POINTER(_I), ctypes.POINTER(_I), _I, _F, _F,
+     _I, _P, _P, ctypes.POINTER(_I), ctypes.POINTER(_F), _P, _P, _P, _P, _P,
+     _P])
+ORB_MAX_LEVELS = 8          # the kernel's level table
+
+
+def _check_levels(name: str, levels: Sequence[torch.Tensor], cell: int):
+    cuda.check_cuda(name, *levels)
+    if not 1 <= len(levels) <= ORB_MAX_LEVELS or cell != 16 or any(
+            im.dtype != torch.float32 or im.dim() != 2 for im in levels):
+        raise ValueError(f"{name}: 1 to {ORB_MAX_LEVELS} [H,W] float32 "
+                         "levels, 16 px cells")
 
 
 def orb_fast_grid(img: torch.Tensor, th_hi: float, th_lo: float,
                   cell: int = 16, border: int = EDGE):
     """FAST at two thresholds, 3x3 NMS, blend, border mask and per-cell
     argmax of one level [H,W] float32.  CPU tensors take the plain version;
-    CUDA tensors launch csrc/orb_fast_grid.cu."""
+    CUDA tensors launch csrc/orb_fast_grid.cu's first kernel on this one
+    level (the frame path runs `orb_detect`)."""
     if img.device.type == "cpu":
         return orb_fast_grid_plain(img, th_hi, th_lo, cell, border)
-    cuda.check_cuda("orb_fast_grid", img)
-    if img.dtype != torch.float32 or img.dim() != 2 or cell != 16:
-        raise ValueError("orb_fast_grid: [H,W] float32 image, 16 px cells")
+    _check_levels("orb_fast_grid", [img], cell)
     H, W = img.shape
     C = (H // cell) * (W // cell)
     best = torch.empty(C, dtype=torch.float32, device=img.device)
     arg = torch.empty(C, dtype=torch.int32, device=img.device)
-    ORB_FAST_GRID.launch(cuda.ptr(img), H, W, float(th_hi), float(th_lo),
-                         int(border), cuda.ptr(best), cuda.ptr(arg),
-                         cuda.stream())
+    ORB_FAST_GRID.launch((_P * 1)(img.data_ptr()), (_I * 1)(H),
+                         (_I * 1)(W), 1, float(th_hi), float(th_lo),
+                         int(border), cuda.ptr(best), cuda.ptr(arg), None,
+                         None, None, None, None, None, None, cuda.stream())
     return best, arg
 
 
@@ -391,6 +405,96 @@ def select_top_cells(cell_best: torch.Tensor, cell_arg: torch.Tensor,
     x = (order % Wc) * cell + within % cell
     xy = torch.stack([x, y], -1).to(torch.float32)
     return xy, top_score, top_score > 0.0
+
+
+class Detected(NamedTuple):
+    """The detector's keypoints over all levels, level 0's first."""
+    xy: torch.Tensor        # [N,2] float32 level coordinates
+    response: torch.Tensor  # [N] score, less 1e4 where the high threshold
+    valid: torch.Tensor     # [N] bool, score > 0
+    octave: torch.Tensor    # [N] int32 level
+    uv: torch.Tensor        # [N,2] level-0 coordinates, xy * scale
+
+
+def orb_detect_plain(levels: Sequence[torch.Tensor],
+                     specs: Sequence[LevelSpec], th_hi: float,
+                     th_lo: float, cell: int = 16,
+                     border: int = EDGE) -> Detected:
+    """Plain version of `orb_detect`: per level `orb_fast_grid_plain` and
+    `select_top_cells` of its n_keep cells, the response, valid, octave
+    and level-0 coordinates (plvio_tpu/ops/frontend.py:346-360), then the
+    levels concatenated."""
+    xys, scores, valids, octs, uvs = [], [], [], [], []
+    for lv, spec in enumerate(specs):
+        best, arg = orb_fast_grid_plain(levels[lv], th_hi, th_lo, cell,
+                                        border)
+        xy, score, valid = select_top_cells(best, arg, spec.width // cell,
+                                            spec.n_keep, cell)
+        xys.append(xy)
+        scores.append(torch.where(score > 1e4, score - 1e4, score))
+        valids.append(valid)
+        octs.append(torch.full((xy.shape[0],), lv, dtype=torch.int32,
+                               device=xy.device))
+        uvs.append(xy * spec.scale)
+    return Detected(torch.cat(xys), torch.cat(scores), torch.cat(valids),
+                    torch.cat(octs), torch.cat(uvs))
+
+
+@functools.lru_cache(maxsize=None)
+def _detect_layout(specs: tuple, cell: int):
+    """The host arguments of `orb_detect` for levels of `specs`: ctypes
+    arrays of the heights, widths, n_keep and float32 scales, the output
+    rows N, and the float32 buffer's offsets of the cells' winners and
+    winning indices (C each), xy [N,2], response [N] and uv [N,2] (each
+    16-byte aligned, as an allocation of its own would be), and its
+    length."""
+    n = len(specs)
+    cells = [(sp.height // cell) * (sp.width // cell) for sp in specs]
+    C = sum(cells)
+    N = sum(min(sp.n_keep, c) for sp, c in zip(specs, cells))
+    off, at = [], 0
+    for floats in (C, C, 2 * N, N, 2 * N):
+        off.append(at)
+        at += -(-floats // 4) * 4
+    return ((_I * n)(*[sp.height for sp in specs]),
+            (_I * n)(*[sp.width for sp in specs]),
+            (_I * n)(*[sp.n_keep for sp in specs]),
+            (_F * n)(*[float(sp.scale) for sp in specs]), N, off, at)
+
+
+def orb_detect(levels: Sequence[torch.Tensor], specs: Sequence[LevelSpec],
+               th_hi: float, th_lo: float, cell: int = 16,
+               border: int = EDGE) -> Detected:
+    """The ORB detector of a frame's pyramid `levels` (the image, then its
+    levels, as `specs` give them): every level's cell winners and each
+    level's n_keep best cells as keypoints.  CPU tensors take the plain
+    version; CUDA tensors launch csrc/orb_fast_grid.cu: two kernels a
+    frame, the cells' scratch and the float outputs in one allocation."""
+    if levels[0].device.type == "cpu":
+        return orb_detect_plain(levels, specs, th_hi, th_lo, cell, border)
+    _check_levels("orb_detect", levels, cell)
+    specs = tuple(specs)
+    if len(specs) != len(levels) or any(
+            (sp.height, sp.width) != tuple(im.shape)
+            for sp, im in zip(specs, levels)):
+        raise ValueError("orb_detect: a level of each spec's size")
+    hs, ws, keep, scales, N, off, n = _detect_layout(specs, cell)
+    dev = levels[0].device
+    buf = torch.empty(n, dtype=torch.float32, device=dev)
+    out = Detected(buf.as_strided((N, 2), (2, 1), off[2]),
+                   buf.as_strided((N,), (1,), off[3]),
+                   torch.empty(N, dtype=torch.bool, device=dev),
+                   torch.empty(N, dtype=torch.int32, device=dev),
+                   buf.as_strided((N, 2), (2, 1), off[4]))
+    at = buf.data_ptr()
+    ptrs = (_P * len(levels))(*[im.data_ptr() for im in levels])
+    ORB_FAST_GRID.launch(ptrs, hs, ws, len(levels), float(th_hi),
+                         float(th_lo), int(border), _P(at),
+                         _P(at + 4 * off[1]), keep, scales,
+                         _P(at + 4 * off[2]), _P(at + 4 * off[3]),
+                         cuda.ptr(out.valid), cuda.ptr(out.octave),
+                         _P(at + 4 * off[4]), cuda.stream(), kernels=2)
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -585,27 +689,14 @@ class OrbExtractor(nn.Module):
     def features(self, pyr: List[torch.Tensor]) -> Features:
         """Features of the image pyramid `pyr` (the image, then its
         levels)."""
-        fast = orb_fast_grid_plain if self.plain else orb_fast_grid
+        detect = orb_detect_plain if self.plain else orb_detect
         describe = orb_describe_plain if self.plain else orb_describe
-        xys, scores, valids, octs, scales = [], [], [], [], []
-        for lv, spec in enumerate(self.specs):
-            best, arg = fast(pyr[lv], self.ini_th, self.min_th, self.cell)
-            xy, score, valid = select_top_cells(
-                best, arg, spec.width // self.cell, spec.n_keep, self.cell)
-            xys.append(xy)
-            scores.append(torch.where(score > 1e4, score - 1e4, score))
-            valids.append(valid)
-            octs.append(torch.full((xy.shape[0],), lv, dtype=torch.int32,
-                                   device=pyr[0].device))
-            scales.append(spec.scale)
-        xy_all = torch.cat(xys)
-        octave = torch.cat(octs)
-        angle, desc = describe(pyr, xy_all, octave, self.taps, self.pattern,
+        d = detect(pyr, self.specs, self.ini_th, self.min_th, self.cell)
+        angle, desc = describe(pyr, d.xy, d.octave, self.taps, self.pattern,
                                self.wx, self.wy)
-        uv = torch.cat([xy * s for xy, s in zip(xys, scales)])
-        return Features(uv=uv, uv_und=uv, response=torch.cat(scores),
-                        angle=angle, octave=octave, desc=desc,
-                        valid=torch.cat(valids))
+        return Features(uv=d.uv, uv_und=d.uv, response=d.response,
+                        angle=angle, octave=d.octave, desc=desc,
+                        valid=d.valid)
 
 
 def extract_orb(img: torch.Tensor, specs: Tuple[LevelSpec, ...],

@@ -72,6 +72,25 @@ def test_orb_fast_grid_identical(dev, shape):
     assert FE.ORB_FAST_GRID.launches > 0
 
 
+@pytest.mark.parametrize("shape", [(480, 752), (120, 200), (37, 50)])
+def test_orb_detect_identical(dev, shape):
+    """The detector of every level in two launches (`orb_detect`) against
+    its plain path (`orb_detect_plain`: `orb_fast_grid_plain`,
+    `select_top_cells` and the glue a level) on the image's 8-level
+    pyramid at 1000 features: every output bit-equal, levels without a
+    whole cell included at (37, 50)."""
+    img = _image(0, *shape, dev)
+    specs = FE.make_level_specs(*shape)
+    pyr = FE.build_pyramid(img, specs)
+    n0 = FE.ORB_FAST_GRID.launches
+    k = FE.orb_detect(pyr, specs, 20.0, 7.0)
+    p = FE.orb_detect_plain(pyr, specs, 20.0, 7.0)
+    torch.cuda.synchronize()
+    for name in FE.Detected._fields:
+        assert torch.equal(getattr(k, name), getattr(p, name)), name
+    assert FE.ORB_FAST_GRID.launches == n0 + 2
+
+
 def test_orb_describe_matches_plain(dev):
     levels = [_image(1, 120, 200, dev), _image(2, 100, 167, dev)]
     rng = np.random.default_rng(3)
@@ -1185,6 +1204,23 @@ def test_schur_solve_global_path(dev, kind, n_kf):
     print(f"{kind} {n_kf} KF (S = {got.S}), kernel / plain from float64, "
           f"kernel - plain: {got.summary()}")
     assert not got.failures(), got.failures()
+
+
+@pytest.mark.parametrize("kind,n_kf", [("inertial", 30), ("points", 160)])
+def test_schur_solve_global_path_float32_orders(dev, kind, n_kf):
+    """The global path where `KN.global_solve_against_float64`'s rule
+    reads float32 rounding (its bg at 30 KF: kernel - plain 1.12e-4
+    against the plain step's 7.93e-5 from float64) and on a point-only
+    system whose rows do not fit the cluster's shared memory (160 KF, S =
+    960 dense, the rows read from the workspace): one Schur step held,
+    state by state, to `KN.against_float64`'s rule over the plain step's
+    `KN.FLOAT32_ORDERS` observation orders (within 2x their largest
+    distance to float64 + 1e-6, the same bits on three launches)."""
+    got = KN.global_step_against_float64(kind, n_kf, dev)
+    for name, out in got.items():
+        print(f"{kind} {n_kf} KF {name}: kernel {out['kernel']:.3e}, plain "
+              f"orders {[f'{x:.3e}' for x in out['plain_orders']]}")
+    assert not [out["failures"] for out in got.values() if out["failures"]]
 
 
 @pytest.mark.parametrize("kind,n_kf", [("inertial", 22), ("points", 37)])

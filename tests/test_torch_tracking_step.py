@@ -154,27 +154,17 @@ def test_entry_points_default_to_the_card(name):
         DEFAULTS_TO_CARD[name]()
 
 
-def test_port_never_loads_jax():
-    """The port, chip_smoke.py, the profile and the kernel digest load
-    neither JAX nor the JAX package while driving every entry point on the
-    CPU (the keyframe sequence at a reduced size: 15 keyframes of 128
-    features, through IMU init and the first inertial window; the tracked
-    sequence's first 7 frames at 300 features: the bootstrap on frame 2
-    or 3, then tracking; `System` through `mh_replay` on 3 frames of a
-    small hall; `track_stereo` through `stereo_replay` on 3 pairs of it
-    and `stereo_room` (with and without lines), `track_rgbd` through
-    `rgbd_room` (bf 0 and 40), `track_monocular` with the KB8 camera
-    through `kb8_room`, with the IMU and lines through `kb8_vi_replay`,
-    SLAM mode 3 through `line_mode_replay`, and the ED line detector with
-    the prior-map relocalizer through `ed_replay`, 3 frames each; the
-    relocalizer aligned on a hand-made live map of its prior set
-    (`inputs.place_prior_keyframes`); the mapping step of the KB8 camera;
-    the loop closer on the drifted circle, its global BA at 32
-    keyframes; one sharded inertial window of 8 keyframes on 2 shards
-    through `dist_window`, and `dist_replay` on 3 frames)."""
-    code = (
+# the entry points `test_port_never_loads_jax` drives, by group, each in
+# a process of its own (the code after `_NO_JAX_PRELUDE`)
+_NO_JAX_PRELUDE = (
         "import sys\n"
         "import torch\n"
+        "from plvio_tpu_torch.config import MapConfig, OrbConfig\n"
+        "small = dict(orb=OrbConfig(n_features=300), map=MapConfig("
+        "max_keyframes=16, max_points=2048, max_lines=256), caps=dict("
+        "ba_kf_cap=8, ba_pt_cap=512, ba_obs_cap=1024))\n")
+_NO_JAX_GROUPS = {
+    "frames": (
         "import chip_smoke\n"
         "import plvio_tpu_torch.profile_frames\n"
         "import plvio_tpu_torch.kernel_digest\n"
@@ -217,7 +207,8 @@ def test_port_never_loads_jax():
         "from plvio_tpu_torch.entry import bootstrap_step\n"
         "bs, BB = bootstrap_step(device='cpu')\n"
         "bo = bs(BB)\n"
-        "assert bo.init_frame >= 1 and bo.points >= 60 and bo.lines > 0\n"
+        "assert bo.init_frame >= 1 and bo.points >= 60 and bo.lines > 0\n"),
+    "sequences": (
         "from plvio_tpu_torch.entry import keyframe_sequence\n"
         "ks, S = keyframe_sequence(device='cpu', store=dict(max_kf=16, "
         "max_pts=2048, max_lines=512), caps=dict(ba_kf_cap=16, "
@@ -235,8 +226,8 @@ def test_port_never_loads_jax():
         "assert 2 <= to.init_frame <= 3 and to.n_tracked == 7 - "
         "to.init_frame\n"
         "assert to.keyframes >= 2 and min(f.inliers for f in "
-        "to.frames[to.init_frame + 1:]) > 30\n"
-        "from plvio_tpu_torch.config import MapConfig, OrbConfig\n"
+        "to.frames[to.init_frame + 1:]) > 30\n"),
+    "system": (
         "from plvio_tpu_torch.entry import mh_replay\n"
         "mr, MS = mh_replay(1.0, device='cpu', replay_kw=dict(n_points=500, "
         "n_lines=50, n_frames=3), orb=OrbConfig(n_features=300), "
@@ -248,9 +239,6 @@ def test_port_never_loads_jax():
         "assert mo.system.kfdb.db().present.sum() == mo.keyframes\n"
         "from plvio_tpu_torch.entry import rgbd_room, stereo_replay, "
         "stereo_room\n"
-        "small = dict(orb=OrbConfig(n_features=300), map=MapConfig("
-        "max_keyframes=16, max_points=2048, max_lines=256), caps=dict("
-        "ba_kf_cap=8, ba_pt_cap=512, ba_obs_cap=1024))\n"
         "sr, SS = stereo_replay(1.0, device='cpu', replay_kw=dict("
         "n_points=500, n_lines=50, n_frames=3), **small)\n"
         "so = sr(SS)\n"
@@ -264,7 +252,8 @@ def test_port_never_loads_jax():
         "from plvio_tpu_torch.entry import kb8_room\n"
         "kr, KS = kb8_room(3, device='cpu', **small)\n"
         "ko = kr(KS)\n"
-        "assert len(ko.frames) == 3 and ko.system.tracker.kb8 is not None\n"
+        "assert len(ko.frames) == 3 and ko.system.tracker.kb8 is not None\n"),
+    "modes": (
         "from plvio_tpu_torch.entry import kb8_vi_replay, "
         "line_mode_replay\n"
         "kv, KV = kb8_vi_replay(1.0, device='cpu', replay_kw=dict("
@@ -300,9 +289,11 @@ def test_port_never_loads_jax():
         "    rl.process_keyframe(kf, float(i))\n"
         "assert rl.T_prior_from_live is not None and "
         "len(rl.relocalized_poses) == 6\n"
+        "from plvio_tpu_torch.entry import mapping_step\n"
         "mk, MK = mapping_step(4, 256, 512, 128, 32, 64, device='cpu', "
         "kb8=True)\n"
-        "assert int(mk(MK).n_inliers) > 0\n"
+        "assert int(mk(MK).n_inliers) > 0\n"),
+    "loop_dist": (
         "from plvio_tpu_torch.entry import loop_closure\n"
         "lq, LI = loop_closure('circle', device='cpu', gba_caps=(32, 2048, "
         "4096))\n"
@@ -319,17 +310,43 @@ def test_port_never_loads_jax():
         "n_lines=50, n_frames=3), **small)\n"
         "dro = dr(DR)\n"
         "assert len(dro.frames) == 3 and "
-        "dro.system.mapper._dist_runner.D == 2\n"
-        "bad = sorted(m for m in sys.modules\n"
-        "             if m.split('.')[0] in ('jax', 'plvio_tpu'))\n"
-        "assert not bad, bad\n"
-        "print('no jax')\n")
+        "dro.system.mapper._dist_runner.D == 2\n"),
+}
+
+
+@pytest.mark.parametrize("group", sorted(_NO_JAX_GROUPS))
+def test_port_never_loads_jax(group):
+    """The port, chip_smoke.py, the profile and the kernel digest load
+    neither JAX nor the JAX package while driving every entry point on the
+    CPU, a group of them in a process of its own: `frames` (imports
+    chip_smoke, the profile and the kernel digest; the PL and VI frames,
+    the mapping step, the inertial window, IMU init, the neighbourhood
+    step, the bootstrap); `sequences` (the keyframe sequence at a reduced
+    size: 15 keyframes of 128 features, through IMU init and the first
+    inertial window; the tracked sequence's first 7 frames at 300
+    features: the bootstrap on frame 2 or 3, then tracking); `system`
+    (`System` through `mh_replay` on 3 frames of a small hall;
+    `track_stereo` through `stereo_replay` on 3 pairs of it and
+    `stereo_room` (with and without lines), `track_rgbd` through
+    `rgbd_room` (bf 0 and 40), `track_monocular` with the KB8 camera
+    through `kb8_room`); `modes` (with the IMU and lines through
+    `kb8_vi_replay`, SLAM mode 3 through `line_mode_replay`, and the ED
+    line detector with the prior-map relocalizer through `ed_replay`, 3
+    frames each; the relocalizer aligned on a hand-made live map of its
+    prior set (`inputs.place_prior_keyframes`); the mapping step of the
+    KB8 camera); `loop_dist` (the loop closer on the drifted circle, its
+    global BA at 32 keyframes; one sharded inertial window of 8 keyframes
+    on 2 shards through `dist_window`, and `dist_replay` on 3 frames)."""
+    code = (_NO_JAX_PRELUDE + _NO_JAX_GROUPS[group]
+            + "bad = sorted(m for m in sys.modules\n"
+            "             if m.split('.')[0] in ('jax', 'plvio_tpu'))\n"
+            "assert not bad, bad\n"
+            "print('no jax')\n")
     env = {k: v for k, v in os.environ.items()
            if k not in ("PLVIO_MATMUL_PRECISION", "PYTHONSTARTUP")}
     env["PYTHONPATH"] = str(REPO)
     # one thread: the suite's workers already share the cores, and torch's
-    # default of one thread per core then thrashes (this run takes ~14 s
-    # alone either way)
+    # default of one thread per core then thrashes
     env["OMP_NUM_THREADS"] = "1"
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                        env=env, capture_output=True, text=True, timeout=300)
