@@ -44,7 +44,11 @@ exit, no result line) unless every phase passes:
    every level of the 16 frames, its ms and device ms a frame;
    `schur_solve`'s global path at 64 KF inertial and 128 KF point-only by
    `KN.global_solve_against_float64`'s rule, its time by stage and the
-   fill-in's `torch.mm` on the dense operand beside it);
+   fill-in's `torch.mm` on the dense operand beside it; slice 19's
+   `line_detect` with both levels in one call bit-equal to one call a
+   level and timed as one call (the gradient stage by `conv2d` beside
+   it), it and `vi_pose_lm` (stereo, a NaN prior) at PARENT_DIGESTS, the
+   kernels' bits before their redesign);
 4. slice 1, `tracking_step_pl`: 16 synthetic frames with the pose carried,
    >= 80 inliers, camera centre <= 10 mm and rotation <= 0.3 deg from
    ground truth on every frame, every kernel of the path launched; the
@@ -59,7 +63,7 @@ exit, no result line) unless every phase passes:
    relative of it;
 6. CUDA-event times per frame of both frames (kernel and plain paths) and
    per kernel beside its plain version, with the card's name and power
-   limit;
+   limit; `line_detect`'s and `vi_pose_lm`'s calls a frame;
 7. slice 3, `mapping_step`, at both sizes: from the true start the
    triangulated and inlier counts within 1% of the JAX reference run on
    the CPU (REF_MAP below), from the perturbed start
@@ -304,6 +308,7 @@ import numpy as np
 import torch
 
 from plvio_tpu_torch import cuda
+from plvio_tpu_torch import kernel_digest as KD
 from plvio_tpu_torch.config import CameraConfig, ImuConfig
 from plvio_tpu_torch.entry import (K_EUROC, LIBA_HALF, LIBA_WORST,
                                    MAPPING_TYPICAL, MAPPING_WORST,
@@ -579,7 +584,21 @@ PARENT_DIGESTS = {
     "hamming_match line": "00b9cec0d480e37091a5502e60b7a0c3",
     "hamming_match epipolar": "7e81bfa9c6443682a347dcfab4f64f21",
     "pose_irls mono n_lines=0": "2b87e410ad469cec8feef728b7891294",
-    "pose_irls mono n_lines=64": "e72396e61c8ec2f03f7e6ce7be602589"}
+    "pose_irls mono n_lines=64": "e72396e61c8ec2f03f7e6ce7be602589",
+    # the two kernels redesigned in slice 19, on the kernels before it
+    # (kernel_digest.py's `ed` and `slice19` modes, the stereo VI case):
+    # the redesign keeps every bit
+    "vi_pose_lm stereo have_prior=True": "fee3602579827a00d96a65ede7505daa",
+    "vi_pose_lm stereo have_prior=False": "e748b89f234ebab035c4d8ba0162fada",
+    "vi_pose_lm nan_prior have_prior=True": "a97a835666220fe57a456e3bebe344e1",
+    "line_detect level=0": "548bcb898ec742bac683a5a282cb9208",
+    "line_detect level=1": "e19e562cb2f6620920f02faa7d364d2c",
+    "line_detect_ed level=0": "2f72c9bf43c94b16a079af0744a24e6a",
+    "line_detect_ed level=1": "06e2324b7407c6db86fcbd2fce6af0a0",
+    "line_detect 480x752 n=192": "24ec7ea3814d46fad4a9457c7a9b4f3c",
+    "line_detect 240x376 n=64": "a47e48c7a19786073da004a3ac416403",
+    "line_detect 237x411 n=192": "fcd842cbf1a426c6bb2022181a220af9",
+    "line_detect 118x205 n=64": "cd913977fab1ce4c1c44a85e63ffd9a1"}
 PATH_STEREO = ("pyramid", "pyramid_line", "orb_fast_grid", "orb_describe",
                "line_detect", "line_refine_lbd", "hamming_match", "rot_hist",
                "triangulate", "line_triangulate", "imu_preint", "proj_match",
@@ -1082,14 +1101,39 @@ def check_line_kernels(img, report):
         LN.LineExtractor(N_LINE).to(img.device)(img)
     check(all(torch.equal(x, y) for x, y in zip(lk1, lk2)),
           "line kernels: two runs of the pyramid give identical outputs")
+    ims, ns = [im for im, _ in levels], [n for _, n in levels]
+    both = LN.line_detect_levels(ims, ns)
+    one = [LN.line_detect(im, n) for im, n in levels]
+    check(all(KD.digest(KD._flat(a)) == KD.digest(KD._flat(b))
+              for a, b in zip(both, one)),
+          "line_detect: both levels in one call bit-equal to one call a "
+          "level")
     # bf16 Scharr (2 x 9 products), the cell structure tensors, links and
-    # components: ~60 operations a pixel
+    # components: ~60 operations a pixel.  Timed as the frame path calls
+    # it: both levels in one call (two launches); the library call beside
+    # it computes the gradient stage alone (`_gradients`, the Scharr taps
+    # by conv2d in float32, TF32 off), both levels
+    k2 = torch.tensor([[-3., 0., 3.], [-10., 0., 10.], [-3., 0., 3.]],
+                      device=img.device) / 32.0
+    k2 = torch.stack([k2, k2.T])[:, None]
+    xs = [im.to(torch.bfloat16).float()[None, None] for im in ims]
+    conv = torch.nn.functional.conv2d
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        grad_ms = cuda_ms(lambda: [conv(x, k2, padding=1) for x in xs])
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
     report["line_detect"] = dict(
         **work(nbytes(img, img1) + det_out, 60 * (img.numel() + img1.numel())),
         max_abs_err=det_err,
-        ms=cuda_ms(lambda: [LN.line_detect(im, n) for im, n in levels]),
+        ms=cuda_ms(lambda: LN.line_detect_levels(ims, ns)),
         plain_ms=cuda_ms(lambda: [LN.detect_lines(im, n)
-                                  for im, n in levels], reps=5))
+                                  for im, n in levels], reps=5),
+        extra=dict(gradients_conv2d_ms=grad_ms))
+    print(f"  line_detect both levels {report['line_detect']['ms']:.4f} ms "
+          f"a frame (one call, two launches); the gradient stage alone by "
+          f"conv2d {grad_ms:.4f} ms")
     dp0, dp1 = dets
     f0 = LN.refine_lbd_plain(dp0[4][0], dp0[4][1], dp0[0], dp0[3], pairs)
 
@@ -1184,6 +1228,11 @@ def check_vi_kernels(step, img, carry, xs, st, report):
         check(hrel <= 1e-3, f"vi_pose_lm have_prior={hp}: H15 within 1e-3 "
               "relative Frobenius")
         worst_err = max(worst_err, float((ok_[0] - op_[0]).abs().max()))
+    check_parent_digests_19(img.device)
+    nan = KD.vi_nan_case(img.device)
+    nan_ms = cuda_ms(lambda: KN.vi_pose_lm(*nan, True), reps=5, warmup=1)
+    print(f"  vi_pose_lm: the NaN prior (every LM iteration runs) "
+          f"{nan_ms:.4f} ms")
     # per LM iteration (the plain version's count on the same data): the
     # linearization and the cost of every edge (~250 operations each),
     # then the 30x30 factorization
@@ -1193,7 +1242,20 @@ def check_vi_kernels(step, img, carry, xs, st, report):
                sum(lm_iters) * (250 * cap + 2 * 30 ** 3)),
         max_abs_err=worst_err, ms=cuda_ms(lambda: KN.vi_pose_lm(*case, True)),
         plain_ms=cuda_ms(lambda: KN.vi_pose_opt_plain(*case, True), reps=3,
-                         warmup=1))
+                         warmup=1), extra=dict(nan_prior_ms=nan_ms))
+
+
+def check_parent_digests_19(dev):
+    """vi_pose_lm (stereo, NaN prior) and line_detect (a rendered room
+    view, frame 1 of `inputs.build_inputs(2)`, their line levels, an
+    odd-size crop) and line_detect_ed give the bits of the kernels before
+    slice 19's redesign (kernel_digest.py's lines)."""
+    lines = (KD.vi_stereo_digests(dev) + KD.ed_digests(dev)
+             + KD.slice19_digests(dev))
+    got = dict(line.rsplit(" ", 1) for line in lines)
+    bad = sorted(k for k, v in got.items() if v != PARENT_DIGESTS[k])
+    check(not bad, "vi_pose_lm (stereo, NaN prior), line_detect and "
+          f"line_detect_ed give the parent's digests (differ: {bad})")
 
 
 def perturbed_window(A):
@@ -4122,7 +4184,7 @@ def check_mono_digests():
     for nl in (0, 64):
         got[f"pose_irls mono n_lines={nl}"] = KD.digest(
             KN.pose_irls(*KD.pose_case(dev, nl)))
-    bad = [k for k, v in PARENT_DIGESTS.items() if got[k] != v]
+    bad = [k for k, v in got.items() if v != PARENT_DIGESTS[k]]
     check(not bad, "the mono calls of vi_pose_lm, pose_irls and "
           f"hamming_match's modes 0-2 give the mono-only tree's digests "
           f"(differ: {bad})")
@@ -6521,6 +6583,16 @@ def run_phases(dev, smi, render):
     vk = cuda_ms(lambda: run_vi(vi), reps=3, warmup=1) / (N_FRAMES - 1)
     print(f"  tracking_step_vi: kernel path {vk:.3f} ms/frame, plain path "
           f"{vp:.3f} ms/frame (phase 5's run), on {smi}")
+    ld, vl = report["line_detect"], report["vi_pose_lm"]
+    n_vi = N_FRAMES - 1
+    print(f"  line_detect: {launches_pl['line_detect'] / N_FRAMES:g} calls "
+          f"a point+line frame, {launches_vi['line_detect'] / n_vi:g} a VI "
+          f"frame (both pyramid levels, two launches a call), "
+          f"{ld['ms']:.4f} ms a call; vi_pose_lm: "
+          f"{launches_vi['vi_pose_lm'] / n_vi:g} a VI frame, "
+          f"{vl['ms']:.4f} ms on frame 1's case, "
+          f"{vl['extra']['nan_prior_ms']:.4f} ms with every LM iteration "
+          f"(a NaN prior), on {smi}")
 
     launches_map = run_slice3(dev, step, imgs, pose0, map_args, smi)
     launches_liba = run_slice4(dev, smi)

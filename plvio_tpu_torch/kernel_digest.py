@@ -85,6 +85,24 @@ points both trees have) and compare the printed lines:
   128 KF point-only, 64 KF inertial with the KB8 lens).
 - `orb_detect` (not digests): the ORB detector's time and launches a
   frame on a rendered 480 x 752 frame's eight levels (`orb_detect_times`).
+- `slice19` (on every tree; in the default mode too): `vi_pose_lm` on
+  `vi_case` with a NaN prior information, with the prior (every LM
+  iteration runs, as on the VI frames from frame 2: the reference's
+  carried H15 is NaN there), and `line_detect` on frame 1 of
+  `inputs.build_inputs(2)` (480 x 752), its line level and the odd-size
+  crop 237 x 411 of it with its line level (`slice19_digests`).
+- `vi_stages` (not digests; a tree beside another): `vi_pose_lm`'s ms a
+  call by CUDA events and its device time by stage from the kernel's
+  `%globaltimer` stamps (`prof=`: point passes, dense terms, solve and
+  retraction, final linearization, Jacobi and marginalization, set-up,
+  re-gating) with the LM iterations run, on `vi_case` (mono and stereo,
+  with and without the prior) and on the VI frame of `profile_frames`
+  whose carried prior is NaN, where every iteration runs
+  (`vi_stage_times`).
+- `line_stages` (not digests): the cell line detector on both levels of a
+  rendered 480 x 752 frame: ms a frame by CUDA events, the host's enqueue,
+  the card's time by torch.profiler kernel name, kernels a frame, and the
+  host's calls by name (`line_stage_times`).
 
 - slice 15 (`python3 kernel_digest.py window` prints the single-device
   window BAs' lines alone, on every tree: `window_digests`, whose bits
@@ -277,11 +295,17 @@ def stereo_digests(dev):
         args = pose_case(dev, nl, stereo=True)
         out.append(f"pose_irls stereo n_lines={nl} " + digest(
             KN.pose_irls(*args[:-1], ur=args[-1], bf=bf)))
+    return out + vi_stereo_digests(dev)
+
+
+def vi_stereo_digests(dev):
+    """`vi_pose_lm`'s stereo lines: the VI case with a u_R column on two
+    thirds of its points, with and without the prior."""
+    from plvio_tpu_torch.models import kernels as KN
     case = vi_case(dev, stereo=True)
-    for hp in (True, False):
-        out.append(f"vi_pose_lm stereo have_prior={hp} " + digest(
-            KN.vi_pose_lm(*case[:-1], hp, ur=case[-1], bf=bf)))
-    return out
+    return [f"vi_pose_lm stereo have_prior={hp} " + digest(
+        KN.vi_pose_lm(*case[:-1], hp, ur=case[-1], bf=0.11 * 458.654))
+        for hp in (True, False)]
 
 
 def stereo_lm_case(dev):
@@ -538,6 +562,18 @@ def main() -> int:
         for line in global_digests(torch.device("cuda")):
             print(line, flush=True)
         return 0
+    if sys.argv[1:2] == ["slice19"]:
+        for line in slice19_digests(torch.device("cuda")):
+            print(line, flush=True)
+        return 0
+    if sys.argv[1:2] == ["vi_stages"]:
+        for line in vi_stage_times(torch.device("cuda")):
+            print(line, flush=True)
+        return 0
+    if sys.argv[1:2] == ["line_stages"]:
+        for line in line_stage_times(torch.device("cuda")):
+            print(line, flush=True)
+        return 0
     if sys.argv[1:2] == ["orb_detect"]:
         for line in orb_detect_times(torch.device("cuda")):
             print(line, flush=True)
@@ -605,6 +641,8 @@ def main() -> int:
         for line in slice13_digests(dev):
             print(line)
     for line in ed_digests(dev):
+        print(line)
+    for line in slice19_digests(dev):
         print(line)
     return 0
 
@@ -845,6 +883,199 @@ def orb_detect_times(dev, reps: int = 50):
                f"{fm - dm:.4f} ms (events), device {fb - db:.4f} ms, "
                f"{fn_ - dn:g} kernels a frame on {smi}")
     return out
+
+
+def vi_nan_case(dev):
+    """`vi_case` with a NaN prior information (the reference's carried
+    H15 from frame 2 on): its Cholesky is NaN, every step is rejected and
+    every LM iteration runs."""
+    case = vi_case(dev)
+    case[-1] = torch.full((15, 15), float("nan"), device=dev)
+    return case
+
+
+def line_frames(dev):
+    """[(name, image, n)] of `slice19_digests`' line cases: frame 1 of
+    `inputs.build_inputs(2)`, its line level, the crop 237 x 411 and its
+    line level."""
+    from plvio_tpu_torch.inputs import build_inputs
+    from plvio_tpu_torch.ops import frontend as FE
+    img = torch.from_numpy(build_inputs(2, device=dev)[0][1]).to(dev)
+    crop = img[:237, :411].contiguous()
+    return [("480x752", img, 192), ("240x376", FE.line_level(img), 64),
+            ("237x411", crop, 192), ("118x205", FE.line_level(crop), 64)]
+
+
+def slice19_digests(dev):
+    """PR 19's lines (see the module docstring)."""
+    from plvio_tpu_torch.models import kernels as KN
+    return [f"vi_pose_lm nan_prior have_prior=True "
+            f"{digest(KN.vi_pose_lm(*vi_nan_case(dev), True))}"] \
+        + line_digests(dev)
+
+
+def line_digests(dev):
+    """`line_detect` on `line_frames`' cases."""
+    from plvio_tpu_torch.ops import lines as LN
+    return [f"line_detect {name} n={n} "
+            + digest(_flat(LN.line_detect(im, n)))
+            for name, im, n in line_frames(dev)]
+
+
+def _events_ms(fn, reps: int) -> float:
+    """ms a call of fn by CUDA events over `reps` calls after 5."""
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def vi_frame_case(dev, frame: int = 4):
+    """The VI optimizer's arguments (as `vi_case` gives them) on frame
+    `frame` of `profile_frames`' VI pass (16 rendered frames, the
+    carry from frame 1): from frame 2 the carried prior is NaN, so the
+    early exit never fires and every LM iteration runs."""
+    from plvio_tpu_torch import entry as E
+    from plvio_tpu_torch.inputs import build_imu_windows, build_inputs
+    from plvio_tpu_torch.state import from_numpy
+    (frames, _, pt_xyz, pt_desc, pt_valid, ln_ep6, ln_desc, ln_valid,
+     traj) = build_inputs(16, 2048, 128, 480, 752, n_features=1000,
+                          device=dev)
+    st = from_numpy(dict(pt_xyz=pt_xyz, pt_desc=pt_desc, pt_valid=pt_valid,
+                         ln_ep6=ln_ep6, ln_desc=ln_desc, ln_valid=ln_valid),
+                    dev)
+    map_args = tuple(st[k] for k in ("pt_xyz", "pt_desc", "pt_valid",
+                                     "ln_ep6", "ln_desc", "ln_valid"))
+    gyro, acc, dts, carry = build_imu_windows(traj, 16)
+    carry = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                  for a in carry)
+    vi, _ = E.tracking_step_vi(480, 752, 1000, 2048, 256, device=dev)
+    got = []
+    run = vi.vi_opt
+    vi.vi_opt = lambda *a: got.append(a) or run(*a)
+    with torch.no_grad():
+        for i in range(1, frame + 1):
+            xs = tuple(torch.from_numpy(a[i - 1]).to(dev)
+                       for a in (gyro, acc, dts))
+            carry, _ = vi(carry, (torch.from_numpy(frames[i]).to(dev), *xs),
+                          *map_args)
+    a = got[-1]
+    return [E.K_EUROC, torch.eye(3, device=dev), torch.zeros(3, device=dev),
+            9.81, *a[:4], a[4][:, :2].contiguous(), *a[5:15]], a[15]
+
+
+def vi_stage_times(dev, reps: int = 50):
+    """Lines of `vi_pose_lm`'s time a call (events) and by stage (the
+    kernel's stamps, mean over `reps` calls) on `vi_case` and on
+    `vi_frame_case`."""
+    from plvio_tpu_torch.models import kernels as KN
+    smi = _nvidia_smi()
+    bf = 0.11 * 458.654
+    mono, stereo = vi_case(dev), vi_case(dev, stereo=True)
+    frame, frame_hp = vi_frame_case(dev)
+    cases = [(f"vi_case mono have_prior={hp}", mono, hp, {})
+             for hp in (True, False)]
+    cases += [(f"vi_case stereo have_prior={hp}", stereo[:-1], hp,
+               dict(ur=stereo[-1], bf=bf)) for hp in (True, False)]
+    cases.append((f"VI frame 4 (NaN prior) have_prior={frame_hp}", frame,
+                   frame_hp, {}))
+    out = []
+    for name, args, hp, kw in cases:
+        ms = _events_ms(lambda: KN.vi_pose_lm(*args, hp, **kw), reps)
+        if not hasattr(KN, "VI_STAGES"):          # a tree without stamps
+            out.append(f"vi_pose_lm {name}: {ms:.4f} ms (events) on {smi}")
+            continue
+        parts = getattr(KN, "VI_PARTS", ())
+        n = len(KN.VI_STAGES)
+        prof = torch.zeros(n + 1 + len(parts), dtype=torch.int64, device=dev)
+        acc = torch.zeros_like(prof)
+        for _ in range(reps):
+            KN.vi_pose_lm(*args, hp, **kw, prof=prof)
+            acc += prof
+        a = (acc.double() / reps).tolist()
+        total = sum(a[:n]) / 1e6
+        out.append(f"vi_pose_lm {name}: {ms:.4f} ms (events), stamped "
+                   f"{total:.4f} ms: " + ", ".join(
+                       f"{k} {t / 1e6:.4f}" for k, t in zip(KN.VI_STAGES, a))
+                   + f"; {a[n]:g} LM iterations" + ("; parts: " + ", ".join(
+                       f"{k} {t / 1e6:.4f}" for k, t in zip(parts, a[n + 1:]))
+                       if parts else "") + f" on {smi}")
+    return out
+
+
+def line_stage_times(dev, reps: int = 50):
+    """The cell line detector on both levels of frame 1 of
+    `inputs.build_inputs` (480 x 752, level 1 by `line_level`): ms a frame
+    by CUDA events, the host's enqueue ms a frame (host clock over `reps`
+    frames before a synchronize), the card's ms by kernel name and the
+    kernels a frame (torch.profiler), and the host's calls with the most
+    self time a frame (the CPU side of the same trace)."""
+    from torch.profiler import ProfilerActivity, profile
+    import time
+    from plvio_tpu_torch.inputs import build_inputs
+    from plvio_tpu_torch.ops import frontend as FE
+    from plvio_tpu_torch.ops import lines as LN
+    img = torch.from_numpy(build_inputs(2, device=dev)[0][1]).to(dev)
+    img1 = FE.line_level(img)
+    both = getattr(LN, "line_detect_levels", None)
+    stages = ""
+    if both is not None:
+        def frame():
+            both([img, img1], [192, 64])
+        prof = torch.zeros(len(LN.LINE_STAGES) + 3, dtype=torch.int64,
+                           device=dev)
+        acc = torch.zeros_like(prof)
+        for _ in range(reps):
+            both([img, img1], [192, 64], prof=prof)
+            acc += prof
+        a = (acc.double() / reps).tolist()
+        n = len(LN.LINE_STAGES)
+        stages = ("  components' level-0 block by stage (ms, stamps): "
+                  + ", ".join(f"{k} {t / 1e6:.4f}" for k, t in zip(
+                      LN.LINE_STAGES, a)) + f"; level-1 block "
+                  f"{a[n] / 1e6:.4f}; level 0: {a[n + 1]:g} labels in use, "
+                  f"{a[n + 2]:g} good roots")
+    else:
+        def frame():
+            LN.line_detect(img, 192)
+            LN.line_detect(img1, 64)
+    smi = _nvidia_smi()
+    ms = _events_ms(frame, reps)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        frame()
+    host = (time.perf_counter() - t) * 1e3 / reps
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            frame()
+        torch.cuda.synchronize()
+    cu = torch.autograd.DeviceType.CUDA
+    dev_ev = sorted((e for e in prof.key_averages() if e.device_type == cu),
+                    key=lambda e: -e.self_device_time_total)
+    busy = sum(e.self_device_time_total for e in dev_ev) / reps / 1e3
+    n_k = sum(e.count for e in dev_ev) / reps
+    host_ev = sorted((e for e in prof.key_averages() if e.device_type != cu
+                      and e.self_cpu_time_total > 0),
+                     key=lambda e: -e.self_cpu_time_total)
+    return [f"line_detect both levels (n 192 + 64): {ms:.4f} ms a frame "
+            f"(events), host enqueue {host:.4f} ms a frame, device "
+            f"{busy:.4f} ms, {n_k:g} kernels a frame on {smi}",
+            "  device by kernel (ms a frame, launches a frame): " + ", ".join(
+                f"{e.key[:48]} {e.self_device_time_total / reps / 1e3:.4f} "
+                f"x{e.count / reps:g}" for e in dev_ev),
+            "  host by call (self ms a frame, calls a frame): " + ", ".join(
+                f"{e.key[:40]} {e.self_cpu_time_total / reps / 1e3:.4f} "
+                f"x{e.count / reps:g}" for e in host_ev[:14])] + (
+                    [stages] if stages else [])
 
 
 def _nvidia_smi() -> str:

@@ -710,7 +710,13 @@ def vi_pose_opt_plain(K: PinholeK, Rcb, tcb, gravity: float, pose_wb0, v0,
 
 
 _VI_POSE_LM_ARGS = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F,
-                    _F, _F, _F, _F, _P, _P, _P, _P]
+                    _F, _F, _F, _F, _P, _P, _P, _P, _P]
+# `vi_pose_lm(..., prof=)`: ns by stage in this order, then the LM
+# iterations run, then ns by part (parts overlap the stages: the dense
+# warps' terms, the solve's pieces; csrc/vi_pose_lm.cu kStages, kParts)
+VI_STAGES = ("points", "dense", "solve", "final", "marg", "init", "regate")
+VI_PARTS = ("inertial_eval", "inertial_whiten", "prior_eval",
+            "prior_whiten", "cholesky", "forward", "back", "retract")
 # one library entry; the launches with the stereo term are counted apart
 VI_POSE_LM = cuda.Kernel("vi_pose_lm", "vi_pose_lm", _VI_POSE_LM_ARGS)
 VI_POSE_LM_STEREO = cuda.Kernel("vi_pose_lm", "vi_pose_lm",
@@ -725,12 +731,15 @@ def vi_pose_lm(K: PinholeK, Rcb, tcb, gravity: float, pose_wb0, v0, bg0,
                ba0, uv, X, valid, is2, prev_pose_wb, prev_v, pre_const,
                imu_info, bias_rw_info, prior_const, prior_info,
                have_prior: bool, rounds: int = 3, iters: int = 6, ur=None,
-               bf: float = 0.0):
+               bf: float = 0.0, prof=None):
     """VI pose optimization of the tracked frame, see `vi_pose_opt_plain`
     (mono, or with ur [cap] and bf > 0 the stereo term).  CPU tensors take
     the plain version; CUDA tensors launch csrc/vi_pose_lm.cu, which runs
     every round, LM iteration, early exit and the marginalization on the
-    device (no host sync)."""
+    device (no host sync).  `prof` (an int64 CUDA tensor of
+    len(VI_STAGES) + 1 + len(VI_PARTS)) receives the kernel's nanoseconds
+    by stage of `VI_STAGES`, the LM iterations run and the nanoseconds by
+    part of `VI_PARTS`."""
     if pose_wb0.device.type == "cpu":
         return vi_pose_opt_plain(K, Rcb, tcb, gravity, pose_wb0, v0, bg0,
                                  ba0, uv, X, valid, is2, prev_pose_wb,
@@ -765,6 +774,12 @@ def vi_pose_lm(K: PinholeK, Rcb, tcb, gravity: float, pose_wb0, v0, bg0,
     if cap > 32768:
         raise ValueError("vi_pose_lm: the edge gates of cap rows must fit "
                          "in shared memory (cap <= 32768)")
+    if prof is not None:
+        cuda.check_cuda("vi_pose_lm", state, prof)
+        if prof.dtype != torch.int64 or prof.shape != (
+                len(VI_STAGES) + 1 + len(VI_PARTS),):
+            raise ValueError("vi_pose_lm: prof int64 [len(VI_STAGES) + 1 + "
+                             "len(VI_PARTS)]")
     out = torch.empty(21 + 225, dtype=f32, device=dev)
     inlier = torch.empty(cap, dtype=torch.bool, device=dev)
     n_inl = torch.empty((), dtype=torch.int32, device=dev)
@@ -774,7 +789,8 @@ def vi_pose_lm(K: PinholeK, Rcb, tcb, gravity: float, pose_wb0, v0, bg0,
         int(have_prior), rounds, iters, K.fx, K.fy, K.cx, K.cy,
         float(gravity), float(math.sqrt(CHI2_MONO)), float(bf),
         float(math.sqrt(CHI2_STEREO)), cuda.ptr(out), cuda.ptr(inlier),
-        cuda.ptr(n_inl), cuda.stream())
+        cuda.ptr(n_inl), None if prof is None else cuda.ptr(prof),
+        cuda.stream())
     pose = out[:12].view(3, 4)
     return (pose, out[12:15], out[15:18], out[18:21], inlier, n_inl,
             out[21:].view(15, 15))
@@ -793,15 +809,24 @@ def make_vi_pose_optimizer(K: PinholeK, cap: int, Rcb, tcb, gravity: float,
     fn = vi_pose_opt_plain if plain else vi_pose_lm
     Rcb = torch.as_tensor(np.asarray(Rcb, np.float32))
     tcb = torch.as_tensor(np.asarray(tcb, np.float32))
+    on_dev = {}
+
+    def extrinsics(dev):
+        # moved once a device and without blocking: a blocking copy from
+        # pageable host memory synchronizes the host with the card
+        c = on_dev.get(dev)
+        if c is None:
+            c = on_dev[dev] = (Rcb.to(dev, non_blocking=True),
+                               tcb.to(dev, non_blocking=True))
+        return c
 
     def run(pose_wb0, v0, bg0, ba0, uvr, X, valid, is2, prev_pose_wb,
             prev_v, pre_const, imu_info, bias_rw_info, prior_const,
             prior_info, have_prior):
-        dev = pose_wb0.device
-        return fn(K, Rcb.to(dev), tcb.to(dev), gravity, pose_wb0, v0, bg0,
-                  ba0, uvr[:, :2].contiguous(), X, valid, is2, prev_pose_wb,
-                  prev_v, pre_const, imu_info, bias_rw_info, prior_const,
-                  prior_info, have_prior, rounds, iters,
+        return fn(K, *extrinsics(pose_wb0.device), gravity, pose_wb0, v0,
+                  bg0, ba0, uvr[:, :2].contiguous(), X, valid, is2,
+                  prev_pose_wb, prev_v, pre_const, imu_info, bias_rw_info,
+                  prior_const, prior_info, have_prior, rounds, iters,
                   ur=uvr[:, 2].contiguous() if bf > 0 else None, bf=bf)
     return run
 

@@ -5,7 +5,8 @@ connected components), the ED detector (detector 1, the reference's
 collinear merge, sub-pixel refit, banded LBD, 2-level pyramid.
 
 Three hand-written CUDA kernels carry a level on the card: `line_detect`
-(csrc/line_detect.cu: gradients, cells, links, components, top-K) or
+(csrc/line_detect.cu: gradients, cells, links, components, top-K; one
+call for both levels of a frame, `line_detect_levels`) or
 `line_detect_ed` (csrc/line_detect_ed.cu: gradients, anchors, walks, fit,
 suppression, top-K), then `line_refine_lbd` (csrc/line_refine_lbd.cu:
 merge, refit, angle, LBD, line equation, level-1 dedupe).  The plain
@@ -704,16 +705,133 @@ def refine_lbd_plain(gx, gy, ep, valid, pairs, level0=None) -> LineFeatures:
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# one host call a frame: both levels in two launches (cells, then
+# components and top-K), counted once
 LINE_DETECT = cuda.Kernel("line_detect", "line_detect",
-                          [_P, _I, _I, _F, _I, _F, _F, _F, _F, _I]
-                          + [_P] * 8 + [_P])
-LINE_DETECT_GATHER = cuda.Kernel("line_detect", "line_detect_gather",
-                                 [_P, _I, _P, _P, _P, _P, _P, _P, _P])
+                          [_P, _I, _F, _I, _F, _F, _F, _F, _I, _P, _P])
 LINE_REFINE_LBD = cuda.Kernel("line_refine_lbd", "line_refine_lbd",
                               [_P, _P, _I, _I, _P, _P, _I, _P, _P, _P, _P,
                                _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I,
                                _P])
 _SMEM_MAX = 232448          # bytes of shared memory a block may use
+# `line_detect_levels(..., prof=)`: the level-0 block's ns by stage in this
+# order, then the level-1 block's whole time, the level-0 rows (labels in
+# use) and good roots (csrc/line_detect.cu kStages)
+LINE_STAGES = ("init", "sweeps", "rows", "sums", "tail", "sort", "write")
+
+
+class _Level(ctypes.Structure):
+    """csrc/line_detect.cu `Level`: one level's image, workspace and
+    outputs."""
+    _fields_ = ([("img", _P), ("H", _I), ("W", _I), ("n", _I)]
+                + [(k, _P) for k in ("cell", "atom", "links", "rowmap",
+                                     "comp", "score", "label", "gx", "gy",
+                                     "ep", "ang", "length", "valid")])
+
+
+_WORKSPACE = {}
+
+
+def _workspace(shapes, dev: torch.device, stream: int):
+    """The detector's scratch for levels of these shapes on this device
+    and stream, allocated at the first call and reused: per level the
+    cells' (wsum, cx, cy), atoms, links and each label's row, and a row
+    for each label in use (at most cells + 1): fit, score, label.
+    Returns (the tensors, the kernel's `_Level` array with their pointers
+    and the shapes set; each call sets its image, n and outputs)."""
+    key = (shapes, dev, stream)
+    ws = _WORKSPACE.get(key)
+    if ws is None:
+        keep, levels = [], (_Level * len(shapes))()
+        for L, (H, W) in zip(levels, shapes):
+            C = (H // CELL_PX) * (W // CELL_PX)
+            t = dict(cell=torch.empty(C, 3, device=dev),
+                     atom=torch.empty(C, dtype=torch.uint8, device=dev),
+                     links=torch.empty(C, dtype=torch.uint8, device=dev),
+                     rowmap=torch.empty(C, dtype=torch.int32, device=dev),
+                     comp=torch.empty(C + 1, 6, device=dev),
+                     score=torch.empty(C + 1, device=dev),
+                     label=torch.empty(C + 1, dtype=torch.int32, device=dev))
+            L.H, L.W = H, W
+            for k, v in t.items():
+                setattr(L, k, v.data_ptr())
+            keep.append(t)
+        ws = _WORKSPACE[key] = (keep, levels)
+    return ws
+
+
+def detect_levels_plain(imgs, ns, **kw):
+    """Plain version of `line_detect_levels`: `detect_lines` a level."""
+    return [detect_lines(im, n, **kw) for im, n in zip(imgs, ns)]
+
+
+def line_detect_levels(imgs, ns, grad_th: float = 12.0, min_cells: int = 3,
+                       aniso_th: float = 4.0, angle_tol: float = 0.12,
+                       dist_tol: float = 1.5, min_length: float = 12.0,
+                       jump_iters: int = 7, prof=None):
+    """`detect_lines` on each of 1 or 2 images (a frame's pyramid levels,
+    `ns[l]` segments at level l) through csrc/line_detect.cu in one host
+    call: two launches for all levels, the workspace kept between calls
+    (CPU tensors take the plain version).  Returns a list of (ep [L,4],
+    angle [L], length [L], valid [L], (gx, gy) bf16), L = min(ns[l],
+    cells).  `prof` (an int64 CUDA tensor of len(LINE_STAGES) + 3)
+    receives the level-0 block's ns by stage, the level-1 block's, and
+    the level-0 rows and good roots."""
+    kw = dict(grad_th=grad_th, min_cells=min_cells, aniso_th=aniso_th,
+              angle_tol=angle_tol, dist_tol=dist_tol, min_length=min_length,
+              jump_iters=jump_iters)
+    if imgs[0].device.type == "cpu":
+        return detect_levels_plain(imgs, ns, **kw)
+    if not 1 <= len(imgs) <= 2 or len(ns) != len(imgs):
+        raise ValueError("line_detect: 1 or 2 levels, one n each")
+    cuda.check_cuda("line_detect", *imgs)
+    shapes = []
+    for im in imgs:
+        if im.dtype != torch.float32 or im.dim() != 2:
+            raise ValueError("line_detect: float32 [H,W] images")
+        H, W = im.shape
+        C = (H // CELL_PX) * (W // CELL_PX)
+        if C == 0 or 8 * C + 1024 > _SMEM_MAX:
+            raise ValueError(f"line_detect: {C} cells; the label grid must "
+                             "fit in shared memory (1 <= cells <= 28928)")
+        shapes.append((H, W))
+    dev = imgs[0].device
+    stream = cuda.stream(dev.index)
+    ws = _workspace(tuple(shapes), dev, stream.value)
+    cells = [(H // CELL_PX) * (W // CELL_PX) for H, W in shapes]
+    n_eff = [min(int(n), c) for n, c in zip(ns, cells)]
+    if min(n_eff) < 0:
+        raise ValueError("line_detect: n >= 0")
+    grads = torch.empty(2 * sum(H * W for H, W in shapes),
+                        dtype=torch.bfloat16, device=dev)
+    floats = torch.empty(6 * sum(n_eff), device=dev)
+    valid = torch.empty(sum(n_eff), dtype=torch.bool, device=dev)
+    levels = ws[1]
+    out = []
+    og = of = ov = 0
+    for L, im, (H, W), n in zip(levels, imgs, shapes, n_eff):
+        gx = grads[og:og + H * W].view(H, W)
+        gy = grads[og + H * W:og + 2 * H * W].view(H, W)
+        ep = floats[of:of + 4 * n].view(n, 4)
+        ang = floats[of + 4 * n:of + 5 * n]
+        length = floats[of + 5 * n:of + 6 * n]
+        val = valid[ov:ov + n]
+        og, of, ov = og + 2 * H * W, of + 6 * n, ov + n
+        L.img, L.n = im.data_ptr(), n
+        L.gx, L.gy, L.ep = gx.data_ptr(), gy.data_ptr(), ep.data_ptr()
+        L.ang, L.length = ang.data_ptr(), length.data_ptr()
+        L.valid = val.data_ptr()
+        out.append((ep, ang, length, val, (gx, gy)))
+    if prof is not None:
+        cuda.check_cuda("line_detect", imgs[0], prof)
+        if prof.dtype != torch.int64 or prof.shape != (len(LINE_STAGES)
+                                                       + 3,):
+            raise ValueError("line_detect: prof int64 [len(LINE_STAGES) + 3]")
+    LINE_DETECT.launch(
+        ctypes.addressof(levels), len(imgs), grad_th, min_cells, aniso_th,
+        angle_tol, dist_tol, min_length, jump_iters,
+        None if prof is None else cuda.ptr(prof), stream)
+    return out
 
 
 def line_detect(img: torch.Tensor, max_lines: int = 256,
@@ -721,46 +839,13 @@ def line_detect(img: torch.Tensor, max_lines: int = 256,
                 aniso_th: float = 4.0, angle_tol: float = 0.12,
                 dist_tol: float = 1.5, min_length: float = 12.0,
                 jump_iters: int = 7):
-    """`detect_lines` through csrc/line_detect.cu (CPU tensors take the
-    plain version).  Returns (ep [L,4], angle [L], length [L], valid [L],
-    (gx, gy) bf16)."""
-    if img.device.type == "cpu":
-        return detect_lines(img, max_lines, grad_th, min_cells, aniso_th,
-                            angle_tol, dist_tol, min_length, jump_iters)
-    cuda.check_cuda("line_detect", img)
-    if img.dtype != torch.float32 or img.dim() != 2:
-        raise ValueError("line_detect: a float32 [H,W] image")
-    H, W = img.shape
-    C = (H // CELL_PX) * (W // CELL_PX)
-    if C == 0 or 2 * 4 * C > _SMEM_MAX:
-        raise ValueError(f"line_detect: {C} cells; the label grid must fit "
-                         "in shared memory (1 <= cells <= 29056)")
-    dev = img.device
-    gx = torch.empty(H, W, dtype=torch.bfloat16, device=dev)
-    gy = torch.empty_like(gx)
-    cell = torch.empty(C, 3, device=dev)
-    atom = torch.empty(C, dtype=torch.uint8, device=dev)
-    links = torch.empty(C, dtype=torch.uint8, device=dev)
-    agg = torch.empty(C + 1, 8, dtype=torch.int64, device=dev)
-    comp = torch.empty(C + 1, 6, device=dev)
-    score = torch.empty(C, device=dev)
-    LINE_DETECT.launch(
-        cuda.ptr(img), H, W, grad_th, min_cells, aniso_th, angle_tol,
-        dist_tol, min_length, jump_iters, cuda.ptr(gx), cuda.ptr(gy),
-        cuda.ptr(cell), cuda.ptr(atom), cuda.ptr(links), cuda.ptr(agg),
-        cuda.ptr(comp), cuda.ptr(score), cuda.stream())
-    # top-K: stable descending sort, lower index first on ties (lax.top_k)
-    order = torch.sort(score, descending=True, stable=True).indices[
-        :max_lines].contiguous()
-    n = order.shape[0]
-    ep = torch.empty(n, 4, device=dev)
-    ang = torch.empty(n, device=dev)
-    length = torch.empty(n, device=dev)
-    valid = torch.empty(n, dtype=torch.bool, device=dev)
-    LINE_DETECT_GATHER.launch(
-        cuda.ptr(order), n, cuda.ptr(comp), cuda.ptr(score), cuda.ptr(ep),
-        cuda.ptr(ang), cuda.ptr(length), cuda.ptr(valid), cuda.stream())
-    return ep, ang, length, valid, (gx, gy)
+    """`detect_lines` through csrc/line_detect.cu, one level
+    (`line_detect_levels` with one image; CPU tensors take the plain
+    version).  Returns (ep [L,4], angle [L], length [L], valid [L], (gx,
+    gy) bf16)."""
+    return line_detect_levels([img], [max_lines], grad_th, min_cells,
+                              aniso_th, angle_tol, dist_tol, min_length,
+                              jump_iters)[0]
 
 
 LINE_DETECT_ED = cuda.Kernel("line_detect_ed", "line_detect_ed",
@@ -922,14 +1007,23 @@ def extract_lines_pyramid(img: torch.Tensor, max_lines: int,
     makes it on the frame path, else `ops.frontend.line_level`: the
     `pyramid` kernel's line level on a CUDA image unless `plain`);
     its segments map back to level-0 pixel centres and are dropped where a
-    valid level-0 segment already covers them."""
+    valid level-0 segment already covers them.  The cell detector finds
+    both levels in one call (`line_detect_levels`): level 1's detection
+    does not depend on level 0, only its refit does."""
     n1 = max_lines // 4
     n0 = max_lines - n1
     img1 = level1 if level1 is not None else (
         line_level_plain if plain else line_level)(img)
-    f0 = extract_lines(img, n0, pairs, plain, detector=detector, **kw)
-    f1 = extract_lines(img1, n1, pairs, plain, level0=f0, detector=detector,
-                       **kw)
+    if detector != 0:
+        f0 = extract_lines(img, n0, pairs, plain, detector=detector, **kw)
+        f1 = extract_lines(img1, n1, pairs, plain, level0=f0,
+                           detector=detector, **kw)
+    else:
+        d0, d1 = (detect_levels_plain if plain else line_detect_levels)(
+            [img, img1], [n0, n1], **kw)
+        refine = refine_lbd_plain if plain else line_refine_lbd
+        f0 = refine(d0[4][0], d0[4][1], d0[0], d0[3], pairs)
+        f1 = refine(d1[4][0], d1[4][1], d1[0], d1[3], pairs, f0)
     return LineFeatures(*(torch.cat([a, b]) for a, b in zip(f0, f1)))
 
 

@@ -4,7 +4,7 @@ keyframe step over a keyframe sequence and the tracked sequence goes, on
 one CUDA card.
 
     python3 -m plvio_tpu_torch.profile_frames \
-        [sequence | tracked | system | loop | mh_loop | stereo |
+        [frames | sequence | tracked | system | loop | mh_loop | stereo |
          stereo_points | kb8 | kb8_vi | line_modes | ed | dist]
 
 Builds the synthetic inputs of `chip_smoke.py` (EuRoC geometry: 480x752,
@@ -21,7 +21,10 @@ the point+line frame (`tracking_step_pl`) and the VI frame
   often, per frame;
 - per stage (ORB, lines, IMU, point match, line match, pose optimizer):
   device ms/frame between CUDA events recorded around the stage, and the
-  host's enqueue ms/frame, from a third pass.
+  host's enqueue ms/frame, from a third pass;
+- the calls that synchronize the host with the card, per frame, from a
+  fourth pass under torch.cuda's sync debug mode (`count_syncs`).
+  `frames` as the argument stops here.
 
 The keyframe mapping step (`mapping_step`, both window sizes, from
 `inputs.perturb_window`'s start, 8 steps a pass) gets the same figures
@@ -254,6 +257,21 @@ def profile(name, step, run, n_frames: int, spans=stage_spans,
     dev, host = spans(step, run, n_frames)
     print(f"   stage device ms/{unit}: {dev}")
     print(f"   stage host enqueue ms/{unit}: {host}")
+
+
+def count_syncs(run) -> int:
+    """The calls that synchronize the host with the card during `run()`
+    (device-to-host reads, blocking host-to-device copies from pageable
+    memory), as torch.cuda's sync debug mode reports them."""
+    import warnings
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as got:
+            warnings.simplefilter("always")
+            run()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in got)
 
 
 def step_path(st) -> str:
@@ -821,6 +839,12 @@ def main() -> int:
 
     profile(f"point+line frame ({N_FRAMES} frames)", pl, run_pl, N_FRAMES)
     profile(f"VI frame ({N_FRAMES - 1} frames)", vi, run_vi, N_FRAMES - 1)
+    for name, run, n in (("point+line", run_pl, N_FRAMES),
+                         ("VI", run_vi, N_FRAMES - 1)):
+        print(f"   {name} frame: {count_syncs(run) / n:g} synchronizing "
+              "calls a frame (torch.cuda sync debug mode)")
+    if sys.argv[1:] == ["frames"]:
+        return 0
     for name, sz in (("worst", E.MAPPING_WORST),
                      ("typical", E.MAPPING_TYPICAL)):
         ms, A = E.mapping_step(**sz, device=dev)

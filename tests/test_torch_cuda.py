@@ -27,7 +27,10 @@ equal inlier masks, its landmarks' reprojection residuals within 0.1 px,
 at the typical window (16 KF): at 4 KF every float32
 path, the plain one on either device included, lies 1.5-2.5e-3 from a
 float64 run of the plain engine, so a 1e-4 comparison there would test
-rounding, not the kernels.
+rounding, not the kernels.  The redesigned vi_pose_lm and line_detect
+(both pyramid levels in one call) bit-equal to the kernels before their
+redesign (`PARENT_SLICE19`, kernel_digest.py's lines), and the VI
+optimizer's run and the line pyramid free of host synchronization.
 """
 import math
 
@@ -2339,3 +2342,101 @@ def test_dist_ba_and_chain_ba_match_plain_mesh(dev):
         p = ref[0](ref[1])
         assert float((k[0].cpu() - p[0]).abs().max()) < 1e-4
         assert float((k[1].cpu() - p[1]).abs().max()) < 1e-3
+
+
+# kernel_digest.py's lines on the kernels before the redesign of
+# vi_pose_lm and line_detect (the `ed` and `slice19` modes, and the stereo
+# VI case); the redesigned kernels keep every bit
+PARENT_SLICE19 = {
+    "vi_pose_lm have_prior=True": "37ea30a8a290d2c88c800dd7a3a51f93",
+    "vi_pose_lm have_prior=False": "6f78a10c419546a19ef6a4f638b18a58",
+    "vi_pose_lm stereo have_prior=True": "fee3602579827a00d96a65ede7505daa",
+    "vi_pose_lm stereo have_prior=False": "e748b89f234ebab035c4d8ba0162fada",
+    "vi_pose_lm nan_prior have_prior=True": "a97a835666220fe57a456e3bebe344e1",
+    "line_detect level=0": "548bcb898ec742bac683a5a282cb9208",
+    "line_detect level=1": "e19e562cb2f6620920f02faa7d364d2c",
+    "line_detect_ed level=0": "2f72c9bf43c94b16a079af0744a24e6a",
+    "line_detect_ed level=1": "06e2324b7407c6db86fcbd2fce6af0a0",
+    "line_detect 480x752 n=192": "24ec7ea3814d46fad4a9457c7a9b4f3c",
+    "line_detect 240x376 n=64": "a47e48c7a19786073da004a3ac416403",
+    "line_detect 237x411 n=192": "fcd842cbf1a426c6bb2022181a220af9",
+    "line_detect 118x205 n=64": "cd913977fab1ce4c1c44a85e63ffd9a1"}
+
+
+def _digest_lines(lines):
+    return dict(line.rsplit(" ", 1) for line in lines)
+
+
+def test_vi_pose_lm_keeps_parent_digests(dev):
+    """vi_pose_lm, mono and stereo, with and without the prior, and with
+    a NaN prior (every iteration runs), gives the bits of the kernel
+    before its redesign."""
+    from plvio_tpu_torch import kernel_digest as KD
+    got = {}
+    case, stereo = KD.vi_case(dev), KD.vi_case(dev, stereo=True)
+    for hp in (True, False):
+        got[f"vi_pose_lm have_prior={hp}"] = KD.digest(KN.vi_pose_lm(*case,
+                                                                      hp))
+    got.update(_digest_lines(KD.vi_stereo_digests(dev)))
+    got.update(_digest_lines(KD.slice19_digests(dev)[:1]))
+    assert {k: v for k, v in got.items() if v != PARENT_SLICE19[k]} == {}
+
+
+def test_line_detect_keeps_parent_digests(dev):
+    """line_detect on a rendered room view, a rendered 480x752 frame, their
+    line levels and an odd-size crop, and line_detect_ed (which shares
+    csrc/lines.cuh) give the bits of the kernels before the redesign."""
+    from plvio_tpu_torch import kernel_digest as KD
+    got = _digest_lines(KD.ed_digests(dev) + KD.line_digests(dev))
+    assert {k: v for k, v in got.items() if v != PARENT_SLICE19[k]} == {}
+
+
+@pytest.mark.parametrize("size", ["480x752", "240x376", "237x411"])
+def test_line_detect_levels_bit_equal_to_one_level(dev, size):
+    """Both pyramid levels in one call (`line_detect_levels`, two
+    launches) give bit for bit what two one-level calls give, at the
+    frame's size, its line level's and an odd size; a second call on the
+    same workspace gives the same bits."""
+    from plvio_tpu_torch import kernel_digest as KD
+    from plvio_tpu_torch.inputs import build_inputs
+    from plvio_tpu_torch.ops import frontend as FE
+    from plvio_tpu_torch.ops import lines as LN
+    frame = torch.from_numpy(build_inputs(2, device=dev)[0][1]).to(dev)
+    img = {"480x752": frame, "240x376": FE.line_level(frame),
+           "237x411": frame[:237, :411].contiguous()}[size]
+    img1 = FE.line_level(img)
+    n0 = LN.LINE_DETECT.launches
+    both = LN.line_detect_levels([img, img1], [192, 64])
+    assert LN.LINE_DETECT.launches == n0 + 1
+    again = LN.line_detect_levels([img, img1], [192, 64])
+    one = [LN.line_detect(img, 192), LN.line_detect(img1, 64)]
+    for b, a, o in zip(both, again, one):
+        assert KD.digest(KD._flat(b)) == KD.digest(KD._flat(o))
+        assert KD.digest(KD._flat(a)) == KD.digest(KD._flat(o))
+
+
+def test_vi_run_and_line_pyramid_never_sync(dev):
+    """`make_vi_pose_optimizer`'s run and the line pyramid on CUDA inputs
+    make no call that synchronizes the host with the card (torch.cuda's
+    sync debug mode raises on one): the extrinsics move to the card once,
+    without a blocking copy, and the detector allocates nothing but its
+    outputs between calls."""
+    from plvio_tpu_torch import kernel_digest as KD
+    from plvio_tpu_torch.ops import lines as LN
+    case = KD.vi_case(dev)
+    run = KN.make_vi_pose_optimizer(K, case[9].shape[0], np.eye(3),
+                                    np.zeros(3), 9.81)
+    uvr = torch.cat([case[8], -torch.ones_like(case[8][:, :1])], 1)
+    args = case[4:8] + [uvr] + case[9:]
+    ext = LN.LineExtractor(256, 2).to(dev)
+    img = _segments(dev, 480, 752, n=60)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = [run(*args, hp) for hp in (True, False)]
+        lines = [ext(img) for _ in range(2)]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for hp, o in zip((True, False), outs):
+        assert KD.digest(o) == KD.digest(KN.vi_pose_lm(*case, hp))
+    assert all(torch.equal(a, b) for a, b in zip(*lines))
