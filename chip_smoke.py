@@ -48,7 +48,14 @@ exit, no result line) unless every phase passes:
    `line_detect` with both levels in one call bit-equal to one call a
    level and timed as one call (the gradient stage by `conv2d` beside
    it), it and `vi_pose_lm` (stereo, a NaN prior) at PARENT_DIGESTS, the
-   kernels' bits before their redesign);
+   kernels' bits before their redesign; slice 20's `ba_linearize` (the
+   window BAs of `kernel_digest.window_digests`, the worst mapping step,
+   the 64-KF inertial and 128-KF point-only windows run whole) and
+   `hamming_match` (every mode at the paths' shapes, the stereo matchers)
+   at PARENT_DIGESTS, then in a process of its own (`kernel_digest.py
+   measure20`) their launches a call counted on one call (2 an LM
+   iteration, 1 a match) and both timed by mode: CUDA events, the card's
+   ms, the host's enqueue, into their kernel rows' `stages`);
 4. slice 1, `tracking_step_pl`: 16 synthetic frames with the pose carried,
    >= 80 inliers, camera centre <= 10 mm and rotation <= 0.3 deg from
    ground truth on every frame, every kernel of the path launched; the
@@ -598,7 +605,58 @@ PARENT_DIGESTS = {
     "line_detect 480x752 n=192": "24ec7ea3814d46fad4a9457c7a9b4f3c",
     "line_detect 240x376 n=64": "a47e48c7a19786073da004a3ac416403",
     "line_detect 237x411 n=192": "fcd842cbf1a426c6bb2022181a220af9",
-    "line_detect 118x205 n=64": "cd913977fab1ce4c1c44a85e63ffd9a1"}
+    "line_detect 118x205 n=64": "cd913977fab1ce4c1c44a85e63ffd9a1",
+    # the two kernels redesigned in slice 20, on the kernels before it
+    # (kernel_digest.py's `window` and `slice20` modes, the stereo
+    # matchers): the redesign keeps every bit
+    "mapping_step typical perturbed":
+        "ffee42bd85ba709ff5f3ffbb53f13dd2",
+    "inertial_ba_step worst perturbed=False":
+        "0d04417e03d24acba24ab736cb8797b1",
+    "inertial_ba_step worst perturbed=True":
+        "818c7a613f019b9f2c46aa2149068fd3",
+    "inertial_ba_step half perturbed=False":
+        "47441b0135441193ee29c35bd49223de",
+    "inertial_ba_step half perturbed=True":
+        "7172a6fcf7e94e963a5bfe3920b5e93d",
+    "local_ba pinhole points":
+        "f0089d9e6cb04c42f015959d9673178f",
+    "local_ba_lines_only mode=1":
+        "d7c3328f9bca7a793ee9a5d1a5a60be9",
+    "local_ba_lines_only mode=2":
+        "c421f800f2ea623353454ca60fc8eba7",
+    "local_ba_lines_only mode=3":
+        "fe6af36818209809840b085db86a8848",
+    "local_inertial_ba kb8 lines=False":
+        "8b6507d7b6bc4b7f601af02629233313",
+    "local_inertial_ba kb8 lines=True":
+        "baa3cf9fc9265fab4ee42c6a6908a718",
+    "local_ba_pl kb8":
+        "fdb842c024a07f21501509d8fcf5793f",
+    "hamming_match window 20 px 2048 x 1000":
+        "d4c35a2a718a21d411b7a248b9c84e84",
+    "hamming_match ungated 2048 x 1000":
+        "77199435cada406a785764786c4bc9d6",
+    "hamming_match line 256 x 256":
+        "8aa25b36422ef912b0aff8ca362426df",
+    "hamming_match line pair 256 x 256":
+        "ed0e4718da43c6b75949948fb32d4869",
+    "hamming_match epipolar 1024 x 1024":
+        "d701b20b28e4668bae7cb011daaaa85e",
+    "hamming_match stereo points 1000 x 1000":
+        "1fa6b830a8d829c1e7f6ad4334e4fb86",
+    "hamming_match stereo lines 256 x 256":
+        "67689bba4a467036177dc73b5dae1c4d",
+    "mapping_step worst perturbed":
+        "5116674609416ba3d03082fd586fae26",
+    "local_inertial_ba 64 KF":
+        "5c7f7f316ffc97e152581cfe6162aaa6",
+    "local_ba points 128 KF":
+        "cc0e2f518b62cae191fbf6671ea43539",
+    "stereo_match points":
+        "90413c996073abc73d67bf1dd8bf8cef",
+    "stereo_match lines":
+        "67689bba4a467036177dc73b5dae1c4d"}
 PATH_STEREO = ("pyramid", "pyramid_line", "orb_fast_grid", "orb_describe",
                "line_detect", "line_refine_lbd", "hamming_match", "rot_hist",
                "triangulate", "line_triangulate", "imu_preint", "proj_match",
@@ -1256,6 +1314,58 @@ def check_parent_digests_19(dev):
     bad = sorted(k for k, v in got.items() if v != PARENT_DIGESTS[k])
     check(not bad, "vi_pose_lm (stereo, NaN prior), line_detect and "
           f"line_detect_ed give the parent's digests (differ: {bad})")
+
+
+def check_parent_digests_20(dev, report):
+    """ba_linearize's window BAs (kernel_digest.py's `window` lines, the
+    mapping step at the worst bucket, the 64-KF inertial and 128-KF
+    point-only windows run whole), hamming_match's modes at the paths'
+    shapes and the stereo matchers give the bits of the kernels before
+    slice 20's redesign; then both kernels timed by mode (CUDA events, the
+    card's ms and launches a call by torch.profiler, the host's enqueue)
+    at the paths' shapes, into the report's kernel rows."""
+    bf = 0.11 * K_EUROC.fx
+    lines = KD.window_digests(dev) + KD.slice20_digests(dev) + [
+        "stereo_match points "
+        + KD.digest(ST.match_stereo(*KD.stereo_point_case(dev), bf)),
+        "stereo_match lines "
+        + KD.digest(ST.match_stereo_lines(*KD.stereo_line_case(dev), bf))]
+    got = dict(line.rsplit(" ", 1) for line in lines)
+    bad = sorted(k for k, v in got.items() if v != PARENT_DIGESTS[k])
+    check(not bad, "ba_linearize's window BAs, hamming_match's modes and "
+          f"the stereo matchers give the parent's digests ({len(got)} "
+          f"lines; differ: {bad})")
+    # launches a call and times by mode, in a process of its own (the
+    # profiler of this long process has dropped device records)
+    import os
+    root = os.path.dirname(os.path.abspath(__file__))
+    run = subprocess.run(
+        [sys.executable, os.path.join(root, "plvio_tpu_torch",
+                                      "kernel_digest.py"), "measure20"],
+        capture_output=True, text=True, timeout=600,
+        env={**os.environ, "PYTHONPATH": root})
+    if run.returncode != 0:
+        raise Failed(f"kernel_digest.py measure20 failed:\n{run.stderr}")
+    got = json.loads(run.stdout.strip().splitlines()[-1])
+    lm, ops = got["lm_launches"], got["match_ops"]
+    print(f"  ba_linearize: {lm} launches an LM iteration of the worst "
+          f"mapping window; hamming_match / stereo_match stream operations "
+          f"a call: {ops}")
+    check(lm == 2 and set(ops.values()) == {1}, "ba_linearize launches 2 "
+          "kernels an LM iteration, hamming_match and stereo_match 1 "
+          "stream operation a call")
+    for name, modes in got["ba"].items():
+        print(f"  ba_linearize {name}: " + "; ".join(
+            f"{m} {d['ms']:.4f} ms, device {d['device_ms']:.4f} ms, host "
+            f"{d['host_ms']:.4f} ms" for m, d in modes.items()))
+    for name, d in got["hamming"].items():
+        d["ops_per_call"] = ops[name]
+        print(f"  hamming_match {name}: {d['ms']:.4f} ms, device "
+              f"{d['device_ms']:.4f} ms, host {d['host_ms']:.4f} ms")
+    report["ba_linearize"].setdefault("extra", {}).update(
+        stages=got["ba"], launches_per_lm_iteration=lm)
+    report["hamming_match"].setdefault("extra", {})["stages"] = \
+        got["hamming"]
 
 
 def perturbed_window(A):
@@ -6449,6 +6559,7 @@ def run_phases(dev, smi, render):
     check_boot_kernels(imgs, step.orb, step.lines, report)
     check_global_kernels(report)
     check_pyramid_kernels(imgs, report)
+    check_parent_digests_20(dev, report)
     t0 = time.perf_counter()
     S = build_mh_replay()
     print(f"  the MH replay: {len(S['frames'])} frames rendered in "

@@ -46,10 +46,17 @@
 // mcost [1]: the mesh's sum of the shards' partial costs, which the mesh
 // modes of csrc/ba_linearize.cu decide on (the landmark-sharded window BA).
 //
+// cost_part [2048]: csrc/ba_linearize.cu's cost sum of the points' and
+// then the lines' w chi2, each as the sums of its 1024 chains (chain v:
+// observations v, v + 1024, ... of the family, added in that order), the
+// tree over them left to a launch's last block.  prof: null, or int64
+// stamps of ba_linearize's stages (`KN.ba_prof`).
+//
 // ctrl (float[8]) carries the LM loop on the device: [0] lambda, [1] cost
 // of the current state, [2] cost of the last candidate, [3] done (early
 // exit), [4] iterations run, [5] last candidate accepted, [6] accepted
-// steps.
+// steps, [7] (as a uint32) the ticket of csrc/ba_linearize.cu's cost
+// launches, 0 between launches.
 #pragma once
 
 #include <math.h>
@@ -69,7 +76,8 @@ enum Ptr {
   kHcc, kHpt, kHln, kFpt, kFln, kOccPt, kOccLn,
   kGpt, kGln, kRr, kFf, kDx, kCtrl,
   kKfX, kCKfX, kKfFreeBias, kPre, kImuInfo, kEdgeValid, kRwG, kRwA, kLink,
-  kLinkCost, kCCost, kCgw, kLobsDir, kMCost, kKfColOrder, kNumPtrs
+  kLinkCost, kCCost, kCgw, kLobsDir, kMCost, kKfColOrder, kCostPart, kProf,
+  kNumPtrs
 };
 // kCgwFloats: the floats of the cgw workspace; kSolvePath: set by
 // schur_solve to the path its reduced solve took (0 one block, 1 global)
@@ -82,7 +90,8 @@ enum Flt { kFx, kFy, kCx, kCy, kDelta, kChi2Th, kLam0, kEarlyTol, kGravity,
            kRcb, kTcb = kRcb + 9, kK1 = kTcb + 3, kAngInfo = kK1 + 4,
            kNumFlts };
 constexpr int kLinkFloats = 465 + 30;
-enum Ctrl { cLam, cCost, cNewCost, cDone, cIters, cAccept, cAccepted };
+enum Ctrl { cLam, cCost, cNewCost, cDone, cIters, cAccept, cAccepted,
+            cTicket };
 
 struct BA {
   void* p[kNumPtrs];

@@ -18,7 +18,7 @@
 // points, 512 lines) a linearization reads ~0.3 MB of state and
 // observations and writes ~1.3 MB of per-observation blocks, then the
 // segment sums read them back: about a microsecond of bandwidth and ~3
-// Mflop, so the few launches (~5 us each) dominate.
+// Mflop, so launches and chains of dependent loads dominate.
 //
 // Design: the Jacobians are analytic (left se3 perturbation of T_cw: d pc /
 // d rho = I, d pc / d phi = -hat(pc); d pc / d X = R; the projection's depth
@@ -30,17 +30,35 @@
 // observation whitens by sqrt(info), weighs by Huber w = min(1, delta /
 // sqrt(chi2)) times the mask, and writes its blocks: w Jc^T Jc, -w Jc^T r,
 // w Jl^T Jl, -w Jl^T r and the coupling w Jc^T Jl (kept per observation,
-// never as the dense B).  The sums are deterministic: one thread per
-// (segment, entry) adds the blocks of its keyframe or landmark in
-// observation order, from one stable sort per BA call (no float atomics,
-// whose order changes from run to run).  The cost is sum(w chi2), points
-// then lines, reduced in a fixed order in one block; that block also takes
+// never as the dense B).  The sums are deterministic: each entry of a
+// keyframe's or landmark's blocks is added in observation order, from one
+// stable sort per BA call (no float atomics, whose order changes from run
+// to run).  The cost is sum(w chi2), points then lines, reduced in a fixed
+// order (one 1024-thread block's); the block that reduces it also takes
 // the LM decision (accept if the cost fell, lambda halved or quadrupled
 // within [1e-8, 1e4], early exit once the attempted step moved the cost by
 // less than early_tol relative), so the loop needs no host sync.  In the
 // body mode the cost adds the chain's share (`ccost`, written just before by
 // csrc/inertial_chain.cu at the same state) and an accepted step also
 // copies the keyframes' (vel, bg, ba).
+//
+// Two launches an LM iteration.  The linearization is one cooperative
+// launch: the observations' blocks over the grid, a grid barrier, then
+// the segment sums, a keyframe a block (its observations' blocks pass
+// through shared memory a stage at a time, double-buffered: the first
+// warp's threads add one stage's entries in kf_order while the other
+// warps load the next) and a landmark entry a thread (its loads issued
+// four at a time ahead of the adds, in pt_order / ln_order).  Every
+// other mode is one launch of kCostBlocks blocks: each block evaluates
+// the observations of its eight of the cost's 1024 chains (chain v: the
+// family's w chi2 values v, v + 1024, ..., as thread v of one 1024-thread
+// block adds them) and writes the chains' sums; the last block to arrive
+// (a ticket in ctrl[cTicket], reset by that block) runs that block's tree
+// over them, decides and copies an accepted candidate; the re-gate's new
+// masks are written beside their chi2.  Every sum keeps one order, the
+// order of one thread a segment entry and of the one-block cost sum, so
+// the results do not move with the launch shape
+// (tests/test_torch_slice20.py mirrors the orders).
 //
 // The mesh modes (4-7) serve the landmark-sharded inertial window BA
 // (`make_dist_liba`, plvio_tpu/parallel/dist_liba.py:186): each shard's
@@ -77,10 +95,13 @@
 // 1e-12) and g = (dir_1, -dir_0), r = n (d . g) and d r / d d = n g - n^3
 // (d . g) d, through each endpoint's pinhole rows (solver/residuals.py
 // `line_angle_jac`); whitened by sqrt(ang_info x is2).
+#include <cooperative_groups.h>
+
 #include "ba_common.cuh"
 
 namespace {
 
+namespace cg = cooperative_groups;
 using namespace ba;
 
 constexpr int kModeLinearize = 0;
@@ -367,13 +388,12 @@ __device__ void line_only_obs(const BA& b, int k, const float* poses,
   }
 }
 
-__global__ void obs_kernel(BA b, int mode) {
-  const int o = blockIdx.x * blockDim.x + threadIdx.x;
-  const int N = b.n_obs + b.n_lobs;
-  if (o >= N) return;
-  if ((mode == kModeLinearize || mode == kModeDecide ||
-       mode == kModePartialCand) && b.done())
-    return;
+// observation o (the combined index) at the state or, in the candidate
+// modes, at the candidate: its chi2 and robust cost into kChi2 / kWChi2
+// (and *wc) and, when linearizing, its blocks; returns the chi2 the
+// re-gate reads
+__device__ __forceinline__ float observe(const BA& b, int o, int mode,
+                                         float* wc_out) {
   const bool cand = mode == kModeDecide || mode == kModePartialCand;
   const bool jac = mode == kModeLinearize;
   const float* poses = cand ? b.at<float>(kCPoses) : b.at<float>(kPoses);
@@ -416,7 +436,8 @@ __global__ void obs_kernel(BA b, int mode) {
     line_only_obs(b, o - b.n_obs, poses, cand, jac, chi2, wc);
     b.at<float>(kChi2)[o] = chi2;
     b.at<float>(kWChi2)[o] = wc;
-    return;
+    *wc_out = wc;
+    return chi2;
   } else {
     const int k = o - b.n_obs;
     const float* lns = cand ? b.at<float>(kCLns) : b.at<float>(kLns);
@@ -457,162 +478,405 @@ __global__ void obs_kernel(BA b, int mode) {
   }
   b.at<float>(kChi2)[o] = chi2;
   b.at<float>(kWChi2)[o] = w * chi2;
+  *wc_out = w * chi2;
+  return chi2;
 }
 
-// one thread per (segment, entry): keyframe blocks (27 = 21 + 6), point
-// blocks (9 = 6 + 3), line blocks (27), each summed in observation order
-__global__ void reduce_kernel(BA b) {
-  if (b.done()) return;
-  int t = blockIdx.x * blockDim.x + threadIdx.x;
-  const int nk = b.n_kf * 27, np = b.n_pt * 9, nl = b.n_ln * 27;
-  const float* src;
-  const int *order, *start;
-  int seg, e, stride;
-  float* dst;
-  if (t < nk) {
-    seg = t / 27;
-    e = t % 27;
-    src = b.at<float>(kObsC);
-    stride = 27;
-    order = b.at<int>(kKfOrder);
-    start = b.at<int>(kKfStart);
-    dst = b.at<float>(kHcc);
-  } else if ((t -= nk) < np) {
-    seg = t / 9;
-    e = t % 9;
-    src = b.at<float>(kPL);
-    stride = 9;
-    order = b.at<int>(kPtOrder);
-    start = b.at<int>(kPtStart);
-    dst = b.at<float>(kHpt);
-  } else if ((t -= np) < nl) {
-    seg = t / 27;
-    e = t % 27;
-    src = b.at<float>(kLL);
-    stride = 27;
-    order = b.at<int>(kLnOrder);
-    start = b.at<int>(kLnStart);
-    dst = b.at<float>(kHln);
-  } else {
-    return;
-  }
+constexpr int kThreads = 256;      // the linearization's blocks
+constexpr int kStage = 192;        // a keyframe's observations staged at once
+constexpr int kRedThreads = 1024;  // the cost sum's order (see cost_chains)
+constexpr int kCostThreads = 512;  // the other modes' blocks
+constexpr int kCostBlocks = 128;   // ... and their grid
+constexpr int kChains = kRedThreads / kCostBlocks;   // cost chains a block
+static_assert(kRedThreads % kCostBlocks == 0 && kCostThreads % kChains == 0,
+              "a cost launch's chains");
+
+// Stage stamps (ns, %globaltimer) into b's prof buffer when it is given:
+// kMin slots take the earliest stamp, the others the latest
+enum Prof { pStart, pObs, pBarrier, pKeyframes, pLandmarks, pTicket,
+            pDecision, pCopy };
+__device__ __forceinline__ unsigned long long now_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+__device__ __forceinline__ void stamp(const BA& b, Prof slot) {
+  unsigned long long* prof = b.at<unsigned long long>(kProf);
+  if (prof == nullptr) return;
+  if (slot == pStart || slot == pBarrier)
+    atomicMin(prof + slot, now_ns());
+  else
+    atomicMax(prof + slot, now_ns());
+}
+
+// sum of src[order[i] * stride + e] over i in [lo, hi), added in i's
+// order; the loads are issued four at a time, ahead of their adds
+__device__ __forceinline__ float seg_sum(const float* src, const int* order,
+                                         int lo, int hi, int stride, int e) {
   float acc = 0.f;
-  for (int i = start[seg]; i < start[seg + 1]; ++i)
-    acc += src[order[i] * stride + e];
-  dst[seg * stride + e] = acc;
+  for (int i = lo; i < hi; i += 4) {
+    int ix[4];
+    float v[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) ix[k] = i + k < hi ? __ldg(order + i + k) : 0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      v[k] = i + k < hi ? __ldcg(src + ix[k] * stride + e) : 0.f;
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if (i + k < hi) acc += v[k];
+  }
+  return acc;
 }
 
-constexpr int kRedThreads = 1024;
-
-__device__ float block_sum(const float* x, int n, float* sh) {
-  float a = 0.f;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) a += x[i];
-  sh[threadIdx.x] = a;
+// keyframe kf's 27 block entries, each the sum of its observations' in
+// kf_order.  The observations' blocks pass through shared memory kStage at
+// a time, double-buffered: while the first warp's threads e < 27 add
+// entry e of each block of one stage in order (sixteen shared loads ahead
+// of their adds), the other warps load the next stage (sixteen global
+// loads in flight a thread).
+__device__ void kf_segment(const BA& b, int kf, float* s_blk) {
+  const int* order = b.at<int>(kKfOrder);
+  const int* start = b.at<int>(kKfStart);
+  const float* src = b.at<float>(kObsC);
+  const int lo = start[kf], hi = start[kf + 1];
+  const int warp = threadIdx.x >> 5;
+  // stage [c0, c0 + cnt) of the segment into buffer buf, by the threads
+  // [t0, kThreads)
+  auto stage = [&](int c0, int buf, int t0) {
+    const int total = min(kStage, hi - c0) * 27;
+    float* dst = s_blk + buf * kStage * 27;
+    const int nt = kThreads - t0;
+    for (int base = threadIdx.x - t0; base < total; base += 16 * nt) {
+      float v[16];
+#pragma unroll
+      for (int k = 0; k < 16; ++k) {
+        const int idx = base + k * nt;
+        v[k] = idx < total
+                   ? __ldcg(src + __ldg(order + c0 + idx / 27) * 27 + idx % 27)
+                   : 0.f;
+      }
+#pragma unroll
+      for (int k = 0; k < 16; ++k) {
+        const int idx = base + k * nt;
+        if (idx < total) dst[idx] = v[k];
+      }
+    }
+  };
+  float acc = 0.f;
+  if (lo < hi) stage(lo, 0, 0);
   __syncthreads();
-  for (int s = blockDim.x / 2; s > 0; s >>= 1) {
-    if (threadIdx.x < s) sh[threadIdx.x] += sh[threadIdx.x + s];
+  for (int c0 = lo, buf = 0; c0 < hi; c0 += kStage, buf ^= 1) {
+    if (warp == 0) {
+      if (threadIdx.x < 27) {
+        const float* blk = s_blk + buf * kStage * 27 + threadIdx.x;
+        const int cnt = min(kStage, hi - c0);
+        int i = 0;
+        for (; i + 16 <= cnt; i += 16) {
+          float v[16];
+#pragma unroll
+          for (int k = 0; k < 16; ++k) v[k] = blk[(i + k) * 27];
+#pragma unroll
+          for (int k = 0; k < 16; ++k) acc += v[k];
+        }
+        for (; i < cnt; ++i) acc += blk[i * 27];
+      }
+    } else if (c0 + kStage < hi) {
+      stage(c0 + kStage, buf ^ 1, 32);
+    }
     __syncthreads();
   }
-  const float r = sh[0];
-  __syncthreads();
-  return r;
+  if (threadIdx.x < 27) b.at<float>(kHcc)[kf * 27 + threadIdx.x] = acc;
 }
 
-__global__ void cost_kernel(BA b, int mode) {
-  __shared__ float sh[kRedThreads];
-  float* ctrl = b.at<float>(kCtrl);
-  if ((mode == kModeDecide || mode == kModePartialCand ||
-       mode == kModeMeshDecide) && ctrl[cDone] != 0.f)
+// The linearization in one cooperative launch: every observation's blocks
+// over the grid, a grid barrier, then the segment sums: keyframe kf on
+// block kf (mod the grid), the point (9) and line (27) entries one a
+// thread on the blocks past the keyframes' (on all where the grid has no
+// more).  Each sum runs in the order of the parent's one-thread loop.
+__global__ void __launch_bounds__(kThreads) linearize_kernel(BA b) {
+  __shared__ float s_blk[2 * kStage * 27];
+  if (b.done()) return;          // nothing in this launch writes ctrl
+  if (threadIdx.x == 0) stamp(b, pStart);
+  // block k's observations: [k per, (k + 1) per), spread over the grid
+  const int N = b.n_obs + b.n_lobs;
+  const int per = (N + gridDim.x - 1) / gridDim.x;
+  float wc;
+  for (int k = threadIdx.x; k < per; k += blockDim.x) {
+    const int o = blockIdx.x * per + k;
+    if (o < N) observe(b, o, kModeLinearize, &wc);
+  }
+  if (b.at<unsigned long long>(kProf) != nullptr) {
+    __syncthreads();
+    if (threadIdx.x == 0) stamp(b, pObs);
+  }
+  cg::this_grid().sync();
+  if (threadIdx.x == 0) stamp(b, pBarrier);
+  for (int kf = blockIdx.x; kf < b.n_kf; kf += gridDim.x)
+    kf_segment(b, kf, s_blk);
+  const int first = static_cast<int>(gridDim.x) > b.n_kf ? b.n_kf : 0;
+  if (static_cast<int>(blockIdx.x) < first) {
+    if (threadIdx.x == 0) stamp(b, pKeyframes);
     return;
-  float cost;
-  if (mode == kModeMeshInit || mode == kModeMeshDecide) {
-    if (threadIdx.x != 0) return;
-    cost = b.at<float>(kMCost)[0];
-    mode = mode == kModeMeshInit ? kModeInit : kModeDecide;
-  } else {
-    const float* wchi2 = b.at<float>(kWChi2);
-    const float sp = block_sum(wchi2, b.n_obs, sh);
-    const float sl = block_sum(wchi2 + b.n_obs, b.n_lobs, sh);
-    if (threadIdx.x != 0) return;
+  }
+  const int np = b.n_pt * 9, nl = b.n_ln * 27;
+  const int step = (gridDim.x - first) * blockDim.x;
+  for (int t = (blockIdx.x - first) * blockDim.x + threadIdx.x; t < np + nl;
+       t += step) {
+    if (t < np) {
+      const int* start = b.at<int>(kPtStart);
+      b.at<float>(kHpt)[t] = seg_sum(b.at<float>(kPL), b.at<int>(kPtOrder),
+                                     start[t / 9], start[t / 9 + 1], 9,
+                                     t % 9);
+    } else {
+      const int u = t - np;
+      const int* start = b.at<int>(kLnStart);
+      b.at<float>(kHln)[u] = seg_sum(b.at<float>(kLL), b.at<int>(kLnOrder),
+                                     start[u / 27], start[u / 27 + 1], 27,
+                                     u % 27);
+    }
+  }
+  if (b.at<unsigned long long>(kProf) != nullptr) {
+    __syncthreads();
+    if (threadIdx.x == 0) stamp(b, first ? pLandmarks : pKeyframes);
+  }
+}
+
+// The cost's chains of one family (n values of w chi2 from observation
+// `first`): chain v < kRedThreads adds the family's values v, v +
+// kRedThreads, ... from 0 in that order, as thread v of the one block of
+// kRedThreads threads that summed the cost before; this block owns the
+// chains [blockIdx.x kChains, (blockIdx.x + 1) kChains).  Its threads
+// evaluate the chains' observations (kCostThreads / kChains steps of each
+// chain a pass; in mode 3 also their new inlier masks from their chi2, at
+// the masks the cost used), then thread c < kChains adds its chain's step
+// values in order; the chain's sum goes to part[v].
+__device__ void cost_chains(const BA& b, int mode, int first, int n,
+                            float* s_w, float* part) {
+  constexpr int kRows = kCostThreads / kChains;
+  const int c = threadIdx.x % kChains;
+  const int v = blockIdx.x * kChains + c;
+  const int steps = (n + kRedThreads - 1) / kRedThreads;
+  float acc = 0.f;
+  for (int j0 = 0; j0 < steps; j0 += kRows) {
+    const int j = j0 + threadIdx.x / kChains;
+    const int i = v + j * kRedThreads;
+    float wc = 0.f;
+    if (j < steps && i < n) {
+      const int o = first + i;
+      const float chi2 = observe(b, o, mode, &wc);
+      if (mode == kModeRegate) {
+        if (o < b.n_obs) {
+          b.at<uint8_t>(kMask)[o] = b.at<uint8_t>(kObsValid)[o] &&
+                                    chi2 < b.chi2_th;
+        } else {
+          const int l = o - b.n_obs;
+          b.at<uint8_t>(kMaskL)[l] = b.at<uint8_t>(kLobsValid)[l] &&
+                                     chi2 < b.chi2_th;
+        }
+      }
+    }
+    s_w[threadIdx.x] = wc;
+    __syncthreads();
+    if (threadIdx.x < kChains)
+      for (int r = 0; r < kRows && j0 + r < steps; ++r)
+        if (v + (j0 + r) * kRedThreads < n) acc += s_w[r * kChains + c];
+    __syncthreads();
+  }
+  if (threadIdx.x < kChains) part[v] = acc;
+}
+
+// the trees of the one block of kRedThreads threads over its threads'
+// sums, the points' part[0, kRedThreads) and the lines' part[kRedThreads,
+// 2 kRedThreads) (written by this launch's blocks), both in one pass: each
+// level adds the same pairs in both
+__device__ void chain_trees(const float* part, float* sh, float* sp,
+                            float* sl) {
+  for (int v = threadIdx.x; v < 2 * kRedThreads; v += kCostThreads)
+    sh[v] = __ldcg(part + v);
+  __syncthreads();
+  for (int s = kRedThreads / 2; s > 0; s >>= 1) {
+    for (int v = threadIdx.x; v < s; v += kCostThreads) {
+      sh[v] += sh[v + s];
+      sh[kRedThreads + v] += sh[kRedThreads + v + s];
+    }
+    __syncthreads();
+  }
+  *sp = sh[0];
+  *sl = sh[kRedThreads];
+  __syncthreads();
+}
+
+// dst[0, n) = src[0, n), eight 16-byte loads in flight a thread where both
+// are 16-byte aligned
+__device__ void copy_floats(float* dst, const float* src, int n) {
+  int head = 0;
+  if (((reinterpret_cast<uintptr_t>(dst) | reinterpret_cast<uintptr_t>(src))
+       & 15) == 0) {
+    const int n4 = n / 4;
+    float4* d4 = reinterpret_cast<float4*>(dst);
+    const float4* s4 = reinterpret_cast<const float4*>(src);
+    for (int base = threadIdx.x; base < n4; base += 8 * kCostThreads) {
+      float4 v[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const int i = base + k * kCostThreads;
+        if (i < n4) v[k] = __ldcg(s4 + i);
+      }
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const int i = base + k * kCostThreads;
+        if (i < n4) d4[i] = v[k];
+      }
+    }
+    head = n4 * 4;
+  }
+  for (int i = head + threadIdx.x; i < n; i += kCostThreads)
+    dst[i] = __ldcg(src + i);
+}
+
+// The cost, the LM decision and the accepted copy of one launch's last
+// block (every block has written its chains' sums): the cost sum(w chi2),
+// points then lines, as the tree over their chains (plus the chain's
+// share in the body mode), or the mesh's summed cost; then, as `mode`
+// says, the start of a round, the accept/reject (lambda halved or
+// quadrupled within [1e-8, 1e4], the early exit once the cost moved by
+// less than early_tol relative) or a partial cost into ctrl[cNewCost]; an
+// accepted candidate (this launch's, or a decided one when the loop is
+// done) is copied to the state.
+__device__ void finish(const BA& b, int mode, float* sh, int* s_acc) {
+  float* ctrl = b.at<float>(kCtrl);
+  const bool mesh = mode == kModeMeshInit || mode == kModeMeshDecide;
+  const bool decides = mode == kModeDecide || mode == kModeMeshDecide;
+  const bool skip = (mode == kModeDecide || mode == kModePartialCand ||
+                     mode == kModeMeshDecide) && ctrl[cDone] != 0.f;
+  float cost = 0.f;
+  if (!skip && !mesh) {
+    float sp, sl;
+    chain_trees(b.at<float>(kCostPart), sh, &sp, &sl);
     cost = b.body ? (sp + sl) + b.at<float>(kCCost)[0] : sp + sl;
   }
-  if (mode == kModeInit) {
-    ctrl[cLam] = b.lam0;
-    ctrl[cCost] = cost;
-    ctrl[cNewCost] = cost;
-    ctrl[cDone] = 0.f;
-    ctrl[cIters] = 0.f;
-    ctrl[cAccept] = 0.f;
-    ctrl[cAccepted] = 0.f;
-  } else if (mode == kModeDecide) {
-    const float prev = ctrl[cCost];
-    const bool accept = cost < prev;
-    const float rel = fabsf(cost - prev) / fmaxf(prev, 1e-20f);
-    const float lam = accept ? ctrl[cLam] * 0.5f : ctrl[cLam] * 4.f;
-    ctrl[cLam] = fminf(fmaxf(lam, 1e-8f), 1e4f);
-    ctrl[cNewCost] = cost;
-    if (accept) ctrl[cCost] = cost;
-    ctrl[cAccept] = accept ? 1.f : 0.f;
-    ctrl[cAccepted] += accept ? 1.f : 0.f;
-    ctrl[cIters] += 1.f;
-    if (rel < b.early_tol) ctrl[cDone] = 1.f;
-  } else {
-    ctrl[cNewCost] = cost;
+  if (threadIdx.x == 0) {
+    *reinterpret_cast<unsigned*>(ctrl + cTicket) = 0u;
+    if (mesh) cost = b.at<float>(kMCost)[0];
+    const int m = mesh ? (mode == kModeMeshInit ? kModeInit : kModeDecide)
+                       : mode;
+    if (skip) {
+    } else if (m == kModeInit) {
+      ctrl[cLam] = b.lam0;
+      ctrl[cCost] = cost;
+      ctrl[cNewCost] = cost;
+      ctrl[cDone] = 0.f;
+      ctrl[cIters] = 0.f;
+      ctrl[cAccept] = 0.f;
+      ctrl[cAccepted] = 0.f;
+    } else if (m == kModeDecide) {
+      const float prev = ctrl[cCost];
+      const bool accept = cost < prev;
+      const float rel = fabsf(cost - prev) / fmaxf(prev, 1e-20f);
+      const float lam = accept ? ctrl[cLam] * 0.5f : ctrl[cLam] * 4.f;
+      ctrl[cLam] = fminf(fmaxf(lam, 1e-8f), 1e4f);
+      ctrl[cNewCost] = cost;
+      if (accept) ctrl[cCost] = cost;
+      ctrl[cAccept] = accept ? 1.f : 0.f;
+      ctrl[cAccepted] += accept ? 1.f : 0.f;
+      ctrl[cIters] += 1.f;
+      if (rel < b.early_tol) ctrl[cDone] = 1.f;
+    } else {
+      ctrl[cNewCost] = cost;
+    }
+    *s_acc = decides && ctrl[cAccept] != 0.f;
+    stamp(b, pDecision);
+  }
+  __syncthreads();
+  if (*s_acc) {
+    copy_floats(b.at<float>(kPoses), b.at<float>(kCPoses), b.n_kf * 12);
+    copy_floats(b.at<float>(kPts), b.at<float>(kCPts), b.n_pt * 3);
+    copy_floats(b.at<float>(kLns), b.at<float>(kCLns), b.n_ln * 6);
+    if (b.body)
+      copy_floats(b.at<float>(kKfX), b.at<float>(kCKfX), b.n_kf * 9);
+  }
+  if (b.at<unsigned long long>(kProf) != nullptr) {
+    __syncthreads();
+    if (threadIdx.x == 0) stamp(b, pCopy);
   }
 }
 
-// accepted candidate -> state
-__global__ void accept_kernel(BA b) {
-  if (b.at<float>(kCtrl)[cAccept] == 0.f) return;
-  int t = blockIdx.x * blockDim.x + threadIdx.x;
-  const int a = b.n_kf * 12, c = b.n_pt * 3, d = b.n_ln * 6;
-  if (t < a) {
-    b.at<float>(kPoses)[t] = b.at<float>(kCPoses)[t];
-  } else if ((t -= a) < c) {
-    b.at<float>(kPts)[t] = b.at<float>(kCPts)[t];
-  } else if ((t -= c) < d) {
-    b.at<float>(kLns)[t] = b.at<float>(kCLns)[t];
-  } else if (b.body && (t -= d) < b.n_kf * 9) {
-    b.at<float>(kKfX)[t] = b.at<float>(kCKfX)[t];
+// Every mode but the linearization in one launch of kCostBlocks blocks
+// (one in the mesh's modes 6 and 7, which have no observation): each
+// block evaluates the observations of its cost chains (none once the
+// loop is done in modes 1 and 4) and writes the chains' sums; then the
+// last block to arrive, by the ticket in ctrl[cTicket] (taken after a
+// fence, reset for the next launch), runs `finish`.
+__global__ void __launch_bounds__(kCostThreads) cost_pass_kernel(BA b,
+                                                                 int mode) {
+  __shared__ float sh[2 * kRedThreads];
+  __shared__ float s_w[kCostThreads];
+  __shared__ int s_last, s_acc;
+  const bool mesh = mode == kModeMeshInit || mode == kModeMeshDecide;
+  const bool skip = (mode == kModeDecide || mode == kModePartialCand) &&
+                    b.done();
+  if (threadIdx.x == 0) stamp(b, pStart);
+  if (!mesh && !skip) {
+    float* part = b.at<float>(kCostPart);
+    cost_chains(b, mode, 0, b.n_obs, s_w, part);
+    cost_chains(b, mode, b.n_obs, b.n_lobs, s_w, part + kRedThreads);
   }
-}
-
-// new inlier masks from the state's chi2 (between rounds)
-__global__ void regate_kernel(BA b) {
-  const int o = blockIdx.x * blockDim.x + threadIdx.x;
-  const float chi2 = o < b.n_obs + b.n_lobs ? b.at<float>(kChi2)[o] : 0.f;
-  if (o < b.n_obs) {
-    b.at<uint8_t>(kMask)[o] = b.at<uint8_t>(kObsValid)[o] && chi2 < b.chi2_th;
-  } else if (o < b.n_obs + b.n_lobs) {
-    const int k = o - b.n_obs;
-    b.at<uint8_t>(kMaskL)[k] =
-        b.at<uint8_t>(kLobsValid)[k] && chi2 < b.chi2_th;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    stamp(b, pObs);
+    unsigned* ticket = reinterpret_cast<unsigned*>(b.at<float>(kCtrl) +
+                                                   cTicket);
+    s_last = atomicAdd(ticket, 1u) == gridDim.x - 1;
   }
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  if (threadIdx.x == 0) stamp(b, pTicket);
+  finish(b, mode, sh, &s_acc);
 }
 
 inline int blocks(int n, int t) { return (n + t - 1) / t; }
+
+// The co-resident blocks of linearize_kernel on the current device (its
+// grid barrier needs every block resident), found once a device.
+int linearize_capacity() {
+  static int cap[64] = {0};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+  if (cap[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, linearize_kernel, kThreads, 0) != cudaSuccess)
+      return 0;
+    cap[dev] = sms * per_sm;
+  }
+  return cap[dev];
+}
 
 }  // namespace
 
 PLVIO_API int ba_linearize(void* const* ptrs, const int* ints,
                            const float* flts, int mode, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const BA b = make_ba(ptrs, ints, flts);
+  BA b = make_ba(ptrs, ints, flts);
   const int N = b.n_obs + b.n_lobs;
   if (mode < 0 || mode > 7) return static_cast<int>(cudaErrorInvalidValue);
-  const bool mesh = mode == kModeMeshInit || mode == kModeMeshDecide;
-  if (N > 0 && !mesh) obs_kernel<<<blocks(N, 128), 128, 0, s>>>(b, mode);
   if (mode == kModeLinearize) {
-    const int n = b.n_kf * 27 + b.n_pt * 9 + b.n_ln * 27;
-    reduce_kernel<<<blocks(n, 128), 128, 0, s>>>(b);
-  } else {
-    cost_kernel<<<1, kRedThreads, 0, s>>>(b, mode);
-    if (mode == kModeDecide || mode == kModeMeshDecide) {
-      const int n = b.n_kf * (b.body ? 21 : 12) + b.n_pt * 3 + b.n_ln * 6;
-      accept_kernel<<<blocks(n, 256), 256, 0, s>>>(b);
-    } else if (mode == kModeRegate && N > 0) {
-      regate_kernel<<<blocks(N, 256), 256, 0, s>>>(b);
-    }
+    const int cap = linearize_capacity();
+    if (cap < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+    const int want = max(blocks(N, kThreads),
+                         b.n_kf + blocks(b.n_pt * 9 + b.n_ln * 27, kThreads));
+    const int grid = max(1, min(cap, want));
+    void* args[] = {&b};
+    return static_cast<int>(cudaLaunchCooperativeKernel(
+        reinterpret_cast<void*>(linearize_kernel), dim3(grid),
+        dim3(kThreads), args, 0, s));
   }
+  const bool mesh = mode == kModeMeshInit || mode == kModeMeshDecide;
+  cost_pass_kernel<<<mesh ? 1 : kCostBlocks, kCostThreads, 0, s>>>(b, mode);
   return static_cast<int>(cudaGetLastError());
 }

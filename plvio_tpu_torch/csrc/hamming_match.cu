@@ -21,10 +21,16 @@
 // idx1, best2) with strict '<', so ties keep the first column; lanes merge
 // by shuffles into the second minimum of the multiset (a second column at
 // best1's distance makes best2 == best1, as ops/matching.py:81-85).  The
-// column-wise argmin of the mutual check is an atomicMin on (dist<<16)|row,
+// column-wise argmin of the mutual check is a minimum of (dist<<16)|row,
 // which gives the first row among equal distances, as argmin(axis=0) does
-// (:90); a second small kernel applies it once every row is done.  A row
-// with no admissible column returns idx 0 and ok false, as the JAX does.
+// (:90): a block takes its rows' minima in shared memory, then issues one
+// global atomicMin a column it touched (one a gated pair would be n x m
+// atomics on m addresses in the ungated mode).  The last block to arrive
+// (a ticket kept before the columns in a workspace the wrapper keeps per
+// device and stream) applies the mutual check, or the stereo epilogue, to
+// every row once all rows are done, then resets the columns' minima and
+// the ticket for the next call: one launch a call, no memset.  A row with
+// no admissible column returns idx 0 and ok false, as the JAX does.
 //
 // A third gate mode (mode 2) is the epipolar gate of the keyframe mapping
 // step, `make_epipolar_matcher` (plvio_tpu/models/kernels.py:845-870): the
@@ -50,11 +56,11 @@
 //
 // Two stereo gate modes (entry point stereo_match) replace the rectified
 // pair's matchers of plvio_tpu/ops/stereo.py, `match_stereo` (:16) and
-// `match_stereo_lines` (:38), each with an epilogue in the mutual-check
-// kernel that writes the per-feature result, so the N x M matrix, the
+// `match_stereo_lines` (:38), each with an epilogue after the mutual
+// check that writes the per-feature result, so the N x M matrix, the
 // match indices and the gate never reach the host.  Mode 4 (points): a
 // pair passes when |v_L - v_R| <= the row's tolerance (2 x 1.2^octave,
-// the float32 table the wrapper indexes, OCTAVE_SCALE) and the disparity
+// from the float32 table OCTAVE_SCALE at the row's octave) and the disparity
 // u_L - u_R lies in (0.1, bf / min_z]; the epilogue writes u_R, the depth
 // bf / max(d, 1e-6) and has = ok & (d > 0.1), -1 where not has.  Mode 5
 // (line segments, endpoints (x0, y0, x1, y1)): the wrapped direction
@@ -83,6 +89,7 @@ namespace {
 
 constexpr int kWarps = 8;
 constexpr int kNone = 1 << 20;      // larger than any 256-bit distance
+constexpr uint32_t kNoBest = 0xffffffffu;   // a column no row reached
 
 struct Params {
   const uint32_t* map_desc;   // [n,8]
@@ -99,13 +106,19 @@ struct Params {
   float r2, ang_tol, max_dist, ratio;
   int* idx;                   // [n]
   uint8_t* ok;                // [n]
-  uint32_t* col_best;         // [m] (dist<<16)|row, 0xffffffff = none
+  uint32_t* col_best;         // [m] (dist<<16)|row, 0xffffffff = none; the
+                              // ticket just before it (see match_kernel)
   // stereo modes: bf, the largest disparity (mode 4) and the outputs
   // (mode 4: u_R, depth; mode 5: both endpoint depths) and has
   float bf, max_disp;
   float* out0;
   float* out1;
   uint8_t* has;
+  // mode 4: the rows' octaves [n] and the octave scale table; a row's
+  // tolerance is row_tol * scale[octave], rounded to float32
+  const int* a_oct;
+  const float* oct_scale;
+  float row_tol;
 };
 
 // Midpoint and length of segment i of ep [*,4] (reference order:
@@ -118,13 +131,99 @@ __device__ __forceinline__ float2 seg_mid_len(const float2* ep, int i,
   return make_float2((e[0] + e[2]) / 2.f, (e[1] + e[3]) / 2.f);
 }
 
-__global__ void match_rows(Params p) {
+constexpr int kBatch = 8;           // rows of the epilogue a thread at once
+
+// The epilogue of every row, once every row's (idx, ok) and every
+// column's best row are in: the mutual check (the column's best row must
+// be this row) and, in the stereo modes, the per-feature result.  A
+// thread takes kBatch rows at once: their (ok, idx), then their columns'
+// best rows and the stereo modes' positions, all loaded before any store.
+__device__ void epilogue(const Params& p) {
+  const bool stereo = p.line_mode >= 4;
+  const float4* er4 = reinterpret_cast<const float4*>(p.b_xy);
+  const float4* el4 = reinterpret_cast<const float4*>(p.a_xy);
+  for (int r0 = threadIdx.x; r0 < p.n; r0 += kBatch * blockDim.x) {
+    int j[kBatch];
+    bool ok[kBatch];
+    uint32_t best[kBatch];
+    float4 er[kBatch], el[kBatch];
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      const int row = r0 + k * blockDim.x;
+      ok[k] = row < p.n && __ldcg(p.ok + row) != 0;
+      j[k] = row < p.n ? __ldcg(p.idx + row) : 0;
+    }
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      const int row = r0 + k * blockDim.x;
+      best[k] = ok[k] ? __ldcg(p.col_best + j[k]) : kNoBest;
+      if (ok[k] && p.line_mode == 4) {
+        er[k].x = p.b_xy[j[k]].x;
+        el[k].x = p.a_xy[row].x;
+      } else if (ok[k] && p.line_mode == 5) {
+        er[k] = er4[j[k]];
+        el[k] = el4[row];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      const int row = r0 + k * blockDim.x;
+      if (row >= p.n) continue;
+      // the mutual check
+      const bool mutual = ok[k] && (best[k] & 0xffffu) == uint32_t(row);
+      if (!stereo) {
+        if (ok[k]) p.ok[row] = mutual;
+        continue;
+      }
+      p.ok[row] = mutual;
+      if (!mutual) {             // no match: idx may name no column at all
+        p.out0[row] = -1.f;
+        p.out1[row] = -1.f;
+        p.has[row] = 0;
+        continue;
+      }
+      if (p.line_mode == 4) {
+        const float u_r = er[k].x;
+        const float d = el[k].x - u_r;
+        const bool has = d > 0.1f;
+        p.out0[row] = has ? u_r : -1.f;
+        p.out1[row] = has ? p.bf / fmaxf(d, 1e-6f) : -1.f;
+        p.has[row] = has;
+        continue;
+      }
+      // er / el: the right / left segment (x0, y0, x1, y1)
+      const float dy_r = er[k].w - er[k].y;
+      const float slope = (er[k].z - er[k].x)
+          / (fabsf(dy_r) < 1e-6f ? __int_as_float(0x7f800000) : dy_r);
+      const float disp_s = el[k].x - (er[k].x + (el[k].y - er[k].y) * slope);
+      const float disp_e = el[k].z - (er[k].x + (el[k].w - er[k].y) * slope);
+      const bool horiz_l = fabsf(el[k].y - el[k].w) <= 0.1f;
+      const bool horiz_r = fabsf(dy_r) <= 0.1f;
+      const bool has = (disp_s >= 1.f) && (disp_e >= 1.f) && !horiz_l
+                       && !horiz_r;
+      p.out0[row] = has ? p.bf / fmaxf(disp_s, 1e-6f) : -1.f;
+      p.out1[row] = has ? p.bf / fmaxf(disp_e, 1e-6f) : -1.f;
+      p.has[row] = has;
+    }
+  }
+}
+
+// One launch a call.  A warp a row; the block's column minima in shared
+// memory, then one global atomicMin for each column its rows touched;
+// the last block to arrive (a ticket in ws[0], taken after a fence)
+// applies the epilogue to every row, then resets the columns' minima and
+// the ticket for the next call on this workspace.
+__global__ void match_kernel(Params p) {
   extern __shared__ float4 smem_f4[];
+  __shared__ int s_last;
   const bool pair = p.line_mode == 3;
   const bool slines = p.line_mode == 5;
+  uint32_t* ticket = p.col_best - 1;
   // mode 5 keeps both endpoints of a column: two float2 a column
   float2* s_xy = reinterpret_cast<float2*>(smem_f4);
-  float* s_ang = reinterpret_cast<float*>(s_xy + (slines ? 2 * p.m : p.m));
+  uint32_t* s_best = reinterpret_cast<uint32_t*>(s_xy + (slines ? 2 * p.m
+                                                                : p.m));
+  float* s_ang = reinterpret_cast<float*>(s_best + p.m);
   float* s_len = s_ang + p.m;                      // mode 3 only
   uint8_t* s_ok = reinterpret_cast<uint8_t*>(s_len + (pair ? p.m : 0));
   for (int j = threadIdx.x; j < p.m; j += blockDim.x) {
@@ -138,15 +237,14 @@ __global__ void match_rows(Params p) {
     }
     s_ang[j] = (p.line_mode && p.line_mode != 4) ? p.b_ang[j] : 0.f;
     s_ok[j] = p.col_ok[j];
+    s_best[j] = kNoBest;
   }
   __syncthreads();
 
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (row >= p.n) return;
-
   int b1 = kNone, i1 = 0, b2 = kNone;
-  if (p.row_ok[row]) {
+  if (row < p.n && p.row_ok[row]) {
     uint32_t a[8];
 #pragma unroll
     for (int w = 0; w < 8; ++w) a[w] = p.map_desc[row * 8 + w];
@@ -154,8 +252,10 @@ __global__ void match_rows(Params p) {
     const float2 axy = pair ? seg_mid_len(p.a_xy, row, &alen)
                             : p.a_xy[slines ? 2 * row : row];
     // the row's angle (modes 1, 3, 5) or its row tolerance (mode 4)
-    const float aang = (p.line_mode == 1 || p.line_mode >= 3)
-                           ? p.a_ang[row] : 0.f;
+    const float aang = p.line_mode == 4
+                           ? p.row_tol * p.oct_scale[p.a_oct[row]]
+                           : (p.line_mode == 1 || p.line_mode == 3 ||
+                              p.line_mode == 5) ? p.a_ang[row] : 0.f;
     // mode 5: the left segment's y-span and midpoint x
     float ylo_l = 0.f, yhi_l = 0.f, mid_l = 0.f, span_l = 1.f;
     if (slines) {
@@ -218,7 +318,7 @@ __global__ void match_rows(Params p) {
       } else if (d < b2) {
         b2 = d;
       }
-      atomicMin(p.col_best + j, (uint32_t(d) << 16) | uint32_t(row));
+      atomicMin(s_best + j, (uint32_t(d) << 16) | uint32_t(row));
     }
   }
 #pragma unroll
@@ -230,57 +330,25 @@ __global__ void match_rows(Params p) {
     b2 = min(min(b2, ob2), hi);
     if (ob1 < b1 || (ob1 == b1 && oi1 < i1)) { b1 = ob1; i1 = oi1; }
   }
-  if (lane == 0) {
+  if (lane == 0 && row < p.n) {
     const float f1 = b1 >= kNone ? 1e9f : float(b1);
     const float f2 = b2 >= kNone ? 1e9f : float(b2);
     p.idx[row] = i1;
     p.ok[row] = (f1 <= p.max_dist) && (f1 < p.ratio * f2);
   }
-}
-
-__global__ void mutual_check(Params p) {
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= p.n || !p.ok[row]) return;
-  p.ok[row] = (p.col_best[p.idx[row]] & 0xffffu) == uint32_t(row);
-}
-
-// The stereo modes' mutual check and epilogue, one thread a left feature.
-__global__ void stereo_epilogue(Params p) {
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= p.n) return;
-  const int j = p.idx[row];
-  bool ok = p.ok[row];
-  if (ok) ok = (p.col_best[j] & 0xffffu) == uint32_t(row);
-  p.ok[row] = ok;
-  if (!ok) {                 // no match: idx may name no column at all
-    p.out0[row] = -1.f;
-    p.out1[row] = -1.f;
-    p.has[row] = 0;
-    return;
-  }
-  if (p.line_mode == 4) {
-    const float u_r = p.b_xy[j].x;
-    const float d = p.a_xy[row].x - u_r;
-    const bool has = d > 0.1f;
-    p.out0[row] = has ? u_r : -1.f;
-    p.out1[row] = has ? p.bf / fmaxf(d, 1e-6f) : -1.f;
-    p.has[row] = has;
-    return;
-  }
-  const float* er = reinterpret_cast<const float*>(p.b_xy) + 4 * j;
-  const float* el = reinterpret_cast<const float*>(p.a_xy) + 4 * row;
-  const float dy_r = er[3] - er[1];
-  const float slope = (er[2] - er[0])
-                      / (fabsf(dy_r) < 1e-6f ? __int_as_float(0x7f800000) : dy_r);
-  const float disp_s = el[0] - (er[0] + (el[1] - er[1]) * slope);
-  const float disp_e = el[2] - (er[0] + (el[3] - er[1]) * slope);
-  const bool horiz_l = fabsf(el[1] - el[3]) <= 0.1f;
-  const bool horiz_r = fabsf(dy_r) <= 0.1f;
-  const bool has = (disp_s >= 1.f) && (disp_e >= 1.f) && !horiz_l
-                   && !horiz_r;
-  p.out0[row] = has ? p.bf / fmaxf(disp_s, 1e-6f) : -1.f;
-  p.out1[row] = has ? p.bf / fmaxf(disp_e, 1e-6f) : -1.f;
-  p.has[row] = has;
+  __syncthreads();
+  for (int j = threadIdx.x; j < p.m; j += blockDim.x)
+    if (s_best[j] != kNoBest) atomicMin(p.col_best + j, s_best[j]);
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) s_last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  epilogue(p);
+  __syncthreads();
+  for (int j = threadIdx.x; j < p.m; j += blockDim.x) p.col_best[j] = kNoBest;
+  if (threadIdx.x == 0) *ticket = 0u;
 }
 
 // dist[i, j] = popcount(a_i ^ b_j): blocks of 32 x 8 threads over 32
@@ -305,6 +373,27 @@ __global__ void hamming_matrix_kernel(const uint32_t* __restrict__ a,
   dist[size_t(i) * m + j] = float(d);
 }
 
+// The launch of match_kernel; ws is the workspace [1 + capacity] uint32
+// kept between calls on one stream: ws[0] the ticket (0), ws[1 + j] column
+// j's best (0xffffffff); every call leaves it so.
+int launch_match(const Params& p, void* ws, cudaStream_t s) {
+  const size_t cols = size_t(p.m);
+  const size_t smem = cols * ((p.line_mode == 5 ? 2 : 1) * sizeof(float2)
+                              + 2 * sizeof(float) + 1
+                              + (p.line_mode == 3 ? sizeof(float) : 0))
+      + 16;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        match_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  Params q = p;
+  q.col_best = static_cast<uint32_t*>(ws) + 1;
+  match_kernel<<<(p.n + kWarps - 1) / kWarps, kWarps * 32, smem, s>>>(q);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 PLVIO_API int hamming_matrix(const void* a, const void* b, int n, int m,
@@ -317,6 +406,7 @@ PLVIO_API int hamming_matrix(const void* a, const void* b, int n, int m,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ws: the workspace of launch_match (n > 0).
 PLVIO_API int hamming_match(const void* map_desc, const void* obs_desc,
                             const void* row_ok, const void* col_ok,
                             const void* a_xy, const void* b_xy,
@@ -324,9 +414,8 @@ PLVIO_API int hamming_match(const void* map_desc, const void* obs_desc,
                             const void* F, int n, int m, int line_mode,
                             float r2,
                             float ang_tol, float max_dist, float ratio,
-                            void* idx, void* ok, void* col_best,
+                            void* idx, void* ok, void* ws,
                             void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   Params p{static_cast<const uint32_t*>(map_desc),
            static_cast<const uint32_t*>(obs_desc),
            static_cast<const uint8_t*>(row_ok),
@@ -335,46 +424,40 @@ PLVIO_API int hamming_match(const void* map_desc, const void* obs_desc,
            static_cast<const float*>(a_ang), static_cast<const float*>(b_ang),
            static_cast<const float*>(F), n, m, line_mode, r2, ang_tol, max_dist, ratio,
            static_cast<int*>(idx), static_cast<uint8_t*>(ok),
-           static_cast<uint32_t*>(col_best), 0.f, 0.f, nullptr, nullptr,
-           nullptr};
-  cudaMemsetAsync(col_best, 0xff, size_t(m > 0 ? m : 1) * 4, s);
-  const size_t smem = size_t(m) * (sizeof(float2) + sizeof(float) + 1
-                                    + (line_mode == 3 ? sizeof(float) : 0))
-      + 16;
-  match_rows<<<(n + kWarps - 1) / kWarps, kWarps * 32, smem, s>>>(p);
-  mutual_check<<<(n + 255) / 256, 256, 0, s>>>(p);
-  return static_cast<int>(cudaGetLastError());
+           nullptr, 0.f, 0.f, nullptr, nullptr, nullptr, nullptr, nullptr,
+           0.f};
+  return launch_match(p, ws, static_cast<cudaStream_t>(stream));
 }
 
 // The rectified pair's matchers: mode 4 (points: a_xy / b_xy [n] / [m]
-// pixels, row_tol [n] the rows' tolerances, lim the largest disparity;
-// out0 u_R, out1 depth) or mode 5 (segments: a_xy / b_xy [n,4] / [m,4]
-// endpoints, a_ang / b_ang their angles, lim the angle tolerance; out0 /
-// out1 the endpoint depths).  idx, ok and col_best are scratch.
+// pixels, a_ang the left octaves int32 [n], b_ang the octave scale table
+// float32, a row's tolerance row_tol * scale[octave], lim the largest
+// disparity; out0 u_R, out1 depth) or mode 5 (segments: a_xy / b_xy [n,4]
+// / [m,4] endpoints, a_ang / b_ang their angles, lim the angle tolerance;
+// out0 / out1 the endpoint depths).  idx and ok are scratch, ws the
+// workspace of launch_match.
 PLVIO_API int stereo_match(const void* desc_l, const void* desc_r,
                            const void* valid_l, const void* valid_r,
                            const void* a_xy, const void* b_xy,
                            const void* a_ang, const void* b_ang, int n, int m,
                            int mode, float lim, float bf, float max_dist,
-                           float ratio, void* idx, void* ok, void* col_best,
-                           void* out0, void* out1, void* has, void* stream) {
+                           float ratio, float row_tol, void* idx, void* ok,
+                           void* ws, void* out0, void* out1, void* has,
+                           void* stream) {
   if (mode != 4 && mode != 5) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   Params p{static_cast<const uint32_t*>(desc_l),
            static_cast<const uint32_t*>(desc_r),
            static_cast<const uint8_t*>(valid_l),
            static_cast<const uint8_t*>(valid_r),
            static_cast<const float2*>(a_xy), static_cast<const float2*>(b_xy),
-           static_cast<const float*>(a_ang), static_cast<const float*>(b_ang),
+           mode == 5 ? static_cast<const float*>(a_ang) : nullptr,
+           mode == 5 ? static_cast<const float*>(b_ang) : nullptr,
            nullptr, n, m, mode, 0.f, mode == 5 ? lim : 0.f, max_dist, ratio,
            static_cast<int*>(idx), static_cast<uint8_t*>(ok),
-           static_cast<uint32_t*>(col_best), bf, mode == 4 ? lim : 0.f,
+           nullptr, bf, mode == 4 ? lim : 0.f,
            static_cast<float*>(out0), static_cast<float*>(out1),
-           static_cast<uint8_t*>(has)};
-  cudaMemsetAsync(col_best, 0xff, size_t(m > 0 ? m : 1) * 4, s);
-  const size_t smem = size_t(m) * ((mode == 5 ? 2 : 1) * sizeof(float2)
-                                   + sizeof(float) + 1) + 16;
-  match_rows<<<(n + kWarps - 1) / kWarps, kWarps * 32, smem, s>>>(p);
-  stereo_epilogue<<<(n + 255) / 256, 256, 0, s>>>(p);
-  return static_cast<int>(cudaGetLastError());
+           static_cast<uint8_t*>(has),
+           mode == 4 ? static_cast<const int*>(a_ang) : nullptr,
+           mode == 4 ? static_cast<const float*>(b_ang) : nullptr, row_tol};
+  return launch_match(p, ws, static_cast<cudaStream_t>(stream));
 }

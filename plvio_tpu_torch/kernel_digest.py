@@ -104,6 +104,15 @@ points both trees have) and compare the printed lines:
   the card's time by torch.profiler kernel name, kernels a frame, and the
   host's calls by name (`line_stage_times`).
 
+- slice 20 (`ba_linearize` and `hamming_match` redesigned): `ba_stages`
+  (not digests; a tree beside another) prints `ba_linearize`'s time on
+  the window BAs of the paths (`ba_stage_windows`) by mode
+  (`ba_stage_times`), `hamming_stages` each match mode's at the paths'
+  shapes (`hamming_stage_times`); `slice20` (in no other mode) digests
+  those matches, the worst mapping step and the 64-KF inertial and 128-KF
+  point-only windows run whole (`slice20_digests`); `measure20` prints
+  chip_smoke.py's measurement of both as JSON (`slice20_measure`).
+
 - slice 15 (`python3 kernel_digest.py window` prints the single-device
   window BAs' lines alone, on every tree: `window_digests`, whose bits
   must not move with the mesh modes of ba_linearize and the sharded
@@ -116,6 +125,7 @@ Needs one card; JAX is never imported.
 from __future__ import annotations
 
 import hashlib
+import math
 import re
 import sys
 
@@ -572,6 +582,22 @@ def main() -> int:
         return 0
     if sys.argv[1:2] == ["line_stages"]:
         for line in line_stage_times(torch.device("cuda")):
+            print(line, flush=True)
+        return 0
+    if sys.argv[1:2] == ["ba_stages"]:
+        for line in ba_stage_times(torch.device("cuda")):
+            print(line, flush=True)
+        return 0
+    if sys.argv[1:2] == ["hamming_stages"]:
+        for line in hamming_stage_times(torch.device("cuda")):
+            print(line, flush=True)
+        return 0
+    if sys.argv[1:2] == ["measure20"]:
+        import json
+        print(json.dumps(slice20_measure(torch.device("cuda"))))
+        return 0
+    if sys.argv[1:2] == ["slice20"]:
+        for line in slice20_digests(torch.device("cuda")):
             print(line, flush=True)
         return 0
     if sys.argv[1:2] == ["orb_detect"]:
@@ -1379,6 +1405,403 @@ def loop_digests(dev):
     b = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, (700, 8)).astype(
         np.int32)).to(dev)
     out.append("hamming_match matrix " + digest([M.hamming_dist(a, b)]))
+    return out
+
+
+# --------------------------------------------------------------------------
+# ba_linearize and hamming_match by stage (`ba_stages`, `hamming_stages`)
+# and their digests at the paths' shapes (`slice20`)
+# --------------------------------------------------------------------------
+
+def _by_kernel(fn, reps: int):
+    """torch.profiler over `reps` calls of fn: ([(kernel or memset name,
+    device ms a call, launches a call)], busy ms a call, stream
+    operations a call)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        m = re.search(r"(\w+_kernel|match_rows|mutual_check|stereo_epilogue"
+                      r"|\w+_launch|Memset)", e.key)
+        out.append((m.group(1) if m else e.key[:40],
+                    e.self_device_time_total / reps / 1e3, e.count / reps))
+    return (out, sum(t for _, t, _ in out), sum(n for _, _, n in out))
+
+
+def _host_ms(fn, reps: int) -> float:
+    """The host's ms a call of fn: its enqueue, host clock over `reps`
+    calls before one synchronize."""
+    import time
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = (time.perf_counter() - t) * 1e3 / reps
+    torch.cuda.synchronize()
+    return host
+
+
+def ba_stage_windows(dev):
+    """The window BAs `ba_linearize` runs on the main paths, each at its
+    perturbed start, linearized and given one Schur step's candidate:
+    [(name, _BAWork)] for the mapping step's point+line window at the
+    typical and the worst bucket (`entry.MAPPING_TYPICAL`,
+    `MAPPING_WORST`: 16 KF, 4096 + 512 / 8192 + 1024 observations), the
+    inertial window at its half and worst bucket (`LIBA_HALF`,
+    `LIBA_WORST`) and the 64-KF inertial window of the full-map BA
+    (`KN.global_work`)."""
+    from plvio_tpu_torch.entry import (K_EUROC, LIBA_HALF, LIBA_WORST,
+                                       MAPPING_TYPICAL, MAPPING_WORST,
+                                       inertial_ba_step, mapping_step)
+    from plvio_tpu_torch.inputs import perturb_window
+    from plvio_tpu_torch.models import kernels as KN
+    out = []
+    for name, sz in (("mapping typical", MAPPING_TYPICAL),
+                     ("mapping worst", MAPPING_WORST)):
+        _, A = mapping_step(**sz, device=dev)
+        P, X = perturb_window(A["kf_poses"].cpu().numpy(),
+                              A["pt_xyz"].cpu().numpy())
+        A["kf_poses"], A["pt_xyz"] = (torch.from_numpy(P).to(dev),
+                                      torch.from_numpy(X).to(dev))
+        S = 6 * A["kf_poses"].shape[0]
+        w = KN._BAWork(K_EUROC, *[A[k] for k in KN.BA_KEYS], lam0=1e-4,
+                       early_tol=1e-2, cg_iters=min(max(S // 2, 16), 128))
+        w.linearize(KN.BA_MODE_INIT)
+        w.linearize(KN.BA_MODE_LINEARIZE)
+        out.append((name, w))
+    for name, sz in (("inertial half", LIBA_HALF),
+                     ("inertial worst", LIBA_WORST)):
+        _, B = inertial_ba_step(**sz, perturbed=True, device=dev)
+        w = KN.inertial_work(K_EUROC, B["Rcb"], B["tcb"], 9.81,
+                             *[B[k] for k in KN.LIBA_KEYS])
+        w.chain(KN.CHAIN_COST_STATE)
+        w.linearize(KN.BA_MODE_INIT)
+        w.linearize(KN.BA_MODE_LINEARIZE)
+        w.chain(KN.CHAIN_LINEARIZE)
+        out.append((name, w))
+    out.append(("inertial 64 KF", KN.global_work("inertial", 64, dev)[-1]))
+    for _, w in out:
+        w.solve()
+    torch.cuda.synchronize()
+    return out
+
+
+def ba_stages(dev, reps: int = 50, segments: bool = True):
+    """`ba_linearize`'s time on `ba_stage_windows`: [dict(window, sizes,
+    modes={mode: dict(ms, host_ms, device_ms, launches, kernels)},
+    segments)], for the linearization, the LM decision and the round's
+    re-gating: ms a call by CUDA events, the host's enqueue ms a call, the
+    card's ms and launches a call (torch.profiler) and by kernel name;
+    with `segments`, on the kernels before slice 20 (whose segment sums
+    are a launch of their own), the segment sums of one family alone,
+    keyframe, point or line (the other families' counts set to 0 in the
+    launch's table); on a tree with the stamps, each mode's ms by stage
+    (`_ba_stamps`).  The decision's early exit is turned off (early_tol
+    -1), so every call does its whole work."""
+    from plvio_tpu_torch.models import kernels as KN
+    out = []
+    for name, w in ba_stage_windows(dev):
+        w._keep[2][7] = -1.0
+        t = w.t
+        row = dict(window=name, n_kf=t["poses"].shape[0], n_obs=w.n_obs,
+                   n_lobs=t["chi2"].numel() - w.n_obs,
+                   n_pt=t["hpt"].shape[0], n_ln=t["hln"].shape[0], modes={},
+                   segments={})
+        for mname, mode in (("linearize", KN.BA_MODE_LINEARIZE),
+                            ("decide", KN.BA_MODE_DECIDE),
+                            ("regate", KN.BA_MODE_REGATE)):
+            def fn(mode=mode):
+                w.linearize(mode)
+            kern, busy, n_k = _by_kernel(fn, reps)
+            row["modes"][mname] = dict(ms=_events_ms(fn, reps),
+                                       host_ms=_host_ms(fn, reps),
+                                       device_ms=busy, launches=n_k,
+                                       kernels=kern,
+                                       stamps=_ba_stamps(w, fn, mname, reps))
+        # the segment families apart: the kernels before slice 20 only,
+        # whose segment sums are a launch of their own
+        split = segments and any(
+            k == "reduce_kernel"
+            for k, _, _ in row["modes"]["linearize"]["kernels"])
+        ints = w._keep[1]
+        counts = [ints[0], ints[1], ints[3]]       # n_kf, n_pt, n_ln
+        for seg, keep in (("keyframe", 0), ("point", 1),
+                          ("line", 2))[:3 if split else 0]:
+            for j, i in enumerate((0, 1, 3)):
+                ints[i] = counts[j] if j == keep else 0
+            try:
+                row["segments"][seg] = _by_kernel(
+                    lambda: w.linearize(KN.BA_MODE_LINEARIZE), reps)[0]
+            finally:
+                for j, i in enumerate((0, 1, 3)):
+                    ints[i] = counts[j]
+        out.append(row)
+    return out
+
+
+def _ba_stamps(w, fn, mname: str, reps: int):
+    """ba_linearize's stage ms a call from the kernel's %globaltimer stamps
+    (`KN.BA_PROF_STAMPS`, a tree that has them), mean over `reps` calls,
+    or {}: the linearization's observations, grid barrier, keyframe and
+    landmark sums; the other modes' chains of observations, the last
+    block's cost sums and decision, and its copy."""
+    from plvio_tpu_torch.models import kernels as KN
+    if not hasattr(KN, "BA_PROF_STAMPS"):
+        return {}
+    st = torch.zeros(len(KN.BA_PROF_STAMPS), dtype=torch.int64,
+                     device=w.device)
+    acc = torch.zeros(len(KN.BA_PROF_STAMPS), dtype=torch.float64,
+                      device=w.device)
+    w.prof(st)
+    try:
+        for _ in range(reps):
+            KN.ba_prof_reset(st)
+            fn()
+            acc += st.double() - st[0].double()
+    finally:
+        w.prof(None)
+    t = dict(zip(KN.BA_PROF_STAMPS, (acc / reps / 1e6).tolist()))
+    if mname == "linearize":
+        return {"observations": t["observations"],
+                "barrier": t["barrier"] - t["observations"],
+                "keyframes": t["keyframes"] - t["barrier"],
+                "landmarks": t["landmarks"] - t["barrier"],
+                "total": max(t["keyframes"], t["landmarks"])}
+    return {"chains": t["observations"], "ticket": t["ticket"]
+            - t["observations"], "decision": t["decision"] - t["ticket"],
+            "copy": t["copy"] - t["decision"], "total": t["copy"]}
+
+
+def ba_stage_times(dev, reps: int = 50):
+    """Lines of `ba_stages`."""
+    smi = _nvidia_smi()
+    out = []
+    for r in ba_stages(dev, reps):
+        head = (f"ba_linearize {r['window']} ({r['n_kf']} KF, {r['n_obs']} "
+                f"+ {r['n_lobs']} obs, {r['n_pt']} points, {r['n_ln']} "
+                "lines)")
+        for mname, d in r["modes"].items():
+            out.append(f"{head} {mname}: {d['ms']:.4f} ms (events), host "
+                       f"enqueue {d['host_ms']:.4f} ms, device "
+                       f"{d['device_ms']:.4f} ms in {d['launches']:g} "
+                       "launches: " + ", ".join(
+                           f"{k} {t:.4f} x{n:g}" for k, t, n in d["kernels"])
+                       + ("; stamped ms: " + ", ".join(
+                           f"{k} {t:.4f}" for k, t in d["stamps"].items())
+                          if d.get("stamps") else "")
+                       + f" on {smi}")
+        if r["segments"]:
+            out.append(f"{head} linearize by segment family: " + "; ".join(
+                f"{seg} " + ", ".join(f"{k} {t:.4f}" for k, t, _ in kern
+                                      if not k.startswith("obs"))
+                for seg, kern in r["segments"].items()))
+    return out
+
+
+def _pack(bits: np.ndarray) -> np.ndarray:
+    """[n, 256] bools -> [n, 8] uint32, bit b of word w = bits[32 w + b]."""
+    w = bits.reshape(len(bits), 8, 32).astype(np.uint64)
+    return (w << np.arange(32, dtype=np.uint64)).sum(-1).astype(np.uint32)
+
+
+def hamming_stage_cases(dev):
+    """(name, entry, args, keywords) of `hamming_match` and `stereo_match`
+    at the shapes of the paths: the window mode at 20 px and the tracker's
+    ungated reference-keyframe match (2048 map points, 1000 features, 600
+    of them noisy copies of map points 3 px from their prediction), the
+    line mode on 256 map lines x 256 segments, the epipolar mode on 1024 x
+    1024 features of a sideways step, the line pair mode on 256 x 256
+    segments, the stereo points (1000) and lines (256)."""
+    from plvio_tpu_torch.ops import matching as M
+    from plvio_tpu_torch.ops import stereo as ST
+    rng = np.random.default_rng(11)
+
+    def t(a, dt=torch.float32):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dt)
+
+    def desc(a):
+        return t(a.view(np.int32), torch.int32)
+    n, m, k = 2048, 1000, 600
+    a = rng.integers(0, 2 ** 32, (n, 8), dtype=np.uint32)
+    b = rng.integers(0, 2 ** 32, (m, 8), dtype=np.uint32)
+    src = rng.choice(n, k, replace=False)
+    b[:k] = a[src] ^ _pack(rng.random((k, 256)) < 0.06)
+    a_xy = rng.uniform(0, 1, (n, 2)) * (752, 480)
+    b_xy = rng.uniform(0, 1, (m, 2)) * (752, 480)
+    b_xy[:k] = a_xy[src] + rng.normal(0, 3.0, (k, 2))
+    row_ok = rng.random(n) < 0.6
+    row_ok[src] = True
+    pts = [desc(a), desc(b), t(row_ok, torch.bool), t(np.ones(m, bool),
+                                                       torch.bool)]
+    cases = [("window 20 px 2048 x 1000", M.hamming_match,
+              pts + [t(a_xy), t(b_xy)],
+              dict(radius=20.0, max_dist=80.0, ratio=0.9)),
+             ("ungated 2048 x 1000", M.hamming_match,
+              pts + [torch.zeros(n, 2, device=dev),
+                     torch.zeros(m, 2, device=dev)],
+              dict(radius=math.inf, max_dist=60.0, ratio=0.75))]
+    L = 256
+    la = rng.integers(0, 2 ** 32, (L, 8), dtype=np.uint32)
+    lsrc = rng.permutation(L)
+    lb = la[lsrc] ^ _pack(rng.random((L, 256)) < 0.08)
+    mid = rng.uniform(0, 1, (L, 2)) * (752, 480)
+    ang = rng.uniform(0, np.pi, L)
+    mid_b = mid[lsrc] + rng.normal(0, 4.0, (L, 2))
+    ang_b = (ang[lsrc] + rng.normal(0, 0.05, L)) % np.pi
+    lok = t(rng.random(L) < 0.9, torch.bool)
+    cases.append(("line 256 x 256", M.hamming_match,
+                  [desc(la), desc(lb), lok, lok, t(mid), t(mid_b)],
+                  dict(radius=40.0, max_dist=110.0, ratio=0.95,
+                       a_ang=t(ang), b_ang=t(ang_b), angle_tol=0.25)))
+    half = rng.uniform(25, 100, L)
+    d = np.stack([np.cos(ang), np.sin(ang)], -1) * half[:, None]
+    ep = np.concatenate([mid - d, mid + d], 1)
+    d_b = np.stack([np.cos(ang_b), np.sin(ang_b)], -1) * half[lsrc, None]
+    ep_b = np.concatenate([mid_b - d_b, mid_b + d_b], 1)
+    cases.append(("line pair 256 x 256", M.hamming_match,
+                  [desc(la), desc(lb), lok, lok, t(ep), t(ep_b)],
+                  dict(radius=80.0, max_dist=110.0, ratio=0.95,
+                       a_ang=t(ang), b_ang=t(ang_b), angle_tol=0.25,
+                       pair=True)))
+    E = 1024
+    ea = rng.integers(0, 2 ** 32, (E, 8), dtype=np.uint32)
+    esrc = rng.permutation(E)
+    eb = ea[esrc] ^ _pack(rng.random((E, 256)) < 0.06)
+    uv1 = rng.uniform(0, 1, (E, 2)) * (752, 480)
+    uv2 = uv1[esrc] + np.stack([rng.uniform(-40, -5, E),
+                                rng.normal(0, 1.0, E)], -1)
+    Kx = np.array([[458.654, 0, 367.215], [0, 457.296, 248.375], [0, 0, 1]])
+    tx = np.array([[0, 0, 0], [0, 0, 0.1], [0, -0.1, 0]])    # [t]_x, t = x
+    Kinv = np.linalg.inv(Kx)
+    F = Kinv.T @ tx @ Kinv
+    th = np.sqrt(3.84) * 1.2 ** rng.integers(0, 8, E)
+    eok = t(rng.random(E) < 0.95, torch.bool)
+    cases.append(("epipolar 1024 x 1024", M.hamming_match,
+                  [desc(ea), desc(eb), eok, eok, t(uv1), t(uv2)],
+                  dict(radius=0.0, max_dist=60.0, ratio=0.8,
+                       epi_F=t(F / np.abs(F).max()), epi_th=t(th))))
+    bf = 0.11 * 458.654
+    cases.append(("stereo points 1000 x 1000", ST.match_stereo,
+                  list(stereo_point_case(dev, n=1000)) + [bf], {}))
+    cases.append(("stereo lines 256 x 256", ST.match_stereo_lines,
+                  list(stereo_line_case(dev)) + [bf], {}))
+    return cases
+
+
+def hamming_stages(dev, reps: int = 50):
+    """`hamming_stage_cases` timed: [dict(case, ms, host_ms, device_ms,
+    ops, kernels, matches)]: ms a call by CUDA events, the wrapper's host
+    ms a call (its checks, allocations and launch), the card's ms and
+    stream operations a call and by operation (memset, the match kernels,
+    the mutual check or stereo epilogue), torch.profiler."""
+    out = []
+    for name, fn, args, kw in hamming_stage_cases(dev):
+        def call(fn=fn, args=args, kw=kw):
+            fn(*args, **kw)
+        kern, busy, n_k = _by_kernel(call, reps)
+        res = fn(*args, **kw)
+        out.append(dict(case=name, ms=_events_ms(call, reps),
+                        host_ms=_host_ms(call, reps), device_ms=busy,
+                        ops=n_k, kernels=kern,
+                        matches=int(res[1].sum()) if len(res) == 2
+                        else int(res[2].sum())))
+    return out
+
+
+def hamming_stage_times(dev, reps: int = 50):
+    """Lines of `hamming_stages`."""
+    smi = _nvidia_smi()
+    return [f"hamming_match {r['case']}: {r['ms']:.4f} ms (events), host "
+            f"{r['host_ms']:.4f} ms, device {r['device_ms']:.4f} ms in "
+            f"{r['ops']:g} stream operations: " + ", ".join(
+                f"{k} {t:.4f} x{n:g}" for k, t, n in r["kernels"])
+            + f"; {r['matches']} matches on {smi}"
+            for r in hamming_stages(dev, reps)]
+
+
+def device_ops(fn, names) -> int:
+    """The device operations of one call of fn whose names contain one of
+    `names` (torch.profiler, after a warm call; in a process of its own:
+    the profiler of a long process has been seen to drop records)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and any(k in e.name for k in names))
+
+
+# the device operations of ba_linearize (the kernels of either design)
+# and of a match (its kernels, memsets and the elementwise operations its
+# wrapper ran before slice 20)
+BA_KERNELS = ("linearize_kernel", "cost_pass_kernel", "obs_kernel",
+              "reduce_kernel", "cost_kernel", "accept_kernel",
+              "regate_kernel")
+MATCH_OPS = ("match_kernel", "match_rows", "mutual_check", "stereo_epilogue",
+             "Memset", "elementwise")
+
+
+def slice20_measure(dev, reps: int = 50) -> dict:
+    """Both kernels measured for chip_smoke.py in a process of its own
+    (`python3 kernel_digest.py measure20` prints it as one JSON line):
+    ba_linearize's launches an LM iteration of the worst mapping window
+    and each match's stream operations a call (`device_ops`), and
+    `ba_stages` / `hamming_stages`' ms by events, on the card and of the
+    host."""
+    windows = ba_stage_windows(dev)
+    cases = hamming_stage_cases(dev)
+    out = {"lm_launches": device_ops(windows[1][1].step, BA_KERNELS),
+           "match_ops": {name: device_ops(lambda: fn(*a, **kw), MATCH_OPS)
+                         for name, fn, a, kw in cases}}
+    del windows, cases
+    out["ba"] = {r["window"]: {m: {k: d[k] for k in ("ms", "device_ms",
+                                                     "host_ms")}
+                               for m, d in r["modes"].items()}
+                 for r in ba_stages(dev, reps, segments=False)}
+    out["hamming"] = {r["case"]: {k: r[k] for k in ("ms", "device_ms",
+                                                    "host_ms")}
+                      for r in hamming_stages(dev, reps)}
+    return out
+
+
+def slice20_digests(dev):
+    """Digests of `hamming_stage_cases` (idx and ok; the stereo modes'
+    outputs), the mapping step at the worst bucket from its perturbed
+    start, and the full-map windows of the global path run whole (the
+    64-KF inertial window with lines, the 128-KF point-only one)."""
+    from plvio_tpu_torch.entry import MAPPING_WORST, mapping_step
+    from plvio_tpu_torch.inputs import perturb_window
+    from plvio_tpu_torch.models import kernels as KN
+    out = [f"hamming_match {name} {digest(fn(*args, **kw))}"
+           for name, fn, args, kw in hamming_stage_cases(dev)]
+    step, A = mapping_step(**MAPPING_WORST, device=dev)
+    P, X = perturb_window(A["kf_poses"].cpu().numpy(),
+                          A["pt_xyz"].cpu().numpy())
+    A["kf_poses"], A["pt_xyz"] = (torch.from_numpy(P).to(dev),
+                                  torch.from_numpy(X).to(dev))
+    with torch.no_grad():
+        o = step(A)
+    out.append("mapping_step worst perturbed " + digest(
+        (o.kf_poses, o.pt_xyz, o.ln_ep6, o.inlier, o.inlier_l)))
+    A, args, _, _, _ = KN.global_window("inertial", 64, dev)
+    o = KN.local_inertial_ba(KN._window_camera(False), A["Rcb"].to(dev),
+                             A["tcb"].to(dev), 9.81, *args)
+    out.append("local_inertial_ba 64 KF " + digest(
+        [x for x in o if torch.is_tensor(x)]))
+    A, args, _, _, _ = KN.global_window("points", 128, dev)
+    o = KN.local_ba(KN._window_camera(False), *args[:9])
+    out.append("local_ba points 128 KF " + digest(list(o)))
     return out
 
 

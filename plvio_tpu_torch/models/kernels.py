@@ -1036,7 +1036,7 @@ _BA_PTRS = (
     "gpt", "gln", "rr", "ff", "dx", "ctrl",
     "kfx", "ckfx", "kf_free_bias", "pre", "imu_info", "edge_valid", "rw_g",
     "rw_a", "link", "link_cost", "ccost", "cgw", "lobs_dir", "mcost",
-    "kf_col_order")
+    "kf_col_order", "cost_part", "prof")
 BA_LINEARIZE = cuda.Kernel("ba_linearize", "ba_linearize",
                            [_P, _P, _P, _I, _P])
 # the same library entry in its other modes, counted apart: the KB8 point
@@ -1062,6 +1062,21 @@ SCHUR_SOLVE = cuda.Kernel("schur_solve", "schur_solve", [_P, _P, _P, _P])
 # `solve_global_kernel`)
 SCHUR_SOLVE.global_launches = 0
 BA_MODE_LINEARIZE, BA_MODE_DECIDE, BA_MODE_INIT, BA_MODE_REGATE = range(4)
+_PROF = _BA_PTRS.index("prof")
+# ba_linearize's %globaltimer stamps (ns), csrc/ba_linearize.cu `Prof`:
+# the earliest block's start, the last block's end of its observations,
+# the earliest block past the linearization's grid barrier, the last end
+# of a keyframe's sums and of the landmarks' (linearization); the last
+# block's ticket, its cost sums and decision, its copy (the other modes)
+BA_PROF_STAMPS = ("start", "observations", "barrier", "keyframes",
+                  "landmarks", "ticket", "decision", "copy")
+
+
+def ba_prof_reset(stamps: torch.Tensor) -> None:
+    """Stamps before a launch: the minima (start, barrier) at the largest
+    int64, the maxima at 0."""
+    stamps.zero_()
+    stamps[0] = stamps[2] = (1 << 63) - 1
 # ba_linearize's mesh modes (the landmark-sharded window BA): a shard's
 # partial cost of the candidate / of the state into ctrl[2]; the start of a
 # round / the accept-reject from the mesh's summed cost in `mcost`
@@ -1261,6 +1276,10 @@ class _BAWork:
         t["cgw"] = buf(cg_workspace_floats(n_kf, inertial is not None))
         t["lobs_dir"] = buf(1) if lobs_dir is None else lobs_dir
         t["mcost"] = buf(1)
+        t["cost_part"] = buf(2 * 1024)
+        # ba_linearize's stage stamps: none (a null pointer) unless
+        # `ba_prof` gives a buffer
+        t["prof"] = torch.zeros(0, dtype=torch.int64, device=dev)
         if inertial is None:
             for name in _LIBA_PTRS:
                 t[name] = buf(1)
@@ -1308,10 +1327,17 @@ class _BAWork:
                                   float(math.sqrt(CHI2_MONO)), CHI2_MONO,
                                   lam0, early_tol, grav, *rcb, *tcb, *ks,
                                   ANG_INFO))
+        self._keep[0][_PROF] = None
         self.args = [ctypes.cast(a, ctypes.c_void_p) for a in self._keep]
 
     def linearize(self, mode: int):
         self.counter.launch(*self.args, mode, cuda.stream())
+
+    def prof(self, stamps=None):
+        """Point ba_linearize's stage stamps at `stamps` (int64 CUDA [8],
+        `BA_PROF_STAMPS`; set it to `ba_prof_reset()`'s values before a
+        launch), or turn them off (None)."""
+        self._keep[0][_PROF] = None if stamps is None else stamps.data_ptr()
 
     def chain(self, mode: int):
         INERTIAL_CHAIN.launch(*self.args, mode, cuda.stream())

@@ -219,12 +219,58 @@ def hamming_match(map_desc, obs_desc, row_ok, col_ok, a_xy, b_xy,
     epi = epi_F is not None
     line = a_ang is not None and not epi
     mode = 2 if epi else 3 if pair else int(line)
-    n, m = map_desc.shape[0], obs_desc.shape[0]
-    ts = [map_desc, obs_desc, row_ok, col_ok, a_xy, b_xy]
+    ts = (map_desc, obs_desc, row_ok, col_ok, a_xy, b_xy)
     if line:
-        ts += [a_ang, b_ang]
+        ts += (a_ang, b_ang)
     if epi:
-        ts += [epi_F, epi_th]
+        ts += (epi_F, epi_th)
+    key = signature(mode, ts)
+    if key not in CHECKED:
+        _check_match(mode, ts)
+        CHECKED.add(key)
+    n, m = map_desc.shape[0], obs_desc.shape[0]
+    dev = map_desc.device
+    idx = torch.empty(n, dtype=torch.int32, device=dev)
+    ok = torch.empty(n, dtype=torch.bool, device=dev)
+    if n == 0:
+        return idx, ok
+    stream = cuda.stream(dev.index)
+    HAMMING_MATCH.launch(
+        _P(map_desc.data_ptr()), _P(obs_desc.data_ptr()),
+        _P(row_ok.data_ptr()), _P(col_ok.data_ptr()), _P(a_xy.data_ptr()),
+        _P(b_xy.data_ptr()), _P(a_ang.data_ptr()) if line else None,
+        _P(epi_th.data_ptr()) if epi else (_P(b_ang.data_ptr()) if line
+                                           else None),
+        _P(epi_F.data_ptr()) if epi else None,
+        n, m, mode, float(radius) ** 2,
+        float(angle_tol) if line else 0.0, float(max_dist), float(ratio),
+        _P(idx.data_ptr()), _P(ok.data_ptr()),
+        _P(match_workspace(dev, stream.value, m)), stream)
+    return idx, ok
+
+
+# the argument signatures `hamming_match` (gate modes 0-3) and the stereo
+# matchers (4, 5; ops/stereo.py) have checked: a signature seen before
+# skips the checks
+CHECKED = set()
+
+
+def signature(mode: int, ts) -> tuple:
+    """A call's argument signature: the gate mode, then each tensor's
+    dtype, device, shape and contiguity."""
+    if len(CHECKED) > 4096:
+        CHECKED.clear()
+    return (mode, *[(t.dtype, t.device, t.shape, t.is_contiguous())
+                    for t in ts])
+
+
+def _check_match(mode: int, ts) -> None:
+    """`hamming_match`'s argument checks for gate mode `mode` on its
+    tensors ts (descriptors, flags, positions, then the angles in the line
+    modes or F and the thresholds in the epipolar mode)."""
+    map_desc, obs_desc, row_ok, col_ok, a_xy, b_xy = ts[:6]
+    line, epi, pair = mode in (1, 3), mode == 2, mode == 3
+    n, m = map_desc.shape[0], obs_desc.shape[0]
     cuda.check_cuda("hamming_match", *ts)
     if map_desc.dtype != torch.int32 or obs_desc.dtype != torch.int32 \
             or map_desc.shape[1:] != (8,) or obs_desc.shape[1:] != (8,):
@@ -237,38 +283,47 @@ def hamming_match(map_desc, obs_desc, row_ok, col_ok, a_xy, b_xy,
             or a_xy.shape != (n, w) or b_xy.shape != (m, w):
         raise ValueError(f"hamming_match: a_xy [N,{w}] / b_xy [M,{w}] "
                          "float32")
-    if pair and not line:
+    if pair and len(ts) != 8:
         raise ValueError("hamming_match: the line pair gate needs angles")
-    if line and (a_ang.shape != (n,) or b_ang.shape != (m,)
-                 or a_ang.dtype != torch.float32
-                 or b_ang.dtype != torch.float32):
-        raise ValueError("hamming_match: a_ang [N] / b_ang [M] float32")
-    if epi and (epi_F.shape != (3, 3) or epi_th.shape != (m,)
-                or epi_F.dtype != torch.float32
-                or epi_th.dtype != torch.float32):
-        raise ValueError("hamming_match: epi_F [3,3] / epi_th [M] float32")
+    if line:
+        a_ang, b_ang = ts[6:8]
+        if a_ang.shape != (n,) or b_ang.shape != (m,) \
+                or a_ang.dtype != torch.float32 \
+                or b_ang.dtype != torch.float32:
+            raise ValueError("hamming_match: a_ang [N] / b_ang [M] float32")
+    if epi:
+        epi_F, epi_th = ts[6:8]
+        if epi_F.shape != (3, 3) or epi_th.shape != (m,) \
+                or epi_F.dtype != torch.float32 \
+                or epi_th.dtype != torch.float32:
+            raise ValueError("hamming_match: epi_F [3,3] / epi_th [M] "
+                             "float32")
     if n >= 1 << 16 or m > (2800 if pair else 3600):
         # row ids share a 32-bit word with the distance; the columns'
-        # positions, angles, flags (and lengths) fit the 48 KB of dynamic
-        # shared memory a block gets without opting in
+        # positions, angles, flags, best rows (and lengths) must fit a
+        # block's shared memory
         raise ValueError("hamming_match: needs N < 65536 rows and "
                          "M <= 3600 columns (2800 for line pairs)")
-    idx = torch.empty(n, dtype=torch.int32, device=map_desc.device)
-    ok = torch.empty(n, dtype=torch.bool, device=map_desc.device)
-    if n == 0:
-        return idx, ok
-    col_best = torch.empty(max(m, 1), dtype=torch.int32,
-                           device=map_desc.device)
-    HAMMING_MATCH.launch(
-        cuda.ptr(map_desc), cuda.ptr(obs_desc), cuda.ptr(row_ok),
-        cuda.ptr(col_ok), cuda.ptr(a_xy), cuda.ptr(b_xy),
-        cuda.ptr(a_ang) if line else None,
-        cuda.ptr(epi_th) if epi else (cuda.ptr(b_ang) if line else None),
-        cuda.ptr(epi_F) if epi else None,
-        n, m, mode, float(radius) ** 2,
-        float(angle_tol) if line else 0.0, float(max_dist), float(ratio),
-        cuda.ptr(idx), cuda.ptr(ok), cuda.ptr(col_best), cuda.stream())
-    return idx, ok
+
+
+# the matcher's workspace a (device, stream): int32 [1 + capacity], a
+# launch's ticket (0), then the columns' best (dist << 16 | row, all bits
+# set for none); csrc/hamming_match.cu's last block of every call resets
+# both, so it carries nothing from one call to the next
+_WORKSPACE = {}
+
+
+def match_workspace(dev: torch.device, stream: int, m: int) -> int:
+    """The address of `hamming_match`'s / `stereo_match`'s workspace on
+    `dev` and `stream` with room for m columns (grown, in stream order,
+    when a call has more)."""
+    key = (dev.index, stream)
+    ws = _WORKSPACE.get(key)
+    if ws is None or ws.numel() < m + 1:
+        host = torch.full((max(m, 1024) + 1,), -1, dtype=torch.int32)
+        host[0] = 0
+        ws = _WORKSPACE[key] = host.to(dev)
+    return ws.data_ptr()
 
 
 HAMMING_MATRIX = cuda.Kernel("hamming_match", "hamming_matrix",

@@ -66,8 +66,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # one library entry, two kernels of the port's table: the point mode's
 # launches and the line mode's are counted apart
-_ARGS = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P, _P,
-         _P, _P, _P, _P, _P]
+_ARGS = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _P,
+         _P, _P, _P, _P, _P, _P]
 STEREO_MATCH_POINTS = cuda.Kernel("hamming_match", "stereo_match", _ARGS)
 STEREO_MATCH_LINES = cuda.Kernel("hamming_match", "stereo_match", _ARGS)
 
@@ -84,15 +84,15 @@ def _check(name, desc_l, desc_r, valid_l, valid_r, xy_l, xy_r, w):
             or xy_l.shape != (n, w) or xy_r.shape != (m, w):
         raise ValueError(f"{name}: positions [N,{w}] / [M,{w}] float32")
     if n >= 1 << 16 or m > 3000:
-        # row ids share a 32-bit word with the distance; the columns fit
-        # the 48 KB of dynamic shared memory a block gets without opting in
+        # row ids share a 32-bit word with the distance; the columns must
+        # fit a block's shared memory
         raise ValueError(f"{name}: needs N < 65536 rows and M <= 3000 "
                          "columns")
     return n, m
 
 
 def _launch(mode, desc_l, desc_r, valid_l, valid_r, xy_l, xy_r, a_ang,
-            b_ang, lim, bf, max_dist, ratio):
+            b_ang, lim, bf, max_dist, ratio, row_tol=0.0):
     n, m = desc_l.shape[0], desc_r.shape[0]
     dev = desc_l.device
     out0 = torch.empty(n, dtype=torch.float32, device=dev)
@@ -102,15 +102,16 @@ def _launch(mode, desc_l, desc_r, valid_l, valid_r, xy_l, xy_r, a_ang,
         return out0, out1, has
     idx = torch.empty(n, dtype=torch.int32, device=dev)
     ok = torch.empty(n, dtype=torch.bool, device=dev)
-    col_best = torch.empty(max(m, 1), dtype=torch.int32, device=dev)
+    stream = cuda.stream(dev.index)
     kernel = STEREO_MATCH_POINTS if mode == 4 else STEREO_MATCH_LINES
     kernel.launch(
         cuda.ptr(desc_l), cuda.ptr(desc_r), cuda.ptr(valid_l),
         cuda.ptr(valid_r), cuda.ptr(xy_l), cuda.ptr(xy_r), cuda.ptr(a_ang),
         None if b_ang is None else cuda.ptr(b_ang), n, m, mode, float(lim),
-        float(bf), float(max_dist), float(ratio), cuda.ptr(idx),
-        cuda.ptr(ok), cuda.ptr(col_best), cuda.ptr(out0), cuda.ptr(out1),
-        cuda.ptr(has), cuda.stream())
+        float(bf), float(max_dist), float(ratio), float(row_tol),
+        cuda.ptr(idx),
+        cuda.ptr(ok), _P(M.match_workspace(dev, stream.value, m)),
+        cuda.ptr(out0), cuda.ptr(out1), cuda.ptr(has), stream)
     return out0, out1, has
 
 
@@ -129,12 +130,19 @@ def match_stereo(uv_l, desc_l, oct_l, valid_l, uv_r, desc_r, oct_r,
         return match_stereo_plain(uv_l, desc_l, oct_l, valid_l, uv_r,
                                   desc_r, oct_r, valid_r, bf, min_z,
                                   row_tol, ratio, max_dist)
-    cuda.check_cuda("match_stereo", uv_l, desc_l, oct_l, valid_l, uv_r,
-                    desc_r, valid_r)
-    _check("match_stereo", desc_l, desc_r, valid_l, valid_r, uv_l, uv_r, 2)
-    tol = (row_tol * _octave_scale(uv_l.device)[oct_l.long()]).contiguous()
-    return _launch(4, desc_l, desc_r, valid_l, valid_r, uv_l, uv_r, tol,
-                   None, float(np.float32(bf / min_z)), bf, max_dist, ratio)
+    ts = (uv_l, desc_l, oct_l, valid_l, uv_r, desc_r, valid_r)
+    key = M.signature(4, ts)
+    if key not in M.CHECKED:
+        cuda.check_cuda("match_stereo", *ts)
+        _check("match_stereo", desc_l, desc_r, valid_l, valid_r, uv_l, uv_r,
+               2)
+        if oct_l.dtype != torch.int32 or oct_l.shape != valid_l.shape:
+            raise ValueError("match_stereo: oct_l [N] int32")
+        M.CHECKED.add(key)
+    # the kernel forms each row's tolerance row_tol * scale[oct_l]
+    return _launch(4, desc_l, desc_r, valid_l, valid_r, uv_l, uv_r, oct_l,
+                   _octave_scale(uv_l.device), float(np.float32(bf / min_z)),
+                   bf, max_dist, ratio, row_tol)
 
 
 def match_stereo_lines_plain(ep_l, desc_l, ang_l, valid_l, ep_r, desc_r,
@@ -203,14 +211,18 @@ def match_stereo_lines(ep_l, desc_l, ang_l, valid_l, ep_r, desc_r, ang_r,
     if min_disp != 1.0 or overlap_th != 0.75:
         raise ValueError("match_stereo_lines: the kernel has min_disp 1 "
                          "and overlap_th 0.75")
-    cuda.check_cuda("match_stereo_lines", ep_l, desc_l, ang_l, valid_l,
-                    ep_r, desc_r, ang_r, valid_r)
-    n, m = _check("match_stereo_lines", desc_l, desc_r, valid_l, valid_r,
-                  ep_l, ep_r, 4)
-    if ang_l.shape != (n,) or ang_r.shape != (m,) \
-            or ang_l.dtype != torch.float32 or ang_r.dtype != torch.float32:
-        raise ValueError("match_stereo_lines: ang_l [L] / ang_r [M] "
-                         "float32")
+    ts = (ep_l, desc_l, ang_l, valid_l, ep_r, desc_r, ang_r, valid_r)
+    key = M.signature(5, ts)
+    if key not in M.CHECKED:
+        cuda.check_cuda("match_stereo_lines", *ts)
+        n, m = _check("match_stereo_lines", desc_l, desc_r, valid_l,
+                      valid_r, ep_l, ep_r, 4)
+        if ang_l.shape != (n,) or ang_r.shape != (m,) \
+                or ang_l.dtype != torch.float32 \
+                or ang_r.dtype != torch.float32:
+            raise ValueError("match_stereo_lines: ang_l [L] / ang_r [M] "
+                             "float32")
+        M.CHECKED.add(key)
     return _launch(5, desc_l, desc_r, valid_l, valid_r, ep_l, ep_r, ang_l,
                    ang_r, angle_tol * math.pi, bf, max_dist, ratio)
 

@@ -338,6 +338,8 @@ def profile_sequence(dev):
         per[name][0] += 1
         per[name][1] += d / 1e3
     n = len(out_p.steps)
+    print(f"   device operations (kernels, memsets, copies) "
+          f"{len(dev_ev) / n:.1f}/step")
     for name, (c, ms) in sorted(per.items(), key=lambda kv: -kv[1][1])[:12]:
         print(f"   {name[:70]:70s} n/step {c / n:6.1f} dev ms/step "
               f"{ms / n:.4f}")

@@ -2440,3 +2440,242 @@ def test_vi_run_and_line_pyramid_never_sync(dev):
     for hp, o in zip((True, False), outs):
         assert KD.digest(o) == KD.digest(KN.vi_pose_lm(*case, hp))
     assert all(torch.equal(a, b) for a, b in zip(*lines))
+
+
+# kernel_digest.py's lines on the kernels before the redesign of
+# ba_linearize and hamming_match (the default mode's hamming_match and
+# stereo_match lines, `window`, `dist` and `slice20`): the redesigned
+# kernels keep every bit
+PARENT_SLICE20 = {
+    "mapping_step typical perturbed":
+        "ffee42bd85ba709ff5f3ffbb53f13dd2",
+    "inertial_ba_step worst perturbed=False":
+        "0d04417e03d24acba24ab736cb8797b1",
+    "inertial_ba_step worst perturbed=True":
+        "818c7a613f019b9f2c46aa2149068fd3",
+    "inertial_ba_step half perturbed=False":
+        "47441b0135441193ee29c35bd49223de",
+    "inertial_ba_step half perturbed=True":
+        "7172a6fcf7e94e963a5bfe3920b5e93d",
+    "local_ba pinhole points":
+        "f0089d9e6cb04c42f015959d9673178f",
+    "local_ba_lines_only mode=1":
+        "d7c3328f9bca7a793ee9a5d1a5a60be9",
+    "local_ba_lines_only mode=2":
+        "c421f800f2ea623353454ca60fc8eba7",
+    "local_ba_lines_only mode=3":
+        "fe6af36818209809840b085db86a8848",
+    "local_inertial_ba kb8 lines=False":
+        "8b6507d7b6bc4b7f601af02629233313",
+    "local_inertial_ba kb8 lines=True":
+        "baa3cf9fc9265fab4ee42c6a6908a718",
+    "local_ba_pl kb8":
+        "fdb842c024a07f21501509d8fcf5793f",
+    "hamming_match window 20 px 2048 x 1000":
+        "d4c35a2a718a21d411b7a248b9c84e84",
+    "hamming_match ungated 2048 x 1000":
+        "77199435cada406a785764786c4bc9d6",
+    "hamming_match line 256 x 256":
+        "8aa25b36422ef912b0aff8ca362426df",
+    "hamming_match line pair 256 x 256":
+        "ed0e4718da43c6b75949948fb32d4869",
+    "hamming_match epipolar 1024 x 1024":
+        "d701b20b28e4668bae7cb011daaaa85e",
+    "hamming_match stereo points 1000 x 1000":
+        "1fa6b830a8d829c1e7f6ad4334e4fb86",
+    "hamming_match stereo lines 256 x 256":
+        "67689bba4a467036177dc73b5dae1c4d",
+    "mapping_step worst perturbed":
+        "5116674609416ba3d03082fd586fae26",
+    "local_inertial_ba 64 KF":
+        "5c7f7f316ffc97e152581cfe6162aaa6",
+    "local_ba points 128 KF":
+        "cc0e2f518b62cae191fbf6671ea43539",
+    "dist_window D=1":
+        "e3aab8c44fca108272c4bd5faec26e19",
+    "dist_window D=2":
+        "fecbd018767ceaf812c908edbce11952",
+    "dist_window D=4":
+        "a508c1f92b54cfe4a2fa0398119844c0",
+    "dist_ba D=2":
+        "81d6caae63c24d3fbf1f36f39fe73100",
+    "chain_ba D=2":
+        "b78e3a99781bbde46b3a3628e1469d4d",
+    "chain_liba D=2":
+        "34d6ebb967219b3d6a707887dcb0a4fd",
+    "hamming_match window":
+        "ca998a1ead77423fb022a08e0d0a5664",
+    "hamming_match line":
+        "00b9cec0d480e37091a5502e60b7a0c3",
+    "hamming_match epipolar":
+        "7e81bfa9c6443682a347dcfab4f64f21",
+    "stereo_match points":
+        "90413c996073abc73d67bf1dd8bf8cef",
+    "stereo_match lines":
+        "67689bba4a467036177dc73b5dae1c4d"}
+
+
+def _parent_lines(lines, prefixes):
+    got = _digest_lines(lines)
+    return {k: v for k, v in got.items() if k.startswith(prefixes)}
+
+
+def test_ba_linearize_keeps_parent_digests(dev):
+    """The window BAs on ba_linearize (the mapping step at both buckets,
+    the inertial windows at both buckets and starts, the pinhole point BA,
+    the line-only modes, the KB8 windows, the 64-KF inertial and 128-KF
+    point-only windows run whole) give the bits of the kernel before its
+    redesign."""
+    from plvio_tpu_torch import kernel_digest as KD
+    got = _parent_lines(KD.window_digests(dev) + KD.slice20_digests(dev),
+                        ("mapping_step", "inertial_ba_step", "local_"))
+    assert len(got) == 15
+    assert {k: v for k, v in got.items() if v != PARENT_SLICE20[k]} == {}
+
+
+def test_mesh_modes_keep_parent_digests(dev):
+    """ba_linearize's mesh modes (4-7) on the sharded inertial window at D
+    = 1, 2, 4 and dist_ba, chain_ba and chain_liba at D = 2: the parent's
+    bits."""
+    from plvio_tpu_torch import kernel_digest as KD
+    got = _digest_lines(KD.dist_digests(dev))
+    assert len(got) == 6
+    assert {k: v for k, v in got.items() if v != PARENT_SLICE20[k]} == {}
+
+
+def test_hamming_match_keeps_parent_digests(dev):
+    """hamming_match's window, line and epipolar modes on kernel_digest's
+    tie-heavy case, every mode at the paths' shapes (the window at 20 px
+    and ungated at 2048 x 1000, line and line pair at 256 x 256, epipolar
+    at 1024 x 1024) and both stereo matchers: the parent's bits."""
+    from plvio_tpu_torch import kernel_digest as KD
+    lines = [f"hamming_match {name} {KD.digest(M.hamming_match(*a, **kw))}"
+             for name, a, kw in KD.hamming_cases(dev)]
+    lines += KD.stereo_digests(dev)[:2] + KD.slice20_digests(dev)
+    got = _parent_lines(lines, ("hamming_match", "stereo_match"))
+    assert len(got) == 12
+    assert {k: v for k, v in got.items() if v != PARENT_SLICE20[k]} == {}
+
+
+def _workspace_clean(dev):
+    """Every matcher workspace on the card reads ticket 0 and no column's
+    best (all bits set) between calls."""
+    torch.cuda.synchronize()
+    for ws in M._WORKSPACE.values():
+        if ws.device.type == "cuda":
+            assert int(ws[0]) == 0 and bool((ws[1:] == -1).all())
+
+
+def test_back_to_back_calls_reset_their_tickets(dev):
+    """Calls of different sizes back to back on one stream, each against
+    its plain version (hamming_match at 2048 x 1000 ungated, then 700 x
+    500, then at 2048 x 1000 again; the stereo matchers between them),
+    the matcher's workspace clean after each; the mapping step at both
+    buckets twice in turns, each run giving the bits of its first; and
+    two window BAs of different sizes linearized and decided in turns,
+    each launch's ticket back at 0 and every decision counted."""
+    from plvio_tpu_torch import kernel_digest as KD
+    from plvio_tpu_torch.ops import stereo as ST
+    cases = {name: (fn, a, kw) for name, fn, a, kw
+             in KD.hamming_stage_cases(dev)}
+    small = KD.hamming_cases(dev)[0]
+    plain = {"stereo points 1000 x 1000": ST.match_stereo_plain,
+             "stereo lines 256 x 256": ST.match_stereo_lines_plain}
+    order = ["ungated 2048 x 1000", None, "stereo points 1000 x 1000",
+             "ungated 2048 x 1000", "stereo lines 256 x 256",
+             "window 20 px 2048 x 1000", None]
+    for name in order:
+        if name is None:
+            k = M.hamming_match(*small[1], **small[2])
+            p = M.hamming_match_plain(*small[1], **small[2])
+        else:
+            fn, a, kw = cases[name]
+            k = fn(*a, **kw)
+            p = plain[name](*a) if name in plain else \
+                M.hamming_match_plain(*a, **kw)
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(k, p)), name
+        _workspace_clean(dev)
+    from plvio_tpu_torch.entry import (MAPPING_TYPICAL, MAPPING_WORST,
+                                       mapping_step)
+    steps = [mapping_step(**sz, device=dev)
+             for sz in (MAPPING_TYPICAL, MAPPING_WORST)]
+    runs = []
+    with torch.no_grad():
+        for _ in range(2):
+            for step, A in steps:
+                o = step(A)
+                runs.append(KD.digest((o.kf_poses, o.pt_xyz, o.ln_ep6,
+                                       o.inlier, o.inlier_l)))
+    assert runs[:2] == runs[2:] and runs[0] != runs[1]
+    works = [w for _, w in KD.ba_stage_windows(dev)[:2]]
+    for w in works:
+        w._keep[2][7] = -1.0             # no early exit: every launch runs
+    for _ in range(4):
+        for w in works:
+            w.linearize(KN.BA_MODE_DECIDE)
+            w.linearize(KN.BA_MODE_LINEARIZE)
+    torch.cuda.synchronize()
+    for w in works:
+        assert float(w.t["ctrl"][7]) == 0.0
+        assert int(w.t["ctrl"][4]) == 4
+
+
+def test_matchers_on_empty_inputs(dev):
+    """n = 0 rows: empty outputs; m = 0 columns: every row unmatched (idx
+    0, ok False; the stereo outputs -1), in the point, line and stereo
+    modes (the plain versions' argmin refuses an empty axis), the
+    workspace clean after them.  The window BAs' empty line family (the
+    point-only window) is held to the parent's bits by
+    `test_ba_linearize_keeps_parent_digests`."""
+    from plvio_tpu_torch import kernel_digest as KD
+    from plvio_tpu_torch.ops import stereo as ST
+    name, a, kw = KD.hamming_cases(dev)[1]
+    for n, m in ((0, 500), (700, 0), (0, 0)):
+        args = [a[0][:n], a[1][:m], a[2][:n], a[3][:m], a[4][:n], a[5][:m]]
+        for kwx in (dict(radius=20.0, max_dist=80.0, ratio=0.9),
+                    dict(kw, a_ang=kw["a_ang"][:n], b_ang=kw["b_ang"][:m])):
+            idx, ok = M.hamming_match(*args, **kwx)
+            torch.cuda.synchronize()
+            assert idx.shape == ok.shape == (n,)
+            assert not bool(idx.any()) and not bool(ok.any()), (n, m)
+    pts = KD.stereo_point_case(dev)
+    for n, m in ((0, 900), (900, 0)):
+        c = [t[:n] for t in pts[:4]] + [t[:m] for t in pts[4:]]
+        u, d, has = ST.match_stereo(*c, 50.0)
+        torch.cuda.synchronize()
+        assert u.shape == d.shape == has.shape == (n,)
+        assert bool((u == -1).all() and (d == -1).all()) and not has.any()
+    _workspace_clean(dev)
+
+
+def test_launches_per_call(dev):
+    """One LM iteration of the point+line window launches 2 ba_linearize
+    kernels (the linearization, the decision; 5 before the redesign); a
+    hamming_match and a stereo_match call each one kernel and no memset
+    (3 stream operations before)."""
+    from torch.profiler import ProfilerActivity, profile
+    from plvio_tpu_torch import kernel_digest as KD
+    from plvio_tpu_torch.ops import stereo as ST
+    w = KD.schur_windows(dev)[0][1]
+    name, a, kw = KD.hamming_cases(dev)[0]
+    pts = KD.stereo_point_case(dev)
+    for _ in range(2):
+        M.hamming_match(*a, **kw)
+        ST.match_stereo(*pts, 50.0)
+    torch.cuda.synchronize()
+
+    def ops(fn):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return [e.name for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+    ba = [k for k in ops(w.step) if "linearize_kernel" in k
+          or "cost_pass_kernel" in k or "obs_kernel" in k
+          or "reduce_kernel" in k or "accept_kernel" in k]
+    assert len(ba) == 2, ba
+    for fn in (lambda: M.hamming_match(*a, **kw),
+               lambda: ST.match_stereo(*pts, 50.0)):
+        got = ops(fn)
+        assert len(got) == 1 and "match_kernel" in got[0], got
